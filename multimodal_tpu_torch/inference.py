@@ -1,0 +1,59 @@
+"""Batch embedding extraction — the serving-side encode API (port of
+``multimodal_tpu/inference.py:Embedder``, without the int8 and wire-size paths).
+
+Every encode runs under ``torch.inference_mode()`` on the model's device and returns
+L2-normalized float32 rows. uint8 images cross to the device as uint8 and are normalized
+there."""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from multimodal_tpu_torch.data.preprocess import normalize_images
+from multimodal_tpu_torch.data.tokenizer import tokenize
+
+
+class Embedder:
+    """Fixed-batch text/image embedding over a ``CLIP`` model."""
+
+    def __init__(self, model, batch_size: int = 256):
+        self.model = model
+        self.batch_size = batch_size
+        self.device = next(model.parameters()).device
+
+    def encode_tokens(self, tokens: np.ndarray) -> np.ndarray:
+        """One device batch of int tokens [B, context_length] -> float32 [B, embed_dim]."""
+        with torch.inference_mode():
+            t = torch.from_numpy(np.asarray(tokens, np.int64)).to(self.device)
+            return self.model.encode_text(t, normalize=True).cpu().numpy()
+
+    def encode_images(self, images: np.ndarray) -> np.ndarray:
+        """One device batch of NHWC images (uint8, or float already normalized)."""
+        with torch.inference_mode():
+            x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
+            if x.dtype == torch.uint8:
+                x = normalize_images(x)
+            return self.model.encode_image(x, normalize=True).cpu().numpy()
+
+    def _batched(self, encode, array: np.ndarray) -> np.ndarray:
+        """Run ``encode`` over fixed-size chunks; the tail is padded by repeating its last row."""
+        outs = []
+        for start in range(0, array.shape[0], self.batch_size):
+            chunk = array[start : start + self.batch_size]
+            pad = self.batch_size - chunk.shape[0]
+            if pad:
+                chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, axis=0)])
+            out = encode(chunk)
+            outs.append(out[: out.shape[0] - pad])
+        return np.concatenate(outs, axis=0) if outs else np.zeros((0,), np.float32)
+
+    def embed_texts(self, texts: Sequence[str]):
+        ctx = self.model.cfg.text.context_length
+        return self._batched(self.encode_tokens, tokenize(list(texts), ctx))
+
+    def embed_images(self, images: np.ndarray):
+        """images: [N, S, S, 3] uint8 or normalized float."""
+        return self._batched(self.encode_images, images)
