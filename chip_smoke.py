@@ -1,26 +1,36 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving path and its training step once on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py
 
 Phases (each prints its lines; any failure exits non-zero before the result lines):
   1. the card: torch.cuda.is_available() and nvidia-smi's name and power limit;
-  2. build the CUDA kernels from ops/csrc with nvcc;
-  3. the block-attention kernel against its plain PyTorch version on the card, at the
-     ViT-B/32 tower shapes (vision S=50 W=768 H=12, text S=77 W=512 H=8 causal) and
-     S=197, in float32 (max abs error <= 1e-4 * max|plain|) and bfloat16 (<= 2e-2 *
-     max|plain|), with CUDA-event times at B=256;
+  2. build the CUDA kernels from ops/csrc with nvcc (one process per source, in parallel);
+  3. the block-attention forward and backward kernels against their plain PyTorch versions
+     on the card, at the ViT-B/32 tower shapes (vision S=50 W=768 H=12, text S=77 W=512
+     H=8 causal), S=197 and S=257 (W=1024 H=16), in float32 (max abs error of every
+     output <= 1e-4 * max|plain|) and bfloat16 (<= 2e-2 * max|plain|), with CUDA-event
+     times at B=256;
   4. serving: ViT-B/32 in float32 with seeded random weights behind the HTTP server,
-     answering text, image and similarity requests; the kernel's launch count over those
-     requests must be at least 12 per tower encode, and the served embeddings must match
-     an encode through the plain version (cosine >= 0.9999);
-  5. throughput at bucket 256 and single-request p50 latency.
+     answering text, image and similarity requests; the forward kernel's launch count over
+     those requests must be at least 12 per tower encode, and the served embeddings must
+     match an encode through the plain version (cosine >= 0.9999);
+  5. serving throughput at bucket 256 and single-request p50 latency;
+  6. training: ViT-B/32 with seeded weights, the fused AdamW (cosine schedule, weight decay
+     0.1, clip 1.0) and a fixed synthetic uint8 batch of 256. float32: 2 steps through the
+     kernels against 2 from the same start with every block's attention routed to the
+     plain version (losses within 1e-5 relative, grad norms within 1e-4, every gradient
+     leaf of step 1 within 1e-3 * max|leaf|, at least 24 backward-kernel launches per
+     step); bfloat16: 5 steps, every loss and grad norm finite and the loss falling.
+     Samples/s and peak memory for both.
 The second-to-last line is the kernel summary (JSON), the last line the device record.
 """
 
 from __future__ import annotations
 
 import base64
+import contextlib
 import json
 import subprocess
 import sys
@@ -31,8 +41,14 @@ import urllib.request
 import numpy as np
 
 MODEL = "ViT-B-32"
-SOURCE = "multimodal_tpu_torch/ops/csrc/block_attention_fwd.cu"
-REPLACES = "multimodal_tpu/ops/block_attention.py:200"
+KERNELS = {  # name -> (source, the TPU kernel it replaces)
+    "block_attention_fwd": ("multimodal_tpu_torch/ops/csrc/block_attention_fwd.cu",
+                            "multimodal_tpu/ops/block_attention.py:200"),
+    "block_attention_bwd": ("multimodal_tpu_torch/ops/csrc/block_attention_bwd.cu",
+                            "multimodal_tpu/ops/block_attention.py:272 (_bwd_kernel) and "
+                            ":386 (_bwd_kernel_large)"),
+}
+BWD_OUTPUTS = ("dx", "dq", "dk", "dv", "attnpre")
 CASES = [  # (tower, batch, seq, width, heads, causal)
     ("vision", 1, 50, 768, 12, False),
     ("vision", 3, 50, 768, 12, False),
@@ -40,7 +56,9 @@ CASES = [  # (tower, batch, seq, width, heads, causal)
     ("text", 1, 77, 512, 8, True),
     ("text", 256, 77, 512, 8, True),
     ("vision-S197", 4, 197, 768, 12, False),
+    ("vision-S257", 2, 257, 1024, 16, False),
 ]
+TRAIN_BATCH = 256
 CAPTIONS = ["a photo of a cat", "two dogs playing in the snow", "a red car on a bridge",
             "東京の夜景 ✨"]
 
@@ -65,9 +83,11 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def phase_kernels(torch, ba) -> dict:
-    """Kernel vs plain at every case and both dtypes; times at B=256."""
-    worst_f32, timing, failures = 0.0, {}, []
+    """Forward and backward kernels vs plain at every case and both dtypes; times at B=256."""
+    worst_f32 = dict.fromkeys(KERNELS, 0.0)
+    timing, failures = {}, []
     for dtype, rel_tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        name = str(dtype).replace("torch.", "")
         for tower, b, s, w, heads, causal in CASES:
             g = torch.Generator(device="cuda").manual_seed(b * 1000 + s)
             rnd = lambda *shape: torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
@@ -75,27 +95,41 @@ def phase_kernels(torch, ba) -> dict:
             ws = []
             for _ in range(4):
                 ws += [(rnd(w, w) * w ** -0.5).to(dtype), (rnd(w) * 0.02).to(dtype)]
-            kern = lambda: ba.block_attention(x, *ws, heads=heads, causal=causal)  # noqa: E731
-            plain = lambda: ba.block_attention_reference(  # noqa: E731
-                x, *ws, heads=heads, causal=causal)
-            got, want = kern().float(), plain().float()
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            ref_max = want.abs().max().item()
-            ok = bool(torch.isfinite(got).all()) and err <= rel_tol * ref_max
-            name = str(dtype).replace("torch.", "")
-            line = (f"kernel {tower:<11} B={b:<3} S={s} W={w} H={heads} causal={causal!s:<5} "
-                    f"{name:<8} max_abs_err={err:.3e} tol={rel_tol * ref_max:.3e} "
-                    f"({rel_tol:g} x max|plain|={ref_max:.3f}) {'ok' if ok else 'MISMATCH'}")
-            if b == 256:
-                k_ms, p_ms = cuda_ms(kern), cuda_ms(plain)
-                timing[(tower, name)] = (k_ms, p_ms)
-                line += f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f}"
-            print(line, flush=True)
-            if not ok:
-                failures.append(line)
-            if dtype == torch.float32:
-                worst_f32 = max(worst_f32, err)
+            dy = rnd(b, s, w).to(dtype)
+            kw = dict(heads=heads, causal=causal)
+            runs = {
+                "block_attention_fwd": (lambda: ba.block_attention(x, *ws, **kw),
+                                        lambda: ba.block_attention_reference(x, *ws, **kw)),
+                "block_attention_bwd": (lambda: ba.block_attention_bwd(x, dy, *ws, **kw),
+                                        lambda: ba.block_attention_bwd_reference(x, dy, *ws,
+                                                                                 **kw)),
+            }
+            for kernel, (kern, plain) in runs.items():
+                got, want = kern(), plain()
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                torch.cuda.synchronize()
+                errs, ok = [], True
+                for gt, wt in zip(got, want):
+                    gt, wt = gt.float(), wt.float()
+                    err, ref_max = (gt - wt).abs().max().item(), wt.abs().max().item()
+                    ok = ok and bool(torch.isfinite(gt).all()) and err <= rel_tol * ref_max
+                    errs.append((err, ref_max))
+                err = max(e for e, _ in errs)
+                detail = " ".join(f"{o}={e:.2e}/{m:.2e}" for o, (e, m) in zip(
+                    BWD_OUTPUTS if len(errs) > 1 else ("y",), errs))
+                line = (f"{kernel} {tower:<11} B={b:<3} S={s} W={w} H={heads} "
+                        f"causal={causal!s:<5} {name:<8} max_abs_err/max|plain| {detail} "
+                        f"(tol {rel_tol:g} x max|plain|) {'ok' if ok else 'MISMATCH'}")
+                if b == 256:
+                    k_ms, p_ms = cuda_ms(kern), cuda_ms(plain)
+                    timing[(kernel, tower, name)] = (k_ms, p_ms)
+                    line += f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f}"
+                print(line, flush=True)
+                if not ok:
+                    failures.append(line)
+                if dtype == torch.float32:
+                    worst_f32[kernel] = max(worst_f32[kernel], err)
     if failures:
         fail(f"{len(failures)} kernel/plain mismatches")
     return {"worst_f32": worst_f32, "timing": timing}
@@ -126,8 +160,10 @@ def check_embeddings(name: str, emb, n: int):
     return emb
 
 
-def plain_encode(layers, ba, embedder, tokens, images):
-    """The same encodes with every block-attention call routed to the plain version."""
+@contextlib.contextmanager
+def plain_attention(layers, ba):
+    """Every block-attention call of the model routed to the plain version (its gradient
+    then comes from torch's autograd of that version)."""
     def plain_block_attention(x, *ws, heads, causal=False, ln_scale=None, ln_bias=None,
                               residual=False):
         xn = ba.ln_rows(x, ln_scale, ln_bias, ba.LN_EPS) if ln_scale is not None else x
@@ -137,9 +173,120 @@ def plain_encode(layers, ba, embedder, tokens, images):
     kernel_path = layers.block_attention
     layers.block_attention = plain_block_attention
     try:
-        return embedder.encode_tokens(tokens), embedder.encode_images(images)
+        yield
     finally:
         layers.block_attention = kernel_path
+
+
+def train_steps(torch, ba, model, batch, steps: int, grads_at: int = -1):
+    """``steps`` training steps from a fresh optimizer as bench.py builds it; returns the
+    per-step metrics and launch counts, the gradients after step ``grads_at`` (0-based)
+    and the host-clock seconds of every step after the first."""
+    from multimodal_tpu_torch.train import (
+        TrainState, make_optimizer, make_schedule, make_train_step)
+
+    opt = make_optimizer(model.named_parameters(),
+                         make_schedule("cosine", 1e-3, warmup_steps=100, total_steps=10000),
+                         weight_decay=0.1, grad_clip_norm=1.0)
+    state = TrainState.create(model, opt)
+    step = make_train_step(model, opt)
+    metrics, counts, grads, timed = [], [], None, 0.0
+    for i in range(steps):
+        torch.cuda.synchronize()
+        ba.reset_launch_counts()
+        t0 = time.perf_counter()
+        m = step(state, batch)
+        torch.cuda.synchronize()
+        if i > 0:
+            timed += time.perf_counter() - t0
+        counts.append(ba.launch_counts())
+        metrics.append({k: float(v) for k, v in m.items()})
+        if i == grads_at:
+            grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    return metrics, counts, grads, timed
+
+
+def phase_train(torch, ba, layers, card: str) -> dict:
+    """ViT-B/32 training: float32 kernel path vs plain path, then bfloat16."""
+    from multimodal_tpu_torch.models import create_model
+
+    rng = np.random.default_rng(0)
+    model = create_model(MODEL, device="cuda", seed=0)
+    c = model.cfg
+    batch = {  # the synthetic uint8 batch of bench.py, normalized on the card
+        "image": torch.from_numpy(rng.integers(
+            0, 256, (TRAIN_BATCH, c.vision.image_size, c.vision.image_size, 3),
+            dtype=np.uint8)).cuda(),
+        "text": torch.from_numpy(rng.integers(
+            1, c.text.vocab_size - 1, (TRAIN_BATCH, c.text.context_length))).cuda(),
+    }
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    blocks = c.vision.layers + c.text.layers
+
+    torch.cuda.reset_peak_memory_stats()
+    k_metrics, k_counts, k_grads, k_time = train_steps(torch, ba, model, batch, 5, grads_at=0)
+    k_peak = torch.cuda.max_memory_allocated()
+    model.load_state_dict(start)
+    with plain_attention(layers, ba):
+        torch.cuda.reset_peak_memory_stats()
+        p_metrics, p_counts, p_grads, p_time = train_steps(torch, ba, model, batch, 5,
+                                                           grads_at=0)
+        p_peak = torch.cuda.max_memory_allocated()
+    for i in range(2):
+        km, pm = k_metrics[i], p_metrics[i]
+        print(f"  float32 step {i + 1}: loss kernel={km['loss']:.7f} plain={pm['loss']:.7f} "
+              f"grad_norm kernel={km['grad_norm']:.6f} plain={pm['grad_norm']:.6f} "
+              f"launches {k_counts[i]} (plain path {p_counts[i]})", flush=True)
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)  # noqa: E731
+    loss_rel = max(rel(k_metrics[i]["loss"], p_metrics[i]["loss"]) for i in range(2))
+    norm_rel = max(rel(k_metrics[i]["grad_norm"], p_metrics[i]["grad_norm"]) for i in range(2))
+    # per leaf |kernel - plain| / max|plain|; a leaf whose exact gradient is zero (the
+    # attention key biases: softmax ignores a per-row constant) holds rounding noise on both
+    # sides, so the scale has a floor of 1e-3 x the largest gradient of the model
+    g_max = max(g.abs().max() for g in p_grads.values())
+    leaf_rel = {n: ((k_grads[n] - g).abs().max() / torch.clamp(g.abs().max(), min=1e-3 * g_max))
+                for n, g in p_grads.items()}
+    leaf_rel = {n: v.item() for n, v in leaf_rel.items()}
+    worst_leaf = max(leaf_rel, key=leaf_rel.get)
+    bwd_per_step = min(cnt["block_attention_bwd"] for cnt in k_counts)
+    print(f"  float32 kernel vs plain: loss rel diff {loss_rel:.3e} (need <= 1e-5), grad norm "
+          f"rel diff {norm_rel:.3e} (need <= 1e-4), worst grad leaf {worst_leaf} "
+          f"{leaf_rel[worst_leaf]:.3e} x max|leaf| (need <= 1e-3), block_attention_bwd "
+          f"launches per step >= {bwd_per_step} (need >= {blocks})", flush=True)
+    if not all(np.isfinite([m[k] for m in k_metrics + p_metrics for k in m])):
+        fail("non-finite float32 loss or grad norm")
+    if loss_rel > 1e-5 or norm_rel > 1e-4 or leaf_rel[worst_leaf] > 1e-3:
+        fail("the float32 kernel path disagrees with the plain path")
+    if bwd_per_step < blocks or any(n for cnt in p_counts for n in cnt.values()):
+        fail("the training step did not run the backward kernel in every block")
+    k_rate, p_rate = 4 * TRAIN_BATCH / k_time, 4 * TRAIN_BATCH / p_time
+    print(f"  float32 train samples/s at B={TRAIN_BATCH} (steps 2-5, host clock): kernel path "
+          f"{k_rate:.1f}, plain path {p_rate:.1f}; peak memory kernel {k_peak / 2**30:.2f} GiB, "
+          f"plain {p_peak / 2**30:.2f} GiB [{card}]", flush=True)
+    launches = {k: sum(cnt[k] for cnt in k_counts) for k in KERNELS}
+    del model, start, k_grads, p_grads
+    torch.cuda.empty_cache()
+
+    model = create_model(MODEL, dtype=torch.bfloat16, device="cuda", seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    b_metrics, b_counts, _, b_time = train_steps(torch, ba, model, batch, 5)
+    b_peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in b_metrics]
+    norms = [m["grad_norm"] for m in b_metrics]
+    print(f"  bfloat16 losses {[round(v, 5) for v in losses]} grad norms "
+          f"{[round(v, 4) for v in norms]}", flush=True)
+    b_rate = 4 * TRAIN_BATCH / b_time
+    print(f"  bfloat16 train samples/s at B={TRAIN_BATCH} (steps 2-5, host clock): "
+          f"{b_rate:.1f}; peak memory {b_peak / 2**30:.2f} GiB [{card}]", flush=True)
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+        fail("non-finite bfloat16 loss or grad norm")
+    if not losses[-1] < losses[0]:
+        fail("the bfloat16 loss did not fall over 5 steps on a fixed batch")
+    if min(cnt["block_attention_bwd"] for cnt in b_counts) < blocks:
+        fail("the bfloat16 training step did not run the backward kernel in every block")
+    for k in KERNELS:
+        launches[k] += sum(cnt[k] for cnt in b_counts)
+    return {"launches": launches}
 
 
 def main() -> int:
@@ -208,7 +355,9 @@ def main() -> int:
         if encodes < 4 or launches < 12 * encodes:
             fail("the serving path did not run the block-attention kernel in every block")
         tokens = tokenize(CAPTIONS, model.cfg.text.context_length)
-        p_txt, p_img = plain_encode(layers, ba, svc._embedder, tokens, images)
+        with plain_attention(layers, ba):
+            p_txt = svc._embedder.encode_tokens(tokens)
+            p_img = svc._embedder.encode_images(images)
         cos_t = float((np.sum(p_txt * txt, -1)).min())
         cos_i = float((np.sum(p_img * img, -1)).min())
         print(f"  served vs plain-version encode: min cosine text={cos_t:.7f} "
@@ -247,14 +396,23 @@ def main() -> int:
         srv.server_close()
         svc.close()
         thread.join(timeout=10)
+    del model, svc
+    torch.cuda.empty_cache()
 
-    k_ms, p_ms = kernels["timing"][("vision", "float32")]
+    print("phase 6 training", flush=True)
+    train = phase_train(torch, ba, layers, card)
+
+    # launches: the serving run (forward only) plus the kernel-path training steps
+    launches = {"block_attention_fwd": launches + train["launches"]["block_attention_fwd"],
+                "block_attention_bwd": train["launches"]["block_attention_bwd"]}
+    entries = []
+    for name, (source, replaces) in KERNELS.items():
+        k_ms, p_ms = kernels["timing"][(name, "vision", "float32")]
+        entries.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": launches[name], "max_abs_err": kernels["worst_f32"][name],
+                        "ms": k_ms, "plain_ms": p_ms})
     print(card, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "block_attention_fwd", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches, "max_abs_err": kernels["worst_f32"],
-        "ms": k_ms, "plain_ms": p_ms,
-    }]}), flush=True)
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

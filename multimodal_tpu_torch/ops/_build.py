@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels at first use.
 
-The sources under ``ops/csrc`` have a plain C interface and are compiled by ``nvcc`` into
-one shared library, loaded with ``ctypes``. A library that includes PyTorch's headers
+The sources under ``ops/csrc`` have a plain C interface. ``nvcc`` compiles each into an
+object, all of them at once in parallel processes, and links the objects into one shared
+library, loaded with ``ctypes``. A library that includes PyTorch's headers
 (``torch.utils.cpp_extension.load``) takes minutes to compile and needs ``ninja``; the C
 interface builds in seconds with ``nvcc`` alone. Pointers cross as ``data_ptr()`` integers
 and the launch stream as ``torch.cuda.current_stream().cuda_stream``.
@@ -22,11 +23,13 @@ import tempfile
 import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = (os.path.join(_HERE, "csrc", "block_attention_fwd.cu"),)
+SOURCES = tuple(os.path.join(_HERE, "csrc", name)
+                for name in ("block_attention_fwd.cu", "block_attention_bwd.cu"))
+HEADERS = (os.path.join(_HERE, "csrc", "block_attention_common.cuh"),)
 BUILD_DIR = os.path.join(_HERE, "_build_cache")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -45,34 +48,41 @@ def nvcc_path() -> str:
 
 def library_path() -> str:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         with open(src, "rb") as f:
             digest.update(f.read())
     return os.path.join(BUILD_DIR, f"libmmt_kernels_{digest.hexdigest()[:16]}.so")
 
 
 def build() -> tuple[str, str]:
-    """Compile the sources if the library for their digest is missing.
+    """Compile the sources if the library for their digest is missing: one ``nvcc -c`` per
+    source, all started together, then one link.
 
     Returns (library path, the compiler's ``-Xptxas -v`` report; empty when cached)."""
     out = library_path()
     if os.path.isfile(out):
         return out, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *SOURCES],
-            capture_output=True, text=True, check=False,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out, proc.stdout + proc.stderr
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(src) + ".o") for src in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(SOURCES, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        report = "".join(logs)
+        for src, proc, log in zip(SOURCES, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {os.path.basename(src)} "
+                                   f"({proc.returncode}):\n{log}")
+        lib = os.path.join(tmp, "lib.so")
+        link = subprocess.run([nvcc, "-shared", "-o", lib, *objs],
+                              capture_output=True, text=True, check=False)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}{link.stderr}")
+        os.replace(lib, out)  # atomic: a concurrent build never loads a partial file
+    return out, report
 
 
 def load() -> ctypes.CDLL:
@@ -85,6 +95,8 @@ def load() -> ctypes.CDLL:
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.mmt_block_attention_fwd.argtypes = [i32] + [ptr] * 12 + [i32] * 5 + [ptr]
             lib.mmt_block_attention_fwd.restype = i32
+            lib.mmt_block_attention_bwd.argtypes = [i32] + [ptr] * 18 + [i32] * 5 + [ptr]
+            lib.mmt_block_attention_bwd.restype = i32
             lib.mmt_error_string.argtypes = [i32]
             lib.mmt_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -95,7 +95,7 @@ def test_supported_predicate_matches_reference():
 def test_cpu_tensor_never_counts_a_launch():
     ba.reset_launch_counts()
     _port_out(1, 8, 128, 2, True, torch.float32)
-    assert ba.launch_counts() == {"block_attention_fwd": 0}
+    assert ba.launch_counts() == {"block_attention_fwd": 0, "block_attention_bwd": 0}
 
 
 @pytest.fixture

@@ -12,6 +12,9 @@ def test_port_imports_without_jax():
         "import sys\n"
         "import multimodal_tpu_torch.serving, multimodal_tpu_torch.models.clip\n"
         "import multimodal_tpu_torch.inference, multimodal_tpu_torch.ops._build\n"
+        "import multimodal_tpu_torch.train, multimodal_tpu_torch.losses\n"
+        "import multimodal_tpu_torch.train.engine, multimodal_tpu_torch.train.optimizer\n"
+        "import multimodal_tpu_torch.train.schedules, multimodal_tpu_torch.losses.clip_loss\n"
         "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'multimodal_tpu'))\n"
         "assert not leaked, leaked\n"
