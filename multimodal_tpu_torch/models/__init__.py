@@ -1,6 +1,9 @@
 """CLIP model family for the PyTorch port."""
 
-from multimodal_tpu_torch.models.checkpoint_interop import load_openai_state_dict
+from multimodal_tpu_torch.models.checkpoint_interop import (
+    load_jax_params,
+    load_openai_state_dict,
+)
 from multimodal_tpu_torch.models.clip import CLIP
 from multimodal_tpu_torch.models.config import (
     CLIPConfig,
@@ -17,5 +20,6 @@ __all__ = [
     "create_model",
     "get_model_config",
     "list_models",
+    "load_jax_params",
     "load_openai_state_dict",
 ]

@@ -1,8 +1,10 @@
-"""The weight bridge: OpenAI-CLIP-format state_dicts into the port's ``CLIP``.
+"""The weight bridge into the port's ``CLIP``: OpenAI-CLIP-format state_dicts
+(``load_openai_state_dict``) and the JAX package's own parameter tree (``load_jax_params``).
 
-Takes a real OpenAI CLIP ``state_dict`` (torch tensors) or the numpy dict that
-``multimodal_tpu/models/checkpoint_interop.py:export_torch_state_dict`` writes from JAX
-params (same names, fused ``in_proj`` [3W, W] with rows in q, k, v order). Name mapping:
+``load_openai_state_dict`` takes a real OpenAI CLIP ``state_dict`` (torch tensors) or the
+numpy dict that ``multimodal_tpu/models/checkpoint_interop.py:export_torch_state_dict``
+writes from JAX params (same names, fused ``in_proj`` [3W, W] with rows in q, k, v order).
+Name mapping, two towers:
 
     visual.conv1.weight [W,3,P,P]         -> visual_stem.patch_conv [P,P,3,W]
     visual.{class,positional}_embedding   -> visual_stem.*
@@ -15,10 +17,18 @@ params (same names, fused ``in_proj`` [3W, W] with rows in q, k, v order). Name 
     visual.ln_post / visual.proj          -> ln_post / visual_projection
     token_embedding.weight / positional_embedding -> text_stem.*
     ln_final / text_projection / logit_scale       -> the same names
+
+Shared trunk (``cfg.share_trunk``): ``transformer.resblocks.{i}.*`` -> ``transformer.*``,
+``visual.ln_post`` (or ``ln_post``) -> ``ln_post``, ``projection`` (or ``text_projection``)
+-> ``projection``; there is no ``ln_final``. That format has no key for the per-head
+``attn.head_scale`` of a ``scale_heads`` model (the exporter drops it), so such a model
+loads through ``load_jax_params``, which takes the flax tree as it is: the same layouts as
+the port's ([in, out] kernels), only the names differ.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Mapping
 
 import numpy as np
@@ -77,14 +87,24 @@ def _openai_to_port(sd: Mapping[str, Any], model: CLIP) -> dict:
         "visual_stem.ln_pre.bias": _f32(sd["visual.ln_pre.bias"]),
         "text_stem.token_embedding": _f32(sd["token_embedding.weight"]),
         "text_stem.positional_embedding": _f32(sd["positional_embedding"]),
+        "logit_scale": _f32(sd["logit_scale"]).reshape(()),
+    }
+    if model.cfg.share_trunk:
+        ln_post = "visual.ln_post" if "visual.ln_post.weight" in sd else "ln_post"
+        out["ln_post.weight"] = _f32(sd[f"{ln_post}.weight"])
+        out["ln_post.bias"] = _f32(sd[f"{ln_post}.bias"])
+        out["projection"] = _f32(sd["projection" if "projection" in sd else "text_projection"])
+        for i in range(model.cfg.vision.layers):
+            out.update(_block(sd, f"transformer.resblocks.{i}", f"transformer.resblocks.{i}"))
+        return out
+    out.update({
         "ln_post.weight": _f32(sd["visual.ln_post.weight"]),
         "ln_post.bias": _f32(sd["visual.ln_post.bias"]),
         "ln_final.weight": _f32(sd["ln_final.weight"]),
         "ln_final.bias": _f32(sd["ln_final.bias"]),
         "visual_projection": _f32(sd["visual.proj"]),
         "text_projection": _f32(sd["text_projection"]),
-        "logit_scale": _f32(sd["logit_scale"]).reshape(()),
-    }
+    })
     for i in range(model.cfg.vision.layers):
         out.update(_block(sd, f"visual.transformer.resblocks.{i}",
                           f"visual_transformer.resblocks.{i}"))
@@ -93,14 +113,37 @@ def _openai_to_port(sd: Mapping[str, Any], model: CLIP) -> dict:
     return out
 
 
-@torch.no_grad()
-def load_openai_state_dict(model: CLIP, sd: Mapping[str, Any]) -> CLIP:
-    """Copy an OpenAI-format state_dict into ``model`` in place (on its device). Every
-    parameter must be covered with its exact shape; a mismatch raises."""
-    converted = _openai_to_port(sd, model)
+def jax_params_to_port(params: Mapping[str, Any]) -> dict:
+    """The JAX package's flax tree ({'params': ...} or its inside; leaves numpy or anything
+    ``np.asarray`` takes) -> the port's parameter names, float32 numpy values. Every leaf
+    keeps its layout; ``.../resblock_3/ln_1/LayerNorm_0/scale`` becomes
+    ``...resblocks.3.ln_1.weight``, and the flax wrappers around the patch kernel and the
+    token table drop away."""
+    tree = params["params"] if "params" in params else params
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, Mapping):
+            for key, child in node.items():
+                walk(child, path + [key])
+            return
+        if path[-2:-1] == ["LayerNorm_0"]:
+            path = path[:-2] + [{"scale": "weight", "bias": "bias"}[path[-1]]]
+        elif path[-2:] in (["patch_conv", "kernel"], ["token_embedding", "embedding"]):
+            path = path[:-1]
+        name = ".".join(re.sub(r"^resblock_(\d+)$", r"resblocks.\1", k) for k in path)
+        out[name] = _f32(node)
+
+    walk(tree, [])
+    return out
+
+
+def _fill(model: CLIP, converted: dict, what: str) -> CLIP:
+    """Copy ``converted`` (port names -> arrays) into ``model`` in place. Every parameter
+    must be covered with its exact shape; a mismatch raises."""
     params = dict(model.named_parameters())
     if set(converted) != set(params):
-        raise ValueError(f"state_dict does not cover the model: missing "
+        raise ValueError(f"{what} does not cover the model: missing "
                          f"{sorted(set(params) - set(converted))}, extra "
                          f"{sorted(set(converted) - set(params))}")
     for name, p in params.items():
@@ -109,3 +152,17 @@ def load_openai_state_dict(model: CLIP, sd: Mapping[str, Any]) -> CLIP:
             raise ValueError(f"shape mismatch at {name}: {value.shape} vs {tuple(p.shape)}")
         p.copy_(torch.from_numpy(np.array(value, np.float32)))  # a writable copy
     return model
+
+
+@torch.no_grad()
+def load_openai_state_dict(model: CLIP, sd: Mapping[str, Any]) -> CLIP:
+    """Copy an OpenAI-format state_dict into ``model`` in place (on its device). Every
+    parameter must be covered with its exact shape; a mismatch raises."""
+    return _fill(model, _openai_to_port(sd, model), "state_dict")
+
+
+@torch.no_grad()
+def load_jax_params(model: CLIP, params: Mapping[str, Any]) -> CLIP:
+    """Copy the JAX package's flax parameter tree into ``model`` in place (on its device),
+    every leaf included (``attn.head_scale`` too). A mismatch in names or shapes raises."""
+    return _fill(model, jax_params_to_port(params), "parameter tree")

@@ -1,14 +1,16 @@
-"""Two-tower CLIP encoders (port of ``multimodal_tpu/models/clip.py``: ``VisionStem``,
-``TextStem``, ``eot_pool`` and ``CLIP``).
+"""CLIP encoders, two-tower or shared-trunk (port of ``multimodal_tpu/models/clip.py``:
+``VisionStem``, ``TextStem``, ``eot_pool`` and ``CLIP``). With ``cfg.share_trunk`` one
+transformer, built from the vision config, serves both modalities: the text pass runs it
+with a call-time ``causal=True``, and both pool through one ``ln_post`` and one
+``projection``.
 
 Images are NHWC, as in the reference. The patch embedding is a reshape plus one matrix
 product with the ``[P, P, 3, W]`` kernel (identical to the stride-P convolution, and with
 TF32 left off it is true float32 on the card, which cuDNN's convolution is not by default).
 The final projections run in float32.
 
-Not ported yet (``CLIP`` raises on configs that need them): the shared trunk, LayerScale,
-scaled-cosine attention, head scales, MoE, LoRA, int8 MLPs, attentional and mean
-pooling and the SigLIP bias.
+Not ported yet (``CLIP`` raises on configs that need them): LayerScale, scaled-cosine
+attention, MoE, LoRA, int8 MLPs, attentional and mean pooling and the SigLIP bias.
 """
 
 from __future__ import annotations
@@ -89,11 +91,9 @@ def eot_pool(x: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 def _check_supported(c: CLIPConfig):
     unsupported = {
-        "share_trunk": c.share_trunk,
         "vision.ls_init_value": c.vision.ls_init_value is not None,
         "text.ls_init_value": c.text.ls_init_value is not None,
         "vision.scaled_cosine": c.vision.scaled_cosine,
-        "vision.scale_heads": c.vision.scale_heads,
         "vision.attentional_pool": c.vision.attentional_pool,
         "vision.global_average_pool": c.vision.global_average_pool,
         "vision.moe_experts": c.vision.moe_experts > 0,
@@ -107,7 +107,8 @@ def _check_supported(c: CLIPConfig):
 
 
 class CLIP(nn.Module):
-    """Two-tower CLIP: ``encode_image`` (NHWC float images), ``encode_text`` (int tokens)."""
+    """Two-tower CLIP, or the shared-trunk model when ``cfg.share_trunk``: ``encode_image``
+    (NHWC float images), ``encode_text`` (int tokens)."""
 
     def __init__(self, cfg: CLIPConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -117,14 +118,23 @@ class CLIP(nn.Module):
         act = resolve_act(cfg.act)
         self.visual_stem = VisionStem(v.width, v.patch_size, v.image_size, dtype=dtype)
         self.text_stem = TextStem(t.width, t.vocab_size, t.context_length, dtype=dtype)
-        self.visual_transformer = Transformer(v.width, v.layers, v.heads, v.mlp_ratio,
-                                              act=act, dtype=dtype)
-        self.text_transformer = Transformer(t.width, t.layers, t.heads, t.mlp_ratio,
-                                            causal=True, act=act, dtype=dtype)
-        self.ln_post = LayerNorm(v.width)
-        self.ln_final = LayerNorm(t.width)
-        self.visual_projection = nn.Parameter(torch.empty(v.width, cfg.embed_dim))
-        self.text_projection = nn.Parameter(torch.empty(t.width, cfg.embed_dim))
+        if cfg.share_trunk:
+            if v.ls_init_value != t.ls_init_value:
+                raise ValueError("a shared trunk needs vision and text ls_init_value to agree")
+            self.transformer = Transformer(v.width, v.layers, v.heads, v.mlp_ratio, act=act,
+                                           dtype=dtype, scale_heads=v.scale_heads)
+            self.ln_post = LayerNorm(v.width)
+            self.projection = nn.Parameter(torch.empty(v.width, cfg.embed_dim))
+        else:
+            self.visual_transformer = Transformer(v.width, v.layers, v.heads, v.mlp_ratio,
+                                                  act=act, dtype=dtype,
+                                                  scale_heads=v.scale_heads)
+            self.text_transformer = Transformer(t.width, t.layers, t.heads, t.mlp_ratio,
+                                                causal=True, act=act, dtype=dtype)
+            self.ln_post = LayerNorm(v.width)
+            self.ln_final = LayerNorm(t.width)
+            self.visual_projection = nn.Parameter(torch.empty(v.width, cfg.embed_dim))
+            self.text_projection = nn.Parameter(torch.empty(t.width, cfg.embed_dim))
         self.logit_scale = nn.Parameter(torch.empty(()))
 
     def init_weights(self, generator: torch.Generator):
@@ -132,20 +142,33 @@ class CLIP(nn.Module):
         for m in self.modules():
             if m is not self and hasattr(m, "init_weights"):
                 m.init_weights(generator)
-        normal_(self.visual_projection, self.cfg.vision.width ** -0.5, generator)
-        normal_(self.text_projection, self.cfg.text.width ** -0.5, generator)
+        if self.cfg.share_trunk:
+            normal_(self.projection, self.cfg.vision.width ** -0.5, generator)
+        else:
+            normal_(self.visual_projection, self.cfg.vision.width ** -0.5, generator)
+            normal_(self.text_projection, self.cfg.text.width ** -0.5, generator)
         init = self.cfg.logit_scale_init
         with torch.no_grad():
             self.logit_scale.fill_(LOGIT_SCALE_INIT if init is None else init)
 
     def encode_image(self, images: torch.Tensor, normalize: bool = False) -> torch.Tensor:
-        x = self.visual_transformer(self.visual_stem(images))
-        feats = self.ln_post(x[:, 0]).to(torch.float32) @ self.visual_projection
+        shared = self.cfg.share_trunk
+        trunk = self.transformer if shared else self.visual_transformer
+        x = trunk(self.visual_stem(images))
+        proj = self.projection if shared else self.visual_projection
+        feats = self.ln_post(x[:, 0]).to(torch.float32) @ proj
         return feats / feats.norm(dim=-1, keepdim=True) if normalize else feats
 
     def encode_text(self, tokens: torch.Tensor, normalize: bool = False) -> torch.Tensor:
-        x = self.text_transformer(self.text_stem(tokens))
-        feats = self.ln_final(eot_pool(x, tokens)).to(torch.float32) @ self.text_projection
+        x = self.text_stem(tokens)
+        if self.cfg.share_trunk:
+            # a static causal flag, so the text pass takes the block kernels as the vision
+            # pass does (an additive mask would force the plain path)
+            x = self.transformer(x, causal=True)
+            feats = self.ln_post(eot_pool(x, tokens)).to(torch.float32) @ self.projection
+        else:
+            x = self.text_transformer(x)
+            feats = self.ln_final(eot_pool(x, tokens)).to(torch.float32) @ self.text_projection
         return feats / feats.norm(dim=-1, keepdim=True) if normalize else feats
 
     def forward(self, images, tokens, normalize: bool = True) -> dict:

@@ -108,13 +108,18 @@ class MLP(nn.Module):
 
 class MultiHeadAttention(nn.Module):
     """Self-attention with separate q/k/v projections. Shapes the block-attention operator
-    takes (``block_attn_supported``) go through it — on a CUDA tensor that is the
-    hand-written kernel — and the rest through plain ``attention``."""
+    takes (``block_attn_supported``) go through it — on a CUDA tensor those are the
+    hand-written block kernels — and the rest through ``attention``, which on a CUDA tensor
+    takes the fused whole-sequence kernels where they apply. ``scale_heads`` (a learnable
+    per-head scale on the attention output, ones at init) changes what lies between the
+    core and the output projection, so it routes off the block operator."""
 
     def __init__(self, width: int, heads: int, causal: bool = False,
-                 dtype: torch.dtype = torch.float32, depth: int = 12):
+                 dtype: torch.dtype = torch.float32, depth: int = 12,
+                 scale_heads: bool = False):
         super().__init__()
         self.width, self.heads, self.causal, self.dtype = width, heads, causal, dtype
+        self.head_scale = nn.Parameter(torch.ones(heads)) if scale_heads else None
         attn_std = width ** -0.5
         out_std = (width ** -0.5) * ((2 * depth) ** -0.5)
         self.query = Dense(width, width, attn_std)
@@ -131,7 +136,7 @@ class MultiHeadAttention(nn.Module):
         b, s = x.shape[:2]
         (wq, bq), (wk, bk), (wv, bv), (wo, bo) = (
             m.cast(self.dtype) for m in (self.query, self.key, self.value, self.out))
-        if block_attn_supported(b, s, self.width, self.heads):
+        if self.head_scale is None and block_attn_supported(b, s, self.width, self.heads):
             ln_kw = {} if ln_params is None else {"ln_scale": ln_params[0],
                                                   "ln_bias": ln_params[1]}
             return block_attention(x, wq, bq, wk, bk, wv, bv, wo, bo, heads=self.heads,
@@ -142,7 +147,10 @@ class MultiHeadAttention(nn.Module):
         head_dim = self.width // self.heads
         q, k, v = ((x @ w_ + b_).view(b, s, self.heads, head_dim)
                    for w_, b_ in ((wq, bq), (wk, bk), (wv, bv)))
-        out = attention(q, k, v, causal=causal).reshape(b, s, self.width) @ wo + bo
+        out = attention(q, k, v, causal=causal)
+        if self.head_scale is not None:
+            out = out * self.head_scale.to(out.dtype)[None, None, :, None]
+        out = out.reshape(b, s, self.width) @ wo + bo
         return x_in + out if fuse_residual else out
 
 
@@ -151,10 +159,12 @@ class ResidualBlock(nn.Module):
     (``fuse_residual`` / ``residual``), as in the reference without LayerScale."""
 
     def __init__(self, width: int, heads: int, mlp_ratio: float = 4.0, causal: bool = False,
-                 act=quick_gelu, dtype: torch.dtype = torch.float32, depth: int = 12):
+                 act=quick_gelu, dtype: torch.dtype = torch.float32, depth: int = 12,
+                 scale_heads: bool = False):
         super().__init__()
         self.ln_1 = LayerNorm(width)
-        self.attn = MultiHeadAttention(width, heads, causal=causal, dtype=dtype, depth=depth)
+        self.attn = MultiHeadAttention(width, heads, causal=causal, dtype=dtype, depth=depth,
+                                       scale_heads=scale_heads)
         self.ln_2 = LayerNorm(width)
         self.mlp = MLP(width, mlp_ratio, act=act, dtype=dtype, depth=depth)
 
@@ -165,11 +175,12 @@ class ResidualBlock(nn.Module):
 
 class Transformer(nn.Module):
     def __init__(self, width: int, layers: int, heads: int, mlp_ratio: float = 4.0,
-                 causal: bool = False, act=quick_gelu, dtype: torch.dtype = torch.float32):
+                 causal: bool = False, act=quick_gelu, dtype: torch.dtype = torch.float32,
+                 scale_heads: bool = False):
         super().__init__()
         self.resblocks = nn.ModuleList(
             ResidualBlock(width, heads, mlp_ratio, causal=causal, act=act, dtype=dtype,
-                          depth=layers)
+                          depth=layers, scale_heads=scale_heads)
             for _ in range(layers)
         )
 

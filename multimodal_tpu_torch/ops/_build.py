@@ -23,9 +23,10 @@ import tempfile
 import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = tuple(os.path.join(_HERE, "csrc", name)
-                for name in ("block_attention_fwd.cu", "block_attention_bwd.cu"))
-HEADERS = (os.path.join(_HERE, "csrc", "block_attention_common.cuh"),)
+SOURCES = tuple(os.path.join(_HERE, "csrc", name) for name in (
+    "block_attention_fwd.cu", "block_attention_bwd.cu", "fused_attention.cu"))
+HEADERS = tuple(os.path.join(_HERE, "csrc", name) for name in (
+    "block_attention_common.cuh", "attention_passes.cuh"))
 BUILD_DIR = os.path.join(_HERE, "_build_cache")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -92,11 +93,19 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             path, _ = build()
             lib = ctypes.CDLL(path)
-            ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.mmt_block_attention_fwd.argtypes = [i32] + [ptr] * 12 + [i32] * 5 + [ptr]
-            lib.mmt_block_attention_fwd.restype = i32
-            lib.mmt_block_attention_bwd.argtypes = [i32] + [ptr] * 18 + [i32] * 5 + [ptr]
-            lib.mmt_block_attention_bwd.restype = i32
+            ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            entries = {  # every entry returns a cudaError_t
+                "mmt_block_attention_fwd": [i32] + [ptr] * 12 + [i32] * 5 + [ptr],
+                "mmt_block_attention_ln_fwd": [i32] + [ptr] * 15 + [i32] * 6 + [f32, ptr],
+                "mmt_block_attention_bwd": [i32] + [ptr] * 18 + [i32] * 5 + [ptr],
+                "mmt_block_attention_ln_bwd": [i32] + [ptr] * 25 + [i32] * 6 + [f32, ptr],
+                "mmt_fused_attention_fwd": [i32] + [ptr] * 4 + [i32] * 5 + [f32, ptr],
+                "mmt_fused_attention_bwd": [i32] + [ptr] * 8 + [i32] * 5 + [f32, ptr],
+                "mmt_ln_bwd_partial_rows": [i32],
+            }
+            for name, argtypes in entries.items():
+                getattr(lib, name).argtypes = argtypes
+                getattr(lib, name).restype = i32
             lib.mmt_error_string.argtypes = [i32]
             lib.mmt_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -1,47 +1,42 @@
 """Whole-block attention for short-to-medium sequences (S <= 320): QKV projections +
-per-head softmax(QK^T)V + output projection in one differentiable operator.
+per-head softmax(QK^T)V + output projection in one differentiable operator, with the
+pre-attention LayerNorm and the residual add folded in at S > 128.
 
-Port of ``multimodal_tpu/ops/block_attention.py`` (non-LN form: ``_block_attention`` and
-its custom VJP). ``BlockAttention`` is a ``torch.autograd.Function``. On a CUDA tensor its
-forward launches the hand-written Hopper kernel (``ops/csrc/block_attention_fwd.cu``) and
-its backward the backward kernel (``ops/csrc/block_attention_bwd.cu``), and nothing else;
-on a CPU tensor they run ``block_attention_reference`` and
-``block_attention_bwd_reference``, the plain PyTorch versions of the same math, which are
-also what the on-card comparison holds the kernels to. The pre-attention LayerNorm runs as
-the ``ln_rows`` pre-pass and the residual add after the operator, both in torch's
-autograd, as the reference does at S<=128.
+Port of ``multimodal_tpu/ops/block_attention.py``: ``_block_attention`` and
+``_block_attention_ln`` with their custom VJPs, and the dispatch of ``block_attention``.
+``BlockAttention`` and ``BlockAttentionLN`` are ``torch.autograd.Function``s. On a CUDA
+tensor their forwards launch the hand-written Hopper kernels
+(``ops/csrc/block_attention_fwd.cu``) and their backwards the backward kernels
+(``ops/csrc/block_attention_bwd.cu``), and nothing else; on a CPU tensor they run the plain
+PyTorch versions of the same math (``block_attention[_ln][_bwd]_reference``), which are also
+what the on-card comparison holds the kernels to. As in the reference, the LayerNorm is
+folded into the kernel only at S > 128, where the [B,S,W] round trips it saves are large;
+at S <= 128 it runs as the ``ln_rows`` pre-pass and the residual add after the operator,
+both in torch's autograd.
 
 Numerics kept from the TPU kernels: projections accumulate in f32 with the bias added in
 f32 before one rounding to the compute dtype; logits and softmax in f32 with the finite
 -1e30 causal mask (col <= row); probabilities and the attention output rounded to the
 compute dtype before their next product; the backward rounds exactly where ``_bwd_kernel``
-does (see ``block_attention_bwd_reference``).
+does (see ``block_attention_bwd_reference``). The folded LayerNorm takes f32 statistics,
+casts them to the compute dtype and rounds after every operation (``ln_rows``); its
+backward keeps the gradient of the LN output in f32 and applies the LN vjp in f32 with one
+rounding (see ``block_attention_ln_bwd_reference``).
 """
 
 from __future__ import annotations
 
-import threading
-
 import torch
+
+from multimodal_tpu_torch.ops import launches
 
 NEG_INF = -1e30
 MAX_BLOCK_SEQ = 320
+LN_FOLD_MIN_SEQ = 128  # the LayerNorm and the residual ride the kernel above this S
 LN_EPS = 1e-5
 
-_count_lock = threading.Lock()
-_launches = {"block_attention_fwd": 0, "block_attention_bwd": 0}
-
-
-def launch_counts() -> dict:
-    """Kernel launches since the last reset, by kernel name (plain-version calls excluded)."""
-    with _count_lock:
-        return dict(_launches)
-
-
-def reset_launch_counts():
-    with _count_lock:
-        for name in _launches:
-            _launches[name] = 0
+launches.register("block_attention_fwd", "block_attention_bwd",
+                  "block_attention_ln_fwd", "block_attention_ln_bwd")
 
 
 def block_attn_supported(batch: int, seq: int, width: int, heads: int) -> bool:
@@ -52,22 +47,27 @@ def block_attn_supported(batch: int, seq: int, width: int, heads: int) -> bool:
     return dim_ok and width % 128 == 0 and seq <= MAX_BLOCK_SEQ
 
 
-def ln_rows(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float):
-    """Row-wise LayerNorm with f32 statistics (var = max(E[x^2] - mean^2, 0), rsqrt in f32)
-    and compute-dtype arithmetic — the reference's ``_ln_rows``, which ``F.layer_norm`` does
-    not reproduce in bf16."""
-    x32 = x.to(torch.float32)
-    mean = x32.mean(dim=-1, keepdim=True)
-    var = torch.clamp(x32.square().mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
-    inv = torch.rsqrt(var + eps)
-    y = (x - mean.to(x.dtype)) * inv.to(x.dtype)
-    return y * gamma.to(x.dtype) + beta.to(x.dtype)
-
-
 def _acc(dtype: torch.dtype) -> torch.dtype:
     """The accumulation dtype: float32 for float32 and bfloat16 (float64 stays float64, so
     the plain versions can be gradient-checked)."""
     return torch.promote_types(dtype, torch.float32)
+
+
+def _ln_stats(x: torch.Tensor, eps: float):
+    """Row mean and rsqrt(var + eps) in f32, var = max(E[x^2] - mean^2, 0); each [..., 1]."""
+    x32 = x.to(_acc(x.dtype))
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = torch.clamp(x32.square().mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
+    return mean, torch.rsqrt(var + eps)
+
+
+def ln_rows(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float):
+    """Row-wise LayerNorm with f32 statistics and compute-dtype arithmetic — the reference's
+    ``_ln_rows``, which ``F.layer_norm`` does not reproduce in bf16: the mean and the inverse
+    deviation are cast to x.dtype and every operation rounds."""
+    mean, inv = _ln_stats(x, eps)
+    y = (x - mean.to(x.dtype)) * inv.to(x.dtype)
+    return y * gamma.to(x.dtype) + beta.to(x.dtype)
 
 
 def _proj(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -111,17 +111,26 @@ def block_attention_reference(x, wq, bq, wk, bk, wv, bv, wo, bo, *, heads: int,
     return _proj(_merge_heads(attn), wo, bo)
 
 
-def block_attention_bwd_reference(x, dy, wq, bq, wk, bk, wv, bv, wo, bo, *, heads: int,
-                                  causal: bool = False):
-    """Plain PyTorch version of the backward kernel: per-token (dx, dq, dk, dv, attnpre),
-    each [B, S, W] in x.dtype.
+def block_attention_ln_reference(x, gamma, beta, wq, bq, wk, bk, wv, bv, wo, bo, *,
+                                 heads: int, causal: bool = False,
+                                 residual: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the LN-fold forward kernel: attn(LN(x)), plus x with
+    ``residual`` (the projection rounds to x.dtype first, the add rounds again)."""
+    y = block_attention_reference(ln_rows(x, gamma, beta, LN_EPS), wq, bq, wk, bk, wv, bv, wo,
+                                  bo, heads=heads, causal=causal)
+    return y + x if residual else y
 
-    Step by step the TPU kernel's ``_bwd_kernel`` (non-LN form), with its rounding points:
-    q/k/v recomputed as in the forward; do = dy Wo^T accumulated in f32 and rounded; p
-    rounded (p32 is the rounded p widened); attnpre = p v and dv = p^T do, each rounded
-    once; dp = do v^T in f32; ds = p32 (dp - rowsum(dp p32)) rounded; dq = (ds k) scale and
-    dk = (ds^T q) scale, scaled in f32 before the rounding; dx = dq Wq^T + dk Wk^T + dv Wv^T
-    as ONE product over the concatenated [dq | dk | dv] and [Wq; Wk; Wv]^T, rounded once."""
+
+def _bwd_core(x, dy, wq, bq, wk, bk, wv, bv, wo, bo, heads: int, causal: bool):
+    """The backward up to the last product: (g, dq, dk, dv, attnpre) with g = d(x) still in
+    f32, the per-token gradients in x.dtype.
+
+    Step by step the TPU kernel's ``_bwd_kernel``, with its rounding points: q/k/v
+    recomputed as in the forward; do = dy Wo^T accumulated in f32 and rounded; p rounded
+    (p32 is the rounded p widened); attnpre = p v and dv = p^T do, each rounded once;
+    dp = do v^T in f32; ds = p32 (dp - rowsum(dp p32)) rounded; dq = (ds k) scale and
+    dk = (ds^T q) scale, scaled in f32 before the rounding; g = dq Wq^T + dk Wk^T + dv Wv^T
+    as ONE product over the concatenated [dq | dk | dv] and [Wq; Wk; Wv]^T."""
     f32, dt = _acc(x.dtype), x.dtype
     scale = (x.shape[-1] // heads) ** -0.5
     q, k, v = (_split_heads(_proj(x, w_, b_), heads) for w_, b_ in ((wq, bq), (wk, bk), (wv, bv)))
@@ -137,21 +146,54 @@ def block_attention_bwd_reference(x, dy, wq, bq, wk, bk, wv, bv, wo, bo, *, head
     dq, dk, dv, attnpre = (_merge_heads(t) for t in (dq, dk, dv, attnpre))
     dqkv = torch.cat([dq, dk, dv], dim=-1).to(f32)
     wqkv_t = torch.cat([wq.T, wk.T, wv.T], dim=0).to(f32)  # [3W, W]
-    dx = (dqkv @ wqkv_t).to(dt)
-    return dx, dq, dk, dv, attnpre
+    return dqkv @ wqkv_t, dq, dk, dv, attnpre
 
 
-def _check_kernel_operands(args, heads: int):
-    """What the CUDA kernels take: (x, [dy,] wq, bq, wk, bk, wv, bv, wo, bo) of one dtype
-    (float32 or bfloat16) on one device, contiguous and 16-byte aligned, at a supported
-    shape. Raises otherwise."""
+def block_attention_bwd_reference(x, dy, wq, bq, wk, bk, wv, bv, wo, bo, *, heads: int,
+                                  causal: bool = False):
+    """Plain PyTorch version of the backward kernel: per-token (dx, dq, dk, dv, attnpre),
+    each [B, S, W] in x.dtype; dx is ``_bwd_core``'s K = 3W product rounded once."""
+    g, dq, dk, dv, attnpre = _bwd_core(x, dy, wq, bq, wk, bk, wv, bv, wo, bo, heads, causal)
+    return g.to(x.dtype), dq, dk, dv, attnpre
+
+
+def block_attention_ln_bwd_reference(x, dy, gamma, beta, wq, bq, wk, bk, wv, bv, wo, bo, *,
+                                     heads: int, causal: bool = False, residual: bool = False):
+    """Plain PyTorch version of the LN-form backward kernel: (dx, dq, dk, dv, attnpre,
+    ln_out) in x.dtype and (dgamma, dbeta) [W] in f32.
+
+    Step by step ``_bwd_kernel``'s LN branch: the LayerNorm recomputed as in the forward
+    (f32 mean and inv kept) and emitted as ``ln_out``; ``_bwd_core`` on ln_out, whose
+    product g = d(ln_out) stays in f32; xhat32 = (x32 - mean) inv in f32 (not the
+    forward's compute-dtype xhat); dgamma = sum(g xhat32) and dbeta = sum(g) over every
+    token; dx = inv (g gamma - mean(g gamma) - xhat32 mean(g gamma xhat32)) in f32, plus
+    dy with ``residual``, rounded once."""
+    f32, dt = _acc(x.dtype), x.dtype
+    mean, inv = _ln_stats(x, LN_EPS)
+    ln_out = (x - mean.to(dt)) * inv.to(dt) * gamma.to(dt) + beta.to(dt)
+    g, dq, dk, dv, attnpre = _bwd_core(ln_out, dy, wq, bq, wk, bk, wv, bv, wo, bo, heads, causal)
+    xhat32 = (x.to(f32) - mean) * inv
+    dgamma, dbeta = (g * xhat32).sum(dim=(0, 1)), g.sum(dim=(0, 1))
+    dxhat = g * gamma.to(f32)
+    dx = inv * (dxhat - dxhat.mean(dim=-1, keepdim=True)
+                - xhat32 * (dxhat * xhat32).mean(dim=-1, keepdim=True))
+    if residual:
+        dx = dx + dy.to(f32)
+    return dx.to(dt), dq, dk, dv, attnpre, ln_out, dgamma, dbeta
+
+
+def _check_kernel_operands(args, heads: int, ln: bool = False):
+    """What the CUDA kernels take: (x, [dy,] [gamma, beta,] wq, bq, wk, bk, wv, bv, wo, bo)
+    of one dtype (float32 or bfloat16) on one device, contiguous and 16-byte aligned, at a
+    supported shape. Raises otherwise."""
     x = args[0]
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"block_attention kernel takes float32 or bfloat16, got {x.dtype}")
     b, s, w = x.shape
     if not block_attn_supported(b, s, w, heads):
         raise ValueError(f"block_attention kernel does not take B={b} S={s} W={w} H={heads}")
-    shapes = [(b, s, w)] * (len(args) - 8) + [(w, w), (w,)] * 4
+    n_ln = 2 if ln else 0
+    shapes = [(b, s, w)] * (len(args) - 8 - n_ln) + [(w,)] * n_ln + [(w, w), (w,)] * 4
     for t, shape in zip(args, shapes):
         if t.device != x.device or t.dtype != x.dtype or tuple(t.shape) != shape:
             raise ValueError(
@@ -159,6 +201,10 @@ def _check_kernel_operands(args, heads: int):
                 f"{shape} {x.dtype} on {x.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("block_attention operands must be contiguous and 16-byte aligned")
+
+
+def _dtype_code(x: torch.Tensor) -> int:
+    return 0 if x.dtype == torch.float32 else 1
 
 
 def _block_attention_cuda(x, wq, bq, wk, bk, wv, bv, wo, bo, *, heads: int,
@@ -175,12 +221,34 @@ def _block_attention_cuda(x, wq, bq, wk, bk, wv, bv, wo, bo, *, heads: int,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mmt_block_attention_fwd(
-            0 if x.dtype == torch.float32 else 1, *(t.data_ptr() for t in args),
+            _dtype_code(x), *(t.data_ptr() for t in args),
             qkv.data_ptr(), attn.data_ptr(), y.data_ptr(),
             b, s, w, heads, int(causal), stream)
     _build.check(lib, err, "block_attention_fwd launch")
-    with _count_lock:
-        _launches["block_attention_fwd"] += 1
+    launches.count("block_attention_fwd")
+    return y
+
+
+def _block_attention_ln_cuda(x, gamma, beta, wq, bq, wk, bk, wv, bv, wo, bo, *, heads: int,
+                             causal: bool, residual: bool) -> torch.Tensor:
+    from multimodal_tpu_torch.ops import _build
+
+    args = (x, gamma, beta, wq, bq, wk, bk, wv, bv, wo, bo)
+    _check_kernel_operands(args, heads, ln=True)
+    b, s, w = x.shape
+    lib = _build.load()
+    ln_stats = torch.empty((2, b * s), dtype=torch.float32, device=x.device)
+    qkv = torch.empty((3, b * s, w), dtype=x.dtype, device=x.device)
+    attn = torch.empty((b * s, w), dtype=x.dtype, device=x.device)
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mmt_block_attention_ln_fwd(
+            _dtype_code(x), *(t.data_ptr() for t in args),
+            ln_stats.data_ptr(), qkv.data_ptr(), attn.data_ptr(), y.data_ptr(),
+            b, s, w, heads, int(causal), int(residual), LN_EPS, stream)
+    _build.check(lib, err, "block_attention_ln_fwd launch")
+    launches.count("block_attention_ln_fwd")
     return y
 
 
@@ -200,13 +268,42 @@ def _block_attention_bwd_cuda(x, dy, wq, bq, wk, bk, wv, bv, wo, bo, *, heads: i
         # the stream autograd made current for this backward, never one cached earlier
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mmt_block_attention_bwd(
-            0 if x.dtype == torch.float32 else 1, *(t.data_ptr() for t in args),
+            _dtype_code(x), *(t.data_ptr() for t in args),
             qkv.data_ptr(), do.data_ptr(), stats.data_ptr(), *(t.data_ptr() for t in outs),
             b, s, w, heads, int(causal), stream)
     _build.check(lib, err, "block_attention_bwd launch")
-    with _count_lock:
-        _launches["block_attention_bwd"] += 1
+    launches.count("block_attention_bwd")
     return outs
+
+
+def _block_attention_ln_bwd_cuda(x, dy, gamma, beta, wq, bq, wk, bk, wv, bv, wo, bo, *,
+                                 heads: int, causal: bool, residual: bool):
+    from multimodal_tpu_torch.ops import _build
+
+    args = (x, dy, gamma, beta, wq, bq, wk, bk, wv, bv, wo, bo)
+    _check_kernel_operands(args, heads, ln=True)
+    b, s, w = x.shape
+    lib = _build.load()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    ln_stats = torch.empty((2, b * s), **f32)
+    qkv = torch.empty((3, b * s, w), dtype=x.dtype, device=x.device)
+    do = torch.empty((b * s, w), dtype=x.dtype, device=x.device)
+    stats = torch.empty((3, b * heads * s), **f32)
+    g32 = torch.empty((b * s, w), **f32)
+    outs = tuple(torch.empty_like(x) for _ in range(6))  # dx, dq, dk, dv, attnpre, ln_out
+    # one row of partial sums per block of token rows, each block summed in a fixed order
+    parts = torch.empty((2, lib.mmt_ln_bwd_partial_rows(b * s), w), **f32)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mmt_block_attention_ln_bwd(
+            _dtype_code(x), *(t.data_ptr() for t in args),
+            ln_stats.data_ptr(), qkv.data_ptr(), do.data_ptr(), stats.data_ptr(),
+            g32.data_ptr(), *(t.data_ptr() for t in outs), parts[0].data_ptr(),
+            parts[1].data_ptr(), b, s, w, heads, int(causal), int(residual), LN_EPS, stream)
+    _build.check(lib, err, "block_attention_ln_bwd launch")
+    launches.count("block_attention_ln_bwd")
+    dgamma, dbeta = parts.sum(dim=1)  # the reference's plain sum over the partials
+    return (*outs, dgamma, dbeta)
 
 
 def block_attention_bwd(x, dy, wq, bq, wk, bk, wv, bv, wo, bo, *, heads: int,
@@ -219,6 +316,21 @@ def block_attention_bwd(x, dy, wq, bq, wk, bk, wv, bv, wo, bo, *, heads: int,
     if x.device.type == "cpu":
         return block_attention_bwd_reference(x, dy, wq, bq, wk, bk, wv, bv, wo, bo,
                                              heads=heads, causal=causal)
+    raise ValueError(f"block_attention runs on cuda or cpu tensors, not {x.device}")
+
+
+def block_attention_ln_bwd(x, dy, gamma, beta, wq, bq, wk, bk, wv, bv, wo, bo, *, heads: int,
+                           causal: bool = False, residual: bool = False):
+    """(dx, dq, dk, dv, attnpre, ln_out, dgamma, dbeta) of the LN-fold operator: on a CUDA
+    tensor the LN-form backward kernel (a build or launch error raises), on a CPU tensor
+    its plain version. gamma and beta are of x.dtype; dgamma and dbeta come back in f32."""
+    if x.is_cuda:
+        return _block_attention_ln_bwd_cuda(x, dy, gamma, beta, wq, bq, wk, bk, wv, bv, wo, bo,
+                                            heads=heads, causal=causal, residual=residual)
+    if x.device.type == "cpu":
+        return block_attention_ln_bwd_reference(x, dy, gamma, beta, wq, bq, wk, bk, wv, bv, wo,
+                                                bo, heads=heads, causal=causal,
+                                                residual=residual)
     raise ValueError(f"block_attention runs on cuda or cpu tensors, not {x.device}")
 
 
@@ -265,17 +377,69 @@ class BlockAttention(torch.autograd.Function):
         return dx, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo, None, None
 
 
+class BlockAttentionLN(torch.autograd.Function):
+    """The LN-fold operator with its gradient, as the reference's ``_block_attention_ln``
+    custom VJP: x is the pre-LN residual stream; the forward normalizes inside the kernel
+    and, with ``residual``, adds x there too. The backward takes dx (LN vjp and residual
+    cotangent included), the per-token gradients, ``ln_out`` and the summed dgamma/dbeta
+    from the LN-form backward kernel; the weight gradients are whole-batch products with
+    ``ln_out`` (not x), the bias gradients sums."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, wq, bq, wk, bk, wv, bv, wo, bo, heads: int,
+                causal: bool, residual: bool):
+        g_, b_ = gamma.to(x.dtype), beta.to(x.dtype)
+        if x.is_cuda:
+            y = _block_attention_ln_cuda(x, g_, b_, wq, bq, wk, bk, wv, bv, wo, bo,
+                                         heads=heads, causal=causal, residual=residual)
+        elif x.device.type == "cpu":
+            y = block_attention_ln_reference(x, g_, b_, wq, bq, wk, bk, wv, bv, wo, bo,
+                                             heads=heads, causal=causal, residual=residual)
+        else:
+            raise ValueError(f"block_attention runs on cuda or cpu tensors, not {x.device}")
+        ctx.save_for_backward(x, gamma, beta, wq, bq, wk, bk, wv, bv, wo, bo)
+        ctx.heads, ctx.causal, ctx.residual = heads, causal, residual
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, beta, wq, bq, wk, bk, wv, bv, wo, bo = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx, dq, dk, dv, attnpre, ln_out, dgamma, dbeta = block_attention_ln_bwd(
+            x, dy, gamma.to(x.dtype), beta.to(x.dtype), wq, bq, wk, bk, wv, bv, wo, bo,
+            heads=ctx.heads, causal=ctx.causal, residual=ctx.residual)
+        dwq, dwk, dwv = (_attn_wgrad(ln_out, dz, w_.dtype)
+                         for dz, w_ in ((dq, wq), (dk, wk), (dv, wv)))
+        dwo = _attn_wgrad(attnpre, dy, wo.dtype)
+        dbq, dbk, dbv, dbo = (_bias_grad(dz, b_.dtype)
+                              for dz, b_ in ((dq, bq), (dk, bk), (dv, bv), (dy, bo)))
+        return (dx, dgamma.to(gamma.dtype), dbeta.to(beta.dtype), dwq, dbq, dwk, dbk, dwv, dbv,
+                dwo, dbo, None, None, None)
+
+
+def block_attention_ln(x, gamma, beta, wq, bq, wk, bk, wv, bv, wo, bo, *, heads: int,
+                       causal: bool = False, residual: bool = False) -> torch.Tensor:
+    """The LN-fold operator at any supported S: attn(LN(x)), plus x with ``residual``."""
+    return BlockAttentionLN.apply(x, gamma, beta, wq, bq, wk, bk, wv, bv, wo, bo, heads, causal,
+                                  residual)
+
+
 def block_attention(x, wq, bq, wk, bk, wv, bv, wo, bo, *, heads: int, causal: bool = False,
                     ln_scale=None, ln_bias=None, residual: bool = False) -> torch.Tensor:
     """Fused QKV projection + multi-head attention + output projection, differentiable.
 
     x: [B, S, W]; weights [W, W] in the [in, out] layout, biases [W], all in x.dtype.
-    With ``ln_scale``/``ln_bias``, x is the pre-LN residual stream and the LayerNorm runs
-    first (``ln_rows``); with ``residual=True`` (requires them) the result is
-    ``x + attn(LN(x))``. A CUDA tensor goes to the hand-written kernels, forward and
-    backward (a build or launch error raises), a CPU tensor to their plain versions."""
+    With ``ln_scale``/``ln_bias``, x is the pre-LN residual stream; with ``residual=True``
+    (requires them) the result is ``x + attn(LN(x))``. At S > 128 the LayerNorm and the
+    residual add are folded into the kernels (``BlockAttentionLN``); at S <= 128 the
+    LayerNorm runs first as ``ln_rows`` and the add after the operator, as the reference
+    measured best. A CUDA tensor goes to the hand-written kernels, forward and backward (a
+    build or launch error raises), a CPU tensor to their plain versions."""
     if residual and ln_scale is None:
         raise ValueError("residual=True requires the pre-LN form (ln_scale)")
+    if ln_scale is not None and x.shape[1] > LN_FOLD_MIN_SEQ:
+        return block_attention_ln(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo,
+                                  heads=heads, causal=causal, residual=residual)
     x_raw = x
     if ln_scale is not None:
         x = ln_rows(x, ln_scale, ln_bias, LN_EPS)

@@ -1,10 +1,11 @@
 // Whole-block attention backward for short sequences (S <= 320), hand-written for Hopper.
 //
 // Replaces the Pallas TPU kernels multimodal_tpu/ops/block_attention.py:_bwd_kernel and
-// _bwd_kernel_large in their non-LN form (both launched by _block_attention_bwd). The two
-// compute the same outputs and differ only in how they budget the TPU's VMEM (S <= 128 and
-// 128 < S <= 320); this one design covers every S <= 320 with D <= 128. For x and dy
-// [B,S,W] and the four [W,W] weights in the JAX [in,out] layout it computes
+// _bwd_kernel_large (both launched by _block_attention_bwd; _bwd_kernel in its LN form by
+// _block_attention_ln_bwd). The two compute the same outputs and differ only in how they
+// budget the TPU's VMEM (S <= 128 and 128 < S <= 320); this one design covers every S <= 320
+// with D <= 128. For x and dy [B,S,W] and the four [W,W] weights in the JAX [in,out] layout
+// it computes
 //
 //   q,k,v   = x @ Wq|Wk|Wv + b               as the forward (f32 accumulation, bias in f32,
 //                                             one rounding to T)
@@ -25,6 +26,23 @@
 // rebuilds p and ds from the saved row numbers; and the transposed-weight GEMM for dx. No
 // [B,H,S,S] tensor reaches device memory.
 //
+// The LN form (mmt_block_attention_ln_bwd; x is the pre-LN residual stream) adds
+//
+//   ln_out  = LN(x)                           recomputed (f32 mean and inv kept), written in T
+//                                             for the whole-batch weight-gradient products
+//   g       = [dq | dk | dv] @ [Wq; Wk; Wv]^T the gradient of ln_out, kept in *float32*
+//   xhat32  = (x32 - mean) * inv              f32, not the forward's compute-dtype xhat
+//   dgamma, dbeta partials = sum_rows(g * xhat32), sum_rows(g)   one f32 [W] row per block
+//   dx      = inv * (g gamma - mean(g gamma) - xhat32 * mean(g gamma xhat32)) [+ dy]
+//                                             all in f32, + dy32 with the residual, one rounding
+//
+// as a statistics launch and an elementwise launch for ln_out in front, the five launches
+// above run on ln_out with the last GEMM writing float32, and a row kernel behind. The GEMM
+// owns 128 columns of a row while the LN vjp needs means over all W, hence the f32 scratch
+// [B*S, W] between them (155 MB at B=256, S=197, W=768). The partial sums are written one
+// row per block, in a fixed order, and summed outside: no float atomics, so a result never
+// differs from run to run.
+//
 // What bounds it on the card: the five [B*S,W]x[W,W]-sized GEMM equivalents (q, k, v, do
 // and the K = 3W dx product) carry ~90% of the FLOPs at ViT-B/32 shapes, so like the
 // forward it is compute-bound on CUDA-core float FMAs; the attention passes are bound by
@@ -43,22 +61,23 @@
 // Every product is a float FMA on the CUDA cores (bf16 operands are widened in shared
 // memory), so float32 is true float32. wgmma, TMA and fewer launches are later work.
 
-#include "block_attention_common.cuh"
+#include "attention_passes.cuh"
 
 namespace {
 
 // ----------------------------------------------------------------------------- GEMM, W^T
 // C[M,N] = sum_{z < nseg} A_z[M,kseg] @ W_z[N,kseg]^T with one f32 accumulator and one
-// rounding, no bias. A_z row-major; W_z row-major [N, kseg], i.e. a [W_in, W_out] weight
-// read as its transpose. Requires N % 128 == 0 and kseg % 16 == 0; M is ragged and masked.
+// rounding to TOut (none when TOut is float: the LN form keeps this product in f32), no
+// bias. A_z row-major; W_z row-major [N, kseg], i.e. a [W_in, W_out] weight read as its
+// transpose. Requires N % 128 == 0 and kseg % 16 == 0; M is ragged and masked.
 struct NtOperands {
   const void* a[3];
   const void* w[3];
 };
 
-template <typename T>
+template <typename T, typename TOut>
 __global__ void __launch_bounds__(kGemmThreads)
-gemm_nt_kernel(NtOperands ops, T* __restrict__ c, int m, int n, int kseg, int nseg) {
+gemm_nt_kernel(NtOperands ops, TOut* __restrict__ c, int m, int n, int kseg, int nseg) {
   __shared__ float as[kBK][kBM];  // A tile, transposed: as[kk][row]
   __shared__ float bs[kBK][kBN];  // W tile, transposed: bs[kk][col]
 
@@ -117,338 +136,202 @@ gemm_nt_kernel(NtOperands ops, T* __restrict__ c, int m, int n, int kseg, int ns
   }
 }
 
-// ----------------------------------------------------------------------------- dQ pass
-// One block per (16-row query tile, head, image). stats is [3][B*H*S]: the row max, the row
-// sum of exp and rowsum(dp * p) of every query row, read back by the dK/dV pass.
+// ----------------------------------------------------------------------------- LN form
+// ln_out = LN(x) in T, elementwise over groups of four columns.
 template <typename T>
-__global__ void __launch_bounds__(kAttnThreads)
-attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ kmat,
-                   const T* __restrict__ v, const T* __restrict__ dout,
-                   T* __restrict__ attnpre, T* __restrict__ dq, float* __restrict__ stats,
-                   int s, int w, int d, int s_pad, float scale, int causal) {
-  extern __shared__ float smem[];
-  const int ld = d + 1;
-  float* qs = smem;                // [kBQ][ld]
-  float* dos = qs + kBQ * ld;      // [kBQ][ld]
-  float* kv = dos + kBQ * ld;      // [kChunk][ld] key or value chunk
-  float* ps = kv + kChunk * ld;    // [kBQ][s_pad] logits, then p
-  float* dps = ps + kBQ * s_pad;   // [kBQ][s_pad] dp, then ds
+__global__ void __launch_bounds__(kLnThreads)
+ln_rows_kernel(const T* __restrict__ x, const float* __restrict__ mean,
+               const float* __restrict__ inv, const T* __restrict__ gamma,
+               const T* __restrict__ beta, T* __restrict__ out, int m, int w) {
+  const size_t groups = (size_t)m * (w / 4);
+  for (size_t e = (size_t)blockIdx.x * kLnThreads + threadIdx.x; e < groups;
+       e += (size_t)gridDim.x * kLnThreads) {
+    const int row = (int)(e / (w / 4)), col = (int)(e % (w / 4)) * 4;
+    const float mean_t = round_to<T>(mean[row]), inv_t = round_to<T>(inv[row]);
+    float v[4], g[4], bt[4];
+    load4(x + (size_t)row * w + col, v);
+    load4(gamma + col, g);
+    load4(beta + col, bt);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = ln_apply<T>(v[i], mean_t, inv_t, g[i], bt[i]);
+    store4(out + (size_t)row * w + col, v);
+  }
+}
 
+// The LN vjp over g = d(ln_out) (float32), one block per kLnBwdRows rows. First one warp per
+// row: the two row means, then dx. Then one thread per column: the block's partial dgamma
+// and dbeta, summed over its rows in order.
+constexpr int kLnBwdRows = 32;
+
+template <typename T>
+__global__ void __launch_bounds__(kLnThreads)
+ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* __restrict__ g,
+              const float* __restrict__ mean, const float* __restrict__ inv,
+              const T* __restrict__ gamma, T* __restrict__ dx, float* __restrict__ dg_part,
+              float* __restrict__ db_part, int m, int w) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int r0 = blockIdx.x * kBQ, head = blockIdx.y, img = blockIdx.z;
-  const int rows = min(kBQ, s - r0);
-  const size_t base = (size_t)img * s * w + (size_t)head * d;
-  const size_t plane = (size_t)gridDim.z * gridDim.y * s;
-  float* st = stats + ((size_t)img * gridDim.y + head) * s + r0;
-  const int kmax = causal ? min(s, r0 + rows) : s;
+  const int r0 = blockIdx.x * kLnBwdRows;
+  const int rows = min(kLnBwdRows, m - r0);
 
-  for (int e = tid; e < kBQ * d; e += kAttnThreads) {
-    const int r = e / d, col = e % d;
-    const size_t at = base + (size_t)(r0 + r) * w + col;
-    qs[r * ld + col] = r < rows ? to_float(q[at]) : 0.f;
-    dos[r * ld + col] = r < rows ? to_float(dout[at]) : 0.f;
-  }
-
-  // logits = q k^T * scale, masked
-  for (int c0 = 0; c0 < kmax; c0 += kChunk) {
-    __syncthreads();
-    for (int e = tid; e < kChunk * d; e += kAttnThreads) {
-      const int r = e / d, col = e % d;
-      kv[r * ld + col] = c0 + r < s ? to_float(kmat[base + (size_t)(c0 + r) * w + col]) : 0.f;
-    }
-    __syncthreads();
-    for (int e = tid; e < kBQ * kChunk; e += kAttnThreads) {
-      const int r = e / kChunk, c = e % kChunk, key = c0 + c;
-      if (key >= kmax) continue;
-      float dot = 0.f;
-      for (int col = 0; col < d; ++col) dot = fmaf(qs[r * ld + col], kv[c * ld + col], dot);
-      ps[r * s_pad + key] = (causal && key > r0 + r) ? kNegInf : __fmul_rn(dot, scale);
-    }
-  }
-  __syncthreads();
-
-  // softmax per row, one warp per row; the max and the sum are kept for the dK/dV pass
-  for (int r = warp; r < rows; r += kAttnThreads / 32) {
-    float* row = ps + r * s_pad;
-    float mx = kNegInf;
-    for (int j = lane; j < kmax; j += 32) mx = fmaxf(mx, row[j]);
+  for (int r = warp; r < rows; r += kLnThreads / 32) {
+    const size_t at = (size_t)(r0 + r) * w;
+    const float mu = mean[r0 + r], iv = inv[r0 + r];
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = lane * 4; c < w; c += 128) {
+      float xv[4], gv[4], gm[4];
+      load4(x + at + c, xv);
+      load4(g + at + c, gv);
+      load4(gamma + c, gm);
 #pragma unroll
-    for (int off = 16; off > 0; off /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    float sum = 0.f;
-    for (int j = lane; j < kmax; j += 32) {
-      const float e = expf(__fsub_rn(row[j], mx));
-      row[j] = e;
-      sum += e;
+      for (int i = 0; i < 4; ++i) {
+        const float xhat = __fmul_rn(__fsub_rn(xv[i], mu), iv);
+        const float dxhat = __fmul_rn(gv[i], gm[i]);
+        s1 += dxhat;
+        s2 = fmaf(dxhat, xhat, s2);
+      }
     }
 #pragma unroll
-    for (int off = 16; off > 0; off /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    for (int j = lane; j < kmax; j += 32) row[j] = to_float(from_float<T>(__fdiv_rn(row[j], sum)));
-    if (lane == 0) {
-      st[r] = mx;
-      st[plane + r] = sum;
+    for (int off = 16; off > 0; off /= 2) {
+      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+    }
+    const float m1 = s1 / (float)w, m2 = s2 / (float)w;
+    for (int c = lane * 4; c < w; c += 128) {
+      float xv[4], gv[4], gm[4], out[4], dyv[4] = {0.f, 0.f, 0.f, 0.f};
+      load4(x + at + c, xv);
+      load4(g + at + c, gv);
+      load4(gamma + c, gm);
+      if (dy != nullptr) load4(dy + at + c, dyv);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float xhat = __fmul_rn(__fsub_rn(xv[i], mu), iv);
+        const float dxhat = __fmul_rn(gv[i], gm[i]);
+        out[i] = __fmul_rn(iv, __fsub_rn(__fsub_rn(dxhat, m1), __fmul_rn(xhat, m2)));
+        if (dy != nullptr) out[i] = __fadd_rn(out[i], dyv[i]);
+      }
+      store4(dx + at + c, out);
     }
   }
 
-  // one pass over the values: attnpre = p @ v and dp = do v^T
-  constexpr int kMaxOut = kBQ * kMaxHeadDim / kAttnThreads;
-  float acc[kMaxOut];
-#pragma unroll
-  for (int i = 0; i < kMaxOut; ++i) acc[i] = 0.f;
-  for (int c0 = 0; c0 < kmax; c0 += kChunk) {
-    __syncthreads();
-    for (int e = tid; e < kChunk * d; e += kAttnThreads) {
-      const int r = e / d, col = e % d;
-      kv[r * ld + col] = c0 + r < s ? to_float(v[base + (size_t)(c0 + r) * w + col]) : 0.f;
+  for (int c = tid; c < w; c += kLnThreads) {
+    float dg = 0.f, db = 0.f;
+    for (int r = 0; r < rows; ++r) {
+      const size_t at = (size_t)(r0 + r) * w + c;
+      const float gv = g[at];
+      const float xhat = __fmul_rn(__fsub_rn(to_float(x[at]), mean[r0 + r]), inv[r0 + r]);
+      dg = fmaf(gv, xhat, dg);
+      db += gv;
     }
-    __syncthreads();
-    for (int e = tid; e < kBQ * kChunk; e += kAttnThreads) {
-      const int r = e / kChunk, c = e % kChunk, key = c0 + c;
-      if (key >= kmax) continue;
-      float dot = 0.f;
-      for (int col = 0; col < d; ++col) dot = fmaf(dos[r * ld + col], kv[c * ld + col], dot);
-      dps[r * s_pad + key] = dot;
-    }
-    const int cn = min(kChunk, kmax - c0);
-#pragma unroll
-    for (int i = 0; i < kMaxOut; ++i) {
-      const int o = tid + i * kAttnThreads;
-      if (o >= kBQ * d) break;
-      const int r = o / d, col = o % d;
-      if (r >= rows) continue;
-      const float* prow = ps + r * s_pad + c0;
-      float a = acc[i];
-      for (int c = 0; c < cn; ++c) a = fmaf(prow[c], kv[c * ld + col], a);
-      acc[i] = a;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kMaxOut; ++i) {
-    const int o = tid + i * kAttnThreads;
-    if (o >= kBQ * d) break;
-    const int r = o / d, col = o % d;
-    if (r < rows) attnpre[base + (size_t)(r0 + r) * w + col] = from_float<T>(acc[i]);
-  }
-  __syncthreads();
-
-  // ds = p * (dp - rowsum(dp * p)), rounded to T; rowsum kept for the dK/dV pass
-  for (int r = warp; r < rows; r += kAttnThreads / 32) {
-    const float* prow = ps + r * s_pad;
-    float* drow = dps + r * s_pad;
-    float dl = 0.f;
-    for (int j = lane; j < kmax; j += 32) dl = fmaf(drow[j], prow[j], dl);
-#pragma unroll
-    for (int off = 16; off > 0; off /= 2) dl += __shfl_xor_sync(0xffffffffu, dl, off);
-    for (int j = lane; j < kmax; j += 32)
-      drow[j] = to_float(from_float<T>(__fmul_rn(prow[j], __fsub_rn(drow[j], dl))));
-    if (lane == 0) st[2 * plane + r] = dl;
-  }
-
-  // dq = (ds @ k) * scale
-#pragma unroll
-  for (int i = 0; i < kMaxOut; ++i) acc[i] = 0.f;
-  for (int c0 = 0; c0 < kmax; c0 += kChunk) {
-    __syncthreads();
-    for (int e = tid; e < kChunk * d; e += kAttnThreads) {
-      const int r = e / d, col = e % d;
-      kv[r * ld + col] = c0 + r < s ? to_float(kmat[base + (size_t)(c0 + r) * w + col]) : 0.f;
-    }
-    __syncthreads();
-    const int cn = min(kChunk, kmax - c0);
-#pragma unroll
-    for (int i = 0; i < kMaxOut; ++i) {
-      const int o = tid + i * kAttnThreads;
-      if (o >= kBQ * d) break;
-      const int r = o / d, col = o % d;
-      if (r >= rows) continue;
-      const float* drow = dps + r * s_pad + c0;
-      float a = acc[i];
-      for (int c = 0; c < cn; ++c) a = fmaf(drow[c], kv[c * ld + col], a);
-      acc[i] = a;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kMaxOut; ++i) {
-    const int o = tid + i * kAttnThreads;
-    if (o >= kBQ * d) break;
-    const int r = o / d, col = o % d;
-    if (r < rows) dq[base + (size_t)(r0 + r) * w + col] = from_float<T>(__fmul_rn(acc[i], scale));
+    dg_part[(size_t)blockIdx.x * w + c] = dg;
+    db_part[(size_t)blockIdx.x * w + c] = db;
   }
 }
 
-// ----------------------------------------------------------------------------- dK/dV pass
-// One block per (16-key tile, head, image); query rows stream through in 32-row chunks.
-// Under the causal mask a row before the tile's first key sees none of its keys (p = ds = 0
-// exactly), so the stream starts at that key.
-constexpr int kKeyTile = 16, kRowChunk = 32;
+// Scratch and outputs of one backward call. ln == false: the non-LN form, where xin is the
+// kernel's input and dx the rounded K=3W product. ln == true: the fields below it are used.
+struct BwdBuffers {
+  void* qkv;      // [3, B*S, W] T
+  void* dout;     // [B*S, W] T
+  float* stats;   // [3, B*H*S] f32
+  void *dx, *dq, *dk, *dv, *attnpre;  // outputs [B, S, W] T
+  // LN form
+  float* ln_stats;  // [2, B*S] f32: mean, inv
+  float* g32;       // [B*S, W] f32: d(ln_out)
+  void* ln_out;     // output [B, S, W] T
+  float* dg_part;   // outputs [ceil(B*S / kLnBwdRows), W] f32
+  float* db_part;
+};
 
 template <typename T>
-__global__ void __launch_bounds__(kAttnThreads)
-attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ kmat,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ stats, T* __restrict__ dk, T* __restrict__ dv,
-                    int s, int w, int d, float scale, int causal) {
-  extern __shared__ float smem[];
-  const int ld = d + 1;
-  float* ks = smem;                      // [kKeyTile][ld]
-  float* vs = ks + kKeyTile * ld;        // [kKeyTile][ld]
-  float* qs = vs + kKeyTile * ld;        // [kRowChunk][ld]
-  float* dos = qs + kRowChunk * ld;      // [kRowChunk][ld]
-  float* pt = dos + kRowChunk * ld;      // [kRowChunk][kKeyTile] p
-  float* dst = pt + kRowChunk * kKeyTile;  // [kRowChunk][kKeyTile] ds
-  float* rst = dst + kRowChunk * kKeyTile;  // [3][kRowChunk] max, sum, rowsum(dp * p)
-
-  const int tid = threadIdx.x;
-  const int j0 = blockIdx.x * kKeyTile, head = blockIdx.y, img = blockIdx.z;
-  const int keys = min(kKeyTile, s - j0);
-  const size_t base = (size_t)img * s * w + (size_t)head * d;
-  const size_t plane = (size_t)gridDim.z * gridDim.y * s;
-  const float* st = stats + ((size_t)img * gridDim.y + head) * s;
-
-  for (int e = tid; e < kKeyTile * d; e += kAttnThreads) {
-    const int j = e / d, col = e % d;
-    const size_t at = base + (size_t)(j0 + j) * w + col;
-    ks[j * ld + col] = j < keys ? to_float(kmat[at]) : 0.f;
-    vs[j * ld + col] = j < keys ? to_float(v[at]) : 0.f;
-  }
-
-  constexpr int kMaxOut = kKeyTile * kMaxHeadDim / kAttnThreads;
-  float acc_k[kMaxOut], acc_v[kMaxOut];
-#pragma unroll
-  for (int i = 0; i < kMaxOut; ++i) acc_k[i] = acc_v[i] = 0.f;
-
-  for (int q0 = causal ? j0 : 0; q0 < s; q0 += kRowChunk) {
-    const int nr = min(kRowChunk, s - q0);
-    __syncthreads();
-    for (int e = tid; e < kRowChunk * d; e += kAttnThreads) {
-      const int r = e / d, col = e % d;
-      const size_t at = base + (size_t)(q0 + r) * w + col;
-      qs[r * ld + col] = r < nr ? to_float(q[at]) : 0.f;
-      dos[r * ld + col] = r < nr ? to_float(dout[at]) : 0.f;
-    }
-    for (int r = tid; r < kRowChunk; r += kAttnThreads) {
-      rst[r] = r < nr ? st[q0 + r] : 0.f;
-      rst[kRowChunk + r] = r < nr ? st[plane + q0 + r] : 1.f;
-      rst[2 * kRowChunk + r] = r < nr ? st[2 * plane + q0 + r] : 0.f;
-    }
-    __syncthreads();
-    // p and ds of every (row, key) pair, with the dQ pass's exact operation order
-    for (int e = tid; e < kRowChunk * kKeyTile; e += kAttnThreads) {
-      const int r = e / kKeyTile, j = e % kKeyTile;
-      float p = 0.f, ds = 0.f;
-      if (r < nr && j < keys) {
-        float dot = 0.f;
-        for (int col = 0; col < d; ++col) dot = fmaf(qs[r * ld + col], ks[j * ld + col], dot);
-        const float logit = (causal && j0 + j > q0 + r) ? kNegInf : __fmul_rn(dot, scale);
-        p = to_float(from_float<T>(
-            __fdiv_rn(expf(__fsub_rn(logit, rst[r])), rst[kRowChunk + r])));
-        float dp = 0.f;
-        for (int col = 0; col < d; ++col) dp = fmaf(dos[r * ld + col], vs[j * ld + col], dp);
-        ds = to_float(from_float<T>(__fmul_rn(p, __fsub_rn(dp, rst[2 * kRowChunk + r]))));
-      }
-      pt[r * kKeyTile + j] = p;
-      dst[r * kKeyTile + j] = ds;
-    }
-    __syncthreads();
-    // dv += p^T do, dk += ds^T q over this chunk's rows
-#pragma unroll
-    for (int i = 0; i < kMaxOut; ++i) {
-      const int o = tid + i * kAttnThreads;
-      if (o >= kKeyTile * d) break;
-      const int j = o / d, col = o % d;
-      float ak = acc_k[i], av = acc_v[i];
-      for (int r = 0; r < nr; ++r) {
-        av = fmaf(pt[r * kKeyTile + j], dos[r * ld + col], av);
-        ak = fmaf(dst[r * kKeyTile + j], qs[r * ld + col], ak);
-      }
-      acc_k[i] = ak;
-      acc_v[i] = av;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kMaxOut; ++i) {
-    const int o = tid + i * kAttnThreads;
-    if (o >= kKeyTile * d) break;
-    const int j = o / d, col = o % d;
-    if (j >= keys) continue;
-    const size_t at = base + (size_t)(j0 + j) * w + col;
-    dk[at] = from_float<T>(__fmul_rn(acc_k[i], scale));
-    dv[at] = from_float<T>(acc_v[i]);
-  }
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel* kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-template <typename T>
-cudaError_t launch_bwd(const void* x, const void* dy, const void* const* wts,
-                       const void* const* biases, void* qkv, void* dout, float* stats,
-                       void* dx, void* dq, void* dk, void* dv, void* attnpre, int b, int s,
-                       int w, int heads, int causal, cudaStream_t stream) {
+cudaError_t launch_bwd(const void* x, const void* dy, const void* gamma, const void* beta,
+                       const void* const* wts, const void* const* biases, const BwdBuffers& buf,
+                       int b, int s, int w, int heads, int causal, bool ln, int residual,
+                       float eps, cudaStream_t stream) {
   const int m = b * s, d = w / heads;
   const size_t plane = (size_t)m * w;
   const dim3 gemm_grid(w / kBN, (m + kBM - 1) / kBM, 1);
+  cudaError_t err;
+
+  // LN form: recompute the statistics and write ln_out, the input of everything below
+  const T* xin = static_cast<const T*>(x);
+  if (ln) {
+    float* mean = buf.ln_stats;
+    float* inv = buf.ln_stats + m;
+    err = launch_ln_stats<T>(xin, mean, inv, m, w, eps, stream);
+    if (err != cudaSuccess) return err;
+    const size_t groups = plane / 4;
+    const int blocks = (int)((groups + kLnThreads - 1) / kLnThreads);
+    ln_rows_kernel<T><<<blocks, kLnThreads, 0, stream>>>(
+        xin, mean, inv, static_cast<const T*>(gamma), static_cast<const T*>(beta),
+        static_cast<T*>(buf.ln_out), m, w);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    xin = static_cast<const T*>(buf.ln_out);
+  }
 
   // q, k, v recomputed exactly as the forward computed them
-  GemmOperands qkv_ops;
-  for (int z = 0; z < 3; ++z) {
-    qkv_ops.b[z] = wts[z];
-    qkv_ops.bias[z] = biases[z];
-    qkv_ops.c[z] = static_cast<T*>(qkv) + z * plane;
-  }
-  gemm_bias_kernel<T><<<dim3(gemm_grid.x, gemm_grid.y, 3), kGemmThreads, 0, stream>>>(
-      static_cast<const T*>(x), qkv_ops, m, w, w);
-  cudaError_t err = cudaGetLastError();
+  GemmOperands qkv_ops = qkv_operands<T>(wts, biases, buf.qkv, plane);
+  gemm_bias_kernel<T, false><<<dim3(gemm_grid.x, gemm_grid.y, 3), kGemmThreads, 0, stream>>>(
+      xin, qkv_ops, m, w, w);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   // do = dy @ Wo^T
   NtOperands do_ops = {};
   do_ops.a[0] = dy;
   do_ops.w[0] = wts[3];
-  gemm_nt_kernel<T><<<gemm_grid, kGemmThreads, 0, stream>>>(do_ops, static_cast<T*>(dout), m,
-                                                             w, w, 1);
+  gemm_nt_kernel<T, T><<<gemm_grid, kGemmThreads, 0, stream>>>(
+      do_ops, static_cast<T*>(buf.dout), m, w, w, 1);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   const float scale = (float)std::pow((double)d, -0.5);  // as the forward's
-  const T* qp = static_cast<const T*>(qkv);
-  const T* dop = static_cast<const T*>(dout);
-
-  const int s_pad = (s + kChunk - 1) / kChunk * kChunk;
-  const size_t smem_dq =
-      sizeof(float) * ((size_t)(2 * kBQ + kChunk) * (d + 1) + (size_t)2 * kBQ * s_pad);
-  err = allow_smem(attn_bwd_dq_kernel<T>, smem_dq);
-  if (err != cudaSuccess) return err;
-  attn_bwd_dq_kernel<T><<<dim3((s + kBQ - 1) / kBQ, heads, b), kAttnThreads, smem_dq, stream>>>(
-      qp, qp + plane, qp + 2 * plane, dop, static_cast<T*>(attnpre), static_cast<T*>(dq), stats,
-      s, w, d, s_pad, scale, causal);
-  err = cudaGetLastError();
+  const T* qp = static_cast<const T*>(buf.qkv);
+  err = launch_attention_bwd_passes<T, false>(
+      qp, qp + plane, qp + 2 * plane, static_cast<const T*>(buf.dout), buf.stats,
+      static_cast<T*>(buf.attnpre), static_cast<T*>(buf.dq), static_cast<T*>(buf.dk),
+      static_cast<T*>(buf.dv), b, s, w, heads, d, scale, causal, stream);
   if (err != cudaSuccess) return err;
 
-  const size_t smem_dkv =
-      sizeof(float) * ((size_t)(2 * kKeyTile + 2 * kRowChunk) * (d + 1) +
-                       (size_t)2 * kRowChunk * kKeyTile + 3 * kRowChunk);
-  err = allow_smem(attn_bwd_dkv_kernel<T>, smem_dkv);
-  if (err != cudaSuccess) return err;
-  attn_bwd_dkv_kernel<T>
-      <<<dim3((s + kKeyTile - 1) / kKeyTile, heads, b), kAttnThreads, smem_dkv, stream>>>(
-          qp, qp + plane, qp + 2 * plane, dop, stats, static_cast<T*>(dk), static_cast<T*>(dv),
-          s, w, d, scale, causal);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  // dx = [dq | dk | dv] @ [Wq; Wk; Wv]^T, one accumulator over K = 3W
+  // [dq | dk | dv] @ [Wq; Wk; Wv]^T, one accumulator over K = 3W: dx itself, or g in f32
   NtOperands dx_ops;
-  const void* grads[3] = {dq, dk, dv};
+  const void* grads[3] = {buf.dq, buf.dk, buf.dv};
   for (int z = 0; z < 3; ++z) {
     dx_ops.a[z] = grads[z];
     dx_ops.w[z] = wts[z];
   }
-  gemm_nt_kernel<T><<<gemm_grid, kGemmThreads, 0, stream>>>(dx_ops, static_cast<T*>(dx), m, w,
-                                                             w, 3);
+  if (!ln) {
+    gemm_nt_kernel<T, T><<<gemm_grid, kGemmThreads, 0, stream>>>(
+        dx_ops, static_cast<T*>(buf.dx), m, w, w, 3);
+    return cudaGetLastError();
+  }
+  gemm_nt_kernel<T, float><<<gemm_grid, kGemmThreads, 0, stream>>>(dx_ops, buf.g32, m, w, w, 3);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  ln_bwd_kernel<T><<<(m + kLnBwdRows - 1) / kLnBwdRows, kLnThreads, 0, stream>>>(
+      static_cast<const T*>(x), residual ? static_cast<const T*>(dy) : nullptr, buf.g32,
+      buf.ln_stats, buf.ln_stats + m, static_cast<const T*>(gamma), static_cast<T*>(buf.dx),
+      buf.dg_part, buf.db_part, m, w);
   return cudaGetLastError();
+}
+
+cudaError_t dispatch_bwd(int dtype, const void* x, const void* dy, const void* gamma,
+                         const void* beta, const void* const* wts, const void* const* biases,
+                         const BwdBuffers& buf, int b, int s, int w, int heads, int causal,
+                         bool ln, int residual, float eps, void* stream) {
+  if (b < 1 || s < 1 || s > kMaxSeq || heads < 1 || w % 128 != 0 || w % heads != 0)
+    return cudaErrorInvalidValue;
+  const int d = w / heads;
+  if (d > kMaxHeadDim || d % 8 != 0) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_bwd<float>(x, dy, gamma, beta, wts, biases, buf, b, s, w, heads, causal, ln,
+                             residual, eps, st);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(x, dy, gamma, beta, wts, biases, buf, b, s, w, heads,
+                                     causal, ln, residual, eps, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -465,21 +348,46 @@ int mmt_block_attention_bwd(int dtype, const void* x, const void* dy, const void
                             void* dout, void* stats, void* dx, void* dq, void* dk, void* dv,
                             void* attnpre, int b, int s, int w, int heads, int causal,
                             void* stream) {
-  if (b < 1 || s < 1 || s > kMaxSeq || heads < 1 || w % 128 != 0 || w % heads != 0)
-    return (int)cudaErrorInvalidValue;
-  const int d = w / heads;
-  if (d > kMaxHeadDim || d % 8 != 0) return (int)cudaErrorInvalidValue;
   const void* wts[4] = {wq, wk, wv, wo};
   const void* biases[4] = {bq, bk, bv, bo};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* sp = static_cast<float*>(stats);
-  if (dtype == 0)
-    return (int)launch_bwd<float>(x, dy, wts, biases, qkv, dout, sp, dx, dq, dk, dv, attnpre,
-                                  b, s, w, heads, causal, st);
-  if (dtype == 1)
-    return (int)launch_bwd<__nv_bfloat16>(x, dy, wts, biases, qkv, dout, sp, dx, dq, dk, dv,
-                                          attnpre, b, s, w, heads, causal, st);
-  return (int)cudaErrorInvalidValue;
+  BwdBuffers buf = {};
+  buf.qkv = qkv;
+  buf.dout = dout;
+  buf.stats = static_cast<float*>(stats);
+  buf.dx = dx, buf.dq = dq, buf.dk = dk, buf.dv = dv, buf.attnpre = attnpre;
+  return (int)dispatch_bwd(dtype, x, dy, nullptr, nullptr, wts, biases, buf, b, s, w, heads,
+                           causal, false, 0, 0.f, stream);
 }
+
+// The LN form: x is the pre-LN residual stream, gamma and beta [W] of the compute dtype.
+// Further scratch: ln_stats [2, B*S] and g32 [B*S, W], float32. Further outputs: ln_out
+// [B,S,W] (T) and the dgamma and dbeta partial sums, float32 [rows_of_partials, W] with
+// rows_of_partials = mmt_ln_bwd_partial_rows(B*S). With residual != 0, dx includes dy.
+int mmt_block_attention_ln_bwd(int dtype, const void* x, const void* dy, const void* gamma,
+                               const void* beta, const void* wq, const void* bq,
+                               const void* wk, const void* bk, const void* wv, const void* bv,
+                               const void* wo, const void* bo, void* ln_stats, void* qkv,
+                               void* dout, void* stats, void* g32, void* dx, void* dq, void* dk,
+                               void* dv, void* attnpre, void* ln_out, void* dg_part,
+                               void* db_part, int b, int s, int w, int heads, int causal,
+                               int residual, float eps, void* stream) {
+  const void* wts[4] = {wq, wk, wv, wo};
+  const void* biases[4] = {bq, bk, bv, bo};
+  BwdBuffers buf = {};
+  buf.qkv = qkv;
+  buf.dout = dout;
+  buf.stats = static_cast<float*>(stats);
+  buf.dx = dx, buf.dq = dq, buf.dk = dk, buf.dv = dv, buf.attnpre = attnpre;
+  buf.ln_stats = static_cast<float*>(ln_stats);
+  buf.g32 = static_cast<float*>(g32);
+  buf.ln_out = ln_out;
+  buf.dg_part = static_cast<float*>(dg_part);
+  buf.db_part = static_cast<float*>(db_part);
+  return (int)dispatch_bwd(dtype, x, dy, gamma, beta, wts, biases, buf, b, s, w, heads, causal,
+                           true, residual, eps, stream);
+}
+
+// Rows of the dgamma/dbeta partial-sum outputs for m = B*S token rows.
+int mmt_ln_bwd_partial_rows(int m) { return (m + kLnBwdRows - 1) / kLnBwdRows; }
 
 }  // extern "C"

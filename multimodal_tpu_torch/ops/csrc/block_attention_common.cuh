@@ -1,8 +1,9 @@
-// Shared pieces of the block-attention kernels (block_attention_fwd.cu and
-// block_attention_bwd.cu): dtype conversions, 4-wide loads and stores, the projection GEMM
-// with bias (C = A @ B + bias, f32 accumulation, one rounding) and the tile sizes of the
-// attention kernels. Everything lives in an anonymous namespace, so each source that
-// includes it gets its own copy and the two objects link into one library.
+// Shared pieces of the attention kernels (block_attention_fwd.cu, block_attention_bwd.cu,
+// fused_attention.cu): dtype conversions, 4-wide loads and stores, the row-wise LayerNorm
+// (f32 statistics, compute-dtype arithmetic) and the projection GEMM with bias (C = A @ B +
+// bias, f32 accumulation, one rounding), which can normalize its A tile as it loads it and
+// add a residual in its epilogue. Everything lives in an anonymous namespace, so each source
+// that includes it gets its own copy and the objects link into one library.
 
 #pragma once
 
@@ -28,6 +29,11 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
   return __float2bfloat16_rn(v);
 }
 
+// v rounded to T and widened again: the rounding point of a compute-dtype operation
+template <typename T> __device__ __forceinline__ float round_to(float v) {
+  return to_float(from_float<T>(v));
+}
+
 // four consecutive elements (16-byte aligned for float, 8-byte for bf16)
 __device__ __forceinline__ void load4(const float* p, float v[4]) {
   const float4 t = *reinterpret_cast<const float4*>(p);
@@ -51,24 +57,88 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
   *reinterpret_cast<uint2*>(p) = t;
 }
 
+// ----------------------------------------------------------------------------- LayerNorm
+// The reference's _ln_rows: mean and var = max(E[x^2] - mean^2, 0) in f32, inv = rsqrt(var +
+// eps) in f32; then mean and inv are cast to the compute dtype T and
+// ((x - mean) * inv) * gamma + beta rounds to T after every operation. A float pipeline that
+// rounds once at the end is a different function in bf16.
+constexpr int kLnThreads = 256;  // one warp per row, eight rows per block
+
+template <typename T>
+__global__ void __launch_bounds__(kLnThreads)
+ln_stats_kernel(const T* __restrict__ x, float* __restrict__ mean, float* __restrict__ inv,
+                int m, int w, float eps) {
+  const int row = blockIdx.x * (kLnThreads / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= m) return;
+  const T* xr = x + (size_t)row * w;
+  float sum = 0.f, sq = 0.f;
+  for (int c = lane * 4; c < w; c += 128) {  // w % 128 == 0
+    float v[4];
+    load4(xr + c, v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      sum += v[i];
+      sq = fmaf(v[i], v[i], sq);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) {
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    sq += __shfl_xor_sync(0xffffffffu, sq, off);
+  }
+  if (lane == 0) {
+    const float mu = sum / (float)w;
+    mean[row] = mu;
+    inv[row] = rsqrtf(fmaxf(sq / (float)w - mu * mu, 0.f) + eps);
+  }
+}
+
+template <typename T>
+cudaError_t launch_ln_stats(const T* x, float* mean, float* inv, int m, int w, float eps,
+                            cudaStream_t stream) {
+  const int rows_per_block = kLnThreads / 32;
+  ln_stats_kernel<T><<<(m + rows_per_block - 1) / rows_per_block, kLnThreads, 0, stream>>>(
+      x, mean, inv, m, w, eps);
+  return cudaGetLastError();
+}
+
+// one element; mean_t and inv_t are the statistics already rounded to T
+template <typename T>
+__device__ __forceinline__ float ln_apply(float x, float mean_t, float inv_t, float gamma,
+                                          float beta) {
+  float y = round_to<T>(__fsub_rn(x, mean_t));
+  y = round_to<T>(__fmul_rn(y, inv_t));
+  y = round_to<T>(__fmul_rn(y, gamma));
+  return round_to<T>(__fadd_rn(y, beta));
+}
+
 // ----------------------------------------------------------------------------- projections
 // C[z] = A @ B[z] + bias[z] for up to three weight sets sharing one A [M,K]; B [K,N] row
 // major, C [M,N] row major. Requires N % 128 == 0 and K % 16 == 0 (W % 128 == 0 in the
-// caller); M is ragged and masked.
+// caller); M is ragged and masked. With kLN, A is the pre-LN stream and every element is
+// normalized as it enters shared memory (ln_apply with the row's saved statistics), so
+// LN(A) never reaches device memory. With `residual` ([M,N], so N == K), the epilogue
+// rounds A @ B + bias to T first and then adds the residual, rounding again.
 constexpr int kBM = 128, kBN = 128, kBK = 16, kGemmThreads = 256;
 
 struct GemmOperands {
   const void* b[3];
   const void* bias[3];
   void* c[3];
+  const void* residual;  // null, or [M,N] of T added in the epilogue
+  const float* ln_mean;  // kLN only: [M] row means and rsqrt(var + eps), f32
+  const float* ln_inv;
+  const void* ln_gamma;  // kLN only: [K] of T
+  const void* ln_beta;
 };
 
-template <typename T>
+template <typename T, bool kLN>
 __global__ void __launch_bounds__(kGemmThreads)
 gemm_bias_kernel(const T* __restrict__ a, GemmOperands ops, int m, int n, int k) {
   const T* __restrict__ b = static_cast<const T*>(ops.b[blockIdx.z]);
   const T* __restrict__ bias = static_cast<const T*>(ops.bias[blockIdx.z]);
   T* __restrict__ c = static_cast<T*>(ops.c[blockIdx.z]);
+  const T* __restrict__ res = static_cast<const T*>(ops.residual);
 
   __shared__ float as[kBK][kBM];  // A tile, transposed: as[kk][row]
   __shared__ float bs[kBK][kBN];
@@ -83,6 +153,19 @@ gemm_bias_kernel(const T* __restrict__ a, GemmOperands ops, int m, int n, int k)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
+  // kLN: the statistics of this thread's two A rows, rounded to T as _ln_rows casts them
+  float mean_t[2] = {0.f, 0.f}, inv_t[2] = {0.f, 0.f};
+  if constexpr (kLN) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + (tid + h * kGemmThreads) / 4;
+      if (row < m) {
+        mean_t[h] = round_to<T>(ops.ln_mean[row]);
+        inv_t[h] = round_to<T>(ops.ln_inv[row]);
+      }
+    }
+  }
+
   for (int k0 = 0; k0 < k; k0 += kBK) {
     // A: 128 rows x 16 cols, two groups of 4 per thread
 #pragma unroll
@@ -90,7 +173,16 @@ gemm_bias_kernel(const T* __restrict__ a, GemmOperands ops, int m, int n, int k)
       const int e = tid + h * kGemmThreads;  // 0..511
       const int row = e / 4, col = (e % 4) * 4;
       float v[4] = {0.f, 0.f, 0.f, 0.f};
-      if (m0 + row < m) load4(a + (size_t)(m0 + row) * k + k0 + col, v);
+      if (m0 + row < m) {
+        load4(a + (size_t)(m0 + row) * k + k0 + col, v);
+        if constexpr (kLN) {
+          float g[4], bt[4];
+          load4(static_cast<const T*>(ops.ln_gamma) + k0 + col, g);
+          load4(static_cast<const T*>(ops.ln_beta) + k0 + col, bt);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) v[i] = ln_apply<T>(v[i], mean_t[h], inv_t[h], g[i], bt[i]);
+        }
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i) as[col + i][row] = v[i];
     }
@@ -122,7 +214,7 @@ gemm_bias_kernel(const T* __restrict__ a, GemmOperands ops, int m, int n, int k)
     __syncthreads();
   }
 
-  // epilogue: + bias in f32, one rounding to T
+  // epilogue: + bias in f32, one rounding to T; then + residual, rounded again
   float bv[8];
   load4(bias + n0 + tx * 4, bv);
   load4(bias + n0 + 64 + tx * 4, bv + 4);
@@ -136,12 +228,32 @@ gemm_bias_kernel(const T* __restrict__ a, GemmOperands ops, int m, int n, int k)
       lo[j] = acc[i][j] + bv[j];
       hi[j] = acc[i][4 + j] + bv[4 + j];
     }
+    if (res != nullptr) {
+      float rl[4], rh[4];
+      load4(res + (size_t)row * n + n0 + tx * 4, rl);
+      load4(res + (size_t)row * n + n0 + 64 + tx * 4, rh);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        lo[j] = __fadd_rn(round_to<T>(lo[j]), rl[j]);
+        hi[j] = __fadd_rn(round_to<T>(hi[j]), rh[j]);
+      }
+    }
     store4(c + (size_t)row * n + n0 + tx * 4, lo);
     store4(c + (size_t)row * n + n0 + 64 + tx * 4, hi);
   }
 }
 
-// attention tiles: 16 query rows per block, keys and values streamed in 32-row chunks
-constexpr int kBQ = 16, kChunk = 32, kAttnThreads = 128;
+// q, k and v as three weight sets of one launch (gridDim.z = 3) into a [3, M, W] scratch
+template <typename T>
+GemmOperands qkv_operands(const void* const* wts, const void* const* biases, void* qkv,
+                          size_t plane) {
+  GemmOperands ops = {};
+  for (int z = 0; z < 3; ++z) {
+    ops.b[z] = wts[z];
+    ops.bias[z] = biases[z];
+    ops.c[z] = static_cast<T*>(qkv) + z * plane;
+  }
+  return ops;
+}
 
 }  // namespace

@@ -1,0 +1,135 @@
+"""Where one training step's device time goes, by kernel family.
+
+    python -m multimodal_tpu_torch.profile_step --model ViT-B-16 --batch 64 --dtype float32
+
+Builds the model with seeded weights on the GPU, runs a few warm steps of
+``make_train_step`` on a fixed synthetic uint8 batch, then traces ``--steps`` more with
+``torch.profiler`` and sums the CUDA kernels' device time per step into families: the
+hand-written kernels by name, cuBLAS GEMMs, elementwise passes, reductions, copies. Prints
+the card's name and power limit, the table, the device total and the host wall time per
+step (their ratio is the device's busy share). ``--scale-heads`` turns on
+``vision.scale_heads``, which sends the vision pass through the fused attention pair.
+``--ln-fold-min-seq N`` moves the sequence length above which the block operator folds the
+LayerNorm and the residual into its kernels (0: every call folds; 320: none does), to
+measure one step either way.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+FAMILIES = [  # (family, substrings of the kernel name), first match wins
+    ("block-attention projection GEMMs (gemm_bias_kernel, LN folded in its loads or not)",
+     ("gemm_bias_kernel",)),
+    ("backward gemm_nt_kernel (do = dy Wo^T, dx or g over K=3W)", ("gemm_nt_kernel",)),
+    ("backward dQ pass", ("attn_bwd_dq_kernel",)),
+    ("backward dK/dV pass", ("attn_bwd_dkv_kernel",)),
+    ("forward attention core", ("attention_kernel",)),
+    ("LN-fold launches (ln_stats, ln_rows, ln_bwd)", ("ln_stats_kernel", "ln_rows_kernel",
+                                                      "ln_bwd_kernel")),
+    ("cuBLAS GEMMs (MLP, patch embed, projections, weight gradients)",
+     ("gemm", "cutlass", "cublas", "xmma", "gemv")),
+    ("reductions", ("reduce",)),
+    ("copies (memcpy, memset, cat)", ("memcpy", "memset", "cat", "copy")),
+    ("elementwise (LN, quick_gelu, casts, adds, the AdamW passes)",
+     ("elementwise", "vectorized", "foreach", "multi_tensor", "softmax")),
+]
+
+
+def family_of(kernel_name: str) -> str:
+    low = kernel_name.lower()
+    for family, keys in FAMILIES:
+        if any(k in low for k in keys):
+            return family
+    return "other"
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model", default="ViT-B-16")
+    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"))
+    ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--warmup", type=int, default=3)
+    ap.add_argument("--scale-heads", action="store_true")
+    ap.add_argument("--ln-fold-min-seq", type=int, default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step needs an NVIDIA GPU (there is no CPU fallback)")
+
+    from multimodal_tpu_torch import paths
+    from multimodal_tpu_torch.models import add_model_config, create_model
+    from multimodal_tpu_torch.ops import block_attention, launches
+    from multimodal_tpu_torch.train import (
+        TrainState, make_optimizer, make_schedule, make_train_step)
+
+    if args.ln_fold_min_seq is not None:
+        block_attention.LN_FOLD_MIN_SEQ = args.ln_fold_min_seq
+    name = args.model
+    if args.scale_heads:
+        with open(os.path.join(paths.CONFIG_DIR, args.model + ".json")) as f:
+            cfg = json.load(f)
+        cfg["vision_cfg"]["scale_heads"] = True
+        name = args.model + "-scale-heads"
+        add_model_config(name, cfg)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    model = create_model(name, dtype=getattr(torch, args.dtype), seed=0)
+    c = model.cfg
+    rng = np.random.default_rng(0)
+    batch = {
+        "image": torch.from_numpy(rng.integers(
+            0, 256, (args.batch, c.vision.image_size, c.vision.image_size, 3),
+            dtype=np.uint8)).cuda(),
+        "text": torch.from_numpy(rng.integers(
+            1, c.text.vocab_size - 1, (args.batch, c.text.context_length))).cuda(),
+    }
+    opt = make_optimizer(model.named_parameters(),
+                         make_schedule("cosine", 1e-3, warmup_steps=100, total_steps=10000),
+                         weight_decay=0.1, grad_clip_norm=1.0)
+    state, step = TrainState.create(model, opt), make_train_step(model, opt)
+    for _ in range(args.warmup):
+        step(state, batch)
+    torch.cuda.synchronize()
+    launches.reset_launch_counts()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / args.steps
+    counts = {k: v // args.steps for k, v in launches.launch_counts().items() if v}
+
+    by_family: dict = {}
+    for ev in prof.key_averages():
+        # kernels only: an operator's row repeats the time of the kernels it launched
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        device_us = getattr(ev, "self_device_time_total", None)
+        if device_us is None:  # older torch
+            device_us = ev.self_cuda_time_total
+        if device_us <= 0:
+            continue
+        fam = family_of(ev.key)
+        by_family[fam] = by_family.get(fam, 0.0) + device_us / 1e3 / args.steps
+    total = sum(by_family.values())
+    print(f"{name} {args.dtype} B={args.batch} LN fold above S={block_attention.LN_FOLD_MIN_SEQ}: "
+          f"device time per train step by kernel family "
+          f"(torch.profiler over {args.steps} steps after {args.warmup} warm ones) [{card}]")
+    for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
+        print(f"  {ms:10.3f} ms  {100 * ms / total:5.1f}%  {fam}")
+    print(f"  device total {total:.3f} ms, host wall {wall_ms:.3f} ms per step "
+          f"({args.batch * 1e3 / wall_ms:.1f} samples/s under the profiler); "
+          f"kernel launches per step {counts}")
+
+
+if __name__ == "__main__":
+    main()

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from multimodal_tpu_torch.ops import block_attention as ba
+from multimodal_tpu_torch.ops import launches
 
 torch.set_num_threads(1)
 
@@ -93,9 +94,11 @@ def test_supported_predicate_matches_reference():
 
 
 def test_cpu_tensor_never_counts_a_launch():
-    ba.reset_launch_counts()
+    launches.reset_launch_counts()
     _port_out(1, 8, 128, 2, True, torch.float32)
-    assert ba.launch_counts() == {"block_attention_fwd": 0, "block_attention_bwd": 0}
+    counts = launches.launch_counts()
+    assert {"block_attention_fwd", "block_attention_bwd"} <= set(counts)
+    assert not any(counts.values())
 
 
 @pytest.fixture
@@ -108,16 +111,17 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("b,s,w,heads,causal", [(3, 50, 768, 12, False), (2, 77, 512, 8, True),
+                                                (2, 77, 768, 12, True),
                                                 (2, 197, 768, 12, False), (1, 320, 256, 2, True),
                                                 (2, 40, 384, 8, False)])
 def test_cuda_kernel_matches_plain(cuda_device, b, s, w, heads, causal, dtype, tol):
     x, ws = _inputs(b, s, w, seed=5)
     conv = lambda a: torch.from_numpy(a).to(cuda_device, dtype)  # noqa: E731
     xt, wt = conv(x), [conv(a) for a in ws]
-    ba.reset_launch_counts()
+    launches.reset_launch_counts()
     got = ba.block_attention(xt, *wt, heads=heads, causal=causal).float()
     torch.cuda.synchronize()
-    assert ba.launch_counts()["block_attention_fwd"] == 1
+    assert launches.launch_counts()["block_attention_fwd"] == 1
     want = ba.block_attention_reference(xt, *wt, heads=heads, causal=causal).float()
     err = (got - want).abs().max().item()
     assert err <= tol * want.abs().max().item(), err

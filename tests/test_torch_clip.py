@@ -49,7 +49,8 @@ def random_params(jm, seed: int = 0):
 def _models(name):
     jm = jax_create_model(name)
     params = random_params(jm)
-    pm = load_openai_state_dict(create_model(name, seed=1), export_torch_state_dict(params, jm.cfg))
+    pm = load_openai_state_dict(create_model(name, seed=1, device="cpu"),
+                                export_torch_state_dict(params, jm.cfg))
     return jm, params, pm
 
 
@@ -122,7 +123,7 @@ def test_state_dict_round_trip(name):
     }
     for k, v in checks.items():
         np.testing.assert_array_equal(got[k].detach().numpy(), np.asarray(v), err_msg=k)
-    again = load_openai_state_dict(create_model(name, seed=2),
+    again = load_openai_state_dict(create_model(name, seed=2, device="cpu"),
                                    {f"module.{k}": torch.tensor(v) for k, v in sd.items()})
     for k, v in again.named_parameters():
         torch.testing.assert_close(v, got[k], atol=0, rtol=0)
@@ -133,15 +134,38 @@ def test_state_dict_mismatch_raises():
     sd = export_torch_state_dict(params, jm.cfg)
     sd["visual.proj"] = sd["visual.proj"][:, :-1]
     with pytest.raises(ValueError, match="visual_projection"):
-        load_openai_state_dict(create_model("tiny-test"), sd)
+        load_openai_state_dict(create_model("tiny-test", device="cpu"), sd)
     del sd["ln_final.weight"]
     with pytest.raises(KeyError):
-        load_openai_state_dict(create_model("tiny-test"), sd)
+        load_openai_state_dict(create_model("tiny-test", device="cpu"), sd)
 
 
 def test_seeded_init_is_reproducible_and_unported_configs_raise():
-    a, b = create_model("tiny", seed=3), create_model("tiny", seed=3)
+    a, b = create_model("tiny", seed=3, device="cpu"), create_model("tiny", seed=3, device="cpu")
     for (k, va), vb in zip(a.named_parameters(), b.parameters()):
         torch.testing.assert_close(va, vb, atol=0, rtol=0, msg=k)
-    with pytest.raises(NotImplementedError, match="share_trunk"):
-        create_model("tiny-test-shared")
+    from multimodal_tpu_torch.models import add_model_config
+
+    add_model_config("tiny-test-cosine", {
+        "embed_dim": 64,
+        "vision_cfg": {"image_size": 32, "layers": 2, "width": 64, "patch_size": 16, "heads": 2,
+                       "scaled_cosine": True},
+        "text_cfg": {"context_length": 16, "vocab_size": 1000, "width": 64, "heads": 2,
+                     "layers": 2}})
+    with pytest.raises(NotImplementedError, match="vision.scaled_cosine"):
+        create_model("tiny-test-cosine", device="cpu")
+    with pytest.raises(NotImplementedError, match="vision.moe_experts"):
+        create_model("tiny-test-moe", device="cpu")
+
+
+def test_create_model_lands_on_the_card_unless_asked_for_the_cpu():
+    """No device argument means the GPU; without one that raises, and nothing moves to the
+    CPU on its own."""
+    if torch.cuda.is_available():
+        assert next(create_model("tiny-test").parameters()).is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device is available"):
+            create_model("tiny-test")
+        with pytest.raises(RuntimeError, match="no CUDA device is available"):
+            create_model("tiny-test", device="cuda:0")
+    assert next(create_model("tiny-test", device="cpu").parameters()).device.type == "cpu"

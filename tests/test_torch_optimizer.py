@@ -61,7 +61,7 @@ def test_wd_mask_matches_jax():
     shapes = jax.eval_shape(lambda: init_params(jm, jax.random.PRNGKey(0)))
     as_arrays = jax.tree_util.tree_map(lambda m, s: np.full(s.shape, m, np.float32),
                                        jax_wd_mask(shapes), shapes)
-    model = create_model("tiny-test")
+    model = create_model("tiny-test", device="cpu")
     want = _openai_to_port(export_torch_state_dict(as_arrays, jm.cfg), model)
     got = wd_mask(model.named_parameters())
     assert set(got) == set(want)

@@ -55,7 +55,7 @@ def _random_params(jm, seed: int = 0):
 def services():
     jm = jax_create_model(NAME)
     params = _random_params(jm)
-    pm = load_openai_state_dict(create_model(NAME), export_torch_state_dict(params, jm.cfg))
+    pm = load_openai_state_dict(create_model(NAME, device="cpu"), export_torch_state_dict(params, jm.cfg))
     port = serving.EmbeddingService(pm, max_batch=8, max_wait_ms=5.0)
     ref = JaxEmbeddingService(jm, params, max_batch=8, max_wait_ms=5.0)
     yield port, ref

@@ -110,7 +110,7 @@ def _port_run(name):
     from multimodal_tpu.models.checkpoint_interop import export_torch_state_dict
 
     cfg, params, _, _, _ = _jax_run(name)
-    model = load_openai_state_dict(create_model(name), export_torch_state_dict(params, cfg))
+    model = load_openai_state_dict(create_model(name, device="cpu"), export_torch_state_dict(params, cfg))
     opt = make_optimizer(model.named_parameters(), make_schedule("cosine", 1e-3, 2, 50), **OPT)
     step = make_train_step(model, opt)
     state = TrainState.create(model, opt)
@@ -165,7 +165,7 @@ def test_block_attention_path_taken_on_tiny():
     from multimodal_tpu_torch.ops.block_attention import block_attn_supported
 
     for name, want in (("tiny", True), ("tiny-test", False)):
-        cfg = create_model(name).cfg
+        cfg = create_model(name, device="cpu").cfg
         s = (cfg.vision.image_size // cfg.vision.patch_size) ** 2 + 1
         assert block_attn_supported(B, s, cfg.vision.width, cfg.vision.heads) is want
 
@@ -176,7 +176,7 @@ def test_block_attention_path_taken_on_tiny():
     ("wire_size", 128),
 ])
 def test_left_out_options_raise(option, value):
-    model = create_model("tiny-test")
+    model = create_model("tiny-test", device="cpu")
     opt = make_optimizer(model.named_parameters(), 1e-3)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_train_step(model, opt, **{option: value})
@@ -185,7 +185,7 @@ def test_left_out_options_raise(option, value):
 @pytest.mark.parametrize("kwargs", [{"loss_type": "siglip"},
                                     {"loss_kwargs": {"contrastive_impl": "chunked"}}])
 def test_left_out_losses_raise(kwargs):
-    model = create_model("tiny-test")
+    model = create_model("tiny-test", device="cpu")
     opt = make_optimizer(model.named_parameters(), 1e-3)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_train_step(model, opt, **kwargs)
@@ -194,21 +194,21 @@ def test_left_out_losses_raise(kwargs):
 def test_batch_images_normalizes_uint8_like_jax():
     from multimodal_tpu.data.preprocess import normalize_images
 
-    cfg = create_model("tiny-test").cfg
+    cfg = create_model("tiny-test", device="cpu").cfg
     images, _ = _batch(cfg, seed=1)
-    got = batch_images({"image": torch.from_numpy(images)}, create_model("tiny-test"))
+    got = batch_images({"image": torch.from_numpy(images)}, create_model("tiny-test", device="cpu"))
     np.testing.assert_allclose(got.numpy(), np.asarray(normalize_images(images)), atol=1e-6)
     floats = torch.randn(2, 32, 32, 3)
     assert batch_images({"image": floats}) is floats
     with pytest.raises(ValueError, match="expects 32px"):
         batch_images({"image": torch.zeros(2, 64, 64, 3, dtype=torch.uint8)},
-                     create_model("tiny-test"))
+                     create_model("tiny-test", device="cpu"))
     with pytest.raises(NotImplementedError, match="wire_size"):
         batch_images({"image": floats}, wire_size=16)
 
 
 def test_logit_scale_clamp():
-    model = create_model("tiny-test")
+    model = create_model("tiny-test", device="cpu")
     for value, want in ((7.0, 4.6052), (-1.0, 0.0), (3.0, 3.0)):
         with torch.no_grad():
             model.logit_scale.fill_(value)
@@ -218,7 +218,7 @@ def test_logit_scale_clamp():
 
 def test_bf16_compute_sends_float32_grads_to_params():
     """A bfloat16 compute dtype trains float32 parameters: grads come back through .to()."""
-    model = create_model("tiny", dtype=torch.bfloat16)
+    model = create_model("tiny", dtype=torch.bfloat16, device="cpu")
     assert not model.training  # create_model returns .eval(); the step calls .train()
     opt = make_optimizer(model.named_parameters(), make_schedule("const", 1e-3, 0, 10), **OPT)
     step = make_train_step(model, opt)
