@@ -15,8 +15,12 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      multi_head_attention_forward timed beside them; their LN-fold forms (LayerNorm and residual inside the kernel; also
      ln_out, dgamma and dbeta) at S=197, S=257 and S=320, causal and not; the fused
      whole-sequence attention pair at S=128, 197 and 512 with D=32, 64 and 128, causal and
-     not, with torch's scaled_dot_product_attention timed beside it. The library calls are
-     yardsticks, held to the plain versions too and used nowhere in the port;
+     not, with torch's scaled_dot_product_attention timed beside it; the fused MLP branch
+     (LayerNorm, c_fc, activation, c_proj, residual) forward and backward, with and without
+     the residual, at the ViT-B/32, ViT-B/16 and ViT-L/14 token counts and widths and a ragged
+     T=3x197 (outputs y, h and dx, dW1, dW2, db1, db2, dgamma, dbeta; no library call holds
+     it). The library calls are yardsticks, held to the plain versions too and used nowhere
+     in the port;
   4. serving: ViT-B/32 in float32 with seeded random weights behind the HTTP server,
      answering text, image and similarity requests; the forward kernel's launch count over
      those requests must be at least 12 per tower encode, and the served embeddings must
@@ -26,8 +30,8 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      0.1, clip 1.0) and a fixed synthetic uint8 batch of 256. float32: 6 steps through the
      kernels against 6 from the same start with every block's attention routed to the
      plain version (losses of the first 2 within 1e-5 relative, grad norms within 1e-4,
-     every gradient leaf of step 1 within 1e-3 * max|leaf|, at least 24 backward-kernel
-     launches per step); bfloat16: 6 steps, every loss and grad norm finite and the loss
+     every gradient leaf of step 1 within 1e-3 * max|leaf|, 24 launches of each block kernel
+     per step); bfloat16: 6 steps, every loss and grad norm finite and the loss
      falling. Samples/s over steps 2-6 and peak memory for both;
   7. the shared-trunk ViT-B/16 at full width (12 layers, W=768, H=12; vision S=197 through
      the LN-fold kernels, text S=77 causal through the non-LN kernels): served as in phases
@@ -35,7 +39,14 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      launches); trained as in phase 6, the float32 comparison at a batch both paths hold
      (64) and the rates at the largest of 64/128/256 the kernel path holds, reckoned from
      the measured peak; and the same model with ``vision.scale_heads``, whose vision pass
-     goes through ``attention()`` to the fused pair (>= 12 launches of each per step).
+     goes through ``attention()`` to the fused pair (12 launches of each per step);
+  8. the same shared-trunk ViT-B/16, all 12 layers, built with ``block_mlp=True``, so that
+     every block's MLP half runs the fused operator's kernels: served as in phase 7 (and
+     >= 12 MLP forward launches per encode); trained as in phase 7 (float32 kernel path
+     against the plain path at B=64; exactly 24 MLP forward and 24 MLP backward launches per
+     step beside the 12 of each block-attention kernel; float32 and bfloat16 at the largest
+     batch, to be read beside phase 7's rates with the switch off); and one float32 run with
+     ``remat`` at that batch: the same losses, twice the forward launches, its peak memory.
 Before the last line come the card's name and power limit and the kernel summary (JSON); the
 last line is the device record.
 """
@@ -57,9 +68,11 @@ import numpy as np
 MODEL = "ViT-B-32"
 SHARED_MODEL = "ViT-B-16"
 SCALE_HEADS_MODEL = "ViT-B-16-scale-heads"
+REMAT_MODEL = "ViT-B-16-remat"
 _CSRC = "multimodal_tpu_torch/ops/csrc/"
 _JAX_BLOCK = "multimodal_tpu/ops/block_attention.py"
 _JAX_FUSED = "multimodal_tpu/ops/fused_attention.py"
+_JAX_MLP = "multimodal_tpu/ops/block_mlp.py"
 KERNELS = {  # name -> (source, the TPU kernel it replaces, the timed case that stands for it)
     "block_attention_fwd": (_CSRC + "block_attention_fwd.cu", _JAX_BLOCK + ":200", "vision"),
     "block_attention_bwd": (_CSRC + "block_attention_bwd.cu",
@@ -72,6 +85,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces, the timed case that 
                                _JAX_BLOCK + ":272 (_bwd_kernel, LN form via :687)", "ln-S197"),
     "fused_attention_fwd": (_CSRC + "fused_attention.cu", _JAX_FUSED + ":61", "fused-S197"),
     "fused_attention_bwd": (_CSRC + "fused_attention.cu", _JAX_FUSED + ":83", "fused-S197"),
+    "block_mlp_fwd": (_CSRC + "block_mlp.cu", _JAX_MLP + ":105", "mlp-B16-vision"),
+    "block_mlp_bwd": (_CSRC + "block_mlp.cu", _JAX_MLP + ":123", "mlp-B16-vision"),
 }
 BLOCK_CASES = [  # (case, batch, seq, width, heads, causal)
     ("vision", 1, 50, 768, 12, False),
@@ -102,6 +117,13 @@ FUSED_CASES = [  # (case, batch, seq, heads, head_dim, causal)
     ("fused-S197", 256, 197, 12, 64, False),
     ("fused-S512", 2, 512, 4, 128, False),
     ("fused-S512", 2, 512, 4, 128, True),
+]
+MLP_CASES = [  # (case, batch, seq, width, hidden, act); T = batch * seq token rows
+    ("mlp-B32-vision", 256, 50, 768, 3072, "quick_gelu"),
+    ("mlp-B32-text", 256, 77, 512, 2048, "quick_gelu"),
+    ("mlp-B16-vision", 256, 197, 768, 3072, "quick_gelu"),
+    ("mlp-L14", 64, 257, 1024, 4096, "gelu"),
+    ("mlp-ragged", 3, 197, 768, 3072, "quick_gelu"),
 ]
 TRAIN_BATCH = 256
 TRAIN_STEPS = 6  # every train run: the first step warms up, the five after it are timed
@@ -175,8 +197,20 @@ def fused_bound(kernel: str, b, s, heads, d, causal, dtype_name: str):
     return bound(10 * pairs, e * 7 * b * s * heads * d, dtype_name)
 
 
-def kernel_cases(torch, ba, fa, dtype):
-    """Every (kernel, case, shape text, batch, run kernel, run plain, library, other timed
+def mlp_bound(kernel: str, t, w, hid, dtype_name: str):
+    """Work of the TPU kernels' definition: two [T,W]x[W,H]-sized products forward, four
+    backward. Bytes forward: x, y, h and the parameters; backward: x, dy, h, dx, both weights
+    and both weight gradients, and the four vector sums in float32."""
+    e = 4 if dtype_name == "float32" else 2
+    if kernel.endswith("fwd"):
+        return bound(4 * t * w * hid, e * (2 * t * w + t * hid + 2 * w * hid + hid + 3 * w),
+                     dtype_name)
+    nbytes = e * (3 * t * w + t * hid + 4 * w * hid + 2 * w) + 4 * (hid + 3 * w)
+    return bound(8 * t * w * hid, nbytes, dtype_name)
+
+
+def kernel_cases(torch, ba, fa, bm, dtype):
+    """Every (kernel, case, shape text, timed, run kernel, run plain, library, other timed
     runs by name, output names, bound) of phase 3 for one dtype, built lazily: each case
     frees its tensors before the next is made. ``library`` is None or (run, view): one
     PyTorch call computing the same function on the same tensors, timed as ``library_ms``
@@ -219,12 +253,12 @@ def kernel_cases(torch, ba, fa, dtype):
         # the gradient of x (the weight gradients are outside the kernel and outside this)
         x_leaf = x.detach().requires_grad_()
         mha_out = mha(x_leaf, ws, heads, causal)
-        yield ("block_attention_fwd", case, shape, b,
+        yield ("block_attention_fwd", case, shape, b == 256,
                lambda: ba.block_attention(x, *ws, **kw),
                lambda: ba.block_attention_reference(x, *ws, **kw),
                (lambda: mha(x, ws, heads, causal), lambda y: y), {}, ("y",),
                block_bound("block_attention_fwd", b, s, w, heads, causal, name))
-        yield ("block_attention_bwd", case, shape, b,
+        yield ("block_attention_bwd", case, shape, b == 256,
                lambda: ba.block_attention_bwd(x, dy, *ws, **kw),
                lambda: ba.block_attention_bwd_reference(x, dy, *ws, **kw),
                (lambda: torch.autograd.grad(mha_out, [x_leaf], dy, retain_graph=True),
@@ -238,13 +272,13 @@ def kernel_cases(torch, ba, fa, dtype):
         # beside the fold, what it replaces: ln_rows, the non-LN kernel and the add as three
         # steps (the S<=128 dispatch), to show what the fold buys on this card. No library
         # call: no single PyTorch call holds the LayerNorm, the attention block and the add
-        yield ("block_attention_ln_fwd", case, shape, b,
+        yield ("block_attention_ln_fwd", case, shape, b == 256,
                lambda: ba.block_attention_ln(x, gamma, beta, *ws, **kw),
                lambda: ba.block_attention_ln_reference(x, gamma, beta, *ws, **kw), None,
                {"unfolded_ms": lambda: x + ba.block_attention(
                    ba.ln_rows(x, gamma, beta, ba.LN_EPS), *ws, heads=heads, causal=causal)},
                ("y",), block_bound("block_attention_ln_fwd", b, s, w, heads, causal, name))
-        yield ("block_attention_ln_bwd", case, shape, b,
+        yield ("block_attention_ln_bwd", case, shape, b == 256,
                lambda: ba.block_attention_ln_bwd(x, dy, gamma, beta, *ws, **kw),
                lambda: ba.block_attention_ln_bwd_reference(x, dy, gamma, beta, *ws, **kw),
                None, {}, ("dx", "dq", "dk", "dv", "attnpre", "ln_out", "dgamma", "dbeta"),
@@ -261,23 +295,48 @@ def kernel_cases(torch, ba, fa, dtype):
         qh, kh, vh, doh = (t.view(b, s, heads, d).transpose(1, 2) for t in (q, k, v, do))
         leaves = [t.detach().requires_grad_() for t in (qh, kh, vh)]
         sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
-        yield ("fused_attention_fwd", case, shape, b,
+        yield ("fused_attention_fwd", case, shape, b == 256,
                lambda: fa.fused_attention(q, k, v, **kw),
                lambda: fa.fused_attention_reference(q, k, v, **kw),
                (lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal), packed),
                {}, ("out",),
                fused_bound("fused_attention_fwd", b, s, heads, d, causal, name))
-        yield ("fused_attention_bwd", case, shape, b,
+        yield ("fused_attention_bwd", case, shape, b == 256,
                lambda: fa.fused_attention_bwd(q, k, v, do, **kw),
                lambda: fa.fused_attention_bwd_reference(q, k, v, do, **kw),
                (lambda: torch.autograd.grad(sdpa_out, leaves, doh, retain_graph=True),
                 lambda grads: packed(grads[0])), {},
                ("dq", "dk", "dv"),
                fused_bound("fused_attention_bwd", b, s, heads, d, causal, name))
+    for case, b, s, w, hid, act in MLP_CASES:
+        t = b * s
+        g = torch.Generator(device="cuda").manual_seed(t + hid)
+        rnd = lambda *shape: torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
+        x, dy = rnd(t, w).to(dtype), rnd(t, w).to(dtype)
+        w1, b1 = (rnd(w, hid) * w ** -0.5).to(dtype), (rnd(hid) * 0.02).to(dtype)
+        w2, b2 = (rnd(hid, w) * hid ** -0.5).to(dtype), (rnd(w) * 0.02).to(dtype)
+        gamma, beta = 1 + 0.1 * rnd(w), 0.1 * rnd(w)  # float32, as the blocks hand them in
+        h = bm.block_mlp_reference(x, gamma, beta, w1, b1, w2, b2, act=act)[1]
+        # no library call: no single PyTorch call holds the LayerNorm, both products, the
+        # activation and the add. Timed with the residual; the branch alone is compared only
+        for residual in (True, False):
+            timed = residual and case != "mlp-ragged"
+            kw = dict(act=act, residual=residual)
+            shape = f"T={b}x{s} W={w} H={hid} act={act} residual={residual!s:<5}"
+            yield ("block_mlp_fwd", case, shape, timed,
+                   lambda: bm.block_mlp_fwd(x, gamma, beta, w1, b1, w2, b2, **kw),
+                   lambda: bm.block_mlp_reference(x, gamma, beta, w1, b1, w2, b2, **kw),
+                   None, {}, ("y", "h"), mlp_bound("block_mlp_fwd", t, w, hid, name))
+            yield ("block_mlp_bwd", case, shape, timed,
+                   lambda: bm.block_mlp_bwd(x, dy, h, gamma, beta, w1, w2, **kw),
+                   lambda: bm.block_mlp_bwd_reference(x, dy, h, gamma, beta, w1, w2, **kw),
+                   None, {}, ("dx", "dW1", "dW2", "db1", "db2", "dgamma", "dbeta"),
+                   mlp_bound("block_mlp_bwd", t, w, hid, name))
 
 
-def phase_kernels(torch, ba, fa) -> dict:
-    """Every kernel vs plain at every case and both dtypes; times at B=256. The library
+def phase_kernels(torch, ba, fa, bm) -> dict:
+    """Every kernel vs plain at every case and both dtypes; times at B=256 (ViT-L/14's MLP
+    shape at B=64). The library
     call, where there is one, is held to the plain version's first output too, at a wider
     limit (1e-3 and 5e-2 x max|plain|: it rounds at other points and sums in another
     order), so that its time is the time of the same function."""
@@ -285,8 +344,8 @@ def phase_kernels(torch, ba, fa) -> dict:
     timing, failures = {}, []
     for dtype, rel_tol, lib_tol in ((torch.float32, 1e-4, 1e-3), (torch.bfloat16, 2e-2, 5e-2)):
         name = str(dtype).replace("torch.", "")
-        for (kernel, case, shape, b, kern, plain, library, others, outputs,
-             (b_ms, b_by)) in kernel_cases(torch, ba, fa, dtype):
+        for (kernel, case, shape, timed, kern, plain, library, others, outputs,
+             (b_ms, b_by)) in kernel_cases(torch, ba, fa, bm, dtype):
             got, want = kern(), plain()
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
@@ -308,8 +367,8 @@ def phase_kernels(torch, ba, fa) -> dict:
                 ok = ok and lib_ok
                 line += f" library_err={lib_err:.2e}{'' if lib_ok else ' LIBRARY MISMATCH'}"
             del got, want
-            if b == 256:
-                iters = 20 if "S197" not in case else 8
+            if timed:
+                iters = 20 if "S197" not in case and not case.startswith("mlp") else 8
                 k_ms, p_ms = cuda_ms(kern, iters), cuda_ms(plain, iters)
                 other_ms = {k: cuda_ms(fn, iters) for k, fn in others.items()}
                 if library is not None:
@@ -359,8 +418,9 @@ def check_embeddings(name: str, emb, n: int, dim: int):
 def plain_attention(mods):
     """Every kernel call of the model routed to its plain version (the gradient then comes
     from torch's autograd of that version): the block operator in both its forms, and the
-    fused operator behind ``attention()``."""
-    ba, fa, layers, attention = mods["ba"], mods["fa"], mods["layers"], mods["attention"]
+    fused operator behind ``attention()``, and the fused MLP operator."""
+    ba, fa, bm = mods["ba"], mods["fa"], mods["bm"]
+    layers, attention = mods["layers"], mods["attention"]
 
     def plain_block_attention(x, *ws, heads, causal=False, ln_scale=None, ln_bias=None,
                               residual=False):
@@ -368,13 +428,20 @@ def plain_attention(mods):
         out = ba.block_attention_reference(xn, *ws, heads=heads, causal=causal)
         return x + out if residual else out
 
-    kernel_paths = layers.block_attention, attention.fused_attention
+    def plain_block_mlp(x, w1, b1, w2, b2, *, ln_scale, ln_bias, act="quick_gelu",
+                        residual=True):
+        y, _ = bm.block_mlp_reference(x.reshape(-1, x.shape[-1]), ln_scale, ln_bias, w1, b1, w2,
+                                      b2, act=act, residual=residual)
+        return y.reshape(x.shape)
+
+    kernel_paths = layers.block_attention, attention.fused_attention, layers.block_mlp
     layers.block_attention = plain_block_attention
     attention.fused_attention = fa.fused_attention_reference
+    layers.block_mlp = plain_block_mlp
     try:
         yield
     finally:
-        layers.block_attention, attention.fused_attention = kernel_paths
+        layers.block_attention, attention.fused_attention, layers.block_mlp = kernel_paths
 
 
 class Tally:
@@ -394,7 +461,8 @@ class Tally:
         return counts
 
 
-def phase_serving(torch, mods, tally, card, kind, model_name, need_text, need_image):
+def phase_serving(torch, mods, tally, card, kind, model_name, need_text, need_image,
+                  block_mlp=False):
     """Serve ``model_name`` (float32, seeded weights) over HTTP; check the answers, the
     launch counts (``need_*``: kernel -> launches per tower encode) and the agreement with
     the plain-version encode; then throughput at bucket 256 and single-request latency."""
@@ -403,13 +471,14 @@ def phase_serving(torch, mods, tally, card, kind, model_name, need_text, need_im
     from multimodal_tpu_torch.serving import EmbeddingService, make_server
 
     t0 = time.perf_counter()
-    model = create_model(model_name, seed=0)
+    model = create_model(model_name, seed=0, block_mlp=block_mlp)
     dim, size = model.cfg.embed_dim, model.cfg.vision.image_size
     svc = EmbeddingService(model, max_batch=256, max_wait_ms=5.0)
     srv = make_server(svc, "127.0.0.1", 0)
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
     url = f"http://127.0.0.1:{srv.server_address[1]}"
+    model_name += " block_mlp" if block_mlp else ""
     print(f"  model {model_name} float32 on {kind} built and served in "
           f"{time.perf_counter() - t0:.2f} s at {url}", flush=True)
     try:
@@ -530,22 +599,22 @@ def train_steps(torch, tally, model, batch, steps: int, grads_at: int = -1, coun
 
 
 def check_launches(counts, need: dict, what: str):
-    """Every step of ``counts`` ran each kernel of ``need`` at least that often, and no
-    kernel outside it."""
+    """Every step of ``counts`` ran each kernel of ``need`` just that often, and no kernel
+    outside it."""
     for cnt in counts:
-        short = {k: cnt[k] for k, v in need.items() if cnt[k] < v}
-        other = {k: v for k, v in cnt.items() if v and k not in need}
-        if short or other:
-            fail(f"{what}: launches per step {cnt}, need >= {need} and nothing else")
+        if {k: v for k, v in cnt.items() if v} != need:
+            fail(f"{what}: launches per step {cnt}, need {need} and nothing else")
 
 
-def compare_paths(torch, mods, tally, card, model_name, n, steps, need) -> tuple[int, int]:
+def compare_paths(torch, mods, tally, card, model_name, n, steps, need,
+                  block_mlp=False) -> tuple[int, int]:
     """float32: ``steps`` steps through the kernels against the same from the same start
     with every kernel call routed to its plain version. Returns the kernel path's peak
     memory and the model's parameter count."""
     from multimodal_tpu_torch.models import create_model
 
-    model = create_model(model_name, seed=0)
+    model = create_model(model_name, seed=0, block_mlp=block_mlp)
+    model_name += " block_mlp" if block_mlp else ""
     batch = make_batch(torch, model.cfg, n)
     start = {k: v.clone() for k, v in model.state_dict().items()}
     k_metrics, k_counts, k_grads, k_time, k_peak = train_steps(torch, tally, model, batch,
@@ -572,7 +641,7 @@ def compare_paths(torch, mods, tally, card, model_name, n, steps, need) -> tuple
     worst_leaf = max(leaf_rel, key=leaf_rel.get)
     print(f"  float32 kernel vs plain: loss rel diff {loss_rel:.3e} (need <= 1e-5), grad norm "
           f"rel diff {norm_rel:.3e} (need <= 1e-4), worst grad leaf {worst_leaf} "
-          f"{leaf_rel[worst_leaf]:.3e} x max|leaf| (need <= 1e-3); launches per step need >= "
+          f"{leaf_rel[worst_leaf]:.3e} x max|leaf| (need <= 1e-3); launches per step need "
           f"{need}", flush=True)
     if not all(np.isfinite([m[k] for m in k_metrics + p_metrics for k in m])):
         fail("non-finite float32 loss or grad norm")
@@ -587,18 +656,21 @@ def compare_paths(torch, mods, tally, card, model_name, n, steps, need) -> tuple
     return k_peak, sum(p.numel() for p in model.parameters())
 
 
-def kernel_path_run(torch, tally, card, model_name, dtype, n, steps, need, falling=False):
+def kernel_path_run(torch, tally, card, model_name, dtype, n, steps, need, falling=False,
+                    block_mlp=False) -> list:
     """``steps`` steps on the kernel path alone: finite (and with ``falling`` a loss that
-    falls on the fixed batch), the launch counts, samples/s and peak memory."""
+    falls on the fixed batch), the launch counts, samples/s and peak memory. Returns the
+    losses."""
     from multimodal_tpu_torch.models import create_model
 
     name = str(dtype).replace("torch.", "")
-    model = create_model(model_name, dtype=dtype, seed=0)
+    model = create_model(model_name, dtype=dtype, seed=0, block_mlp=block_mlp)
+    model_name += " block_mlp" if block_mlp else ""
     batch = make_batch(torch, model.cfg, n)
     metrics, counts, _, timed, peak = train_steps(torch, tally, model, batch, steps)
     losses = [m["loss"] for m in metrics]
     norms = [m["grad_norm"] for m in metrics]
-    print(f"  {name} losses {[round(v, 5) for v in losses]} grad norms "
+    print(f"  {name} losses {[round(v, 7) for v in losses]} grad norms "
           f"{[round(v, 4) for v in norms]}", flush=True)
     print(f"  {model_name} {name} train samples/s at B={n} (steps 2-{steps}, host clock): "
           f"{(steps - 1) * n / timed:.1f}; peak memory {peak / 2**30:.2f} GiB [{card}]",
@@ -610,6 +682,7 @@ def kernel_path_run(torch, tally, card, model_name, dtype, n, steps, need, falli
     check_launches(counts, need, f"{model_name} {name} kernel path")
     del model, batch
     torch.cuda.empty_cache()
+    return losses
 
 
 def largest_batch(torch, peak_at_compare: int, n_params: int) -> int:
@@ -627,6 +700,19 @@ def largest_batch(torch, peak_at_compare: int, n_params: int) -> int:
     return max(fits)
 
 
+def register_variant(name: str, base: str, vision: dict | None = None, **top):
+    """Register config ``name``: the shipped config ``base`` with ``top`` set at its top level
+    and ``vision`` in its vision tower."""
+    from multimodal_tpu_torch import paths
+    from multimodal_tpu_torch.models import add_model_config
+
+    with open(os.path.join(paths.CONFIG_DIR, base + ".json")) as f:
+        cfg = json.load(f)
+    cfg.update(top)
+    cfg["vision_cfg"].update(vision or {})
+    add_model_config(name, cfg)
+
+
 def main() -> int:
     import torch
 
@@ -641,13 +727,13 @@ def main() -> int:
     if torch.backends.cuda.matmul.allow_tf32:
         fail("TF32 matmuls are enabled; the float32 references must be true float32")
 
-    from multimodal_tpu_torch import paths
-    from multimodal_tpu_torch.models import add_model_config, layers
+    from multimodal_tpu_torch.models import layers
     from multimodal_tpu_torch.ops import _build, attention, launches
     from multimodal_tpu_torch.ops import block_attention as ba
+    from multimodal_tpu_torch.ops import block_mlp as bm
     from multimodal_tpu_torch.ops import fused_attention as fa
 
-    mods = {"ba": ba, "fa": fa, "layers": layers, "attention": attention}
+    mods = {"ba": ba, "fa": fa, "bm": bm, "layers": layers, "attention": attention}
     tally = Tally(launches)
 
     t0 = time.perf_counter()
@@ -659,7 +745,7 @@ def main() -> int:
         print(f"  ptxas {ln}")
 
     print("phase 3 kernel vs plain on the card", flush=True)
-    kernels = phase_kernels(torch, ba, fa)
+    kernels = phase_kernels(torch, ba, fa, bm)
 
     print("phase 4 serving, phase 5 throughput", flush=True)
     phase_serving(torch, mods, tally, card, kind, MODEL,
@@ -690,10 +776,7 @@ def main() -> int:
 
     # the same model with head scales: the vision pass (S=197) goes through attention() to
     # the fused pair; the text pass (S=77) is below the fused window and runs the plain path
-    with open(os.path.join(paths.CONFIG_DIR, SHARED_MODEL + ".json")) as f:
-        cfg = json.load(f)
-    cfg["vision_cfg"]["scale_heads"] = True
-    add_model_config(SCALE_HEADS_MODEL, cfg)
+    register_variant(SCALE_HEADS_MODEL, SHARED_MODEL, vision={"scale_heads": True})
     print(f"  {SCALE_HEADS_MODEL}: {SHARED_MODEL} with vision.scale_heads", flush=True)
     need = {"fused_attention_fwd": 12, "fused_attention_bwd": 12}
     compare_paths(torch, mods, tally, card, SCALE_HEADS_MODEL, SHARED_COMPARE_BATCH,
@@ -701,6 +784,36 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernel_path_run(torch, tally, card, SCALE_HEADS_MODEL, torch.bfloat16, SHARED_COMPARE_BATCH,
                     TRAIN_STEPS, need, falling=True)
+
+    print(f"phase 8 fused MLP branch: {SHARED_MODEL} at full width with block_mlp=True",
+          flush=True)
+    attn_need = {"block_attention_ln_fwd": 12, "block_attention_ln_bwd": 12,
+                 "block_attention_fwd": 12, "block_attention_bwd": 12}
+    phase_serving(torch, mods, tally, card, kind, SHARED_MODEL,
+                  need_text={"block_attention_fwd": 12, "block_mlp_fwd": 12},
+                  need_image={"block_attention_ln_fwd": 12, "block_mlp_fwd": 12},
+                  block_mlp=True)
+    need = {**attn_need, "block_mlp_fwd": 24, "block_mlp_bwd": 24}
+    peak, n_params = compare_paths(torch, mods, tally, card, SHARED_MODEL, SHARED_COMPARE_BATCH,
+                                   TRAIN_STEPS, need, block_mlp=True)
+    torch.cuda.empty_cache()
+    rate_batch = largest_batch(torch, peak, n_params)
+    losses = kernel_path_run(torch, tally, card, SHARED_MODEL, torch.float32, rate_batch,
+                             TRAIN_STEPS, need, block_mlp=True)
+    kernel_path_run(torch, tally, card, SHARED_MODEL, torch.bfloat16, rate_batch, TRAIN_STEPS,
+                    need, falling=True, block_mlp=True)
+    # per-block remat: every forward kernel runs again inside the backward, and nothing else
+    # changes, so the losses repeat those of the run above
+    register_variant(REMAT_MODEL, SHARED_MODEL, remat=True)
+    print(f"  {REMAT_MODEL}: {SHARED_MODEL} with remat", flush=True)
+    remat_need = {k: v * (2 if k.endswith("fwd") else 1) for k, v in need.items()}
+    remat_losses = kernel_path_run(torch, tally, card, REMAT_MODEL, torch.float32, rate_batch,
+                                   TRAIN_STEPS, remat_need, block_mlp=True)
+    remat_rel = max(abs(a - b) / abs(b) for a, b in zip(remat_losses[:2], losses[:2]))
+    print(f"  remat vs no remat at B={rate_batch}: loss rel diff over the first 2 steps "
+          f"{remat_rel:.3e} (need <= 1e-6); launches per step {remat_need}", flush=True)
+    if remat_rel > 1e-6:
+        fail("the remat run's losses differ from the run without remat")
 
     entries = []
     for name, (source, replaces, case) in KERNELS.items():

@@ -21,9 +21,11 @@ Name mapping, two towers:
 Shared trunk (``cfg.share_trunk``): ``transformer.resblocks.{i}.*`` -> ``transformer.*``,
 ``visual.ln_post`` (or ``ln_post``) -> ``ln_post``, ``projection`` (or ``text_projection``)
 -> ``projection``; there is no ``ln_final``. That format has no key for the per-head
-``attn.head_scale`` of a ``scale_heads`` model (the exporter drops it), so such a model
-loads through ``load_jax_params``, which takes the flax tree as it is: the same layouts as
-the port's ([in, out] kernels), only the names differ.
+``attn.head_scale`` of a ``scale_heads`` model and none for the ``ls_1.gamma`` /
+``ls_2.gamma`` of a model with ``ls_init_value`` (the exporter drops them), so such models
+load through ``load_jax_params``, which takes the flax tree as it is: the same layouts as
+the port's ([in, out] kernels, so ``mlp.c_fc`` and ``mlp.c_proj`` arrive as the block-MLP
+kernels read them), only the names differ.
 """
 
 from __future__ import annotations
@@ -117,8 +119,8 @@ def jax_params_to_port(params: Mapping[str, Any]) -> dict:
     """The JAX package's flax tree ({'params': ...} or its inside; leaves numpy or anything
     ``np.asarray`` takes) -> the port's parameter names, float32 numpy values. Every leaf
     keeps its layout; ``.../resblock_3/ln_1/LayerNorm_0/scale`` becomes
-    ``...resblocks.3.ln_1.weight``, and the flax wrappers around the patch kernel and the
-    token table drop away."""
+    ``...resblocks.3.ln_1.weight``, ``.../resblock_3/ls_1/gamma`` ``...resblocks.3.ls_1.gamma``,
+    and the flax wrappers around the patch kernel and the token table drop away."""
     tree = params["params"] if "params" in params else params
     out = {}
 
@@ -164,5 +166,6 @@ def load_openai_state_dict(model: CLIP, sd: Mapping[str, Any]) -> CLIP:
 @torch.no_grad()
 def load_jax_params(model: CLIP, params: Mapping[str, Any]) -> CLIP:
     """Copy the JAX package's flax parameter tree into ``model`` in place (on its device),
-    every leaf included (``attn.head_scale`` too). A mismatch in names or shapes raises."""
+    every leaf included (``attn.head_scale`` and the LayerScale ``gamma`` too). A mismatch in
+    names or shapes raises."""
     return _fill(model, jax_params_to_port(params), "parameter tree")

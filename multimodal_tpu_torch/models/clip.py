@@ -7,10 +7,13 @@ with a call-time ``causal=True``, and both pool through one ``ln_post`` and one
 Images are NHWC, as in the reference. The patch embedding is a reshape plus one matrix
 product with the ``[P, P, 3, W]`` kernel (identical to the stride-P convolution, and with
 TF32 left off it is true float32 on the card, which cuDNN's convolution is not by default).
-The final projections run in float32.
+The final projections run in float32. ``cfg.remat`` checkpoints every block in training,
+``ls_init_value`` puts a LayerScale on both residual branches, ``vision.patch_dropout`` drops
+patch tokens in training (the noise comes from the generator the caller hands in), and
+``block_mlp=True`` sends every block's MLP half through the fused operator.
 
-Not ported yet (``CLIP`` raises on configs that need them): LayerScale, scaled-cosine
-attention, MoE, LoRA, int8 MLPs, attentional and mean pooling and the SigLIP bias.
+Not ported yet (``CLIP`` raises on configs that need them): scaled-cosine attention, MoE,
+LoRA, int8 MLPs, attentional and mean pooling and the SigLIP bias.
 """
 
 from __future__ import annotations
@@ -21,17 +24,26 @@ import torch
 from torch import nn
 
 from multimodal_tpu_torch.models.config import CLIPConfig
-from multimodal_tpu_torch.models.layers import LayerNorm, Transformer, normal_, resolve_act
+from multimodal_tpu_torch.models.layers import (
+    LayerNorm,
+    PatchDropout,
+    Transformer,
+    normal_,
+    resolve_act,
+)
 
 LOGIT_SCALE_INIT = 2.6592  # ln(1/0.07)
 
 
 class VisionStem(nn.Module):
-    """Patchify + CLS + positional embedding + ln_pre -> token sequence."""
+    """Patchify + CLS + positional embedding [+ patch dropout in training] + ln_pre ->
+    token sequence."""
 
     def __init__(self, width: int, patch_size: int, image_size: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, patch_dropout: float = 0.0):
         super().__init__()
+        self.patch_dropout = (PatchDropout(patch_dropout, num_prefix=1)
+                              if patch_dropout > 0.0 else None)
         self.width, self.patch_size, self.image_size, self.dtype = (
             width, patch_size, image_size, dtype)
         grid = image_size // patch_size
@@ -50,7 +62,8 @@ class VisionStem(nn.Module):
         normal_(self.class_embedding, self.width ** -0.5, generator)
         normal_(self.positional_embedding, self.width ** -0.5, generator)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         b, h, w, c = images.shape
         if (h, w, c) != (self.image_size, self.image_size, 3):
             raise ValueError(f"images are {h}x{w}x{c}; the model takes "
@@ -61,6 +74,8 @@ class VisionStem(nn.Module):
             p * p * 3, self.width).to(self.dtype)
         cls = self.class_embedding.to(self.dtype).expand(b, 1, self.width)
         x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(self.dtype)
+        if self.patch_dropout is not None:
+            x = self.patch_dropout(x, generator)
         return self.ln_pre(x)
 
 
@@ -91,8 +106,6 @@ def eot_pool(x: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 def _check_supported(c: CLIPConfig):
     unsupported = {
-        "vision.ls_init_value": c.vision.ls_init_value is not None,
-        "text.ls_init_value": c.text.ls_init_value is not None,
         "vision.scaled_cosine": c.vision.scaled_cosine,
         "vision.attentional_pool": c.vision.attentional_pool,
         "vision.global_average_pool": c.vision.global_average_pool,
@@ -108,29 +121,35 @@ def _check_supported(c: CLIPConfig):
 
 class CLIP(nn.Module):
     """Two-tower CLIP, or the shared-trunk model when ``cfg.share_trunk``: ``encode_image``
-    (NHWC float images), ``encode_text`` (int tokens)."""
+    (NHWC float images), ``encode_text`` (int tokens). ``block_mlp`` (off by default, as in
+    the reference) routes every block's MLP half through the fused operator."""
 
-    def __init__(self, cfg: CLIPConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, cfg: CLIPConfig, dtype: torch.dtype = torch.float32,
+                 block_mlp: bool = False):
         super().__init__()
         _check_supported(cfg)
         self.cfg, self.dtype = cfg, dtype
         v, t = cfg.vision, cfg.text
         act = resolve_act(cfg.act)
-        self.visual_stem = VisionStem(v.width, v.patch_size, v.image_size, dtype=dtype)
+        trunk = dict(act=act, dtype=dtype, remat=cfg.remat, block_mlp=block_mlp)
+        self.visual_stem = VisionStem(v.width, v.patch_size, v.image_size, dtype=dtype,
+                                      patch_dropout=v.patch_dropout)
         self.text_stem = TextStem(t.width, t.vocab_size, t.context_length, dtype=dtype)
         if cfg.share_trunk:
             if v.ls_init_value != t.ls_init_value:
                 raise ValueError("a shared trunk needs vision and text ls_init_value to agree")
-            self.transformer = Transformer(v.width, v.layers, v.heads, v.mlp_ratio, act=act,
-                                           dtype=dtype, scale_heads=v.scale_heads)
+            self.transformer = Transformer(v.width, v.layers, v.heads, v.mlp_ratio,
+                                           scale_heads=v.scale_heads,
+                                           ls_init_value=v.ls_init_value, **trunk)
             self.ln_post = LayerNorm(v.width)
             self.projection = nn.Parameter(torch.empty(v.width, cfg.embed_dim))
         else:
             self.visual_transformer = Transformer(v.width, v.layers, v.heads, v.mlp_ratio,
-                                                  act=act, dtype=dtype,
-                                                  scale_heads=v.scale_heads)
+                                                  scale_heads=v.scale_heads,
+                                                  ls_init_value=v.ls_init_value, **trunk)
             self.text_transformer = Transformer(t.width, t.layers, t.heads, t.mlp_ratio,
-                                                causal=True, act=act, dtype=dtype)
+                                                causal=True, ls_init_value=t.ls_init_value,
+                                                **trunk)
             self.ln_post = LayerNorm(v.width)
             self.ln_final = LayerNorm(t.width)
             self.visual_projection = nn.Parameter(torch.empty(v.width, cfg.embed_dim))
@@ -151,10 +170,13 @@ class CLIP(nn.Module):
         with torch.no_grad():
             self.logit_scale.fill_(LOGIT_SCALE_INIT if init is None else init)
 
-    def encode_image(self, images: torch.Tensor, normalize: bool = False) -> torch.Tensor:
+    def encode_image(self, images: torch.Tensor, normalize: bool = False,
+                     generator: torch.Generator | None = None) -> torch.Tensor:
+        """``generator``: the source of the patch-dropout noise, needed only in training
+        with ``vision.patch_dropout`` > 0."""
         shared = self.cfg.share_trunk
         trunk = self.transformer if shared else self.visual_transformer
-        x = trunk(self.visual_stem(images))
+        x = trunk(self.visual_stem(images, generator))
         proj = self.projection if shared else self.visual_projection
         feats = self.ln_post(x[:, 0]).to(torch.float32) @ proj
         return feats / feats.norm(dim=-1, keepdim=True) if normalize else feats
@@ -171,9 +193,11 @@ class CLIP(nn.Module):
             feats = self.ln_final(eot_pool(x, tokens)).to(torch.float32) @ self.text_projection
         return feats / feats.norm(dim=-1, keepdim=True) if normalize else feats
 
-    def forward(self, images, tokens, normalize: bool = True) -> dict:
+    def forward(self, images, tokens, normalize: bool = True,
+                generator: torch.Generator | None = None) -> dict:
         return {
-            "image_features": self.encode_image(images, normalize=normalize),
+            "image_features": self.encode_image(images, normalize=normalize,
+                                                generator=generator),
             "text_features": self.encode_text(tokens, normalize=normalize),
             "logit_scale": self.logit_scale,
         }

@@ -3,7 +3,8 @@
 Parameters live in float32 and are cast to the compute ``dtype`` at use, as in the
 reference; LayerNorm takes f32 statistics with compute-dtype arithmetic (``ln_rows``).
 Dense weights keep the JAX ``[in, out]`` layout, which is also what the block-attention
-kernel reads. Initialization takes an explicit ``torch.Generator`` (``init_weights``).
+and block-MLP kernels read. Initialization takes an explicit ``torch.Generator``
+(``init_weights``).
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from multimodal_tpu_torch.ops.attention import attention
 from multimodal_tpu_torch.ops.block_attention import (
@@ -19,6 +21,7 @@ from multimodal_tpu_torch.ops.block_attention import (
     block_attn_supported,
     ln_rows,
 )
+from multimodal_tpu_torch.ops.block_mlp import block_mlp, block_mlp_supported
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -82,26 +85,78 @@ class LayerNorm(nn.Module):
         return ln_rows(x, self.weight, self.bias, LN_EPS)
 
 
-class MLP(nn.Module):
-    def __init__(self, width: int, expansion: float = 4.0, act=quick_gelu,
-                 dtype: torch.dtype = torch.float32, depth: int = 12):
+class PatchDropout(nn.Module):
+    """FLIP-style token dropout: in training keep a random subset of the patch tokens of
+    every example (the ``num_prefix`` leading tokens always survive), which shortens the
+    sequence; in eval the identity. The keep set is the argsort of uniform noise drawn from
+    an explicit ``torch.Generator``."""
+
+    def __init__(self, rate: float, num_prefix: int = 1):
         super().__init__()
-        hidden = int(width * expansion)
+        self.rate, self.num_prefix = rate, num_prefix
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None):
+        if not self.training or self.rate <= 0.0:
+            return x
+        if generator is None:
+            raise ValueError("patch dropout in training needs an explicit torch.Generator")
+        b, s, w = x.shape
+        num_patches = s - self.num_prefix
+        keep = max(1, int(num_patches * (1.0 - self.rate)))
+        noise = torch.rand(b, num_patches, generator=generator, device=generator.device)
+        keep_idx = noise.argsort(dim=-1)[:, :keep].to(x.device) + self.num_prefix  # [B, keep]
+        kept = x.gather(1, keep_idx[..., None].expand(b, keep, w))
+        return torch.cat([x[:, :self.num_prefix], kept], dim=1)
+
+
+class LayerScale(nn.Module):
+    """Per-channel learnable scale of a residual branch, gamma = ``init_values`` at init."""
+
+    def __init__(self, width: int, init_values: float = 1e-5):
+        super().__init__()
+        self.init_values = init_values
+        self.gamma = nn.Parameter(torch.full((width,), float(init_values)))
+
+    def init_weights(self, generator: torch.Generator):
+        with torch.no_grad():
+            self.gamma.fill_(self.init_values)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.gamma.to(x.dtype)
+
+
+class MLP(nn.Module):
+    """c_fc, activation, c_proj. With ``block_mlp`` (opt-in, as in the reference) and the
+    pre-LN hand-off, a supported shape runs as the fused operator ``ops.block_mlp`` (on a
+    CUDA tensor the hand-written kernels): LayerNorm, both products, the activation and the
+    residual add in one differentiable call."""
+
+    def __init__(self, width: int, expansion: float = 4.0, act=quick_gelu,
+                 dtype: torch.dtype = torch.float32, depth: int = 12, block_mlp: bool = False):
+        super().__init__()
+        self.width, self.hidden = width, int(width * expansion)
         self.act = act
         self.dtype = dtype
-        self.c_fc = Dense(width, hidden, (2 * width) ** -0.5)
-        self.c_proj = Dense(hidden, width, (width ** -0.5) * ((2 * depth) ** -0.5))
+        self.block_mlp = block_mlp
+        self.c_fc = Dense(width, self.hidden, (2 * width) ** -0.5)
+        self.c_proj = Dense(self.hidden, width, (width ** -0.5) * ((2 * depth) ** -0.5))
 
     def forward(self, x, ln_params=None, residual: bool = False):
         """ln_params: the block's raw ln_2 (weight, bias), applied here; residual=True
         returns x + mlp(LN(x))."""
         if residual and ln_params is None:
             raise ValueError("residual=True requires ln_params (the pre-LN handoff)")
+        w1, b1 = self.c_fc.cast(self.dtype)
+        w2, b2 = self.c_proj.cast(self.dtype)
+        act_name = ("quick_gelu" if self.act is quick_gelu else "gelu" if self.act is gelu
+                    else None)
+        if (self.block_mlp and ln_params is not None
+                and block_mlp_supported(self.width, self.hidden, act_name)):
+            return block_mlp(x, w1, b1, w2, b2, ln_scale=ln_params[0], ln_bias=ln_params[1],
+                             act=act_name, residual=residual)
         x_in = x
         if ln_params is not None:
             x = ln_rows(x, ln_params[0], ln_params[1], LN_EPS)
-        w1, b1 = self.c_fc.cast(self.dtype)
-        w2, b2 = self.c_proj.cast(self.dtype)
         y = self.act(x @ w1 + b1) @ w2 + b2
         return x_in + y if residual else y
 
@@ -155,36 +210,58 @@ class MultiHeadAttention(nn.Module):
 
 
 class ResidualBlock(nn.Module):
-    """Pre-LN residual attention block; both residual adds ride the branches
-    (``fuse_residual`` / ``residual``), as in the reference without LayerScale."""
+    """Pre-LN residual attention block. Without LayerScale both residual adds ride the
+    branches (``fuse_residual`` / ``residual``) and the MLP gets the raw ln_2 parameters, so
+    it can run as the fused operator. With ``ls_init_value`` each branch value is scaled by
+    its ``LayerScale`` before the add, so both adds happen here: the attention still takes
+    the ln_1 hand-off (without its residual), the MLP runs behind a plain ln_2 and never
+    reaches the fused operator."""
 
     def __init__(self, width: int, heads: int, mlp_ratio: float = 4.0, causal: bool = False,
                  act=quick_gelu, dtype: torch.dtype = torch.float32, depth: int = 12,
-                 scale_heads: bool = False):
+                 scale_heads: bool = False, ls_init_value: float | None = None,
+                 block_mlp: bool = False):
         super().__init__()
         self.ln_1 = LayerNorm(width)
         self.attn = MultiHeadAttention(width, heads, causal=causal, dtype=dtype, depth=depth,
                                        scale_heads=scale_heads)
         self.ln_2 = LayerNorm(width)
-        self.mlp = MLP(width, mlp_ratio, act=act, dtype=dtype, depth=depth)
+        self.mlp = MLP(width, mlp_ratio, act=act, dtype=dtype, depth=depth, block_mlp=block_mlp)
+        scaled = ls_init_value is not None
+        self.ls_1 = LayerScale(width, ls_init_value) if scaled else None
+        self.ls_2 = LayerScale(width, ls_init_value) if scaled else None
 
     def forward(self, x, causal: bool = False):
-        x = self.attn(x, ln_params=self.ln_1.params(), causal=causal, fuse_residual=True)
-        return self.mlp(x, ln_params=self.ln_2.params(), residual=True)
+        if self.ls_1 is None:
+            x = self.attn(x, ln_params=self.ln_1.params(), causal=causal, fuse_residual=True)
+            return self.mlp(x, ln_params=self.ln_2.params(), residual=True)
+        x = x + self.ls_1(self.attn(x, ln_params=self.ln_1.params(), causal=causal))
+        return x + self.ls_2(self.mlp(self.ln_2(x)))
 
 
 class Transformer(nn.Module):
+    """A stack of residual blocks. With ``remat`` every block is checkpointed in training:
+    its forward keeps only its input and runs again inside the backward."""
+
     def __init__(self, width: int, layers: int, heads: int, mlp_ratio: float = 4.0,
                  causal: bool = False, act=quick_gelu, dtype: torch.dtype = torch.float32,
-                 scale_heads: bool = False):
+                 scale_heads: bool = False, ls_init_value: float | None = None,
+                 remat: bool = False, block_mlp: bool = False):
         super().__init__()
+        self.remat = remat
         self.resblocks = nn.ModuleList(
             ResidualBlock(width, heads, mlp_ratio, causal=causal, act=act, dtype=dtype,
-                          depth=layers, scale_heads=scale_heads)
+                          depth=layers, scale_heads=scale_heads, ls_init_value=ls_init_value,
+                          block_mlp=block_mlp)
             for _ in range(layers)
         )
 
     def forward(self, x, causal: bool = False):
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for blk in self.resblocks:
-            x = blk(x, causal=causal)
+            if remat:
+                # the blocks draw no random numbers, so no generator state is kept
+                x = checkpoint(blk, x, causal, use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = blk(x, causal=causal)
         return x

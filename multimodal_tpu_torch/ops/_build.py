@@ -24,7 +24,7 @@ import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = tuple(os.path.join(_HERE, "csrc", name) for name in (
-    "block_attention_fwd.cu", "block_attention_bwd.cu", "fused_attention.cu"))
+    "block_attention_fwd.cu", "block_attention_bwd.cu", "fused_attention.cu", "block_mlp.cu"))
 HEADERS = tuple(os.path.join(_HERE, "csrc", name) for name in (
     "block_attention_common.cuh", "attention_passes.cuh"))
 BUILD_DIR = os.path.join(_HERE, "_build_cache")
@@ -102,6 +102,9 @@ def load() -> ctypes.CDLL:
                 "mmt_fused_attention_fwd": [i32] + [ptr] * 4 + [i32] * 5 + [f32, ptr],
                 "mmt_fused_attention_bwd": [i32] + [ptr] * 8 + [i32] * 5 + [f32, ptr],
                 "mmt_ln_bwd_partial_rows": [i32],
+                "mmt_block_mlp_fwd": [i32] + [ptr] * 10 + [i32] * 5 + [f32, ptr],
+                "mmt_block_mlp_bwd": [i32] + [ptr] * 16 + [i32] * 6 + [f32, ptr],
+                "mmt_block_mlp_db1_partial_rows": [i32],
             }
             for name, argtypes in entries.items():
                 getattr(lib, name).argtypes = argtypes

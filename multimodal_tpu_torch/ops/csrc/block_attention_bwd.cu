@@ -158,75 +158,6 @@ ln_rows_kernel(const T* __restrict__ x, const float* __restrict__ mean,
   }
 }
 
-// The LN vjp over g = d(ln_out) (float32), one block per kLnBwdRows rows. First one warp per
-// row: the two row means, then dx. Then one thread per column: the block's partial dgamma
-// and dbeta, summed over its rows in order.
-constexpr int kLnBwdRows = 32;
-
-template <typename T>
-__global__ void __launch_bounds__(kLnThreads)
-ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* __restrict__ g,
-              const float* __restrict__ mean, const float* __restrict__ inv,
-              const T* __restrict__ gamma, T* __restrict__ dx, float* __restrict__ dg_part,
-              float* __restrict__ db_part, int m, int w) {
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int r0 = blockIdx.x * kLnBwdRows;
-  const int rows = min(kLnBwdRows, m - r0);
-
-  for (int r = warp; r < rows; r += kLnThreads / 32) {
-    const size_t at = (size_t)(r0 + r) * w;
-    const float mu = mean[r0 + r], iv = inv[r0 + r];
-    float s1 = 0.f, s2 = 0.f;
-    for (int c = lane * 4; c < w; c += 128) {
-      float xv[4], gv[4], gm[4];
-      load4(x + at + c, xv);
-      load4(g + at + c, gv);
-      load4(gamma + c, gm);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float xhat = __fmul_rn(__fsub_rn(xv[i], mu), iv);
-        const float dxhat = __fmul_rn(gv[i], gm[i]);
-        s1 += dxhat;
-        s2 = fmaf(dxhat, xhat, s2);
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off /= 2) {
-      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-      s2 += __shfl_xor_sync(0xffffffffu, s2, off);
-    }
-    const float m1 = s1 / (float)w, m2 = s2 / (float)w;
-    for (int c = lane * 4; c < w; c += 128) {
-      float xv[4], gv[4], gm[4], out[4], dyv[4] = {0.f, 0.f, 0.f, 0.f};
-      load4(x + at + c, xv);
-      load4(g + at + c, gv);
-      load4(gamma + c, gm);
-      if (dy != nullptr) load4(dy + at + c, dyv);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float xhat = __fmul_rn(__fsub_rn(xv[i], mu), iv);
-        const float dxhat = __fmul_rn(gv[i], gm[i]);
-        out[i] = __fmul_rn(iv, __fsub_rn(__fsub_rn(dxhat, m1), __fmul_rn(xhat, m2)));
-        if (dy != nullptr) out[i] = __fadd_rn(out[i], dyv[i]);
-      }
-      store4(dx + at + c, out);
-    }
-  }
-
-  for (int c = tid; c < w; c += kLnThreads) {
-    float dg = 0.f, db = 0.f;
-    for (int r = 0; r < rows; ++r) {
-      const size_t at = (size_t)(r0 + r) * w + c;
-      const float gv = g[at];
-      const float xhat = __fmul_rn(__fsub_rn(to_float(x[at]), mean[r0 + r]), inv[r0 + r]);
-      dg = fmaf(gv, xhat, dg);
-      db += gv;
-    }
-    dg_part[(size_t)blockIdx.x * w + c] = dg;
-    db_part[(size_t)blockIdx.x * w + c] = db;
-  }
-}
-
 // Scratch and outputs of one backward call. ln == false: the non-LN form, where xin is the
 // kernel's input and dx the rounded K=3W product. ln == true: the fields below it are used.
 struct BwdBuffers {
@@ -309,10 +240,10 @@ cudaError_t launch_bwd(const void* x, const void* dy, const void* gamma, const v
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  ln_bwd_kernel<T><<<(m + kLnBwdRows - 1) / kLnBwdRows, kLnThreads, 0, stream>>>(
-      static_cast<const T*>(x), residual ? static_cast<const T*>(dy) : nullptr, buf.g32,
-      buf.ln_stats, buf.ln_stats + m, static_cast<const T*>(gamma), static_cast<T*>(buf.dx),
-      buf.dg_part, buf.db_part, m, w);
+  ln_bwd_kernel<T, T><<<(m + kLnBwdRows - 1) / kLnBwdRows, kLnThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), buf.g32, buf.ln_stats,
+      buf.ln_stats + m, static_cast<const T*>(gamma), static_cast<T*>(buf.dx), buf.dg_part,
+      buf.db_part, nullptr, residual, m, w);
   return cudaGetLastError();
 }
 

@@ -1,6 +1,7 @@
-// Shared pieces of the attention kernels (block_attention_fwd.cu, block_attention_bwd.cu,
-// fused_attention.cu): dtype conversions, 4-wide loads and stores, the row-wise LayerNorm
-// (f32 statistics, compute-dtype arithmetic) and the projection GEMM with bias (C = A @ B +
+// Shared pieces of the kernels (block_attention_fwd.cu, block_attention_bwd.cu,
+// fused_attention.cu, block_mlp.cu): dtype conversions, 4-wide loads and stores, the row-wise
+// LayerNorm (f32 statistics, compute-dtype arithmetic) with the row kernel of its vjp, and
+// the projection GEMM with bias (C = A @ B +
 // bias, f32 accumulation, one rounding), which can normalize its A tile as it loads it and
 // add a residual in its epilogue. Everything lives in an anonymous namespace, so each source
 // that includes it gets its own copy and the objects link into one library.
@@ -110,6 +111,81 @@ __device__ __forceinline__ float ln_apply(float x, float mean_t, float inv_t, fl
   y = round_to<T>(__fmul_rn(y, inv_t));
   y = round_to<T>(__fmul_rn(y, gamma));
   return round_to<T>(__fadd_rn(y, beta));
+}
+
+// The LN vjp over g = d(LN(x)) (float32), one block per kLnBwdRows rows. First one warp per
+// row: the two row means, then dx = inv * (g gamma - mean(g gamma) - xhat mean(g gamma xhat))
+// in f32 with xhat = (x32 - mean) * inv, plus dy with `residual`, rounded once. Then one
+// thread per column: the block's partial dgamma = sum(g xhat) and dbeta = sum(g), summed over
+// its rows in order, and with `dy_part` the partial column sum of dy as well. gamma is of
+// type TG: the compute dtype for block attention, float32 for the MLP branch.
+constexpr int kLnBwdRows = 32;
+
+template <typename T, typename TG>
+__global__ void __launch_bounds__(kLnThreads)
+ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* __restrict__ g,
+              const float* __restrict__ mean, const float* __restrict__ inv,
+              const TG* __restrict__ gamma, T* __restrict__ dx, float* __restrict__ dg_part,
+              float* __restrict__ db_part, float* __restrict__ dy_part, int residual, int m,
+              int w) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int r0 = blockIdx.x * kLnBwdRows;
+  const int rows = min(kLnBwdRows, m - r0);
+
+  for (int r = warp; r < rows; r += kLnThreads / 32) {
+    const size_t at = (size_t)(r0 + r) * w;
+    const float mu = mean[r0 + r], iv = inv[r0 + r];
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = lane * 4; c < w; c += 128) {
+      float xv[4], gv[4], gm[4];
+      load4(x + at + c, xv);
+      load4(g + at + c, gv);
+      load4(gamma + c, gm);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float xhat = __fmul_rn(__fsub_rn(xv[i], mu), iv);
+        const float dxhat = __fmul_rn(gv[i], gm[i]);
+        s1 += dxhat;
+        s2 = fmaf(dxhat, xhat, s2);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) {
+      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+    }
+    const float m1 = s1 / (float)w, m2 = s2 / (float)w;
+    for (int c = lane * 4; c < w; c += 128) {
+      float xv[4], gv[4], gm[4], out[4], dyv[4] = {0.f, 0.f, 0.f, 0.f};
+      load4(x + at + c, xv);
+      load4(g + at + c, gv);
+      load4(gamma + c, gm);
+      if (residual) load4(dy + at + c, dyv);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float xhat = __fmul_rn(__fsub_rn(xv[i], mu), iv);
+        const float dxhat = __fmul_rn(gv[i], gm[i]);
+        out[i] = __fmul_rn(iv, __fsub_rn(__fsub_rn(dxhat, m1), __fmul_rn(xhat, m2)));
+        if (residual) out[i] = __fadd_rn(out[i], dyv[i]);
+      }
+      store4(dx + at + c, out);
+    }
+  }
+
+  for (int c = tid; c < w; c += kLnThreads) {
+    float dg = 0.f, db = 0.f, dys = 0.f;
+    for (int r = 0; r < rows; ++r) {
+      const size_t at = (size_t)(r0 + r) * w + c;
+      const float gv = g[at];
+      const float xhat = __fmul_rn(__fsub_rn(to_float(x[at]), mean[r0 + r]), inv[r0 + r]);
+      dg = fmaf(gv, xhat, dg);
+      db += gv;
+      if (dy_part != nullptr) dys += to_float(dy[at]);
+    }
+    dg_part[(size_t)blockIdx.x * w + c] = dg;
+    db_part[(size_t)blockIdx.x * w + c] = db;
+    if (dy_part != nullptr) dy_part[(size_t)blockIdx.x * w + c] = dys;
+  }
 }
 
 // ----------------------------------------------------------------------------- projections

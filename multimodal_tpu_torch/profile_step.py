@@ -7,11 +7,14 @@ Builds the model with seeded weights on the GPU, runs a few warm steps of
 ``torch.profiler`` and sums the CUDA kernels' device time per step into families: the
 hand-written kernels by name, cuBLAS GEMMs, elementwise passes, reductions, copies. Prints
 the card's name and power limit, the table, the device total and the host wall time per
-step (their ratio is the device's busy share). ``--scale-heads`` turns on
+step (their ratio is the device's busy share), and the three largest kernels that no family
+claims. ``--scale-heads`` turns on
 ``vision.scale_heads``, which sends the vision pass through the fused attention pair.
 ``--ln-fold-min-seq N`` moves the sequence length above which the block operator folds the
 LayerNorm and the residual into its kernels (0: every call folds; 320: none does), to
-measure one step either way.
+measure one step either way. ``--block-mlp`` builds the model with ``block_mlp=True``, so
+that every block's MLP half runs the fused operator's kernels; ``--remat`` checkpoints every
+block.
 """
 
 from __future__ import annotations
@@ -29,13 +32,17 @@ FAMILIES = [  # (family, substrings of the kernel name), first match wins
     ("block-attention projection GEMMs (gemm_bias_kernel, LN folded in its loads or not)",
      ("gemm_bias_kernel",)),
     ("backward gemm_nt_kernel (do = dy Wo^T, dx or g over K=3W)", ("gemm_nt_kernel",)),
+    ("fused MLP forward c_proj (mlp_proj_kernel; c_fc is a gemm_bias_kernel)",
+     ("mlp_proj_kernel",)),
+    ("fused MLP backward dh and dln (mlp_nt_kernel)", ("mlp_nt_kernel",)),
+    ("fused MLP weight gradients (mlp_wgrad_kernel)", ("mlp_wgrad_kernel",)),
     ("backward dQ pass", ("attn_bwd_dq_kernel",)),
     ("backward dK/dV pass", ("attn_bwd_dkv_kernel",)),
     ("forward attention core", ("attention_kernel",)),
     ("LN-fold launches (ln_stats, ln_rows, ln_bwd)", ("ln_stats_kernel", "ln_rows_kernel",
                                                       "ln_bwd_kernel")),
     ("cuBLAS GEMMs (MLP, patch embed, projections, weight gradients)",
-     ("gemm", "cutlass", "cublas", "xmma", "gemv")),
+     ("gemm", "cutlass", "cublas", "xmma", "gemv", "nvjet")),
     ("reductions", ("reduce",)),
     ("copies (memcpy, memset, cat)", ("memcpy", "memset", "cat", "copy")),
     ("elementwise (LN, quick_gelu, casts, adds, the AdamW passes)",
@@ -60,6 +67,8 @@ def main():
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--scale-heads", action="store_true")
     ap.add_argument("--ln-fold-min-seq", type=int, default=None)
+    ap.add_argument("--block-mlp", action="store_true")
+    ap.add_argument("--remat", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs an NVIDIA GPU (there is no CPU fallback)")
@@ -73,15 +82,20 @@ def main():
     if args.ln_fold_min_seq is not None:
         block_attention.LN_FOLD_MIN_SEQ = args.ln_fold_min_seq
     name = args.model
-    if args.scale_heads:
+    if args.scale_heads or args.remat:
         with open(os.path.join(paths.CONFIG_DIR, args.model + ".json")) as f:
             cfg = json.load(f)
-        cfg["vision_cfg"]["scale_heads"] = True
-        name = args.model + "-scale-heads"
+        if args.scale_heads:
+            cfg["vision_cfg"]["scale_heads"] = True
+            name += "-scale-heads"
+        if args.remat:
+            cfg["remat"] = True
+            name += "-remat"
         add_model_config(name, cfg)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    model = create_model(name, dtype=getattr(torch, args.dtype), seed=0)
+    model = create_model(name, dtype=getattr(torch, args.dtype), seed=0,
+                         block_mlp=args.block_mlp)
     c = model.cfg
     rng = np.random.default_rng(0)
     batch = {
@@ -109,6 +123,7 @@ def main():
     counts = {k: v // args.steps for k, v in launches.launch_counts().items() if v}
 
     by_family: dict = {}
+    unnamed: dict = {}  # kernels no family claims, by name
     for ev in prof.key_averages():
         # kernels only: an operator's row repeats the time of the kernels it launched
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -116,16 +131,21 @@ def main():
         device_us = getattr(ev, "self_device_time_total", None)
         if device_us is None:  # older torch
             device_us = ev.self_cuda_time_total
-        if device_us <= 0:
-            continue
+        if device_us <= 0 or ev.key.startswith("Optimizer.step#"):
+            continue  # the optimizer's range on the device repeats its kernels' time
         fam = family_of(ev.key)
         by_family[fam] = by_family.get(fam, 0.0) + device_us / 1e3 / args.steps
+        if fam == "other":
+            unnamed[ev.key] = unnamed.get(ev.key, 0.0) + device_us / 1e3 / args.steps
     total = sum(by_family.values())
-    print(f"{name} {args.dtype} B={args.batch} LN fold above S={block_attention.LN_FOLD_MIN_SEQ}: "
+    print(f"{name} {args.dtype} B={args.batch} block_mlp={args.block_mlp} "
+          f"LN fold above S={block_attention.LN_FOLD_MIN_SEQ}: "
           f"device time per train step by kernel family "
           f"(torch.profiler over {args.steps} steps after {args.warmup} warm ones) [{card}]")
     for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
         print(f"  {ms:10.3f} ms  {100 * ms / total:5.1f}%  {fam}")
+    for key, ms in sorted(unnamed.items(), key=lambda kv: -kv[1])[:3]:
+        print(f"    other: {ms:10.3f} ms  {key[:100]}")
     print(f"  device total {total:.3f} ms, host wall {wall_ms:.3f} ms per step "
           f"({args.batch * 1e3 / wall_ms:.1f} samples/s under the profiler); "
           f"kernel launches per step {counts}")

@@ -3,18 +3,21 @@
 ``make_train_step(model, optimizer)`` returns ``step(state, batch) -> metrics``: the forward
 of both towers on a uint8 (or already normalized) image batch and its tokens, the CLIP
 InfoNCE loss on the normalized features, the backward (on a CUDA tensor the attention half
-of every block runs the hand-written forward and backward kernels), the fused AdamW step
+of every block, and with ``block_mlp`` its MLP half, runs the hand-written forward and
+backward kernels), the fused AdamW step
 with its global-norm clip and non-finite skip, and the ln(100) clamp of the logit scale.
 It is the step the JAX package's ``bench.py`` times and ``train/run.py`` loops over.
 
 Unlike the JAX step, which returns a new state, this one updates the model, the optimizer
 and ``state.step`` in place. The metrics are device tensors; reading one waits for the step.
+``step(state, batch, generator)`` takes the ``torch.Generator`` that patch dropout draws its
+noise from (the JAX step's ``rngs={"patch_dropout": rng}``); a model without patch dropout
+needs none.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item: meshes and
 shard_map (Queue 1 item 9), gradient accumulation in both forms, the parameter EMA and
 optimizer-state offload (item 8), ``wire_size`` (a serving piece of Queue 1), loss
-families other than ``clip`` and contrastive forms other than ``dense`` (item 7), and
-patch dropout (item 6).
+families other than ``clip`` and contrastive forms other than ``dense`` (item 7).
 """
 
 from __future__ import annotations
@@ -78,7 +81,8 @@ def _clamp_logit_scale(model: torch.nn.Module):
 
 def make_loss_fn(model, loss_type: str = "clip", loss_kwargs: Optional[dict] = None,
                  wire_size: Optional[int] = None) -> Callable:
-    """loss_fn(model, batch) -> (loss, metrics) for the CLIP InfoNCE loss (dense form)."""
+    """loss_fn(model, batch, generator=None) -> (loss, metrics) for the CLIP InfoNCE loss
+    (dense form); ``generator`` feeds patch dropout."""
     if loss_type != "clip":
         raise NotImplementedError(f"loss_type={loss_type!r} is not ported yet "
                                   "(ROADMAP Queue 1 item 7)")
@@ -95,8 +99,8 @@ def make_loss_fn(model, loss_type: str = "clip", loss_kwargs: Optional[dict] = N
         raise NotImplementedError("wire_size (the on-device bicubic upsample) is not ported "
                                   "yet (ROADMAP Queue 1, serving pieces)")
 
-    def loss_fn(model, batch):
-        out = model(batch_images(batch, model), batch["text"])
+    def loss_fn(model, batch, generator=None):
+        out = model(batch_images(batch, model), batch["text"], generator=generator)
         fi, ft, ls = out["image_features"], out["text_features"], out["logit_scale"]
         loss = clip_loss(fi, ft, ls, label_smoothing=label_smoothing, normalize=False, **kw)
         return loss, {"loss": loss.detach(), "logit_scale": ls.detach().clone()}
@@ -109,11 +113,14 @@ def make_train_step(model, optimizer, loss_type: str = "clip",
                     use_shard_map: bool = False, accum_steps: int = 1,
                     feature_cached_accum: bool = False, ema_decay: Optional[float] = None,
                     offload_opt_state: bool = False, wire_size: Optional[int] = None):
-    """Build ``step(state, batch) -> metrics`` (``loss``, ``logit_scale``, ``grad_norm``).
+    """Build ``step(state, batch, generator=None) -> metrics`` (``loss``, ``logit_scale``,
+    ``grad_norm``).
 
     ``batch`` holds ``image`` (uint8 or float NHWC) and ``text`` (token ids), on the
     model's device. The step runs on ``state.model`` and ``state.optimizer``, which are
-    ``model`` and ``optimizer`` when the state comes from ``TrainState.create``."""
+    ``model`` and ``optimizer`` when the state comes from ``TrainState.create``.
+    ``generator`` is the source of the patch-dropout noise; a model with
+    ``vision.patch_dropout`` > 0 raises without one."""
     left_out = {
         "mesh": (mesh is not None, "Queue 1 item 9"),
         "use_shard_map": (use_shard_map, "Queue 1 item 9"),
@@ -126,15 +133,13 @@ def make_train_step(model, optimizer, loss_type: str = "clip",
     for name, (on, item) in left_out.items():
         if on:
             raise NotImplementedError(f"{name} is not ported yet (ROADMAP {item})")
-    vision = getattr(getattr(model, "cfg", None), "vision", None)
-    if vision is not None and vision.patch_dropout > 0.0:
-        raise NotImplementedError("patch_dropout is not ported yet (ROADMAP Queue 1 item 6)")
     loss_fn = make_loss_fn(model, loss_type, loss_kwargs)
 
-    def step(state: TrainState, batch: dict) -> dict:
+    def step(state: TrainState, batch: dict,
+             generator: Optional[torch.Generator] = None) -> dict:
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(state.model, batch)
+        loss, metrics = loss_fn(state.model, batch, generator)
         loss.backward()
         state.optimizer.step()
         _clamp_logit_scale(state.model)

@@ -18,6 +18,7 @@ def test_port_imports_without_jax():
         "import multimodal_tpu_torch.ops.attention, multimodal_tpu_torch.ops.block_attention\n"
         "import multimodal_tpu_torch.ops.fused_attention, multimodal_tpu_torch.ops.launches\n"
         "import multimodal_tpu_torch.models.checkpoint_interop\n"
+        "import multimodal_tpu_torch.ops.block_mlp, multimodal_tpu_torch.profile_step\n"
         "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'multimodal_tpu'))\n"
         "assert not leaked, leaked\n"
@@ -39,8 +40,14 @@ def test_profile_step_sorts_kernels_into_families():
         "void (anonymous namespace)::attn_bwd_dq_kernel<float, true>(...)": "dQ pass",
         "void (anonymous namespace)::attn_bwd_dkv_kernel<float, false>(...)": "dK/dV pass",
         "void (anonymous namespace)::attention_kernel<float>(...)": "forward attention core",
-        "void (anonymous namespace)::ln_bwd_kernel<float>(...)": "LN-fold launches",
+        "void (anonymous namespace)::ln_bwd_kernel<float, float>(...)": "LN-fold launches",
+        "void (anonymous namespace)::mlp_proj_kernel<float>(...)": "fused MLP forward c_proj",
+        "void (anonymous namespace)::mlp_nt_kernel<__nv_bfloat16, true>(...)":
+            "fused MLP backward dh and dln",
+        "void (anonymous namespace)::mlp_wgrad_kernel<float, false>(...)":
+            "fused MLP weight gradients",
         "sm90_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize128x128x8": "cuBLAS",
+        "nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NNT": "cuBLAS",
         "void at::native::vectorized_elementwise_kernel<4, ...>": "elementwise",
         "void at::native::reduce_kernel<512, 1, ...>": "reductions",
         "something_new": "other",
