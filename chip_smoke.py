@@ -19,8 +19,13 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      (LayerNorm, c_fc, activation, c_proj, residual) forward and backward, with and without
      the residual, at the ViT-B/32, ViT-B/16 and ViT-L/14 token counts and widths and a ragged
      T=3x197 (outputs y, h and dx, dW1, dW2, db1, db2, dgamma, dbeta; no library call holds
-     it). The library calls are yardsticks, held to the plain versions too and used nowhere
-     in the port;
+     it); the flash-attention trio (forward with lse, dQ, dK/dV) at S=2048 (B=1 and the timed
+     B=8) and S=4096 causal, S=1024 and S=2048 not causal, a ragged S=2050, sq != sk causal,
+     D=80 and D=128, with scaled_dot_product_attention(is_causal=True) forward and backward
+     timed beside it; then the flash operator against the plain attention path, forward plus
+     backward, time and peak memory at S=1024, 2048 and 4096, causal and not (the dispatch's
+     crossover). The library calls are yardsticks, held to the plain versions too and used
+     nowhere in the port;
   4. serving: ViT-B/32 in float32 with seeded random weights behind the HTTP server,
      answering text, image and similarity requests; the forward kernel's launch count over
      those requests must be at least 12 per tower encode, and the served embeddings must
@@ -46,7 +51,16 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      against the plain path at B=64; exactly 24 MLP forward and 24 MLP backward launches per
      step beside the 12 of each block-attention kernel; float32 and bfloat16 at the largest
      batch, to be read beside phase 7's rates with the switch off); and one float32 run with
-     ``remat`` at that batch: the same losses, twice the forward launches, its peak memory.
+     ``remat`` at that batch: the same losses, twice the forward launches, its peak memory;
+  9. the long-context causal path: ViT-B/32 at full width and depth with the text tower's
+     ``context_length`` at 2048 (``ViT-B-32-ctx2048``), whose every text block goes through
+     ``attention()`` to the flash kernels: served as in phases 4-5 at bucket 32 (per text
+     encode >= 12 flash forward launches, per image encode >= 12 block forward launches);
+     trained as in phase 6, the float32 kernel path against the plain path at B=8 (per step
+     exactly 12 launches of each block kernel and of each of the three flash kernels), then
+     float32 and bfloat16 at the largest of 8/16/32 the kernel path holds; and one float32
+     run of ViT-B/32 with ``vision.scaled_cosine`` and ``vision.attentional_pool`` at B=64
+     (finite, falling, the text tower's 12 + 12 block launches and nothing else).
 Before the last line come the card's name and power limit and the kernel summary (JSON); the
 last line is the device record.
 """
@@ -69,10 +83,16 @@ MODEL = "ViT-B-32"
 SHARED_MODEL = "ViT-B-16"
 SCALE_HEADS_MODEL = "ViT-B-16-scale-heads"
 REMAT_MODEL = "ViT-B-16-remat"
+LONG_MODEL = "ViT-B-32-ctx2048"
+LONG_CONTEXT = 2048
+LONG_BUCKET = 32  # the serving bucket of the long-context model: 32 x 2048 = 65,536 tokens
+LONG_COMPARE_BATCH = 8
+OPTIONS_MODEL = "ViT-B-32-cosine-attnpool"
 _CSRC = "multimodal_tpu_torch/ops/csrc/"
 _JAX_BLOCK = "multimodal_tpu/ops/block_attention.py"
 _JAX_FUSED = "multimodal_tpu/ops/fused_attention.py"
 _JAX_MLP = "multimodal_tpu/ops/block_mlp.py"
+_JAX_FLASH = "multimodal_tpu/ops/flash_attention.py"
 KERNELS = {  # name -> (source, the TPU kernel it replaces, the timed case that stands for it)
     "block_attention_fwd": (_CSRC + "block_attention_fwd.cu", _JAX_BLOCK + ":200", "vision"),
     "block_attention_bwd": (_CSRC + "block_attention_bwd.cu",
@@ -87,6 +107,9 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces, the timed case that 
     "fused_attention_bwd": (_CSRC + "fused_attention.cu", _JAX_FUSED + ":83", "fused-S197"),
     "block_mlp_fwd": (_CSRC + "block_mlp.cu", _JAX_MLP + ":105", "mlp-B16-vision"),
     "block_mlp_bwd": (_CSRC + "block_mlp.cu", _JAX_MLP + ":123", "mlp-B16-vision"),
+    "flash_attention_fwd": (_CSRC + "flash_attention.cu", _JAX_FLASH + ":93", "flash-S2048"),
+    "flash_attention_dq": (_CSRC + "flash_attention.cu", _JAX_FLASH + ":207", "flash-S2048"),
+    "flash_attention_dkv": (_CSRC + "flash_attention.cu", _JAX_FLASH + ":241", "flash-S2048"),
 }
 BLOCK_CASES = [  # (case, batch, seq, width, heads, causal)
     ("vision", 1, 50, 768, 12, False),
@@ -125,6 +148,18 @@ MLP_CASES = [  # (case, batch, seq, width, hidden, act); T = batch * seq token r
     ("mlp-L14", 64, 257, 1024, 4096, "gelu"),
     ("mlp-ragged", 3, 197, 768, 3072, "quick_gelu"),
 ]
+FLASH_CASES = [  # (case, batch, sq, sk, heads, head_dim, causal, timed)
+    ("flash-S2048", 1, 2048, 2048, 8, 64, True, False),
+    ("flash-S2048", 8, 2048, 2048, 8, 64, True, True),  # the text tower's call at B=8
+    ("flash-S4096", 2, 4096, 4096, 8, 64, True, True),
+    ("flash-S1024-full", 2, 1024, 1024, 8, 64, False, False),
+    ("flash-S2048-full", 2, 2048, 2048, 8, 64, False, False),
+    ("flash-S2050", 1, 2050, 2050, 8, 64, True, False),
+    ("flash-cross", 2, 300, 520, 8, 64, True, False),  # sq != sk: the top-left mask
+    ("flash-D80", 2, 514, 514, 4, 80, True, False),
+    ("flash-D128", 2, 514, 514, 4, 128, True, False),
+]
+CROSSOVER_TOKENS = 16384  # batch x S of every crossover case (B=8 at S=2048)
 TRAIN_BATCH = 256
 TRAIN_STEPS = 6  # every train run: the first step warms up, the five after it are timed
 SHARED_COMPARE_BATCH = 64  # both paths hold it in float32; the plain path does not hold 256
@@ -197,6 +232,24 @@ def fused_bound(kernel: str, b, s, heads, d, causal, dtype_name: str):
     return bound(10 * pairs, e * 7 * b * s * heads * d, dtype_name)
 
 
+def flash_bound(kernel: str, b, sq, sk, heads, d, causal, dtype_name: str):
+    """Forward: two products a pair (logits, out). dQ: three (logits, dp, dq). dK/dV: four
+    (logits, dp, dv, dk); the two backward kernels each rebuild logits and dp, a one-pass
+    backward would need five products, 10 x pairs x D. Pairs under the top-left causal mask:
+    query r sees keys 0..min(r, sk-1). Bytes: q, k, v and do or out-sized tensors once each,
+    lse and delta in float32."""
+    e = 4 if dtype_name == "float32" else 2
+    n = min(sq, sk)
+    pairs = n * (n + 1) / 2 + max(sq - sk, 0) * sk if causal else sq * sk
+    work = b * heads * pairs * d
+    q_size, k_size, rows = b * sq * heads * d, b * sk * heads * d, 4 * b * heads * sq
+    if kernel.endswith("fwd"):
+        return bound(4 * work, e * (2 * q_size + 2 * k_size) + rows, dtype_name)
+    if kernel.endswith("dq"):
+        return bound(6 * work, e * (3 * q_size + 2 * k_size) + 2 * rows, dtype_name)
+    return bound(8 * work, e * (2 * q_size + 4 * k_size) + 2 * rows, dtype_name)
+
+
 def mlp_bound(kernel: str, t, w, hid, dtype_name: str):
     """Work of the TPU kernels' definition: two [T,W]x[W,H]-sized products forward, four
     backward. Bytes forward: x, y, h and the parameters; backward: x, dy, h, dx, both weights
@@ -209,7 +262,7 @@ def mlp_bound(kernel: str, t, w, hid, dtype_name: str):
     return bound(8 * t * w * hid, nbytes, dtype_name)
 
 
-def kernel_cases(torch, ba, fa, bm, dtype):
+def kernel_cases(torch, ba, fa, bm, fl, dtype):
     """Every (kernel, case, shape text, timed, run kernel, run plain, library, other timed
     runs by name, output names, bound) of phase 3 for one dtype, built lazily: each case
     frees its tensors before the next is made. ``library`` is None or (run, view): one
@@ -332,11 +385,53 @@ def kernel_cases(torch, ba, fa, bm, dtype):
                    lambda: bm.block_mlp_bwd_reference(x, dy, h, gamma, beta, w1, w2, **kw),
                    None, {}, ("dx", "dW1", "dW2", "db1", "db2", "dgamma", "dbeta"),
                    mlp_bound("block_mlp_bwd", t, w, hid, name))
+    for case, b, sq, sk, heads, d, causal, timed in FLASH_CASES:
+        g = torch.Generator(device="cuda").manual_seed(b * 1000 + sq)
+        q, k, v, do = (torch.randn(b, s_, heads, d, generator=g, device="cuda").to(dtype)
+                       for s_ in (sq, sk, sk, sq))
+        kw = dict(causal=causal)
+        shape = f"B={b:<3} Sq={sq} Sk={sk} H={heads} D={d} causal={causal!s:<5}"
+        # the backward kernels take the forward kernel's out and lse, as the operator's
+        # backward hands them over; delta = rowsum(do * out) is formed outside, once
+        out, lse = fl.flash_attention_fwd(q, k, v, **kw)
+        delta = fl.flash_delta(out, do)
+        # the library yardstick: one scaled_dot_product_attention call on head-major views of
+        # the same tensors; its one backward call yields dq, dk and dv together, so both
+        # backward kernels are timed beside the whole of it. Not at sq != sk
+        library = {}
+        if sq == sk:
+            heads_first = lambda t: t.transpose(1, 2)  # noqa: E731
+            qh, kh, vh, doh = (heads_first(t) for t in (q, k, v, do))
+            leaves = [t.detach().requires_grad_() for t in (qh, kh, vh)]
+            sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+            sdpa_grad = lambda which: (  # noqa: E731
+                lambda: torch.autograd.grad(sdpa_out, leaves[which], doh, retain_graph=True))
+            library = {
+                "fwd": (lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal),
+                        heads_first),
+                "dq": (sdpa_grad(slice(0, 1)), lambda grads: heads_first(grads[0])),
+                "dkv": (sdpa_grad(slice(1, 3)), lambda grads: heads_first(grads[0])),
+            }
+        yield ("flash_attention_fwd", case, shape, timed,
+               lambda: fl.flash_attention_fwd(q, k, v, **kw),
+               lambda: fl.flash_attention_reference(q, k, v, **kw),
+               library.get("fwd"), {}, ("out", "lse"),
+               flash_bound("flash_attention_fwd", b, sq, sk, heads, d, causal, name))
+        yield ("flash_attention_dq", case, shape, timed,
+               lambda: fl.flash_attention_dq(q, k, v, do, lse, delta, **kw),
+               lambda: fl.flash_attention_bwd_reference(q, k, v, out, lse, do, **kw)[:1],
+               library.get("dq"), {}, ("dq",),
+               flash_bound("flash_attention_dq", b, sq, sk, heads, d, causal, name))
+        yield ("flash_attention_dkv", case, shape, timed,
+               lambda: fl.flash_attention_dkv(q, k, v, do, lse, delta, **kw),
+               lambda: fl.flash_attention_bwd_reference(q, k, v, out, lse, do, **kw)[1:],
+               library.get("dkv"), {}, ("dk", "dv"),
+               flash_bound("flash_attention_dkv", b, sq, sk, heads, d, causal, name))
 
 
-def phase_kernels(torch, ba, fa, bm) -> dict:
+def phase_kernels(torch, ba, fa, bm, fl) -> dict:
     """Every kernel vs plain at every case and both dtypes; times at B=256 (ViT-L/14's MLP
-    shape at B=64). The library
+    shape at B=64; the flash trio at B=8 S=2048 and B=2 S=4096). The library
     call, where there is one, is held to the plain version's first output too, at a wider
     limit (1e-3 and 5e-2 x max|plain|: it rounds at other points and sums in another
     order), so that its time is the time of the same function."""
@@ -345,7 +440,7 @@ def phase_kernels(torch, ba, fa, bm) -> dict:
     for dtype, rel_tol, lib_tol in ((torch.float32, 1e-4, 1e-3), (torch.bfloat16, 2e-2, 5e-2)):
         name = str(dtype).replace("torch.", "")
         for (kernel, case, shape, timed, kern, plain, library, others, outputs,
-             (b_ms, b_by)) in kernel_cases(torch, ba, fa, bm, dtype):
+             (b_ms, b_by)) in kernel_cases(torch, ba, fa, bm, fl, dtype):
             got, want = kern(), plain()
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
@@ -368,7 +463,8 @@ def phase_kernels(torch, ba, fa, bm) -> dict:
                 line += f" library_err={lib_err:.2e}{'' if lib_ok else ' LIBRARY MISMATCH'}"
             del got, want
             if timed:
-                iters = 20 if "S197" not in case and not case.startswith("mlp") else 8
+                slow = "S197" in case or case.startswith(("mlp", "flash"))
+                iters = 8 if slow else 20
                 k_ms, p_ms = cuda_ms(kern, iters), cuda_ms(plain, iters)
                 other_ms = {k: cuda_ms(fn, iters) for k, fn in others.items()}
                 if library is not None:
@@ -387,6 +483,38 @@ def phase_kernels(torch, ba, fa, bm) -> dict:
     if failures:
         fail(f"{len(failures)} kernel/plain mismatches")
     return {"worst_f32": worst_f32, "timing": timing}
+
+
+def flash_crossover(torch, attention, card):
+    """Where the dispatch's rule (causal, S >= MIN_FLASH_SEQ) stands on this card: the flash
+    operator against the plain attention path through ``attention()``, forward plus backward
+    at H=8 D=64 and 16,384 tokens a batch, time and peak memory beyond the operands."""
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        for s in (1024, 2048, 4096):
+            for causal in (True, False):
+                b = CROSSOVER_TOKENS // s
+                g = torch.Generator(device="cuda").manual_seed(s)
+                q, k, v, do = (torch.randn(b, s, 8, 64, generator=g, device="cuda").to(dtype)
+                               for _ in range(4))
+                leaves = [t.requires_grad_() for t in (q, k, v)]
+                cells = {}
+                for impl in ("flash", "xla"):
+                    def run():
+                        out = attention(*leaves, causal=causal, impl=impl)
+                        torch.autograd.grad(out, leaves, do)
+                    run()
+                    torch.cuda.synchronize()
+                    base = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    ms = cuda_ms(run, iters=4, warmup=1)
+                    cells[impl] = (ms, (torch.cuda.max_memory_allocated() - base) / 2**20)
+                print(f"  crossover S={s} B={b} causal={causal!s:<5} {name:<8} fwd+bwd ms: flash "
+                      f"{cells['flash'][0]:.3f} plain path {cells['xla'][0]:.3f}; peak MiB "
+                      f"beyond the operands: flash {cells['flash'][1]:.0f} plain path "
+                      f"{cells['xla'][1]:.0f} [{card}]", flush=True)
+                del q, k, v, do, leaves
+                torch.cuda.empty_cache()
 
 
 def post(url: str, payload: dict) -> tuple[int, dict]:
@@ -417,9 +545,9 @@ def check_embeddings(name: str, emb, n: int, dim: int):
 @contextlib.contextmanager
 def plain_attention(mods):
     """Every kernel call of the model routed to its plain version (the gradient then comes
-    from torch's autograd of that version): the block operator in both its forms, and the
-    fused operator behind ``attention()``, and the fused MLP operator."""
-    ba, fa, bm = mods["ba"], mods["fa"], mods["bm"]
+    from torch's autograd of that version): the block operator in both its forms, the fused
+    and the flash operator behind ``attention()``, and the fused MLP operator."""
+    ba, fa, bm, fl = mods["ba"], mods["fa"], mods["bm"], mods["fl"]
     layers, attention = mods["layers"], mods["attention"]
 
     def plain_block_attention(x, *ws, heads, causal=False, ln_scale=None, ln_bias=None,
@@ -434,14 +562,20 @@ def plain_attention(mods):
                                       b2, act=act, residual=residual)
         return y.reshape(x.shape)
 
-    kernel_paths = layers.block_attention, attention.fused_attention, layers.block_mlp
+    def plain_flash_attention(q, k, v, *, causal=False, sm_scale=None):
+        return fl.flash_attention_reference(q, k, v, causal=causal, sm_scale=sm_scale)[0]
+
+    kernel_paths = (layers.block_attention, attention.fused_attention, layers.block_mlp,
+                    attention.flash_attention)
     layers.block_attention = plain_block_attention
     attention.fused_attention = fa.fused_attention_reference
     layers.block_mlp = plain_block_mlp
+    attention.flash_attention = plain_flash_attention
     try:
         yield
     finally:
-        layers.block_attention, attention.fused_attention, layers.block_mlp = kernel_paths
+        (layers.block_attention, attention.fused_attention, layers.block_mlp,
+         attention.flash_attention) = kernel_paths
 
 
 class Tally:
@@ -462,10 +596,10 @@ class Tally:
 
 
 def phase_serving(torch, mods, tally, card, kind, model_name, need_text, need_image,
-                  block_mlp=False):
+                  block_mlp=False, bucket=256):
     """Serve ``model_name`` (float32, seeded weights) over HTTP; check the answers, the
     launch counts (``need_*``: kernel -> launches per tower encode) and the agreement with
-    the plain-version encode; then throughput at bucket 256 and single-request latency."""
+    the plain-version encode; then throughput at ``bucket`` and single-request latency."""
     from multimodal_tpu_torch.data.tokenizer import tokenize
     from multimodal_tpu_torch.models import create_model
     from multimodal_tpu_torch.serving import EmbeddingService, make_server
@@ -473,7 +607,7 @@ def phase_serving(torch, mods, tally, card, kind, model_name, need_text, need_im
     t0 = time.perf_counter()
     model = create_model(model_name, seed=0, block_mlp=block_mlp)
     dim, size = model.cfg.embed_dim, model.cfg.vision.image_size
-    svc = EmbeddingService(model, max_batch=256, max_wait_ms=5.0)
+    svc = EmbeddingService(model, max_batch=bucket, max_wait_ms=5.0)
     srv = make_server(svc, "127.0.0.1", 0)
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
@@ -524,16 +658,16 @@ def phase_serving(torch, mods, tally, card, kind, model_name, need_text, need_im
         print(f"  throughput ({model_name})", flush=True)
         emb = svc._embedder
         rng = np.random.default_rng(1)
-        batch_img = rng.integers(0, 256, (256, size, size, 3), dtype=np.uint8)
-        batch_tok = np.repeat(tokens, 64, axis=0)
+        batch_img = rng.integers(0, 256, (bucket, size, size, 3), dtype=np.uint8)
+        batch_tok = np.repeat(tokens, bucket // len(tokens), axis=0)
         for name, fn, arg in (("image", emb.encode_images, batch_img),
                               ("text", emb.encode_tokens, batch_tok)):
             fn(arg)
             t0 = time.perf_counter()
             for _ in range(5):
                 fn(arg)
-            rate = 5 * 256 / (time.perf_counter() - t0)
-            print(f"  {model_name} {name} encodes/s at bucket 256 (float32, host clock incl. "
+            rate = 5 * bucket / (time.perf_counter() - t0)
+            print(f"  {model_name} {name} encodes/s at bucket {bucket} (float32, host clock incl. "
                   f"transfer): {rate:.1f} [{card}]", flush=True)
         for name, route, payload in (("text", "/v1/embed/text", {"texts": CAPTIONS[:1]}),
                                      ("image", "/v1/embed/image",
@@ -685,24 +819,26 @@ def kernel_path_run(torch, tally, card, model_name, dtype, n, steps, need, falli
     return losses
 
 
-def largest_batch(torch, peak_at_compare: int, n_params: int) -> int:
-    """The largest of 64/128/256 the float32 kernel path holds, reckoned before running it:
-    parameters, gradients and two moments stay (16 bytes a parameter); what the measured
-    peak at the comparison batch holds beyond them grows with the batch; 15% to spare."""
+def largest_batch(torch, peak_at_compare: int, n_params: int, compare_batch: int,
+                  candidates=(64, 128, 256)) -> int:
+    """The largest of ``candidates`` the float32 kernel path holds, reckoned before running
+    it: parameters, gradients and two moments stay (16 bytes a parameter); what the measured
+    peak at ``compare_batch`` holds beyond them grows with the batch; 15% to spare."""
     static = 16 * n_params
-    per_sample = (peak_at_compare - static) / SHARED_COMPARE_BATCH
+    per_sample = (peak_at_compare - static) / compare_batch
     total = torch.cuda.mem_get_info()[1]
-    fits = [b for b in (64, 128, 256) if static + 1.15 * per_sample * b <= total]
+    fits = [b for b in candidates if static + 1.15 * per_sample * b <= total]
     print(f"  reckoned: {static / 2**30:.2f} GiB static + {per_sample / 2**20:.1f} MiB per sample "
-          f"(from the measured peak at B={SHARED_COMPARE_BATCH}) against {total / 2**30:.1f} GiB "
-          f"-> {({b: round((static + per_sample * b) / 2**30, 1) for b in (64, 128, 256)})} GiB; "
+          f"(from the measured peak at B={compare_batch}) against {total / 2**30:.1f} GiB "
+          f"-> {({b: round((static + per_sample * b) / 2**30, 1) for b in candidates})} GiB; "
           f"largest batch with 15% to spare: {max(fits)}", flush=True)
     return max(fits)
 
 
-def register_variant(name: str, base: str, vision: dict | None = None, **top):
-    """Register config ``name``: the shipped config ``base`` with ``top`` set at its top level
-    and ``vision`` in its vision tower."""
+def register_variant(name: str, base: str, vision: dict | None = None,
+                     text: dict | None = None, **top):
+    """Register config ``name``: the shipped config ``base`` with ``top`` set at its top level,
+    ``vision`` in its vision tower and ``text`` in its text tower."""
     from multimodal_tpu_torch import paths
     from multimodal_tpu_torch.models import add_model_config
 
@@ -710,6 +846,7 @@ def register_variant(name: str, base: str, vision: dict | None = None, **top):
         cfg = json.load(f)
     cfg.update(top)
     cfg["vision_cfg"].update(vision or {})
+    cfg["text_cfg"].update(text or {})
     add_model_config(name, cfg)
 
 
@@ -731,9 +868,10 @@ def main() -> int:
     from multimodal_tpu_torch.ops import _build, attention, launches
     from multimodal_tpu_torch.ops import block_attention as ba
     from multimodal_tpu_torch.ops import block_mlp as bm
+    from multimodal_tpu_torch.ops import flash_attention as fl
     from multimodal_tpu_torch.ops import fused_attention as fa
 
-    mods = {"ba": ba, "fa": fa, "bm": bm, "layers": layers, "attention": attention}
+    mods = {"ba": ba, "fa": fa, "bm": bm, "fl": fl, "layers": layers, "attention": attention}
     tally = Tally(launches)
 
     t0 = time.perf_counter()
@@ -745,7 +883,8 @@ def main() -> int:
         print(f"  ptxas {ln}")
 
     print("phase 3 kernel vs plain on the card", flush=True)
-    kernels = phase_kernels(torch, ba, fa, bm)
+    kernels = phase_kernels(torch, ba, fa, bm, fl)
+    flash_crossover(torch, attention.attention, card)
 
     print("phase 4 serving, phase 5 throughput", flush=True)
     phase_serving(torch, mods, tally, card, kind, MODEL,
@@ -767,7 +906,7 @@ def main() -> int:
     peak, n_params = compare_paths(torch, mods, tally, card, SHARED_MODEL, SHARED_COMPARE_BATCH,
                                    TRAIN_STEPS, need)
     torch.cuda.empty_cache()
-    rate_batch = largest_batch(torch, peak, n_params)
+    rate_batch = largest_batch(torch, peak, n_params, SHARED_COMPARE_BATCH)
     if rate_batch != SHARED_COMPARE_BATCH:
         kernel_path_run(torch, tally, card, SHARED_MODEL, torch.float32, rate_batch,
                         TRAIN_STEPS, need)
@@ -797,7 +936,7 @@ def main() -> int:
     peak, n_params = compare_paths(torch, mods, tally, card, SHARED_MODEL, SHARED_COMPARE_BATCH,
                                    TRAIN_STEPS, need, block_mlp=True)
     torch.cuda.empty_cache()
-    rate_batch = largest_batch(torch, peak, n_params)
+    rate_batch = largest_batch(torch, peak, n_params, SHARED_COMPARE_BATCH)
     losses = kernel_path_run(torch, tally, card, SHARED_MODEL, torch.float32, rate_batch,
                              TRAIN_STEPS, need, block_mlp=True)
     kernel_path_run(torch, tally, card, SHARED_MODEL, torch.bfloat16, rate_batch, TRAIN_STEPS,
@@ -814,6 +953,33 @@ def main() -> int:
           f"{remat_rel:.3e} (need <= 1e-6); launches per step {remat_need}", flush=True)
     if remat_rel > 1e-6:
         fail("the remat run's losses differ from the run without remat")
+
+    register_variant(LONG_MODEL, MODEL, text={"context_length": LONG_CONTEXT})
+    print(f"phase 9 long context: {LONG_MODEL} ({MODEL}, text context_length {LONG_CONTEXT}) "
+          f"at full width", flush=True)
+    flash_need = {"flash_attention_fwd": 12, "flash_attention_dq": 12, "flash_attention_dkv": 12}
+    phase_serving(torch, mods, tally, card, kind, LONG_MODEL,
+                  need_text={"flash_attention_fwd": 12}, need_image={"block_attention_fwd": 12},
+                  bucket=LONG_BUCKET)
+    need = {"block_attention_fwd": 12, "block_attention_bwd": 12, **flash_need}
+    peak, n_params = compare_paths(torch, mods, tally, card, LONG_MODEL, LONG_COMPARE_BATCH,
+                                   TRAIN_STEPS, need)
+    torch.cuda.empty_cache()
+    rate_batch = largest_batch(torch, peak, n_params, LONG_COMPARE_BATCH, candidates=(8, 16, 32))
+    if rate_batch != LONG_COMPARE_BATCH:
+        kernel_path_run(torch, tally, card, LONG_MODEL, torch.float32, rate_batch, TRAIN_STEPS,
+                        need)
+    kernel_path_run(torch, tally, card, LONG_MODEL, torch.bfloat16, rate_batch, TRAIN_STEPS,
+                    need, falling=True)
+    # cosine attention keeps the vision blocks on the plain attention path and the pooler's
+    # cross-attention (256 queries over 50 tokens) is plain too: only the text tower's block
+    # kernels launch
+    register_variant(OPTIONS_MODEL, MODEL, vision={"scaled_cosine": True,
+                                                   "attentional_pool": True})
+    print(f"  {OPTIONS_MODEL}: {MODEL} with vision.scaled_cosine and vision.attentional_pool",
+          flush=True)
+    kernel_path_run(torch, tally, card, OPTIONS_MODEL, torch.float32, 64, TRAIN_STEPS,
+                    {"block_attention_fwd": 12, "block_attention_bwd": 12}, falling=True)
 
     entries = []
     for name, (source, replaces, case) in KERNELS.items():

@@ -21,9 +21,10 @@ Name mapping, two towers:
 Shared trunk (``cfg.share_trunk``): ``transformer.resblocks.{i}.*`` -> ``transformer.*``,
 ``visual.ln_post`` (or ``ln_post``) -> ``ln_post``, ``projection`` (or ``text_projection``)
 -> ``projection``; there is no ``ln_final``. That format has no key for the per-head
-``attn.head_scale`` of a ``scale_heads`` model and none for the ``ls_1.gamma`` /
-``ls_2.gamma`` of a model with ``ls_init_value`` (the exporter drops them), so such models
-load through ``load_jax_params``, which takes the flax tree as it is: the same layouts as
+``attn.head_scale`` of a ``scale_heads`` model, none for the per-head ``attn.logit_scale`` of
+a ``scaled_cosine`` one or the ``attn_pool.*`` leaves of an attentional pooler, and none for
+the ``ls_1.gamma`` / ``ls_2.gamma`` of a model with ``ls_init_value`` (the exporter drops
+them), so such models load through ``load_jax_params``, which takes the flax tree as it is: the same layouts as
 the port's ([in, out] kernels, so ``mlp.c_fc`` and ``mlp.c_proj`` arrive as the block-MLP
 kernels read them), only the names differ.
 """
@@ -166,6 +167,6 @@ def load_openai_state_dict(model: CLIP, sd: Mapping[str, Any]) -> CLIP:
 @torch.no_grad()
 def load_jax_params(model: CLIP, params: Mapping[str, Any]) -> CLIP:
     """Copy the JAX package's flax parameter tree into ``model`` in place (on its device),
-    every leaf included (``attn.head_scale`` and the LayerScale ``gamma`` too). A mismatch in
-    names or shapes raises."""
+    every leaf included (``attn.head_scale``, ``attn.logit_scale``, ``attn_pool.*`` and the
+    LayerScale ``gamma`` too). A mismatch in names or shapes raises."""
     return _fill(model, jax_params_to_port(params), "parameter tree")

@@ -10,10 +10,15 @@ TF32 left off it is true float32 on the card, which cuDNN's convolution is not b
 The final projections run in float32. ``cfg.remat`` checkpoints every block in training,
 ``ls_init_value`` puts a LayerScale on both residual branches, ``vision.patch_dropout`` drops
 patch tokens in training (the noise comes from the generator the caller hands in), and
-``block_mlp=True`` sends every block's MLP half through the fused operator.
+``block_mlp=True`` sends every block's MLP half through the fused operator. The image
+features pool the CLS row, or with ``vision.global_average_pool`` the mean over all tokens, or
+with ``vision.attentional_pool`` row 0 of an ``AttentionalPooler``'s queries;
+``vision.scaled_cosine`` gives the vision blocks (every block of a shared trunk) cosine
+attention. A text tower whose ``context_length`` is above the block operator's longest
+sequence runs every block through ``attention()``, from 2048 tokens up the flash kernels.
 
-Not ported yet (``CLIP`` raises on configs that need them): scaled-cosine attention, MoE,
-LoRA, int8 MLPs, attentional and mean pooling and the SigLIP bias.
+Not ported yet (``CLIP`` raises on configs that need them): MoE, LoRA, int8 MLPs and the
+SigLIP bias.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from torch import nn
 
 from multimodal_tpu_torch.models.config import CLIPConfig
 from multimodal_tpu_torch.models.layers import (
+    AttentionalPooler,
     LayerNorm,
     PatchDropout,
     Transformer,
@@ -106,9 +112,6 @@ def eot_pool(x: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 def _check_supported(c: CLIPConfig):
     unsupported = {
-        "vision.scaled_cosine": c.vision.scaled_cosine,
-        "vision.attentional_pool": c.vision.attentional_pool,
-        "vision.global_average_pool": c.vision.global_average_pool,
         "vision.moe_experts": c.vision.moe_experts > 0,
         "lora_rank": c.lora_rank > 0,
         "int8_forward": c.int8_forward,
@@ -135,17 +138,22 @@ class CLIP(nn.Module):
         self.visual_stem = VisionStem(v.width, v.patch_size, v.image_size, dtype=dtype,
                                       patch_dropout=v.patch_dropout)
         self.text_stem = TextStem(t.width, t.vocab_size, t.context_length, dtype=dtype)
+        if v.attentional_pool:
+            self.attn_pool = AttentionalPooler(v.width, n_head=v.attn_pooler_heads,
+                                               n_queries=v.n_queries, dtype=dtype)
         if cfg.share_trunk:
             if v.ls_init_value != t.ls_init_value:
                 raise ValueError("a shared trunk needs vision and text ls_init_value to agree")
             self.transformer = Transformer(v.width, v.layers, v.heads, v.mlp_ratio,
                                            scale_heads=v.scale_heads,
+                                           scaled_cosine=v.scaled_cosine,
                                            ls_init_value=v.ls_init_value, **trunk)
             self.ln_post = LayerNorm(v.width)
             self.projection = nn.Parameter(torch.empty(v.width, cfg.embed_dim))
         else:
             self.visual_transformer = Transformer(v.width, v.layers, v.heads, v.mlp_ratio,
                                                   scale_heads=v.scale_heads,
+                                                  scaled_cosine=v.scaled_cosine,
                                                   ls_init_value=v.ls_init_value, **trunk)
             self.text_transformer = Transformer(t.width, t.layers, t.heads, t.mlp_ratio,
                                                 causal=True, ls_init_value=t.ls_init_value,
@@ -170,6 +178,14 @@ class CLIP(nn.Module):
         with torch.no_grad():
             self.logit_scale.fill_(LOGIT_SCALE_INIT if init is None else init)
 
+    def _pool_image(self, x: torch.Tensor) -> torch.Tensor:
+        """CLS (default), the mean over all tokens, or row 0 of the attentional pooler."""
+        if self.cfg.vision.attentional_pool:
+            return self.attn_pool(x)[:, 0]
+        if self.cfg.vision.global_average_pool:
+            return x.mean(dim=1)
+        return x[:, 0]
+
     def encode_image(self, images: torch.Tensor, normalize: bool = False,
                      generator: torch.Generator | None = None) -> torch.Tensor:
         """``generator``: the source of the patch-dropout noise, needed only in training
@@ -178,7 +194,7 @@ class CLIP(nn.Module):
         trunk = self.transformer if shared else self.visual_transformer
         x = trunk(self.visual_stem(images, generator))
         proj = self.projection if shared else self.visual_projection
-        feats = self.ln_post(x[:, 0]).to(torch.float32) @ proj
+        feats = self.ln_post(self._pool_image(x)).to(torch.float32) @ proj
         return feats / feats.norm(dim=-1, keepdim=True) if normalize else feats
 
     def encode_text(self, tokens: torch.Tensor, normalize: bool = False) -> torch.Tensor:

@@ -9,6 +9,8 @@ and block-MLP kernels read. Initialization takes an explicit ``torch.Generator``
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -125,6 +127,36 @@ class LayerScale(nn.Module):
         return x * self.gamma.to(x.dtype)
 
 
+class AttentionalPooler(nn.Module):
+    """Learned-query cross-attention pooling: ``n_queries`` learnable queries (LayerNorm
+    ``ln_q``) attend over the token sequence (LayerNorm ``ln_k``) through four dense
+    projections with bias. sq = n_queries != sk, so ``attention`` takes its plain path."""
+
+    def __init__(self, d_model: int, n_head: int = 8, n_queries: int = 256,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.d_model, self.n_head, self.n_queries, self.dtype = d_model, n_head, n_queries, dtype
+        self.query = nn.Parameter(torch.empty(n_queries, d_model))
+        self.ln_q, self.ln_k = LayerNorm(d_model), LayerNorm(d_model)
+        std = d_model ** -0.5
+        self.query_proj, self.key_proj, self.value_proj, self.out_proj = (
+            Dense(d_model, d_model, std) for _ in range(4))
+
+    def init_weights(self, generator: torch.Generator):
+        normal_(self.query, 1.0, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, S, W] -> [B, n_queries, W]."""
+        b, head_dim = x.shape[0], self.d_model // self.n_head
+        dense = lambda m, t: t @ m.kernel.to(self.dtype) + m.bias.to(self.dtype)  # noqa: E731
+        heads = lambda t: t.reshape(b, t.shape[1], self.n_head, head_dim)  # noqa: E731
+        q_in = self.ln_q(self.query.to(x.dtype).expand(b, self.n_queries, self.d_model))
+        kv_in = self.ln_k(x)
+        out = attention(heads(dense(self.query_proj, q_in)), heads(dense(self.key_proj, kv_in)),
+                        heads(dense(self.value_proj, kv_in)))
+        return dense(self.out_proj, out.reshape(b, self.n_queries, self.d_model))
+
+
 class MLP(nn.Module):
     """c_fc, activation, c_proj. With ``block_mlp`` (opt-in, as in the reference) and the
     pre-LN hand-off, a supported shape runs as the fused operator ``ops.block_mlp`` (on a
@@ -165,16 +197,23 @@ class MultiHeadAttention(nn.Module):
     """Self-attention with separate q/k/v projections. Shapes the block-attention operator
     takes (``block_attn_supported``) go through it — on a CUDA tensor those are the
     hand-written block kernels — and the rest through ``attention``, which on a CUDA tensor
-    takes the fused whole-sequence kernels where they apply. ``scale_heads`` (a learnable
-    per-head scale on the attention output, ones at init) changes what lies between the
-    core and the output projection, so it routes off the block operator."""
+    takes the fused whole-sequence kernels or, for a long causal sequence, the flash kernels
+    where they apply. ``scale_heads`` (a learnable per-head scale on the attention output,
+    ones at init) changes what lies between the core and the output projection, so it routes
+    off the block operator. ``scaled_cosine`` (cosine-similarity logits times a learnable
+    per-head temperature, exp of a ``logit_scale`` that starts at log 10 and is clamped at
+    log 100) changes the logits themselves, so it runs the plain attention path."""
+
+    LOGIT_SCALE_MAX = 4.6052  # log(1 / 0.01)
 
     def __init__(self, width: int, heads: int, causal: bool = False,
                  dtype: torch.dtype = torch.float32, depth: int = 12,
-                 scale_heads: bool = False):
+                 scale_heads: bool = False, scaled_cosine: bool = False):
         super().__init__()
         self.width, self.heads, self.causal, self.dtype = width, heads, causal, dtype
         self.head_scale = nn.Parameter(torch.ones(heads)) if scale_heads else None
+        self.logit_scale = (nn.Parameter(torch.full((heads,), math.log(10.0)))
+                            if scaled_cosine else None)
         attn_std = width ** -0.5
         out_std = (width ** -0.5) * ((2 * depth) ** -0.5)
         self.query = Dense(width, width, attn_std)
@@ -191,7 +230,8 @@ class MultiHeadAttention(nn.Module):
         b, s = x.shape[:2]
         (wq, bq), (wk, bk), (wv, bv), (wo, bo) = (
             m.cast(self.dtype) for m in (self.query, self.key, self.value, self.out))
-        if self.head_scale is None and block_attn_supported(b, s, self.width, self.heads):
+        if (self.head_scale is None and self.logit_scale is None
+                and block_attn_supported(b, s, self.width, self.heads)):
             ln_kw = {} if ln_params is None else {"ln_scale": ln_params[0],
                                                   "ln_bias": ln_params[1]}
             return block_attention(x, wq, bq, wk, bk, wv, bv, wo, bo, heads=self.heads,
@@ -202,7 +242,15 @@ class MultiHeadAttention(nn.Module):
         head_dim = self.width // self.heads
         q, k, v = ((x @ w_ + b_).view(b, s, self.heads, head_dim)
                    for w_, b_ in ((wq, bq), (wk, bk), (wv, bv)))
-        out = attention(q, k, v, causal=causal)
+        if self.logit_scale is not None:
+            unit = lambda t: t * torch.rsqrt(  # noqa: E731
+                t.to(torch.float32).square().sum(-1, keepdim=True) + 1e-12).to(t.dtype)
+            # exp(clamped per-head scale) folded into q; sqrt(D) undoes attention()'s 1/sqrt(D)
+            temp = torch.exp(torch.clamp(self.logit_scale, max=self.LOGIT_SCALE_MAX))
+            q = unit(q) * (temp * head_dim ** 0.5).to(q.dtype)[None, None, :, None]
+            out = attention(q, unit(k), v, causal=causal, impl="xla")
+        else:
+            out = attention(q, k, v, causal=causal)
         if self.head_scale is not None:
             out = out * self.head_scale.to(out.dtype)[None, None, :, None]
         out = out.reshape(b, s, self.width) @ wo + bo
@@ -220,11 +268,11 @@ class ResidualBlock(nn.Module):
     def __init__(self, width: int, heads: int, mlp_ratio: float = 4.0, causal: bool = False,
                  act=quick_gelu, dtype: torch.dtype = torch.float32, depth: int = 12,
                  scale_heads: bool = False, ls_init_value: float | None = None,
-                 block_mlp: bool = False):
+                 block_mlp: bool = False, scaled_cosine: bool = False):
         super().__init__()
         self.ln_1 = LayerNorm(width)
         self.attn = MultiHeadAttention(width, heads, causal=causal, dtype=dtype, depth=depth,
-                                       scale_heads=scale_heads)
+                                       scale_heads=scale_heads, scaled_cosine=scaled_cosine)
         self.ln_2 = LayerNorm(width)
         self.mlp = MLP(width, mlp_ratio, act=act, dtype=dtype, depth=depth, block_mlp=block_mlp)
         scaled = ls_init_value is not None
@@ -246,13 +294,13 @@ class Transformer(nn.Module):
     def __init__(self, width: int, layers: int, heads: int, mlp_ratio: float = 4.0,
                  causal: bool = False, act=quick_gelu, dtype: torch.dtype = torch.float32,
                  scale_heads: bool = False, ls_init_value: float | None = None,
-                 remat: bool = False, block_mlp: bool = False):
+                 remat: bool = False, block_mlp: bool = False, scaled_cosine: bool = False):
         super().__init__()
         self.remat = remat
         self.resblocks = nn.ModuleList(
             ResidualBlock(width, heads, mlp_ratio, causal=causal, act=act, dtype=dtype,
                           depth=layers, scale_heads=scale_heads, ls_init_value=ls_init_value,
-                          block_mlp=block_mlp)
+                          block_mlp=block_mlp, scaled_cosine=scaled_cosine)
             for _ in range(layers)
         )
 

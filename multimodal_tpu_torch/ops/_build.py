@@ -24,7 +24,8 @@ import threading
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = tuple(os.path.join(_HERE, "csrc", name) for name in (
-    "block_attention_fwd.cu", "block_attention_bwd.cu", "fused_attention.cu", "block_mlp.cu"))
+    "block_attention_fwd.cu", "block_attention_bwd.cu", "fused_attention.cu", "block_mlp.cu",
+    "flash_attention.cu"))
 HEADERS = tuple(os.path.join(_HERE, "csrc", name) for name in (
     "block_attention_common.cuh", "attention_passes.cuh"))
 BUILD_DIR = os.path.join(_HERE, "_build_cache")
@@ -101,6 +102,9 @@ def load() -> ctypes.CDLL:
                 "mmt_block_attention_ln_bwd": [i32] + [ptr] * 25 + [i32] * 6 + [f32, ptr],
                 "mmt_fused_attention_fwd": [i32] + [ptr] * 4 + [i32] * 5 + [f32, ptr],
                 "mmt_fused_attention_bwd": [i32] + [ptr] * 8 + [i32] * 5 + [f32, ptr],
+                "mmt_flash_attention_fwd": [i32] + [ptr] * 5 + [i32] * 6 + [f32, ptr],
+                "mmt_flash_attention_dq": [i32] + [ptr] * 7 + [i32] * 6 + [f32, ptr],
+                "mmt_flash_attention_dkv": [i32] + [ptr] * 8 + [i32] * 6 + [f32, ptr],
                 "mmt_ln_bwd_partial_rows": [i32],
                 "mmt_block_mlp_fwd": [i32] + [ptr] * 10 + [i32] * 5 + [f32, ptr],
                 "mmt_block_mlp_bwd": [i32] + [ptr] * 16 + [i32] * 6 + [f32, ptr],

@@ -14,7 +14,10 @@ claims. ``--scale-heads`` turns on
 LayerNorm and the residual into its kernels (0: every call folds; 320: none does), to
 measure one step either way. ``--block-mlp`` builds the model with ``block_mlp=True``, so
 that every block's MLP half runs the fused operator's kernels; ``--remat`` checkpoints every
-block.
+block. ``--context-length N`` sets the text tower's context length (from 2048 up every text
+block runs the flash-attention kernels):
+
+    python -m multimodal_tpu_torch.profile_step --model ViT-B-32 --context-length 2048 --batch 8
 """
 
 from __future__ import annotations
@@ -36,6 +39,9 @@ FAMILIES = [  # (family, substrings of the kernel name), first match wins
      ("mlp_proj_kernel",)),
     ("fused MLP backward dh and dln (mlp_nt_kernel)", ("mlp_nt_kernel",)),
     ("fused MLP weight gradients (mlp_wgrad_kernel)", ("mlp_wgrad_kernel",)),
+    ("flash attention forward (flash_fwd_kernel)", ("flash_fwd_kernel",)),
+    ("flash attention dQ (flash_dq_kernel)", ("flash_dq_kernel",)),
+    ("flash attention dK/dV (flash_dkv_kernel)", ("flash_dkv_kernel",)),
     ("backward dQ pass", ("attn_bwd_dq_kernel",)),
     ("backward dK/dV pass", ("attn_bwd_dkv_kernel",)),
     ("forward attention core", ("attention_kernel",)),
@@ -69,6 +75,7 @@ def main():
     ap.add_argument("--ln-fold-min-seq", type=int, default=None)
     ap.add_argument("--block-mlp", action="store_true")
     ap.add_argument("--remat", action="store_true")
+    ap.add_argument("--context-length", type=int, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs an NVIDIA GPU (there is no CPU fallback)")
@@ -82,7 +89,7 @@ def main():
     if args.ln_fold_min_seq is not None:
         block_attention.LN_FOLD_MIN_SEQ = args.ln_fold_min_seq
     name = args.model
-    if args.scale_heads or args.remat:
+    if args.scale_heads or args.remat or args.context_length:
         with open(os.path.join(paths.CONFIG_DIR, args.model + ".json")) as f:
             cfg = json.load(f)
         if args.scale_heads:
@@ -91,6 +98,9 @@ def main():
         if args.remat:
             cfg["remat"] = True
             name += "-remat"
+        if args.context_length:
+            cfg["text_cfg"]["context_length"] = args.context_length
+            name += f"-ctx{args.context_length}"
         add_model_config(name, cfg)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()

@@ -152,8 +152,9 @@ def test_seeded_init_is_reproducible_and_unported_configs_raise():
                        "scaled_cosine": True},
         "text_cfg": {"context_length": 16, "vocab_size": 1000, "width": 64, "heads": 2,
                      "layers": 2}})
-    with pytest.raises(NotImplementedError, match="vision.scaled_cosine"):
-        create_model("tiny-test-cosine", device="cpu")
+    cosine = create_model("tiny-test-cosine", device="cpu")  # ported: builds, with its leaves
+    scale = cosine.visual_transformer.resblocks[1].attn.logit_scale
+    torch.testing.assert_close(scale, torch.full((2,), 2.302585093))
     with pytest.raises(NotImplementedError, match="vision.moe_experts"):
         create_model("tiny-test-moe", device="cpu")
 

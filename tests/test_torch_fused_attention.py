@@ -165,8 +165,10 @@ def test_impl_errors_and_auto_on_cpu():
         attention(q, q, q, mask=mask, impl="fused")
     with pytest.raises(ValueError, match="sq == sk"):
         attention(q[:, :5], q, q, impl="fused")
-    with pytest.raises(NotImplementedError, match="Queue 2 #6-8"):
-        attention(q, q, q, impl="flash")
+    flash = attention(q, q, q, impl="flash")  # runs the flash operator (its plain version here)
+    torch.testing.assert_close(flash, attention(q, q, q, impl="xla"), atol=3e-5, rtol=3e-5)
+    with pytest.raises(ValueError, match="additive mask"):
+        attention(q, q, q, mask=mask, impl="flash")
     with pytest.raises(ValueError, match="unknown attention impl"):
         attention(q, q, q, impl="pallas")
     # on a CPU tensor auto is the plain path (its autograd, no FusedAttention node), also at a

@@ -18,6 +18,7 @@ def test_port_imports_without_jax():
         "import multimodal_tpu_torch.ops.attention, multimodal_tpu_torch.ops.block_attention\n"
         "import multimodal_tpu_torch.ops.fused_attention, multimodal_tpu_torch.ops.launches\n"
         "import multimodal_tpu_torch.models.checkpoint_interop\n"
+        "import multimodal_tpu_torch.ops.flash_attention, multimodal_tpu_torch.models.layers\n"
         "import multimodal_tpu_torch.ops.block_mlp, multimodal_tpu_torch.profile_step\n"
         "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'multimodal_tpu'))\n"
@@ -40,6 +41,10 @@ def test_profile_step_sorts_kernels_into_families():
         "void (anonymous namespace)::attn_bwd_dq_kernel<float, true>(...)": "dQ pass",
         "void (anonymous namespace)::attn_bwd_dkv_kernel<float, false>(...)": "dK/dV pass",
         "void (anonymous namespace)::attention_kernel<float>(...)": "forward attention core",
+        "void (anonymous namespace)::flash_fwd_kernel<float, 4>(...)": "flash attention forward",
+        "void (anonymous namespace)::flash_dq_kernel<__nv_bfloat16, 8>(...)":
+            "flash attention dQ",
+        "void (anonymous namespace)::flash_dkv_kernel<float, 4>(...)": "flash attention dK/dV",
         "void (anonymous namespace)::ln_bwd_kernel<float, float>(...)": "LN-fold launches",
         "void (anonymous namespace)::mlp_proj_kernel<float>(...)": "fused MLP forward c_proj",
         "void (anonymous namespace)::mlp_nt_kernel<__nv_bfloat16, true>(...)":
