@@ -13,9 +13,12 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      tower shapes (vision S=50 W=768 H=12, text S=77 W=512 H=8 causal), the shared trunk's
      text pass (S=77 W=768 H=12 causal), S=197 and S=257 (W=1024 H=16), with torch's
      multi_head_attention_forward timed beside them; their LN-fold forms (LayerNorm and residual inside the kernel; also
-     ln_out, dgamma and dbeta) at S=197, S=257 and S=320, causal and not; the fused
-     whole-sequence attention pair at S=128, 197 and 512 with D=32, 64 and 128, causal and
-     not, with torch's scaled_dot_product_attention timed beside it; the fused MLP branch
+     ln_out, dgamma and dbeta) at S=197, S=257 and S=320, causal and not; both forms at the
+     head dims 80 and 88 (S=257, W=1280 and 1408), whose last k-step of 16 is zero-padded; the
+     fused whole-sequence attention pair at S=128, 197, 257 and 512 with D=32, 64 and 128 and
+     at S=129 and 191 (one past and one short of a 64-row tile edge), causal and not, with
+     torch's scaled_dot_product_attention timed beside it and a second launch of the timed
+     case compared bit for bit with the first; the fused MLP branch
      (LayerNorm, c_fc, activation, c_proj, residual) forward and backward, with and without
      the residual, at the ViT-B/32, ViT-B/16 and ViT-L/14 token counts and widths and a ragged
      T=3x197 (outputs y, h and dx, dW1, dW2, db1, db2, dgamma, dbeta; no library call holds
@@ -71,6 +74,7 @@ import base64
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -122,6 +126,8 @@ BLOCK_CASES = [  # (case, batch, seq, width, heads, causal)
     ("vision-S197", 4, 197, 768, 12, False),
     ("vision-S197", 256, 197, 768, 12, False),
     ("vision-S257", 2, 257, 1024, 16, False),
+    ("vision-D80", 2, 257, 1280, 16, False),  # ViT-H/14's width: head dim 80, a padded k-step
+    ("vision-D88", 2, 257, 1408, 16, True),   # ViT-g/14's width: head dim 88
 ]
 LN_CASES = [  # (case, batch, seq, width, heads, causal, residual)
     ("ln-S197", 4, 197, 768, 12, False, True),
@@ -131,6 +137,8 @@ LN_CASES = [  # (case, batch, seq, width, heads, causal, residual)
     ("ln-S257", 2, 257, 1024, 16, False, True),
     ("ln-S320", 2, 320, 768, 12, False, True),
     ("ln-S320", 2, 320, 768, 12, True, True),
+    ("ln-D80", 2, 257, 1280, 16, False, True),
+    ("ln-D88", 2, 257, 1408, 16, False, True),
 ]
 FUSED_CASES = [  # (case, batch, seq, heads, head_dim, causal)
     ("fused-S128", 2, 128, 8, 32, False),
@@ -140,6 +148,11 @@ FUSED_CASES = [  # (case, batch, seq, heads, head_dim, causal)
     ("fused-S197", 256, 197, 12, 64, False),
     ("fused-S512", 2, 512, 4, 128, False),
     ("fused-S512", 2, 512, 4, 128, True),
+    ("fused-S129", 3, 129, 12, 64, True),    # one past a 64-row tile edge
+    ("fused-S191", 3, 191, 12, 64, False),   # one short of it
+    ("fused-S257", 2, 257, 16, 64, False),
+    ("fused-S257", 2, 257, 16, 64, True),
+    ("fused-S512-D32", 2, 512, 4, 32, False),
 ]
 MLP_CASES = [  # (case, batch, seq, width, hidden, act); T = batch * seq token rows
     ("mlp-B32-vision", 256, 50, 768, 3072, "quick_gelu"),
@@ -461,6 +474,15 @@ def phase_kernels(torch, ba, fa, bm, fl) -> dict:
                 lib_ok = lib_err <= lib_tol * errs[0][1]
                 ok = ok and lib_ok
                 line += f" library_err={lib_err:.2e}{'' if lib_ok else ' LIBRARY MISMATCH'}"
+            if timed and kernel.startswith("fused_attention"):
+                # no float atomics, one owner and a fixed order for every sum: a second launch
+                # gives the same bits
+                again = kern()
+                again = again if isinstance(again, tuple) else (again,)
+                same = all(torch.equal(a, b) for a, b in zip(again, got))
+                ok = ok and same
+                line += f" same_bits_twice={same}"
+                del again
             del got, want
             if timed:
                 slow = "S197" in case or case.startswith(("mlp", "flash"))
@@ -515,6 +537,61 @@ def flash_crossover(torch, attention, card):
                       f"{cells['xla'][1]:.0f} [{card}]", flush=True)
                 del q, k, v, do, leaves
                 torch.cuda.empty_cache()
+
+
+def ptxas_report(log: str) -> list[str]:
+    """One line per kernel of ``nvcc -Xptxas -v``'s output: its name with its template
+    arguments (mangled: Li64E is 64, Lb1E true, f float, 13__nv_bfloat16 bfloat16), stack and
+    spill bytes, registers and static shared memory."""
+    lines, name = [], "?"
+    for ln in log.splitlines():
+        text = ln.strip().replace("ptxas info    : ", "")
+        if "Function properties for" in text:
+            found = re.search(r"_cu_[0-9a-f]{8}\d+([a-z][a-z_0-9]*_kernel)(I\w+?E)?Ev", text)
+            name = found.group(1) + (found.group(2) or "") if found else text.split()[-1]
+        elif "spill" in text:
+            lines.append(f"{name}: {text}")
+        elif "registers" in text and lines:
+            lines[-1] += f"; {text}"
+    return lines
+
+
+def sass_report(lib_path: str) -> str:
+    """Tensor-core (HMMA), ldmatrix (LDSM) and asynchronous-copy (LDGSTS) instructions in the
+    built library's SASS, summed over the bfloat16 attention passes (``*_mma_kernel``), where
+    the toolkit has ``cuobjdump``."""
+    from multimodal_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return "cuobjdump not found beside nvcc: SASS not read"
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, kernels, inside = dict.fromkeys(("HMMA", "LDSM", "LDGSTS"), 0), 0, False
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            inside = "_mma_kernel" in ln
+            kernels += inside
+        elif inside:
+            for op in counts:
+                counts[op] += f" {op}." in ln
+    return f"{kernels} *_mma_kernel functions in the SASS: {counts}"
+
+
+def pass_smem_report() -> list[str]:
+    """Dynamic shared memory a block of each attention pass asks for at launch, in bytes, as
+    ``attention_passes.cuh`` sizes it: bfloat16 by the head dim rounded up to 64 or 128,
+    float32 by the head dim."""
+    lines = []
+    for dp in (64, 128):  # 64-row resident tiles, two stages of two 32-row streamed tiles
+        tile = lambda rows: 2 * rows * (dp + 8)  # noqa: E731
+        lines.append(f"bfloat16 D<={dp}: forward {tile(64 + 128)}, dQ {tile(128 + 128)}, "
+                     f"dK/dV {tile(128 + 128) + 24 * 32}")
+    for d in (64, 128):
+        tile, probs = 4 * 64 * (d + 4), 4 * 64 * 68
+        lines.append(f"float32 D={d}: forward {3 * tile + probs}, dQ {4 * tile + probs}, "
+                     f"dK/dV {4 * tile + 2 * probs + 768}")
+    return lines
 
 
 def post(url: str, payload: dict) -> tuple[int, dict]:
@@ -877,10 +954,12 @@ def main() -> int:
     t0 = time.perf_counter()
     lib_path, log = _build.build()
     _build.load()
-    ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
     print(f"phase 2 build: {time.perf_counter() - t0:.2f} s -> {lib_path}", flush=True)
-    for ln in ptxas:
+    for ln in ptxas_report(log):
         print(f"  ptxas {ln}")
+    for ln in pass_smem_report():
+        print(f"  smem {ln}")
+    print(f"  sass {sass_report(lib_path)}", flush=True)
 
     print("phase 3 kernel vs plain on the card", flush=True)
     kernels = phase_kernels(torch, ba, fa, bm, fl)

@@ -184,8 +184,9 @@ def block_attention_ln_bwd_reference(x, dy, gamma, beta, wq, bq, wk, bk, wv, bv,
 
 def _check_kernel_operands(args, heads: int, ln: bool = False):
     """What the CUDA kernels take: (x, [dy,] [gamma, beta,] wq, bq, wk, bk, wv, bv, wo, bo)
-    of one dtype (float32 or bfloat16) on one device, contiguous and 16-byte aligned, at a
-    supported shape. Raises otherwise."""
+    of one dtype (float32 or bfloat16) on one device, contiguous and 16-byte aligned (the
+    kernels load 16 bytes at a time), at a supported shape. Raises otherwise, naming the
+    operand."""
     x = args[0]
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"block_attention kernel takes float32 or bfloat16, got {x.dtype}")
@@ -193,14 +194,20 @@ def _check_kernel_operands(args, heads: int, ln: bool = False):
     if not block_attn_supported(b, s, w, heads):
         raise ValueError(f"block_attention kernel does not take B={b} S={s} W={w} H={heads}")
     n_ln = 2 if ln else 0
-    shapes = [(b, s, w)] * (len(args) - 8 - n_ln) + [(w,)] * n_ln + [(w, w), (w,)] * 4
-    for t, shape in zip(args, shapes):
+    n_act = len(args) - 8 - n_ln
+    names = (("x", "dy")[:n_act] + ("gamma", "beta")[:n_ln]
+             + ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo"))
+    shapes = [(b, s, w)] * n_act + [(w,)] * n_ln + [(w, w), (w,)] * 4
+    for name, t, shape in zip(names, args, shapes):
         if t.device != x.device or t.dtype != x.dtype or tuple(t.shape) != shape:
             raise ValueError(
-                f"block_attention operand {tuple(t.shape)} {t.dtype} on {t.device}: expected "
-                f"{shape} {x.dtype} on {x.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("block_attention operands must be contiguous and 16-byte aligned")
+                f"block_attention operand {name} {tuple(t.shape)} {t.dtype} on {t.device}: "
+                f"expected {shape} {x.dtype} on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"block_attention operand {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"block_attention operand {name} must be 16-byte aligned "
+                             f"(data_ptr {t.data_ptr():#x})")
 
 
 def _dtype_code(x: torch.Tensor) -> int:

@@ -19,12 +19,12 @@
 //   dx      = [dq | dk | dv] @ [Wq; Wk; Wv]^T one f32 accumulator over K = 3W, rounded once
 //
 // in five launches: the forward's projection GEMM for q, k and v (gridDim.z = 3); a GEMM
-// with transposed weights for do; a dQ pass, one block per (16-row query tile, head, image),
-// that streams keys and values in 32-row chunks, writes attnpre and dq and saves three f32
-// numbers per query row (the row max, the row sum of exp and rowsum(dp * p)); a dK/dV pass,
-// one block per (16-key tile, head, image), that streams the query rows in 32-row chunks and
-// rebuilds p and ds from the saved row numbers; and the transposed-weight GEMM for dx. No
-// [B,H,S,S] tensor reaches device memory.
+// with transposed weights for do; a dQ pass, one block per (64-row query tile, head, image),
+// that walks the key tiles in sweeps, writes attnpre and dq and saves three f32 numbers per
+// query row (the row max, the row sum of exp and rowsum(dp * p)); a dK/dV pass, one block per
+// (64-key tile, head, image), that streams the query rows once and rebuilds p and ds from the
+// saved row numbers; and the transposed-weight GEMM for dx. No [B,H,S,S] tensor reaches
+// device memory. The two passes are attention_passes.cuh's, in their kExactProbs = false form.
 //
 // The LN form (mmt_block_attention_ln_bwd; x is the pre-LN residual stream) adds
 //
@@ -45,21 +45,20 @@
 //
 // What bounds it on the card: the five [B*S,W]x[W,W]-sized GEMM equivalents (q, k, v, do
 // and the K = 3W dx product) carry ~90% of the FLOPs at ViT-B/32 shapes, so like the
-// forward it is compute-bound on CUDA-core float FMAs; the attention passes are bound by
-// shared-memory loads (two per FMA, no register tiling yet). The design choices that matter:
+// forward it is compute-bound on CUDA-core float FMAs in its GEMMs; the attention passes run
+// bfloat16 on the tensor cores and float32 on register tiles (attention_passes.cuh). The
+// design choices that matter:
 //   * dK and dV sum over every query row of an (image, head). Blocks run in parallel and
 //     carry nothing between them, and two f32 [S, D] accumulators at S=320, D=128 (320 KB)
 //     exceed a block's shared memory. So the sums run in a second pass, FlashAttention-2
 //     style, where each block owns a key tile and keeps its dK/dV rows in registers.
-//   * p must be bit-identical in both passes, so that dq and dv see the same rounded
-//     probabilities: both passes compute each logit as one in-order fmaf chain over D, then
-//     __fmul_rn by the scale (never contracted into the exp's subtraction), then
-//     expf(logit - max) / sum with the same saved max and sum. dp is rebuilt the same way,
-//     so ds agrees too.
+//   * Both passes rebuild p from the same saved max and sum with the same expression, and dp
+//     the same way, so dq and dv see the same probabilities up to the order of a product's sum.
 //   * The TPU kernel's image groups (_images_per_program) and its stacked [H*S, S] buffers
 //     exist for VMEM and have no counterpart here.
-// Every product is a float FMA on the CUDA cores (bf16 operands are widened in shared
-// memory), so float32 is true float32. wgmma, TMA and fewer launches are later work.
+// The projection products are float FMAs on the CUDA cores (bf16 operands are widened in
+// shared memory), so float32 is true float32. Tensor-core GEMMs and fewer launches are later
+// work.
 
 #include "attention_passes.cuh"
 

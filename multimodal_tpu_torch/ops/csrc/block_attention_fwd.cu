@@ -19,19 +19,20 @@
 // per (query tile, head, image), one tiled GEMM for the output projection. The LN-fold form
 // adds a small row-statistics launch in front (two f32 numbers per row); the q/k/v GEMM then
 // normalizes each element of its A tile as it loads it, and the output GEMM's epilogue adds
-// the raw x, so neither LN(x) nor a separate add pass touches device memory. Every product is
-// a float FMA on the CUDA cores (for bf16 the operands are widened to float in shared
-// memory), so float32 is true float32 with no TF32 anywhere.
+// the raw x, so neither LN(x) nor a separate add pass touches device memory. The projection
+// products are float FMAs on the CUDA cores (for bf16 the operands are widened to float in
+// shared memory), so float32 is true float32 with no TF32 anywhere; the attention core
+// (attention_passes.cuh) runs bfloat16 on the tensor cores and float32 on register tiles.
 //
 // What bounds it on the card: the four [B*S,W]x[W,W] projections carry ~97% of the FLOPs at
 // ViT-B/32 shapes (S=50, W=768), so the kernel is compute-bound on the GEMMs. The design
 // keeps them on a 128x128 output tile per block with an 8x8 register micro-tile per thread
 // (16 FMAs per shared-memory load), which is the standard way to reach a useful share of
-// the float32 FMA rate without tensor cores. The attention core keeps the [S,S] logits of a
-// 16-row query tile in shared memory and streams keys and values through it in 32-row
-// chunks, so no [B,H,S,S] tensor ever reaches device memory and shared memory stays under
-// 48 KB at S=320, D=128. The TPU kernel's image grouping (_images_per_program) is VMEM
-// plumbing and has no counterpart here. wgmma, TMA and a single fused launch are later work.
+// the float32 FMA rate without tensor cores. The attention core owns a 64-row query tile per
+// block and walks the keys in tiles with an online softmax, so no [B,H,S,S] tensor ever
+// reaches device memory and no [rows, S] logits buffer sits in shared memory. The TPU
+// kernel's image grouping (_images_per_program) is VMEM plumbing and has no counterpart here.
+// Tensor-core GEMMs and a single fused launch are later work.
 
 #include "attention_passes.cuh"
 

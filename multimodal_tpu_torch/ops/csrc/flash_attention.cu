@@ -38,133 +38,14 @@
 // What bounds it: 4 / 6 / 8 x pairs x D FLOPs (forward / dQ / dK-dV; both backward kernels
 // rebuild s and dp, a one-pass backward would need 10) over q, k, v, out-sized traffic: at
 // S=2048 that is hundreds of FLOPs per byte, bound by operations in both dtypes. The products
-// run as CUDA-core FMAs; unlike the passes in attention_passes.cuh, which make one
-// shared-memory load per FMA operand, each of the 256 threads owns a 4x4 register tile of the
-// logits and a 4 x D/16 tile of the accumulator (four neighbouring columns per 64) and reads
-// its operands as float4, so one load feeds 4 to 16 FMAs. Tensor cores (wgmma) and TMA are
-// later work.
+// run as CUDA-core FMAs on the register tiles of register_tiles.cuh (shared with the float32
+// attention passes): each of the 256 threads owns a 4x4 tile of the logits and a 4 x D/16 tile
+// of the accumulator (four neighbouring columns per 64) and reads its operands as float4, so
+// one load feeds 4 to 16 FMAs. Tensor cores and TMA are later work.
 
-#include "attention_passes.cuh"
+#include "register_tiles.cuh"
 
 namespace {
-
-constexpr int kTile = 64;           // query rows and key rows per tile
-constexpr int kFlashThreads = 256;  // 16 x 16: thread (ty, tx) owns rows ty*4+i and, of a
-                                    // logits tile, cols tx+16*j; of a [rows][D] accumulator,
-                                    // cols own_col(tx, g)..+3 for each 64-column group g
-constexpr int kPLd = kTile + 4;     // row stride of a [kTile][kTile] probability tile
-
-// rows x d elements from src (row stride `stride` elements) into dst [kTile][ld] as floats,
-// rows at or past `rows` zero-filled. d % 4 == 0 and ld % 4 == 0.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, size_t stride, int rows,
-                                          int d, int ld) {
-  const int d4 = d / 4;
-  for (int e = threadIdx.x; e < kTile * d4; e += kFlashThreads) {
-    const int r = e / d4, c = (e - r * d4) * 4;
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (r < rows) load4(src + (size_t)r * stride + c, v);
-    *reinterpret_cast<float4*>(dst + r * ld + c) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-}
-
-// s[i][j] = sum_c a[ty*4+i][c] * b[tx+16*j][c] over c < d, a and b [kTile][ld] in shared memory
-__device__ __forceinline__ void tile_dot(const float* a, const float* b, int d, int ld, int ty,
-                                         int tx, float s[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-  const float* ar = a + ty * 4 * ld;
-  const float* br = b + tx * ld;
-#pragma unroll 2
-  for (int c = 0; c < d; c += 4) {
-    float4 av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = *reinterpret_cast<const float4*>(ar + i * ld + c);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = *reinterpret_cast<const float4*>(br + 16 * j * ld + c);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(av[i].x, bv[j].x, s[i][j]);
-        s[i][j] = fmaf(av[i].y, bv[j].y, s[i][j]);
-        s[i][j] = fmaf(av[i].z, bv[j].z, s[i][j]);
-        s[i][j] = fmaf(av[i].w, bv[j].w, s[i][j]);
-      }
-  }
-}
-
-// first of the four neighbouring accumulator columns thread tx owns in 64-column group g
-__device__ __forceinline__ int own_col(int tx, int g) { return g * 64 + tx * 4; }
-
-__device__ __forceinline__ void fma4(float acc[4], float a, const float4& b) {
-  acc[0] = fmaf(a, b.x, acc[0]);
-  acc[1] = fmaf(a, b.y, acc[1]);
-  acc[2] = fmaf(a, b.z, acc[2]);
-  acc[3] = fmaf(a, b.w, acc[3]);
-}
-
-// acc[i][4*g+e] += sum_c p[ty*4+i][c] * b[c][own_col(tx, g)+e] over the tile's kTile rows c
-// of b; p [kTile][kPLd], b [kTile][ld]; column groups at or past d are left alone (d % 4 == 0).
-template <int kDC>
-__device__ __forceinline__ void tile_accumulate(const float* p, const float* b, int d, int ld,
-                                                int ty, int tx, float acc[4][kDC]) {
-  const float* pr = p + ty * 4 * kPLd;
-#pragma unroll 2
-  for (int c = 0; c < kTile; c += 4) {
-    float4 pv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) pv[i] = *reinterpret_cast<const float4*>(pr + i * kPLd + c);
-#pragma unroll
-    for (int g = 0; g < kDC / 4; ++g) {
-      const int col = own_col(tx, g);
-      if (col < d) {
-        const float4 b0 = *reinterpret_cast<const float4*>(b + c * ld + col);
-        const float4 b1 = *reinterpret_cast<const float4*>(b + (c + 1) * ld + col);
-        const float4 b2 = *reinterpret_cast<const float4*>(b + (c + 2) * ld + col);
-        const float4 b3 = *reinterpret_cast<const float4*>(b + (c + 3) * ld + col);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          fma4(acc[i] + 4 * g, pv[i].x, b0);
-          fma4(acc[i] + 4 * g, pv[i].y, b1);
-          fma4(acc[i] + 4 * g, pv[i].z, b2);
-          fma4(acc[i] + 4 * g, pv[i].w, b3);
-        }
-      }
-    }
-  }
-}
-
-// acc[i][4*g+e] of a thread's accumulator to out[(ty*4+i) * stride + own_col(tx, g)+e], rounded
-// to T; rows at or past `rows` and column groups at or past d are skipped
-template <typename T, int kDC>
-__device__ __forceinline__ void store_rows(T* out, size_t stride, int rows, int d, int ty,
-                                           int tx, const float acc[4][kDC]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (r >= rows) continue;
-#pragma unroll
-    for (int g = 0; g < kDC / 4; ++g) {
-      const int col = own_col(tx, g);
-      if (col < d) store4(out + (size_t)r * stride + col, acc[i] + 4 * g);
-    }
-  }
-}
-
-// reductions over the 16 threads (one half-warp) that share a query row
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off /= 2) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 // element (batch, row 0, head, 0) of a [B, S, H, D] tensor
 __device__ __forceinline__ size_t head_base(int batch, int s, int heads, int head, int d) {
@@ -173,7 +54,7 @@ __device__ __forceinline__ size_t head_base(int batch, int s, int heads, int hea
 
 // ----------------------------------------------------------------------------- forward
 template <typename T, int kDC>
-__global__ void __launch_bounds__(kFlashThreads)
+__global__ void __launch_bounds__(kTileThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ out, float* __restrict__ lse, int sq, int sk, int d,
                  float scale, int causal) {
@@ -254,7 +135,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 // ----------------------------------------------------------------------------- dQ
 template <typename T, int kDC>
-__global__ void __launch_bounds__(kFlashThreads)
+__global__ void __launch_bounds__(kTileThreads)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                 const T* __restrict__ dout, const float* __restrict__ lse,
                 const float* __restrict__ delta, T* __restrict__ dq, int sq, int sk, int d,
@@ -331,7 +212,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 // through shared memory, and owns the (key ty*4+i, columns own_col(tx, g)..+3) entries of dk
 // and dv.
 template <typename T, int kDC>
-__global__ void __launch_bounds__(kFlashThreads)
+__global__ void __launch_bounds__(kTileThreads)
 flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const T* __restrict__ dout, const float* __restrict__ lse,
                  const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
@@ -445,7 +326,7 @@ cudaError_t flash_fwd(const void* q, const void* k, const void* v, void* out, fl
   const size_t smem = sizeof(float) * ((size_t)3 * kTile * (d + 4) + kTile * kPLd);
   cudaError_t err = allow_smem(flash_fwd_kernel<T, kDC>, smem);
   if (err != cudaSuccess) return err;
-  flash_fwd_kernel<T, kDC><<<tiles(sq, heads, b), kFlashThreads, smem, stream>>>(
+  flash_fwd_kernel<T, kDC><<<tiles(sq, heads, b), kTileThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), lse, sq, sk, d, scale, causal);
   return cudaGetLastError();
@@ -458,7 +339,7 @@ cudaError_t flash_dq(const void* q, const void* k, const void* v, const void* do
   const size_t smem = sizeof(float) * ((size_t)4 * kTile * (d + 4) + kTile * kPLd);
   cudaError_t err = allow_smem(flash_dq_kernel<T, kDC>, smem);
   if (err != cudaSuccess) return err;
-  flash_dq_kernel<T, kDC><<<tiles(sq, heads, b), kFlashThreads, smem, stream>>>(
+  flash_dq_kernel<T, kDC><<<tiles(sq, heads, b), kTileThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), sq, sk, d, scale, causal);
   return cudaGetLastError();
@@ -472,7 +353,7 @@ cudaError_t flash_dkv(const void* q, const void* k, const void* v, const void* d
       sizeof(float) * ((size_t)4 * kTile * (d + 4) + 2 * kTile * kPLd + 2 * kTile);
   cudaError_t err = allow_smem(flash_dkv_kernel<T, kDC>, smem);
   if (err != cudaSuccess) return err;
-  flash_dkv_kernel<T, kDC><<<tiles(sk, heads, b), kFlashThreads, smem, stream>>>(
+  flash_dkv_kernel<T, kDC><<<tiles(sk, heads, b), kTileThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), sq, sk,
       d, scale, causal);

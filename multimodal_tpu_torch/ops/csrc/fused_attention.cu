@@ -21,21 +21,19 @@
 // delta and ds from the rounded p: the passes in attention_passes.cuh are templated on that
 // choice (kExactProbs) and this file instantiates the exact form.
 //
-// One launch forward (a block per 16-row query tile, head and image, keys and values
-// streamed through shared memory in 32-row chunks, the tile's [16, S] logits kept in shared
-// memory: 57 KB at S=512, D=128, above the 48 KB default and allowed by attribute). Two
-// launches backward (a dQ pass per query tile that saves three f32 numbers per row, then a
-// dK/dV pass per 16-key tile that rebuilds p and ds from them), so dK and dV need no atomics
-// and no [B,H,S,S] tensor reaches device memory. The TPU kernel's 16-row sequence pad and its
-// 128-lane head groups are Mosaic tiling and have no counterpart: the ragged last tile is
-// masked.
-//
-// What bounds it on the card: 4 B H S^2 D FLOPs forward and 10 B H S^2 D backward over 4 and
-// 7 [B,S,H*D] tensors of traffic: at S=197, D=64 that is ~49 FLOP per byte in float32, above
-// the CUDA-core float32 ridge (67 TFLOP/s over 3.35 TB/s = 20), so float32 is bound by
-// operations; in bfloat16 (~98 FLOP per byte against a tensor-core ridge of 295) it would be
-// bound by bytes. These passes run scalar FMAs out of shared memory (two loads per FMA), far
-// from either bound; register tiling and mma are later work.
+// One launch forward and two backward (a dQ pass that saves three f32 numbers per query row,
+// then a dK/dV pass that rebuilds p and ds from them), so dK and dV need no atomics and no
+// [B,H,S,S] tensor reaches device memory. This file holds no kernel body of its own: the
+// passes live in attention_passes.cuh, shared with the block-attention kernels, and that
+// header says what bounds them on the card (float32 by CUDA-core operations, bfloat16 by
+// bytes) and what the design does about it: a block per 64-row query tile that walks the
+// keys with an online softmax instead of keeping a [rows, S] logits buffer (which moves the
+// rounding of p from the normalised to the unnormalised probability; delta still sees the
+// exact f32 probabilities); in bfloat16 mma.sync tensor-core products on bf16 tiles that
+// stream through shared memory by 16-byte cp.async, in float32 4x4 register tiles. The TPU kernel's 16-row sequence pad and its 128-lane head
+// groups are Mosaic tiling and have no counterpart: the ragged last tile is masked. The
+// 16-byte loads need D a multiple of 8 (and 16-byte aligned tensors, which the wrapper
+// checks).
 
 #include "attention_passes.cuh"
 
@@ -44,7 +42,8 @@ namespace {
 constexpr int kMaxFusedSeq = 512;
 
 bool fused_shape_ok(int b, int s, int heads, int d) {
-  return b >= 1 && s >= 1 && s <= kMaxFusedSeq && heads >= 1 && d >= 1 && d <= kMaxHeadDim;
+  return b >= 1 && b <= 65535 && s >= 1 && s <= kMaxFusedSeq && heads >= 1 && heads <= 65535 &&
+         d >= 8 && d <= kMaxHeadDim && d % 8 == 0;
 }
 
 template <typename T>

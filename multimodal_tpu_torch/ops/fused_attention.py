@@ -95,21 +95,27 @@ def fused_attention_bwd_reference(q, k, v, do, *, heads: int, causal: bool = Fal
 
 
 def _check_kernel_operands(tensors, heads: int):
-    """What the CUDA kernels take: packed [B, S, H*D] tensors of one dtype (float32 or
-    bfloat16), shape and device, contiguous, with D <= 128 and S <= 512. Raises otherwise."""
+    """What the CUDA kernels take: packed [B, S, H*D] tensors (q, k, v and, in the backward,
+    do) of one dtype (float32 or bfloat16), shape and device, contiguous and 16-byte aligned,
+    with D a multiple of 8 up to 128 (the kernels load 16 bytes at a time) and S <= 512.
+    Raises otherwise, naming the operand."""
     q = tensors[0]
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused_attention kernel takes float32 or bfloat16, got {q.dtype}")
     b, s, w = q.shape
-    if w % heads or w // heads > 128 or s > MAX_FUSED_SEQ:
-        raise ValueError(f"fused_attention kernel does not take S={s} W={w} H={heads}")
-    for t in tensors:
+    if w % heads or w // heads > 128 or (w // heads) % 8 or s > MAX_FUSED_SEQ:
+        raise ValueError(f"fused_attention kernel does not take S={s} W={w} H={heads}: it needs "
+                         f"a head dim that is a multiple of 8 up to 128 and S <= {MAX_FUSED_SEQ}")
+    for name, t in zip(("q", "k", "v", "do"), tensors):
         if t.device != q.device or t.dtype != q.dtype or t.shape != q.shape:
             raise ValueError(
-                f"fused_attention operand {tuple(t.shape)} {t.dtype} on {t.device}: expected "
-                f"{tuple(q.shape)} {q.dtype} on {q.device}")
+                f"fused_attention operand {name} {tuple(t.shape)} {t.dtype} on {t.device}: "
+                f"expected {tuple(q.shape)} {q.dtype} on {q.device}")
         if not t.is_contiguous():
-            raise ValueError("fused_attention operands must be contiguous")
+            raise ValueError(f"fused_attention operand {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"fused_attention operand {name} must be 16-byte aligned "
+                             f"(data_ptr {t.data_ptr():#x})")
 
 
 def _fused_cuda(q, k, v, *, heads: int, causal: bool, sm_scale: float) -> torch.Tensor:

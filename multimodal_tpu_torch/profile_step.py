@@ -42,9 +42,11 @@ FAMILIES = [  # (family, substrings of the kernel name), first match wins
     ("flash attention forward (flash_fwd_kernel)", ("flash_fwd_kernel",)),
     ("flash attention dQ (flash_dq_kernel)", ("flash_dq_kernel",)),
     ("flash attention dK/dV (flash_dkv_kernel)", ("flash_dkv_kernel",)),
-    ("backward dQ pass", ("attn_bwd_dq_kernel",)),
-    ("backward dK/dV pass", ("attn_bwd_dkv_kernel",)),
-    ("forward attention core", ("attention_kernel",)),
+    ("backward dQ pass (attn_bwd_dq_mma_kernel in bfloat16, _f32_kernel in float32)",
+     ("attn_bwd_dq_",)),
+    ("backward dK/dV pass (attn_bwd_dkv_mma_kernel, _f32_kernel)", ("attn_bwd_dkv_",)),
+    ("forward attention core (attention_mma_kernel, attention_f32_kernel)",
+     ("attention_mma_kernel", "attention_f32_kernel")),
     ("LN-fold launches (ln_stats, ln_rows, ln_bwd)", ("ln_stats_kernel", "ln_rows_kernel",
                                                       "ln_bwd_kernel")),
     ("cuBLAS GEMMs (MLP, patch embed, projections, weight gradients)",

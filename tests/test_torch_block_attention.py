@@ -68,6 +68,41 @@ def test_plain_matches_jax_kernel_bf16(b, s, w, heads, causal):
     np.testing.assert_allclose(got, want, atol=2e-2 * np.abs(want).max(), rtol=0)
 
 
+# head dims that are multiples of 8 but not of 16, at the narrowest widths that have them
+# (W % 128 == 0): ViT-H/14's 80 and ViT-g/14's 88. On the card the kernels zero-pad the last
+# k-step of 16; here the plain version, their yardstick, is held to the JAX kernel.
+PADDED_HEAD_SHAPES = [(1, 24, 640, 8), (1, 24, 1408, 16)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,s,w,heads", PADDED_HEAD_SHAPES)
+def test_plain_matches_jax_kernel_padded_head_dims_f32(b, s, w, heads, causal):
+    assert w // heads in (80, 88) and ba.block_attn_supported(b, s, w, heads)
+    got = _port_out(b, s, w, heads, causal, torch.float32)
+    want = _jax_out(b, s, w, heads, causal, "float32")
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+
+
+def test_kernel_operand_check_names_the_operand():
+    """The kernels load 16 bytes at a time: a misaligned or strided operand raises a
+    ValueError that names it, before anything is launched."""
+    x, ws = _inputs(2, 8, 128, seed=7)
+    xt, wt = torch.from_numpy(x), [torch.from_numpy(a) for a in ws]
+    ba._check_kernel_operands((xt, *wt), 2)
+    off = torch.zeros(xt.numel() + 1)[1:].view_as(xt).copy_(xt)  # 4 bytes past an aligned base
+    assert off.is_contiguous() and off.data_ptr() % 16
+    with pytest.raises(ValueError, match="operand x must be 16-byte aligned"):
+        ba._check_kernel_operands((off, *wt), 2)
+    wk_off = torch.zeros(wt[2].numel() + 1)[1:].view_as(wt[2]).copy_(wt[2])
+    with pytest.raises(ValueError, match="operand wk must be 16-byte aligned"):
+        ba._check_kernel_operands((xt, *wt[:2], wk_off, *wt[3:]), 2)
+    with pytest.raises(ValueError, match="operand dy must be contiguous"):
+        ba._check_kernel_operands((xt, xt.transpose(0, 1).contiguous().transpose(0, 1), *wt), 2)
+    gamma = torch.ones(128)
+    with pytest.raises(ValueError, match="operand beta .*expected"):
+        ba._check_kernel_operands((xt, gamma, torch.ones(64), *wt), 2, ln=True)
+
+
 def test_ln_and_residual_forms():
     """ln_scale runs the ln_rows pre-pass, residual adds the raw stream back."""
     b, s, w, heads = 2, 20, 128, 2
@@ -113,7 +148,11 @@ def cuda_device():
 @pytest.mark.parametrize("b,s,w,heads,causal", [(3, 50, 768, 12, False), (2, 77, 512, 8, True),
                                                 (2, 77, 768, 12, True),
                                                 (2, 197, 768, 12, False), (1, 320, 256, 2, True),
-                                                (2, 40, 384, 8, False)])
+                                                (2, 40, 384, 8, False),
+                                                (2, 257, 1280, 16, False),
+                                                (2, 257, 1408, 16, True),
+                                                (3, 129, 768, 12, True),
+                                                (3, 191, 768, 12, False)])
 def test_cuda_kernel_matches_plain(cuda_device, b, s, w, heads, causal, dtype, tol):
     x, ws = _inputs(b, s, w, seed=5)
     conv = lambda a: torch.from_numpy(a).to(cuda_device, dtype)  # noqa: E731

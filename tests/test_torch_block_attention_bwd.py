@@ -82,6 +82,15 @@ def test_function_grads_match_jax_bf16(b, s, w, heads, causal):
     _assert_grads_close(got, _jax_grads(b, s, w, heads, causal, "bfloat16"), 2e-2, 0)
 
 
+@pytest.mark.parametrize("b,s,w,heads,causal", [(1, 24, 640, 8, True), (1, 24, 1408, 16, False)])
+def test_function_grads_match_jax_padded_head_dims_f32(b, s, w, heads, causal):
+    """Head dims 80 and 88 (multiples of 8, not of 16): the plain backward, the yardstick of
+    the kernels' zero-padded last k-step, against the JAX kernel's."""
+    assert w // heads in (80, 88)
+    got = _port_grads(b, s, w, heads, causal, torch.float32)
+    _assert_grads_close(got, _jax_grads(b, s, w, heads, causal, "float32"), 3e-4, 1e-3)
+
+
 def test_function_grads_match_jax_large_kernel(monkeypatch):
     """S=197: the JAX side runs its per-head streaming backward (_bwd_kernel_large)."""
     monkeypatch.setenv("MMTPU_BLOCK_ATTN_BWD_LARGE", "1")
@@ -143,7 +152,11 @@ def cuda_device():
 @pytest.mark.parametrize("b,s,w,heads,causal", [(3, 50, 768, 12, False), (2, 77, 512, 8, True),
                                                 (2, 77, 768, 12, True),
                                                 (2, 197, 768, 12, False), (1, 257, 1024, 16, False),
-                                                (1, 320, 256, 2, True), (2, 40, 384, 8, False)])
+                                                (1, 320, 256, 2, True), (2, 40, 384, 8, False),
+                                                (2, 257, 1280, 16, True),
+                                                (2, 257, 1408, 16, False),
+                                                (3, 129, 768, 12, True),
+                                                (3, 191, 768, 12, False)])
 def test_cuda_bwd_kernel_matches_plain(cuda_device, b, s, w, heads, causal, dtype, tol):
     x, ws, dy = _inputs(b, s, w, seed=5)
     conv = lambda a: torch.from_numpy(a).to(cuda_device, dtype)  # noqa: E731

@@ -122,6 +122,19 @@ def test_ln_forward_and_vjp_match_jax_bf16(b, s, w, heads, causal, residual, mon
         np.testing.assert_allclose(g, r, atol=2e-2 * scale, rtol=0, err_msg=name)
 
 
+@pytest.mark.parametrize("b,s,w,heads,causal,residual", [(1, 136, 640, 8, False, True)])
+def test_ln_forward_and_vjp_match_jax_padded_head_dim_f32(b, s, w, heads, causal, residual):
+    """Head dim 80 (a multiple of 8, not of 16) through the LN-fold form at S > 128: the plain
+    versions, the yardstick of the kernels' zero-padded last k-step, against the JAX kernels."""
+    assert w // heads == 80
+    want_y, want = _jax_run(b, s, w, heads, causal, residual, "float32")
+    got_y, got = _port_run(b, s, w, heads, causal, residual, torch.float32)
+    np.testing.assert_allclose(got_y, want_y, atol=5e-5, rtol=5e-5)
+    for name, g, r in zip(NAMES, got, want):
+        scale = max(1.0, float(np.abs(r).max()))
+        np.testing.assert_allclose(g, r, atol=5e-4 * scale, rtol=2e-3, err_msg=name)
+
+
 def test_ln_grads_keep_parameter_dtypes():
     """bfloat16 compute with float32 LayerNorm parameters: dgamma and dbeta come back in
     float32, the weight gradients in the compute dtype."""
@@ -198,7 +211,8 @@ def cuda_device():
 
 
 CUDA_SHAPES = [(2, 197, 768, 12, False), (1, 257, 1024, 16, False), (1, 320, 256, 2, True),
-               (3, 50, 768, 12, False), (2, 77, 512, 8, True)]
+               (3, 50, 768, 12, False), (2, 77, 512, 8, True),
+               (2, 257, 1280, 16, False), (2, 257, 1408, 16, True)]  # head dims 80 and 88
 
 
 @pytest.mark.cuda

@@ -38,9 +38,13 @@ def test_profile_step_sorts_kernels_into_families():
     cases = {
         "void (anonymous namespace)::gemm_bias_kernel<float, true>(...)": "projection GEMMs",
         "void (anonymous namespace)::gemm_nt_kernel<__nv_bfloat16, float>(...)": "gemm_nt_kernel",
-        "void (anonymous namespace)::attn_bwd_dq_kernel<float, true>(...)": "dQ pass",
-        "void (anonymous namespace)::attn_bwd_dkv_kernel<float, false>(...)": "dK/dV pass",
-        "void (anonymous namespace)::attention_kernel<float>(...)": "forward attention core",
+        "void (anonymous namespace)::attn_bwd_dq_mma_kernel<64, 64, true>(...)": "dQ pass",
+        "void (anonymous namespace)::attn_bwd_dq_f32_kernel<4, false>(...)": "dQ pass",
+        "void (anonymous namespace)::attn_bwd_dkv_mma_kernel<128, 32, false>(...)": "dK/dV pass",
+        "void (anonymous namespace)::attn_bwd_dkv_f32_kernel<8>(...)": "dK/dV pass",
+        "void (anonymous namespace)::attention_mma_kernel<64, 64>(...)":
+            "forward attention core",
+        "void (anonymous namespace)::attention_f32_kernel<4>(...)": "forward attention core",
         "void (anonymous namespace)::flash_fwd_kernel<float, 4>(...)": "flash attention forward",
         "void (anonymous namespace)::flash_dq_kernel<__nv_bfloat16, 8>(...)":
             "flash attention dQ",
