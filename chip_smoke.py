@@ -7,6 +7,10 @@ check them.
 Phases (each prints its lines; any failure exits non-zero before the result lines):
   1. the card: torch.cuda.is_available() and nvidia-smi's name and power limit;
   2. build the CUDA kernels from ops/csrc with nvcc (one process per source, in parallel);
+     print every kernel's registers and spills (ptxas), the attention passes' shared memory,
+     and from the SASS the passes' HMMA / LDSM / LDGSTS counts and each flash kernel's
+     tensor-core instructions by form (HMMA.16816.F32.BF16 in bfloat16, HMMA.1688.F32.TF32
+     for the float32 backward's 3xTF32);
   3. every kernel against its plain PyTorch version on the card, every output, in float32
      (max abs error <= 1e-4 * max|plain|) and bfloat16 (<= 2e-2 * max|plain|), with
      CUDA-event times at B=256: the block-attention forward and backward at the ViT-B/32
@@ -22,12 +26,16 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      (LayerNorm, c_fc, activation, c_proj, residual) forward and backward, with and without
      the residual, at the ViT-B/32, ViT-B/16 and ViT-L/14 token counts and widths and a ragged
      T=3x197 (outputs y, h and dx, dW1, dW2, db1, db2, dgamma, dbeta; no library call holds
-     it); the flash-attention trio (forward with lse, dQ, dK/dV) at S=2048 (B=1 and the timed
-     B=8) and S=4096 causal, S=1024 and S=2048 not causal, a ragged S=2050, sq != sk causal,
-     D=80 and D=128, with scaled_dot_product_attention(is_causal=True) forward and backward
-     timed beside it; then the flash operator against the plain attention path, forward plus
-     backward, time and peak memory at S=1024, 2048 and 4096, causal and not (the dispatch's
-     crossover). The library calls are yardsticks, held to the plain versions too and used
+     it); the flash-attention trio (forward with lse, dQ, dK/dV) at S=2048 (B=1, the timed
+     B=8 and the text tower's own call at B=32) and S=4096 causal, S=1024 and S=2048 not
+     causal, a ragged S=2050, sq != sk causal, D=32, 80, 88 and 128, with
+     scaled_dot_product_attention(is_causal=True) forward and backward timed beside it, each
+     timed flash line with its TFLOP/s and share of its bound (the float32 backward pair's
+     at the 3xTF32 ceiling, 495 / 3 TFLOP/s, and at the CUDA cores' 67 beside it), and the
+     timed dQ and dK/dV launched twice
+     and compared bit for bit; then the flash operator against the plain attention path,
+     forward plus backward, time and peak memory at S=1024, 2048 and 4096, causal and not (the
+     dispatch's crossover). The library calls are yardsticks, held to the plain versions too and used
      nowhere in the port;
   4. serving: ViT-B/32 in float32 with seeded random weights behind the HTTP server,
      answering text, image and similarity requests; the forward kernel's launch count over
@@ -170,7 +178,10 @@ FLASH_CASES = [  # (case, batch, sq, sk, heads, head_dim, causal, timed)
     ("flash-S2050", 1, 2050, 2050, 8, 64, True, False),
     ("flash-cross", 2, 300, 520, 8, 64, True, False),  # sq != sk: the top-left mask
     ("flash-D80", 2, 514, 514, 4, 80, True, False),
+    ("flash-D88", 2, 514, 514, 4, 88, True, False),  # no multiple of 16: a zero-padded k-step
     ("flash-D128", 2, 514, 514, 4, 128, True, False),
+    ("flash-D32", 2, 514, 514, 8, 32, False, False),
+    ("flash-B32", 32, 2048, 2048, 8, 64, True, True),  # the text tower's call at B=32
 ]
 CROSSOVER_TOKENS = 16384  # batch x S of every crossover case (B=8 at S=2048)
 TRAIN_BATCH = 256
@@ -179,8 +190,11 @@ SHARED_COMPARE_BATCH = 64  # both paths hold it in float32; the plain path does 
 CAPTIONS = ["a photo of a cat", "two dogs playing in the snow", "a red car on a bridge",
             "東京の夜景 ✨"]
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): CUDA-core float32 for
-# float32 (the port's float32 is true float32), tensor-core bf16 for bfloat16; HBM3 bytes/s
+# float32, tensor-core bf16 for bfloat16; HBM3 bytes/s. The float32 flash backward runs
+# 3xTF32 on the tensor cores, whose ceiling is a third of the TF32 peak: its bound is taken
+# at that rate, and its lines give the CUDA-core bound beside it
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_3XTF32 = 495e12 / 3
 PEAK_BYTES = 3.35e12
 
 
@@ -203,11 +217,12 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float, dtype_name: str) -> tuple[float, str]:
+def bound(flops: float, nbytes: float, dtype_name: str,
+          peak: float | None = None) -> tuple[float, str]:
     """The least time the card could take, in ms, and what sets it: the operations over
-    the peak rate for the dtype, or each input read once and each output written once over
-    the memory rate."""
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES
+    the peak rate for the dtype (or ``peak``), or each input read once and each output
+    written once over the memory rate."""
+    t_ops, t_bytes = flops / (peak or PEAK_FLOPS[dtype_name]), nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -245,22 +260,39 @@ def fused_bound(kernel: str, b, s, heads, d, causal, dtype_name: str):
     return bound(10 * pairs, e * 7 * b * s * heads * d, dtype_name)
 
 
-def flash_bound(kernel: str, b, sq, sk, heads, d, causal, dtype_name: str):
+def flash_flops(kernel: str, b, sq, sk, heads, d, causal) -> float:
     """Forward: two products a pair (logits, out). dQ: three (logits, dp, dq). dK/dV: four
     (logits, dp, dv, dk); the two backward kernels each rebuild logits and dp, a one-pass
     backward would need five products, 10 x pairs x D. Pairs under the top-left causal mask:
-    query r sees keys 0..min(r, sk-1). Bytes: q, k, v and do or out-sized tensors once each,
-    lse and delta in float32."""
-    e = 4 if dtype_name == "float32" else 2
+    query r sees keys 0..min(r, sk-1)."""
     n = min(sq, sk)
     pairs = n * (n + 1) / 2 + max(sq - sk, 0) * sk if causal else sq * sk
-    work = b * heads * pairs * d
+    products = {"fwd": 2, "dq": 3, "dkv": 4}[kernel.rsplit("_", 1)[1]]
+    return 2 * products * b * heads * pairs * d
+
+
+def flash_bound(kernel: str, b, sq, sk, heads, d, causal, dtype_name: str):
+    """(ms, what bounds it, FLOPs). Bytes: q, k, v and do or out-sized tensors once each,
+    lse and delta in float32. The float32 backward pair's operations run at the 3xTF32
+    ceiling, the arithmetic it does."""
+    e = 4 if dtype_name == "float32" else 2
+    tf32 = dtype_name == "float32" and not kernel.endswith("fwd")
+    flops = flash_flops(kernel, b, sq, sk, heads, d, causal)
     q_size, k_size, rows = b * sq * heads * d, b * sk * heads * d, 4 * b * heads * sq
-    if kernel.endswith("fwd"):
-        return bound(4 * work, e * (2 * q_size + 2 * k_size) + rows, dtype_name)
-    if kernel.endswith("dq"):
-        return bound(6 * work, e * (3 * q_size + 2 * k_size) + 2 * rows, dtype_name)
-    return bound(8 * work, e * (2 * q_size + 4 * k_size) + 2 * rows, dtype_name)
+    nbytes = {"fwd": e * (2 * q_size + 2 * k_size) + rows,
+              "dq": e * (3 * q_size + 2 * k_size) + 2 * rows,
+              "dkv": e * (2 * q_size + 4 * k_size) + 2 * rows}[kernel.rsplit("_", 1)[1]]
+    return (*bound(flops, nbytes, dtype_name, PEAK_3XTF32 if tf32 else None), flops)
+
+
+def rate_note(kernel: str, dtype_name: str, ms: float, b_ms: float, flops: float) -> str:
+    """A timed flash line's rate: TFLOP/s, the share of its bound reached, and for the
+    float32 backward pair (bound at the 3xTF32 ceiling) the CUDA cores' bound too."""
+    note = f" tflops={flops / ms / 1e9:.1f} of_bound={100 * b_ms / ms:.1f}%"
+    if dtype_name == "float32" and not kernel.endswith("fwd"):
+        b_cc = 1e3 * flops / PEAK_FLOPS["float32"]
+        note += f" bound_cuda_cores_ms={b_cc:.4f} of_cuda_core_bound={100 * b_cc / ms:.1f}%"
+    return note
 
 
 def mlp_bound(kernel: str, t, w, hid, dtype_name: str):
@@ -453,7 +485,7 @@ def phase_kernels(torch, ba, fa, bm, fl) -> dict:
     for dtype, rel_tol, lib_tol in ((torch.float32, 1e-4, 1e-3), (torch.bfloat16, 2e-2, 5e-2)):
         name = str(dtype).replace("torch.", "")
         for (kernel, case, shape, timed, kern, plain, library, others, outputs,
-             (b_ms, b_by)) in kernel_cases(torch, ba, fa, bm, fl, dtype):
+             (b_ms, b_by, *flops)) in kernel_cases(torch, ba, fa, bm, fl, dtype):
             got, want = kern(), plain()
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
@@ -474,7 +506,7 @@ def phase_kernels(torch, ba, fa, bm, fl) -> dict:
                 lib_ok = lib_err <= lib_tol * errs[0][1]
                 ok = ok and lib_ok
                 line += f" library_err={lib_err:.2e}{'' if lib_ok else ' LIBRARY MISMATCH'}"
-            if timed and kernel.startswith("fused_attention"):
+            if timed and kernel.startswith(("fused_attention", "flash_attention_d")):
                 # no float atomics, one owner and a fixed order for every sum: a second launch
                 # gives the same bits
                 again = kern()
@@ -496,6 +528,8 @@ def phase_kernels(torch, ba, fa, bm, fl) -> dict:
                     "bound_ms": b_ms, "bound_by": b_by}
                 line += (f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} "
                          f"({b_by})" + "".join(f" {k}={v:.4f}" for k, v in other_ms.items()))
+                if flops:
+                    line += rate_note(kernel, name, k_ms, b_ms, flops[0])
             print(line, flush=True)
             if not ok:
                 failures.append(line)
@@ -539,16 +573,28 @@ def flash_crossover(torch, attention, card):
                 torch.cuda.empty_cache()
 
 
+def kernel_label(mangled: str) -> str:
+    """A kernel's name with its template arguments, from its mangled name: mangled as they
+    stand (Li64E is 64, Lb1E true, f float, 13__nv_bfloat16 bfloat16) except the flash
+    backward's operand structs, written out (flash_dq_kernel<Tf32Ops<64>>)."""
+    found = re.search(r"_cu_[0-9a-f]{8}\d+([a-z][a-z_0-9]*_kernel)(I\w+?E)?Ev", mangled)
+    if not found:
+        return mangled.split()[-1]
+    ops = re.fullmatch(r"INS_\d+(\w+Ops)ILi(\d+)EE+", found.group(2) or "")
+    if ops:
+        return f"{found.group(1)}<{ops.group(1)}<{ops.group(2)}>>"
+    return found.group(1) + (found.group(2) or "")
+
+
 def ptxas_report(log: str) -> list[str]:
     """One line per kernel of ``nvcc -Xptxas -v``'s output: its name with its template
-    arguments (mangled: Li64E is 64, Lb1E true, f float, 13__nv_bfloat16 bfloat16), stack and
-    spill bytes, registers and static shared memory."""
+    arguments (``kernel_label``), stack and spill bytes, registers and static shared
+    memory."""
     lines, name = [], "?"
     for ln in log.splitlines():
         text = ln.strip().replace("ptxas info    : ", "")
         if "Function properties for" in text:
-            found = re.search(r"_cu_[0-9a-f]{8}\d+([a-z][a-z_0-9]*_kernel)(I\w+?E)?Ev", text)
-            name = found.group(1) + (found.group(2) or "") if found else text.split()[-1]
+            name = kernel_label(text)
         elif "spill" in text:
             lines.append(f"{name}: {text}")
         elif "registers" in text and lines:
@@ -556,17 +602,21 @@ def ptxas_report(log: str) -> list[str]:
     return lines
 
 
-def sass_report(lib_path: str) -> str:
-    """Tensor-core (HMMA), ldmatrix (LDSM) and asynchronous-copy (LDGSTS) instructions in the
-    built library's SASS, summed over the bfloat16 attention passes (``*_mma_kernel``), where
-    the toolkit has ``cuobjdump``."""
+def read_sass(lib_path: str) -> str | None:
+    """The built library's SASS (``cuobjdump -sass``), or None where the toolkit has no
+    ``cuobjdump``."""
     from multimodal_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     if not os.path.isfile(tool):
-        return "cuobjdump not found beside nvcc: SASS not read"
-    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+        return None
+    return subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
                           timeout=300, check=True).stdout
+
+
+def sass_report(sass: str) -> str:
+    """Tensor-core (HMMA), ldmatrix (LDSM) and asynchronous-copy (LDGSTS) instructions in the
+    SASS, summed over the bfloat16 attention passes (``*_mma_kernel``)."""
     counts, kernels, inside = dict.fromkeys(("HMMA", "LDSM", "LDGSTS"), 0), 0, False
     for ln in sass.splitlines():
         if "Function :" in ln:
@@ -576,6 +626,25 @@ def sass_report(lib_path: str) -> str:
             for op in counts:
                 counts[op] += f" {op}." in ln
     return f"{kernels} *_mma_kernel functions in the SASS: {counts}"
+
+
+def flash_hmma_report(sass: str) -> list[str]:
+    """Per flash-attention kernel in the SASS (each instantiation: dtype and head dim), its
+    tensor-core instructions by form (HMMA.16816.F32.BF16 is mma.sync m16n8k16 on bf16,
+    HMMA.1688.F32.TF32 m16n8k8 on TF32), or that it has none."""
+    kernels, name = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = kernel_label(ln) if "flash_" in ln else None
+            if name:
+                kernels.setdefault(name, {})
+        elif name:
+            found = re.search(r"\bHMMA(\.\S+?)?(?=\s)", ln)
+            if found:
+                form = found.group(0)
+                kernels[name][form] = kernels[name].get(form, 0) + 1
+    return [f"{k}: " + (", ".join(f"{form} x {n}" for form, n in sorted(c.items()))
+                        or "no HMMA (CUDA cores)") for k, c in sorted(kernels.items())]
 
 
 def pass_smem_report() -> list[str]:
@@ -959,7 +1028,13 @@ def main() -> int:
         print(f"  ptxas {ln}")
     for ln in pass_smem_report():
         print(f"  smem {ln}")
-    print(f"  sass {sass_report(lib_path)}", flush=True)
+    sass = read_sass(lib_path)
+    if sass is None:
+        print("  sass: cuobjdump not found beside nvcc, SASS not read", flush=True)
+    else:
+        print(f"  sass {sass_report(sass)}")
+        for ln in flash_hmma_report(sass):
+            print(f"  sass {ln}", flush=True)
 
     print("phase 3 kernel vs plain on the card", flush=True)
     kernels = phase_kernels(torch, ba, fa, bm, fl)

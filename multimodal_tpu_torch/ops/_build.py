@@ -27,7 +27,8 @@ SOURCES = tuple(os.path.join(_HERE, "csrc", name) for name in (
     "block_attention_fwd.cu", "block_attention_bwd.cu", "fused_attention.cu", "block_mlp.cu",
     "flash_attention.cu"))
 HEADERS = tuple(os.path.join(_HERE, "csrc", name) for name in (
-    "block_attention_common.cuh", "attention_passes.cuh", "mma_tiles.cuh", "register_tiles.cuh"))
+    "block_attention_common.cuh", "attention_passes.cuh", "mma_tiles.cuh", "register_tiles.cuh",
+    "tf32_tiles.cuh"))
 BUILD_DIR = os.path.join(_HERE, "_build_cache")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

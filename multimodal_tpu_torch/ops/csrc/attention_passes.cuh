@@ -177,16 +177,17 @@ __device__ __forceinline__ void load_a_frags(uint32_t (&af)[kDP / 16][4],
 }
 
 // acc[n] += c @ tile over the tile's rows (keys or query rows) below `nrows`: c, the warp's
-// [16][kKT] values in C fragments, is rounded to bf16 as it is packed into A fragments
-template <int kDN>
-__device__ __forceinline__ void accumulate_rows(float (&acc)[kDN][4], const float (&c)[kKT / 8][4],
+// [16][8 kNT] values in C fragments (kNT = kKT / 8 in the passes), is rounded to bf16 as it is
+// packed into A fragments
+template <int kDN, int kNT>
+__device__ __forceinline__ void accumulate_rows(float (&acc)[kDN][4], const float (&c)[kNT][4],
                                                 const __nv_bfloat16* tile, int ld, int nrows,
                                                 int d, int lane) {
 #pragma unroll
-  for (int kk = 0; kk < kKT / 16; ++kk)
+  for (int kk = 0; kk < kNT / 2; ++kk)
     if (kk * 16 < nrows) {
       uint32_t a[4];
-      pack_a<kKT / 8>(a, c, kk);
+      pack_a<kNT>(a, c, kk);
       mma_cols<kDN>(acc, a, tile, ld, kk * 16, d, lane);
     }
 }

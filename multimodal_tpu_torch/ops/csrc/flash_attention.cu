@@ -17,33 +17,67 @@
 // lines give NaN. Backward, from (q, k, v, do, lse, delta) with delta = rowsum(do * out)
 // computed outside, as the TPU kernels take it:
 //
-//   p  = exp(s - lse)  f32;  dp = do_h v_h^T;  ds = round_T(p * (dp - delta))
-//   dq = sum over key tiles of sm_scale * (ds @ k_h)                        (dQ kernel)
-//   dv = sum over query tiles of round_T(p)^T @ do_h
-//   dk = sum over query tiles of sm_scale * (ds^T @ q_h)                    (dK/dV kernel)
+//   p  = exp(s - lse)  f32, masked entries exactly 0;  dp = do_h v_h^T;
+//   ds = round_T(p * (dp - delta))                    the *exact* p
+//   dq = sm_scale * sum over keys of ds k_h                                  (dQ kernel)
+//   dv = sum over queries of round_T(p)^T do_h
+//   dk = sm_scale * sum over queries of ds^T q_h                             (dK/dV kernel)
 //
-// each tile's product scaled in f32 before it is added, one rounding to T at the end.
+// f32 sums, sm_scale applied once at the store, one rounding to T there.
 //
 // Designed for the card, not carried over block by block. The TPU wrapper transposes to
 // [B, H, S, D] and pads Sq to 128 and Sk to 256 rows, and broadcasts lse and delta over 128
 // lanes: all Mosaic tiling. Here the kernels read [B, S, H, D] in place (row stride H*D, head
 // offset h*D) and mask the ragged tails in their loads; the TPU's sequential innermost grid
-// axis (key tiles, or query tiles in the dK/dV kernel) is a loop inside the block. Forward and
-// dQ: one block per (64-row query tile, head, batch) that streams 64-row key and value tiles
-// through shared memory up to the tile's causal bound, the latest (longest) query tiles
-// scheduled first. dK/dV: one block per (64-row key tile, head, batch) that streams the query
-// tiles from the first live one. Every sum has one owner thread and a fixed order: no atomics,
-// two runs give the same bits.
+// axis (key tiles, or query tiles in the dK/dV kernel) is a loop inside the block. Every sum
+// has one owner thread and a fixed order: no atomics, two runs give the same bits.
 //
-// What bounds it: 4 / 6 / 8 x pairs x D FLOPs (forward / dQ / dK-dV; both backward kernels
-// rebuild s and dp, a one-pass backward would need 10) over q, k, v, out-sized traffic: at
-// S=2048 that is hundreds of FLOPs per byte, bound by operations in both dtypes. The products
-// run as CUDA-core FMAs on the register tiles of register_tiles.cuh (shared with the float32
-// attention passes): each of the 256 threads owns a 4x4 tile of the logits and a 4 x D/16 tile
-// of the accumulator (four neighbouring columns per 64) and reads its operands as float4, so
-// one load feeds 4 to 16 FMAs. Tensor cores and TMA are later work.
+// The forward: one block per (64-row query tile, head, batch), the latest (longest) query
+// tiles scheduled first, 64-row key and value tiles streamed through shared memory up to the
+// tile's causal bound, CUDA-core FMAs on the register tiles of register_tiles.cuh (each of
+// the 256 threads owns a 4x4 tile of the logits and a 4 x D/16 tile of the accumulator).
+//
+// The backward pair. What bounds it: 6 (dQ: logits, dp, ds k) and 8 (dK/dV: logits, dp, p^T
+// do, ds^T q) x pairs x D FLOPs over q, k, v, do-sized traffic: at S=2048 several hundred
+// FLOPs a byte, bound by operations in both dtypes, so both run their products on the tensor
+// cores with mma.sync (the passes' reasons against wgmma hold: a head's problem is small and
+// warp-level fragments let p and ds skip shared memory):
+//   * bfloat16: m16n8k16 on bf16 operands with f32 accumulation, the TPU kernel's own
+//     arithmetic, from the pieces of the attention passes (attention_passes.cuh,
+//     mma_tiles.cuh).
+//   * float32: 3xTF32 on m16n8k8 (tf32_tiles.cuh): each operand split into two TF32 parts and
+//     three products summed in f32, about 2^-20 relative a product, where one TF32 product
+//     would break the 1e-4 x max|plain| limit the kernels are held to. It is the arithmetic
+//     PyTorch's memory-efficient attention uses for float32 (CUTLASS's OpMultiplyAddFastF32),
+//     and it passes the CUDA cores' 67 TFLOP/s: 495 / 3 TFLOP/s is its ceiling. Three times
+//     the mma and the splits beside them set its pace (timing variants in PERF.md), so a
+//     warp owns two m-tiles (32 rows) up to D=64, every B fragment loaded and split once for
+//     both, and the three products of a step run in rounds over independent accumulators.
+// One schedule serves both, through the operand struct (Bf16Ops, Tf32Ops) that says how a
+// tile loads, how the products run and what stays in registers:
+//   * dQ: one block per (query tile, head, batch), four warps of 16 rows (bfloat16) or 32
+//     (float32 up to D=64), the longest causal tiles first; Q and dO stay resident (in
+//     bfloat16 as A fragments in registers); K and V stream in 32-row tiles through two
+//     shared-memory stages filled by 16-byte cp.async, so tile i + 1 loads while tile i
+//     multiplies; one sweep up to the tile's causal bound (and a warp's own bound below it).
+//     The logits and dp come out as C fragments, p = ex2(s log2(e) - lse log2(e)) is one FMA
+//     and one ex2, ds goes from C fragment to the A operand of ds @ K in registers (bfloat16:
+//     two neighbouring C fragments packed to bf16 pairs are an A fragment; float32: the
+//     contraction runs over the keys in a permuted order in which a C fragment is an A
+//     fragment as it stands, tf32_tiles.cuh).
+//   * dK/dV: one block per (key tile, head, batch), warp w owning the keys of its m-tiles; the
+//     logits and dp are formed transposed (k q^T, v do^T), so p^T and ds^T come out as the A
+//     operands of p^T do and ds^T q; the query rows stream with their lse and delta, and under
+//     the causal mask the stream starts at the tile's first key (top-left: query >= key).
+//   * Only a tile that holds a masked entry runs the mask tests. Sq and Sk are separate
+//     bounds on the query and the key side. Head dims are multiples of 8 up to 128: the tiles'
+//     row stride is set by the head dim rounded up to 64 or 128, and bfloat16's k-steps of 16
+//     read zeros, filled by cp.async with a source size of 0, from d to the next multiple.
+// The tile shape (four warps a block, 32-row streamed tiles) was measured at B=8 S=2048
+// against 64-row streamed tiles and blocks of eight warps (PERF.md; those builds are not kept).
 
-#include "register_tiles.cuh"
+#include "attention_passes.cuh"
+#include "tf32_tiles.cuh"
 
 namespace {
 
@@ -133,182 +167,355 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   store_rows<T, kDC>(out + qbase + (size_t)r0 * stride, stride, rows, d, ty, tx, acc);
 }
 
-// ----------------------------------------------------------------------------- dQ
-template <typename T, int kDC>
-__global__ void __launch_bounds__(kTileThreads)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const T* __restrict__ dout, const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dq, int sq, int sk, int d,
-                float scale, int causal) {
-  extern __shared__ __align__(16) float smem[];
-  const int ld = d + 4;
-  float* qs = smem;               // [kTile][ld]
-  float* dos = qs + kTile * ld;   // [kTile][ld]
-  float* ks = dos + kTile * ld;   // [kTile][ld]
-  float* vs = ks + kTile * ld;    // [kTile][ld]
-  float* dss = vs + kTile * ld;   // [kTile][kPLd] ds rounded to T
+// ----------------------------------------------------------------------------- backward
+constexpr int kBwdKT = 32;    // rows of a streamed tile
+constexpr int kBwdWarps = 4;  // warps of a block
+constexpr int kBwdThreads = 32 * kBwdWarps;
 
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int r0 = (gridDim.x - 1 - blockIdx.x) * kTile;
+// The operand structs. A warp owns kM m-tiles of 16 rows (query rows in the dQ kernel, keys in
+// the dK/dV kernel) and forms a step's two head products, x @ bx^T and y @ by^T over the head
+// dim for its rows of the resident tiles x and y (q and do, or k and v) against a streamed tile
+// each, interleaved k-step by k-step so that independent chains of accumulations are in
+// flight; and the second product, acc += c @ tile over the streamed tile's rows, from the C
+// fragments of the first.
+//
+// bfloat16: m16n8k16 products on bf16 tiles, the attention passes' helpers, one m-tile a warp.
+// In the dQ kernel the warp's q and do A fragments stay in registers for the whole block up to
+// D=64, 4% faster at S=2048 than reading them at each step (PERF.md; above, 32 more registers
+// would cost the block its third slot on the SM); the dK/dV kernel reads k and v again at each
+// step, as the passes do (held, they push it past 128 registers and into spills). Launch
+// bounds: four blocks of four warps an SM up to D=64, three above.
+template <int kDP_>
+struct Bf16Ops {
+  using T = __nv_bfloat16;
+  static constexpr int kDP = kDP_, kLd = kDP + 8, kM = 1;
+  static constexpr int kMinBlocks = kDP <= 64 ? 4 : 3;
+  static constexpr bool kHold = kDP <= 64;
+  using Frags = uint32_t[kDP / 16][4];
+
+  static __device__ __forceinline__ int d16(int d) { return (d + 15) & ~15; }
+  static __device__ __forceinline__ void load(T* dst, const T* src, size_t stride, int nrows,
+                                              int live_rows, int d) {
+    load_tile_async<kDP>(dst, src, stride, nrows, live_rows, d, d16(d));
+  }
+  static __device__ __forceinline__ void hold(Frags& f, const T* tile, int row0, int d,
+                                              int lane) {
+    load_a_frags<kDP>(f, tile, row0, d16(d), lane);
+  }
+  // the head products from held fragments, over the n-tiles below `live`
+  template <int kNT>
+  static __device__ __forceinline__ void products_held(float (&ax)[1][kNT][4],
+                                                       float (&ay)[1][kNT][4], const Frags& fx,
+                                                       const Frags& fy, const T* bx,
+                                                       const T* by, int d, int live, int lane) {
+    zero_acc(ax[0]);
+    zero_acc(ay[0]);
+#pragma unroll
+    for (int kk = 0; kk < kDP / 16; ++kk)
+      if (kk * 16 < d16(d)) {
+        mma_rows<kNT>(ax[0], fx[kk], bx, kLd, kk * 16, live, lane);
+        mma_rows<kNT>(ay[0], fy[kk], by, kLd, kk * 16, live, lane);
+      }
+  }
+  // the head products with the A fragments read from x and y at each k-step
+  template <int kNT>
+  static __device__ __forceinline__ void products(float (&ax)[1][kNT][4], float (&ay)[1][kNT][4],
+                                                  const T* x, const T* y, int row0, const T* bx,
+                                                  const T* by, int d, int live, int lane) {
+    zero_acc(ax[0]);
+    zero_acc(ay[0]);
+#pragma unroll
+    for (int kk = 0; kk < kDP / 16; ++kk)
+      if (kk * 16 < d16(d)) {
+        uint32_t a[4];
+        load_a(a, x, kLd, row0, kk * 16, lane);
+        mma_rows<kNT>(ax[0], a, bx, kLd, kk * 16, live, lane);
+        load_a(a, y, kLd, row0, kk * 16, lane);
+        mma_rows<kNT>(ay[0], a, by, kLd, kk * 16, live, lane);
+      }
+  }
+  // acc += c @ tile over the tile's rows below nrows, c rounded to bf16 as it is packed
+  template <int kNT>
+  static __device__ __forceinline__ void accumulate(float (&acc)[1][kDP / 8][4],
+                                                    const float (&c)[1][kNT][4], const T* tile,
+                                                    int nrows, int d, int lane) {
+    accumulate_rows<kDP / 8>(acc[0], c[0], tile, kLd, nrows, d, lane);
+  }
+};
+
+// float32: 3xTF32 m16n8k8 products on f32 tiles (tf32_tiles.cuh). Up to D=64 a warp owns two
+// m-tiles (32 rows), so that every B fragment, loaded and split once, feeds both (the splits
+// and loads of B, not the tensor cores, set the pace with one m-tile); above, one. The
+// resident A fragments are read again at each k-step (one ldmatrix, then the split): held,
+// they would take 64 registers an m-tile at D=64. Launch bounds: two blocks of four warps an
+// SM up to D=64 (104 KB of shared memory each), one above.
+template <int kDP_>
+struct Tf32Ops {
+  using T = float;
+  static constexpr int kDP = kDP_, kLd = kDP + 4, kM = kDP <= 64 ? 2 : 1;
+  static constexpr int kMinBlocks = kDP <= 64 ? 2 : 1;
+  static constexpr bool kHold = false;
+  struct Frags {};  // nothing is held
+
+  static __device__ __forceinline__ void load(T* dst, const T* src, size_t stride, int nrows,
+                                              int live_rows, int d) {
+    load_tile_async_f32<kDP>(dst, src, stride, nrows, live_rows, d);
+  }
+  template <int kNT>
+  static __device__ __forceinline__ void products(float (&ax)[kM][kNT][4],
+                                                  float (&ay)[kM][kNT][4], const T* x,
+                                                  const T* y, int row0, const T* bx,
+                                                  const T* by, int d, int live, int lane) {
+#pragma unroll
+    for (int m = 0; m < kM; ++m) {
+      zero_acc(ax[m]);
+      zero_acc(ay[m]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kDP / 8; ++kk)
+      if (kk * 8 < d) {
+        uint32_t big[kM][4], small[kM][4];
+#pragma unroll
+        for (int m = 0; m < kM; ++m) {
+          uint32_t a[4];
+          load_a_f32(a, x, kLd, row0 + 16 * m, kk * 8, lane);
+          split_frag(a, big[m], small[m]);
+        }
+        mma_rows_3xtf32<kM, kNT>(ax, big, small, bx, kLd, kk * 8, live, lane);
+#pragma unroll
+        for (int m = 0; m < kM; ++m) {
+          uint32_t a[4];
+          load_a_f32(a, y, kLd, row0 + 16 * m, kk * 8, lane);
+          split_frag(a, big[m], small[m]);
+        }
+        mma_rows_3xtf32<kM, kNT>(ay, big, small, by, kLd, kk * 8, live, lane);
+      }
+  }
+  template <int kNT>
+  static __device__ __forceinline__ void accumulate(float (&acc)[kM][kDP / 8][4],
+                                                    const float (&c)[kM][kNT][4], const T* tile,
+                                                    int nrows, int d, int lane) {
+    accumulate_rows_3xtf32<kDP / 8>(acc, c, tile, kLd, nrows, d, lane);
+  }
+};
+
+// ----------------------------------------------------------------------------- dQ
+// One block per tile of 16 kM kBwdWarps query rows (64 in bfloat16, 128 in float32 up to
+// D=64), head and batch; one sweep over the key tiles below the tile's causal bound. The lane's
+// query rows are 16m + g and 16m + g + 8 of its warp's.
+template <class Ops>
+__global__ void __launch_bounds__(kBwdThreads, Ops::kMinBlocks)
+flash_dq_kernel(const typename Ops::T* __restrict__ q, const typename Ops::T* __restrict__ k,
+                const typename Ops::T* __restrict__ v, const typename Ops::T* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                typename Ops::T* __restrict__ dq, int sq, int sk, int d, float scale,
+                int causal) {
+  using T = typename Ops::T;
+  constexpr int kM = Ops::kM, kWarpRows = 16 * kM, kRows = kWarpRows * kBwdWarps;
+  constexpr int kLd = Ops::kLd, kNT = kBwdKT / 8, kDN = Ops::kDP / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);  // [kRows][kLd]
+  T* dos = qs + kRows * kLd;               // [kRows][kLd]
+  T* ks = dos + kRows * kLd;               // [2][kBwdKT][kLd]
+  T* vs = ks + 2 * kBwdKT * kLd;           // [2][kBwdKT][kLd]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // the longest causal tiles first
   const int head = blockIdx.y, batch = blockIdx.z, heads = gridDim.y;
   const size_t stride = (size_t)heads * d;
-  const size_t qbase = head_base(batch, sq, heads, head, d);
+  const size_t qbase = head_base(batch, sq, heads, head, d) + (size_t)r0 * stride;
   const size_t kbase = head_base(batch, sk, heads, head, d);
-  const int rows = min(kTile, sq - r0);
+  const int rows = min(kRows, sq - r0), wrow = warp * kWarpRows;
+  // top-left causal mask: no row of this tile sees a key past its last row, no row of this
+  // warp past the warp's
   const int kmax = causal ? min(sk, r0 + rows) : sk;
+  const int wmax = wrow >= rows ? 0 : (causal ? min(kmax, r0 + wrow + kWarpRows) : kmax);
+  const int steps = (kmax + kBwdKT - 1) / kBwdKT;
 
-  load_tile(qs, q + qbase + (size_t)r0 * stride, stride, rows, d, ld);
-  load_tile(dos, dout + qbase + (size_t)r0 * stride, stride, rows, d, ld);
+  // the lane's rows: lse in log2 units, and delta (0 for a row past sq: never stored)
+  float off[kM][2], dl[kM][2];
+  const size_t at = ((size_t)batch * heads + head) * sq + r0;
+#pragma unroll
+  for (int m = 0; m < kM; ++m)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = wrow + 16 * m + g + 8 * h;
+      off[m][h] = row < rows ? lse[at + row] * kLog2e : 0.f;
+      dl[m][h] = row < rows ? delta[at + row] : 0.f;
+    }
 
-  float row_lse[4], row_delta[4], acc[4][kDC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = r0 + ty * 4 + i;
-    const size_t at = ((size_t)batch * heads + head) * sq + row;
-    row_lse[i] = row < sq ? lse[at] : 0.f;
-    row_delta[i] = row < sq ? delta[at] : 0.f;
-#pragma unroll
-    for (int j = 0; j < kDC; ++j) acc[i][j] = 0.f;
-  }
+  auto prefetch = [&](int step) {
+    const int c0 = step * kBwdKT, stage = step & 1;
+    Ops::load(ks + stage * kBwdKT * kLd, k + kbase + (size_t)c0 * stride, stride, kBwdKT, sk - c0,
+              d);
+    Ops::load(vs + stage * kBwdKT * kLd, v + kbase + (size_t)c0 * stride, stride, kBwdKT, sk - c0,
+              d);
+    cp_async_commit();
+  };
+  Ops::load(qs, q + qbase, stride, kRows, rows, d);
+  Ops::load(dos, dout + qbase, stride, kRows, rows, d);
+  prefetch(0);  // q and do ride the first group
 
-  for (int c0 = 0; c0 < kmax; c0 += kTile) {
-    __syncthreads();
-    load_tile(ks, k + kbase + (size_t)c0 * stride, stride, sk - c0, d, ld);
-    load_tile(vs, v + kbase + (size_t)c0 * stride, stride, sk - c0, d, ld);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_dot(qs, ks, d, ld, ty, tx, s);
-    tile_dot(dos, vs, d, ld, ty, tx, dp);
+  typename Ops::Frags qf, dof;  // held q and do fragments (Ops::kHold)
+  float acc[kM][kDN][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = r0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = c0 + tx + 16 * j;
-        const bool live = col < sk && (!causal || col <= row);
-        const float p = expf(__fsub_rn(live ? __fmul_rn(s[i][j], scale) : kNegInf, row_lse[i]));
-        dss[(ty * 4 + i) * kPLd + tx + 16 * j] =
-            round_to<T>(__fmul_rn(p, __fsub_rn(dp[i][j], row_delta[i])));
-      }
+  for (int m = 0; m < kM; ++m) zero_acc(acc[m]);
+  for (int step = 0; step < steps; ++step) {
+    if (step + 1 < steps) {
+      prefetch(step + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-    float part[4][kDC];
+    const int c0 = step * kBwdKT, stage = step & 1;
+    const T* kt = ks + stage * kBwdKT * kLd;
+    const T* vt = vs + stage * kBwdKT * kLd;
+    const int live = min(kNT, (wmax - c0 + 7) / 8);  // n-tiles with a key this warp sees
+    if constexpr (Ops::kHold) {
+      if (step == 0) {
+        Ops::hold(qf, qs, wrow, d, lane);
+        Ops::hold(dof, dos, wrow, d, lane);
+      }
+    }
+    if (live > 0) {
+      float sf[kM][kNT][4], dp[kM][kNT][4];
+      if constexpr (Ops::kHold)
+        Ops::products_held(sf, dp, qf, dof, kt, vt, d, live, lane);
+      else
+        Ops::products(sf, dp, qs, dos, wrow, kt, vt, d, live, lane);
+      const bool edge = edge_tile(c0, kBwdKT, kmax, r0 + wrow, causal);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int m = 0; m < kM; ++m) {
+        scale_logits<kNT>(sf[m], scale, edge, r0 + wrow + 16 * m + g, c0 + 2 * t, kmax, causal);
+        // sf becomes ds = p (dp - delta) from the exact p; masked entries are exactly 0
 #pragma unroll
-      for (int j = 0; j < kDC; ++j) part[i][j] = 0.f;
-    tile_accumulate<kDC>(dss, ks, d, ld, ty, tx, part);
+        for (int n = 0; n < kNT; ++n)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < kDC; ++j) acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(scale, part[i][j]));
+          for (int e = 0; e < 4; ++e)
+            sf[m][n][e] = __fmul_rn(prob(sf[m][n][e], off[m][e >> 1]),
+                                    __fsub_rn(dp[m][n][e], dl[m][e >> 1]));
+      }
+      Ops::accumulate(acc, sf, kt, wmax - c0, d, lane);
+    }
+    __syncthreads();  // this stage is free for the load of step + 2
   }
-
-  store_rows<T, kDC>(dq + qbase + (size_t)r0 * stride, stride, rows, d, ty, tx, acc);
+  const float mul[2] = {scale, scale};
+#pragma unroll
+  for (int m = 0; m < kM; ++m)
+    store_c<kDN>(dq + qbase, stride, wrow + 16 * m, rows, d, mul, acc[m], lane);
 }
 
 // ----------------------------------------------------------------------------- dK/dV
-// Thread (ty, tx) forms the (query row ty*4+i, key tx+16*j) entries of p and ds, which pass
-// through shared memory, and owns the (key ty*4+i, columns own_col(tx, g)..+3) entries of dk
-// and dv.
-template <typename T, int kDC>
-__global__ void __launch_bounds__(kTileThreads)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const T* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                 int sq, int sk, int d, float scale, int causal) {
-  extern __shared__ __align__(16) float smem[];
-  const int ld = d + 4;
-  float* ks = smem;                 // [kTile][ld]
-  float* vs = ks + kTile * ld;      // [kTile][ld]
-  float* qs = vs + kTile * ld;      // [kTile][ld]
-  float* dos = qs + kTile * ld;     // [kTile][ld]
-  float* ps = dos + kTile * ld;     // [kTile][kPLd] p rounded to T, [query][key]
-  float* dss = ps + kTile * kPLd;   // [kTile][kPLd] ds rounded to T
-  float* rst = dss + kTile * kPLd;  // [2][kTile] lse and delta of the query tile's rows
+// One block per tile of 16 kM kBwdWarps keys, head and batch; the query rows stream through in
+// kBwdKT-row tiles with their lse and delta. The logits are formed transposed (keys as rows),
+// so the lane's keys are 16m + g and 16m + g + 8 of its warp's and its query rows 8n + 2t and
+// 8n + 2t + 1 of the tile.
+template <class Ops>
+__global__ void __launch_bounds__(kBwdThreads, Ops::kMinBlocks)
+flash_dkv_kernel(const typename Ops::T* __restrict__ q, const typename Ops::T* __restrict__ k,
+                 const typename Ops::T* __restrict__ v, const typename Ops::T* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 typename Ops::T* __restrict__ dk, typename Ops::T* __restrict__ dv, int sq,
+                 int sk, int d, float scale, int causal) {
+  using T = typename Ops::T;
+  constexpr int kM = Ops::kM, kWarpRows = 16 * kM, kRows = kWarpRows * kBwdWarps;
+  constexpr int kLd = Ops::kLd, kNT = kBwdKT / 8, kDN = Ops::kDP / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ks = reinterpret_cast<T*>(smem_raw);                         // [kRows][kLd]
+  T* vs = ks + kRows * kLd;                                       // [kRows][kLd]
+  T* qs = vs + kRows * kLd;                                       // [2][kBwdKT][kLd]
+  T* dos = qs + 2 * kBwdKT * kLd;                                 // [2][kBwdKT][kLd]
+  float* rst = reinterpret_cast<float*>(dos + 2 * kBwdKT * kLd);  // [2][2][kBwdKT] lse, delta
 
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int c0 = blockIdx.x * kTile;  // under the causal mask the earliest tiles are longest
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int j0 = blockIdx.x * kRows;  // under the causal mask the first tiles are the longest
   const int head = blockIdx.y, batch = blockIdx.z, heads = gridDim.y;
   const size_t stride = (size_t)heads * d;
   const size_t qbase = head_base(batch, sq, heads, head, d);
-  const size_t kbase = head_base(batch, sk, heads, head, d);
+  const size_t kbase = head_base(batch, sk, heads, head, d) + (size_t)j0 * stride;
   const float* lse_h = lse + ((size_t)batch * heads + head) * sq;
   const float* delta_h = delta + ((size_t)batch * heads + head) * sq;
-
-  load_tile(ks, k + kbase + (size_t)c0 * stride, stride, sk - c0, d, ld);
-  load_tile(vs, v + kbase + (size_t)c0 * stride, stride, sk - c0, d, ld);
-
-  float acc_k[4][kDC], acc_v[4][kDC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kDC; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
-
+  const int keys = min(kRows, sk - j0), wrow = warp * kWarpRows;
   // a query row before the tile's first key sees none of its keys (p = ds = 0 exactly)
-  for (int q0 = causal ? c0 : 0; q0 < sq; q0 += kTile) {
-    __syncthreads();
-    load_tile(qs, q + qbase + (size_t)q0 * stride, stride, sq - q0, d, ld);
-    load_tile(dos, dout + qbase + (size_t)q0 * stride, stride, sq - q0, d, ld);
-    if (threadIdx.x < kTile) {
-      const int row = q0 + threadIdx.x;
-      rst[threadIdx.x] = row < sq ? lse_h[row] : 0.f;
-      rst[kTile + threadIdx.x] = row < sq ? delta_h[row] : 0.f;
-    }
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_dot(qs, ks, d, ld, ty, tx, s);
-    tile_dot(dos, vs, d, ld, ty, tx, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i, row = q0 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = c0 + tx + 16 * j;
-        const bool live = row < sq && col < sk && (!causal || col <= row);
-        const float p = expf(__fsub_rn(live ? __fmul_rn(s[i][j], scale) : kNegInf, rst[r]));
-        ps[r * kPLd + tx + 16 * j] = round_to<T>(p);
-        dss[r * kPLd + tx + 16 * j] =
-            round_to<T>(__fmul_rn(p, __fsub_rn(dp[i][j], rst[kTile + r])));
-      }
-    }
-    __syncthreads();
-    // dv += p^T do, dk += scale * (ds^T q) over this tile's query rows
-    float part[4][kDC];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < kDC; ++j) part[i][j] = 0.f;
-#pragma unroll 2
-    for (int r = 0; r < kTile; ++r) {
-      const float4 p4 = *reinterpret_cast<const float4*>(ps + r * kPLd + ty * 4);
-      const float4 d4 = *reinterpret_cast<const float4*>(dss + r * kPLd + ty * 4);
-#pragma unroll
-      for (int g = 0; g < kDC / 4; ++g) {
-        const int col = own_col(tx, g);
-        if (col < d) {
-          const float4 dov = *reinterpret_cast<const float4*>(dos + r * ld + col);
-          const float4 qv = *reinterpret_cast<const float4*>(qs + r * ld + col);
-          fma4(acc_v[0] + 4 * g, p4.x, dov);
-          fma4(acc_v[1] + 4 * g, p4.y, dov);
-          fma4(acc_v[2] + 4 * g, p4.z, dov);
-          fma4(acc_v[3] + 4 * g, p4.w, dov);
-          fma4(part[0] + 4 * g, d4.x, qv);
-          fma4(part[1] + 4 * g, d4.y, qv);
-          fma4(part[2] + 4 * g, d4.z, qv);
-          fma4(part[3] + 4 * g, d4.w, qv);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < kDC; ++j)
-        acc_k[i][j] = __fadd_rn(acc_k[i][j], __fmul_rn(scale, part[i][j]));
-  }
+  const int q_begin = causal ? j0 : 0;
+  const int steps = q_begin < sq ? (sq - q_begin + kBwdKT - 1) / kBwdKT : 0;
 
-  store_rows<T, kDC>(dk + kbase + (size_t)c0 * stride, stride, sk - c0, d, ty, tx, acc_k);
-  store_rows<T, kDC>(dv + kbase + (size_t)c0 * stride, stride, sk - c0, d, ty, tx, acc_v);
+  auto prefetch = [&](int step) {
+    const int q0 = q_begin + step * kBwdKT, stage = step & 1;
+    Ops::load(qs + stage * kBwdKT * kLd, q + qbase + (size_t)q0 * stride, stride, kBwdKT,
+              sq - q0, d);
+    Ops::load(dos + stage * kBwdKT * kLd, dout + qbase + (size_t)q0 * stride, stride, kBwdKT,
+              sq - q0, d);
+    for (int e = threadIdx.x; e < 2 * kBwdKT; e += kBwdThreads) {
+      const int which = e / kBwdKT, r = e % kBwdKT;
+      const float* src = which ? delta_h : lse_h;
+      const bool live = q0 + r < sq;
+      cp_async4(rst + (stage * 2 + which) * kBwdKT + r, live ? src + q0 + r : src, live);
+    }
+    cp_async_commit();
+  };
+  Ops::load(ks, k + kbase, stride, kRows, keys, d);
+  Ops::load(vs, v + kbase, stride, kRows, keys, d);
+  prefetch(0);
+
+  float acc_k[kM][kDN][4], acc_v[kM][kDN][4];
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+    zero_acc(acc_k[m]);
+    zero_acc(acc_v[m]);
+  }
+  for (int step = 0; step < steps; ++step) {
+    if (step + 1 < steps) {
+      prefetch(step + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int q0 = q_begin + step * kBwdKT, stage = step & 1;
+    const T* qt = qs + stage * kBwdKT * kLd;
+    const T* dot = dos + stage * kBwdKT * kLd;
+    const float* rs = rst + stage * 2 * kBwdKT;
+    const int live = wrow >= keys ? 0 : min(kNT, (sq - q0 + 7) / 8);  // n-tiles with a row
+    if (live > 0) {
+      float pt[kM][kNT][4], dst[kM][kNT][4];  // k q^T then p^T; v do^T then ds^T
+      Ops::products(pt, dst, ks, vs, wrow, qt, dot, d, live, lane);
+      // an inner tile (every key and row live, no key past a row) skips the tests
+      const bool edge = q0 + kBwdKT > sq || j0 + wrow + kWarpRows > sk ||
+                        (causal && j0 + wrow + kWarpRows - 1 > q0);
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        const int c = 8 * n + 2 * t;  // this lane's two query rows of the tile: c, c + 1
+        const float2 ls = *reinterpret_cast<const float2*>(rs + c);
+        const float2 dl = *reinterpret_cast<const float2*>(rs + kBwdKT + c);
+        const float off[2] = {ls.x * kLog2e, ls.y * kLog2e}, dlt[2] = {dl.x, dl.y};
+#pragma unroll
+        for (int m = 0; m < kM; ++m)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = prob(__fmul_rn(pt[m][n][e], scale), off[e & 1]);
+            if (edge) {
+              const int key = j0 + wrow + 16 * m + g + 8 * (e >> 1), row = q0 + c + (e & 1);
+              p = key < sk && row < sq && (!causal || key <= row) ? p : 0.f;
+            }
+            pt[m][n][e] = p;  // the bfloat16 packing rounds it for dv; ds takes it exact
+            dst[m][n][e] = __fmul_rn(p, __fsub_rn(dst[m][n][e], dlt[e & 1]));
+          }
+      }
+      // dv += p^T do, dk += ds^T q over this tile's query rows
+      Ops::accumulate(acc_v, pt, dot, sq - q0, d, lane);
+      Ops::accumulate(acc_k, dst, qt, sq - q0, d, lane);
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();  // no step ran where no query sees these keys: the loads are unused
+  const float mul_k[2] = {scale, scale}, mul_v[2] = {1.f, 1.f};
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+    store_c<kDN>(dk + kbase, stride, wrow + 16 * m, keys, d, mul_k, acc_k[m], lane);
+    store_c<kDN>(dv + kbase, stride, wrow + 16 * m, keys, d, mul_v, acc_v[m], lane);
+  }
 }
 
 // ----------------------------------------------------------------------------- launches
@@ -317,7 +524,7 @@ bool flash_shape_ok(int b, int sq, int sk, int heads, int d) {
          d <= kMaxHeadDim && d % 8 == 0;
 }
 
-dim3 tiles(int s, int heads, int b) { return dim3((s + kTile - 1) / kTile, heads, b); }
+dim3 tiles(int s, int heads, int b, int rows) { return dim3((s + rows - 1) / rows, heads, b); }
 
 template <typename T, int kDC>
 cudaError_t flash_fwd(const void* q, const void* k, const void* v, void* out, float* lse, int b,
@@ -326,42 +533,56 @@ cudaError_t flash_fwd(const void* q, const void* k, const void* v, void* out, fl
   const size_t smem = sizeof(float) * ((size_t)3 * kTile * (d + 4) + kTile * kPLd);
   cudaError_t err = allow_smem(flash_fwd_kernel<T, kDC>, smem);
   if (err != cudaSuccess) return err;
-  flash_fwd_kernel<T, kDC><<<tiles(sq, heads, b), kTileThreads, smem, stream>>>(
+  flash_fwd_kernel<T, kDC><<<tiles(sq, heads, b, kTile), kTileThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), lse, sq, sk, d, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T, int kDC>
+// rows of the tile a backward block owns, and its shared memory: two resident tiles, two
+// stages of two streamed ones, and in the dK/dV kernel the streamed rows' lse and delta
+template <class Ops>
+constexpr int bwd_rows() {
+  return 16 * Ops::kM * kBwdWarps;
+}
+template <class Ops>
+constexpr size_t bwd_smem(bool dkv) {
+  return sizeof(typename Ops::T) * (size_t)(2 * bwd_rows<Ops>() + 4 * kBwdKT) * Ops::kLd +
+         (dkv ? sizeof(float) * 4 * kBwdKT : 0);
+}
+
+template <class Ops>
 cudaError_t flash_dq(const void* q, const void* k, const void* v, const void* dout,
                      const float* lse, const float* delta, void* dq, int b, int sq, int sk,
                      int heads, int d, int causal, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)4 * kTile * (d + 4) + kTile * kPLd);
-  cudaError_t err = allow_smem(flash_dq_kernel<T, kDC>, smem);
+  using T = typename Ops::T;
+  constexpr size_t smem = bwd_smem<Ops>(false);
+  cudaError_t err = allow_smem(flash_dq_kernel<Ops>, smem);
   if (err != cudaSuccess) return err;
-  flash_dq_kernel<T, kDC><<<tiles(sq, heads, b), kTileThreads, smem, stream>>>(
+  flash_dq_kernel<Ops><<<tiles(sq, heads, b, bwd_rows<Ops>()), kBwdThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), sq, sk, d, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T, int kDC>
+template <class Ops>
 cudaError_t flash_dkv(const void* q, const void* k, const void* v, const void* dout,
                       const float* lse, const float* delta, void* dk, void* dv, int b, int sq,
                       int sk, int heads, int d, int causal, float scale, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)4 * kTile * (d + 4) + 2 * kTile * kPLd + 2 * kTile);
-  cudaError_t err = allow_smem(flash_dkv_kernel<T, kDC>, smem);
+  using T = typename Ops::T;
+  constexpr size_t smem = bwd_smem<Ops>(true);
+  cudaError_t err = allow_smem(flash_dkv_kernel<Ops>, smem);
   if (err != cudaSuccess) return err;
-  flash_dkv_kernel<T, kDC><<<tiles(sk, heads, b), kTileThreads, smem, stream>>>(
+  flash_dkv_kernel<Ops><<<tiles(sk, heads, b, bwd_rows<Ops>()), kBwdThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), sq, sk,
       d, scale, causal);
   return cudaGetLastError();
 }
 
-// the instantiation for (dtype, d): 4 accumulator columns a thread up to D=64, 8 up to D=128
-#define MMT_FLASH_DISPATCH(fn, ...)                                          \
+// the forward's instantiation for (dtype, d): 4 accumulator columns a thread up to D=64, 8
+// up to D=128
+#define MMT_FLASH_FWD_DISPATCH(fn, ...)                                      \
   do {                                                                       \
     if (dtype == 0 && d <= 64) return (int)fn<float, 4>(__VA_ARGS__);        \
     if (dtype == 0) return (int)fn<float, 8>(__VA_ARGS__);                   \
@@ -370,20 +591,31 @@ cudaError_t flash_dkv(const void* q, const void* k, const void* v, const void* d
     return (int)cudaErrorInvalidValue;                                       \
   } while (0)
 
+// the backward's: the operand struct of the dtype, head dim rounded up to 64 or 128
+#define MMT_FLASH_BWD_DISPATCH(fn, ...)                                       \
+  do {                                                                        \
+    if (dtype == 0 && d <= 64) return (int)fn<Tf32Ops<64>>(__VA_ARGS__);      \
+    if (dtype == 0) return (int)fn<Tf32Ops<128>>(__VA_ARGS__);                \
+    if (dtype == 1 && d <= 64) return (int)fn<Bf16Ops<64>>(__VA_ARGS__);      \
+    if (dtype == 1) return (int)fn<Bf16Ops<128>>(__VA_ARGS__);                \
+    return (int)cudaErrorInvalidValue;                                        \
+  } while (0)
+
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. q, dout, out, dq: [B, Sq, heads, d]; k, v, dk, dv:
 // [B, Sk, heads, d]; lse, delta: float32 [B, heads, Sq]. All contiguous on one device, d a
-// multiple of 8 up to 128. Each entry is one launch on `stream`, does not synchronise and
-// returns a cudaError_t.
+// multiple of 8 up to 128, every base pointer 16-byte aligned (the backward kernels load by
+// 16-byte cp.async). Each entry is one launch on `stream`, does not synchronise and returns a
+// cudaError_t.
 int mmt_flash_attention_fwd(int dtype, const void* q, const void* k, const void* v, void* out,
                             void* lse, int b, int sq, int sk, int heads, int d, int causal,
                             float sm_scale, void* stream) {
   if (!flash_shape_ok(b, sq, sk, heads, d)) return (int)cudaErrorInvalidValue;
-  MMT_FLASH_DISPATCH(flash_fwd, q, k, v, out, static_cast<float*>(lse), b, sq, sk, heads, d,
-                     causal, sm_scale, static_cast<cudaStream_t>(stream));
+  MMT_FLASH_FWD_DISPATCH(flash_fwd, q, k, v, out, static_cast<float*>(lse), b, sq, sk, heads, d,
+                         causal, sm_scale, static_cast<cudaStream_t>(stream));
 }
 
 int mmt_flash_attention_dq(int dtype, const void* q, const void* k, const void* v,
@@ -391,9 +623,9 @@ int mmt_flash_attention_dq(int dtype, const void* q, const void* k, const void* 
                            int sq, int sk, int heads, int d, int causal, float sm_scale,
                            void* stream) {
   if (!flash_shape_ok(b, sq, sk, heads, d)) return (int)cudaErrorInvalidValue;
-  MMT_FLASH_DISPATCH(flash_dq, q, k, v, dout, static_cast<const float*>(lse),
-                     static_cast<const float*>(delta), dq, b, sq, sk, heads, d, causal, sm_scale,
-                     static_cast<cudaStream_t>(stream));
+  MMT_FLASH_BWD_DISPATCH(flash_dq, q, k, v, dout, static_cast<const float*>(lse),
+                         static_cast<const float*>(delta), dq, b, sq, sk, heads, d, causal,
+                         sm_scale, static_cast<cudaStream_t>(stream));
 }
 
 int mmt_flash_attention_dkv(int dtype, const void* q, const void* k, const void* v,
@@ -401,9 +633,9 @@ int mmt_flash_attention_dkv(int dtype, const void* q, const void* k, const void*
                             void* dv, int b, int sq, int sk, int heads, int d, int causal,
                             float sm_scale, void* stream) {
   if (!flash_shape_ok(b, sq, sk, heads, d)) return (int)cudaErrorInvalidValue;
-  MMT_FLASH_DISPATCH(flash_dkv, q, k, v, dout, static_cast<const float*>(lse),
-                     static_cast<const float*>(delta), dk, dv, b, sq, sk, heads, d, causal,
-                     sm_scale, static_cast<cudaStream_t>(stream));
+  MMT_FLASH_BWD_DISPATCH(flash_dkv, q, k, v, dout, static_cast<const float*>(lse),
+                         static_cast<const float*>(delta), dk, dv, b, sq, sk, heads, d, causal,
+                         sm_scale, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,4 +1,5 @@
-// Warp-level tensor-core pieces of the bfloat16 attention passes (attention_passes.cuh):
+// Warp-level tensor-core pieces of the bfloat16 attention passes (attention_passes.cuh) and
+// flash backward kernels (flash_attention.cu):
 // 16-byte asynchronous copies into shared memory, ldmatrix fragment loads and the
 // mma.sync.m16n8k16 product (bf16 operands, f32 accumulation).
 //

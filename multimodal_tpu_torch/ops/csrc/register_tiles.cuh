@@ -1,5 +1,5 @@
 // Register-tiled products on the CUDA cores, shared by the float32 attention passes
-// (attention_passes.cuh) and the flash-attention kernels (flash_attention.cu). A block of 256
+// (attention_passes.cuh) and the flash-attention forward (flash_attention.cu). A block of 256
 // threads works on 64-row tiles held as floats in shared memory: thread (ty, tx) of a 16 x 16
 // grid owns a 4x4 tile of a [64][64] logits product (rows ty*4+i, columns tx+16*j) and a
 // 4 x D/16 tile of a [64][D] accumulator (rows ty*4+i, four neighbouring columns in every

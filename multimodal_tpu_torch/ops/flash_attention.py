@@ -5,8 +5,9 @@ Port of ``multimodal_tpu/ops/flash_attention.py``. ``FlashAttention`` is a
 ``torch.autograd.Function`` that saves (q, k, v, out, lse), as the reference's custom VJP
 does, and rebuilds the probability tiles from ``lse`` in its backward. On a CUDA tensor the
 forward launches the hand-written forward kernel and the backward the dQ and the dK/dV
-kernels (``ops/csrc/flash_attention.cu``), which read the ``[B, S, H, D]`` tensors in place;
-on a CPU tensor they run ``flash_attention_reference`` and ``flash_attention_bwd_reference``,
+kernels (``ops/csrc/flash_attention.cu``; the backward pair multiplies on the tensor cores,
+bf16 operands in bfloat16 and 3xTF32 in float32), which read the ``[B, S, H, D]`` tensors in
+place; on a CPU tensor they run ``flash_attention_reference`` and ``flash_attention_bwd_reference``,
 the plain PyTorch versions of the same math, which are also what the on-card comparison holds
 the kernels to. ``ops.attention.attention`` reaches this operator for causal self-attention
 from ``MIN_FLASH_SEQ`` tokens up.
@@ -18,7 +19,8 @@ aligned (key <= query), unlike the plain attention path's bottom-right one, and 
 only for sq == sk. Rounding points: the row sum ``l`` takes the unrounded p = exp(s - m) while
 the accumulator takes round(p) @ v, and the division by ``l`` comes last; in the backward
 ``delta`` comes from the rounded ``out``, dv from round(P), ds = round(P (dp - delta)), and dq
-and dk are scaled by ``sm_scale`` per key or query tile in f32 before they are summed. The
+and dk are scaled by ``sm_scale`` per key or query tile in f32 before they are summed (the
+kernels scale once at the store: a difference of summation order only). The
 reference's transposes to [B, H, S, D], its pads of Sq and Sk and its 128-lane copies of lse
 and delta are TPU tiling and are not ported.
 """
@@ -135,9 +137,10 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, *, causal: bool = False
 
 def _check_kernel_operands(q, k, v, like_q=(), rows=()):
     """What the CUDA kernels take: [B, S, H, D] tensors of one dtype (float32 or bfloat16) on
-    one device, contiguous, k and v of one shape that differs from q's in S at most, D a
-    multiple of 8 up to 128; ``like_q`` tensors shaped as q, ``rows`` float32 [B, H, Sq].
-    Raises otherwise."""
+    one device, contiguous and 16-byte aligned (the backward kernels load them by 16-byte
+    ``cp.async``), k and v of one shape that differs from q's in S at most, D a multiple of 8
+    up to 128; ``like_q`` tensors (do) shaped as q, ``rows`` (lse, delta) float32 [B, H, Sq].
+    Raises otherwise, naming the operand."""
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16, got {q.dtype}")
     if q.dim() != 4 or k.dim() != 4:
@@ -146,18 +149,24 @@ def _check_kernel_operands(q, k, v, like_q=(), rows=()):
     if d > MAX_HEAD_DIM or d % 8 or (k.shape[0], k.shape[2], k.shape[3]) != (b, h, d):
         raise ValueError(f"flash_attention kernel does not take q {tuple(q.shape)} with k "
                          f"{tuple(k.shape)} (D a multiple of 8 up to {MAX_HEAD_DIM})")
-    for t, want in [(q, q), (k, k), (v, k)] + [(t, q) for t in like_q]:
+    named = [("q", q, q), ("k", k, k), ("v", v, k)] + [("do", t, q) for t in like_q]
+    for name, t, want in named:
         if t.device != q.device or t.dtype != q.dtype or t.shape != want.shape:
             raise ValueError(
-                f"flash_attention operand {tuple(t.shape)} {t.dtype} on {t.device}: expected "
-                f"{tuple(want.shape)} {q.dtype} on {q.device}")
+                f"flash_attention operand {name} {tuple(t.shape)} {t.dtype} on {t.device}: "
+                f"expected {tuple(want.shape)} {q.dtype} on {q.device}")
         if not t.is_contiguous():
-            raise ValueError("flash_attention operands must be contiguous")
-    for t in rows:
+            raise ValueError(f"flash_attention operand {name} must be contiguous")
+    for name, t in zip(("lse", "delta"), rows):
         if (t.device != q.device or t.dtype != torch.float32 or tuple(t.shape) != (b, h, sq)
                 or not t.is_contiguous()):
             raise ValueError(f"flash_attention row statistics must be contiguous float32 "
-                             f"[{b}, {h}, {sq}] on {q.device}, got {tuple(t.shape)} {t.dtype}")
+                             f"[{b}, {h}, {sq}] on {q.device}, got {name} {tuple(t.shape)} "
+                             f"{t.dtype}")
+    for name, t, _ in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention operand {name} must be 16-byte aligned "
+                             f"(data_ptr {t.data_ptr():#x})")
 
 
 def _launch(entry: str, kernel: str, q, k, pointers, causal: bool, sm_scale: float):

@@ -1,5 +1,6 @@
 """The pure-Python report helpers of ``chip_smoke.py`` (the script itself needs a GPU): the
-``nvcc -Xptxas -v`` digest, the attention passes' shared-memory sizes and the kernel bounds."""
+``nvcc -Xptxas -v`` digest, the SASS digest of the flash kernels, the attention passes'
+shared-memory sizes and the kernel bounds and rates."""
 
 import chip_smoke as cs
 
@@ -51,3 +52,68 @@ def test_phase3_holds_the_tile_edge_and_padded_head_cases():
     ln_dims = {w // h for _, _, _, w, h, _, _ in cs.LN_CASES}
     assert {80, 88} <= block_dims and {80, 88} <= ln_dims
     assert len(cs.KERNELS) == 11
+
+
+FLASH_DQ = ("_ZN57_GLOBAL__N__2b5bc54b_18_flash_attention_cu_e4f1a2b315flash_dq_kernelINS_7Tf32Ops"
+            "ILi64EEEEvPKNT_1TES6_S6_S6_PKfS8_PS4_iiifi")
+FLASH_DKV = ("_ZN57_GLOBAL__N__2b5bc54b_18_flash_attention_cu_e4f1a2b316flash_dkv_kernelINS_7"
+             "Bf16OpsILi128EEEEvPKNT_1TES6_S6_S6_PKfS8_PS4_S9_iiifi")
+FLASH_FWD = ("_ZN57_GLOBAL__N__2b5bc54b_18_flash_attention_cu_e4f1a2b316flash_fwd_kernelIfLi4EEvPKT_"
+             "S3_S3_PS1_Pfiiifi")
+
+
+def test_kernel_label_writes_out_the_flash_operand_structs():
+    assert cs.kernel_label(FLASH_DQ) == "flash_dq_kernel<Tf32Ops<64>>"
+    assert cs.kernel_label("Function : " + FLASH_DKV) == "flash_dkv_kernel<Bf16Ops<128>>"
+    assert cs.kernel_label(FLASH_FWD) == "flash_fwd_kernelIfLi4E"
+
+
+def test_flash_hmma_report_names_the_tensor_core_forms():
+    sass = "\n".join([
+        f"\t\tFunction : {FLASH_DQ}",
+        "        /*0100*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;",
+        "        /*0110*/                   HMMA.1688.F32.TF32 R16, R8, R12, R16 ;",
+        f"\t\tFunction : {FLASH_DKV}",
+        "        /*0100*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;",
+        f"\t\tFunction : {FLASH_FWD}",
+        "        /*0100*/                   FFMA R4, R8, R12, R4 ;",
+        "\t\tFunction : _ZN51_GLOBAL__N__x_18_fused_attention_cu_de02afe220attention_mma_kernel"
+        "ILi64EEEvv",
+        "        /*0100*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;",
+    ])
+    assert cs.flash_hmma_report(sass) == [
+        "flash_dkv_kernel<Bf16Ops<128>>: HMMA.16816.F32.BF16 x 1",
+        "flash_dq_kernel<Tf32Ops<64>>: HMMA.1688.F32.TF32 x 2",
+        "flash_fwd_kernelIfLi4E: no HMMA (CUDA cores)"]
+    assert "1 *_mma_kernel functions" in cs.sass_report(sass)
+
+
+def test_flash_bound_and_rate():
+    """B=8 S=2048 H=8 D=64 causal: dQ forms three products of 2 x pairs x D FLOPs (51.5
+    GFLOP), dK/dV four; both are bound by operations; the float32 backward pair's bound is
+    taken at the 3xTF32 ceiling (495 / 3 TFLOP/s), the arithmetic it runs, and its lines give
+    the CUDA-core bound beside it."""
+    args = (8, 2048, 2048, 8, 64, True)
+    flops = cs.flash_flops("flash_attention_dq", *args)
+    assert abs(flops - 6 * 8 * 8 * 2048 * 2049 / 2 * 64) < 1
+    assert cs.flash_flops("flash_attention_dkv", *args) == flops * 4 / 3
+    for dtype, peak in (("float32", cs.PEAK_3XTF32), ("bfloat16", cs.PEAK_FLOPS["bfloat16"])):
+        for kernel in ("flash_attention_dq", "flash_attention_dkv"):
+            ms, by, f = cs.flash_bound(kernel, *args, dtype)
+            assert by == "operations" and f == cs.flash_flops(kernel, *args)
+            assert abs(ms - 1e3 * f / peak) < 1e-9
+    ms, _, f = cs.flash_bound("flash_attention_fwd", *args, "float32")
+    assert abs(ms - 1e3 * f / cs.PEAK_FLOPS["float32"]) < 1e-9
+    assert abs(cs.flash_bound("flash_attention_dq", *args, "float32")[0] - 0.3125) < 1e-4
+    note = cs.rate_note("flash_attention_dq", "float32", 1.0, 0.5, flops)
+    assert "tflops=51.6" in note and "of_bound=50.0%" in note
+    assert "bound_cuda_cores_ms=0.7696" in note
+    assert "cuda_core" not in cs.rate_note("flash_attention_dq", "bfloat16", 1.0, 0.5, flops)
+    assert "cuda_core" not in cs.rate_note("flash_attention_fwd", "float32", 1.0, 0.5, flops)
+
+
+def test_phase3_holds_the_flash_head_dims_and_the_text_towers_batch():
+    flash = {(case, b, d) for case, b, _, _, _, d, _, _ in cs.FLASH_CASES}
+    assert {("flash-D88", 2, 88), ("flash-D32", 2, 32), ("flash-B32", 32, 64)} <= flash
+    timed = [case for case, *_, timed in cs.FLASH_CASES if timed]
+    assert timed == ["flash-S2048", "flash-S4096", "flash-B32"]

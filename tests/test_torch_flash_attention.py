@@ -13,6 +13,13 @@ S=300). On the card, kernel against plain:
 within 1e-4 x max|plain| in float32 and 2e-2 x max|plain| in bfloat16, whose 64-key tiles round
 the unnormalised probabilities relative to other running maxima than the plain version's 256.
 
+The backward kernels' schedule (``tile_walk_dq``, ``tile_walk_dkv``: their blocks, warps,
+streamed tiles, live n-tiles, edge tests and rounding points in plain torch) is held to the
+JAX package's ``_dq_kernel`` and ``_dkv_kernel`` at ragged and cross lengths and head dims 24,
+64 and 88; the float32 kernels' 3xTF32 arithmetic is emulated on the CPU (TF32 rounding on the
+bits, the split, the three products) and holds the card's float32 limit, 1e-4 x max|JAX|,
+where one TF32 product does not.
+
 JAX is imported inside the helpers, so the CUDA cases also run where JAX is absent:
     python -m pytest tests/test_torch_flash_attention.py -m cuda
 """
@@ -264,6 +271,254 @@ def test_kernel_operand_checks_raise():
         fl.flash_attention_fwd(q.to("meta"), q.to("meta"), q.to("meta"))
 
 
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data starts 4 bytes past a 16-byte boundary."""
+    off = torch.zeros(t.numel() + 4, dtype=t.dtype, device=t.device)[1:t.numel() + 1]
+    off = off.view_as(t).copy_(t)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    return off
+
+
+def test_kernel_operand_check_names_a_misaligned_operand():
+    """The backward kernels load by 16-byte cp.async: an operand whose base is not 16-byte
+    aligned raises a ValueError that names it, before anything is launched."""
+    q = torch.zeros(1, 16, 2, 64)
+    rows = (torch.zeros(1, 2, 16), torch.zeros(1, 2, 16))
+    fl._check_kernel_operands(q, q, q, like_q=(q,), rows=rows)
+    for name, args in [("q", (_misaligned(q), q, q, (q,))), ("k", (q, _misaligned(q), q, (q,))),
+                       ("v", (q, q, _misaligned(q), (q,))), ("do", (q, q, q, (_misaligned(q),)))]:
+        with pytest.raises(ValueError, match=f"operand {name} must be 16-byte aligned"):
+            fl._check_kernel_operands(*args[:3], like_q=args[3], rows=rows)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fl._check_kernel_operands(q[..., :60].contiguous(), q[..., :60].contiguous(),
+                                  q[..., :60].contiguous())
+
+
+# --------------------------------------------------------------------- the kernels' schedule
+# The backward kernels (ops/csrc/flash_attention.cu) as plain torch, step by step: blocks of
+# WARPS warps, a warp owning 16 rows (bfloat16) or 32 (float32 up to D=64: two m-tiles), the
+# streamed tiles KT rows long; each warp's head products over its live n-tiles (pairs of 8),
+# the mask tests only on a tile the kernel calls an edge tile, the second product's k-steps
+# (16 in bfloat16, 8 in float32) only below the live rows, bf16 rounding where the kernels
+# pack (ds for dq and dk, p for dv), sm_scale once at the store. If a bound or an edge test of
+# the kernels were wrong, a live entry would go missing or a masked one would count here too.
+WARPS, KT = 4, 32
+
+
+def _warp_rows(dtype, d):
+    return 32 if dtype == torch.float32 and d <= 64 else 16
+
+
+def _k_step(dtype):
+    return 8 if dtype == torch.float32 else 16
+
+
+def _rows_tile(t, r0, n):
+    """Rows r0..r0+n-1 of a [B, H, S, X] tensor, zero past its end (the kernels' zero fill)."""
+    out = torch.zeros(t.shape[:2] + (n,) + t.shape[3:], dtype=t.dtype)
+    part = t[:, :, r0:r0 + n]
+    out[:, :, :part.shape[2]] = part
+    return out
+
+
+def _live_cols(live):
+    """Columns of a streamed tile the head products form: n-tiles in pairs."""
+    return min(KT, 8 * (live + live % 2))
+
+
+def _steps_below(nrows, dtype):
+    """Mask of the streamed tile's rows whose k-step of the second product runs."""
+    step = _k_step(dtype)
+    return ((torch.arange(KT) // step) * step < nrows).float()
+
+
+def tile_walk_dq(q, k, v, do, lse, delta, *, causal, scale):
+    dt, f32 = q.dtype, torch.float32
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    qh, kh, vh, doh = (t.transpose(1, 2).to(f32) for t in (q, k, v, do))
+    lse, delta = lse[..., None].float(), delta[..., None].float()
+    wr = _warp_rows(dt, d)
+    dq = torch.zeros_like(qh)
+    for r0 in range(0, sq, wr * WARPS):
+        rows = min(wr * WARPS, sq - r0)
+        kmax = min(sk, r0 + rows) if causal else sk
+        for wrow in range(0, rows, wr):
+            wmax = min(kmax, r0 + wrow + wr) if causal else kmax
+            rs = slice(r0 + wrow, min(r0 + wrow + wr, sq))
+            row = torch.arange(rs.start, rs.stop)[:, None]
+            acc = torch.zeros(b, h, rs.stop - rs.start, d)
+            for c0 in range(0, kmax, KT):
+                live = min(KT // 8, (wmax - c0 + 7) // 8)
+                if live <= 0:
+                    continue
+                cols = _live_cols(live)
+                kt, vt = _rows_tile(kh, c0, KT), _rows_tile(vh, c0, KT)
+                s = torch.zeros(b, h, row.shape[0], KT)
+                dp = torch.zeros_like(s)
+                s[..., :cols] = qh[:, :, rs] @ kt[:, :, :cols].transpose(-1, -2) * scale
+                dp[..., :cols] = doh[:, :, rs] @ vt[:, :, :cols].transpose(-1, -2)
+                if c0 + KT > kmax or (causal and c0 + KT - 1 > r0 + wrow):  # edge_tile
+                    key = c0 + torch.arange(KT)[None, :]
+                    s = torch.where((key < kmax) & ((key <= row) | (not causal)), s, NEG_INF)
+                ds = (torch.exp(s - lse[:, :, rs]) * (dp - delta[:, :, rs])).to(dt).to(f32)
+                acc += (ds * _steps_below(wmax - c0, dt)) @ kt
+            dq[:, :, rs] = acc
+    return (dq * scale).to(dt).transpose(1, 2)
+
+
+def tile_walk_dkv(q, k, v, do, lse, delta, *, causal, scale):
+    dt, f32 = q.dtype, torch.float32
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    qh, kh, vh, doh = (t.transpose(1, 2).to(f32) for t in (q, k, v, do))
+    lse, delta = lse[..., None, :].float(), delta[..., None, :].float()  # per column
+    wr = _warp_rows(dt, d)
+    dk, dv = torch.zeros_like(kh), torch.zeros_like(vh)
+    for j0 in range(0, sk, wr * WARPS):
+        keys = min(wr * WARPS, sk - j0)
+        for wrow in range(0, keys, wr):
+            ks = slice(j0 + wrow, min(j0 + wrow + wr, sk))
+            key = torch.arange(ks.start, ks.stop)[:, None]
+            acc_k = torch.zeros(b, h, key.shape[0], d)
+            acc_v = torch.zeros_like(acc_k)
+            for q0 in range(j0 if causal else 0, sq, KT):
+                cols = _live_cols(min(KT // 8, (sq - q0 + 7) // 8))
+                qt, dot = _rows_tile(qh, q0, KT), _rows_tile(doh, q0, KT)
+                lt = _rows_tile(lse.transpose(-1, -2), q0, KT).transpose(-1, -2)
+                dlt = _rows_tile(delta.transpose(-1, -2), q0, KT).transpose(-1, -2)
+                pt = torch.zeros(b, h, key.shape[0], KT)
+                dst = torch.zeros_like(pt)
+                pt[..., :cols] = kh[:, :, ks] @ qt[:, :, :cols].transpose(-1, -2) * scale
+                dst[..., :cols] = vh[:, :, ks] @ dot[:, :, :cols].transpose(-1, -2)
+                p = torch.exp(pt - lt)
+                if q0 + KT > sq or j0 + wrow + wr > sk or (causal and j0 + wrow + wr - 1 > q0):
+                    row = q0 + torch.arange(KT)[None, :]
+                    p = torch.where((row < sq) & ((key <= row) | (not causal)), p, 0.0)
+                ds = p * (dst - dlt)
+                below = _steps_below(sq - q0, dt)
+                acc_v += (p.to(dt).to(f32) * below) @ dot
+                acc_k += (ds.to(dt).to(f32) * below) @ qt
+            dk[:, :, ks], dv[:, :, ks] = acc_k, acc_v
+    return (dk * scale).to(dt).transpose(1, 2), dv.to(dt).transpose(1, 2)
+
+
+def _walk_inputs(b, sq, sk, h, d, causal, dtype, seed=0):
+    """The port's tensors of ``_jax_run``'s inputs with the plain forward's lse and delta, as
+    the operator's backward hands them to the kernels."""
+    q, k, v, do = (torch.from_numpy(a).to(dtype) for a in _qkv(b, sq, sk, h, d, seed))
+    out, lse = fl.flash_attention_reference(q, k, v, causal=causal)
+    return q, k, v, do, lse, fl.flash_delta(out, do)
+
+
+# ragged lengths, sq != sk both ways, a tile edge; head dims 24, 64 and 88 (no multiple of 16)
+WALK_SHAPES = [(72, 40, True), (40, 72, True), (130, 130, True), (33, 33, False)]
+
+
+@pytest.mark.parametrize("d", [24, 64, 88])
+@pytest.mark.parametrize("sq,sk,causal", WALK_SHAPES)
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_tile_walk_matches_jax_kernels(sq, sk, causal, d, dtype_name):
+    """The kernels' schedule against the JAX package's _dq_kernel and _dkv_kernel (interpret
+    mode): float32 within 5e-6 x max|JAX| (the order of the sums only; measured <= 7.1e-7),
+    bfloat16 within 2e-3 x max|JAX|, a tenth of the card's limit (the two sides round the same
+    products at the same points, and most outputs agree to the bit; the forward's out, and so
+    delta, differs from the JAX forward's by single bf16 steps: measured <= 2.4e-4)."""
+    dtype = torch.float32 if dtype_name == "float32" else torch.bfloat16
+    _, want = _jax_run(1, sq, sk, 2, d, causal, dtype_name)
+    q, k, v, do, lse, delta = _walk_inputs(1, sq, sk, 2, d, causal, dtype)
+    kw = dict(causal=causal, scale=d ** -0.5)
+    got = (tile_walk_dq(q, k, v, do, lse, delta, **kw),
+           *tile_walk_dkv(q, k, v, do, lse, delta, **kw))
+    tol = 5e-6 if dtype == torch.float32 else 2e-3
+    for name, g, r in zip(("dq", "dk", "dv"), got, want):
+        err = np.abs(g.float().numpy() - r).max()
+        assert err <= tol * np.abs(r).max(), (name, err, np.abs(r).max())
+
+
+def test_tile_walk_is_the_plain_backward_in_float32():
+    """At a length with many tiles and both m-tile counts (D=64: two a warp; D=80: one) the
+    walk is the plain backward up to the order of the sums."""
+    for d in (64, 80):
+        q, k, v, do, lse, delta = _walk_inputs(2, 200, 200, 2, d, True, torch.float32, seed=11)
+        kw = dict(causal=True, sm_scale=d ** -0.5)
+        want = fl.flash_attention_bwd_reference(q, k, v, None, lse, do, delta=delta, **kw)
+        got = (tile_walk_dq(q, k, v, do, lse, delta, causal=True, scale=d ** -0.5),
+               *tile_walk_dkv(q, k, v, do, lse, delta, causal=True, scale=d ** -0.5))
+        for g, r in zip(got, want):
+            assert (g - r).abs().max() <= 1e-5 * r.abs().max()
+
+
+# ----------------------------------------------------------------------------- 3xTF32
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32: to nearest on the 13 dropped mantissa bits, ties away (the
+    kernels' rounding: add half a TF32 ulp to the bits, clear the 13)."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_read(x: torch.Tensor) -> torch.Tensor:
+    """A float32 operand as the tensor core reads it as TF32: its top 19 bits (truncated)."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the float32 kernels form it: each operand split into big = tf32(x) and
+    small = x - big, which the tensor core reads truncated; small_a big_b + big_a small_b +
+    big_a big_b. The TF32 products are exact in float32 (11-bit significands); the sums are
+    float32."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    a_small, b_small = _tf32_read(a - a_big), _tf32_read(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def _mm_1xtf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _tf32_backward(mm, q, k, v, do, lse, delta, *, causal, scale):
+    """The flash backward with every product formed by ``mm``: (dq, dk, dv)."""
+    qh, kh, vh, doh = (t.transpose(1, 2) for t in (q, k, v, do))
+    s = mm(qh, kh.transpose(-1, -2)) * scale
+    if causal:
+        s = s.masked_fill(~torch.ones(s.shape[-2:], dtype=torch.bool).tril(), NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    ds = p * (mm(doh, vh.transpose(-1, -2)) - delta[..., None])
+    grads = (mm(ds, kh) * scale, mm(ds.transpose(-1, -2), qh) * scale,
+             mm(p.transpose(-1, -2), doh))
+    return tuple(t.transpose(1, 2) for t in grads)
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    x = torch.tensor([1.0, -1.0, 1 + 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -12, 1 + 3 * 2 ** -12])
+    want = [1.0, -1.0, 1 + 2 ** -10, -(1 + 2 ** -10), 1.0, 1 + 2 ** -10]
+    assert _tf32(x).tolist() == want
+    r = torch.from_numpy(np.random.default_rng(0).standard_normal(4096, dtype=np.float32))
+    big = _tf32(r)
+    assert ((big.view(torch.int32) & 0x1FFF) == 0).all()
+    assert ((big - r).abs() <= 2.0 ** -11 * r.abs()).all()
+    small = r - big  # exact; the tensor core reads it truncated, within 2^-21 relative of x
+    assert (small.abs() <= 2.0 ** -11 * r.abs()).all()
+    assert ((big + _tf32_read(small) - r).abs() <= 2.0 ** -21 * r.abs()).all()
+
+
+@pytest.mark.parametrize("s,causal", [(300, True), (197, False)])
+def test_3xtf32_backward_holds_the_float32_limit_and_one_tf32_product_does_not(s, causal):
+    """The float32 kernels' arithmetic, emulated: with three TF32 products a product the
+    backward stays within the card's float32 limit, 1e-4 x max|JAX float32|, of the JAX
+    kernels; with one TF32 product it does not (its error enters the logits and exp), so the
+    limit tells the two apart."""
+    _, want = _jax_run(1, s, s, 2, 64, causal, "float32")
+    q, k, v, do, lse, delta = _walk_inputs(1, s, s, 2, 64, causal, torch.float32)
+    kw = dict(causal=causal, scale=64 ** -0.5)
+    rel = lambda got: max(np.abs(g.numpy() - r).max() / np.abs(r).max()  # noqa: E731
+                          for g, r in zip(got, want))
+    three = rel(_tf32_backward(_mm_3xtf32, q, k, v, do, lse, delta, **kw))
+    one = rel(_tf32_backward(_mm_1xtf32, q, k, v, do, lse, delta, **kw))
+    assert three <= 1e-4, three
+    assert one > 1e-4, one
+    assert one > 20 * three
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -338,3 +593,37 @@ def test_cuda_auto_takes_the_flash_kernels(cuda_device):
     fl.launches.reset_launch_counts()
     attention(q, k, v)
     assert fl.launches.launch_counts()["flash_attention_fwd"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_misaligned_operand_raises_before_the_launch(cuda_device, dtype):
+    q, k, v, do = (torch.from_numpy(a).to(cuda_device, dtype) for a in _qkv(1, 64, 64, 2, 64, 10))
+    out, lse = fl.flash_attention_fwd(q, k, v, causal=True)
+    delta = fl.flash_delta(out, do)
+    fl.launches.reset_launch_counts()
+    with pytest.raises(ValueError, match="operand do must be 16-byte aligned"):
+        fl.flash_attention_dq(q, k, v, _misaligned(do), lse, delta, causal=True)
+    with pytest.raises(ValueError, match="operand k must be 16-byte aligned"):
+        fl.flash_attention_dkv(q, _misaligned(k), v, do, lse, delta, causal=True)
+    counts = fl.launches.launch_counts()
+    assert counts["flash_attention_dq"] == counts["flash_attention_dkv"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_float32_backward_holds_its_limit_at_s8192(cuda_device):
+    """The float32 backward's error grows with the sweep's length (3xTF32 products, f32
+    sums): at S=8192, four times the longest shipped text context, dq, dk and dv stay within
+    1e-4 x max|plain| on this seeded draw. Prints each ratio."""
+    g = torch.Generator(device=cuda_device).manual_seed(8192)
+    q, k, v, do = (torch.randn(1, 8192, 8, 64, generator=g, device=cuda_device)
+                   for _ in range(4))
+    out, lse = fl.flash_attention_reference(q, k, v, causal=True)
+    delta = fl.flash_delta(out, do)
+    got = (fl.flash_attention_dq(q, k, v, do, lse, delta, causal=True),
+           *fl.flash_attention_dkv(q, k, v, do, lse, delta, causal=True))
+    want = fl.flash_attention_bwd_reference(q, k, v, out, lse, do, causal=True)
+    for name, a, r in zip(["dq", "dk", "dv"], got, want):
+        ratio = ((a - r).abs().max() / r.abs().max()).item()
+        print(f"S=8192 float32 {name}: max err / max|plain| = {ratio:.3e}")
+        assert torch.isfinite(a).all() and ratio <= 1e-4, (name, ratio)
