@@ -8,9 +8,9 @@ Phases (each prints its lines; any failure exits non-zero before the result line
   1. the card: torch.cuda.is_available() and nvidia-smi's name and power limit;
   2. build the CUDA kernels from ops/csrc with nvcc (one process per source, in parallel);
      print every kernel's registers and spills (ptxas), the attention passes' shared memory,
-     and from the SASS the passes' HMMA / LDSM / LDGSTS counts and each flash kernel's
-     tensor-core instructions by form (HMMA.16816.F32.BF16 in bfloat16, HMMA.1688.F32.TF32
-     for the float32 backward's 3xTF32);
+     and from the SASS the passes' HMMA / LDSM / LDGSTS counts and the tensor-core
+     instructions by form of each flash kernel and of the block backward's projection GEMM
+     (HMMA.16816.F32.BF16 in bfloat16, HMMA.1688.F32.TF32 for float32's 3xTF32);
   3. every kernel against its plain PyTorch version on the card, every output, in float32
      (max abs error <= 1e-4 * max|plain|) and bfloat16 (<= 2e-2 * max|plain|), with
      CUDA-event times at B=256: the block-attention forward and backward at the ViT-B/32
@@ -29,11 +29,12 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      it); the flash-attention trio (forward with lse, dQ, dK/dV) at S=2048 (B=1, the timed
      B=8 and the text tower's own call at B=32) and S=4096 causal, S=1024 and S=2048 not
      causal, a ragged S=2050, sq != sk causal, D=32, 80, 88 and 128, with
-     scaled_dot_product_attention(is_causal=True) forward and backward timed beside it, each
-     timed flash line with its TFLOP/s and share of its bound (the float32 backward pair's
-     at the 3xTF32 ceiling, 495 / 3 TFLOP/s, and at the CUDA cores' 67 beside it), and the
-     timed dQ and dK/dV launched twice
-     and compared bit for bit; then the flash operator against the plain attention path,
+     scaled_dot_product_attention(is_causal=True) forward and backward timed beside it; each
+     timed line with its TFLOP/s and share of its bound (the float32 kernels that run
+     3xTF32, the flash trio and the block backward, at the 3xTF32 ceiling, 495 / 3 TFLOP/s,
+     and at the CUDA cores' 67 beside it), the timed flash kernels and every block-backward
+     case launched twice and compared bit for bit, every output; the float32 flash forward
+     at S=8192; then the flash operator against the plain attention path,
      forward plus backward, time and peak memory at S=1024, 2048 and 4096, causal and not (the
      dispatch's crossover). The library calls are yardsticks, held to the plain versions too and used
      nowhere in the port;
@@ -190,12 +191,15 @@ SHARED_COMPARE_BATCH = 64  # both paths hold it in float32; the plain path does 
 CAPTIONS = ["a photo of a cat", "two dogs playing in the snow", "a red car on a bridge",
             "東京の夜景 ✨"]
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): CUDA-core float32 for
-# float32, tensor-core bf16 for bfloat16; HBM3 bytes/s. The float32 flash backward runs
-# 3xTF32 on the tensor cores, whose ceiling is a third of the TF32 peak: its bound is taken
-# at that rate, and its lines give the CUDA-core bound beside it
+# float32, tensor-core bf16 for bfloat16; HBM3 bytes/s. The float32 flash trio and the block
+# backward's GEMMs run 3xTF32 on the tensor cores, whose ceiling is a third of the TF32 peak:
+# those kernels' float32 bound is taken at that rate, and their lines give the CUDA-core
+# bound beside it
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_3XTF32 = 495e12 / 3
 PEAK_BYTES = 3.35e12
+TF32_KERNELS = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
+                "block_attention_bwd", "block_attention_ln_bwd")
 
 
 def fail(msg: str):
@@ -217,13 +221,13 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float, dtype_name: str,
-          peak: float | None = None) -> tuple[float, str]:
-    """The least time the card could take, in ms, and what sets it: the operations over
-    the peak rate for the dtype (or ``peak``), or each input read once and each output
-    written once over the memory rate."""
-    t_ops, t_bytes = flops / (peak or PEAK_FLOPS[dtype_name]), nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+def bound(kernel: str, flops: float, nbytes: float,
+          dtype_name: str) -> tuple[float, str, float]:
+    """The least time the card could take, in ms, what sets it and the FLOPs: the
+    operations over the kernel's peak rate (``peak_of``), or each input read once and each
+    output written once over the memory rate."""
+    t_ops, t_bytes = flops / peak_of(kernel, dtype_name), nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", flops
 
 
 def attention_pairs(s: int, causal: bool) -> float:
@@ -231,11 +235,18 @@ def attention_pairs(s: int, causal: bool) -> float:
     return s * (s + 1) / 2 if causal else s * s
 
 
+def peak_of(kernel: str, dtype_name: str) -> float:
+    """The rate a kernel's bound is taken at: 3xTF32's ceiling for the float32 kernels that
+    run it on the tensor cores, else the dtype's peak."""
+    tf32 = dtype_name == "float32" and kernel in TF32_KERNELS
+    return PEAK_3XTF32 if tf32 else PEAK_FLOPS[dtype_name]
+
+
 def block_bound(kernel: str, b, s, w, heads, causal, dtype_name: str):
-    """Work of the TPU kernels' definition at this shape. Forward: four [B*S,W]x[W,W]
-    projections and the core's two products. Backward: seven projection-sized products (q,
-    k, v recomputed, do, and dx over K=3W) and six core products (logits, attnpre, dv, dp,
-    dq, dk). Bytes: x [, dy], the outputs, the weights and biases [, gamma, beta, ln_out,
+    """(ms, what bounds it, FLOPs): work of the TPU kernels' definition at this shape. Forward: four [B*S,W]x[W,W] projections and the core's two products.
+    Backward: seven projection-sized products (q, k, v recomputed, do, and dx over K=3W) and
+    six core products (logits, attnpre, dv, dp, dq, dk), bound in float32 at the 3xTF32
+    ceiling. Bytes: x [, dy], the outputs, the weights and biases [, gamma, beta, ln_out,
     dgamma and dbeta in float32]."""
     e = 4 if dtype_name == "float32" else 2
     m, pairs = b * s, b * heads * attention_pairs(s, causal) * (w // heads)
@@ -247,7 +258,7 @@ def block_bound(kernel: str, b, s, w, heads, causal, dtype_name: str):
         flops = 14 * m * w * w + 12 * pairs
         nbytes = e * (7 * m * w + 4 * w * w + 4 * w + ((m * w + 2 * w) if ln else 0))
         nbytes += 8 * w if ln else 0
-    return bound(flops, nbytes, dtype_name)
+    return bound(kernel, flops, nbytes, dtype_name)
 
 
 def fused_bound(kernel: str, b, s, heads, d, causal, dtype_name: str):
@@ -256,8 +267,8 @@ def fused_bound(kernel: str, b, s, heads, d, causal, dtype_name: str):
     e = 4 if dtype_name == "float32" else 2
     pairs = b * heads * attention_pairs(s, causal) * d
     if kernel.endswith("fwd"):
-        return bound(4 * pairs, e * 4 * b * s * heads * d, dtype_name)
-    return bound(10 * pairs, e * 7 * b * s * heads * d, dtype_name)
+        return bound(kernel, 4 * pairs, e * 4 * b * s * heads * d, dtype_name)
+    return bound(kernel, 10 * pairs, e * 7 * b * s * heads * d, dtype_name)
 
 
 def flash_flops(kernel: str, b, sq, sk, heads, d, causal) -> float:
@@ -273,23 +284,22 @@ def flash_flops(kernel: str, b, sq, sk, heads, d, causal) -> float:
 
 def flash_bound(kernel: str, b, sq, sk, heads, d, causal, dtype_name: str):
     """(ms, what bounds it, FLOPs). Bytes: q, k, v and do or out-sized tensors once each,
-    lse and delta in float32. The float32 backward pair's operations run at the 3xTF32
-    ceiling, the arithmetic it does."""
+    lse and delta in float32. The float32 trio's operations run at the 3xTF32 ceiling, the
+    arithmetic it does."""
     e = 4 if dtype_name == "float32" else 2
-    tf32 = dtype_name == "float32" and not kernel.endswith("fwd")
     flops = flash_flops(kernel, b, sq, sk, heads, d, causal)
     q_size, k_size, rows = b * sq * heads * d, b * sk * heads * d, 4 * b * heads * sq
     nbytes = {"fwd": e * (2 * q_size + 2 * k_size) + rows,
               "dq": e * (3 * q_size + 2 * k_size) + 2 * rows,
               "dkv": e * (2 * q_size + 4 * k_size) + 2 * rows}[kernel.rsplit("_", 1)[1]]
-    return (*bound(flops, nbytes, dtype_name, PEAK_3XTF32 if tf32 else None), flops)
+    return bound(kernel, flops, nbytes, dtype_name)
 
 
 def rate_note(kernel: str, dtype_name: str, ms: float, b_ms: float, flops: float) -> str:
-    """A timed flash line's rate: TFLOP/s, the share of its bound reached, and for the
-    float32 backward pair (bound at the 3xTF32 ceiling) the CUDA cores' bound too."""
+    """A timed line's rate: TFLOP/s, the share of its bound reached, and for a float32 kernel
+    bound at the 3xTF32 ceiling the CUDA cores' bound too."""
     note = f" tflops={flops / ms / 1e9:.1f} of_bound={100 * b_ms / ms:.1f}%"
-    if dtype_name == "float32" and not kernel.endswith("fwd"):
+    if peak_of(kernel, dtype_name) == PEAK_3XTF32:
         b_cc = 1e3 * flops / PEAK_FLOPS["float32"]
         note += f" bound_cuda_cores_ms={b_cc:.4f} of_cuda_core_bound={100 * b_cc / ms:.1f}%"
     return note
@@ -301,10 +311,10 @@ def mlp_bound(kernel: str, t, w, hid, dtype_name: str):
     and both weight gradients, and the four vector sums in float32."""
     e = 4 if dtype_name == "float32" else 2
     if kernel.endswith("fwd"):
-        return bound(4 * t * w * hid, e * (2 * t * w + t * hid + 2 * w * hid + hid + 3 * w),
-                     dtype_name)
+        return bound(kernel, 4 * t * w * hid,
+                     e * (2 * t * w + t * hid + 2 * w * hid + hid + 3 * w), dtype_name)
     nbytes = e * (3 * t * w + t * hid + 4 * w * hid + 2 * w) + 4 * (hid + 3 * w)
-    return bound(8 * t * w * hid, nbytes, dtype_name)
+    return bound(kernel, 8 * t * w * hid, nbytes, dtype_name)
 
 
 def kernel_cases(torch, ba, fa, bm, fl, dtype):
@@ -485,7 +495,7 @@ def phase_kernels(torch, ba, fa, bm, fl) -> dict:
     for dtype, rel_tol, lib_tol in ((torch.float32, 1e-4, 1e-3), (torch.bfloat16, 2e-2, 5e-2)):
         name = str(dtype).replace("torch.", "")
         for (kernel, case, shape, timed, kern, plain, library, others, outputs,
-             (b_ms, b_by, *flops)) in kernel_cases(torch, ba, fa, bm, fl, dtype):
+             (b_ms, b_by, flops)) in kernel_cases(torch, ba, fa, bm, fl, dtype):
             got, want = kern(), plain()
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
@@ -506,9 +516,10 @@ def phase_kernels(torch, ba, fa, bm, fl) -> dict:
                 lib_ok = lib_err <= lib_tol * errs[0][1]
                 ok = ok and lib_ok
                 line += f" library_err={lib_err:.2e}{'' if lib_ok else ' LIBRARY MISMATCH'}"
-            if timed and kernel.startswith(("fused_attention", "flash_attention_d")):
+            if kernel.startswith(("block_attention_bwd", "block_attention_ln_bwd")) or (
+                    timed and kernel.startswith(("fused_attention", "flash_attention"))):
                 # no float atomics, one owner and a fixed order for every sum: a second launch
-                # gives the same bits
+                # gives the same bits, every output
                 again = kern()
                 again = again if isinstance(again, tuple) else (again,)
                 same = all(torch.equal(a, b) for a, b in zip(again, got))
@@ -528,8 +539,7 @@ def phase_kernels(torch, ba, fa, bm, fl) -> dict:
                     "bound_ms": b_ms, "bound_by": b_by}
                 line += (f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} "
                          f"({b_by})" + "".join(f" {k}={v:.4f}" for k, v in other_ms.items()))
-                if flops:
-                    line += rate_note(kernel, name, k_ms, b_ms, flops[0])
+                line += rate_note(kernel, name, k_ms, b_ms, flops)
             print(line, flush=True)
             if not ok:
                 failures.append(line)
@@ -539,6 +549,28 @@ def phase_kernels(torch, ba, fa, bm, fl) -> dict:
     if failures:
         fail(f"{len(failures)} kernel/plain mismatches")
     return {"worst_f32": worst_f32, "timing": timing}
+
+
+def flash_long_error(torch, fl) -> float:
+    """The float32 flash forward at S=8192 (B=1, H=8, D=64, causal), four times the longest
+    shipped text context, where its sums run longest: out and lse against the plain version,
+    each within 1e-4 x max|plain|. Returns the larger absolute error."""
+    g = torch.Generator(device="cuda").manual_seed(8192)
+    q, k, v = (torch.randn(1, 8192, 8, 64, generator=g, device="cuda") for _ in range(3))
+    got = fl.flash_attention_fwd(q, k, v, causal=True)
+    want = fl.flash_attention_reference(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    errs = [((a - r).abs().max().item(), r.abs().max().item()) for a, r in zip(got, want)]
+    ok = all(e <= 1e-4 * m for e, m in errs) and all(bool(torch.isfinite(a).all()) for a in got)
+    print(f"flash_attention_fwd flash-S8192 B=1 Sq=8192 Sk=8192 H=8 D=64 causal=True float32 "
+          "max_abs_err/max|plain| " + " ".join(f"{o}={e:.2e}/{m:.2e}" for o, (e, m) in
+                                               zip(("out", "lse"), errs))
+          + f" (tol 1e-4 x max|plain|) {'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        fail("the float32 flash forward breaks its limit at S=8192")
+    del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return max(e for e, _ in errs)
 
 
 def flash_crossover(torch, attention, card):
@@ -576,13 +608,19 @@ def flash_crossover(torch, attention, card):
 def kernel_label(mangled: str) -> str:
     """A kernel's name with its template arguments, from its mangled name: mangled as they
     stand (Li64E is 64, Lb1E true, f float, 13__nv_bfloat16 bfloat16) except the flash
-    backward's operand structs, written out (flash_dq_kernel<Tf32Ops<64>>)."""
+    kernels' operand structs and the projection GEMM's types and form, written out
+    (flash_dq_kernel<Tf32Ops<64>>, mma_gemm_kernel<bfloat16, float, NT>)."""
     found = re.search(r"_cu_[0-9a-f]{8}\d+([a-z][a-z_0-9]*_kernel)(I\w+?E)?Ev", mangled)
     if not found:
         return mangled.split()[-1]
     ops = re.fullmatch(r"INS_\d+(\w+Ops)ILi(\d+)EE+", found.group(2) or "")
     if ops:
         return f"{found.group(1)}<{ops.group(1)}<{ops.group(2)}>>"
+    gemm = re.fullmatch(r"I(13__nv_bfloat16|f)(13__nv_bfloat16|f)Lb([01])EE+", found.group(2) or "")
+    if gemm:
+        name = lambda t: "float" if t == "f" else "bfloat16"  # noqa: E731
+        form = "NN" if gemm.group(3) == "1" else "NT"
+        return f"{found.group(1)}<{name(gemm.group(1))}, {name(gemm.group(2))}, {form}>"
     return found.group(1) + (found.group(2) or "")
 
 
@@ -628,14 +666,15 @@ def sass_report(sass: str) -> str:
     return f"{kernels} *_mma_kernel functions in the SASS: {counts}"
 
 
-def flash_hmma_report(sass: str) -> list[str]:
-    """Per flash-attention kernel in the SASS (each instantiation: dtype and head dim), its
-    tensor-core instructions by form (HMMA.16816.F32.BF16 is mma.sync m16n8k16 on bf16,
-    HMMA.1688.F32.TF32 m16n8k8 on TF32), or that it has none."""
+def hmma_report(sass: str) -> list[str]:
+    """Per flash-attention kernel and projection GEMM in the SASS (each instantiation: dtype
+    and head dim, or types and form), its tensor-core instructions by form
+    (HMMA.16816.F32.BF16 is mma.sync m16n8k16 on bf16, HMMA.1688.F32.TF32 m16n8k8 on TF32),
+    or that it has none."""
     kernels, name = {}, None
     for ln in sass.splitlines():
         if "Function :" in ln:
-            name = kernel_label(ln) if "flash_" in ln else None
+            name = kernel_label(ln) if ("flash_" in ln or "mma_gemm_kernel" in ln) else None
             if name:
                 kernels.setdefault(name, {})
         elif name:
@@ -1033,11 +1072,14 @@ def main() -> int:
         print("  sass: cuobjdump not found beside nvcc, SASS not read", flush=True)
     else:
         print(f"  sass {sass_report(sass)}")
-        for ln in flash_hmma_report(sass):
+        for ln in hmma_report(sass):
             print(f"  sass {ln}", flush=True)
 
     print("phase 3 kernel vs plain on the card", flush=True)
     kernels = phase_kernels(torch, ba, fa, bm, fl)
+    err = flash_long_error(torch, fl)
+    kernels["worst_f32"]["flash_attention_fwd"] = max(kernels["worst_f32"]["flash_attention_fwd"],
+                                                      err)
     flash_crossover(torch, attention.attention, card)
 
     print("phase 4 serving, phase 5 throughput", flush=True)

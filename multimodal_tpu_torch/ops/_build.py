@@ -28,7 +28,7 @@ SOURCES = tuple(os.path.join(_HERE, "csrc", name) for name in (
     "flash_attention.cu"))
 HEADERS = tuple(os.path.join(_HERE, "csrc", name) for name in (
     "block_attention_common.cuh", "attention_passes.cuh", "mma_tiles.cuh", "register_tiles.cuh",
-    "tf32_tiles.cuh"))
+    "tf32_tiles.cuh", "mma_gemm.cuh"))
 BUILD_DIR = os.path.join(_HERE, "_build_cache")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -57,9 +57,8 @@
 //     wgmma: a head's problem is small, the same passes serve S=50 and S=77, and warp-level
 //     fragments are what lets p skip shared memory.
 //   * float32 (the *_f32_kernel family): 64 x 64 tiles, 256 threads, a 4x4 logits tile and a
-//     4 x D/16 accumulator tile a thread, float4 shared-memory loads (register_tiles.cuh, the
-//     design of flash_attention.cu). True float32 throughout; delta = rowsum(do * out) from
-//     the online sweep in both forms.
+//     4 x D/16 accumulator tile a thread, float4 shared-memory loads (register_tiles.cuh).
+//     True float32 throughout; delta = rowsum(do * out) from the online sweep in both forms.
 //   * Ragged shapes are masked in the loads (zero rows, zero columns from d to the next
 //     multiple of 16) and in the logits (the finite -1e30 sentinel, col <= row under the
 //     causal mask, so a fully masked tile contributes exactly 0); n-tiles, column groups and
@@ -527,7 +526,7 @@ attn_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
 
 // =============================================================================== float32
 // kDC: accumulator columns a thread owns (4 up to D=64, 8 up to D=128). The same two sweeps as
-// in bfloat16: the forward is flash_attention.cu's online forward, normalised at the end; the
+// in bfloat16: the forward is one online sweep, normalised at the end; the
 // dQ pass runs it first, takes delta = rowsum(do * out) from it (equal to rowsum(dp * p) up to
 // the order of the sums) and attnpre = out, then forms ds and dq. A warp whose eight rows all
 // lie past the tile's last row does no arithmetic, and a ragged last key tile forms only its
@@ -630,7 +629,7 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ kmat
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < kDC; ++j) acc[i][j] = acc[i][j] / l[i];
-  if (active) store_rows<float, kDC>(out + base + (size_t)r0 * w, w, rows, d, ty, tx, acc);
+  if (active) store_rows<kDC>(out + base + (size_t)r0 * w, w, rows, d, ty, tx, acc);
 }
 
 // ----------------------------------------------------------------------------- dQ pass
@@ -691,7 +690,7 @@ attn_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ km
       l[i] = 1.f / l[i];
     }
     if (!kExactProbs)
-      store_rows<float, kDC>(attnpre + base + (size_t)r0 * w, w, rows, d, ty, tx, acc);
+      store_rows<kDC>(attnpre + base + (size_t)r0 * w, w, rows, d, ty, tx, acc);
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -725,7 +724,7 @@ attn_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ km
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < kDC; ++j) acc[i][j] = __fmul_rn(acc[i][j], scale);
-  if (active) store_rows<float, kDC>(dq + base + (size_t)r0 * w, w, rows, d, ty, tx, acc);
+  if (active) store_rows<kDC>(dq + base + (size_t)r0 * w, w, rows, d, ty, tx, acc);
 }
 
 // ----------------------------------------------------------------------------- dK/dV pass
@@ -807,8 +806,8 @@ attn_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < kDC; ++j) acc_k[i][j] = __fmul_rn(acc_k[i][j], scale);
-  store_rows<float, kDC>(dk + base + (size_t)j0 * w, w, keys, d, ty, tx, acc_k);
-  store_rows<float, kDC>(dv + base + (size_t)j0 * w, w, keys, d, ty, tx, acc_v);
+  store_rows<kDC>(dk + base + (size_t)j0 * w, w, keys, d, ty, tx, acc_k);
+  store_rows<kDC>(dv + base + (size_t)j0 * w, w, keys, d, ty, tx, acc_v);
 }
 
 // =============================================================================== launches

@@ -7,8 +7,8 @@
 // with D <= 128. For x and dy [B,S,W] and the four [W,W] weights in the JAX [in,out] layout
 // it computes
 //
-//   q,k,v   = x @ Wq|Wk|Wv + b               as the forward (f32 accumulation, bias in f32,
-//                                             one rounding to T)
+//   q,k,v   = x @ Wq|Wk|Wv + b               recomputed: f32 accumulation, bias in f32, one
+//                                             rounding to T (the forward's function)
 //   do      = dy @ Wo^T                       f32 accumulation, rounded to T
 //   p       = softmax(q_h k_h^T / sqrt(D))    as the forward, rounded to T
 //   attnpre = p @ v_h                         rounded to T
@@ -18,13 +18,14 @@
 //   dq      = (ds @ k_h) * scale, dk = (ds^T @ q_h) * scale    scaled in f32, rounded to T
 //   dx      = [dq | dk | dv] @ [Wq; Wk; Wv]^T one f32 accumulator over K = 3W, rounded once
 //
-// in five launches: the forward's projection GEMM for q, k and v (gridDim.z = 3); a GEMM
-// with transposed weights for do; a dQ pass, one block per (64-row query tile, head, image),
-// that walks the key tiles in sweeps, writes attnpre and dq and saves three f32 numbers per
-// query row (the row max, the row sum of exp and rowsum(dp * p)); a dK/dV pass, one block per
-// (64-key tile, head, image), that streams the query rows once and rebuilds p and ds from the
-// saved row numbers; and the transposed-weight GEMM for dx. No [B,H,S,S] tensor reaches
-// device memory. The two passes are attention_passes.cuh's, in their kExactProbs = false form.
+// in five launches: the tensor-core GEMM of mma_gemm.cuh in its NN form for q, k and v
+// (gridDim.z = 3); the same GEMM in its NT form (transposed weights) for do; a dQ pass, one
+// block per (64-row query tile, head, image), that walks the key tiles in sweeps, writes
+// attnpre and dq and saves three f32 numbers per query row (the row max, the row sum of exp and
+// rowsum(dp * p)); a dK/dV pass, one block per (64-key tile, head, image), that streams the
+// query rows once and rebuilds p and ds from the saved row numbers; and the NT GEMM over three
+// segments for dx. No [B,H,S,S] tensor reaches device memory. The two passes are
+// attention_passes.cuh's, in their kExactProbs = false form.
 //
 // The LN form (mmt_block_attention_ln_bwd; x is the pre-LN residual stream) adds
 //
@@ -44,10 +45,11 @@
 // differs from run to run.
 //
 // What bounds it on the card: the five [B*S,W]x[W,W]-sized GEMM equivalents (q, k, v, do
-// and the K = 3W dx product) carry ~90% of the FLOPs at ViT-B/32 shapes, so like the
-// forward it is compute-bound on CUDA-core float FMAs in its GEMMs; the attention passes run
-// bfloat16 on the tensor cores and float32 on register tiles (attention_passes.cuh). The
-// design choices that matter:
+// and the K = 3W dx product) carry ~90% of the FLOPs at ViT-B/32 shapes, so it is bound by
+// operations, and its GEMMs run on the tensor cores (mma_gemm.cuh: bf16 mma.sync in
+// bfloat16, 3xTF32 in float32, which keeps float32 within 2^-20 of true float32 a product);
+// the attention passes run bfloat16 on the tensor cores and float32 on register tiles
+// (attention_passes.cuh). The design choices that matter:
 //   * dK and dV sum over every query row of an (image, head). Blocks run in parallel and
 //     carry nothing between them, and two f32 [S, D] accumulators at S=320, D=128 (320 KB)
 //     exceed a block's shared memory. So the sums run in a second pass, FlashAttention-2
@@ -56,84 +58,16 @@
 //     the same way, so dq and dv see the same probabilities up to the order of a product's sum.
 //   * The TPU kernel's image groups (_images_per_program) and its stacked [H*S, S] buffers
 //     exist for VMEM and have no counterpart here.
-// The projection products are float FMAs on the CUDA cores (bf16 operands are widened in
-// shared memory), so float32 is true float32. Tensor-core GEMMs and fewer launches are later
-// work.
+//   * The recomputed q, k and v do not share bits with the forward's, whose projection GEMM
+//     (gemm_bias_kernel, block_attention_common.cuh) still sums on the CUDA cores in another
+//     order: the TPU kernel too recomputes them in its own body, and the on-card limits (1e-4
+//     and 2e-2 x max|plain|) hold the outputs, not the intermediates.
+// Fewer launches are later work.
 
 #include "attention_passes.cuh"
+#include "mma_gemm.cuh"
 
 namespace {
-
-// ----------------------------------------------------------------------------- GEMM, W^T
-// C[M,N] = sum_{z < nseg} A_z[M,kseg] @ W_z[N,kseg]^T with one f32 accumulator and one
-// rounding to TOut (none when TOut is float: the LN form keeps this product in f32), no
-// bias. A_z row-major; W_z row-major [N, kseg], i.e. a [W_in, W_out] weight read as its
-// transpose. Requires N % 128 == 0 and kseg % 16 == 0; M is ragged and masked.
-struct NtOperands {
-  const void* a[3];
-  const void* w[3];
-};
-
-template <typename T, typename TOut>
-__global__ void __launch_bounds__(kGemmThreads)
-gemm_nt_kernel(NtOperands ops, TOut* __restrict__ c, int m, int n, int kseg, int nseg) {
-  __shared__ float as[kBK][kBM];  // A tile, transposed: as[kk][row]
-  __shared__ float bs[kBK][kBN];  // W tile, transposed: bs[kk][col]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int z = 0; z < nseg; ++z) {
-    const T* __restrict__ a = static_cast<const T*>(ops.a[z]);
-    const T* __restrict__ wt = static_cast<const T*>(ops.w[z]);
-    for (int k0 = 0; k0 < kseg; k0 += kBK) {
-      // A: 128 rows x 16 cols, W: 128 rows (output columns) x 16 cols; two groups of 4 each
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int e = tid + h * kGemmThreads;  // 0..511
-        const int row = e / 4, col = (e % 4) * 4;
-        float v[4] = {0.f, 0.f, 0.f, 0.f};
-        if (m0 + row < m) load4(a + (size_t)(m0 + row) * kseg + k0 + col, v);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) as[col + i][row] = v[i];
-        float u[4];
-        load4(wt + (size_t)(n0 + row) * kseg + k0 + col, u);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) bs[col + i][row] = u[i];
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kBK; ++kk) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&as[kk][64 + ty * 4]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&bs[kk][tx * 4]);
-        const float4 b1 = *reinterpret_cast<const float4*>(&bs[kk][64 + tx * 4]);
-        const float ar[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float br[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4));
-    if (row >= m) continue;
-    store4(c + (size_t)row * n + n0 + tx * 4, acc[i]);
-    store4(c + (size_t)row * n + n0 + 64 + tx * 4, acc[i] + 4);
-  }
-}
 
 // ----------------------------------------------------------------------------- LN form
 // ln_out = LN(x) in T, elementwise over groups of four columns.
@@ -179,7 +113,6 @@ cudaError_t launch_bwd(const void* x, const void* dy, const void* gamma, const v
                        float eps, cudaStream_t stream) {
   const int m = b * s, d = w / heads;
   const size_t plane = (size_t)m * w;
-  const dim3 gemm_grid(w / kBN, (m + kBM - 1) / kBM, 1);
   cudaError_t err;
 
   // LN form: recompute the statistics and write ln_out, the input of everything below
@@ -199,20 +132,26 @@ cudaError_t launch_bwd(const void* x, const void* dy, const void* gamma, const v
     xin = static_cast<const T*>(buf.ln_out);
   }
 
-  // q, k, v recomputed exactly as the forward computed them
-  GemmOperands qkv_ops = qkv_operands<T>(wts, biases, buf.qkv, plane);
-  gemm_bias_kernel<T, false><<<dim3(gemm_grid.x, gemm_grid.y, 3), kGemmThreads, 0, stream>>>(
-      xin, qkv_ops, m, w, w);
-  err = cudaGetLastError();
+  // q, k, v recomputed as the forward computes them (x @ W + b, f32 sums, one rounding), three
+  // weight sets of one launch
+  MmaGemmArgs qkv = {};
+  qkv.a[0] = xin;
+  for (int z = 0; z < 3; ++z) {
+    qkv.b[z] = wts[z];
+    qkv.bias[z] = biases[z];
+    qkv.c[z] = static_cast<T*>(buf.qkv) + z * plane;
+  }
+  qkv.m = m, qkv.n = w, qkv.kseg = w, qkv.nseg = 1;
+  err = launch_mma_gemm<T, T, true>(qkv, 3, stream);
   if (err != cudaSuccess) return err;
 
   // do = dy @ Wo^T
-  NtOperands do_ops = {};
-  do_ops.a[0] = dy;
-  do_ops.w[0] = wts[3];
-  gemm_nt_kernel<T, T><<<gemm_grid, kGemmThreads, 0, stream>>>(
-      do_ops, static_cast<T*>(buf.dout), m, w, w, 1);
-  err = cudaGetLastError();
+  MmaGemmArgs dout = {};
+  dout.a[0] = dy;
+  dout.b[0] = wts[3];
+  dout.c[0] = buf.dout;
+  dout.m = m, dout.n = w, dout.kseg = w, dout.nseg = 1;
+  err = launch_mma_gemm<T, T, false>(dout, 1, stream);
   if (err != cudaSuccess) return err;
 
   const float scale = (float)std::pow((double)d, -0.5);  // as the forward's
@@ -224,19 +163,19 @@ cudaError_t launch_bwd(const void* x, const void* dy, const void* gamma, const v
   if (err != cudaSuccess) return err;
 
   // [dq | dk | dv] @ [Wq; Wk; Wv]^T, one accumulator over K = 3W: dx itself, or g in f32
-  NtOperands dx_ops;
+  MmaGemmArgs dx = {};
   const void* grads[3] = {buf.dq, buf.dk, buf.dv};
   for (int z = 0; z < 3; ++z) {
-    dx_ops.a[z] = grads[z];
-    dx_ops.w[z] = wts[z];
+    dx.a[z] = grads[z];
+    dx.b[z] = wts[z];
   }
+  dx.m = m, dx.n = w, dx.kseg = w, dx.nseg = 3;
   if (!ln) {
-    gemm_nt_kernel<T, T><<<gemm_grid, kGemmThreads, 0, stream>>>(
-        dx_ops, static_cast<T*>(buf.dx), m, w, w, 3);
-    return cudaGetLastError();
+    dx.c[0] = buf.dx;
+    return launch_mma_gemm<T, T, false>(dx, 1, stream);
   }
-  gemm_nt_kernel<T, float><<<gemm_grid, kGemmThreads, 0, stream>>>(dx_ops, buf.g32, m, w, w, 3);
-  err = cudaGetLastError();
+  dx.c[0] = buf.g32;
+  err = launch_mma_gemm<T, float, false>(dx, 1, stream);
   if (err != cudaSuccess) return err;
 
   ln_bwd_kernel<T, T><<<(m + kLnBwdRows - 1) / kLnBwdRows, kLnThreads, 0, stream>>>(

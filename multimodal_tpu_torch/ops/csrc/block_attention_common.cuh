@@ -58,6 +58,13 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
   *reinterpret_cast<uint2*>(p) = t;
 }
 
+// dynamic shared memory above the default 48 KB must be allowed per kernel before a launch
+template <typename Kernel>
+cudaError_t allow_smem(Kernel* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 // ----------------------------------------------------------------------------- LayerNorm
 // The reference's _ln_rows: mean and var = max(E[x^2] - mean^2, 0) in f32, inv = rsqrt(var +
 // eps) in f32; then mean and inv are cast to the compute dtype T and

@@ -32,16 +32,11 @@
 // axis (key tiles, or query tiles in the dK/dV kernel) is a loop inside the block. Every sum
 // has one owner thread and a fixed order: no atomics, two runs give the same bits.
 //
-// The forward: one block per (64-row query tile, head, batch), the latest (longest) query
-// tiles scheduled first, 64-row key and value tiles streamed through shared memory up to the
-// tile's causal bound, CUDA-core FMAs on the register tiles of register_tiles.cuh (each of
-// the 256 threads owns a 4x4 tile of the logits and a 4 x D/16 tile of the accumulator).
-//
-// The backward pair. What bounds it: 6 (dQ: logits, dp, ds k) and 8 (dK/dV: logits, dp, p^T
-// do, ds^T q) x pairs x D FLOPs over q, k, v, do-sized traffic: at S=2048 several hundred
-// FLOPs a byte, bound by operations in both dtypes, so both run their products on the tensor
-// cores with mma.sync (the passes' reasons against wgmma hold: a head's problem is small and
-// warp-level fragments let p and ds skip shared memory):
+// What bounds the three kernels: 4 (forward: logits, p v), 6 (dQ: logits, dp, ds k) and 8
+// (dK/dV: logits, dp, p^T do, ds^T q) x pairs x D FLOPs over q, k, v, do-sized traffic: at
+// S=2048 several hundred FLOPs a byte, bound by operations in both dtypes, so all three run
+// their products on the tensor cores with mma.sync (the passes' reasons against wgmma hold: a
+// head's problem is small and warp-level fragments let p and ds skip shared memory):
 //   * bfloat16: m16n8k16 on bf16 operands with f32 accumulation, the TPU kernel's own
 //     arithmetic, from the pieces of the attention passes (attention_passes.cuh,
 //     mma_tiles.cuh).
@@ -55,16 +50,23 @@
 //     both, and the three products of a step run in rounds over independent accumulators.
 // One schedule serves both, through the operand struct (Bf16Ops, Tf32Ops) that says how a
 // tile loads, how the products run and what stays in registers:
-//   * dQ: one block per (query tile, head, batch), four warps of 16 rows (bfloat16) or 32
-//     (float32 up to D=64), the longest causal tiles first; Q and dO stay resident (in
-//     bfloat16 as A fragments in registers); K and V stream in 32-row tiles through two
-//     shared-memory stages filled by 16-byte cp.async, so tile i + 1 loads while tile i
-//     multiplies; one sweep up to the tile's causal bound (and a warp's own bound below it).
-//     The logits and dp come out as C fragments, p = ex2(s log2(e) - lse log2(e)) is one FMA
-//     and one ex2, ds goes from C fragment to the A operand of ds @ K in registers (bfloat16:
-//     two neighbouring C fragments packed to bf16 pairs are an A fragment; float32: the
-//     contraction runs over the keys in a permuted order in which a C fragment is an A
-//     fragment as it stands, tf32_tiles.cuh).
+//   * forward: one block per (query tile, head, batch), four warps of 16 rows (bfloat16) or 32
+//     (float32 up to D=64), the longest causal tiles first; K and V stream in tiles of 64 keys
+//     (bfloat16) or 32 (float32) through two shared-memory stages filled by 16-byte cp.async, so
+//     tile i + 1 loads while tile i multiplies; one online-softmax sweep up to the tile's causal
+//     bound (and a warp's own bound below it): the logits come out as C fragments, the running max
+//     m, the row sum l of the unrounded p = exp(s - m) and the accumulator rescaled as m moves, and
+//     p goes from C fragment to the A operand of p @ V in registers (rounded to bf16 as it is
+//     packed in bfloat16; float32 contracts over the keys in the permuted order of tf32_tiles.cuh).
+//     The passes' forward core (attention_passes.cuh) is the same pattern for one sequence length
+//     and no lse; this one has separate Sq and Sk bounds and stores lse.
+//   * dQ: one block per (query tile, head, batch), warps and order as the forward; Q and dO
+//     stay resident (in bfloat16 as A fragments in registers); K and V stream in 32-row tiles,
+//     one sweep up to the tile's causal bound. The logits and dp come out as C
+//     fragments, p = ex2(s log2(e) - lse log2(e)) is one FMA and one ex2, ds goes from C
+//     fragment to the A operand of ds @ K in registers (bfloat16: two neighbouring C fragments
+//     packed to bf16 pairs are an A fragment; float32: the contraction runs over the keys in a
+//     permuted order in which a C fragment is an A fragment as it stands, tf32_tiles.cuh).
 //   * dK/dV: one block per (key tile, head, batch), warp w owning the keys of its m-tiles; the
 //     logits and dp are formed transposed (k q^T, v do^T), so p^T and ds^T come out as the A
 //     operands of p^T do and ds^T q; the query rows stream with their lse and delta, and under
@@ -73,8 +75,10 @@
 //     bounds on the query and the key side. Head dims are multiples of 8 up to 128: the tiles'
 //     row stride is set by the head dim rounded up to 64 or 128, and bfloat16's k-steps of 16
 //     read zeros, filled by cp.async with a source size of 0, from d to the next multiple.
-// The tile shape (four warps a block, 32-row streamed tiles) was measured at B=8 S=2048
-// against 64-row streamed tiles and blocks of eight warps (PERF.md; those builds are not kept).
+// The tile shapes were measured at B=8 S=2048 (PERF.md; those builds are not kept): the
+// backward pair's four warps and 32-row streamed tiles against 64-row tiles and eight warps;
+// the forward's 64 keys in bfloat16, 13% faster than 32, where float32 keeps 32 (64: 2%
+// slower) and eight warps gain at most 3%.
 
 #include "attention_passes.cuh"
 #include "tf32_tiles.cuh"
@@ -86,98 +90,17 @@ __device__ __forceinline__ size_t head_base(int batch, int s, int heads, int hea
   return ((size_t)batch * s * heads + head) * d;
 }
 
-// ----------------------------------------------------------------------------- forward
-template <typename T, int kDC>
-__global__ void __launch_bounds__(kTileThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ out, float* __restrict__ lse, int sq, int sk, int d,
-                 float scale, int causal) {
-  extern __shared__ __align__(16) float smem[];
-  const int ld = d + 4;
-  float* qs = smem;              // [kTile][ld]
-  float* ks = qs + kTile * ld;   // [kTile][ld]
-  float* vs = ks + kTile * ld;   // [kTile][ld]
-  float* ps = vs + kTile * ld;   // [kTile][kPLd] probabilities rounded to T
+// ----------------------------------------------------------------------------- the trio
+constexpr int kFlashKT = 32;    // rows of the backward's streamed tiles (forward: Ops::kFwdKT)
+constexpr int kFlashWarps = 4;  // warps of a block
+constexpr int kFlashThreads = 32 * kFlashWarps;
 
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int r0 = (gridDim.x - 1 - blockIdx.x) * kTile;  // the longest causal tiles first
-  const int head = blockIdx.y, batch = blockIdx.z, heads = gridDim.y;
-  const size_t stride = (size_t)heads * d;
-  const size_t qbase = head_base(batch, sq, heads, head, d);
-  const size_t kbase = head_base(batch, sk, heads, head, d);
-  const int rows = min(kTile, sq - r0);
-  // top-left causal mask: no row of this tile sees a key past its last row
-  const int kmax = causal ? min(sk, r0 + rows) : sk;
-
-  load_tile(qs, q + qbase + (size_t)r0 * stride, stride, rows, d, ld);
-
-  float m[4], l[4], acc[4][kDC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kDC; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int c0 = 0; c0 < kmax; c0 += kTile) {
-    __syncthreads();  // the last tile's reads of ks, vs and ps are done
-    load_tile(ks, k + kbase + (size_t)c0 * stride, stride, sk - c0, d, ld);
-    load_tile(vs, v + kbase + (size_t)c0 * stride, stride, sk - c0, d, ld);
-    __syncthreads();
-    float s[4][4];
-    tile_dot(qs, ks, d, ld, ty, tx, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = r0 + ty * 4 + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = c0 + tx + 16 * j;
-        const bool live = col < sk && (!causal || col <= row);
-        s[i][j] = live ? __fmul_rn(s[i][j], scale) : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float alpha = expf(__fsub_rn(m[i], m_new));
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(__fsub_rn(s[i][j], m_new));
-        sum += p;
-        ps[(ty * 4 + i) * kPLd + tx + 16 * j] = round_to<T>(p);
-      }
-      l[i] = fmaf(l[i], alpha, row_sum(sum));
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < kDC; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-    tile_accumulate<kDC>(ps, vs, d, ld, ty, tx, acc);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = r0 + ty * 4 + i;
-    const float safe_l = l[i] == 0.f ? 1.f : l[i];
-#pragma unroll
-    for (int j = 0; j < kDC; ++j) acc[i][j] = acc[i][j] / safe_l;
-    if (tx == 0 && row < sq) lse[((size_t)batch * heads + head) * sq + row] = m[i] + logf(safe_l);
-  }
-  store_rows<T, kDC>(out + qbase + (size_t)r0 * stride, stride, rows, d, ty, tx, acc);
-}
-
-// ----------------------------------------------------------------------------- backward
-constexpr int kBwdKT = 32;    // rows of a streamed tile
-constexpr int kBwdWarps = 4;  // warps of a block
-constexpr int kBwdThreads = 32 * kBwdWarps;
-
-// The operand structs. A warp owns kM m-tiles of 16 rows (query rows in the dQ kernel, keys in
-// the dK/dV kernel) and forms a step's two head products, x @ bx^T and y @ by^T over the head
-// dim for its rows of the resident tiles x and y (q and do, or k and v) against a streamed tile
-// each, interleaved k-step by k-step so that independent chains of accumulations are in
-// flight; and the second product, acc += c @ tile over the streamed tile's rows, from the C
-// fragments of the first.
+// The operand structs. A warp owns kM m-tiles of 16 rows (query rows in the forward and dQ
+// kernels, keys in the dK/dV kernel) and forms a step's head products over the head dim for its
+// rows of the resident tiles against a streamed tile: in the backward two, x @ bx^T and y @ by^T
+// (q and do, or k and v), interleaved k-step by k-step so that independent chains of
+// accumulations are in flight, in the forward one (q); and the second product, acc += c @ tile
+// over the streamed tile's rows, from the C fragments of the first.
 //
 // bfloat16: m16n8k16 products on bf16 tiles, the attention passes' helpers, one m-tile a warp.
 // In the dQ kernel the warp's q and do A fragments stay in registers for the whole block up to
@@ -190,6 +113,7 @@ struct Bf16Ops {
   using T = __nv_bfloat16;
   static constexpr int kDP = kDP_, kLd = kDP + 8, kM = 1;
   static constexpr int kMinBlocks = kDP <= 64 ? 4 : 3;
+  static constexpr int kFwdKT = 64;  // keys of the forward's streamed tiles
   static constexpr bool kHold = kDP <= 64;
   using Frags = uint32_t[kDP / 16][4];
 
@@ -216,6 +140,12 @@ struct Bf16Ops {
         mma_rows<kNT>(ax[0], fx[kk], bx, kLd, kk * 16, live, lane);
         mma_rows<kNT>(ay[0], fy[kk], by, kLd, kk * 16, live, lane);
       }
+  }
+  // the forward's one head product, x @ bx^T, from held fragments
+  template <int kNT>
+  static __device__ __forceinline__ void product_held(float (&ax)[1][kNT][4], const Frags& fx,
+                                                      const T* bx, int d, int live, int lane) {
+    head_product<kDP, kNT>(ax[0], fx, bx, d16(d), live, lane);
   }
   // the head products with the A fragments read from x and y at each k-step
   template <int kNT>
@@ -254,12 +184,32 @@ struct Tf32Ops {
   using T = float;
   static constexpr int kDP = kDP_, kLd = kDP + 4, kM = kDP <= 64 ? 2 : 1;
   static constexpr int kMinBlocks = kDP <= 64 ? 2 : 1;
+  static constexpr int kFwdKT = 32;
   static constexpr bool kHold = false;
   struct Frags {};  // nothing is held
 
   static __device__ __forceinline__ void load(T* dst, const T* src, size_t stride, int nrows,
                                               int live_rows, int d) {
     load_tile_async_f32<kDP>(dst, src, stride, nrows, live_rows, d);
+  }
+  // the forward's one head product, x @ bx^T, its A fragments read and split at each k-step
+  template <int kNT>
+  static __device__ __forceinline__ void product(float (&ax)[kM][kNT][4], const T* x, int row0,
+                                                 const T* bx, int d, int live, int lane) {
+#pragma unroll
+    for (int m = 0; m < kM; ++m) zero_acc(ax[m]);
+#pragma unroll
+    for (int kk = 0; kk < kDP / 8; ++kk)
+      if (kk * 8 < d) {
+        uint32_t big[kM][4], small[kM][4];
+#pragma unroll
+        for (int m = 0; m < kM; ++m) {
+          uint32_t a[4];
+          load_a_f32(a, x, kLd, row0 + 16 * m, kk * 8, lane);
+          split_frag(a, big[m], small[m]);
+        }
+        mma_rows_3xtf32<kM, kNT>(ax, big, small, bx, kLd, kk * 8, live, lane);
+      }
   }
   template <int kNT>
   static __device__ __forceinline__ void products(float (&ax)[kM][kNT][4],
@@ -299,25 +249,26 @@ struct Tf32Ops {
   }
 };
 
-// ----------------------------------------------------------------------------- dQ
-// One block per tile of 16 kM kBwdWarps query rows (64 in bfloat16, 128 in float32 up to
-// D=64), head and batch; one sweep over the key tiles below the tile's causal bound. The lane's
-// query rows are 16m + g and 16m + g + 8 of its warp's.
+// ----------------------------------------------------------------------------- forward
+// One block per tile of 16 kM kFlashWarps query rows (64 in bfloat16, 128 in float32 up to
+// D=64), head and batch, the longest causal tiles first; one online-softmax sweep over the key
+// tiles (Ops::kFwdKT keys) below the tile's causal bound (and a warp's own bound below it),
+// tile i + 1 loading while tile i multiplies. The lane's query rows are 16m + g and 16m + g + 8
+// of its warp's. bfloat16 holds the warp's q fragments for the whole sweep (16 registers up to
+// D=64, 32 above); float32 reads and splits them at each k-step, as the backward kernels do.
 template <class Ops>
-__global__ void __launch_bounds__(kBwdThreads, Ops::kMinBlocks)
-flash_dq_kernel(const typename Ops::T* __restrict__ q, const typename Ops::T* __restrict__ k,
-                const typename Ops::T* __restrict__ v, const typename Ops::T* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                typename Ops::T* __restrict__ dq, int sq, int sk, int d, float scale,
-                int causal) {
+__global__ void __launch_bounds__(kFlashThreads, Ops::kMinBlocks)
+flash_fwd_kernel(const typename Ops::T* __restrict__ q, const typename Ops::T* __restrict__ k,
+                 const typename Ops::T* __restrict__ v, typename Ops::T* __restrict__ out,
+                 float* __restrict__ lse, int sq, int sk, int d, float scale, int causal) {
   using T = typename Ops::T;
-  constexpr int kM = Ops::kM, kWarpRows = 16 * kM, kRows = kWarpRows * kBwdWarps;
-  constexpr int kLd = Ops::kLd, kNT = kBwdKT / 8, kDN = Ops::kDP / 8;
+  constexpr int kM = Ops::kM, kWarpRows = 16 * kM, kRows = kWarpRows * kFlashWarps;
+  constexpr int kLd = Ops::kLd, kKT = Ops::kFwdKT, kNT = kKT / 8, kDN = Ops::kDP / 8;
+  constexpr bool kHold = std::is_same_v<T, __nv_bfloat16>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);  // [kRows][kLd]
-  T* dos = qs + kRows * kLd;               // [kRows][kLd]
-  T* ks = dos + kRows * kLd;               // [2][kBwdKT][kLd]
-  T* vs = ks + 2 * kBwdKT * kLd;           // [2][kBwdKT][kLd]
+  T* ks = qs + kRows * kLd;                // [2][kKT][kLd]
+  T* vs = ks + 2 * kKT * kLd;              // [2][kKT][kLd]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // the longest causal tiles first
@@ -330,7 +281,107 @@ flash_dq_kernel(const typename Ops::T* __restrict__ q, const typename Ops::T* __
   // warp past the warp's
   const int kmax = causal ? min(sk, r0 + rows) : sk;
   const int wmax = wrow >= rows ? 0 : (causal ? min(kmax, r0 + wrow + kWarpRows) : kmax);
-  const int steps = (kmax + kBwdKT - 1) / kBwdKT;
+  const int steps = (kmax + kKT - 1) / kKT;
+
+  auto prefetch = [&](int step) {
+    const int c0 = step * kKT, stage = step & 1;
+    Ops::load(ks + stage * kKT * kLd, k + kbase + (size_t)c0 * stride, stride, kKT, sk - c0, d);
+    Ops::load(vs + stage * kKT * kLd, v + kbase + (size_t)c0 * stride, stride, kKT, sk - c0, d);
+    cp_async_commit();
+  };
+  Ops::load(qs, q + qbase, stride, kRows, rows, d);
+  prefetch(0);  // q rides the first group
+
+  typename Ops::Frags qf;  // held q fragments (bfloat16)
+  float m[kM][2], l[kM][2], acc[kM][kDN][4];
+#pragma unroll
+  for (int i = 0; i < kM; ++i) {
+    m[i][0] = m[i][1] = kNegInf;
+    l[i][0] = l[i][1] = 0.f;
+    zero_acc(acc[i]);
+  }
+  for (int step = 0; step < steps; ++step) {
+    if (step + 1 < steps) {
+      prefetch(step + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if constexpr (kHold) {
+      if (step == 0) Ops::hold(qf, qs, wrow, d, lane);
+    }
+    const int c0 = step * kKT, stage = step & 1;
+    const T* kt = ks + stage * kKT * kLd;
+    const T* vt = vs + stage * kKT * kLd;
+    const int live = min(kNT, (wmax - c0 + 7) / 8);  // n-tiles with a key this warp sees
+    if (live > 0) {
+      float sf[kM][kNT][4];
+      if constexpr (kHold)
+        Ops::product_held(sf, qf, kt, d, live, lane);
+      else
+        Ops::product(sf, qs, wrow, kt, d, live, lane);
+      const bool edge = edge_tile(c0, kKT, kmax, r0 + wrow, causal);
+#pragma unroll
+      for (int i = 0; i < kM; ++i) {
+        float alpha[2];
+        scale_logits<kNT>(sf[i], scale, edge, r0 + wrow + 16 * i + g, c0 + 2 * t, kmax, causal);
+        online_softmax<kNT>(sf[i], m[i], l[i], alpha);  // sf becomes the unrounded p
+        scale_acc(acc[i], alpha);
+      }
+      Ops::accumulate(acc, sf, vt, wmax - c0, d, lane);  // p rounded to T as it is packed
+    }
+    __syncthreads();  // this stage is free for the load of step + 2
+  }
+  // out = acc / l and lse = m + log(l), l == 0 guarded (no row of a live tile has l == 0:
+  // key 0 is live for every row)
+  float* lse_rows = lse + ((size_t)batch * heads + head) * sq + r0;
+#pragma unroll
+  for (int i = 0; i < kM; ++i) {
+    float inv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float sum = quad_sum(l[i][h]), safe_l = sum == 0.f ? 1.f : sum;
+      inv[h] = 1.f / safe_l;
+      const int row = wrow + 16 * i + g + 8 * h;
+      if (t == 0 && row < rows) lse_rows[row] = m[i][h] + logf(safe_l);
+    }
+    store_c<kDN>(out + qbase, stride, wrow + 16 * i, rows, d, inv, acc[i], lane);
+  }
+}
+
+// ----------------------------------------------------------------------------- dQ
+// One block per tile of 16 kM kFlashWarps query rows (64 in bfloat16, 128 in float32 up to
+// D=64), head and batch; one sweep over the key tiles below the tile's causal bound. The lane's
+// query rows are 16m + g and 16m + g + 8 of its warp's.
+template <class Ops>
+__global__ void __launch_bounds__(kFlashThreads, Ops::kMinBlocks)
+flash_dq_kernel(const typename Ops::T* __restrict__ q, const typename Ops::T* __restrict__ k,
+                const typename Ops::T* __restrict__ v, const typename Ops::T* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                typename Ops::T* __restrict__ dq, int sq, int sk, int d, float scale,
+                int causal) {
+  using T = typename Ops::T;
+  constexpr int kM = Ops::kM, kWarpRows = 16 * kM, kRows = kWarpRows * kFlashWarps;
+  constexpr int kLd = Ops::kLd, kNT = kFlashKT / 8, kDN = Ops::kDP / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);  // [kRows][kLd]
+  T* dos = qs + kRows * kLd;               // [kRows][kLd]
+  T* ks = dos + kRows * kLd;               // [2][kFlashKT][kLd]
+  T* vs = ks + 2 * kFlashKT * kLd;         // [2][kFlashKT][kLd]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // the longest causal tiles first
+  const int head = blockIdx.y, batch = blockIdx.z, heads = gridDim.y;
+  const size_t stride = (size_t)heads * d;
+  const size_t qbase = head_base(batch, sq, heads, head, d) + (size_t)r0 * stride;
+  const size_t kbase = head_base(batch, sk, heads, head, d);
+  const int rows = min(kRows, sq - r0), wrow = warp * kWarpRows;
+  // top-left causal mask: no row of this tile sees a key past its last row, no row of this
+  // warp past the warp's
+  const int kmax = causal ? min(sk, r0 + rows) : sk;
+  const int wmax = wrow >= rows ? 0 : (causal ? min(kmax, r0 + wrow + kWarpRows) : kmax);
+  const int steps = (kmax + kFlashKT - 1) / kFlashKT;
 
   // the lane's rows: lse in log2 units, and delta (0 for a row past sq: never stored)
   float off[kM][2], dl[kM][2];
@@ -345,11 +396,11 @@ flash_dq_kernel(const typename Ops::T* __restrict__ q, const typename Ops::T* __
     }
 
   auto prefetch = [&](int step) {
-    const int c0 = step * kBwdKT, stage = step & 1;
-    Ops::load(ks + stage * kBwdKT * kLd, k + kbase + (size_t)c0 * stride, stride, kBwdKT, sk - c0,
-              d);
-    Ops::load(vs + stage * kBwdKT * kLd, v + kbase + (size_t)c0 * stride, stride, kBwdKT, sk - c0,
-              d);
+    const int c0 = step * kFlashKT, stage = step & 1;
+    Ops::load(ks + stage * kFlashKT * kLd, k + kbase + (size_t)c0 * stride, stride, kFlashKT,
+              sk - c0, d);
+    Ops::load(vs + stage * kFlashKT * kLd, v + kbase + (size_t)c0 * stride, stride, kFlashKT,
+              sk - c0, d);
     cp_async_commit();
   };
   Ops::load(qs, q + qbase, stride, kRows, rows, d);
@@ -368,9 +419,9 @@ flash_dq_kernel(const typename Ops::T* __restrict__ q, const typename Ops::T* __
       cp_async_wait<0>();
     }
     __syncthreads();
-    const int c0 = step * kBwdKT, stage = step & 1;
-    const T* kt = ks + stage * kBwdKT * kLd;
-    const T* vt = vs + stage * kBwdKT * kLd;
+    const int c0 = step * kFlashKT, stage = step & 1;
+    const T* kt = ks + stage * kFlashKT * kLd;
+    const T* vt = vs + stage * kFlashKT * kLd;
     const int live = min(kNT, (wmax - c0 + 7) / 8);  // n-tiles with a key this warp sees
     if constexpr (Ops::kHold) {
       if (step == 0) {
@@ -384,7 +435,7 @@ flash_dq_kernel(const typename Ops::T* __restrict__ q, const typename Ops::T* __
         Ops::products_held(sf, dp, qf, dof, kt, vt, d, live, lane);
       else
         Ops::products(sf, dp, qs, dos, wrow, kt, vt, d, live, lane);
-      const bool edge = edge_tile(c0, kBwdKT, kmax, r0 + wrow, causal);
+      const bool edge = edge_tile(c0, kFlashKT, kmax, r0 + wrow, causal);
 #pragma unroll
       for (int m = 0; m < kM; ++m) {
         scale_logits<kNT>(sf[m], scale, edge, r0 + wrow + 16 * m + g, c0 + 2 * t, kmax, causal);
@@ -407,26 +458,26 @@ flash_dq_kernel(const typename Ops::T* __restrict__ q, const typename Ops::T* __
 }
 
 // ----------------------------------------------------------------------------- dK/dV
-// One block per tile of 16 kM kBwdWarps keys, head and batch; the query rows stream through in
-// kBwdKT-row tiles with their lse and delta. The logits are formed transposed (keys as rows),
+// One block per tile of 16 kM kFlashWarps keys, head and batch; the query rows stream through in
+// kFlashKT-row tiles with their lse and delta. The logits are formed transposed (keys as rows),
 // so the lane's keys are 16m + g and 16m + g + 8 of its warp's and its query rows 8n + 2t and
 // 8n + 2t + 1 of the tile.
 template <class Ops>
-__global__ void __launch_bounds__(kBwdThreads, Ops::kMinBlocks)
+__global__ void __launch_bounds__(kFlashThreads, Ops::kMinBlocks)
 flash_dkv_kernel(const typename Ops::T* __restrict__ q, const typename Ops::T* __restrict__ k,
                  const typename Ops::T* __restrict__ v, const typename Ops::T* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  typename Ops::T* __restrict__ dk, typename Ops::T* __restrict__ dv, int sq,
                  int sk, int d, float scale, int causal) {
   using T = typename Ops::T;
-  constexpr int kM = Ops::kM, kWarpRows = 16 * kM, kRows = kWarpRows * kBwdWarps;
-  constexpr int kLd = Ops::kLd, kNT = kBwdKT / 8, kDN = Ops::kDP / 8;
+  constexpr int kM = Ops::kM, kWarpRows = 16 * kM, kRows = kWarpRows * kFlashWarps;
+  constexpr int kLd = Ops::kLd, kNT = kFlashKT / 8, kDN = Ops::kDP / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ks = reinterpret_cast<T*>(smem_raw);                         // [kRows][kLd]
-  T* vs = ks + kRows * kLd;                                       // [kRows][kLd]
-  T* qs = vs + kRows * kLd;                                       // [2][kBwdKT][kLd]
-  T* dos = qs + 2 * kBwdKT * kLd;                                 // [2][kBwdKT][kLd]
-  float* rst = reinterpret_cast<float*>(dos + 2 * kBwdKT * kLd);  // [2][2][kBwdKT] lse, delta
+  T* ks = reinterpret_cast<T*>(smem_raw);                           // [kRows][kLd]
+  T* vs = ks + kRows * kLd;                                         // [kRows][kLd]
+  T* qs = vs + kRows * kLd;                                         // [2][kFlashKT][kLd]
+  T* dos = qs + 2 * kFlashKT * kLd;                                 // [2][kFlashKT][kLd]
+  float* rst = reinterpret_cast<float*>(dos + 2 * kFlashKT * kLd);  // [2][2][kFlashKT]: lse, delta
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int j0 = blockIdx.x * kRows;  // under the causal mask the first tiles are the longest
@@ -439,19 +490,19 @@ flash_dkv_kernel(const typename Ops::T* __restrict__ q, const typename Ops::T* _
   const int keys = min(kRows, sk - j0), wrow = warp * kWarpRows;
   // a query row before the tile's first key sees none of its keys (p = ds = 0 exactly)
   const int q_begin = causal ? j0 : 0;
-  const int steps = q_begin < sq ? (sq - q_begin + kBwdKT - 1) / kBwdKT : 0;
+  const int steps = q_begin < sq ? (sq - q_begin + kFlashKT - 1) / kFlashKT : 0;
 
   auto prefetch = [&](int step) {
-    const int q0 = q_begin + step * kBwdKT, stage = step & 1;
-    Ops::load(qs + stage * kBwdKT * kLd, q + qbase + (size_t)q0 * stride, stride, kBwdKT,
+    const int q0 = q_begin + step * kFlashKT, stage = step & 1;
+    Ops::load(qs + stage * kFlashKT * kLd, q + qbase + (size_t)q0 * stride, stride, kFlashKT,
               sq - q0, d);
-    Ops::load(dos + stage * kBwdKT * kLd, dout + qbase + (size_t)q0 * stride, stride, kBwdKT,
+    Ops::load(dos + stage * kFlashKT * kLd, dout + qbase + (size_t)q0 * stride, stride, kFlashKT,
               sq - q0, d);
-    for (int e = threadIdx.x; e < 2 * kBwdKT; e += kBwdThreads) {
-      const int which = e / kBwdKT, r = e % kBwdKT;
+    for (int e = threadIdx.x; e < 2 * kFlashKT; e += kFlashThreads) {
+      const int which = e / kFlashKT, r = e % kFlashKT;
       const float* src = which ? delta_h : lse_h;
       const bool live = q0 + r < sq;
-      cp_async4(rst + (stage * 2 + which) * kBwdKT + r, live ? src + q0 + r : src, live);
+      cp_async4(rst + (stage * 2 + which) * kFlashKT + r, live ? src + q0 + r : src, live);
     }
     cp_async_commit();
   };
@@ -473,22 +524,22 @@ flash_dkv_kernel(const typename Ops::T* __restrict__ q, const typename Ops::T* _
       cp_async_wait<0>();
     }
     __syncthreads();
-    const int q0 = q_begin + step * kBwdKT, stage = step & 1;
-    const T* qt = qs + stage * kBwdKT * kLd;
-    const T* dot = dos + stage * kBwdKT * kLd;
-    const float* rs = rst + stage * 2 * kBwdKT;
+    const int q0 = q_begin + step * kFlashKT, stage = step & 1;
+    const T* qt = qs + stage * kFlashKT * kLd;
+    const T* dot = dos + stage * kFlashKT * kLd;
+    const float* rs = rst + stage * 2 * kFlashKT;
     const int live = wrow >= keys ? 0 : min(kNT, (sq - q0 + 7) / 8);  // n-tiles with a row
     if (live > 0) {
       float pt[kM][kNT][4], dst[kM][kNT][4];  // k q^T then p^T; v do^T then ds^T
       Ops::products(pt, dst, ks, vs, wrow, qt, dot, d, live, lane);
       // an inner tile (every key and row live, no key past a row) skips the tests
-      const bool edge = q0 + kBwdKT > sq || j0 + wrow + kWarpRows > sk ||
+      const bool edge = q0 + kFlashKT > sq || j0 + wrow + kWarpRows > sk ||
                         (causal && j0 + wrow + kWarpRows - 1 > q0);
 #pragma unroll
       for (int n = 0; n < kNT; ++n) {
         const int c = 8 * n + 2 * t;  // this lane's two query rows of the tile: c, c + 1
         const float2 ls = *reinterpret_cast<const float2*>(rs + c);
-        const float2 dl = *reinterpret_cast<const float2*>(rs + kBwdKT + c);
+        const float2 dl = *reinterpret_cast<const float2*>(rs + kFlashKT + c);
         const float off[2] = {ls.x * kLog2e, ls.y * kLog2e}, dlt[2] = {dl.x, dl.y};
 #pragma unroll
         for (int m = 0; m < kM; ++m)
@@ -526,29 +577,35 @@ bool flash_shape_ok(int b, int sq, int sk, int heads, int d) {
 
 dim3 tiles(int s, int heads, int b, int rows) { return dim3((s + rows - 1) / rows, heads, b); }
 
-template <typename T, int kDC>
-cudaError_t flash_fwd(const void* q, const void* k, const void* v, void* out, float* lse, int b,
-                      int sq, int sk, int heads, int d, int causal, float scale,
-                      cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)3 * kTile * (d + 4) + kTile * kPLd);
-  cudaError_t err = allow_smem(flash_fwd_kernel<T, kDC>, smem);
-  if (err != cudaSuccess) return err;
-  flash_fwd_kernel<T, kDC><<<tiles(sq, heads, b, kTile), kTileThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), lse, sq, sk, d, scale, causal);
-  return cudaGetLastError();
-}
-
-// rows of the tile a backward block owns, and its shared memory: two resident tiles, two
-// stages of two streamed ones, and in the dK/dV kernel the streamed rows' lse and delta
+// rows of the tile a block owns (query rows, or keys in the dK/dV kernel); the shared memory
+// of the forward (a resident tile, two stages of two streamed ones) and of the backward (two
+// resident tiles, the streamed ones and, in the dK/dV kernel, the streamed rows' lse and delta)
 template <class Ops>
-constexpr int bwd_rows() {
-  return 16 * Ops::kM * kBwdWarps;
+constexpr int block_rows() {
+  return 16 * Ops::kM * kFlashWarps;
+}
+template <class Ops>
+constexpr size_t fwd_smem() {
+  return sizeof(typename Ops::T) * (size_t)(block_rows<Ops>() + 4 * Ops::kFwdKT) * Ops::kLd;
 }
 template <class Ops>
 constexpr size_t bwd_smem(bool dkv) {
-  return sizeof(typename Ops::T) * (size_t)(2 * bwd_rows<Ops>() + 4 * kBwdKT) * Ops::kLd +
-         (dkv ? sizeof(float) * 4 * kBwdKT : 0);
+  return sizeof(typename Ops::T) * (size_t)(2 * block_rows<Ops>() + 4 * kFlashKT) * Ops::kLd +
+         (dkv ? sizeof(float) * 4 * kFlashKT : 0);
+}
+
+template <class Ops>
+cudaError_t flash_fwd(const void* q, const void* k, const void* v, void* out, float* lse, int b,
+                      int sq, int sk, int heads, int d, int causal, float scale,
+                      cudaStream_t stream) {
+  using T = typename Ops::T;
+  constexpr size_t smem = fwd_smem<Ops>();
+  cudaError_t err = allow_smem(flash_fwd_kernel<Ops>, smem);
+  if (err != cudaSuccess) return err;
+  flash_fwd_kernel<Ops><<<tiles(sq, heads, b, block_rows<Ops>()), kFlashThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(out), lse, sq, sk, d, scale, causal);
+  return cudaGetLastError();
 }
 
 template <class Ops>
@@ -559,7 +616,7 @@ cudaError_t flash_dq(const void* q, const void* k, const void* v, const void* do
   constexpr size_t smem = bwd_smem<Ops>(false);
   cudaError_t err = allow_smem(flash_dq_kernel<Ops>, smem);
   if (err != cudaSuccess) return err;
-  flash_dq_kernel<Ops><<<tiles(sq, heads, b, bwd_rows<Ops>()), kBwdThreads, smem, stream>>>(
+  flash_dq_kernel<Ops><<<tiles(sq, heads, b, block_rows<Ops>()), kFlashThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), sq, sk, d, scale, causal);
   return cudaGetLastError();
@@ -573,32 +630,21 @@ cudaError_t flash_dkv(const void* q, const void* k, const void* v, const void* d
   constexpr size_t smem = bwd_smem<Ops>(true);
   cudaError_t err = allow_smem(flash_dkv_kernel<Ops>, smem);
   if (err != cudaSuccess) return err;
-  flash_dkv_kernel<Ops><<<tiles(sk, heads, b, bwd_rows<Ops>()), kBwdThreads, smem, stream>>>(
+  flash_dkv_kernel<Ops><<<tiles(sk, heads, b, block_rows<Ops>()), kFlashThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), sq, sk,
       d, scale, causal);
   return cudaGetLastError();
 }
 
-// the forward's instantiation for (dtype, d): 4 accumulator columns a thread up to D=64, 8
-// up to D=128
-#define MMT_FLASH_FWD_DISPATCH(fn, ...)                                      \
-  do {                                                                       \
-    if (dtype == 0 && d <= 64) return (int)fn<float, 4>(__VA_ARGS__);        \
-    if (dtype == 0) return (int)fn<float, 8>(__VA_ARGS__);                   \
-    if (dtype == 1 && d <= 64) return (int)fn<__nv_bfloat16, 4>(__VA_ARGS__); \
-    if (dtype == 1) return (int)fn<__nv_bfloat16, 8>(__VA_ARGS__);           \
-    return (int)cudaErrorInvalidValue;                                       \
-  } while (0)
-
-// the backward's: the operand struct of the dtype, head dim rounded up to 64 or 128
-#define MMT_FLASH_BWD_DISPATCH(fn, ...)                                       \
-  do {                                                                        \
-    if (dtype == 0 && d <= 64) return (int)fn<Tf32Ops<64>>(__VA_ARGS__);      \
-    if (dtype == 0) return (int)fn<Tf32Ops<128>>(__VA_ARGS__);                \
-    if (dtype == 1 && d <= 64) return (int)fn<Bf16Ops<64>>(__VA_ARGS__);      \
-    if (dtype == 1) return (int)fn<Bf16Ops<128>>(__VA_ARGS__);                \
-    return (int)cudaErrorInvalidValue;                                        \
+// the operand struct of the dtype, head dim rounded up to 64 or 128
+#define MMT_FLASH_DISPATCH(fn, ...)                                      \
+  do {                                                                   \
+    if (dtype == 0 && d <= 64) return (int)fn<Tf32Ops<64>>(__VA_ARGS__); \
+    if (dtype == 0) return (int)fn<Tf32Ops<128>>(__VA_ARGS__);           \
+    if (dtype == 1 && d <= 64) return (int)fn<Bf16Ops<64>>(__VA_ARGS__); \
+    if (dtype == 1) return (int)fn<Bf16Ops<128>>(__VA_ARGS__);           \
+    return (int)cudaErrorInvalidValue;                                   \
   } while (0)
 
 }  // namespace
@@ -607,15 +653,15 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. q, dout, out, dq: [B, Sq, heads, d]; k, v, dk, dv:
 // [B, Sk, heads, d]; lse, delta: float32 [B, heads, Sq]. All contiguous on one device, d a
-// multiple of 8 up to 128, every base pointer 16-byte aligned (the backward kernels load by
-// 16-byte cp.async). Each entry is one launch on `stream`, does not synchronise and returns a
+// multiple of 8 up to 128, every base pointer 16-byte aligned (the kernels load by 16-byte
+// cp.async). Each entry is one launch on `stream`, does not synchronise and returns a
 // cudaError_t.
 int mmt_flash_attention_fwd(int dtype, const void* q, const void* k, const void* v, void* out,
                             void* lse, int b, int sq, int sk, int heads, int d, int causal,
                             float sm_scale, void* stream) {
   if (!flash_shape_ok(b, sq, sk, heads, d)) return (int)cudaErrorInvalidValue;
-  MMT_FLASH_FWD_DISPATCH(flash_fwd, q, k, v, out, static_cast<float*>(lse), b, sq, sk, heads, d,
-                         causal, sm_scale, static_cast<cudaStream_t>(stream));
+  MMT_FLASH_DISPATCH(flash_fwd, q, k, v, out, static_cast<float*>(lse), b, sq, sk, heads, d,
+                     causal, sm_scale, static_cast<cudaStream_t>(stream));
 }
 
 int mmt_flash_attention_dq(int dtype, const void* q, const void* k, const void* v,
@@ -623,9 +669,9 @@ int mmt_flash_attention_dq(int dtype, const void* q, const void* k, const void* 
                            int sq, int sk, int heads, int d, int causal, float sm_scale,
                            void* stream) {
   if (!flash_shape_ok(b, sq, sk, heads, d)) return (int)cudaErrorInvalidValue;
-  MMT_FLASH_BWD_DISPATCH(flash_dq, q, k, v, dout, static_cast<const float*>(lse),
-                         static_cast<const float*>(delta), dq, b, sq, sk, heads, d, causal,
-                         sm_scale, static_cast<cudaStream_t>(stream));
+  MMT_FLASH_DISPATCH(flash_dq, q, k, v, dout, static_cast<const float*>(lse),
+                     static_cast<const float*>(delta), dq, b, sq, sk, heads, d, causal, sm_scale,
+                     static_cast<cudaStream_t>(stream));
 }
 
 int mmt_flash_attention_dkv(int dtype, const void* q, const void* k, const void* v,
@@ -633,9 +679,9 @@ int mmt_flash_attention_dkv(int dtype, const void* q, const void* k, const void*
                             void* dv, int b, int sq, int sk, int heads, int d, int causal,
                             float sm_scale, void* stream) {
   if (!flash_shape_ok(b, sq, sk, heads, d)) return (int)cudaErrorInvalidValue;
-  MMT_FLASH_BWD_DISPATCH(flash_dkv, q, k, v, dout, static_cast<const float*>(lse),
-                         static_cast<const float*>(delta), dk, dv, b, sq, sk, heads, d, causal,
-                         sm_scale, static_cast<cudaStream_t>(stream));
+  MMT_FLASH_DISPATCH(flash_dkv, q, k, v, dout, static_cast<const float*>(lse),
+                     static_cast<const float*>(delta), dk, dv, b, sq, sk, heads, d, causal,
+                     sm_scale, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

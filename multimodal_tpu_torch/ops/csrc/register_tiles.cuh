@@ -1,10 +1,9 @@
-// Register-tiled products on the CUDA cores, shared by the float32 attention passes
-// (attention_passes.cuh) and the flash-attention forward (flash_attention.cu). A block of 256
-// threads works on 64-row tiles held as floats in shared memory: thread (ty, tx) of a 16 x 16
-// grid owns a 4x4 tile of a [64][64] logits product (rows ty*4+i, columns tx+16*j) and a
-// 4 x D/16 tile of a [64][D] accumulator (rows ty*4+i, four neighbouring columns in every
-// group of 64), and reads its operands as float4, so one shared-memory load feeds 4 to 16
-// FMAs. Products are true float32: no tensor core, no TF32.
+// Register-tiled products on the CUDA cores of the float32 attention passes
+// (attention_passes.cuh). A block of 256 threads works on 64-row tiles held as floats in shared
+// memory: thread (ty, tx) of a 16 x 16 grid owns a 4x4 tile of a [64][64] logits product (rows
+// ty*4+i, columns tx+16*j) and a 4 x D/16 tile of a [64][D] accumulator (rows ty*4+i, four
+// neighbouring columns in every group of 64), and reads its operands as float4, so one
+// shared-memory load feeds 4 to 16 FMAs. Products are true float32: no tensor core, no TF32.
 
 #pragma once
 
@@ -16,10 +15,9 @@ constexpr int kTile = 64;          // query rows and key rows per tile
 constexpr int kTileThreads = 256;  // 16 x 16: thread (ty, tx) = (threadIdx.x / 16, % 16)
 constexpr int kPLd = kTile + 4;    // row stride of a [kTile][kTile] probability tile
 
-// rows x d elements from src (row stride `stride` elements) into dst [kTile][ld] as floats,
-// rows at or past `rows` zero-filled. d % 4 == 0 and ld % 4 == 0.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, size_t stride, int rows,
+// rows x d floats from src (row stride `stride` elements) into dst [kTile][ld], rows at or past
+// `rows` zero-filled. d % 4 == 0 and ld % 4 == 0.
+__device__ __forceinline__ void load_tile(float* dst, const float* src, size_t stride, int rows,
                                           int d, int ld) {
   const int d4 = d / 4;
   for (int e = threadIdx.x; e < kTile * d4; e += kTileThreads) {
@@ -127,10 +125,10 @@ __device__ __forceinline__ void tile_accumulate_t(const float* p, const float* b
   }
 }
 
-// acc[i][4*g+e] of a thread's accumulator to out[(ty*4+i) * stride + own_col(tx, g)+e], rounded
-// to T; rows at or past `rows` and column groups at or past d are skipped
-template <typename T, int kDC>
-__device__ __forceinline__ void store_rows(T* out, size_t stride, int rows, int d, int ty,
+// acc[i][4*g+e] of a thread's accumulator to out[(ty*4+i) * stride + own_col(tx, g)+e]; rows at
+// or past `rows` and column groups at or past d are skipped
+template <int kDC>
+__device__ __forceinline__ void store_rows(float* out, size_t stride, int rows, int d, int ty,
                                            int tx, const float acc[4][kDC]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -154,12 +152,6 @@ __device__ __forceinline__ float row_sum(float v) {
 #pragma unroll
   for (int off = 8; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel* kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 }  // namespace

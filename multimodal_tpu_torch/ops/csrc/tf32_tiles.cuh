@@ -1,7 +1,7 @@
-// Warp-level tensor-core pieces of the float32 flash backward kernels (flash_attention.cu):
-// float32 products to about float32 accuracy as three TF32 products on
-// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 ("3xTF32"), with f32 tiles in shared
-// memory filled by 16-byte cp.async.
+// Warp-level tensor-core pieces of the float32 flash kernels (flash_attention.cu) and
+// projection GEMM (mma_gemm.cuh): float32 products to about float32 accuracy as three TF32
+// products on mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 ("3xTF32"), with f32 tiles
+// in shared memory filled by 16-byte cp.async.
 //
 // The split. Every float32 operand x becomes big = rna_tf32(x) (10 explicit mantissa bits,
 // round to nearest, ties away: cvt.rna.tf32.f32's rounding) and small = x - big, exact in
@@ -20,14 +20,13 @@
 //   B (8 x 8, two registers):   b0 (k = t, column g), b1 (k = t+4, column g)
 //   C (16 x 8, four floats):    c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)
 //
-// From C to A without a shuffle. The second product of each kernel (ds k, p^T do, ds^T q) takes
-// the first one's C fragments as its A operand, whose lane holds columns 2t and 2t+1 where A
-// wants t and t+4. The contraction index of a product may be permuted at will as long as A and
-// B are permuted alike, so k-step j of such a product takes the eight keys (or query rows) of
-// C tile j in the order 0, 2, 4, 6, 1, 3, 5, 7: C's (g, 2t) and (g, 2t+1) are then A's (g, t)
-// and (g, t+4) as they stand, and the B fragment reads tile rows 8j + 2t and 8j + 2t + 1. The
-// two __shfl_sync a value (or a round trip through shared memory) that the natural order needs
-// are not spent at all.
+// From C to A without a shuffle. The second product of each flash kernel (p v, ds k, p^T do, ds^T
+// q) takes the first one's C fragments as its A operand, whose lane holds columns 2t and 2t+1 where
+// A wants t and t+4. The contraction index of a product may be permuted at will as long as A and B
+// are permuted alike, so k-step j of such a product takes the eight keys (or query rows) of C tile
+// j in the order 0, 2, 4, 6, 1, 3, 5, 7: C's (g, 2t) and (g, 2t+1) are then A's (g, t) and (g, t+4)
+// as they stand, and the B fragment reads tile rows 8j + 2t and 8j + 2t + 1. The two __shfl_sync a
+// value (or a round trip through shared memory) that the natural order needs are not spent at all.
 //
 // Tiles sit in shared memory as floats, row-major, with a row stride of kDP + 4 floats, where
 // kDP is the head dim rounded up to 64 or 128 (68 or 132: 4 mod 32 banks, an odd multiple of

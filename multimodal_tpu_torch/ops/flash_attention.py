@@ -5,8 +5,8 @@ Port of ``multimodal_tpu/ops/flash_attention.py``. ``FlashAttention`` is a
 ``torch.autograd.Function`` that saves (q, k, v, out, lse), as the reference's custom VJP
 does, and rebuilds the probability tiles from ``lse`` in its backward. On a CUDA tensor the
 forward launches the hand-written forward kernel and the backward the dQ and the dK/dV
-kernels (``ops/csrc/flash_attention.cu``; the backward pair multiplies on the tensor cores,
-bf16 operands in bfloat16 and 3xTF32 in float32), which read the ``[B, S, H, D]`` tensors in
+kernels (``ops/csrc/flash_attention.cu``; all three multiply on the tensor cores, bf16
+operands in bfloat16 and 3xTF32 in float32), which read the ``[B, S, H, D]`` tensors in
 place; on a CPU tensor they run ``flash_attention_reference`` and ``flash_attention_bwd_reference``,
 the plain PyTorch versions of the same math, which are also what the on-card comparison holds
 the kernels to. ``ops.attention.attention`` reaches this operator for causal self-attention
@@ -137,7 +137,7 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, *, causal: bool = False
 
 def _check_kernel_operands(q, k, v, like_q=(), rows=()):
     """What the CUDA kernels take: [B, S, H, D] tensors of one dtype (float32 or bfloat16) on
-    one device, contiguous and 16-byte aligned (the backward kernels load them by 16-byte
+    one device, contiguous and 16-byte aligned (the kernels load them by 16-byte
     ``cp.async``), k and v of one shape that differs from q's in S at most, D a multiple of 8
     up to 128; ``like_q`` tensors (do) shaped as q, ``rows`` (lse, delta) float32 [B, H, Sq].
     Raises otherwise, naming the operand."""

@@ -34,7 +34,8 @@ import torch
 FAMILIES = [  # (family, substrings of the kernel name), first match wins
     ("block-attention projection GEMMs (gemm_bias_kernel, LN folded in its loads or not)",
      ("gemm_bias_kernel",)),
-    ("backward gemm_nt_kernel (do = dy Wo^T, dx or g over K=3W)", ("gemm_nt_kernel",)),
+    ("block backward tensor-core GEMMs (mma_gemm_kernel: q/k/v, do = dy Wo^T, dx or g over "
+     "K=3W)", ("mma_gemm_kernel",)),
     ("fused MLP forward c_proj (mlp_proj_kernel; c_fc is a gemm_bias_kernel)",
      ("mlp_proj_kernel",)),
     ("fused MLP backward dh and dln (mlp_nt_kernel)", ("mlp_nt_kernel",)),

@@ -11,6 +11,11 @@ is zero in exact arithmetic (softmax ignores a per-row constant), so both sides 
 rounding noise there. On the card, the kernel against the plain version: every per-token
 output within 1e-4 x max|plain| in float32 and 2e-2 x max|plain| in bfloat16.
 
+The kernel's projection GEMMs run on the tensor cores, in float32 as 3xTF32: their arithmetic
+is emulated on the CPU at ViT-B/32 widths (the K = 3W dx product and the do product, k-step
+by k-step with the small terms first) and holds 1e-4 x max|float64| where one TF32 product
+does not.
+
 JAX is imported inside the helpers, so the CUDA cases also run where JAX is absent:
     python -m pytest tests/test_torch_block_attention_bwd.py -m cuda
 """
@@ -91,6 +96,16 @@ def test_function_grads_match_jax_padded_head_dims_f32(b, s, w, heads, causal):
     _assert_grads_close(got, _jax_grads(b, s, w, heads, causal, "float32"), 3e-4, 1e-3)
 
 
+@pytest.mark.parametrize("dtype,rel,rtol", [(torch.float32, 3e-4, 1e-3), (torch.bfloat16, 2e-2, 0)])
+def test_function_grads_match_jax_ragged_rows(dtype, rel, rtol):
+    """B*S = 150 token rows, no multiple of the GEMM's 128-row tile: the plain backward, the
+    yardstick of the kernel's masked rows, against the JAX kernel's."""
+    b, s, w, heads = 3, 50, 384, 6
+    name = "float32" if dtype == torch.float32 else "bfloat16"
+    got = _port_grads(b, s, w, heads, False, dtype)
+    _assert_grads_close(got, _jax_grads(b, s, w, heads, False, name), rel, rtol)
+
+
 def test_function_grads_match_jax_large_kernel(monkeypatch):
     """S=197: the JAX side runs its per-head streaming backward (_bwd_kernel_large)."""
     monkeypatch.setenv("MMTPU_BLOCK_ATTN_BWD_LARGE", "1")
@@ -138,6 +153,57 @@ def test_output_carries_grad_fn_and_weights_get_grads(monkeypatch):
         assert t.grad is not None and torch.isfinite(t.grad).all()
     assert wt[0].grad.abs().sum() > 0 and gamma.grad.abs().sum() > 0
     assert launches.launch_counts()["block_attention_bwd"] == 0  # a CPU tensor launches nothing
+
+
+# ----------------------------------------------------------------------------- 3xTF32
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32: to nearest on the 13 dropped mantissa bits, ties away (add
+    half a TF32 ulp to the bits, clear the 13), as tf32_tiles.cuh rounds."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_read(x: torch.Tensor) -> torch.Tensor:
+    """A float32 operand as the tensor core reads it as TF32: its top 19 bits."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _gemm_nt_tf32(segments, weights, products: int) -> torch.Tensor:
+    """sum_z A_z @ W_z^T (A_z [M, K], W_z [N, K]) as the NT GEMM forms it in float32: k-steps
+    of 8 over the segments in order, each adding its split operands' products to one f32
+    accumulator, small_a big_w and big_a small_w before big_a big_w (products=3), or the one
+    product of the TF32-rounded operands (products=1)."""
+    acc = torch.zeros(segments[0].shape[0], weights[0].shape[0])
+    for a, w in zip(segments, weights):
+        a_big, w_big = _tf32(a), _tf32(w)
+        a_small, w_small = _tf32_read(a - a_big), _tf32_read(w - w_big)
+        for k0 in range(0, a.shape[1], 8):
+            ks = slice(k0, k0 + 8)
+            if products == 3:
+                acc = acc + a_small[:, ks] @ w_big[:, ks].T
+                acc = acc + a_big[:, ks] @ w_small[:, ks].T
+            acc = acc + a_big[:, ks] @ w_big[:, ks].T
+    return acc
+
+
+@pytest.mark.parametrize("nseg", [3, 1])
+def test_3xtf32_gemm_holds_the_float32_limit_and_one_tf32_product_does_not(nseg):
+    """ViT-B/32 vision widths (W = 768): the dx product over K = 3W = 2304 ([dq | dk | dv] @
+    [Wq; Wk; Wv]^T, nseg=3) and the do product (dy @ Wo^T, nseg=1), 150 token rows. Three TF32
+    products a product stay within the card's float32 limit, 1e-4 x max|float64|; one does
+    not."""
+    rng = np.random.default_rng(12)
+    w = 768
+    segments = [torch.from_numpy(rng.standard_normal((150, w), dtype=np.float32) * scale)
+                for scale in (0.3, 1.0, 3.0)[:nseg]]
+    weights = [torch.from_numpy(rng.standard_normal((w, w), dtype=np.float32) * w ** -0.5)
+               for _ in range(nseg)]
+    want = sum(a.double() @ m.double().T for a, m in zip(segments, weights))
+    rel = lambda got: ((got.double() - want).abs().max() / want.abs().max()).item()  # noqa: E731
+    three, one = (rel(_gemm_nt_tf32(segments, weights, n)) for n in (3, 1))
+    print(f"K={nseg * w}: err / max|float64|: 3xTF32 {three:.3e}, 1xTF32 {one:.3e}")
+    assert three <= 1e-4, three
+    assert one > 1e-4, one
+    assert one > 20 * three
 
 
 @pytest.fixture
@@ -188,3 +254,64 @@ def test_cuda_backward_runs_the_kernel(cuda_device):
     for name, g, r in zip(NAMES, grads[str(cuda_device)], grads["cpu"]):
         scale = max(1.0, r.abs().max().item())
         torch.testing.assert_close(g, r, atol=3e-4 * scale, rtol=1e-3, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,w,heads,causal", [(3, 50, 512, 8, False), (3, 50, 640, 10, True),
+                                                (1, 77, 1280, 16, False),
+                                                (1, 61, 1408, 16, True)])
+def test_cuda_gemm_widths_and_ragged_rows_match_plain(cuda_device, b, s, w, heads, causal, dtype,
+                                                      tol):
+    """The tensor-core GEMM at the widths 512, 640, 1280 and 1408 (N = W, K = W and 3W) with
+    B*S (150, 77, 61) no multiple of its 128-row tile: every output of the backward."""
+    x, ws, dy = _inputs(b, s, w, seed=6)
+    conv = lambda a: torch.from_numpy(a).to(cuda_device, dtype)  # noqa: E731
+    args = [conv(x), conv(dy)] + [conv(a) for a in ws]
+    got = ba.block_attention_bwd(*args, heads=heads, causal=causal)
+    want = ba.block_attention_bwd_reference(*args, heads=heads, causal=causal)
+    for name, g, r in zip(["dx", "dq", "dk", "dv", "attnpre"], got, want):
+        g, r = g.float(), r.float()
+        err = (g - r).abs().max().item()
+        assert torch.isfinite(g).all() and err <= tol * r.abs().max().item(), (name, err)
+
+
+def _ln_args(b, s, w, dtype, device, seed):
+    x, ws, dy = _inputs(b, s, w, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    gamma = 1 + 0.1 * rng.standard_normal(w, dtype=np.float32)
+    beta = 0.1 * rng.standard_normal(w, dtype=np.float32)
+    return [torch.from_numpy(a).to(device, dtype) for a in [x, dy, gamma, beta, *ws]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_cuda_ln_form_float32_g_matches_plain(cuda_device, dtype, tol):
+    """The LN form keeps g = [dq | dk | dv] @ [Wq; Wk; Wv]^T unrounded (the GEMM's float32
+    output) for the LN vjp: dx, ln_out and the dgamma / dbeta sums at 3 x 197 token rows."""
+    args = _ln_args(3, 197, 768, dtype, cuda_device, seed=9)
+    kw = dict(heads=12, causal=False, residual=True)
+    got = ba.block_attention_ln_bwd(*args, **kw)
+    want = ba.block_attention_ln_bwd_reference(*args, **kw)
+    names = ["dx", "dq", "dk", "dv", "attnpre", "ln_out", "dgamma", "dbeta"]
+    for name, g, r in zip(names, got, want):
+        g, r = g.float(), r.float()
+        err = (g - r).abs().max().item()
+        assert torch.isfinite(g).all() and err <= tol * r.abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ln", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_bwd_repeats_bit_for_bit(cuda_device, ln, dtype):
+    """Every sum has one owner and a fixed order: a second launch gives the same bits, every
+    output of both forms."""
+    if ln:
+        args = _ln_args(4, 197, 768, dtype, cuda_device, seed=10)
+        run = lambda: ba.block_attention_ln_bwd(*args, heads=12, residual=True)  # noqa: E731
+    else:
+        x, ws, dy = _inputs(4, 50, 768, seed=10)
+        args = [torch.from_numpy(a).to(cuda_device, dtype) for a in [x, dy, *ws]]
+        run = lambda: ba.block_attention_bwd(*args, heads=12)  # noqa: E731
+    for a, b in zip(run(), run()):
+        assert torch.equal(a, b)

@@ -1,6 +1,6 @@
 """The pure-Python report helpers of ``chip_smoke.py`` (the script itself needs a GPU): the
-``nvcc -Xptxas -v`` digest, the SASS digest of the flash kernels, the attention passes'
-shared-memory sizes and the kernel bounds and rates."""
+``nvcc -Xptxas -v`` digest, the SASS digest of the flash kernels and the projection GEMM, the
+attention passes' shared-memory sizes and the kernel bounds and rates."""
 
 import chip_smoke as cs
 
@@ -41,8 +41,8 @@ def test_fused_bound_is_bytes_in_bfloat16_and_operations_in_float32():
     for kernel in ("fused_attention_fwd", "fused_attention_bwd"):
         assert cs.fused_bound(kernel, *args, "bfloat16")[1] == "bytes"
         assert cs.fused_bound(kernel, *args, "float32")[1] == "operations"
-    ms, _ = cs.fused_bound("fused_attention_fwd", *args, "float32")
-    assert abs(ms - 1e3 * 4 * 256 * 12 * 197 * 197 * 64 / 67e12) < 1e-9
+    ms, _, flops = cs.fused_bound("fused_attention_fwd", *args, "float32")
+    assert flops == 4 * 256 * 12 * 197 * 197 * 64 and abs(ms - 1e3 * flops / 67e12) < 1e-9
 
 
 def test_phase3_holds_the_tile_edge_and_padded_head_cases():
@@ -60,12 +60,21 @@ FLASH_DKV = ("_ZN57_GLOBAL__N__2b5bc54b_18_flash_attention_cu_e4f1a2b316flash_dk
              "Bf16OpsILi128EEEEvPKNT_1TES6_S6_S6_PKfS8_PS4_S9_iiifi")
 FLASH_FWD = ("_ZN57_GLOBAL__N__2b5bc54b_18_flash_attention_cu_e4f1a2b316flash_fwd_kernelIfLi4EEvPKT_"
              "S3_S3_PS1_Pfiiifi")
+GEMM_NT = ("_ZN59_GLOBAL__N__2b5bc54b_22_block_attention_bwd_cu_e4f1a2b315mma_gemm_kernelI13__nv_"
+           "bfloat16fLb0EEEvNS_11MmaGemmArgsE")
+GEMM_NN = ("_ZN59_GLOBAL__N__2b5bc54b_22_block_attention_bwd_cu_e4f1a2b315mma_gemm_kernelIffLb1EEEv"
+           "NS_11MmaGemmArgsE")
 
 
 def test_kernel_label_writes_out_the_flash_operand_structs():
     assert cs.kernel_label(FLASH_DQ) == "flash_dq_kernel<Tf32Ops<64>>"
     assert cs.kernel_label("Function : " + FLASH_DKV) == "flash_dkv_kernel<Bf16Ops<128>>"
     assert cs.kernel_label(FLASH_FWD) == "flash_fwd_kernelIfLi4E"
+
+
+def test_kernel_label_writes_out_the_gemm_types_and_form():
+    assert cs.kernel_label(GEMM_NT) == "mma_gemm_kernel<bfloat16, float, NT>"
+    assert cs.kernel_label("Function : " + GEMM_NN) == "mma_gemm_kernel<float, float, NN>"
 
 
 def test_flash_hmma_report_names_the_tensor_core_forms():
@@ -80,36 +89,58 @@ def test_flash_hmma_report_names_the_tensor_core_forms():
         "\t\tFunction : _ZN51_GLOBAL__N__x_18_fused_attention_cu_de02afe220attention_mma_kernel"
         "ILi64EEEvv",
         "        /*0100*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;",
+        f"\t\tFunction : {GEMM_NN}",
+        "        /*0100*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;",
     ])
-    assert cs.flash_hmma_report(sass) == [
+    assert cs.hmma_report(sass) == [
         "flash_dkv_kernel<Bf16Ops<128>>: HMMA.16816.F32.BF16 x 1",
         "flash_dq_kernel<Tf32Ops<64>>: HMMA.1688.F32.TF32 x 2",
-        "flash_fwd_kernelIfLi4E: no HMMA (CUDA cores)"]
+        "flash_fwd_kernelIfLi4E: no HMMA (CUDA cores)",
+        "mma_gemm_kernel<float, float, NN>: HMMA.1688.F32.TF32 x 1"]
     assert "1 *_mma_kernel functions" in cs.sass_report(sass)
 
 
 def test_flash_bound_and_rate():
     """B=8 S=2048 H=8 D=64 causal: dQ forms three products of 2 x pairs x D FLOPs (51.5
-    GFLOP), dK/dV four; both are bound by operations; the float32 backward pair's bound is
-    taken at the 3xTF32 ceiling (495 / 3 TFLOP/s), the arithmetic it runs, and its lines give
-    the CUDA-core bound beside it."""
+    GFLOP), dK/dV four, the forward two; all are bound by operations; the float32 trio's bound
+    is taken at the 3xTF32 ceiling (495 / 3 TFLOP/s), the arithmetic it runs, and its lines
+    give the CUDA-core bound beside it."""
     args = (8, 2048, 2048, 8, 64, True)
     flops = cs.flash_flops("flash_attention_dq", *args)
     assert abs(flops - 6 * 8 * 8 * 2048 * 2049 / 2 * 64) < 1
     assert cs.flash_flops("flash_attention_dkv", *args) == flops * 4 / 3
     for dtype, peak in (("float32", cs.PEAK_3XTF32), ("bfloat16", cs.PEAK_FLOPS["bfloat16"])):
-        for kernel in ("flash_attention_dq", "flash_attention_dkv"):
+        for kernel in ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv"):
             ms, by, f = cs.flash_bound(kernel, *args, dtype)
             assert by == "operations" and f == cs.flash_flops(kernel, *args)
             assert abs(ms - 1e3 * f / peak) < 1e-9
-    ms, _, f = cs.flash_bound("flash_attention_fwd", *args, "float32")
-    assert abs(ms - 1e3 * f / cs.PEAK_FLOPS["float32"]) < 1e-9
+    assert abs(cs.flash_bound("flash_attention_fwd", *args, "float32")[0] - 0.2083) < 1e-4
+    assert abs(cs.flash_bound("flash_attention_fwd", *args, "bfloat16")[0] - 0.0348) < 1e-4
     assert abs(cs.flash_bound("flash_attention_dq", *args, "float32")[0] - 0.3125) < 1e-4
     note = cs.rate_note("flash_attention_dq", "float32", 1.0, 0.5, flops)
     assert "tflops=51.6" in note and "of_bound=50.0%" in note
     assert "bound_cuda_cores_ms=0.7696" in note
     assert "cuda_core" not in cs.rate_note("flash_attention_dq", "bfloat16", 1.0, 0.5, flops)
-    assert "cuda_core" not in cs.rate_note("flash_attention_fwd", "float32", 1.0, 0.5, flops)
+    assert "cuda_core" in cs.rate_note("flash_attention_fwd", "float32", 1.0, 0.5, flops)
+
+
+def test_block_backward_bound_and_rate():
+    """ViT-B/32 vision S=50 W=768 B=256: seven projection-sized products and six core products,
+    105.7 GFLOP of GEMMs and the attention beside them (bound 0.1128 ms in bfloat16); the
+    float32 backward is bound at the 3xTF32 ceiling its GEMMs run at, with the CUDA-core bound
+    in its note. The forward keeps the dtype's peak: CUDA-core float32, and no CUDA-core note."""
+    args = (256, 50, 768, 12, False)
+    ms, by, flops = cs.block_bound("block_attention_bwd", *args, "bfloat16")
+    assert by == "operations" and abs(ms - 0.1128) < 1e-4
+    assert abs(14 * 256 * 50 * 768 ** 2 - 105.7e9) < 0.1e9
+    ms32, _, flops32 = cs.block_bound("block_attention_ln_bwd", *args, "float32")
+    assert flops32 == flops and abs(ms32 - 1e3 * flops / cs.PEAK_3XTF32) < 1e-9
+    assert "bound_cuda_cores_ms" in cs.rate_note("block_attention_bwd", "float32", 1.0, ms32, flops)
+    assert "cuda_core" not in cs.rate_note("block_attention_bwd", "bfloat16", 1.0, ms, flops)
+    ms_f, _, flops_f = cs.block_bound("block_attention_fwd", *args, "float32")
+    assert flops_f == 8 * 12800 * 768 ** 2 + 4 * 256 * 12 * 2500 * 64
+    assert abs(ms_f - 1e3 * flops_f / 67e12) < 1e-9
+    assert "cuda_core" not in cs.rate_note("block_attention_fwd", "float32", 1.0, ms_f, flops_f)
 
 
 def test_phase3_holds_the_flash_head_dims_and_the_text_towers_batch():

@@ -10,15 +10,15 @@ gradients (the JAX test's); beyond that no element lies more than one bfloat16 s
 relative, 2^-9 absolute floor) from the JAX kernel's, and at most 1% of the elements of any
 output differ from it at all (measured: 0.05% of out, 0.41% of dq, 0.14% of dk, 0.03% of dv at
 S=300). On the card, kernel against plain:
-within 1e-4 x max|plain| in float32 and 2e-2 x max|plain| in bfloat16, whose 64-key tiles round
+within 1e-4 x max|plain| in float32 and 2e-2 x max|plain| in bfloat16, whose key tiles round
 the unnormalised probabilities relative to other running maxima than the plain version's 256.
 
-The backward kernels' schedule (``tile_walk_dq``, ``tile_walk_dkv``: their blocks, warps,
-streamed tiles, live n-tiles, edge tests and rounding points in plain torch) is held to the
-JAX package's ``_dq_kernel`` and ``_dkv_kernel`` at ragged and cross lengths and head dims 24,
-64 and 88; the float32 kernels' 3xTF32 arithmetic is emulated on the CPU (TF32 rounding on the
-bits, the split, the three products) and holds the card's float32 limit, 1e-4 x max|JAX|,
-where one TF32 product does not.
+The kernels' schedule (``tile_walk_fwd``, ``tile_walk_dq``, ``tile_walk_dkv``: their blocks,
+warps, streamed tiles, live n-tiles, edge tests and rounding points in plain torch) is held to
+the JAX package's ``_fwd_kernel``, ``_dq_kernel`` and ``_dkv_kernel`` at ragged and cross
+lengths and head dims 24, 64 and 88; the float32 kernels' 3xTF32 arithmetic is emulated on the
+CPU (TF32 rounding on the bits, the split, the three products) and holds the card's float32
+limit, 1e-4 x max|JAX|, where one TF32 product does not, forward and backward.
 
 JAX is imported inside the helpers, so the CUDA cases also run where JAX is absent:
     python -m pytest tests/test_torch_flash_attention.py -m cuda
@@ -321,15 +321,15 @@ def _rows_tile(t, r0, n):
     return out
 
 
-def _live_cols(live):
+def _live_cols(live, kt=KT):
     """Columns of a streamed tile the head products form: n-tiles in pairs."""
-    return min(KT, 8 * (live + live % 2))
+    return min(kt, 8 * (live + live % 2))
 
 
-def _steps_below(nrows, dtype):
+def _steps_below(nrows, dtype, kt=KT):
     """Mask of the streamed tile's rows whose k-step of the second product runs."""
     step = _k_step(dtype)
-    return ((torch.arange(KT) // step) * step < nrows).float()
+    return ((torch.arange(kt) // step) * step < nrows).float()
 
 
 def tile_walk_dq(q, k, v, do, lse, delta, *, causal, scale):
@@ -449,6 +449,96 @@ def test_tile_walk_is_the_plain_backward_in_float32():
             assert (g - r).abs().max() <= 1e-5 * r.abs().max()
 
 
+def tile_walk_fwd(q, k, v, *, causal, scale):
+    """The forward kernel's schedule: (out, lse). Blocks of WARPS warps, the warps' rows as in
+    the dQ kernel; each warp walks the key tiles (64 keys in bfloat16, 32 in float32) below
+    the block's causal bound, skipping those past its own, with an online softmax: logits over
+    the live n-tiles, the mask tests only on an edge tile, the running max m and the sum l of
+    the unrounded p, the accumulator rescaled and += round_T(p) @ v over the k-steps below the
+    warp's bound; out = acc / l and lse = m + log(l)."""
+    dt, f32 = q.dtype, torch.float32
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    qh, kh, vh = (t.transpose(1, 2).to(f32) for t in (q, k, v))
+    wr = _warp_rows(dt, d)
+    kt_rows = 64 if dt == torch.bfloat16 else 32
+    out, lse = torch.zeros_like(qh), torch.zeros(b, h, sq)
+    for r0 in range(0, sq, wr * WARPS):
+        rows = min(wr * WARPS, sq - r0)
+        kmax = min(sk, r0 + rows) if causal else sk
+        for wrow in range(0, rows, wr):
+            wmax = min(kmax, r0 + wrow + wr) if causal else kmax
+            rs = slice(r0 + wrow, min(r0 + wrow + wr, sq))
+            row = torch.arange(rs.start, rs.stop)[:, None]
+            m = torch.full((b, h, row.shape[0], 1), NEG_INF)
+            l = torch.zeros_like(m)
+            acc = torch.zeros(b, h, row.shape[0], d)
+            for c0 in range(0, kmax, kt_rows):
+                live = min(kt_rows // 8, (wmax - c0 + 7) // 8)
+                if live <= 0:
+                    continue
+                cols = _live_cols(live, kt_rows)
+                kt, vt = _rows_tile(kh, c0, kt_rows), _rows_tile(vh, c0, kt_rows)
+                s = torch.zeros(b, h, row.shape[0], kt_rows)
+                s[..., :cols] = qh[:, :, rs] @ kt[:, :, :cols].transpose(-1, -2) * scale
+                if c0 + kt_rows > kmax or (causal and c0 + kt_rows - 1 > r0 + wrow):  # edge_tile
+                    key = c0 + torch.arange(kt_rows)[None, :]
+                    s = torch.where((key < kmax) & ((key <= row) | (not causal)), s, NEG_INF)
+                m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+                p = torch.exp(s - m_new)
+                alpha = torch.exp(m - m_new)
+                l = l * alpha + p.sum(dim=-1, keepdim=True)
+                below = _steps_below(wmax - c0, dt, kt_rows)
+                acc = acc * alpha + (p.to(dt).to(f32) * below) @ vt
+                m = m_new
+            safe_l = torch.where(l == 0, torch.ones_like(l), l)
+            out[:, :, rs] = acc / safe_l
+            lse[:, :, rs] = (m + torch.log(safe_l))[..., 0]
+    return out.to(dt).transpose(1, 2), lse
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_fwd(b, sq, sk, h, d, causal, dtype_name, seed=0):
+    """(out [B, Sq, H, D], lse [B, H, Sq]) of the JAX package's forward kernel, _fwd_kernel
+    through _fwd on the operator's padded [B, H, S, D] layout, as float32 numpy."""
+    import jax.numpy as jnp
+
+    from multimodal_tpu.ops import flash_attention as jfl
+
+    dt = jnp.float32 if dtype_name == "float32" else jnp.bfloat16
+    q, k, v, _ = (jnp.asarray(a, dt) for a in _qkv(b, sq, sk, h, d, seed))
+    bq, bk = jfl._block_sizes(sq, sk)
+
+    def prep(x, s_p):
+        x = jnp.transpose(x, (0, 2, 1, 3))
+        return jnp.pad(x, ((0, 0), (0, 0), (0, s_p - x.shape[2]), (0, 0)))
+
+    out, lse = jfl._fwd(prep(q, jfl._round_up(sq, bq)), prep(k, jfl._round_up(sk, bk)),
+                        prep(v, jfl._round_up(sk, bk)), causal, d ** -0.5, sk)
+    out = np.asarray(out[:, :, :sq].astype(jnp.float32)).transpose(0, 2, 1, 3)
+    return out, np.asarray(lse[:, :, :sq, 0])
+
+
+@pytest.mark.parametrize("d", [24, 64, 88])
+@pytest.mark.parametrize("sq,sk,causal", WALK_SHAPES + [(40, 72, False)])
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_tile_walk_fwd_matches_jax_kernel_and_plain(sq, sk, causal, d, dtype_name):
+    """The forward kernel's schedule against the JAX package's _fwd_kernel (interpret mode)
+    and the plain forward: out and lse within 1e-5 x max|reference| in float32 (the order of
+    the sums only) and 2e-2 x max|reference| in bfloat16 (the unnormalised p is rounded
+    against other running maxima: 64-key tiles here, 128 or 256 keys there)."""
+    dtype = torch.float32 if dtype_name == "float32" else torch.bfloat16
+    q, k, v, _ = (torch.from_numpy(a).to(dtype) for a in _qkv(1, sq, sk, 2, d))
+    got = tile_walk_fwd(q, k, v, causal=causal, scale=d ** -0.5)
+    plain = fl.flash_attention_reference(q, k, v, causal=causal)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for ref in (_jax_fwd(1, sq, sk, 2, d, causal, dtype_name),
+                tuple(t.float().numpy() for t in plain)):
+        for name, g, r in zip(("out", "lse"), got, ref):
+            err = np.abs(g.float().numpy() - r).max()
+            assert err <= tol * np.abs(r).max(), (name, err, np.abs(r).max())
+
+
 # ----------------------------------------------------------------------------- 3xTF32
 def _tf32(x: torch.Tensor) -> torch.Tensor:
     """float32 rounded to TF32: to nearest on the 13 dropped mantissa bits, ties away (the
@@ -519,6 +609,37 @@ def test_3xtf32_backward_holds_the_float32_limit_and_one_tf32_product_does_not(s
     assert one > 20 * three
 
 
+def _tf32_forward(mm, q, k, v, *, causal, scale):
+    """The flash forward with both products formed by ``mm`` and the softmax in float32:
+    (out, lse)."""
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    s = mm(qh, kh.transpose(-1, -2)) * scale
+    if causal:  # top-left: key <= query
+        s = s.masked_fill(~torch.ones(s.shape[-2:], dtype=torch.bool).tril(), NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    return (mm(p, vh) / l).transpose(1, 2), (m + torch.log(l))[..., 0]
+
+
+@pytest.mark.parametrize("s,causal", [(300, True), (197, False)])
+def test_3xtf32_forward_holds_the_float32_limit_and_one_tf32_product_does_not(s, causal):
+    """The float32 forward kernel's arithmetic, emulated: with three TF32 products a product
+    out and lse stay within the card's float32 limit, 1e-4 x max|JAX float32|, of the JAX
+    forward kernel; with one TF32 product out does not."""
+    want = _jax_fwd(1, s, s, 2, 64, causal, "float32")
+    q, k, v, _ = (torch.from_numpy(a) for a in _qkv(1, s, s, 2, 64))
+    kw = dict(causal=causal, scale=64 ** -0.5)
+    rel = lambda got: [np.abs(g.numpy() - r).max() / np.abs(r).max()  # noqa: E731
+                       for g, r in zip(got, want)]
+    three = rel(_tf32_forward(_mm_3xtf32, q, k, v, **kw))
+    one = rel(_tf32_forward(_mm_1xtf32, q, k, v, **kw))
+    print(f"S={s} causal={causal}: out, lse err / max|JAX|: 3xTF32 {three}, 1xTF32 {one}")
+    assert max(three) <= 1e-4, three
+    assert one[0] > 1e-4, one
+    assert one[0] > 20 * three[0]
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -560,13 +681,15 @@ def test_cuda_kernels_match_plain(cuda_device, b, sq, sk, h, d, causal, dtype, t
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_backward_repeats_bit_for_bit(cuda_device, dtype):
+    """Two runs of the operator give the same bits: the forward's out and the three gradients."""
     q, k, v, do = (torch.from_numpy(a).to(cuda_device, dtype)
                    for a in _qkv(2, 700, 700, 4, 64, seed=8))
     runs = []
     for _ in range(2):
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        fl.flash_attention(*leaves, causal=True).backward(do)
-        runs.append([t.grad for t in leaves])
+        out = fl.flash_attention(*leaves, causal=True)
+        out.backward(do)
+        runs.append([out.detach()] + [t.grad for t in leaves])
     for a, b in zip(*runs):
         assert torch.equal(a, b)
 
@@ -626,4 +749,18 @@ def test_cuda_float32_backward_holds_its_limit_at_s8192(cuda_device):
     for name, a, r in zip(["dq", "dk", "dv"], got, want):
         ratio = ((a - r).abs().max() / r.abs().max()).item()
         print(f"S=8192 float32 {name}: max err / max|plain| = {ratio:.3e}")
+        assert torch.isfinite(a).all() and ratio <= 1e-4, (name, ratio)
+
+
+@pytest.mark.cuda
+def test_cuda_float32_forward_holds_its_limit_at_s8192(cuda_device):
+    """The float32 forward's sums run longest at S=8192: out and lse stay within 1e-4 x
+    max|plain| on this seeded draw. Prints each ratio."""
+    g = torch.Generator(device=cuda_device).manual_seed(8193)
+    q, k, v = (torch.randn(1, 8192, 8, 64, generator=g, device=cuda_device) for _ in range(3))
+    got = fl.flash_attention_fwd(q, k, v, causal=True)
+    want = fl.flash_attention_reference(q, k, v, causal=True)
+    for name, a, r in zip(["out", "lse"], got, want):
+        ratio = ((a - r).abs().max() / r.abs().max()).item()
+        print(f"S=8192 float32 forward {name}: max err / max|plain| = {ratio:.3e}")
         assert torch.isfinite(a).all() and ratio <= 1e-4, (name, ratio)

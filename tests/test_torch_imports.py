@@ -37,7 +37,8 @@ def test_profile_step_sorts_kernels_into_families():
 
     cases = {
         "void (anonymous namespace)::gemm_bias_kernel<float, true>(...)": "projection GEMMs",
-        "void (anonymous namespace)::gemm_nt_kernel<__nv_bfloat16, float>(...)": "gemm_nt_kernel",
+        "void (anonymous namespace)::mma_gemm_kernel<__nv_bfloat16, float, false>(...)":
+            "mma_gemm_kernel",
         "void (anonymous namespace)::attn_bwd_dq_mma_kernel<64, 64, true>(...)": "dQ pass",
         "void (anonymous namespace)::attn_bwd_dq_f32_kernel<4, false>(...)": "dQ pass",
         "void (anonymous namespace)::attn_bwd_dkv_mma_kernel<128, 32, false>(...)": "dK/dV pass",
