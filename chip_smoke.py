@@ -9,8 +9,10 @@ Phases (each prints its lines; any failure exits non-zero before the result line
   2. build the CUDA kernels from ops/csrc with nvcc (one process per source, in parallel);
      print every kernel's registers and spills (ptxas), the attention passes' shared memory,
      and from the SASS the passes' HMMA / LDSM / LDGSTS counts and the tensor-core
-     instructions by form of each flash kernel and of the block backward's projection GEMM
-     (HMMA.16816.F32.BF16 in bfloat16, HMMA.1688.F32.TF32 for float32's 3xTF32);
+     instructions by form of each flash kernel and of every instantiation of the projection
+     GEMM (mma_gemm_kernel<T, TOut, form, load, store>: the block forward's and backward's,
+     the MLP's c_fc, dh, dln and weight gradients; HMMA.16816.F32.BF16 in bfloat16,
+     HMMA.1688.F32.TF32 for float32's 3xTF32);
   3. every kernel against its plain PyTorch version on the card, every output, in float32
      (max abs error <= 1e-4 * max|plain|) and bfloat16 (<= 2e-2 * max|plain|), with
      CUDA-event times at B=256: the block-attention forward and backward at the ViT-B/32
@@ -26,15 +28,18 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      (LayerNorm, c_fc, activation, c_proj, residual) forward and backward, with and without
      the residual, at the ViT-B/32, ViT-B/16 and ViT-L/14 token counts and widths and a ragged
      T=3x197 (outputs y, h and dx, dW1, dW2, db1, db2, dgamma, dbeta; no library call holds
-     it); the flash-attention trio (forward with lse, dQ, dK/dV) at S=2048 (B=1, the timed
+     it, and the same two or four products as plain torch.matmul calls are timed beside it as
+     information); the flash-attention trio (forward with lse, dQ, dK/dV) at S=2048 (B=1, the timed
      B=8 and the text tower's own call at B=32) and S=4096 causal, S=1024 and S=2048 not
      causal, a ragged S=2050, sq != sk causal, D=32, 80, 88 and 128, with
      scaled_dot_product_attention(is_causal=True) forward and backward timed beside it; each
      timed line with its TFLOP/s and share of its bound (the float32 kernels that run
-     3xTF32, the flash trio and the block backward, at the 3xTF32 ceiling, 495 / 3 TFLOP/s,
-     and at the CUDA cores' 67 beside it), the timed flash kernels and every block-backward
-     case launched twice and compared bit for bit, every output; the float32 flash forward
-     at S=8192; then the flash operator against the plain attention path,
+     3xTF32, the flash trio, the block pair in both forms and the MLP backward, at the 3xTF32
+     ceiling, 495 / 3 TFLOP/s, and at the CUDA cores' 67 beside it; the MLP forward, whose
+     c_proj runs on the CUDA cores, at 67), the timed flash and fused kernels and every block
+     and MLP case launched twice and compared bit for bit, every output; the block backward's
+     recomputed q, k, v compared bit for bit with the forward's, both forms and dtypes; the
+     float32 flash forward at S=8192; then the flash operator against the plain attention path,
      forward plus backward, time and peak memory at S=1024, 2048 and 4096, causal and not (the
      dispatch's crossover). The library calls are yardsticks, held to the plain versions too and used
      nowhere in the port;
@@ -191,15 +196,17 @@ SHARED_COMPARE_BATCH = 64  # both paths hold it in float32; the plain path does 
 CAPTIONS = ["a photo of a cat", "two dogs playing in the snow", "a red car on a bridge",
             "東京の夜景 ✨"]
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): CUDA-core float32 for
-# float32, tensor-core bf16 for bfloat16; HBM3 bytes/s. The float32 flash trio and the block
-# backward's GEMMs run 3xTF32 on the tensor cores, whose ceiling is a third of the TF32 peak:
-# those kernels' float32 bound is taken at that rate, and their lines give the CUDA-core
-# bound beside it
+# float32, tensor-core bf16 for bfloat16; HBM3 bytes/s. The float32 flash trio, the block
+# kernels' GEMMs and the MLP backward's run 3xTF32 on the tensor cores, whose ceiling is a
+# third of the TF32 peak: those kernels' float32 bound is taken at that rate, and their lines
+# give the CUDA-core bound beside it. The MLP forward stays at the CUDA-core peak while its
+# c_proj runs there
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_3XTF32 = 495e12 / 3
 PEAK_BYTES = 3.35e12
 TF32_KERNELS = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
-                "block_attention_bwd", "block_attention_ln_bwd")
+                "block_attention_fwd", "block_attention_bwd", "block_attention_ln_fwd",
+                "block_attention_ln_bwd", "block_mlp_bwd")
 
 
 def fail(msg: str):
@@ -299,6 +306,8 @@ def rate_note(kernel: str, dtype_name: str, ms: float, b_ms: float, flops: float
     """A timed line's rate: TFLOP/s, the share of its bound reached, and for a float32 kernel
     bound at the 3xTF32 ceiling the CUDA cores' bound too."""
     note = f" tflops={flops / ms / 1e9:.1f} of_bound={100 * b_ms / ms:.1f}%"
+    if kernel == "block_mlp_fwd" and dtype_name == "float32":
+        note += " (bound at the CUDA-core peak: c_proj runs there, c_fc 3xTF32)"
     if peak_of(kernel, dtype_name) == PEAK_3XTF32:
         b_cc = 1e3 * flops / PEAK_FLOPS["float32"]
         note += f" bound_cuda_cores_ms={b_cc:.4f} of_cuda_core_bound={100 * b_cc / ms:.1f}%"
@@ -426,7 +435,14 @@ def kernel_cases(torch, ba, fa, bm, fl, dtype):
         gamma, beta = 1 + 0.1 * rnd(w), 0.1 * rnd(w)  # float32, as the blocks hand them in
         h = bm.block_mlp_reference(x, gamma, beta, w1, b1, w2, b2, act=act)[1]
         # no library call: no single PyTorch call holds the LayerNorm, both products, the
-        # activation and the add. Timed with the residual; the branch alone is compared only
+        # activation and the add. Beside the kernels, as information and no yardstick, the
+        # same products as plain torch.matmul calls in the same dtype: c_fc and c_proj (#9);
+        # dy W2^T, dh W1^T, g^T dy and ln^T dh (#10). Timed with the residual; the branch alone
+        # is compared only
+        ln, g_act = ba.ln_rows(x, gamma.to(dtype), beta.to(dtype), ba.LN_EPS), bm.act_fwd(h, act)
+        dh = ((dy @ w2.T).float() * bm.act_bwd(h.float(), act)).to(dtype)
+        matmul = {"block_mlp_fwd": lambda: (ln @ w1, g_act @ w2),
+                  "block_mlp_bwd": lambda: (dy @ w2.T, dh @ w1.T, g_act.T @ dy, ln.T @ dh)}
         for residual in (True, False):
             timed = residual and case != "mlp-ragged"
             kw = dict(act=act, residual=residual)
@@ -434,11 +450,13 @@ def kernel_cases(torch, ba, fa, bm, fl, dtype):
             yield ("block_mlp_fwd", case, shape, timed,
                    lambda: bm.block_mlp_fwd(x, gamma, beta, w1, b1, w2, b2, **kw),
                    lambda: bm.block_mlp_reference(x, gamma, beta, w1, b1, w2, b2, **kw),
-                   None, {}, ("y", "h"), mlp_bound("block_mlp_fwd", t, w, hid, name))
+                   None, {"matmul_ms": matmul["block_mlp_fwd"]}, ("y", "h"),
+                   mlp_bound("block_mlp_fwd", t, w, hid, name))
             yield ("block_mlp_bwd", case, shape, timed,
                    lambda: bm.block_mlp_bwd(x, dy, h, gamma, beta, w1, w2, **kw),
                    lambda: bm.block_mlp_bwd_reference(x, dy, h, gamma, beta, w1, w2, **kw),
-                   None, {}, ("dx", "dW1", "dW2", "db1", "db2", "dgamma", "dbeta"),
+                   None, {"matmul_ms": matmul["block_mlp_bwd"]},
+                   ("dx", "dW1", "dW2", "db1", "db2", "dgamma", "dbeta"),
                    mlp_bound("block_mlp_bwd", t, w, hid, name))
     for case, b, sq, sk, heads, d, causal, timed in FLASH_CASES:
         g = torch.Generator(device="cuda").manual_seed(b * 1000 + sq)
@@ -516,7 +534,7 @@ def phase_kernels(torch, ba, fa, bm, fl) -> dict:
                 lib_ok = lib_err <= lib_tol * errs[0][1]
                 ok = ok and lib_ok
                 line += f" library_err={lib_err:.2e}{'' if lib_ok else ' LIBRARY MISMATCH'}"
-            if kernel.startswith(("block_attention_bwd", "block_attention_ln_bwd")) or (
+            if kernel.startswith(("block_attention", "block_mlp")) or (
                     timed and kernel.startswith(("fused_attention", "flash_attention"))):
                 # no float atomics, one owner and a fixed order for every sum: a second launch
                 # gives the same bits, every output
@@ -549,6 +567,38 @@ def phase_kernels(torch, ba, fa, bm, fl) -> dict:
     if failures:
         fail(f"{len(failures)} kernel/plain mismatches")
     return {"worst_f32": worst_f32, "timing": timing}
+
+
+def qkv_repeats(torch, ba):
+    """The block backward's recomputed q, k and v against the forward's, bit for bit, in both
+    forms (vision S=50 and the LN form at S=197, B=4) and both dtypes: the two run the
+    projection GEMM's NN loop over the same A values (x; ln_out, whose elements are the
+    forward's LN load transform's) and add the bias and round alike."""
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        for ln, b, s, w, heads in ((False, 4, 50, 768, 12), (True, 4, 197, 768, 12)):
+            g = torch.Generator(device="cuda").manual_seed(b * 1000 + s)
+            rnd = lambda *shape: torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
+            x, dy = rnd(b, s, w).to(dtype), rnd(b, s, w).to(dtype)
+            ws = []
+            for _ in range(4):
+                ws += [(rnd(w, w) * w ** -0.5).to(dtype), (rnd(w) * 0.02).to(dtype)]
+            gamma, beta = (1 + 0.1 * rnd(w)).to(dtype), (0.1 * rnd(w)).to(dtype)
+            fwd, bwd = (torch.empty((3, b * s, w), dtype=dtype, device="cuda") for _ in range(2))
+            kw = dict(heads=heads, causal=False)
+            if ln:
+                ba._block_attention_ln_cuda(x, gamma, beta, *ws, residual=True, qkv=fwd, **kw)
+                ba._block_attention_ln_bwd_cuda(x, dy, gamma, beta, *ws, residual=True, qkv=bwd,
+                                                **kw)
+            else:
+                ba._block_attention_cuda(x, *ws, qkv=fwd, **kw)
+                ba._block_attention_bwd_cuda(x, dy, *ws, qkv=bwd, **kw)
+            torch.cuda.synchronize()
+            same = torch.equal(fwd, bwd)
+            print(f"block_attention_{'ln_' if ln else ''}bwd recomputed q, k, v vs the forward's "
+                  f"B={b} S={s} W={w} {name}: same_bits={same}", flush=True)
+            if not same:
+                fail("the backward's recomputed q, k, v differ from the forward's")
 
 
 def flash_long_error(torch, fl) -> float:
@@ -608,19 +658,19 @@ def flash_crossover(torch, attention, card):
 def kernel_label(mangled: str) -> str:
     """A kernel's name with its template arguments, from its mangled name: mangled as they
     stand (Li64E is 64, Lb1E true, f float, 13__nv_bfloat16 bfloat16) except the flash
-    kernels' operand structs and the projection GEMM's types and form, written out
-    (flash_dq_kernel<Tf32Ops<64>>, mma_gemm_kernel<bfloat16, float, NT>)."""
+    kernels' operand structs and the projection GEMM's types, form, load and store, written
+    out (flash_dq_kernel<Tf32Ops<64>>, mma_gemm_kernel<bfloat16, float, TN, LN-b, round>)."""
+    from multimodal_tpu_torch.ops._build import gemm_signature
+
     found = re.search(r"_cu_[0-9a-f]{8}\d+([a-z][a-z_0-9]*_kernel)(I\w+?E)?Ev", mangled)
     if not found:
         return mangled.split()[-1]
     ops = re.fullmatch(r"INS_\d+(\w+Ops)ILi(\d+)EE+", found.group(2) or "")
     if ops:
         return f"{found.group(1)}<{ops.group(1)}<{ops.group(2)}>>"
-    gemm = re.fullmatch(r"I(13__nv_bfloat16|f)(13__nv_bfloat16|f)Lb([01])EE+", found.group(2) or "")
+    gemm = gemm_signature(mangled)
     if gemm:
-        name = lambda t: "float" if t == "f" else "bfloat16"  # noqa: E731
-        form = "NN" if gemm.group(3) == "1" else "NT"
-        return f"{found.group(1)}<{name(gemm.group(1))}, {name(gemm.group(2))}, {form}>"
+        return f"{found.group(1)}<{', '.join(gemm)}>"
     return found.group(1) + (found.group(2) or "")
 
 
@@ -1077,6 +1127,7 @@ def main() -> int:
 
     print("phase 3 kernel vs plain on the card", flush=True)
     kernels = phase_kernels(torch, ba, fa, bm, fl)
+    qkv_repeats(torch, ba)
     err = flash_long_error(torch, fl)
     kernels["worst_f32"]["flash_attention_fwd"] = max(kernels["worst_f32"]["flash_attention_fwd"],
                                                       err)

@@ -5,9 +5,10 @@
 The backward kernel forms dW1 and dW2 as products over the token rows, split into runs of
 rows with one f32 partial sum each (``ops/block_mlp.py:_wgrad_splits``). This script times
 the whole backward call (CUDA events) at the B=256 token counts of ViT-B/32, ViT-B/16 and
-ViT-L/14 (B=64) for a sweep of the block target ``WGRAD_BLOCKS``, 1 meaning no split, holds
-every output to the plain version at each setting, and prints the card's name and power
-limit beside the times. It needs an NVIDIA GPU.
+ViT-L/14 (B=64) for a sweep of the block target ``WGRAD_BLOCKS``, 1 meaning no split but for
+the float32 row cap (``WGRAD_F32_MAX_ROWS``), holds every output to the plain version at each
+setting (the largest error / max|plain| beside each time), and prints the card's name and
+power limit beside the times. It needs an NVIDIA GPU.
 """
 
 from __future__ import annotations
@@ -62,8 +63,8 @@ def main():
                     run()
                 end.record()
                 torch.cuda.synchronize()
-                cells.append(f"{target} (x{bm._wgrad_splits(t, w, hid)}): "
-                             f"{start.elapsed_time(end) / 8:.4f}")
+                cells.append(f"{target} (x{bm._wgrad_splits(t, w, hid, dtype)}): "
+                             f"{start.elapsed_time(end) / 8:.4f} err {err:.1e}")
             bm.WGRAD_BLOCKS = default
             print(f"  {name} T={t} W={w} H={hid} {str(dtype).replace('torch.', '')}: "
                   + "; ".join(cells), flush=True)

@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -34,6 +35,12 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# The tensor-core GEMM's template arguments after its two types (csrc/mma_gemm.cuh): form,
+# load transform, store; each use is its own instantiation and so its own kernel name
+GEMM_FORMS = ("NN", "NT", "TN")
+GEMM_LOADS = ("plain", "LN", "act", "LN-b")
+GEMM_STORES = ("round", "residual", "act'")
 
 _lock = threading.Lock()
 _lib = None
@@ -118,6 +125,23 @@ def load() -> ctypes.CDLL:
             lib.mmt_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+def gemm_signature(kernel: str) -> tuple[str, str, str, str, str] | None:
+    """(T, TOut, form, load, store) of an ``mma_gemm_kernel`` instantiation, from its mangled
+    name (the SASS, ``-Xptxas -v``) or its demangled one (the profiler), e.g. ("bfloat16",
+    "float", "TN", "LN-b", "round"); None for any other kernel."""
+    found = re.search(r"mma_gemm_kernel<([\w:]+), ([\w:]+), (\d), (\d), (\d)>", kernel)
+    if found:
+        types = ["float" if t == "float" else "bfloat16" for t in found.group(1, 2)]
+    else:  # the second type of a bf16 -> bf16 GEMM is a back-reference (S<n>_) to the first
+        found = re.search(r"mma_gemm_kernelI(13__nv_bfloat16|f)(13__nv_bfloat16|f|S\d*_)"
+                          r"Li(\d)ELi(\d)ELi(\d)E", kernel)
+        if not found:
+            return None
+        types = ["float" if t == "f" else "bfloat16" for t in found.group(1, 2)]
+    form, load, store = (int(v) for v in found.group(3, 4, 5))
+    return (*types, GEMM_FORMS[form], GEMM_LOADS[load], GEMM_STORES[store])
 
 
 def check(lib: ctypes.CDLL, err: int, what: str):

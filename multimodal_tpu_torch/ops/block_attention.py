@@ -214,15 +214,29 @@ def _dtype_code(x: torch.Tensor) -> int:
     return 0 if x.dtype == torch.float32 else 1
 
 
+def _qkv_scratch(x: torch.Tensor, qkv: torch.Tensor | None) -> torch.Tensor:
+    """The [3, B*S, W] q, k, v scratch of the four CUDA entries: new, or the caller's (checked),
+    so that a check can read what the projection GEMM wrote (the backward's recompute repeats
+    the forward's q, k and v bit for bit)."""
+    b, s, w = x.shape
+    if qkv is None:
+        return torch.empty((3, b * s, w), dtype=x.dtype, device=x.device)
+    if (tuple(qkv.shape) != (3, b * s, w) or qkv.dtype != x.dtype or qkv.device != x.device
+            or not qkv.is_contiguous()):
+        raise ValueError(f"qkv scratch {tuple(qkv.shape)} {qkv.dtype} on {qkv.device}: expected "
+                         f"a contiguous {(3, b * s, w)} {x.dtype} on {x.device}")
+    return qkv
+
+
 def _block_attention_cuda(x, wq, bq, wk, bk, wv, bv, wo, bo, *, heads: int,
-                          causal: bool) -> torch.Tensor:
+                          causal: bool, qkv: torch.Tensor | None = None) -> torch.Tensor:
     from multimodal_tpu_torch.ops import _build
 
     args = (x, wq, bq, wk, bk, wv, bv, wo, bo)
     _check_kernel_operands(args, heads)
     b, s, w = x.shape
     lib = _build.load()
-    qkv = torch.empty((3, b * s, w), dtype=x.dtype, device=x.device)
+    qkv = _qkv_scratch(x, qkv)
     attn = torch.empty((b * s, w), dtype=x.dtype, device=x.device)
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
@@ -237,7 +251,8 @@ def _block_attention_cuda(x, wq, bq, wk, bk, wv, bv, wo, bo, *, heads: int,
 
 
 def _block_attention_ln_cuda(x, gamma, beta, wq, bq, wk, bk, wv, bv, wo, bo, *, heads: int,
-                             causal: bool, residual: bool) -> torch.Tensor:
+                             causal: bool, residual: bool,
+                             qkv: torch.Tensor | None = None) -> torch.Tensor:
     from multimodal_tpu_torch.ops import _build
 
     args = (x, gamma, beta, wq, bq, wk, bk, wv, bv, wo, bo)
@@ -245,7 +260,7 @@ def _block_attention_ln_cuda(x, gamma, beta, wq, bq, wk, bk, wv, bv, wo, bo, *, 
     b, s, w = x.shape
     lib = _build.load()
     ln_stats = torch.empty((2, b * s), dtype=torch.float32, device=x.device)
-    qkv = torch.empty((3, b * s, w), dtype=x.dtype, device=x.device)
+    qkv = _qkv_scratch(x, qkv)
     attn = torch.empty((b * s, w), dtype=x.dtype, device=x.device)
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
@@ -260,14 +275,14 @@ def _block_attention_ln_cuda(x, gamma, beta, wq, bq, wk, bk, wv, bv, wo, bo, *, 
 
 
 def _block_attention_bwd_cuda(x, dy, wq, bq, wk, bk, wv, bv, wo, bo, *, heads: int,
-                              causal: bool):
+                              causal: bool, qkv: torch.Tensor | None = None):
     from multimodal_tpu_torch.ops import _build
 
     args = (x, dy, wq, bq, wk, bk, wv, bv, wo, bo)
     _check_kernel_operands(args, heads)
     b, s, w = x.shape
     lib = _build.load()
-    qkv = torch.empty((3, b * s, w), dtype=x.dtype, device=x.device)
+    qkv = _qkv_scratch(x, qkv)
     do = torch.empty((b * s, w), dtype=x.dtype, device=x.device)
     stats = torch.empty((3, b * heads * s), dtype=torch.float32, device=x.device)
     outs = tuple(torch.empty_like(x) for _ in range(5))  # dx, dq, dk, dv, attnpre
@@ -284,7 +299,8 @@ def _block_attention_bwd_cuda(x, dy, wq, bq, wk, bk, wv, bv, wo, bo, *, heads: i
 
 
 def _block_attention_ln_bwd_cuda(x, dy, gamma, beta, wq, bq, wk, bk, wv, bv, wo, bo, *,
-                                 heads: int, causal: bool, residual: bool):
+                                 heads: int, causal: bool, residual: bool,
+                                 qkv: torch.Tensor | None = None):
     from multimodal_tpu_torch.ops import _build
 
     args = (x, dy, gamma, beta, wq, bq, wk, bk, wv, bv, wo, bo)
@@ -293,7 +309,7 @@ def _block_attention_ln_bwd_cuda(x, dy, gamma, beta, wq, bq, wk, bk, wv, bv, wo,
     lib = _build.load()
     f32 = dict(dtype=torch.float32, device=x.device)
     ln_stats = torch.empty((2, b * s), **f32)
-    qkv = torch.empty((3, b * s, w), dtype=x.dtype, device=x.device)
+    qkv = _qkv_scratch(x, qkv)
     do = torch.empty((b * s, w), dtype=x.dtype, device=x.device)
     stats = torch.empty((3, b * heads * s), **f32)
     g32 = torch.empty((b * s, w), **f32)

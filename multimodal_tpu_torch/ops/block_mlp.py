@@ -18,7 +18,9 @@ f32 sum plus the f32 bias rounded once; the activation is evaluated in f32 from 
 LN(x) as ``round(xhat32) * gamma + beta`` from the f32 ``xhat32 = (x32 - mean) * inv`` (in
 bfloat16 not bit for bit the forward's), rounds ``dh`` before the two products that read it
 but sums ``db1`` from the unrounded values, and forms dx, dgamma and dbeta in f32 with the
-f32 gamma (see ``block_mlp_bwd_reference``). float32 products are true float32.
+f32 gamma (see ``block_mlp_bwd_reference``). On the card every product but c_proj's runs
+the tensor-core GEMM, float32 as 3xTF32 (about 2^-20 relative a product); c_proj's products
+are true float32 on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -31,7 +33,13 @@ from multimodal_tpu_torch.ops.block_attention import LN_EPS, _acc, _ln_stats, ln
 ACTS = ("quick_gelu", "gelu")
 _SQRT_2_OVER_PI = 0.7978845608028654
 _GELU_C = 0.044715
-WGRAD_BLOCKS = 8 * 2 * 132  # blocks the backward's weight-gradient launches aim for
+# blocks the backward's weight-gradient launches aim for (python -m
+# multimodal_tpu_torch.bench_block_mlp: best or within 5% of it at every B=256 shape in bfloat16)
+WGRAD_BLOCKS = 8 * 2 * 132
+# token rows one float32 weight-gradient split may sum: the tensor cores' float32 accumulation
+# loses a little with every add, so the error of one partial grows with its rows (1.1e-5 x
+# max|plain| at 896 rows, 1.07e-4 at 12,800 on the H100, over the 1e-4 limit)
+WGRAD_F32_MAX_ROWS = 2048
 
 launches.register("block_mlp_fwd", "block_mlp_bwd")
 
@@ -153,13 +161,16 @@ def _block_mlp_fwd_cuda(x, gamma, beta, w1, b1, w2, b2, *, act: str, residual: b
     return y, h
 
 
-def _wgrad_splits(t: int, w: int, hid: int) -> int:
+def _wgrad_splits(t: int, w: int, hid: int, dtype: torch.dtype) -> int:
     """Into how many runs of token rows the backward kernel splits its two weight-gradient
-    products: enough blocks (output tiles x splits) for about eight rounds over the card's
-    132 SMs at two blocks each, so that the last round's idle SMs cost little, with at least
-    512 rows to a split."""
+    products: enough blocks (output tiles x splits) for about ``WGRAD_BLOCKS`` over the card's
+    132 SMs, so that the last round's idle SMs cost little, with at least 512 rows to a split;
+    in float32 also at most ``WGRAD_F32_MAX_ROWS`` rows to a split."""
     tiles = (w // 128) * (hid // 128)
-    return max(1, min(-(-WGRAD_BLOCKS // tiles), t // 512))
+    splits = max(1, min(-(-WGRAD_BLOCKS // tiles), t // 512))
+    if dtype == torch.float32:
+        splits = max(splits, -(-t // WGRAD_F32_MAX_ROWS))
+    return splits
 
 
 def _block_mlp_bwd_cuda(x, dy, h, gamma, beta, w1, w2, *, act: str, residual: bool):
@@ -178,7 +189,7 @@ def _block_mlp_bwd_cuda(x, dy, h, gamma, beta, w1, w2, *, act: str, residual: bo
     dx = torch.empty_like(x)
     # partial sums, each formed in a fixed order: one [W,H] and one [H,W] per split of the
     # token rows, one row per 128-token tile (db1) and per 32-token tile (dgamma, dbeta, db2)
-    splits = _wgrad_splits(t, w, hid)
+    splits = _wgrad_splits(t, w, hid, x.dtype)
     dw1_part = torch.empty((splits, w, hid), **f32)
     dw2_part = torch.empty((splits, hid, w), **f32)
     db1_part = torch.empty((lib.mmt_block_mlp_db1_partial_rows(t), hid), **f32)

@@ -58,10 +58,11 @@
 //     the same way, so dq and dv see the same probabilities up to the order of a product's sum.
 //   * The TPU kernel's image groups (_images_per_program) and its stacked [H*S, S] buffers
 //     exist for VMEM and have no counterpart here.
-//   * The recomputed q, k and v do not share bits with the forward's, whose projection GEMM
-//     (gemm_bias_kernel, block_attention_common.cuh) still sums on the CUDA cores in another
-//     order: the TPU kernel too recomputes them in its own body, and the on-card limits (1e-4
-//     and 2e-2 x max|plain|) hold the outputs, not the intermediates.
+//   * The recomputed q, k and v share their bits with the forward's: both run the NN GEMM's
+//     loop of mma_gemm.cuh over the same A values (x; or ln_out, whose elements are what the
+//     forward's LN load transform puts in shared memory, from the same statistics kernel and
+//     ln_apply) in the same order, and add the bias and round alike. chip_smoke.py phase 3
+//     compares the two q/k/v scratch buffers bit for bit.
 // Fewer launches are later work.
 
 #include "attention_passes.cuh"
@@ -142,7 +143,7 @@ cudaError_t launch_bwd(const void* x, const void* dy, const void* gamma, const v
     qkv.c[z] = static_cast<T*>(buf.qkv) + z * plane;
   }
   qkv.m = m, qkv.n = w, qkv.kseg = w, qkv.nseg = 1;
-  err = launch_mma_gemm<T, T, true>(qkv, 3, stream);
+  err = launch_mma_gemm<T, T, kFormNN>(qkv, 3, stream);
   if (err != cudaSuccess) return err;
 
   // do = dy @ Wo^T
@@ -151,7 +152,7 @@ cudaError_t launch_bwd(const void* x, const void* dy, const void* gamma, const v
   dout.b[0] = wts[3];
   dout.c[0] = buf.dout;
   dout.m = m, dout.n = w, dout.kseg = w, dout.nseg = 1;
-  err = launch_mma_gemm<T, T, false>(dout, 1, stream);
+  err = launch_mma_gemm<T, T, kFormNT>(dout, 1, stream);
   if (err != cudaSuccess) return err;
 
   const float scale = (float)std::pow((double)d, -0.5);  // as the forward's
@@ -172,10 +173,10 @@ cudaError_t launch_bwd(const void* x, const void* dy, const void* gamma, const v
   dx.m = m, dx.n = w, dx.kseg = w, dx.nseg = 3;
   if (!ln) {
     dx.c[0] = buf.dx;
-    return launch_mma_gemm<T, T, false>(dx, 1, stream);
+    return launch_mma_gemm<T, T, kFormNT>(dx, 1, stream);
   }
   dx.c[0] = buf.g32;
-  err = launch_mma_gemm<T, float, false>(dx, 1, stream);
+  err = launch_mma_gemm<T, float, kFormNT>(dx, 1, stream);
   if (err != cudaSuccess) return err;
 
   ln_bwd_kernel<T, T><<<(m + kLnBwdRows - 1) / kLnBwdRows, kLnThreads, 0, stream>>>(

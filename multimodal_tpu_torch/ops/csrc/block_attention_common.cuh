@@ -1,10 +1,8 @@
 // Shared pieces of the kernels (block_attention_fwd.cu, block_attention_bwd.cu,
 // fused_attention.cu, block_mlp.cu): dtype conversions, 4-wide loads and stores, the row-wise
-// LayerNorm (f32 statistics, compute-dtype arithmetic) with the row kernel of its vjp, and
-// the projection GEMM with bias (C = A @ B +
-// bias, f32 accumulation, one rounding), which can normalize its A tile as it loads it and
-// add a residual in its epilogue. Everything lives in an anonymous namespace, so each source
-// that includes it gets its own copy and the objects link into one library.
+// LayerNorm (f32 statistics, compute-dtype arithmetic) with the row kernel of its vjp. The
+// block kernels' projection GEMM is mma_gemm.cuh. Everything lives in an anonymous namespace, so
+// each source that includes it gets its own copy and the objects link into one library.
 
 #pragma once
 
@@ -193,150 +191,6 @@ ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* __
     db_part[(size_t)blockIdx.x * w + c] = db;
     if (dy_part != nullptr) dy_part[(size_t)blockIdx.x * w + c] = dys;
   }
-}
-
-// ----------------------------------------------------------------------------- projections
-// C[z] = A @ B[z] + bias[z] for up to three weight sets sharing one A [M,K]; B [K,N] row
-// major, C [M,N] row major. Requires N % 128 == 0 and K % 16 == 0 (W % 128 == 0 in the
-// caller); M is ragged and masked. With kLN, A is the pre-LN stream and every element is
-// normalized as it enters shared memory (ln_apply with the row's saved statistics), so
-// LN(A) never reaches device memory. With `residual` ([M,N], so N == K), the epilogue
-// rounds A @ B + bias to T first and then adds the residual, rounding again.
-constexpr int kBM = 128, kBN = 128, kBK = 16, kGemmThreads = 256;
-
-struct GemmOperands {
-  const void* b[3];
-  const void* bias[3];
-  void* c[3];
-  const void* residual;  // null, or [M,N] of T added in the epilogue
-  const float* ln_mean;  // kLN only: [M] row means and rsqrt(var + eps), f32
-  const float* ln_inv;
-  const void* ln_gamma;  // kLN only: [K] of T
-  const void* ln_beta;
-};
-
-template <typename T, bool kLN>
-__global__ void __launch_bounds__(kGemmThreads)
-gemm_bias_kernel(const T* __restrict__ a, GemmOperands ops, int m, int n, int k) {
-  const T* __restrict__ b = static_cast<const T*>(ops.b[blockIdx.z]);
-  const T* __restrict__ bias = static_cast<const T*>(ops.bias[blockIdx.z]);
-  T* __restrict__ c = static_cast<T*>(ops.c[blockIdx.z]);
-  const T* __restrict__ res = static_cast<const T*>(ops.residual);
-
-  __shared__ float as[kBK][kBM];  // A tile, transposed: as[kk][row]
-  __shared__ float bs[kBK][kBN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  // kLN: the statistics of this thread's two A rows, rounded to T as _ln_rows casts them
-  float mean_t[2] = {0.f, 0.f}, inv_t[2] = {0.f, 0.f};
-  if constexpr (kLN) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + (tid + h * kGemmThreads) / 4;
-      if (row < m) {
-        mean_t[h] = round_to<T>(ops.ln_mean[row]);
-        inv_t[h] = round_to<T>(ops.ln_inv[row]);
-      }
-    }
-  }
-
-  for (int k0 = 0; k0 < k; k0 += kBK) {
-    // A: 128 rows x 16 cols, two groups of 4 per thread
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int e = tid + h * kGemmThreads;  // 0..511
-      const int row = e / 4, col = (e % 4) * 4;
-      float v[4] = {0.f, 0.f, 0.f, 0.f};
-      if (m0 + row < m) {
-        load4(a + (size_t)(m0 + row) * k + k0 + col, v);
-        if constexpr (kLN) {
-          float g[4], bt[4];
-          load4(static_cast<const T*>(ops.ln_gamma) + k0 + col, g);
-          load4(static_cast<const T*>(ops.ln_beta) + k0 + col, bt);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) v[i] = ln_apply<T>(v[i], mean_t[h], inv_t[h], g[i], bt[i]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) as[col + i][row] = v[i];
-    }
-    // B: 16 rows x 128 cols, two groups of 4 per thread
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int e = tid + h * kGemmThreads;
-      const int row = e / 32, col = (e % 32) * 4;
-      float v[4];
-      load4(b + (size_t)(k0 + row) * n + n0 + col, v);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) bs[row][col + i] = v[i];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      // rows {ty*4..+3, 64+ty*4..+3}, cols {tx*4..+3, 64+tx*4..+3}: conflict-free float4 reads
-      const float4 a0 = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&as[kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&bs[kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&bs[kk][64 + tx * 4]);
-      const float ar[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float br[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // epilogue: + bias in f32, one rounding to T; then + residual, rounded again
-  float bv[8];
-  load4(bias + n0 + tx * 4, bv);
-  load4(bias + n0 + 64 + tx * 4, bv + 4);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4));
-    if (row >= m) continue;
-    float lo[4], hi[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      lo[j] = acc[i][j] + bv[j];
-      hi[j] = acc[i][4 + j] + bv[4 + j];
-    }
-    if (res != nullptr) {
-      float rl[4], rh[4];
-      load4(res + (size_t)row * n + n0 + tx * 4, rl);
-      load4(res + (size_t)row * n + n0 + 64 + tx * 4, rh);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        lo[j] = __fadd_rn(round_to<T>(lo[j]), rl[j]);
-        hi[j] = __fadd_rn(round_to<T>(hi[j]), rh[j]);
-      }
-    }
-    store4(c + (size_t)row * n + n0 + tx * 4, lo);
-    store4(c + (size_t)row * n + n0 + 64 + tx * 4, hi);
-  }
-}
-
-// q, k and v as three weight sets of one launch (gridDim.z = 3) into a [3, M, W] scratch
-template <typename T>
-GemmOperands qkv_operands(const void* const* wts, const void* const* biases, void* qkv,
-                          size_t plane) {
-  GemmOperands ops = {};
-  for (int z = 0; z < 3; ++z) {
-    ops.b[z] = wts[z];
-    ops.bias[z] = biases[z];
-    ops.c[z] = static_cast<T*>(qkv) + z * plane;
-  }
-  return ops;
 }
 
 }  // namespace

@@ -15,53 +15,60 @@
 //   y     = attn @ Wo + bo              as the projections; with the residual, y is rounded
 //                                       to T first and y + x rounds again
 //
-// in three launches: one tiled GEMM for q, k and v (gridDim.z = 3), one attention kernel
-// per (query tile, head, image), one tiled GEMM for the output projection. The LN-fold form
-// adds a small row-statistics launch in front (two f32 numbers per row); the q/k/v GEMM then
-// normalizes each element of its A tile as it loads it, and the output GEMM's epilogue adds
-// the raw x, so neither LN(x) nor a separate add pass touches device memory. The projection
-// products are float FMAs on the CUDA cores (for bf16 the operands are widened to float in
-// shared memory), so float32 is true float32 with no TF32 anywhere; the attention core
-// (attention_passes.cuh) runs bfloat16 on the tensor cores and float32 on register tiles.
+// in three launches: the tensor-core GEMM of mma_gemm.cuh in its NN form for q, k and v (three
+// weight sets, gridDim.z = 3), one attention kernel per (query tile, head, image), the same GEMM
+// for the output projection. The LN-fold form adds a small row-statistics launch in front (two
+// f32 numbers per row); the q/k/v GEMM then normalizes the A chunks it lands in shared memory
+// (its LN load transform), and the output GEMM's store adds the raw x (its residual store:
+// bias, one rounding to T, + x, a second rounding), so neither LN(x) nor a separate add pass
+// touches device memory. The GEMMs run bf16 mma.sync in bfloat16 and 3xTF32 in float32 (about
+// 2^-20 relative a product, within the 1e-4 x max|plain| limit of the on-card check); the
+// attention core (attention_passes.cuh) runs bfloat16 on the tensor cores and float32 on
+// register tiles. The backward's recompute of q, k and v is the same GEMM over the same A
+// values (x, or ln_out, whose elements are the LN transform's), so it repeats these q, k and v
+// bit for bit (chip_smoke.py phase 3 checks it).
 //
 // What bounds it on the card: the four [B*S,W]x[W,W] projections carry ~97% of the FLOPs at
-// ViT-B/32 shapes (S=50, W=768), so the kernel is compute-bound on the GEMMs. The design
-// keeps them on a 128x128 output tile per block with an 8x8 register micro-tile per thread
-// (16 FMAs per shared-memory load), which is the standard way to reach a useful share of
-// the float32 FMA rate without tensor cores. The attention core owns a 64-row query tile per
-// block and walks the keys in tiles with an online softmax, so no [B,H,S,S] tensor ever
-// reaches device memory and no [rows, S] logits buffer sits in shared memory. The TPU
-// kernel's image grouping (_images_per_program) is VMEM plumbing and has no counterpart here.
-// Tensor-core GEMMs and a single fused launch are later work.
+// ViT-B/32 shapes (S=50, W=768), so the kernel is bound by operations, on the tensor cores.
+// The attention core owns a 64-row query tile per block and walks the keys in tiles with an
+// online softmax, so no [B,H,S,S] tensor ever reaches device memory and no [rows, S] logits
+// buffer sits in shared memory. The TPU kernel's image grouping (_images_per_program) is VMEM
+// plumbing and has no counterpart here. A single fused launch is later work.
 
 #include "attention_passes.cuh"
+#include "mma_gemm.cuh"
 
 namespace {
 
-// The three stages after the optional statistics launch. ln != nullptr selects the LN-fold
-// form: `ln` carries the row statistics, gamma and beta for the q/k/v GEMM's A-tile load, and
-// `residual` (the raw x, or null) rides the output projection's epilogue.
+// The three stages after the optional statistics launch. ln_stats != nullptr selects the
+// LN-fold form: the row statistics ([2, B*S]: mean, inv), gamma and beta feed the q/k/v GEMM's
+// load transform, and `residual` (the raw x, or null) rides the output projection's store.
 template <typename T>
-cudaError_t launch(const void* x, const GemmOperands* ln, const void* residual,
-                   const void* const* wts, const void* const* biases, void* qkv, void* attn,
-                   void* y, int b, int s, int w, int heads, int causal, cudaStream_t stream) {
+cudaError_t launch(const void* x, const float* ln_stats, const void* gamma, const void* beta,
+                   const void* residual, const void* const* wts, const void* const* biases,
+                   void* qkv, void* attn, void* y, int b, int s, int w, int heads, int causal,
+                   cudaStream_t stream) {
   const int m = b * s, d = w / heads;
   const size_t plane = (size_t)m * w;
-  const dim3 gemm_grid(w / kBN, (m + kBM - 1) / kBM, 3);
 
-  GemmOperands qkv_ops = qkv_operands<T>(wts, biases, qkv, plane);
-  if (ln != nullptr) {
-    qkv_ops.ln_mean = ln->ln_mean;
-    qkv_ops.ln_inv = ln->ln_inv;
-    qkv_ops.ln_gamma = ln->ln_gamma;
-    qkv_ops.ln_beta = ln->ln_beta;
-    gemm_bias_kernel<T, true><<<gemm_grid, kGemmThreads, 0, stream>>>(
-        static_cast<const T*>(x), qkv_ops, m, w, w);
-  } else {
-    gemm_bias_kernel<T, false><<<gemm_grid, kGemmThreads, 0, stream>>>(
-        static_cast<const T*>(x), qkv_ops, m, w, w);
+  MmaGemmArgs proj = {};
+  proj.a[0] = x;
+  for (int z = 0; z < 3; ++z) {
+    proj.b[z] = wts[z];
+    proj.bias[z] = biases[z];
+    proj.c[z] = static_cast<T*>(qkv) + z * plane;
   }
-  cudaError_t err = cudaGetLastError();
+  proj.m = m, proj.n = w, proj.kseg = w, proj.nseg = 1;
+  cudaError_t err;
+  if (ln_stats != nullptr) {
+    proj.ln_mean = ln_stats;
+    proj.ln_inv = ln_stats + m;
+    proj.ln_gamma = gamma;
+    proj.ln_beta = beta;
+    err = launch_mma_gemm<T, T, kFormNN, kLoadLn, kStoreResidual>(proj, 3, stream);
+  } else {
+    err = launch_mma_gemm<T, T, kFormNN, kLoadPlain, kStoreResidual>(proj, 3, stream);
+  }
   if (err != cudaSuccess) return err;
 
   const float scale = (float)std::pow((double)d, -0.5);  // as the reference's d ** -0.5
@@ -70,14 +77,14 @@ cudaError_t launch(const void* x, const GemmOperands* ln, const void* residual,
                                  w, heads, d, scale, causal, stream);
   if (err != cudaSuccess) return err;
 
-  GemmOperands out_ops = {};
-  out_ops.b[0] = wts[3];
-  out_ops.bias[0] = biases[3];
-  out_ops.c[0] = y;
-  out_ops.residual = residual;
-  gemm_bias_kernel<T, false><<<dim3(w / kBN, (m + kBM - 1) / kBM, 1), kGemmThreads, 0, stream>>>(
-      static_cast<const T*>(attn), out_ops, m, w, w);
-  return cudaGetLastError();
+  MmaGemmArgs out = {};
+  out.a[0] = attn;
+  out.b[0] = wts[3];
+  out.bias[0] = biases[3];
+  out.c[0] = y;
+  out.residual = residual;
+  out.m = m, out.n = w, out.kseg = w, out.nseg = 1;
+  return launch_mma_gemm<T, T, kFormNN, kLoadPlain, kStoreResidual>(out, 1, stream);
 }
 
 // LN-fold form: one statistics launch (mean and rsqrt(var + eps) per row, f32), then the
@@ -91,13 +98,8 @@ cudaError_t launch_ln(const void* x, const void* gamma, const void* beta,
   cudaError_t err =
       launch_ln_stats<T>(static_cast<const T*>(x), ln_stats, ln_stats + m, m, w, eps, stream);
   if (err != cudaSuccess) return err;
-  GemmOperands ln = {};
-  ln.ln_mean = ln_stats;
-  ln.ln_inv = ln_stats + m;
-  ln.ln_gamma = gamma;
-  ln.ln_beta = beta;
-  return launch<T>(x, &ln, residual ? x : nullptr, wts, biases, qkv, attn, y, b, s, w, heads,
-                   causal, stream);
+  return launch<T>(x, ln_stats, gamma, beta, residual ? x : nullptr, wts, biases, qkv, attn, y,
+                   b, s, w, heads, causal, stream);
 }
 
 bool shape_ok(int b, int s, int w, int heads) {
@@ -122,11 +124,11 @@ int mmt_block_attention_fwd(int dtype, const void* x, const void* wq, const void
   const void* biases[4] = {bq, bk, bv, bo};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch<float>(x, nullptr, nullptr, wts, biases, qkv, attn, y, b, s, w, heads,
-                              causal, st);
+    return (int)launch<float>(x, nullptr, nullptr, nullptr, nullptr, wts, biases, qkv, attn, y,
+                              b, s, w, heads, causal, st);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(x, nullptr, nullptr, wts, biases, qkv, attn, y, b, s, w,
-                                      heads, causal, st);
+    return (int)launch<__nv_bfloat16>(x, nullptr, nullptr, nullptr, nullptr, wts, biases, qkv,
+                                      attn, y, b, s, w, heads, causal, st);
   return (int)cudaErrorInvalidValue;
 }
 

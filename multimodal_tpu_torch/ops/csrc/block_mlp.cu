@@ -29,55 +29,36 @@
 //                                   all in f32 with the f32 gamma, rounded once
 //
 // What bounds it on the card: the two (forward) and four (backward) [T,W]x[W,H]-sized
-// products are all of the FLOPs, so both kernels are compute-bound on CUDA-core float FMAs.
-// What the design does. The TPU kernel is one program per tile of tokens that holds both
-// weight matrices and an f32 [M,H] hidden tile in VMEM and carries the f32 weight-gradient
-// sums across a sequential grid; an SM has 227 KB and blocks run in parallel, so here every
-// product is a tiled GEMM of its own (128x128 output tile, 8x8 register micro-tile, as the
-// block-attention projections) and the elementwise work rides the GEMMs' loads and
-// epilogues:
-//   forward, 3 launches: row statistics; c_fc with LN in its A-tile loads and h written from
-//     its epilogue (gemm_bias_kernel<T, true>); c_proj with round_T(act(f32(h))) applied as
-//     the A tile is loaded and + b2 + x in a single-rounding epilogue.
-//   backward, 6 launches: row statistics; dy @ W2^T with act'(h) in the epilogue, which
-//     writes dh and one partial db1 row per 128-token tile; dh @ W1^T into f32; the LN vjp
-//     row kernel (dx and partial dgamma, dbeta, db2 rows per 32 tokens); dW2 and dW1 as
-//     products over K = T whose A-tile loads recompute g from h and ln_b from x, split over
-//     the token rows into f32 partial sums (the output tiles alone, 144 at W=768 and H=3072,
-//     do not fill 132 SMs evenly), summed in order and cast outside.
+// products are all of the FLOPs, so both kernels are bound by operations. What the design
+// does. The TPU kernel is one program per tile of tokens that holds both weight matrices and
+// an f32 [M,H] hidden tile in VMEM and carries the f32 weight-gradient sums across a
+// sequential grid; an SM has 227 KB and blocks run in parallel, so here every product is a
+// tiled GEMM of its own and the elementwise work rides the GEMMs' loads and stores. All but
+// c_proj run the tensor-core GEMM of mma_gemm.cuh (bf16 mma.sync in bfloat16, 3xTF32 in
+// float32), each with its own load transform and store:
+//   forward, 3 launches: row statistics; c_fc, the NN form with the LN load transform and h
+//     written by its store; c_proj (mlp_proj_kernel, float FMAs on the CUDA cores with 8x8
+//     register micro-tiles) with round_T(act(f32(h))) applied as the A tile is loaded and
+//     + b2 + x in a single-rounding epilogue.
+//   backward, 6 launches: row statistics; dy @ W2^T, the NT form with the act' store, which
+//     writes dh and one partial db1 row per 128-token tile; dh @ W1^T, the NT form into f32;
+//     the LN vjp row kernel (dx and partial dgamma, dbeta, db2 rows per 32 tokens); dW2 and
+//     dW1, the TN form over K = T with the act and LN-b load transforms (g from h, ln_b from
+//     x), split over the token rows into f32 partial sums (the output tiles alone, 144 at
+//     W=768 and H=3072, do not fill 132 SMs evenly), summed in order and cast outside.
 // Writing dh [T,H] to device memory is what the TPU kernel avoids; on this card that
 // traffic (2 T H elements) is small beside the products. Rows past a ragged T are masked in
-// every load and every column sum. The column sums go to partial rows in a fixed order and
-// are summed outside: no float atomics, so a result never differs from run to run. float32
-// is true float32. Tensor cores and fewer launches are later work.
+// every load, every transform and every column sum. The column sums go to partial rows in a
+// fixed order and are summed outside: no float atomics, so a result never differs from run to
+// run. float32 products run 3xTF32 (about 2^-20 relative a product) but c_proj's, which are
+// true float32. Fewer launches are later work.
 
-#include "block_attention_common.cuh"
+#include "mma_gemm.cuh"
 
 namespace {
 
-constexpr int kActQuickGelu = 0, kActGelu = 1;
-constexpr float kSqrt2OverPi = 0.7978845608028654f, kGeluC = 0.044715f;
-
-__device__ __forceinline__ float sigmoid_f(float z) { return 1.f / (1.f + expf(-z)); }
-
-// act(h) in f32
-__device__ __forceinline__ float act_fwd(float h, int act) {
-  if (act == kActQuickGelu) return h * sigmoid_f(1.702f * h);
-  const float u = kSqrt2OverPi * (h + kGeluC * h * h * h);
-  return 0.5f * h * (1.f + tanhf(u));
-}
-
-// d act / d h in f32
-__device__ __forceinline__ float act_bwd(float h, int act) {
-  if (act == kActQuickGelu) {
-    const float s = sigmoid_f(1.702f * h);
-    return s + h * 1.702f * s * (1.f - s);
-  }
-  const float u = kSqrt2OverPi * (h + kGeluC * h * h * h);
-  const float t = tanhf(u);
-  const float du = kSqrt2OverPi * (1.f + 3.f * kGeluC * h * h);
-  return 0.5f * (1.f + t) + 0.5f * h * (1.f - t * t) * du;
-}
+// c_proj's tiles: 128 x 128 of the output per block of 256 threads, K in steps of 16
+constexpr int kBM = 128, kBN = 128, kBK = 16, kGemmThreads = 256;
 
 // ----------------------------------------------------------------------------- tiles
 // A 128 x 16 tile of a row-major [R, ld] matrix, rows r0.. (masked at rmax) and columns
@@ -202,132 +183,6 @@ mlp_proj_kernel(const T* __restrict__ h, const T* __restrict__ w2, const T* __re
   }
 }
 
-// ----------------------------------------------------------------------------- backward, W^T
-// C[M,N] = A[M,K] @ Wt[N,K]^T in f32 (Wt row major, i.e. an [in,out] weight read as its
-// transpose). N % 128 == 0, K % 16 == 0; M ragged and masked.
-//   kActGrad: A = dy, Wt = W2; the epilogue multiplies by act'(f32(h[M,N])), writes the
-//     product rounded to T (dh) and the tile's column sums of the unrounded values as row
-//     blockIdx.y of `part` [ceil(M/128), N] (db1's partial sums).
-//   else: A = dh, Wt = W1; the epilogue writes the f32 sums (dln).
-template <typename T, bool kActGrad>
-__global__ void __launch_bounds__(kGemmThreads)
-mlp_nt_kernel(const T* __restrict__ a, const T* __restrict__ wt, const T* __restrict__ h,
-              T* __restrict__ dh, float* __restrict__ part, float* __restrict__ c32, int m,
-              int n, int k, int act) {
-  __shared__ __align__(16) float as[kBK][kBM];
-  __shared__ __align__(16) float bs[kBK][kBN];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  float acc[8][8];
-  zero_acc(acc);
-
-  for (int k0 = 0; k0 < k; k0 += kBK) {
-    load_rows_tile(a, k, m0, m, k0, as, tid, Identity());
-    load_rows_tile(wt, k, n0, n, k0, bs, tid, Identity());
-    __syncthreads();
-    tile_fma(as, bs, tx, ty, acc);
-    __syncthreads();
-  }
-
-  float colsum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + acc_row(ty, i);
-    if (row >= m) continue;
-    const size_t at = (size_t)row * n + n0;
-    if constexpr (kActGrad) {
-      float hv[8], out[8];
-      load4(h + at + tx * 4, hv);
-      load4(h + at + 64 + tx * 4, hv + 4);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        out[j] = __fmul_rn(acc[i][j], act_bwd(hv[j], act));
-        colsum[j] += out[j];
-      }
-      store4(dh + at + tx * 4, out);
-      store4(dh + at + 64 + tx * 4, out + 4);
-    } else {
-      store4(c32 + at + tx * 4, acc[i]);
-      store4(c32 + at + 64 + tx * 4, acc[i] + 4);
-    }
-  }
-  if constexpr (kActGrad) {
-    // the 16 row groups of the tile, summed in order by one thread per column; `as` is free
-    // after the loop's last barrier
-    float (*red)[kBM] = as;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      red[ty][tx * 4 + j] = colsum[j];
-      red[ty][64 + tx * 4 + j] = colsum[4 + j];
-    }
-    __syncthreads();
-    if (tid < kBN) {
-      float sum = 0.f;
-#pragma unroll
-      for (int g = 0; g < kGemmThreads / 16; ++g) sum += red[g][tid];
-      part[(size_t)blockIdx.y * n + n0 + tid] = sum;
-    }
-  }
-}
-
-// ----------------------------------------------------------------------------- weight grads
-// C_z[M,N] = A'[K_z,M]^T @ B[K_z,N] in f32, where block z of gridDim.z owns the token rows
-// K_z = [z * k_per_split, (z + 1) * k_per_split) of K = T (ragged, masked): one f32 partial
-// [M,N] per split, summed over z in order and rounded outside. The split is there because
-// M N / 128^2 output tiles alone (144 at W=768, H=3072) do not fill 132 SMs evenly, while K
-// is tens of thousands of rows long. M % 128 == 0, N % 128 == 0, k_per_split % 16 == 0.
-//   kLn: A = x [T,W], A' = round_T((x32 - mean) * inv) * gamma_T + beta_T, rounding to T
-//     after every operation (the backward's form of LN(x)); B = dh. C = dW1 [W,H].
-//   else: A = h [T,H], A' = round_T(act(f32(h))); B = dy. C = dW2 [H,W].
-template <typename T, bool kLn>
-__global__ void __launch_bounds__(kGemmThreads)
-mlp_wgrad_kernel(const T* __restrict__ a, const T* __restrict__ b, float* __restrict__ c,
-                 const float* __restrict__ mean, const float* __restrict__ inv,
-                 const T* __restrict__ gamma, const T* __restrict__ beta, int kdim,
-                 int k_per_split, int m, int n, int act) {
-  __shared__ __align__(16) float as[kBK][kBM];
-  __shared__ __align__(16) float bs[kBK][kBN];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int k_begin = blockIdx.z * k_per_split, k_end = min(kdim, k_begin + k_per_split);
-  float acc[8][8];
-  zero_acc(acc);
-
-  // kLn: gamma and beta of this thread's four A columns (the same in both of its tile rows)
-  float gm[4] = {0.f, 0.f, 0.f, 0.f}, bt[4] = {0.f, 0.f, 0.f, 0.f};
-  if constexpr (kLn) {
-    load4(gamma + m0 + (tid % 32) * 4, gm);
-    load4(beta + m0 + (tid % 32) * 4, bt);
-  }
-  auto transform = [&](float* v, int row, int) {
-    if constexpr (kLn) {
-      const float mu = mean[row], iv = inv[row];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float xhat = round_to<T>(__fmul_rn(__fsub_rn(v[i], mu), iv));
-        v[i] = round_to<T>(__fadd_rn(round_to<T>(__fmul_rn(xhat, gm[i])), bt[i]));
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) v[i] = round_to<T>(act_fwd(v[i], act));
-    }
-  };
-  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
-    load_cols_tile(a, m, k0, k_end, m0, as, tid, transform);
-    load_cols_tile(b, n, k0, k_end, n0, bs, tid, Identity());
-    __syncthreads();
-    tile_fma(as, bs, tx, ty, acc);
-    __syncthreads();
-  }
-  float* cz = c + (size_t)blockIdx.z * m * n;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const size_t at = (size_t)(m0 + acc_row(ty, i)) * n + n0;
-    store4(cz + at + tx * 4, acc[i]);
-    store4(cz + at + 64 + tx * 4, acc[i] + 4);
-  }
-}
-
 // ----------------------------------------------------------------------------- launches
 template <typename T>
 cudaError_t launch_fwd(const void* x, const void* gamma, const void* beta, const void* w1,
@@ -337,22 +192,22 @@ cudaError_t launch_fwd(const void* x, const void* gamma, const void* beta, const
   const T* xp = static_cast<const T*>(x);
   cudaError_t err = launch_ln_stats<T>(xp, ln_stats, ln_stats + t, t, w, eps, stream);
   if (err != cudaSuccess) return err;
-  const int row_tiles = (t + kBM - 1) / kBM;
 
-  GemmOperands fc = {};
+  // h = round_T(LN(x) @ W1 + b1)
+  MmaGemmArgs fc = {};
+  fc.a[0] = x;
   fc.b[0] = w1;
   fc.bias[0] = b1;
   fc.c[0] = h;
+  fc.m = t, fc.n = hid, fc.kseg = w, fc.nseg = 1;
   fc.ln_mean = ln_stats;
   fc.ln_inv = ln_stats + t;
   fc.ln_gamma = gamma;
   fc.ln_beta = beta;
-  gemm_bias_kernel<T, true><<<dim3(hid / kBN, row_tiles, 1), kGemmThreads, 0, stream>>>(
-      xp, fc, t, hid, w);
-  err = cudaGetLastError();
+  err = launch_mma_gemm<T, T, kFormNN, kLoadLn>(fc, 1, stream);
   if (err != cudaSuccess) return err;
 
-  mlp_proj_kernel<T><<<dim3(w / kBN, row_tiles), kGemmThreads, 0, stream>>>(
+  mlp_proj_kernel<T><<<dim3(w / kBN, (t + kBM - 1) / kBM), kGemmThreads, 0, stream>>>(
       static_cast<const T*>(h), static_cast<const T*>(w2), static_cast<const T*>(b2),
       residual ? xp : nullptr, static_cast<T*>(y), t, w, hid, act);
   return cudaGetLastError();
@@ -374,46 +229,61 @@ cudaError_t launch_bwd(const void* x, const void* dy, const void* h, const void*
                        const MlpBwdBuffers& buf, int t, int w, int hid, int act, int residual,
                        int splits, float eps, cudaStream_t stream) {
   const T* xp = static_cast<const T*>(x);
-  const T* dyp = static_cast<const T*>(dy);
-  const T* hp = static_cast<const T*>(h);
-  T* dhp = static_cast<T*>(buf.dh);
   float* mean = buf.ln_stats;
   float* inv = buf.ln_stats + t;
-  const int row_tiles = (t + kBM - 1) / kBM;
   cudaError_t err = launch_ln_stats<T>(xp, mean, inv, t, w, eps, stream);
   if (err != cudaSuccess) return err;
 
   // dh = round_T((dy @ W2^T) * act'(h)), db1 partials
-  mlp_nt_kernel<T, true><<<dim3(hid / kBN, row_tiles), kGemmThreads, 0, stream>>>(
-      dyp, static_cast<const T*>(w2), hp, dhp, buf.db1_part, nullptr, t, hid, w, act);
-  err = cudaGetLastError();
+  MmaGemmArgs dh = {};
+  dh.a[0] = dy;
+  dh.b[0] = w2;
+  dh.c[0] = buf.dh;
+  dh.m = t, dh.n = hid, dh.kseg = w, dh.nseg = 1;
+  dh.act = act;
+  dh.h = h;
+  dh.col_part = buf.db1_part;
+  err = launch_mma_gemm<T, T, kFormNT, kLoadPlain, kStoreActGrad>(dh, 1, stream);
   if (err != cudaSuccess) return err;
 
   // dln = dh @ W1^T, f32
-  mlp_nt_kernel<T, false><<<dim3(w / kBN, row_tiles), kGemmThreads, 0, stream>>>(
-      dhp, static_cast<const T*>(w1), nullptr, nullptr, nullptr, buf.dln, t, w, hid, act);
-  err = cudaGetLastError();
+  MmaGemmArgs dln = {};
+  dln.a[0] = buf.dh;
+  dln.b[0] = w1;
+  dln.c[0] = buf.dln;
+  dln.m = t, dln.n = w, dln.kseg = hid, dln.nseg = 1;
+  err = launch_mma_gemm<T, float, kFormNT>(dln, 1, stream);
   if (err != cudaSuccess) return err;
 
   // dx, and the dgamma, dbeta and db2 partials
   const int part_rows = (t + kLnBwdRows - 1) / kLnBwdRows;
   const size_t plane = (size_t)part_rows * w;
   ln_bwd_kernel<T, float><<<part_rows, kLnThreads, 0, stream>>>(
-      xp, dyp, buf.dln, mean, inv, gamma32, static_cast<T*>(buf.dx), buf.col_part,
-      buf.col_part + plane, buf.col_part + 2 * plane, residual, t, w);
+      xp, static_cast<const T*>(dy), buf.dln, mean, inv, gamma32, static_cast<T*>(buf.dx),
+      buf.col_part, buf.col_part + plane, buf.col_part + 2 * plane, residual, t, w);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   // dW2 = g^T dy and dW1 = ln_b^T dh over K = T, `splits` partial sums each
-  const int k_per_split = ((t + splits - 1) / splits + kBK - 1) / kBK * kBK;
-  mlp_wgrad_kernel<T, false><<<dim3(w / kBN, hid / kBM, splits), kGemmThreads, 0, stream>>>(
-      hp, dyp, buf.dw2_part, nullptr, nullptr, nullptr, nullptr, t, k_per_split, hid, w, act);
-  err = cudaGetLastError();
+  const int k_per_split = ((t + splits - 1) / splits + kGemmBK - 1) / kGemmBK * kGemmBK;
+  MmaGemmArgs dw2 = {};
+  dw2.a[0] = h;
+  dw2.b[0] = dy;
+  dw2.c[0] = buf.dw2_part;
+  dw2.m = hid, dw2.n = w, dw2.kseg = t, dw2.k_per_split = k_per_split;
+  dw2.act = act;
+  err = launch_mma_gemm<T, float, kFormTN, kLoadAct>(dw2, splits, stream);
   if (err != cudaSuccess) return err;
-  mlp_wgrad_kernel<T, true><<<dim3(hid / kBN, w / kBM, splits), kGemmThreads, 0, stream>>>(
-      xp, dhp, buf.dw1_part, mean, inv, static_cast<const T*>(gamma),
-      static_cast<const T*>(beta), t, k_per_split, w, hid, act);
-  return cudaGetLastError();
+  MmaGemmArgs dw1 = {};
+  dw1.a[0] = x;
+  dw1.b[0] = buf.dh;
+  dw1.c[0] = buf.dw1_part;
+  dw1.m = w, dw1.n = hid, dw1.kseg = t, dw1.k_per_split = k_per_split;
+  dw1.ln_mean = mean;
+  dw1.ln_inv = inv;
+  dw1.ln_gamma = gamma;
+  dw1.ln_beta = beta;
+  return launch_mma_gemm<T, float, kFormTN, kLoadLnB>(dw1, splits, stream);
 }
 
 bool mlp_shape_ok(int t, int w, int hid, int act) {
@@ -482,6 +352,6 @@ int mmt_block_mlp_bwd(int dtype, const void* x, const void* dy, const void* h,
 }
 
 // Rows of the db1 partial-sum output for t token rows.
-int mmt_block_mlp_db1_partial_rows(int t) { return (t + kBM - 1) / kBM; }
+int mmt_block_mlp_db1_partial_rows(int t) { return (t + kGemmBM - 1) / kGemmBM; }
 
 }  // extern "C"

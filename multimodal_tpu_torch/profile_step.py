@@ -31,15 +31,23 @@ import time
 import numpy as np
 import torch
 
+from multimodal_tpu_torch.ops._build import gemm_signature
+
+# the tensor-core GEMM's instantiations (ops/csrc/mma_gemm.cuh) by (form, load, store), read
+# from the kernel name's template arguments; the first match wins, None matches anything
+GEMM_FAMILIES = [
+    (("NN", None, "residual"),
+     "block forward GEMMs (mma_gemm_kernel NN, residual store: q/k/v with or without the LN "
+     "load, out projection)"),
+    (("NN", "LN", "round"), "fused MLP forward c_fc (mma_gemm_kernel NN, LN load)"),
+    (("NT", None, "act'"), "fused MLP backward dh (mma_gemm_kernel NT, act' store, db1 partials)"),
+    (("TN", None, None), "fused MLP weight gradients (mma_gemm_kernel TN, act and LN-b loads)"),
+    ((None, None, None),
+     "block backward GEMMs (mma_gemm_kernel: q/k/v recompute, do, dx or g over K=3W; with "
+     "block_mlp also the MLP's dln)"),
+]
 FAMILIES = [  # (family, substrings of the kernel name), first match wins
-    ("block-attention projection GEMMs (gemm_bias_kernel, LN folded in its loads or not)",
-     ("gemm_bias_kernel",)),
-    ("block backward tensor-core GEMMs (mma_gemm_kernel: q/k/v, do = dy Wo^T, dx or g over "
-     "K=3W)", ("mma_gemm_kernel",)),
-    ("fused MLP forward c_proj (mlp_proj_kernel; c_fc is a gemm_bias_kernel)",
-     ("mlp_proj_kernel",)),
-    ("fused MLP backward dh and dln (mlp_nt_kernel)", ("mlp_nt_kernel",)),
-    ("fused MLP weight gradients (mlp_wgrad_kernel)", ("mlp_wgrad_kernel",)),
+    ("fused MLP forward c_proj (mlp_proj_kernel, CUDA cores)", ("mlp_proj_kernel",)),
     ("flash attention forward (flash_fwd_kernel)", ("flash_fwd_kernel",)),
     ("flash attention dQ (flash_dq_kernel)", ("flash_dq_kernel",)),
     ("flash attention dK/dV (flash_dkv_kernel)", ("flash_dkv_kernel",)),
@@ -50,6 +58,7 @@ FAMILIES = [  # (family, substrings of the kernel name), first match wins
      ("attention_mma_kernel", "attention_f32_kernel")),
     ("LN-fold launches (ln_stats, ln_rows, ln_bwd)", ("ln_stats_kernel", "ln_rows_kernel",
                                                       "ln_bwd_kernel")),
+    ("tensor-core GEMM, template arguments not read (mma_gemm_kernel)", ("mma_gemm_kernel",)),
     ("cuBLAS GEMMs (MLP, patch embed, projections, weight gradients)",
      ("gemm", "cutlass", "cublas", "xmma", "gemv", "nvjet")),
     ("reductions", ("reduce",)),
@@ -60,6 +69,11 @@ FAMILIES = [  # (family, substrings of the kernel name), first match wins
 
 
 def family_of(kernel_name: str) -> str:
+    signature = gemm_signature(kernel_name)
+    if signature is not None:
+        for pattern, family in GEMM_FAMILIES:
+            if all(p is None or p == v for p, v in zip(pattern, signature[2:])):
+                return family
     low = kernel_name.lower()
     for family, keys in FAMILIES:
         if any(k in low for k in keys):

@@ -167,6 +167,33 @@ def test_cuda_kernel_matches_plain(cuda_device, b, s, w, heads, causal, dtype, t
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,w,heads,causal", [(3, 50, 512, 8, False), (3, 50, 640, 10, True),
+                                                (1, 77, 1280, 16, False),
+                                                (1, 61, 1408, 16, True)])
+def test_cuda_gemm_widths_and_ragged_rows_match_plain(cuda_device, b, s, w, heads, causal, dtype,
+                                                      tol):
+    """The tensor-core GEMM of the q/k/v and out projections at the widths 512, 640, 1280 and
+    1408 with B*S (150, 77, 61) no multiple of its 128-row tile."""
+    x, ws = _inputs(b, s, w, seed=6)
+    conv = lambda a: torch.from_numpy(a).to(cuda_device, dtype)  # noqa: E731
+    xt, wt = conv(x), [conv(a) for a in ws]
+    got = ba.block_attention(xt, *wt, heads=heads, causal=causal).float()
+    want = ba.block_attention_reference(xt, *wt, heads=heads, causal=causal).float()
+    err = (got - want).abs().max().item()
+    assert torch.isfinite(got).all() and err <= tol * want.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_fwd_repeats_bit_for_bit(cuda_device, dtype):
+    """Every sum has one owner and a fixed order: a second launch gives the same bits."""
+    x, ws = _inputs(4, 50, 768, seed=10)
+    args = [torch.from_numpy(a).to(cuda_device, dtype) for a in [x, *ws]]
+    assert torch.equal(ba.block_attention(*args, heads=12), ba.block_attention(*args, heads=12))
+
+
+@pytest.mark.cuda
 def test_cuda_kernel_rejects_what_it_does_not_take(cuda_device):
     x, ws = _inputs(2, 50, 256, seed=6)
     conv = lambda a, dt=torch.float32: torch.from_numpy(a).to(cuda_device, dt)  # noqa: E731

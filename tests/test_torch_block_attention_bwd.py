@@ -12,9 +12,10 @@ rounding noise there. On the card, the kernel against the plain version: every p
 output within 1e-4 x max|plain| in float32 and 2e-2 x max|plain| in bfloat16.
 
 The kernel's projection GEMMs run on the tensor cores, in float32 as 3xTF32: their arithmetic
-is emulated on the CPU at ViT-B/32 widths (the K = 3W dx product and the do product, k-step
-by k-step with the small terms first) and holds 1e-4 x max|float64| where one TF32 product
-does not.
+is emulated on the CPU at ViT-B/32 widths (the K = 3W dx product and the do product, the
+forward's LN-transformed q product in the NN form, and the MLP backward's dW1 in the TN form
+over a ragged T = 3000 in three splits; k-step by k-step with the small terms first) and
+holds 1e-4 x max|float64| where one TF32 product does not.
 
 JAX is imported inside the helpers, so the CUDA cases also run where JAX is absent:
     python -m pytest tests/test_torch_block_attention_bwd.py -m cuda
@@ -185,22 +186,55 @@ def _gemm_nt_tf32(segments, weights, products: int) -> torch.Tensor:
     return acc
 
 
-@pytest.mark.parametrize("nseg", [3, 1])
-def test_3xtf32_gemm_holds_the_float32_limit_and_one_tf32_product_does_not(nseg):
-    """ViT-B/32 vision widths (W = 768): the dx product over K = 3W = 2304 ([dq | dk | dv] @
-    [Wq; Wk; Wv]^T, nseg=3) and the do product (dy @ Wo^T, nseg=1), 150 token rows. Three TF32
-    products a product stay within the card's float32 limit, 1e-4 x max|float64|; one does
-    not."""
-    rng = np.random.default_rng(12)
+def _case_operands(case: str, rng):
+    """(segments, weights, float64 product) of one emulated GEMM, each as the NT form's
+    sum_z A_z @ W_z^T that the k-step emulation takes:
+    ``nt-k2304`` / ``nt-k768``: ViT-B/32 vision widths, the block backward's dx product over K =
+    3W = 2304 ([dq | dk | dv] @ [Wq; Wk; Wv]^T) and its do product (dy @ Wo^T), 150 token rows;
+    ``nn-ln-k768``: the block forward's q projection with the LN load transform, LN(x) @ Wq at
+    W = K = 768 (the NN form's B read as its transpose: the same k-steps and splits);
+    ``tn-lnb-t3000``: the MLP backward's dW1 = ln_b^T @ dh in the TN form over a ragged T =
+    3000 token rows in three splits of 1024 (the last 952 rows, padded to 960 with zeros),
+    W = 768, H = 256: each split's f32 partial, then their sum in order."""
+    n = lambda *shape: rng.standard_normal(shape, dtype=np.float32)  # noqa: E731
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
     w = 768
-    segments = [torch.from_numpy(rng.standard_normal((150, w), dtype=np.float32) * scale)
-                for scale in (0.3, 1.0, 3.0)[:nseg]]
-    weights = [torch.from_numpy(rng.standard_normal((w, w), dtype=np.float32) * w ** -0.5)
-               for _ in range(nseg)]
-    want = sum(a.double() @ m.double().T for a, m in zip(segments, weights))
+    if case.startswith("nt"):
+        nseg = 3 if case == "nt-k2304" else 1
+        segments = [t(n(150, w) * scale) for scale in (0.3, 1.0, 3.0)[:nseg]]
+        weights = [t(n(w, w) * w ** -0.5) for _ in range(nseg)]
+        want = sum(a.double() @ m.double().T for a, m in zip(segments, weights))
+        return [segments], [weights], want
+    x, gamma, beta = t(n(150 if case == "nn-ln-k768" else 3000, w)), t(1 + 0.1 * n(w)), t(0.1 * n(w))
+    if case == "nn-ln-k768":
+        a = ba.ln_rows(x, gamma, beta, ba.LN_EPS)  # the forward's LN transform, in float32
+        wq = t(n(w, w) * w ** -0.5)
+        return [[a]], [[wq.T.contiguous()]], a.double() @ wq.double()
+    mean, inv = ba._ln_stats(x, ba.LN_EPS)
+    ln_b = (x - mean) * inv * gamma + beta  # LN-b in float32: every rounding is the identity
+    dh = t(n(3000, 256))
+    splits = [slice(0, 1024), slice(1024, 2048), slice(2048, 3000)]
+    return ([[ln_b[k].T.contiguous()] for k in splits], [[dh[k].T.contiguous()] for k in splits],
+            ln_b.double().T @ dh.double())
+
+
+@pytest.mark.parametrize("case", [pytest.param("nt-k2304", id="3"), pytest.param("nt-k768", id="1"),
+                                  "nn-ln-k768", "tn-lnb-t3000"])
+def test_3xtf32_gemm_holds_the_float32_limit_and_one_tf32_product_does_not(case):
+    """The projection GEMM's float32 arithmetic, k-step by k-step, in its three forms (see
+    ``_case_operands``): three TF32 products a product stay within the card's float32 limit,
+    1e-4 x max|float64|; one does not. The TN form's splits each sum in their own f32
+    accumulator, summed after in order."""
+    rng = np.random.default_rng(12)
+    runs, weights, want = _case_operands(case, rng)
     rel = lambda got: ((got.double() - want).abs().max() / want.abs().max()).item()  # noqa: E731
-    three, one = (rel(_gemm_nt_tf32(segments, weights, n)) for n in (3, 1))
-    print(f"K={nseg * w}: err / max|float64|: 3xTF32 {three:.3e}, 1xTF32 {one:.3e}")
+
+    def emulate(products):
+        parts = [_gemm_nt_tf32(segs, ws, products) for segs, ws in zip(runs, weights)]
+        return functools.reduce(torch.add, parts)
+
+    three, one = rel(emulate(3)), rel(emulate(1))
+    print(f"{case}: err / max|float64|: 3xTF32 {three:.3e}, 1xTF32 {one:.3e}")
     assert three <= 1e-4, three
     assert one > 1e-4, one
     assert one > 20 * three

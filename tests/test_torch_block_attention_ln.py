@@ -254,6 +254,35 @@ def test_cuda_ln_bwd_kernel_matches_plain(cuda_device, b, s, w, heads, causal, d
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,w,heads,causal", [(3, 50, 512, 8, False), (1, 133, 640, 10, True),
+                                                (1, 61, 1408, 16, False)])
+def test_cuda_ln_gemm_widths_and_ragged_rows_match_plain(cuda_device, b, s, w, heads, causal,
+                                                         dtype, tol, residual):
+    """The LN load transform and the residual store of the tensor-core GEMM at the widths
+    512, 640 and 1408, with B*S (150, 133, 61) no multiple of its 128-row tile."""
+    x, gamma, beta, ws, _ = _inputs(b, s, w, seed=6)
+    args = [torch.from_numpy(a).to(cuda_device, dtype) for a in [x, gamma, beta, *ws]]
+    kw = dict(heads=heads, causal=causal, residual=residual)
+    got = ba.block_attention_ln(*args, **kw).float()
+    want = ba.block_attention_ln_reference(*args, **kw).float()
+    err = (got - want).abs().max().item()
+    assert torch.isfinite(got).all() and err <= tol * want.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ln_fwd_repeats_bit_for_bit(cuda_device, dtype, residual):
+    """Every sum has one owner and a fixed order: a second launch gives the same bits."""
+    x, gamma, beta, ws, _ = _inputs(4, 197, 768, seed=10)
+    args = [torch.from_numpy(a).to(cuda_device, dtype) for a in [x, gamma, beta, *ws]]
+    run = lambda: ba.block_attention_ln(*args, heads=12, residual=residual)  # noqa: E731
+    assert torch.equal(run(), run())
+
+
+@pytest.mark.cuda
 def test_cuda_ln_backward_runs_the_kernels(cuda_device):
     """loss.backward() on the card goes through both LN-form kernels and agrees with the
     same Function on the CPU."""

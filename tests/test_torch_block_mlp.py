@@ -28,7 +28,7 @@ import torch
 
 from multimodal_tpu_torch.ops import block_mlp as bm
 from multimodal_tpu_torch.ops import launches
-from multimodal_tpu_torch.ops.block_attention import LN_EPS, ln_rows
+from multimodal_tpu_torch.ops.block_attention import LN_EPS, _ln_stats, ln_rows
 
 torch.set_num_threads(1)
 
@@ -245,6 +245,102 @@ def test_db1_sums_the_unrounded_dh():
     assert (db1 - dh32.bfloat16().float().sum(0)).abs().max() > 1e-3
 
 
+def _db1_partials_in_kernel_order(dh32: torch.Tensor) -> torch.Tensor:
+    """The act' store's column sums of the unrounded dh32 [T, H], one row per 128-token tile,
+    in the kernel's order: each lane (g = 0..7 of a row-warp's 64 rows) sums its rows g, g + 8,
+    ..., g + 56 in order, a butterfly adds lane g ^ 1, g ^ 2, g ^ 4, then the two row-warps'
+    sums are added. Rows past T are not summed."""
+    t, hid = dh32.shape
+    rows = []
+    for m0 in range(0, t, 128):
+        tile = torch.zeros(128, hid)
+        tile[:min(128, t - m0)] = dh32[m0:m0 + 128]
+        warps = []
+        for wm in (0, 64):
+            lanes = [functools.reduce(torch.add, [tile[wm + 16 * mt + g + 8 * h]
+                                                  for mt in range(4) for h in range(2)])
+                     for g in range(8)]
+            for off in (1, 2, 4):
+                lanes = [lanes[g] + lanes[g ^ off] for g in range(8)]
+            warps.append(lanes[0])
+        rows.append(warps[0] + warps[1])
+    return torch.stack(rows)
+
+
+def test_db1_fixed_order_column_sums_sum_the_unrounded_dh():
+    """bfloat16, T = 200 (a full 128-token tile and a ragged one): the kernel's fixed-order
+    column sums of dh32, summed over the tiles, are db1 of the plain backward (the sum of the
+    unrounded dh32, up to float32 order), and not the sum of the rounded dh."""
+    (x, gamma, beta, w1, b1, w2, b2), dy = _leaves((200, 128), 256, torch.bfloat16)
+    args = [t.detach() for t in (x, gamma, beta, w1, b1, w2, b2)]
+    _, h = bm.block_mlp_reference(*args)
+    x, gamma, beta, w1, b1, w2, b2 = args
+    db1 = bm.block_mlp_bwd_reference(x, dy, h, gamma, beta, w1, w2)[3]
+    dh32 = (dy.float() @ w2.float().T) * bm.act_bwd(h.float(), "quick_gelu")
+    parts = _db1_partials_in_kernel_order(dh32)
+    assert parts.shape == (2, 256)
+    torch.testing.assert_close(parts.sum(0), db1, atol=1e-5, rtol=1e-5)
+    assert (parts.sum(0) - dh32.bfloat16().float().sum(0)).abs().max() > 1e-3
+
+
+def _tn_dw1(x, dh, gamma, beta, *, mask: bool, stale_b: bool) -> torch.Tensor:
+    """dW1 = ln_b^T dh as the TN form walks it: K-steps of 64 token rows, one f32 sum. A tile:
+    x's rows, zero past T, then the LN-b transform (xhat32 rounded, times gamma, plus beta,
+    rounding to x.dtype) on the rows below T (``mask``) or on all 64 (statistics past T read
+    as 0). B tile: dh's rows, past T zeros as cp.async writes them, or (``stale_b``) other
+    values, as a tile would hold without that fill."""
+    t, w = x.shape
+    dt, hid = x.dtype, dh.shape[1]
+    mean, inv = _ln_stats(x, LN_EPS)
+    gen = torch.Generator().manual_seed(0)
+    acc = torch.zeros(w, hid)
+    for k0 in range(0, t, 64):
+        live = min(64, t - k0)
+        a, mu, iv = torch.zeros(64, w), torch.zeros(64, 1), torch.zeros(64, 1)
+        a[:live], mu[:live], iv[:live] = x[k0:k0 + live].float(), mean[k0:k0 + live], inv[k0:k0 + live]
+        rows = slice(0, live if mask else 64)
+        a[rows] = (((a[rows] - mu[rows]) * iv[rows]).to(dt) * gamma + beta).float()
+        b = torch.randn(64, hid, generator=gen) if stale_b else torch.zeros(64, hid)
+        b[:live] = dh[k0:k0 + live].float()
+        acc = acc + a.T @ b
+    return acc
+
+
+def test_tn_weight_gradient_masks_the_padded_rows_after_the_ln_b_transform():
+    """dW1 in bfloat16 at T = 200 (no multiple of the 64-row K-step) with beta != 0: LN-b of a
+    zero row is beta, so the TN form's A tile is zero past T only because the transform skips
+    those rows (their statistics lie past their buffer too). With the mask, the K-step walk
+    gives the plain dW1 whatever the padded B rows hold; without it, only while they are zero."""
+    (x, gamma, beta, w1, b1, w2, b2), dy = _leaves((200, 128), 256, torch.bfloat16)
+    x, gamma, beta = x.detach(), gamma.detach().bfloat16(), beta.detach().bfloat16()
+    assert beta.abs().min() > 0
+    dh = torch.from_numpy(np.random.default_rng(3).standard_normal((200, 256), dtype=np.float32))
+    dh = dh.bfloat16()
+    mean, inv = _ln_stats(x, LN_EPS)
+    ln = ((x.float() - mean) * inv).bfloat16() * gamma + beta  # block_mlp_bwd_reference's ln
+    want = ln.float().T @ dh.float()
+    rel = lambda got: ((got - want).abs().max() / want.abs().max()).item()  # noqa: E731
+    for stale_b in (False, True):
+        assert rel(_tn_dw1(x, dh, gamma, beta, mask=True, stale_b=stale_b)) <= 1e-5
+    assert rel(_tn_dw1(x, dh, gamma, beta, mask=False, stale_b=False)) <= 1e-5
+    assert rel(_tn_dw1(x, dh, gamma, beta, mask=False, stale_b=True)) > 1e-2
+
+
+@pytest.mark.parametrize("t,w,hid", [(256 * 50, 768, 3072), (256 * 197, 768, 3072),
+                                     (64 * 257, 1024, 4096), (3 * 197, 768, 3072), (7, 128, 512)])
+def test_float32_weight_gradient_splits_stay_under_the_row_cap(t, w, hid):
+    """A float32 split of the weight-gradient products sums at most WGRAD_F32_MAX_ROWS token
+    rows, rounded up to the 64-row K-step, whatever WGRAD_BLOCKS asks; bfloat16 keeps the
+    block target's split."""
+    splits32 = bm._wgrad_splits(t, w, hid, torch.float32)
+    splits16 = bm._wgrad_splits(t, w, hid, torch.bfloat16)
+    rows = -(-(-(-t // splits32)) // 64) * 64  # the kernel's k_per_split
+    assert rows <= bm.WGRAD_F32_MAX_ROWS or splits32 == 1 and t <= bm.WGRAD_F32_MAX_ROWS
+    assert 1 <= splits16 <= splits32 <= 65535
+    tiles = (w // 128) * (hid // 128)
+    assert splits16 == max(1, min(-(-bm.WGRAD_BLOCKS // tiles), t // 512))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -254,7 +350,8 @@ def cuda_device():
 
 # (T or (B, S), width, hidden, act)
 CUDA_SHAPES = [((3, 197), 768, 3072, "quick_gelu"), ((150,), 128, 512, "gelu"),
-               ((2, 257), 1024, 4096, "gelu"), ((256,), 512, 2048, "quick_gelu")]
+               ((2, 257), 1024, 4096, "gelu"), ((256,), 512, 2048, "quick_gelu"),
+               ((3, 61), 640, 2560, "gelu"), ((61,), 1408, 1536, "quick_gelu")]
 
 
 def _cuda_args(tokens, w, hid, dtype, device):
@@ -311,3 +408,18 @@ def test_cuda_backward_runs_the_kernels_and_repeats(cuda_device):
         scale = max(1.0, float(np.abs(r).max()))
         np.testing.assert_allclose(g, r, atol=2e-4 * scale, rtol=2e-3, err_msg=name)
         np.testing.assert_array_equal(g, again, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_repeat_bit_for_bit(cuda_device, dtype):
+    """No float atomics, one owner and a fixed order for every sum: a second launch of each
+    kernel gives the same bits, every output, at T = 3 x 197 (a ragged last tile and split)."""
+    (x, gamma, beta, w1, b1, w2, b2), dy = _cuda_args((3, 197), 768, 3072, dtype, cuda_device)
+    fwd = lambda: bm.block_mlp_fwd(x, gamma, beta, w1, b1, w2, b2)  # noqa: E731
+    for a, b in zip(fwd(), fwd()):
+        assert torch.equal(a, b)
+    h = fwd()[1]
+    bwd = lambda: bm.block_mlp_bwd(x, dy, h, gamma, beta, w1, w2)  # noqa: E731
+    for a, b in zip(bwd(), bwd()):
+        assert torch.equal(a, b)

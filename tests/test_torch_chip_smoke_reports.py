@@ -10,7 +10,7 @@ ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__6719648f_18_fused_att
 ptxas info    : Function properties for _ZN51_GLOBAL__N__6719648f_18_fused_attention_cu_de02afe220attention_mma_kernelILi64ELi64EEEvPK13__nv_bfloat16S3_S3_PS1_iiifi
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 127 registers, used 1 barriers
-ptxas info    : Function properties for _ZN55_GLOBAL__N__ee72dafa_22_block_attention_fwd_cu_649abda016gemm_bias_kernelI13__nv_bfloat16Lb1EEvPKT_NS_12GemmOperandsEiii
+ptxas info    : Function properties for _ZN55_GLOBAL__N__ee72dafa_22_block_attention_fwd_cu_649abda015mma_gemm_kernelI13__nv_bfloat16S1_Li0ELi1ELi1EEEvNS_11MmaGemmArgsE
     8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
 ptxas info    : Used 128 registers, used 1 barriers, 16384 bytes smem
 """
@@ -21,7 +21,7 @@ def test_ptxas_report_names_each_kernel_with_its_registers_and_spills():
     assert len(lines) == 2
     assert lines[0].startswith("attention_mma_kernelILi64ELi64EE: 0 bytes stack frame")
     assert "0 bytes spill stores" in lines[0] and lines[0].endswith("Used 127 registers, used 1 barriers")
-    assert lines[1].startswith("gemm_bias_kernelI13__nv_bfloat16Lb1E: 8 bytes stack frame")
+    assert lines[1].startswith("mma_gemm_kernel<bfloat16, bfloat16, NN, LN, residual>: 8 bytes stack")
     assert "4 bytes spill stores" in lines[1] and "16384 bytes smem" in lines[1]
     assert cs.ptxas_report("") == []
 
@@ -61,9 +61,15 @@ FLASH_DKV = ("_ZN57_GLOBAL__N__2b5bc54b_18_flash_attention_cu_e4f1a2b316flash_dk
 FLASH_FWD = ("_ZN57_GLOBAL__N__2b5bc54b_18_flash_attention_cu_e4f1a2b316flash_fwd_kernelIfLi4EEvPKT_"
              "S3_S3_PS1_Pfiiifi")
 GEMM_NT = ("_ZN59_GLOBAL__N__2b5bc54b_22_block_attention_bwd_cu_e4f1a2b315mma_gemm_kernelI13__nv_"
-           "bfloat16fLb0EEEvNS_11MmaGemmArgsE")
-GEMM_NN = ("_ZN59_GLOBAL__N__2b5bc54b_22_block_attention_bwd_cu_e4f1a2b315mma_gemm_kernelIffLb1EEEv"
-           "NS_11MmaGemmArgsE")
+           "bfloat16fLi1ELi0ELi0EEEvNS_11MmaGemmArgsE")
+GEMM_NN = ("_ZN59_GLOBAL__N__2b5bc54b_22_block_attention_bwd_cu_e4f1a2b315mma_gemm_kernelIffLi0ELi0E"
+           "Li0EEEvNS_11MmaGemmArgsE")
+GEMM_FWD_LN = ("_ZN59_GLOBAL__N__2b5bc54b_22_block_attention_fwd_cu_e4f1a2b315mma_gemm_kernelI13__nv_"
+               "bfloat16S1_Li0ELi1ELi1EEEvNS_11MmaGemmArgsE")
+GEMM_DW1 = ("_ZN50_GLOBAL__N__2b5bc54b_12_block_mlp_cu_e4f1a2b315mma_gemm_kernelIffLi2ELi3ELi0EEEv"
+            "NS_11MmaGemmArgsE")
+GEMM_DH = ("_ZN50_GLOBAL__N__2b5bc54b_12_block_mlp_cu_e4f1a2b315mma_gemm_kernelI13__nv_bfloat16S1_"
+           "Li1ELi0ELi2EEEvNS_11MmaGemmArgsE")
 
 
 def test_kernel_label_writes_out_the_flash_operand_structs():
@@ -73,8 +79,15 @@ def test_kernel_label_writes_out_the_flash_operand_structs():
 
 
 def test_kernel_label_writes_out_the_gemm_types_and_form():
-    assert cs.kernel_label(GEMM_NT) == "mma_gemm_kernel<bfloat16, float, NT>"
-    assert cs.kernel_label("Function : " + GEMM_NN) == "mma_gemm_kernel<float, float, NN>"
+    """Types, form, load transform and store of each instantiation; a bf16 -> bf16 GEMM's
+    second type is a back-reference in the mangled name."""
+    assert cs.kernel_label(GEMM_NT) == "mma_gemm_kernel<bfloat16, float, NT, plain, round>"
+    assert cs.kernel_label("Function : " + GEMM_NN) == (
+        "mma_gemm_kernel<float, float, NN, plain, round>")
+    assert cs.kernel_label(GEMM_FWD_LN) == (
+        "mma_gemm_kernel<bfloat16, bfloat16, NN, LN, residual>")
+    assert cs.kernel_label(GEMM_DW1) == "mma_gemm_kernel<float, float, TN, LN-b, round>"
+    assert cs.kernel_label(GEMM_DH) == "mma_gemm_kernel<bfloat16, bfloat16, NT, plain, act'>"
 
 
 def test_flash_hmma_report_names_the_tensor_core_forms():
@@ -96,7 +109,7 @@ def test_flash_hmma_report_names_the_tensor_core_forms():
         "flash_dkv_kernel<Bf16Ops<128>>: HMMA.16816.F32.BF16 x 1",
         "flash_dq_kernel<Tf32Ops<64>>: HMMA.1688.F32.TF32 x 2",
         "flash_fwd_kernelIfLi4E: no HMMA (CUDA cores)",
-        "mma_gemm_kernel<float, float, NN>: HMMA.1688.F32.TF32 x 1"]
+        "mma_gemm_kernel<float, float, NN, plain, round>: HMMA.1688.F32.TF32 x 1"]
     assert "1 *_mma_kernel functions" in cs.sass_report(sass)
 
 
@@ -128,7 +141,7 @@ def test_block_backward_bound_and_rate():
     """ViT-B/32 vision S=50 W=768 B=256: seven projection-sized products and six core products,
     105.7 GFLOP of GEMMs and the attention beside them (bound 0.1128 ms in bfloat16); the
     float32 backward is bound at the 3xTF32 ceiling its GEMMs run at, with the CUDA-core bound
-    in its note. The forward keeps the dtype's peak: CUDA-core float32, and no CUDA-core note."""
+    in its note. So is the forward, whose GEMMs run 3xTF32 too."""
     args = (256, 50, 768, 12, False)
     ms, by, flops = cs.block_bound("block_attention_bwd", *args, "bfloat16")
     assert by == "operations" and abs(ms - 0.1128) < 1e-4
@@ -139,8 +152,29 @@ def test_block_backward_bound_and_rate():
     assert "cuda_core" not in cs.rate_note("block_attention_bwd", "bfloat16", 1.0, ms, flops)
     ms_f, _, flops_f = cs.block_bound("block_attention_fwd", *args, "float32")
     assert flops_f == 8 * 12800 * 768 ** 2 + 4 * 256 * 12 * 2500 * 64
-    assert abs(ms_f - 1e3 * flops_f / 67e12) < 1e-9
-    assert "cuda_core" not in cs.rate_note("block_attention_fwd", "float32", 1.0, ms_f, flops_f)
+    assert abs(ms_f - 1e3 * flops_f / cs.PEAK_3XTF32) < 1e-9
+    assert "bound_cuda_cores_ms" in cs.rate_note("block_attention_fwd", "float32", 1.0, ms_f,
+                                                 flops_f)
+    ms_ln, _, _ = cs.block_bound("block_attention_ln_fwd", *args, "float32")
+    assert abs(ms_ln - 1e3 * flops_f / cs.PEAK_3XTF32) < 1e-9
+
+
+def test_mlp_bound_and_rate():
+    """ViT-B/16 T=256x197 W=768 H=3072: two products forward (238 GFLOP), four backward. The
+    float32 backward is bound at the 3xTF32 ceiling, its four products' arithmetic; the
+    forward at the CUDA-core peak, since c_proj runs there, and its note says so."""
+    args = (256 * 197, 768, 3072)
+    ms, by, flops = cs.mlp_bound("block_mlp_fwd", *args, "float32")
+    assert by == "operations" and flops == 4 * 256 * 197 * 768 * 3072
+    assert abs(ms - 1e3 * flops / 67e12) < 1e-9 and abs(ms - 7.1035) < 1e-4
+    note = cs.rate_note("block_mlp_fwd", "float32", 14.0, ms, flops)
+    assert "c_proj runs there" in note and "bound_cuda_cores_ms" not in note
+    ms_b, _, flops_b = cs.mlp_bound("block_mlp_bwd", *args, "float32")
+    assert flops_b == 2 * flops and abs(ms_b - 1e3 * flops_b / cs.PEAK_3XTF32) < 1e-9
+    assert "bound_cuda_cores_ms" in cs.rate_note("block_mlp_bwd", "float32", 20.0, ms_b, flops_b)
+    ms_bf, _, _ = cs.mlp_bound("block_mlp_bwd", *args, "bfloat16")
+    assert abs(ms_bf - 0.9625) < 1e-4
+    assert "c_proj" not in cs.rate_note("block_mlp_fwd", "bfloat16", 1.0, ms, flops)
 
 
 def test_phase3_holds_the_flash_head_dims_and_the_text_towers_batch():

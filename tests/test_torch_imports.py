@@ -35,10 +35,16 @@ def test_profile_step_sorts_kernels_into_families():
     (a cuBLAS kernel also has 'gemm' in its name)."""
     from multimodal_tpu_torch.profile_step import family_of
 
+    gemm = "void (anonymous namespace)::mma_gemm_kernel<{}>((anonymous namespace)::MmaGemmArgs)"
     cases = {
-        "void (anonymous namespace)::gemm_bias_kernel<float, true>(...)": "projection GEMMs",
-        "void (anonymous namespace)::mma_gemm_kernel<__nv_bfloat16, float, false>(...)":
-            "mma_gemm_kernel",
+        gemm.format("float, float, 0, 1, 1"): "block forward GEMMs",
+        gemm.format("__nv_bfloat16, __nv_bfloat16, 0, 0, 1"): "block forward GEMMs",
+        gemm.format("__nv_bfloat16, __nv_bfloat16, 0, 0, 0"): "block backward GEMMs",
+        gemm.format("__nv_bfloat16, float, 1, 0, 0"): "block backward GEMMs",
+        gemm.format("float, float, 0, 1, 0"): "fused MLP forward c_fc",
+        gemm.format("__nv_bfloat16, __nv_bfloat16, 1, 0, 2"): "fused MLP backward dh",
+        gemm.format("float, float, 2, 3, 0"): "fused MLP weight gradients",
+        gemm.format("__nv_bfloat16, float, 2, 2, 0"): "fused MLP weight gradients",
         "void (anonymous namespace)::attn_bwd_dq_mma_kernel<64, 64, true>(...)": "dQ pass",
         "void (anonymous namespace)::attn_bwd_dq_f32_kernel<4, false>(...)": "dQ pass",
         "void (anonymous namespace)::attn_bwd_dkv_mma_kernel<128, 32, false>(...)": "dK/dV pass",
@@ -52,10 +58,6 @@ def test_profile_step_sorts_kernels_into_families():
         "void (anonymous namespace)::flash_dkv_kernel<float, 4>(...)": "flash attention dK/dV",
         "void (anonymous namespace)::ln_bwd_kernel<float, float>(...)": "LN-fold launches",
         "void (anonymous namespace)::mlp_proj_kernel<float>(...)": "fused MLP forward c_proj",
-        "void (anonymous namespace)::mlp_nt_kernel<__nv_bfloat16, true>(...)":
-            "fused MLP backward dh and dln",
-        "void (anonymous namespace)::mlp_wgrad_kernel<float, false>(...)":
-            "fused MLP weight gradients",
         "sm90_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize128x128x8": "cuBLAS",
         "nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NNT": "cuBLAS",
         "void at::native::vectorized_elementwise_kernel<4, ...>": "elementwise",
