@@ -11,8 +11,9 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      and from the SASS the passes' HMMA / LDSM / LDGSTS counts and the tensor-core
      instructions by form of each flash kernel and of every instantiation of the projection
      GEMM (mma_gemm_kernel<T, TOut, form, load, store>: the block forward's and backward's,
-     the MLP's c_fc, dh, dln and weight gradients; HMMA.16816.F32.BF16 in bfloat16,
-     HMMA.1688.F32.TF32 for float32's 3xTF32);
+     the MLP's c_fc, c_proj, dh, dln and weight gradients; HMMA.16816.F32.BF16 in bfloat16,
+     HMMA.1688.F32.TF32 for float32's 3xTF32; a GEMM instantiation with no HMMA or another
+     form fails);
   3. every kernel against its plain PyTorch version on the card, every output, in float32
      (max abs error <= 1e-4 * max|plain|) and bfloat16 (<= 2e-2 * max|plain|), with
      CUDA-event times at B=256: the block-attention forward and backward at the ViT-B/32
@@ -26,23 +27,23 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      torch's scaled_dot_product_attention timed beside it and a second launch of the timed
      case compared bit for bit with the first; the fused MLP branch
      (LayerNorm, c_fc, activation, c_proj, residual) forward and backward, with and without
-     the residual, at the ViT-B/32, ViT-B/16 and ViT-L/14 token counts and widths and a ragged
-     T=3x197 (outputs y, h and dx, dW1, dW2, db1, db2, dgamma, dbeta; no library call holds
-     it, and the same two or four products as plain torch.matmul calls are timed beside it as
-     information); the flash-attention trio (forward with lse, dQ, dK/dV) at S=2048 (B=1, the timed
+     the residual, at the ViT-B/32, ViT-B/16 and ViT-L/14 token counts and widths (c_proj's
+     float32 sums run K = H = 2048-4096 long) and a ragged T=3x197 (outputs y, h and dx, dW1,
+     dW2, db1, db2, dgamma, dbeta; no library call holds it, and the same two or four
+     products as plain torch.matmul calls are timed beside it as information); the
+     flash-attention trio (forward with lse, dQ, dK/dV) at S=2048 (B=1, the timed
      B=8 and the text tower's own call at B=32) and S=4096 causal, S=1024 and S=2048 not
      causal, a ragged S=2050, sq != sk causal, D=32, 80, 88 and 128, with
      scaled_dot_product_attention(is_causal=True) forward and backward timed beside it; each
      timed line with its TFLOP/s and share of its bound (the float32 kernels that run
-     3xTF32, the flash trio, the block pair in both forms and the MLP backward, at the 3xTF32
-     ceiling, 495 / 3 TFLOP/s, and at the CUDA cores' 67 beside it; the MLP forward, whose
-     c_proj runs on the CUDA cores, at 67), the timed flash and fused kernels and every block
-     and MLP case launched twice and compared bit for bit, every output; the block backward's
-     recomputed q, k, v compared bit for bit with the forward's, both forms and dtypes; the
-     float32 flash forward at S=8192; then the flash operator against the plain attention path,
-     forward plus backward, time and peak memory at S=1024, 2048 and 4096, causal and not (the
-     dispatch's crossover). The library calls are yardsticks, held to the plain versions too and used
-     nowhere in the port;
+     3xTF32, the flash trio, the block pair in both forms and the MLP pair, at the 3xTF32
+     ceiling, 495 / 3 TFLOP/s, and at the CUDA cores' 67 beside it), the timed flash and
+     fused kernels and every block and MLP case launched twice and compared bit for bit,
+     every output; the block backward's recomputed q, k, v compared bit for bit with the
+     forward's, both forms and dtypes; the float32 flash forward at S=8192; then the flash
+     operator against the plain attention path, forward plus backward, time and peak memory at
+     S=1024, 2048 and 4096, causal and not (the dispatch's crossover). The library calls are
+     yardsticks, held to the plain versions too and used nowhere in the port;
   4. serving: ViT-B/32 in float32 with seeded random weights behind the HTTP server,
      answering text, image and similarity requests; the forward kernel's launch count over
      those requests must be at least 12 per tower encode, and the served embeddings must
@@ -197,16 +198,15 @@ CAPTIONS = ["a photo of a cat", "two dogs playing in the snow", "a red car on a 
             "東京の夜景 ✨"]
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): CUDA-core float32 for
 # float32, tensor-core bf16 for bfloat16; HBM3 bytes/s. The float32 flash trio, the block
-# kernels' GEMMs and the MLP backward's run 3xTF32 on the tensor cores, whose ceiling is a
-# third of the TF32 peak: those kernels' float32 bound is taken at that rate, and their lines
-# give the CUDA-core bound beside it. The MLP forward stays at the CUDA-core peak while its
-# c_proj runs there
+# kernels' GEMMs and the MLP pair's run 3xTF32 on the tensor cores, whose ceiling is a third
+# of the TF32 peak: those kernels' float32 bound is taken at that rate, and their lines give
+# the CUDA-core bound beside it
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_3XTF32 = 495e12 / 3
 PEAK_BYTES = 3.35e12
 TF32_KERNELS = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
                 "block_attention_fwd", "block_attention_bwd", "block_attention_ln_fwd",
-                "block_attention_ln_bwd", "block_mlp_bwd")
+                "block_attention_ln_bwd", "block_mlp_fwd", "block_mlp_bwd")
 
 
 def fail(msg: str):
@@ -306,8 +306,6 @@ def rate_note(kernel: str, dtype_name: str, ms: float, b_ms: float, flops: float
     """A timed line's rate: TFLOP/s, the share of its bound reached, and for a float32 kernel
     bound at the 3xTF32 ceiling the CUDA cores' bound too."""
     note = f" tflops={flops / ms / 1e9:.1f} of_bound={100 * b_ms / ms:.1f}%"
-    if kernel == "block_mlp_fwd" and dtype_name == "float32":
-        note += " (bound at the CUDA-core peak: c_proj runs there, c_fc 3xTF32)"
     if peak_of(kernel, dtype_name) == PEAK_3XTF32:
         b_cc = 1e3 * flops / PEAK_FLOPS["float32"]
         note += f" bound_cuda_cores_ms={b_cc:.4f} of_cuda_core_bound={100 * b_cc / ms:.1f}%"
@@ -716,11 +714,11 @@ def sass_report(sass: str) -> str:
     return f"{kernels} *_mma_kernel functions in the SASS: {counts}"
 
 
-def hmma_report(sass: str) -> list[str]:
+def hmma_forms(sass: str) -> dict[str, dict[str, int]]:
     """Per flash-attention kernel and projection GEMM in the SASS (each instantiation: dtype
-    and head dim, or types and form), its tensor-core instructions by form
-    (HMMA.16816.F32.BF16 is mma.sync m16n8k16 on bf16, HMMA.1688.F32.TF32 m16n8k8 on TF32),
-    or that it has none."""
+    and head dim, or types and form, as ``kernel_label`` names it), its tensor-core
+    instructions counted by form (HMMA.16816.F32.BF16 is mma.sync m16n8k16 on bf16,
+    HMMA.1688.F32.TF32 m16n8k8 on TF32)."""
     kernels, name = {}, None
     for ln in sass.splitlines():
         if "Function :" in ln:
@@ -732,8 +730,28 @@ def hmma_report(sass: str) -> list[str]:
             if found:
                 form = found.group(0)
                 kernels[name][form] = kernels[name].get(form, 0) + 1
+    return kernels
+
+
+def hmma_report(sass: str) -> list[str]:
+    """One line per kernel of ``hmma_forms``: its tensor-core instructions by form, or that it
+    has none."""
     return [f"{k}: " + (", ".join(f"{form} x {n}" for form, n in sorted(c.items()))
-                        or "no HMMA (CUDA cores)") for k, c in sorted(kernels.items())]
+                        or "no HMMA (CUDA cores)") for k, c in sorted(hmma_forms(sass).items())]
+
+
+def gemm_hmma_faults(sass: str) -> list[str]:
+    """The projection GEMM's instantiations whose products are not all on the tensor cores in
+    their dtype's form: HMMA.16816.F32.BF16 for bfloat16 operands, HMMA.1688.F32.TF32 (3xTF32)
+    for float32. An instantiation with no HMMA at all is a fault too."""
+    want = {"bfloat16": "HMMA.16816.F32.BF16", "float": "HMMA.1688.F32.TF32"}
+    faults = []
+    for name, forms in sorted(hmma_forms(sass).items()):
+        if name.startswith("mma_gemm_kernel<"):
+            dtype = name[len("mma_gemm_kernel<"):].split(",")[0]
+            if set(forms) != {want[dtype]}:
+                faults.append(f"{name}: {forms or 'no HMMA'}")
+    return faults
 
 
 def pass_smem_report() -> list[str]:
@@ -1124,6 +1142,9 @@ def main() -> int:
         print(f"  sass {sass_report(sass)}")
         for ln in hmma_report(sass):
             print(f"  sass {ln}", flush=True)
+        faults = gemm_hmma_faults(sass)
+        if faults:
+            fail(f"GEMM instantiations off their tensor-core form: {faults}")
 
     print("phase 3 kernel vs plain on the card", flush=True)
     kernels = phase_kernels(torch, ba, fa, bm, fl)

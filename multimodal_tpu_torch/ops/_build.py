@@ -40,7 +40,7 @@ NVCC_FLAGS = (
 # load transform, store; each use is its own instantiation and so its own kernel name
 GEMM_FORMS = ("NN", "NT", "TN")
 GEMM_LOADS = ("plain", "LN", "act", "LN-b")
-GEMM_STORES = ("round", "residual", "act'")
+GEMM_STORES = ("round", "residual", "act'", "bias-residual", "round+act")
 
 _lock = threading.Lock()
 _lib = None
@@ -114,7 +114,7 @@ def load() -> ctypes.CDLL:
                 "mmt_flash_attention_dq": [i32] + [ptr] * 7 + [i32] * 6 + [f32, ptr],
                 "mmt_flash_attention_dkv": [i32] + [ptr] * 8 + [i32] * 6 + [f32, ptr],
                 "mmt_ln_bwd_partial_rows": [i32],
-                "mmt_block_mlp_fwd": [i32] + [ptr] * 10 + [i32] * 5 + [f32, ptr],
+                "mmt_block_mlp_fwd": [i32] + [ptr] * 11 + [i32] * 5 + [f32, ptr],
                 "mmt_block_mlp_bwd": [i32] + [ptr] * 16 + [i32] * 6 + [f32, ptr],
                 "mmt_block_mlp_db1_partial_rows": [i32],
             }

@@ -18,9 +18,10 @@ f32 sum plus the f32 bias rounded once; the activation is evaluated in f32 from 
 LN(x) as ``round(xhat32) * gamma + beta`` from the f32 ``xhat32 = (x32 - mean) * inv`` (in
 bfloat16 not bit for bit the forward's), rounds ``dh`` before the two products that read it
 but sums ``db1`` from the unrounded values, and forms dx, dgamma and dbeta in f32 with the
-f32 gamma (see ``block_mlp_bwd_reference``). On the card every product but c_proj's runs
-the tensor-core GEMM, float32 as 3xTF32 (about 2^-20 relative a product); c_proj's products
-are true float32 on the CUDA cores.
+f32 gamma (see ``block_mlp_bwd_reference``). On the card every product runs the tensor-core
+GEMM, float32 as 3xTF32 (about 2^-20 relative a product); c_fc's store writes g beside h to a
+scratch that c_proj reads, by the same device code that forms g again in the backward's dW2,
+so the two g are the same bits.
 """
 
 from __future__ import annotations
@@ -148,13 +149,14 @@ def _block_mlp_fwd_cuda(x, gamma, beta, w1, b1, w2, b2, *, act: str, residual: b
     hid = w1.shape[1]
     lib = _build.load()
     ln_stats = torch.empty((2, t), dtype=torch.float32, device=x.device)
-    h = torch.empty((t, hid), dtype=x.dtype, device=x.device)
+    g = torch.empty((t, hid), dtype=x.dtype, device=x.device)  # act(h), read by c_proj
+    h = torch.empty_like(g)
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mmt_block_mlp_fwd(
             0 if x.dtype == torch.float32 else 1,
-            *(a.data_ptr() for a in (x, gamma, beta, w1, b1, w2, b2, ln_stats, h, y)),
+            *(a.data_ptr() for a in (x, gamma, beta, w1, b1, w2, b2, ln_stats, g, h, y)),
             t, w, hid, ACTS.index(act), int(residual), LN_EPS, stream)
     _build.check(lib, err, "block_mlp_fwd launch")
     launches.count("block_mlp_fwd")

@@ -10,8 +10,8 @@
 //                                   every operation; never written to device memory
 //   h  = ln @ W1 + b1               f32 accumulation, bias added in f32, rounded to T; written
 //                                   (the backward reads it instead of repeating the product)
-//   g  = act(f32(h))                evaluated in f32 from the rounded h, rounded to T; never
-//                                   written to device memory
+//   g  = act(f32(h))                evaluated in f32 from the rounded h, rounded to T; written
+//                                   to a [T,H] scratch that c_proj reads, freed after it
 //   y  = g @ W2 + b2 [+ x]          one f32 sum, rounded to T once
 //
 // and the backward, from x, dy and the saved h,
@@ -33,13 +33,17 @@
 // does. The TPU kernel is one program per tile of tokens that holds both weight matrices and
 // an f32 [M,H] hidden tile in VMEM and carries the f32 weight-gradient sums across a
 // sequential grid; an SM has 227 KB and blocks run in parallel, so here every product is a
-// tiled GEMM of its own and the elementwise work rides the GEMMs' loads and stores. All but
-// c_proj run the tensor-core GEMM of mma_gemm.cuh (bf16 mma.sync in bfloat16, 3xTF32 in
+// tiled GEMM of its own and the elementwise work rides the GEMMs' loads and stores. Every
+// product runs the tensor-core GEMM of mma_gemm.cuh (bf16 mma.sync in bfloat16, 3xTF32 in
 // float32), each with its own load transform and store:
-//   forward, 3 launches: row statistics; c_fc, the NN form with the LN load transform and h
-//     written by its store; c_proj (mlp_proj_kernel, float FMAs on the CUDA cores with 8x8
-//     register micro-tiles) with round_T(act(f32(h))) applied as the A tile is loaded and
-//     + b2 + x in a single-rounding epilogue.
+//   forward, 3 launches: row statistics; c_fc, the NN form with the LN load transform and the
+//     round+act store, which writes h and beside it g = round_T(act(f32(h))) by the act_round
+//     that dW2's load runs too, so the backward's g is the forward's bit for bit; c_proj, the
+//     NN form on g with the bias-residual store, round_T((acc + b2) + x) with one rounding
+//     (the round store, round_T(acc + b2), without the residual). g costs 2 T H elements of
+//     traffic; as c_proj's load transform instead, act ran once for each of the W / 128 column
+//     blocks that read a tile, and c_proj ran 79-106 TFLOP/s in bfloat16 on the H100 against
+//     229-278 on g (PERF.md).
 //   backward, 6 launches: row statistics; dy @ W2^T, the NT form with the act' store, which
 //     writes dh and one partial db1 row per 128-token tile; dh @ W1^T, the NT form into f32;
 //     the LN vjp row kernel (dx and partial dgamma, dbeta, db2 rows per 32 tokens); dW2 and
@@ -50,150 +54,24 @@
 // traffic (2 T H elements) is small beside the products. Rows past a ragged T are masked in
 // every load, every transform and every column sum. The column sums go to partial rows in a
 // fixed order and are summed outside: no float atomics, so a result never differs from run to
-// run. float32 products run 3xTF32 (about 2^-20 relative a product) but c_proj's, which are
-// true float32. Fewer launches are later work.
+// run. float32 products run 3xTF32, about 2^-20 relative a product. Fewer launches are later
+// work.
 
 #include "mma_gemm.cuh"
 
 namespace {
 
-// c_proj's tiles: 128 x 128 of the output per block of 256 threads, K in steps of 16
-constexpr int kBM = 128, kBN = 128, kBK = 16, kGemmThreads = 256;
-
-// ----------------------------------------------------------------------------- tiles
-// A 128 x 16 tile of a row-major [R, ld] matrix, rows r0.. (masked at rmax) and columns
-// k0..k0+15, into s[kk][row] (transposed). f(v, row, col) transforms four loaded values.
-template <typename T, typename F>
-__device__ __forceinline__ void load_rows_tile(const T* __restrict__ a, int ld, int r0,
-                                               int rmax, int k0, float (*s)[kBM], int tid,
-                                               F f) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int e = tid + h * kGemmThreads;  // 0..511
-    const int row = e / 4, col = (e % 4) * 4;
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (r0 + row < rmax) {
-      load4(a + (size_t)(r0 + row) * ld + k0 + col, v);
-      f(v, r0 + row, k0 + col);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[col + i][row] = v[i];
-  }
-}
-
-// A 16 x 128 tile of a row-major [K, ld] matrix, rows k0..k0+15 (masked at kmax) and
-// columns c0..c0+127, into s[kk][col]. f as above.
-template <typename T, typename F>
-__device__ __forceinline__ void load_cols_tile(const T* __restrict__ b, int ld, int k0,
-                                               int kmax, int c0, float (*s)[kBN], int tid,
-                                               F f) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int e = tid + h * kGemmThreads;
-    const int row = e / 32, col = (e % 32) * 4;
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (k0 + row < kmax) {
-      load4(b + (size_t)(k0 + row) * ld + c0 + col, v);
-      f(v, k0 + row, c0 + col);
-    }
-    *reinterpret_cast<float4*>(&s[row][col]) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-}
-
-struct Identity {
-  __device__ __forceinline__ void operator()(float*, int, int) const {}
-};
-
-// acc += as^T bs over the 16-deep tile: thread (tx, ty) owns rows {ty*4..+3, 64+ty*4..+3}
-// and columns {tx*4..+3, 64+tx*4..+3}
-__device__ __forceinline__ void tile_fma(float (*as)[kBM], float (*bs)[kBN], int tx, int ty,
-                                         float acc[8][8]) {
-#pragma unroll
-  for (int kk = 0; kk < kBK; ++kk) {
-    const float4 a0 = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
-    const float4 a1 = *reinterpret_cast<const float4*>(&as[kk][64 + ty * 4]);
-    const float4 b0 = *reinterpret_cast<const float4*>(&bs[kk][tx * 4]);
-    const float4 b1 = *reinterpret_cast<const float4*>(&bs[kk][64 + tx * 4]);
-    const float ar[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float br[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-  }
-}
-
-__device__ __forceinline__ void zero_acc(float acc[8][8]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-}
-
-// the tile row of accumulator row i
-__device__ __forceinline__ int acc_row(int ty, int i) {
-  return i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4);
-}
-
-// ----------------------------------------------------------------------------- forward c_proj
-// y[M,N] = round_T(act(f32(h))) @ W2 + b2 [+ res], one f32 sum rounded to T once. h [M,K],
-// W2 [K,N] row major; N % 128 == 0, K % 16 == 0; M ragged and masked.
-template <typename T>
-__global__ void __launch_bounds__(kGemmThreads)
-mlp_proj_kernel(const T* __restrict__ h, const T* __restrict__ w2, const T* __restrict__ bias,
-                const T* __restrict__ res, T* __restrict__ y, int m, int n, int k, int act) {
-  __shared__ __align__(16) float as[kBK][kBM];
-  __shared__ __align__(16) float bs[kBK][kBN];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  float acc[8][8];
-  zero_acc(acc);
-
-  auto activate = [act](float* v, int, int) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = round_to<T>(act_fwd(v[i], act));
-  };
-  for (int k0 = 0; k0 < k; k0 += kBK) {
-    load_rows_tile(h, k, m0, m, k0, as, tid, activate);
-    load_cols_tile(w2, n, k0, k, n0, bs, tid, Identity());
-    __syncthreads();
-    tile_fma(as, bs, tx, ty, acc);
-    __syncthreads();
-  }
-
-  float bv[8];
-  load4(bias + n0 + tx * 4, bv);
-  load4(bias + n0 + 64 + tx * 4, bv + 4);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + acc_row(ty, i);
-    if (row >= m) continue;
-    float out[8], rv[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (res != nullptr) {
-      load4(res + (size_t)row * n + n0 + tx * 4, rv);
-      load4(res + (size_t)row * n + n0 + 64 + tx * 4, rv + 4);
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      out[j] = __fadd_rn(acc[i][j], bv[j]);
-      if (res != nullptr) out[j] = __fadd_rn(out[j], rv[j]);
-    }
-    store4(y + (size_t)row * n + n0 + tx * 4, out);
-    store4(y + (size_t)row * n + n0 + 64 + tx * 4, out + 4);
-  }
-}
-
 // ----------------------------------------------------------------------------- launches
 template <typename T>
 cudaError_t launch_fwd(const void* x, const void* gamma, const void* beta, const void* w1,
-                       const void* b1, const void* w2, const void* b2, float* ln_stats, void* h,
-                       void* y, int t, int w, int hid, int act, int residual, float eps,
+                       const void* b1, const void* w2, const void* b2, float* ln_stats, void* g,
+                       void* h, void* y, int t, int w, int hid, int act, int residual, float eps,
                        cudaStream_t stream) {
   const T* xp = static_cast<const T*>(x);
   cudaError_t err = launch_ln_stats<T>(xp, ln_stats, ln_stats + t, t, w, eps, stream);
   if (err != cudaSuccess) return err;
 
-  // h = round_T(LN(x) @ W1 + b1)
+  // h = round_T(LN(x) @ W1 + b1), g = round_T(act(f32(h)))
   MmaGemmArgs fc = {};
   fc.a[0] = x;
   fc.b[0] = w1;
@@ -204,13 +82,21 @@ cudaError_t launch_fwd(const void* x, const void* gamma, const void* beta, const
   fc.ln_inv = ln_stats + t;
   fc.ln_gamma = gamma;
   fc.ln_beta = beta;
-  err = launch_mma_gemm<T, T, kFormNN, kLoadLn>(fc, 1, stream);
+  fc.act = act;
+  fc.g_out = g;
+  err = launch_mma_gemm<T, T, kFormNN, kLoadLn, kStoreRoundAct>(fc, 1, stream);
   if (err != cudaSuccess) return err;
 
-  mlp_proj_kernel<T><<<dim3(w / kBN, (t + kBM - 1) / kBM), kGemmThreads, 0, stream>>>(
-      static_cast<const T*>(h), static_cast<const T*>(w2), static_cast<const T*>(b2),
-      residual ? xp : nullptr, static_cast<T*>(y), t, w, hid, act);
-  return cudaGetLastError();
+  // y = round_T(g @ W2 + b2 [+ x]), one rounding
+  MmaGemmArgs proj = {};
+  proj.a[0] = g;
+  proj.b[0] = w2;
+  proj.bias[0] = b2;
+  proj.c[0] = y;
+  proj.m = t, proj.n = w, proj.kseg = hid, proj.nseg = 1;
+  if (!residual) return launch_mma_gemm<T, T, kFormNN>(proj, 1, stream);
+  proj.residual = x;
+  return launch_mma_gemm<T, T, kFormNN, kLoadPlain, kStoreBiasResidual>(proj, 1, stream);
 }
 
 struct MlpBwdBuffers {
@@ -297,22 +183,22 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16; act: 0 = quick_gelu, 1 = tanh-gelu. x [T,W]; gamma, beta
 // [W] of the compute dtype; w1 [W,H], b1 [H], w2 [H,W], b2 [W]. Scratch: ln_stats [2,T]
-// float32. Outputs: h [T,H] (the pre-activation) and y [T,W], y including x when
-// residual != 0. All contiguous on one device; launches on `stream` without synchronising.
-// Returns a cudaError_t.
+// float32 and g [T,H] of the compute dtype (the activation). Outputs: h [T,H] (the
+// pre-activation) and y [T,W], y including x when residual != 0. All contiguous on one device;
+// launches on `stream` without synchronising. Returns a cudaError_t.
 int mmt_block_mlp_fwd(int dtype, const void* x, const void* gamma, const void* beta,
                       const void* w1, const void* b1, const void* w2, const void* b2,
-                      void* ln_stats, void* h, void* y, int t, int w, int hid, int act,
+                      void* ln_stats, void* g, void* h, void* y, int t, int w, int hid, int act,
                       int residual, float eps, void* stream) {
   if (!mlp_shape_ok(t, w, hid, act)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* stats = static_cast<float*>(ln_stats);
   if (dtype == 0)
-    return (int)launch_fwd<float>(x, gamma, beta, w1, b1, w2, b2, stats, h, y, t, w, hid, act,
-                                  residual, eps, st);
+    return (int)launch_fwd<float>(x, gamma, beta, w1, b1, w2, b2, stats, g, h, y, t, w, hid,
+                                  act, residual, eps, st);
   if (dtype == 1)
-    return (int)launch_fwd<__nv_bfloat16>(x, gamma, beta, w1, b1, w2, b2, stats, h, y, t, w,
-                                          hid, act, residual, eps, st);
+    return (int)launch_fwd<__nv_bfloat16>(x, gamma, beta, w1, b1, w2, b2, stats, g, h, y, t,
+                                          w, hid, act, residual, eps, st);
   return (int)cudaErrorInvalidValue;
 }
 

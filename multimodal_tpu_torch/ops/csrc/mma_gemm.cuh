@@ -1,10 +1,10 @@
 // The projection GEMM of the block kernels on the tensor cores: every product of the
 // block-attention forward and backward (block_attention_fwd.cu, block_attention_bwd.cu) and of
-// the fused MLP branch but its forward c_proj (block_mlp.cu). Three forms:
+// the fused MLP branch (block_mlp.cu). Three forms:
 //
 //   NN: C_z = A' @ B_z + bias_z for z = blockIdx.z < 3, one A [M, K] shared by up to three
 //       weight sets B_z [K, N] row-major (q, k, v = x @ Wq|Wk|Wv + b; out = attn @ Wo + bo;
-//       the MLP's h = LN(x) @ W1 + b1);
+//       the MLP's h = LN(x) @ W1 + b1 and y = g @ W2 + b2 [+ x]);
 //   NT: C = sum over z < nseg of A_z @ W_z^T, A_z [M, kseg] and W_z [N, kseg] row-major (a
 //       [W_in, W_out] weight read as its transpose), up to three segments summed in one f32
 //       accumulator (do = dy Wo^T; dx or g = [dq | dk | dv] @ [Wq; Wk; Wv]^T over K = 3W; the
@@ -17,28 +17,35 @@
 // A' is A after an elementwise load transform (kLoad), by the row and column of A as it lies in
 // memory ([M, K] in NN, [K, M] in TN): LN, ln_apply<T> with the row's statistics rounded to T
 // and gamma, beta by column (the forward's LayerNorm, folded into q/k/v and into c_fc); act,
-// round_T(act(f32(a))) (g from the saved h); LN-b, round_T((x32 - mean) * inv) * gamma_T +
-// beta_T rounding after each step, with the statistics of the contraction row (the MLP
+// round_T(act(f32(a))) (g from the saved h, dW2's A); LN-b, round_T((x32 - mean) * inv) *
+// gamma_T + beta_T rounding after each step, with the statistics of the contraction row (the MLP
 // backward's form of LN(x)). Each thread transforms the 16-byte chunks it copied itself, right
 // after its cp.async group has landed and before the barrier that precedes the fragment loads:
 // its own copies are visible to it, so the transform costs no barrier of its own. Rows past the
 // ragged edge stay the zeros cp.async wrote (LN-b of a zero row would be beta, and its
 // statistics lie past the end of their buffer). The transform runs once for every column block
-// that reads the tile (N / 128 of them, 18-24 at ViT-B widths), so its cost is its instruction
-// count: the LN form reads the block's row statistics, rounded once, from shared memory, and
-// in bfloat16 both LN forms do their bf16-operand steps on bf16 pairs (ln_chunk). Measured on
-// the H100, per-element scalar code with the statistics read from device memory every step
-// ran the LN-folded q/k/v forward at 2.18 ms against 1.25 without the fold (PERF.md).
+// that reads the tile (N / 128 of them: 18-24 for LN at ViT-B widths, 4-8 for act at W =
+// 512-1024), so its cost is its instruction count: the LN form reads the block's row
+// statistics, rounded once, from shared memory, and in bfloat16 both LN forms do their
+// bf16-operand steps on bf16 pairs (ln_chunk); the act form evaluates act_fwd in f32 an element
+// (an expf and a division). Measured on the H100 (PERF.md): per-element scalar code with the
+// statistics read from device memory every step ran the LN-folded q/k/v forward at 2.18 ms
+// against 1.25 without the fold; the act form as the MLP forward c_proj's NN load ran c_proj at
+// 79-106 TFLOP/s in bfloat16, where g written once by c_fc's store lets it run 229-278.
 //
 // The store (kStore): round, the bias (when given) added in f32 and one rounding to TOut
 // (TOut = float keeps the sum unrounded: the LN backward's g, dln, the TN partials); residual,
 // the bias added, rounded to T, then the residual (when given) added and rounded again (the
 // block forward's both GEMMs: with the LN form's residual that is two roundings, as the
-// reference has them); act', the sum times act'(f32(h)) stored rounded to T (dh) with the
-// column sums of the unrounded products over the block's 128 rows in a fixed order (each
-// lane's rows in order, a butterfly over the eight lanes of a column, then the two row-warps
-// through shared memory) as row blockIdx.y of col_part (db1's partial sums). M is ragged: rows
-// at or past M load as zeros (cp.async with a source size of 0), are not stored and not summed.
+// reference has them); bias-residual, the bias and then the residual added to the f32 sum and
+// one rounding to T (the MLP's c_proj, (acc + b2) + x, as the reference sums it); round+act,
+// round's h and beside it g = round_T(act(f32(h))) to g_out, the value dW2's act load forms
+// from h by the same act_round (the MLP's c_fc, so c_proj loads g plainly); act', the
+// sum times act'(f32(h)) stored rounded to T (dh) with the column sums of the unrounded
+// products over the block's 128 rows in a fixed order (each lane's rows in order, a butterfly
+// over the eight lanes of a column, then the two row-warps through shared memory) as row
+// blockIdx.y of col_part (db1's partial sums). M is ragged: rows at or past M load as zeros
+// (cp.async with a source size of 0), are not stored and not summed.
 // N % 128 == 0, K (kseg) % 64 == 0 in NN and NT, M % 128 == 0 in TN (W, H % 128 == 0).
 //
 // What bounds it: 2 M N K FLOPs over (M + N) K + M N elements, several hundred FLOPs a byte at
@@ -105,7 +112,8 @@ __device__ __forceinline__ float act_bwd(float h, int act) {
 // forms, load transforms and stores (template arguments, so each use is its own kernel)
 constexpr int kFormNN = 0, kFormNT = 1, kFormTN = 2;
 constexpr int kLoadPlain = 0, kLoadLn = 1, kLoadAct = 2, kLoadLnB = 3;
-constexpr int kStoreRound = 0, kStoreResidual = 1, kStoreActGrad = 2;
+constexpr int kStoreRound = 0, kStoreResidual = 1, kStoreActGrad = 2, kStoreBiasResidual = 3,
+              kStoreRoundAct = 4;
 
 // the warp grid of a block and the 16 x 8 fragments of C a warp owns
 constexpr int kGemmWarpsM = 2, kGemmWarpsN = 4, kGemmMT = 4, kGemmNT = 4;
@@ -126,10 +134,11 @@ struct MmaGemmArgs {
   const float* ln_inv;
   const void* ln_gamma;   // kLoadLn, kLoadLnB: [columns of A in memory] of T
   const void* ln_beta;
-  int act;                // kLoadAct, kStoreActGrad: kActQuickGelu or kActGelu
-  const void* residual;   // kStoreResidual: [M, N] of T, or null
+  int act;                // kLoadAct, kStoreRoundAct, kStoreActGrad: kActQuickGelu or kActGelu
+  const void* residual;   // kStoreResidual: [M, N] of T, or null; kStoreBiasResidual: [M, N]
   const void* h;          // kStoreActGrad: [M, N] of T, the pre-activation
   float* col_part;        // kStoreActGrad: [gridDim.y, N] column sums
+  void* g_out;            // kStoreRoundAct: [M, N] of T
 };
 
 // Row strides in elements of the stage buffers and the elements of a stage: A is [kGemmBM][kLdA]
@@ -283,14 +292,30 @@ __device__ __forceinline__ void ln_b_chunk(__nv_bfloat16* p, float mean, float i
   *reinterpret_cast<uint4*>(p) = out;
 }
 
+// g = round_T(act(f32(h))) from a pre-activation h of T: one function for the forward's c_fc
+// store, which writes g, and the backward's dW2 load, which forms it again, so the two are the
+// same bits
+template <typename T>
+__device__ __forceinline__ float act_round(float h, int act) {
+  return round_to<T>(act_fwd(h, act));
+}
+
 // act: round_T(act(f32(a)))
 template <typename T>
 __device__ __forceinline__ void act_chunk(T* p, int act) {
   float v[16 / sizeof(T)];
   vec16_load(p, v);
 #pragma unroll
-  for (int i = 0; i < 16 / (int)sizeof(T); ++i) v[i] = round_to<T>(act_fwd(v[i], act));
+  for (int i = 0; i < 16 / (int)sizeof(T); ++i) v[i] = act_round<T>(v[i], act);
   vec16_store(p, v);
+}
+
+// two floats stored as two consecutive elements of T
+__device__ __forceinline__ void store2(float* p, float lo, float hi) {
+  *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float lo, float hi) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
 }
 
 template <typename T, typename TOut, int kForm, int kLoad, int kStore>
@@ -488,6 +513,13 @@ mma_gemm_kernel(MmaGemmArgs args) {
             lo = __fadd_rn(round_to<T>(lo), rv.x);
             hi = __fadd_rn(round_to<T>(hi), rv.y);
           }
+        } else if constexpr (kStore == kStoreBiasResidual) {
+          const float2 rv = load2(res + at);
+          lo = __fadd_rn(lo, rv.x);
+          hi = __fadd_rn(hi, rv.y);
+        } else if constexpr (kStore == kStoreRoundAct) {
+          store2(static_cast<T*>(args.g_out) + at, act_round<T>(round_to<T>(lo), args.act),
+                 act_round<T>(round_to<T>(hi), args.act));
         } else if constexpr (kStore == kStoreActGrad) {
           const float2 hv = load2(hp + at);
           lo = __fmul_rn(lo, act_bwd(hv.x, args.act));
@@ -495,10 +527,7 @@ mma_gemm_kernel(MmaGemmArgs args) {
           colsum[nt][0] += lo;
           colsum[nt][1] += hi;
         }
-        if constexpr (std::is_same_v<TOut, float>)
-          *reinterpret_cast<float2*>(c + at) = make_float2(lo, hi);
-        else
-          *reinterpret_cast<__nv_bfloat162*>(c + at) = __floats2bfloat162_rn(lo, hi);
+        store2(c + at, lo, hi);
       }
   }
   if constexpr (kStore == kStoreActGrad) {

@@ -36,10 +36,14 @@ from multimodal_tpu_torch.ops._build import gemm_signature
 # the tensor-core GEMM's instantiations (ops/csrc/mma_gemm.cuh) by (form, load, store), read
 # from the kernel name's template arguments; the first match wins, None matches anything
 GEMM_FAMILIES = [
+    (("NN", None, "bias-residual"),
+     "fused MLP forward c_proj (mma_gemm_kernel NN on g, bias-residual store; without the "
+     "residual it is the plain NN form, counted with the block backward's)"),
     (("NN", None, "residual"),
      "block forward GEMMs (mma_gemm_kernel NN, residual store: q/k/v with or without the LN "
      "load, out projection)"),
-    (("NN", "LN", "round"), "fused MLP forward c_fc (mma_gemm_kernel NN, LN load)"),
+    (("NN", "LN", "round+act"),
+     "fused MLP forward c_fc (mma_gemm_kernel NN, LN load, round+act store: h and g)"),
     (("NT", None, "act'"), "fused MLP backward dh (mma_gemm_kernel NT, act' store, db1 partials)"),
     (("TN", None, None), "fused MLP weight gradients (mma_gemm_kernel TN, act and LN-b loads)"),
     ((None, None, None),
@@ -47,7 +51,6 @@ GEMM_FAMILIES = [
      "block_mlp also the MLP's dln)"),
 ]
 FAMILIES = [  # (family, substrings of the kernel name), first match wins
-    ("fused MLP forward c_proj (mlp_proj_kernel, CUDA cores)", ("mlp_proj_kernel",)),
     ("flash attention forward (flash_fwd_kernel)", ("flash_fwd_kernel",)),
     ("flash attention dQ (flash_dq_kernel)", ("flash_dq_kernel",)),
     ("flash attention dK/dV (flash_dkv_kernel)", ("flash_dkv_kernel",)),

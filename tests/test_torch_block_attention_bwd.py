@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from multimodal_tpu_torch.ops import block_attention as ba
+from multimodal_tpu_torch.ops import block_mlp as bm
 from multimodal_tpu_torch.ops import launches
 
 torch.set_num_threads(1)
@@ -195,10 +196,19 @@ def _case_operands(case: str, rng):
     W = K = 768 (the NN form's B read as its transpose: the same k-steps and splits);
     ``tn-lnb-t3000``: the MLP backward's dW1 = ln_b^T @ dh in the TN form over a ragged T =
     3000 token rows in three splits of 1024 (the last 952 rows, padded to 960 with zeros),
-    W = 768, H = 256: each split's f32 partial, then their sum in order."""
+    W = 768, H = 256: each split's f32 partial, then their sum in order;
+    ``nn-g-k3072`` / ``nn-g-k4096``: the MLP forward's c_proj, g @ W2 in the NN form, g = act(h)
+    as c_fc's store writes it from a pre-activation h (150 token rows), over K = H = 3072 at
+    ViT-B/16 (W = 768, quick_gelu) and K = 4096 at ViT-L/14 (W = 1024, tanh-gelu), the longest
+    float32 sums of the MLP forward."""
     n = lambda *shape: rng.standard_normal(shape, dtype=np.float32)  # noqa: E731
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
     w = 768
+    if case.startswith("nn-g"):
+        hid, w, act = (3072, 768, "quick_gelu") if case == "nn-g-k3072" else (4096, 1024, "gelu")
+        g = bm.act_fwd(t(n(150, hid)), act)  # c_fc's g, in float32
+        w2 = t(n(hid, w) * hid ** -0.5)
+        return [[g]], [[w2.T.contiguous()]], g.double() @ w2.double()
     if case.startswith("nt"):
         nseg = 3 if case == "nt-k2304" else 1
         segments = [t(n(150, w) * scale) for scale in (0.3, 1.0, 3.0)[:nseg]]
@@ -219,7 +229,7 @@ def _case_operands(case: str, rng):
 
 
 @pytest.mark.parametrize("case", [pytest.param("nt-k2304", id="3"), pytest.param("nt-k768", id="1"),
-                                  "nn-ln-k768", "tn-lnb-t3000"])
+                                  "nn-ln-k768", "tn-lnb-t3000", "nn-g-k3072", "nn-g-k4096"])
 def test_3xtf32_gemm_holds_the_float32_limit_and_one_tf32_product_does_not(case):
     """The projection GEMM's float32 arithmetic, k-step by k-step, in its three forms (see
     ``_case_operands``): three TF32 products a product stay within the card's float32 limit,

@@ -70,6 +70,8 @@ GEMM_DW1 = ("_ZN50_GLOBAL__N__2b5bc54b_12_block_mlp_cu_e4f1a2b315mma_gemm_kernel
             "NS_11MmaGemmArgsE")
 GEMM_DH = ("_ZN50_GLOBAL__N__2b5bc54b_12_block_mlp_cu_e4f1a2b315mma_gemm_kernelI13__nv_bfloat16S1_"
            "Li1ELi0ELi2EEEvNS_11MmaGemmArgsE")
+GEMM_PROJ = ("_ZN50_GLOBAL__N__2b5bc54b_12_block_mlp_cu_e4f1a2b315mma_gemm_kernelI13__nv_bfloat16"
+             "S1_Li0ELi0ELi3EEEvNS_11MmaGemmArgsE")
 
 
 def test_kernel_label_writes_out_the_flash_operand_structs():
@@ -88,6 +90,8 @@ def test_kernel_label_writes_out_the_gemm_types_and_form():
         "mma_gemm_kernel<bfloat16, bfloat16, NN, LN, residual>")
     assert cs.kernel_label(GEMM_DW1) == "mma_gemm_kernel<float, float, TN, LN-b, round>"
     assert cs.kernel_label(GEMM_DH) == "mma_gemm_kernel<bfloat16, bfloat16, NT, plain, act'>"
+    assert cs.kernel_label(GEMM_PROJ) == (
+        "mma_gemm_kernel<bfloat16, bfloat16, NN, plain, bias-residual>")
 
 
 def test_flash_hmma_report_names_the_tensor_core_forms():
@@ -111,6 +115,33 @@ def test_flash_hmma_report_names_the_tensor_core_forms():
         "flash_fwd_kernelIfLi4E: no HMMA (CUDA cores)",
         "mma_gemm_kernel<float, float, NN, plain, round>: HMMA.1688.F32.TF32 x 1"]
     assert "1 *_mma_kernel functions" in cs.sass_report(sass)
+
+
+def test_gemm_hmma_faults_name_each_instantiation_off_its_tensor_core_form():
+    """Phase 2 fails on a projection-GEMM instantiation whose products are not all in its
+    dtype's tensor-core form (bf16 m16n8k16, float32 TF32 m16n8k8) or that has none; the
+    flash kernels are reported, not held to it."""
+    ok = "\n".join([
+        f"\t\tFunction : {GEMM_PROJ}",
+        "        /*0100*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;",
+        f"\t\tFunction : {GEMM_DW1}",
+        "        /*0100*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;",
+        f"\t\tFunction : {FLASH_FWD}",
+        "        /*0100*/                   FFMA R4, R8, R12, R4 ;",
+    ])
+    assert cs.gemm_hmma_faults(ok) == []
+    bad = "\n".join([
+        ok,
+        f"\t\tFunction : {GEMM_NN}",
+        "        /*0100*/                   FFMA R4, R8, R12, R4 ;",
+        f"\t\tFunction : {GEMM_NT}",
+        "        /*0100*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;",
+        "        /*0110*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;",
+    ])
+    faults = cs.gemm_hmma_faults(bad)
+    assert len(faults) == 2
+    assert faults[0].startswith("mma_gemm_kernel<bfloat16, float, NT, plain, round>: ")
+    assert faults[1] == "mma_gemm_kernel<float, float, NN, plain, round>: no HMMA"
 
 
 def test_flash_bound_and_rate():
@@ -160,21 +191,24 @@ def test_block_backward_bound_and_rate():
 
 
 def test_mlp_bound_and_rate():
-    """ViT-B/16 T=256x197 W=768 H=3072: two products forward (238 GFLOP), four backward. The
-    float32 backward is bound at the 3xTF32 ceiling, its four products' arithmetic; the
-    forward at the CUDA-core peak, since c_proj runs there, and its note says so."""
+    """ViT-B/16 T=256x197 W=768 H=3072: two products forward (238 GFLOP each), four backward.
+    Both float32 kernels are bound at the 3xTF32 ceiling, their products' arithmetic (the
+    forward at 2.884 ms, where the CUDA-core peak gives 7.1035), with the CUDA-core bound in
+    their notes."""
     args = (256 * 197, 768, 3072)
     ms, by, flops = cs.mlp_bound("block_mlp_fwd", *args, "float32")
     assert by == "operations" and flops == 4 * 256 * 197 * 768 * 3072
-    assert abs(ms - 1e3 * flops / 67e12) < 1e-9 and abs(ms - 7.1035) < 1e-4
+    assert abs(ms - 1e3 * flops / cs.PEAK_3XTF32) < 1e-9 and abs(ms - 2.884) < 1e-3
     note = cs.rate_note("block_mlp_fwd", "float32", 14.0, ms, flops)
-    assert "c_proj runs there" in note and "bound_cuda_cores_ms" not in note
+    assert "bound_cuda_cores_ms=7.1035" in note and "c_proj" not in note
     ms_b, _, flops_b = cs.mlp_bound("block_mlp_bwd", *args, "float32")
     assert flops_b == 2 * flops and abs(ms_b - 1e3 * flops_b / cs.PEAK_3XTF32) < 1e-9
     assert "bound_cuda_cores_ms" in cs.rate_note("block_mlp_bwd", "float32", 20.0, ms_b, flops_b)
     ms_bf, _, _ = cs.mlp_bound("block_mlp_bwd", *args, "bfloat16")
     assert abs(ms_bf - 0.9625) < 1e-4
-    assert "c_proj" not in cs.rate_note("block_mlp_fwd", "bfloat16", 1.0, ms, flops)
+    ms_ff, _, _ = cs.mlp_bound("block_mlp_fwd", *args, "bfloat16")
+    assert abs(ms_ff - 0.4812) < 1e-4
+    assert "cuda_core" not in cs.rate_note("block_mlp_fwd", "bfloat16", 1.0, ms_ff, flops)
 
 
 def test_phase3_holds_the_flash_head_dims_and_the_text_towers_batch():

@@ -41,7 +41,7 @@ def test_profile_step_sorts_kernels_into_families():
         gemm.format("__nv_bfloat16, __nv_bfloat16, 0, 0, 1"): "block forward GEMMs",
         gemm.format("__nv_bfloat16, __nv_bfloat16, 0, 0, 0"): "block backward GEMMs",
         gemm.format("__nv_bfloat16, float, 1, 0, 0"): "block backward GEMMs",
-        gemm.format("float, float, 0, 1, 0"): "fused MLP forward c_fc",
+        gemm.format("float, float, 0, 1, 4"): "fused MLP forward c_fc",
         gemm.format("__nv_bfloat16, __nv_bfloat16, 1, 0, 2"): "fused MLP backward dh",
         gemm.format("float, float, 2, 3, 0"): "fused MLP weight gradients",
         gemm.format("__nv_bfloat16, float, 2, 2, 0"): "fused MLP weight gradients",
@@ -57,7 +57,8 @@ def test_profile_step_sorts_kernels_into_families():
             "flash attention dQ",
         "void (anonymous namespace)::flash_dkv_kernel<float, 4>(...)": "flash attention dK/dV",
         "void (anonymous namespace)::ln_bwd_kernel<float, float>(...)": "LN-fold launches",
-        "void (anonymous namespace)::mlp_proj_kernel<float>(...)": "fused MLP forward c_proj",
+        gemm.format("float, float, 0, 0, 3"): "fused MLP forward c_proj",
+        gemm.format("__nv_bfloat16, __nv_bfloat16, 0, 0, 3"): "fused MLP forward c_proj",
         "sm90_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize128x128x8": "cuBLAS",
         "nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NNT": "cuBLAS",
         "void at::native::vectorized_elementwise_kernel<4, ...>": "elementwise",
