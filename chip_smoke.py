@@ -78,7 +78,20 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      exactly 12 launches of each block kernel and of each of the three flash kernels), then
      float32 and bfloat16 at the largest of 8/16/32 the kernel path holds; and one float32
      run of ViT-B/32 with ``vision.scaled_cosine`` and ``vision.attentional_pool`` at B=64
-     (finite, falling, the text tower's 12 + 12 block launches and nothing else).
+     (finite, falling, the text tower's 12 + 12 block launches and nothing else);
+ 10. the variational ViT-B/32 at full width and depth (``create_model(..., variational=True)``:
+     a concentration token on each tower, so the vision blocks run the block kernels at S=51
+     and the text blocks at S=78 causal, both also phase-3 rows): an eval-mode encode at
+     B=256 in float32, kernel path against plain path (means at cosine >= 0.9999,
+     concentrations within 1e-4 relative, >= 12 block-forward launches per tower encode);
+     training with the reference recipe's loss (``power_spherical``, KL weight 100, 20
+     samples, var_reg 0.1, label smoothing 0.1, the Riemannian mean gradient; the fused AdamW
+     at lr 1e-3 and weight decay 1e-8), each run's Monte-Carlo draws from a CUDA generator
+     seeded alike: float32 at B=128 through the kernels against the plain path as in phase 6
+     (24 launches of each block kernel per step), bfloat16 at B=128 and B=256 (finite, the
+     total loss falling), then 2 float32 steps each of ``vmf`` and of the Gaussian mode with
+     ``normal`` (finite; vMF concentrations at or above the minimum); samples/s over steps
+     2-6 and peak memory.
 Before the last line come the card's name and power limit and the kernel summary (JSON); the
 last line is the device record.
 """
@@ -107,6 +120,10 @@ LONG_CONTEXT = 2048
 LONG_BUCKET = 32  # the serving bucket of the long-context model: 32 x 2048 = 65,536 tokens
 LONG_COMPARE_BATCH = 8
 OPTIONS_MODEL = "ViT-B-32-cosine-attnpool"
+VCLIP_BATCH = 128  # the reference recipe's (scripts/train_vclip.sh)
+VCLIP_LOSS = dict(distribution_type="power_spherical", kl_weight=100.0, num_samples=20,
+                  var_reg_weight=0.1, label_smoothing=0.1, riemannian=True)
+VCLIP_OPT = dict(schedule=1e-3, weight_decay=1e-8)
 _CSRC = "multimodal_tpu_torch/ops/csrc/"
 _JAX_BLOCK = "multimodal_tpu/ops/block_attention.py"
 _JAX_FUSED = "multimodal_tpu/ops/fused_attention.py"
@@ -143,6 +160,10 @@ BLOCK_CASES = [  # (case, batch, seq, width, heads, causal)
     ("vision-S257", 2, 257, 1024, 16, False),
     ("vision-D80", 2, 257, 1280, 16, False),  # ViT-H/14's width: head dim 80, a padded k-step
     ("vision-D88", 2, 257, 1408, 16, True),   # ViT-g/14's width: head dim 88
+    ("vclip-vision", 3, 51, 768, 12, False),  # VariationalCLIP: CLS, 49 patches, the
+    ("vclip-vision", 256, 51, 768, 12, False),  # concentration token (an odd S)
+    ("vclip-text", 3, 78, 512, 8, True),  # 77 tokens and the concentration token, which
+    ("vclip-text", 256, 78, 512, 8, True),  # attends to every row
 ]
 LN_CASES = [  # (case, batch, seq, width, heads, causal, residual)
     ("ln-S197", 4, 197, 768, 12, False, True),
@@ -955,25 +976,30 @@ def make_batch(torch, cfg, n: int) -> dict:
     }
 
 
-def train_steps(torch, tally, model, batch, steps: int, grads_at: int = -1, count=True):
-    """``steps`` training steps from a fresh optimizer as bench.py builds it; returns the
-    per-step metrics and launch counts, the gradients after step ``grads_at`` (0-based),
-    the host-clock seconds of every step after the first and the peak device memory."""
+def train_steps(torch, tally, model, batch, steps: int, grads_at: int = -1, count=True,
+                loss_type: str = "clip", loss_kwargs: dict | None = None,
+                opt_kw: dict | None = None):
+    """``steps`` training steps from a fresh optimizer (by default as bench.py builds it);
+    returns the per-step metrics and launch counts, the gradients after step ``grads_at``
+    (0-based), the host-clock seconds of every step after the first and the peak device
+    memory. The step's generator is a CUDA generator seeded 0, so two runs draw alike."""
     from multimodal_tpu_torch.train import (
         TrainState, make_optimizer, make_schedule, make_train_step)
 
-    opt = make_optimizer(model.named_parameters(),
-                         make_schedule("cosine", 1e-3, warmup_steps=100, total_steps=10000),
-                         weight_decay=0.1, grad_clip_norm=1.0)
+    opt_kw = dict(opt_kw or dict(
+        schedule=make_schedule("cosine", 1e-3, warmup_steps=100, total_steps=10000),
+        weight_decay=0.1, grad_clip_norm=1.0))
+    opt = make_optimizer(model.named_parameters(), opt_kw.pop("schedule"), **opt_kw)
     state = TrainState.create(model, opt)
-    step = make_train_step(model, opt)
+    step = make_train_step(model, opt, loss_type=loss_type, loss_kwargs=loss_kwargs)
+    generator = torch.Generator(device="cuda").manual_seed(0)
     metrics, counts, grads, timed = [], [], None, 0.0
     torch.cuda.reset_peak_memory_stats()
     for i in range(steps):
         torch.cuda.synchronize()
         tally.start()
         t0 = time.perf_counter()
-        m = step(state, batch)
+        m = step(state, batch, generator)
         torch.cuda.synchronize()
         if i > 0:
             timed += time.perf_counter() - t0
@@ -993,23 +1019,31 @@ def check_launches(counts, need: dict, what: str):
             fail(f"{what}: launches per step {cnt}, need {need} and nothing else")
 
 
-def compare_paths(torch, mods, tally, card, model_name, n, steps, need,
-                  block_mlp=False) -> tuple[int, int]:
+def model_label(model_name: str, block_mlp=False, variational=None) -> str:
+    return model_name + (" block_mlp" if block_mlp else "") + (
+        f" variational {variational.model_type}" if variational else "")
+
+
+def compare_paths(torch, mods, tally, card, model_name, n, steps, need, block_mlp=False,
+                  variational=None, **step_kw) -> tuple[int, int]:
     """float32: ``steps`` steps through the kernels against the same from the same start
-    with every kernel call routed to its plain version. Returns the kernel path's peak
-    memory and the model's parameter count."""
+    with every kernel call routed to its plain version. ``variational`` (a
+    ``VariationalConfig``) builds the variational model; ``step_kw`` goes to
+    ``train_steps``. Returns the kernel path's peak memory and the model's parameter
+    count."""
     from multimodal_tpu_torch.models import create_model
 
-    model = create_model(model_name, seed=0, block_mlp=block_mlp)
-    model_name += " block_mlp" if block_mlp else ""
+    model = create_model(model_name, seed=0, block_mlp=block_mlp,
+                         variational=variational is not None, vcfg=variational)
+    model_name = model_label(model_name, block_mlp, variational)
     batch = make_batch(torch, model.cfg, n)
     start = {k: v.clone() for k, v in model.state_dict().items()}
     k_metrics, k_counts, k_grads, k_time, k_peak = train_steps(torch, tally, model, batch,
-                                                               steps, grads_at=0)
+                                                               steps, grads_at=0, **step_kw)
     model.load_state_dict(start)
     with plain_attention(mods):
         p_metrics, p_counts, p_grads, p_time, p_peak = train_steps(
-            torch, tally, model, batch, steps, grads_at=0, count=False)
+            torch, tally, model, batch, steps, grads_at=0, count=False, **step_kw)
     for i in range(2):
         km, pm = k_metrics[i], p_metrics[i]
         print(f"  float32 step {i + 1}: loss kernel={km['loss']:.7f} plain={pm['loss']:.7f} "
@@ -1044,17 +1078,18 @@ def compare_paths(torch, mods, tally, card, model_name, n, steps, need,
 
 
 def kernel_path_run(torch, tally, card, model_name, dtype, n, steps, need, falling=False,
-                    block_mlp=False) -> list:
+                    block_mlp=False, variational=None, **step_kw) -> list:
     """``steps`` steps on the kernel path alone: finite (and with ``falling`` a loss that
-    falls on the fixed batch), the launch counts, samples/s and peak memory. Returns the
-    losses."""
+    falls on the fixed batch), the launch counts, samples/s and peak memory. ``variational``
+    and ``step_kw`` as in ``compare_paths``. Returns the per-step metrics."""
     from multimodal_tpu_torch.models import create_model
 
     name = str(dtype).replace("torch.", "")
-    model = create_model(model_name, dtype=dtype, seed=0, block_mlp=block_mlp)
-    model_name += " block_mlp" if block_mlp else ""
+    model = create_model(model_name, dtype=dtype, seed=0, block_mlp=block_mlp,
+                         variational=variational is not None, vcfg=variational)
+    model_name = model_label(model_name, block_mlp, variational)
     batch = make_batch(torch, model.cfg, n)
-    metrics, counts, _, timed, peak = train_steps(torch, tally, model, batch, steps)
+    metrics, counts, _, timed, peak = train_steps(torch, tally, model, batch, steps, **step_kw)
     losses = [m["loss"] for m in metrics]
     norms = [m["grad_norm"] for m in metrics]
     print(f"  {name} losses {[round(v, 7) for v in losses]} grad norms "
@@ -1069,7 +1104,7 @@ def kernel_path_run(torch, tally, card, model_name, dtype, n, steps, need, falli
     check_launches(counts, need, f"{model_name} {name} kernel path")
     del model, batch
     torch.cuda.empty_cache()
-    return losses
+    return metrics
 
 
 def largest_batch(torch, peak_at_compare: int, n_params: int, compare_batch: int,
@@ -1101,6 +1136,83 @@ def register_variant(name: str, base: str, vision: dict | None = None,
     cfg["vision_cfg"].update(vision or {})
     cfg["text_cfg"].update(text or {})
     add_model_config(name, cfg)
+
+
+def phase_vclip_encode(torch, mods, tally, card, n: int):
+    """The variational model's eval-mode encode at batch ``n`` in float32, kernel path
+    against plain path: the means at cosine >= 0.9999, the concentrations within 1e-4
+    relative, >= 12 block-forward launches per tower encode; the model is handed over in
+    training mode, and the encode must give it back in that mode."""
+    from multimodal_tpu_torch.data.preprocess import normalize_images
+    from multimodal_tpu_torch.inference import model_mode
+    from multimodal_tpu_torch.models import create_model
+
+    model = create_model(MODEL, variational=True, seed=0).train()
+    batch = make_batch(torch, model.cfg, n)
+    images = normalize_images(batch["image"])
+
+    def encode(tower):
+        with model_mode(model, False), torch.inference_mode():
+            out = (model.encode_image(images) if tower == "image"
+                   else model.encode_text(batch["text"]))
+        torch.cuda.synchronize()
+        return out
+
+    got, counts = {}, {}
+    for tower in ("image", "text"):
+        tally.start()
+        got[tower] = encode(tower)
+        counts[tower] = tally.stop()["block_attention_fwd"]
+    with plain_attention(mods):
+        want = {tower: encode(tower) for tower in ("image", "text")}
+    if not model.training:
+        fail("the eval-mode encode did not give the model back in training mode")
+    for tower in ("image", "text"):
+        (mean, conc), (p_mean, p_conc) = got[tower], want[tower]
+        ok_shape = mean.shape == (n, model.cfg.embed_dim) and conc.shape == (n,)
+        finite = bool(torch.isfinite(mean).all() and torch.isfinite(conc).all())
+        cos = torch.nn.functional.cosine_similarity(mean, p_mean, dim=-1).min().item()
+        rel = ((conc - p_conc).abs() / p_conc.abs()).max().item()
+        print(f"  encode {tower} B={n} float32 kernel vs plain: min cosine of the means "
+              f"{cos:.7f} (need >= 0.9999), concentration rel diff {rel:.3e} (need <= 1e-4), "
+              f"concentrations {conc.min().item():.2f}-{conc.max().item():.2f}, block forward "
+              f"launches {counts[tower]} (need >= 12)", flush=True)
+        if not (ok_shape and finite) or cos < 0.9999 or rel > 1e-4 or counts[tower] < 12:
+            fail(f"the variational {tower} encode: shapes {tuple(mean.shape)} "
+                 f"{tuple(conc.shape)}, finite {finite}, or kernel vs plain disagree")
+    del model, batch, images, got, want
+    torch.cuda.empty_cache()
+
+
+def phase_vclip_train(torch, mods, tally, card):
+    """The recipe's loss through the kernels: float32 against the plain path, bfloat16 at
+    two batches, then two float32 steps of vMF and of the Gaussian mode."""
+    from multimodal_tpu_torch.models import VariationalConfig
+
+    spherical, gaussian = VariationalConfig(), VariationalConfig(model_type="Gaussian")
+    need = {"block_attention_fwd": 24, "block_attention_bwd": 24}
+    step_kw = dict(loss_type="vclip", loss_kwargs=VCLIP_LOSS, opt_kw=VCLIP_OPT)
+    compare_paths(torch, mods, tally, card, MODEL, VCLIP_BATCH, TRAIN_STEPS, need,
+                  variational=spherical, **step_kw)
+    torch.cuda.empty_cache()
+    for n in (VCLIP_BATCH, TRAIN_BATCH):
+        metrics = kernel_path_run(torch, tally, card, MODEL, torch.bfloat16, n, TRAIN_STEPS,
+                                  need, falling=True, variational=spherical, **step_kw)
+        print(f"  bfloat16 B={n} terms of step 1: " + ", ".join(
+            f"{k}={metrics[0][k]:.5g}" for k in ("clip_loss", "image_kl_loss", "text_kl_loss",
+                                                "var_reg", "mean_image_concentration",
+                                                "mean_text_concentration")), flush=True)
+    for vcfg, family in ((spherical, "vmf"), (gaussian, "normal")):
+        print(f"  {family} ({vcfg.model_type}), float32, 2 steps", flush=True)
+        metrics = kernel_path_run(torch, tally, card, MODEL, torch.float32, VCLIP_BATCH, 2, need,
+                                  variational=vcfg, loss_type="vclip", opt_kw=VCLIP_OPT,
+                                  loss_kwargs=dict(VCLIP_LOSS, distribution_type=family))
+        if not all(np.isfinite(list(m.values())).all() for m in metrics):
+            fail(f"non-finite metrics in the {family} run: {metrics}")
+        lowest = min(min(m["mean_image_concentration"], m["mean_text_concentration"])
+                     for m in metrics)
+        if family == "vmf" and lowest < vcfg.min_concentration:
+            fail(f"vMF concentration {lowest} below the minimum {vcfg.min_concentration}")
 
 
 def main() -> int:
@@ -1205,8 +1317,8 @@ def main() -> int:
                                    TRAIN_STEPS, need, block_mlp=True)
     torch.cuda.empty_cache()
     rate_batch = largest_batch(torch, peak, n_params, SHARED_COMPARE_BATCH)
-    losses = kernel_path_run(torch, tally, card, SHARED_MODEL, torch.float32, rate_batch,
-                             TRAIN_STEPS, need, block_mlp=True)
+    metrics = kernel_path_run(torch, tally, card, SHARED_MODEL, torch.float32, rate_batch,
+                              TRAIN_STEPS, need, block_mlp=True)
     kernel_path_run(torch, tally, card, SHARED_MODEL, torch.bfloat16, rate_batch, TRAIN_STEPS,
                     need, falling=True, block_mlp=True)
     # per-block remat: every forward kernel runs again inside the backward, and nothing else
@@ -1214,9 +1326,10 @@ def main() -> int:
     register_variant(REMAT_MODEL, SHARED_MODEL, remat=True)
     print(f"  {REMAT_MODEL}: {SHARED_MODEL} with remat", flush=True)
     remat_need = {k: v * (2 if k.endswith("fwd") else 1) for k, v in need.items()}
-    remat_losses = kernel_path_run(torch, tally, card, REMAT_MODEL, torch.float32, rate_batch,
-                                   TRAIN_STEPS, remat_need, block_mlp=True)
-    remat_rel = max(abs(a - b) / abs(b) for a, b in zip(remat_losses[:2], losses[:2]))
+    remat_metrics = kernel_path_run(torch, tally, card, REMAT_MODEL, torch.float32,
+                                    rate_batch, TRAIN_STEPS, remat_need, block_mlp=True)
+    remat_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                    for a, b in zip(remat_metrics[:2], metrics[:2]))
     print(f"  remat vs no remat at B={rate_batch}: loss rel diff over the first 2 steps "
           f"{remat_rel:.3e} (need <= 1e-6); launches per step {remat_need}", flush=True)
     if remat_rel > 1e-6:
@@ -1248,6 +1361,11 @@ def main() -> int:
           flush=True)
     kernel_path_run(torch, tally, card, OPTIONS_MODEL, torch.float32, 64, TRAIN_STEPS,
                     {"block_attention_fwd": 12, "block_attention_bwd": 12}, falling=True)
+
+    print(f"phase 10 variational CLIP: {MODEL} at full width and depth, a concentration token "
+          "on each tower (vision S=51, text S=78 causal)", flush=True)
+    phase_vclip_encode(torch, mods, tally, card, TRAIN_BATCH)
+    phase_vclip_train(torch, mods, tally, card)
 
     entries = []
     for name, (source, replaces, case) in KERNELS.items():

@@ -1,12 +1,14 @@
 """Batch embedding extraction — the serving-side encode API (port of
 ``multimodal_tpu/inference.py:Embedder``, without the int8 and wire-size paths).
 
-Every encode runs under ``torch.inference_mode()`` on the model's device and returns
-L2-normalized float32 rows. uint8 images cross to the device as uint8 and are normalized
-there."""
+Every encode runs in eval mode (``model_mode``: the reference encodes with ``train=False``)
+under ``torch.inference_mode()`` on the model's device and returns L2-normalized float32
+rows; the model's own mode comes back afterwards. uint8 images cross to the device as uint8
+and are normalized there."""
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import numpy as np
@@ -14,6 +16,19 @@ import torch
 
 from multimodal_tpu_torch.data.preprocess import normalize_images
 from multimodal_tpu_torch.data.tokenizer import tokenize
+
+
+@contextlib.contextmanager
+def model_mode(model: torch.nn.Module, training: bool):
+    """Run the body with ``model`` in training (``True``) or eval mode, and give it back the
+    mode it had, whatever the body does: an encode is deterministic whatever mode the
+    caller's model is in (after a train step, say), and a train step leaves it as it was."""
+    was = model.training
+    model.train(training)
+    try:
+        yield model
+    finally:
+        model.train(was)
 
 
 class Embedder:
@@ -26,13 +41,13 @@ class Embedder:
 
     def encode_tokens(self, tokens: np.ndarray) -> np.ndarray:
         """One device batch of int tokens [B, context_length] -> float32 [B, embed_dim]."""
-        with torch.inference_mode():
+        with model_mode(self.model, False), torch.inference_mode():
             t = torch.from_numpy(np.asarray(tokens, np.int64)).to(self.device)
             return self.model.encode_text(t, normalize=True).cpu().numpy()
 
     def encode_images(self, images: np.ndarray) -> np.ndarray:
         """One device batch of NHWC images (uint8, or float already normalized)."""
-        with torch.inference_mode():
+        with model_mode(self.model, False), torch.inference_mode():
             x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
             if x.dtype == torch.uint8:
                 x = normalize_images(x)

@@ -1,5 +1,12 @@
 """Contrastive losses of the PyTorch port."""
 
-from multimodal_tpu_torch.losses.clip_loss import clip_loss, contrastive_logits, cross_entropy
+from multimodal_tpu_torch.losses.clip_loss import (
+    clip_loss,
+    clip_loss_sampled,
+    contrastive_logits,
+    cross_entropy,
+)
+from multimodal_tpu_torch.losses.vclip_loss import vclip_loss
 
-__all__ = ["clip_loss", "contrastive_logits", "cross_entropy"]
+__all__ = ["clip_loss", "clip_loss_sampled", "contrastive_logits", "cross_entropy",
+           "vclip_loss"]

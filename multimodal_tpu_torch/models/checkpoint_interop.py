@@ -26,7 +26,9 @@ a ``scaled_cosine`` one or the ``attn_pool.*`` leaves of an attentional pooler, 
 the ``ls_1.gamma`` / ``ls_2.gamma`` of a model with ``ls_init_value`` (the exporter drops
 them), so such models load through ``load_jax_params``, which takes the flax tree as it is: the same layouts as
 the port's ([in, out] kernels, so ``mlp.c_fc`` and ``mlp.c_proj`` arrive as the block-MLP
-kernels read them), only the names differ.
+kernels read them), only the names differ. It is also the only way into a
+``VariationalCLIP``: its tree's ``extra_embedding`` tokens, ``mean_*`` / ``var_*_projection``
+heads and ``log_concentration_scale_*`` offsets keep their names in the port.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from multimodal_tpu_torch.models.clip import CLIP
+from multimodal_tpu_torch.models.clip import CLIP, VariationalCLIP
 
 
 def _strip_prefixes(sd: Mapping[str, Any]) -> dict:
@@ -141,7 +143,7 @@ def jax_params_to_port(params: Mapping[str, Any]) -> dict:
     return out
 
 
-def _fill(model: CLIP, converted: dict, what: str) -> CLIP:
+def _fill(model: CLIP | VariationalCLIP, converted: dict, what: str):
     """Copy ``converted`` (port names -> arrays) into ``model`` in place. Every parameter
     must be covered with its exact shape; a mismatch raises."""
     params = dict(model.named_parameters())
@@ -165,8 +167,9 @@ def load_openai_state_dict(model: CLIP, sd: Mapping[str, Any]) -> CLIP:
 
 
 @torch.no_grad()
-def load_jax_params(model: CLIP, params: Mapping[str, Any]) -> CLIP:
-    """Copy the JAX package's flax parameter tree into ``model`` in place (on its device),
-    every leaf included (``attn.head_scale``, ``attn.logit_scale``, ``attn_pool.*`` and the
-    LayerScale ``gamma`` too). A mismatch in names or shapes raises."""
+def load_jax_params(model: CLIP | VariationalCLIP, params: Mapping[str, Any]):
+    """Copy the JAX package's flax parameter tree (of a ``CLIP`` or a ``VariationalCLIP``)
+    into ``model`` in place (on its device), every leaf included (``attn.head_scale``,
+    ``attn.logit_scale``, ``attn_pool.*``, the LayerScale ``gamma`` and the variational
+    heads too). A mismatch in names or shapes raises."""
     return _fill(model, jax_params_to_port(params), "parameter tree")

@@ -1,8 +1,8 @@
-"""CLIP encoders, two-tower or shared-trunk (port of ``multimodal_tpu/models/clip.py``:
-``VisionStem``, ``TextStem``, ``eot_pool`` and ``CLIP``). With ``cfg.share_trunk`` one
-transformer, built from the vision config, serves both modalities: the text pass runs it
-with a call-time ``causal=True``, and both pool through one ``ln_post`` and one
-``projection``.
+"""CLIP encoders, two-tower or shared-trunk, and the variational CLIP (port of
+``multimodal_tpu/models/clip.py``: ``VisionStem``, ``TextStem``, ``eot_pool``, ``CLIP`` and
+``VariationalCLIP``). With ``cfg.share_trunk`` one transformer, built from the vision
+config, serves both modalities: the text pass runs it with a call-time ``causal=True``, and
+both pool through one ``ln_post`` and one ``projection``.
 
 Images are NHWC, as in the reference. The patch embedding is a reshape plus one matrix
 product with the ``[P, P, 3, W]`` kernel (identical to the stride-P convolution, and with
@@ -17,8 +17,13 @@ with ``vision.attentional_pool`` row 0 of an ``AttentionalPooler``'s queries;
 attention. A text tower whose ``context_length`` is above the block operator's longest
 sequence runs every block through ``attention()``, from 2048 tokens up the flash kernels.
 
-Not ported yet (``CLIP`` raises on configs that need them): MoE, LoRA, int8 MLPs and the
-SigLIP bias.
+``VariationalCLIP`` appends one learned concentration token to each tower (S=51 and S=78
+for ViT-B/32, both still on the block-attention operator) and emits a distribution's
+parameters: the CLS / EOT rows feed the mean heads, the last row the concentration heads.
+
+Not ported yet (both models raise on configs that need them): LoRA, int8 MLPs and the
+SigLIP bias; ``CLIP`` also refuses MoE, which the reference's ``VariationalCLIP`` never
+builds.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import math
 import torch
 from torch import nn
 
-from multimodal_tpu_torch.models.config import CLIPConfig
+from multimodal_tpu_torch.models.config import CLIPConfig, VariationalConfig
 from multimodal_tpu_torch.models.layers import (
     AttentionalPooler,
     LayerNorm,
@@ -42,11 +47,12 @@ LOGIT_SCALE_INIT = 2.6592  # ln(1/0.07)
 
 
 class VisionStem(nn.Module):
-    """Patchify + CLS + positional embedding [+ patch dropout in training] + ln_pre ->
-    token sequence."""
+    """Patchify + CLS [+ ``extra_tokens`` learned tokens after the patches] + positional
+    embedding [+ patch dropout in training] + ln_pre -> token sequence."""
 
     def __init__(self, width: int, patch_size: int, image_size: int,
-                 dtype: torch.dtype = torch.float32, patch_dropout: float = 0.0):
+                 dtype: torch.dtype = torch.float32, patch_dropout: float = 0.0,
+                 extra_tokens: int = 0):
         super().__init__()
         self.patch_dropout = (PatchDropout(patch_dropout, num_prefix=1)
                               if patch_dropout > 0.0 else None)
@@ -55,7 +61,10 @@ class VisionStem(nn.Module):
         grid = image_size // patch_size
         self.patch_conv = nn.Parameter(torch.empty(patch_size, patch_size, 3, width))
         self.class_embedding = nn.Parameter(torch.empty(width))
-        self.positional_embedding = nn.Parameter(torch.empty(grid * grid + 1, width))
+        self.extra_embedding = (nn.Parameter(torch.empty(extra_tokens, width))
+                                if extra_tokens else None)
+        self.positional_embedding = nn.Parameter(
+            torch.empty(grid * grid + 1 + extra_tokens, width))
         self.ln_pre = LayerNorm(width)
 
     def init_weights(self, generator: torch.Generator):
@@ -66,6 +75,8 @@ class VisionStem(nn.Module):
             nn.init.trunc_normal_(self.patch_conv, 0.0, std, -2 * std, 2 * std,
                                   generator=generator)
         normal_(self.class_embedding, self.width ** -0.5, generator)
+        if self.extra_embedding is not None:
+            normal_(self.extra_embedding, 1.0, generator)
         normal_(self.positional_embedding, self.width ** -0.5, generator)
 
     def forward(self, images: torch.Tensor,
@@ -78,30 +89,41 @@ class VisionStem(nn.Module):
         patches = images.to(self.dtype).reshape(b, g, p, g, p, 3).permute(0, 1, 3, 2, 4, 5)
         x = patches.reshape(b, g * g, p * p * 3) @ self.patch_conv.reshape(
             p * p * 3, self.width).to(self.dtype)
-        cls = self.class_embedding.to(self.dtype).expand(b, 1, self.width)
-        x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(self.dtype)
+        tokens = [self.class_embedding.to(self.dtype).expand(b, 1, self.width), x]
+        if self.extra_embedding is not None:
+            tokens.append(self.extra_embedding.to(self.dtype).expand(b, -1, self.width))
+        x = torch.cat(tokens, dim=1) + self.positional_embedding.to(self.dtype)
         if self.patch_dropout is not None:
             x = self.patch_dropout(x, generator)
         return self.ln_pre(x)
 
 
 class TextStem(nn.Module):
-    """Token embedding + positional embedding -> token sequence."""
+    """Token embedding [+ ``extra_tokens`` learned tokens after the context] + positional
+    embedding -> token sequence."""
 
     def __init__(self, width: int, vocab_size: int, context_length: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, extra_tokens: int = 0):
         super().__init__()
-        self.dtype = dtype
+        self.width, self.dtype = width, dtype
         self.token_embedding = nn.Parameter(torch.empty(vocab_size, width))
-        self.positional_embedding = nn.Parameter(torch.empty(context_length, width))
+        self.extra_embedding = (nn.Parameter(torch.empty(extra_tokens, width))
+                                if extra_tokens else None)
+        self.positional_embedding = nn.Parameter(
+            torch.empty(context_length + extra_tokens, width))
 
     def init_weights(self, generator: torch.Generator):
         normal_(self.token_embedding, 0.02, generator)
+        if self.extra_embedding is not None:
+            normal_(self.extra_embedding, self.width ** -0.5, generator)
         normal_(self.positional_embedding, 0.01, generator)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return (self.token_embedding[tokens].to(self.dtype)
-                + self.positional_embedding.to(self.dtype))
+        x = self.token_embedding[tokens].to(self.dtype)
+        if self.extra_embedding is not None:
+            extra = self.extra_embedding.to(self.dtype).expand(x.shape[0], -1, self.width)
+            x = torch.cat([x, extra], dim=1)
+        return x + self.positional_embedding.to(self.dtype)
 
 
 def eot_pool(x: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -110,9 +132,9 @@ def eot_pool(x: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return x[torch.arange(x.shape[0], device=x.device), idx]
 
 
-def _check_supported(c: CLIPConfig):
+def _check_supported(c: CLIPConfig, moe: bool = True):
     unsupported = {
-        "vision.moe_experts": c.vision.moe_experts > 0,
+        "vision.moe_experts": moe and c.vision.moe_experts > 0,
         "lora_rank": c.lora_rank > 0,
         "int8_forward": c.int8_forward,
         "logit_bias_init": c.logit_bias_init is not None,
@@ -217,3 +239,98 @@ class CLIP(nn.Module):
             "text_features": self.encode_text(tokens, normalize=normalize),
             "logit_scale": self.logit_scale,
         }
+
+
+class VariationalCLIP(nn.Module):
+    """CLIP that emits distribution parameters: a learned concentration token is appended to
+    both towers; the CLS / EOT row goes through ``ln_post`` / ``ln_final`` to the mean head,
+    the concentration token's row to the concentration head, whose log-space value has a
+    learned global offset and is clamped (``_concentration``). The trunks take ``remat`` and
+    ``act`` from the config and nothing else of its tower options, as in the reference; there
+    is no patch dropout."""
+
+    def __init__(self, cfg: CLIPConfig, vcfg: VariationalConfig = VariationalConfig(),
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        _check_supported(cfg, moe=False)
+        if vcfg.model_type not in ("Spherical", "Gaussian"):
+            raise ValueError(f"unknown VariationalConfig.model_type {vcfg.model_type!r}")
+        self.cfg, self.vcfg, self.dtype = cfg, vcfg, dtype
+        v, t = cfg.vision, cfg.text
+        trunk = dict(act=resolve_act(cfg.act), dtype=dtype, remat=cfg.remat)
+        self.visual_stem = VisionStem(v.width, v.patch_size, v.image_size, dtype=dtype,
+                                      extra_tokens=1)
+        self.text_stem = TextStem(t.width, t.vocab_size, t.context_length, dtype=dtype,
+                                  extra_tokens=1)
+        self.visual_transformer = Transformer(v.width, v.layers, v.heads, v.mlp_ratio, **trunk)
+        # causal over context_length + 1: the concentration token, last, sees every row
+        self.text_transformer = Transformer(t.width, t.layers, t.heads, t.mlp_ratio,
+                                            causal=True, **trunk)
+        self.ln_post = LayerNorm(v.width)
+        self.ln_final = LayerNorm(t.width)
+        var_dim = 1 if self.spherical else cfg.embed_dim
+        self.mean_image_projection = nn.Parameter(torch.empty(v.width, cfg.embed_dim))
+        self.mean_text_projection = nn.Parameter(torch.empty(t.width, cfg.embed_dim))
+        self.var_image_projection = nn.Parameter(torch.empty(v.width, var_dim))
+        self.var_text_projection = nn.Parameter(torch.empty(t.width, var_dim))
+        if self.spherical:
+            self.log_concentration_scale_image = nn.Parameter(torch.empty(()))
+            self.log_concentration_scale_text = nn.Parameter(torch.empty(()))
+        self.logit_scale = nn.Parameter(torch.empty(()))
+
+    @property
+    def spherical(self) -> bool:
+        return self.vcfg.model_type == "Spherical"
+
+    def init_weights(self, generator: torch.Generator):
+        """The reference's init distributions, drawn from ``generator``; the log
+        concentration offsets start at log(initial - min)."""
+        for m in self.modules():
+            if m is not self and hasattr(m, "init_weights"):
+                m.init_weights(generator)
+        vscale, tscale = self.cfg.vision.width ** -0.5, self.cfg.text.width ** -0.5
+        normal_(self.mean_image_projection, vscale, generator)
+        normal_(self.mean_text_projection, tscale, generator)
+        normal_(self.var_image_projection, vscale, generator)
+        normal_(self.var_text_projection, tscale, generator)
+        with torch.no_grad():
+            if self.spherical:
+                target = math.log(self.vcfg.initial_concentration - self.vcfg.min_concentration)
+                self.log_concentration_scale_image.fill_(target)
+                self.log_concentration_scale_text.fill_(target)
+            self.logit_scale.fill_(LOGIT_SCALE_INIT)
+
+    def _concentration(self, raw: torch.Tensor, log_scale) -> torch.Tensor:
+        """Spherical: clamp(log_scale + raw, 1e-3, 20) -> exp -> clamp [min, max], each clamp
+        as ``jnp.clip``'s maximum-then-minimum, so a tie splits its gradient as there.
+        Gaussian: exp(raw), a variance per dimension."""
+        if not self.spherical:
+            return torch.exp(raw)
+        bound = lambda value: torch.tensor(value, dtype=raw.dtype, device=raw.device)  # noqa: E731
+        log_conc = torch.minimum(torch.maximum(log_scale + raw[..., 0], bound(1e-3)), bound(20.0))
+        return torch.minimum(torch.maximum(torch.exp(log_conc),
+                                           bound(self.vcfg.min_concentration)),
+                             bound(self.vcfg.max_concentration))
+
+    def encode_image(self, images: torch.Tensor):
+        """NHWC float images -> (mean [B, E] float32, concentration [B] or variances [B, E])."""
+        x = self.visual_transformer(self.visual_stem(images))
+        mean = self.ln_post(x[:, 0]).to(torch.float32) @ self.mean_image_projection
+        raw = self.ln_post(x[:, -1]).to(torch.float32) @ self.var_image_projection
+        scale = self.log_concentration_scale_image if self.spherical else 0.0
+        return mean, self._concentration(raw, scale)
+
+    def encode_text(self, tokens: torch.Tensor):
+        """Token ids -> (mean, concentration) as ``encode_image``."""
+        x = self.text_transformer(self.text_stem(tokens))
+        mean = self.ln_final(eot_pool(x, tokens)).to(torch.float32) @ self.mean_text_projection
+        raw = self.ln_final(x[:, -1]).to(torch.float32) @ self.var_text_projection
+        scale = self.log_concentration_scale_text if self.spherical else 0.0
+        return mean, self._concentration(raw, scale)
+
+    def forward(self, images: torch.Tensor, tokens: torch.Tensor) -> dict:
+        image_mean, image_conc = self.encode_image(images)
+        text_mean, text_conc = self.encode_text(tokens)
+        return {"image_mean": image_mean, "image_concentration": image_conc,
+                "text_mean": text_mean, "text_concentration": text_conc,
+                "logit_scale": self.logit_scale}

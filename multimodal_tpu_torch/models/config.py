@@ -68,6 +68,17 @@ class CLIPConfig:
             raise ValueError("shared trunk requires equal vision/text width, layers, heads")
 
 
+@dataclasses.dataclass(frozen=True)
+class VariationalConfig:
+    """The heads of ``VariationalCLIP``: "Spherical" (one concentration per example, its
+    log-space head clamped to [min, max]) or "Gaussian" (a variance per dimension)."""
+
+    model_type: str = "Spherical"
+    min_concentration: float = 10.0
+    initial_concentration: float = 200.0
+    max_concentration: float = 1e12
+
+
 def _vision_from_json(d: dict) -> VisionConfig:
     return VisionConfig(
         image_size=d.get("image_size", 224),

@@ -22,7 +22,11 @@ the accumulator takes round(p) @ v, and the division by ``l`` comes last; in the
 and dk are scaled by ``sm_scale`` per key or query tile in f32 before they are summed (the
 kernels scale once at the store: a difference of summation order only). The
 reference's transposes to [B, H, S, D], its pads of Sq and Sk and its 128-lane copies of lse
-and delta are TPU tiling and are not ported.
+and delta are TPU tiling and are not ported. The kernels take head dims that are multiples of
+8; on a CUDA tensor ``FlashAttention`` zero-pads any other D up to the next one (zero columns
+add nothing to q k^T, and give zero columns of out, dq, dk and dv, which are sliced off),
+with ``sm_scale`` taken from the true D, so the operator takes every D up to 128, as the
+reference's does.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch
 from multimodal_tpu_torch.ops import launches
 
 MAX_HEAD_DIM = 128
+HEAD_DIM_STEP = 8  # the kernels' head dims are multiples of this
 # the reference's dispatch rule (causal self-attention from this many keys up), kept so that
 # both packages take the same path at the same shape; where the crossover lies on this card
 # is measured in PERF.md
@@ -252,25 +257,36 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = False,
             *flash_attention_dkv(q, k, v, do, lse, delta, **kw))
 
 
+def _pad_head_dim(t: torch.Tensor, d: int) -> torch.Tensor:
+    """``t`` [B, S, H, D] zero-padded to head dim ``d`` >= D, contiguous."""
+    t = t.contiguous()
+    return t if t.shape[-1] == d else torch.nn.functional.pad(t, (0, d - t.shape[-1]))
+
+
 class FlashAttention(torch.autograd.Function):
     """The operator with its gradient, as the reference's ``_flash_padded`` custom VJP: the
     forward saves (q, k, v, out, lse); the backward rebuilds the probability tiles from lse
-    and emits dq, dk and dv."""
+    and emits dq, dk and dv. ``pad_head_dim`` (``flash_attention`` sets it for a CUDA tensor)
+    zero-pads D up to a multiple of 8 for the kernels and slices the outputs back."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, sm_scale: float):
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    def forward(ctx, q, k, v, causal: bool, sm_scale: float, pad_head_dim: bool = False):
+        d = q.shape[-1]
+        padded = -(-d // HEAD_DIM_STEP) * HEAD_DIM_STEP if pad_head_dim else d
+        q, k, v = (_pad_head_dim(t, padded) for t in (q, k, v))
         out, lse = flash_attention_fwd(q, k, v, causal=causal, sm_scale=sm_scale)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
-        return out
+        ctx.causal, ctx.sm_scale, ctx.head_dim = causal, sm_scale, d
+        return out if padded == d else out[..., :d]
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.to(v.dtype).contiguous(),
-                                         causal=ctx.causal, sm_scale=ctx.sm_scale)
-        return dq, dk, dv, None, None
+        do = _pad_head_dim(do.to(v.dtype), q.shape[-1])
+        grads = flash_attention_bwd(q, k, v, out, lse, do, causal=ctx.causal,
+                                    sm_scale=ctx.sm_scale)
+        dq, dk, dv = (g[..., :ctx.head_dim] for g in grads)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = False,
@@ -278,8 +294,9 @@ def flash_attention(q, k, v, *, causal: bool = False,
     """Flash attention over [B, S, H, D], differentiable; returns [B, Sq, H, D] in v.dtype.
 
     Any Sq and Sk (under ``causal`` the mask is top-left aligned: key <= query); head_dim at
-    most 128. A CUDA tensor goes to the hand-written kernels, forward and backward (a build or
-    launch error raises), a CPU tensor to their plain versions."""
+    most 128 (on a CUDA tensor zero-padded to a multiple of 8 for the kernels, ``sm_scale``
+    staying the true D's). A CUDA tensor goes to the hand-written kernels, forward and
+    backward (a build or launch error raises), a CPU tensor to their plain versions."""
     if q.shape[-1] > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {q.shape[-1]} > {MAX_HEAD_DIM} unsupported")
-    return FlashAttention.apply(q, k, v, causal, _scale(q, sm_scale))
+    return FlashAttention.apply(q, k, v, causal, _scale(q, sm_scale), _on_cuda(q))

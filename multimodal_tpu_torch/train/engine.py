@@ -2,22 +2,25 @@
 
 ``make_train_step(model, optimizer)`` returns ``step(state, batch) -> metrics``: the forward
 of both towers on a uint8 (or already normalized) image batch and its tokens, the CLIP
-InfoNCE loss on the normalized features, the backward (on a CUDA tensor the attention half
-of every block, and with ``block_mlp`` its MLP half, runs the hand-written forward and
-backward kernels), the fused AdamW step
-with its global-norm clip and non-finite skip, and the ln(100) clamp of the logit scale.
+InfoNCE loss on the normalized features (or, with ``loss_type="vclip"`` and a
+``VariationalCLIP``, the variational loss on the distributions its heads emit), the
+backward (on a CUDA tensor the attention half of every block, and with ``block_mlp`` its MLP
+half, runs the hand-written forward and backward kernels), the fused AdamW step with its
+global-norm clip and non-finite skip, and the ln(100) clamp of the logit scale.
 It is the step the JAX package's ``bench.py`` times and ``train/run.py`` loops over.
 
 Unlike the JAX step, which returns a new state, this one updates the model, the optimizer
 and ``state.step`` in place. The metrics are device tensors; reading one waits for the step.
 ``step(state, batch, generator)`` takes the ``torch.Generator`` that patch dropout draws its
-noise from (the JAX step's ``rngs={"patch_dropout": rng}``); a model without patch dropout
-needs none.
+noise from (the JAX step's ``rngs={"patch_dropout": rng}``) and the vclip loss its
+Monte-Carlo draws; a model without patch dropout under the clip loss needs none. The step
+runs the model in training mode and leaves it in the mode it found it in.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item: meshes and
 shard_map (Queue 1 item 9), gradient accumulation in both forms, the parameter EMA and
 optimizer-state offload (item 8), ``wire_size`` (a serving piece of Queue 1), loss
-families other than ``clip`` and contrastive forms other than ``dense`` (item 7).
+families other than ``clip`` and ``vclip`` and contrastive forms other than ``dense`` (item
+7).
 """
 
 from __future__ import annotations
@@ -28,7 +31,11 @@ from typing import Callable, Optional
 import torch
 
 from multimodal_tpu_torch.data.preprocess import normalize_images
+from multimodal_tpu_torch.distributions import NormalDiag, PowerSpherical, VonMisesFisher
+from multimodal_tpu_torch.inference import model_mode
 from multimodal_tpu_torch.losses.clip_loss import clip_loss
+from multimodal_tpu_torch.losses.vclip_loss import vclip_loss
+from multimodal_tpu_torch.ops.sphere import l2_normalize, riemannian_grad
 from multimodal_tpu_torch.train.optimizer import extract_grad_norm
 
 LOGIT_SCALE_MAX = 4.6052  # ln(100)
@@ -79,13 +86,52 @@ def _clamp_logit_scale(model: torch.nn.Module):
             p.clamp_(0.0, LOGIT_SCALE_MAX)
 
 
+def _vclip_loss_fn(loss_kwargs: dict) -> Callable:
+    """The variational loss: the heads' normalized means (through ``riemannian_grad`` with
+    ``riemannian``) and concentrations as ``distribution_type`` distributions
+    (``power_spherical``, ``vmf``, or ``normal`` on the raw means with std sqrt(variance)),
+    then ``vclip_loss`` with the step's generator for its draws."""
+    kw = dict(loss_kwargs)
+    dist_type = kw.pop("distribution_type", "power_spherical")
+    riemannian = kw.pop("riemannian", False)
+    families = {"power_spherical": PowerSpherical, "vmf": VonMisesFisher}
+    if dist_type not in (*families, "normal"):
+        raise ValueError(f"unknown distribution_type {dist_type!r}")
+
+    def loss_fn(model, batch, generator=None):
+        out = model(batch_images(batch, model), batch["text"])
+        conc_i, conc_t = out["image_concentration"], out["text_concentration"]
+        if dist_type == "normal":
+            di = NormalDiag(out["image_mean"], torch.sqrt(conc_i))
+            dt = NormalDiag(out["text_mean"], torch.sqrt(conc_t))
+        else:
+            mu_i, mu_t = l2_normalize(out["image_mean"]), l2_normalize(out["text_mean"])
+            if riemannian:
+                mu_i, mu_t = riemannian_grad(mu_i), riemannian_grad(mu_t)
+            di, dt = families[dist_type](mu_i, conc_i), families[dist_type](mu_t, conc_t)
+        res = vclip_loss(di, dt, conc_i, conc_t, out["logit_scale"], generator=generator, **kw)
+        metrics = {k: v.detach() for k, v in res.items()}
+        metrics["loss"] = metrics["total_loss"]
+        metrics["mean_image_concentration"] = conc_i.detach().mean()
+        metrics["mean_text_concentration"] = conc_t.detach().mean()
+        return res["total_loss"], metrics
+
+    return loss_fn
+
+
 def make_loss_fn(model, loss_type: str = "clip", loss_kwargs: Optional[dict] = None,
                  wire_size: Optional[int] = None) -> Callable:
     """loss_fn(model, batch, generator=None) -> (loss, metrics) for the CLIP InfoNCE loss
-    (dense form); ``generator`` feeds patch dropout."""
-    if loss_type != "clip":
+    (dense form; ``generator`` feeds patch dropout) or the variational loss (``vclip``;
+    ``generator`` feeds its draws)."""
+    if loss_type not in ("clip", "vclip"):
         raise NotImplementedError(f"loss_type={loss_type!r} is not ported yet "
                                   "(ROADMAP Queue 1 item 7)")
+    if wire_size is not None:
+        raise NotImplementedError("wire_size (the on-device bicubic upsample) is not ported "
+                                  "yet (ROADMAP Queue 1, serving pieces)")
+    if loss_type == "vclip":
+        return _vclip_loss_fn(loss_kwargs or {})
     kw = dict(loss_kwargs or {})
     label_smoothing = kw.pop("label_smoothing", 0.0)
     kw.pop("local_loss", None)  # only meaningful on a mesh
@@ -95,9 +141,6 @@ def make_loss_fn(model, loss_type: str = "clip", loss_kwargs: Optional[dict] = N
     if impl != "dense":
         raise NotImplementedError(f"contrastive_impl={impl!r} is not ported yet "
                                   "(ROADMAP Queue 1 item 7)")
-    if wire_size is not None:
-        raise NotImplementedError("wire_size (the on-device bicubic upsample) is not ported "
-                                  "yet (ROADMAP Queue 1, serving pieces)")
 
     def loss_fn(model, batch, generator=None):
         out = model(batch_images(batch, model), batch["text"], generator=generator)
@@ -114,13 +157,15 @@ def make_train_step(model, optimizer, loss_type: str = "clip",
                     feature_cached_accum: bool = False, ema_decay: Optional[float] = None,
                     offload_opt_state: bool = False, wire_size: Optional[int] = None):
     """Build ``step(state, batch, generator=None) -> metrics`` (``loss``, ``logit_scale``,
-    ``grad_norm``).
+    ``grad_norm``; for ``vclip`` the five loss terms, ``loss``, the two mean concentrations
+    and ``grad_norm``).
 
     ``batch`` holds ``image`` (uint8 or float NHWC) and ``text`` (token ids), on the
     model's device. The step runs on ``state.model`` and ``state.optimizer``, which are
     ``model`` and ``optimizer`` when the state comes from ``TrainState.create``.
-    ``generator`` is the source of the patch-dropout noise; a model with
-    ``vision.patch_dropout`` > 0 raises without one."""
+    ``generator`` is the source of the patch-dropout noise and of the vclip loss's draws; a
+    model with ``vision.patch_dropout`` > 0, or the sampled vclip loss, raises without one.
+    The model runs in training mode and is left in the mode it was in."""
     left_out = {
         "mesh": (mesh is not None, "Queue 1 item 9"),
         "use_shard_map": (use_shard_map, "Queue 1 item 9"),
@@ -137,10 +182,10 @@ def make_train_step(model, optimizer, loss_type: str = "clip",
 
     def step(state: TrainState, batch: dict,
              generator: Optional[torch.Generator] = None) -> dict:
-        state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(state.model, batch, generator)
-        loss.backward()
+        with model_mode(state.model, True):
+            loss, metrics = loss_fn(state.model, batch, generator)
+            loss.backward()
         state.optimizer.step()
         _clamp_logit_scale(state.model)
         norm = extract_grad_norm(state.optimizer)

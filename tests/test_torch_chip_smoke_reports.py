@@ -2,6 +2,8 @@
 ``nvcc -Xptxas -v`` digest, the SASS digest of the flash kernels and the projection GEMM, the
 attention passes' shared-memory sizes and the kernel bounds and rates."""
 
+import pytest
+
 import chip_smoke as cs
 
 PTXAS_LOG = """\
@@ -216,3 +218,82 @@ def test_phase3_holds_the_flash_head_dims_and_the_text_towers_batch():
     assert {("flash-D88", 2, 88), ("flash-D32", 2, 32), ("flash-B32", 32, 64)} <= flash
     timed = [case for case, *_, timed in cs.FLASH_CASES if timed]
     assert timed == ["flash-S2048", "flash-S4096", "flash-B32"]
+
+
+def test_phase3_holds_the_variational_towers_shapes():
+    """The variational ViT-B/32's towers: vision S=51 (CLS, 49 patches, the concentration
+    token) and text S=78 causal, each timed at B=256 beside the library call and also at a
+    ragged B=3; the kernel line still lists all eleven kernels."""
+    rows = {(case, b, s, w, h, causal) for case, b, s, w, h, causal in cs.BLOCK_CASES}
+    assert {("vclip-vision", 256, 51, 768, 12, False), ("vclip-text", 256, 78, 512, 8, True),
+            ("vclip-vision", 3, 51, 768, 12, False), ("vclip-text", 3, 78, 512, 8, True)} <= rows
+    assert len(cs.KERNELS) == 11
+
+
+def test_variational_block_bounds():
+    """S=78 causal counts the lower triangle's pairs; the projections' FLOPs grow with S."""
+    ms, by, flops = cs.block_bound("block_attention_fwd", 256, 78, 512, 8, True, "bfloat16")
+    assert by == "operations"
+    assert flops == 8 * 256 * 78 * 512 ** 2 + 4 * 256 * 8 * (78 * 79 / 2) * 64
+    _, _, flops51 = cs.block_bound("block_attention_bwd", 256, 51, 768, 12, False, "float32")
+    assert flops51 == 14 * 256 * 51 * 768 ** 2 + 12 * 256 * 12 * 51 * 51 * 64
+
+
+def test_phase10_runs_the_reference_recipes_loss():
+    """scripts/train_vclip.sh: power_spherical, KL weight 100, B=128, lr 1e-3, wd 1e-8; the
+    loss's own defaults for the samples, the variance term and the smoothing; the
+    Riemannian mean gradient on."""
+    assert cs.VCLIP_BATCH == 128
+    assert cs.VCLIP_LOSS == dict(distribution_type="power_spherical", kl_weight=100.0,
+                                 num_samples=20, var_reg_weight=0.1, label_smoothing=0.1,
+                                 riemannian=True)
+    assert cs.VCLIP_OPT == dict(schedule=1e-3, weight_decay=1e-8)
+    assert "10. the variational ViT-B/32" in cs.__doc__
+    assert cs.model_label("ViT-B-32") == "ViT-B-32"
+    from multimodal_tpu_torch.models import VariationalConfig
+
+    assert cs.model_label("ViT-B-32", variational=VariationalConfig(model_type="Gaussian")) == (
+        "ViT-B-32 variational Gaussian")
+    assert cs.model_label("ViT-B-16", block_mlp=True) == "ViT-B-16 block_mlp"
+
+
+class _FakeLaunches:
+    def __init__(self, counts):
+        self.counts = dict(counts)
+
+    def reset_launch_counts(self):
+        self.counts = dict.fromkeys(self.counts, 0)
+
+    def launch_counts(self):
+        return dict(self.counts)
+
+
+def test_launch_count_rule():
+    """A main-path run is counted from a reset just before it to a read just after; every
+    step must launch exactly the kernels it needs, each just that often, and nothing else."""
+    need = {"block_attention_fwd": 24, "block_attention_bwd": 24}
+    fake = _FakeLaunches(dict.fromkeys(cs.KERNELS, 7))
+    tally = cs.Tally(fake)
+    tally.start()
+    assert set(fake.launch_counts().values()) == {0}
+    fake.counts.update(need)
+    step = tally.stop()
+    assert tally.total["block_attention_fwd"] == 24 and tally.total["flash_attention_fwd"] == 0
+    cs.check_launches([step], need, "run")
+    for wrong in ({**step, "block_attention_bwd": 23}, {**step, "block_mlp_fwd": 1}):
+        with pytest.raises(SystemExit):
+            cs.check_launches([step, wrong], need, "run")
+
+
+def test_without_a_card_the_script_fails_and_prints_no_result():
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "CUDA_VISIBLE_DEVICES"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=repo, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout and "FAIL" in proc.stdout

@@ -764,3 +764,70 @@ def test_cuda_float32_forward_holds_its_limit_at_s8192(cuda_device):
         ratio = ((a - r).abs().max() / r.abs().max()).item()
         print(f"S=8192 float32 forward {name}: max err / max|plain| = {ratio:.3e}")
         assert torch.isfinite(a).all() and ratio <= 1e-4, (name, ratio)
+
+
+@pytest.mark.parametrize("d", [36, 100])
+@pytest.mark.parametrize("causal", [False, True])
+def test_padded_head_dim_equals_the_plain_version(d, causal):
+    """The operator's CUDA path zero-pads D up to a multiple of 8 for the kernels (which take
+    no other D) and slices out, dq, dk and dv back, with sm_scale from the true D. Run here
+    through the plain versions, the padded path equals the unpadded one in value and
+    gradient."""
+    q, k, v, do = (torch.from_numpy(a) for a in _qkv(2, 40, 40, 3, d, seed=d))
+    scale = d ** -0.5
+
+    def run(pad):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fl.FlashAttention.apply(*leaves, causal, scale, pad)
+        out.backward(do)
+        return [out.detach()] + [t.grad for t in leaves]
+
+    padded, plain = run(True), run(False)
+    for name, got, want in zip(("out", "dq", "dk", "dv"), padded, plain):
+        assert got.shape == (2, 40, 3, d), name
+        torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-5, msg=name)
+    want_out = fl.flash_attention_reference(q, k, v, causal=causal)[0]
+    torch.testing.assert_close(padded[0], want_out, atol=1e-6, rtol=1e-5)
+
+
+def test_the_kernels_see_a_padded_head_dim(monkeypatch):
+    """What reaches the kernel wrappers under the pad: D rounded up to 8, zero beyond the
+    true D, and the true D's scale."""
+    seen = []
+    real_fwd = fl.flash_attention_fwd
+
+    def spy(q, k, v, *, causal, sm_scale):
+        seen.append((q.shape[-1], float(q[..., 100:].abs().max()), sm_scale))
+        return real_fwd(q, k, v, causal=causal, sm_scale=sm_scale)
+
+    monkeypatch.setattr(fl, "flash_attention_fwd", spy)
+    q, k, v, _ = (torch.from_numpy(a) for a in _qkv(1, 16, 16, 2, 100, seed=1))
+    out = fl.FlashAttention.apply(q, k, v, True, 100 ** -0.5, True)
+    assert out.shape == (1, 16, 2, 100) and seen == [(104, 0.0, 100 ** -0.5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d", [36, 100])
+def test_cuda_padded_head_dim_matches_plain_at_s2048(cuda_device, d, dtype, tol):
+    """auto at S=2048 causal with a D the kernels do not take (width 600 over 6 heads is
+    D=100) runs the flash kernels on the padded D and agrees with the plain path."""
+    from multimodal_tpu_torch.ops import launches
+
+    q, k, v, do = (torch.from_numpy(a).to(cuda_device, dtype)
+                   for a in _qkv(1, 2048, 2048, 2, d, seed=d))
+    assert fl.flash_supported(q.shape, k.shape, causal=True)
+    outs = []
+    for impl in ("auto", "xla"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        launches.reset_launch_counts()
+        out = attention(*leaves, causal=True, impl=impl)
+        out.backward(do)
+        counts = launches.launch_counts()
+        outs.append([out.detach().float()] + [t.grad.float() for t in leaves])
+        flash = counts["flash_attention_fwd"] + counts["flash_attention_dq"]
+        assert flash == (2 if impl == "auto" else 0), counts
+    for name, got, want in zip(("out", "dq", "dk", "dv"), *outs):
+        assert got.shape == (1, 2048, 2, d)
+        err, ref = (got - want).abs().max().item(), want.abs().max().item()
+        assert err <= tol * ref, (name, err, ref)

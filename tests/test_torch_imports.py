@@ -20,6 +20,15 @@ def test_port_imports_without_jax():
         "import multimodal_tpu_torch.models.checkpoint_interop\n"
         "import multimodal_tpu_torch.ops.flash_attention, multimodal_tpu_torch.models.layers\n"
         "import multimodal_tpu_torch.ops.block_mlp, multimodal_tpu_torch.profile_step\n"
+        "import multimodal_tpu_torch.ops.sphere, multimodal_tpu_torch.ops.bessel\n"
+        "import multimodal_tpu_torch.ops.draws, multimodal_tpu_torch.distributions\n"
+        "import multimodal_tpu_torch.distributions.power_spherical\n"
+        "import multimodal_tpu_torch.distributions.von_mises_fisher\n"
+        "import multimodal_tpu_torch.distributions.normal\n"
+        "import multimodal_tpu_torch.distributions.projected_normal\n"
+        "import multimodal_tpu_torch.distributions.hyperspherical_uniform\n"
+        "import multimodal_tpu_torch.losses.vclip_loss, multimodal_tpu_torch.models.factory\n"
+        "import multimodal_tpu_torch.models.config\n"
         "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'multimodal_tpu'))\n"
         "assert not leaked, leaked\n"

@@ -7,7 +7,7 @@ import pytest
 import torch
 
 from multimodal_tpu_torch.losses import clip_loss, contrastive_logits, cross_entropy
-from multimodal_tpu_torch.losses.clip_loss import LOGIT_CLAMP, clip_loss_sampled
+from multimodal_tpu_torch.losses.clip_loss import LOGIT_CLAMP
 
 torch.set_num_threads(1)
 
@@ -76,5 +76,5 @@ def test_left_out_forms_raise():
     fi, ft = (torch.from_numpy(a) for a in _features(b=4))
     with pytest.raises(NotImplementedError, match="item 9"):
         clip_loss(fi, ft, torch.tensor(1.0), axis_name="data")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        clip_loss_sampled(fi[None], ft[None], torch.tensor(1.0))
+    with pytest.raises(NotImplementedError, match="item 9"):
+        contrastive_logits(fi, ft, 2.0, axis_name="data")
