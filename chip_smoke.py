@@ -20,7 +20,8 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      tower shapes (vision S=50 W=768 H=12, text S=77 W=512 H=8 causal), the shared trunk's
      text pass (S=77 W=768 H=12 causal), S=197 and S=257 (W=1024 H=16), with torch's
      multi_head_attention_forward timed beside them; their LN-fold forms (LayerNorm and residual inside the kernel; also
-     ln_out, dgamma and dbeta) at S=197, S=257 and S=320, causal and not; both forms at the
+     ln_out, dgamma and dbeta) at S=145 (ViT-B/32's vision tower at 384 px, timed at B=256),
+     S=197, S=257 and S=320, causal and not; both forms at the
      head dims 80 and 88 (S=257, W=1280 and 1408), whose last k-step of 16 is zero-padded; the
      fused whole-sequence attention pair at S=128, 197, 257 and 512 with D=32, 64 and 128 and
      at S=129 and 191 (one past and one short of a 64-row tile edge), causal and not, with
@@ -91,7 +92,25 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      (24 launches of each block kernel per step), bfloat16 at B=128 and B=256 (finite, the
      total loss falling), then 2 float32 steps each of ``vmf`` and of the Gaussian mode with
      ``normal`` (finite; vMF concentrations at or above the minimum); samples/s over steps
-     2-6 and peak memory.
+     2-6 and peak memory;
+ 11. the rest of the model family, each ViT-B/32 at full width and depth with seeded weights,
+     each run as in phase 6 (the fused AdamW, a fixed synthetic uint8 batch, samples/s over
+     steps 2-6, peak memory, float32 kernel path against plain path with phase 6's limits):
+     a LoRA fine-tune (r=8, alpha 16) of a base loaded from an OpenAI-format state dict,
+     trained in the "lora" freeze mode at B=256 (every frozen parameter bit for bit unchanged;
+     the optimizer state's bytes beside phase 6's), bfloat16 at B=256, then the adapters merged
+     into a model without them, its encodes at bucket 256 against the adapted model's (cosine
+     >= 0.9999); a MoE vision tower (8 experts, top-2, capacity factor 1.25 on every second
+     block: 6 MoE blocks, 15 slots an expert an image) at B=256, each MoE layer's expert
+     choices compared between the paths: a step whose d routing decisions differ holds its
+     loss to 1e-5 + d / (B * S) and prints its grad norm and leaves unheld; the aux term
+     finite, its mean per layer and round in [1, 8]; bfloat16 at B=256; SigLIP
+     (``siglip=True``, ``loss_type="siglip"``) at B=256, the logit bias moving from -10, and
+     bfloat16 (finite, each step's loss within 2e-2 of the float32 kernel path's and falling
+     below step 1's; on this batch the loss rises again at step 6 on both float32 paths);
+     ``force_image_size=384`` (vision S=145 through the LN-fold kernels, 12 launches
+     of each a step, the text tower through the others) for 2 float32 steps at B=128, then
+     bfloat16 rates.
 Before the last line come the card's name and power limit and the kernel summary (JSON); the
 last line is the device record.
 """
@@ -124,6 +143,11 @@ VCLIP_BATCH = 128  # the reference recipe's (scripts/train_vclip.sh)
 VCLIP_LOSS = dict(distribution_type="power_spherical", kl_weight=100.0, num_samples=20,
                   var_reg_weight=0.1, label_smoothing=0.1, riemannian=True)
 VCLIP_OPT = dict(schedule=1e-3, weight_decay=1e-8)
+LORA = dict(lora_rank=8, lora_alpha=16.0)
+MOE_MODEL = "ViT-B-32-moe"
+MOE_VISION = dict(moe_experts=8, moe_every=2, moe_top_k=2, moe_capacity_factor=1.25)
+HIRES = dict(force_image_size=384)  # ViT-B/32's vision tower at S = 12 * 12 + 1 = 145
+HIRES_BATCH = 128
 _CSRC = "multimodal_tpu_torch/ops/csrc/"
 _JAX_BLOCK = "multimodal_tpu/ops/block_attention.py"
 _JAX_FUSED = "multimodal_tpu/ops/fused_attention.py"
@@ -166,6 +190,8 @@ BLOCK_CASES = [  # (case, batch, seq, width, heads, causal)
     ("vclip-text", 256, 78, 512, 8, True),  # attends to every row
 ]
 LN_CASES = [  # (case, batch, seq, width, heads, causal, residual)
+    ("ln-S145", 3, 145, 768, 12, False, True),    # ViT-B/32's vision tower at 384 px
+    ("ln-S145", 256, 145, 768, 12, False, True),
     ("ln-S197", 4, 197, 768, 12, False, True),
     ("ln-S197", 4, 197, 768, 12, True, True),
     ("ln-S197", 4, 197, 768, 12, False, False),
@@ -978,22 +1004,30 @@ def make_batch(torch, cfg, n: int) -> dict:
 
 def train_steps(torch, tally, model, batch, steps: int, grads_at: int = -1, count=True,
                 loss_type: str = "clip", loss_kwargs: dict | None = None,
-                opt_kw: dict | None = None):
-    """``steps`` training steps from a fresh optimizer (by default as bench.py builds it);
-    returns the per-step metrics and launch counts, the gradients after step ``grads_at``
-    (0-based), the host-clock seconds of every step after the first and the peak device
-    memory. The step's generator is a CUDA generator seeded 0, so two runs draw alike."""
+                opt_kw: dict | None = None, freeze: str | None = None) -> dict:
+    """``steps`` training steps from a fresh optimizer (by default as bench.py builds it; with
+    ``freeze`` a fine-tune mode of ``train.freeze``, the optimizer over the trainable
+    parameters alone). Returns the per-step ``metrics`` and launch ``counts``, the gradients
+    after step ``grads_at`` (0-based), the host-clock seconds of every step after the first
+    (``time``), the ``peak`` device memory and the optimizer state's bytes (``opt_bytes``).
+    The step's generator is a CUDA generator seeded 0, so two runs draw alike."""
     from multimodal_tpu_torch.train import (
-        TrainState, make_optimizer, make_schedule, make_train_step)
+        TrainState, finetune_mask, freeze_optimizer, make_optimizer, make_schedule,
+        make_train_step)
 
     opt_kw = dict(opt_kw or dict(
         schedule=make_schedule("cosine", 1e-3, warmup_steps=100, total_steps=10000),
         weight_decay=0.1, grad_clip_norm=1.0))
-    opt = make_optimizer(model.named_parameters(), opt_kw.pop("schedule"), **opt_kw)
+    schedule = opt_kw.pop("schedule")
+    if freeze:
+        opt = freeze_optimizer(model, finetune_mask(model.named_parameters(), freeze), schedule,
+                               **opt_kw)
+    else:
+        opt = make_optimizer(model.named_parameters(), schedule, **opt_kw)
     state = TrainState.create(model, opt)
     step = make_train_step(model, opt, loss_type=loss_type, loss_kwargs=loss_kwargs)
     generator = torch.Generator(device="cuda").manual_seed(0)
-    metrics, counts, grads, timed = [], [], None, 0.0
+    out = {"metrics": [], "counts": [], "grads": None, "time": 0.0}
     torch.cuda.reset_peak_memory_stats()
     for i in range(steps):
         torch.cuda.synchronize()
@@ -1002,13 +1036,17 @@ def train_steps(torch, tally, model, batch, steps: int, grads_at: int = -1, coun
         m = step(state, batch, generator)
         torch.cuda.synchronize()
         if i > 0:
-            timed += time.perf_counter() - t0
+            out["time"] += time.perf_counter() - t0
         # the plain path's counts are read but kept out of the main-path tally
-        counts.append(tally.stop() if count else tally.launches.launch_counts())
-        metrics.append({k: float(v) for k, v in m.items()})
+        out["counts"].append(tally.stop() if count else tally.launches.launch_counts())
+        out["metrics"].append({k: float(v) for k, v in m.items()})
         if i == grads_at:
-            grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
-    return metrics, counts, grads, timed, torch.cuda.max_memory_allocated()
+            out["grads"] = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                            if p.grad is not None}
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["opt_bytes"] = sum(t.numel() * t.element_size()
+                           for moments in (opt.mu, opt.nu) for t in moments.values())
+    return out
 
 
 def check_launches(counts, need: dict, what: str):
@@ -1019,89 +1057,193 @@ def check_launches(counts, need: dict, what: str):
             fail(f"{what}: launches per step {cnt}, need {need} and nothing else")
 
 
-def model_label(model_name: str, block_mlp=False, variational=None) -> str:
+def model_label(model_name: str, block_mlp=False, variational=None, model_kw=None) -> str:
     return model_name + (" block_mlp" if block_mlp else "") + (
-        f" variational {variational.model_type}" if variational else "")
+        f" variational {variational.model_type}" if variational else "") + "".join(
+        f" {k}={v}" for k, v in (model_kw or {}).items())
+
+
+def build_model(torch, model_name, dtype, block_mlp=False, variational=None, model_kw=None,
+                prepare=None):
+    """``create_model`` on the card with seed 0 and the options given; ``prepare(model)`` runs
+    after it (a weight load)."""
+    from multimodal_tpu_torch.models import create_model
+
+    model = create_model(model_name, dtype=dtype, seed=0, block_mlp=block_mlp,
+                         variational=variational is not None, vcfg=variational,
+                         **(model_kw or {}))
+    if prepare is not None:
+        prepare(model)
+    return model
 
 
 def compare_paths(torch, mods, tally, card, model_name, n, steps, need, block_mlp=False,
-                  variational=None, **step_kw) -> tuple[int, int]:
+                  variational=None, model_kw=None, prepare=None, routing=None,
+                  **step_kw) -> dict:
     """float32: ``steps`` steps through the kernels against the same from the same start
     with every kernel call routed to its plain version. ``variational`` (a
-    ``VariationalConfig``) builds the variational model; ``step_kw`` goes to
-    ``train_steps``. Returns the kernel path's peak memory and the model's parameter
-    count."""
-    from multimodal_tpu_torch.models import create_model
-
-    model = create_model(model_name, seed=0, block_mlp=block_mlp,
-                         variational=variational is not None, vcfg=variational)
-    model_name = model_label(model_name, block_mlp, variational)
+    ``VariationalConfig``) builds the variational model, ``model_kw`` goes to
+    ``create_model`` and ``prepare`` to ``build_model``; ``step_kw`` goes to ``train_steps``
+    (with ``freeze``, every frozen parameter must end bit for bit where it started, on both
+    paths). ``routing`` (a ``RoutingRecorder``) records a MoE model's expert choices on both
+    paths: a step whose choices differ in d > 0 of its decisions holds its loss to
+    ``moe_loss_limit(d, tokens)`` and prints its grad norm and leaves without holding them.
+    Returns the kernel path's ``peak`` memory, the model's parameter count (``params``), the
+    optimizer state's bytes (``opt_bytes``), the kernel path's per-step ``metrics`` and the
+    ``model`` after the plain path's run."""
+    model = build_model(torch, model_name, torch.float32, block_mlp, variational, model_kw,
+                        prepare)
+    model_name = model_label(model_name, block_mlp, variational, model_kw)
     batch = make_batch(torch, model.cfg, n)
     start = {k: v.clone() for k, v in model.state_dict().items()}
-    k_metrics, k_counts, k_grads, k_time, k_peak = train_steps(torch, tally, model, batch,
-                                                               steps, grads_at=0, **step_kw)
+    frozen = []
+    if step_kw.get("freeze"):
+        from multimodal_tpu_torch.train import finetune_mask
+
+        frozen = [k for k, t in finetune_mask(model.named_parameters(), step_kw["freeze"]).items()
+                  if not t]
+
+    def run(**kw):
+        if routing is not None:
+            routing.attach(model)
+        out = train_steps(torch, tally, model, batch, steps, grads_at=0, **kw, **step_kw)
+        out["routes"] = routing.detach() if routing is not None else None
+        params = dict(model.named_parameters())
+        moved = [k for k in frozen if not torch.equal(params[k], start[k])]
+        if moved:
+            fail(f"{model_name}: frozen parameters moved: {moved[:5]}")
+        return out
+
+    k_run = run()
     model.load_state_dict(start)
     with plain_attention(mods):
-        p_metrics, p_counts, p_grads, p_time, p_peak = train_steps(
-            torch, tally, model, batch, steps, grads_at=0, count=False, **step_kw)
+        p_run = run(count=False)
+    k_metrics, p_metrics = k_run["metrics"], p_run["metrics"]
+    flips = ([routing.flips(k_run["routes"], p_run["routes"], i) for i in range(2)]
+             if routing is not None else [0, 0])
     for i in range(2):
         km, pm = k_metrics[i], p_metrics[i]
         print(f"  float32 step {i + 1}: loss kernel={km['loss']:.7f} plain={pm['loss']:.7f} "
               f"grad_norm kernel={km['grad_norm']:.6f} plain={pm['grad_norm']:.6f} "
-              f"launches { {k: v for k, v in k_counts[i].items() if v} }", flush=True)
+              f"launches { {k: v for k, v in k_run['counts'][i].items() if v} }"
+              + (f" routing flips d={flips[i]} of {routing.decisions(k_run['routes'], i)}"
+                 if routing is not None else ""), flush=True)
+    print(f"  float32 losses kernel {[round(m['loss'], 7) for m in k_metrics]} plain "
+          f"{[round(m['loss'], 7) for m in p_metrics]}", flush=True)
     rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)  # noqa: E731
-    loss_rel = max(rel(k_metrics[i]["loss"], p_metrics[i]["loss"]) for i in range(2))
-    norm_rel = max(rel(k_metrics[i]["grad_norm"], p_metrics[i]["grad_norm"]) for i in range(2))
+    tokens = n * routing.seq if routing is not None else 1
+    loss_rel = [rel(k_metrics[i]["loss"], p_metrics[i]["loss"]) for i in range(2)]
+    norm_rel = [rel(k_metrics[i]["grad_norm"], p_metrics[i]["grad_norm"]) for i in range(2)]
     # per leaf |kernel - plain| / max|plain|; a leaf whose exact gradient is zero (the
     # attention key biases: softmax ignores a per-row constant) holds rounding noise on both
     # sides, so the scale has a floor of 1e-3 x the largest gradient of the model
+    k_grads, p_grads = k_run["grads"], p_run["grads"]
     g_max = max(g.abs().max() for g in p_grads.values())
     leaf_rel = {n_: ((k_grads[n_] - g).abs().max() / torch.clamp(g.abs().max(), min=1e-3 * g_max))
                 for n_, g in p_grads.items()}
     leaf_rel = {n_: v.item() for n_, v in leaf_rel.items()}
     worst_leaf = max(leaf_rel, key=leaf_rel.get)
-    print(f"  float32 kernel vs plain: loss rel diff {loss_rel:.3e} (need <= 1e-5), grad norm "
-          f"rel diff {norm_rel:.3e} (need <= 1e-4), worst grad leaf {worst_leaf} "
-          f"{leaf_rel[worst_leaf]:.3e} x max|leaf| (need <= 1e-3); launches per step need "
-          f"{need}", flush=True)
+    loss_lim = [moe_loss_limit(d, tokens) for d in flips]
+    print(f"  float32 kernel vs plain: loss rel diff {max(loss_rel):.3e} (need <= "
+          f"{'/'.join(f'{v:.3e}' for v in loss_lim)}), grad norm rel diff {max(norm_rel):.3e} "
+          f"(need <= 1e-4), worst grad leaf {worst_leaf} {leaf_rel[worst_leaf]:.3e} x max|leaf| "
+          f"(need <= 1e-3){' (printed, not held: routing flips at step 1)' if flips[0] else ''}"
+          f"{' (step 2 grad norm printed, not held)' if flips[1] else ''}; launches per step "
+          f"need {need}", flush=True)
     if not all(np.isfinite([m[k] for m in k_metrics + p_metrics for k in m])):
         fail("non-finite float32 loss or grad norm")
-    if loss_rel > 1e-5 or norm_rel > 1e-4 or leaf_rel[worst_leaf] > 1e-3:
+    held_norm = [r for r, d in zip(norm_rel, flips) if d == 0]
+    if (any(r > lim for r, lim in zip(loss_rel, loss_lim)) or any(r > 1e-4 for r in held_norm)
+            or (flips[0] == 0 and leaf_rel[worst_leaf] > 1e-3)):
         fail("the float32 kernel path disagrees with the plain path")
-    check_launches(k_counts, need, f"{model_name} float32 kernel path")
-    check_launches(p_counts, {}, f"{model_name} float32 plain path")
-    k_rate, p_rate = (steps - 1) * n / k_time, (steps - 1) * n / p_time
+    check_launches(k_run["counts"], need, f"{model_name} float32 kernel path")
+    check_launches(p_run["counts"], {}, f"{model_name} float32 plain path")
+    k_rate, p_rate = (steps - 1) * n / k_run["time"], (steps - 1) * n / p_run["time"]
     print(f"  {model_name} float32 train samples/s at B={n} (steps 2-{steps}, host clock): "
           f"kernel path {k_rate:.1f}, plain path {p_rate:.1f}; peak memory kernel "
-          f"{k_peak / 2**30:.2f} GiB, plain {p_peak / 2**30:.2f} GiB [{card}]", flush=True)
-    return k_peak, sum(p.numel() for p in model.parameters())
+          f"{k_run['peak'] / 2**30:.2f} GiB, plain {p_run['peak'] / 2**30:.2f} GiB [{card}]",
+          flush=True)
+    return {"peak": k_run["peak"], "params": sum(p.numel() for p in model.parameters()),
+            "opt_bytes": k_run["opt_bytes"], "metrics": k_metrics, "model": model}
+
+
+def moe_loss_limit(flips: int, tokens: int) -> float:
+    """A step's loss limit, kernel path against plain path, relative: phase 6's 1e-5, plus
+    d / tokens when d of the step's routing decisions differ between the paths (a token
+    routed elsewhere, or moved past capacity, changes its MLP branch outright)."""
+    return 1e-5 + flips / tokens
+
+
+class RoutingRecorder:
+    """The experts each MoE layer of a model chooses, recorded by forward hooks: per forward
+    call of each layer, its k rounds of choices [G, S, k] (``top_k_rounds`` of the router's
+    probabilities on the layer's input, as the layer takes them)."""
+
+    def __init__(self, torch):
+        self.torch, self.handles, self.records, self.layers, self.seq = torch, [], [], 0, 0
+
+    def attach(self, model):
+        from multimodal_tpu_torch.models.moe import MoEMLP, top_k_rounds
+
+        layers = [m for m in model.modules() if isinstance(m, MoEMLP)]
+        self.layers, self.records = len(layers), []
+
+        def hook(module, inputs, _):
+            with self.torch.no_grad():
+                probs = module.router_probs(inputs[0])
+                self.records.append(self.torch.stack(top_k_rounds(probs, module.top_k), -1))
+            self.seq = inputs[0].shape[1]
+
+        self.handles = [m.register_forward_hook(hook) for m in layers]
+
+    def detach(self) -> list:
+        for h in self.handles:
+            h.remove()
+        self.handles, records = [], self.records
+        return records
+
+    def step_records(self, records: list, step: int) -> list:
+        """One train step's records: one forward call of each layer (no remat)."""
+        return records[step * self.layers:(step + 1) * self.layers]
+
+    def flips(self, a: list, b: list, step: int) -> int:
+        return routing_flips(self.step_records(a, step), self.step_records(b, step))
+
+    def decisions(self, records: list, step: int) -> int:
+        return sum(r.numel() for r in self.step_records(records, step))
+
+
+def routing_flips(a: list, b: list) -> int:
+    """Routing decisions (token, round, layer) whose chosen expert differs between two
+    runs' records."""
+    return int(sum(int((x != y).sum()) for x, y in zip(a, b)))
 
 
 def kernel_path_run(torch, tally, card, model_name, dtype, n, steps, need, falling=False,
-                    block_mlp=False, variational=None, **step_kw) -> list:
+                    block_mlp=False, variational=None, model_kw=None, prepare=None,
+                    **step_kw) -> list:
     """``steps`` steps on the kernel path alone: finite (and with ``falling`` a loss that
-    falls on the fixed batch), the launch counts, samples/s and peak memory. ``variational``
-    and ``step_kw`` as in ``compare_paths``. Returns the per-step metrics."""
-    from multimodal_tpu_torch.models import create_model
-
+    falls on the fixed batch), the launch counts, samples/s and peak memory. ``variational``,
+    ``model_kw``, ``prepare`` and ``step_kw`` as in ``compare_paths``. Returns the per-step
+    metrics."""
     name = str(dtype).replace("torch.", "")
-    model = create_model(model_name, dtype=dtype, seed=0, block_mlp=block_mlp,
-                         variational=variational is not None, vcfg=variational)
-    model_name = model_label(model_name, block_mlp, variational)
+    model = build_model(torch, model_name, dtype, block_mlp, variational, model_kw, prepare)
+    model_name = model_label(model_name, block_mlp, variational, model_kw)
     batch = make_batch(torch, model.cfg, n)
-    metrics, counts, _, timed, peak = train_steps(torch, tally, model, batch, steps, **step_kw)
+    run = train_steps(torch, tally, model, batch, steps, **step_kw)
+    metrics = run["metrics"]
     losses = [m["loss"] for m in metrics]
     norms = [m["grad_norm"] for m in metrics]
     print(f"  {name} losses {[round(v, 7) for v in losses]} grad norms "
           f"{[round(v, 4) for v in norms]}", flush=True)
     print(f"  {model_name} {name} train samples/s at B={n} (steps 2-{steps}, host clock): "
-          f"{(steps - 1) * n / timed:.1f}; peak memory {peak / 2**30:.2f} GiB [{card}]",
-          flush=True)
+          f"{(steps - 1) * n / run['time']:.1f}; peak memory {run['peak'] / 2**30:.2f} GiB "
+          f"[{card}]", flush=True)
     if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
         fail(f"non-finite {name} loss or grad norm")
     if falling and not losses[-1] < losses[0]:
         fail(f"the {name} loss did not fall over {steps} steps on a fixed batch")
-    check_launches(counts, need, f"{model_name} {name} kernel path")
+    check_launches(run["counts"], need, f"{model_name} {name} kernel path")
     del model, batch
     torch.cuda.empty_cache()
     return metrics
@@ -1215,6 +1357,128 @@ def phase_vclip_train(torch, mods, tally, card):
             fail(f"vMF concentration {lowest} below the minimum {vcfg.min_concentration}")
 
 
+def phase_lora(torch, mods, tally, card, full_opt_bytes: int):
+    """A LoRA fine-tune of a loaded base: ViT-B/32 built with r=8 adapters, every base weight
+    from an OpenAI-format state dict exported from a seeded model without adapters, trained in
+    the "lora" freeze mode; float32 kernel path against plain path at B=256 (24 launches of
+    each block kernel a step, every frozen parameter bit for bit unchanged), bfloat16 at
+    B=256; then the adapters merged into a model without them, whose encodes at bucket 256
+    must match the adapted model's (cosine >= 0.9999)."""
+    from multimodal_tpu_torch.inference import Embedder
+    from multimodal_tpu_torch.models import (
+        create_model, export_openai_state_dict, load_openai_state_dict, merge_lora)
+
+    base = export_openai_state_dict(create_model(MODEL, seed=1))
+    torch.cuda.empty_cache()
+    prepare = lambda model: load_openai_state_dict(model, base)  # noqa: E731
+    need = {"block_attention_fwd": 24, "block_attention_bwd": 24}
+    res = compare_paths(torch, mods, tally, card, MODEL, TRAIN_BATCH, TRAIN_STEPS, need,
+                        model_kw=LORA, prepare=prepare, freeze="lora")
+    model = res["model"]
+    n_train = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    print(f"  optimizer state (fused AdamW moments, float32): {res['opt_bytes'] / 2**20:.2f} MiB "
+          f"for {n_train} trainable of {res['params']} parameters; phase 6's full model "
+          f"{full_opt_bytes / 2**20:.2f} MiB ({full_opt_bytes / res['opt_bytes']:.1f}x)",
+          flush=True)
+    merged = merge_lora(model, cfg=model.cfg, into=create_model(MODEL, seed=2))
+    rng = np.random.default_rng(3)
+    size, ctx = model.cfg.vision.image_size, model.cfg.text.context_length
+    images = rng.integers(0, 256, (TRAIN_BATCH, size, size, 3), dtype=np.uint8)
+    tokens = rng.integers(1, model.cfg.text.vocab_size - 1, (TRAIN_BATCH, ctx))
+    tokens[:, -1] = model.cfg.text.vocab_size - 1
+    cos = {}
+    for tower in ("image", "text"):
+        enc = [Embedder(m).encode_images(images) if tower == "image"
+               else Embedder(m).encode_tokens(tokens) for m in (model, merged)]
+        cos[tower] = float(np.sum(enc[0] * enc[1], -1).min())
+    lora_b = max(p.abs().max().item() for n, p in model.named_parameters()
+                 if n.endswith("lora_b"))
+    print(f"  merged (lora_rank=0) vs adapted encode at bucket {TRAIN_BATCH}: min cosine image "
+          f"{cos['image']:.7f} text {cos['text']:.7f} (need >= 0.9999); max |lora_b| after "
+          f"training {lora_b:.3e}", flush=True)
+    if min(cos.values()) < 0.9999 or lora_b == 0.0:
+        fail("the merged model's encodes disagree with the adapted model's, or the adapters "
+             "did not train")
+    del res, model, merged
+    torch.cuda.empty_cache()
+    kernel_path_run(torch, tally, card, MODEL, torch.bfloat16, TRAIN_BATCH, TRAIN_STEPS, need,
+                    falling=True, model_kw=LORA, prepare=prepare, freeze="lora")
+
+
+def phase_moe(torch, mods, tally, card):
+    """The MoE vision tower: ViT-B/32 with 8 experts, top-2, capacity factor 1.25 on every
+    second vision block (6 MoE blocks, 15 slots an expert an image); float32 kernel path
+    against plain path at B=256 with the routing-flip rule, the aux term finite and its mean
+    per layer and round in [1, 8]; then bfloat16 at B=256."""
+    register_variant(MOE_MODEL, MODEL, vision=MOE_VISION)
+    need = {"block_attention_fwd": 24, "block_attention_bwd": 24}
+    routing = RoutingRecorder(torch)
+    res = compare_paths(torch, mods, tally, card, MOE_MODEL, TRAIN_BATCH, TRAIN_STEPS, need,
+                        routing=routing)
+    rounds = routing.layers * MOE_VISION["moe_top_k"]
+    aux = [m["moe_aux_loss"] for m in res["metrics"]]
+    print(f"  moe_aux_loss per step {[round(v, 5) for v in aux]}: {routing.layers} layers x "
+          f"top-{MOE_VISION['moe_top_k']}, per layer and round "
+          f"{[round(v / rounds, 4) for v in aux]} (need finite, in [1, "
+          f"{MOE_VISION['moe_experts']}])", flush=True)
+    if routing.layers != 6 or not all(
+            np.isfinite(v) and 1.0 <= v / rounds <= MOE_VISION["moe_experts"] for v in aux):
+        fail("the MoE aux loss is off its range")
+    del res
+    torch.cuda.empty_cache()
+    kernel_path_run(torch, tally, card, MOE_MODEL, torch.bfloat16, TRAIN_BATCH, TRAIN_STEPS,
+                    need, falling=True)
+
+
+def phase_siglip(torch, mods, tally, card):
+    """``create_model(MODEL, siglip=True)`` under the SigLIP loss: float32 kernel path against
+    plain path at B=256, the logit bias moving from -10; bfloat16 at B=256, finite, its loss
+    falling below step 1's and every step's loss within 2e-2 of the float32 kernel path's
+    (``siglip_tracks``). On this batch both float32 paths' losses rise again at step 6, alike
+    (a SigLIP property of the fixed batch under phase 6's optimizer), so the bfloat16 run is
+    held to that trajectory rather than to a last loss below the first."""
+    need = {"block_attention_fwd": 24, "block_attention_bwd": 24}
+    kw = dict(model_kw={"siglip": True}, loss_type="siglip")
+    res = compare_paths(torch, mods, tally, card, MODEL, TRAIN_BATCH, TRAIN_STEPS, need, **kw)
+    bias = [m["logit_bias"] for m in res["metrics"]]
+    print(f"  logit_bias per step {[round(v, 6) for v in bias]} (from -10), logit_scale "
+          f"{[round(m['logit_scale'], 6) for m in res['metrics']]}", flush=True)
+    if bias[-1] == -10.0:
+        fail("the SigLIP logit bias did not move")
+    f32 = [m["loss"] for m in res["metrics"]]
+    del res
+    torch.cuda.empty_cache()
+    bf16 = [m["loss"] for m in kernel_path_run(torch, tally, card, MODEL, torch.bfloat16,
+                                               TRAIN_BATCH, TRAIN_STEPS, need, **kw)]
+    ok, worst = siglip_tracks(bf16, f32)
+    print(f"  bfloat16 vs float32 kernel path, step by step: worst loss rel diff {worst:.3e} "
+          f"(need <= 2e-2); lowest bfloat16 loss of steps 2-{TRAIN_STEPS} {min(bf16[1:]):.7f} "
+          f"(need < step 1's {bf16[0]:.7f})", flush=True)
+    if not ok:
+        fail("the bfloat16 SigLIP run left the float32 trajectory or its loss did not fall")
+
+
+def siglip_tracks(bf16: list, f32: list) -> tuple[bool, float]:
+    """The bfloat16 run's losses against the float32 kernel path's of the same steps: each
+    within 2e-2 relative (phase 3's bfloat16 limit), and some step after the first below the
+    first. Returns (held, the worst relative difference)."""
+    worst = max(abs(a - b) / abs(b) for a, b in zip(bf16, f32))
+    return worst <= 2e-2 and min(bf16[1:]) < bf16[0], worst
+
+
+def phase_hires(torch, mods, tally, card):
+    """ViT-B/32 built at 384 px (``force_image_size``): the vision tower at S=145 through the
+    LN-fold kernels, 12 launches each a step, the text tower at S=77 through the others;
+    float32 kernel path against plain path for 2 steps at B=128, then bfloat16 rates."""
+    need = {"block_attention_ln_fwd": 12, "block_attention_ln_bwd": 12,
+            "block_attention_fwd": 12, "block_attention_bwd": 12}
+    del compare_paths(torch, mods, tally, card, MODEL, HIRES_BATCH, 2, need,
+                      model_kw=HIRES)["model"]
+    torch.cuda.empty_cache()
+    kernel_path_run(torch, tally, card, MODEL, torch.bfloat16, HIRES_BATCH, TRAIN_STEPS, need,
+                    falling=True, model_kw=HIRES)
+
+
 def main() -> int:
     import torch
 
@@ -1272,7 +1536,8 @@ def main() -> int:
 
     print("phase 6 training", flush=True)
     need = {"block_attention_fwd": 24, "block_attention_bwd": 24}
-    compare_paths(torch, mods, tally, card, MODEL, TRAIN_BATCH, TRAIN_STEPS, need)
+    full_opt_bytes = compare_paths(torch, mods, tally, card, MODEL, TRAIN_BATCH, TRAIN_STEPS,
+                                   need)["opt_bytes"]
     torch.cuda.empty_cache()
     kernel_path_run(torch, tally, card, MODEL, torch.bfloat16, TRAIN_BATCH, TRAIN_STEPS, need,
                     falling=True)
@@ -1283,10 +1548,11 @@ def main() -> int:
                   need_image={"block_attention_ln_fwd": 12})
     need = {"block_attention_ln_fwd": 12, "block_attention_ln_bwd": 12,
             "block_attention_fwd": 12, "block_attention_bwd": 12}
-    peak, n_params = compare_paths(torch, mods, tally, card, SHARED_MODEL, SHARED_COMPARE_BATCH,
-                                   TRAIN_STEPS, need)
+    res = compare_paths(torch, mods, tally, card, SHARED_MODEL, SHARED_COMPARE_BATCH,
+                        TRAIN_STEPS, need)
+    del res["model"]
     torch.cuda.empty_cache()
-    rate_batch = largest_batch(torch, peak, n_params, SHARED_COMPARE_BATCH)
+    rate_batch = largest_batch(torch, res["peak"], res["params"], SHARED_COMPARE_BATCH)
     if rate_batch != SHARED_COMPARE_BATCH:
         kernel_path_run(torch, tally, card, SHARED_MODEL, torch.float32, rate_batch,
                         TRAIN_STEPS, need)
@@ -1313,10 +1579,11 @@ def main() -> int:
                   need_image={"block_attention_ln_fwd": 12, "block_mlp_fwd": 12},
                   block_mlp=True)
     need = {**attn_need, "block_mlp_fwd": 24, "block_mlp_bwd": 24}
-    peak, n_params = compare_paths(torch, mods, tally, card, SHARED_MODEL, SHARED_COMPARE_BATCH,
-                                   TRAIN_STEPS, need, block_mlp=True)
+    res = compare_paths(torch, mods, tally, card, SHARED_MODEL, SHARED_COMPARE_BATCH,
+                        TRAIN_STEPS, need, block_mlp=True)
+    del res["model"]
     torch.cuda.empty_cache()
-    rate_batch = largest_batch(torch, peak, n_params, SHARED_COMPARE_BATCH)
+    rate_batch = largest_batch(torch, res["peak"], res["params"], SHARED_COMPARE_BATCH)
     metrics = kernel_path_run(torch, tally, card, SHARED_MODEL, torch.float32, rate_batch,
                               TRAIN_STEPS, need, block_mlp=True)
     kernel_path_run(torch, tally, card, SHARED_MODEL, torch.bfloat16, rate_batch, TRAIN_STEPS,
@@ -1343,10 +1610,12 @@ def main() -> int:
                   need_text={"flash_attention_fwd": 12}, need_image={"block_attention_fwd": 12},
                   bucket=LONG_BUCKET)
     need = {"block_attention_fwd": 12, "block_attention_bwd": 12, **flash_need}
-    peak, n_params = compare_paths(torch, mods, tally, card, LONG_MODEL, LONG_COMPARE_BATCH,
-                                   TRAIN_STEPS, need)
+    res = compare_paths(torch, mods, tally, card, LONG_MODEL, LONG_COMPARE_BATCH, TRAIN_STEPS,
+                        need)
+    del res["model"]
     torch.cuda.empty_cache()
-    rate_batch = largest_batch(torch, peak, n_params, LONG_COMPARE_BATCH, candidates=(8, 16, 32))
+    rate_batch = largest_batch(torch, res["peak"], res["params"], LONG_COMPARE_BATCH,
+                               candidates=(8, 16, 32))
     if rate_batch != LONG_COMPARE_BATCH:
         kernel_path_run(torch, tally, card, LONG_MODEL, torch.float32, rate_batch, TRAIN_STEPS,
                         need)
@@ -1366,6 +1635,18 @@ def main() -> int:
           "on each tower (vision S=51, text S=78 causal)", flush=True)
     phase_vclip_encode(torch, mods, tally, card, TRAIN_BATCH)
     phase_vclip_train(torch, mods, tally, card)
+
+    print(f"phase 11 the rest of the model family: {MODEL} at full width and depth", flush=True)
+    print(f"  LoRA fine-tune (r={LORA['lora_rank']}, alpha {LORA['lora_alpha']:g}) of a loaded "
+          "base", flush=True)
+    phase_lora(torch, mods, tally, card, full_opt_bytes)
+    print(f"  {MOE_MODEL}: {MODEL} with vision {MOE_VISION}", flush=True)
+    phase_moe(torch, mods, tally, card)
+    print(f"  SigLIP: {MODEL} with siglip=True, loss_type siglip", flush=True)
+    phase_siglip(torch, mods, tally, card)
+    print(f"  {MODEL} with force_image_size={HIRES['force_image_size']}: vision S=145 through "
+          "the LN-fold kernels", flush=True)
+    phase_hires(torch, mods, tally, card)
 
     entries = []
     for name, (source, replaces, case) in KERNELS.items():

@@ -28,7 +28,16 @@ them), so such models load through ``load_jax_params``, which takes the flax tre
 the port's ([in, out] kernels, so ``mlp.c_fc`` and ``mlp.c_proj`` arrive as the block-MLP
 kernels read them), only the names differ. It is also the only way into a
 ``VariationalCLIP``: its tree's ``extra_embedding`` tokens, ``mean_*`` / ``var_*_projection``
-heads and ``log_concentration_scale_*`` offsets keep their names in the port.
+heads and ``log_concentration_scale_*`` offsets keep their names in the port. The MoE
+blocks' ``moe_mlp.*`` leaves (stacked experts, router), the LoRA ``*.lora_a`` / ``*.lora_b``
+adapters and the SigLIP ``logit_bias`` keep theirs too; ``jax_adapters_to_port`` renames a
+flat ``extract_lora`` dict of the JAX package.
+
+``load_openai_state_dict`` into a model with LoRA adapters fills the base weights and leaves
+the adapters as they are (a pretrained base under fresh adapters); into a model built at
+another image size it resizes the visual positional table with ``resize_pos_embed``, the
+reference's bicubic. ``export_openai_state_dict`` is its inverse, for a model the format
+covers.
 """
 
 from __future__ import annotations
@@ -40,6 +49,46 @@ import numpy as np
 import torch
 
 from multimodal_tpu_torch.models.clip import CLIP, VariationalCLIP
+from multimodal_tpu_torch.models.lora import ALPHA_KEY, is_lora_leaf
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """Keys' cubic convolution kernel (a = -0.5) at distances x >= 0."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return np.where(x >= 2.0, 0.0, out)
+
+
+def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
+    """[n_in, n_out] weights of ``jax.image.resize(method="bicubic")`` along one axis:
+    half-pixel sample points, the kernel widened by the scale when shrinking (antialias),
+    each column normalized to sum 1, columns whose sample falls outside the input zero."""
+    f32 = np.float32
+    inv_scale = f32(1.0) / (f32(n_out) / f32(n_in))
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    w = _keys_cubic(np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) / kernel_scale)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, 0.0).astype(f32)
+
+
+def resize_pos_embed(pos: np.ndarray, target_len: int, num_prefix: int = 1) -> np.ndarray:
+    """Bicubic-resize the square grid part of a ViT positional table [1 + g*g, W] to
+    ``target_len`` rows, as the reference does (``jax.image.resize``'s bicubic); the prefix
+    (CLS) rows pass through unchanged."""
+    if pos.shape[0] == target_len:
+        return pos
+    prefix, grid = pos[:num_prefix], pos[num_prefix:]
+    old, new = int(np.sqrt(grid.shape[0])), int(np.sqrt(target_len - num_prefix))
+    if old * old != grid.shape[0] or new * new != target_len - num_prefix:
+        raise ValueError(f"cannot resize pos embed {pos.shape[0]} -> {target_len}")
+    w = _resize_weights(old, new)
+    img = np.asarray(grid, np.float32).reshape(old, old, -1)
+    resized = np.einsum("hwc,hi,wj->ijc", img, w, w).reshape(new * new, -1)
+    return np.concatenate([prefix, resized], axis=0).astype(pos.dtype)
 
 
 def _strip_prefixes(sd: Mapping[str, Any]) -> dict:
@@ -84,10 +133,12 @@ def _block(sd: dict, src: str, dst: str) -> dict:
 def _openai_to_port(sd: Mapping[str, Any], model: CLIP) -> dict:
     """OpenAI-format state_dict -> the port's parameter names (float32 numpy values)."""
     sd = _strip_prefixes(sd)
+    grid = model.cfg.vision.image_size // model.cfg.vision.patch_size
     out = {
         "visual_stem.patch_conv": np.transpose(_f32(sd["visual.conv1.weight"]), (2, 3, 1, 0)),
         "visual_stem.class_embedding": _f32(sd["visual.class_embedding"]),
-        "visual_stem.positional_embedding": _f32(sd["visual.positional_embedding"]),
+        "visual_stem.positional_embedding": resize_pos_embed(
+            _f32(sd["visual.positional_embedding"]), grid * grid + 1),
         "visual_stem.ln_pre.weight": _f32(sd["visual.ln_pre.weight"]),
         "visual_stem.ln_pre.bias": _f32(sd["visual.ln_pre.bias"]),
         "text_stem.token_embedding": _f32(sd["token_embedding.weight"]),
@@ -118,12 +169,22 @@ def _openai_to_port(sd: Mapping[str, Any], model: CLIP) -> dict:
     return out
 
 
+def _port_name(path: list) -> str:
+    """A flax leaf path -> the port's parameter name."""
+    if path[-2:-1] == ["LayerNorm_0"]:
+        path = path[:-2] + [{"scale": "weight", "bias": "bias"}[path[-1]]]
+    elif path[-2:] in (["patch_conv", "kernel"], ["token_embedding", "embedding"]):
+        path = path[:-1]
+    return ".".join(re.sub(r"^resblock_(\d+)$", r"resblocks.\1", k) for k in path)
+
+
 def jax_params_to_port(params: Mapping[str, Any]) -> dict:
     """The JAX package's flax tree ({'params': ...} or its inside; leaves numpy or anything
     ``np.asarray`` takes) -> the port's parameter names, float32 numpy values. Every leaf
     keeps its layout; ``.../resblock_3/ln_1/LayerNorm_0/scale`` becomes
     ``...resblocks.3.ln_1.weight``, ``.../resblock_3/ls_1/gamma`` ``...resblocks.3.ls_1.gamma``,
-    and the flax wrappers around the patch kernel and the token table drop away."""
+    ``.../resblock_1/moe_mlp/router/kernel`` ``...resblocks.1.moe_mlp.router.kernel``, and the
+    flax wrappers around the patch kernel and the token table drop away."""
     tree = params["params"] if "params" in params else params
     out = {}
 
@@ -132,26 +193,34 @@ def jax_params_to_port(params: Mapping[str, Any]) -> dict:
             for key, child in node.items():
                 walk(child, path + [key])
             return
-        if path[-2:-1] == ["LayerNorm_0"]:
-            path = path[:-2] + [{"scale": "weight", "bias": "bias"}[path[-1]]]
-        elif path[-2:] in (["patch_conv", "kernel"], ["token_embedding", "embedding"]):
-            path = path[:-1]
-        name = ".".join(re.sub(r"^resblock_(\d+)$", r"resblocks.\1", k) for k in path)
-        out[name] = _f32(node)
+        out[_port_name(path)] = _f32(node)
 
     walk(tree, [])
     return out
 
 
-def _fill(model: CLIP | VariationalCLIP, converted: dict, what: str):
+def jax_adapters_to_port(adapters: Mapping[str, Any]) -> dict:
+    """A flat adapter dict of the JAX package's ``extract_lora`` ("/"-joined flax paths) ->
+    the port's names, float32 numpy values; the ``ALPHA_KEY`` entry stays as it is."""
+    out = {_port_name(k.split("/")): _f32(v) for k, v in adapters.items() if k != ALPHA_KEY}
+    if ALPHA_KEY in adapters:
+        out[ALPHA_KEY] = np.float32(adapters[ALPHA_KEY])
+    return out
+
+
+def _fill(model: CLIP | VariationalCLIP, converted: dict, what: str, keep=lambda name: False):
     """Copy ``converted`` (port names -> arrays) into ``model`` in place. Every parameter
-    must be covered with its exact shape; a mismatch raises."""
+    must be covered with its exact shape, except those ``keep`` names, which stay as they
+    are when ``converted`` lacks them; a mismatch raises."""
     params = dict(model.named_parameters())
-    if set(converted) != set(params):
-        raise ValueError(f"{what} does not cover the model: missing "
-                         f"{sorted(set(params) - set(converted))}, extra "
-                         f"{sorted(set(converted) - set(params))}")
+    missing = {n for n in set(params) - set(converted) if not keep(n)}
+    extra = set(converted) - set(params)
+    if missing or extra:
+        raise ValueError(f"{what} does not cover the model: missing {sorted(missing)}, "
+                         f"extra {sorted(extra)}")
     for name, p in params.items():
+        if name not in converted:
+            continue
         value = converted[name]
         if tuple(value.shape) != tuple(p.shape):
             raise ValueError(f"shape mismatch at {name}: {value.shape} vs {tuple(p.shape)}")
@@ -162,8 +231,79 @@ def _fill(model: CLIP | VariationalCLIP, converted: dict, what: str):
 @torch.no_grad()
 def load_openai_state_dict(model: CLIP, sd: Mapping[str, Any]) -> CLIP:
     """Copy an OpenAI-format state_dict into ``model`` in place (on its device). Every
-    parameter must be covered with its exact shape; a mismatch raises."""
-    return _fill(model, _openai_to_port(sd, model), "state_dict")
+    parameter but the LoRA adapters must be covered with its exact shape, after the visual
+    positional table is resized to the model's grid; a mismatch raises. The adapters keep
+    their values (the reference's ``load_pretrained``: a base checkpoint under fresh
+    adapters)."""
+    return _fill(model, _openai_to_port(sd, model), "state_dict", keep=is_lora_leaf)
+
+
+def _export_block(get, src: str, dst: str) -> dict:
+    """One block's port leaves (``get(name)``) -> OpenAI names (q, k, v re-fused into
+    in_proj [3W, W])."""
+    g = lambda name: get(f"{src}.{name}")  # noqa: E731
+    qkv = ("query", "key", "value")
+    return {
+        f"{dst}.attn.in_proj_weight": np.concatenate([g(f"attn.{k}.kernel").T for k in qkv]),
+        f"{dst}.attn.in_proj_bias": np.concatenate([g(f"attn.{k}.bias") for k in qkv]),
+        f"{dst}.attn.out_proj.weight": g("attn.out.kernel").T,
+        f"{dst}.attn.out_proj.bias": g("attn.out.bias"),
+        f"{dst}.ln_1.weight": g("ln_1.weight"), f"{dst}.ln_1.bias": g("ln_1.bias"),
+        f"{dst}.ln_2.weight": g("ln_2.weight"), f"{dst}.ln_2.bias": g("ln_2.bias"),
+        f"{dst}.mlp.c_fc.weight": g("mlp.c_fc.kernel").T,
+        f"{dst}.mlp.c_fc.bias": g("mlp.c_fc.bias"),
+        f"{dst}.mlp.c_proj.weight": g("mlp.c_proj.kernel").T,
+        f"{dst}.mlp.c_proj.bias": g("mlp.c_proj.bias"),
+    }
+
+
+@torch.no_grad()
+def export_openai_state_dict(model: CLIP) -> dict:
+    """``model``'s parameters as an OpenAI-format state_dict (float32 numpy values), the
+    inverse of ``load_openai_state_dict`` and the layout of the reference's
+    ``export_torch_state_dict``. A leaf the format has no key for (LoRA adapters, MoE
+    experts, head scales, LayerScale, the SigLIP bias, ...) raises rather than being
+    dropped; merge adapters first (``merge_lora``)."""
+    p = {n: t.detach().to("cpu", torch.float32).numpy() for n, t in model.named_parameters()}
+    used: set = set()
+
+    def g(name):
+        used.add(name)
+        return p[name]
+
+    sd = {
+        "visual.conv1.weight": np.transpose(g("visual_stem.patch_conv"), (3, 2, 0, 1)),
+        "visual.class_embedding": g("visual_stem.class_embedding"),
+        "visual.positional_embedding": g("visual_stem.positional_embedding"),
+        "visual.ln_pre.weight": g("visual_stem.ln_pre.weight"),
+        "visual.ln_pre.bias": g("visual_stem.ln_pre.bias"),
+        "token_embedding.weight": g("text_stem.token_embedding"),
+        "positional_embedding": g("text_stem.positional_embedding"),
+        "logit_scale": g("logit_scale"),
+        "visual.ln_post.weight": g("ln_post.weight"),
+        "visual.ln_post.bias": g("ln_post.bias"),
+    }
+    cfg = model.cfg
+    if cfg.share_trunk:
+        towers = [("transformer", "transformer", cfg.vision.layers)]
+        sd["projection"] = g("projection")
+    else:
+        towers = [("visual_transformer", "visual.transformer", cfg.vision.layers),
+                  ("text_transformer", "transformer", cfg.text.layers)]
+        sd.update({"ln_final.weight": g("ln_final.weight"), "ln_final.bias": g("ln_final.bias"),
+                   "visual.proj": g("visual_projection"),
+                   "text_projection": g("text_projection")})
+    for src, dst, layers in towers:
+        for i in range(layers):
+            try:
+                sd.update(_export_block(g, f"{src}.resblocks.{i}", f"{dst}.resblocks.{i}"))
+            except KeyError as err:
+                raise ValueError(f"the OpenAI format has no key for {src}.resblocks.{i}: "
+                                 f"{err}") from None
+    left = sorted(set(p) - used)
+    if left:
+        raise ValueError(f"the OpenAI format has no key for {left}")
+    return sd
 
 
 @torch.no_grad()

@@ -21,9 +21,12 @@ sequence runs every block through ``attention()``, from 2048 tokens up the flash
 for ViT-B/32, both still on the block-attention operator) and emits a distribution's
 parameters: the CLS / EOT rows feed the mean heads, the last row the concentration heads.
 
-Not ported yet (both models raise on configs that need them): LoRA, int8 MLPs and the
-SigLIP bias; ``CLIP`` also refuses MoE, which the reference's ``VariationalCLIP`` never
-builds.
+``cfg.lora_rank`` puts a LoRA adapter on every attention and MLP projection of both models'
+trunks; ``vision.moe_experts`` makes every ``moe_every``-th block of a two-tower ``CLIP``'s
+vision trunk a MoE block (the shared trunk and ``VariationalCLIP`` build none, as in the
+reference); ``cfg.logit_bias_init`` gives ``CLIP`` the SigLIP head's ``logit_bias`` scalar,
+returned beside ``logit_scale`` (``VariationalCLIP`` builds none). Not ported yet, and refused
+by both models: ``int8_forward`` (the SwitchBack int8 MLP, ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from multimodal_tpu_torch.models.layers import (
     LayerNorm,
     PatchDropout,
     Transformer,
+    init_adapters,
     normal_,
     resolve_act,
 )
@@ -132,16 +136,10 @@ def eot_pool(x: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return x[torch.arange(x.shape[0], device=x.device), idx]
 
 
-def _check_supported(c: CLIPConfig, moe: bool = True):
-    unsupported = {
-        "vision.moe_experts": moe and c.vision.moe_experts > 0,
-        "lora_rank": c.lora_rank > 0,
-        "int8_forward": c.int8_forward,
-        "logit_bias_init": c.logit_bias_init is not None,
-    }
-    missing = [k for k, on in unsupported.items() if on]
-    if missing:
-        raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
+def _check_supported(c: CLIPConfig):
+    if c.int8_forward:
+        raise NotImplementedError("int8_forward (the SwitchBack int8 MLP) is not ported yet "
+                                  "(ROADMAP Queue 1 item 4)")
 
 
 class CLIP(nn.Module):
@@ -156,7 +154,8 @@ class CLIP(nn.Module):
         self.cfg, self.dtype = cfg, dtype
         v, t = cfg.vision, cfg.text
         act = resolve_act(cfg.act)
-        trunk = dict(act=act, dtype=dtype, remat=cfg.remat, block_mlp=block_mlp)
+        trunk = dict(act=act, dtype=dtype, remat=cfg.remat, block_mlp=block_mlp,
+                     lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha)
         self.visual_stem = VisionStem(v.width, v.patch_size, v.image_size, dtype=dtype,
                                       patch_dropout=v.patch_dropout)
         self.text_stem = TextStem(t.width, t.vocab_size, t.context_length, dtype=dtype)
@@ -176,7 +175,11 @@ class CLIP(nn.Module):
             self.visual_transformer = Transformer(v.width, v.layers, v.heads, v.mlp_ratio,
                                                   scale_heads=v.scale_heads,
                                                   scaled_cosine=v.scaled_cosine,
-                                                  ls_init_value=v.ls_init_value, **trunk)
+                                                  ls_init_value=v.ls_init_value,
+                                                  moe_experts=v.moe_experts,
+                                                  moe_every=v.moe_every, moe_top_k=v.moe_top_k,
+                                                  moe_capacity_factor=v.moe_capacity_factor,
+                                                  **trunk)
             self.text_transformer = Transformer(t.width, t.layers, t.heads, t.mlp_ratio,
                                                 causal=True, ls_init_value=t.ls_init_value,
                                                 **trunk)
@@ -185,9 +188,12 @@ class CLIP(nn.Module):
             self.visual_projection = nn.Parameter(torch.empty(v.width, cfg.embed_dim))
             self.text_projection = nn.Parameter(torch.empty(t.width, cfg.embed_dim))
         self.logit_scale = nn.Parameter(torch.empty(()))
+        if cfg.logit_bias_init is not None:  # the SigLIP head
+            self.logit_bias = nn.Parameter(torch.empty(()))
 
     def init_weights(self, generator: torch.Generator):
-        """The reference's init distributions, drawn from ``generator``."""
+        """The reference's init distributions, drawn from ``generator``; the LoRA adapters
+        last, so the base weights are those of the same seed without them."""
         for m in self.modules():
             if m is not self and hasattr(m, "init_weights"):
                 m.init_weights(generator)
@@ -199,6 +205,9 @@ class CLIP(nn.Module):
         init = self.cfg.logit_scale_init
         with torch.no_grad():
             self.logit_scale.fill_(LOGIT_SCALE_INIT if init is None else init)
+            if self.cfg.logit_bias_init is not None:
+                self.logit_bias.fill_(self.cfg.logit_bias_init)
+        init_adapters(self, generator)
 
     def _pool_image(self, x: torch.Tensor) -> torch.Tensor:
         """CLS (default), the mean over all tokens, or row 0 of the attentional pooler."""
@@ -233,31 +242,35 @@ class CLIP(nn.Module):
 
     def forward(self, images, tokens, normalize: bool = True,
                 generator: torch.Generator | None = None) -> dict:
-        return {
+        out = {
             "image_features": self.encode_image(images, normalize=normalize,
                                                 generator=generator),
             "text_features": self.encode_text(tokens, normalize=normalize),
             "logit_scale": self.logit_scale,
         }
+        if self.cfg.logit_bias_init is not None:
+            out["logit_bias"] = self.logit_bias
+        return out
 
 
 class VariationalCLIP(nn.Module):
     """CLIP that emits distribution parameters: a learned concentration token is appended to
     both towers; the CLS / EOT row goes through ``ln_post`` / ``ln_final`` to the mean head,
     the concentration token's row to the concentration head, whose log-space value has a
-    learned global offset and is clamped (``_concentration``). The trunks take ``remat`` and
-    ``act`` from the config and nothing else of its tower options, as in the reference; there
-    is no patch dropout."""
+    learned global offset and is clamped (``_concentration``). The trunks take ``remat``,
+    ``act`` and the LoRA adapters from the config and nothing else of its tower options, as
+    in the reference; there is no patch dropout, no MoE and no ``logit_bias``."""
 
     def __init__(self, cfg: CLIPConfig, vcfg: VariationalConfig = VariationalConfig(),
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        _check_supported(cfg, moe=False)
+        _check_supported(cfg)
         if vcfg.model_type not in ("Spherical", "Gaussian"):
             raise ValueError(f"unknown VariationalConfig.model_type {vcfg.model_type!r}")
         self.cfg, self.vcfg, self.dtype = cfg, vcfg, dtype
         v, t = cfg.vision, cfg.text
-        trunk = dict(act=resolve_act(cfg.act), dtype=dtype, remat=cfg.remat)
+        trunk = dict(act=resolve_act(cfg.act), dtype=dtype, remat=cfg.remat,
+                     lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha)
         self.visual_stem = VisionStem(v.width, v.patch_size, v.image_size, dtype=dtype,
                                       extra_tokens=1)
         self.text_stem = TextStem(t.width, t.vocab_size, t.context_length, dtype=dtype,
@@ -284,7 +297,7 @@ class VariationalCLIP(nn.Module):
 
     def init_weights(self, generator: torch.Generator):
         """The reference's init distributions, drawn from ``generator``; the log
-        concentration offsets start at log(initial - min)."""
+        concentration offsets start at log(initial - min); the LoRA adapters last."""
         for m in self.modules():
             if m is not self and hasattr(m, "init_weights"):
                 m.init_weights(generator)
@@ -299,6 +312,7 @@ class VariationalCLIP(nn.Module):
                 self.log_concentration_scale_image.fill_(target)
                 self.log_concentration_scale_text.fill_(target)
             self.logit_scale.fill_(LOGIT_SCALE_INIT)
+        init_adapters(self, generator)
 
     def _concentration(self, raw: torch.Tensor, log_scale) -> torch.Tensor:
         """Spherical: clamp(log_scale + raw, 1e-3, 20) -> exp -> clamp [min, max], each clamp

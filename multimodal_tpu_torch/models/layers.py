@@ -4,7 +4,9 @@ Parameters live in float32 and are cast to the compute ``dtype`` at use, as in t
 reference; LayerNorm takes f32 statistics with compute-dtype arithmetic (``ln_rows``).
 Dense weights keep the JAX ``[in, out]`` layout, which is also what the block-attention
 and block-MLP kernels read. Initialization takes an explicit ``torch.Generator``
-(``init_weights``).
+(``init_weights``). With ``lora_rank`` > 0 every attention and MLP projection carries a
+low-rank adapter that is folded into its kernel at use (``Dense.cast``), so the kernels still
+see one weight; a ``moe_experts`` block swaps its MLP for ``models.moe.MoEMLP``.
 """
 
 from __future__ import annotations
@@ -50,21 +52,51 @@ def normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> torch.Te
 
 
 class Dense(nn.Module):
-    """``y = x @ kernel + bias`` with kernel [in, out] ~ N(0, std^2) and bias = 0."""
+    """``y = x @ kernel + bias`` with kernel [in, out] ~ N(0, std^2) and bias = 0.
 
-    def __init__(self, in_dim: int, out_dim: int, std: float):
+    ``lora_rank`` r > 0 adds a PEFT-style adapter, ``lora_a`` [in, r] ~ N(0, 1/r) and
+    ``lora_b`` [r, out] = 0: the weight in use is kernel + (alpha / r) lora_a @ lora_b, formed
+    in float32 and then cast (the reference's ``_DenseParams``), so the block kernels still
+    see one weight and autograd carries their weight gradient into the adapters. The
+    adapters draw from the generator in a pass of their own (``init_adapters``) after every
+    base weight, so a model with adapters has the base weights of the same seed without."""
+
+    def __init__(self, in_dim: int, out_dim: int, std: float, lora_rank: int = 0,
+                 lora_alpha: float = 16.0):
         super().__init__()
-        self.std = std
+        self.std, self.lora_rank, self.lora_alpha = std, lora_rank, lora_alpha
         self.kernel = nn.Parameter(torch.empty(in_dim, out_dim))
         self.bias = nn.Parameter(torch.zeros(out_dim))
+        if lora_rank > 0:
+            self.lora_a = nn.Parameter(torch.empty(in_dim, lora_rank))
+            self.lora_b = nn.Parameter(torch.zeros(lora_rank, out_dim))
 
     def init_weights(self, generator: torch.Generator):
         normal_(self.kernel, self.std, generator)
         with torch.no_grad():
             self.bias.zero_()
 
+    def init_adapters(self, generator: torch.Generator):
+        normal_(self.lora_a, self.lora_rank ** -0.5, generator)
+        with torch.no_grad():
+            self.lora_b.zero_()
+
+    def weight(self) -> torch.Tensor:
+        """The float32 kernel in use: with adapters, kernel + (alpha / r) lora_a @ lora_b."""
+        if self.lora_rank == 0:
+            return self.kernel
+        return self.kernel + (self.lora_alpha / self.lora_rank) * (self.lora_a @ self.lora_b)
+
     def cast(self, dtype: torch.dtype):
-        return self.kernel.to(dtype), self.bias.to(dtype)
+        return self.weight().to(dtype), self.bias.to(dtype)
+
+
+def init_adapters(model: nn.Module, generator: torch.Generator):
+    """Draw every LoRA adapter of ``model`` from ``generator``, in module order; called after
+    all base weights are drawn."""
+    for m in model.modules():
+        if isinstance(m, Dense) and m.lora_rank > 0:
+            m.init_adapters(generator)
 
 
 class LayerNorm(nn.Module):
@@ -164,14 +196,16 @@ class MLP(nn.Module):
     residual add in one differentiable call."""
 
     def __init__(self, width: int, expansion: float = 4.0, act=quick_gelu,
-                 dtype: torch.dtype = torch.float32, depth: int = 12, block_mlp: bool = False):
+                 dtype: torch.dtype = torch.float32, depth: int = 12, block_mlp: bool = False,
+                 lora_rank: int = 0, lora_alpha: float = 16.0):
         super().__init__()
         self.width, self.hidden = width, int(width * expansion)
         self.act = act
         self.dtype = dtype
         self.block_mlp = block_mlp
-        self.c_fc = Dense(width, self.hidden, (2 * width) ** -0.5)
-        self.c_proj = Dense(self.hidden, width, (width ** -0.5) * ((2 * depth) ** -0.5))
+        lora = dict(lora_rank=lora_rank, lora_alpha=lora_alpha)
+        self.c_fc = Dense(width, self.hidden, (2 * width) ** -0.5, **lora)
+        self.c_proj = Dense(self.hidden, width, (width ** -0.5) * ((2 * depth) ** -0.5), **lora)
 
     def forward(self, x, ln_params=None, residual: bool = False):
         """ln_params: the block's raw ln_2 (weight, bias), applied here; residual=True
@@ -208,7 +242,8 @@ class MultiHeadAttention(nn.Module):
 
     def __init__(self, width: int, heads: int, causal: bool = False,
                  dtype: torch.dtype = torch.float32, depth: int = 12,
-                 scale_heads: bool = False, scaled_cosine: bool = False):
+                 scale_heads: bool = False, scaled_cosine: bool = False, lora_rank: int = 0,
+                 lora_alpha: float = 16.0):
         super().__init__()
         self.width, self.heads, self.causal, self.dtype = width, heads, causal, dtype
         self.head_scale = nn.Parameter(torch.ones(heads)) if scale_heads else None
@@ -216,10 +251,11 @@ class MultiHeadAttention(nn.Module):
                             if scaled_cosine else None)
         attn_std = width ** -0.5
         out_std = (width ** -0.5) * ((2 * depth) ** -0.5)
-        self.query = Dense(width, width, attn_std)
-        self.key = Dense(width, width, attn_std)
-        self.value = Dense(width, width, attn_std)
-        self.out = Dense(width, width, out_std)
+        lora = dict(lora_rank=lora_rank, lora_alpha=lora_alpha)
+        self.query = Dense(width, width, attn_std, **lora)
+        self.key = Dense(width, width, attn_std, **lora)
+        self.value = Dense(width, width, attn_std, **lora)
+        self.out = Dense(width, width, out_std, **lora)
 
     def forward(self, x, ln_params=None, causal: bool = False, fuse_residual: bool = False):
         """ln_params: the block's raw ln_1 (weight, bias); fuse_residual=True returns
@@ -263,18 +299,32 @@ class ResidualBlock(nn.Module):
     it can run as the fused operator. With ``ls_init_value`` each branch value is scaled by
     its ``LayerScale`` before the add, so both adds happen here: the attention still takes
     the ln_1 hand-off (without its residual), the MLP runs behind a plain ln_2 and never
-    reaches the fused operator."""
+    reaches the fused operator. With ``moe_experts`` > 0 the MLP is a ``MoEMLP``
+    (``moe_mlp``), behind a plain ln_2 with the add here, and never the fused operator."""
 
     def __init__(self, width: int, heads: int, mlp_ratio: float = 4.0, causal: bool = False,
                  act=quick_gelu, dtype: torch.dtype = torch.float32, depth: int = 12,
                  scale_heads: bool = False, ls_init_value: float | None = None,
-                 block_mlp: bool = False, scaled_cosine: bool = False):
+                 block_mlp: bool = False, scaled_cosine: bool = False, moe_experts: int = 0,
+                 moe_top_k: int = 1, moe_capacity_factor: float = 1.25, lora_rank: int = 0,
+                 lora_alpha: float = 16.0):
         super().__init__()
+        lora = dict(lora_rank=lora_rank, lora_alpha=lora_alpha)
         self.ln_1 = LayerNorm(width)
         self.attn = MultiHeadAttention(width, heads, causal=causal, dtype=dtype, depth=depth,
-                                       scale_heads=scale_heads, scaled_cosine=scaled_cosine)
+                                       scale_heads=scale_heads, scaled_cosine=scaled_cosine,
+                                       **lora)
         self.ln_2 = LayerNorm(width)
-        self.mlp = MLP(width, mlp_ratio, act=act, dtype=dtype, depth=depth, block_mlp=block_mlp)
+        self.mlp = self.moe_mlp = None
+        if moe_experts > 0:
+            from multimodal_tpu_torch.models.moe import MoEMLP  # moe imports this module
+
+            self.moe_mlp = MoEMLP(width, moe_experts, mlp_ratio, act=act, dtype=dtype,
+                                  depth=depth, top_k=moe_top_k,
+                                  capacity_factor=moe_capacity_factor)
+        else:
+            self.mlp = MLP(width, mlp_ratio, act=act, dtype=dtype, depth=depth,
+                           block_mlp=block_mlp, **lora)
         scaled = ls_init_value is not None
         self.ls_1 = LayerScale(width, ls_init_value) if scaled else None
         self.ls_2 = LayerScale(width, ls_init_value) if scaled else None
@@ -282,26 +332,39 @@ class ResidualBlock(nn.Module):
     def forward(self, x, causal: bool = False):
         if self.ls_1 is None:
             x = self.attn(x, ln_params=self.ln_1.params(), causal=causal, fuse_residual=True)
+        else:
+            x = x + self.ls_1(self.attn(x, ln_params=self.ln_1.params(), causal=causal))
+        if self.moe_mlp is not None:
+            y = self.moe_mlp(self.ln_2(x))
+        elif self.ls_1 is None:
             return self.mlp(x, ln_params=self.ln_2.params(), residual=True)
-        x = x + self.ls_1(self.attn(x, ln_params=self.ln_1.params(), causal=causal))
-        return x + self.ls_2(self.mlp(self.ln_2(x)))
+        else:
+            y = self.mlp(self.ln_2(x))
+        return x + (y if self.ls_2 is None else self.ls_2(y))
 
 
 class Transformer(nn.Module):
     """A stack of residual blocks. With ``remat`` every block is checkpointed in training:
-    its forward keeps only its input and runs again inside the backward."""
+    its forward keeps only its input and runs again inside the backward. With
+    ``moe_experts`` > 0 block i is a MoE block where ``i % moe_every == moe_every - 1``."""
 
     def __init__(self, width: int, layers: int, heads: int, mlp_ratio: float = 4.0,
                  causal: bool = False, act=quick_gelu, dtype: torch.dtype = torch.float32,
                  scale_heads: bool = False, ls_init_value: float | None = None,
-                 remat: bool = False, block_mlp: bool = False, scaled_cosine: bool = False):
+                 remat: bool = False, block_mlp: bool = False, scaled_cosine: bool = False,
+                 moe_experts: int = 0, moe_every: int = 2, moe_top_k: int = 1,
+                 moe_capacity_factor: float = 1.25, lora_rank: int = 0,
+                 lora_alpha: float = 16.0):
         super().__init__()
         self.remat = remat
         self.resblocks = nn.ModuleList(
             ResidualBlock(width, heads, mlp_ratio, causal=causal, act=act, dtype=dtype,
                           depth=layers, scale_heads=scale_heads, ls_init_value=ls_init_value,
-                          block_mlp=block_mlp, scaled_cosine=scaled_cosine)
-            for _ in range(layers)
+                          block_mlp=block_mlp, scaled_cosine=scaled_cosine,
+                          moe_experts=moe_experts if i % moe_every == moe_every - 1 else 0,
+                          moe_top_k=moe_top_k, moe_capacity_factor=moe_capacity_factor,
+                          lora_rank=lora_rank, lora_alpha=lora_alpha)
+            for i in range(layers)
         )
 
     def forward(self, x, causal: bool = False):

@@ -2,11 +2,15 @@
 
 ``make_train_step(model, optimizer)`` returns ``step(state, batch) -> metrics``: the forward
 of both towers on a uint8 (or already normalized) image batch and its tokens, the CLIP
-InfoNCE loss on the normalized features (or, with ``loss_type="vclip"`` and a
-``VariationalCLIP``, the variational loss on the distributions its heads emit), the
-backward (on a CUDA tensor the attention half of every block, and with ``block_mlp`` its MLP
-half, runs the hand-written forward and backward kernels), the fused AdamW step with its
-global-norm clip and non-finite skip, and the ln(100) clamp of the logit scale.
+InfoNCE loss on the normalized features (with a MoE vision tower plus ``moe_aux_weight``
+times its load-balance terms; with ``loss_type="siglip"`` and a model with a ``logit_bias``,
+the SigLIP loss; with ``loss_type="vclip"`` and a ``VariationalCLIP``, the variational loss
+on the distributions its heads emit), the backward (on a CUDA tensor the attention half of
+every block, and with ``block_mlp`` its MLP half, runs the hand-written forward and backward
+kernels), the fused AdamW step with its global-norm clip and non-finite skip over the
+parameters the optimizer holds (all of them, or the trainable ones of ``train.freeze``), and
+the ln(100) clamp of the logit scale (not under SigLIP, whose temperature runs free, as in
+the reference).
 It is the step the JAX package's ``bench.py`` times and ``train/run.py`` loops over.
 
 Unlike the JAX step, which returns a new state, this one updates the model, the optimizer
@@ -18,9 +22,8 @@ runs the model in training mode and leaves it in the mode it found it in.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item: meshes and
 shard_map (Queue 1 item 9), gradient accumulation in both forms, the parameter EMA and
-optimizer-state offload (item 8), ``wire_size`` (a serving piece of Queue 1), loss
-families other than ``clip`` and ``vclip`` and contrastive forms other than ``dense`` (item
-7).
+optimizer-state offload (item 8), ``wire_size`` (a serving piece of Queue 1), the loss
+families ``cloob`` and ``align`` and contrastive forms other than ``dense`` (item 7).
 """
 
 from __future__ import annotations
@@ -34,7 +37,9 @@ from multimodal_tpu_torch.data.preprocess import normalize_images
 from multimodal_tpu_torch.distributions import NormalDiag, PowerSpherical, VonMisesFisher
 from multimodal_tpu_torch.inference import model_mode
 from multimodal_tpu_torch.losses.clip_loss import clip_loss
+from multimodal_tpu_torch.losses.siglip_loss import siglip_loss
 from multimodal_tpu_torch.losses.vclip_loss import vclip_loss
+from multimodal_tpu_torch.models.moe import collect_moe_losses
 from multimodal_tpu_torch.ops.sphere import l2_normalize, riemannian_grad
 from multimodal_tpu_torch.train.optimizer import extract_grad_norm
 
@@ -122,22 +127,43 @@ def _vclip_loss_fn(loss_kwargs: dict) -> Callable:
 def make_loss_fn(model, loss_type: str = "clip", loss_kwargs: Optional[dict] = None,
                  wire_size: Optional[int] = None) -> Callable:
     """loss_fn(model, batch, generator=None) -> (loss, metrics) for the CLIP InfoNCE loss
-    (dense form; ``generator`` feeds patch dropout) or the variational loss (``vclip``;
-    ``generator`` feeds its draws)."""
-    if loss_type not in ("clip", "vclip"):
+    (dense form; ``generator`` feeds patch dropout; a model whose config has a MoE vision
+    tower adds ``moe_aux_weight`` (0.01) times ``collect_moe_losses`` and reports it as
+    ``moe_aux_loss``), the SigLIP loss (``siglip``; the model needs its ``logit_bias``) or the
+    variational loss (``vclip``; ``generator`` feeds its draws)."""
+    if loss_type in ("cloob", "align"):
         raise NotImplementedError(f"loss_type={loss_type!r} is not ported yet "
                                   "(ROADMAP Queue 1 item 7)")
+    if loss_type not in ("clip", "siglip", "vclip"):
+        raise ValueError(f"unknown loss_type {loss_type!r}")
     if wire_size is not None:
         raise NotImplementedError("wire_size (the on-device bicubic upsample) is not ported "
                                   "yet (ROADMAP Queue 1, serving pieces)")
     if loss_type == "vclip":
         return _vclip_loss_fn(loss_kwargs or {})
     kw = dict(loss_kwargs or {})
+    if loss_type == "siglip":
+        if getattr(getattr(model, "cfg", None), "logit_bias_init", None) is None:
+            raise ValueError(
+                "loss_type='siglip' needs a model with a logit_bias param — create it "
+                "with create_model(..., siglip=True) or cfg.logit_bias_init set")
+
+        def siglip_fn(model, batch, generator=None):
+            out = model(batch_images(batch, model), batch["text"], generator=generator)
+            ls, lb = out["logit_scale"], out["logit_bias"]
+            loss = siglip_loss(out["image_features"], out["text_features"], ls, lb,
+                               normalize=False, **kw)
+            return loss, {"loss": loss.detach(), "logit_scale": ls.detach().clone(),
+                          "logit_bias": lb.detach().clone()}
+
+        return siglip_fn
     label_smoothing = kw.pop("label_smoothing", 0.0)
     kw.pop("local_loss", None)  # only meaningful on a mesh
     impl = kw.pop("contrastive_impl", "dense")
     kw.pop("chunk_size", None)
-    kw.pop("moe_aux_weight", None)  # MoE models do not build in the port
+    moe_aux_weight = kw.pop("moe_aux_weight", 0.01)
+    vision = getattr(getattr(model, "cfg", None), "vision", None)
+    has_moe = vision is not None and vision.moe_experts > 0
     if impl != "dense":
         raise NotImplementedError(f"contrastive_impl={impl!r} is not ported yet "
                                   "(ROADMAP Queue 1 item 7)")
@@ -146,7 +172,12 @@ def make_loss_fn(model, loss_type: str = "clip", loss_kwargs: Optional[dict] = N
         out = model(batch_images(batch, model), batch["text"], generator=generator)
         fi, ft, ls = out["image_features"], out["text_features"], out["logit_scale"]
         loss = clip_loss(fi, ft, ls, label_smoothing=label_smoothing, normalize=False, **kw)
-        return loss, {"loss": loss.detach(), "logit_scale": ls.detach().clone()}
+        metrics = {"loss": loss.detach(), "logit_scale": ls.detach().clone()}
+        if has_moe:
+            aux = collect_moe_losses(model)
+            loss = loss + moe_aux_weight * aux
+            metrics["moe_aux_loss"], metrics["loss"] = aux.detach(), loss.detach()
+        return loss, metrics
 
     return loss_fn
 
@@ -157,7 +188,8 @@ def make_train_step(model, optimizer, loss_type: str = "clip",
                     feature_cached_accum: bool = False, ema_decay: Optional[float] = None,
                     offload_opt_state: bool = False, wire_size: Optional[int] = None):
     """Build ``step(state, batch, generator=None) -> metrics`` (``loss``, ``logit_scale``,
-    ``grad_norm``; for ``vclip`` the five loss terms, ``loss``, the two mean concentrations
+    ``grad_norm``, with a MoE vision tower ``moe_aux_loss``; for ``siglip`` also
+    ``logit_bias``; for ``vclip`` the five loss terms, ``loss``, the two mean concentrations
     and ``grad_norm``).
 
     ``batch`` holds ``image`` (uint8 or float NHWC) and ``text`` (token ids), on the
@@ -187,7 +219,8 @@ def make_train_step(model, optimizer, loss_type: str = "clip",
             loss, metrics = loss_fn(state.model, batch, generator)
             loss.backward()
         state.optimizer.step()
-        _clamp_logit_scale(state.model)
+        if loss_type != "siglip":  # SigLIP's temperature runs free, as in the reference
+            _clamp_logit_scale(state.model)
         norm = extract_grad_norm(state.optimizer)
         metrics["grad_norm"] = (norm.clone() if norm is not None else global_norm(
             [p.grad for p in state.model.parameters() if p.grad is not None]))

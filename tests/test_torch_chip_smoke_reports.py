@@ -297,3 +297,78 @@ def test_without_a_card_the_script_fails_and_prints_no_result():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout and "FAIL" in proc.stdout
+
+
+def test_phase3_holds_the_ln_fold_form_at_384px():
+    """ViT-B/32's vision tower at 384 px: S = 12 * 12 + 1 = 145, W=768, H=12, timed at B=256
+    (and a ragged B=3), not causal, with the residual."""
+    rows = {(case, b, s, w, h, causal, res) for case, b, s, w, h, causal, res in cs.LN_CASES}
+    assert {("ln-S145", 256, 145, 768, 12, False, True),
+            ("ln-S145", 3, 145, 768, 12, False, True)} <= rows
+    assert (cs.HIRES["force_image_size"] // 32) ** 2 + 1 == 145
+    ms, by, flops = cs.block_bound("block_attention_ln_fwd", 256, 145, 768, 12, False, "bfloat16")
+    assert by == "operations" and flops == 8 * 256 * 145 * 768 ** 2 + 4 * 256 * 12 * 145 ** 2 * 64
+
+
+def test_phase11_configs():
+    """LoRA r=8 alpha 16; the MoE tower's 8 experts, top-2, capacity factor 1.25 on every
+    second block: 6 MoE blocks, 15 slots an expert for a 50-token image."""
+    from multimodal_tpu_torch.models.moe import MoEMLP
+
+    assert cs.LORA == dict(lora_rank=8, lora_alpha=16.0)
+    assert cs.MOE_VISION == dict(moe_experts=8, moe_every=2, moe_top_k=2,
+                                 moe_capacity_factor=1.25)
+    assert sum(i % 2 == 1 for i in range(12)) == 6
+    assert MoEMLP(768, 8, top_k=2, capacity_factor=1.25).capacity(50) == 15
+    assert "11. the rest of the model family" in cs.__doc__
+    assert cs.model_label("ViT-B-32", model_kw={"siglip": True}) == "ViT-B-32 siglip=True"
+
+
+def test_routing_flip_rule():
+    """d decisions that differ between the two paths widen the step's loss limit by d / (B S);
+    with none it is phase 6's 1e-5."""
+    import torch
+
+    a = [torch.tensor([[[0, 1], [2, 3]]]), torch.tensor([[[4, 5], [6, 7]]])]
+    b = [torch.tensor([[[0, 1], [3, 2]]]), torch.tensor([[[4, 5], [6, 7]]])]
+    assert cs.routing_flips(a, a) == 0 and cs.routing_flips(a, b) == 2
+    assert cs.moe_loss_limit(0, 12800) == 1e-5
+    assert abs(cs.moe_loss_limit(3, 12800) - (1e-5 + 3 / 12800)) < 1e-15
+    rec = cs.RoutingRecorder(torch)
+    rec.layers = 2
+    runs = [a + b, b + a]  # two steps of two layers each
+    assert rec.flips(runs[0], runs[1], 0) == 2 and rec.flips(runs[0], runs[1], 1) == 2
+    assert rec.flips(runs[0], runs[0], 1) == 0 and rec.decisions(runs[0], 0) == 8
+
+
+def test_routing_recorder_reads_each_moe_layers_choices():
+    """The recorder's hooks record, per forward of each MoE layer, the k rounds of choices the
+    layer made, and leave the model as it was when detached."""
+    import torch
+
+    from multimodal_tpu_torch.models import create_model
+
+    model = create_model("tiny-test-moe", device="cpu")
+    rec = cs.RoutingRecorder(torch)
+    rec.attach(model)
+    images = torch.zeros(2, 32, 32, 3)
+    with torch.no_grad():
+        model.encode_image(images)
+        model.encode_image(images + 1)
+    records = rec.detach()
+    assert rec.layers == 1 and len(records) == 2 and records[0].shape == (2, 5, 1)
+    assert rec.seq == 5
+    with torch.no_grad():
+        model.encode_image(images)
+    assert len(rec.records) == 2  # detached: no more records
+
+
+def test_siglip_bfloat16_rule():
+    """The bfloat16 SigLIP run follows the float32 kernel path's losses step by step within
+    2e-2 and falls below step 1 somewhere; a run that leaves the trajectory, or never falls,
+    fails."""
+    f32 = [10.1359, 7.928, 7.0474, 7.0606, 6.562, 10.5839]
+    ok, worst = cs.siglip_tracks([10.1337, 7.9338, 7.0376, 7.0547, 6.5606, 10.5886], f32)
+    assert ok and worst < 2e-3
+    assert not cs.siglip_tracks([10.1337, 7.9338, 7.0376, 7.0547, 6.5606, 11.0], f32)[0]
+    assert not cs.siglip_tracks([10.0, 10.2, 10.3], [10.0, 10.2, 10.3])[0]

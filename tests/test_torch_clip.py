@@ -155,8 +155,14 @@ def test_seeded_init_is_reproducible_and_unported_configs_raise():
     cosine = create_model("tiny-test-cosine", device="cpu")  # ported: builds, with its leaves
     scale = cosine.visual_transformer.resblocks[1].attn.logit_scale
     torch.testing.assert_close(scale, torch.full((2,), 2.302585093))
-    with pytest.raises(NotImplementedError, match="vision.moe_experts"):
-        create_model("tiny-test-moe", device="cpu")
+    moe = create_model("tiny-test-moe", device="cpu")  # ported: builds, with its moe_mlp leaves
+    blocks = moe.visual_transformer.resblocks
+    assert blocks[0].moe_mlp is None and blocks[1].mlp is None
+    assert blocks[1].moe_mlp.w1.shape == (4, 64, 256)
+    assert {n.split("moe_mlp.")[1] for n, _ in moe.named_parameters() if "moe_mlp" in n} == {
+        "w1", "b1", "w2", "b2", "router.kernel", "router.bias"}
+    with pytest.raises(NotImplementedError, match="int8_forward"):
+        create_model("tiny-test", int8_forward=True, device="cpu")
 
 
 def test_create_model_lands_on_the_card_unless_asked_for_the_cpu():
@@ -170,3 +176,21 @@ def test_create_model_lands_on_the_card_unless_asked_for_the_cpu():
         with pytest.raises(RuntimeError, match="no CUDA device is available"):
             create_model("tiny-test", device="cuda:0")
     assert next(create_model("tiny-test", device="cpu").parameters()).device.type == "cpu"
+
+
+@pytest.mark.parametrize("name", ["tiny", "tiny-test-shared"])
+def test_export_openai_state_dict_is_the_jax_export(name):
+    """The port's export of a model loaded from JAX params is JAX's ``export_torch_state_dict``
+    of those params, key for key and bit for bit; a leaf the format has no key for raises."""
+    from multimodal_tpu_torch.models import export_openai_state_dict, load_jax_params
+
+    jm = jax_create_model(name)
+    params = random_params(jm)
+    want = export_torch_state_dict(params, jm.cfg)
+    got = export_openai_state_dict(load_jax_params(create_model(name, device="cpu"), params))
+    assert set(got) == set(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+    for kw in ({"lora_rank": 2}, {"siglip": True}):
+        with pytest.raises(ValueError, match="no key for"):
+            export_openai_state_dict(create_model(name, device="cpu", **kw))

@@ -28,7 +28,9 @@ def test_port_imports_without_jax():
         "import multimodal_tpu_torch.distributions.projected_normal\n"
         "import multimodal_tpu_torch.distributions.hyperspherical_uniform\n"
         "import multimodal_tpu_torch.losses.vclip_loss, multimodal_tpu_torch.models.factory\n"
-        "import multimodal_tpu_torch.models.config\n"
+        "import multimodal_tpu_torch.models.config, multimodal_tpu_torch.models.lora\n"
+        "import multimodal_tpu_torch.models.moe, multimodal_tpu_torch.losses.siglip_loss\n"
+        "import multimodal_tpu_torch.train.freeze\n"
         "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'multimodal_tpu'))\n"
         "assert not leaked, leaked\n"

@@ -182,7 +182,7 @@ def test_left_out_options_raise(option, value):
         make_train_step(model, opt, **{option: value})
 
 
-@pytest.mark.parametrize("kwargs", [{"loss_type": "siglip"},
+@pytest.mark.parametrize("kwargs", [{"loss_type": "cloob"},
                                     {"loss_kwargs": {"contrastive_impl": "chunked"}}])
 def test_left_out_losses_raise(kwargs):
     model = create_model("tiny-test", device="cpu")

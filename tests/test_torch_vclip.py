@@ -287,9 +287,13 @@ def test_create_model_variational_options_and_refusals():
         create_model("tiny-test", variational=True, device="cpu",
                      vcfg=VariationalConfig(model_type="Laplace"))
     cfg = create_model("tiny-test", device="cpu").cfg
-    for field, value in (("lora_rank", 4), ("int8_forward", True), ("logit_bias_init", -10.0)):
-        with pytest.raises(NotImplementedError, match=field):
-            VariationalCLIP(dataclasses.replace(cfg, **{field: value}))
+    # LoRA builds on both trunks; the SigLIP bias is never built, as in the reference
+    lora = VariationalCLIP(dataclasses.replace(cfg, lora_rank=4))
+    assert sum(n.endswith("lora_a") for n, _ in lora.named_parameters()) == 24
+    biased = VariationalCLIP(dataclasses.replace(cfg, logit_bias_init=-10.0))
+    assert not any("logit_bias" in n for n, _ in biased.named_parameters())
+    with pytest.raises(NotImplementedError, match="int8_forward"):
+        VariationalCLIP(dataclasses.replace(cfg, int8_forward=True))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             create_model("tiny-test", variational=True)
