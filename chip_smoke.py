@@ -44,7 +44,15 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      forward's, both forms and dtypes; the float32 flash forward at S=8192; then the flash
      operator against the plain attention path, forward plus backward, time and peak memory at
      S=1024, 2048 and 4096, causal and not (the dispatch's crossover). The library calls are
-     yardsticks, held to the plain versions too and used nowhere in the port;
+     yardsticks, held to the plain versions too and used nowhere in the port. Then the int8
+     kernels (ops/csrc/quant.cu) at ViT-B/32's int8 shapes at B=256, float32 and bfloat16
+     activations: the row quantize (activations [12800|19712, 768|3072|512|2048]; the weights
+     W^T and W, float32, in both scale forms) and the rescale of real int8 products (float32 or
+     bfloat16 out; with a bias, bfloat16 out, as the W8A8 encoders' c_fc; the image projection
+     at M=256, float32 out): codes, scales and outputs bit for bit against the plain versions,
+     a zero row and a row of exact .5 ties in every quantize input, a second launch the same
+     bits; times with GB/s and the share of the byte bound, and beside each rescale its
+     product as torch._int_mm and as a bfloat16 torch.matmul (information);
   4. serving: ViT-B/32 in float32 with seeded random weights behind the HTTP server,
      answering text, image and similarity requests; the forward kernel's launch count over
      those requests must be at least 12 per tower encode, and the served embeddings must
@@ -110,7 +118,18 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      below step 1's; on this batch the loss rises again at step 6 on both float32 paths);
      ``force_image_size=384`` (vision S=145 through the LN-fold kernels, 12 launches
      of each a step, the text tower through the others) for 2 float32 steps at B=128, then
-     bfloat16 rates.
+     bfloat16 rates;
+ 12. int8: ViT-B/32 at full width and depth with ``int8_forward=True`` at B=256 (every dense
+     MLP on the SwitchBack GEMMs: per step 192 row-quantize and 96 rescale launches beside the
+     24 of each block kernel): float32 kernel path against plain path, the int8 codes that
+     flip between them counted and printed, with phase 6's limits widened by 3x each held
+     quantity's distance between the int8 step and the float step from the same start (the
+     flips cascade: the two paths may hold independent roundings of a value, ``int8_limit``);
+     bfloat16 in turns with the bfloat16 step without int8 (A, B, B, A, A, B: samples/s and
+     peak memory, the A/B); then the
+     W8A8 encoders behind the HTTP server (``quantized=True``): 73 launches of each int8
+     kernel per tower encode, cosine > 0.99 to the float32 encode and >= 0.9999 to the same
+     encode through the plain versions, encodes/s at bucket 256 and single-request p50.
 Before the last line come the card's name and power limit and the kernel summary (JSON); the
 last line is the device record.
 """
@@ -153,6 +172,7 @@ _JAX_BLOCK = "multimodal_tpu/ops/block_attention.py"
 _JAX_FUSED = "multimodal_tpu/ops/fused_attention.py"
 _JAX_MLP = "multimodal_tpu/ops/block_mlp.py"
 _JAX_FLASH = "multimodal_tpu/ops/flash_attention.py"
+_JAX_QUANT = "multimodal_tpu/ops/quant.py"
 KERNELS = {  # name -> (source, the TPU kernel it replaces, the timed case that stands for it)
     "block_attention_fwd": (_CSRC + "block_attention_fwd.cu", _JAX_BLOCK + ":200", "vision"),
     "block_attention_bwd": (_CSRC + "block_attention_bwd.cu",
@@ -170,6 +190,10 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces, the timed case that 
     "flash_attention_fwd": (_CSRC + "flash_attention.cu", _JAX_FLASH + ":93", "flash-S2048"),
     "flash_attention_dq": (_CSRC + "flash_attention.cu", _JAX_FLASH + ":207", "flash-S2048"),
     "flash_attention_dkv": (_CSRC + "flash_attention.cu", _JAX_FLASH + ":241", "flash-S2048"),
+    "quantize_rows": (_CSRC + "quant.cu", _JAX_QUANT + ":31 (quantize_rows) and :22 "
+                      "(quantize_weight)", "q-B32-vision-act"),
+    "int8_rescale": (_CSRC + "quant.cu", _JAX_QUANT + ":49 (_int8_product), :78 "
+                     "(_int8_dense_bwd) and :100 (int8_matmul), the rescales", "r-B32-vision-fc"),
 }
 BLOCK_CASES = [  # (case, batch, seq, width, heads, causal)
     ("vision", 1, 50, 768, 12, False),
@@ -237,6 +261,29 @@ FLASH_CASES = [  # (case, batch, sq, sk, heads, head_dim, causal, timed)
     ("flash-D32", 2, 514, 514, 8, 32, False, False),
     ("flash-B32", 32, 2048, 2048, 8, 64, True, True),  # the text tower's call at B=32
 ]
+QUANT_CASES = [  # (case, rows, cols, weight): the row quantize of ViT-B/32's int8 step at B=256
+    ("q-B32-vision-x", 256 * 50, 768, False),      # c_fc's input; dx's g of c_proj
+    ("q-B32-vision-act", 256 * 50, 3072, False),   # c_proj's input act(h); g of c_fc
+    ("q-B32-text-x", 256 * 77, 512, False),
+    ("q-B32-text-act", 256 * 77, 2048, False),
+    ("q-vision-wT", 3072, 768, True),   # W1^T: the forward's per-column quantize of W1
+    ("q-vision-w", 768, 3072, True),    # W1 by rows: the backward's (W1^T per column)
+    ("q-text-wT", 2048, 512, True),
+    ("q-text-w", 512, 2048, True),
+]
+RESCALE_CASES = [  # (case, M, K, N, bias, out dtype or None for the loop's): acc [M, N] of K
+    ("r-B32-vision-fc", 256 * 50, 768, 3072, False, None),    # c_fc forward; c_proj's dx
+    ("r-B32-vision-proj", 256 * 50, 3072, 768, False, None),  # c_proj forward; c_fc's dx
+    ("r-B32-text-fc", 256 * 77, 512, 2048, False, None),
+    ("r-B32-text-proj", 256 * 77, 2048, 512, False, None),
+    ("r-serve-fc", 256 * 50, 768, 3072, True, "bfloat16"),    # the W8A8 encode's c_fc
+    ("r-serve-projection", 256, 768, 512, False, "float32"),  # the image projection, B=256
+]
+INT8 = {"int8_forward": True}
+INT8_NEED = {"block_attention_fwd": 24, "block_attention_bwd": 24, "quantize_rows": 192,
+             "int8_rescale": 96}  # 48 dense layers: 4 quantizes and 2 rescales each a step
+AB_RUNS = 3  # the int8/bf16 A/B: each arm this many times, in turns (A, B, B, A, A, B)
+INT8_SPREAD = 3.0  # int8_limit: sqrt(2) for two independent roundings, and room for a max
 CROSSOVER_TOKENS = 16384  # batch x S of every crossover case (B=8 at S=2048)
 TRAIN_BATCH = 256
 TRAIN_STEPS = 6  # every train run: the first step warms up, the five after it are timed
@@ -614,6 +661,120 @@ def phase_kernels(torch, ba, fa, bm, fl) -> dict:
     return {"worst_f32": worst_f32, "timing": timing}
 
 
+def quant_bound(kernel: str, elems: int, in_bytes: int, out_bytes: int, rows: int,
+                cols: int, bias: bool = False):
+    """(ms, what bounds it, operations) of a quantize or a rescale: each input read once and
+    each output written once (quantize: x, the int8 codes and a float32 scale a row; rescale:
+    the int32 accumulator, sx, sw [, bias] and the output), over the CUDA cores' float32 rate
+    for its 4 (quantize: abs, max, divide, round) or 3 (rescale: convert, two multiplies; the
+    bias's FMA) operations an element."""
+    if kernel == "quantize_rows":
+        nbytes = elems * (in_bytes + 1) + 4 * rows
+        ops = 4 * elems
+    else:
+        nbytes = elems * (4 + out_bytes) + 4 * rows + 4 * cols * (2 if bias else 1)
+        ops = 3 * elems
+    return bound(kernel, ops, nbytes, "float32")
+
+
+def quant_cases(torch, q, dtype):
+    """Every (kernel, case, shape text, timed, run kernel, run plain, others, bound) of the
+    int8 kernels for one activation dtype, built lazily. Quantize inputs hold a zero row and a
+    row of exact .5 ties (amax 127: both forms give scale 1.0); weights are float32 and run
+    both scale forms (the train step's "reciprocal", the serving load's "divide"), once, with
+    the float32 loop. Rescale inputs are real int8 products; beside each, as information, its
+    product as ``torch._int_mm`` (TN, the port's layout; and with the weight operand [K, N]
+    row-major) and the same product as a bfloat16 ``torch.matmul``."""
+    name = str(dtype).replace("torch.", "")
+    for case, rows, cols, weight in QUANT_CASES:
+        if weight and dtype != torch.float32:
+            continue
+        g = torch.Generator(device="cuda").manual_seed(rows + cols)
+        x = torch.randn(rows, cols, generator=g, device="cuda") * (0.05 if weight else 3.0)
+        x[0] = 0.0
+        ties = torch.tensor([127.0, 0.5, 1.5, 2.5, -2.5, 3.5, -0.5, 126.5], device="cuda")
+        x[1] = ties.repeat(cols // 8)
+        x = x.to(torch.float32 if weight else dtype)
+        b_ms, b_by, ops = quant_bound("quantize_rows", rows * cols, x.element_size(), 1, rows,
+                                      cols)
+        for form in (("reciprocal", "divide") if weight else ("reciprocal",)):
+            shape = f"R={rows} C={cols} {form:<10}"
+            yield ("quantize_rows", case, shape, not weight,
+                   (lambda x=x, form=form: q.quantize_rows(x, form)),
+                   (lambda x=x, form=form: q.quantize_rows_reference(x, form)), {},
+                   (b_ms, b_by, ops, rows * cols * (x.element_size() + 1) + 4 * rows))
+    for case, m, k, n, bias, out in RESCALE_CASES:
+        out_dtype = getattr(torch, out) if out else dtype
+        if out and out_dtype != dtype:
+            continue
+        g = torch.Generator(device="cuda").manual_seed(m + k + n)
+        aq = torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
+        bq = torch.randint(-127, 128, (n, k), generator=g, device="cuda", dtype=torch.int8)
+        acc = q.int8_product(aq, bq)
+        sx = torch.rand(m, generator=g, device="cuda") * 0.05
+        sw = torch.rand(n, generator=g, device="cuda") * 1e-3
+        b = torch.randn(n, generator=g, device="cuda") * 0.02 if bias else None
+        a16, b16 = aq.to(torch.bfloat16), bq.to(torch.bfloat16).t().contiguous()
+        b_kn = bq.t().contiguous()  # the [K, N] row-major operand, against the port's [N, K]
+        b_ms, b_by, ops = quant_bound("int8_rescale", m * n, 0, torch.empty(
+            0, dtype=out_dtype).element_size(), m, n, bias)
+        shape = f"M={m} K={k} N={n} bias={bias!s:<5} out={str(out_dtype)[6:]}"
+        yield ("int8_rescale", case, shape, True,
+               (lambda acc=acc, sx=sx, sw=sw, b=b, o=out_dtype: q.rescale(acc, sx, sw, b,
+                                                                        out_dtype=o)),
+               (lambda acc=acc, sx=sx, sw=sw, b=b, o=out_dtype: q.rescale_reference(
+                   acc, sx, sw, b, out_dtype=o)),
+               {"int_mm_ms": (lambda aq=aq, bq=bq: torch._int_mm(aq, bq.t()), 2 * m * k * n),
+                "int_mm_kn_ms": (lambda aq=aq, b=b_kn: torch._int_mm(aq, b), 2 * m * k * n),
+                "bf16_matmul_ms": (lambda a=a16, b=b16: a @ b, 2 * m * k * n)},
+               (b_ms, b_by, ops, m * n * (4 + torch.empty(0, dtype=out_dtype).element_size())))
+
+
+def phase_quant_kernels(torch, q) -> dict:
+    """The row-quantize and rescale kernels against their plain versions at ViT-B/32's int8
+    shapes (B=256), float32 and bfloat16 activations: every output the same bits (codes,
+    scales, rescaled values), a second launch the same bits again; CUDA-event times with GB/s
+    and the share of the byte bound; beside each rescale its product's ``torch._int_mm`` and
+    bfloat16 ``torch.matmul`` times and rates, as information."""
+    worst_f32 = {"quantize_rows": 0.0, "int8_rescale": 0.0}
+    timing, failures = {}, []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        for kernel, case, shape, timed, kern, plain, others, (b_ms, b_by, ops, nbytes) in (
+                quant_cases(torch, q, dtype)):
+            got, want = kern(), plain()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            again = kern()
+            again = again if isinstance(again, tuple) else (again,)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            twice = all(torch.equal(a, b) for a, b in zip(again, got))
+            diff = max(int((a != b).sum()) for a, b in zip(got, want))
+            ok = same and twice and all(bool(torch.isfinite(a.float()).all()) for a in got)
+            line = (f"{kernel} {case:<18} {shape} {name:<8} bit for bit vs plain={same} "
+                    f"(differing elements {diff}) same_bits_twice={twice} "
+                    f"{'ok' if ok else 'MISMATCH'}")
+            del got, want, again
+            if timed:
+                k_ms, p_ms = cuda_ms(kern, 20), cuda_ms(plain, 5)
+                line += (f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} "
+                         f"({b_by}) GB/s={nbytes / k_ms / 1e6:.1f} of_bound="
+                         f"{100 * b_ms / k_ms:.1f}%")
+                for other, (fn, flops) in others.items():
+                    o_ms, unit = cuda_ms(fn, 20), "TOP/s" if other.startswith("int") else "TFLOP/s"
+                    line += f" {other}={o_ms:.4f} ({flops / o_ms / 1e9:.1f} {unit})"
+                timing[(kernel, case, name)] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": None,
+                                                "bound_ms": b_ms, "bound_by": b_by}
+            print(line, flush=True)
+            if not ok:
+                failures.append(line)
+        torch.cuda.empty_cache()
+    if failures:
+        fail(f"{len(failures)} int8 kernel/plain mismatches")
+    return {"worst_f32": worst_f32, "timing": timing}
+
+
 def qkv_repeats(torch, ba):
     """The block backward's recomputed q, k and v against the forward's, bit for bit, in both
     forms (vision S=50 and the LN form at S=197, B=4) and both dtypes: the two run the
@@ -846,8 +1007,10 @@ def check_embeddings(name: str, emb, n: int, dim: int):
 def plain_attention(mods):
     """Every kernel call of the model routed to its plain version (the gradient then comes
     from torch's autograd of that version): the block operator in both its forms, the fused
-    and the flash operator behind ``attention()``, and the fused MLP operator."""
-    ba, fa, bm, fl = mods["ba"], mods["fa"], mods["bm"], mods["fl"]
+    and the flash operator behind ``attention()``, the fused MLP operator, and the int8 row
+    quantize and rescale (every int8 product of training and serving calls them through the
+    ``ops.quant`` module)."""
+    ba, fa, bm, fl, q = mods["ba"], mods["fa"], mods["bm"], mods["fl"], mods["q"]
     layers, attention = mods["layers"], mods["attention"]
 
     def plain_block_attention(x, *ws, heads, causal=False, ln_scale=None, ln_bias=None,
@@ -866,16 +1029,17 @@ def plain_attention(mods):
         return fl.flash_attention_reference(q, k, v, causal=causal, sm_scale=sm_scale)[0]
 
     kernel_paths = (layers.block_attention, attention.fused_attention, layers.block_mlp,
-                    attention.flash_attention)
+                    attention.flash_attention, q.quantize_rows, q.rescale)
     layers.block_attention = plain_block_attention
     attention.fused_attention = fa.fused_attention_reference
     layers.block_mlp = plain_block_mlp
     attention.flash_attention = plain_flash_attention
+    q.quantize_rows, q.rescale = q.quantize_rows_reference, q.rescale_reference
     try:
         yield
     finally:
         (layers.block_attention, attention.fused_attention, layers.block_mlp,
-         attention.flash_attention) = kernel_paths
+         attention.flash_attention, q.quantize_rows, q.rescale) = kernel_paths
 
 
 class Tally:
@@ -896,10 +1060,12 @@ class Tally:
 
 
 def phase_serving(torch, mods, tally, card, kind, model_name, need_text, need_image,
-                  block_mlp=False, bucket=256):
+                  block_mlp=False, bucket=256, quantized=False):
     """Serve ``model_name`` (float32, seeded weights) over HTTP; check the answers, the
     launch counts (``need_*``: kernel -> launches per tower encode) and the agreement with
-    the plain-version encode; then throughput at ``bucket`` and single-request latency."""
+    the plain-version encode; then throughput at ``bucket`` and single-request latency.
+    ``quantized`` serves the int8 W8A8 encoders (``EmbeddingService(quantized=True)``), whose
+    embeddings must also hold cosine > 0.99 to the float32 encode of the same model."""
     from multimodal_tpu_torch.data.tokenizer import tokenize
     from multimodal_tpu_torch.models import create_model
     from multimodal_tpu_torch.serving import EmbeddingService, make_server
@@ -907,12 +1073,12 @@ def phase_serving(torch, mods, tally, card, kind, model_name, need_text, need_im
     t0 = time.perf_counter()
     model = create_model(model_name, seed=0, block_mlp=block_mlp)
     dim, size = model.cfg.embed_dim, model.cfg.vision.image_size
-    svc = EmbeddingService(model, max_batch=bucket, max_wait_ms=5.0)
+    svc = EmbeddingService(model, max_batch=bucket, max_wait_ms=5.0, quantized=quantized)
     srv = make_server(svc, "127.0.0.1", 0)
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
     url = f"http://127.0.0.1:{srv.server_address[1]}"
-    model_name += " block_mlp" if block_mlp else ""
+    model_name += (" block_mlp" if block_mlp else "") + (" int8 W8A8" if quantized else "")
     print(f"  model {model_name} float32 on {kind} built and served in "
           f"{time.perf_counter() - t0:.2f} s at {url}", flush=True)
     try:
@@ -954,6 +1120,17 @@ def phase_serving(torch, mods, tally, card, kind, model_name, need_text, need_im
               f"image={cos_i:.7f} (need >= 0.9999)", flush=True)
         if min(cos_t, cos_i) < 0.9999:
             fail("served embeddings disagree with the plain-version encode")
+        if quantized:
+            from multimodal_tpu_torch.inference import Embedder
+
+            exact = Embedder(model, batch_size=bucket)
+            f_t, f_i = exact.encode_tokens(tokens), exact.encode_images(images)
+            gate_t = float(np.sum(f_t * txt, -1).min())
+            gate_i = float(np.sum(f_i * img, -1).min())
+            print(f"  served int8 vs the float32 encode: min cosine text={gate_t:.6f} "
+                  f"image={gate_i:.6f} (need > 0.99)", flush=True)
+            if min(gate_t, gate_i) <= 0.99:
+                fail("the int8 embeddings left the float32 encode (cosine <= 0.99)")
 
         print(f"  throughput ({model_name})", flush=True)
         emb = svc._embedder
@@ -967,8 +1144,9 @@ def phase_serving(torch, mods, tally, card, kind, model_name, need_text, need_im
             for _ in range(5):
                 fn(arg)
             rate = 5 * bucket / (time.perf_counter() - t0)
-            print(f"  {model_name} {name} encodes/s at bucket {bucket} (float32, host clock incl. "
-                  f"transfer): {rate:.1f} [{card}]", flush=True)
+            print(f"  {model_name} {name} encodes/s at bucket {bucket} "
+                  f"({'int8, bfloat16 activations' if quantized else 'float32'}, host clock "
+                  f"incl. transfer): {rate:.1f} [{card}]", flush=True)
         for name, route, payload in (("text", "/v1/embed/text", {"texts": CAPTIONS[:1]}),
                                      ("image", "/v1/embed/image",
                                       {"images_u8": images_u8[:1]})):
@@ -1078,8 +1256,8 @@ def build_model(torch, model_name, dtype, block_mlp=False, variational=None, mod
 
 
 def compare_paths(torch, mods, tally, card, model_name, n, steps, need, block_mlp=False,
-                  variational=None, model_kw=None, prepare=None, routing=None,
-                  **step_kw) -> dict:
+                  variational=None, model_kw=None, prepare=None, routing=None, code_flips=None,
+                  int8_reference=None, **step_kw) -> dict:
     """float32: ``steps`` steps through the kernels against the same from the same start
     with every kernel call routed to its plain version. ``variational`` (a
     ``VariationalConfig``) builds the variational model, ``model_kw`` goes to
@@ -1088,8 +1266,12 @@ def compare_paths(torch, mods, tally, card, model_name, n, steps, need, block_ml
     paths). ``routing`` (a ``RoutingRecorder``) records a MoE model's expert choices on both
     paths: a step whose choices differ in d > 0 of its decisions holds its loss to
     ``moe_loss_limit(d, tokens)`` and prints its grad norm and leaves without holding them.
-    Returns the kernel path's ``peak`` memory, the model's parameter count (``params``), the
-    optimizer state's bytes (``opt_bytes``), the kernel path's per-step ``metrics`` and the
+    ``code_flips`` (a ``CodeFlips``) counts an int8 model's flipped codes in the first two
+    steps; ``int8_reference`` (the float step's ``train_steps`` result from the same start)
+    widens an int8 model's limits by ``int8_limit``, the loss and grad norm of each step and
+    every leaf of step 1 by its own int8-vs-float distance. Returns the kernel path's
+    ``peak`` memory, the model's parameter count (``params``), the optimizer state's bytes
+    (``opt_bytes``), the kernel path's per-step ``metrics``, samples/s (``rate``) and the
     ``model`` after the plain path's run."""
     model = build_model(torch, model_name, torch.float32, block_mlp, variational, model_kw,
                         prepare)
@@ -1106,8 +1288,12 @@ def compare_paths(torch, mods, tally, card, model_name, n, steps, need, block_ml
     def run(**kw):
         if routing is not None:
             routing.attach(model)
+        if code_flips is not None:
+            code_flips.attach()
         out = train_steps(torch, tally, model, batch, steps, grads_at=0, **kw, **step_kw)
         out["routes"] = routing.detach() if routing is not None else None
+        if code_flips is not None:
+            code_flips.detach()
         params = dict(model.named_parameters())
         moved = [k for k in frozen if not torch.equal(params[k], start[k])]
         if moved:
@@ -1127,7 +1313,10 @@ def compare_paths(torch, mods, tally, card, model_name, n, steps, need, block_ml
               f"grad_norm kernel={km['grad_norm']:.6f} plain={pm['grad_norm']:.6f} "
               f"launches { {k: v for k, v in k_run['counts'][i].items() if v} }"
               + (f" routing flips d={flips[i]} of {routing.decisions(k_run['routes'], i)}"
-                 if routing is not None else ""), flush=True)
+                 if routing is not None else "")
+              + (f" int8 code flips {code_flips.flips[i]} of {code_flips.codes[i]} "
+                 f"(share {code_flips.share(i):.3e})" if code_flips is not None else ""),
+              flush=True)
     print(f"  float32 losses kernel {[round(m['loss'], 7) for m in k_metrics]} plain "
           f"{[round(m['loss'], 7) for m in p_metrics]}", flush=True)
     rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)  # noqa: E731
@@ -1139,22 +1328,32 @@ def compare_paths(torch, mods, tally, card, model_name, n, steps, need, block_ml
     # sides, so the scale has a floor of 1e-3 x the largest gradient of the model
     k_grads, p_grads = k_run["grads"], p_run["grads"]
     g_max = max(g.abs().max() for g in p_grads.values())
-    leaf_rel = {n_: ((k_grads[n_] - g).abs().max() / torch.clamp(g.abs().max(), min=1e-3 * g_max))
-                for n_, g in p_grads.items()}
-    leaf_rel = {n_: v.item() for n_, v in leaf_rel.items()}
-    worst_leaf = max(leaf_rel, key=leaf_rel.get)
+    leaf_dist = lambda grads: {  # noqa: E731
+        n_: ((grads[n_] - g).abs().max() / torch.clamp(g.abs().max(), min=1e-3 * g_max)).item()
+        for n_, g in p_grads.items()}
+    leaf_rel = leaf_dist(k_grads)
     loss_lim = [moe_loss_limit(d, tokens) for d in flips]
+    norm_lim, leaf_lim = [1e-4, 1e-4], dict.fromkeys(leaf_rel, 1e-3)
+    if int8_reference is not None:
+        ref = int8_reference["metrics"]
+        loss_lim = [int8_limit(lim, rel(k_metrics[i]["loss"], ref[i]["loss"]))
+                    for i, lim in enumerate(loss_lim)]
+        norm_lim = [int8_limit(1e-4, rel(k_metrics[i]["grad_norm"], ref[i]["grad_norm"]))
+                    for i in range(2)]
+        leaf_lim = {n_: int8_limit(1e-3, v) for n_, v in leaf_dist(int8_reference["grads"]).items()}
+    worst_leaf = max(leaf_rel, key=lambda n_: leaf_rel[n_] / leaf_lim[n_])
     print(f"  float32 kernel vs plain: loss rel diff {max(loss_rel):.3e} (need <= "
           f"{'/'.join(f'{v:.3e}' for v in loss_lim)}), grad norm rel diff {max(norm_rel):.3e} "
-          f"(need <= 1e-4), worst grad leaf {worst_leaf} {leaf_rel[worst_leaf]:.3e} x max|leaf| "
-          f"(need <= 1e-3){' (printed, not held: routing flips at step 1)' if flips[0] else ''}"
+          f"(need <= {'/'.join(f'{v:.3e}' for v in norm_lim)}), worst grad leaf {worst_leaf} "
+          f"{leaf_rel[worst_leaf]:.3e} x max|leaf| (need <= {leaf_lim[worst_leaf]:.3e})"
+          f"{' (printed, not held: routing flips at step 1)' if flips[0] else ''}"
           f"{' (step 2 grad norm printed, not held)' if flips[1] else ''}; launches per step "
           f"need {need}", flush=True)
     if not all(np.isfinite([m[k] for m in k_metrics + p_metrics for k in m])):
         fail("non-finite float32 loss or grad norm")
-    held_norm = [r for r, d in zip(norm_rel, flips) if d == 0]
-    if (any(r > lim for r, lim in zip(loss_rel, loss_lim)) or any(r > 1e-4 for r in held_norm)
-            or (flips[0] == 0 and leaf_rel[worst_leaf] > 1e-3)):
+    held_norm = [(r, lim) for r, lim, d in zip(norm_rel, norm_lim, flips) if d == 0]
+    if (any(r > lim for r, lim in zip(loss_rel, loss_lim)) or any(r > lim for r, lim in held_norm)
+            or (flips[0] == 0 and leaf_rel[worst_leaf] > leaf_lim[worst_leaf])):
         fail("the float32 kernel path disagrees with the plain path")
     check_launches(k_run["counts"], need, f"{model_name} float32 kernel path")
     check_launches(p_run["counts"], {}, f"{model_name} float32 plain path")
@@ -1164,7 +1363,61 @@ def compare_paths(torch, mods, tally, card, model_name, n, steps, need, block_ml
           f"{k_run['peak'] / 2**30:.2f} GiB, plain {p_run['peak'] / 2**30:.2f} GiB [{card}]",
           flush=True)
     return {"peak": k_run["peak"], "params": sum(p.numel() for p in model.parameters()),
-            "opt_bytes": k_run["opt_bytes"], "metrics": k_metrics, "model": model}
+            "opt_bytes": k_run["opt_bytes"], "metrics": k_metrics, "model": model,
+            "rate": k_rate}
+
+
+class CodeFlips:
+    """The int8 codes of every quantize call of a run's first ``steps`` steps (``per_step``
+    calls a step, in the port's fixed order), kept on the card from the kernel path's run and
+    compared call by call in the plain path's: an ulp upstream (the block kernels against
+    their plain versions) that moves a value across a code's midpoint flips the code, and the
+    flip moves its element by 1/127 of its row's largest magnitude, so flips cascade through
+    the blocks (printed as a count and a share of the step's codes)."""
+
+    def __init__(self, q, per_step: int, steps: int = 2):
+        self.q, self.per_step, self.steps = q, per_step, steps
+        self.kept, self.flips, self.codes, self.calls, self.inner = [], [], [], 0, None
+
+    def attach(self):
+        """Wrap the current ``quantize_rows`` (the kernel's, or inside ``plain_attention`` the
+        plain version's): the first run keeps its codes, the second compares with them."""
+        self.inner, self.calls = self.q.quantize_rows, 0
+        compare = bool(self.kept)
+        if compare:
+            self.flips, self.codes = [0] * self.steps, [0] * self.steps
+
+        def recorded(x, form="reciprocal"):
+            codes, scale = self.inner(x, form)
+            step = self.calls // self.per_step
+            if step < self.steps:
+                if compare:
+                    self.flips[step] += int((codes != self.kept[self.calls]).sum())
+                    self.codes[step] += codes.numel()
+                else:
+                    self.kept.append(codes.clone())
+            self.calls += 1
+            return codes, scale
+
+        self.q.quantize_rows = recorded
+
+    def detach(self):
+        self.q.quantize_rows = self.inner
+        if self.codes:
+            self.kept = []
+
+    def share(self, step: int) -> float:
+        return self.flips[step] / self.codes[step] if self.codes else 0.0
+
+
+def int8_limit(base: float, int8_vs_float: float) -> float:
+    """A float32 int8 step's limit, kernel path against plain path: phase 6's ``base`` plus
+    ``INT8_SPREAD`` times the same quantity's distance between the int8 step and the float
+    step from the same start (the size of the int8 rounding itself). The codes' flips cascade
+    (a fifth of them flip by the last block of a 12-block tower), so at worst the two paths
+    hold two independent roundings of every value, whose difference is ~sqrt(2) times one
+    rounding's."""
+    return base + INT8_SPREAD * int8_vs_float
 
 
 def moe_loss_limit(flips: int, tokens: int) -> float:
@@ -1221,11 +1474,11 @@ def routing_flips(a: list, b: list) -> int:
 
 def kernel_path_run(torch, tally, card, model_name, dtype, n, steps, need, falling=False,
                     block_mlp=False, variational=None, model_kw=None, prepare=None,
-                    **step_kw) -> list:
+                    stats=None, **step_kw) -> list:
     """``steps`` steps on the kernel path alone: finite (and with ``falling`` a loss that
-    falls on the fixed batch), the launch counts, samples/s and peak memory. ``variational``,
-    ``model_kw``, ``prepare`` and ``step_kw`` as in ``compare_paths``. Returns the per-step
-    metrics."""
+    falls on the fixed batch), the launch counts, samples/s and peak memory (also put into
+    ``stats``, a dict, as ``rate`` and ``peak``). ``variational``, ``model_kw``, ``prepare``
+    and ``step_kw`` as in ``compare_paths``. Returns the per-step metrics."""
     name = str(dtype).replace("torch.", "")
     model = build_model(torch, model_name, dtype, block_mlp, variational, model_kw, prepare)
     model_name = model_label(model_name, block_mlp, variational, model_kw)
@@ -1236,9 +1489,11 @@ def kernel_path_run(torch, tally, card, model_name, dtype, n, steps, need, falli
     norms = [m["grad_norm"] for m in metrics]
     print(f"  {name} losses {[round(v, 7) for v in losses]} grad norms "
           f"{[round(v, 4) for v in norms]}", flush=True)
+    rate = (steps - 1) * n / run["time"]
+    if stats is not None:
+        stats.update(rate=rate, peak=run["peak"])
     print(f"  {model_name} {name} train samples/s at B={n} (steps 2-{steps}, host clock): "
-          f"{(steps - 1) * n / run['time']:.1f}; peak memory {run['peak'] / 2**30:.2f} GiB "
-          f"[{card}]", flush=True)
+          f"{rate:.1f}; peak memory {run['peak'] / 2**30:.2f} GiB [{card}]", flush=True)
     if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
         fail(f"non-finite {name} loss or grad norm")
     if falling and not losses[-1] < losses[0]:
@@ -1479,6 +1734,52 @@ def phase_hires(torch, mods, tally, card):
                     falling=True, model_kw=HIRES)
 
 
+def phase_int8(torch, mods, tally, card, kind, float_rate: float):
+    """ViT-B/32 at full width and depth built with ``int8_forward=True``, B=256: every dense
+    MLP of both towers on the SwitchBack GEMMs (the row-quantize and rescale kernels around
+    ``torch._int_mm``), the block-attention kernels as in phase 6. float32 kernel path against
+    plain path, the flipped codes counted (``CodeFlips``) and the limits widened by
+    ``int8_limit``; then bfloat16 in turns with the bfloat16 step without int8 (A, B, B, A, A,
+    B), each 6 steps, finite and falling: samples/s over
+    steps 2-6 and peak memory, the A/B; then the W8A8 encoders (``--quantized``) behind the
+    HTTP server, held to the float32 encode (cosine > 0.99) and to the plain-version encode
+    (cosine >= 0.9999), their encodes/s at bucket 256 and single-request p50."""
+    float_need = {"block_attention_fwd": 24, "block_attention_bwd": 24}
+    # the float step from the same start (phase 6's kernel path, 2 steps): how far the int8
+    # rounding itself moves each held quantity, the measure of ``int8_limit``
+    model = build_model(torch, MODEL, torch.float32)
+    reference = train_steps(torch, tally, model, make_batch(torch, model.cfg, TRAIN_BATCH), 2,
+                            grads_at=0, count=False)
+    del model
+    code_flips = CodeFlips(mods["q"], per_step=INT8_NEED["quantize_rows"])
+    res = compare_paths(torch, mods, tally, card, MODEL, TRAIN_BATCH, TRAIN_STEPS, INT8_NEED,
+                        model_kw=INT8, code_flips=code_flips, int8_reference=reference)
+    del reference
+    print(f"  float32 int8 vs phase 6's float32 kernel path in this call: {res['rate']:.1f} vs "
+          f"{float_rate:.1f} samples/s ({res['rate'] / float_rate:.3f}x) [{card}]", flush=True)
+    del res
+    torch.cuda.empty_cache()
+    arms = {"bfloat16": [], "bfloat16 int8": []}
+    for i in range(2 * AB_RUNS):  # A, B, B, A, A, B
+        arm = list(arms)[(i + i // 2) % 2]
+        stats = {}
+        int8 = arm.endswith("int8")
+        kernel_path_run(torch, tally, card, MODEL, torch.bfloat16, TRAIN_BATCH, TRAIN_STEPS,
+                        INT8_NEED if int8 else float_need, falling=True,
+                        model_kw=INT8 if int8 else None, stats=stats)
+        arms[arm].append(stats)
+    mean = {arm: float(np.mean([r["rate"] for r in runs])) for arm, runs in arms.items()}
+    peak = {arm: max(r["peak"] for r in runs) / 2**30 for arm, runs in arms.items()}
+    print(f"  A/B bfloat16 B={TRAIN_BATCH}, in turns: int8 {mean['bfloat16 int8']:.1f} "
+          f"({', '.join(f'{r['rate']:.1f}' for r in arms['bfloat16 int8'])}) vs without int8 "
+          f"{mean['bfloat16']:.1f} ({', '.join(f'{r['rate']:.1f}' for r in arms['bfloat16'])}) "
+          f"samples/s: {mean['bfloat16 int8'] / mean['bfloat16']:.3f}x; peak memory "
+          f"{peak['bfloat16 int8']:.2f} vs {peak['bfloat16']:.2f} GiB [{card}]", flush=True)
+    per_encode = {"quantize_rows": 73, "int8_rescale": 73}  # 12 blocks x 6 products + 1
+    phase_serving(torch, mods, tally, card, kind, MODEL, need_text=per_encode,
+                  need_image=per_encode, quantized=True)
+
+
 def main() -> int:
     import torch
 
@@ -1499,8 +1800,10 @@ def main() -> int:
     from multimodal_tpu_torch.ops import block_mlp as bm
     from multimodal_tpu_torch.ops import flash_attention as fl
     from multimodal_tpu_torch.ops import fused_attention as fa
+    from multimodal_tpu_torch.ops import quant as q
 
-    mods = {"ba": ba, "fa": fa, "bm": bm, "fl": fl, "layers": layers, "attention": attention}
+    mods = {"ba": ba, "fa": fa, "bm": bm, "fl": fl, "q": q, "layers": layers,
+            "attention": attention}
     tally = Tally(launches)
 
     t0 = time.perf_counter()
@@ -1529,6 +1832,9 @@ def main() -> int:
     kernels["worst_f32"]["flash_attention_fwd"] = max(kernels["worst_f32"]["flash_attention_fwd"],
                                                       err)
     flash_crossover(torch, attention.attention, card)
+    int8_kernels = phase_quant_kernels(torch, q)
+    for part in ("worst_f32", "timing"):
+        kernels[part].update(int8_kernels[part])
 
     print("phase 4 serving, phase 5 throughput", flush=True)
     phase_serving(torch, mods, tally, card, kind, MODEL,
@@ -1536,8 +1842,9 @@ def main() -> int:
 
     print("phase 6 training", flush=True)
     need = {"block_attention_fwd": 24, "block_attention_bwd": 24}
-    full_opt_bytes = compare_paths(torch, mods, tally, card, MODEL, TRAIN_BATCH, TRAIN_STEPS,
-                                   need)["opt_bytes"]
+    res = compare_paths(torch, mods, tally, card, MODEL, TRAIN_BATCH, TRAIN_STEPS, need)
+    full_opt_bytes, float_rate = res["opt_bytes"], res["rate"]
+    del res
     torch.cuda.empty_cache()
     kernel_path_run(torch, tally, card, MODEL, torch.bfloat16, TRAIN_BATCH, TRAIN_STEPS, need,
                     falling=True)
@@ -1647,6 +1954,10 @@ def main() -> int:
     print(f"  {MODEL} with force_image_size={HIRES['force_image_size']}: vision S=145 through "
           "the LN-fold kernels", flush=True)
     phase_hires(torch, mods, tally, card)
+
+    print(f"phase 12 int8: {MODEL} at full width and depth with int8_forward=True, and the W8A8 "
+          "encoders", flush=True)
+    phase_int8(torch, mods, tally, card, kind, float_rate)
 
     entries = []
     for name, (source, replaces, case) in KERNELS.items():

@@ -1,10 +1,12 @@
 """Batch embedding extraction — the serving-side encode API (port of
-``multimodal_tpu/inference.py:Embedder``, without the int8 and wire-size paths).
+``multimodal_tpu/inference.py:Embedder``, without the wire-size path).
 
 Every encode runs in eval mode (``model_mode``: the reference encodes with ``train=False``)
 under ``torch.inference_mode()`` on the model's device and returns L2-normalized float32
 rows; the model's own mode comes back afterwards. uint8 images cross to the device as uint8
-and are normalized there."""
+and are normalized there. ``quantized=True`` converts the model's weights to int8 once
+(``inference_quant.quantize_clip_params``) and encodes every batch through the W8A8 encoders
+instead of the model."""
 
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 
 from multimodal_tpu_torch.data.preprocess import normalize_images
 from multimodal_tpu_torch.data.tokenizer import tokenize
+from multimodal_tpu_torch.inference_quant import encode_image_q, encode_text_q, quantize_clip_params
 
 
 @contextlib.contextmanager
@@ -32,17 +35,25 @@ def model_mode(model: torch.nn.Module, training: bool):
 
 
 class Embedder:
-    """Fixed-batch text/image embedding over a ``CLIP`` model."""
+    """Fixed-batch text/image embedding over a ``CLIP`` model; with ``quantized=True`` over
+    its int8 weights, converted once here (the model must be one the quantized encoders take,
+    else ``ValueError``)."""
 
-    def __init__(self, model, batch_size: int = 256):
+    def __init__(self, model, batch_size: int = 256, quantized: bool = False):
         self.model = model
         self.batch_size = batch_size
         self.device = next(model.parameters()).device
+        self.qparams = None  # the int8 weights, with quantized=True
+        if quantized:
+            with torch.inference_mode():
+                self.qparams = quantize_clip_params(model)
 
     def encode_tokens(self, tokens: np.ndarray) -> np.ndarray:
         """One device batch of int tokens [B, context_length] -> float32 [B, embed_dim]."""
         with model_mode(self.model, False), torch.inference_mode():
             t = torch.from_numpy(np.asarray(tokens, np.int64)).to(self.device)
+            if self.qparams is not None:
+                return encode_text_q(self.qparams, self.model.cfg, t).cpu().numpy()
             return self.model.encode_text(t, normalize=True).cpu().numpy()
 
     def encode_images(self, images: np.ndarray) -> np.ndarray:
@@ -51,6 +62,8 @@ class Embedder:
             x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
             if x.dtype == torch.uint8:
                 x = normalize_images(x)
+            if self.qparams is not None:
+                return encode_image_q(self.qparams, self.model.cfg, x).cpu().numpy()
             return self.model.encode_image(x, normalize=True).cpu().numpy()
 
     def _batched(self, encode, array: np.ndarray) -> np.ndarray:

@@ -25,8 +25,9 @@ parameters: the CLS / EOT rows feed the mean heads, the last row the concentrati
 trunks; ``vision.moe_experts`` makes every ``moe_every``-th block of a two-tower ``CLIP``'s
 vision trunk a MoE block (the shared trunk and ``VariationalCLIP`` build none, as in the
 reference); ``cfg.logit_bias_init`` gives ``CLIP`` the SigLIP head's ``logit_bias`` scalar,
-returned beside ``logit_scale`` (``VariationalCLIP`` builds none). Not ported yet, and refused
-by both models: ``int8_forward`` (the SwitchBack int8 MLP, ROADMAP Queue 1 item 4).
+returned beside ``logit_scale`` (``VariationalCLIP`` builds none). ``cfg.int8_forward`` puts
+every dense MLP of both models' trunks (the shared trunk too; a MoE block's stays float) on
+the SwitchBack int8 GEMMs (``ops.quant.int8_dense_train``).
 """
 
 from __future__ import annotations
@@ -136,12 +137,6 @@ def eot_pool(x: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return x[torch.arange(x.shape[0], device=x.device), idx]
 
 
-def _check_supported(c: CLIPConfig):
-    if c.int8_forward:
-        raise NotImplementedError("int8_forward (the SwitchBack int8 MLP) is not ported yet "
-                                  "(ROADMAP Queue 1 item 4)")
-
-
 class CLIP(nn.Module):
     """Two-tower CLIP, or the shared-trunk model when ``cfg.share_trunk``: ``encode_image``
     (NHWC float images), ``encode_text`` (int tokens). ``block_mlp`` (off by default, as in
@@ -150,12 +145,12 @@ class CLIP(nn.Module):
     def __init__(self, cfg: CLIPConfig, dtype: torch.dtype = torch.float32,
                  block_mlp: bool = False):
         super().__init__()
-        _check_supported(cfg)
         self.cfg, self.dtype = cfg, dtype
         v, t = cfg.vision, cfg.text
         act = resolve_act(cfg.act)
         trunk = dict(act=act, dtype=dtype, remat=cfg.remat, block_mlp=block_mlp,
-                     lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha)
+                     lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha,
+                     int8_fwd=cfg.int8_forward)
         self.visual_stem = VisionStem(v.width, v.patch_size, v.image_size, dtype=dtype,
                                       patch_dropout=v.patch_dropout)
         self.text_stem = TextStem(t.width, t.vocab_size, t.context_length, dtype=dtype)
@@ -258,19 +253,19 @@ class VariationalCLIP(nn.Module):
     both towers; the CLS / EOT row goes through ``ln_post`` / ``ln_final`` to the mean head,
     the concentration token's row to the concentration head, whose log-space value has a
     learned global offset and is clamped (``_concentration``). The trunks take ``remat``,
-    ``act`` and the LoRA adapters from the config and nothing else of its tower options, as
-    in the reference; there is no patch dropout, no MoE and no ``logit_bias``."""
+    ``act``, ``int8_forward`` and the LoRA adapters from the config and nothing else of its
+    tower options, as in the reference; there is no patch dropout, no MoE and no ``logit_bias``."""
 
     def __init__(self, cfg: CLIPConfig, vcfg: VariationalConfig = VariationalConfig(),
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        _check_supported(cfg)
         if vcfg.model_type not in ("Spherical", "Gaussian"):
             raise ValueError(f"unknown VariationalConfig.model_type {vcfg.model_type!r}")
         self.cfg, self.vcfg, self.dtype = cfg, vcfg, dtype
         v, t = cfg.vision, cfg.text
         trunk = dict(act=resolve_act(cfg.act), dtype=dtype, remat=cfg.remat,
-                     lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha)
+                     lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha,
+                     int8_fwd=cfg.int8_forward)
         self.visual_stem = VisionStem(v.width, v.patch_size, v.image_size, dtype=dtype,
                                       extra_tokens=1)
         self.text_stem = TextStem(t.width, t.vocab_size, t.context_length, dtype=dtype,

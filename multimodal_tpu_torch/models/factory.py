@@ -63,8 +63,8 @@ def create_model(name: str, variational: bool = False, vcfg: VariationalConfig |
 
     ``options`` are the reference factory's config options, by the same names
     (``model_config``): ``remat``, ``patch_dropout``, ``force_quick_gelu``, ``siglip``,
-    ``lora_rank``, ``lora_alpha``, ``int8_forward`` (not ported yet: the model raises
-    ``NotImplementedError``, ROADMAP Queue 1 item 4) and ``force_image_size``."""
+    ``lora_rank``, ``lora_alpha``, ``int8_forward`` (every dense MLP on the SwitchBack int8
+    GEMMs) and ``force_image_size``."""
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"create_model({name!r}, device={str(device)!r}): no CUDA device is available; "

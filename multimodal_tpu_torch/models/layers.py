@@ -6,7 +6,8 @@ Dense weights keep the JAX ``[in, out]`` layout, which is also what the block-at
 and block-MLP kernels read. Initialization takes an explicit ``torch.Generator``
 (``init_weights``). With ``lora_rank`` > 0 every attention and MLP projection carries a
 low-rank adapter that is folded into its kernel at use (``Dense.cast``), so the kernels still
-see one weight; a ``moe_experts`` block swaps its MLP for ``models.moe.MoEMLP``.
+see one weight; a ``moe_experts`` block swaps its MLP for ``models.moe.MoEMLP``; ``int8_fwd``
+runs the dense MLP's two products on the SwitchBack int8 GEMM (``ops.quant``).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from multimodal_tpu_torch.ops.block_attention import (
     ln_rows,
 )
 from multimodal_tpu_torch.ops.block_mlp import block_mlp, block_mlp_supported
+from multimodal_tpu_torch.ops.quant import int8_dense_train
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -193,16 +195,20 @@ class MLP(nn.Module):
     """c_fc, activation, c_proj. With ``block_mlp`` (opt-in, as in the reference) and the
     pre-LN hand-off, a supported shape runs as the fused operator ``ops.block_mlp`` (on a
     CUDA tensor the hand-written kernels): LayerNorm, both products, the activation and the
-    residual add in one differentiable call."""
+    residual add in one differentiable call. With ``int8_fwd`` both products are the
+    SwitchBack int8 GEMM (``ops.quant.int8_dense_train``) on the float32 weights, each bias
+    added as the reference's jitted ``int8_dense_train(x, w) + b`` adds it; it never takes
+    the fused operator, whose products are not int8."""
 
     def __init__(self, width: int, expansion: float = 4.0, act=quick_gelu,
                  dtype: torch.dtype = torch.float32, depth: int = 12, block_mlp: bool = False,
-                 lora_rank: int = 0, lora_alpha: float = 16.0):
+                 lora_rank: int = 0, lora_alpha: float = 16.0, int8_fwd: bool = False):
         super().__init__()
         self.width, self.hidden = width, int(width * expansion)
         self.act = act
         self.dtype = dtype
         self.block_mlp = block_mlp
+        self.int8_fwd = int8_fwd
         lora = dict(lora_rank=lora_rank, lora_alpha=lora_alpha)
         self.c_fc = Dense(width, self.hidden, (2 * width) ** -0.5, **lora)
         self.c_proj = Dense(self.hidden, width, (width ** -0.5) * ((2 * depth) ** -0.5), **lora)
@@ -212,18 +218,22 @@ class MLP(nn.Module):
         returns x + mlp(LN(x))."""
         if residual and ln_params is None:
             raise ValueError("residual=True requires ln_params (the pre-LN handoff)")
-        w1, b1 = self.c_fc.cast(self.dtype)
-        w2, b2 = self.c_proj.cast(self.dtype)
         act_name = ("quick_gelu" if self.act is quick_gelu else "gelu" if self.act is gelu
                     else None)
-        if (self.block_mlp and ln_params is not None
+        if (self.block_mlp and not self.int8_fwd and ln_params is not None
                 and block_mlp_supported(self.width, self.hidden, act_name)):
+            (w1, b1), (w2, b2) = self.c_fc.cast(self.dtype), self.c_proj.cast(self.dtype)
             return block_mlp(x, w1, b1, w2, b2, ln_scale=ln_params[0], ln_bias=ln_params[1],
                              act=act_name, residual=residual)
         x_in = x
         if ln_params is not None:
             x = ln_rows(x, ln_params[0], ln_params[1], LN_EPS)
-        y = self.act(x @ w1 + b1) @ w2 + b2
+        if self.int8_fwd:
+            h = int8_dense_train(x, self.c_fc.weight(), self.c_fc.bias)
+            y = int8_dense_train(self.act(h), self.c_proj.weight(), self.c_proj.bias)
+        else:
+            (w1, b1), (w2, b2) = self.c_fc.cast(self.dtype), self.c_proj.cast(self.dtype)
+            y = self.act(x @ w1 + b1) @ w2 + b2
         return x_in + y if residual else y
 
 
@@ -300,14 +310,15 @@ class ResidualBlock(nn.Module):
     its ``LayerScale`` before the add, so both adds happen here: the attention still takes
     the ln_1 hand-off (without its residual), the MLP runs behind a plain ln_2 and never
     reaches the fused operator. With ``moe_experts`` > 0 the MLP is a ``MoEMLP``
-    (``moe_mlp``), behind a plain ln_2 with the add here, and never the fused operator."""
+    (``moe_mlp``), behind a plain ln_2 with the add here, and never the fused operator.
+    ``int8_fwd`` goes to the dense MLP alone, as in the reference: a MoE MLP stays float."""
 
     def __init__(self, width: int, heads: int, mlp_ratio: float = 4.0, causal: bool = False,
                  act=quick_gelu, dtype: torch.dtype = torch.float32, depth: int = 12,
                  scale_heads: bool = False, ls_init_value: float | None = None,
                  block_mlp: bool = False, scaled_cosine: bool = False, moe_experts: int = 0,
                  moe_top_k: int = 1, moe_capacity_factor: float = 1.25, lora_rank: int = 0,
-                 lora_alpha: float = 16.0):
+                 lora_alpha: float = 16.0, int8_fwd: bool = False):
         super().__init__()
         lora = dict(lora_rank=lora_rank, lora_alpha=lora_alpha)
         self.ln_1 = LayerNorm(width)
@@ -324,7 +335,7 @@ class ResidualBlock(nn.Module):
                                   capacity_factor=moe_capacity_factor)
         else:
             self.mlp = MLP(width, mlp_ratio, act=act, dtype=dtype, depth=depth,
-                           block_mlp=block_mlp, **lora)
+                           block_mlp=block_mlp, int8_fwd=int8_fwd, **lora)
         scaled = ls_init_value is not None
         self.ls_1 = LayerScale(width, ls_init_value) if scaled else None
         self.ls_2 = LayerScale(width, ls_init_value) if scaled else None
@@ -346,7 +357,8 @@ class ResidualBlock(nn.Module):
 class Transformer(nn.Module):
     """A stack of residual blocks. With ``remat`` every block is checkpointed in training:
     its forward keeps only its input and runs again inside the backward. With
-    ``moe_experts`` > 0 block i is a MoE block where ``i % moe_every == moe_every - 1``."""
+    ``moe_experts`` > 0 block i is a MoE block where ``i % moe_every == moe_every - 1``.
+    ``int8_fwd`` puts every dense MLP on the SwitchBack int8 GEMMs."""
 
     def __init__(self, width: int, layers: int, heads: int, mlp_ratio: float = 4.0,
                  causal: bool = False, act=quick_gelu, dtype: torch.dtype = torch.float32,
@@ -354,7 +366,7 @@ class Transformer(nn.Module):
                  remat: bool = False, block_mlp: bool = False, scaled_cosine: bool = False,
                  moe_experts: int = 0, moe_every: int = 2, moe_top_k: int = 1,
                  moe_capacity_factor: float = 1.25, lora_rank: int = 0,
-                 lora_alpha: float = 16.0):
+                 lora_alpha: float = 16.0, int8_fwd: bool = False):
         super().__init__()
         self.remat = remat
         self.resblocks = nn.ModuleList(
@@ -363,7 +375,7 @@ class Transformer(nn.Module):
                           block_mlp=block_mlp, scaled_cosine=scaled_cosine,
                           moe_experts=moe_experts if i % moe_every == moe_every - 1 else 0,
                           moe_top_k=moe_top_k, moe_capacity_factor=moe_capacity_factor,
-                          lora_rank=lora_rank, lora_alpha=lora_alpha)
+                          lora_rank=lora_rank, lora_alpha=lora_alpha, int8_fwd=int8_fwd)
             for i in range(layers)
         )
 

@@ -26,7 +26,7 @@ import threading
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = tuple(os.path.join(_HERE, "csrc", name) for name in (
     "block_attention_fwd.cu", "block_attention_bwd.cu", "fused_attention.cu", "block_mlp.cu",
-    "flash_attention.cu"))
+    "flash_attention.cu", "quant.cu"))
 HEADERS = tuple(os.path.join(_HERE, "csrc", name) for name in (
     "block_attention_common.cuh", "attention_passes.cuh", "mma_tiles.cuh", "register_tiles.cuh",
     "tf32_tiles.cuh", "mma_gemm.cuh"))
@@ -117,6 +117,8 @@ def load() -> ctypes.CDLL:
                 "mmt_block_mlp_fwd": [i32] + [ptr] * 11 + [i32] * 5 + [f32, ptr],
                 "mmt_block_mlp_bwd": [i32] + [ptr] * 16 + [i32] * 6 + [f32, ptr],
                 "mmt_block_mlp_db1_partial_rows": [i32],
+                "mmt_quantize_rows": [i32] + [ptr] * 3 + [i32] * 3 + [ptr],
+                "mmt_int8_rescale": [i32] + [ptr] * 5 + [i32] * 2 + [ptr],
             }
             for name, argtypes in entries.items():
                 getattr(lib, name).argtypes = argtypes

@@ -7,15 +7,17 @@ Builds the model with seeded weights on the GPU, runs a few warm steps of
 ``torch.profiler`` and sums the CUDA kernels' device time per step into families: the
 hand-written kernels by name, cuBLAS GEMMs, elementwise passes, reductions, copies. Prints
 the card's name and power limit, the table, the device total and the host wall time per
-step (their ratio is the device's busy share), and the three largest kernels that no family
-claims. ``--scale-heads`` turns on
+step (their ratio is the device's busy share), the three largest kernels that no family
+claims and the eight largest library GEMM kernels by name. ``--scale-heads`` turns on
 ``vision.scale_heads``, which sends the vision pass through the fused attention pair.
 ``--ln-fold-min-seq N`` moves the sequence length above which the block operator folds the
 LayerNorm and the residual into its kernels (0: every call folds; 320: none does), to
 measure one step either way. ``--block-mlp`` builds the model with ``block_mlp=True``, so
 that every block's MLP half runs the fused operator's kernels; ``--remat`` checkpoints every
-block. ``--context-length N`` sets the text tower's context length (from 2048 up every text
-block runs the flash-attention kernels):
+block; ``--int8`` builds it with ``int8_forward=True`` (every dense MLP on the SwitchBack
+int8 GEMMs: the row-quantize and rescale kernels around cuBLASLt's int8 product).
+``--context-length N`` sets the text tower's context length (from 2048 up every text block
+runs the flash-attention kernels):
 
     python -m multimodal_tpu_torch.profile_step --model ViT-B-32 --context-length 2048 --batch 8
 """
@@ -62,6 +64,9 @@ FAMILIES = [  # (family, substrings of the kernel name), first match wins
     ("LN-fold launches (ln_stats, ln_rows, ln_bwd)", ("ln_stats_kernel", "ln_rows_kernel",
                                                       "ln_bwd_kernel")),
     ("tensor-core GEMM, template arguments not read (mma_gemm_kernel)", ("mma_gemm_kernel",)),
+    ("int8 row quantize (quantize_rows_kernel)", ("quantize_rows_kernel",)),
+    ("int8 rescale (int8_rescale_kernel)", ("int8_rescale_kernel",)),
+    ("cuBLASLt int8 GEMMs (torch._int_mm)", ("imma", "i8i8", "i8i32", "s8s8", "igemm", "int8")),
     ("cuBLAS GEMMs (MLP, patch embed, projections, weight gradients)",
      ("gemm", "cutlass", "cublas", "xmma", "gemv", "nvjet")),
     ("reductions", ("reduce",)),
@@ -96,6 +101,7 @@ def main():
     ap.add_argument("--block-mlp", action="store_true")
     ap.add_argument("--remat", action="store_true")
     ap.add_argument("--context-length", type=int, default=None)
+    ap.add_argument("--int8", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs an NVIDIA GPU (there is no CPU fallback)")
@@ -125,7 +131,7 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     model = create_model(name, dtype=getattr(torch, args.dtype), seed=0,
-                         block_mlp=args.block_mlp)
+                         block_mlp=args.block_mlp, int8_forward=args.int8)
     c = model.cfg
     rng = np.random.default_rng(0)
     batch = {
@@ -165,17 +171,20 @@ def main():
             continue  # the optimizer's range on the device repeats its kernels' time
         fam = family_of(ev.key)
         by_family[fam] = by_family.get(fam, 0.0) + device_us / 1e3 / args.steps
-        if fam == "other":
+        if fam == "other" or fam.startswith("cuBLAS"):
             unnamed[ev.key] = unnamed.get(ev.key, 0.0) + device_us / 1e3 / args.steps
     total = sum(by_family.values())
-    print(f"{name} {args.dtype} B={args.batch} block_mlp={args.block_mlp} "
+    print(f"{name} {args.dtype} B={args.batch} block_mlp={args.block_mlp} int8={args.int8} "
           f"LN fold above S={block_attention.LN_FOLD_MIN_SEQ}: "
           f"device time per train step by kernel family "
           f"(torch.profiler over {args.steps} steps after {args.warmup} warm ones) [{card}]")
     for fam, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
         print(f"  {ms:10.3f} ms  {100 * ms / total:5.1f}%  {fam}")
-    for key, ms in sorted(unnamed.items(), key=lambda kv: -kv[1])[:3]:
-        print(f"    other: {ms:10.3f} ms  {key[:100]}")
+    for label, pick in (("other", lambda k: family_of(k) == "other"),
+                        ("cuBLAS", lambda k: family_of(k).startswith("cuBLAS"))):
+        picked = [(k, ms) for k, ms in unnamed.items() if pick(k)]
+        for key, ms in sorted(picked, key=lambda kv: -kv[1])[:3 if label == "other" else 8]:
+            print(f"    {label}: {ms:10.3f} ms  {key[:100]}")
     print(f"  device total {total:.3f} ms, host wall {wall_ms:.3f} ms per step "
           f"({args.batch * 1e3 / wall_ms:.1f} samples/s under the profiler); "
           f"kernel launches per step {counts}")

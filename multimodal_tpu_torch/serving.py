@@ -9,8 +9,9 @@ HTTP front end (port of ``multimodal_tpu/serving.py``).
 
 Routes: ``GET /healthz``, ``GET /v1/stats``, ``POST /v1/embed/text`` (``texts``),
 ``POST /v1/embed/image`` (``images_u8``), ``POST /v1/similarity`` (``texts`` +
-``images_u8``). A malformed request gets 400, an encode failure 500. JPEG payloads, the
-low-resolution wire format and the int8 path are not ported yet.
+``images_u8``). A malformed request gets 400, an encode failure 500. ``quantized=True``
+(``--quantized``) answers every route from the int8 W8A8 encoders (``inference_quant``).
+JPEG payloads and the low-resolution wire format are not ported yet.
 """
 
 from __future__ import annotations
@@ -176,11 +177,13 @@ class DynamicBatcher:
 
 class EmbeddingService:
     """Tokenization and payload checks on the caller's thread; device encodes funneled
-    through one DynamicBatcher per modality. Usable in-process or behind ``make_server``."""
+    through one DynamicBatcher per modality. Usable in-process or behind ``make_server``.
+    ``quantized=True`` encodes through the int8 encoders (``Embedder(quantized=True)``)."""
 
-    def __init__(self, model, max_batch: int = 256, max_wait_ms: float = 5.0):
+    def __init__(self, model, max_batch: int = 256, max_wait_ms: float = 5.0,
+                 quantized: bool = False):
         self.model = model
-        self._embedder = Embedder(model, batch_size=max_batch)
+        self._embedder = Embedder(model, batch_size=max_batch, quantized=quantized)
         self.device = self._embedder.device
         self.text_batcher = DynamicBatcher(self._embedder.encode_tokens,
                                            max_batch=max_batch, max_wait_ms=max_wait_ms)
@@ -345,6 +348,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--max-batch", type=int, default=256)
     ap.add_argument("--max-wait-ms", type=float, default=5.0)
+    ap.add_argument("--quantized", action="store_true", help="serve the int8 W8A8 path")
     args = ap.parse_args(argv)
 
     device = torch.device(args.device)
@@ -357,10 +361,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.state_dict:
         load_openai_state_dict(
             model, torch.load(args.state_dict, map_location="cpu", weights_only=True))
-    service = EmbeddingService(model, max_batch=args.max_batch, max_wait_ms=args.max_wait_ms)
+    service = EmbeddingService(model, max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+                               quantized=args.quantized)
     server = make_server(service, args.host, args.port)
-    log.info("serving %s on %s at http://%s:%d (max_batch=%d, wait=%.1fms)", args.model,
-             device, *server.server_address, args.max_batch, args.max_wait_ms)
+    log.info("serving %s%s on %s at http://%s:%d (max_batch=%d, wait=%.1fms)", args.model,
+             " (int8)" if args.quantized else "", device, *server.server_address,
+             args.max_batch, args.max_wait_ms)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -53,7 +53,7 @@ def test_phase3_holds_the_tile_edge_and_padded_head_cases():
     block_dims = {w // h for _, _, _, w, h, _ in cs.BLOCK_CASES}
     ln_dims = {w // h for _, _, _, w, h, _, _ in cs.LN_CASES}
     assert {80, 88} <= block_dims and {80, 88} <= ln_dims
-    assert len(cs.KERNELS) == 11
+    assert len(cs.KERNELS) == 13  # the eleven TPU-kernel counterparts and the two int8 kernels
 
 
 FLASH_DQ = ("_ZN57_GLOBAL__N__2b5bc54b_18_flash_attention_cu_e4f1a2b315flash_dq_kernelINS_7Tf32Ops"
@@ -223,11 +223,11 @@ def test_phase3_holds_the_flash_head_dims_and_the_text_towers_batch():
 def test_phase3_holds_the_variational_towers_shapes():
     """The variational ViT-B/32's towers: vision S=51 (CLS, 49 patches, the concentration
     token) and text S=78 causal, each timed at B=256 beside the library call and also at a
-    ragged B=3; the kernel line still lists all eleven kernels."""
+    ragged B=3; the kernel line still lists all eleven kernels, and the two int8 ones."""
     rows = {(case, b, s, w, h, causal) for case, b, s, w, h, causal in cs.BLOCK_CASES}
     assert {("vclip-vision", 256, 51, 768, 12, False), ("vclip-text", 256, 78, 512, 8, True),
             ("vclip-vision", 3, 51, 768, 12, False), ("vclip-text", 3, 78, 512, 8, True)} <= rows
-    assert len(cs.KERNELS) == 11
+    assert len(cs.KERNELS) == 13  # the eleven TPU-kernel counterparts and the two int8 kernels
 
 
 def test_variational_block_bounds():
@@ -372,3 +372,73 @@ def test_siglip_bfloat16_rule():
     assert ok and worst < 2e-3
     assert not cs.siglip_tracks([10.1337, 7.9338, 7.0376, 7.0547, 6.5606, 11.0], f32)[0]
     assert not cs.siglip_tracks([10.0, 10.2, 10.3], [10.0, 10.2, 10.3])[0]
+
+
+def test_phase3_holds_the_int8_shapes_of_the_b32_step():
+    """The row quantize at every activation and weight shape of the int8 ViT-B/32 step at
+    B=256 (the issue's table), the rescale at each product's output and the serving path's
+    biased c_fc and its projection; the kernels line names both kernels and what they
+    replace."""
+    acts = {(r, c) for _, r, c, w in cs.QUANT_CASES if not w}
+    assert acts == {(12800, 768), (12800, 3072), (19712, 512), (19712, 2048)}
+    weights = {(r, c) for _, r, c, w in cs.QUANT_CASES if w}
+    assert weights == {(3072, 768), (768, 3072), (2048, 512), (512, 2048)}
+    outs = {(m, n) for _, m, _, n, _, _ in cs.RESCALE_CASES}
+    assert {(12800, 3072), (12800, 768), (19712, 2048), (19712, 512), (256, 512)} <= outs
+    assert any(bias for *_, bias, _ in cs.RESCALE_CASES)
+    for name in ("quantize_rows", "int8_rescale"):
+        source, replaces, case = cs.KERNELS[name]
+        assert source.endswith("quant.cu") and "multimodal_tpu/ops/quant.py" in replaces
+        assert case in {c[0] for c in cs.QUANT_CASES + cs.RESCALE_CASES}
+
+
+def test_int8_kernel_bounds_are_bytes():
+    """Each input read once and each output written once at 3.35 TB/s: a float32 quantize of
+    [12800, 3072] moves 5 bytes an element and a scale a row; a float32 rescale 8 bytes an
+    element and its two scale vectors."""
+    ms, by, ops = cs.quant_bound("quantize_rows", 12800 * 3072, 4, 1, 12800, 3072)
+    assert by == "bytes" and ops == 4 * 12800 * 3072
+    assert ms == pytest.approx(1e3 * (5 * 12800 * 3072 + 4 * 12800) / cs.PEAK_BYTES)
+    ms, by, _ = cs.quant_bound("int8_rescale", 12800 * 3072, 0, 4, 12800, 3072, bias=True)
+    assert by == "bytes"
+    assert ms == pytest.approx(1e3 * (8 * 12800 * 3072 + 4 * 12800 + 8 * 3072) / cs.PEAK_BYTES)
+
+
+def test_phase12_launches_and_limits():
+    """48 dense layers a step (12 blocks a tower, 2 towers, c_fc and c_proj), each with 4 row
+    quantizes and 2 rescales; a limit widens by 3x the int8-vs-float distance and is phase
+    6's without int8."""
+    assert cs.INT8_NEED == {"block_attention_fwd": 24, "block_attention_bwd": 24,
+                            "quantize_rows": 48 * 4, "int8_rescale": 48 * 2}
+    assert cs.int8_limit(1e-4, 0.0) == 1e-4
+    assert cs.int8_limit(1e-5, 2e-5) == pytest.approx(1e-5 + cs.INT8_SPREAD * 2e-5)
+    order = [list(("A", "B"))[(i + i // 2) % 2] for i in range(2 * cs.AB_RUNS)]
+    assert order[:4] == ["A", "B", "B", "A"] and order.count("A") == order.count("B")
+
+
+def test_code_flips_counts_each_step_call_by_call():
+    """The first run keeps every call's codes of its first two steps; the second counts the
+    codes that differ, call by call, per step, and hands the module its function back."""
+    import types
+
+    import torch
+
+    state = {"bump": 0}
+
+    def quantize_rows(x, form="reciprocal"):
+        codes = torch.round(x).to(torch.int8)
+        codes[: state["bump"]] += 1
+        return codes, torch.ones(x.shape[0])
+
+    q = types.SimpleNamespace(quantize_rows=quantize_rows)
+    flips = cs.CodeFlips(q, per_step=2)
+    x = torch.zeros(4, 8)
+    for bump in (0, 1):
+        state["bump"] = bump
+        flips.attach()
+        for _ in range(5):  # 2 steps of 2 calls, then a third step, not kept
+            q.quantize_rows(x)
+        flips.detach()
+        assert q.quantize_rows is quantize_rows
+    assert flips.flips == [16, 16] and flips.codes == [64, 64]
+    assert flips.share(0) == 0.25 and flips.kept == []

@@ -20,6 +20,7 @@ from multimodal_tpu.models import init_params
 from multimodal_tpu.models.checkpoint_interop import export_torch_state_dict
 from multimodal_tpu_torch.models import create_model, load_openai_state_dict
 from multimodal_tpu_torch.models.clip import eot_pool
+from multimodal_tpu_torch.models.layers import MLP
 from multimodal_tpu_torch.ops.block_attention import block_attn_supported
 
 torch.set_num_threads(1)
@@ -161,8 +162,10 @@ def test_seeded_init_is_reproducible_and_unported_configs_raise():
     assert blocks[1].moe_mlp.w1.shape == (4, 64, 256)
     assert {n.split("moe_mlp.")[1] for n, _ in moe.named_parameters() if "moe_mlp" in n} == {
         "w1", "b1", "w2", "b2", "router.kernel", "router.bias"}
-    with pytest.raises(NotImplementedError, match="int8_forward"):
-        create_model("tiny-test", int8_forward=True, device="cpu")
+    # ported since the int8 slice: every dense MLP of both towers takes the int8 GEMMs
+    int8 = create_model("tiny-test", int8_forward=True, device="cpu")
+    mlps = [m for m in int8.modules() if isinstance(m, MLP)]
+    assert int8.cfg.int8_forward and len(mlps) == 4 and all(m.int8_fwd for m in mlps)
 
 
 def test_create_model_lands_on_the_card_unless_asked_for_the_cpu():

@@ -21,6 +21,7 @@ from multimodal_tpu.models.checkpoint_interop import resize_pos_embed as jax_res
 from multimodal_tpu_torch.models import create_model, load_jax_params, load_openai_state_dict
 from multimodal_tpu_torch.models.checkpoint_interop import jax_params_to_port, resize_pos_embed
 from multimodal_tpu_torch.models.factory import model_config
+from multimodal_tpu_torch.models.layers import MLP
 from torch_jax_models import batch, random_params
 
 torch.set_num_threads(1)
@@ -93,8 +94,11 @@ def test_force_image_size_off_the_patch_grid_raises():
 
 @pytest.mark.parametrize("variational", [False, True])
 def test_int8_forward_is_refused_naming_its_roadmap_item(variational):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        create_model("tiny-test", int8_forward=True, variational=variational, device="cpu")
+    """Refused until ROADMAP Queue 1 item 4 was ported; now ``int8_forward`` builds both
+    model kinds with every dense MLP on the int8 GEMMs, as the reference's factory does."""
+    model = create_model("tiny-test", int8_forward=True, variational=variational, device="cpu")
+    mlps = [m for m in model.modules() if isinstance(m, MLP)]
+    assert model.cfg.int8_forward and len(mlps) == 4 and all(m.int8_fwd for m in mlps)
 
 
 @pytest.mark.parametrize("old,new", [(7, 12), (12, 7), (2, 3), (3, 2)])

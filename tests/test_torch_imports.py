@@ -31,6 +31,7 @@ def test_port_imports_without_jax():
         "import multimodal_tpu_torch.models.config, multimodal_tpu_torch.models.lora\n"
         "import multimodal_tpu_torch.models.moe, multimodal_tpu_torch.losses.siglip_loss\n"
         "import multimodal_tpu_torch.train.freeze\n"
+        "import multimodal_tpu_torch.ops.quant, multimodal_tpu_torch.inference_quant\n"
         "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'multimodal_tpu'))\n"
         "assert not leaked, leaked\n"
@@ -70,6 +71,9 @@ def test_profile_step_sorts_kernels_into_families():
         "void (anonymous namespace)::ln_bwd_kernel<float, float>(...)": "LN-fold launches",
         gemm.format("float, float, 0, 0, 3"): "fused MLP forward c_proj",
         gemm.format("__nv_bfloat16, __nv_bfloat16, 0, 0, 3"): "fused MLP forward c_proj",
+        "void (anonymous namespace)::quantize_rows_kernel<float, true>(...)": "int8 row quantize",
+        "void (anonymous namespace)::int8_rescale_kernel<__nv_bfloat16, false>(...)":
+            "int8 rescale",
         "sm90_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize128x128x8": "cuBLAS",
         "nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NNT": "cuBLAS",
         "void at::native::vectorized_elementwise_kernel<4, ...>": "elementwise",

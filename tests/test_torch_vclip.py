@@ -292,8 +292,10 @@ def test_create_model_variational_options_and_refusals():
     assert sum(n.endswith("lora_a") for n, _ in lora.named_parameters()) == 24
     biased = VariationalCLIP(dataclasses.replace(cfg, logit_bias_init=-10.0))
     assert not any("logit_bias" in n for n, _ in biased.named_parameters())
-    with pytest.raises(NotImplementedError, match="int8_forward"):
-        VariationalCLIP(dataclasses.replace(cfg, int8_forward=True))
+    # int8_forward reaches both trunks' dense MLPs, as in the reference
+    int8 = VariationalCLIP(dataclasses.replace(cfg, int8_forward=True))
+    assert all(blk.mlp.int8_fwd for t in (int8.visual_transformer, int8.text_transformer)
+               for blk in t.resblocks)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             create_model("tiny-test", variational=True)
