@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path and its training step once on one NVIDIA GPU and
-check them.
+"""Drive the PyTorch port's serving path, its training step and its training CLI once on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -129,7 +129,25 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      peak memory, the A/B); then the
      W8A8 encoders behind the HTTP server (``quantized=True``): 73 launches of each int8
      kernel per tower encode, cosine > 0.99 to the float32 encode and >= 0.9999 to the same
-     encode through the plain versions, encodes/s at bucket 256 and single-request p50.
+     encode through the plain versions, encodes/s at bucket 256 and single-request p50;
+ 13. the training CLI (``multimodal_tpu_torch.train.run``), ViT-B/32 at full width and depth:
+     (a) float32, B=256 as 4 micro-batches of 64, one feature-cached step against one
+     full-batch step from the same weights at phase 6's limits, every leaf the logit scale's
+     included, and one plain-accumulation step (finite; per step 192 + 96 and 96 + 96 block
+     launches); (b) the chunked loss (chunk 64) through the model against the same dense step,
+     then the loss alone on 32768 x 512 float32 features, forward and backward: dense against
+     chunked (chunk 1024) peak memory, the chunked peak under a quarter of the dense one;
+     (c) ``main([...])`` in this process, bfloat16, B=256, 6 steps each with ``--loss clip``,
+     ``cloob``, ``align --nl_semantic_supervision``, ``--contrastive-impl chunked``,
+     ``--accum-freq 4 --feature-cached-accum``, ``--opt lamb``, ``--opt lars``,
+     ``--model-ema --val-data synthetic`` and ``--precision int8``: finite logged losses and
+     exactly the run's kernel launches (steps x per-step launches, plus the validation
+     forwards); (e) the CLI's samples/s, ``data_time`` and ``batch_time`` beside phase 6's
+     bfloat16 rate; (d) float32 B=64, 2 epochs x 3 steps, the same run twice (bit for bit?),
+     then one cut after a mid-epoch save at step 2 and resumed: its final parameters equal the
+     uninterrupted run's bit for bit where the two identical runs agreed bit for bit, else
+     within 1e-3 x max|param|. The runs write under ``chip_smoke_logs/`` in the checkout,
+     removed at the end.
 Before the last line come the card's name and power limit and the kernel summary (JSON); the
 last line is the device record.
 """
@@ -141,6 +159,7 @@ import contextlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -1780,6 +1799,301 @@ def phase_int8(torch, mods, tally, card, kind, float_rate: float):
                   need_image=per_encode, quantized=True)
 
 
+CLI_BATCH = 256
+CLI_MICRO = 4  # phase 13 (a): B=256 as 4 micro-batches of 64
+CLI_CHUNK = 64  # phase 13 (b): the chunked loss's chunk through the model
+LOSS_ROWS, LOSS_DIM, LOSS_CHUNK = 32768, 512, 1024  # phase 13 (b): the loss alone
+CLI_STEPS = 6
+CLI_RUNS = [  # phase 13 (c): name, extra flags, launches per step beyond phase 6's
+    ("clip", ["--loss", "clip"], None),
+    ("cloob", ["--loss", "cloob"], None),
+    ("align semantic", ["--loss", "align", "--nl_semantic_supervision"], None),
+    ("clip chunked", ["--loss", "clip", "--contrastive-impl", "chunked",
+                      "--contrastive-chunk-size", str(CLI_CHUNK)], None),
+    ("feature-cached accum 4", ["--accum-freq", str(CLI_MICRO), "--feature-cached-accum"],
+     {"block_attention_fwd": 24 * 2 * CLI_MICRO, "block_attention_bwd": 24 * CLI_MICRO}),
+    ("lamb", ["--opt", "lamb"], None),
+    ("lars", ["--opt", "lars"], None),
+    ("ema + val", ["--model-ema", "--val-data", "synthetic", "--val-num-samples",
+                   str(2 * CLI_BATCH)], None),
+    ("int8", ["--precision", "int8"], INT8_NEED),
+]
+CLI_LOGS = "chip_smoke_logs"  # under the checkout; removed at the end of phase 13
+
+
+def rel_leaf_dist(torch, got: dict, want: dict) -> dict:
+    """Per leaf max|got - want| / max|want|, the scale floored at 1e-3 x the largest
+    gradient of the model (phase 6's measure)."""
+    g_max = max(g.abs().max() for g in want.values())
+    return {n: ((got[n] - g).abs().max() / torch.clamp(g.abs().max(), min=1e-3 * g_max)).item()
+            for n, g in want.items()}
+
+
+def one_step(torch, tally, model, batch, start, **step_kw) -> dict:
+    """One step from ``start`` (a state dict) with phase 6's optimizer and ``step_kw`` for
+    ``make_train_step``: the metrics, the gradients and the launch counts."""
+    from multimodal_tpu_torch.train import (TrainState, make_optimizer, make_schedule,
+                                            make_train_step)
+
+    model.load_state_dict(start)
+    opt = make_optimizer(model.named_parameters(),
+                         make_schedule("cosine", 1e-3, warmup_steps=100, total_steps=10000),
+                         weight_decay=0.1, grad_clip_norm=1.0)
+    step = make_train_step(model, opt, **step_kw)
+    torch.cuda.synchronize()
+    tally.start()
+    m = step(TrainState.create(model, opt), batch, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    counts = tally.stop()
+    return {"metrics": {k: float(v) for k, v in m.items()}, "counts": counts,
+            "grads": {n: p.grad.detach().clone() for n, p in model.named_parameters()}}
+
+
+def hold_step(torch, what: str, got: dict, want: dict):
+    """``got``'s step against ``want``'s at phase 6's float32 limits: loss 1e-5 and grad
+    norm 1e-4 relative, every gradient leaf (the logit scale's too) within 1e-3 x
+    max|leaf|."""
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)  # noqa: E731
+    loss_rel = rel(got["metrics"]["loss"], want["metrics"]["loss"])
+    norm_rel = rel(got["metrics"]["grad_norm"], want["metrics"]["grad_norm"])
+    leaf = rel_leaf_dist(torch, got["grads"], want["grads"])
+    worst = max(leaf, key=leaf.get)
+    print(f"  {what}: loss {got['metrics']['loss']:.7f} vs {want['metrics']['loss']:.7f} (rel "
+          f"{loss_rel:.3e}, need <= 1e-5), grad norm rel {norm_rel:.3e} (need <= 1e-4), worst "
+          f"leaf {worst} {leaf[worst]:.3e} (need <= 1e-3), logit scale gradient "
+          f"{got['grads']['logit_scale'].item():.6e} vs {want['grads']['logit_scale'].item():.6e}"
+          f" ({leaf['logit_scale']:.3e})", flush=True)
+    if loss_rel > 1e-5 or norm_rel > 1e-4 or leaf[worst] > 1e-3:
+        fail(f"{what} disagrees with the full-batch dense step")
+
+
+def loss_peaks(torch, card):
+    """The CLIP loss alone, forward and backward, on LOSS_ROWS x LOSS_DIM float32 features:
+    dense (two [N, N] logits matrices) against chunked (one [N, LOSS_CHUNK] block at a time):
+    value, gradients, time and the peak memory above the inputs."""
+    from multimodal_tpu_torch.losses import chunked_clip_loss, clip_loss
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    fi = torch.randn(LOSS_ROWS, LOSS_DIM, device="cuda", generator=g)
+    ft = torch.randn(LOSS_ROWS, LOSS_DIM, device="cuda", generator=g)
+    fi, ft = fi / fi.norm(dim=-1, keepdim=True), ft / ft.norm(dim=-1, keepdim=True)
+    out = {}
+    for name, fn in (("dense", lambda a, b, s: clip_loss(a, b, s, normalize=False)),
+                     ("chunked", lambda a, b, s: chunked_clip_loss(
+                         a, b, s, chunk_size=LOSS_CHUNK, normalize=False))):
+        leaves = [t.clone().requires_grad_(True) for t in (fi, ft)]
+        ls = torch.tensor(2.6592, device="cuda", requires_grad=True)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = fn(*leaves, ls)
+        loss.backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        out[name] = {"loss": loss.item(), "peak": torch.cuda.max_memory_allocated() - base,
+                     "ms": ms, "grads": [t.grad for t in leaves] + [ls.grad]}
+        del loss, leaves
+    d, c = out["dense"], out["chunked"]
+    loss_rel = abs(c["loss"] - d["loss"]) / abs(d["loss"])
+    grad_rel = max(((a - b).abs().max() / b.abs().max()).item()
+                   for a, b in zip(c["grads"], d["grads"]))
+    print(f"  loss alone on {LOSS_ROWS}x{LOSS_DIM} float32 features, forward + backward: dense "
+          f"peak {d['peak'] / 2**30:.3f} GiB in {d['ms']:.1f} ms, chunked ({LOSS_CHUNK}) peak "
+          f"{c['peak'] / 2**30:.3f} GiB in {c['ms']:.1f} ms (host clock, first call); ratio "
+          f"{c['peak'] / d['peak']:.4f} (need < 0.25); loss rel {loss_rel:.3e} (need <= 1e-5), "
+          f"gradients rel {grad_rel:.3e} x max (need <= 1e-3) [{card}]", flush=True)
+    if c["peak"] >= d["peak"] / 4 or loss_rel > 1e-5 or grad_rel > 1e-3:
+        fail("the chunked loss is off the dense loss or holds too much memory")
+    del out
+    torch.cuda.empty_cache()
+
+
+def cli_main(argv: list) -> int:
+    """``multimodal_tpu_torch.train.run.main(argv)`` in this process; the root logger's
+    handlers (the run's out.log among them) are closed after it."""
+    import logging
+
+    from multimodal_tpu_torch.train.run import main
+
+    try:
+        return main(argv)
+    finally:
+        root = logging.getLogger()
+        for h in list(root.handlers):
+            h.close()
+            root.removeHandler(h)
+
+
+def cli_records(logs: str, name: str) -> list:
+    with open(os.path.join(logs, name, "results.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def cli_final_model(torch, logs: str, name: str) -> dict:
+    from multimodal_tpu_torch.train.checkpoints import CheckpointManager
+
+    saved, _ = CheckpointManager(os.path.join(logs, name, "checkpoints")).restore()
+    return saved["model"]
+
+
+def phase_cli(torch, tally, card, bf16_rate: float):
+    """Phase 13: the training CLI's paths on the card, ViT-B/32 at full width and depth."""
+    import gc
+
+    logs = os.path.abspath(CLI_LOGS)
+    shutil.rmtree(logs, ignore_errors=True)
+    base_need = {"block_attention_fwd": 24, "block_attention_bwd": 24}
+    try:
+        print(f"  (a) feature-cached accumulation, float32, B={CLI_BATCH} as {CLI_MICRO} "
+              f"micro-batches of {CLI_BATCH // CLI_MICRO}, against one full-batch step from "
+              "the same weights", flush=True)
+        model = build_model(torch, MODEL, torch.float32)
+        batch = make_batch(torch, model.cfg, CLI_BATCH)
+        start = {k: v.clone() for k, v in model.state_dict().items()}
+        full = one_step(torch, tally, model, batch, start)
+        fca = one_step(torch, tally, model, batch, start, accum_steps=CLI_MICRO,
+                       feature_cached_accum=True)
+        check_launches([full["counts"]], base_need, "full-batch step")
+        check_launches([fca["counts"]], {"block_attention_fwd": 24 * 2 * CLI_MICRO,
+                                         "block_attention_bwd": 24 * CLI_MICRO},
+                       "feature-cached step")
+        hold_step(torch, "feature-cached vs full batch", fca, full)
+        plain = one_step(torch, tally, model, batch, start, accum_steps=CLI_MICRO)
+        check_launches([plain["counts"]], {"block_attention_fwd": 24 * CLI_MICRO,
+                                           "block_attention_bwd": 24 * CLI_MICRO},
+                       "plain accumulation step")
+        print(f"  plain accumulation ({CLI_MICRO} x {CLI_BATCH // CLI_MICRO}): loss "
+              f"{plain['metrics']['loss']:.7f} (the mean of the micro-batches' losses), grad "
+              f"norm {plain['metrics']['grad_norm']:.6f}", flush=True)
+        if not np.isfinite(list(plain["metrics"].values())).all():
+            fail("non-finite plain-accumulation step")
+        print(f"  (b) the chunked loss (chunk {CLI_CHUNK}) through the model, float32, "
+              f"B={CLI_BATCH}, against the dense step of (a)", flush=True)
+        chunked = one_step(torch, tally, model, batch, start,
+                           loss_kwargs={"contrastive_impl": "chunked", "chunk_size": CLI_CHUNK})
+        check_launches([chunked["counts"]], base_need, "chunked step")
+        hold_step(torch, "chunked vs dense", chunked, full)
+        del model, batch, start, full, fca, plain, chunked
+        gc.collect()
+        torch.cuda.empty_cache()
+        loss_peaks(torch, card)
+
+        print(f"  (c) the CLI in this process, bfloat16, B={CLI_BATCH}, {CLI_STEPS} steps each",
+              flush=True)
+        common = ["--dataset-type", "synthetic", "--model", MODEL, "--batch-size",
+                  str(CLI_BATCH), "--train-num-samples", str(CLI_STEPS * CLI_BATCH),
+                  "--epochs", "1", "--warmup", "100", "--lr", "1e-3", "--wd", "0.1",
+                  "--grad-clip-norm", "1.0", "--log-every-n-steps", "3", "--seed", "0",
+                  "--precision", "amp_bf16", "--no-save-on-preemption", "--logs", logs]
+        cli_rate = None
+        for name, extra, per_step in CLI_RUNS:
+            tag = name.replace(" ", "-")
+            need = {k: v * CLI_STEPS for k, v in (per_step or base_need).items()}
+            if "--val-data" in extra:  # the validation pass: 2 batches, 24 forwards each
+                need["block_attention_fwd"] += 2 * 24
+            t0 = time.perf_counter()
+            tally.start()
+            rc = cli_main(common + extra + ["--name", tag])
+            counts = tally.stop()
+            secs = time.perf_counter() - t0
+            records = cli_records(logs, tag)
+            train = [r for r in records if "loss" in r]
+            losses = [r["loss"] for r in train]
+            print(f"  CLI {name}: rc {rc}, {secs:.1f} s in all; logged losses "
+                  f"{[round(v, 5) for v in losses]}; samples/s (steps 4-6) "
+                  f"{train[-1]['samples_per_s']:.1f}, data_time {train[-1]['data_time']:.4f} s, "
+                  f"batch_time {train[-1]['batch_time']:.4f} s (averages over steps 1-6); "
+                  f"launches {({k: v for k, v in counts.items() if v})} (need {need}) [{card}]",
+                  flush=True)
+            if rc != 0 or len(train) != 2 or not np.isfinite(losses).all():
+                fail(f"the CLI run {name} did not log finite losses")
+            if {k: v for k, v in counts.items() if v} != need:
+                fail(f"the CLI run {name} launched {counts}, need {need}")
+            if "--val-data" in extra:
+                evals = [r for r in records if "val_loss" in r]
+                if not evals or not np.isfinite(evals[-1]["val_loss"]):
+                    fail("the EMA run logged no finite validation loss")
+                print(f"  EMA validation: val_loss {evals[-1]['val_loss']:.5f}, image_to_text "
+                      f"R@1 {evals[-1]['image_to_text_R@1']:.4f}", flush=True)
+            if name == "clip":
+                cli_rate = train[-1]
+            shutil.rmtree(os.path.join(logs, tag), ignore_errors=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+        print(f"  (e) CLI bfloat16 clip at B={CLI_BATCH}: {cli_rate['samples_per_s']:.1f} "
+              f"samples/s over steps 4-6 (data_time {cli_rate['data_time']:.4f} s, batch_time "
+              f"{cli_rate['batch_time']:.4f} s, averages over the epoch) beside phase 6's "
+              f"bfloat16 step rate {bf16_rate:.1f} samples/s in this call: "
+              f"{cli_rate['samples_per_s'] / bf16_rate:.3f}x [{card}]", flush=True)
+
+        cli_resume(torch, tally, card, logs)
+    finally:
+        shutil.rmtree(logs, ignore_errors=True)
+
+
+def cli_resume(torch, tally, card, logs: str):
+    """Phase 13 (d): float32 B=64, 2 epochs of 3 steps; the same run twice (is the step
+    deterministic on the card?), then a run cut after a mid-epoch save at step 2 and resumed:
+    its final parameters against the uninterrupted run's, bit for bit if the two identical
+    runs agreed bit for bit, else at phase 6's float32 leaf limit (1e-3 x max|leaf|)."""
+    import gc
+
+    n = 64
+    common = ["--dataset-type", "synthetic", "--model", MODEL, "--batch-size", str(n),
+              "--train-num-samples", str(3 * n), "--warmup", "100", "--lr", "1e-3", "--wd",
+              "0.1", "--grad-clip-norm", "1.0", "--log-every-n-steps", "1", "--seed", "0",
+              "--precision", "fp32", "--no-save-on-preemption", "--logs", logs]
+    per_step = {"block_attention_fwd": 24, "block_attention_bwd": 24}
+    print(f"  (d) mid-epoch resume, float32, B={n}, 2 epochs x 3 steps", flush=True)
+    finals, losses = {}, {}
+
+    def run(tag, extra, steps):
+        tally.start()
+        rc = cli_main(common + extra + ["--name", tag])
+        counts = tally.stop()
+        need = {k: v * steps for k, v in per_step.items()}
+        if rc != 0 or {k: v for k, v in counts.items() if v} != need:
+            fail(f"CLI resume run {tag}: rc {rc}, launches {counts}, need {need}")
+        losses[tag] = {r["step"]: r["loss"] for r in cli_records(logs, tag) if "loss" in r}
+
+    for tag in ("full-a", "full-b"):
+        run(tag, ["--epochs", "2", "--save-frequency", "2"], 6)
+        finals[tag] = cli_final_model(torch, logs, tag)
+        shutil.rmtree(os.path.join(logs, tag))
+    run("pre", ["--epochs", "1", "--save-frequency-steps", "2"], 3)
+    ckpts = os.path.join(logs, "pre", "checkpoints")
+    steps = sorted(int(d) for d in os.listdir(ckpts) if d.isdigit())
+    if 2 not in steps:
+        fail(f"no mid-epoch save at step 2: {steps}")
+    for s in steps:
+        if s > 2:
+            shutil.rmtree(os.path.join(ckpts, str(s)))
+    run("pre", ["--epochs", "2", "--save-frequency", "2", "--resume", "latest"], 4)
+    finals["resumed"] = cli_final_model(torch, logs, "pre")
+    a, b, r = finals["full-a"], finals["full-b"], finals["resumed"]
+    deterministic = all(torch.equal(a[k], b[k]) for k in a)
+    leaf = {k: ((r[k] - a[k]).abs().max() / torch.clamp(a[k].abs().max(), min=1e-30)).item()
+            for k in a}
+    worst = max(leaf, key=leaf.get)
+    same = all(torch.equal(a[k], r[k]) for k in a)
+    loss_rel = max(abs(losses["pre"][s] - losses["full-a"][s]) / abs(losses["full-a"][s])
+                   for s in losses["pre"])
+    print(f"  two identical runs {'agree bit for bit' if deterministic else 'differ'} (largest "
+          f"parameter difference {max(((a[k] - b[k]).abs().max()).item() for k in a):.3e}); "
+          f"resumed vs uninterrupted: {'bit for bit' if same else 'not bit for bit'}, worst "
+          f"parameter {worst} {leaf[worst]:.3e} x max|param|, logged losses of the resumed "
+          f"steps rel {loss_rel:.3e} [{card}]", flush=True)
+    if deterministic and not same:
+        fail("the step is deterministic on the card but the resumed run ended elsewhere")
+    if not deterministic and (leaf[worst] > 1e-3 or loss_rel > 1e-5):
+        fail("the resumed run is off the uninterrupted one beyond phase 6's float32 limits")
+    shutil.rmtree(os.path.join(logs, "pre"), ignore_errors=True)
+    del finals
+    gc.collect()
+
+
 def main() -> int:
     import torch
 
@@ -1846,8 +2160,9 @@ def main() -> int:
     full_opt_bytes, float_rate = res["opt_bytes"], res["rate"]
     del res
     torch.cuda.empty_cache()
+    bf16_stats = {}
     kernel_path_run(torch, tally, card, MODEL, torch.bfloat16, TRAIN_BATCH, TRAIN_STEPS, need,
-                    falling=True)
+                    falling=True, stats=bf16_stats)
 
     print(f"phase 7 shared trunk: {SHARED_MODEL} at full width", flush=True)
     phase_serving(torch, mods, tally, card, kind, SHARED_MODEL,
@@ -1958,6 +2273,9 @@ def main() -> int:
     print(f"phase 12 int8: {MODEL} at full width and depth with int8_forward=True, and the W8A8 "
           "encoders", flush=True)
     phase_int8(torch, mods, tally, card, kind, float_rate)
+
+    print(f"phase 13 the training CLI: {MODEL} at full width and depth", flush=True)
+    phase_cli(torch, tally, card, bf16_stats["rate"])
 
     entries = []
     for name, (source, replaces, case) in KERNELS.items():

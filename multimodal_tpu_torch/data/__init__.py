@@ -1,1 +1,2 @@
-"""Host-side text and image preparation for the port."""
+"""Host-side data for the port: tokenizer, image normalization, the synthetic stream, the
+semantic encoder and the prefetching device feed."""

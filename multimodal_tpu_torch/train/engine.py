@@ -10,8 +10,21 @@ every block, and with ``block_mlp`` its MLP half, runs the hand-written forward 
 kernels), the fused AdamW step with its global-norm clip and non-finite skip over the
 parameters the optimizer holds (all of them, or the trainable ones of ``train.freeze``), and
 the ln(100) clamp of the logit scale (not under SigLIP, whose temperature runs free, as in
-the reference).
-It is the step the JAX package's ``bench.py`` times and ``train/run.py`` loops over.
+the reference). The loss families ``cloob`` (modern-Hopfield InfoLOOB) and ``align``
+(AlignCLIP's in-modality terms, with the batch's ``semantic`` field when it has one) and the
+chunked form of the CLIP loss (``contrastive_impl="chunked"``) are dispatched as in the
+reference. It is the step the JAX package's ``bench.py`` times and ``train/run.py`` loops
+over.
+
+Gradient accumulation comes in the reference's two forms: plain micro-batch averaging
+(``accum_steps``), and OpenCLIP's feature-cached accumulation (``feature_cached_accum``),
+whose contrastive batch is the whole batch: a no-grad pass caches every micro-batch's
+features, then each micro-batch is forwarded again with grad, spliced into the cached bank
+and the whole-bank loss back-propagated. Each micro-batch replays the same patch-dropout
+noise in both passes. Unlike the reference, which sums the whole-bank loss's logit-scale
+gradient once per micro-batch (``accum_steps`` times the full-batch gradient, ROADMAP Queue
+3), the port counts it from one micro-batch: every leaf's gradient is the full batch's.
+``ema_decay`` keeps an exponential moving average of the parameters in ``state.ema``.
 
 Unlike the JAX step, which returns a new state, this one updates the model, the optimizer
 and ``state.step`` in place. The metrics are device tensors; reading one waits for the step.
@@ -21,9 +34,8 @@ Monte-Carlo draws; a model without patch dropout under the clip loss needs none.
 runs the model in training mode and leaves it in the mode it found it in.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item: meshes and
-shard_map (Queue 1 item 9), gradient accumulation in both forms, the parameter EMA and
-optimizer-state offload (item 8), ``wire_size`` (a serving piece of Queue 1), the loss
-families ``cloob`` and ``align`` and contrastive forms other than ``dense`` (item 7).
+shard_map, the ring contrastive form and optimizer-state offload (Queue 1 item 9), and
+``wire_size`` (a serving piece of Queue 1).
 """
 
 from __future__ import annotations
@@ -31,12 +43,16 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from multimodal_tpu_torch.data.preprocess import normalize_images
 from multimodal_tpu_torch.distributions import NormalDiag, PowerSpherical, VonMisesFisher
 from multimodal_tpu_torch.inference import model_mode
+from multimodal_tpu_torch.losses.align_loss import align_clip_loss
 from multimodal_tpu_torch.losses.clip_loss import clip_loss
+from multimodal_tpu_torch.losses.cloob_loss import cloob_loss
+from multimodal_tpu_torch.losses.global_contrastive import chunked_clip_loss
 from multimodal_tpu_torch.losses.siglip_loss import siglip_loss
 from multimodal_tpu_torch.losses.vclip_loss import vclip_loss
 from multimodal_tpu_torch.models.moe import collect_moe_losses
@@ -72,10 +88,33 @@ class TrainState:
     step: int
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
+    # the parameters' exponential moving average (float32 copies by name), or None
+    ema: Optional[dict] = None
 
     @classmethod
-    def create(cls, model, optimizer) -> "TrainState":
-        return cls(step=0, model=model, optimizer=optimizer)
+    def create(cls, model, optimizer, ema: bool = False) -> "TrainState":
+        return cls(step=0, model=model, optimizer=optimizer,
+                   ema=init_ema(model) if ema else None)
+
+
+@torch.no_grad()
+def init_ema(model: torch.nn.Module) -> dict:
+    """The EMA's start: a float32 copy of every parameter, by name."""
+    return {n: p.detach().to(torch.float32, copy=True) for n, p in model.named_parameters()}
+
+
+@torch.no_grad()
+def update_ema(ema: dict, model: torch.nn.Module, step: int, decay: float):
+    """``ema = ema * d + params * (1 - d)`` in place, with the decay warm-up
+    ``d = min(decay, (1 + step) / (10 + step))`` at the step before its increment, in
+    float32 as the reference computes it."""
+    step32 = np.float32(step)
+    d = np.minimum(np.float32(decay), (np.float32(1) + step32) / (np.float32(10) + step32))
+    named = dict(model.named_parameters())
+    avg = list(ema.values())
+    torch._foreach_mul_(avg, float(d))
+    torch._foreach_add_(avg, torch._foreach_mul([named[n].detach().to(torch.float32)
+                                                 for n in ema], float(np.float32(1) - d)))
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -126,15 +165,15 @@ def _vclip_loss_fn(loss_kwargs: dict) -> Callable:
 
 def make_loss_fn(model, loss_type: str = "clip", loss_kwargs: Optional[dict] = None,
                  wire_size: Optional[int] = None) -> Callable:
-    """loss_fn(model, batch, generator=None) -> (loss, metrics) for the CLIP InfoNCE loss
-    (dense form; ``generator`` feeds patch dropout; a model whose config has a MoE vision
-    tower adds ``moe_aux_weight`` (0.01) times ``collect_moe_losses`` and reports it as
-    ``moe_aux_loss``), the SigLIP loss (``siglip``; the model needs its ``logit_bias``) or the
-    variational loss (``vclip``; ``generator`` feeds its draws)."""
-    if loss_type in ("cloob", "align"):
-        raise NotImplementedError(f"loss_type={loss_type!r} is not ported yet "
-                                  "(ROADMAP Queue 1 item 7)")
-    if loss_type not in ("clip", "siglip", "vclip"):
+    """loss_fn(model, batch, generator=None) -> (loss, metrics) for a loss family:
+    ``clip`` (InfoNCE, dense or with ``contrastive_impl="chunked"`` the chunked form over
+    ``chunk_size`` keys; ``generator`` feeds patch dropout; a model whose config has a MoE
+    vision tower adds ``moe_aux_weight`` (0.01) times ``collect_moe_losses`` and reports it
+    as ``moe_aux_loss``), ``cloob`` (``inv_tau`` 30, ``scale_hopfield`` 8), ``align``
+    (``alpha``, ``beta``, ``separate_text``, ``separate_image``; the batch's ``semantic``
+    field, when it has one, weights the in-modality terms), ``siglip`` (the model needs its
+    ``logit_bias``) or ``vclip`` (``generator`` feeds its draws)."""
+    if loss_type not in ("clip", "siglip", "vclip", "cloob", "align"):
         raise ValueError(f"unknown loss_type {loss_type!r}")
     if wire_size is not None:
         raise NotImplementedError("wire_size (the on-device bicubic upsample) is not ported "
@@ -142,6 +181,10 @@ def make_loss_fn(model, loss_type: str = "clip", loss_kwargs: Optional[dict] = N
     if loss_type == "vclip":
         return _vclip_loss_fn(loss_kwargs or {})
     kw = dict(loss_kwargs or {})
+
+    def forward(model, batch, generator):
+        return model(batch_images(batch, model), batch["text"], generator=generator)
+
     if loss_type == "siglip":
         if getattr(getattr(model, "cfg", None), "logit_bias_init", None) is None:
             raise ValueError(
@@ -149,7 +192,7 @@ def make_loss_fn(model, loss_type: str = "clip", loss_kwargs: Optional[dict] = N
                 "with create_model(..., siglip=True) or cfg.logit_bias_init set")
 
         def siglip_fn(model, batch, generator=None):
-            out = model(batch_images(batch, model), batch["text"], generator=generator)
+            out = forward(model, batch, generator)
             ls, lb = out["logit_scale"], out["logit_bias"]
             loss = siglip_loss(out["image_features"], out["text_features"], ls, lb,
                                normalize=False, **kw)
@@ -157,21 +200,48 @@ def make_loss_fn(model, loss_type: str = "clip", loss_kwargs: Optional[dict] = N
                           "logit_bias": lb.detach().clone()}
 
         return siglip_fn
+    if loss_type == "cloob":
+        inv_tau, scale_hopfield = kw.pop("inv_tau", 30.0), kw.pop("scale_hopfield", 8.0)
+
+        def cloob_fn(model, batch, generator=None):
+            out = forward(model, batch, generator)
+            loss = cloob_loss(out["image_features"], out["text_features"], inv_tau=inv_tau,
+                              scale_hopfield=scale_hopfield)
+            return loss, {"loss": loss.detach()}
+
+        return cloob_fn
+    if loss_type == "align":
+
+        def align_fn(model, batch, generator=None):
+            out = forward(model, batch, generator)
+            res = align_clip_loss(out["image_features"], out["text_features"],
+                                  out["logit_scale"], semantic_features=batch.get("semantic"),
+                                  normalize=False, **kw)
+            metrics = {k: v.detach() for k, v in res.items()}
+            return res["total_loss"], {"loss": metrics["total_loss"], **metrics}
+
+        return align_fn
     label_smoothing = kw.pop("label_smoothing", 0.0)
     kw.pop("local_loss", None)  # only meaningful on a mesh
     impl = kw.pop("contrastive_impl", "dense")
-    kw.pop("chunk_size", None)
+    chunk_size = kw.pop("chunk_size", 1024)
     moe_aux_weight = kw.pop("moe_aux_weight", 0.01)
     vision = getattr(getattr(model, "cfg", None), "vision", None)
     has_moe = vision is not None and vision.moe_experts > 0
-    if impl != "dense":
-        raise NotImplementedError(f"contrastive_impl={impl!r} is not ported yet "
-                                  "(ROADMAP Queue 1 item 7)")
+    if impl == "ring":
+        raise NotImplementedError("contrastive_impl='ring' (the ring-streamed loss over a mesh) "
+                                  "is not ported yet (ROADMAP Queue 1 item 9)")
+    if impl not in ("dense", "chunked"):
+        raise ValueError(f"unknown contrastive_impl {impl!r} (dense | chunked | ring)")
 
     def loss_fn(model, batch, generator=None):
-        out = model(batch_images(batch, model), batch["text"], generator=generator)
+        out = forward(model, batch, generator)
         fi, ft, ls = out["image_features"], out["text_features"], out["logit_scale"]
-        loss = clip_loss(fi, ft, ls, label_smoothing=label_smoothing, normalize=False, **kw)
+        if impl == "chunked":
+            loss = chunked_clip_loss(fi, ft, ls, chunk_size=chunk_size,
+                                     label_smoothing=label_smoothing, normalize=False, **kw)
+        else:
+            loss = clip_loss(fi, ft, ls, label_smoothing=label_smoothing, normalize=False, **kw)
         metrics = {"loss": loss.detach(), "logit_scale": ls.detach().clone()}
         if has_moe:
             aux = collect_moe_losses(model)
@@ -182,6 +252,90 @@ def make_loss_fn(model, loss_type: str = "clip", loss_kwargs: Optional[dict] = N
     return loss_fn
 
 
+def _micro_batches(batch: dict, accum_steps: int) -> list[dict]:
+    """``batch`` split along its first axis into ``accum_steps`` equal micro-batches."""
+    n = batch["text"].shape[0]
+    if n % accum_steps:
+        raise ValueError(f"a batch of {n} does not split into {accum_steps} micro-batches")
+    m = n // accum_steps
+    return [{k: v[i * m:(i + 1) * m] for k, v in batch.items()} for i in range(accum_steps)]
+
+
+def _accum_grads(loss_fn, model, batch: dict, generator, accum_steps: int) -> dict:
+    """Plain micro-batch accumulation: each micro-batch's loss back-propagated in turn (the
+    gradients summed in ``.grad``), then divided by ``accum_steps``; the loss is the mean of
+    the micro-batches', the other metrics the last micro-batch's."""
+    loss_sum = 0.0
+    for mb in _micro_batches(batch, accum_steps):
+        loss, metrics = loss_fn(model, mb, generator)
+        loss.backward()
+        loss_sum = loss_sum + loss.detach()
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    torch._foreach_div_(grads, float(accum_steps))
+    metrics["loss"] = loss_sum / accum_steps
+    return metrics
+
+
+def _feature_cached_grads(model, batch: dict, generator, loss_kwargs: Optional[dict],
+                          accum_steps: int) -> dict:
+    """Feature-cached accumulation of the dense CLIP loss, the full batch's gradient on
+    every leaf. Phase 1: every micro-batch's features without grad, in order, the
+    generator's state recorded before each. Phase 2: per micro-batch, the generator set back
+    to that state (the same patch-dropout noise, so the features equal the cached ones), the
+    forward with grad spliced into the cached bank and the whole-bank loss back-propagated,
+    the gradients summed. The logit scale enters the whole-bank loss of the first
+    micro-batch only: each micro-batch's loss carries the full batch's dependence on it, so
+    summing k of them would give k times its gradient. A MoE tower's aux loss enters each
+    micro-batch's loss at 1/k of its weight (the full batch's aux is the micro-batches'
+    mean); the reported loss is topped up to the full batch's loss plus its aux term."""
+    kw = dict(loss_kwargs or {})
+    label_smoothing = kw.pop("label_smoothing", 0.0)
+    for key in ("local_loss", "contrastive_impl", "chunk_size"):
+        kw.pop(key, None)
+    moe_aux_weight = kw.pop("moe_aux_weight", 0.01)
+    vision = getattr(getattr(model, "cfg", None), "vision", None)
+    has_moe = vision is not None and vision.moe_experts > 0
+    micro = _micro_batches(batch, accum_steps)
+
+    def encode(mb):
+        out = model(batch_images(mb, model), mb["text"], generator=generator)
+        aux = collect_moe_losses(model) if has_moe else None
+        return out["image_features"], out["text_features"], out["logit_scale"], aux
+
+    states, bank_i, bank_t = [], [], []
+    with torch.no_grad():
+        for mb in micro:
+            states.append(generator.get_state() if generator is not None else None)
+            fi, ft, _, _ = encode(mb)
+            bank_i.append(fi)
+            bank_t.append(ft)
+    end_state = generator.get_state() if generator is not None else None
+    loss_sum, auxes = 0.0, []
+    for idx, mb in enumerate(micro):
+        if generator is not None:
+            generator.set_state(states[idx])
+        fi, ft, ls, aux = encode(mb)
+        all_i = torch.cat(bank_i[:idx] + [fi] + bank_i[idx + 1:])
+        all_t = torch.cat(bank_t[:idx] + [ft] + bank_t[idx + 1:])
+        loss = clip_loss(all_i, all_t, ls if idx == 0 else ls.detach(),
+                         label_smoothing=label_smoothing, normalize=False, **kw)
+        if has_moe:
+            loss = loss + moe_aux_weight * aux / accum_steps
+            auxes.append(aux.detach())
+        loss.backward()
+        loss_sum = loss_sum + loss.detach()
+    if generator is not None:
+        generator.set_state(end_state)
+    loss_report = loss_sum / accum_steps
+    metrics = {"logit_scale": ls.detach().clone()}
+    if has_moe:
+        mean_aux = torch.stack(auxes).mean()
+        loss_report = loss_report + moe_aux_weight * mean_aux * (accum_steps - 1) / accum_steps
+        metrics["moe_aux_loss"] = mean_aux
+    metrics["loss"] = loss_report
+    return metrics
+
+
 def make_train_step(model, optimizer, loss_type: str = "clip",
                     loss_kwargs: Optional[dict] = None, *, mesh=None,
                     use_shard_map: bool = False, accum_steps: int = 1,
@@ -189,21 +343,24 @@ def make_train_step(model, optimizer, loss_type: str = "clip",
                     offload_opt_state: bool = False, wire_size: Optional[int] = None):
     """Build ``step(state, batch, generator=None) -> metrics`` (``loss``, ``logit_scale``,
     ``grad_norm``, with a MoE vision tower ``moe_aux_loss``; for ``siglip`` also
-    ``logit_bias``; for ``vclip`` the five loss terms, ``loss``, the two mean concentrations
-    and ``grad_norm``).
+    ``logit_bias``; for ``cloob`` ``loss`` and ``grad_norm``; for ``align`` also its three
+    terms; for ``vclip`` the five loss terms, ``loss``, the two mean concentrations and
+    ``grad_norm``).
 
     ``batch`` holds ``image`` (uint8 or float NHWC) and ``text`` (token ids), on the
-    model's device. The step runs on ``state.model`` and ``state.optimizer``, which are
-    ``model`` and ``optimizer`` when the state comes from ``TrainState.create``.
-    ``generator`` is the source of the patch-dropout noise and of the vclip loss's draws; a
-    model with ``vision.patch_dropout`` > 0, or the sampled vclip loss, raises without one.
-    The model runs in training mode and is left in the mode it was in."""
+    model's device, and for ``align`` optionally ``semantic``. The step runs on
+    ``state.model`` and ``state.optimizer``, which are ``model`` and ``optimizer`` when the
+    state comes from ``TrainState.create``. ``generator`` is the source of the patch-dropout
+    noise and of the vclip loss's draws; a model with ``vision.patch_dropout`` > 0, or the
+    sampled vclip loss, raises without one. ``accum_steps`` > 1 accumulates the gradient
+    over that many equal micro-batches, with ``feature_cached_accum`` in the feature-cached
+    form (the dense CLIP loss only: another loss or contrastive form raises
+    ``ValueError``). With ``ema_decay`` set and ``state.ema`` present (``TrainState.create(...,
+    ema=True)``), the EMA follows every update. The model runs in training mode and is left
+    in the mode it was in."""
     left_out = {
         "mesh": (mesh is not None, "Queue 1 item 9"),
         "use_shard_map": (use_shard_map, "Queue 1 item 9"),
-        "accum_steps": (accum_steps != 1, "Queue 1 item 8"),
-        "feature_cached_accum": (feature_cached_accum, "Queue 1 item 8"),
-        "ema_decay": (ema_decay is not None, "Queue 1 item 8"),
         "offload_opt_state": (offload_opt_state, "Queue 1 item 9"),
         "wire_size": (wire_size is not None, "Queue 1, serving pieces"),
     }
@@ -211,19 +368,38 @@ def make_train_step(model, optimizer, loss_type: str = "clip",
         if on:
             raise NotImplementedError(f"{name} is not ported yet (ROADMAP {item})")
     loss_fn = make_loss_fn(model, loss_type, loss_kwargs)
+    feature_cached = feature_cached_accum and accum_steps > 1
+    if feature_cached:
+        lk = loss_kwargs or {}
+        if loss_type != "clip":
+            raise ValueError("feature-cached accumulation is a CLIP-loss feature "
+                             f"(got loss_type={loss_type!r})")
+        if lk.get("contrastive_impl") not in (None, "dense") or lk.get("local_loss"):
+            raise ValueError(
+                "feature-cached accumulation computes the dense full-bank CLIP loss and "
+                "does not support --contrastive-impl chunked/ring or --local-loss — "
+                "drop --feature-cached-accum or the sharded contrastive options")
 
     def step(state: TrainState, batch: dict,
              generator: Optional[torch.Generator] = None) -> dict:
         state.optimizer.zero_grad(set_to_none=True)
         with model_mode(state.model, True):
-            loss, metrics = loss_fn(state.model, batch, generator)
-            loss.backward()
+            if feature_cached:
+                metrics = _feature_cached_grads(state.model, batch, generator, loss_kwargs,
+                                                accum_steps)
+            elif accum_steps > 1:
+                metrics = _accum_grads(loss_fn, state.model, batch, generator, accum_steps)
+            else:
+                loss, metrics = loss_fn(state.model, batch, generator)
+                loss.backward()
         state.optimizer.step()
         if loss_type != "siglip":  # SigLIP's temperature runs free, as in the reference
             _clamp_logit_scale(state.model)
         norm = extract_grad_norm(state.optimizer)
         metrics["grad_norm"] = (norm.clone() if norm is not None else global_norm(
             [p.grad for p in state.model.parameters() if p.grad is not None]))
+        if ema_decay is not None and state.ema is not None:
+            update_ema(state.ema, state.model, state.step, ema_decay)
         state.step += 1
         return metrics
 

@@ -1,0 +1,529 @@
+"""The training CLI on one device: ``python -m multimodal_tpu_torch.train.run ...`` (port of
+``multimodal_tpu/train/run.py``).
+
+    python -m multimodal_tpu_torch.train.run --dataset-type synthetic --model ViT-B-32 \
+        --batch-size 256 --epochs 1 --logs ./logs [--device cpu]
+
+The same flags (``train.params``), the same experiment layout (``<logs>/<name>/params.txt``,
+``out.log``, ``results.jsonl``, ``checkpoints/<step>/``) and the same resume semantics as the
+reference: parse the flags, build the model (``--pretrained`` from an OpenAI-format torch
+file), the optimizer with its freeze mode, the data, the LR schedule; resume the latest
+checkpoint (mid-epoch saves fast-forward the data stream); then per epoch train, evaluate
+(the EMA weights with ``--model-ema``) and checkpoint. The run is on the GPU unless
+``--device cpu`` asks for the CPU; without a CUDA device it raises.
+
+Each step's ``torch.Generator`` (patch dropout, the vclip draws) is seeded from
+``numpy.random.SeedSequence([seed + 1, epoch, i])``, a fixed mix of the run's seed, the epoch
+and the step's index in it, so a resumed run replays the draws of an uninterrupted one.
+SIGTERM sets a local flag that the loop reads after every step: it checkpoints and exits.
+
+Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP Queue 1 item:
+multi-process and mesh training (``--multihost``, ``--tensor-parallel``,
+``--expert-parallel``, ``--dcn-slices``, ``--fsdp``, ``--use-shard-map``,
+``--opt-state-offload``, ``--contrastive-impl ring``: item 9), ``--wire-size`` (item 10),
+real data (any ``--train-data`` or dataset type but ``synthetic``, a non-synthetic
+``--val-data``, a pretrained Orbax directory: item 8), and the
+zero-shot, retrieval, captioning and linear-probe evaluations and ``--profile-steps``
+(item 11).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import os
+import shutil
+import signal
+import subprocess
+import threading
+import time
+from datetime import datetime
+
+import numpy as np
+import torch
+
+from multimodal_tpu_torch.data.datasets import build_dataset
+from multimodal_tpu_torch.data.pipeline import DataInfo
+from multimodal_tpu_torch.inference import model_mode
+from multimodal_tpu_torch.models import create_model, load_openai_state_dict
+from multimodal_tpu_torch.models.config import VariationalConfig
+from multimodal_tpu_torch.train.checkpoints import CheckpointManager
+from multimodal_tpu_torch.train.engine import TrainState, batch_images, init_ema, make_train_step
+from multimodal_tpu_torch.train.freeze import finetune_mask, freeze_optimizer, lock_mask
+from multimodal_tpu_torch.train.logging_utils import (
+    AverageMeter,
+    ExperimentLogger,
+    ThroughputMeter,
+    setup_logging,
+)
+from multimodal_tpu_torch.train.optimizer import make_optimizer
+from multimodal_tpu_torch.train.params import parse_args
+from multimodal_tpu_torch.train.schedules import make_schedule
+
+log = logging.getLogger(__name__)
+
+# set by SIGTERM (an eviction); the train loop reads it after every step, saves and exits
+_PREEMPTED = threading.Event()
+
+# the evaluation flags of ROADMAP Queue 1 item 11 (zero-shot sets, retrieval, captioning,
+# linear probe)
+ITEM_11_EVALS = ("imagenet_val", "imagenet_v2", "imagenet_s", "imagenet_a", "imagenet_o",
+                 "imagenet_r", "imagenet_c", "cifar10", "cifar100", "flowers", "food",
+                 "stanford_cars", "coco_retrieval", "flickr_retrieval", "captioning_eval",
+                 "linear_probe_train")
+
+
+def _install_preemption_handler():
+    def _on_sigterm(signum, frame):
+        _PREEMPTED.set()
+
+    try:
+        signal.signal(signal.SIGTERM, _on_sigterm)
+    except ValueError:  # not the main thread (main() called from a test runner's thread)
+        log.warning("not in main thread; SIGTERM preemption handler not installed")
+
+
+def _dataset_type(args) -> str:
+    if args.dataset_type != "auto":
+        return args.dataset_type
+    if not args.train_data:
+        return "synthetic"
+    return "webdataset" if ".tar" in args.train_data else "coco"
+
+
+def check_ported(args):
+    """Raise ``NotImplementedError`` naming the ROADMAP item of the first flag that asks for
+    something this port does not have yet."""
+    left_out = [
+        ("--multihost", args.multihost, "item 9"),
+        ("--tensor-parallel", args.tensor_parallel > 1, "item 9"),
+        ("--expert-parallel", args.expert_parallel > 1, "item 9"),
+        ("--dcn-slices", args.dcn_slices > 1, "item 9"),
+        ("--fsdp", args.fsdp, "item 9"),
+        ("--use-shard-map", args.use_shard_map, "item 9"),
+        ("--opt-state-offload", args.opt_state_offload, "item 9"),
+        ("--contrastive-impl ring", args.contrastive_impl == "ring", "item 9"),
+        ("--wire-size", args.wire_size is not None, "item 10"),
+        (f"--dataset-type {_dataset_type(args)}", _dataset_type(args) != "synthetic",
+         "item 8, the data path"),
+        ("--train-data", bool(args.train_data), "item 8, the data path"),
+        ("--val-data (real data)", bool(args.val_data) and (
+            ".tar" in args.val_data or _dataset_type(args) != "synthetic"),
+         "item 8, the data path"),
+        ("--pretrained (an Orbax directory)", bool(args.pretrained)
+         and os.path.isdir(args.pretrained), "item 8"),
+        ("--profile-steps", args.profile_steps > 0, "item 11"),
+    ] + [(f"--{k.replace('_', '-')}", bool(getattr(args, k, None)), "item 11")
+         for k in ITEM_11_EVALS]
+    for flag, on, item in left_out:
+        if on:
+            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP Queue 1 {item})")
+
+
+def _loss_kwargs(args) -> dict:
+    if args.loss == "clip":
+        # --local-loss selects the mesh form of the loss; on one device there is none
+        return {"label_smoothing": args.label_smoothing,
+                "contrastive_impl": args.contrastive_impl,
+                "chunk_size": args.contrastive_chunk_size}
+    if args.loss == "cloob":
+        return {"inv_tau": args.inv_tau, "scale_hopfield": args.scale_hopfield}
+    if args.loss == "align":
+        return {"alpha": args.alpha, "beta": args.beta, "separate_text": args.separate_text,
+                "separate_image": args.separate_image}
+    if args.loss == "vclip":
+        return {"distribution_type": args.distribution_type, "kl_weight": args.kl_weight,
+                "num_samples": args.mc_samples, "var_reg_weight": args.variance_reg_weight,
+                "use_mean_only": args.use_mean_only}
+    if args.loss == "siglip":
+        return {}
+    raise ValueError(args.loss)
+
+
+def kl_schedule(epoch: int, kl_weight: float, warmup_epochs: int) -> float:
+    """Staged KL annealing: zero for the first ``warmup_epochs - 1`` epochs (the vclip loss
+    then falls back to mean-point InfoNCE), then a linear ramp from ``kl_weight / 2`` to
+    ``kl_weight`` by epoch ``2 * warmup_epochs``."""
+    if warmup_epochs <= 0:
+        return kl_weight
+    e = epoch + 1
+    if e < warmup_epochs:
+        return 0.0
+    if e >= 2 * warmup_epochs:
+        return kl_weight
+    return kl_weight * e / (2.0 * warmup_epochs)
+
+
+def build_train_step(args, model, optimizer, epoch: int = 0):
+    """The step a run of these ``args`` trains ``epoch`` with: the loss's keyword arguments,
+    for vclip with the epoch's KL weight and, after the KL warm-up, the Riemannian mean
+    gradient."""
+    kw = _loss_kwargs(args)
+    if args.loss == "vclip":
+        if args.kl_warmup_epochs:
+            kw = dict(kw, kl_weight=kl_schedule(epoch, args.kl_weight, args.kl_warmup_epochs))
+        if args.distribution_type != "normal":
+            kw = dict(kw, riemannian=epoch > args.kl_warmup_epochs)
+    return make_train_step(model, optimizer, loss_type=args.loss, loss_kwargs=kw,
+                           accum_steps=args.accum_freq,
+                           feature_cached_accum=args.feature_cached_accum,
+                           ema_decay=args.model_ema_decay if args.model_ema else None)
+
+
+def step_generator(seed: int, epoch: int, i: int, device) -> torch.Generator:
+    """The generator of step ``i`` of ``epoch``: a fresh one on ``device``, seeded from a
+    fixed mix of ``(seed + 1, epoch, i)``."""
+    mixed = int(np.random.SeedSequence([seed + 1, epoch, i]).generate_state(1)[0])
+    return torch.Generator(device=device).manual_seed(mixed)
+
+
+def checkpoint_state(state: TrainState, args) -> dict:
+    """What a checkpoint holds: the model's and the optimizer's state dicts, the EMA (or
+    None), the step, and the seed the per-step generators derive from."""
+    return {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
+            "ema": state.ema, "step": state.step, "seed": args.seed}
+
+
+@torch.no_grad()
+def restore_state(state: TrainState, saved: dict, model_ema: bool):
+    """Load ``saved`` (a ``checkpoint_state``) into ``state`` in place. An EMA toggle across
+    the resume is tolerated either way: a checkpoint without one seeds the EMA from the
+    restored parameters, one with an EMA this run does not keep drops it."""
+    state.model.load_state_dict(saved["model"])
+    state.optimizer.load_state_dict(saved["optimizer"])
+    state.step = int(saved["step"])
+    if not model_ema:
+        if saved.get("ema") is not None:
+            log.info("resume: dropped the checkpoint's EMA (--model-ema off)")
+        state.ema = None
+    elif saved.get("ema") is None:
+        state.ema = init_ema(state.model)
+        log.info("resume: checkpoint had no EMA; initialized it from params")
+    else:
+        device = next(state.model.parameters()).device
+        state.ema = {n: t.to(device, torch.float32) for n, t in saved["ema"].items()}
+
+
+@contextlib.contextmanager
+def swapped_parameters(model: torch.nn.Module, weights: dict | None):
+    """Run the body with ``model``'s parameters replaced by ``weights`` (by name; None: as
+    they are), then give the model back its own tensors, the same objects, bit for bit."""
+    if weights is None:
+        yield model
+        return
+    named = dict(model.named_parameters())
+    own = {n: p.data for n, p in named.items()}
+    try:
+        for n, p in named.items():
+            p.data = weights[n].to(p.dtype)
+        yield model
+    finally:
+        for n, p in named.items():
+            p.data = own[n]
+
+
+def evaluate(model, data_val, epoch: int, args=None, weights: dict | None = None) -> dict:
+    """Validation over ``data_val``: paired retrieval metrics, the whole set's contrastive
+    loss (the SigLIP loss for a model with a logit bias), and from 16 rows on the k-NN
+    angles and the modality separability. ``weights`` (the EMA, by name) stand in for the
+    model's parameters for the pass and are swapped back out after it. A variational model
+    is scored on its normalized means."""
+    from multimodal_tpu_torch.eval.entropy import average_kth_neighbor_angle
+    from multimodal_tpu_torch.eval.retrieval import get_clip_metrics
+    from multimodal_tpu_torch.eval.separability import linear_separability
+    from multimodal_tpu_torch.losses.clip_loss import clip_loss
+    from multimodal_tpu_torch.losses.siglip_loss import siglip_loss
+
+    feats_i, feats_t, ls, lb = [], [], None, None
+    with swapped_parameters(model, weights), model_mode(model, False), torch.no_grad():
+        for batch in data_val:
+            out = model(batch_images(batch, model), batch["text"])
+            if "image_features" in out:
+                fi, ft = out["image_features"], out["text_features"]
+            else:
+                fi, ft = out["image_mean"], out["text_mean"]
+            fi, ft = fi.to(torch.float32), ft.to(torch.float32)
+            feats_i.append((fi / torch.linalg.vector_norm(fi, dim=-1, keepdim=True)).cpu())
+            feats_t.append((ft / torch.linalg.vector_norm(ft, dim=-1, keepdim=True)).cpu())
+            ls = out["logit_scale"].detach().to(torch.float32).cpu()
+            lb = out.get("logit_bias")
+            lb = None if lb is None else lb.detach().to(torch.float32).cpu()
+    if not feats_i:
+        return {}
+    fi, ft = torch.cat(feats_i), torch.cat(feats_t)
+    metrics = get_clip_metrics(fi.numpy(), ft.numpy(), float(torch.exp(ls)))
+    if lb is not None:
+        metrics["val_loss"] = float(siglip_loss(fi, ft, ls, lb, normalize=False))
+    else:
+        metrics["val_loss"] = float(clip_loss(fi, ft, ls, normalize=False))
+    if len(fi) >= 16:
+        metrics["knn_angle_image"] = float(average_kth_neighbor_angle(fi.numpy()))
+        metrics["knn_angle_text"] = float(average_kth_neighbor_angle(ft.numpy()))
+        metrics["modality_separability"] = float(linear_separability(fi.numpy(), ft.numpy(),
+                                                                     epochs=200))
+    metrics["epoch"] = epoch
+    return metrics
+
+
+def _start_remote_sync(local_dir: str, remote_dir: str, frequency_s: int) -> threading.Event:
+    """Copy ``local_dir`` into ``remote_dir`` every ``frequency_s`` seconds on a daemon
+    thread (rsync when there is one, else ``cp -r``); set the returned event to stop."""
+    stop = threading.Event()
+
+    def loop():
+        while not stop.wait(frequency_s):
+            try:
+                subprocess.run(["rsync" if shutil.which("rsync") else "cp", "-r", local_dir,
+                                remote_dir], check=False, capture_output=True, timeout=600)
+            except Exception as e:  # noqa: BLE001
+                log.warning("remote sync failed: %r", e)
+
+    threading.Thread(target=loop, daemon=True).start()
+    return stop
+
+
+def train_one_epoch(step_fn, state: TrainState, data_train, epoch: int, args, exp_logger,
+                    ckpt=None, skip_steps: int = 0) -> tuple:
+    """One epoch of steps over ``data_train``, with batch and data time and samples/s logged
+    every ``--log-every-n-steps``. With ``--save-frequency-steps`` N the state is saved every
+    N steps with mid-epoch metadata; ``skip_steps`` fast-forwards the (deterministic,
+    epoch-seeded) stream past batches an interrupted run already trained. Returns (state,
+    the last logged metrics, the steps taken)."""
+    batch_time, data_time = AverageMeter(), AverageMeter()
+    tput = ThroughputMeter(1)
+    losses = {}
+    end = time.perf_counter()
+    steps = 0
+    save_every = args.save_frequency_steps or 0
+    if skip_steps:
+        log.info("mid-epoch resume: fast-forwarding %d batches of epoch %d", skip_steps, epoch)
+    for i, batch in enumerate(data_train):
+        if i < skip_steps:
+            if _PREEMPTED.is_set():
+                log.info("preemption during fast-forward; exiting (nothing to save)")
+                return state, losses, 0
+            end = time.perf_counter()
+            continue
+        data_time.update(time.perf_counter() - end)
+        generator = step_generator(args.seed, epoch, i, batch["text"].device)
+        metrics = step_fn(state, batch, generator)
+        steps += 1
+        preempted = _PREEMPTED.is_set() and ckpt is not None
+        if ckpt is not None and ((save_every and (i + 1) % save_every == 0) or preempted):
+            ckpt.save(state.step, checkpoint_state(state, args),
+                      metadata={"epoch": epoch, "name": args.name, "mid_epoch": True,
+                                "step_in_epoch": i + 1})
+        if preempted:
+            log.info("preemption signal received: saved step %d (epoch %d, batch %d); "
+                     "resume with --resume latest", state.step, epoch, i + 1)
+            break
+        tput.update(batch["text"].shape[0])
+        batch_time.update(time.perf_counter() - end)
+        end = time.perf_counter()
+        if (i + 1) % args.log_every_n_steps == 0:
+            host_metrics = {k: float(v) for k, v in metrics.items() if v.ndim == 0}
+            rates = tput.rates()
+            record = {"epoch": epoch, "step": state.step, "data_time": data_time.avg,
+                      "batch_time": batch_time.avg, **rates, **host_metrics}
+            log.info("epoch %d step %d loss %.4f | %.1f samples/s (%.1f/device)", epoch,
+                     record["step"], record.get("loss", float("nan")),
+                     rates["samples_per_s"], rates["samples_per_s_per_device"])
+            exp_logger.log(record, step=record["step"])
+            losses = host_metrics
+            tput.reset()
+    return state, losses, steps
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device is available; pass --device cpu to "
+                           "train on the CPU")
+    check_ported(args)
+    _PREEMPTED.clear()
+    if args.save_on_preemption:
+        _install_preemption_handler()
+    device = torch.device(args.device)
+
+    if args.name is None:
+        args.name = f"{args.model}-{args.loss}-{datetime.now().strftime('%Y_%m_%d-%H_%M_%S')}"
+    args.log_dir = os.path.join(args.logs, args.name)
+    os.makedirs(args.log_dir, exist_ok=True)
+    if args.copy_codebase:
+        import multimodal_tpu_torch as _pkg
+
+        dst = os.path.join(args.log_dir, "code", "multimodal_tpu_torch")
+        if not os.path.exists(dst):
+            shutil.copytree(os.path.dirname(os.path.abspath(_pkg.__file__)), dst,
+                            ignore=shutil.ignore_patterns("__pycache__", "*.so", "*.o",
+                                                          "_build_cache"))
+    setup_logging(os.path.join(args.log_dir, "out.log"),
+                  level=logging.DEBUG if args.debug else logging.INFO)
+    with open(os.path.join(args.log_dir, "params.txt"), "w") as f:
+        for k in sorted(vars(args)):
+            f.write(f"{k}: {getattr(args, k)}\n")
+    report_to = [r for r in args.report_to.split(",") if r]
+    exp_logger = ExperimentLogger(
+        args.log_dir, use_wandb="wandb" in report_to,
+        use_tensorboard="tensorboard" in report_to,
+        wandb_kwargs={"project": args.wandb_project_name, "notes": args.wandb_notes,
+                      "config": vars(args), "name": args.name})
+    log.info("device: %s", torch.cuda.get_device_name(device) if device.type == "cuda"
+             else "cpu")
+
+    # ------------------------------------------------------------------ model
+    dtype = torch.float32 if args.precision == "fp32" else torch.bfloat16
+    vcfg = VariationalConfig(
+        model_type="Spherical" if args.distribution_type != "normal" else "Gaussian",
+        initial_concentration=args.initial_concentration,
+        min_concentration=args.min_concentration) if args.variational else None
+    model = create_model(
+        args.model, variational=args.variational, vcfg=vcfg, dtype=dtype, device=device,
+        seed=args.seed, force_image_size=args.force_image_size,
+        remat=args.grad_checkpointing or None, patch_dropout=args.force_patch_dropout,
+        force_quick_gelu=args.force_quick_gelu, siglip=args.loss == "siglip",
+        lora_rank=args.lora_rank, lora_alpha=args.lora_alpha,
+        int8_forward=args.precision == "int8")
+    if args.pretrained:
+        sd = torch.load(args.pretrained, map_location="cpu", weights_only=False)
+        if hasattr(sd, "state_dict"):  # a TorchScript archive (the clip.load format)
+            sd = sd.state_dict()
+        load_openai_state_dict(model, sd)
+    log.info("model %s: %.1fM params", args.model,
+             sum(p.numel() for p in model.parameters()) / 1e6)
+
+    # ------------------------------------------------------------------- data
+    data_kw = {"image_size": model.cfg.vision.image_size,
+               "context_length": model.cfg.text.context_length,
+               "num_samples": args.train_num_samples or 100 * args.batch_size,
+               "vocab_size": model.cfg.text.vocab_size}
+    if args.nl_semantic_supervision and args.loss == "align":
+        data_kw["with_semantic"] = 256
+    if args.aug_cfg:
+        log.warning("--aug-cfg has no effect on synthetic data (no decode stage)")
+    train_src = build_dataset("synthetic", path="", batch_size=args.batch_size, train=True,
+                              seed=args.seed, num_workers=max(args.workers, 1), **data_kw)
+    data_train = DataInfo(train_src, device)
+    data_val = None
+    if args.val_data:
+        val_src = build_dataset(
+            "synthetic", path=args.val_data, batch_size=args.batch_size, train=False,
+            seed=args.seed, image_size=data_kw["image_size"],
+            context_length=data_kw["context_length"],
+            num_samples=args.val_num_samples or 10 * args.batch_size,
+            vocab_size=model.cfg.text.vocab_size)
+        data_val = DataInfo(val_src, device)
+    steps_per_epoch = (args.steps_per_epoch
+                       or (args.train_num_samples // args.batch_size
+                           if args.train_num_samples else None)
+                       or train_src.num_batches or 1000)
+    total_steps = steps_per_epoch * args.epochs
+
+    # -------------------------------------------------------------- optimizer
+    if args.skip_scheduler:
+        schedule = args.lr
+    else:
+        schedule = make_schedule(
+            args.lr_scheduler, args.lr, warmup_steps=args.warmup, total_steps=total_steps,
+            cooldown_steps=(args.epochs_cooldown or 0) * steps_per_epoch,
+            cooldown_power=args.lr_cooldown_power, cooldown_end_lr=args.lr_cooldown_end)
+    opt_kw = dict(weight_decay=args.wd, beta1=args.beta1, beta2=args.beta2, eps=args.eps,
+                  grad_clip_norm=args.grad_clip_norm, skip_nonfinite=args.skip_nonfinite,
+                  opt=args.opt, state_dtype=getattr(torch, args.opt_state_dtype))
+    named = list(model.named_parameters())
+    mask = None
+    if args.lora_rank:
+        mask = finetune_mask(named, "lora")
+    elif args.train_projections_only or args.freeze_backbone:
+        mask = finetune_mask(named, "heads" if args.freeze_backbone else "projections")
+    elif args.lock_image or args.lock_text:
+        mask = lock_mask(named, args.lock_image, args.lock_text,
+                         unlocked_image_groups=args.lock_image_unlocked_groups,
+                         unlocked_text_layers=args.lock_text_unlocked_layers,
+                         freeze_layer_norm=args.lock_text_freeze_layer_norm)
+    if mask is not None:
+        optimizer = freeze_optimizer(model, mask, schedule, **opt_kw)
+    else:
+        optimizer = make_optimizer(named, schedule, **opt_kw)
+    state = TrainState.create(model, optimizer, ema=args.model_ema)
+
+    # ---------------------------------------------------------------- resume
+    ckpt = CheckpointManager(os.path.join(args.log_dir, "checkpoints"),
+                             max_to_keep=1 if args.delete_previous_checkpoint else None,
+                             async_save=args.async_checkpointing)
+    start_epoch, resume_skip_steps = 0, 0
+    if args.resume:
+        saved, meta = ckpt.restore(None if args.resume == "latest" else int(args.resume))
+        if saved is not None:
+            restore_state(state, saved, args.model_ema)
+            del saved
+            meta = meta or {}
+            if meta.get("mid_epoch"):
+                start_epoch = meta.get("epoch", 0)
+                resume_skip_steps = meta.get("step_in_epoch", 0)
+                log.info("resumed mid-epoch from step %d (epoch %d, %d batches done)",
+                         state.step, start_epoch, resume_skip_steps)
+            else:
+                start_epoch = meta.get("epoch", 0) + 1
+                log.info("resumed from step %d (epoch %d)", state.step, start_epoch)
+        else:
+            log.info("no checkpoint found; starting fresh")
+    sync_stop = None
+    if args.remote_sync:
+        sync_stop = _start_remote_sync(args.log_dir, args.remote_sync, args.remote_sync_frequency)
+
+    def eval_weights():
+        return state.ema if args.model_ema and state.ema is not None else None
+
+    # ----------------------------------------------------------------- loops
+    if args.epochs == 0:  # eval-only
+        record = {"eval": True}
+        if data_val is not None:
+            record.update(evaluate(model, data_val, 0, args, eval_weights()))
+        log.info("eval-only: %s", record)
+        exp_logger.log(record)
+        return 0
+
+    # the step is rebuilt only where the vclip KL weight or the Riemannian flip changes
+    rebuild_every_epoch = args.loss == "vclip" and (
+        bool(args.kl_warmup_epochs) or args.distribution_type != "normal")
+    step_fn = build_train_step(args, model, optimizer, start_epoch)
+    for epoch in range(start_epoch, args.epochs):
+        data_train.set_epoch(epoch)
+        if rebuild_every_epoch and epoch != start_epoch and epoch <= 2 * args.kl_warmup_epochs + 1:
+            step_fn = build_train_step(args, model, optimizer, epoch)
+        t0 = time.perf_counter()
+        skip = resume_skip_steps if epoch == start_epoch else 0
+        state, _, n_steps = train_one_epoch(step_fn, state, data_train, epoch, args,
+                                            exp_logger, ckpt=ckpt, skip_steps=skip)
+        log.info("epoch %d done: %d steps in %.1fs", epoch, n_steps, time.perf_counter() - t0)
+        if _PREEMPTED.is_set():
+            # the signal may have come after the loop's last check: keep the epoch's steps
+            ckpt.wait()
+            if n_steps and ckpt.latest_step() != state.step:
+                ckpt.save(state.step, checkpoint_state(state, args),
+                          metadata={"epoch": epoch, "name": args.name, "mid_epoch": True,
+                                    "step_in_epoch": skip + n_steps})
+                log.info("preemption: saved step %d before exit", state.step)
+            break
+        if data_val is not None and (epoch + 1) % args.val_frequency == 0:
+            metrics = evaluate(model, data_val, epoch, args, eval_weights())
+            log.info("eval epoch %d: %s", epoch, metrics)
+            exp_logger.log(metrics, step=state.step)
+        if (epoch + 1) % args.save_frequency == 0 or epoch == args.epochs - 1:
+            ckpt.wait()
+            if ckpt.latest_step() == state.step:
+                # a step-frequency save on the epoch boundary: replace it, so the metadata
+                # that survives is the epoch-end one and resume starts the next epoch
+                ckpt.delete(state.step)
+            ckpt.save(state.step, checkpoint_state(state, args),
+                      metadata={"epoch": epoch, "name": args.name})
+            log.info("saved checkpoint at step %d", state.step)
+    ckpt.close()
+    if sync_stop is not None:
+        sync_stop.set()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

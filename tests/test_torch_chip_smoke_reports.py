@@ -442,3 +442,32 @@ def test_code_flips_counts_each_step_call_by_call():
         assert q.quantize_rows is quantize_rows
     assert flips.flips == [16, 16] and flips.codes == [64, 64]
     assert flips.share(0) == 0.25 and flips.kept == []
+
+
+def test_phase13_drives_the_cli_flag_sets_and_counts_their_launches():
+    """Phase 13 (c) runs the nine flag sets in process; the per-step launches it requires:
+    24 + 24 block-attention launches a plain step, a feature-cached step at 4 micro-batches
+    four no-grad forwards more, an int8 step phase 12's counts."""
+    flags = {name: extra for name, extra, _ in cs.CLI_RUNS}
+    assert flags["cloob"] == ["--loss", "cloob"]
+    assert flags["align semantic"] == ["--loss", "align", "--nl_semantic_supervision"]
+    assert "chunked" in flags["clip chunked"] and "--feature-cached-accum" in flags[
+        "feature-cached accum 4"]
+    assert ["--opt", "lamb"] == flags["lamb"] and ["--opt", "lars"] == flags["lars"]
+    assert "--model-ema" in flags["ema + val"] and ["--precision", "int8"] == flags["int8"]
+    need = {name: per_step for name, _, per_step in cs.CLI_RUNS}
+    assert need["feature-cached accum 4"] == {"block_attention_fwd": 192,
+                                              "block_attention_bwd": 96}
+    assert need["int8"] is cs.INT8_NEED and need["clip"] is None
+    assert cs.LOSS_ROWS ** 2 * 4 == 4 * 2**30 and cs.LOSS_ROWS * cs.LOSS_CHUNK * 4 < 2**28
+    assert cs.CLI_BATCH % cs.CLI_MICRO == 0 and cs.CLI_BATCH % cs.CLI_CHUNK == 0
+
+
+def test_rel_leaf_dist_floors_the_scale():
+    import torch
+
+    want = {"a": torch.tensor([1.0, -2.0]), "zero": torch.zeros(2)}
+    got = {"a": torch.tensor([1.0, -2.002]), "zero": torch.tensor([1e-4, 0.0])}
+    dist = cs.rel_leaf_dist(torch, got, want)
+    assert abs(dist["a"] - 1e-3) < 1e-6
+    assert abs(dist["zero"] - 1e-4 / 2e-3) < 1e-6  # floored at 1e-3 x the largest leaf

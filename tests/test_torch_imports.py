@@ -32,6 +32,31 @@ def test_port_imports_without_jax():
         "import multimodal_tpu_torch.models.moe, multimodal_tpu_torch.losses.siglip_loss\n"
         "import multimodal_tpu_torch.train.freeze\n"
         "import multimodal_tpu_torch.ops.quant, multimodal_tpu_torch.inference_quant\n"
+        "import multimodal_tpu_torch.losses.cloob_loss, multimodal_tpu_torch.losses.align_loss\n"
+        "import multimodal_tpu_torch.losses.global_contrastive\n"
+        "import multimodal_tpu_torch.data.semantic, multimodal_tpu_torch.data.synthetic\n"
+        "import multimodal_tpu_torch.data.pipeline, multimodal_tpu_torch.data.datasets\n"
+        "import multimodal_tpu_torch.train.checkpoints, multimodal_tpu_torch.train.logging_utils\n"
+        "import multimodal_tpu_torch.train.params, multimodal_tpu_torch.train.run\n"
+        "import multimodal_tpu_torch.eval.retrieval, multimodal_tpu_torch.eval.entropy\n"
+        "import multimodal_tpu_torch.eval.separability\n"
+        "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'multimodal_tpu'))\n"
+        "assert not leaked, leaked\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_chip_smoke_imports_without_jax():
+    """The card script imports nothing of JAX or the JAX package (it reads only the names of
+    the reference's kernel files, as strings)."""
+    code = (
+        "import sys, runpy\n"
+        "mod = runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
+        "assert 'phase_cli' in mod\n"
         "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'multimodal_tpu'))\n"
         "assert not leaked, leaked\n"

@@ -212,8 +212,14 @@ def test_fused_adamw_on_cuda_matches_cpu(state_dtype):
 
 @pytest.mark.parametrize("kwargs", [{"opt": "lamb"}, {"opt": "lars"}, {"fused": False}])
 def test_left_out_optimizers_raise(kwargs):
+    """Refused until ROADMAP Queue 1 item 8 was ported; now the three build the modular
+    chain, and what they still refuse is the reference's refusal: moments in bfloat16, which
+    only the fused AdamW stores."""
+    from multimodal_tpu_torch.train.optimizer import ChainOptimizer
+
     params = [("w", torch.nn.Parameter(torch.zeros(2, 2)))]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        make_optimizer(params, 1e-3, **kwargs)
+    assert isinstance(make_optimizer(params, 1e-3, **kwargs), ChainOptimizer)
+    with pytest.raises(ValueError, match="only honored by the fused adamw"):
+        make_optimizer(params, 1e-3, state_dtype=torch.bfloat16, **kwargs)
     with pytest.raises(ValueError, match="unknown optimizer"):
         make_optimizer(params, 1e-3, opt="sgd")

@@ -171,8 +171,7 @@ def test_block_attention_path_taken_on_tiny():
 
 
 @pytest.mark.parametrize("option,value", [
-    ("mesh", object()), ("use_shard_map", True), ("accum_steps", 2),
-    ("feature_cached_accum", True), ("ema_decay", 0.999), ("offload_opt_state", True),
+    ("mesh", object()), ("use_shard_map", True), ("offload_opt_state", True),
     ("wire_size", 128),
 ])
 def test_left_out_options_raise(option, value):
@@ -182,12 +181,15 @@ def test_left_out_options_raise(option, value):
         make_train_step(model, opt, **{option: value})
 
 
-@pytest.mark.parametrize("kwargs", [{"loss_type": "cloob"},
-                                    {"loss_kwargs": {"contrastive_impl": "chunked"}}])
+@pytest.mark.parametrize("kwargs", [{"loss_kwargs": {"contrastive_impl": "ring"}},
+                                    {"loss_kwargs": {"contrastive_impl": "ring",
+                                                     "label_smoothing": 0.1}}])
 def test_left_out_losses_raise(kwargs):
+    """Until ROADMAP Queue 1 item 7 was ported the cloob loss and the chunked form raised
+    here; of the contrastive forms only the ring (item 9) is still left out."""
     model = create_model("tiny-test", device="cpu")
     opt = make_optimizer(model.named_parameters(), 1e-3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="item 9"):
         make_train_step(model, opt, **kwargs)
 
 

@@ -51,15 +51,17 @@ def batch(cfg, n: int = 8, seed: int = 0):
 
 
 def jax_steps(jm, params, tx, loss_type: str = "clip", steps: int = 2, n: int = 8,
-              loss_kwargs: dict | None = None):
+              loss_kwargs: dict | None = None, extra: dict | None = None):
     """``steps`` JAX train steps from ``params`` with optimizer ``tx``: per-step metrics (host
     floats), per-step gradients (a jitted ``jax.grad`` of the same loss at the parameters
-    each step starts from) and the final params."""
+    each step starts from) and the final params. ``extra`` (numpy arrays by name) joins the
+    batch, e.g. an align loss's ``semantic`` features."""
     from multimodal_tpu.train import TrainState, make_train_step
     from multimodal_tpu.train.engine import make_loss_fn
 
     images, tokens = batch(jm.cfg, n)
-    data = {"image": jnp.asarray(images), "text": jnp.asarray(tokens)}
+    data = {"image": jnp.asarray(images), "text": jnp.asarray(tokens),
+            **{k: jnp.asarray(v) for k, v in (extra or {}).items()}}
     rng = jax.random.PRNGKey(0)
     step = make_train_step(jm, tx, loss_type=loss_type, loss_kwargs=loss_kwargs, donate=False)
     loss_fn = make_loss_fn(jm, loss_type, loss_kwargs)
@@ -74,7 +76,7 @@ def jax_steps(jm, params, tx, loss_type: str = "clip", steps: int = 2, n: int = 
 
 
 def port_steps(model, opt, loss_type: str = "clip", steps: int = 2, n: int = 8,
-               loss_kwargs: dict | None = None):
+               loss_kwargs: dict | None = None, extra: dict | None = None):
     """The port's side of ``jax_steps``: per-step metrics and gradients (by parameter name,
     numpy) of ``steps`` steps of ``make_train_step(model, opt)`` on the same batch."""
     import torch
@@ -82,7 +84,8 @@ def port_steps(model, opt, loss_type: str = "clip", steps: int = 2, n: int = 8,
     from multimodal_tpu_torch.train import TrainState, make_train_step
 
     images, tokens = batch(model.cfg, n)
-    data = {"image": torch.from_numpy(images), "text": torch.from_numpy(tokens).long()}
+    data = {"image": torch.from_numpy(images), "text": torch.from_numpy(tokens).long(),
+            **{k: torch.from_numpy(v) for k, v in (extra or {}).items()}}
     step = make_train_step(model, opt, loss_type=loss_type, loss_kwargs=loss_kwargs)
     state = TrainState.create(model, opt)
     metrics, grads = [], []
