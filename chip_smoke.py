@@ -147,7 +147,30 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      then one cut after a mid-epoch save at step 2 and resumed: its final parameters equal the
      uninterrupted run's bit for bit where the two identical runs agreed bit for bit, else
      within 1e-3 x max|param|. The runs write under ``chip_smoke_logs/`` in the checkout,
-     removed at the end.
+     removed at the end;
+ 14. real data, from the committed fixture (``tests/data/torch_shards``): (a) the host: g++,
+     whether a libjpeg program builds, the JPEG libraries the loader knows, nvJPEG beside
+     nvcc, the data library's build; (b) the card's decode (nvJPEG and the resample kernel,
+     ``ops/csrc/resample.cu``) of the photo shard at 64 px, eval and train, against the host
+     pipeline's committed outputs (mean |diff| < 3, correlation > 0.99 per image; the corrupt
+     JPEG not ok, the PNG ok exactly when PIL imports), the decode returning on the host while
+     a second of work waits on the caller's stream (it runs on the thread's own stream), and
+     the resample kernel against its plain version on the same decoded images (within 1 step,
+     a second launch the same bits) at B=256 shapes JPEGs to 224 train, 128 train and 224
+     eval, with CUDA-event times and the bound (each image's tapped rows and columns read
+     once, the output written once); (c) ``data.bench_pipeline`` on the shards: decode
+     images/s at 1, 4, 8 and 16 threads, the WdsReader and 4 InterleavedReaders, beside phase
+     6's bfloat16 rate; (d) the CLI in this process from the shapes shards (``--dataset-type
+     webdataset --dataset-resampled --workers 4``, a real ``--val-data``), ViT-B/32 bfloat16
+     at B=256, 8 steps each at 224, with ``--wire-size 128`` and with ``--aug-cfg
+     color_jitter=0.4 re_prob=0.25``: finite losses and validation metrics, exactly
+     8 x (24 + 24) block launches plus 24 for the validation batch and 9 resample launches,
+     samples/s over steps 5-8 beside phase 13's and phase 6's rates; (e) the wire upsample at
+     B=256, 128 -> 224 in float32, on the card against the CPU (1e-5 x max); (f) ViT-B/32
+     served with
+     ``wire_size=128``: JPEG requests (``images_b64``, with and without ``"wire": true``)
+     against the ``images_u8`` route on the same decoded pixels (cosine >= 0.9999), p50
+     latency and encodes/s at bucket 256 from JPEG bytes.
 Before the last line come the card's name and power limit and the kernel summary (JSON); the
 last line is the device record.
 """
@@ -213,6 +236,9 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces, the timed case that 
                       "(quantize_weight)", "q-B32-vision-act"),
     "int8_rescale": (_CSRC + "quant.cu", _JAX_QUANT + ":49 (_int8_product), :78 "
                      "(_int8_dense_bwd) and :100 (int8_matmul), the rescales", "r-B32-vision-fc"),
+    # not a TPU kernel: the device form of the reference's host JPEG pipeline's resample
+    "resample": (_CSRC + "resample.cu", "multimodal_tpu/native/jpeg_pipeline.cc:194 (resample, "
+                 "host C++; no TPU kernel)", "resample-B256-train224"),
 }
 BLOCK_CASES = [  # (case, batch, seq, width, heads, causal)
     ("vision", 1, 50, 768, 12, False),
@@ -2031,6 +2057,7 @@ def phase_cli(torch, tally, card, bf16_rate: float):
         cli_resume(torch, tally, card, logs)
     finally:
         shutil.rmtree(logs, ignore_errors=True)
+    return cli_rate["samples_per_s"]
 
 
 def cli_resume(torch, tally, card, logs: str):
@@ -2094,6 +2121,388 @@ def cli_resume(torch, tally, card, logs: str):
     gc.collect()
 
 
+DATA_DIR = "tests/data/torch_shards"  # the committed fixture (tests/torch_make_data_fixture.py)
+DATA_TRAIN = "train-{000000..000001}.tar"  # 2 shards x 128 shapes JPEGs at 128 px
+DATA_REPEAT = 8  # listed 8 times: 4 workers x 4 resampled shard draws x 128 = 2 batches each
+DATA_VAL_REPEAT = 4  # the 64-sample val shard 4 times: one validation batch of 256
+DATA_STEPS = 8  # 4 workers x 2 batches of 256
+DATA_WIRE = 128
+DATA_RUNS = [  # phase 14 (d): name, extra flags
+    ("224", []),
+    (f"wire {DATA_WIRE}", ["--wire-size", str(DATA_WIRE)]),
+    ("224 aug", ["--aug-cfg", "color_jitter=0.4", "re_prob=0.25"]),
+]
+DECODE_MEAN_LIMIT, DECODE_CORR_LIMIT = 3.0, 0.99  # two decoders of the same crop
+SPIN_MS = 1000.0  # work queued on the caller's stream ahead of a decode (phase 14 (b))
+
+
+def data_shards(name: str, repeat: int) -> str:
+    """The fixture's shard pattern ``name`` listed ``repeat`` times as one '::' source list."""
+    return "::".join([os.path.join(DATA_DIR, name)] * repeat)
+
+
+def image_agreement(got, want) -> list:
+    """Per image (mean |got - want|, Pearson correlation) of two uint8 [N, S, S, 3] batches;
+    an image that is constant in both correlates 1.0 when equal."""
+    out = []
+    for g, w in zip(np.asarray(got, np.float64), np.asarray(want, np.float64)):
+        g, w = g.ravel(), w.ravel()
+        mean = float(np.abs(g - w).mean())
+        if g.std() == 0 or w.std() == 0:
+            corr = 1.0 if np.array_equal(g, w) else 0.0
+        else:
+            corr = float(np.corrcoef(g, w)[0, 1])
+        out.append((mean, corr))
+    return out
+
+
+def resample_bound(taps: int, read_bytes: int, out_bytes: int) -> tuple:
+    """(ms, what sets it) of the resample pair: ``taps`` float32 multiply-adds (2 operations
+    each, on the CUDA cores) over 67 TFLOP/s, or the bytes the function needs over the memory
+    rate: the tapped rows and columns of each decoded image read once (``plan``'s
+    ``read_bytes``) and the uint8 output written once. The weight and tap tables are this
+    design's, not inputs of the resample, and stay out of it."""
+    t_ops = 2 * taps / PEAK_FLOPS["float32"]
+    t_bytes = (read_bytes + out_bytes) / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def plan_table_bytes(host_plan: dict) -> int:
+    """Bytes of a resample plan's descriptor, tap and weight tables, at their own dtypes."""
+    return sum(int(host_plan[k].nbytes) for k in ("desc", "bx", "by", "wx", "wy"))
+
+
+def probe_host() -> None:
+    """Phase 14 (a): what the host offers a JPEG decoder: the host compiler, libjpeg's
+    header and library, the shared libraries the loader knows, and nvJPEG beside nvcc."""
+    import tempfile
+
+    from multimodal_tpu_torch.ops import _build
+
+    def sh(cmd):
+        proc = subprocess.run(cmd, capture_output=True, text=True, check=False, timeout=120)
+        return proc.returncode, (proc.stdout + proc.stderr).strip()
+
+    print(f"  g++: {sh(['g++', '--version'])[1].splitlines()[0]}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "probe.cc")
+        with open(src, "w") as f:
+            f.write("#include <cstdio>\n#include <jpeglib.h>\n"
+                    "int main() { jpeg_decompress_struct c; (void)c; return 0; }\n")
+        rc, out = sh(["g++", src, "-o", os.path.join(tmp, "probe"), "-ljpeg"])
+    print(f"  libjpeg: a program including <jpeglib.h> and linking -ljpeg "
+          f"{'builds' if rc == 0 else 'does not build: ' + out.splitlines()[0]}", flush=True)
+    rc, out = sh(["ldconfig", "-p"])
+    libs = sorted({ln.split()[0] for ln in out.splitlines()
+                   if "libjpeg" in ln or "libnvjpeg" in ln})
+    print(f"  ldconfig: {libs}", flush=True)
+    header = os.path.join(os.path.dirname(os.path.dirname(_build.nvcc_path())), "include",
+                          "nvjpeg.h")
+    print(f"  nvjpeg.h {'found' if os.path.isfile(header) else 'missing'} at {header}; "
+          f"os.cpu_count() {os.cpu_count()}", flush=True)
+
+
+def decode_vs_fixture(torch, card):
+    """Phase 14 (b): the card's decode of the fixture's photo shard at 64 px, eval and train
+    (seeds 0..N-1), against the committed outputs of the host pipeline."""
+    from multimodal_tpu_torch.data import preprocess
+    from multimodal_tpu_torch.data.wds import decode_images, iter_tar_samples
+    from multimodal_tpu_torch.native import bindings as native
+
+    with open(os.path.join(DATA_DIR, "photos.json")) as f:
+        meta = json.load(f)
+    samples = list(iter_tar_samples(os.path.join(DATA_DIR, "photos-000000.tar")))
+    bufs = [s.get("jpg", s.get("png")) for s in samples]
+    is_jpeg = np.array([native.is_jpeg(b) for b in bufs])
+    size, n = meta["size"], len(bufs)
+    for mode, train in (("eval", False), ("train", True)):
+        want = np.load(os.path.join(DATA_DIR, f"expected_{mode}64.npy"))
+        kw = ({"seeds": np.arange(n, dtype=np.uint64), "rng": np.random.default_rng(0)}
+              if train else {})
+        out, ok = decode_images(bufs, size, train, device="cuda", **kw)
+        got = out.cpu().numpy()
+        want_ok = np.array(meta[f"ok_{mode}"]) & (is_jpeg | preprocess._HAS_PIL)
+        agree = image_agreement(got[ok], want[ok])
+        worst_mean = max(m for m, _ in agree)
+        worst_corr = min(c for _, c in agree)
+        print(f"  {mode} {size} px: {int(ok.sum())} of {n} decoded ({int(is_jpeg.sum())} JPEG "
+              f"members; the corrupt JPEG ok={bool(ok[~np.array(meta[f'ok_{mode}'])].any())}, "
+              f"the PNG ok={bool(ok[~is_jpeg].all())} with PIL "
+              f"{'present' if preprocess._HAS_PIL else 'absent'}); per image against the host "
+              f"pipeline's outputs: worst mean |diff| {worst_mean:.3f} (need < "
+              f"{DECODE_MEAN_LIMIT}), worst correlation {worst_corr:.5f} (need > "
+              f"{DECODE_CORR_LIMIT}) [{card}]", flush=True)
+        if not np.array_equal(ok, want_ok):
+            fail(f"{mode} decode ok flags {ok.tolist()}, need {want_ok.tolist()}")
+        if worst_mean >= DECODE_MEAN_LIMIT or worst_corr <= DECODE_CORR_LIMIT:
+            fail(f"the card's {mode} decode is off the host pipeline's outputs")
+
+
+def decode_off_the_step(torch, card) -> None:
+    """Phase 14 (b): the card's decode waits for none of the work queued on the caller's
+    stream (a training step, in the CLI): with SPIN_MS of spinning queued there,
+    ``decode_images`` returns on the host well before it ends, and its output, read on that
+    stream after it, is the unloaded decode's."""
+    from multimodal_tpu_torch.data.wds import decode_images, iter_tar_samples
+
+    bufs = [s["jpg"] for s in iter_tar_samples(os.path.join(DATA_DIR, "val-000000.tar"))]
+    want, _ = decode_images(bufs, 224, False, device="cuda")
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10**7)
+    end.record()
+    end.synchronize()
+    torch.cuda._sleep(int(SPIN_MS * 10**7 / start.elapsed_time(end)))
+    t0 = time.perf_counter()
+    got, _ = decode_images(bufs, 224, False, device="cuda")
+    host_ms = (time.perf_counter() - t0) * 1e3
+    busy = not torch.cuda.current_stream().query()
+    same = torch.equal(got, want)
+    print(f"  decode of {len(bufs)} JPEGs at 224 px behind {SPIN_MS:.0f} ms queued on the "
+          f"caller's stream: returned on the host in {host_ms:.2f} ms (need < "
+          f"{SPIN_MS / 2:.0f}), the caller's stream {'still busy' if busy else 'IDLE'} then, "
+          f"output {'the unloaded decode' if same else 'DIFFERS'} [{card}]", flush=True)
+    if host_ms >= SPIN_MS / 2 or not busy or not same:
+        fail("the card's decode waits for the caller's stream, or is not ordered before it")
+
+
+def resample_kernel_case(torch, card) -> dict:
+    """Phase 14 (b): the resample pair at the main path's shape (the fixture's 256 shapes
+    JPEGs, train crops at 224) against its plain version on the same decoded images, both
+    launched twice for the same bits; CUDA-event times and the bound."""
+    from multimodal_tpu_torch.data.wds import iter_tar_samples
+    from multimodal_tpu_torch.native import bindings as native
+    from multimodal_tpu_torch.ops import resample as rs
+
+    bufs = [s["jpg"] for shard in ("train-000000.tar", "train-000001.tar")
+            for s in iter_tar_samples(os.path.join(DATA_DIR, shard))]
+    arena, dims, off, ok = rs.decode_full(bufs, "cuda")
+    seeds = np.random.default_rng(0).integers(0, 2**63, len(bufs), dtype=np.uint64)
+    worst, timing = 0, None
+    for size, train in ((224, True), (DATA_WIRE, True), (224, False)):
+        boxes = np.zeros((len(bufs), 4))
+        boxes[ok] = native.crop_boxes(dims[ok], size, train, seeds[ok] if train else None)
+        host = rs.plan(dims, off, boxes, ok, size)
+        dev = rs.to_device(host, "cuda")
+        k1 = rs.launch(arena, dev).clone()
+        k2 = rs.launch(arena, dev).clone()
+
+        def plain():
+            return torch.stack([
+                rs.resample_reference(arena[off[i]:off[i] + dims[i, 0] * dims[i, 1] * 3]
+                                      .view(int(dims[i, 0]), int(dims[i, 1]), 3), boxes[i], size)
+                for i in range(len(bufs))])
+
+        p = plain()
+        err = int((k1.int() - p.int()).abs().max())
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: rs.launch(arena, dev))
+        plain_ms = cuda_ms(plain, iters=3, warmup=1)
+        b_ms, b_by = resample_bound(host["taps"], host["read_bytes"], k1.numel())
+        print(f"  resample B={len(bufs)} {'train' if train else 'eval'} {size} px from "
+              f"{int(dims[:, 0].min())}-{int(dims[:, 0].max())} px: max |kernel - plain| {err} "
+              f"(need <= 1), second launch {'same bits' if torch.equal(k1, k2) else 'DIFFERS'}; "
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.4f} ({b_by}: "
+              f"{host['read_bytes']} tapped source bytes + {k1.numel()} output bytes) "
+              f"of_bound={b_ms / ms:.3f} GB/s={(host['read_bytes'] + k1.numel()) / ms / 1e6:.1f}; "
+              f"the design's tables, outside the bound: {plan_table_bytes(host)} bytes "
+              f"[{card}]", flush=True)
+        if err > 1 or not torch.equal(k1, k2):
+            fail("the resample kernel disagrees with its plain version")
+        if size == 224 and train:
+            timing = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": None}
+    del arena
+    torch.cuda.empty_cache()
+    return {"worst": float(worst), "timing": timing}
+
+
+def data_cli(torch, tally, card, bf16_rate: float, cli_rate: float):
+    """Phase 14 (d): the training CLI in this process from the fixture's shapes shards,
+    ViT-B/32 bfloat16 at B=256, DATA_STEPS steps each of DATA_RUNS: finite losses and
+    validation metrics, exact launch counts, rates beside phase 13's and phase 6's."""
+    import gc
+
+    logs = os.path.abspath(CLI_LOGS)
+    shutil.rmtree(logs, ignore_errors=True)
+    common = ["--dataset-type", "webdataset", "--train-data", data_shards(DATA_TRAIN, DATA_REPEAT),
+              "--dataset-resampled", "--workers", "4",
+              "--val-data", data_shards("val-000000.tar", DATA_VAL_REPEAT),
+              "--model", MODEL, "--batch-size", str(CLI_BATCH),
+              "--train-num-samples", str(DATA_STEPS * CLI_BATCH), "--epochs", "1",
+              "--warmup", "100", "--lr", "1e-3", "--wd", "0.1", "--grad-clip-norm", "1.0",
+              "--log-every-n-steps", str(DATA_STEPS // 2), "--seed", "0",
+              "--precision", "amp_bf16", "--no-save-on-preemption", "--logs", logs]
+    need = {"block_attention_fwd": 24 * DATA_STEPS + 24, "block_attention_bwd": 24 * DATA_STEPS,
+            "resample": DATA_STEPS + 1}
+    try:
+        for name, extra in DATA_RUNS:
+            tag = "data-" + name.replace(" ", "-")
+            t0 = time.perf_counter()
+            tally.start()
+            rc = cli_main(common + extra + ["--name", tag])
+            torch.cuda.synchronize()
+            counts = tally.stop()
+            secs = time.perf_counter() - t0
+            records = cli_records(logs, tag)
+            train = [r for r in records if "loss" in r]
+            evals = [r for r in records if "val_loss" in r]
+            losses = [r["loss"] for r in train]
+            metrics = {k: v for k, v in (evals[-1] if evals else {}).items()
+                       if isinstance(v, float)}
+            last = train[-1] if train else {}
+            print(f"  CLI real data {name}: rc {rc}, {secs:.1f} s in all; logged losses "
+                  f"{[round(v, 5) for v in losses]}; samples/s (steps {DATA_STEPS // 2 + 1}-"
+                  f"{DATA_STEPS}) {last.get('samples_per_s', float('nan')):.1f}, data_time "
+                  f"{last.get('data_time', float('nan')):.4f} s, batch_time "
+                  f"{last.get('batch_time', float('nan')):.4f} s (averages over the epoch); "
+                  f"beside phase 13's synthetic CLI rate {cli_rate:.1f} "
+                  f"({last.get('samples_per_s', 0) / cli_rate:.3f}x) and phase 6's bfloat16 step "
+                  f"rate {bf16_rate:.1f} ({last.get('samples_per_s', 0) / bf16_rate:.3f}x); "
+                  f"val_loss "
+                  f"{metrics.get('val_loss', float('nan')):.5f}, image_to_text R@1 "
+                  f"{metrics.get('image_to_text_R@1', float('nan')):.4f}; launches "
+                  f"{({k: v for k, v in counts.items() if v})} (need {need}) [{card}]", flush=True)
+            if rc != 0 or len(train) != 2 or not np.isfinite(losses).all():
+                fail(f"the real-data CLI run {name} did not log finite losses")
+            if not metrics or not np.isfinite(list(metrics.values())).all():
+                fail(f"the real-data CLI run {name} logged no finite validation metrics")
+            if {k: v for k, v in counts.items() if v} != need:
+                fail(f"the real-data CLI run {name} launched {counts}, need {need}")
+            shutil.rmtree(os.path.join(logs, tag), ignore_errors=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(logs, ignore_errors=True)
+
+
+def wire_upsample_case(torch, card):
+    """Phase 14 (e): the --wire-size upsample, B=256 at DATA_WIRE -> 224 in float32, on the
+    card against the same function on the CPU."""
+    from multimodal_tpu_torch.data.preprocess import normalize_images
+    from multimodal_tpu_torch.data.resize import bicubic
+
+    x = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (CLI_BATCH, DATA_WIRE, DATA_WIRE, 3), dtype=np.uint8))
+    want = bicubic(normalize_images(x), 224)
+    xc = normalize_images(x.cuda())
+    got = bicubic(xc, 224).cpu()
+    err = float((got - want).abs().max() / want.abs().max())
+    ms = cuda_ms(lambda: bicubic(xc, 224))
+    print(f"  wire upsample B={CLI_BATCH} {DATA_WIRE} -> 224 float32: {ms:.4f} ms on the card "
+          f"(CUDA events); max |card - CPU| {err:.3e} x max|CPU| (need <= 1e-5) [{card}]",
+          flush=True)
+    if err > 1e-5:
+        fail("the card's wire upsample disagrees with the CPU's")
+
+
+def data_serving(torch, tally, card, kind):
+    """Phase 14 (f): ViT-B/32 float32 served with wire_size=DATA_WIRE over HTTP: JPEG requests
+    (``images_b64``, at the model's size and with ``"wire": true``) against the ``images_u8``
+    route on the pixels the same decode produced; p50 latency and encodes/s at bucket 256."""
+    from multimodal_tpu_torch.data.wds import decode_images, iter_tar_samples
+    from multimodal_tpu_torch.models import create_model
+    from multimodal_tpu_torch.serving import EmbeddingService, make_server
+
+    bufs = [s["jpg"] for s in iter_tar_samples(os.path.join(DATA_DIR, "val-000000.tar"))]
+    model = create_model(MODEL, seed=0)
+    svc = EmbeddingService(model, max_batch=CLI_BATCH, max_wait_ms=5.0, wire_size=DATA_WIRE)
+    srv = make_server(svc, "127.0.0.1", 0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        b64 = [base64.b64encode(b).decode() for b in bufs[:8]]
+        for wire, size in ((True, DATA_WIRE), (False, model.cfg.vision.image_size)):
+            tally.start()
+            code, out = post(url + "/v1/embed/image", {"images_b64": b64, "wire": wire})
+            code_s, sim = post(url + "/v1/similarity",
+                               {"texts": CAPTIONS, "images_b64": b64, "wire": wire})
+            counts = tally.stop()
+            pixels, ok = decode_images(bufs[:8], size, False, device="cuda")
+            u8 = [base64.b64encode(a.tobytes()).decode() for a in pixels.cpu().numpy()]
+            code_u, ref = post(url + "/v1/embed/image", {"images_u8": u8, "size": size})
+            if (code, code_s, code_u) != (200, 200, 200) or not all(out["decoded"]):
+                fail(f"JPEG serving (wire={wire}) answered {code}/{code_s}/{code_u}: "
+                     f"{out.get('error') or sim.get('error') or ref.get('error')}")
+            emb = check_embeddings("image", out["embeddings"], len(b64), model.cfg.embed_dim)
+            want = check_embeddings("image", ref["embeddings"], len(b64), model.cfg.embed_dim)
+            cos = float(np.sum(emb * want, -1).min())
+            sims = np.asarray(sim["similarity"], np.float32)
+            print(f"  JPEG requests wire={wire} ({size} px decode): min cosine to the images_u8 "
+                  f"route on the same pixels {cos:.7f} (need >= 0.9999); similarity "
+                  f"{sims.shape}; launches {({k: v for k, v in counts.items() if v})} "
+                  f"[{card}]", flush=True)
+            if cos < 0.9999 or sims.shape != (len(b64), len(CAPTIONS)):
+                fail(f"JPEG serving (wire={wire}) disagrees with the images_u8 route")
+            if counts["resample"] < 2 or counts["block_attention_fwd"] < 12 * 3:
+                fail(f"JPEG serving (wire={wire}) did not run the resample and block kernels")
+        lat = []
+        for _ in range(21):
+            t0 = time.perf_counter()
+            code, _ = post(url + "/v1/embed/image", {"images_b64": b64[:1], "wire": True})
+            lat.append((time.perf_counter() - t0) * 1e3)
+            if code != 200:
+                fail(f"JPEG latency probe returned {code}")
+        batch = (bufs * (CLI_BATCH // len(bufs) + 1))[:CLI_BATCH]
+        rates = {}
+        for wire in (True, False):
+            svc.embed_image_bytes(batch, wire=wire)
+            t0 = time.perf_counter()
+            for _ in range(5):
+                svc.embed_image_bytes(batch, wire=wire)
+            rates[wire] = 5 * CLI_BATCH / (time.perf_counter() - t0)
+        print(f"  {MODEL} float32 JPEG serving ({kind}): single-request wire p50 latency "
+              f"{float(np.median(lat[1:])):.2f} ms; encodes/s at bucket {CLI_BATCH} from JPEG "
+              f"bytes (decode included, host clock) wire {rates[True]:.1f}, "
+              f"{model.cfg.vision.image_size} px "
+              f"{rates[False]:.1f} [{card}]", flush=True)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        svc.close()
+        thread.join(timeout=10)
+    del model, svc
+    torch.cuda.empty_cache()
+
+
+def phase_data(torch, tally, card, kind, bf16_rate: float, cli_rate: float) -> dict:
+    """Phase 14: the real-data input path on the card."""
+    from multimodal_tpu_torch.data import bench_pipeline
+    from multimodal_tpu_torch.native import bindings as native
+
+    print("  (a) the host", flush=True)
+    probe_host()
+    t0 = time.perf_counter()
+    host_lib = native.build("host")
+    print(f"  data library 'host' (tar index, crop boxes) built in {time.perf_counter() - t0:.2f}"
+          f" s -> {host_lib}", flush=True)
+    try:
+        print(f"  data library 'jpeg' (host libjpeg decode) -> {native.build('jpeg')}", flush=True)
+    except RuntimeError as e:
+        why = next((ln for ln in str(e).splitlines() if "error" in ln), str(e).splitlines()[-1])
+        print(f"  data library 'jpeg' (host libjpeg decode) does not build here, so JPEGs "
+              f"decode on the card: {why[:200]}", flush=True)
+    print("  (b) the card's decode against the host pipeline's committed outputs", flush=True)
+    decode_vs_fixture(torch, card)
+    decode_off_the_step(torch, card)
+    kernel = resample_kernel_case(torch, card)
+    print(f"  (c) bench_pipeline on the fixture's shards (beside phase 6's bfloat16 step rate "
+          f"{bf16_rate:.1f} samples/s) [{card}]", flush=True)
+    bench_pipeline.main(["--shards", data_shards(DATA_TRAIN, DATA_REPEAT), "--device", "cuda",
+                         "--threads", "1,4,8,16", "--workers", "4", "--wire-size",
+                         str(DATA_WIRE), "--model-rate", str(bf16_rate)])
+    print(f"  (d) the CLI from the shards, {MODEL} bfloat16 B={CLI_BATCH}, {DATA_STEPS} steps "
+          "each", flush=True)
+    data_cli(torch, tally, card, bf16_rate, cli_rate)
+    print("  (e) the wire upsample", flush=True)
+    wire_upsample_case(torch, card)
+    print(f"  (f) serving JPEG requests, wire_size={DATA_WIRE}", flush=True)
+    data_serving(torch, tally, card, kind)
+    return kernel
+
+
 def main() -> int:
     import torch
 
@@ -2115,6 +2524,7 @@ def main() -> int:
     from multimodal_tpu_torch.ops import flash_attention as fl
     from multimodal_tpu_torch.ops import fused_attention as fa
     from multimodal_tpu_torch.ops import quant as q
+    from multimodal_tpu_torch.ops import resample  # noqa: F401 - registers its launch count
 
     mods = {"ba": ba, "fa": fa, "bm": bm, "fl": fl, "q": q, "layers": layers,
             "attention": attention}
@@ -2275,7 +2685,13 @@ def main() -> int:
     phase_int8(torch, mods, tally, card, kind, float_rate)
 
     print(f"phase 13 the training CLI: {MODEL} at full width and depth", flush=True)
-    phase_cli(torch, tally, card, bf16_stats["rate"])
+    cli_rate = phase_cli(torch, tally, card, bf16_stats["rate"])
+
+    print(f"phase 14 real data: JPEG shards through the readers and the card's decode, {MODEL} "
+          "trained and served", flush=True)
+    data = phase_data(torch, tally, card, kind, bf16_stats["rate"], cli_rate)
+    kernels["worst_f32"]["resample"] = data["worst"]
+    kernels["timing"][("resample", "resample-B256-train224", "float32")] = data["timing"]
 
     entries = []
     for name, (source, replaces, case) in KERNELS.items():

@@ -1,9 +1,10 @@
-"""The device feed: a background producer and a prefetch onto the device (port of
-``multimodal_tpu/data/pipeline.py``: ``background``, ``prefetch_to_device`` and
-``DataInfo``).
+"""The device feed: a background producer, the round-robin merge of reader workers and a
+prefetch onto the device (port of ``multimodal_tpu/data/pipeline.py``: ``background``,
+``InterleavedReaders``, ``prefetch_to_device`` and ``DataInfo``).
 
 A daemon thread runs the host side of the stream (batch generation and, for a CUDA target,
-the copy of every array into pinned host memory); the consumer's thread starts each batch's
+the copy of every host array into pinned memory; a tensor a reader already decoded onto the
+device passes through); the consumer's thread starts each batch's
 host-to-device copies with ``non_blocking=True`` ``depth`` batches ahead of the step that
 reads them, so the copies overlap the steps before. The copies run on the current stream, so
 a step enqueued after them reads complete data.
@@ -11,9 +12,7 @@ a step enqueued after them reads complete data.
 A pinned buffer must stay alive while its copy is in flight: ``prefetch_to_device`` holds the
 pinned tensors of each batch until the consumer asks for the batch after it, which is after
 the step that read it was enqueued (and behind that step, on the same stream, the copy).
-
-Not ported yet: ``InterleavedReaders`` (the round-robin merge of webdataset readers), with
-the webdataset reader, ROADMAP Queue 1 item 8."""
+"""
 
 from __future__ import annotations
 
@@ -58,20 +57,72 @@ def background(iterable: Iterable, depth: int = 4) -> Iterator:
                 break
 
 
+class InterleavedReaders:
+    """--workers N: N shard-disjoint readers (the reference's dataloader workers,
+    data.py:467-469 split_by_worker) prefetching concurrently on daemon threads, merged
+    STRICTLY ROUND-ROBIN (worker 0, 1, ..., skipping exhausted ones). The merge order is
+    therefore fully deterministic given deterministic per-worker streams, which the mid-epoch
+    resume fast-forward needs: it replays and skips a batch prefix by position. Read and decode
+    still overlap across workers: each fills its own bounded queue ahead of its turn. Epochs
+    plumb to every worker."""
+
+    def __init__(self, readers, depth: int = 4):
+        if not readers:
+            raise ValueError("need at least one reader")
+        self.readers = list(readers)
+        self.depth = depth
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+        for r in self.readers:
+            if hasattr(r, "set_epoch"):
+                r.set_epoch(epoch)
+
+    @property
+    def num_batches(self):
+        counts = [getattr(r, "num_batches", None) for r in self.readers]
+        return None if any(c is None for c in counts) else sum(counts)
+
+    def __iter__(self):
+        queues = [queue.Queue(maxsize=self.depth) for _ in self.readers]
+        stop = threading.Event()
+        for r, q in zip(self.readers, queues):
+            threading.Thread(target=_producer, args=(iter(r), q, stop), daemon=True).start()
+        live = list(queues)
+        try:
+            while live:
+                for q in list(live):
+                    item = q.get()
+                    if item is _SENTINEL:
+                        live.remove(q)
+                        continue
+                    yield item
+        finally:
+            stop.set()
+            for q in queues:  # unblock producers parked on a full queue
+                while not q.empty():
+                    try:
+                        q.get_nowait()
+                    except queue.Empty:
+                        break
+
+
 def _host_tensors(batch: dict, pin: bool) -> dict:
-    """numpy arrays -> CPU tensors, copied into pinned memory when ``pin``."""
+    """numpy arrays -> CPU tensors, copied into pinned memory when ``pin``; a tensor already
+    on a CUDA device stays where it is."""
     out = {}
     for k, v in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        out[k] = t.pin_memory() if pin else t
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
+        out[k] = t.pin_memory() if pin and not t.is_cuda else t
     return out
 
 
 def prefetch_to_device(iterable: Iterable, device="cuda", depth: int = 2,
                        decode_threads: int = 4) -> Iterator[dict]:
-    """Yield the batches of ``iterable`` (dicts of numpy arrays) as tensors on ``device``,
-    their copies started ``depth`` batches ahead of consumption. On the CPU the tensors share
-    the arrays' memory."""
+    """Yield the batches of ``iterable`` (dicts of numpy arrays or tensors) as tensors on
+    ``device``, their copies started ``depth`` batches ahead of consumption. On the CPU the
+    tensors share the arrays' memory."""
     device = torch.device(device)
     pin = device.type == "cuda"
     it = background((_host_tensors(b, pin) for b in iterable), depth=max(depth, decode_threads))

@@ -1,12 +1,15 @@
 """Batch embedding extraction — the serving-side encode API (port of
-``multimodal_tpu/inference.py:Embedder``, without the wire-size path).
+``multimodal_tpu/inference.py:Embedder``).
 
 Every encode runs in eval mode (``model_mode``: the reference encodes with ``train=False``)
 under ``torch.inference_mode()`` on the model's device and returns L2-normalized float32
 rows; the model's own mode comes back afterwards. uint8 images cross to the device as uint8
 and are normalized there. ``quantized=True`` converts the model's weights to int8 once
 (``inference_quant.quantize_clip_params``) and encodes every batch through the W8A8 encoders
-instead of the model."""
+instead of the model. ``wire_size=N`` also takes [B, N, N, 3] batches and upsamples them to
+the model's resolution on the device (``data.resize.bicubic``), the serving form of the train
+path's ``--wire-size``. ``embed_image_bytes`` / ``embed_image_files`` decode JPEG (or, through
+PIL, other) bytes on the model's device first (``data.wds.decode_images``)."""
 
 from __future__ import annotations
 
@@ -16,8 +19,10 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from multimodal_tpu_torch.data.preprocess import normalize_images
+from multimodal_tpu_torch.data.preprocess import IMAGE_SIZE, normalize_images
+from multimodal_tpu_torch.data.resize import bicubic
 from multimodal_tpu_torch.data.tokenizer import tokenize
+from multimodal_tpu_torch.data.wds import decode_images
 from multimodal_tpu_torch.inference_quant import encode_image_q, encode_text_q, quantize_clip_params
 
 
@@ -34,14 +39,35 @@ def model_mode(model: torch.nn.Module, training: bool):
         model.train(was)
 
 
+def wire_upsample(x: torch.Tensor, model, wire_size) -> torch.Tensor:
+    """The serving form of ``--wire-size`` (``train.engine.batch_images``): a batch at the
+    model's resolution passes as it is; a ``wire_size`` batch is normalized (uint8) and
+    upsampled to the model's resolution on its device. Any other size raises: the resize
+    needs the explicit ``wire_size``."""
+    s = model.cfg.vision.image_size
+    if x.shape[1] == s and x.shape[2] == s:
+        return x
+    if wire_size is None or x.shape[1] != wire_size or x.shape[2] != wire_size:
+        raise ValueError(
+            f"images are {x.shape[1]}x{x.shape[2]} but the model expects {s}px — "
+            f"construct the Embedder/EmbeddingService with wire_size={x.shape[1]} to "
+            "opt into the on-device upsample")
+    if x.dtype == torch.uint8:
+        x = normalize_images(x)
+    return bicubic(x, s)
+
+
 class Embedder:
     """Fixed-batch text/image embedding over a ``CLIP`` model; with ``quantized=True`` over
     its int8 weights, converted once here (the model must be one the quantized encoders take,
-    else ``ValueError``)."""
+    else ``ValueError``); with ``wire_size`` also over [B, wire_size, wire_size, 3] batches,
+    upsampled on the device."""
 
-    def __init__(self, model, batch_size: int = 256, quantized: bool = False):
+    def __init__(self, model, batch_size: int = 256, quantized: bool = False,
+                 wire_size: int | None = None):
         self.model = model
         self.batch_size = batch_size
+        self.wire_size = wire_size
         self.device = next(model.parameters()).device
         self.qparams = None  # the int8 weights, with quantized=True
         if quantized:
@@ -56,23 +82,29 @@ class Embedder:
                 return encode_text_q(self.qparams, self.model.cfg, t).cpu().numpy()
             return self.model.encode_text(t, normalize=True).cpu().numpy()
 
-    def encode_images(self, images: np.ndarray) -> np.ndarray:
-        """One device batch of NHWC images (uint8, or float already normalized)."""
+    def encode_images(self, images) -> np.ndarray:
+        """One device batch of NHWC images (uint8, or float already normalized; numpy or a
+        tensor)."""
         with model_mode(self.model, False), torch.inference_mode():
-            x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
+            x = images if isinstance(images, torch.Tensor) else torch.from_numpy(
+                np.ascontiguousarray(images))
+            x = wire_upsample(x.to(self.device), self.model, self.wire_size)
             if x.dtype == torch.uint8:
                 x = normalize_images(x)
             if self.qparams is not None:
                 return encode_image_q(self.qparams, self.model.cfg, x).cpu().numpy()
             return self.model.encode_image(x, normalize=True).cpu().numpy()
 
-    def _batched(self, encode, array: np.ndarray) -> np.ndarray:
-        """Run ``encode`` over fixed-size chunks; the tail is padded by repeating its last row."""
+    def _batched(self, encode, array) -> np.ndarray:
+        """Run ``encode`` over fixed-size chunks of a numpy array or a tensor; the tail is
+        padded by repeating its last row."""
         outs = []
         for start in range(0, array.shape[0], self.batch_size):
             chunk = array[start : start + self.batch_size]
             pad = self.batch_size - chunk.shape[0]
-            if pad:
+            if pad and isinstance(chunk, torch.Tensor):
+                chunk = torch.cat([chunk, chunk[-1:].expand(pad, *chunk.shape[1:])])
+            elif pad:
                 chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, axis=0)])
             out = encode(chunk)
             outs.append(out[: out.shape[0] - pad])
@@ -85,3 +117,22 @@ class Embedder:
     def embed_images(self, images: np.ndarray):
         """images: [N, S, S, 3] uint8 or normalized float."""
         return self._batched(self.encode_images, images)
+
+    def embed_image_bytes(self, buffers: Sequence[bytes], image_size: int = IMAGE_SIZE):
+        """Encoded images (JPEG/PNG bytes) -> (embeddings, ok): decoded at ``image_size`` on
+        the model's device, then embedded; failed decodes come back as zero rows, flagged
+        in ``ok``."""
+        arr, ok = decode_images(list(buffers), image_size, train=False, device=self.device)
+        emb = self.embed_images(arr)
+        emb[~ok] = 0.0
+        return emb, ok
+
+    def embed_image_files(self, paths: Sequence[str], image_size: int = IMAGE_SIZE):
+        buffers = []
+        for p in paths:
+            try:
+                with open(p, "rb") as f:
+                    buffers.append(f.read())
+            except OSError:
+                buffers.append(b"")
+        return self.embed_image_bytes(buffers, image_size)

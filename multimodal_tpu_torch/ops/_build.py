@@ -26,7 +26,7 @@ import threading
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = tuple(os.path.join(_HERE, "csrc", name) for name in (
     "block_attention_fwd.cu", "block_attention_bwd.cu", "fused_attention.cu", "block_mlp.cu",
-    "flash_attention.cu", "quant.cu"))
+    "flash_attention.cu", "quant.cu", "resample.cu"))
 HEADERS = tuple(os.path.join(_HERE, "csrc", name) for name in (
     "block_attention_common.cuh", "attention_passes.cuh", "mma_tiles.cuh", "register_tiles.cuh",
     "tf32_tiles.cuh", "mma_gemm.cuh"))
@@ -41,6 +41,9 @@ NVCC_FLAGS = (
 GEMM_FORMS = ("NN", "NT", "TN")
 GEMM_LOADS = ("plain", "LN", "act", "LN-b")
 GEMM_STORES = ("round", "residual", "act'", "bias-residual", "round+act")
+
+# resample.cu decodes JPEGs with the toolkit's nvJPEG
+LINK_LIBS = ("-lnvjpeg",)
 
 _lock = threading.Lock()
 _lib = None
@@ -57,7 +60,7 @@ def nvcc_path() -> str:
 
 
 def library_path() -> str:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_LIBS).encode())
     for src in SOURCES + HEADERS:
         with open(src, "rb") as f:
             digest.update(f.read())
@@ -86,7 +89,7 @@ def build() -> tuple[str, str]:
                 raise RuntimeError(f"nvcc failed on {os.path.basename(src)} "
                                    f"({proc.returncode}):\n{log}")
         lib = os.path.join(tmp, "lib.so")
-        link = subprocess.run([nvcc, "-shared", "-o", lib, *objs],
+        link = subprocess.run([nvcc, "-shared", "-o", lib, *objs, *LINK_LIBS],
                               capture_output=True, text=True, check=False)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
@@ -119,6 +122,9 @@ def load() -> ctypes.CDLL:
                 "mmt_block_mlp_db1_partial_rows": [i32],
                 "mmt_quantize_rows": [i32] + [ptr] * 3 + [i32] * 3 + [ptr],
                 "mmt_int8_rescale": [i32] + [ptr] * 5 + [i32] * 2 + [ptr],
+                "mmt_resample": [ptr] * 8 + [i32] * 3 + [ptr],
+                "mmt_jpeg_dims": [ptr, ptr, i32, ptr, ptr],
+                "mmt_jpeg_decode": [ptr, ptr, i32, ptr, ptr, ptr, ptr, i32, i32, ptr],
             }
             for name, argtypes in entries.items():
                 getattr(lib, name).argtypes = argtypes
@@ -146,6 +152,11 @@ def gemm_signature(kernel: str) -> tuple[str, str, str, str, str] | None:
     return (*types, GEMM_FORMS[form], GEMM_LOADS[load], GEMM_STORES[store])
 
 
+NVJPEG_ERROR = 100000  # resample.cu's nvJPEG entries return this + the nvjpegStatus_t
+
+
 def check(lib: ctypes.CDLL, err: int, what: str):
+    if err >= NVJPEG_ERROR:
+        raise RuntimeError(f"{what} failed: nvJPEG status {err - NVJPEG_ERROR}")
     if err != 0:
         raise RuntimeError(f"{what} failed: CUDA error {err} ({lib.mmt_error_string(err).decode()})")

@@ -5,13 +5,19 @@ HTTP front end (port of ``multimodal_tpu/serving.py``).
   ``max_batch`` items or ``max_wait_ms``, pads the batch to the next power of two by
   repeating its last row, and runs ONE encode on the device.
 - **uint8 wire for images.** ``images_u8`` carries base64 of raw uint8 HWC rows at the
-  model's resolution; normalization runs on the device.
+  model's resolution (or at ``wire_size``); normalization runs on the device.
+- **JPEG payloads.** ``images_b64`` carries base64 of encoded images, decoded on the model's
+  device (``data.wds.decode_images``: nvJPEG and the resample kernel on the GPU, PIL for what
+  is not a JPEG); ``"decoded"`` flags each, and a failed one embeds as a zero row.
+- **The low-resolution wire format.** A service built with ``wire_size`` (``--wire-size``)
+  takes ``images_u8`` at that size, and with ``"wire": true`` decodes JPEGs at it; such
+  batches ride their own batcher and are upsampled to the model's resolution on the device.
 
 Routes: ``GET /healthz``, ``GET /v1/stats``, ``POST /v1/embed/text`` (``texts``),
-``POST /v1/embed/image`` (``images_u8``), ``POST /v1/similarity`` (``texts`` +
-``images_u8``). A malformed request gets 400, an encode failure 500. ``quantized=True``
-(``--quantized``) answers every route from the int8 W8A8 encoders (``inference_quant``).
-JPEG payloads and the low-resolution wire format are not ported yet.
+``POST /v1/embed/image`` (``images_u8`` or ``images_b64``), ``POST /v1/similarity``
+(``texts`` + ``images_u8`` or ``images_b64``; each text embedded once). A malformed request
+gets 400, an encode failure 500. ``quantized=True`` (``--quantized``) answers every route from
+the int8 W8A8 encoders (``inference_quant``).
 """
 
 from __future__ import annotations
@@ -26,13 +32,24 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Optional, Sequence
 
 import numpy as np
+import torch
 
 from multimodal_tpu_torch.data.tokenizer import tokenize
+from multimodal_tpu_torch.data.wds import decode_images
 from multimodal_tpu_torch.inference import Embedder
 
 
 class RequestError(ValueError):
     """A malformed request (HTTP 400), as opposed to a failure while encoding (500)."""
+
+
+def _cat(parts: list):
+    """Concatenate request rows: numpy arrays stay numpy; if any part is a tensor (rows
+    decoded on the device), all become tensors on that part's device."""
+    dev = next((p.device for p in parts if isinstance(p, torch.Tensor)), None)
+    if dev is None:
+        return np.concatenate(parts, axis=0)
+    return torch.cat([torch.as_tensor(p).to(dev) for p in parts])
 
 
 def _next_bucket(n: int, max_batch: int) -> int:
@@ -90,8 +107,8 @@ class DynamicBatcher:
     A copy of ``multimodal_tpu.serving.DynamicBatcher`` (pure host code), so that the
     port never imports the JAX package and runs where jax is not installed.
 
-    ``encode``: np.ndarray [B, ...] -> array-like [B, D]; called only from the internal
-    dispatcher thread, with B always a power-of-two bucket <= max_batch."""
+    ``encode``: np.ndarray or tensor [B, ...] -> array-like [B, D]; called only from the
+    internal dispatcher thread, with B always a power-of-two bucket <= max_batch."""
 
     def __init__(self, encode: Callable, max_batch: int = 256, max_wait_ms: float = 5.0):
         if max_batch < 1:
@@ -105,7 +122,7 @@ class DynamicBatcher:
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
-    def submit(self, rows: np.ndarray) -> np.ndarray:
+    def submit(self, rows) -> np.ndarray:
         """Block until the rows are encoded; returns [len(rows), D]. Thread-safe."""
         if self._stop:
             raise RuntimeError("batcher is stopped")
@@ -157,10 +174,12 @@ class DynamicBatcher:
 
     def _flush(self, batch: list, count: int):
         try:
-            rows = np.concatenate([r.rows for r in batch], axis=0)
+            rows = _cat([r.rows for r in batch])
             bucket = _next_bucket(count, self.max_batch)
             if bucket > count:
-                rows = np.concatenate([rows, np.repeat(rows[-1:], bucket - count, axis=0)])
+                rows = _cat([rows, rows[-1:].repeat(bucket - count, *([1] * (rows.ndim - 1)))
+                             if isinstance(rows, torch.Tensor)
+                             else np.repeat(rows[-1:], bucket - count, axis=0)])
             out = np.asarray(self.encode(rows))
             self.stats.record(len(batch), count, bucket)
             off = 0
@@ -176,19 +195,26 @@ class DynamicBatcher:
 
 
 class EmbeddingService:
-    """Tokenization and payload checks on the caller's thread; device encodes funneled
-    through one DynamicBatcher per modality. Usable in-process or behind ``make_server``.
-    ``quantized=True`` encodes through the int8 encoders (``Embedder(quantized=True)``)."""
+    """Tokenization, decode and payload checks on the caller's thread; device encodes
+    funneled through one DynamicBatcher per modality (and one more for ``wire_size``
+    batches, which are coalesced apart from the full-size ones). Usable in-process or behind
+    ``make_server``. ``quantized=True`` encodes through the int8 encoders
+    (``Embedder(quantized=True)``)."""
 
     def __init__(self, model, max_batch: int = 256, max_wait_ms: float = 5.0,
-                 quantized: bool = False):
+                 quantized: bool = False, wire_size: Optional[int] = None):
         self.model = model
-        self._embedder = Embedder(model, batch_size=max_batch, quantized=quantized)
+        self.wire_size = wire_size
+        self._embedder = Embedder(model, batch_size=max_batch, quantized=quantized,
+                                  wire_size=wire_size)
         self.device = self._embedder.device
         self.text_batcher = DynamicBatcher(self._embedder.encode_tokens,
                                            max_batch=max_batch, max_wait_ms=max_wait_ms)
         self.image_batcher = DynamicBatcher(self._embedder.encode_images,
                                             max_batch=max_batch, max_wait_ms=max_wait_ms)
+        self.image_wire_batcher = (
+            DynamicBatcher(self._embedder.encode_images, max_batch=max_batch,
+                           max_wait_ms=max_wait_ms) if wire_size else None)
         self.started = time.time()
 
     def embed_texts(self, texts: Sequence[str]) -> np.ndarray:
@@ -198,19 +224,33 @@ class EmbeddingService:
         return self.text_batcher.submit(
             tokenize(list(texts), self.model.cfg.text.context_length))
 
-    def embed_image_arrays(self, images: np.ndarray) -> np.ndarray:
-        """[N, S, S, 3] uint8 at the model's resolution S."""
+    def _sizes(self) -> tuple:
         s = self.model.cfg.vision.image_size
-        if images.dtype != np.uint8 or images.ndim != 4 or images.shape[1:] != (s, s, 3):
-            raise RequestError(f"images must be uint8 [N, {s}, {s}, 3], got "
-                               f"{images.dtype} {list(images.shape)}")
+        return (s, self.wire_size) if self.wire_size else (s,)
+
+    def embed_image_arrays(self, images) -> np.ndarray:
+        """[N, S, S, 3] uint8 (numpy or a tensor) at the model's resolution S, or at
+        ``wire_size``: those go through the wire batcher and are upsampled on the device."""
+        shape = tuple(images.shape)
+        dtype_ok = (images.dtype == torch.uint8 if isinstance(images, torch.Tensor)
+                    else images.dtype == np.uint8)
+        if (not dtype_ok or len(shape) != 4 or shape[1] not in self._sizes()
+                or shape[1:] != (shape[1], shape[1], 3)):
+            sizes = " or ".join(str(v) for v in self._sizes())
+            raise RequestError(f"images must be uint8 [N, S, S, 3] with S {sizes}, got "
+                               f"{images.dtype} {list(shape)}")
+        if self.image_wire_batcher is not None and shape[1] == self.wire_size != \
+                self.model.cfg.vision.image_size:
+            return self.image_wire_batcher.submit(images)
         return self.image_batcher.submit(images)
 
     def embed_image_raw(self, buffers: Sequence[bytes], size=None) -> np.ndarray:
-        """Each buffer is raw uint8 HWC at ``size`` px, which must be the model's size."""
-        s = self.model.cfg.vision.image_size
-        if size is not None and (isinstance(size, bool) or size != s):
-            raise RequestError(f"'size' must be {s} (the model's resolution), got {size!r}")
+        """Each buffer is raw uint8 HWC at ``size`` px: the model's size or ``wire_size``
+        (default: ``wire_size`` when the service has one, else the model's)."""
+        if size is not None and (isinstance(size, bool) or size not in self._sizes()):
+            sizes = " or ".join(str(v) for v in self._sizes())
+            raise RequestError(f"'size' must be {sizes}, got {size!r}")
+        s = size or self.wire_size or self.model.cfg.vision.image_size
         n = s * s * 3
         bad = [i for i, b in enumerate(buffers) if len(b) != n]
         if bad:
@@ -219,31 +259,48 @@ class EmbeddingService:
         return self.embed_image_arrays(
             np.frombuffer(b"".join(buffers), np.uint8).reshape(-1, s, s, 3))
 
+    def embed_image_bytes(self, buffers: Sequence[bytes], wire: bool = False):
+        """Encoded images -> (embeddings, ok), decoded on the model's device at the model's
+        size, or with ``wire`` at ``wire_size`` (a cheaper decode; the device upsamples). A
+        failed decode embeds as a zero row, flagged in ``ok``."""
+        if wire and not self.wire_size:
+            raise RequestError("wire decode requested but the service has no wire_size")
+        size = self.wire_size if wire else self.model.cfg.vision.image_size
+        arr, ok = decode_images(list(buffers), size, train=False, device=self.device)
+        emb = np.array(self.embed_image_arrays(arr))
+        emb[~ok] = 0.0
+        return emb, ok
+
     def similarity(self, texts: Sequence[str], buffers: Sequence[bytes], size=None):
-        """Cosine-similarity matrix [n_images, n_texts] (embeddings are unit-norm); each
-        text is embedded once."""
+        """Cosine-similarity matrix [n_images, n_texts] of raw uint8 images (embeddings are
+        unit-norm); each text is embedded once."""
         t = self.embed_texts(texts)
         return self.embed_image_raw(buffers, size) @ t.T
 
     def stats(self) -> dict:
-        return {
+        out = {
             "uptime_s": round(time.time() - self.started, 1),
             "text": self.text_batcher.stats.snapshot(),
             "image": self.image_batcher.stats.snapshot(),
         }
+        if self.image_wire_batcher is not None:
+            out["image_wire"] = self.image_wire_batcher.stats.snapshot()
+        return out
 
     def close(self):
         self.text_batcher.stop()
         self.image_batcher.stop()
+        if self.image_wire_batcher is not None:
+            self.image_wire_batcher.stop()
 
 
-def _decode_u8(raw) -> list:
+def _decode_b64(raw, key: str) -> list:
     if not isinstance(raw, list) or not raw:
-        raise RequestError("'images_u8' must be a non-empty list of base64 strings")
+        raise RequestError(f"'{key}' must be a non-empty list of base64 strings")
     try:
         return [base64.b64decode(s, validate=True) for s in raw]
-    except (binascii.Error, TypeError) as e:
-        raise RequestError(f"'images_u8' entry is not base64: {e}") from e
+    except (binascii.Error, TypeError, ValueError) as e:
+        raise RequestError(f"'{key}' entry is not base64: {e}") from e
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -299,20 +356,31 @@ class _Handler(BaseHTTPRequestHandler):
                 emb = self.service.embed_texts(req.get("texts"))
                 return self._json(200, self._emb_payload(req, emb))
             if self.path == "/v1/embed/image":
-                if "images_u8" not in req:
-                    raise RequestError("send 'images_u8' (raw uint8 HWC at the model's size); "
-                                       "JPEG payloads ('images_b64') are not supported")
-                emb = self.service.embed_image_raw(_decode_u8(req["images_u8"]),
-                                                   req.get("size"))
-                return self._json(200, {**self._emb_payload(req, emb),
-                                        "decoded": [True] * len(emb)})
+                if "images_u8" in req:
+                    emb = self.service.embed_image_raw(_decode_b64(req["images_u8"], "images_u8"),
+                                                       req.get("size"))
+                    return self._json(200, {**self._emb_payload(req, emb),
+                                            "decoded": [True] * len(emb)})
+                if "images_b64" not in req:
+                    raise RequestError("send 'images_u8' (raw uint8 HWC) or 'images_b64' "
+                                       "(encoded images)")
+                emb, ok = self.service.embed_image_bytes(
+                    _decode_b64(req["images_b64"], "images_b64"), wire=bool(req.get("wire")))
+                return self._json(200, {**self._emb_payload(req, emb), "decoded": ok.tolist()})
             if self.path == "/v1/similarity":
-                if "images_u8" not in req:
-                    raise RequestError("need 'texts' and 'images_u8'")
-                sims = self.service.similarity(req.get("texts"), _decode_u8(req["images_u8"]),
-                                               req.get("size"))
-                return self._json(200, {"similarity": sims.tolist(),
-                                        "decoded": [True] * len(sims)})
+                if "images_u8" not in req and "images_b64" not in req:
+                    raise RequestError("need 'texts' and 'images_u8' or 'images_b64'")
+                t = self.service.embed_texts(req.get("texts"))
+                if "images_u8" in req:
+                    i = self.service.embed_image_raw(_decode_b64(req["images_u8"], "images_u8"),
+                                                     req.get("size"))
+                    ok = [True] * len(i)
+                else:
+                    i, ok = self.service.embed_image_bytes(
+                        _decode_b64(req["images_b64"], "images_b64"),
+                        wire=bool(req.get("wire")))
+                    ok = ok.tolist()
+                return self._json(200, {"similarity": (i @ t.T).tolist(), "decoded": ok})
             return self._json(404, {"error": f"unknown path {self.path}"})
         except RequestError as e:
             return self._json(400, {"error": str(e)})
@@ -349,6 +417,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--max-batch", type=int, default=256)
     ap.add_argument("--max-wait-ms", type=float, default=5.0)
     ap.add_argument("--quantized", action="store_true", help="serve the int8 W8A8 path")
+    ap.add_argument("--wire-size", type=int, default=None,
+                    help="also accept images at this smaller size (raw uint8 'images_u8' or "
+                         "'wire': true JPEG) and upsample them on the device")
     args = ap.parse_args(argv)
 
     device = torch.device(args.device)
@@ -362,7 +433,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         load_openai_state_dict(
             model, torch.load(args.state_dict, map_location="cpu", weights_only=True))
     service = EmbeddingService(model, max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
-                               quantized=args.quantized)
+                               quantized=args.quantized, wire_size=args.wire_size)
     server = make_server(service, args.host, args.port)
     log.info("serving %s%s on %s at http://%s:%d (max_batch=%d, wait=%.1fms)", args.model,
              " (int8)" if args.quantized else "", device, *server.server_address,

@@ -33,9 +33,12 @@ noise from (the JAX step's ``rngs={"patch_dropout": rng}``) and the vclip loss i
 Monte-Carlo draws; a model without patch dropout under the clip loss needs none. The step
 runs the model in training mode and leaves it in the mode it found it in.
 
+``wire_size`` (``--wire-size``) takes batches decoded at that smaller size and upsamples them
+to the model's resolution on the device (``data.resize.bicubic``, JAX's bicubic) in the step's
+prolog, ``batch_images``.
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item: meshes and
-shard_map, the ring contrastive form and optimizer-state offload (Queue 1 item 9), and
-``wire_size`` (a serving piece of Queue 1).
+shard_map, the ring contrastive form and optimizer-state offload (Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ import numpy as np
 import torch
 
 from multimodal_tpu_torch.data.preprocess import normalize_images
+from multimodal_tpu_torch.data.resize import bicubic
 from multimodal_tpu_torch.distributions import NormalDiag, PowerSpherical, VonMisesFisher
 from multimodal_tpu_torch.inference import model_mode
 from multimodal_tpu_torch.losses.align_loss import align_clip_loss
@@ -63,21 +67,25 @@ LOGIT_SCALE_MAX = 4.6052  # ln(100)
 
 
 def batch_images(batch: dict, model=None, wire_size: Optional[int] = None) -> torch.Tensor:
-    """The image batch, normalized on its device when it arrives as uint8; a spatial size
-    that differs from the model's raises, as in the reference."""
-    if wire_size is not None:
-        raise NotImplementedError("wire_size (the on-device bicubic upsample) is not ported "
-                                  "yet (ROADMAP Queue 1, serving pieces)")
+    """The step's input prolog: the image batch, normalized on its device when it arrives as
+    uint8. With ``wire_size`` a batch decoded at that size (the --wire-size format) is
+    upsampled to the model's resolution on the device (``data.resize.bicubic``, in float32).
+    The resize needs the explicit ``wire_size``: a spatial size that differs from the model's
+    without one raises, as does one that differs from ``wire_size``, as in the reference."""
     img = batch["image"]
     if img.dtype == torch.uint8:
         img = normalize_images(img)
     target = getattr(getattr(getattr(model, "cfg", None), "vision", None), "image_size", None)
     if target and img.shape[1] != target:
-        raise ValueError(
-            f"batch images are {img.shape[1]}px but the model expects {target}px — "
-            "pass --wire-size to opt into the on-device upsample, or decode the data "
-            "at the model's resolution (--force-image-size rebuilds the model at the "
-            "forced size)")
+        if wire_size is None:
+            raise ValueError(
+                f"batch images are {img.shape[1]}px but the model expects {target}px — "
+                "pass --wire-size to opt into the on-device upsample, or decode the data "
+                "at the model's resolution (--force-image-size rebuilds the model at the "
+                "forced size)")
+        if img.shape[1] != wire_size:
+            raise ValueError(f"batch images are {img.shape[1]}px but --wire-size is {wire_size}")
+        img = bicubic(img, target)
     return img
 
 
@@ -130,7 +138,7 @@ def _clamp_logit_scale(model: torch.nn.Module):
             p.clamp_(0.0, LOGIT_SCALE_MAX)
 
 
-def _vclip_loss_fn(loss_kwargs: dict) -> Callable:
+def _vclip_loss_fn(loss_kwargs: dict, wire_size: Optional[int] = None) -> Callable:
     """The variational loss: the heads' normalized means (through ``riemannian_grad`` with
     ``riemannian``) and concentrations as ``distribution_type`` distributions
     (``power_spherical``, ``vmf``, or ``normal`` on the raw means with std sqrt(variance)),
@@ -143,7 +151,7 @@ def _vclip_loss_fn(loss_kwargs: dict) -> Callable:
         raise ValueError(f"unknown distribution_type {dist_type!r}")
 
     def loss_fn(model, batch, generator=None):
-        out = model(batch_images(batch, model), batch["text"])
+        out = model(batch_images(batch, model, wire_size), batch["text"])
         conc_i, conc_t = out["image_concentration"], out["text_concentration"]
         if dist_type == "normal":
             di = NormalDiag(out["image_mean"], torch.sqrt(conc_i))
@@ -175,15 +183,12 @@ def make_loss_fn(model, loss_type: str = "clip", loss_kwargs: Optional[dict] = N
     ``logit_bias``) or ``vclip`` (``generator`` feeds its draws)."""
     if loss_type not in ("clip", "siglip", "vclip", "cloob", "align"):
         raise ValueError(f"unknown loss_type {loss_type!r}")
-    if wire_size is not None:
-        raise NotImplementedError("wire_size (the on-device bicubic upsample) is not ported "
-                                  "yet (ROADMAP Queue 1, serving pieces)")
     if loss_type == "vclip":
-        return _vclip_loss_fn(loss_kwargs or {})
+        return _vclip_loss_fn(loss_kwargs or {}, wire_size)
     kw = dict(loss_kwargs or {})
 
     def forward(model, batch, generator):
-        return model(batch_images(batch, model), batch["text"], generator=generator)
+        return model(batch_images(batch, model, wire_size), batch["text"], generator=generator)
 
     if loss_type == "siglip":
         if getattr(getattr(model, "cfg", None), "logit_bias_init", None) is None:
@@ -277,7 +282,7 @@ def _accum_grads(loss_fn, model, batch: dict, generator, accum_steps: int) -> di
 
 
 def _feature_cached_grads(model, batch: dict, generator, loss_kwargs: Optional[dict],
-                          accum_steps: int) -> dict:
+                          accum_steps: int, wire_size: Optional[int] = None) -> dict:
     """Feature-cached accumulation of the dense CLIP loss, the full batch's gradient on
     every leaf. Phase 1: every micro-batch's features without grad, in order, the
     generator's state recorded before each. Phase 2: per micro-batch, the generator set back
@@ -298,7 +303,7 @@ def _feature_cached_grads(model, batch: dict, generator, loss_kwargs: Optional[d
     micro = _micro_batches(batch, accum_steps)
 
     def encode(mb):
-        out = model(batch_images(mb, model), mb["text"], generator=generator)
+        out = model(batch_images(mb, model, wire_size), mb["text"], generator=generator)
         aux = collect_moe_losses(model) if has_moe else None
         return out["image_features"], out["text_features"], out["logit_scale"], aux
 
@@ -362,12 +367,11 @@ def make_train_step(model, optimizer, loss_type: str = "clip",
         "mesh": (mesh is not None, "Queue 1 item 9"),
         "use_shard_map": (use_shard_map, "Queue 1 item 9"),
         "offload_opt_state": (offload_opt_state, "Queue 1 item 9"),
-        "wire_size": (wire_size is not None, "Queue 1, serving pieces"),
     }
     for name, (on, item) in left_out.items():
         if on:
             raise NotImplementedError(f"{name} is not ported yet (ROADMAP {item})")
-    loss_fn = make_loss_fn(model, loss_type, loss_kwargs)
+    loss_fn = make_loss_fn(model, loss_type, loss_kwargs, wire_size=wire_size)
     feature_cached = feature_cached_accum and accum_steps > 1
     if feature_cached:
         lk = loss_kwargs or {}
@@ -386,7 +390,7 @@ def make_train_step(model, optimizer, loss_type: str = "clip",
         with model_mode(state.model, True):
             if feature_cached:
                 metrics = _feature_cached_grads(state.model, batch, generator, loss_kwargs,
-                                                accum_steps)
+                                                accum_steps, wire_size)
             elif accum_steps > 1:
                 metrics = _accum_grads(loss_fn, state.model, batch, generator, accum_steps)
             else:

@@ -17,14 +17,21 @@ Each step's ``torch.Generator`` (patch dropout, the vclip draws) is seeded from
 and the step's index in it, so a resumed run replays the draws of an uninterrupted one.
 SIGTERM sets a local flag that the loop reads after every step: it checkpoints and exits.
 
+The data section is the reference's: ``--dataset-type`` (``auto`` picks ``webdataset`` for a
+``.tar`` pattern, ``synthetic`` without ``--train-data``, else ``coco``), the webdataset
+readers with ``--workers`` shard-disjoint workers merged round-robin, ``--dataset-resampled``
+and ``--train-data-upsampling-factors``, the file-list datasets with the CSV keys, ``--aug-cfg``,
+the hashing semantic encoder for ``--nl_semantic_supervision``, and a real ``--val-data``.
+Images decode on the run's device (on the GPU through nvJPEG and the resample kernel) at
+``--wire-size`` when it is set, the step upsampling them to the model's resolution.
+
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP Queue 1 item:
 multi-process and mesh training (``--multihost``, ``--tensor-parallel``,
 ``--expert-parallel``, ``--dcn-slices``, ``--fsdp``, ``--use-shard-map``,
-``--opt-state-offload``, ``--contrastive-impl ring``: item 9), ``--wire-size`` (item 10),
-real data (any ``--train-data`` or dataset type but ``synthetic``, a non-synthetic
-``--val-data``, a pretrained Orbax directory: item 8), and the
-zero-shot, retrieval, captioning and linear-probe evaluations and ``--profile-steps``
-(item 11).
+``--opt-state-offload``, ``--contrastive-impl ring``: item 9), a pretrained Orbax directory
+and the transformers semantic encoder (``--semantic-model-path``: item 8, both waiting for
+their files), and the zero-shot, retrieval, captioning and linear-probe evaluations and
+``--profile-steps`` (item 11).
 """
 
 from __future__ import annotations
@@ -42,8 +49,10 @@ from datetime import datetime
 import numpy as np
 import torch
 
+from multimodal_tpu_torch.data.augment import parse_aug_cfg
 from multimodal_tpu_torch.data.datasets import build_dataset
 from multimodal_tpu_torch.data.pipeline import DataInfo
+from multimodal_tpu_torch.data.semantic import make_semantic_encoder
 from multimodal_tpu_torch.inference import model_mode
 from multimodal_tpu_torch.models import create_model, load_openai_state_dict
 from multimodal_tpu_torch.models.config import VariationalConfig
@@ -103,13 +112,6 @@ def check_ported(args):
         ("--use-shard-map", args.use_shard_map, "item 9"),
         ("--opt-state-offload", args.opt_state_offload, "item 9"),
         ("--contrastive-impl ring", args.contrastive_impl == "ring", "item 9"),
-        ("--wire-size", args.wire_size is not None, "item 10"),
-        (f"--dataset-type {_dataset_type(args)}", _dataset_type(args) != "synthetic",
-         "item 8, the data path"),
-        ("--train-data", bool(args.train_data), "item 8, the data path"),
-        ("--val-data (real data)", bool(args.val_data) and (
-            ".tar" in args.val_data or _dataset_type(args) != "synthetic"),
-         "item 8, the data path"),
         ("--pretrained (an Orbax directory)", bool(args.pretrained)
          and os.path.isdir(args.pretrained), "item 8"),
         ("--profile-steps", args.profile_steps > 0, "item 11"),
@@ -165,7 +167,7 @@ def build_train_step(args, model, optimizer, epoch: int = 0):
         if args.distribution_type != "normal":
             kw = dict(kw, riemannian=epoch > args.kl_warmup_epochs)
     return make_train_step(model, optimizer, loss_type=args.loss, loss_kwargs=kw,
-                           accum_steps=args.accum_freq,
+                           accum_steps=args.accum_freq, wire_size=args.wire_size,
                            feature_cached_accum=args.feature_cached_accum,
                            ema_decay=args.model_ema_decay if args.model_ema else None)
 
@@ -237,7 +239,8 @@ def evaluate(model, data_val, epoch: int, args=None, weights: dict | None = None
     feats_i, feats_t, ls, lb = [], [], None, None
     with swapped_parameters(model, weights), model_mode(model, False), torch.no_grad():
         for batch in data_val:
-            out = model(batch_images(batch, model), batch["text"])
+            out = model(batch_images(batch, model, getattr(args, "wire_size", None)),
+                        batch["text"])
             if "image_features" in out:
                 fi, ft = out["image_features"], out["text_features"]
             else:
@@ -393,25 +396,50 @@ def main(argv=None):
              sum(p.numel() for p in model.parameters()) / 1e6)
 
     # ------------------------------------------------------------------- data
-    data_kw = {"image_size": model.cfg.vision.image_size,
-               "context_length": model.cfg.text.context_length,
-               "num_samples": args.train_num_samples or 100 * args.batch_size,
-               "vocab_size": model.cfg.text.vocab_size}
+    dataset_type = _dataset_type(args)
+    # --wire-size: decode at a smaller size; the step upsamples to the model's on the device
+    data_kw = {"image_size": args.wire_size or model.cfg.vision.image_size,
+               "context_length": model.cfg.text.context_length}
+    if dataset_type == "webdataset":
+        data_kw.update(resampled=args.dataset_resampled,
+                       weights=args.train_data_upsampling_factors)
+    if dataset_type == "csv":
+        data_kw.update(img_key=args.csv_img_key, caption_key=args.csv_caption_key,
+                       sep=args.csv_separator)
+    if dataset_type == "synthetic":
+        data_kw.update(num_samples=args.train_num_samples or 100 * args.batch_size,
+                       vocab_size=model.cfg.text.vocab_size)
+    else:
+        data_kw["device"] = device
     if args.nl_semantic_supervision and args.loss == "align":
-        data_kw["with_semantic"] = 256
+        if dataset_type == "synthetic":
+            data_kw["with_semantic"] = 256
+        else:
+            data_kw["semantic_encoder"] = make_semantic_encoder(args.semantic_model_path)
     if args.aug_cfg:
-        log.warning("--aug-cfg has no effect on synthetic data (no decode stage)")
-    train_src = build_dataset("synthetic", path="", batch_size=args.batch_size, train=True,
-                              seed=args.seed, num_workers=max(args.workers, 1), **data_kw)
+        if dataset_type == "synthetic":
+            log.warning("--aug-cfg has no effect on synthetic data (no decode stage)")
+        else:  # crop bounds for the decode, pixel augmentations after it; unknown keys warn
+            data_kw["aug_cfg"] = parse_aug_cfg(dict(args.aug_cfg))
+    train_src = build_dataset(dataset_type, path=args.train_data or "",
+                              batch_size=args.batch_size, train=True, seed=args.seed,
+                              num_workers=max(args.workers, 1), **data_kw)
     data_train = DataInfo(train_src, device)
     data_val = None
     if args.val_data:
-        val_src = build_dataset(
-            "synthetic", path=args.val_data, batch_size=args.batch_size, train=False,
-            seed=args.seed, image_size=data_kw["image_size"],
-            context_length=data_kw["context_length"],
-            num_samples=args.val_num_samples or 10 * args.batch_size,
-            vocab_size=model.cfg.text.vocab_size)
+        val_type = "webdataset" if ".tar" in args.val_data else dataset_type
+        val_kw = {"image_size": data_kw["image_size"],
+                  "context_length": data_kw["context_length"]}
+        if val_type == "synthetic":
+            val_kw.update(num_samples=args.val_num_samples or 10 * args.batch_size,
+                          vocab_size=model.cfg.text.vocab_size)
+        else:
+            val_kw["device"] = device
+        if val_type == "csv":
+            val_kw.update(img_key=args.csv_img_key, caption_key=args.csv_caption_key,
+                          sep=args.csv_separator)
+        val_src = build_dataset(val_type, path=args.val_data, batch_size=args.batch_size,
+                                train=False, seed=args.seed, **val_kw)
         data_val = DataInfo(val_src, device)
     steps_per_epoch = (args.steps_per_epoch
                        or (args.train_num_samples // args.batch_size

@@ -53,7 +53,8 @@ def test_phase3_holds_the_tile_edge_and_padded_head_cases():
     block_dims = {w // h for _, _, _, w, h, _ in cs.BLOCK_CASES}
     ln_dims = {w // h for _, _, _, w, h, _, _ in cs.LN_CASES}
     assert {80, 88} <= block_dims and {80, 88} <= ln_dims
-    assert len(cs.KERNELS) == 13  # the eleven TPU-kernel counterparts and the two int8 kernels
+    # the eleven TPU-kernel counterparts, the two int8 kernels and the card's JPEG resample
+    assert len(cs.KERNELS) == 14
 
 
 FLASH_DQ = ("_ZN57_GLOBAL__N__2b5bc54b_18_flash_attention_cu_e4f1a2b315flash_dq_kernelINS_7Tf32Ops"
@@ -227,7 +228,8 @@ def test_phase3_holds_the_variational_towers_shapes():
     rows = {(case, b, s, w, h, causal) for case, b, s, w, h, causal in cs.BLOCK_CASES}
     assert {("vclip-vision", 256, 51, 768, 12, False), ("vclip-text", 256, 78, 512, 8, True),
             ("vclip-vision", 3, 51, 768, 12, False), ("vclip-text", 3, 78, 512, 8, True)} <= rows
-    assert len(cs.KERNELS) == 13  # the eleven TPU-kernel counterparts and the two int8 kernels
+    # the eleven TPU-kernel counterparts, the two int8 kernels and the card's JPEG resample
+    assert len(cs.KERNELS) == 14
 
 
 def test_variational_block_bounds():
@@ -471,3 +473,71 @@ def test_rel_leaf_dist_floors_the_scale():
     dist = cs.rel_leaf_dist(torch, got, want)
     assert abs(dist["a"] - 1e-3) < 1e-6
     assert abs(dist["zero"] - 1e-4 / 2e-3) < 1e-6  # floored at 1e-3 x the largest leaf
+
+
+def test_phase14_data_helpers():
+    """Phase 14's shard lists, per-image agreement and the resample bound."""
+    import numpy as np
+
+    pattern = cs.data_shards(cs.DATA_TRAIN, cs.DATA_REPEAT)
+    assert pattern.count("::") == cs.DATA_REPEAT - 1 and pattern.startswith(cs.DATA_DIR)
+    # resampled: each of 4 workers draws 16 // 4 shards of 128 samples -> 2 batches of 256
+    shards = 2 * cs.DATA_REPEAT
+    assert 4 * ((shards // 4) * 128 // cs.CLI_BATCH) == cs.DATA_STEPS
+    assert cs.DATA_VAL_REPEAT * 64 == cs.CLI_BATCH  # one validation batch
+    a = np.zeros((2, 4, 4, 3), np.uint8)
+    b = a.copy()
+    b[0, 0, 0, 0] = 12
+    a[1] = np.arange(48, dtype=np.uint8).reshape(4, 4, 3)
+    b[1] = a[1] + 1
+    (m0, c0), (m1, c1) = cs.image_agreement(b, a)
+    assert m0 == 12 / 48 and c0 == 0.0  # a constant image against a non-constant one
+    assert m1 == 1.0 and abs(c1 - 1.0) < 1e-12
+    assert cs.image_agreement(a[:1], a[:1]) == [(0.0, 1.0)]
+    ms, by = cs.resample_bound(taps=10, read_bytes=3.35e9, out_bytes=0)
+    assert by == "bytes" and abs(ms - 1.0) < 1e-9
+    ms, by = cs.resample_bound(taps=10, read_bytes=3.35e9 - 1e6, out_bytes=1e6)
+    assert by == "bytes" and abs(ms - 1.0) < 1e-9
+    ms, by = cs.resample_bound(taps=int(67e12), read_bytes=0, out_bytes=0)
+    assert by == "operations" and abs(ms - 2e3) < 1e-6
+    assert cs.KERNELS["resample"][0].endswith("ops/csrc/resample.cu")
+    assert [name for name, _ in cs.DATA_RUNS] == ["224", f"wire {cs.DATA_WIRE}", "224 aug"]
+
+
+def test_resample_bound_counts_the_tapped_source_and_the_output_only():
+    """The resample bound's bytes: each image's tapped rectangle (the rows and columns some
+    output reads) read once and the uint8 output written once. A crop reads less than its
+    whole image, a failed image nothing, and the plan's tables (non-zero here) stay out."""
+    import numpy as np
+
+    from multimodal_tpu_torch.ops import resample as rs
+
+    dims = np.array([[100, 160], [50, 80], [40, 40]])
+    sizes = dims[:, 0] * dims[:, 1] * 3
+    offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    boxes = np.array([[20.5, 10.25, 120.0, 90.0],  # a train crop, downscaled to 32
+                      [0.0, 0.0, 80.0, 50.0],  # the whole image
+                      [0.0, 0.0, 40.0, 40.0]])  # not ok
+    ok = np.array([True, True, False])
+    size = 32
+    host = rs.plan(dims, offsets, boxes, ok, size)
+
+    def tapped(out, b0, b1, n):
+        first, count, _ = rs.contribs(out, b0, b1, n)
+        mask = np.zeros(n, bool)
+        for f, c in zip(first, count):
+            mask[f:f + c] = True
+        return int(mask.sum())
+
+    want = [tapped(size, b[1], b[3], h) * tapped(size, b[0], b[2], w) * 3
+            for (h, w), b in zip(dims[:2], boxes[:2])]
+    assert host["read_bytes"] == sum(want)
+    assert want[0] < sizes[0]  # the crop reads part of its image
+    assert want[1] == sizes[1]  # the whole box reads every pixel
+    out_bytes = len(ok) * size * size * 3
+    tables = cs.plan_table_bytes(host)
+    assert tables == (8 * 3 * rs.DESC_FIELDS + 2 * 4 * 3 * size * 2
+                      + 4 * (host["wx"].size + host["wy"].size)) and tables > 0
+    ms, by = cs.resample_bound(host["taps"], host["read_bytes"], out_bytes)
+    assert by == "bytes"
+    assert abs(ms * 1e-3 * cs.PEAK_BYTES - (sum(want) + out_bytes)) < 1e-3

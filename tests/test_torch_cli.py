@@ -370,9 +370,7 @@ def test_full_reference_flag_surface_parses():
     (["--expert-parallel", "2"], "item 9"), (["--dcn-slices", "2"], "item 9"),
     (["--fsdp"], "item 9"), (["--use-shard-map", "on"], "item 9"),
     (["--opt-state-offload"], "item 9"), (["--contrastive-impl", "ring"], "item 9"),
-    (["--wire-size", "16"], "item 10"), (["--dataset-type", "webdataset"], "item 8"),
-    (["--dataset-type", "auto", "--train-data", "/d/shard-{000..009}.tar"], "item 8"),
-    (["--val-data", "/d/val.tar"], "item 8"), (["--imagenet-val", "/d/in"], "item 11"),
+    (["--imagenet-val", "/d/in"], "item 11"),
     (["--coco-retrieval", "/d/coco"], "item 11"), (["--captioning-eval", "/d/c"], "item 11"),
     (["--linear-probe-train", "/d/lp"], "item 11"), (["--profile-steps", "2"], "item 11"),
 ])

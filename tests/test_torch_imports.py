@@ -40,6 +40,10 @@ def test_port_imports_without_jax():
         "import multimodal_tpu_torch.train.params, multimodal_tpu_torch.train.run\n"
         "import multimodal_tpu_torch.eval.retrieval, multimodal_tpu_torch.eval.entropy\n"
         "import multimodal_tpu_torch.eval.separability\n"
+        "import multimodal_tpu_torch.data.shards, multimodal_tpu_torch.data.augment\n"
+        "import multimodal_tpu_torch.data.wds, multimodal_tpu_torch.data.resize\n"
+        "import multimodal_tpu_torch.data.preprocess, multimodal_tpu_torch.data.bench_pipeline\n"
+        "import multimodal_tpu_torch.native.bindings, multimodal_tpu_torch.ops.resample\n"
         "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'multimodal_tpu'))\n"
         "assert not leaked, leaked\n"
@@ -65,6 +69,20 @@ def test_chip_smoke_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_native_sources_are_the_ports_own():
+    """The port's C++ includes nothing of the JAX package and is built from its own tree."""
+    from multimodal_tpu_torch.native import bindings
+
+    native = os.path.join(REPO, "multimodal_tpu_torch", "native")
+    for name, (sources, _) in bindings.LIBRARIES.items():
+        for src in sources + bindings.HEADERS:
+            path = os.path.join(native, src)
+            assert os.path.isfile(path), path
+            text = open(path).read()
+            assert "multimodal_tpu/" not in text.replace("multimodal_tpu_torch/", ""), src
+    assert bindings.library_path("host").startswith(os.path.join(native, "_build_cache"))
 
 
 def test_profile_step_sorts_kernels_into_families():

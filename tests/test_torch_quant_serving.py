@@ -208,11 +208,11 @@ def test_serving_cli_takes_quantized(monkeypatch):
     class Stop(Exception):
         pass
 
-    def fake_service(model, max_batch, max_wait_ms, quantized):
-        seen["quantized"] = quantized
+    def fake_service(model, max_batch, max_wait_ms, quantized, wire_size):
+        seen["quantized"], seen["wire_size"] = quantized, wire_size
         raise Stop
 
     monkeypatch.setattr(serving, "EmbeddingService", fake_service)
     with pytest.raises(Stop):
         serving.main(["--model", "tiny-test", "--device", "cpu", "--quantized"])
-    assert seen == {"quantized": True}
+    assert seen == {"quantized": True, "wire_size": None}

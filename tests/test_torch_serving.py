@@ -4,6 +4,7 @@ a similarity request embeds its texts once, and a bad ``size`` is a 400, not a 5
 
 import base64
 import json
+import os
 import threading
 import urllib.request
 
@@ -166,7 +167,7 @@ def test_similarity_embeds_texts_once(services, url):
     ({"images_u8": ["AAAA"]}, "/v1/embed/image"),  # wrong byte count
     ({"images_u8": ["not base64!"]}, "/v1/embed/image"),
     ({"images_u8": []}, "/v1/embed/image"),
-    ({"images_b64": ["AAAA"]}, "/v1/embed/image"),  # JPEG route not ported
+    ({"images_b64": ["not base64!"]}, "/v1/embed/image"),
     ({"texts": []}, "/v1/embed/text"),
     ({"texts": "a cat"}, "/v1/embed/text"),
     ({"texts": [3]}, "/v1/embed/text"),
@@ -231,3 +232,100 @@ def test_cuda_device_without_gpu_refuses_to_start():
         pytest.skip("a GPU is present; the refusal path needs a machine without one")
     with pytest.raises(SystemExit, match="no CUDA device"):
         serving.main(["--device", "cuda", "--model", NAME])
+
+
+# ---------------------------------------------------------------------------------- JPEG
+# and the low-resolution wire format (a second service pair with wire_size=16)
+
+PHOTOS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "torch_shards",
+                      "photos-000000.tar")
+
+
+@pytest.fixture(scope="module")
+def jpegs():
+    """Four photos of the fixture, its corrupt JPEG and its PNG."""
+    from multimodal_tpu_torch.data.wds import iter_tar_samples
+
+    bufs = [s.get("jpg", s.get("png")) for s in iter_tar_samples(PHOTOS)]
+    return bufs[:4] + bufs[-2:]
+
+
+@pytest.fixture(scope="module")
+def wire_services(services):
+    port, ref = services
+    ours = serving.EmbeddingService(port.model, max_batch=8, max_wait_ms=5.0, wire_size=16)
+    theirs = JaxEmbeddingService(ref.model, ref._embedder.params, max_batch=8, max_wait_ms=5.0,
+                                 wire_size=16)
+    srv = serving.make_server(ours, "127.0.0.1", 0)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    yield ours, theirs, f"http://127.0.0.1:{srv.server_address[1]}"
+    srv.shutdown()
+    srv.server_close()
+    t.join(timeout=10)
+    ours.close()
+    theirs.close()
+
+
+def test_jpeg_route_matches_jax_service(services, url, jpegs):
+    _, ref = services
+    want, want_ok = ref.embed_image_bytes(jpegs)
+    code, out = _post(url + "/v1/embed/image", {"images_b64": _b64_bytes(jpegs)})
+    assert code == 200 and out["decoded"] == want_ok.tolist() == [True] * 4 + [False, True]
+    got = np.asarray(out["embeddings"], np.float32)
+    np.testing.assert_allclose(got, want, atol=2e-4)
+    assert (got[4] == 0).all()
+    code, out = _post(url + "/v1/similarity", {"texts": TEXTS, "images_b64": _b64_bytes(jpegs)})
+    assert code == 200 and out["decoded"] == want_ok.tolist()
+    np.testing.assert_allclose(np.asarray(out["similarity"]), want @ ref.embed_texts(TEXTS).T,
+                               atol=2e-4)
+
+
+def test_wire_routes_match_jax_service(wire_services, jpegs):
+    ours, theirs, wurl = wire_services
+    for wire in (True, False):
+        want, want_ok = theirs.embed_image_bytes(jpegs, wire=wire)
+        code, out = _post(wurl + "/v1/embed/image", {"images_b64": _b64_bytes(jpegs),
+                                                     "wire": wire})
+        assert code == 200 and out["decoded"] == want_ok.tolist()
+        np.testing.assert_allclose(np.asarray(out["embeddings"], np.float32), want, atol=2e-4)
+    small = _images(3, 7)[:, :16, :16]
+    code, out = _post(wurl + "/v1/embed/image", {"images_u8": _b64(small), "size": 16})
+    assert code == 200
+    want = theirs.embed_image_raw([a.tobytes() for a in small], size=16)
+    np.testing.assert_allclose(np.asarray(out["embeddings"], np.float32), want, atol=2e-4)
+    code, out = _post(wurl + "/v1/embed/image", {"images_u8": _b64(small)})  # default: wire
+    assert code == 200
+    np.testing.assert_allclose(np.asarray(out["embeddings"], np.float32), want, atol=2e-4)
+    code, out = _post(wurl + "/v1/similarity", {"texts": TEXTS, "images_b64": _b64_bytes(jpegs),
+                                                "wire": True})
+    assert code == 200
+    stats = _get(wurl + "/v1/stats")
+    assert stats["image_wire"]["batches"] >= 3 and stats["image"]["batches"] >= 1
+
+
+@pytest.mark.parametrize("payload,route", [
+    ({"images_b64": ["AAAA"], "wire": True}, "/v1/embed/image"),  # no wire_size
+    ({"images_b64": []}, "/v1/embed/image"),
+    ({"images_b64": "jpeg"}, "/v1/embed/image"),
+    ({"texts": ["a"], "images_b64": ["not base64!"]}, "/v1/similarity"),
+    ({"texts": [], "images_b64": ["AAAA"]}, "/v1/similarity"),
+    ({}, "/v1/embed/image"),
+])
+def test_bad_jpeg_requests_get_400(url, payload, route):
+    code, out = _post(url + route, payload)
+    assert code == 400, out
+    assert "error" in out
+
+
+def test_wire_service_refuses_other_sizes(wire_services):
+    ours, _, wurl = wire_services
+    code, out = _post(wurl + "/v1/embed/image", {"images_u8": _b64(_images(1, 1)[:, :8, :8]),
+                                                 "size": 8})
+    assert code == 400 and "16" in out["error"]
+    with pytest.raises(serving.RequestError, match="uint8"):
+        ours.embed_image_arrays(np.zeros((1, 20, 20, 3), np.uint8))
+
+
+def _b64_bytes(buffers):
+    return [base64.b64encode(b).decode() for b in buffers]

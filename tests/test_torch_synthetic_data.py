@@ -74,9 +74,16 @@ def test_build_dataset_synthetic_only():
     assert got.seed == want.seed == 0  # the stream's seed comes from kw, as in the reference
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g["image"], w["image"])
-    for kind in ("webdataset", "coco", "laion", "cood", "csv"):
-        with pytest.raises(NotImplementedError, match="item 8"):
+    # the real-data types build their readers (tests/test_torch_readers.py holds them to the
+    # reference's); a missing file-list root fails as the reference's does
+    from multimodal_tpu_torch.data.wds import WdsReader
+
+    assert isinstance(build_dataset("webdataset", path="/x-{0..1}.tar", batch_size=2), WdsReader)
+    for kind in ("coco", "laion", "cood", "csv"):
+        with pytest.raises(FileNotFoundError):
             build_dataset(kind, path="/x", batch_size=2)
+        with pytest.raises(FileNotFoundError):
+            jax_build(kind, path="/x", batch_size=2)
     with pytest.raises(ValueError, match="unknown dataset_type"):
         build_dataset("parquet", path="/x", batch_size=2)
 

@@ -172,7 +172,6 @@ def test_block_attention_path_taken_on_tiny():
 
 @pytest.mark.parametrize("option,value", [
     ("mesh", object()), ("use_shard_map", True), ("offload_opt_state", True),
-    ("wire_size", 128),
 ])
 def test_left_out_options_raise(option, value):
     model = create_model("tiny-test", device="cpu")
@@ -205,8 +204,9 @@ def test_batch_images_normalizes_uint8_like_jax():
     with pytest.raises(ValueError, match="expects 32px"):
         batch_images({"image": torch.zeros(2, 64, 64, 3, dtype=torch.uint8)},
                      create_model("tiny-test", device="cpu"))
-    with pytest.raises(NotImplementedError, match="wire_size"):
-        batch_images({"image": floats}, wire_size=16)
+    with pytest.raises(ValueError, match="--wire-size is 16"):  # the upsample is explicit
+        batch_images({"image": torch.zeros(2, 64, 64, 3, dtype=torch.uint8)},
+                     create_model("tiny-test", device="cpu"), wire_size=16)
 
 
 def test_logit_scale_clamp():
