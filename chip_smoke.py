@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path, its training step and its training CLI once on one
-NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving path, its training step, its training CLI and its
+evaluations once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -170,7 +170,34 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      served with
      ``wire_size=128``: JPEG requests (``images_b64``, with and without ``"wire": true``)
      against the ``images_u8`` route on the same decoded pixels (cosine >= 0.9999), p50
-     latency and encodes/s at bucket 256 from JPEG bytes.
+     latency and encodes/s at bucket 256 from JPEG bytes;
+ 15. train, evaluate and serve, ViT-B/32 at full width and depth: (a) eval sets made in a
+     temporary directory in their stock layouts (CIFAR-10 pickle batches, 1000 test and 1000
+     train images; 10 folders x 20 JPEGs at 160 px; Flowers-102 JPEGs with ``.mat`` files
+     where scipy imports, else the port's ImportError naming scipy; a COCO-val set of 128 JPEGs
+     x 5 captions); (b) ``python -m multimodal_tpu_torch.train.run`` in a child process, the
+     entry point users run: bfloat16, B=256, one epoch of 8 synthetic steps with
+     ``--model-ema``, evaluating after it (``--zeroshot-frequency 1 --retrieval-frequency 1``:
+     zero-shot on CIFAR-10, the folders and Flowers, COCO retrieval) and saving a checkpoint,
+     then ``--epochs 0 --resume latest`` (eval-only: the same and the linear probe on CIFAR,
+     20 epochs): every metric the reference names finite and in [0, 1], and the eval-only
+     numbers equal to the training run's last evaluation; each evaluation's seconds as the
+     CLI logged them. The training run is a child process, ``python -m`` as users run it; the
+     eval-only run is the CLI's ``main`` in this process, its launches counted exactly (one
+     ``block_attention_fwd`` per block for every image and text encode of the zero-shot
+     classifiers and batches, the retrieval chunks and the probe's featurisation, and one
+     ``resample`` per batch of JPEGs); (c) one CIFAR batch's image features and the CIFAR-10
+     classifier from the checkpoint's EMA weights through the kernels against the plain path
+     (cosine >= 0.9999, the top-1 agreement printed); (d) the checkpoint served through
+     ``serving.load_serving_weights`` with and without the EMA (texts and 64 JPEGs over HTTP):
+     the EMA replies against an ``Embedder`` over the EMA weights loaded by hand (cosine >=
+     0.9999), the trained weights' replies different, a ``normalize=False`` service's rows not
+     unit norm, and ``Embedder.embed_images`` over 4096 uint8 images at bucket 256 (the
+     windowed encode, exactly 16 x 12 ``block_attention_fwd`` launches) beside phase 5's rate
+     (information); (e) whether tensorstore and
+     transformers import; where they do, an OCDBT zarr set written with tensorstore read back
+     by ``read_orbax_params`` and ``HFSentenceEncoder`` on a tiny BertModel, card against CPU
+     (<= 1e-4); either way the port's ImportError naming each when it is hidden.
 Before the last line come the card's name and power limit and the kernel summary (JSON); the
 last line is the device record.
 """
@@ -1109,6 +1136,7 @@ def phase_serving(torch, mods, tally, card, kind, model_name, need_text, need_im
     """Serve ``model_name`` (float32, seeded weights) over HTTP; check the answers, the
     launch counts (``need_*``: kernel -> launches per tower encode) and the agreement with
     the plain-version encode; then throughput at ``bucket`` and single-request latency.
+    Returns the encodes/s by tower.
     ``quantized`` serves the int8 W8A8 encoders (``EmbeddingService(quantized=True)``), whose
     embeddings must also hold cosine > 0.99 to the float32 encode of the same model."""
     from multimodal_tpu_torch.data.tokenizer import tokenize
@@ -1179,6 +1207,7 @@ def phase_serving(torch, mods, tally, card, kind, model_name, need_text, need_im
 
         print(f"  throughput ({model_name})", flush=True)
         emb = svc._embedder
+        rates = {}
         rng = np.random.default_rng(1)
         batch_img = rng.integers(0, 256, (bucket, size, size, 3), dtype=np.uint8)
         batch_tok = np.repeat(tokens, bucket // len(tokens), axis=0)
@@ -1188,7 +1217,7 @@ def phase_serving(torch, mods, tally, card, kind, model_name, need_text, need_im
             t0 = time.perf_counter()
             for _ in range(5):
                 fn(arg)
-            rate = 5 * bucket / (time.perf_counter() - t0)
+            rate = rates[name] = 5 * bucket / (time.perf_counter() - t0)
             print(f"  {model_name} {name} encodes/s at bucket {bucket} "
                   f"({'int8, bfloat16 activations' if quantized else 'float32'}, host clock "
                   f"incl. transfer): {rate:.1f} [{card}]", flush=True)
@@ -1211,6 +1240,7 @@ def phase_serving(torch, mods, tally, card, kind, model_name, need_text, need_im
         thread.join(timeout=10)
     del model, svc
     torch.cuda.empty_cache()
+    return rates
 
 
 def make_batch(torch, cfg, n: int) -> dict:
@@ -2503,6 +2533,468 @@ def phase_data(torch, tally, card, kind, bf16_rate: float, cli_rate: float) -> d
     return kernel
 
 
+EVAL_STEPS = 8  # phase 15: one epoch of 8 steps at CLI_BATCH before the evaluations
+EVAL_CIFAR = 1000  # CIFAR-10 test images, and as many train images (5 batches of 200)
+EVAL_FOLDER = (10, 20, 160)  # --imagenet-val: classes, JPEGs a class, their size in px
+EVAL_FLOWERS = 204  # Flowers-102 test JPEGs (two a class), at 160 px
+EVAL_COCO = 128  # COCO-val JPEGs, 5 captions each
+EVAL_SERVED = 64  # JPEGs posted to the served checkpoint
+EVAL_RATE_IMAGES = 4096  # Embedder.embed_images over this many uint8 images at bucket 256
+EVAL_PROBE_EPOCHS = 20
+EVAL_CLI_EXTRA: list = []  # flags every phase-15 CLI run adds (a CPU rehearsal: --device cpu)
+EVAL_FOLDER_CLASSES = ["tench", "goldfish", "great white shark", "tiger shark", "hammerhead",
+                       "electric ray", "stingray", "cock", "hen", "ostrich"]
+COCO_WORDS = ["a", "dog", "cat", "red", "car", "on", "the", "street", "two", "people",
+              "walking", "near", "water", "with", "an", "umbrella", "small", "bird", "tree"]
+
+
+def eval_sets(root: str, rng) -> dict:
+    """Phase 15 (a): the eval sets in their stock layouts under ``root``, made with numpy and
+    PIL (and ``scipy.io.savemat`` for Flowers-102 where scipy imports). Returns flag -> path
+    (``flowers`` only with scipy)."""
+    import pickle
+
+    from PIL import Image
+
+    def jpeg(path, size):
+        arr = rng.integers(0, 256, (size, size + size // 4, 3), dtype=np.uint8)
+        arr[: size // 2] //= 2  # some structure: a darker upper half
+        Image.fromarray(arr).save(path, quality=90)
+
+    sets = {}
+    d = os.path.join(root, "cifar", "cifar-10-batches-py")
+    os.makedirs(d)
+    data = rng.integers(0, 256, (2 * EVAL_CIFAR, 3072), dtype=np.uint8)
+    labels = rng.integers(0, 10, 2 * EVAL_CIFAR).tolist()
+    with open(os.path.join(d, "test_batch"), "wb") as f:
+        pickle.dump({"data": data[:EVAL_CIFAR], "labels": labels[:EVAL_CIFAR]}, f)
+    per = EVAL_CIFAR // 5
+    for i in range(5):
+        lo = EVAL_CIFAR + i * per
+        with open(os.path.join(d, f"data_batch_{i + 1}"), "wb") as f:
+            pickle.dump({"data": data[lo:lo + per], "labels": labels[lo:lo + per]}, f)
+    with open(os.path.join(d, "batches.meta"), "wb") as f:
+        pickle.dump({"label_names": ["airplane", "automobile", "bird", "cat", "deer", "dog",
+                                     "frog", "horse", "ship", "truck"]}, f)
+    sets["cifar10"] = os.path.join(root, "cifar")
+    n_cls, n_img, size = EVAL_FOLDER
+    for c in range(n_cls):
+        cls_dir = os.path.join(root, "folder", EVAL_FOLDER_CLASSES[c % len(EVAL_FOLDER_CLASSES)])
+        os.makedirs(cls_dir)
+        for i in range(n_img):
+            jpeg(os.path.join(cls_dir, f"{i:03d}.jpg"), size)
+    sets["imagenet_val"] = os.path.join(root, "folder")
+    try:
+        from scipy.io import savemat
+    except ImportError:
+        savemat = None
+    if savemat is not None:
+        d = os.path.join(root, "flowers", "flowers-102")
+        os.makedirs(os.path.join(d, "jpg"))
+        ids = np.arange(1, EVAL_FLOWERS + 1)
+        savemat(os.path.join(d, "imagelabels.mat"), {"labels": (ids % 102 + 1)[None, :]})
+        savemat(os.path.join(d, "setid.mat"), {"trnid": ids[None, :4], "valid": ids[None, 4:8],
+                                               "tstid": ids[None, :]})
+        for i in ids:
+            jpeg(os.path.join(d, "jpg", f"image_{i:05d}.jpg"), EVAL_FOLDER[2])
+        sets["flowers"] = os.path.join(root, "flowers")
+    coco = os.path.join(root, "coco")
+    os.makedirs(os.path.join(coco, "val2017"))
+    os.makedirs(os.path.join(coco, "annotations"))
+    images, anns = [], []
+    for i in range(EVAL_COCO):
+        fn = f"{i:012d}.jpg"
+        jpeg(os.path.join(coco, "val2017", fn), 240)
+        images.append({"id": i, "file_name": fn})
+        for j in range(5):
+            words = rng.choice(COCO_WORDS, 6)
+            anns.append({"image_id": i, "caption": f"{' '.join(words)} {i} {j}"})
+    with open(os.path.join(coco, "annotations", "captions_val2017.json"), "w") as f:
+        json.dump({"images": images, "annotations": anns}, f)
+    sets["coco_retrieval"] = coco
+    return sets
+
+
+def eval_cli(logs: str, name: str, argv: list, card: str, tally=None) -> tuple:
+    """Run the training CLI on ``argv``: without ``tally`` as users do, ``python -m
+    multimodal_tpu_torch.train.run`` in a child process, its evaluation lines (each with its
+    seconds) printed from its log; with ``tally`` in this process (``cli_main``, which logs to
+    this output), every launch count set to 0 just before it and read just after. Returns
+    (seconds, its results records, the counts or None)."""
+    argv = argv + ["--logs", logs, "--name", name] + EVAL_CLI_EXTRA
+    counts = None
+    t0 = time.perf_counter()
+    if tally is not None:
+        tally.start()
+        rc = cli_main(argv)
+        counts = tally.stop()
+        secs = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"the CLI run {name} in this process returned {rc}")
+        return secs, cli_records(logs, name), counts
+    log_path = os.path.join(logs, name, "out.log")
+    seen = os.path.getsize(log_path) if os.path.exists(log_path) else 0  # a resumed run appends
+    proc = subprocess.run([sys.executable, "-m", "multimodal_tpu_torch.train.run"] + argv,
+                          capture_output=True, text=True, timeout=900)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-8000:], flush=True)
+        fail(f"the CLI run {name} exited {proc.returncode}")
+    with open(log_path) as f:
+        f.seek(seen)
+        for line in f:
+            if re.search(r"zero-shot |retrieval |linear probe:|done: \d+ steps", line):
+                print(f"  [{name}] {line.split(' | ')[-1].strip()} [{card}]", flush=True)
+    return secs, cli_records(logs, name), counts
+
+
+def eval_only_need(sets: dict, vision_layers: int, text_layers: int) -> dict:
+    """The exact launches of the eval-only run over ``sets`` at batch ``CLI_BATCH``: one
+    ``block_attention_fwd`` per block of every encode and one ``resample`` per decode of
+    JPEGs. Zero-shot: a text encode per 10 classes (``build_zero_shot_classifier``'s
+    ``batch_classes``) and an image encode per batch; retrieval: the COCO images' chunks (one
+    decode of them all) and their 5 captions' chunks; the probe: the CIFAR train and test
+    splits' batches."""
+    def chunks(n):
+        return -(-n // CLI_BATCH)
+
+    n_cls, n_img, _ = EVAL_FOLDER
+    zero_shot = {"cifar10": (10, EVAL_CIFAR, False), "imagenet_val": (n_cls, n_cls * n_img, True),
+                 "flowers": (102, EVAL_FLOWERS, True)}
+    text = chunks(5 * EVAL_COCO)
+    image = chunks(EVAL_COCO) + 2 * chunks(EVAL_CIFAR)
+    resample = 1
+    for flag, (classes, images, jpeg) in zero_shot.items():
+        if flag in sets:
+            text += -(-classes // 10)
+            image += chunks(images)
+            resample += chunks(images) if jpeg else 0
+    return {"block_attention_fwd": vision_layers * image + text_layers * text,
+            "resample": resample}
+
+
+def check_eval_metrics(record: dict, zero_shot_sets: list, probe: bool, what: str) -> dict:
+    """The metrics the reference's names give, each finite and in [0, 1]."""
+    want = [f"{s}-zeroshot-top{k}" for s in zero_shot_sets for k in (1, 5)]
+    want += [f"coco_retrieval-{d}_R@{k}" for d in ("text_to_image", "image_to_text")
+             for k in (1, 5, 10)]
+    if probe:
+        want += ["linear_probe_accuracy", "linear_probe_mean_per_class"]
+    bad = {k: record.get(k) for k in want
+           if not (isinstance(record.get(k), float) and 0.0 <= record[k] <= 1.0)}
+    if bad:
+        fail(f"{what}: metrics missing, non-finite or outside [0, 1]: {bad}")
+    return {k: record[k] for k in want}
+
+
+def eval_kernel_vs_plain(torch, mods, tally, card, model, cifar_root: str):
+    """Phase 15 (c): one CIFAR batch's image features and the CIFAR-10 zero-shot classifier
+    through the kernels, and again with every block's attention on its plain version."""
+    from multimodal_tpu_torch.data.eval_sets import open_eval_dataset
+    from multimodal_tpu_torch.eval.metadata import classnames, templates
+    from multimodal_tpu_torch.eval.zero_shot import build_zero_shot_classifier
+    from multimodal_tpu_torch.inference import model_mode
+    from multimodal_tpu_torch.train.engine import batch_images
+
+    ds = open_eval_dataset("cifar10", cifar_root, batch_size=CLI_BATCH,
+                           image_size=model.cfg.vision.image_size, device="cuda")
+    images, _ = next(iter(ds))
+    x = torch.from_numpy(images).to("cuda")
+
+    def run():
+        with model_mode(model, False), torch.inference_mode():
+            feats = model.encode_image(batch_images({"image": x}, model), normalize=True)
+            clf = build_zero_shot_classifier(
+                lambda t: model.encode_text(t, normalize=True), classnames("cifar10"),
+                templates("openai"), context_length=model.cfg.text.context_length,
+                device="cuda")
+            return feats, clf
+
+    tally.start()
+    feats, clf = run()
+    torch.cuda.synchronize()
+    counts = tally.stop()
+    with plain_attention(mods):
+        p_feats, p_clf = run()
+    cos_f = float((feats * p_feats).sum(-1).min())
+    cos_c = float((clf * p_clf).sum(0).min())
+    agree = float(((feats @ clf).argmax(-1) == (p_feats @ p_clf).argmax(-1)).float().mean())
+    print(f"  (c) one CIFAR batch (B={len(images)}) kernel vs plain path: image features min "
+          f"cosine {cos_f:.7f}, classifier columns min cosine {cos_c:.7f} (need >= 0.9999); "
+          f"top-1 agreement {agree:.4f}; launches {({k: v for k, v in counts.items() if v})} "
+          f"(need block_attention_fwd >= 24) [{card}]", flush=True)
+    if min(cos_f, cos_c) < 0.9999 or counts["block_attention_fwd"] < 24:
+        fail("the evaluation's encodes disagree with the plain path or skipped the kernel")
+
+
+def eval_serving(torch, tally, card, ckpt: str, coco_root: str, phase5_rate: float):
+    """Phase 15 (d): the checkpoint served through ``serving.load_serving_weights`` (as
+    ``serving --checkpoint DIR --ema`` loads it), against an Embedder over a model loaded by
+    hand from the checkpoint's EMA weights; the trained weights served beside it; a
+    ``normalize=False`` service; the windowed ``Embedder`` rate."""
+    from multimodal_tpu_torch.inference import Embedder
+    from multimodal_tpu_torch.models import create_model
+    from multimodal_tpu_torch.serving import EmbeddingService, load_serving_weights, make_server
+    from multimodal_tpu_torch.train.checkpoints import CheckpointManager
+
+    paths = sorted(os.path.join(coco_root, "val2017", f)
+                   for f in os.listdir(os.path.join(coco_root, "val2017")))[:EVAL_SERVED]
+    bufs = [open(p, "rb").read() for p in paths]
+    b64 = [base64.b64encode(b).decode() for b in bufs]
+    saved, _ = CheckpointManager(ckpt).restore()
+    direct = create_model(MODEL, seed=7)
+    with torch.no_grad():
+        direct.load_state_dict(saved["model"])
+        for n, p in direct.named_parameters():
+            p.copy_(saved["ema"][n])
+    ref = Embedder(direct, batch_size=CLI_BATCH)
+    want_t = ref.embed_texts(CAPTIONS)
+    want_i, _ = ref.embed_image_bytes(bufs, direct.cfg.vision.image_size)
+    del direct, ref, saved
+    replies = {}
+    for ema in (True, False):
+        model = create_model(MODEL, seed=1)
+        loaded = load_serving_weights(model, ckpt, ema=ema)
+        svc = EmbeddingService(model, max_batch=CLI_BATCH, max_wait_ms=5.0)
+        srv = make_server(svc, "127.0.0.1", 0)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        try:
+            tally.start()
+            code_t, text = post(url + "/v1/embed/text", {"texts": CAPTIONS})
+            code_i, image = post(url + "/v1/embed/image", {"images_b64": b64})
+            counts = tally.stop()
+            if (code_t, code_i) != (200, 200) or not all(image["decoded"]):
+                fail(f"serving the checkpoint (ema={ema}) answered {code_t}/{code_i}: "
+                     f"{text.get('error')} {image.get('error')}")
+            t = check_embeddings("text", text["embeddings"], len(CAPTIONS), model.cfg.embed_dim)
+            i = check_embeddings("image", image["embeddings"], len(b64), model.cfg.embed_dim)
+            replies[ema] = (t, i)
+            print(f"  (d) served step {loaded['step']} ({'EMA' if loaded['ema'] else 'trained'}"
+                  f" weights): {len(CAPTIONS)} texts, {len(b64)} JPEGs; launches "
+                  f"{({k: v for k, v in counts.items() if v})} [{card}]", flush=True)
+            if counts["block_attention_fwd"] < 24 or counts["resample"] < 1:
+                fail("serving the checkpoint did not run the block and resample kernels")
+            if ema:
+                raw = EmbeddingService(model, max_batch=CLI_BATCH, normalize=False)
+                try:
+                    norms = np.linalg.norm(raw.embed_image_bytes(bufs[:8])[0], axis=-1)
+                finally:
+                    raw.close()
+                emb = Embedder(model, batch_size=CLI_BATCH)
+                size = model.cfg.vision.image_size
+                imgs = np.random.default_rng(3).integers(
+                    0, 256, (EVAL_RATE_IMAGES, size, size, 3), dtype=np.uint8)
+                emb.embed_images(imgs[:CLI_BATCH])
+                torch.cuda.synchronize()
+                tally.start()
+                t0 = time.perf_counter()
+                emb.embed_images(imgs)
+                rate = EVAL_RATE_IMAGES / (time.perf_counter() - t0)
+                window = tally.stop()
+                del imgs
+                need = {"block_attention_fwd": model.cfg.vision.layers
+                        * -(-EVAL_RATE_IMAGES // CLI_BATCH)}
+                if {k: v for k, v in window.items() if v} != need:
+                    fail(f"the windowed embed_images launched {window}, need {need}")
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            svc.close()
+            thread.join(timeout=10)
+        del model, svc
+        torch.cuda.empty_cache()
+    cos_t = float(np.sum(replies[True][0] * want_t, -1).min())
+    cos_i = float(np.sum(replies[True][1] * want_i, -1).min())
+    diff = float(np.abs(replies[True][1] - replies[False][1]).max())
+    print(f"  served --ema vs an Embedder over the checkpoint's EMA weights loaded by hand: min "
+          f"cosine text {cos_t:.7f}, image {cos_i:.7f} (need >= 0.9999); EMA vs trained replies "
+          f"max |diff| {diff:.5f} (need > 1e-4); normalize=False row norms "
+          f"{float(norms.min()):.4f}-{float(norms.max()):.4f} (need not all 1)", flush=True)
+    if min(cos_t, cos_i) < 0.9999 or diff <= 1e-4 or np.allclose(norms, 1.0, atol=1e-3):
+        fail("the served checkpoint disagrees with its direct load, or the EMA and trained "
+             "replies do not differ, or normalize=False normalized")
+    print(f"  Embedder.embed_images over {EVAL_RATE_IMAGES} uint8 images at bucket {CLI_BATCH} "
+          f"(3 chunks in flight, float32, host clock incl. transfer): {rate:.1f} encodes/s, "
+          f"beside phase 5's single-bucket encode_images {phase5_rate:.1f} in this call "
+          f"(information); launches {need} [{card}]", flush=True)
+
+
+def eval_optional_packages(torch, card):
+    """Phase 15 (e): whether tensorstore and transformers import; where one does, the port's
+    use of it on a tiny case; either way, the port's ImportError naming it when it is absent
+    (hidden here through ``sys.modules``)."""
+    import tempfile
+
+    from multimodal_tpu_torch.data.semantic import HFSentenceEncoder
+    from multimodal_tpu_torch.models import read_orbax_params
+
+    def raises_naming(name, fn):
+        real = sys.modules.get(name)
+        sys.modules[name] = None
+        try:
+            fn()
+        except ImportError as e:
+            return name in str(e)
+        finally:
+            if real is None:
+                del sys.modules[name]
+            else:
+                sys.modules[name] = real
+        return False
+
+    found = {}
+    for name in ("tensorstore", "transformers"):
+        try:
+            __import__(name)
+            found[name] = True
+        except ImportError:
+            found[name] = False
+    tmp = tempfile.mkdtemp(prefix="phase15_pkgs_")
+    try:
+        ok_ts = raises_naming("tensorstore", lambda: read_orbax_params(tmp))
+        ok_tf = raises_naming("transformers", lambda: HFSentenceEncoder(tmp, device="cuda"))
+        print(f"  (e) tensorstore imports: {found['tensorstore']}; transformers imports: "
+              f"{found['transformers']}; the port's ImportError names tensorstore: {ok_ts}, "
+              f"transformers: {ok_tf}", flush=True)
+        if not (ok_ts and ok_tf):
+            fail("a missing optional package was not named by the port's ImportError")
+        if found["tensorstore"]:
+            import tensorstore as ts
+
+            store = os.path.join(tmp, "ocdbt")
+            want = {"params.a.kernel": np.arange(12, dtype=np.float32).reshape(3, 4),
+                    "params.a.bias": np.float32([0.5, -1.0, 2.0, 3.0]),
+                    "params.logit_scale": np.float32(2.6592)}
+            for path, arr in want.items():
+                t = ts.open({"driver": "zarr", "kvstore": {"driver": "ocdbt",
+                                                           "base": "file://" + store},
+                             "path": path, "metadata": {"shape": list(arr.shape),
+                                                        "dtype": "<f4"}},
+                            create=True).result()
+                t.write(arr).result()
+            tree = read_orbax_params(store)
+            got = {"params.a.kernel": tree["params"]["a"]["kernel"],
+                   "params.a.bias": tree["params"]["a"]["bias"],
+                   "params.logit_scale": tree["params"]["logit_scale"]}
+            same = all(np.array_equal(got[k], v) for k, v in want.items())
+            print(f"  tensorstore: an OCDBT zarr set written here with tensorstore itself (not "
+                  f"Orbax's writer, which needs JAX) read back by read_orbax_params: "
+                  f"{'equal' if same else 'DIFFERENT'}", flush=True)
+            if not same:
+                fail("read_orbax_params misread the OCDBT zarr set")
+        if found["transformers"]:
+            from transformers import BertConfig, BertModel, BertTokenizer
+
+            snap = os.path.join(tmp, "bert")
+            os.makedirs(snap)
+            words = ["a", "photo", "of", "the", "cat", "dog", "two", "in", "snow", "red", "car"]
+            with open(os.path.join(snap, "vocab.txt"), "w") as f:
+                f.write("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words))
+            BertTokenizer(os.path.join(snap, "vocab.txt")).save_pretrained(snap)
+            torch.manual_seed(0)
+            BertModel(BertConfig(vocab_size=16, hidden_size=32, num_hidden_layers=2,
+                                 num_attention_heads=2, intermediate_size=64)).save_pretrained(
+                snap)
+            texts = CAPTIONS[:3]
+            on_card = HFSentenceEncoder(snap, device="cuda")(texts)
+            on_cpu = HFSentenceEncoder(snap, device="cpu")(texts)
+            err = float(np.abs(on_card - on_cpu).max())
+            print(f"  transformers: HFSentenceEncoder on a tiny BertModel, card vs CPU max |diff| "
+                  f"{err:.2e} (need <= 1e-4), rows {on_card.shape} [{card}]", flush=True)
+            if err > 1e-4 or not np.allclose(np.linalg.norm(on_card, axis=1), 1, atol=1e-5):
+                fail("HFSentenceEncoder on the card disagrees with the CPU")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_eval(torch, mods, tally, card, phase5_rate: float):
+    """Phase 15: train with --model-ema and evaluate through the CLI in a child process,
+    evaluate again from the checkpoint in eval-only mode in this process with exact launch
+    counts, hold the evaluation's encodes to the plain path, serve the
+    checkpoint, probe the optional packages."""
+    import gc
+    import tempfile
+
+    from multimodal_tpu_torch.models import create_model, get_model_config
+    from multimodal_tpu_torch.serving import load_serving_weights
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="phase15_")
+    try:
+        t0 = time.perf_counter()
+        sets = eval_sets(root, np.random.default_rng(0))
+        print(f"  (a) eval sets made in {time.perf_counter() - t0:.1f} s: CIFAR-10 pickle "
+              f"batches ({EVAL_CIFAR} test, {EVAL_CIFAR} train, 32 px), {EVAL_FOLDER[0]} "
+              f"folders x {EVAL_FOLDER[1]} JPEGs ({EVAL_FOLDER[2]} px), "
+              + (f"Flowers-102 ({EVAL_FLOWERS} JPEGs, .mat files), " if "flowers" in sets
+                 else "no Flowers-102 (scipy does not import here), ")
+              + f"COCO val ({EVAL_COCO} JPEGs x 5 captions)", flush=True)
+        if "flowers" not in sets:
+            from multimodal_tpu_torch.data.eval_sets import flowers102
+
+            try:
+                flowers102(root, batch_size=1)
+                fail("flowers102 read .mat files without scipy")
+            except ImportError as e:
+                if "scipy" not in str(e):
+                    fail(f"the missing scipy is not named: {e}")
+        zs_sets = [k for k in ("cifar10", "imagenet_val", "flowers") if k in sets]
+        evals = sum(([f"--{k.replace('_', '-')}", v] for k, v in sets.items()), [])
+        evals += ["--linear-probe-train", sets["cifar10"], "--linear-probe-epochs",
+                  str(EVAL_PROBE_EPOCHS)]
+        logs = os.path.join(root, "logs")
+        common = ["--dataset-type", "synthetic", "--model", MODEL, "--batch-size",
+                  str(CLI_BATCH), "--train-num-samples", str(EVAL_STEPS * CLI_BATCH),
+                  "--warmup", "2", "--lr", "1e-3", "--wd", "0.1", "--seed", "0",
+                  "--precision", "amp_bf16", "--model-ema", "--log-every-n-steps", "4"] + evals
+        print(f"  (b) python -m multimodal_tpu_torch.train.run: {MODEL} bfloat16 B={CLI_BATCH}, "
+              f"1 epoch of {EVAL_STEPS} steps with --model-ema, --zeroshot-frequency 1 "
+              "--retrieval-frequency 1, then --epochs 0 --resume latest", flush=True)
+        secs, records, _ = eval_cli(logs, "train", common + [
+            "--epochs", "1", "--zeroshot-frequency", "1", "--retrieval-frequency", "1"], card)
+        train = [r for r in records if "loss" in r]
+        last = {}
+        for r in records:
+            last.update({k: v for k, v in r.items() if "zeroshot" in k or "R@" in k})
+        got = check_eval_metrics(last, zs_sets, False, "the training run's evaluation")
+        if not train or not np.isfinite([r["loss"] for r in train]).all():
+            fail("the phase-15 training run logged no finite loss")
+        print(f"  training run: {secs:.1f} s in all (child process); losses "
+              f"{[round(r['loss'], 5) for r in train]}; {got} [{card}]", flush=True)
+        cfg = get_model_config(MODEL)
+        need = eval_only_need(sets, cfg.vision.layers, cfg.text.layers)
+        secs, records, counts = eval_cli(logs, "train", common + ["--epochs", "0", "--resume",
+                                                                  "latest"], card, tally)
+        gc.collect()
+        torch.cuda.empty_cache()
+        again = check_eval_metrics(records[-1], zs_sets, True, "the eval-only run")
+        counts = {k: v for k, v in counts.items() if v}
+        print(f"  eval-only run from the checkpoint (the CLI in this process): {secs:.1f} s in "
+              f"all; linear probe accuracy {again['linear_probe_accuracy']:.4f}, mean per "
+              f"class {again['linear_probe_mean_per_class']:.4f}; launches {counts} (need "
+              f"{need}) [{card}]", flush=True)
+        if counts != need:
+            fail(f"the eval-only run launched {counts}, need {need}")
+        differ = {k: (v, again[k]) for k, v in got.items() if again[k] != v}
+        if differ:
+            fail(f"the eval-only run's metrics differ from the training run's last: {differ}")
+        print("  eval-only zero-shot and retrieval metrics equal the training run's last "
+              "evaluation", flush=True)
+        ckpt = os.path.join(logs, "train", "checkpoints")
+        model = create_model(MODEL, seed=1)
+        load_serving_weights(model, ckpt, ema=True)
+        eval_kernel_vs_plain(torch, mods, tally, card, model, sets["cifar10"])
+        del model
+        torch.cuda.empty_cache()
+        eval_serving(torch, tally, card, ckpt, sets["coco_retrieval"], phase5_rate)
+        eval_optional_packages(torch, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"  phase 15: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2561,8 +3053,9 @@ def main() -> int:
         kernels[part].update(int8_kernels[part])
 
     print("phase 4 serving, phase 5 throughput", flush=True)
-    phase_serving(torch, mods, tally, card, kind, MODEL,
-                  need_text={"block_attention_fwd": 12}, need_image={"block_attention_fwd": 12})
+    serving_rates = phase_serving(torch, mods, tally, card, kind, MODEL,
+                                  need_text={"block_attention_fwd": 12},
+                                  need_image={"block_attention_fwd": 12})
 
     print("phase 6 training", flush=True)
     need = {"block_attention_fwd": 24, "block_attention_bwd": 24}
@@ -2692,6 +3185,10 @@ def main() -> int:
     data = phase_data(torch, tally, card, kind, bf16_stats["rate"], cli_rate)
     kernels["worst_f32"]["resample"] = data["worst"]
     kernels["timing"][("resample", "resample-B256-train224", "float32")] = data["timing"]
+
+    print(f"phase 15 train, evaluate and serve: {MODEL} at full width and depth through the "
+          "CLI's evaluations and a served checkpoint", flush=True)
+    phase_eval(torch, mods, tally, card, serving_rates["image"])
 
     entries = []
     for name, (source, replaces, case) in KERNELS.items():

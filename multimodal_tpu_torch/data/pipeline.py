@@ -9,6 +9,9 @@ host-to-device copies with ``non_blocking=True`` ``depth`` batches ahead of the 
 reads them, so the copies overlap the steps before. The copies run on the current stream, so
 a step enqueued after them reads complete data.
 
+A producer that raises ends its stream with that exception, which the consumer's thread raises
+again with its traceback (the reference ends the stream quietly, as if it were complete).
+
 A pinned buffer must stay alive while its copy is in flight: ``prefetch_to_device`` holds the
 pinned tensors of each batch until the consumer asks for the batch after it, which is after
 the step that read it was enqueued (and behind that step, on the same stream, the copy).
@@ -27,25 +30,48 @@ import torch
 _SENTINEL = object()
 
 
+class _Failure:
+    """What a producer raised, carried through the queue to the consumer."""
+
+    __slots__ = ("error",)
+
+    def __init__(self, error: BaseException):
+        self.error = error
+
+
 def _producer(iterable, q: queue.Queue, stop: threading.Event):
+    """Put ``iterable``'s items on ``q``, then the end of the stream: the sentinel, or a
+    ``_Failure`` holding what the iterable raised."""
+    end = _SENTINEL
     try:
         for item in iterable:
             if stop.is_set():
                 return
             q.put(item)
+    except BaseException as e:  # noqa: BLE001 - raised again in the consumer's thread
+        end = _Failure(e)
     finally:
-        q.put(_SENTINEL)
+        q.put(end)
+
+
+def _end_of(item) -> bool:
+    """True at a clean end of stream; raises what the producer raised (its traceback
+    attached) at a failed one."""
+    if isinstance(item, _Failure):
+        raise item.error
+    return item is _SENTINEL
 
 
 def background(iterable: Iterable, depth: int = 4) -> Iterator:
-    """Run an iterable in a daemon thread behind a bounded queue."""
+    """Run an iterable in a daemon thread behind a bounded queue. What the iterable raises
+    is raised here, in the consumer's thread."""
     q: queue.Queue = queue.Queue(maxsize=depth)
     stop = threading.Event()
     threading.Thread(target=_producer, args=(iterable, q, stop), daemon=True).start()
     try:
         while True:
             item = q.get()
-            if item is _SENTINEL:
+            if _end_of(item):
                 return
             yield item
     finally:
@@ -64,7 +90,8 @@ class InterleavedReaders:
     therefore fully deterministic given deterministic per-worker streams, which the mid-epoch
     resume fast-forward needs: it replays and skips a batch prefix by position. Read and decode
     still overlap across workers: each fills its own bounded queue ahead of its turn. Epochs
-    plumb to every worker."""
+    plumb to every worker. A worker that raises ends the stream with its exception, at its
+    turn; the others are stopped."""
 
     def __init__(self, readers, depth: int = 4):
         if not readers:
@@ -94,7 +121,7 @@ class InterleavedReaders:
             while live:
                 for q in list(live):
                     item = q.get()
-                    if item is _SENTINEL:
+                    if _end_of(item):
                         live.remove(q)
                         continue
                     yield item

@@ -6,6 +6,8 @@ from multimodal_tpu_torch.models.checkpoint_interop import (
     jax_adapters_to_port,
     load_jax_params,
     load_openai_state_dict,
+    load_pretrained,
+    read_orbax_params,
 )
 from multimodal_tpu_torch.models.clip import CLIP, VariationalCLIP
 from multimodal_tpu_torch.models.config import (
@@ -46,6 +48,8 @@ __all__ = [
     "load_jax_params",
     "load_lora",
     "load_openai_state_dict",
+    "load_pretrained",
+    "read_orbax_params",
     "lora_mask",
     "merge_lora",
 ]

@@ -38,10 +38,17 @@ the adapters as they are (a pretrained base under fresh adapters); into a model 
 another image size it resizes the visual positional table with ``resize_pos_embed``, the
 reference's bicubic. ``export_openai_state_dict`` is its inverse, for a model the format
 covers.
+
+``load_pretrained`` is the CLI's ``--pretrained``: an OpenAI-format torch file, or an Orbax
+directory that the JAX package's ``StandardCheckpointer`` wrote from its parameter tree, whose
+leaves ``read_orbax_params`` reads with ``tensorstore`` alone (an OCDBT key-value store of
+zarr arrays, one per leaf, named by the leaf's "."-joined path).
 """
 
 from __future__ import annotations
 
+import logging
+import os
 import re
 from typing import Any, Mapping
 
@@ -50,6 +57,8 @@ import torch
 
 from multimodal_tpu_torch.models.clip import CLIP, VariationalCLIP
 from multimodal_tpu_torch.models.lora import ALPHA_KEY, is_lora_leaf
+
+log = logging.getLogger(__name__)
 
 
 def _keys_cubic(x: np.ndarray) -> np.ndarray:
@@ -313,3 +322,62 @@ def load_jax_params(model: CLIP | VariationalCLIP, params: Mapping[str, Any]):
     ``attn.logit_scale``, ``attn_pool.*``, the LayerScale ``gamma`` and the variational
     heads too). A mismatch in names or shapes raises."""
     return _fill(model, jax_params_to_port(params), "parameter tree")
+
+
+def read_orbax_params(path: str) -> dict:
+    """The parameter tree an Orbax ``StandardCheckpointer`` saved in directory ``path``, as
+    nested dicts of numpy arrays keyed like the flax tree. Only ``tensorstore`` is needed
+    (imported here; an ``ImportError`` naming it where it is missing): each leaf is the zarr
+    array at its "."-joined path in the directory's OCDBT store."""
+    try:
+        import tensorstore as ts
+    except ImportError as e:
+        raise ImportError("reading an Orbax --pretrained directory needs the 'tensorstore' "
+                          "package, which is not installed") from e
+    kvstore = {"driver": "ocdbt", "base": "file://" + os.path.abspath(path)}
+    keys = ts.KvStore.open(kvstore).result().list().result()
+    leaves = sorted({k.decode().rsplit("/", 1)[0] for k in keys if k.endswith(b"/.zarray")})
+    if not leaves:
+        raise ValueError(f"{path} holds no Orbax array (no zarr leaf in its OCDBT store)")
+    tree: dict = {}
+    for name in leaves:
+        value = ts.open({"driver": "zarr", "kvstore": kvstore, "path": name}).result()
+        node = tree
+        *parents, leaf = name.split(".")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = np.asarray(value.read().result())
+    return tree
+
+
+@torch.no_grad()
+def load_pretrained(model: CLIP | VariationalCLIP, path: str):
+    """``--pretrained``: copy the weights at ``path`` into ``model`` in place (the reference's
+    ``load_pretrained``). A file is an OpenAI-format torch checkpoint
+    (``load_openai_state_dict``; a TorchScript archive's ``state_dict()`` too). A directory is
+    an Orbax save of the JAX package's parameter tree (``read_orbax_params``), mapped by
+    ``jax_params_to_port``:
+
+    - a model with LoRA adapters takes the checkpoint's adapters when it carries them all (a
+      LoRA fine-tune's save); from a checkpoint with none (a base) it keeps its freshly
+      initialized ones, and logs that;
+    - a visual positional table of another grid (``--force-image-size``) is resized with
+      ``resize_pos_embed`` first;
+    - then every other parameter must be there with its exact shape; a mismatch raises."""
+    if not os.path.isdir(path):
+        sd = torch.load(path, map_location="cpu", weights_only=False)
+        if hasattr(sd, "state_dict"):  # a TorchScript archive (the clip.load format)
+            sd = sd.state_dict()
+        return load_openai_state_dict(model, sd)
+    converted = jax_params_to_port(read_orbax_params(path))
+    params = dict(model.named_parameters())
+    pos = "visual_stem.positional_embedding"
+    if pos in converted and pos in params and converted[pos].shape != tuple(params[pos].shape):
+        converted[pos] = resize_pos_embed(converted[pos], params[pos].shape[0])
+    adapters = {n for n in params if is_lora_leaf(n)}
+    keep = lambda name: False  # noqa: E731
+    if adapters and not any(is_lora_leaf(n) for n in converted):
+        log.info("pretrained checkpoint %s has no LoRA adapter leaves: loading the base "
+                 "weights under freshly initialized adapters", path)
+        keep = is_lora_leaf
+    return _fill(model, converted, f"Orbax checkpoint {path}", keep=keep)

@@ -12,3 +12,4 @@ _REFERENCE_ROOT = os.path.join(
 
 CONFIG_DIR = os.path.join(_REFERENCE_ROOT, "models", "configs")
 BPE_VOCAB_PATH = os.path.join(_REFERENCE_ROOT, "data", "assets", "bpe_simple_vocab_16e6.txt.gz")
+ZERO_SHOT_METADATA_PATH = os.path.join(_REFERENCE_ROOT, "eval", "assets", "zero_shot_metadata.json")

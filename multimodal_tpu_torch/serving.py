@@ -17,7 +17,13 @@ Routes: ``GET /healthz``, ``GET /v1/stats``, ``POST /v1/embed/text`` (``texts``)
 ``POST /v1/embed/image`` (``images_u8`` or ``images_b64``), ``POST /v1/similarity``
 (``texts`` + ``images_u8`` or ``images_b64``; each text embedded once). A malformed request
 gets 400, an encode failure 500. ``quantized=True`` (``--quantized``) answers every route from
-the int8 W8A8 encoders (``inference_quant``).
+the int8 W8A8 encoders (``inference_quant``); ``normalize=False`` returns the projections
+without the L2 normalization.
+
+``python -m multimodal_tpu_torch.serving --checkpoint DIR [--ema]`` serves the latest
+checkpoint that the training CLI wrote under ``DIR`` (``<logs>/<name>/checkpoints``), with
+``--ema`` its EMA weights when it kept them (``load_serving_weights``); ``--state-dict``
+serves an OpenAI-format state dict instead.
 """
 
 from __future__ import annotations
@@ -199,14 +205,15 @@ class EmbeddingService:
     funneled through one DynamicBatcher per modality (and one more for ``wire_size``
     batches, which are coalesced apart from the full-size ones). Usable in-process or behind
     ``make_server``. ``quantized=True`` encodes through the int8 encoders
-    (``Embedder(quantized=True)``)."""
+    (``Embedder(quantized=True)``); ``normalize=False`` answers with unnormalized rows."""
 
     def __init__(self, model, max_batch: int = 256, max_wait_ms: float = 5.0,
-                 quantized: bool = False, wire_size: Optional[int] = None):
+                 quantized: bool = False, normalize: bool = True,
+                 wire_size: Optional[int] = None):
         self.model = model
         self.wire_size = wire_size
-        self._embedder = Embedder(model, batch_size=max_batch, quantized=quantized,
-                                  wire_size=wire_size)
+        self._embedder = Embedder(model, batch_size=max_batch, normalize=normalize,
+                                  quantized=quantized, wire_size=wire_size)
         self.device = self._embedder.device
         self.text_batcher = DynamicBatcher(self._embedder.encode_tokens,
                                            max_batch=max_batch, max_wait_ms=max_wait_ms)
@@ -272,8 +279,9 @@ class EmbeddingService:
         return emb, ok
 
     def similarity(self, texts: Sequence[str], buffers: Sequence[bytes], size=None):
-        """Cosine-similarity matrix [n_images, n_texts] of raw uint8 images (embeddings are
-        unit-norm); each text is embedded once."""
+        """Similarity matrix [n_images, n_texts] of raw uint8 images (the cosine, as the
+        embeddings are unit-norm unless the service was built with ``normalize=False``); each
+        text is embedded once."""
         t = self.embed_texts(texts)
         return self.embed_image_raw(buffers, size) @ t.T
 
@@ -396,11 +404,42 @@ def make_server(service: EmbeddingService, host: str = "127.0.0.1",
     return ThreadingHTTPServer((host, port), handler)
 
 
+def load_serving_weights(model, checkpoint: str, ema: bool = False) -> dict:
+    """Load the latest checkpoint the training CLI saved under ``checkpoint`` (its
+    ``CheckpointManager`` directory, torch files) into ``model`` in place: its EMA weights
+    with ``ema`` when the checkpoint kept them, else its trained parameters. Only the EMA
+    toggle is tolerated (``--ema`` against a run without ``--model-ema`` serves the trained
+    parameters, and says so); a directory without a checkpoint, an unreadable file or a
+    checkpoint of another shape raises its own error. Returns what was loaded: ``step`` and
+    ``ema`` (whether the EMA weights were served)."""
+    import logging
+    import os
+
+    from multimodal_tpu_torch.train.checkpoints import CheckpointManager
+
+    if not os.path.isdir(checkpoint):
+        raise FileNotFoundError(f"--checkpoint {checkpoint}: no such directory")
+    mgr = CheckpointManager(checkpoint)
+    step = mgr.latest_step()
+    if step is None:
+        raise FileNotFoundError(f"--checkpoint {checkpoint}: no saved step in it")
+    saved, _ = mgr.restore(step)
+    weights = dict(saved["model"])
+    use_ema = ema and saved.get("ema") is not None
+    if ema and not use_ema:
+        logging.getLogger("multimodal_tpu_torch.serving").warning(
+            "checkpoint step %d has no EMA weights (trained without --model-ema); serving its "
+            "trained parameters", step)
+    if use_ema:
+        weights.update(saved["ema"])
+    with torch.no_grad():
+        model.load_state_dict(weights)
+    return {"step": step, "ema": use_ema}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     import argparse
     import logging
-
-    import torch
 
     from multimodal_tpu_torch.models import create_model, load_openai_state_dict
 
@@ -409,9 +448,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--model", default="ViT-B-32")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cuda' requires a GPU (there is no CPU fallback)")
+    ap.add_argument("--checkpoint", default=None,
+                    help="a checkpoint directory written by the training CLI "
+                         "(<logs>/<name>/checkpoints); its latest step is served")
+    ap.add_argument("--ema", action="store_true",
+                    help="serve the checkpoint's EMA weights (a run with --model-ema)")
     ap.add_argument("--state-dict", default=None,
                     help="OpenAI-CLIP-format state_dict saved with torch.save; "
-                         "omit for seeded random weights (smoke mode)")
+                         "omit both this and --checkpoint for seeded random weights")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--max-batch", type=int, default=256)
@@ -421,6 +465,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="also accept images at this smaller size (raw uint8 'images_u8' or "
                          "'wire': true JPEG) and upsample them on the device")
     args = ap.parse_args(argv)
+    if args.checkpoint and args.state_dict:
+        ap.error("--checkpoint and --state-dict are two sources of weights; give one")
+    if args.ema and not args.checkpoint:
+        ap.error("--ema needs --checkpoint")
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -429,7 +477,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     logging.basicConfig(level=logging.INFO)
     log = logging.getLogger("multimodal_tpu_torch.serving")
     model = create_model(args.model, device=device)
-    if args.state_dict:
+    if args.checkpoint:
+        loaded = load_serving_weights(model, args.checkpoint, args.ema)
+        log.info("restored step %d from %s (%s weights)", loaded["step"], args.checkpoint,
+                 "EMA" if loaded["ema"] else "trained")
+    elif args.state_dict:
         load_openai_state_dict(
             model, torch.load(args.state_dict, map_location="cpu", weights_only=True))
     service = EmbeddingService(model, max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,

@@ -7,9 +7,10 @@
 The same flags (``train.params``), the same experiment layout (``<logs>/<name>/params.txt``,
 ``out.log``, ``results.jsonl``, ``checkpoints/<step>/``) and the same resume semantics as the
 reference: parse the flags, build the model (``--pretrained`` from an OpenAI-format torch
-file), the optimizer with its freeze mode, the data, the LR schedule; resume the latest
-checkpoint (mid-epoch saves fast-forward the data stream); then per epoch train, evaluate
-(the EMA weights with ``--model-ema``) and checkpoint. The run is on the GPU unless
+file or an Orbax directory of the JAX package's parameters), the optimizer with its freeze
+mode, the data, the LR schedule; resume the latest checkpoint (mid-epoch saves fast-forward
+the data stream); then per epoch train, evaluate (the EMA weights with ``--model-ema``) and
+checkpoint. ``--epochs 0`` only evaluates. The run is on the GPU unless
 ``--device cpu`` asks for the CPU; without a CUDA device it raises.
 
 Each step's ``torch.Generator`` (patch dropout, the vclip draws) is seeded from
@@ -21,17 +22,21 @@ The data section is the reference's: ``--dataset-type`` (``auto`` picks ``webdat
 ``.tar`` pattern, ``synthetic`` without ``--train-data``, else ``coco``), the webdataset
 readers with ``--workers`` shard-disjoint workers merged round-robin, ``--dataset-resampled``
 and ``--train-data-upsampling-factors``, the file-list datasets with the CSV keys, ``--aug-cfg``,
-the hashing semantic encoder for ``--nl_semantic_supervision``, and a real ``--val-data``.
-Images decode on the run's device (on the GPU through nvJPEG and the resample kernel) at
+the semantic encoder for ``--nl_semantic_supervision`` (hashing, or with
+``--semantic-model-path`` a local transformers snapshot), and a real ``--val-data``. Images
+decode on the run's device (on the GPU through nvJPEG and the resample kernel) at
 ``--wire-size`` when it is set, the step upsampling them to the model's resolution.
+
+The evaluations, after every ``--zeroshot-frequency`` / ``--retrieval-frequency`` epochs and
+in eval-only mode: zero-shot classification on the sets whose path flags are given
+(``ZERO_SHOT_DATASETS``, stock layouts or folder-per-class), COCO / Flickr retrieval through
+``Embedder``, and in eval-only mode the linear probe (``--linear-probe-train``).
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP Queue 1 item:
 multi-process and mesh training (``--multihost``, ``--tensor-parallel``,
 ``--expert-parallel``, ``--dcn-slices``, ``--fsdp``, ``--use-shard-map``,
-``--opt-state-offload``, ``--contrastive-impl ring``: item 9), a pretrained Orbax directory
-and the transformers semantic encoder (``--semantic-model-path``: item 8, both waiting for
-their files), and the zero-shot, retrieval, captioning and linear-probe evaluations and
-``--profile-steps`` (item 11).
+``--opt-state-offload``, ``--contrastive-impl ring``: item 9), the captioning evaluation
+and ``--profile-steps`` (item 11).
 """
 
 from __future__ import annotations
@@ -53,8 +58,8 @@ from multimodal_tpu_torch.data.augment import parse_aug_cfg
 from multimodal_tpu_torch.data.datasets import build_dataset
 from multimodal_tpu_torch.data.pipeline import DataInfo
 from multimodal_tpu_torch.data.semantic import make_semantic_encoder
-from multimodal_tpu_torch.inference import model_mode
-from multimodal_tpu_torch.models import create_model, load_openai_state_dict
+from multimodal_tpu_torch.inference import Embedder, model_mode
+from multimodal_tpu_torch.models import create_model, load_pretrained
 from multimodal_tpu_torch.models.config import VariationalConfig
 from multimodal_tpu_torch.train.checkpoints import CheckpointManager
 from multimodal_tpu_torch.train.engine import TrainState, batch_images, init_ema, make_train_step
@@ -74,12 +79,20 @@ log = logging.getLogger(__name__)
 # set by SIGTERM (an eviction); the train loop reads it after every step, saves and exits
 _PREEMPTED = threading.Event()
 
-# the evaluation flags of ROADMAP Queue 1 item 11 (zero-shot sets, retrieval, captioning,
-# linear probe)
-ITEM_11_EVALS = ("imagenet_val", "imagenet_v2", "imagenet_s", "imagenet_a", "imagenet_o",
-                 "imagenet_r", "imagenet_c", "cifar10", "cifar100", "flowers", "food",
-                 "stanford_cars", "coco_retrieval", "flickr_retrieval", "captioning_eval",
-                 "linear_probe_train")
+ZERO_SHOT_DATASETS = {  # CLI flag -> its class table in eval.metadata
+    "imagenet_val": "imagenet",
+    "imagenet_v2": "imagenet-v2",
+    "imagenet_s": "imagenet-sketch",
+    "imagenet_a": "imagenet-a",
+    "imagenet_o": "imagenet-o",
+    "imagenet_r": "imagenet-r",
+    "imagenet_c": "imagenet",  # the corruption sets share ImageNet's classes
+    "cifar10": "cifar10",
+    "cifar100": "cifar100",
+    "flowers": "flowers102",
+    "food": "food101",
+    "stanford_cars": "stanford-cars",
+}
 
 
 def _install_preemption_handler():
@@ -112,11 +125,9 @@ def check_ported(args):
         ("--use-shard-map", args.use_shard_map, "item 9"),
         ("--opt-state-offload", args.opt_state_offload, "item 9"),
         ("--contrastive-impl ring", args.contrastive_impl == "ring", "item 9"),
-        ("--pretrained (an Orbax directory)", bool(args.pretrained)
-         and os.path.isdir(args.pretrained), "item 8"),
+        ("--captioning-eval", bool(args.captioning_eval), "item 11"),
         ("--profile-steps", args.profile_steps > 0, "item 11"),
-    ] + [(f"--{k.replace('_', '-')}", bool(getattr(args, k, None)), "item 11")
-         for k in ITEM_11_EVALS]
+    ]
     for flag, on, item in left_out:
         if on:
             raise NotImplementedError(f"{flag} is not ported yet (ROADMAP Queue 1 {item})")
@@ -268,6 +279,112 @@ def evaluate(model, data_val, epoch: int, args=None, weights: dict | None = None
     return metrics
 
 
+def zero_shot_eval_all(model, args, weights: dict | None = None) -> dict:
+    """Zero-shot classification on every eval set whose path flag is given: the
+    template-averaged classifier of the set's class table (the folder names where a
+    folder-per-class set's classes differ from the table), then top-1 and top-5 over its
+    batches. ``weights`` (the EMA) stand in for the parameters; a variational model has no
+    point encoder and is skipped."""
+    from multimodal_tpu_torch.data.eval_sets import open_eval_dataset
+    from multimodal_tpu_torch.eval.metadata import classnames, templates
+    from multimodal_tpu_torch.eval.zero_shot import build_zero_shot_classifier, zero_shot_eval
+
+    active = {k: getattr(args, k) for k in ZERO_SHOT_DATASETS if getattr(args, k, None)}
+    if args.variational or not active:
+        return {}
+    device = next(model.parameters()).device
+    results = {}
+    with swapped_parameters(model, weights), model_mode(model, False), torch.inference_mode():
+        for flag, path in active.items():
+            t0 = time.perf_counter()
+            ds = open_eval_dataset(flag, path, batch_size=args.batch_size,
+                                   image_size=model.cfg.vision.image_size, device=device)
+            names = classnames(ZERO_SHOT_DATASETS[flag])
+            if len(names) != len(ds.classes):  # a folder set that is not the table's
+                names = [c.replace("_", " ") for c in ds.classes]
+            classifier = build_zero_shot_classifier(
+                lambda t: model.encode_text(t, normalize=True), names, templates("openai"),
+                context_length=model.cfg.text.context_length, device=device)
+            acc = zero_shot_eval(
+                lambda x: model.encode_image(batch_images({"image": x}, model), normalize=True),
+                classifier, iter(ds))
+            results[f"{flag}-zeroshot-top1"] = acc["top1"]
+            results[f"{flag}-zeroshot-top5"] = acc["top5"]
+            log.info("zero-shot %s: top1 %.4f top5 %.4f (%d images in %.2f s)", flag,
+                     acc["top1"], acc["top5"], len(ds), time.perf_counter() - t0)
+    return results
+
+
+def retrieval_eval_all(model, args, weights: dict | None = None) -> dict:
+    """COCO / Flickr cross-modal retrieval: every image and all its captions embedded
+    through ``Embedder``, R@{1,5,10} both ways (``eval.retrieval.recall_at_k``)."""
+    from multimodal_tpu_torch.data.datasets import coco_captions, flickr_items
+    from multimodal_tpu_torch.eval.retrieval import recall_at_k
+
+    if args.variational:
+        return {}
+    loaders = [
+        ("coco_retrieval", lambda root: coco_captions(root, split="val",
+                                                      ann_path=args.ms_coco_annot)),
+        ("flickr_retrieval", lambda root: flickr_items(root, token_path=args.flickr_annot)),
+    ]
+    results = {}
+    for flag, loader in loaders:
+        root = getattr(args, flag, None)
+        if not root:
+            continue
+        t0 = time.perf_counter()
+        by_image: dict = {}  # the captions of each image, in file order
+        for path, caption in loader(root):
+            by_image.setdefault(path, []).append(caption)
+        image_paths = list(by_image)
+        captions = [c for p in image_paths for c in by_image[p]]
+        text_to_image = np.asarray([i for i, p in enumerate(image_paths) for _ in by_image[p]])
+        with swapped_parameters(model, weights):
+            emb = Embedder(model, batch_size=args.batch_size)
+            img_feats, _ = emb.embed_image_files(image_paths,
+                                                 image_size=model.cfg.vision.image_size)
+            txt_feats = emb.embed_texts(captions)
+        r = recall_at_k(img_feats, txt_feats, text_to_image)
+        results.update({f"{flag}-{k}": v for k, v in r.items()})
+        log.info("retrieval %s: %s (%d images, %d captions in %.2f s)", flag, r,
+                 len(image_paths), len(captions), time.perf_counter() - t0)
+    return results
+
+
+def linear_probe_eval(model, args, weights: dict | None = None) -> dict:
+    """The linear probe on frozen image features: ``--linear-probe-train``'s train split
+    (``--linear-probe-val``'s, else the same path's, test split to score), fitted for
+    ``--linear-probe-epochs`` on the model's device."""
+    from multimodal_tpu_torch.data.eval_sets import open_eval_dataset
+    from multimodal_tpu_torch.eval.linear_probe import linear_probe_metrics
+
+    if args.variational or not args.linear_probe_train:
+        return {}
+    t0 = time.perf_counter()
+    device = next(model.parameters()).device
+
+    def featurize(emb, root, split):
+        ds = open_eval_dataset("linear_probe", root, batch_size=args.batch_size,
+                               image_size=model.cfg.vision.image_size, split=split,
+                               device=device)
+        feats, labels = [], []
+        for images, lab in ds:
+            feats.append(emb.embed_images(images))
+            labels.append(lab)
+        return np.concatenate(feats), np.concatenate(labels), len(ds.classes)
+
+    with swapped_parameters(model, weights):
+        emb = Embedder(model, batch_size=args.batch_size)
+        xtr, ytr, n_classes = featurize(emb, args.linear_probe_train, "train")
+        xte, yte, _ = featurize(emb, args.linear_probe_val or args.linear_probe_train, "test")
+    metrics = linear_probe_metrics(xtr, ytr, xte, yte, n_classes,
+                                   epochs=args.linear_probe_epochs, device=device)
+    log.info("linear probe: %s (%d train, %d test features in %.2f s)", metrics, len(xtr),
+             len(xte), time.perf_counter() - t0)
+    return metrics
+
+
 def _start_remote_sync(local_dir: str, remote_dir: str, frequency_s: int) -> threading.Event:
     """Copy ``local_dir`` into ``remote_dir`` every ``frequency_s`` seconds on a daemon
     thread (rsync when there is one, else ``cp -r``); set the returned event to stop."""
@@ -388,10 +505,7 @@ def main(argv=None):
         lora_rank=args.lora_rank, lora_alpha=args.lora_alpha,
         int8_forward=args.precision == "int8")
     if args.pretrained:
-        sd = torch.load(args.pretrained, map_location="cpu", weights_only=False)
-        if hasattr(sd, "state_dict"):  # a TorchScript archive (the clip.load format)
-            sd = sd.state_dict()
-        load_openai_state_dict(model, sd)
+        load_pretrained(model, args.pretrained)
     log.info("model %s: %.1fM params", args.model,
              sum(p.numel() for p in model.parameters()) / 1e6)
 
@@ -415,7 +529,8 @@ def main(argv=None):
         if dataset_type == "synthetic":
             data_kw["with_semantic"] = 256
         else:
-            data_kw["semantic_encoder"] = make_semantic_encoder(args.semantic_model_path)
+            data_kw["semantic_encoder"] = make_semantic_encoder(args.semantic_model_path,
+                                                                device=device)
     if args.aug_cfg:
         if dataset_type == "synthetic":
             log.warning("--aug-cfg has no effect on synthetic data (no decode stage)")
@@ -508,6 +623,9 @@ def main(argv=None):
         record = {"eval": True}
         if data_val is not None:
             record.update(evaluate(model, data_val, 0, args, eval_weights()))
+        record.update(zero_shot_eval_all(model, args, eval_weights()))
+        record.update(retrieval_eval_all(model, args, eval_weights()))
+        record.update(linear_probe_eval(model, args, eval_weights()))
         log.info("eval-only: %s", record)
         exp_logger.log(record)
         return 0
@@ -538,6 +656,14 @@ def main(argv=None):
             metrics = evaluate(model, data_val, epoch, args, eval_weights())
             log.info("eval epoch %d: %s", epoch, metrics)
             exp_logger.log(metrics, step=state.step)
+        if (epoch + 1) % args.zeroshot_frequency == 0:
+            zs = zero_shot_eval_all(model, args, eval_weights())
+            if zs:
+                exp_logger.log({"epoch": epoch, **zs}, step=state.step)
+        if (epoch + 1) % args.retrieval_frequency == 0:
+            rt = retrieval_eval_all(model, args, eval_weights())
+            if rt:
+                exp_logger.log({"epoch": epoch, **rt}, step=state.step)
         if (epoch + 1) % args.save_frequency == 0 or epoch == args.epochs - 1:
             ckpt.wait()
             if ckpt.latest_step() == state.step:

@@ -541,3 +541,19 @@ def test_resample_bound_counts_the_tapped_source_and_the_output_only():
     ms, by = cs.resample_bound(host["taps"], host["read_bytes"], out_bytes)
     assert by == "bytes"
     assert abs(ms * 1e-3 * cs.PEAK_BYTES - (sum(want) + out_bytes)) < 1e-3
+
+
+@pytest.mark.parametrize("flowers, need", [
+    # zero-shot text 1 + 1 (+ 11) and images 4 + 1 (+ 1), COCO 1 + 3, the probe 4 + 4
+    (True, {"block_attention_fwd": 12 * 31, "resample": 3}),
+    (False, {"block_attention_fwd": 12 * 19, "resample": 2}),
+])
+def test_eval_only_need_counts_every_encode_and_jpeg_batch(flowers, need):
+    sets = {"cifar10": "c", "imagenet_val": "f", "coco_retrieval": "k"}
+    if flowers:
+        sets["flowers"] = "fl"
+    assert cs.eval_only_need(sets, 12, 12) == need
+    # a tower's depth scales only its own encodes: 15 (or 14) image and 16 (or 5) text chunks
+    want_image, want_text = (15, 16) if flowers else (14, 5)
+    assert cs.eval_only_need(sets, 2, 0)["block_attention_fwd"] == 2 * want_image
+    assert cs.eval_only_need(sets, 0, 3)["block_attention_fwd"] == 3 * want_text

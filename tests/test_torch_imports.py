@@ -44,9 +44,20 @@ def test_port_imports_without_jax():
         "import multimodal_tpu_torch.data.wds, multimodal_tpu_torch.data.resize\n"
         "import multimodal_tpu_torch.data.preprocess, multimodal_tpu_torch.data.bench_pipeline\n"
         "import multimodal_tpu_torch.native.bindings, multimodal_tpu_torch.ops.resample\n"
+        "import multimodal_tpu_torch.eval, multimodal_tpu_torch.eval.metadata\n"
+        "import multimodal_tpu_torch.eval.topk, multimodal_tpu_torch.eval.zero_shot\n"
+        "import multimodal_tpu_torch.eval.linear_probe, multimodal_tpu_torch.data.eval_sets\n"
+        "from multimodal_tpu_torch.serving import load_serving_weights\n"
+        "from multimodal_tpu_torch.models import load_pretrained, read_orbax_params\n"
+        "from multimodal_tpu_torch.data.semantic import HFSentenceEncoder\n"
+        "from multimodal_tpu_torch.train.run import ZERO_SHOT_DATASETS, zero_shot_eval_all\n"
+        "from multimodal_tpu_torch.train.run import retrieval_eval_all, linear_probe_eval\n"
         "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'multimodal_tpu'))\n"
         "assert not leaked, leaked\n"
+        "optional = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('transformers', 'tensorstore', 'scipy'))\n"
+        "assert not optional, optional  # imported where they are used\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

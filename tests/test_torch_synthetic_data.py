@@ -96,8 +96,8 @@ def test_hashing_encoder_is_the_references_bit_for_bit():
         got = HashingSemanticEncoder(dim, ngrams)(texts)
         np.testing.assert_array_equal(got, JaxEncoder(dim, ngrams)(texts))
     assert isinstance(make_semantic_encoder(None), HashingSemanticEncoder)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        make_semantic_encoder("/models/all-mpnet-base-v2")
+    with pytest.raises(FileNotFoundError, match="all-mpnet-base-v2"):  # no hashing fallback
+        make_semantic_encoder("/models/all-mpnet-base-v2", device="cpu")
 
 
 def test_prefetch_to_device_preserves_the_stream_on_the_cpu():
