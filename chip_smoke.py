@@ -19,14 +19,15 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      CUDA-event times at B=256: the block-attention forward and backward at the ViT-B/32
      tower shapes (vision S=50 W=768 H=12, text S=77 W=512 H=8 causal), the shared trunk's
      text pass (S=77 W=768 H=12 causal), S=197 and S=257 (W=1024 H=16), with torch's
-     multi_head_attention_forward timed beside them; their LN-fold forms (LayerNorm and residual inside the kernel; also
-     ln_out, dgamma and dbeta) at S=145 (ViT-B/32's vision tower at 384 px, timed at B=256),
-     S=197, S=257 and S=320, causal and not; both forms at the
-     head dims 80 and 88 (S=257, W=1280 and 1408), whose last k-step of 16 is zero-padded; the
-     fused whole-sequence attention pair at S=128, 197, 257 and 512 with D=32, 64 and 128 and
-     at S=129 and 191 (one past and one short of a 64-row tile edge), causal and not, with
-     torch's scaled_dot_product_attention timed beside it and a second launch of the timed
-     case compared bit for bit with the first; the fused MLP branch
+     multi_head_attention_forward timed beside them, and the caption mappers' shapes (S=20
+     W=768 H=8, head dim 96; S=14 W=256 H=8), at B=3 and timed at B=32; their LN-fold forms
+     (LayerNorm and residual inside the kernel; also ln_out, dgamma and dbeta) at S=145
+     (ViT-B/32's vision tower at 384 px, timed at B=256), S=197, S=257 and S=320, causal and
+     not; both forms at the head dims 80 and 88 (S=257, W=1280 and 1408), whose last k-step
+     of 16 is zero-padded; the fused whole-sequence attention pair at S=128, 197, 257 and 512
+     with D=32, 64 and 128 and at S=129 and 191 (one past and one short of a 64-row tile
+     edge), causal and not, with torch's scaled_dot_product_attention timed beside it and a
+     second launch of the timed case compared bit for bit with the first; the fused MLP branch
      (LayerNorm, c_fc, activation, c_proj, residual) forward and backward, with and without
      the residual, at the ViT-B/32, ViT-B/16 and ViT-L/14 token counts and widths (c_proj's
      float32 sums run K = H = 2048-4096 long) and a ragged T=3x197 (outputs y, h and dx, dW1,
@@ -197,7 +198,34 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      (information); (e) whether tensorstore and
      transformers import; where they do, an OCDBT zarr set written with tensorstore read back
      by ``read_orbax_params`` and ``HFSentenceEncoder`` on a tiny BertModel, card against CPU
-     (<= 1e-4); either way the port's ImportError naming each when it is hidden.
+     (<= 1e-4); either way the port's ImportError naming each when it is hidden;
+ 16. captioning, the research toolkit and the profiler: (a) the reference's decoder at full
+     width (``ClipCaptionModel()``: GPT-2 base, vocab 50257, 12 layers at W=768; the 8-block
+     mapper at S=20, W=768, H=8, head dim 96, through the block kernels) on ViT-B/32 features
+     of 256 synthetic images: 4 float32 AdamW steps at B=32 and caption length 40 through the
+     kernels against the plain path at phase 6's limits (in step 1 the plain path replays the
+     kernel path's ReLU gates, whose flips it counts), exactly 8 + 8 block launches a step,
+     samples/s of both paths in turns; then the greedy ``generate(max_len=40)`` at B=32 (one
+     token a step against the static cache): first-step logits at cosine >= 0.9999 to the
+     plain path's, the tokens equal up to each row's first step where the plain path's top-2
+     margin is under 1e-4, tokens/s;
+     (b) the port's GPT-2 at base width against ``transformers.GPT2LMHeadModel`` from the same
+     random weights (``load_hf_gpt2``), atol 2e-4 + rtol 2e-3; (c) ``--epochs 0
+     --captioning-eval`` (the CLI's main in this process) over a COCO-val layout of 128 JPEGs at
+     the decoder's defaults (width 256, 4 layers, 3 epochs; the mapper at S=14, W=256): BLEU in
+     [0, 1], 12 held out, the launches exactly (12 per encode, the mapper's 2 + 2 a step, 2 per
+     decode batch, 1 resample per decode of JPEGs); (d) ``--profile-steps 2`` on a 4-step bf16
+     B=256 CLI run: one trace of 2 ``train_step`` spans holding exactly 2 x 24 block forward
+     cores and 2 x 24 backward dQ passes, each stream's occupancy at most its sum; (e) vMF EM at
+     50,000 x 512, K=10, 20 iterations on the card against the CPU from the same means (weights,
+     kappas, log-likelihoods within 1e-4 relative), ms per iteration on each; (f)
+     ``run_loss_bench`` at its defaults for each distribution on the card (seconds, final
+     statistics) and the CPU's trajectory from a CPU generator (seconds); at 5 steps along it
+     one card step from the CPU's state with the CPU's draws against the CPU's step (stats
+     within 1e-4 relative, the mean arc 0.02 degrees, points 1e-5, concentrations 1e-4); the
+     two 1000-step runs are not held to each other, float32 rounding grows over them; (g)
+     ``LlamaCaptioner`` over a tiny random local Llama snapshot written here: card captions
+     equal to the CPU's.
 Before the last line come the card's name and power limit and the kernel summary (JSON); the
 last line is the device record.
 """
@@ -284,6 +312,10 @@ BLOCK_CASES = [  # (case, batch, seq, width, heads, causal)
     ("vclip-vision", 256, 51, 768, 12, False),  # concentration token (an odd S)
     ("vclip-text", 3, 78, 512, 8, True),  # 77 tokens and the concentration token, which
     ("vclip-text", 256, 78, 512, 8, True),  # attends to every row
+    ("caption-mapper", 3, 20, 768, 8, False),  # the reference decoder's mapper: 10 CLIP
+    ("caption-mapper", 32, 20, 768, 8, False),  # tokens and 10 constants, head dim 96
+    ("caption-cli", 3, 14, 256, 8, False),  # the CLI decoder's mapper: 4 + 10 tokens, W=256
+    ("caption-cli", 32, 14, 256, 8, False),
 ]
 LN_CASES = [  # (case, batch, seq, width, heads, causal, residual)
     ("ln-S145", 3, 145, 768, 12, False, True),    # ViT-B/32's vision tower at 384 px
@@ -534,12 +566,13 @@ def kernel_cases(torch, ba, fa, bm, fl, dtype):
         # the gradient of x (the weight gradients are outside the kernel and outside this)
         x_leaf = x.detach().requires_grad_()
         mha_out = mha(x_leaf, ws, heads, causal)
-        yield ("block_attention_fwd", case, shape, b == 256,
+        timed = b == 256 or case.startswith("caption")  # the caption rows at their B=32
+        yield ("block_attention_fwd", case, shape, timed,
                lambda: ba.block_attention(x, *ws, **kw),
                lambda: ba.block_attention_reference(x, *ws, **kw),
                (lambda: mha(x, ws, heads, causal), lambda y: y), {}, ("y",),
                block_bound("block_attention_fwd", b, s, w, heads, causal, name))
-        yield ("block_attention_bwd", case, shape, b == 256,
+        yield ("block_attention_bwd", case, shape, timed,
                lambda: ba.block_attention_bwd(x, dy, *ws, **kw),
                lambda: ba.block_attention_bwd_reference(x, dy, *ws, **kw),
                (lambda: torch.autograd.grad(mha_out, [x_leaf], dy, retain_graph=True),
@@ -2598,19 +2631,7 @@ def eval_sets(root: str, rng) -> dict:
         for i in ids:
             jpeg(os.path.join(d, "jpg", f"image_{i:05d}.jpg"), EVAL_FOLDER[2])
         sets["flowers"] = os.path.join(root, "flowers")
-    coco = os.path.join(root, "coco")
-    os.makedirs(os.path.join(coco, "val2017"))
-    os.makedirs(os.path.join(coco, "annotations"))
-    images, anns = [], []
-    for i in range(EVAL_COCO):
-        fn = f"{i:012d}.jpg"
-        jpeg(os.path.join(coco, "val2017", fn), 240)
-        images.append({"id": i, "file_name": fn})
-        for j in range(5):
-            words = rng.choice(COCO_WORDS, 6)
-            anns.append({"image_id": i, "caption": f"{' '.join(words)} {i} {j}"})
-    with open(os.path.join(coco, "annotations", "captions_val2017.json"), "w") as f:
-        json.dump({"images": images, "annotations": anns}, f)
+    coco = coco_set(root, rng, EVAL_COCO)
     sets["coco_retrieval"] = coco
     return sets
 
@@ -2995,6 +3016,505 @@ def phase_eval(torch, mods, tally, card, phase5_rate: float):
     print(f"  phase 15: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
 
 
+CAPTION_BATCH = 32  # phase 16 (a): the reference decoder's training and decode batch
+CAPTION_LEN = 40  # caption tokens in training, and the decode's max_len
+CAPTION_STEPS = 4
+CAPTION_IMAGES = 256  # synthetic images whose ViT-B/32 features feed the decoder
+CAPTION_MARGIN = 1e-4  # (a): tokens must agree where the plain path's top-2 margin is above it
+CAPTION_CLI_EPOCHS = 3  # the CLI's --captioning-epochs default
+PROFILE_STEPS = 2  # (d): --profile-steps of a 4-step CLI run
+EM_POINTS, EM_DIM, EM_K, EM_ITERS = 50_000, 512, 10, 20  # (e)
+EM_RTOL = 1e-4
+BENCH_RTOL = 1e-4  # (f)
+BENCH_STEPS = 1000  # run_loss_bench's default
+BENCH_CHECKS = (0, 250, 500, 750, 999)  # (f): the steps taken once more on the card
+
+
+def caption_cli_need(n_items: int, vision_layers: int, batch: int, mapper_layers: int = 2,
+                     epochs: int = CAPTION_CLI_EPOCHS) -> dict:
+    """The exact launches of ``--epochs 0 --captioning-eval`` over ``n_items`` images at
+    ``--batch-size`` ``batch``: two image encodes (the train and the held-out split, each in
+    chunks of ``batch``, one resample per decode), the mapper's blocks forward and backward in
+    every decoder step (``range(0, n - bs + 1, bs)`` steps an epoch at bs = min(32, n)), and
+    forward in each decode batch of 32."""
+    n_eval = max(8, n_items // 10)
+    n_train = n_items - n_eval
+    bs = min(32, n_train)
+    steps = epochs * len(range(0, n_train - bs + 1, bs))
+    encodes = -(-n_train // batch) + -(-n_eval // batch)
+    decodes = -(-n_eval // bs)
+    return {"block_attention_fwd": vision_layers * encodes + mapper_layers * (steps + decodes),
+            "block_attention_bwd": mapper_layers * steps, "resample": 2}
+
+
+def decode_agreement(tokens, plain_tokens, plain_logits) -> tuple[bool, list]:
+    """Greedy tokens of the kernel path against the plain path's, row by row, up to the first
+    step at which the plain path's top-2 logit margin is under ``CAPTION_MARGIN`` (a near
+    tie that a sum-order difference may flip). Returns (agree, each row's first such step or
+    None)."""
+    top2 = np.sort(np.asarray(plain_logits, np.float64), axis=-1)[..., -2:]
+    margin = top2[..., 1] - top2[..., 0]  # [B, steps]
+    firsts, agree = [], True
+    for row in range(margin.shape[0]):
+        small = np.flatnonzero(margin[row] < CAPTION_MARGIN)
+        upto = int(small[0]) if small.size else margin.shape[1]
+        firsts.append(int(small[0]) if small.size else None)
+        agree = agree and bool(np.array_equal(tokens[row, :upto], plain_tokens[row, :upto]))
+    return agree, firsts
+
+
+def profile_family_launches(summary: dict) -> dict:
+    """Kernel launches of a ``trace_op_summary`` device entry, by ``profile_step`` family."""
+    from multimodal_tpu_torch.profile_step import family_of
+
+    out: dict = {}
+    for name, n in summary["launches"].items():
+        fam = family_of(name)
+        out[fam] = out.get(fam, 0) + n
+    return out
+
+
+def family_count(families: dict, prefix: str) -> int:
+    return sum(n for fam, n in families.items() if fam.startswith(prefix))
+
+
+def rel_err(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float((np.abs(got - want) / np.maximum(np.abs(want), 1e-30)).max())
+
+
+def caption_decoder(torch, mods, tally, card):
+    """Phase 16 (a): the reference's decoder at full width (``ClipCaptionModel()``: GPT-2 base,
+    an 8-layer mapper at W=768, S=20) on ViT-B/32 features of synthetic images: float32 AdamW
+    steps through the kernels against the plain path, then the greedy decode."""
+    from multimodal_tpu_torch.inference import Embedder
+    from multimodal_tpu_torch.models import create_model
+    from multimodal_tpu_torch.models.captioner import ClipCaptionModel
+
+    encoder = create_model(MODEL, seed=0)
+    size = encoder.cfg.vision.image_size
+    images = np.random.default_rng(5).integers(0, 256, (CAPTION_IMAGES, size, size, 3),
+                                               dtype=np.uint8)
+    tally.start()
+    feats = Embedder(encoder, batch_size=CAPTION_IMAGES).embed_images(images)
+    counts = tally.stop()
+    need = {"block_attention_fwd": encoder.cfg.vision.layers}
+    if {k: v for k, v in counts.items() if v} != need:
+        fail(f"the features' encode launched {counts}, need {need}")
+    del encoder, images
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = ClipCaptionModel(clip_dim=feats.shape[1], seed=0)  # ViT-B/32's 512, the default
+    print(f"  (a) ClipCaptionModel(): GPT-2 {model.gpt2}, mapper "
+          f"{len(model.mapper.transformer.resblocks)} blocks at S="
+          f"{model.mapper.clip_length + model.prefix_length}; "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M parameters, built in "
+          f"{time.perf_counter() - t0:.1f} s; features of {CAPTION_IMAGES} synthetic images "
+          f"(launches {need})", flush=True)
+    rng = np.random.default_rng(6)
+    tokens = rng.integers(1, model.gpt2.vocab_size, (CAPTION_IMAGES, CAPTION_LEN))
+    for row, n in enumerate(rng.integers(CAPTION_LEN // 2, CAPTION_LEN + 1, CAPTION_IMAGES)):
+        tokens[row, n:] = 0
+    feats_t = torch.from_numpy(feats).cuda()
+    tokens_t = torch.from_numpy(tokens).cuda()
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    per_step = {"block_attention_fwd": 8, "block_attention_bwd": 8}
+    # the mapper's ReLU gates in step 1: a pre-activation within rounding of 0 may open on one
+    # path and stay shut on the other, where the gradient jumps, so the plain path replays the
+    # kernel path's gates (relu(h) = h * [h > 0] with the kernel path's [h > 0]) and the gates
+    # it would have set itself are counted
+    gates: dict = {"mode": None, "kernel": [], "plain": []}
+
+    def gate(j):
+        def act(h):
+            if gates["mode"] == "record":
+                gates["kernel"].append(h.detach() > 0)
+            elif gates["mode"] == "replay":
+                gates["plain"].append(h.detach() > 0)
+                return h * gates["kernel"][j].to(h.dtype)
+            return torch.relu(h)
+        return act
+
+    for j, blk in enumerate(model.mapper.transformer.resblocks):
+        blk.mlp.act = gate(j)
+
+    def steps(count: bool = False, timed: bool = False):
+        """CAPTION_STEPS AdamW steps from ``start``: each step's (loss, grad norm), the launch
+        counts, step 1's gradients; ``timed``: nothing read back until the end, samples/s
+        over steps 2 on."""
+        model.load_state_dict(start)
+        opt = torch.optim.AdamW(model.parameters(), lr=2e-4, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=1e-4)
+        out, counts, grads, t_start = [], [], None, None
+        torch.cuda.synchronize()
+        for i in range(CAPTION_STEPS):
+            if i == 1:
+                torch.cuda.synchronize()
+                t_start = time.perf_counter()
+            sl = slice(i * CAPTION_BATCH, (i + 1) * CAPTION_BATCH)
+            if count:
+                tally.start()
+            if i == 0 and not timed:
+                gates["mode"] = "record" if count else "replay"
+            loss = model(feats_t[sl], tokens_t[sl])
+            gates["mode"] = None
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            if count:
+                torch.cuda.synchronize()
+                counts.append(tally.stop())
+            if not timed:
+                norm = torch.sqrt(sum(p.grad.double().square().sum() for p in model.parameters()))
+                if i == 0:
+                    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+                out.append((float(loss.detach()), float(norm)))
+            opt.step()
+        torch.cuda.synchronize()
+        return out, counts, grads, (CAPTION_STEPS - 1) * CAPTION_BATCH / (
+            time.perf_counter() - t_start)
+
+    got, counts, g_kernel, _ = steps(count=True)
+    check_launches(counts, per_step, "the caption decoder's steps")
+    with plain_attention(mods):
+        want, _, g_plain, _ = steps()
+    rates = {"kernel": [], "plain": []}  # in turns: kernel, plain, plain, kernel
+    for path in ("kernel", "plain", "plain", "kernel"):
+        with plain_attention(mods) if path == "plain" else contextlib.nullcontext():
+            rates[path].append(steps(timed=True)[3])
+    loss_rel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(got[:2], want[:2]))
+    norm_rel = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(got[:2], want[:2]))
+    # phase 6's leaf measure: the scale has a floor of 1e-3 x the model's largest gradient (the
+    # mapper's key biases have an exact gradient of 0 and hold rounding noise on both sides)
+    g_max = max(float(g.abs().max()) for g in g_plain.values())
+    leaf_dist = {n: float((g_kernel[n] - g).abs().max()) / max(float(g.abs().max()), 1e-3 * g_max)
+                 for n, g in g_plain.items()}
+    flips = [int((a != b).sum()) for a, b in zip(gates["kernel"], gates["plain"])]
+    leaf_rel = max(leaf_dist.values())
+    worst = sorted(leaf_dist, key=leaf_dist.get)[-3:][::-1]
+    finite = all(np.isfinite(v).all() for v in (got, want))
+    print(f"  float32 AdamW steps at B={CAPTION_BATCH}, caption length {CAPTION_LEN}: losses "
+          f"{[round(a, 6) for a, _ in got]} (plain {[round(b, 6) for b, _ in want]}); first 2 "
+          f"steps loss rel {loss_rel:.3e} (need <= 1e-5), grad norm rel {norm_rel:.3e} (need "
+          f"<= 1e-4); step 1 every leaf max|kernel - plain| / max|plain| {leaf_rel:.3e} (need "
+          f"<= 1e-3; the plain path replays the kernel path's ReLU gates, {flips} of "
+          f"{int(gates['plain'][0].numel())} a block of which it would have set otherwise; "
+          f"the largest: "
+          + ", ".join(f"{n} {leaf_dist[n]:.2e} (max|plain| {float(g_plain[n].abs().max()):.2e})"
+                      for n in worst)
+          + f"; the model's largest gradient {g_max:.2e}); launches per step {per_step}; "
+          f"samples/s over steps 2-{CAPTION_STEPS}, runs in turns (kernel, plain, plain, "
+          f"kernel): kernel path {[round(r, 1) for r in rates['kernel']]}, plain path "
+          f"{[round(r, 1) for r in rates['plain']]} [{card}]", flush=True)
+    if not finite or loss_rel > 1e-5 or norm_rel > 1e-4 or leaf_rel > 1e-3:
+        fail("the caption decoder's kernel path disagrees with the plain path")
+    del g_kernel, g_plain
+    model.load_state_dict(start)
+    emb = feats_t[:CAPTION_BATCH]
+    model.generate(emb[:2], max_len=2)  # warm
+    torch.cuda.synchronize()
+    tally.start()
+    t0 = time.perf_counter()
+    toks, logits = model.generate(emb, max_len=CAPTION_LEN, return_logits=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = tally.stop()
+    with plain_attention(mods):
+        p_toks, p_logits = model.generate(emb, max_len=CAPTION_LEN, return_logits=True)
+    first = torch.nn.functional.cosine_similarity(logits[:, 0].double(),
+                                                  p_logits[:, 0].double(), dim=-1)
+    agree, firsts = decode_agreement(toks.cpu().numpy(), p_toks.cpu().numpy(),
+                                     p_logits.cpu().numpy())
+    near = sorted({f for f in firsts if f is not None})
+    print(f"  greedy generate(max_len={CAPTION_LEN}) at B={CAPTION_BATCH}: {secs * 1e3:.1f} ms, "
+          f"{CAPTION_BATCH * CAPTION_LEN / secs:.1f} tokens/s (one token a step against the "
+          f"static cache); first-step logits min cosine {float(first.min()):.7f} (need >= "
+          f"0.9999); tokens equal to the plain path's up to each row's first near tie: {agree}"
+          f" (steps with a plain top-2 margin < {CAPTION_MARGIN:g}: {near or 'none'}); tokens "
+          f"differing anywhere {int((toks != p_toks).sum())}; launches {counts} [{card}]",
+          flush=True)
+    if float(first.min()) < 0.9999 or not agree or counts["block_attention_fwd"] != 8:
+        fail("the decode disagrees with the plain path or skipped the mapper's kernels")
+    del model, feats_t, logits, p_logits
+    torch.cuda.empty_cache()
+
+
+def caption_vs_hf(torch, card):
+    """Phase 16 (b): the port's GPT-2 at base width against ``transformers.GPT2LMHeadModel``
+    from the same random weights, on the card."""
+    import transformers
+
+    from multimodal_tpu_torch.models.captioner import GPT2, GPT2Config, load_hf_gpt2
+
+    torch.manual_seed(0)
+    hf_cfg = transformers.GPT2Config(resid_pdrop=0.0, embd_pdrop=0.0, attn_pdrop=0.0)
+    with torch.device("cuda"):  # drawn on the card: a CPU init of GPT-2 base takes seconds
+        hf = transformers.GPT2LMHeadModel(hf_cfg).eval()
+    cfg = GPT2Config()
+    model = GPT2(cfg)
+    model.load_state_dict(load_hf_gpt2(hf.state_dict(), cfg))
+    model = model.cuda()
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(0, cfg.vocab_size, (4, 64)))
+    tokens = tokens.cuda()
+    with torch.no_grad():
+        want = hf(tokens).logits.float()
+        got, _ = model(model.embed(tokens))
+    err = (got - want).abs()
+    bad = int((err > 2e-4 + 2e-3 * want.abs()).sum())
+    print(f"  (b) GPT-2 base ({cfg}) vs transformers.GPT2LMHeadModel, random weights through "
+          f"load_hf_gpt2, 4 x 64 tokens: max |diff| {float(err.max()):.3e} over max |logit| "
+          f"{float(want.abs().max()):.3e}; elements outside atol 2e-4 + rtol 2e-3: {bad} "
+          f"[{card}]", flush=True)
+    if bad:
+        fail("the port's GPT-2 disagrees with transformers' GPT2LMHeadModel")
+    del hf, model
+    torch.cuda.empty_cache()
+
+
+def coco_set(root: str, rng, n: int) -> str:
+    """A COCO-val layout under ``root``: ``n`` JPEGs at 240 px, 5 captions each."""
+    from PIL import Image
+
+    coco = os.path.join(root, "coco")
+    os.makedirs(os.path.join(coco, "val2017"))
+    os.makedirs(os.path.join(coco, "annotations"))
+    images, anns = [], []
+    for i in range(n):
+        fn = f"{i:012d}.jpg"
+        arr = rng.integers(0, 256, (240, 300, 3), dtype=np.uint8)
+        arr[:120] //= 2
+        Image.fromarray(arr).save(os.path.join(coco, "val2017", fn), quality=90)
+        images.append({"id": i, "file_name": fn})
+        for j in range(5):
+            words = rng.choice(COCO_WORDS, 6)
+            anns.append({"image_id": i, "caption": f"{' '.join(words)} {i} {j}"})
+    with open(os.path.join(coco, "annotations", "captions_val2017.json"), "w") as f:
+        json.dump({"images": images, "annotations": anns}, f)
+    return coco
+
+
+def caption_cli(torch, tally, card, root: str):
+    """Phase 16 (c): ``--epochs 0 --captioning-eval`` on a COCO-val layout, the CLI's main in
+    this process, its launches counted exactly."""
+    from multimodal_tpu_torch.models import get_model_config
+
+    coco = coco_set(root, np.random.default_rng(8), EVAL_COCO)
+    logs = os.path.join(root, "logs")
+    argv = ["--dataset-type", "synthetic", "--model", MODEL, "--batch-size", str(CLI_BATCH),
+            "--epochs", "0", "--captioning-eval", coco, "--seed", "0",
+            "--no-save-on-preemption"]
+    secs, records, counts = eval_cli(logs, "caption", argv, card, tally)
+    record = records[-1]
+    need = caption_cli_need(EVAL_COCO, get_model_config(MODEL).vision.layers, CLI_BATCH)
+    counts = {k: v for k, v in counts.items() if v}
+    bleu, n_eval = record.get("caption_bleu"), record.get("caption_num_eval")
+    print(f"  (c) --epochs 0 --captioning-eval ({EVAL_COCO} COCO JPEGs, decoder width 256, 4 "
+          f"layers, {CAPTION_CLI_EPOCHS} epochs): caption_bleu {bleu}, caption_num_eval "
+          f"{n_eval} (need {max(8, EVAL_COCO // 10)}); the run {secs:.1f} s; launches {counts} "
+          f"(need {need}) [{card}]", flush=True)
+    with open(os.path.join(logs, "caption", "out.log")) as f:
+        for line in f:
+            if "captioning eval" in line or "caption epoch" in line:
+                print(f"  [caption] {line.split(' | ')[-1].strip()} [{card}]", flush=True)
+    if not (isinstance(bleu, float) and 0.0 <= bleu <= 1.0) or n_eval != max(8, EVAL_COCO // 10):
+        fail(f"the captioning evaluation returned {record}")
+    if counts != need:
+        fail(f"the captioning evaluation launched {counts}, need {need}")
+
+
+def profile_cli(torch, card, root: str):
+    """Phase 16 (d): ``--profile-steps 2`` on a synthetic ViT-B/32 CLI run of 4 steps."""
+    from multimodal_tpu_torch.profiling import trace_line_summary, trace_op_summary
+
+    logs = os.path.join(root, "logs")
+    argv = ["--dataset-type", "synthetic", "--model", MODEL, "--batch-size", str(CLI_BATCH),
+            "--train-num-samples", str(4 * CLI_BATCH), "--epochs", "1", "--precision",
+            "amp_bf16", "--profile-steps", str(PROFILE_STEPS), "--no-save-on-preemption",
+            "--logs", logs, "--name", "profile"] + EVAL_CLI_EXTRA
+    t0 = time.perf_counter()
+    if cli_main(argv) != 0:
+        fail("the --profile-steps run failed")
+    secs = time.perf_counter() - t0
+    trace_dir = os.path.join(logs, "profile", "profile")
+    files = sorted(os.listdir(trace_dir)) if os.path.isdir(trace_dir) else []
+    if len(files) != 1:
+        fail(f"--profile-steps wrote {files} under {trace_dir}, need one trace")
+    ops = trace_op_summary(trace_dir, "cuda")
+    lines = trace_line_summary(trace_dir, "cuda")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        spans = sum(1 for e in json.load(f)["traceEvents"]  # the host's; the card has its own
+                    if e.get("name") == "train_step" and e.get("cat") == "user_annotation")
+    (dev,) = ops
+    fam = profile_family_launches(ops[dev])
+    fwd, bwd = family_count(fam, "forward attention core"), family_count(fam, "backward dQ")
+    need = PROFILE_STEPS * 24
+    over = {ln: (v["occupancy_ms"], v["sum_ms"]) for ln, v in lines[dev].items()
+            if v["occupancy_ms"] > v["sum_ms"] * (1 + 1e-9)}  # float sums of ~1e4 terms
+    top = ", ".join(f"{n[:60]} {ms:.2f}" for n, ms in ops[dev]["ops"][:4])
+    print(f"  (d) --profile-steps {PROFILE_STEPS} on a 4-step bf16 B={CLI_BATCH} run ({secs:.1f} "
+          f"s): trace {files[0]} ({os.path.getsize(os.path.join(trace_dir, files[0])) / 2**20:.1f}"
+          f" MiB), {spans} train_step spans; {dev} kernel time {ops[dev]['total_ms']:.1f} ms in "
+          f"{sum(ops[dev]['launches'].values())} launches; block forward cores {fwd}, backward "
+          f"dQ passes {bwd} (need {need} each); streams {len(lines[dev])}, occupancy over sum "
+          f"on {over or 'none'}; top: {top} [{card}]", flush=True)
+    if spans != PROFILE_STEPS or fwd != need or bwd != need or over:
+        fail("the --profile-steps trace does not hold exactly the traced steps' kernels")
+
+
+def em_on_card(torch, card):
+    """Phase 16 (e): vMF EM at 50,000 x 512, K=10, 20 iterations on the card against the same
+    fit on the CPU from the same initial means."""
+    from multimodal_tpu_torch.research import vmf_mixture
+
+    rng = np.random.default_rng(9)
+    centers = rng.standard_normal((EM_K, EM_DIM)).astype(np.float32)
+    labels = rng.integers(0, EM_K, EM_POINTS)
+    x = centers[labels] + np.float32(0.6) * rng.standard_normal((EM_POINTS, EM_DIM),
+                                                                dtype=np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    init = vmf_mixture._kmeanspp_init(torch.Generator(device="cuda").manual_seed(0),
+                                      torch.from_numpy(x).cuda(), EM_K).cpu().numpy()
+    fits, per_iter = {}, {}
+    for side, device in (("card", "cuda"), ("cpu", "cpu")):
+        kw = dict(n_components=EM_K, tol=0.0, device=device)  # tol 0: every iteration runs
+        vmf_mixture.VMFMixtureEM(max_iter=1, **kw).fit(x, init_means=init)
+        t0 = time.perf_counter()
+        vmf_mixture.VMFMixtureEM(max_iter=1, **kw).fit(x, init_means=init)
+        one = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fits[side] = vmf_mixture.VMFMixtureEM(max_iter=EM_ITERS, **kw).fit(x, init_means=init)
+        per_iter[side] = (time.perf_counter() - t0 - one) / (EM_ITERS - 1)
+    g, c = fits["card"], fits["cpu"]
+    errs = {"weights": rel_err(g.weights, c.weights),
+            "kappas": rel_err(g.concentrations, c.concentrations),
+            "log-likelihoods": rel_err(g.log_likelihoods_, c.log_likelihoods_)}
+    print(f"  (e) vMF EM, {EM_POINTS} x {EM_DIM}, K={EM_K}, {EM_ITERS} iterations from the same "
+          f"k-means++ means: card {per_iter['card'] * 1e3:.2f} ms/iteration, CPU "
+          f"{per_iter['cpu'] * 1e3:.2f} ms/iteration ({per_iter['cpu'] / per_iter['card']:.1f}x;"
+          f" host clock, the fit's upload beside the first iteration subtracted); final LL "
+          f"{g.log_likelihoods_[-1]:.6f} (CPU {c.log_likelihoods_[-1]:.6f}); kappas "
+          f"{np.round(g.concentrations, 2).tolist()}; card vs CPU max rel "
+          f"{ {k: f'{v:.2e}' for k, v in errs.items()} } (need <= {EM_RTOL:g}) [{card}]",
+          flush=True)
+    if max(errs.values()) > EM_RTOL:
+        fail("vMF EM on the card disagrees with the CPU")
+
+
+def loss_bench_on_card(torch, card):
+    """Phase 16 (f): ``run_loss_bench`` at its defaults for every distribution on the card (its
+    seconds and final statistics); the CPU's trajectory at the same defaults from a CPU
+    generator, and at ``BENCH_CHECKS`` one card step from the CPU's state with the CPU's draws
+    (the generator's state carried across) held to the CPU's step. The free runs are not held
+    to each other: 1000 float32 steps of this map amplify rounding (``tests/
+    test_torch_loss_bench.py``: a 1e-7 nudge of the initial points moves the gradient norm by
+    more than 1e-4 within 150 steps on the CPU alone)."""
+    from multimodal_tpu_torch.research import loss_bench as lb
+
+    worst = {}
+    for dist in lb.DISTRIBUTIONS:
+        gen = torch.Generator().manual_seed(0)
+        t0 = time.perf_counter()
+        state = lb.initial_state(20, 2, 0.1, gen, "cpu")
+        saved, after = {}, {}
+        for i in range(BENCH_STEPS):
+            if i in BENCH_CHECKS:
+                saved[i] = (tuple(t.clone() for t in state), gen.get_state())
+            state, stats = lb.bench_step(dist, state, gen)
+            if i in BENCH_CHECKS:
+                after[i] = ({k: float(v) for k, v in stats.items()}, state)
+        cpu_secs = time.perf_counter() - t0
+        cpu_final = {k: float(v) for k, v in stats.items()}
+        t0 = time.perf_counter()
+        res = lb.run_loss_bench(dist, steps=BENCH_STEPS, device="cuda")
+        card_secs = time.perf_counter() - t0
+        errs = []
+        for i in BENCH_CHECKS:
+            st, gstate = saved[i]
+            g = torch.Generator()
+            g.set_state(gstate)
+            new, stats = lb.bench_step(dist, tuple(t.to("cuda") for t in st), g)
+            want, want_state = after[i]
+            rel = max(rel_err(float(v), want[k]) for k, v in stats.items() if k != "arc")
+            arc = abs(float(stats["arc"]) - want["arc"])
+            mu = max(float((a.cpu() - b).abs().max()) for a, b in zip(new[:2], want_state[:2]))
+            conc = rel_err(new[2].cpu().numpy(), want_state[2].numpy())
+            errs.append((i, rel, arc, mu, conc))
+        worst[dist] = (max(e[1] for e in errs), max(e[2] for e in errs), max(e[3] for e in errs),
+                       max(e[4] for e in errs))
+        final = {"total": res.final_total_loss, "arc": res.final_arc_deg,
+                 "conc_a": res.final_concentration_a, "grad_norm": res.grad_norm_last}
+        print(f"  (f) run_loss_bench({dist!r}) at its defaults ({BENCH_STEPS} steps): card "
+              f"{card_secs:.2f} s (its own generator), CPU {cpu_secs:.2f} s; card final "
+              f"{ {k: round(v, 5) for k, v in final.items()} }, the CPU's from a CPU generator "
+              f"{ {k: round(cpu_final[k], 5) for k in final} } (not held: rounding grows over "
+              f"the run); one card step from the CPU's state and draws at steps "
+              f"{list(BENCH_CHECKS)}: stats max rel {worst[dist][0]:.2e}, arc max |diff| "
+              f"{worst[dist][1]:.2e} deg, points max |diff| {worst[dist][2]:.2e}, "
+              f"concentrations max rel {worst[dist][3]:.2e} (need <= {BENCH_RTOL:g}, 0.02 deg, "
+              f"1e-5, {BENCH_RTOL:g}) [{card}]", flush=True)
+        if not all(np.isfinite(list(final.values()))):
+            fail(f"the loss bench on the card is not finite: {final}")
+    if any(r > BENCH_RTOL or a > 0.02 or m > 1e-5 or c > BENCH_RTOL
+           for r, a, m, c in worst.values()):
+        fail(f"the loss bench's step on the card disagrees with the CPU's: {worst}")
+
+
+def llama_on_card(torch, card, root: str):
+    """Phase 16 (g): ``LlamaCaptioner`` over a tiny random local Llama snapshot written here,
+    card captions against CPU captions."""
+    from tokenizers import Tokenizer
+    from tokenizers.models import WordLevel
+    from tokenizers.pre_tokenizers import Whitespace
+    from transformers import LlamaConfig, LlamaForCausalLM, PreTrainedTokenizerFast
+
+    from multimodal_tpu_torch.models.llama_captioner import LlamaCaptioner
+
+    snap = os.path.join(root, "llama")
+    torch.manual_seed(0)
+    LlamaForCausalLM(LlamaConfig(
+        vocab_size=256, hidden_size=32, intermediate_size=64, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=128,
+        bos_token_id=1, eos_token_id=2)).save_pretrained(snap)
+    words = ["<unk>", "<s>", "</s>", "A", "photo", "of", "a", "the", "cat", "dog", "red",
+             "blue", "circle", "square", "on", "and", "small", "large"]
+    tok = Tokenizer(WordLevel({w: i for i, w in enumerate(words)}, unk_token="<unk>"))
+    tok.pre_tokenizer = Whitespace()
+    PreTrainedTokenizerFast(tokenizer_object=tok, unk_token="<unk>", bos_token="<s>",
+                            eos_token="</s>").save_pretrained(snap)
+    embeds = (np.random.default_rng(10).standard_normal((4, 32)) * 4).astype(np.float32)
+    caps = {side: LlamaCaptioner(snap, clip_dim=32, max_new_tokens=8,
+                                 device=device).generate_caption(embeds)
+            for side, device in (("card", "cuda"), ("cpu", "cpu"))}
+    print(f"  (g) LlamaCaptioner on a tiny random local Llama snapshot: card captions "
+          f"{caps['card']} equal the CPU's: {caps['card'] == caps['cpu']} [{card}]", flush=True)
+    if caps["card"] != caps["cpu"]:
+        fail(f"LlamaCaptioner's card captions {caps['card']} differ from the CPU's {caps['cpu']}")
+
+
+def phase_captioning(torch, mods, tally, card):
+    """Phase 16: the caption decoder, GPT-2 against transformers, the captioning evaluation
+    through the CLI, --profile-steps, vMF EM, the loss bench and the Llama adapter."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    parts = {}
+    root = tempfile.mkdtemp(prefix="phase16_")
+    try:
+        for name, run in (("a", lambda: caption_decoder(torch, mods, tally, card)),
+                          ("b", lambda: caption_vs_hf(torch, card)),
+                          ("c", lambda: caption_cli(torch, tally, card, root)),
+                          ("d", lambda: profile_cli(torch, card, root)),
+                          ("e", lambda: em_on_card(torch, card)),
+                          ("f", lambda: loss_bench_on_card(torch, card)),
+                          ("g", lambda: llama_on_card(torch, card, root))):
+            t0 = time.perf_counter()
+            run()
+            parts[name] = round(time.perf_counter() - t0, 1)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"  phase 16: {time.perf_counter() - t_phase:.1f} s (by part {parts}) [{card}]",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3189,6 +3709,9 @@ def main() -> int:
     print(f"phase 15 train, evaluate and serve: {MODEL} at full width and depth through the "
           "CLI's evaluations and a served checkpoint", flush=True)
     phase_eval(torch, mods, tally, card, serving_rates["image"])
+
+    print("phase 16 captioning, the research toolkit and the profiler", flush=True)
+    phase_captioning(torch, mods, tally, card)
 
     entries = []
     for name, (source, replaces, case) in KERNELS.items():

@@ -1,7 +1,9 @@
 """The evaluations: paired retrieval, the k-NN angle and the modality separability probe of
-the training CLI's validation; top-k, zero-shot classification and linear probing."""
+the training CLI's validation; top-k, zero-shot classification, linear probing and
+captioning (BLEU)."""
 
-from multimodal_tpu_torch.eval.entropy import average_kth_neighbor_angle
+from multimodal_tpu_torch.eval.captioning import CaptioningMetric, corpus_bleu, sentence_bleu
+from multimodal_tpu_torch.eval.entropy import average_kth_neighbor_angle, entropy_metric
 from multimodal_tpu_torch.eval.linear_probe import (
     linear_probe_metrics,
     probe_accuracy,

@@ -1,6 +1,15 @@
 """CLIP model family for the PyTorch port: two-tower, shared-trunk and variational, with
-LoRA adapters, MoE vision towers and the SigLIP head."""
+LoRA adapters, MoE vision towers and the SigLIP head; and the CLIP-prefix caption model."""
 
+from multimodal_tpu_torch.models.captioner import (
+    GPT2,
+    ClipCaptionModel,
+    GPT2Config,
+    TransformerMapper,
+    caption_params_to_port,
+    load_caption_params,
+    load_hf_gpt2,
+)
 from multimodal_tpu_torch.models.checkpoint_interop import (
     export_openai_state_dict,
     jax_adapters_to_port,
@@ -8,11 +17,14 @@ from multimodal_tpu_torch.models.checkpoint_interop import (
     load_openai_state_dict,
     load_pretrained,
     read_orbax_params,
+    resize_pos_embed,
 )
 from multimodal_tpu_torch.models.clip import CLIP, VariationalCLIP
 from multimodal_tpu_torch.models.config import (
     CLIPConfig,
+    TextConfig,
     VariationalConfig,
+    VisionConfig,
     add_model_config,
     get_model_config,
     list_models,
@@ -32,9 +44,18 @@ __all__ = [
     "ALPHA_KEY",
     "CLIP",
     "CLIPConfig",
+    "ClipCaptionModel",
+    "GPT2",
+    "GPT2Config",
+    "TextConfig",
+    "TransformerMapper",
+    "caption_params_to_port",
+    "load_caption_params",
+    "load_hf_gpt2",
     "VariationalCLIP",
     "MoEMLP",
     "VariationalConfig",
+    "VisionConfig",
     "add_model_config",
     "collect_moe_losses",
     "create_model",
@@ -50,6 +71,7 @@ __all__ = [
     "load_openai_state_dict",
     "load_pretrained",
     "read_orbax_params",
+    "resize_pos_embed",
     "lora_mask",
     "merge_lora",
 ]

@@ -37,3 +37,16 @@ def beta(a: torch.Tensor, b: torch.Tensor, generator: torch.Generator) -> torch.
     ga = standard_gamma(a, generator)
     gb = standard_gamma(b, generator)
     return ga / (ga + gb)
+
+
+def gumbel(shape, generator: torch.Generator, like: torch.Tensor) -> torch.Tensor:
+    """Standard Gumbel draws of ``shape`` in float32, on ``like``'s device, as
+    ``jax.random.gumbel`` makes them: -log(-log(u)) of u ~ U(tiny, 1)."""
+    u = uniform(shape, generator, like, low=torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def randint(high: int, generator: torch.Generator, like: torch.Tensor) -> torch.Tensor:
+    """One integer in [0, high), a 0-d int64 tensor on ``like``'s device."""
+    out = torch.randint(high, (), generator=generator, device=generator.device)
+    return out.to(like.device)

@@ -249,7 +249,8 @@ def parse_args(args=None):
     g.add_argument("--wandb-notes", default="")
     g.add_argument("--debug", action="store_true")
     g.add_argument("--profile-steps", type=int, default=0,
-                   help="capture a profiler trace over N steps of epoch 0")
+                   help="trace N steps of epoch 0 (from its second step) with torch.profiler "
+                        "into <logs>/<name>/profile")
 
     # ------------------------------------------------------------------ eval
     g = parser.add_argument_group("eval")

@@ -30,13 +30,18 @@ decode on the run's device (on the GPU through nvJPEG and the resample kernel) a
 The evaluations, after every ``--zeroshot-frequency`` / ``--retrieval-frequency`` epochs and
 in eval-only mode: zero-shot classification on the sets whose path flags are given
 (``ZERO_SHOT_DATASETS``, stock layouts or folder-per-class), COCO / Flickr retrieval through
-``Embedder``, and in eval-only mode the linear probe (``--linear-probe-train``).
+``Embedder``, and in eval-only mode the linear probe (``--linear-probe-train``) and the
+captioning evaluation (``--captioning-eval``: a caption decoder trained on the frozen image
+embeddings, scored by BLEU on held-out images).
+
+``--profile-steps N`` traces N steps of epoch 0 with ``torch.profiler``, from its second
+step, into ``<logs>/<name>/profile`` (``profiling.trace``); the device is synchronized before
+the trace stops, and an epoch that ends first stops it there.
 
 Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP Queue 1 item:
 multi-process and mesh training (``--multihost``, ``--tensor-parallel``,
 ``--expert-parallel``, ``--dcn-slices``, ``--fsdp``, ``--use-shard-map``,
-``--opt-state-offload``, ``--contrastive-impl ring``: item 9), the captioning evaluation
-and ``--profile-steps`` (item 11).
+``--opt-state-offload``, ``--contrastive-impl ring``: item 9).
 """
 
 from __future__ import annotations
@@ -125,8 +130,6 @@ def check_ported(args):
         ("--use-shard-map", args.use_shard_map, "item 9"),
         ("--opt-state-offload", args.opt_state_offload, "item 9"),
         ("--contrastive-impl ring", args.contrastive_impl == "ring", "item 9"),
-        ("--captioning-eval", bool(args.captioning_eval), "item 11"),
-        ("--profile-steps", args.profile_steps > 0, "item 11"),
     ]
     for flag, on, item in left_out:
         if on:
@@ -385,6 +388,68 @@ def linear_probe_eval(model, args, weights: dict | None = None) -> dict:
     return metrics
 
 
+def captioning_eval(model, args, weights: dict | None = None) -> dict:
+    """The downstream captioning evaluation: one caption per image of ``--captioning-eval``
+    (COCO val layout, else folder-per-class with the class name as caption), shuffled with
+    the run's seed and cut to ``--captioning-num-samples``; the images embedded by the frozen
+    encoder; a CLIP-prefix caption decoder (a from-scratch GPT-2 of ``--captioning-width`` and
+    ``--captioning-layers`` over the CLIP BPE vocabulary) trained on all but the held-out
+    max(8, n // 10), which it captions, greedy, until the EOT; corpus BLEU against their
+    captions. Fewer than 20 images: skipped. A variational model has no point encoder and is
+    skipped."""
+    from multimodal_tpu_torch.data.datasets import coco_captions, cood_items
+    from multimodal_tpu_torch.data.tokenizer import default_tokenizer, tokenize
+    from multimodal_tpu_torch.eval.captioning import CaptioningMetric
+    from multimodal_tpu_torch.models.captioner import ClipCaptionModel, GPT2Config
+
+    root = args.captioning_eval
+    if not root or args.variational:
+        return {}
+    t0 = time.perf_counter()
+    try:
+        items = coco_captions(root, split="val", ann_path=args.ms_coco_annot)
+    except (FileNotFoundError, NotADirectoryError, OSError, ValueError):
+        items = cood_items(root)  # folder-per-class fallback (caption = class name)
+    one_per_image: dict = {}
+    for path, caption in items:
+        one_per_image.setdefault(path, caption)
+    items = list(one_per_image.items())
+    rng = np.random.default_rng(args.seed)
+    rng.shuffle(items)
+    items = items[: args.captioning_num_samples]
+    if len(items) < 20:
+        log.warning("captioning eval: only %d usable images; skipping", len(items))
+        return {}
+    n_eval = max(8, len(items) // 10)
+    train_items, eval_items = items[n_eval:], items[:n_eval]
+
+    size = model.cfg.vision.image_size
+    with swapped_parameters(model, weights):
+        emb = Embedder(model, batch_size=args.batch_size)
+        train_feats, _ = emb.embed_image_files([p for p, _ in train_items], image_size=size)
+        eval_feats, _ = emb.embed_image_files([p for p, _ in eval_items], image_size=size)
+
+    tok = default_tokenizer()
+    sot, eot = tok.sot_token_id, tok.eot_token_id
+    train_tokens = tokenize([c for _, c in train_items], tokenizer=tok)
+    caption_model = ClipCaptionModel(
+        gpt2=GPT2Config(vocab_size=49408, max_positions=128, width=args.captioning_width,
+                        layers=args.captioning_layers,
+                        heads=max(2, args.captioning_width // 64)),
+        clip_dim=model.cfg.embed_dim, prefix_length=10, clip_length=4, mapper_layers=2,
+        device=next(model.parameters()).device, seed=args.seed)
+    metric = CaptioningMetric(
+        caption_model=caption_model,
+        detokenizer=lambda ids: tok.decode([i for i in ids if i not in (sot, eot)]).strip(),
+        epochs=args.captioning_epochs, batch_size=min(32, len(train_items)), lr=2e-4,
+        seed=args.seed, eos_token=eot)  # CLIP's EOT: without it decoding never ends
+    bleu, info = metric.compute(train_feats, train_tokens, eval_feats,
+                                [c for _, c in eval_items])
+    log.info("captioning eval: BLEU %.4f over %d held-out images (%d train, %.2f s)", bleu,
+             info["num_eval"], len(train_items), time.perf_counter() - t0)
+    return {"caption_bleu": bleu, "caption_num_eval": info["num_eval"]}
+
+
 def _start_remote_sync(local_dir: str, remote_dir: str, frequency_s: int) -> threading.Event:
     """Copy ``local_dir`` into ``remote_dir`` every ``frequency_s`` seconds on a daemon
     thread (rsync when there is one, else ``cp -r``); set the returned event to stop."""
@@ -402,55 +467,82 @@ def _start_remote_sync(local_dir: str, remote_dir: str, frequency_s: int) -> thr
     return stop
 
 
+def _sync(device: torch.device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def train_one_epoch(step_fn, state: TrainState, data_train, epoch: int, args, exp_logger,
                     ckpt=None, skip_steps: int = 0) -> tuple:
     """One epoch of steps over ``data_train``, with batch and data time and samples/s logged
     every ``--log-every-n-steps``. With ``--save-frequency-steps`` N the state is saved every
     N steps with mid-epoch metadata; ``skip_steps`` fast-forwards the (deterministic,
-    epoch-seeded) stream past batches an interrupted run already trained. Returns (state,
-    the last logged metrics, the steps taken)."""
+    epoch-seeded) stream past batches an interrupted run already trained. In epoch 0,
+    ``--profile-steps`` N traces the N steps after the first one taken, or those the epoch
+    has left. Returns (state, the last logged metrics, the steps taken)."""
+    from multimodal_tpu_torch.profiling import trace
+
     batch_time, data_time = AverageMeter(), AverageMeter()
     tput = ThroughputMeter(1)
     losses = {}
     end = time.perf_counter()
     steps = 0
     save_every = args.save_frequency_steps or 0
+    to_profile, profiled = (args.profile_steps if epoch == 0 else 0), 0
     if skip_steps:
         log.info("mid-epoch resume: fast-forwarding %d batches of epoch %d", skip_steps, epoch)
-    for i, batch in enumerate(data_train):
-        if i < skip_steps:
-            if _PREEMPTED.is_set():
-                log.info("preemption during fast-forward; exiting (nothing to save)")
-                return state, losses, 0
+    # closing the stack synchronizes the device and stops the trace: after the N-th traced
+    # step, or at the epoch's end if it comes first
+    with contextlib.ExitStack() as profiler:
+        for i, batch in enumerate(data_train):
+            if i < skip_steps:
+                if _PREEMPTED.is_set():
+                    log.info("preemption during fast-forward; exiting (nothing to save)")
+                    return state, losses, 0
+                end = time.perf_counter()
+                continue
+            data_time.update(time.perf_counter() - end)
+            device = batch["text"].device
+            if to_profile and steps == 1 and profiled == 0:  # the first step warms up
+                _sync(device)
+                profiler.enter_context(trace(os.path.join(args.log_dir, "profile")))
+                profiler.callback(_sync, device)
+                log.info("profiling %d steps of epoch %d into %s", to_profile, epoch,
+                         os.path.join(args.log_dir, "profile"))
+            generator = step_generator(args.seed, epoch, i, device)
+            tracing = to_profile and steps >= 1 and profiled < to_profile
+            # each traced step is one "train_step" span of the trace
+            with (torch.profiler.record_function("train_step") if tracing
+                  else contextlib.nullcontext()):
+                metrics = step_fn(state, batch, generator)
+            steps += 1
+            if tracing:
+                profiled += 1
+                if profiled == to_profile:
+                    profiler.close()
+            preempted = _PREEMPTED.is_set() and ckpt is not None
+            if ckpt is not None and ((save_every and (i + 1) % save_every == 0) or preempted):
+                ckpt.save(state.step, checkpoint_state(state, args),
+                          metadata={"epoch": epoch, "name": args.name, "mid_epoch": True,
+                                    "step_in_epoch": i + 1})
+            if preempted:
+                log.info("preemption signal received: saved step %d (epoch %d, batch %d); "
+                         "resume with --resume latest", state.step, epoch, i + 1)
+                break
+            tput.update(batch["text"].shape[0])
+            batch_time.update(time.perf_counter() - end)
             end = time.perf_counter()
-            continue
-        data_time.update(time.perf_counter() - end)
-        generator = step_generator(args.seed, epoch, i, batch["text"].device)
-        metrics = step_fn(state, batch, generator)
-        steps += 1
-        preempted = _PREEMPTED.is_set() and ckpt is not None
-        if ckpt is not None and ((save_every and (i + 1) % save_every == 0) or preempted):
-            ckpt.save(state.step, checkpoint_state(state, args),
-                      metadata={"epoch": epoch, "name": args.name, "mid_epoch": True,
-                                "step_in_epoch": i + 1})
-        if preempted:
-            log.info("preemption signal received: saved step %d (epoch %d, batch %d); "
-                     "resume with --resume latest", state.step, epoch, i + 1)
-            break
-        tput.update(batch["text"].shape[0])
-        batch_time.update(time.perf_counter() - end)
-        end = time.perf_counter()
-        if (i + 1) % args.log_every_n_steps == 0:
-            host_metrics = {k: float(v) for k, v in metrics.items() if v.ndim == 0}
-            rates = tput.rates()
-            record = {"epoch": epoch, "step": state.step, "data_time": data_time.avg,
-                      "batch_time": batch_time.avg, **rates, **host_metrics}
-            log.info("epoch %d step %d loss %.4f | %.1f samples/s (%.1f/device)", epoch,
-                     record["step"], record.get("loss", float("nan")),
-                     rates["samples_per_s"], rates["samples_per_s_per_device"])
-            exp_logger.log(record, step=record["step"])
-            losses = host_metrics
-            tput.reset()
+            if (i + 1) % args.log_every_n_steps == 0:
+                host_metrics = {k: float(v) for k, v in metrics.items() if v.ndim == 0}
+                rates = tput.rates()
+                record = {"epoch": epoch, "step": state.step, "data_time": data_time.avg,
+                          "batch_time": batch_time.avg, **rates, **host_metrics}
+                log.info("epoch %d step %d loss %.4f | %.1f samples/s (%.1f/device)", epoch,
+                         record["step"], record.get("loss", float("nan")),
+                         rates["samples_per_s"], rates["samples_per_s_per_device"])
+                exp_logger.log(record, step=record["step"])
+                losses = host_metrics
+                tput.reset()
     return state, losses, steps
 
 
@@ -626,6 +718,7 @@ def main(argv=None):
         record.update(zero_shot_eval_all(model, args, eval_weights()))
         record.update(retrieval_eval_all(model, args, eval_weights()))
         record.update(linear_probe_eval(model, args, eval_weights()))
+        record.update(captioning_eval(model, args, eval_weights()))
         log.info("eval-only: %s", record)
         exp_logger.log(record)
         return 0

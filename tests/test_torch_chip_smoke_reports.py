@@ -1,7 +1,9 @@
 """The pure-Python report helpers of ``chip_smoke.py`` (the script itself needs a GPU): the
 ``nvcc -Xptxas -v`` digest, the SASS digest of the flash kernels and the projection GEMM, the
-attention passes' shared-memory sizes and the kernel bounds and rates."""
+attention passes' shared-memory sizes and the kernel bounds and rates; phase 16's launch
+counts, decode agreement and trace families."""
 
+import numpy as np
 import pytest
 
 import chip_smoke as cs
@@ -557,3 +559,62 @@ def test_eval_only_need_counts_every_encode_and_jpeg_batch(flowers, need):
     want_image, want_text = (15, 16) if flowers else (14, 5)
     assert cs.eval_only_need(sets, 2, 0)["block_attention_fwd"] == 2 * want_image
     assert cs.eval_only_need(sets, 0, 3)["block_attention_fwd"] == 3 * want_text
+
+
+def test_phase3_holds_the_caption_mappers_shapes():
+    """The reference decoder's mapper (S=20 W=768 H=8, head dim 96) and the CLI decoder's
+    (S=14 W=256 H=8, head dim 32), ragged at B=3 and timed at B=32, both shapes the block
+    dispatch admits."""
+    from multimodal_tpu_torch.ops.block_attention import block_attn_supported
+
+    rows = {(case, b, s, w, h, causal) for case, b, s, w, h, causal in cs.BLOCK_CASES
+            if case.startswith("caption")}
+    assert rows == {("caption-mapper", 3, 20, 768, 8, False),
+                    ("caption-mapper", 32, 20, 768, 8, False),
+                    ("caption-cli", 3, 14, 256, 8, False), ("caption-cli", 32, 14, 256, 8, False)}
+    assert all(block_attn_supported(b, s, w, h) for _, b, s, w, h, _ in rows)
+    assert {w // h for _, _, _, w, h, _ in rows} == {96, 32}
+
+
+@pytest.mark.parametrize("n, batch, need", [
+    # 116 train images (one chunk), 12 held out; 3 epochs x 3 steps of 32; one decode batch
+    (128, 256, {"block_attention_fwd": 12 * 2 + 2 * (9 + 1), "block_attention_bwd": 18,
+                "resample": 2}),
+    # 20 images: 8 held out, 12 to train (bs 12, one step an epoch); chunks of 8
+    (20, 8, {"block_attention_fwd": 12 * (2 + 1) + 2 * (3 + 1), "block_attention_bwd": 6,
+             "resample": 2}),
+])
+def test_caption_cli_need_counts_encodes_steps_and_decodes(n, batch, need):
+    assert cs.caption_cli_need(n, 12, batch) == need
+
+
+def test_decode_agreement_stops_at_each_rows_first_near_tie():
+    logits = np.zeros((2, 4, 5))
+    logits[:, :, 1] = 1.0  # a clear winner everywhere...
+    logits[1, 2, 3] = 1.0 - 5e-5  # ...but row 1 at step 2, a near tie
+    tokens = np.array([[1, 1, 1, 1], [1, 1, 3, 4]])
+    plain = np.array([[1, 1, 1, 1], [1, 1, 1, 1]])
+    assert cs.decode_agreement(tokens, plain, logits) == (True, [None, 2])
+    tokens[0, 3] = 2  # row 0 has no tie, so a changed token is a disagreement
+    assert cs.decode_agreement(tokens, plain, logits) == (False, [None, 2])
+
+
+def test_profile_family_launches_sorts_the_trace_by_kernel_family():
+    summary = {"launches": {
+        "void (anonymous namespace)::attention_mma_kernel<64>(...)": 40,
+        "void (anonymous namespace)::attention_f32_kernel<4>(...)": 8,
+        "void (anonymous namespace)::attn_bwd_dq_mma_kernel<64, 64, true>(...)": 48,
+        "void (anonymous namespace)::attn_bwd_dkv_mma_kernel<64, 32, false>(...)": 48,
+        "void at::native::vectorized_elementwise_kernel<4, ...>": 7}}
+    fam = cs.profile_family_launches(summary)
+    assert cs.family_count(fam, "forward attention core") == 48
+    assert cs.family_count(fam, "backward dQ") == 48
+    assert cs.family_count(fam, "backward dK/dV") == 48
+    assert cs.family_count(fam, "elementwise") == 7
+
+
+def test_rel_err_is_the_largest_relative_difference():
+    assert cs.rel_err([1.0, 2.0], [1.0, 2.0]) == 0.0
+    assert abs(cs.rel_err([1.0, 2.0002], [1.0, 2.0]) - 1e-4) < 1e-12
+    assert cs.rel_err(-3.0003, -3.0) == pytest.approx(1e-4, rel=1e-9)  # relative to want
+

@@ -5,7 +5,9 @@ through ``--pretrained``) and the same stock-layout fixtures, in the manner of
 (accuracies and recalls are counts; the features agree to float32 rounding, and the fixtures
 keep clear of ties: solid-colour classes the probe separates). Per-epoch evaluation under
 ``--zeroshot-frequency`` / ``--retrieval-frequency`` on the EMA weights, then an eval-only
-resume of the checkpoint that reports the same numbers; and the flags still refused."""
+resume of the checkpoint that reports the same numbers; and the flags still refused (item 9's;
+item 11's, ``--captioning-eval`` and ``--profile-steps``, pass the check since they were
+ported)."""
 
 import json
 import os
@@ -18,7 +20,8 @@ from PIL import Image
 
 from multimodal_tpu.models import add_model_config as jax_add_model_config
 from multimodal_tpu_torch.models import add_model_config
-from multimodal_tpu_torch.train.run import main
+from multimodal_tpu_torch.train.params import parse_args
+from multimodal_tpu_torch.train.run import check_ported, main
 
 torch.set_num_threads(1)
 
@@ -133,6 +136,9 @@ def test_per_epoch_evals_on_the_ema_and_the_eval_only_resume(fixtures, tmp_path)
     (["--contrastive-impl", "ring"], "item 9"),
 ])
 def test_flags_still_refused_name_their_item(tmp_path, extra, item):
+    if item == "item 11":  # ported since: the check lets the captioning eval and the profiler by
+        check_ported(parse_args(["--device", "cpu"] + extra))
+        return
     with pytest.raises(NotImplementedError, match=item):
         main(["--dataset-type", "synthetic", "--model", NAME, "--device", "cpu", "--epochs",
               "0", "--logs", str(tmp_path), "--cifar10", "/d/c10"] + extra)

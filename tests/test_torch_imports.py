@@ -52,11 +52,21 @@ def test_port_imports_without_jax():
         "from multimodal_tpu_torch.data.semantic import HFSentenceEncoder\n"
         "from multimodal_tpu_torch.train.run import ZERO_SHOT_DATASETS, zero_shot_eval_all\n"
         "from multimodal_tpu_torch.train.run import retrieval_eval_all, linear_probe_eval\n"
+        "import multimodal_tpu_torch.models.captioner, multimodal_tpu_torch.eval.captioning\n"
+        "import multimodal_tpu_torch.models.llama_captioner, multimodal_tpu_torch.profiling\n"
+        "import multimodal_tpu_torch.research, multimodal_tpu_torch.research.vmf_mixture\n"
+        "import multimodal_tpu_torch.research.gmm_fit, multimodal_tpu_torch.research.projection\n"
+        "import multimodal_tpu_torch.research.visualization\n"
+        "import multimodal_tpu_torch.research.fit_mixture\n"
+        "import multimodal_tpu_torch.research.loss_bench\n"
+        "from multimodal_tpu_torch.train.run import captioning_eval\n"
+        "from multimodal_tpu_torch.models import ClipCaptionModel, load_hf_gpt2\n"
+        "from multimodal_tpu_torch.eval import CaptioningMetric, corpus_bleu\n"
         "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'multimodal_tpu'))\n"
         "assert not leaked, leaked\n"
         "optional = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('transformers', 'tensorstore', 'scipy'))\n"
+        "('transformers', 'tensorstore', 'scipy', 'sklearn', 'matplotlib', 'umap'))\n"
         "assert not optional, optional  # imported where they are used\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
