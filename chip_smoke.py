@@ -225,7 +225,22 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      within 1e-4 relative, the mean arc 0.02 degrees, points 1e-5, concentrations 1e-4); the
      two 1000-step runs are not held to each other, float32 rounding grows over them; (g)
      ``LlamaCaptioner`` over a tiny random local Llama snapshot written here: card captions
-     equal to the CPU's.
+     equal to the CPU's;
+ 17. the distributed layer on one card: (a) in a child under ``python -m
+     torch.distributed.run --nproc-per-node 1`` (this script with ``--dp-child``): the NCCL
+     process group at world size 1 (an all-reduce and an all-gather checked), the float32 DP
+     step through ``make_train_step(mesh=...)`` against the single-card step from the same
+     start (ViT-B/32, B=256, phase 6's limits, exactly 24 + 24 block launches each), and the
+     DP step's bfloat16 samples/s beside phase 6's; then in the same process group two steps
+     each of the CLI's ``main`` with ``--fsdp`` and with ``--contrastive-impl ring`` (finite
+     losses, one experiment directory, the step-2 checkpoint); (b) ``--opt-state-offload``: three float32
+     steps with the moments on the card and three offloaded, from one start, at phase 6's
+     limits; the moments' bytes on the card between steps (0), the drop in allocated and peak
+     memory beside the moments' size; the offloaded bfloat16 samples/s beside phase 6's; (c)
+     the ring's schedule (``ring_attention_blocks``) over 4 blocks of a B=2, S=8192, H=8, D=64
+     sequence on the flash kernels, full and causal, float32 and bfloat16, against one flash
+     call over the whole sequence at phase 3's limits, the launches exactly (16, or 10 causal,
+     of each flash kernel), ms of forward + backward beside the one call.
 Before the last line come the card's name and power limit and the kernel summary (JSON); the
 last line is the device record.
 """
@@ -1290,13 +1305,15 @@ def make_batch(torch, cfg, n: int) -> dict:
 
 def train_steps(torch, tally, model, batch, steps: int, grads_at: int = -1, count=True,
                 loss_type: str = "clip", loss_kwargs: dict | None = None,
-                opt_kw: dict | None = None, freeze: str | None = None) -> dict:
+                opt_kw: dict | None = None, freeze: str | None = None,
+                step_kw: dict | None = None) -> dict:
     """``steps`` training steps from a fresh optimizer (by default as bench.py builds it; with
     ``freeze`` a fine-tune mode of ``train.freeze``, the optimizer over the trainable
     parameters alone). Returns the per-step ``metrics`` and launch ``counts``, the gradients
     after step ``grads_at`` (0-based), the host-clock seconds of every step after the first
     (``time``), the ``peak`` device memory and the optimizer state's bytes (``opt_bytes``).
-    The step's generator is a CUDA generator seeded 0, so two runs draw alike."""
+    The step's generator is a CUDA generator seeded 0, so two runs draw alike. ``step_kw``
+    goes to ``make_train_step`` (a mesh, the moments' offload)."""
     from multimodal_tpu_torch.train import (
         TrainState, finetune_mask, freeze_optimizer, make_optimizer, make_schedule,
         make_train_step)
@@ -1311,7 +1328,8 @@ def train_steps(torch, tally, model, batch, steps: int, grads_at: int = -1, coun
     else:
         opt = make_optimizer(model.named_parameters(), schedule, **opt_kw)
     state = TrainState.create(model, opt)
-    step = make_train_step(model, opt, loss_type=loss_type, loss_kwargs=loss_kwargs)
+    step = make_train_step(model, opt, loss_type=loss_type, loss_kwargs=loss_kwargs,
+                           **(step_kw or {}))
     generator = torch.Generator(device="cuda").manual_seed(0)
     out = {"metrics": [], "counts": [], "grads": None, "time": 0.0}
     torch.cuda.reset_peak_memory_stats()
@@ -3515,6 +3533,304 @@ def phase_captioning(torch, mods, tally, card):
           flush=True)
 
 
+DIST_STEPS = 6  # phase 17 (a) and (b): bf16 rates over steps 2-6, as phase 6's
+DIST_CLI_SAMPLES = 2 * CLI_BATCH  # phase 17 (a): two CLI steps at B=256
+DIST_LOGS = "chip_smoke_logs_dist"  # under the checkout; removed at the end of phase 17
+RING_SHAPE = (2, 8192, 8, 64)  # phase 17 (c): B, S, H, D of the sequence
+RING_BLOCKS = 4
+
+
+def ring_visits(n: int, causal: bool) -> int:
+    """The blocks the ring's schedule visits over n blocks of a sequence, each a flash call
+    per pass: all n x n, or causal the n (n + 1) / 2 not wholly in the future."""
+    return n * (n + 1) // 2 if causal else n * n
+
+
+def torchrun(argv: list, timeout: int = 600) -> subprocess.CompletedProcess:
+    """``python -m torch.distributed.run --nproc-per-node 1`` on ``argv`` (a free port on
+    localhost), its output captured."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))  # the checkout: the port's package
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    return subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+                           "1", "--master-port", str(port)] + argv,
+                          capture_output=True, text=True, timeout=timeout, env=env)
+
+
+def dp_child(logs: str) -> int:
+    """Phase 17 (a) in a process of its own under torchrun: the NCCL process group (world 1),
+    the DP step through ``make_train_step(mesh=...)`` against the single-card step from the
+    same start (float32, phase 6's limits, exact launch counts), the DP step's bf16 rate, then
+    the CLI's ``main`` on each of ``DIST_CLI_RUNS`` in the same process group (the launcher's
+    own parser would read a ``--logs`` after ``-m module`` as its ``--logs-specs`` in torch
+    2.11). Writes its launch counts and numbers to ``<logs>/dp_child.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from multimodal_tpu_torch.ops import launches
+    from multimodal_tpu_torch.ops import (  # noqa: F401 - each registers its launch counts
+        block_attention, block_mlp, flash_attention, fused_attention, quant, resample)
+    from multimodal_tpu_torch.parallel import create_mesh, init_process_group
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    device = init_process_group("cuda")
+    try:
+        mesh = create_mesh()
+        x = torch.arange(4.0, device=device)
+        dist.all_reduce(x)
+        gathered = torch.empty(4, device=device)
+        dist.all_gather_into_tensor(gathered, x)
+        torch.cuda.synchronize()
+        if not torch.equal(gathered, torch.arange(4.0, device=device)):
+            fail("NCCL all_reduce / all_gather_into_tensor at world 1 changed the values")
+        print(f"  backend {dist.get_backend()}, world {dist.get_world_size()}, mesh "
+              f"{mesh.mesh_dim_names} on {device}; NCCL all_reduce and all_gather_into_tensor "
+              "ok", flush=True)
+        tally = Tally(launches)
+        need = {"block_attention_fwd": 24, "block_attention_bwd": 24}
+        model = build_model(torch, MODEL, torch.float32)
+        batch = make_batch(torch, model.cfg, TRAIN_BATCH)
+        start = {k: v.clone() for k, v in model.state_dict().items()}
+        single = one_step(torch, tally, model, batch, start)
+        meshed = one_step(torch, tally, model, batch, start, mesh=mesh)
+        check_launches([single["counts"]], need, "single-card float32 step")
+        check_launches([meshed["counts"]], need, "DP float32 step")
+        hold_step(torch, f"DP step over NCCL (world 1) vs the single-card step, float32 "
+                  f"B={TRAIN_BATCH}", meshed, single)
+        del model, batch, start, single, meshed
+        torch.cuda.empty_cache()
+        model = build_model(torch, MODEL, torch.bfloat16)
+        batch = make_batch(torch, model.cfg, TRAIN_BATCH)
+        run = train_steps(torch, tally, model, batch, DIST_STEPS, step_kw={"mesh": mesh})
+        check_launches(run["counts"], need, "DP bfloat16 step")
+        losses = [m["loss"] for m in run["metrics"]]
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            fail(f"DP bfloat16 losses {losses}: not finite or not falling")
+        rate = (DIST_STEPS - 1) * TRAIN_BATCH / run["time"]
+        del model, batch, run
+        torch.cuda.empty_cache()
+        cli_secs = {}
+        for name in DIST_CLI_RUNS:
+            t0 = time.perf_counter()
+            if cli_main(dist_cli_argv(logs, name)) != 0:
+                fail(f"the CLI run {name} failed")
+            cli_secs[name] = time.perf_counter() - t0
+        with open(os.path.join(logs, "dp_child.json"), "w") as f:
+            json.dump({"counts": tally.total, "bf16_rate": rate, "cli_secs": cli_secs}, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+DIST_CLI_RUNS = {"fsdp": ["--fsdp"], "ring": ["--contrastive-impl", "ring"]}  # phase 17 (a)
+
+
+def dist_cli_argv(logs: str, name: str) -> list:
+    """Two steps of the CLI, ViT-B/32 bf16 at B=256, with ``DIST_CLI_RUNS[name]``."""
+    return ["--dataset-type", "synthetic", "--model", MODEL, "--batch-size", str(CLI_BATCH),
+            "--train-num-samples", str(DIST_CLI_SAMPLES), "--epochs", "1", "--precision",
+            "amp_bf16", "--seed", "0", "--warmup", "2", "--lr", "1e-3", "--log-every-n-steps",
+            "1", "--logs", os.path.join(logs, name),
+            "--no-save-on-preemption"] + DIST_CLI_RUNS[name]
+
+
+def check_dist_cli(logs: str, name: str, secs: float, card: str):
+    """One of phase 17 (a)'s CLI runs: finite losses, one experiment directory (the name
+    rank 0 chose), the step-2 checkpoint."""
+    root = os.path.join(logs, name)
+    dirs = os.listdir(root)
+    if len(dirs) != 1:
+        fail(f"the CLI run {name} made {dirs}, not one experiment directory")
+    losses = [r["loss"] for r in cli_records(root, dirs[0])]
+    ckpt = os.path.join(root, dirs[0], "checkpoints", "2", "state.pt")
+    print(f"  CLI {' '.join(DIST_CLI_RUNS[name])} (2 steps, bf16 B={CLI_BATCH}): experiment "
+          f"{dirs[0]}, losses {[round(v, 6) for v in losses]}, checkpoint step 2 "
+          f"{os.path.getsize(ckpt) / 2**20:.1f} MiB, {secs:.1f} s [{card}]", flush=True)
+    if len(losses) != 2 or not np.isfinite(losses).all():
+        fail(f"the CLI run {name}: losses {losses}")
+
+
+def offload_runs(torch, tally, card, bf16_rate: float):
+    """Phase 17 (b): ``offload_opt_state`` on ViT-B/32 at B=256. float32: three steps with the
+    moments on the card and three with them offloaded, from the same start: the metrics at
+    phase 6's limits, the parameters after them compared, the moments' device bytes between
+    steps, and the drop in allocated and peak memory beside the moments' size. Then the
+    offloaded step's bf16 samples/s beside phase 6's."""
+    from multimodal_tpu_torch.train import (TrainState, make_optimizer, make_schedule,
+                                            make_train_step)
+
+    need = {"block_attention_fwd": 24, "block_attention_bwd": 24}
+    model = build_model(torch, MODEL, torch.float32)
+    batch = make_batch(torch, model.cfg, TRAIN_BATCH)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    runs = {}
+    for offload in (False, True):
+        model.load_state_dict(start)
+        opt = make_optimizer(model.named_parameters(),
+                             make_schedule("cosine", 1e-3, warmup_steps=100, total_steps=10000),
+                             weight_decay=0.1, grad_clip_norm=1.0)
+        step = make_train_step(model, opt, offload_opt_state=offload)
+        state = TrainState.create(model, opt)
+        generator = torch.Generator(device="cuda").manual_seed(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        metrics, counts, between = [], [], []
+        for _ in range(3):
+            tally.start()
+            m = step(state, batch, generator)
+            torch.cuda.synchronize()
+            counts.append(tally.stop())
+            metrics.append({k: float(v) for k, v in m.items()})
+            between.append(torch.cuda.memory_allocated())
+        moments = [t for slot in (opt.mu, opt.nu) for t in slot.values()]
+        runs[offload] = {
+            "metrics": metrics, "counts": counts, "between": max(between),
+            "peak": torch.cuda.max_memory_allocated(),
+            "moment_bytes": sum(t.numel() * t.element_size() for t in moments),
+            "device_moment_bytes": sum(t.numel() * t.element_size() for t in moments
+                                       if t.is_cuda),
+            "pinned": all(t.is_pinned() for t in moments if not t.is_cuda),
+            # kept on the host: a copy on the card would sit in the next run's memory figures
+            "params": {n: p.detach().cpu() for n, p in model.named_parameters()}}
+        del opt, step, state, moments
+        torch.cuda.empty_cache()
+    dev, off = runs[False], runs[True]
+    for r, what in ((dev, "moments on the card"), (off, "moments offloaded")):
+        check_launches(r["counts"], need, f"float32 step, {what}")
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)  # noqa: E731
+    loss_rel = max(rel(a["loss"], b["loss"]) for a, b in zip(off["metrics"], dev["metrics"]))
+    norm_rel = max(rel(a["grad_norm"], b["grad_norm"])
+                   for a, b in zip(off["metrics"], dev["metrics"]))
+    param_rel = max(((off["params"][n] - p).abs().max() / p.abs().max().clamp(min=1e-30)).item()
+                    for n, p in dev["params"].items())
+    print(f"  float32 B={TRAIN_BATCH}, 3 steps: offloaded vs on the card: loss rel diff "
+          f"{loss_rel:.3e} (need <= 1e-5), grad norm rel diff {norm_rel:.3e} (need <= 1e-4), "
+          f"parameters after step 3 rel diff {param_rel:.3e} x max|leaf| (need <= 1e-3); "
+          f"losses {[round(m['loss'], 7) for m in off['metrics']]}", flush=True)
+    print(f"  moments {off['moment_bytes'] / 2**20:.1f} MiB, on the card between steps "
+          f"{off['device_moment_bytes']} bytes (pinned host: {off['pinned']}); allocated "
+          f"between steps {dev['between'] / 2**30:.3f} -> {off['between'] / 2**30:.3f} GiB "
+          f"(drop {(dev['between'] - off['between']) / 2**20:.1f} MiB), max_memory_allocated "
+          f"{dev['peak'] / 2**30:.3f} -> {off['peak'] / 2**30:.3f} GiB (drop "
+          f"{(dev['peak'] - off['peak']) / 2**20:.1f} MiB) [{card}]", flush=True)
+    if off["device_moment_bytes"] or not off["pinned"]:
+        fail("offloaded moments on the card, or not pinned, between steps")
+    if loss_rel > 1e-5 or norm_rel > 1e-4 or param_rel > 1e-3:
+        fail("the offloaded step disagrees with the step whose moments stay on the card")
+    del model, batch, start, runs, dev, off
+    torch.cuda.empty_cache()
+    model = build_model(torch, MODEL, torch.bfloat16)
+    batch = make_batch(torch, model.cfg, TRAIN_BATCH)
+    run = train_steps(torch, tally, model, batch, DIST_STEPS,
+                      step_kw={"offload_opt_state": True})
+    check_launches(run["counts"], need, "offloaded bfloat16 step")
+    losses = [m["loss"] for m in run["metrics"]]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"offloaded bfloat16 losses {losses}: not finite or not falling")
+    rate = (DIST_STEPS - 1) * TRAIN_BATCH / run["time"]
+    print(f"  {MODEL} bfloat16 B={TRAIN_BATCH} with the moments offloaded: {rate:.1f} "
+          f"samples/s (steps 2-{DIST_STEPS}, host clock; phase 6 bfloat16 {bf16_rate:.1f}, "
+          f"ratio {rate / bf16_rate:.3f}); peak memory {run['peak'] / 2**30:.2f} GiB [{card}]",
+          flush=True)
+    del model, batch, run
+    torch.cuda.empty_cache()
+
+
+def ring_schedule(torch, tally, card):
+    """Phase 17 (c): the ring's schedule on the flash kernels over RING_BLOCKS blocks of a
+    RING_SHAPE sequence, full and causal, float32 and bfloat16, against one flash call over the
+    whole sequence: forward and q / k / v gradients at phase 3's limits (1e-4 and 2e-2 x
+    max|whole|), exact launch counts, and ms of forward + backward beside the whole call."""
+    from multimodal_tpu_torch.ops.flash_attention import flash_attention
+    from multimodal_tpu_torch.ops.ring_attention import ring_attention_blocks
+
+    b, s, h, d = RING_SHAPE
+    for dtype, limit in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        name = str(dtype).replace("torch.", "")
+        for causal in (False, True):
+            g = torch.Generator(device="cuda").manual_seed(s + causal)
+            q, k, v = (torch.randn(b, s, h, d, generator=g, device="cuda").to(dtype)
+                       .requires_grad_(True) for _ in range(3))
+            ct = torch.randn(b, s, h, d, generator=g, device="cuda").to(dtype)
+
+            def ring():
+                out = ring_attention_blocks(q, k, v, RING_BLOCKS, causal=causal)
+                return (out, *torch.autograd.grad(out, (q, k, v), ct))
+
+            def whole():
+                out = flash_attention(q, k, v, causal=causal)
+                return (out, *torch.autograd.grad(out, (q, k, v), ct))
+
+            torch.cuda.synchronize()
+            tally.start()
+            got = ring()
+            torch.cuda.synchronize()
+            counts = tally.stop()
+            visits = ring_visits(RING_BLOCKS, causal)
+            check_launches([counts], {"flash_attention_fwd": visits, "flash_attention_dq": visits,
+                                      "flash_attention_dkv": visits}, f"ring {name}")
+            want = whole()
+            errs = [((a.float() - w.float()).abs().max() / w.float().abs().max()).item()
+                    for a, w in zip(got, want)]
+            ok = max(errs) <= limit and all(bool(torch.isfinite(a).all()) for a in got)
+            del got, want
+            ring_ms, whole_ms = cuda_ms(ring, iters=3, warmup=1), cuda_ms(whole, iters=3, warmup=1)
+            print(f"  ring {RING_BLOCKS} blocks B={b} S={s} H={h} D={d} causal={causal} {name}: "
+                  f"err/max|whole| out={errs[0]:.2e} dq={errs[1]:.2e} dk={errs[2]:.2e} "
+                  f"dv={errs[3]:.2e} (tol {limit:g}) {'ok' if ok else 'MISMATCH'}; "
+                  f"forward + backward {ring_ms:.3f} ms, one flash call {whole_ms:.3f} ms "
+                  f"(ratio {ring_ms / whole_ms:.3f}); {visits} visits [{card}]", flush=True)
+            if not ok:
+                fail(f"the ring schedule breaks its limit ({name}, causal={causal})")
+            del q, k, v, ct
+            torch.cuda.empty_cache()
+
+
+def phase_distributed(torch, tally, card, bf16_rate: float):
+    """Phase 17: the distributed layer on one card (world size 1 over NCCL), the moments'
+    offload, and the ring's schedule on the flash kernels."""
+    t_phase = time.perf_counter()
+    logs = os.path.abspath(DIST_LOGS)
+    shutil.rmtree(logs, ignore_errors=True)
+    os.makedirs(logs)
+    try:
+        print(f"  (a) the DP step over NCCL at world size 1 in a torchrun child: {MODEL} "
+              f"B={TRAIN_BATCH}", flush=True)
+        t0 = time.perf_counter()
+        proc = torchrun([os.path.abspath(__file__), "--dp-child", logs])
+        for line in proc.stdout.splitlines():
+            if line.startswith("  "):
+                print(line, flush=True)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-8000:], flush=True)
+            fail(f"the DP child exited {proc.returncode}")
+        with open(os.path.join(logs, "dp_child.json")) as f:
+            child = json.load(f)
+        for k, n in child["counts"].items():
+            tally.total[k] += n
+        print(f"  DP bfloat16 B={TRAIN_BATCH} over NCCL (world 1): {child['bf16_rate']:.1f} "
+              f"samples/s (steps 2-{DIST_STEPS}, host clock), phase 6 bfloat16 {bf16_rate:.1f} "
+              f"(ratio {child['bf16_rate'] / bf16_rate:.3f}); the child "
+              f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+        for name, secs in child["cli_secs"].items():
+            check_dist_cli(logs, name, secs, card)
+        print(f"  (b) --opt-state-offload: {MODEL} B={TRAIN_BATCH}", flush=True)
+        offload_runs(torch, tally, card, bf16_rate)
+        print(f"  (c) the ring's schedule on the flash kernels: {RING_BLOCKS} blocks of B, S, "
+              f"H, D = {RING_SHAPE}", flush=True)
+        ring_schedule(torch, tally, card)
+    finally:
+        shutil.rmtree(logs, ignore_errors=True)
+    print(f"  phase 17 took {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3713,6 +4029,10 @@ def main() -> int:
     print("phase 16 captioning, the research toolkit and the profiler", flush=True)
     phase_captioning(torch, mods, tally, card)
 
+    print("phase 17 the distributed layer on one card: DP over NCCL, the CLI's mesh flags, "
+          "optimizer-state offload, the ring's schedule", flush=True)
+    phase_distributed(torch, tally, card, bf16_stats["rate"])
+
     entries = []
     for name, (source, replaces, case) in KERNELS.items():
         if tally.total[name] == 0:
@@ -3729,4 +4049,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-child"]:  # phase 17 (a), started by the script itself
+        sys.exit(dp_child(sys.argv[2]))
     sys.exit(main())

@@ -1,16 +1,24 @@
-"""InfoNCE contrastive loss on one device (port of ``multimodal_tpu/losses/clip_loss.py``).
+"""InfoNCE contrastive loss (port of ``multimodal_tpu/losses/clip_loss.py``).
 
-``clip_loss_sampled`` is the Monte-Carlo form of the variational CLIP loss. Not ported yet: the
-mesh-sharded forms (``axis_name``: the feature gather with gradient and the local-loss
-offsets, ROADMAP Queue 1 item 9), which raise ``NotImplementedError``.
+``clip_loss_sampled`` is the Monte-Carlo form of the variational CLIP loss.
+
+The mesh forms take ``axis_name``, the process group the batch is split over (JAX's mesh axis
+name; None: one device). Each rank holds its own rows; ``gather_features`` all-gathers every
+rank's features, and its gradient is the reduce-scatter of the cotangent (the transpose of
+``lax.all_gather``), so the gradient reaching a rank's features carries every rank's loss
+term. With ``local_loss`` a rank computes only its rows against the global batch, the labels
+offset by ``rank * B``; without it every rank computes the global matrix. The loss is the mean
+over the ranks (``parallel.collectives.mean_over``): the same global value on every rank,
+whose backward gives each rank's features exactly their gradient of the global loss, so the
+train step sums the ranks' parameter gradients.
 """
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 import torch.nn.functional as F
+
+from multimodal_tpu_torch.parallel.collectives import all_gather, group_rank, mean_over
 
 LOGIT_CLAMP = 4.6052  # ln(100)
 LOGIT_CLAMP_SAMPLED = 3.912  # ln(50): the sampled loss's clamp
@@ -31,37 +39,49 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return nll
 
 
-def _no_mesh(axis_name):
-    if axis_name is not None:
-        raise NotImplementedError(
-            "axis_name: the mesh-sharded contrastive loss is not ported yet "
-            "(ROADMAP Queue 1 item 9)")
+def gather_features(features: torch.Tensor, axis_name) -> torch.Tensor:
+    """Every rank's features of ``axis_name``'s group in rank order, the gradient preserved
+    (None: the features as they are)."""
+    return features if axis_name is None else all_gather(features, axis_name)
 
 
 def contrastive_logits(image_features: torch.Tensor, text_features: torch.Tensor, scale,
-                       axis_name: Optional[str] = None, local_loss: bool = True):
-    """(logits_per_image, logits_per_text, labels): [B, B] both ways, labels arange(B)."""
-    _no_mesh(axis_name)
-    logits_per_image = scale * image_features @ text_features.T
-    labels = torch.arange(image_features.shape[0], device=image_features.device)
+                       axis_name=None, local_loss: bool = True):
+    """(logits_per_image, logits_per_text, labels). One device: [B, B] both ways, labels
+    arange(B). On a group with ``local_loss``: local @ global, [B, B W], labels offset by
+    ``rank * B``; without it the global matrix [B W, B W] on every rank."""
+    if axis_name is None:
+        logits_per_image = scale * image_features @ text_features.T
+        labels = torch.arange(image_features.shape[0], device=image_features.device)
+        return logits_per_image, logits_per_image.T, labels
+    all_images = gather_features(image_features, axis_name)
+    all_texts = gather_features(text_features, axis_name)
+    if local_loss:
+        b = image_features.shape[0]
+        labels = torch.arange(b, device=image_features.device) + b * group_rank(axis_name)
+        return (scale * image_features @ all_texts.T, scale * text_features @ all_images.T,
+                labels)
+    logits_per_image = scale * all_images @ all_texts.T
+    labels = torch.arange(all_images.shape[0], device=image_features.device)
     return logits_per_image, logits_per_image.T, labels
 
 
 def clip_loss(image_features: torch.Tensor, text_features: torch.Tensor,
               logit_scale: torch.Tensor, *, label_smoothing: float = 0.0,
               normalize: bool = True, scale_is_log: bool = True,
-              axis_name: Optional[str] = None, local_loss: bool = True) -> torch.Tensor:
-    """Symmetric InfoNCE, a scalar. The log scale is clamped at ln(100) where it is used
-    (``torch.minimum`` splits the gradient at a tie, as ``jnp.minimum`` does)."""
-    _no_mesh(axis_name)
+              axis_name=None, local_loss: bool = True) -> torch.Tensor:
+    """Symmetric InfoNCE, a scalar; on a group the global-batch mean, the same on every
+    rank. The log scale is clamped at ln(100) where it is used (``torch.minimum`` splits the
+    gradient at a tie, as ``jnp.minimum`` does)."""
     if normalize:
         image_features = _l2norm(image_features.to(torch.float32))
         text_features = _l2norm(text_features.to(torch.float32))
     scale = _clamped_scale(logit_scale, LOGIT_CLAMP) if scale_is_log else logit_scale
     li, lt, labels = contrastive_logits(image_features, text_features, scale, axis_name,
                                         local_loss)
-    return 0.5 * (cross_entropy(li, labels, label_smoothing).mean()
+    loss = 0.5 * (cross_entropy(li, labels, label_smoothing).mean()
                   + cross_entropy(lt, labels, label_smoothing).mean())
+    return loss if axis_name is None else mean_over(loss, axis_name)
 
 
 def _clamped_scale(logit_scale: torch.Tensor, clamp: float) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""Training on one device: the optimizers, the LR schedules, the train step, the freeze modes
-of a fine-tune, the checkpoints, and the CLI (``python -m multimodal_tpu_torch.train.run``)."""
+"""Training, on one device or over a process group: the optimizers, the LR schedules, the
+train step, the freeze modes of a fine-tune, the checkpoints, and the CLI (``python -m
+multimodal_tpu_torch.train.run``)."""
 
 from multimodal_tpu_torch.train.checkpoints import CheckpointManager
 from multimodal_tpu_torch.train.engine import TrainState, make_loss_fn, make_train_step

@@ -1,4 +1,4 @@
-"""The training step on one device (port of ``multimodal_tpu/train/engine.py``).
+"""The training step (port of ``multimodal_tpu/train/engine.py``).
 
 ``make_train_step(model, optimizer)`` returns ``step(state, batch) -> metrics``: the forward
 of both towers on a uint8 (or already normalized) image batch and its tokens, the CLIP
@@ -37,12 +37,23 @@ runs the model in training mode and leaves it in the mode it found it in.
 to the model's resolution on the device (``data.resize.bicubic``, JAX's bicubic) in the step's
 prolog, ``batch_images``.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item: meshes and
-shard_map, the ring contrastive form and optimizer-state offload (Queue 1 item 9).
+With ``mesh`` (a ``parallel.mesh`` device mesh) the step is the data-parallel step of one
+rank: the batch it gets is this rank's rows (``parallel.shard_batch``), the loss runs its mesh
+form over the batch axes' process group (the gathered-feature loss, local against global with
+``local_loss``, the chunked form over the gathered keys, ``contrastive_impl="ring"``'s ring,
+SigLIP's ring, the gathered CLOOB and align losses; the loss value is the global one on every
+rank, and its backward hands each rank its share of the global gradient), and the
+``Placement`` (``state_shardings``: FSDP, TP, FSDP x TP, EP; whole parameters without one)
+gathers split weights at use, then sums the gradients over the batch axes before the
+optimizer, whose global-norm clip and non-finite skip see the norm of the whole gradient. A
+PyTorch step always runs per rank with explicit collectives, which is what JAX's
+``use_shard_map`` selects; the flag is accepted, with its exclusions. ``offload_opt_state``
+keeps the fused AdamW's moments in pinned host memory between steps (``parallel.offload``).
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -56,11 +67,12 @@ from multimodal_tpu_torch.inference import model_mode
 from multimodal_tpu_torch.losses.align_loss import align_clip_loss
 from multimodal_tpu_torch.losses.clip_loss import clip_loss
 from multimodal_tpu_torch.losses.cloob_loss import cloob_loss
-from multimodal_tpu_torch.losses.global_contrastive import chunked_clip_loss
+from multimodal_tpu_torch.losses.global_contrastive import chunked_clip_loss, ring_clip_loss
 from multimodal_tpu_torch.losses.siglip_loss import siglip_loss
 from multimodal_tpu_torch.losses.vclip_loss import vclip_loss
 from multimodal_tpu_torch.models.moe import collect_moe_losses
 from multimodal_tpu_torch.ops.sphere import l2_normalize, riemannian_grad
+from multimodal_tpu_torch.parallel.collectives import all_gather, mean_over
 from multimodal_tpu_torch.train.optimizer import extract_grad_norm
 
 LOGIT_SCALE_MAX = 4.6052  # ln(100)
@@ -138,11 +150,13 @@ def _clamp_logit_scale(model: torch.nn.Module):
             p.clamp_(0.0, LOGIT_SCALE_MAX)
 
 
-def _vclip_loss_fn(loss_kwargs: dict, wire_size: Optional[int] = None) -> Callable:
+def _vclip_loss_fn(loss_kwargs: dict, wire_size: Optional[int] = None,
+                   axis_name=None) -> Callable:
     """The variational loss: the heads' normalized means (through ``riemannian_grad`` with
     ``riemannian``) and concentrations as ``distribution_type`` distributions
     (``power_spherical``, ``vmf``, or ``normal`` on the raw means with std sqrt(variance)),
-    then ``vclip_loss`` with the step's generator for its draws."""
+    then ``vclip_loss`` with the step's generator for its draws. On a group each rank's loss
+    is its own rows' (as the reference's, which takes no axis), averaged over the ranks."""
     kw = dict(loss_kwargs)
     dist_type = kw.pop("distribution_type", "power_spherical")
     riemannian = kw.pop("riemannian", False)
@@ -162,6 +176,8 @@ def _vclip_loss_fn(loss_kwargs: dict, wire_size: Optional[int] = None) -> Callab
                 mu_i, mu_t = riemannian_grad(mu_i), riemannian_grad(mu_t)
             di, dt = families[dist_type](mu_i, conc_i), families[dist_type](mu_t, conc_t)
         res = vclip_loss(di, dt, conc_i, conc_t, out["logit_scale"], generator=generator, **kw)
+        if axis_name is not None:
+            res = {k: mean_over(v, axis_name) for k, v in res.items()}
         metrics = {k: v.detach() for k, v in res.items()}
         metrics["loss"] = metrics["total_loss"]
         metrics["mean_image_concentration"] = conc_i.detach().mean()
@@ -172,7 +188,7 @@ def _vclip_loss_fn(loss_kwargs: dict, wire_size: Optional[int] = None) -> Callab
 
 
 def make_loss_fn(model, loss_type: str = "clip", loss_kwargs: Optional[dict] = None,
-                 wire_size: Optional[int] = None) -> Callable:
+                 wire_size: Optional[int] = None, axis_name=None) -> Callable:
     """loss_fn(model, batch, generator=None) -> (loss, metrics) for a loss family:
     ``clip`` (InfoNCE, dense or with ``contrastive_impl="chunked"`` the chunked form over
     ``chunk_size`` keys; ``generator`` feeds patch dropout; a model whose config has a MoE
@@ -180,11 +196,13 @@ def make_loss_fn(model, loss_type: str = "clip", loss_kwargs: Optional[dict] = N
     as ``moe_aux_loss``), ``cloob`` (``inv_tau`` 30, ``scale_hopfield`` 8), ``align``
     (``alpha``, ``beta``, ``separate_text``, ``separate_image``; the batch's ``semantic``
     field, when it has one, weights the in-modality terms), ``siglip`` (the model needs its
-    ``logit_bias``) or ``vclip`` (``generator`` feeds its draws)."""
+    ``logit_bias``) or ``vclip`` (``generator`` feeds its draws). ``axis_name`` (the process
+    group of the batch axes) selects each loss's mesh form; ``contrastive_impl="ring"`` is the
+    ring form on a group and the dense loss without one, as in the reference."""
     if loss_type not in ("clip", "siglip", "vclip", "cloob", "align"):
         raise ValueError(f"unknown loss_type {loss_type!r}")
     if loss_type == "vclip":
-        return _vclip_loss_fn(loss_kwargs or {}, wire_size)
+        return _vclip_loss_fn(loss_kwargs or {}, wire_size, axis_name)
     kw = dict(loss_kwargs or {})
 
     def forward(model, batch, generator):
@@ -200,7 +218,7 @@ def make_loss_fn(model, loss_type: str = "clip", loss_kwargs: Optional[dict] = N
             out = forward(model, batch, generator)
             ls, lb = out["logit_scale"], out["logit_bias"]
             loss = siglip_loss(out["image_features"], out["text_features"], ls, lb,
-                               normalize=False, **kw)
+                               normalize=False, axis_name=axis_name, **kw)
             return loss, {"loss": loss.detach(), "logit_scale": ls.detach().clone(),
                           "logit_bias": lb.detach().clone()}
 
@@ -210,8 +228,12 @@ def make_loss_fn(model, loss_type: str = "clip", loss_kwargs: Optional[dict] = N
 
         def cloob_fn(model, batch, generator=None):
             out = forward(model, batch, generator)
-            loss = cloob_loss(out["image_features"], out["text_features"], inv_tau=inv_tau,
-                              scale_hopfield=scale_hopfield)
+            img, txt = out["image_features"], out["text_features"]
+            if axis_name is not None:  # every rank computes the global loss
+                img, txt = all_gather(img, axis_name), all_gather(txt, axis_name)
+            loss = cloob_loss(img, txt, inv_tau=inv_tau, scale_hopfield=scale_hopfield)
+            if axis_name is not None:
+                loss = mean_over(loss, axis_name)
             return loss, {"loss": loss.detach()}
 
         return cloob_fn
@@ -221,40 +243,49 @@ def make_loss_fn(model, loss_type: str = "clip", loss_kwargs: Optional[dict] = N
             out = forward(model, batch, generator)
             res = align_clip_loss(out["image_features"], out["text_features"],
                                   out["logit_scale"], semantic_features=batch.get("semantic"),
-                                  normalize=False, **kw)
+                                  normalize=False, axis_name=axis_name, **kw)
             metrics = {k: v.detach() for k, v in res.items()}
             return res["total_loss"], {"loss": metrics["total_loss"], **metrics}
 
         return align_fn
     label_smoothing = kw.pop("label_smoothing", 0.0)
-    kw.pop("local_loss", None)  # only meaningful on a mesh
+    local_loss = kw.pop("local_loss", True)  # the mesh form's
     impl = kw.pop("contrastive_impl", "dense")
     chunk_size = kw.pop("chunk_size", 1024)
     moe_aux_weight = kw.pop("moe_aux_weight", 0.01)
     vision = getattr(getattr(model, "cfg", None), "vision", None)
     has_moe = vision is not None and vision.moe_experts > 0
-    if impl == "ring":
-        raise NotImplementedError("contrastive_impl='ring' (the ring-streamed loss over a mesh) "
-                                  "is not ported yet (ROADMAP Queue 1 item 9)")
-    if impl not in ("dense", "chunked"):
+    if impl not in ("dense", "chunked", "ring"):
         raise ValueError(f"unknown contrastive_impl {impl!r} (dense | chunked | ring)")
 
     def loss_fn(model, batch, generator=None):
         out = forward(model, batch, generator)
         fi, ft, ls = out["image_features"], out["text_features"], out["logit_scale"]
-        if impl == "chunked":
+        if impl == "ring" and axis_name is not None:
+            loss = ring_clip_loss(fi, ft, ls, axis_name, label_smoothing=label_smoothing,
+                                  normalize=False, **kw)
+        elif impl == "chunked":
             loss = chunked_clip_loss(fi, ft, ls, chunk_size=chunk_size,
-                                     label_smoothing=label_smoothing, normalize=False, **kw)
+                                     label_smoothing=label_smoothing, normalize=False,
+                                     axis_name=axis_name, **kw)
         else:
-            loss = clip_loss(fi, ft, ls, label_smoothing=label_smoothing, normalize=False, **kw)
+            loss = clip_loss(fi, ft, ls, label_smoothing=label_smoothing, normalize=False,
+                             axis_name=axis_name, local_loss=local_loss, **kw)
         metrics = {"loss": loss.detach(), "logit_scale": ls.detach().clone()}
         if has_moe:
-            aux = collect_moe_losses(model)
+            aux = _moe_aux(model, axis_name)
             loss = loss + moe_aux_weight * aux
             metrics["moe_aux_loss"], metrics["loss"] = aux.detach(), loss.detach()
         return loss, metrics
 
     return loss_fn
+
+
+def _moe_aux(model, axis_name) -> torch.Tensor:
+    """The load-balance terms of the model's MoE layers; on a group their mean over the
+    ranks (each term is a mean over sequences, so that is the global batch's)."""
+    aux = collect_moe_losses(model)
+    return aux if axis_name is None else mean_over(aux, axis_name)
 
 
 def _micro_batches(batch: dict, accum_steps: int) -> list[dict]:
@@ -282,7 +313,8 @@ def _accum_grads(loss_fn, model, batch: dict, generator, accum_steps: int) -> di
 
 
 def _feature_cached_grads(model, batch: dict, generator, loss_kwargs: Optional[dict],
-                          accum_steps: int, wire_size: Optional[int] = None) -> dict:
+                          accum_steps: int, wire_size: Optional[int] = None,
+                          axis_name=None) -> dict:
     """Feature-cached accumulation of the dense CLIP loss, the full batch's gradient on
     every leaf. Phase 1: every micro-batch's features without grad, in order, the
     generator's state recorded before each. Phase 2: per micro-batch, the generator set back
@@ -292,7 +324,8 @@ def _feature_cached_grads(model, batch: dict, generator, loss_kwargs: Optional[d
     micro-batch only: each micro-batch's loss carries the full batch's dependence on it, so
     summing k of them would give k times its gradient. A MoE tower's aux loss enters each
     micro-batch's loss at 1/k of its weight (the full batch's aux is the micro-batches'
-    mean); the reported loss is topped up to the full batch's loss plus its aux term."""
+    mean); the reported loss is topped up to the full batch's loss plus its aux term. On a
+    group each rank banks its own micro-batches and the whole-bank loss takes the group."""
     kw = dict(loss_kwargs or {})
     label_smoothing = kw.pop("label_smoothing", 0.0)
     for key in ("local_loss", "contrastive_impl", "chunk_size"):
@@ -304,7 +337,7 @@ def _feature_cached_grads(model, batch: dict, generator, loss_kwargs: Optional[d
 
     def encode(mb):
         out = model(batch_images(mb, model, wire_size), mb["text"], generator=generator)
-        aux = collect_moe_losses(model) if has_moe else None
+        aux = _moe_aux(model, axis_name) if has_moe else None
         return out["image_features"], out["text_features"], out["logit_scale"], aux
 
     states, bank_i, bank_t = [], [], []
@@ -323,7 +356,8 @@ def _feature_cached_grads(model, batch: dict, generator, loss_kwargs: Optional[d
         all_i = torch.cat(bank_i[:idx] + [fi] + bank_i[idx + 1:])
         all_t = torch.cat(bank_t[:idx] + [ft] + bank_t[idx + 1:])
         loss = clip_loss(all_i, all_t, ls if idx == 0 else ls.detach(),
-                         label_smoothing=label_smoothing, normalize=False, **kw)
+                         label_smoothing=label_smoothing, normalize=False,
+                         axis_name=axis_name, **kw)
         if has_moe:
             loss = loss + moe_aux_weight * aux / accum_steps
             auxes.append(aux.detach())
@@ -344,8 +378,9 @@ def _feature_cached_grads(model, batch: dict, generator, loss_kwargs: Optional[d
 def make_train_step(model, optimizer, loss_type: str = "clip",
                     loss_kwargs: Optional[dict] = None, *, mesh=None,
                     use_shard_map: bool = False, accum_steps: int = 1,
-                    feature_cached_accum: bool = False, ema_decay: Optional[float] = None,
-                    offload_opt_state: bool = False, wire_size: Optional[int] = None):
+                    feature_cached_accum: bool = False, state_shardings=None,
+                    ema_decay: Optional[float] = None, offload_opt_state: bool = False,
+                    wire_size: Optional[int] = None):
     """Build ``step(state, batch, generator=None) -> metrics`` (``loss``, ``logit_scale``,
     ``grad_norm``, with a MoE vision tower ``moe_aux_loss``; for ``siglip`` also
     ``logit_bias``; for ``cloob`` ``loss`` and ``grad_norm``; for ``align`` also its three
@@ -362,16 +397,38 @@ def make_train_step(model, optimizer, loss_type: str = "clip",
     form (the dense CLIP loss only: another loss or contrastive form raises
     ``ValueError``). With ``ema_decay`` set and ``state.ema`` present (``TrainState.create(...,
     ema=True)``), the EMA follows every update. The model runs in training mode and is left
-    in the mode it was in."""
-    left_out = {
-        "mesh": (mesh is not None, "Queue 1 item 9"),
-        "use_shard_map": (use_shard_map, "Queue 1 item 9"),
-        "offload_opt_state": (offload_opt_state, "Queue 1 item 9"),
-    }
-    for name, (on, item) in left_out.items():
-        if on:
-            raise NotImplementedError(f"{name} is not ported yet (ROADMAP {item})")
-    loss_fn = make_loss_fn(model, loss_type, loss_kwargs, wire_size=wire_size)
+    in the mode it was in.
+
+    ``mesh``: the step of one rank of a data-parallel run; ``batch`` is this rank's rows.
+    ``state_shardings``: the ``parallel.placement.Placement`` of ``model``'s parameters (from
+    ``shard_model_fsdp`` / ``shard_model_tp`` / ``shard_model_fsdp_tp`` / ``shard_model_ep``,
+    on ``mesh``; the optimizer built over the placed parameters); without it every parameter
+    is whole on every rank. ``use_shard_map`` needs the mesh and excludes a placement that
+    splits parameters, as in the reference. ``offload_opt_state`` moves the fused AdamW's
+    moments into pinned host memory (a CUDA device only)."""
+    if mesh is None and (use_shard_map or state_shardings is not None):
+        raise ValueError("use_shard_map and state_shardings need a mesh")
+    placement, group = None, None
+    if mesh is not None:
+        from torch.distributed.device_mesh import DeviceMesh
+
+        from multimodal_tpu_torch.parallel.mesh import batch_group
+        from multimodal_tpu_torch.parallel.placement import Placement
+
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a DeviceMesh (parallel.create_mesh), got "
+                            f"{type(mesh).__name__}")
+        placement = state_shardings if state_shardings is not None else Placement(model, mesh, {})
+        if use_shard_map and placement.any_split:
+            raise ValueError("use_shard_map and a parameter placement that splits parameters "
+                             "(FSDP / TP / EP) are exclusive")
+        placement.attach(optimizer)
+        group = batch_group(mesh)
+    if offload_opt_state:
+        from multimodal_tpu_torch.parallel.offload import offload_optimizer_state
+
+        offload_optimizer_state(optimizer)
+    loss_fn = make_loss_fn(model, loss_type, loss_kwargs, wire_size=wire_size, axis_name=group)
     feature_cached = feature_cached_accum and accum_steps > 1
     if feature_cached:
         lk = loss_kwargs or {}
@@ -387,15 +444,18 @@ def make_train_step(model, optimizer, loss_type: str = "clip",
     def step(state: TrainState, batch: dict,
              generator: Optional[torch.Generator] = None) -> dict:
         state.optimizer.zero_grad(set_to_none=True)
-        with model_mode(state.model, True):
+        gathered = placement.gathered() if placement is not None else contextlib.nullcontext()
+        with model_mode(state.model, True), gathered:
             if feature_cached:
                 metrics = _feature_cached_grads(state.model, batch, generator, loss_kwargs,
-                                                accum_steps, wire_size)
+                                                accum_steps, wire_size, group)
             elif accum_steps > 1:
                 metrics = _accum_grads(loss_fn, state.model, batch, generator, accum_steps)
             else:
                 loss, metrics = loss_fn(state.model, batch, generator)
                 loss.backward()
+        if placement is not None:
+            placement.sync_grads()
         state.optimizer.step()
         if loss_type != "siglip":  # SigLIP's temperature runs free, as in the reference
             _clamp_logit_scale(state.model)

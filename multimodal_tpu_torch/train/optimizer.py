@@ -33,6 +33,16 @@ class _NamedState:
 
     SLOTS: tuple = ()
     SCALARS = ("count", "grad_norm", "notfinite_count")
+    # leaf_norms(tensors, idx) -> the norms of whole leaves: set by a placement whose
+    # parameters are split over ranks (parallel.placement.Placement.attach); idx names the
+    # parameters the tensors belong to (None: all of them, in order)
+    leaf_norms = None
+
+    def _norms(self, tensors: list[torch.Tensor], idx=None) -> torch.Tensor:
+        """Per-leaf L2 norms of ``tensors``, of whole leaves under a placement."""
+        if self.leaf_norms is None:
+            return torch.stack(torch._foreach_norm(tensors))
+        return self.leaf_norms(tensors, idx)
 
     def _params(self) -> list[torch.Tensor]:
         return [p for group in self.param_groups for p in group["params"]]
@@ -86,6 +96,8 @@ class FusedAdamW(_NamedState, torch.optim.Optimizer):
     the same value to a few float32 ulps."""
 
     SLOTS = ("mu", "nu")
+    # the moments live in pinned host memory between steps (parallel.offload)
+    offloaded = False
 
     def __init__(self, named_params: Iterable[tuple[str, torch.nn.Parameter]],
                  schedule: Union[Callable, float], *, weight_decay: float = 0.2,
@@ -112,6 +124,16 @@ class FusedAdamW(_NamedState, torch.optim.Optimizer):
             self.state[p]["mu"] = torch.zeros_like(p, dtype=state_dtype)
             self.state[p]["nu"] = torch.zeros_like(p, dtype=state_dtype)
 
+    def state_dict(self) -> dict:
+        if self.offloaded:  # the last step's copies to the host must have landed
+            torch.cuda.synchronize(self.count.device)
+        return super().state_dict()
+
+    def load_state_dict(self, state_dict: dict):
+        if self.offloaded:
+            torch.cuda.synchronize(self.count.device)
+        super().load_state_dict(state_dict)
+
     @property
     def mu(self) -> dict[str, torch.Tensor]:
         return self._slot("mu")
@@ -132,7 +154,7 @@ class FusedAdamW(_NamedState, torch.optim.Optimizer):
         params = self._params()
         grads = [(p.grad if p.grad is not None else torch.zeros_like(p)).to(f32)
                  for p in params]
-        norm = torch.stack(torch._foreach_norm(grads)).square().sum().sqrt()
+        norm = self._norms(grads).square().sum().sqrt()
         scale = torch.ones((), dtype=f32, device=norm.device)
         if self.grad_clip_norm is not None:
             scale = torch.clamp(self.grad_clip_norm / torch.clamp(norm, min=1e-12), max=1.0)
@@ -158,6 +180,11 @@ class FusedAdamW(_NamedState, torch.optim.Optimizer):
         states = [self.state[p] for p in params]
         mu_old = [st["mu"] for st in states]
         nu_old = [st["nu"] for st in states]
+        if self.offloaded:  # the moments come from the host for the update and go back
+            mu_host, nu_host = mu_old, nu_old
+            device = norm.device
+            mu_old = [m.to(device, non_blocking=True) for m in mu_host]
+            nu_old = [n.to(device, non_blocking=True) for n in nu_host]
         if self.state_dtype != f32:
             mu_old32, nu_old32 = [m.to(f32) for m in mu_old], [n.to(f32) for n in nu_old]
         else:
@@ -198,19 +225,28 @@ class FusedAdamW(_NamedState, torch.optim.Optimizer):
         else:
             torch._foreach_copy_(mu_old, mu_new)
             torch._foreach_copy_(nu_old, nu_new)
+        if self.offloaded:
+            torch._foreach_copy_(mu_host, mu_old, non_blocking=True)
+            torch._foreach_copy_(nu_host, nu_old, non_blocking=True)
         self.count.copy_(count)
         self.grad_norm.copy_(norm)
         return None
 
 
+def _local_norms(tensors: list[torch.Tensor]) -> torch.Tensor:
+    return torch.stack(torch._foreach_norm(tensors))
+
+
 def clip_and_skip_by_global_norm(grads: list[torch.Tensor], clip_norm: Optional[float],
-                                 skip_nonfinite: bool) -> tuple[list[torch.Tensor], torch.Tensor]:
+                                 skip_nonfinite: bool,
+                                 norms=_local_norms) -> tuple[list[torch.Tensor], torch.Tensor]:
     """The chains' first stage: one float32 global norm of ``grads`` (the stage's state,
     returned beside the scaled gradients), the clip scale ``min(1, clip_norm / max(norm,
     1e-12))``, and with ``skip_nonfinite`` a zero scale when the norm is not finite (a
-    non-finite element stays non-finite, 0 * nan being nan, as in the reference)."""
+    non-finite element stays non-finite, 0 * nan being nan, as in the reference). ``norms``
+    gives the per-leaf norms (of whole leaves under a placement)."""
     grads = [g.to(f32) for g in grads]
-    norm = torch.stack(torch._foreach_norm(grads)).square().sum().sqrt()
+    norm = norms(grads).square().sum().sqrt()
     scale = torch.ones((), dtype=f32, device=norm.device)
     if clip_norm is not None:
         scale = torch.clamp(clip_norm / torch.clamp(norm, min=1e-12), max=1.0)
@@ -235,11 +271,12 @@ def skip_if_nonfinite(finite: torch.Tensor, old: list[torch.Tensor], new: list[t
 
 
 def _trust_ratio(updates: list[torch.Tensor], params: list[torch.Tensor],
-                 coefficient: float = 1.0) -> list[torch.Tensor]:
+                 coefficient: float = 1.0, norms=_local_norms) -> list[torch.Tensor]:
     """optax ``scale_by_trust_ratio`` (min_norm 0, eps 0): each update times ``coefficient
-    * |param| / |update|``, or times 1 where either norm is zero."""
-    p_norm = torch.stack(torch._foreach_norm(params))
-    u_norm = torch.stack(torch._foreach_norm(updates))
+    * |param| / |update|``, or times 1 where either norm is zero. ``norms`` gives the
+    per-leaf norms (of whole leaves under a placement)."""
+    p_norm = norms(params)
+    u_norm = norms(updates)
     ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm),
                         coefficient * p_norm / u_norm)
     return torch._foreach_mul(updates, list(ratio.unbind(0)))
@@ -299,7 +336,8 @@ class ChainOptimizer(_NamedState, torch.optim.Optimizer):
             raise ValueError("ChainOptimizer.step takes no closure")
         params = self._params()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
-        g, norm = clip_and_skip_by_global_norm(grads, self.grad_clip_norm, self.skip_nonfinite)
+        g, norm = clip_and_skip_by_global_norm(grads, self.grad_clip_norm, self.skip_nonfinite,
+                                               self._norms)
         finite = torch.isfinite(norm)
         if self.skip_nonfinite:  # 0 * nan is nan: select, so every candidate stays finite
             zero = torch.zeros((), dtype=f32, device=norm.device)
@@ -313,7 +351,8 @@ class ChainOptimizer(_NamedState, torch.optim.Optimizer):
             idx = [i for i, n in enumerate(self.names) if self.decay[n]]
             if idx:
                 scaled = _trust_ratio([upd[i] for i in idx], [params[i].to(f32) for i in idx],
-                                      coefficient=0.001)
+                                      coefficient=0.001,
+                                      norms=lambda ts: self._norms(ts, idx))
                 for i, u in zip(idx, scaled):
                     upd[i] = u
             torch._foreach_mul_(upd, neg_lr)
@@ -337,7 +376,7 @@ class ChainOptimizer(_NamedState, torch.optim.Optimizer):
             del den
             self._decayed(upd, params)
             if self.opt == "lamb":
-                upd = _trust_ratio(upd, [p.to(f32) for p in params])
+                upd = _trust_ratio(upd, [p.to(f32) for p in params], norms=self._norms)
             torch._foreach_mul_(upd, neg_lr)
             old, new = mu_old + nu_old, mu + nu
         if self.skip_nonfinite:

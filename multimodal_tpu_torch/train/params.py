@@ -2,9 +2,8 @@
 surface flag for flag, with the same defaults and ``parser.error`` checks, plus
 ``--device`` (``cuda``, the default, or ``cpu``).
 
-Which flags ``train.run`` takes on one device and which raise ``NotImplementedError`` naming
-their ROADMAP item is ``train.run``'s business; every flag parses here, so the reference's
-shell recipes parse too."""
+Every flag parses here, so the reference's shell recipes parse too; ``train.run`` takes them
+all, on one device or over a process group."""
 
 from __future__ import annotations
 
@@ -172,7 +171,8 @@ def parse_args(args=None):
     g.add_argument("--local-loss", action="store_true", default=True,
                    help="local@global logits with axis-offset labels (loss.py:109-117)")
     g.add_argument("--gather-with-grad", action="store_true", default=True,
-                   help="accepted for recipe compat (one device gathers nothing)")
+                   help="accepted for recipe compat: over a process group the features are "
+                        "always gathered with their gradient")
     g.add_argument("--label-smoothing", type=float, default=0.0)
     g.add_argument("--contrastive-impl", choices=["dense", "chunked", "ring"],
                    default="dense",
@@ -295,11 +295,12 @@ def parse_args(args=None):
                    help="where the run trains: the GPU (default; without one the run "
                         "raises) or, when asked, the CPU")
     g.add_argument("--dist-backend", default=None,
-                   help="accepted for recipe compat — ignored on one device")
+                   help="the process group's backend; it must be the device's (nccl for "
+                        "cuda, gloo for cpu), which is also the default")
     g.add_argument("--dist-url", default="env://",
                    help="multihost coordinator: tcp://host:port with RANK/WORLD_SIZE env "
                         "(the reference's convention, distributed.py:63-137) or env:// "
-                        "for auto-detection (multi-process runs are not ported yet)")
+                        "for the torchrun environment")
     g.add_argument("--horovod", action="store_true",
                    help="accepted for recipe compat — ignored")
     g.add_argument("--ddp-static-graph", action="store_true", help="accepted for recipe compat — ignored")
@@ -318,14 +319,14 @@ def parse_args(args=None):
                         "with moe_experts > 0, e.g. vision_cfg.moe_experts)")
     g.add_argument("--fsdp", action="store_true",
                    help="ZeRO/FSDP: shard params + AdamW state over the data axis "
-                        "(parallel/fsdp.py); GSPMD inserts the gather/reduce-scatter "
-                        "schedule. Torch-FSDP counterpart; composes with --dcn-slices "
-                        "(shards ride ICI only)")
+                        "(parallel/fsdp.py); whole weights are gathered at use and the "
+                        "gradients reduce-scattered; composes with --dcn-slices (shards "
+                        "ride the data axis only)")
     g.add_argument("--use-shard-map", choices=["auto", "on", "off"], default="auto",
-                   help="compute the loss inside shard_map (local_loss form: local@global "
-                        "logits with axis-offset labels, loss.py:109-117, never a global "
-                        "BxB matrix per chip). auto = on when --contrastive-impl ring "
-                        "(ppermute needs manual collectives) else GSPMD jit")
+                   help="the reference's shard_map mode (auto = on with --contrastive-impl "
+                        "ring); its exclusions hold. A PyTorch step always runs each rank's "
+                        "loss with explicit collectives, in the --local-loss form or the "
+                        "global matrix")
 
     ns = parser.parse_args(args)
 

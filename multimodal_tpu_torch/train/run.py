@@ -1,8 +1,10 @@
-"""The training CLI on one device: ``python -m multimodal_tpu_torch.train.run ...`` (port of
+"""The training CLI: ``python -m multimodal_tpu_torch.train.run ...`` (port of
 ``multimodal_tpu/train/run.py``).
 
     python -m multimodal_tpu_torch.train.run --dataset-type synthetic --model ViT-B-32 \
         --batch-size 256 --epochs 1 --logs ./logs [--device cpu]
+    python -m torch.distributed.run --nproc-per-node 2 -m multimodal_tpu_torch.train.run \
+        --device cpu --fsdp ...
 
 The same flags (``train.params``), the same experiment layout (``<logs>/<name>/params.txt``,
 ``out.log``, ``results.jsonl``, ``checkpoints/<step>/``) and the same resume semantics as the
@@ -17,6 +19,21 @@ Each step's ``torch.Generator`` (patch dropout, the vclip draws) is seeded from
 ``numpy.random.SeedSequence([seed + 1, epoch, i])``, a fixed mix of the run's seed, the epoch
 and the step's index in it, so a resumed run replays the draws of an uninterrupted one.
 SIGTERM sets a local flag that the loop reads after every step: it checkpoints and exits.
+
+Distributed runs, one process per device: under ``python -m torch.distributed.run`` (or with
+``--multihost --dist-url tcp://host:port`` and RANK / WORLD_SIZE set), or with any mesh flag,
+the run joins a process group (NCCL on the GPU, gloo with ``--device cpu``; a world of one
+rank without a launcher) and builds the reference's mesh: ``('data', 'model')`` with
+``--tensor-parallel``, ``('data', 'expert')`` with ``--expert-parallel``, ``('replica',
+'data')`` with ``--dcn-slices``, else ``('data',)``; then places the parameters (``--fsdp``,
+TP, EP; whole otherwise) and trains the data-parallel step (``train.engine``). ``--batch-size``
+is the global batch: each rank takes its rows (synthetic data: its slice of the global stream;
+the readers: their rank's shards). Rank 0 names the experiment and every rank takes its name;
+rank 0 writes the logs and the checkpoints, which hold whole tensors (gathered from every rank
+under a placement that splits parameters), so a run resumes at any world size. A SIGTERM on any
+rank stops every rank after the same step: the flag's all-reduce (over a gloo group, so it never
+waits on the device) is started after each step and read after the next, and the loop holds no
+blocking collective of its own.
 
 The data section is the reference's: ``--dataset-type`` (``auto`` picks ``webdataset`` for a
 ``.tar`` pattern, ``synthetic`` without ``--train-data``, else ``coco``), the webdataset
@@ -37,16 +54,13 @@ embeddings, scored by BLEU on held-out images).
 ``--profile-steps N`` traces N steps of epoch 0 with ``torch.profiler``, from its second
 step, into ``<logs>/<name>/profile`` (``profiling.trace``); the device is synchronized before
 the trace stops, and an epoch that ends first stops it there.
-
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP Queue 1 item:
-multi-process and mesh training (``--multihost``, ``--tensor-parallel``,
-``--expert-parallel``, ``--dcn-slices``, ``--fsdp``, ``--use-shard-map``,
-``--opt-state-offload``, ``--contrastive-impl ring``: item 9).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import logging
 import os
 import shutil
@@ -58,6 +72,7 @@ from datetime import datetime
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from multimodal_tpu_torch.data.augment import parse_aug_cfg
 from multimodal_tpu_torch.data.datasets import build_dataset
@@ -66,6 +81,9 @@ from multimodal_tpu_torch.data.semantic import make_semantic_encoder
 from multimodal_tpu_torch.inference import Embedder, model_mode
 from multimodal_tpu_torch.models import create_model, load_pretrained
 from multimodal_tpu_torch.models.config import VariationalConfig
+from multimodal_tpu_torch.parallel import mesh as meshes
+from multimodal_tpu_torch.parallel.collectives import broadcast_object
+from multimodal_tpu_torch.parallel.placement import Placement
 from multimodal_tpu_torch.train.checkpoints import CheckpointManager
 from multimodal_tpu_torch.train.engine import TrainState, batch_images, init_ema, make_train_step
 from multimodal_tpu_torch.train.freeze import finetune_mask, freeze_optimizer, lock_mask
@@ -118,30 +136,74 @@ def _dataset_type(args) -> str:
     return "webdataset" if ".tar" in args.train_data else "coco"
 
 
-def check_ported(args):
-    """Raise ``NotImplementedError`` naming the ROADMAP item of the first flag that asks for
-    something this port does not have yet."""
-    left_out = [
-        ("--multihost", args.multihost, "item 9"),
-        ("--tensor-parallel", args.tensor_parallel > 1, "item 9"),
-        ("--expert-parallel", args.expert_parallel > 1, "item 9"),
-        ("--dcn-slices", args.dcn_slices > 1, "item 9"),
-        ("--fsdp", args.fsdp, "item 9"),
-        ("--use-shard-map", args.use_shard_map, "item 9"),
-        ("--opt-state-offload", args.opt_state_offload, "item 9"),
-        ("--contrastive-impl ring", args.contrastive_impl == "ring", "item 9"),
-    ]
-    for flag, on, item in left_out:
-        if on:
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP Queue 1 {item})")
+def wants_mesh(args) -> bool:
+    """Whether the run trains over a process group: a launcher's WORLD_SIZE above 1,
+    ``--multihost`` or a mesh flag."""
+    return (args.multihost or args.tensor_parallel > 1 or args.expert_parallel > 1
+            or args.dcn_slices > 1 or args.fsdp or args.use_shard_map
+            or int(os.environ.get("WORLD_SIZE", "1")) > 1)
 
 
-def _loss_kwargs(args) -> dict:
+def build_mesh(args):
+    """The reference's mesh for the flags, over every rank of the process group."""
+    from multimodal_tpu_torch.parallel.ep import create_ep_mesh
+    from multimodal_tpu_torch.parallel.tp import create_tp_mesh
+
+    world = dist.get_world_size()
+    tp, ep = max(args.tensor_parallel, 1), max(args.expert_parallel, 1)
+    if (tp > 1 or ep > 1) and args.dcn_slices > 1:
+        raise ValueError("--tensor-parallel / --expert-parallel and --dcn-slices are exclusive")
+    for flag, n in (("--tensor-parallel", tp), ("--expert-parallel", ep)):
+        if world % n:
+            raise ValueError(f"{flag} {n} does not divide the {world} ranks of the run")
+    if tp > 1:
+        return create_tp_mesh(world // tp, tp)
+    if ep > 1:
+        return create_ep_mesh(world // ep, ep)
+    if args.dcn_slices > 1:
+        return meshes.create_hybrid_mesh(args.dcn_slices)
+    return meshes.create_mesh()
+
+
+def place_model(args, model, mesh) -> Placement:
+    """The placement of ``model``'s parameters the flags ask for (whole without one)."""
+    from multimodal_tpu_torch.parallel.ep import shard_model_ep
+    from multimodal_tpu_torch.parallel.fsdp import shard_model_fsdp
+    from multimodal_tpu_torch.parallel.tp import shard_model_tp
+
+    tp, ep = args.tensor_parallel > 1, args.expert_parallel > 1
+    if args.opt_state_offload and (tp or ep or args.fsdp):
+        raise SystemExit("--opt-state-offload does not compose with --tp/--ep/--fsdp (the "
+                         "offloaded moments are not split with the parameters); drop one of "
+                         "the flags")
+    if tp:
+        return shard_model_tp(model, mesh)
+    if ep:
+        return shard_model_ep(model, mesh)
+    if args.fsdp:
+        return shard_model_fsdp(model, mesh)
+    return Placement(model, mesh, {})
+
+
+def resolve_experiment_name(args) -> str:
+    """``--name``, else ``<model>-<loss>-<date>`` with rank 0's date, which every rank
+    takes."""
+    if args.name is not None:
+        return args.name
+    date_str = broadcast_object(datetime.now().strftime("%Y_%m_%d-%H_%M_%S"))
+    return f"{args.model}-{args.loss}-{date_str}"
+
+
+def _loss_kwargs(args, mesh=None) -> dict:
     if args.loss == "clip":
-        # --local-loss selects the mesh form of the loss; on one device there is none
-        return {"label_smoothing": args.label_smoothing,
-                "contrastive_impl": args.contrastive_impl,
-                "chunk_size": args.contrastive_chunk_size}
+        kw = {"label_smoothing": args.label_smoothing,
+              "contrastive_impl": args.contrastive_impl,
+              "chunk_size": args.contrastive_chunk_size}
+        # --local-loss selects the mesh form of the loss; on one device there is none, and
+        # feature-cached accumulation computes its own whole-bank form
+        if mesh is not None and not args.feature_cached_accum:
+            kw["local_loss"] = args.local_loss
+        return kw
     if args.loss == "cloob":
         return {"inv_tau": args.inv_tau, "scale_hopfield": args.scale_hopfield}
     if args.loss == "align":
@@ -170,20 +232,23 @@ def kl_schedule(epoch: int, kl_weight: float, warmup_epochs: int) -> float:
     return kl_weight * e / (2.0 * warmup_epochs)
 
 
-def build_train_step(args, model, optimizer, epoch: int = 0):
+def build_train_step(args, model, optimizer, epoch: int = 0, mesh=None, placement=None):
     """The step a run of these ``args`` trains ``epoch`` with: the loss's keyword arguments,
     for vclip with the epoch's KL weight and, after the KL warm-up, the Riemannian mean
-    gradient."""
-    kw = _loss_kwargs(args)
+    gradient; on ``mesh`` the rank's step with ``placement``."""
+    kw = _loss_kwargs(args, mesh)
     if args.loss == "vclip":
         if args.kl_warmup_epochs:
             kw = dict(kw, kl_weight=kl_schedule(epoch, args.kl_weight, args.kl_warmup_epochs))
         if args.distribution_type != "normal":
             kw = dict(kw, riemannian=epoch > args.kl_warmup_epochs)
     return make_train_step(model, optimizer, loss_type=args.loss, loss_kwargs=kw,
-                           accum_steps=args.accum_freq, wire_size=args.wire_size,
+                           mesh=mesh, use_shard_map=args.use_shard_map and mesh is not None,
+                           state_shardings=placement, accum_steps=args.accum_freq,
+                           wire_size=args.wire_size,
                            feature_cached_accum=args.feature_cached_accum,
-                           ema_decay=args.model_ema_decay if args.model_ema else None)
+                           ema_decay=args.model_ema_decay if args.model_ema else None,
+                           offload_opt_state=args.opt_state_offload)
 
 
 def step_generator(seed: int, epoch: int, i: int, device) -> torch.Generator:
@@ -193,20 +258,41 @@ def step_generator(seed: int, epoch: int, i: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(mixed)
 
 
-def checkpoint_state(state: TrainState, args) -> dict:
+def _by_name(tensors: dict, placement, move) -> dict:
+    """``tensors`` (parameter name -> tensor) through ``move(placement, name, tensor)`` where
+    the placement splits that parameter."""
+    if placement is None:
+        return tensors
+    return {n: move(placement, n, t) if n in placement.specs and placement.is_split(n) else t
+            for n, t in tensors.items()}
+
+
+def _optimizer_state(sd: dict, placement, move) -> dict:
+    return {k: _by_name(v, placement, move) if isinstance(v, dict) else v
+            for k, v in sd.items()}
+
+
+def checkpoint_state(state: TrainState, args, placement=None) -> dict:
     """What a checkpoint holds: the model's and the optimizer's state dicts, the EMA (or
-    None), the step, and the seed the per-step generators derive from."""
-    return {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
-            "ema": state.ema, "step": state.step, "seed": args.seed}
+    None), the step, and the seed the per-step generators derive from. Under a
+    ``placement`` that splits parameters every split tensor is gathered whole (a collective:
+    every rank calls this at the same step)."""
+    gather = Placement.full
+    ema = None if state.ema is None else _by_name(state.ema, placement, gather)
+    return {"model": _by_name(state.model.state_dict(), placement, gather),
+            "optimizer": _optimizer_state(state.optimizer.state_dict(), placement, gather),
+            "ema": ema, "step": state.step, "seed": args.seed}
 
 
 @torch.no_grad()
-def restore_state(state: TrainState, saved: dict, model_ema: bool):
-    """Load ``saved`` (a ``checkpoint_state``) into ``state`` in place. An EMA toggle across
-    the resume is tolerated either way: a checkpoint without one seeds the EMA from the
-    restored parameters, one with an EMA this run does not keep drops it."""
-    state.model.load_state_dict(saved["model"])
-    state.optimizer.load_state_dict(saved["optimizer"])
+def restore_state(state: TrainState, saved: dict, model_ema: bool, placement=None):
+    """Load ``saved`` (a ``checkpoint_state``) into ``state`` in place, each split tensor cut
+    to this rank's tile under ``placement``. An EMA toggle across the resume is tolerated
+    either way: a checkpoint without one seeds the EMA from the restored parameters, one with
+    an EMA this run does not keep drops it."""
+    tile = Placement.local
+    state.model.load_state_dict(_by_name(saved["model"], placement, tile))
+    state.optimizer.load_state_dict(_optimizer_state(saved["optimizer"], placement, tile))
     state.step = int(saved["step"])
     if not model_ema:
         if saved.get("ema") is not None:
@@ -217,7 +303,8 @@ def restore_state(state: TrainState, saved: dict, model_ema: bool):
         log.info("resume: checkpoint had no EMA; initialized it from params")
     else:
         device = next(state.model.parameters()).device
-        state.ema = {n: t.to(device, torch.float32) for n, t in saved["ema"].items()}
+        state.ema = {n: t.to(device, torch.float32, copy=True)
+                     for n, t in _by_name(saved["ema"], placement, tile).items()}
 
 
 @contextlib.contextmanager
@@ -472,14 +559,149 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
+class StopFlag:
+    """Whether the run was preempted, asked after every step. One rank: the local SIGTERM
+    flag. Over a ``group`` (a gloo group of every rank): whether any rank was, agreed without
+    blocking the loop: ``poll`` reads the flags' all-reduce (max) started by the previous
+    ``poll`` and starts the next one, so every rank stops after the same step, one step after
+    the signal, and waits only on a collective that finished during a step. ``settle`` agrees
+    once more, blocking, at the epoch's end.
+
+    ``batches(data)`` numbers an epoch's batches. Over a group it also ends the epoch on every
+    rank at the same batch, the first one that some rank's stream lacks (a rank reading its
+    own shards may hold fewer batches than another): each rank reads two batches ahead, the
+    all-reduce that ``poll`` starts after step i carries whether this rank holds batch i + 2,
+    and the ``poll`` after step i + 1 reads it; one blocking agreement at the epoch's start
+    covers batches 0 and 1."""
+
+    def __init__(self, group=None):
+        self.group, self.pending = group, None
+        self.more, self.agreed = True, 0  # this rank holds batch i + 2; every rank holds [0, agreed)
+
+    def _start(self):
+        flag = torch.tensor([int(_PREEMPTED.is_set()), int(not self.more)], dtype=torch.int32)
+        work = dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.group, async_op=True)
+        self.pending = (work, flag)
+
+    def _finish(self) -> bool:
+        stop = False
+        if self.pending is not None:
+            work, flag = self.pending
+            work.wait()
+            stop = bool(flag[0])
+            if not flag[1]:
+                self.agreed += 1
+            self.pending = None
+        if stop:
+            _PREEMPTED.set()
+        return stop
+
+    def poll(self) -> bool:
+        if self.group is None:
+            return _PREEMPTED.is_set()
+        stop = self._finish()
+        self._start()
+        return stop
+
+    def settle(self) -> bool:
+        if self.group is None:
+            return _PREEMPTED.is_set()
+        self._finish()
+        self._start()
+        return self._finish()
+
+    def batches(self, data):
+        """(i, batch) for the batches of ``data`` every rank holds."""
+        if self.group is None:
+            yield from enumerate(data)
+            return
+        it = iter(data)
+        ahead = collections.deque(itertools.islice(it, 2))
+        held = torch.tensor([len(ahead)], dtype=torch.int32)
+        dist.all_reduce(held, op=dist.ReduceOp.MIN, group=self.group)
+        self.agreed, i = int(held), 0
+        while i < self.agreed:
+            batch = ahead.popleft()
+            ahead.extend(itertools.islice(it, 1))
+            self.more = len(ahead) == 2
+            yield i, batch
+            i += 1
+        self.more = True
+
+
+class RankRows:
+    """A global batch stream cut to one rank's rows (``parallel.mesh.shard_batch``), with
+    the source's epoch protocol."""
+
+    def __init__(self, source, mesh):
+        self.source, self.mesh = source, mesh
+
+    def set_epoch(self, epoch: int):
+        if hasattr(self.source, "set_epoch"):
+            self.source.set_epoch(epoch)
+
+    @property
+    def num_batches(self):
+        return getattr(self.source, "num_batches", None)
+
+    def __iter__(self):
+        for batch in self.source:
+            yield meshes.shard_batch(batch, self.mesh)
+
+
+class RankCheckpoints:
+    """A run's checkpoints over ranks: every rank saves at the same steps what it gathered,
+    rank 0 writes; ``latest_step`` is the last step saved or restored, the same on every
+    rank; every rank reads a restore."""
+
+    def __init__(self, manager: CheckpointManager, rank: int):
+        self.manager, self.rank = manager, rank
+        self.last = manager.latest_step()
+
+    def save(self, step: int, state, metadata=None):
+        if self.rank == 0:
+            self.manager.save(step, state, metadata)
+        self.last = step
+
+    def latest_step(self):
+        return self.last
+
+    def restore(self, step=None):
+        return self.manager.restore(step)
+
+    def wait(self):
+        if self.rank == 0:
+            self.manager.wait()
+
+    def delete(self, step: int):
+        if self.rank == 0:
+            self.manager.delete(step)
+
+    def close(self):
+        if self.rank == 0:
+            self.manager.close()
+
+
+class _Quiet:
+    """The experiment logger of a rank other than 0."""
+
+    def log(self, record: dict, step=None):
+        pass
+
+
 def train_one_epoch(step_fn, state: TrainState, data_train, epoch: int, args, exp_logger,
-                    ckpt=None, skip_steps: int = 0) -> tuple:
+                    ckpt=None, skip_steps: int = 0, stop: StopFlag | None = None,
+                    placement=None, shards: int = 1) -> tuple:
     """One epoch of steps over ``data_train``, with batch and data time and samples/s logged
     every ``--log-every-n-steps``. With ``--save-frequency-steps`` N the state is saved every
     N steps with mid-epoch metadata; ``skip_steps`` fast-forwards the (deterministic,
     epoch-seeded) stream past batches an interrupted run already trained. In epoch 0,
     ``--profile-steps`` N traces the N steps after the first one taken, or those the epoch
-    has left. Returns (state, the last logged metrics, the steps taken)."""
+    has left. ``stop`` says after each step whether to save and stop (default: the local
+    SIGTERM flag); ``placement`` gathers a checkpoint's split tensors; ``shards`` ranks share
+    each step's batch (the samples/s count them all). Returns (state, the last logged metrics,
+    the steps taken)."""
+    stop = stop or StopFlag()
     from multimodal_tpu_torch.profiling import trace
 
     batch_time, data_time = AverageMeter(), AverageMeter()
@@ -494,9 +716,9 @@ def train_one_epoch(step_fn, state: TrainState, data_train, epoch: int, args, ex
     # closing the stack synchronizes the device and stops the trace: after the N-th traced
     # step, or at the epoch's end if it comes first
     with contextlib.ExitStack() as profiler:
-        for i, batch in enumerate(data_train):
+        for i, batch in stop.batches(data_train):
             if i < skip_steps:
-                if _PREEMPTED.is_set():
+                if stop.poll():
                     log.info("preemption during fast-forward; exiting (nothing to save)")
                     return state, losses, 0
                 end = time.perf_counter()
@@ -520,16 +742,16 @@ def train_one_epoch(step_fn, state: TrainState, data_train, epoch: int, args, ex
                 profiled += 1
                 if profiled == to_profile:
                     profiler.close()
-            preempted = _PREEMPTED.is_set() and ckpt is not None
+            preempted = stop.poll() and ckpt is not None
             if ckpt is not None and ((save_every and (i + 1) % save_every == 0) or preempted):
-                ckpt.save(state.step, checkpoint_state(state, args),
+                ckpt.save(state.step, checkpoint_state(state, args, placement),
                           metadata={"epoch": epoch, "name": args.name, "mid_epoch": True,
                                     "step_in_epoch": i + 1})
             if preempted:
                 log.info("preemption signal received: saved step %d (epoch %d, batch %d); "
                          "resume with --resume latest", state.step, epoch, i + 1)
                 break
-            tput.update(batch["text"].shape[0])
+            tput.update(batch["text"].shape[0] * shards)
             batch_time.update(time.perf_counter() - end)
             end = time.perf_counter()
             if (i + 1) % args.log_every_n_steps == 0:
@@ -551,17 +773,35 @@ def main(argv=None):
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available; pass --device cpu to "
                            "train on the CPU")
-    check_ported(args)
+    if args.dist_backend is not None and args.dist_backend != meshes.backend_for(args.device):
+        raise ValueError(f"--dist-backend {args.dist_backend} does not fit --device "
+                         f"{args.device} (that device takes {meshes.backend_for(args.device)})")
     _PREEMPTED.clear()
-    if args.save_on_preemption:
-        _install_preemption_handler()
-    device = torch.device(args.device)
+    if not wants_mesh(args):
+        return _run(args, torch.device(args.device), None)
+    formed = not dist.is_initialized()
+    device = meshes.init_process_group(args.device, args.dist_url if args.multihost else None,
+                                       args.dist_backend)
+    try:
+        return _run(args, device, build_mesh(args))
+    finally:
+        if formed:
+            dist.destroy_process_group()
 
-    if args.name is None:
-        args.name = f"{args.model}-{args.loss}-{datetime.now().strftime('%Y_%m_%d-%H_%M_%S')}"
+
+def _run(args, device: torch.device, mesh) -> int:
+    """The run of ``main`` on ``device``, over ``mesh`` (None: one device, no process
+    group)."""
+    rank = dist.get_rank() if mesh is not None else 0
+    index, shards = meshes.batch_shard(mesh) if mesh is not None else (0, 1)
+    if args.batch_size % shards:
+        raise ValueError(f"--batch-size {args.batch_size} does not split over {shards} ranks")
+    if args.save_on_preemption:  # after the process group forms
+        _install_preemption_handler()
+    args.name = resolve_experiment_name(args)
     args.log_dir = os.path.join(args.logs, args.name)
     os.makedirs(args.log_dir, exist_ok=True)
-    if args.copy_codebase:
+    if args.copy_codebase and rank == 0:
         import multimodal_tpu_torch as _pkg
 
         dst = os.path.join(args.log_dir, "code", "multimodal_tpu_torch")
@@ -569,19 +809,28 @@ def main(argv=None):
             shutil.copytree(os.path.dirname(os.path.abspath(_pkg.__file__)), dst,
                             ignore=shutil.ignore_patterns("__pycache__", "*.so", "*.o",
                                                           "_build_cache"))
-    setup_logging(os.path.join(args.log_dir, "out.log"),
-                  level=logging.DEBUG if args.debug else logging.INFO)
-    with open(os.path.join(args.log_dir, "params.txt"), "w") as f:
-        for k in sorted(vars(args)):
-            f.write(f"{k}: {getattr(args, k)}\n")
-    report_to = [r for r in args.report_to.split(",") if r]
-    exp_logger = ExperimentLogger(
-        args.log_dir, use_wandb="wandb" in report_to,
-        use_tensorboard="tensorboard" in report_to,
-        wandb_kwargs={"project": args.wandb_project_name, "notes": args.wandb_notes,
-                      "config": vars(args), "name": args.name})
+    log_file = None
+    if rank == 0 or args.log_local:
+        log_file = os.path.join(args.log_dir, "out.log" if rank == 0 else f"out.rank{rank}.log")
+    setup_logging(log_file, level=logging.DEBUG if args.debug else logging.INFO, rank=rank)
+    exp_logger = _Quiet()
+    if rank == 0:
+        with open(os.path.join(args.log_dir, "params.txt"), "w") as f:
+            for k in sorted(vars(args)):
+                f.write(f"{k}: {getattr(args, k)}\n")
+        report_to = [r for r in args.report_to.split(",") if r]
+        exp_logger = ExperimentLogger(
+            args.log_dir, use_wandb="wandb" in report_to,
+            use_tensorboard="tensorboard" in report_to,
+            wandb_kwargs={"project": args.wandb_project_name, "notes": args.wandb_notes,
+                          "config": vars(args), "name": args.name})
     log.info("device: %s", torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
+    if mesh is not None:
+        log.info("experiment %s: rank %d of %d, mesh %s, batch rows %d of %d (%s backend)",
+                 args.name, rank, dist.get_world_size(),
+                 dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)), index, shards,
+                 dist.get_backend())
 
     # ------------------------------------------------------------------ model
     dtype = torch.float32 if args.precision == "fp32" else torch.bfloat16
@@ -600,6 +849,8 @@ def main(argv=None):
         load_pretrained(model, args.pretrained)
     log.info("model %s: %.1fM params", args.model,
              sum(p.numel() for p in model.parameters()) / 1e6)
+    placement = place_model(args, model, mesh) if mesh is not None else None
+    split = placement is not None and placement.any_split
 
     # ------------------------------------------------------------------- data
     dataset_type = _dataset_type(args)
@@ -615,8 +866,8 @@ def main(argv=None):
     if dataset_type == "synthetic":
         data_kw.update(num_samples=args.train_num_samples or 100 * args.batch_size,
                        vocab_size=model.cfg.text.vocab_size)
-    else:
-        data_kw["device"] = device
+    else:  # the readers split their shards by rank and deliver this rank's rows
+        data_kw.update(device=device, num_hosts=shards, host_id=index)
     if args.nl_semantic_supervision and args.loss == "align":
         if dataset_type == "synthetic":
             data_kw["with_semantic"] = 256
@@ -628,10 +879,14 @@ def main(argv=None):
             log.warning("--aug-cfg has no effect on synthetic data (no decode stage)")
         else:  # crop bounds for the decode, pixel augmentations after it; unknown keys warn
             data_kw["aug_cfg"] = parse_aug_cfg(dict(args.aug_cfg))
+    synthetic = dataset_type == "synthetic"
     train_src = build_dataset(dataset_type, path=args.train_data or "",
-                              batch_size=args.batch_size, train=True, seed=args.seed,
-                              num_workers=max(args.workers, 1), **data_kw)
-    data_train = DataInfo(train_src, device)
+                              batch_size=args.batch_size // (1 if synthetic else shards),
+                              train=True, seed=args.seed, num_workers=max(args.workers, 1),
+                              **data_kw)
+    # synthetic data: every rank draws the global stream and keeps its rows
+    data_train = DataInfo(RankRows(train_src, mesh) if synthetic and mesh is not None
+                          else train_src, device)
     data_val = None
     if args.val_data:
         val_type = "webdataset" if ".tar" in args.val_data else dataset_type
@@ -652,6 +907,7 @@ def main(argv=None):
                        or (args.train_num_samples // args.batch_size
                            if args.train_num_samples else None)
                        or train_src.num_batches or 1000)
+    gathered = (lambda: placement.gathered(grad=False)) if split else contextlib.nullcontext
     total_steps = steps_per_epoch * args.epochs
 
     # -------------------------------------------------------------- optimizer
@@ -686,11 +942,13 @@ def main(argv=None):
     ckpt = CheckpointManager(os.path.join(args.log_dir, "checkpoints"),
                              max_to_keep=1 if args.delete_previous_checkpoint else None,
                              async_save=args.async_checkpointing)
+    if mesh is not None:
+        ckpt = RankCheckpoints(ckpt, rank)
     start_epoch, resume_skip_steps = 0, 0
     if args.resume:
         saved, meta = ckpt.restore(None if args.resume == "latest" else int(args.resume))
         if saved is not None:
-            restore_state(state, saved, args.model_ema)
+            restore_state(state, saved, args.model_ema, placement)
             del saved
             meta = meta or {}
             if meta.get("mid_epoch"):
@@ -704,21 +962,30 @@ def main(argv=None):
         else:
             log.info("no checkpoint found; starting fresh")
     sync_stop = None
-    if args.remote_sync:
+    if args.remote_sync and rank == 0:
         sync_stop = _start_remote_sync(args.log_dir, args.remote_sync, args.remote_sync_frequency)
 
     def eval_weights():
-        return state.ema if args.model_ema and state.ema is not None else None
+        """The EMA with --model-ema (whole, gathered from every rank's tiles under a
+        placement that splits parameters), else None."""
+        ema = state.ema if args.model_ema and state.ema is not None else None
+        if ema is None or not split:
+            return ema
+        return _by_name(ema, placement, Placement.full)
 
     # ----------------------------------------------------------------- loops
+    # every rank evaluates, with the whole weights gathered under a placement that splits
+    # them; rank 0 logs
     if args.epochs == 0:  # eval-only
         record = {"eval": True}
-        if data_val is not None:
-            record.update(evaluate(model, data_val, 0, args, eval_weights()))
-        record.update(zero_shot_eval_all(model, args, eval_weights()))
-        record.update(retrieval_eval_all(model, args, eval_weights()))
-        record.update(linear_probe_eval(model, args, eval_weights()))
-        record.update(captioning_eval(model, args, eval_weights()))
+        with gathered():
+            weights = eval_weights()
+            if data_val is not None:
+                record.update(evaluate(model, data_val, 0, args, weights))
+            record.update(zero_shot_eval_all(model, args, weights))
+            record.update(retrieval_eval_all(model, args, weights))
+            record.update(linear_probe_eval(model, args, weights))
+            record.update(captioning_eval(model, args, weights))
         log.info("eval-only: %s", record)
         exp_logger.log(record)
         return 0
@@ -726,35 +993,43 @@ def main(argv=None):
     # the step is rebuilt only where the vclip KL weight or the Riemannian flip changes
     rebuild_every_epoch = args.loss == "vclip" and (
         bool(args.kl_warmup_epochs) or args.distribution_type != "normal")
-    step_fn = build_train_step(args, model, optimizer, start_epoch)
+    step_fn = build_train_step(args, model, optimizer, start_epoch, mesh, placement)
+    # the preemption flag's agreement runs over a gloo group of its own, whatever the
+    # device: its all-reduce never queues behind the step's work on the card
+    stop = StopFlag(dist.new_group(backend="gloo")
+                    if mesh is not None and dist.get_world_size() > 1 else None)
     for epoch in range(start_epoch, args.epochs):
         data_train.set_epoch(epoch)
         if rebuild_every_epoch and epoch != start_epoch and epoch <= 2 * args.kl_warmup_epochs + 1:
-            step_fn = build_train_step(args, model, optimizer, epoch)
+            step_fn = build_train_step(args, model, optimizer, epoch, mesh, placement)
         t0 = time.perf_counter()
         skip = resume_skip_steps if epoch == start_epoch else 0
         state, _, n_steps = train_one_epoch(step_fn, state, data_train, epoch, args,
-                                            exp_logger, ckpt=ckpt, skip_steps=skip)
+                                            exp_logger, ckpt=ckpt, skip_steps=skip, stop=stop,
+                                            placement=placement, shards=shards)
         log.info("epoch %d done: %d steps in %.1fs", epoch, n_steps, time.perf_counter() - t0)
-        if _PREEMPTED.is_set():
+        if stop.settle():
             # the signal may have come after the loop's last check: keep the epoch's steps
             ckpt.wait()
             if n_steps and ckpt.latest_step() != state.step:
-                ckpt.save(state.step, checkpoint_state(state, args),
+                ckpt.save(state.step, checkpoint_state(state, args, placement),
                           metadata={"epoch": epoch, "name": args.name, "mid_epoch": True,
                                     "step_in_epoch": skip + n_steps})
                 log.info("preemption: saved step %d before exit", state.step)
             break
         if data_val is not None and (epoch + 1) % args.val_frequency == 0:
-            metrics = evaluate(model, data_val, epoch, args, eval_weights())
+            with gathered():
+                metrics = evaluate(model, data_val, epoch, args, eval_weights())
             log.info("eval epoch %d: %s", epoch, metrics)
             exp_logger.log(metrics, step=state.step)
         if (epoch + 1) % args.zeroshot_frequency == 0:
-            zs = zero_shot_eval_all(model, args, eval_weights())
+            with gathered():
+                zs = zero_shot_eval_all(model, args, eval_weights())
             if zs:
                 exp_logger.log({"epoch": epoch, **zs}, step=state.step)
         if (epoch + 1) % args.retrieval_frequency == 0:
-            rt = retrieval_eval_all(model, args, eval_weights())
+            with gathered():
+                rt = retrieval_eval_all(model, args, eval_weights())
             if rt:
                 exp_logger.log({"epoch": epoch, **rt}, step=state.step)
         if (epoch + 1) % args.save_frequency == 0 or epoch == args.epochs - 1:
@@ -763,7 +1038,7 @@ def main(argv=None):
                 # a step-frequency save on the epoch boundary: replace it, so the metadata
                 # that survives is the epoch-end one and resume starts the next epoch
                 ckpt.delete(state.step)
-            ckpt.save(state.step, checkpoint_state(state, args),
+            ckpt.save(state.step, checkpoint_state(state, args, placement),
                       metadata={"epoch": epoch, "name": args.name})
             log.info("saved checkpoint at step %d", state.step)
     ckpt.close()

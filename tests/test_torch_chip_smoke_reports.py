@@ -1,7 +1,7 @@
 """The pure-Python report helpers of ``chip_smoke.py`` (the script itself needs a GPU): the
 ``nvcc -Xptxas -v`` digest, the SASS digest of the flash kernels and the projection GEMM, the
 attention passes' shared-memory sizes and the kernel bounds and rates; phase 16's launch
-counts, decode agreement and trace families."""
+counts, decode agreement and trace families; phase 17's ring visit count."""
 
 import numpy as np
 import pytest
@@ -618,3 +618,16 @@ def test_rel_err_is_the_largest_relative_difference():
     assert abs(cs.rel_err([1.0, 2.0002], [1.0, 2.0]) - 1e-4) < 1e-12
     assert cs.rel_err(-3.0003, -3.0) == pytest.approx(1e-4, rel=1e-9)  # relative to want
 
+
+
+@pytest.mark.parametrize("n,causal,want", [(4, False, 16), (4, True, 10), (1, True, 1),
+                                           (2, False, 4), (2, True, 3)])
+def test_ring_visits_counts_the_blocks_the_schedule_calls(n, causal, want):
+    """Phase 17 (c)'s exact launch count of each flash kernel: every (query block, key block)
+    pair, or causal those not wholly in the future, as the schedule walks them."""
+    from multimodal_tpu_torch.ops import ring_attention as ra
+
+    assert cs.ring_visits(n, causal) == want
+    walked = sum(ra._visit(i, (i - t) % n, causal) is not None
+                 for i in range(n) for t in range(n))
+    assert walked == want

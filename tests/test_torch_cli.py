@@ -379,11 +379,24 @@ def test_full_reference_flag_surface_parses():
     (["--profile-steps", "2"], "item 11"),
 ])
 def test_later_items_flags_raise_naming_their_item(tmp_path, extra, item):
-    if item == "item 11":  # ported: check_ported lets them by
-        run_mod.check_ported(parse_args(BASE + extra))
+    """Every item is ported. Item 11's flags parse; item 9's run here on one CPU process (a
+    world of one rank) or raise what a world of one cannot give: two ranks for an axis of
+    two, a CUDA device for the moments' offload."""
+    if item == "item 11":
+        parse_args(BASE + extra)
         return
-    with pytest.raises(NotImplementedError, match=item):
-        main(BASE + extra + ["--epochs", "1", "--logs", str(tmp_path), "--name", "n"])
+    argv = BASE + extra + ["--epochs", "1", "--logs", str(tmp_path), "--name", "n"]
+    refused = {"--tensor-parallel": (ValueError, "does not divide"),
+               "--expert-parallel": (ValueError, "does not divide"),
+               "--dcn-slices": (ValueError, "do not divide"),
+               "--opt-state-offload": (RuntimeError, "needs a CUDA device")}
+    if extra[0] in refused:
+        exc, match = refused[extra[0]]
+        with pytest.raises(exc, match=match):
+            main(argv)
+        return
+    assert main(argv) == 0
+    assert os.listdir(os.path.join(tmp_path, "n", "checkpoints"))
 
 
 def test_pretrained_orbax_directory_raises(tmp_path):

@@ -145,10 +145,28 @@ def test_align_without_semantics_ignores_the_separate_flags():
 
 
 def test_align_refuses_a_mesh():
+    """The mesh form is ported: on a group of one rank, either form, it is the
+    single-device loss, value and gradients (the world-2 and world-4 forms against the JAX
+    package: ``tests/test_torch_dist_dp.py``)."""
+    from torch_dist_workers import world_of_one
+
     fi, ft = _features()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        align_clip_loss(torch.from_numpy(fi), torch.from_numpy(ft), torch.tensor(2.0),
-                        axis_name="data")
+    sem = np.random.default_rng(8).standard_normal((fi.shape[0], 5)).astype(np.float32)
+
+    def run(**kw):
+        leaves = [torch.tensor(a, requires_grad=True) for a in (fi, ft)]
+        out = align_clip_loss(*leaves, torch.tensor(2.0),
+                              semantic_features=torch.from_numpy(sem), **kw)["total_loss"]
+        out.backward()
+        return out.detach(), [t.grad for t in leaves]
+
+    want, want_g = run()
+    with world_of_one() as group:
+        for local in (True, False):
+            got, got_g = run(axis_name=group, local_loss=local)
+            np.testing.assert_allclose(got.numpy(), want.numpy(), **VALUE)
+            for a, b in zip(got_g, want_g):
+                np.testing.assert_allclose(a.numpy(), b.numpy(), **GRAD)
 
 
 CHUNK_CASES = [  # (batch, chunk_size, label_smoothing): 12 % 5 -> chunk 4; 12 % 7 -> chunk 6
@@ -206,8 +224,26 @@ def test_chunked_holds_one_block_of_logits_in_the_backward(monkeypatch):
 
 
 def test_ring_refuses_naming_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ring_clip_loss(torch.zeros(2, 2), torch.zeros(2, 2), torch.tensor(1.0), "data")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        chunked_clip_loss(torch.zeros(2, 2), torch.zeros(2, 2), torch.tensor(1.0),
-                          axis_name="data")
+    """The ring and the chunked mesh forms are ported: on a group of one rank (no hop) they
+    are the dense loss, value and gradients, label smoothing included (world 2 and 4:
+    ``tests/test_torch_dist_dp.py``)."""
+    from torch_dist_workers import world_of_one
+
+    fi, ft = _features(b=8, seed=10)
+
+    def run(fn):
+        leaves = [torch.tensor(a, requires_grad=True) for a in (fi, ft)]
+        scale = torch.tensor(2.6592, requires_grad=True)
+        out = fn(*leaves, scale)
+        out.backward()
+        return out.detach(), [t.grad for t in leaves] + [scale.grad]
+
+    want = run(lambda a, b, s: clip_loss(a, b, s, label_smoothing=0.1))
+    with world_of_one() as group:
+        for fn in (lambda a, b, s: ring_clip_loss(a, b, s, group, label_smoothing=0.1),
+                   lambda a, b, s: chunked_clip_loss(a, b, s, chunk_size=4, axis_name=group,
+                                                     label_smoothing=0.1)):
+            got = run(fn)
+            np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), **VALUE)
+            for a, b in zip(got[1], want[1]):
+                np.testing.assert_allclose(a.numpy(), b.numpy(), **GRAD)

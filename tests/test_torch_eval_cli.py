@@ -21,7 +21,7 @@ from PIL import Image
 from multimodal_tpu.models import add_model_config as jax_add_model_config
 from multimodal_tpu_torch.models import add_model_config
 from multimodal_tpu_torch.train.params import parse_args
-from multimodal_tpu_torch.train.run import check_ported, main
+from multimodal_tpu_torch.train.run import main
 
 torch.set_num_threads(1)
 
@@ -136,9 +136,16 @@ def test_per_epoch_evals_on_the_ema_and_the_eval_only_resume(fixtures, tmp_path)
     (["--contrastive-impl", "ring"], "item 9"),
 ])
 def test_flags_still_refused_name_their_item(tmp_path, extra, item):
-    if item == "item 11":  # ported since: the check lets the captioning eval and the profiler by
-        check_ported(parse_args(["--device", "cpu"] + extra))
+    """Every flag is ported: item 11's parse, and an eval-only run takes item 9's on one CPU
+    process (a world of one rank), or refuses an axis of two ranks that one rank cannot
+    give."""
+    if item == "item 11":
+        parse_args(["--device", "cpu"] + extra)
         return
-    with pytest.raises(NotImplementedError, match=item):
-        main(["--dataset-type", "synthetic", "--model", NAME, "--device", "cpu", "--epochs",
-              "0", "--logs", str(tmp_path), "--cifar10", "/d/c10"] + extra)
+    argv = ["--dataset-type", "synthetic", "--model", NAME, "--device", "cpu", "--epochs",
+            "0", "--logs", str(tmp_path)] + extra
+    if extra[0] == "--tensor-parallel":
+        with pytest.raises(ValueError, match="does not divide"):
+            main(argv)
+        return
+    assert main(argv) == 0

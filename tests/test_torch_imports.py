@@ -62,6 +62,14 @@ def test_port_imports_without_jax():
         "from multimodal_tpu_torch.train.run import captioning_eval\n"
         "from multimodal_tpu_torch.models import ClipCaptionModel, load_hf_gpt2\n"
         "from multimodal_tpu_torch.eval import CaptioningMetric, corpus_bleu\n"
+        "import multimodal_tpu_torch.parallel, multimodal_tpu_torch.parallel.mesh\n"
+        "import multimodal_tpu_torch.parallel.collectives, multimodal_tpu_torch.parallel.placement\n"
+        "import multimodal_tpu_torch.parallel.fsdp, multimodal_tpu_torch.parallel.tp\n"
+        "import multimodal_tpu_torch.parallel.compose, multimodal_tpu_torch.parallel.ep\n"
+        "import multimodal_tpu_torch.parallel.offload, multimodal_tpu_torch.parallel.pp\n"
+        "import multimodal_tpu_torch.ops.ring_attention\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()  # importing forms no process group\n"
         "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'multimodal_tpu'))\n"
         "assert not leaked, leaked\n"

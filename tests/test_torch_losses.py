@@ -73,8 +73,18 @@ def test_contrastive_logits_single_device():
 
 
 def test_left_out_forms_raise():
+    """The mesh forms are ported: on a group of one rank the local-loss and the global-matrix
+    forms give the single-device logits, labels and loss (world 2 and 4:
+    ``tests/test_torch_dist_dp.py``)."""
+    from torch_dist_workers import world_of_one
+
     fi, ft = (torch.from_numpy(a) for a in _features(b=4))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        clip_loss(fi, ft, torch.tensor(1.0), axis_name="data")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        contrastive_logits(fi, ft, 2.0, axis_name="data")
+    want = contrastive_logits(fi, ft, 2.0)
+    with world_of_one() as group:
+        for local in (True, False):
+            got = contrastive_logits(fi, ft, 2.0, axis_name=group, local_loss=local)
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a, b)
+            torch.testing.assert_close(
+                clip_loss(fi, ft, torch.tensor(1.0), axis_name=group, local_loss=local),
+                clip_loss(fi, ft, torch.tensor(1.0)))

@@ -55,9 +55,16 @@ def test_siglip_loss_value_and_grads_match_jax(normalize, scale_is_log):
 
 
 def test_siglip_loss_refuses_the_mesh_form():
-    x = torch.zeros(2, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        siglip_loss(x, x, torch.tensor(0.0), torch.tensor(0.0), axis_name="data")
+    """The ring form is ported: on a group of one rank (no hop) it is the dense loss (world
+    2 and 4 against the JAX package: ``tests/test_torch_dist_dp.py``)."""
+    from torch_dist_workers import world_of_one
+
+    g = torch.Generator().manual_seed(0)
+    x, y = torch.randn(3, 4, generator=g), torch.randn(3, 4, generator=g)
+    want = siglip_loss(x, y, torch.tensor(2.3), torch.tensor(-1.0))
+    with world_of_one() as group:
+        got = siglip_loss(x, y, torch.tensor(2.3), torch.tensor(-1.0), axis_name=group)
+    torch.testing.assert_close(got, want)
 
 
 def test_siglip_step_needs_the_logit_bias():

@@ -174,9 +174,14 @@ def test_block_attention_path_taken_on_tiny():
     ("mesh", object()), ("use_shard_map", True), ("offload_opt_state", True),
 ])
 def test_left_out_options_raise(option, value):
+    """The options are ported; each refuses what it cannot take: a mesh that is not a
+    ``DeviceMesh``, ``use_shard_map`` without a mesh, and on the CPU the moments' offload,
+    which needs pinned host memory that a CUDA device copies from."""
     model = create_model("tiny-test", device="cpu")
     opt = make_optimizer(model.named_parameters(), 1e-3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    exc, match = {"mesh": (TypeError, "DeviceMesh"), "use_shard_map": (ValueError, "need a mesh"),
+                  "offload_opt_state": (RuntimeError, "needs a CUDA device")}[option]
+    with pytest.raises(exc, match=match):
         make_train_step(model, opt, **{option: value})
 
 
@@ -184,12 +189,19 @@ def test_left_out_options_raise(option, value):
                                     {"loss_kwargs": {"contrastive_impl": "ring",
                                                      "label_smoothing": 0.1}}])
 def test_left_out_losses_raise(kwargs):
-    """Until ROADMAP Queue 1 item 7 was ported the cloob loss and the chunked form raised
-    here; of the contrastive forms only the ring (item 9) is still left out."""
-    model = create_model("tiny-test", device="cpu")
-    opt = make_optimizer(model.named_parameters(), 1e-3)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make_train_step(model, opt, **kwargs)
+    """Every contrastive form is ported. Without a mesh the ring form is the dense loss, as
+    in the reference (its ring runs over a mesh axis only): the same step."""
+    cfg = create_model("tiny-test", device="cpu").cfg
+    images, tokens = _batch(cfg)
+    batch = {"image": torch.from_numpy(images), "text": torch.from_numpy(tokens).long()}
+    dense_kw = {k: v for k, v in kwargs["loss_kwargs"].items() if k != "contrastive_impl"}
+    metrics = []
+    for kw in (kwargs["loss_kwargs"], dense_kw):
+        model = create_model("tiny-test", device="cpu", seed=3)
+        opt = make_optimizer(model.named_parameters(), 1e-3)
+        step = make_train_step(model, opt, loss_kwargs=kw)
+        metrics.append({k: float(v) for k, v in step(TrainState.create(model, opt), batch).items()})
+    assert metrics[0] == metrics[1]
 
 
 def test_batch_images_normalizes_uint8_like_jax():

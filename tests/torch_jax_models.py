@@ -3,13 +3,22 @@ seeded numpy parameters in a JAX model's tree, a seeded numpy batch, two JAX tra
 with the gradient of each, and a recorder of both sides' int8 codes (imported by
 ``test_torch_lora.py``, ``test_torch_moe.py``, ``test_torch_siglip.py``,
 ``test_torch_factory_options.py``, ``test_torch_int8_train.py`` and
-``test_torch_quant_serving.py``)."""
+``test_torch_quant_serving.py``); the JAX single-device run and the comparison the
+distributed tests hold the port's ranks to (``test_torch_dist_*.py``,
+``test_torch_ring_attention_pp.py``)."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
+from multimodal_tpu.models import create_model as jax_create_model
 from multimodal_tpu.models import init_params
+from multimodal_tpu.train import make_optimizer as jax_optimizer
+from multimodal_tpu.train import make_schedule as jax_schedule
+from multimodal_tpu_torch.models.checkpoint_interop import jax_params_to_port
 
 OPT = dict(weight_decay=0.1, grad_clip_norm=1.0)  # tests/test_torch_train_step.py's
 
@@ -162,3 +171,45 @@ class CodeRecorder:
                            if cand.shape == codes.shape)
             total += codes.size
         return flipped, total
+
+
+# ---------------------------------------------------- the distributed tests' side
+
+B = 8  # their global batch
+
+
+def port_params(name: str, siglip: bool = False) -> dict:
+    jm = jax_create_model(name, siglip=siglip)
+    return {k: torch.from_numpy(v) for k, v in jax_params_to_port(random_params(jm)).items()}
+
+
+def semantic_features() -> np.ndarray:
+    return np.random.default_rng(7).standard_normal((B, 16)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_run(name: str, loss: str = "clip", siglip: bool = False, kwargs: tuple = ()):
+    jm = jax_create_model(name, siglip=siglip)
+    tx = jax_optimizer(jax_schedule("cosine", 1e-3, 2, 50), **OPT)
+    extra = {"semantic": semantic_features()} if loss == "align" else None
+    metrics, _, params = jax_steps(jm, random_params(jm), tx, loss_type=loss, n=B,
+                                   loss_kwargs=dict(kwargs) or None, extra=extra)
+    return metrics, jax_params_to_port(jax.device_get(params))
+
+
+def assert_matches_jax(ranks: list, case: str, jax_metrics: list, jax_params: dict):
+    got = ranks[0][case]
+    for rank in ranks[1:]:
+        assert [m["loss"] for m in rank[case]["metrics"]] == [m["loss"] for m in got["metrics"]]
+    for g, w in zip(got["metrics"], jax_metrics):
+        np.testing.assert_allclose(g["loss"], w["loss"], rtol=1e-5, err_msg=case)
+        np.testing.assert_allclose(g["grad_norm"], w["grad_norm"], rtol=1e-4, err_msg=case)
+    assert got["metrics"][0]["grad_norm"] > OPT["grad_clip_norm"]  # the clip is active
+    np.testing.assert_allclose(got["params"]["logit_scale"].numpy(), jax_params["logit_scale"],
+                               rtol=1e-5, err_msg=case)
+    assert set(got["params"]) == set(jax_params)
+    for k, w in jax_params.items():
+        np.testing.assert_allclose(got["params"][k].numpy(), w, atol=2e-5, rtol=1e-5,
+                                   err_msg=f"{case}: {k}")
+
+
