@@ -13,7 +13,8 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      GEMM (mma_gemm_kernel<T, TOut, form, load, store>: the block forward's and backward's,
      the MLP's c_fc, c_proj, dh, dln and weight gradients; HMMA.16816.F32.BF16 in bfloat16,
      HMMA.1688.F32.TF32 for float32's 3xTF32; a GEMM instantiation with no HMMA or another
-     form fails);
+     form fails), and the wgmma instructions (GMMA) of each int8 GEMM instantiation (none
+     fails);
   3. every kernel against its plain PyTorch version on the card, every output, in float32
      (max abs error <= 1e-4 * max|plain|) and bfloat16 (<= 2e-2 * max|plain|), with
      CUDA-event times at B=256: the block-attention forward and backward at the ViT-B/32
@@ -46,14 +47,19 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      operator against the plain attention path, forward plus backward, time and peak memory at
      S=1024, 2048 and 4096, causal and not (the dispatch's crossover). The library calls are
      yardsticks, held to the plain versions too and used nowhere in the port. Then the int8
-     kernels (ops/csrc/quant.cu) at ViT-B/32's int8 shapes at B=256, float32 and bfloat16
-     activations: the row quantize (activations [12800|19712, 768|3072|512|2048]; the weights
-     W^T and W, float32, in both scale forms) and the rescale of real int8 products (float32 or
-     bfloat16 out; with a bias, bfloat16 out, as the W8A8 encoders' c_fc; the image projection
-     at M=256, float32 out): codes, scales and outputs bit for bit against the plain versions,
-     a zero row and a row of exact .5 ties in every quantize input, a second launch the same
-     bits; times with GB/s and the share of the byte bound, and beside each rescale its
-     product as torch._int_mm and as a bfloat16 torch.matmul (information);
+     kernels at ViT-B/32's int8 shapes at B=256, float32 and bfloat16 activations: the row
+     quantize (ops/csrc/quant.cu; activations [12800|19712, 768|3072|512|2048]; the float32
+     weights W1 and W2 of both towers by rows, the backward's, and in the column form, the
+     forward's [in, out] -> [out, in], in both scale forms) and the wgmma int8 GEMM with the
+     rescale in its epilogue (ops/csrc/int8_gemm.cu) on random codes at the four products of
+     the step, each store form: the product scaled, float32 or bfloat16 out; the bias in a
+     fused multiply-add, float32 (the float32 train path) or bfloat16 out (the W8A8 encoders'
+     c_fc); the bias added after the bfloat16 rounding (the bfloat16 train path); and the image
+     projection at M=256, float32 out: codes, scales and outputs bit for bit against the plain
+     versions, a zero row and a row of exact .5 ties in every quantize input, a second launch
+     the same bits; device times (torch.profiler) with GB/s or TOP/s and the share of the
+     bound, and beside each GEMM the same product as torch._int_mm (cuBLASLt, int32 out, no
+     rescale) and as a bfloat16 torch.matmul (information);
   4. serving: ViT-B/32 in float32 with seeded random weights behind the HTTP server,
      answering text, image and similarity requests; the forward kernel's launch count over
      those requests must be at least 12 per tower encode, and the served embeddings must
@@ -121,8 +127,8 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      of each a step, the text tower through the others) for 2 float32 steps at B=128, then
      bfloat16 rates;
  12. int8: ViT-B/32 at full width and depth with ``int8_forward=True`` at B=256 (every dense
-     MLP on the SwitchBack GEMMs: per step 192 row-quantize and 96 rescale launches beside the
-     24 of each block kernel): float32 kernel path against plain path, the int8 codes that
+     MLP on the SwitchBack GEMMs: per step 192 row-quantize and 96 int8 GEMM launches beside
+     the 24 of each block kernel): float32 kernel path against plain path, the int8 codes that
      flip between them counted and printed, with phase 6's limits widened by 3x each held
      quantity's distance between the int8 step and the float step from the same start (the
      flips cascade: the two paths may hold independent roundings of a value, ``int8_limit``);
@@ -304,8 +310,9 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces, the timed case that 
     "flash_attention_dkv": (_CSRC + "flash_attention.cu", _JAX_FLASH + ":241", "flash-S2048"),
     "quantize_rows": (_CSRC + "quant.cu", _JAX_QUANT + ":31 (quantize_rows) and :22 "
                       "(quantize_weight)", "q-B32-vision-act"),
-    "int8_rescale": (_CSRC + "quant.cu", _JAX_QUANT + ":49 (_int8_product), :78 "
-                     "(_int8_dense_bwd) and :100 (int8_matmul), the rescales", "r-B32-vision-fc"),
+    "int8_gemm": (_CSRC + "int8_gemm.cu", _JAX_QUANT + ":41 (_int8_product, its rescale :49), "
+                  ":78 (_int8_dense_bwd's dx product and rescale) and :100 (int8_matmul), the "
+                  "int8 products and their rescales", "g-B32-vision-fc"),
     # not a TPU kernel: the device form of the reference's host JPEG pipeline's resample
     "resample": (_CSRC + "resample.cu", "multimodal_tpu/native/jpeg_pipeline.cc:194 (resample, "
                  "host C++; no TPU kernel)", "resample-B256-train224"),
@@ -380,27 +387,36 @@ FLASH_CASES = [  # (case, batch, sq, sk, heads, head_dim, causal, timed)
     ("flash-D32", 2, 514, 514, 8, 32, False, False),
     ("flash-B32", 32, 2048, 2048, 8, 64, True, True),  # the text tower's call at B=32
 ]
-QUANT_CASES = [  # (case, rows, cols, weight): the row quantize of ViT-B/32's int8 step at B=256
-    ("q-B32-vision-x", 256 * 50, 768, False),      # c_fc's input; dx's g of c_proj
-    ("q-B32-vision-act", 256 * 50, 3072, False),   # c_proj's input act(h); g of c_fc
-    ("q-B32-text-x", 256 * 77, 512, False),
-    ("q-B32-text-act", 256 * 77, 2048, False),
-    ("q-vision-wT", 3072, 768, True),   # W1^T: the forward's per-column quantize of W1
-    ("q-vision-w", 768, 3072, True),    # W1 by rows: the backward's (W1^T per column)
-    ("q-text-wT", 2048, 512, True),
-    ("q-text-w", 512, 2048, True),
+QUANT_CASES = [  # (case, rows, cols, weight form or None): ViT-B/32's int8 step at B=256
+    ("q-B32-vision-x", 256 * 50, 768, None),      # c_fc's input; dx's g of c_proj
+    ("q-B32-vision-act", 256 * 50, 3072, None),   # c_proj's input act(h); g of c_fc
+    ("q-B32-text-x", 256 * 77, 512, None),
+    ("q-B32-text-act", 256 * 77, 2048, None),
+    ("q-vision-w1-cols", 768, 3072, "columns"),  # W1 [in, out]: the forward's per-column
+    ("q-vision-w1-rows", 768, 3072, "rows"),     # W1 by rows: the backward's (W1^T per column)
+    ("q-vision-w2-cols", 3072, 768, "columns"),
+    ("q-vision-w2-rows", 3072, 768, "rows"),
+    ("q-text-w1-cols", 512, 2048, "columns"),
+    ("q-text-w1-rows", 512, 2048, "rows"),
+    ("q-text-w2-cols", 2048, 512, "columns"),
+    ("q-text-w2-rows", 2048, 512, "rows"),
 ]
-RESCALE_CASES = [  # (case, M, K, N, bias, out dtype or None for the loop's): acc [M, N] of K
-    ("r-B32-vision-fc", 256 * 50, 768, 3072, False, None),    # c_fc forward; c_proj's dx
-    ("r-B32-vision-proj", 256 * 50, 3072, 768, False, None),  # c_proj forward; c_fc's dx
-    ("r-B32-text-fc", 256 * 77, 512, 2048, False, None),
-    ("r-B32-text-proj", 256 * 77, 2048, 512, False, None),
-    ("r-serve-fc", 256 * 50, 768, 3072, True, "bfloat16"),    # the W8A8 encode's c_fc
-    ("r-serve-projection", 256, 768, 512, False, "float32"),  # the image projection, B=256
+GEMM_CASES = [  # (case, M, K, N): y [M, N] = x [M, K] . w [N, K]^T
+    ("g-B32-vision-fc", 256 * 50, 768, 3072),    # c_fc forward; c_proj's dx
+    ("g-B32-vision-proj", 256 * 50, 3072, 768),  # c_proj forward; c_fc's dx
+    ("g-B32-text-fc", 256 * 77, 512, 2048),
+    ("g-B32-text-proj", 256 * 77, 2048, 512),
 ]
+# the store forms: (case suffix, bias, bias after the rounding, out dtype or None for the
+# loop's): the product scaled (every dx, the forward without a bias); the bias in one fused
+# multiply-add (the float32 train path; in bfloat16 the W8A8 encoders); the bias added after
+# the bfloat16 rounding (the bfloat16 train path's forward)
+GEMM_STORES = [("", False, False, None), ("+bias", True, False, None),
+               ("+bias-after", True, True, "bfloat16")]
+GEMM_PROJECTION = ("g-serve-projection", 256, 768, 512)  # the image projection, float32 out
 INT8 = {"int8_forward": True}
 INT8_NEED = {"block_attention_fwd": 24, "block_attention_bwd": 24, "quantize_rows": 192,
-             "int8_rescale": 96}  # 48 dense layers: 4 quantizes and 2 rescales each a step
+             "int8_gemm": 96}  # 48 dense layers: 4 quantizes and 2 products each a step
 AB_RUNS = 3  # the int8/bf16 A/B: each arm this many times, in turns (A, B, B, A, A, B)
 INT8_SPREAD = 3.0  # int8_limit: sqrt(2) for two independent roundings, and room for a max
 CROSSOVER_TOKENS = 16384  # batch x S of every crossover case (B=8 at S=2048)
@@ -414,7 +430,7 @@ CAPTIONS = ["a photo of a cat", "two dogs playing in the snow", "a red car on a 
 # kernels' GEMMs and the MLP pair's run 3xTF32 on the tensor cores, whose ceiling is a third
 # of the TF32 peak: those kernels' float32 bound is taken at that rate, and their lines give
 # the CUDA-core bound beside it
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 PEAK_3XTF32 = 495e12 / 3
 PEAK_BYTES = 3.35e12
 TF32_KERNELS = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
@@ -439,6 +455,27 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time of ``fn``'s kernels per call, from torch.profiler's kernel rows (no host
+    gaps between launches): what a kernel that takes less time than its wrapper's host work
+    is measured by. CUDA events where the profiler shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:  # kernels; an operator repeats them
+            t = getattr(ev, "self_device_time_total", None)
+            total += ev.self_cuda_time_total if t is None else t
+    return total / iters / 1e3 if total > 0 else cuda_ms(fn, iters)
 
 
 def bound(kernel: str, flops: float, nbytes: float,
@@ -782,82 +819,91 @@ def phase_kernels(torch, ba, fa, bm, fl) -> dict:
 
 
 def quant_bound(kernel: str, elems: int, in_bytes: int, out_bytes: int, rows: int,
-                cols: int, bias: bool = False):
-    """(ms, what bounds it, operations) of a quantize or a rescale: each input read once and
-    each output written once (quantize: x, the int8 codes and a float32 scale a row; rescale:
-    the int32 accumulator, sx, sw [, bias] and the output), over the CUDA cores' float32 rate
-    for its 4 (quantize: abs, max, divide, round) or 3 (rescale: convert, two multiplies; the
-    bias's FMA) operations an element."""
-    if kernel == "quantize_rows":
-        nbytes = elems * (in_bytes + 1) + 4 * rows
-        ops = 4 * elems
-    else:
-        nbytes = elems * (4 + out_bytes) + 4 * rows + 4 * cols * (2 if bias else 1)
-        ops = 3 * elems
-    return bound(kernel, ops, nbytes, "float32")
+                cols: int):
+    """(ms, what bounds it, operations) of a quantize, either form: x read once, the int8
+    codes and a float32 scale a row (a column in the column form) written once, over the
+    CUDA cores' float32 rate for its 4 operations an element (abs, max, divide, round)."""
+    return bound(kernel, 4 * elems, elems * (in_bytes + out_bytes) + 4 * rows, "float32")
+
+
+def gemm_bound(m: int, k: int, n: int, out_bytes: int, bias: bool = False):
+    """(ms, what bounds it, operations) of an int8 GEMM with its rescale: 2MNK int8 operations
+    at the tensor cores' dense int8 rate, or the codes, the scales [, the bias] read once and
+    y written once."""
+    nbytes = m * k + n * k + m * n * out_bytes + 4 * m + 4 * n * (2 if bias else 1)
+    return bound("int8_gemm", 2 * m * k * n, nbytes, "int8")
 
 
 def quant_cases(torch, q, dtype):
     """Every (kernel, case, shape text, timed, run kernel, run plain, others, bound) of the
     int8 kernels for one activation dtype, built lazily. Quantize inputs hold a zero row and a
-    row of exact .5 ties (amax 127: both forms give scale 1.0); weights are float32 and run
-    both scale forms (the train step's "reciprocal", the serving load's "divide"), once, with
-    the float32 loop. Rescale inputs are real int8 products; beside each, as information, its
-    product as ``torch._int_mm`` (TN, the port's layout; and with the weight operand [K, N]
-    row-major) and the same product as a bfloat16 ``torch.matmul``."""
+    row of exact .5 ties (amax 127: both forms give scale 1.0), a zero column and a column of
+    ties for the column form; weights are float32 and run both scale forms (the train step's
+    "reciprocal", timed, and the serving load's "divide"), once, with the float32 loop. GEMM
+    inputs are random codes and scales, each store form at the step's four products (out in
+    the loop's dtype; the bias after the rounding in bfloat16 only), and the image projection
+    in float32; beside each product's first form, as information, the same product as
+    ``torch._int_mm`` (cuBLASLt: int32 out, no rescale) and as a bfloat16 ``torch.matmul``."""
     name = str(dtype).replace("torch.", "")
+    ties = torch.tensor([127.0, 0.5, 1.5, 2.5, -2.5, 3.5, -0.5, 126.5], device="cuda")
     for case, rows, cols, weight in QUANT_CASES:
         if weight and dtype != torch.float32:
             continue
         g = torch.Generator(device="cuda").manual_seed(rows + cols)
-        x = torch.randn(rows, cols, generator=g, device="cuda") * (0.05 if weight else 3.0)
+        lead, inner = (cols, rows) if weight == "columns" else (rows, cols)
+        x = torch.randn(lead, inner, generator=g, device="cuda") * (0.05 if weight else 3.0)
         x[0] = 0.0
-        ties = torch.tensor([127.0, 0.5, 1.5, 2.5, -2.5, 3.5, -0.5, 126.5], device="cuda")
-        x[1] = ties.repeat(cols // 8)
-        x = x.to(torch.float32 if weight else dtype)
-        b_ms, b_by, ops = quant_bound("quantize_rows", rows * cols, x.element_size(), 1, rows,
-                                      cols)
+        x[1] = ties.repeat(inner // 8)
+        x = x.t().contiguous() if weight == "columns" else x.to(torch.float32 if weight else dtype)
+        b_ms, b_by, ops = quant_bound("quantize_rows", rows * cols, x.element_size(), 1,
+                                      cols if weight == "columns" else rows, cols)
+        run, plain = ((q.quantize_weight, q.quantize_weight_reference) if weight == "columns"
+                      else (q.quantize_rows, q.quantize_rows_reference))
         for form in (("reciprocal", "divide") if weight else ("reciprocal",)):
-            shape = f"R={rows} C={cols} {form:<10}"
-            yield ("quantize_rows", case, shape, not weight,
-                   (lambda x=x, form=form: q.quantize_rows(x, form)),
-                   (lambda x=x, form=form: q.quantize_rows_reference(x, form)), {},
+            shape = f"R={rows} C={cols} {weight or 'rows':<7} {form:<10}"
+            yield ("quantize_rows", case, shape, form == "reciprocal",
+                   (lambda x=x, form=form, run=run: run(x, form)),
+                   (lambda x=x, form=form, plain=plain: plain(x, form)), {},
                    (b_ms, b_by, ops, rows * cols * (x.element_size() + 1) + 4 * rows))
-    for case, m, k, n, bias, out in RESCALE_CASES:
+    cases = [(case, m, k, n, store) for case, m, k, n in GEMM_CASES for store in GEMM_STORES]
+    cases.append((*GEMM_PROJECTION, ("", False, False, "float32")))
+    for case, m, k, n, (suffix, bias, after, out) in cases:
         out_dtype = getattr(torch, out) if out else dtype
         if out and out_dtype != dtype:
             continue
         g = torch.Generator(device="cuda").manual_seed(m + k + n)
         aq = torch.randint(-127, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
         bq = torch.randint(-127, 128, (n, k), generator=g, device="cuda", dtype=torch.int8)
-        acc = q.int8_product(aq, bq)
         sx = torch.rand(m, generator=g, device="cuda") * 0.05
         sw = torch.rand(n, generator=g, device="cuda") * 1e-3
         b = torch.randn(n, generator=g, device="cuda") * 0.02 if bias else None
-        a16, b16 = aq.to(torch.bfloat16), bq.to(torch.bfloat16).t().contiguous()
-        b_kn = bq.t().contiguous()  # the [K, N] row-major operand, against the port's [N, K]
-        b_ms, b_by, ops = quant_bound("int8_rescale", m * n, 0, torch.empty(
-            0, dtype=out_dtype).element_size(), m, n, bias)
-        shape = f"M={m} K={k} N={n} bias={bias!s:<5} out={str(out_dtype)[6:]}"
-        yield ("int8_rescale", case, shape, True,
-               (lambda acc=acc, sx=sx, sw=sw, b=b, o=out_dtype: q.rescale(acc, sx, sw, b,
-                                                                        out_dtype=o)),
-               (lambda acc=acc, sx=sx, sw=sw, b=b, o=out_dtype: q.rescale_reference(
-                   acc, sx, sw, b, out_dtype=o)),
-               {"int_mm_ms": (lambda aq=aq, bq=bq: torch._int_mm(aq, bq.t()), 2 * m * k * n),
-                "int_mm_kn_ms": (lambda aq=aq, b=b_kn: torch._int_mm(aq, b), 2 * m * k * n),
-                "bf16_matmul_ms": (lambda a=a16, b=b16: a @ b, 2 * m * k * n)},
-               (b_ms, b_by, ops, m * n * (4 + torch.empty(0, dtype=out_dtype).element_size())))
+        kw = dict(out_dtype=out_dtype, round_before_bias=after)
+        others = {}
+        if not suffix:
+            a16, b16 = aq.to(torch.bfloat16), bq.to(torch.bfloat16).t().contiguous()
+            others = {"int_mm_ms": (lambda aq=aq, bq=bq: torch._int_mm(aq, bq.t()), 2 * m * k * n),
+                      "bf16_matmul_ms": (lambda a=a16, b=b16: a @ b, 2 * m * k * n)}
+        b_ms, b_by, ops = gemm_bound(m, k, n, torch.empty(0, dtype=out_dtype).element_size(), bias)
+        shape = (f"M={m} K={k} N={n} bias={'after' if after else bias!s:<5} "
+                 f"out={str(out_dtype)[6:]}")
+        yield ("int8_gemm", case + suffix, shape, True,
+               (lambda aq=aq, bq=bq, sx=sx, sw=sw, b=b, kw=kw: q.int8_gemm(aq, bq, sx, sw, b,
+                                                                         **kw)),
+               (lambda aq=aq, bq=bq, sx=sx, sw=sw, b=b, kw=kw: q.int8_gemm_reference(
+                   aq, bq, sx, sw, b, **kw)),
+               others, (b_ms, b_by, ops, None))
 
 
 def phase_quant_kernels(torch, q) -> dict:
-    """The row-quantize and rescale kernels against their plain versions at ViT-B/32's int8
-    shapes (B=256), float32 and bfloat16 activations: every output the same bits (codes,
-    scales, rescaled values), a second launch the same bits again; CUDA-event times with GB/s
-    and the share of the byte bound; beside each rescale its product's ``torch._int_mm`` and
-    bfloat16 ``torch.matmul`` times and rates, as information."""
-    worst_f32 = {"quantize_rows": 0.0, "int8_rescale": 0.0}
-    timing, failures = {}, []
+    """The row-quantize kernel (both forms) and the int8 GEMM against their plain versions at
+    ViT-B/32's int8 shapes (B=256), float32 and bfloat16: every output the same bits (codes,
+    scales, the GEMM's rescaled values in every store form), a second launch the same bits
+    again; each kernel's device time (``device_ms``; beside it its CUDA-event time, which holds
+    the wrapper's host work too) with GB/s (quantize) or TOP/s (GEMM) and the share of the
+    bound; beside each GEMM its product's ``torch._int_mm`` and bfloat16 ``torch.matmul``
+    device times and rates, as information; the plain versions by CUDA events."""
+    worst_f32 = {"quantize_rows": 0.0, "int8_gemm": 0.0}
+    timing, failures, t0 = {}, [], time.perf_counter()
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
         for kernel, case, shape, timed, kern, plain, others, (b_ms, b_by, ops, nbytes) in (
@@ -868,21 +914,23 @@ def phase_quant_kernels(torch, q) -> dict:
             again = kern()
             again = again if isinstance(again, tuple) else (again,)
             torch.cuda.synchronize()
-            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, want))
             twice = all(torch.equal(a, b) for a, b in zip(again, got))
             diff = max(int((a != b).sum()) for a, b in zip(got, want))
             ok = same and twice and all(bool(torch.isfinite(a.float()).all()) for a in got)
-            line = (f"{kernel} {case:<18} {shape} {name:<8} bit for bit vs plain={same} "
+            line = (f"{kernel} {case:<25} {shape} {name:<8} bit for bit vs plain={same} "
                     f"(differing elements {diff}) same_bits_twice={twice} "
                     f"{'ok' if ok else 'MISMATCH'}")
             del got, want, again
             if timed:
-                k_ms, p_ms = cuda_ms(kern, 20), cuda_ms(plain, 5)
-                line += (f" kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} "
-                         f"({b_by}) GB/s={nbytes / k_ms / 1e6:.1f} of_bound="
-                         f"{100 * b_ms / k_ms:.1f}%")
+                k_ms, p_ms = device_ms(kern), cuda_ms(plain, 5)
+                rate = (f"GB/s={nbytes / k_ms / 1e6:.1f}" if nbytes is not None
+                        else f"TOP/s={ops / k_ms / 1e9:.1f}")
+                line += (f" kernel_ms={k_ms:.4f} (device; events {cuda_ms(kern, 20):.4f}) "
+                         f"plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) {rate} "
+                         f"of_bound={100 * b_ms / k_ms:.1f}%")
                 for other, (fn, flops) in others.items():
-                    o_ms, unit = cuda_ms(fn, 20), "TOP/s" if other.startswith("int") else "TFLOP/s"
+                    o_ms, unit = device_ms(fn), "TOP/s" if other.startswith("int") else "TFLOP/s"
                     line += f" {other}={o_ms:.4f} ({flops / o_ms / 1e9:.1f} {unit})"
                 timing[(kernel, case, name)] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": None,
                                                 "bound_ms": b_ms, "bound_by": b_by}
@@ -892,6 +940,7 @@ def phase_quant_kernels(torch, q) -> dict:
         torch.cuda.empty_cache()
     if failures:
         fail(f"{len(failures)} int8 kernel/plain mismatches")
+    print(f"  the int8 kernels' cases took {time.perf_counter() - t0:.1f} s", flush=True)
     return {"worst_f32": worst_f32, "timing": timing}
 
 
@@ -1082,6 +1131,20 @@ def gemm_hmma_faults(sass: str) -> list[str]:
     return faults
 
 
+def int8_gmma_counts(sass: str) -> dict[str, int]:
+    """Per instantiation of the int8 GEMM in the SASS, its warpgroup tensor-core instructions
+    (``wgmma`` on s8 is IGMMA); 0 would mean its products left the tensor cores."""
+    counts, name = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = kernel_label(ln) if "int8_gemm_kernel" in ln else None
+            if name:
+                counts[name] = 0
+        elif name and "GMMA" in ln:
+            counts[name] += 1
+    return counts
+
+
 def pass_smem_report() -> list[str]:
     """Dynamic shared memory a block of each attention pass asks for at launch, in bytes, as
     ``attention_passes.cuh`` sizes it: bfloat16 by the head dim rounded up to 64 or 128,
@@ -1149,17 +1212,19 @@ def plain_attention(mods):
         return fl.flash_attention_reference(q, k, v, causal=causal, sm_scale=sm_scale)[0]
 
     kernel_paths = (layers.block_attention, attention.fused_attention, layers.block_mlp,
-                    attention.flash_attention, q.quantize_rows, q.rescale)
+                    attention.flash_attention, q.quantize_rows, q.quantize_weight, q.int8_gemm)
     layers.block_attention = plain_block_attention
     attention.fused_attention = fa.fused_attention_reference
     layers.block_mlp = plain_block_mlp
     attention.flash_attention = plain_flash_attention
-    q.quantize_rows, q.rescale = q.quantize_rows_reference, q.rescale_reference
+    q.quantize_rows, q.quantize_weight = q.quantize_rows_reference, q.quantize_weight_reference
+    q.int8_gemm = q.int8_gemm_reference
     try:
         yield
     finally:
         (layers.block_attention, attention.fused_attention, layers.block_mlp,
-         attention.flash_attention, q.quantize_rows, q.rescale) = kernel_paths
+         attention.flash_attention, q.quantize_rows, q.quantize_weight,
+         q.int8_gemm) = kernel_paths
 
 
 class Tally:
@@ -1506,29 +1571,36 @@ class CodeFlips:
         self.kept, self.flips, self.codes, self.calls, self.inner = [], [], [], 0, None
 
     def attach(self):
-        """Wrap the current ``quantize_rows`` (the kernel's, or inside ``plain_attention`` the
-        plain version's): the first run keeps its codes, the second compares with them."""
-        self.inner, self.calls = self.q.quantize_rows, 0
+        """Wrap the current ``quantize_rows`` and ``quantize_weight`` (the kernels', or inside
+        ``plain_attention`` the plain versions'): the first run keeps its codes, the second
+        compares with them."""
+        self.inner, self.calls = {}, 0
         compare = bool(self.kept)
         if compare:
             self.flips, self.codes = [0] * self.steps, [0] * self.steps
 
-        def recorded(x, form="reciprocal"):
-            codes, scale = self.inner(x, form)
-            step = self.calls // self.per_step
-            if step < self.steps:
-                if compare:
-                    self.flips[step] += int((codes != self.kept[self.calls]).sum())
-                    self.codes[step] += codes.numel()
-                else:
-                    self.kept.append(codes.clone())
-            self.calls += 1
-            return codes, scale
+        def recorder(inner):
+            def recorded(x, form="reciprocal"):
+                codes, scale = inner(x, form)
+                step = self.calls // self.per_step
+                if step < self.steps:
+                    if compare:
+                        self.flips[step] += int((codes != self.kept[self.calls]).sum())
+                        self.codes[step] += codes.numel()
+                    else:
+                        self.kept.append(codes.clone())
+                self.calls += 1
+                return codes, scale
+            return recorded
 
-        self.q.quantize_rows = recorded
+        for name in ("quantize_rows", "quantize_weight"):
+            if hasattr(self.q, name):
+                self.inner[name] = getattr(self.q, name)
+                setattr(self.q, name, recorder(self.inner[name]))
 
     def detach(self):
-        self.q.quantize_rows = self.inner
+        for name, inner in self.inner.items():
+            setattr(self.q, name, inner)
         if self.codes:
             self.kept = []
 
@@ -1862,8 +1934,8 @@ def phase_hires(torch, mods, tally, card):
 
 def phase_int8(torch, mods, tally, card, kind, float_rate: float):
     """ViT-B/32 at full width and depth built with ``int8_forward=True``, B=256: every dense
-    MLP of both towers on the SwitchBack GEMMs (the row-quantize and rescale kernels around
-    ``torch._int_mm``), the block-attention kernels as in phase 6. float32 kernel path against
+    MLP of both towers on the SwitchBack GEMMs (the row-quantize kernel and the int8 GEMM with
+    its rescale), the block-attention kernels as in phase 6. float32 kernel path against
     plain path, the flipped codes counted (``CodeFlips``) and the limits widened by
     ``int8_limit``; then bfloat16 in turns with the bfloat16 step without int8 (A, B, B, A, A,
     B), each 6 steps, finite and falling: samples/s over
@@ -1901,7 +1973,7 @@ def phase_int8(torch, mods, tally, card, kind, float_rate: float):
           f"{mean['bfloat16']:.1f} ({', '.join(f'{r['rate']:.1f}' for r in arms['bfloat16'])}) "
           f"samples/s: {mean['bfloat16 int8'] / mean['bfloat16']:.3f}x; peak memory "
           f"{peak['bfloat16 int8']:.2f} vs {peak['bfloat16']:.2f} GiB [{card}]", flush=True)
-    per_encode = {"quantize_rows": 73, "int8_rescale": 73}  # 12 blocks x 6 products + 1
+    per_encode = {"quantize_rows": 73, "int8_gemm": 73}  # 12 blocks x 6 products + 1
     phase_serving(torch, mods, tally, card, kind, MODEL, need_text=per_encode,
                   need_image=per_encode, quantized=True)
 
@@ -3876,6 +3948,11 @@ def main() -> int:
         faults = gemm_hmma_faults(sass)
         if faults:
             fail(f"GEMM instantiations off their tensor-core form: {faults}")
+        gmma = int8_gmma_counts(sass)
+        print(f"  sass int8_gemm_kernel wgmma (GMMA) instructions by instantiation: {gmma}",
+              flush=True)
+        if not gmma or min(gmma.values()) == 0:
+            fail(f"int8 GEMM instantiations without wgmma: {gmma}")
 
     print("phase 3 kernel vs plain on the card", flush=True)
     kernels = phase_kernels(torch, ba, fa, bm, fl)

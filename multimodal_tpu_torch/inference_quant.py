@@ -4,7 +4,7 @@
 Every large product of the two-tower forward (attention q/k/v/out, MLP c_fc/c_proj, the two
 final projections) runs ``ops.quant.int8_matmul``: per-row int8 activations, per-column int8
 weights, an int32 product and a float32 rescale with the bias (on the card the hand-written
-row-quantize and rescale kernels around ``torch._int_mm``). What is sensitive to precision
+row-quantize kernel and the int8 GEMM with the rescale in its epilogue). What is sensitive to precision
 stays float: LayerNorm (``ln_rows``, float32 statistics), the attention core (the plain path,
 ``attention(..., impl="xla")``, float32 softmax), the patch and token embeddings, the L2
 normalize. Activations are bfloat16 throughout, whatever the model's compute dtype, as in the

@@ -15,7 +15,7 @@ LayerNorm and the residual into its kernels (0: every call folds; 320: none does
 measure one step either way. ``--block-mlp`` builds the model with ``block_mlp=True``, so
 that every block's MLP half runs the fused operator's kernels; ``--remat`` checkpoints every
 block; ``--int8`` builds it with ``int8_forward=True`` (every dense MLP on the SwitchBack
-int8 GEMMs: the row-quantize and rescale kernels around cuBLASLt's int8 product).
+int8 GEMMs: the row-quantize kernel and the wgmma int8 GEMM with its rescale).
 ``--context-length N`` sets the text tower's context length (from 2048 up every text block
 runs the flash-attention kernels):
 
@@ -64,8 +64,9 @@ FAMILIES = [  # (family, substrings of the kernel name), first match wins
     ("LN-fold launches (ln_stats, ln_rows, ln_bwd)", ("ln_stats_kernel", "ln_rows_kernel",
                                                       "ln_bwd_kernel")),
     ("tensor-core GEMM, template arguments not read (mma_gemm_kernel)", ("mma_gemm_kernel",)),
-    ("int8 row quantize (quantize_rows_kernel)", ("quantize_rows_kernel",)),
-    ("int8 rescale (int8_rescale_kernel)", ("int8_rescale_kernel",)),
+    ("int8 row quantize (quantize_rows_kernel, quantize_columns_kernel)",
+     ("quantize_rows_kernel", "quantize_columns_kernel")),
+    ("int8 GEMM (int8_gemm_kernel)", ("int8_gemm_kernel",)),
     ("cuBLASLt int8 GEMMs (torch._int_mm)", ("imma", "i8i8", "i8i32", "s8s8", "igemm", "int8")),
     ("cuBLAS GEMMs (MLP, patch embed, projections, weight gradients)",
      ("gemm", "cutlass", "cublas", "xmma", "gemv", "nvjet")),

@@ -380,40 +380,58 @@ def test_siglip_bfloat16_rule():
 
 def test_phase3_holds_the_int8_shapes_of_the_b32_step():
     """The row quantize at every activation and weight shape of the int8 ViT-B/32 step at
-    B=256 (the issue's table), the rescale at each product's output and the serving path's
-    biased c_fc and its projection; the kernels line names both kernels and what they
-    replace."""
+    B=256 (each weight by rows, the backward's, and in the column form, the forward's), the
+    int8 GEMM at each of the step's four products in every store form and at the image
+    projection; the kernels line names both kernels and what they replace."""
     acts = {(r, c) for _, r, c, w in cs.QUANT_CASES if not w}
     assert acts == {(12800, 768), (12800, 3072), (19712, 512), (19712, 2048)}
-    weights = {(r, c) for _, r, c, w in cs.QUANT_CASES if w}
-    assert weights == {(3072, 768), (768, 3072), (2048, 512), (512, 2048)}
-    outs = {(m, n) for _, m, _, n, _, _ in cs.RESCALE_CASES}
-    assert {(12800, 3072), (12800, 768), (19712, 2048), (19712, 512), (256, 512)} <= outs
-    assert any(bias for *_, bias, _ in cs.RESCALE_CASES)
-    for name in ("quantize_rows", "int8_rescale"):
-        source, replaces, case = cs.KERNELS[name]
-        assert source.endswith("quant.cu") and "multimodal_tpu/ops/quant.py" in replaces
-        assert case in {c[0] for c in cs.QUANT_CASES + cs.RESCALE_CASES}
+    for form in ("rows", "columns"):
+        weights = {(r, c) for _, r, c, w in cs.QUANT_CASES if w == form}
+        assert weights == {(3072, 768), (768, 3072), (2048, 512), (512, 2048)}
+    products = {(m, k, n) for _, m, k, n in cs.GEMM_CASES}
+    assert products == {(12800, 768, 3072), (12800, 3072, 768), (19712, 512, 2048),
+                        (19712, 2048, 512)}
+    stores = {(bias, after) for _, bias, after, _ in cs.GEMM_STORES}
+    assert stores == {(False, False), (True, False), (True, True)}
+    assert [out for *_, after, out in cs.GEMM_STORES if after] == ["bfloat16"]
+    assert cs.GEMM_PROJECTION[1:] == (256, 768, 512)
+    assert "int8_rescale" not in cs.KERNELS
+    for name, source in (("quantize_rows", "quant.cu"), ("int8_gemm", "int8_gemm.cu")):
+        path, replaces, case = cs.KERNELS[name]
+        assert path.endswith(source) and "multimodal_tpu/ops/quant.py" in replaces
+        assert case in {c[0] for c in cs.QUANT_CASES + cs.GEMM_CASES}
 
 
 def test_int8_kernel_bounds_are_bytes():
     """Each input read once and each output written once at 3.35 TB/s: a float32 quantize of
-    [12800, 3072] moves 5 bytes an element and a scale a row; a float32 rescale 8 bytes an
-    element and its two scale vectors."""
+    [12800, 3072] moves 5 bytes an element and a scale a row; the column form of a [768, 3072]
+    weight 5 bytes an element and a scale a column."""
     ms, by, ops = cs.quant_bound("quantize_rows", 12800 * 3072, 4, 1, 12800, 3072)
     assert by == "bytes" and ops == 4 * 12800 * 3072
     assert ms == pytest.approx(1e3 * (5 * 12800 * 3072 + 4 * 12800) / cs.PEAK_BYTES)
-    ms, by, _ = cs.quant_bound("int8_rescale", 12800 * 3072, 0, 4, 12800, 3072, bias=True)
+    ms, by, _ = cs.quant_bound("quantize_rows", 768 * 3072, 4, 1, 3072, 3072)
     assert by == "bytes"
-    assert ms == pytest.approx(1e3 * (8 * 12800 * 3072 + 4 * 12800 + 8 * 3072) / cs.PEAK_BYTES)
+    assert ms == pytest.approx(1e3 * (5 * 768 * 3072 + 4 * 3072) / cs.PEAK_BYTES)
+
+
+def test_int8_gemm_bound_is_the_dense_int8_rate_or_the_bytes():
+    """2MNK operations at 1,979 TOP/s against the codes, scales and y moved once: c_fc's
+    product in bfloat16 is bound by its operations, in float32 with a bias by its bytes."""
+    m, k, n = 12800, 768, 3072
+    ms, by, ops = cs.gemm_bound(m, k, n, 2)
+    assert by == "operations" and ops == 2 * m * k * n
+    assert ms == pytest.approx(1e3 * 2 * m * k * n / 1979e12)
+    ms, by, _ = cs.gemm_bound(m, k, n, 4, bias=True)
+    assert by == "bytes"
+    assert ms == pytest.approx(1e3 * (m * k + n * k + 4 * m * n + 4 * m + 8 * n) / cs.PEAK_BYTES)
 
 
 def test_phase12_launches_and_limits():
     """48 dense layers a step (12 blocks a tower, 2 towers, c_fc and c_proj), each with 4 row
-    quantizes and 2 rescales; a limit widens by 3x the int8-vs-float distance and is phase
+    quantizes and 2 int8 GEMMs; a limit widens by 3x the int8-vs-float distance and is phase
     6's without int8."""
     assert cs.INT8_NEED == {"block_attention_fwd": 24, "block_attention_bwd": 24,
-                            "quantize_rows": 48 * 4, "int8_rescale": 48 * 2}
+                            "quantize_rows": 48 * 4, "int8_gemm": 48 * 2}
     assert cs.int8_limit(1e-4, 0.0) == 1e-4
     assert cs.int8_limit(1e-5, 2e-5) == pytest.approx(1e-5 + cs.INT8_SPREAD * 2e-5)
     order = [list(("A", "B"))[(i + i // 2) % 2] for i in range(2 * cs.AB_RUNS)]

@@ -1,11 +1,12 @@
-"""The int8 kernels (``ops/csrc/quant.cu``: the row quantize and the rescale) against their
-plain PyTorch versions on the card, bit for bit: codes, scales and rescaled outputs, in both
-scale forms, float32 and bfloat16, a zero row and rows of exact .5 ties; a second launch gives
-the same bits; the int8 product's padded-M path (M = 1 and 17, under ``torch._int_mm``'s
-M > 16) against the exact int32 product; and the two int8 entry points, ``int8_dense_train``
-(forward, dx bit for bit; dw in float32 within 1e-6 x max|dw|) and ``int8_matmul``, on the
-card against the same call on the CPU. Every test needs a CUDA device and skips without one;
-nothing here imports JAX.
+"""The int8 kernels against their plain PyTorch versions on the card, bit for bit: the row
+quantize and its column form (``ops/csrc/quant.cu``: codes and scales in both scale forms,
+float32 and bfloat16, a zero row and rows of exact .5 ties) and ``int8_gemm``
+(``ops/csrc/int8_gemm.cu``: the wgmma product with its rescale, at ViT-B/32's MLP shapes and at
+M = 1, 17 and 12800, K = 8 mod 16 included, every store form, float32 and bfloat16 out); a
+second launch gives the same bits; small M with unit scales is the exact int32 product; and
+the two int8 entry points, ``int8_dense_train`` (forward, dx bit for bit; dw in float32 within
+1e-6 x max|dw|) and ``int8_matmul``, on the card against the same call on the CPU. Every test
+needs a CUDA device and skips without one; nothing here imports JAX.
 
     python -m pytest tests/test_torch_quant_cuda.py -m cuda
 """
@@ -39,7 +40,8 @@ def _rows(shape, dtype, seed, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("form", q.FORMS)
-@pytest.mark.parametrize("shape", [(300, 768), (64, 3072), (37, 13)])
+@pytest.mark.parametrize("shape", [(300, 768), (64, 3072), (37, 13), (50, 2048), (40, 5000),
+                                   (8, 20000)])
 def test_cuda_quantize_rows_is_the_plain_version(cuda_device, dtype, form, shape):
     x = _rows(shape, dtype, shape[0], cuda_device)
     launches.reset_launch_counts()
@@ -56,39 +58,82 @@ def test_cuda_quantize_rows_is_the_plain_version(cuda_device, dtype, form, shape
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("with_bias", [False, True])
-def test_cuda_rescale_is_the_plain_version(cuda_device, out_dtype, with_bias):
-    g = torch.Generator().manual_seed(7)
-    m, k, n = 300, 768, 3072
-    aq = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8).to(cuda_device)
-    bq = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8).to(cuda_device)
-    acc = q.int8_product(aq, bq)
-    sx = (torch.rand(m, generator=g) * 0.05).to(cuda_device)
-    sw = (torch.rand(n, generator=g) * 0.001).to(cuda_device)
-    bias = torch.randn(n, generator=g).to(cuda_device) if with_bias else None
+@pytest.mark.parametrize("form", q.FORMS)
+@pytest.mark.parametrize("shape", [(768, 3072), (3072, 768), (512, 2048), (2048, 512), (100, 44),
+                                   (37, 13)])
+def test_cuda_quantize_weight_is_the_plain_version(cuda_device, form, shape):
+    """The column form: an [in, out] weight read as it lies (column 0 zero, column 1 ties),
+    codes written [out, in]; in multiples of 16 rows the 16-byte stores, else the byte stores;
+    a column count off a multiple of 4 the scalar loads."""
+    w = _rows(shape[::-1], torch.float32, shape[1], cuda_device).t().contiguous()
     launches.reset_launch_counts()
-    got = q.rescale(acc, sx, sw, bias, out_dtype=out_dtype)
-    again = q.rescale(acc, sx, sw, bias, out_dtype=out_dtype)
+    codes, scale = q.quantize_weight(w, form)
+    again = q.quantize_weight(w, form)
     torch.cuda.synchronize()
-    assert launches.launch_counts()["int8_rescale"] == 2
-    want = q.rescale_reference(acc, sx, sw, bias, out_dtype=out_dtype)
-    assert got.dtype == out_dtype and torch.equal(got, want) and torch.equal(again, got)
-    assert torch.equal(acc.cpu(), aq.cpu().int() @ bq.cpu().int().t())
+    assert launches.launch_counts()["quantize_rows"] == 2
+    want_codes, want_scale = q.quantize_weight_reference(w, form)
+    assert codes.shape == (shape[1], shape[0]) and codes.is_contiguous()
+    assert torch.equal(codes, want_codes) and torch.equal(scale, want_scale)
+    assert torch.equal(again[0], codes) and torch.equal(again[1], scale)
+
+
+GEMM_SHAPES = [(k, n) for k, n in ((768, 3072), (3072, 768), (512, 2048), (2048, 512))]
+STORES = [(None, False), ("bias", False), ("bias", True)]  # the kernel's three store forms
+
+
+def _gemm_operands(m, k, n, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    aq = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    bq = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+    sx = torch.rand(m, generator=g) * 0.05
+    sw = torch.rand(n, generator=g) * 1e-3
+    bias = torch.randn(n, generator=g) * 0.02
+    return [t.to(device) for t in (aq, bq, sx, sw, bias)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("store", STORES)
+@pytest.mark.parametrize("m", [1, 17, 12800])
+@pytest.mark.parametrize("k,n", GEMM_SHAPES + [(200, 48)])
+def test_cuda_int8_gemm_is_the_plain_version(cuda_device, out_dtype, store, m, k, n):
+    """Bit for bit at every model shape and tail, a second launch the same bits; K = 200 (8 mod
+    16) takes the kernel's plain-load path."""
+    with_bias, after = store
+    if after and out_dtype != torch.bfloat16:
+        pytest.skip("the bias after the rounding is the bfloat16 train path's form")
+    aq, bq, sx, sw, bias = _gemm_operands(m, k, n, m + k + n, cuda_device)
+    bias = bias if with_bias else None
+    kw = dict(out_dtype=out_dtype, round_before_bias=after)
+    launches.reset_launch_counts()
+    got = q.int8_gemm(aq, bq, sx, sw, bias, **kw)
+    again = q.int8_gemm(aq, bq, sx, sw, bias, **kw)
+    torch.cuda.synchronize()
+    assert launches.launch_counts()["int8_gemm"] == 2
+    want = q.int8_gemm_reference(aq, bq, sx, sw, bias, **kw)
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    assert torch.equal(got, want) and torch.equal(again, got)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [1, 17, 64])
 def test_cuda_int8_product_pads_small_m(cuda_device, m):
+    """Small M needs no padding: with unit scales and a float32 output the kernel's result is
+    the exact int32 product (|acc| <= 512 x 127^2 < 2^24); K off a multiple of 8 is refused."""
     g = torch.Generator().manual_seed(m)
     aq = torch.randint(-127, 128, (m, 512), generator=g, dtype=torch.int8)
     bq = torch.randint(-127, 128, (2048, 512), generator=g, dtype=torch.int8)
-    got = q.int8_product(aq.to(cuda_device), bq.to(cuda_device))
-    assert got.shape == (m, 2048) and got.dtype == torch.int32
-    assert torch.equal(got.cpu(), aq.int() @ bq.int().t())
+    one_m, one_n = torch.ones(m, device=cuda_device), torch.ones(2048, device=cuda_device)
+    got = q.int8_gemm(aq.to(cuda_device), bq.to(cuda_device), one_m, one_n,
+                      out_dtype=torch.float32)
+    assert got.shape == (m, 2048)
+    assert torch.equal(got.cpu().to(torch.int64), aq.long() @ bq.long().t())
+    assert torch.equal(q.int8_product(aq.to(cuda_device), bq.to(cuda_device)).cpu(),
+                       aq.int() @ bq.int().t())
     with pytest.raises(ValueError, match="multiples of 8"):
-        q.int8_product(aq[:, :500].contiguous().to(cuda_device),
-                       bq[:, :500].contiguous().to(cuda_device))
+        q.int8_gemm(aq[:, :500].contiguous().to(cuda_device),
+                    bq[:, :500].contiguous().to(cuda_device), one_m, one_n,
+                    out_dtype=torch.float32)
 
 
 @pytest.mark.cuda
