@@ -14,7 +14,9 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      the MLP's c_fc, c_proj, dh, dln and weight gradients; HMMA.16816.F32.BF16 in bfloat16,
      HMMA.1688.F32.TF32 for float32's 3xTF32; a GEMM instantiation with no HMMA or another
      form fails), and the wgmma instructions (GMMA) of each int8 GEMM instantiation (none
-     fails);
+     fails); every bfloat16 instantiation of the flash forward and of dK/dV
+     (flash_fwd_kernel<WgmmaOps<..>>, flash_dkv_kernel<WgmmaOps<..>>) must hold wgmma (HGMMA)
+     and no HMMA, or the phase fails before any launch;
   3. every kernel against its plain PyTorch version on the card, every output, in float32
      (max abs error <= 1e-4 * max|plain|) and bfloat16 (<= 2e-2 * max|plain|), with
      CUDA-event times at B=256: the block-attention forward and backward at the ViT-B/32
@@ -40,8 +42,10 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      scaled_dot_product_attention(is_causal=True) forward and backward timed beside it; each
      timed line with its TFLOP/s and share of its bound (the float32 kernels that run
      3xTF32, the flash trio, the block pair in both forms and the MLP pair, at the 3xTF32
-     ceiling, 495 / 3 TFLOP/s, and at the CUDA cores' 67 beside it), the timed flash and
-     fused kernels and every block and MLP case launched twice and compared bit for bit,
+     ceiling, 495 / 3 TFLOP/s, and at the CUDA cores' 67 beside it); in bfloat16 also the
+     wgmma flash kernels' tile edges, Sq = Sk = 127, 129, 255 and 257, causal and not, at
+     D = 8, 24, 64, 96 and 128 (FLASH_EDGE_CASES); the timed flash and fused kernels, those
+     edge cases and every block and MLP case launched twice and compared bit for bit,
      every output; the block backward's recomputed q, k, v compared bit for bit with the
      forward's, both forms and dtypes; the float32 flash forward at S=8192; then the flash
      operator against the plain attention path, forward plus backward, time and peak memory at
@@ -387,6 +391,12 @@ FLASH_CASES = [  # (case, batch, sq, sk, heads, head_dim, causal, timed)
     ("flash-D32", 2, 514, 514, 8, 32, False, False),
     ("flash-B32", 32, 2048, 2048, 8, 64, True, True),  # the text tower's call at B=32
 ]
+# bfloat16 only: the wgmma forward's and dK/dV's tile edges (128-row blocks and key tiles,
+# 64-row warpgroups and dK/dV query tiles) at every head dim class (one 64-column TMA box or
+# two, zero columns past D); each output within 2e-2 x max|plain|, a second launch the same bits
+FLASH_EDGE_CASES = [(f"flash-edge-S{s}-D{d}", 2, s, s, 3, d, causal)
+                    for s in (127, 129, 255, 257) for causal in (False, True)
+                    for d in (8, 24, 64, 96, 128)]
 QUANT_CASES = [  # (case, rows, cols, weight form or None): ViT-B/32's int8 step at B=256
     ("q-B32-vision-x", 256 * 50, 768, None),      # c_fc's input; dx's g of c_proj
     ("q-B32-vision-act", 256 * 50, 3072, None),   # c_proj's input act(h); g of c_fc
@@ -707,7 +717,8 @@ def kernel_cases(torch, ba, fa, bm, fl, dtype):
                    None, {"matmul_ms": matmul["block_mlp_bwd"]},
                    ("dx", "dW1", "dW2", "db1", "db2", "dgamma", "dbeta"),
                    mlp_bound("block_mlp_bwd", t, w, hid, name))
-    for case, b, sq, sk, heads, d, causal, timed in FLASH_CASES:
+    edges = [(*c, False) for c in FLASH_EDGE_CASES] if dtype == torch.bfloat16 else []
+    for case, b, sq, sk, heads, d, causal, timed in FLASH_CASES + edges:
         g = torch.Generator(device="cuda").manual_seed(b * 1000 + sq)
         q, k, v, do = (torch.randn(b, s_, heads, d, generator=g, device="cuda").to(dtype)
                        for s_ in (sq, sk, sk, sq))
@@ -721,7 +732,7 @@ def kernel_cases(torch, ba, fa, bm, fl, dtype):
         # the same tensors; its one backward call yields dq, dk and dv together, so both
         # backward kernels are timed beside the whole of it. Not at sq != sk
         library = {}
-        if sq == sk:
+        if sq == sk and not case.startswith("flash-edge"):
             heads_first = lambda t: t.transpose(1, 2)  # noqa: E731
             qh, kh, vh, doh = (heads_first(t) for t in (q, k, v, do))
             leaves = [t.detach().requires_grad_() for t in (qh, kh, vh)]
@@ -783,7 +794,8 @@ def phase_kernels(torch, ba, fa, bm, fl) -> dict:
                 lib_ok = lib_err <= lib_tol * errs[0][1]
                 ok = ok and lib_ok
                 line += f" library_err={lib_err:.2e}{'' if lib_ok else ' LIBRARY MISMATCH'}"
-            if kernel.startswith(("block_attention", "block_mlp")) or (
+            if kernel.startswith(("block_attention", "block_mlp")) or case.startswith(
+                    "flash-edge") or (
                     timed and kernel.startswith(("fused_attention", "flash_attention"))):
                 # no float atomics, one owner and a fixed order for every sum: a second launch
                 # gives the same bits, every output
@@ -1095,7 +1107,7 @@ def hmma_forms(sass: str) -> dict[str, dict[str, int]]:
     """Per flash-attention kernel and projection GEMM in the SASS (each instantiation: dtype
     and head dim, or types and form, as ``kernel_label`` names it), its tensor-core
     instructions counted by form (HMMA.16816.F32.BF16 is mma.sync m16n8k16 on bf16,
-    HMMA.1688.F32.TF32 m16n8k8 on TF32)."""
+    HMMA.1688.F32.TF32 m16n8k8 on TF32, HGMMA.64x128x16.F32.BF16 a wgmma)."""
     kernels, name = {}, None
     for ln in sass.splitlines():
         if "Function :" in ln:
@@ -1103,7 +1115,7 @@ def hmma_forms(sass: str) -> dict[str, dict[str, int]]:
             if name:
                 kernels.setdefault(name, {})
         elif name:
-            found = re.search(r"\bHMMA(\.\S+?)?(?=\s)", ln)
+            found = re.search(r"\b(?:HMMA|[A-Z]*GMMA)(\.\S+?)?(?=\s)", ln)
             if found:
                 form = found.group(0)
                 kernels[name][form] = kernels[name].get(form, 0) + 1
@@ -1129,6 +1141,24 @@ def gemm_hmma_faults(sass: str) -> list[str]:
             if set(forms) != {want[dtype]}:
                 faults.append(f"{name}: {forms or 'no HMMA'}")
     return faults
+
+
+WGMMA_FLASH = ("flash_fwd_kernel", "flash_dkv_kernel")  # their bfloat16 forms run wgmma
+
+
+def flash_wgmma_faults(sass: str) -> list[str]:
+    """The bfloat16 instantiations of the flash forward and dK/dV (every one not on Tf32Ops)
+    whose products are not all wgmma: one with an HMMA, or with no GMMA, is a fault, and so is
+    a kernel with no bfloat16 instantiation at all. dQ and the float32 forms keep mma.sync."""
+    faults, seen = [], set()
+    for name, forms in sorted(hmma_forms(sass).items()):
+        kernel = name.split("<")[0]
+        if kernel not in WGMMA_FLASH or "Tf32Ops" in name:
+            continue
+        seen.add(kernel)
+        if any(f.startswith("HMMA") for f in forms) or not any("GMMA" in f for f in forms):
+            faults.append(f"{name}: {forms or 'no tensor-core instructions'}")
+    return faults + [f"{k}: no bfloat16 instantiation" for k in WGMMA_FLASH if k not in seen]
 
 
 def int8_gmma_counts(sass: str) -> dict[str, int]:
@@ -3948,6 +3978,9 @@ def main() -> int:
         faults = gemm_hmma_faults(sass)
         if faults:
             fail(f"GEMM instantiations off their tensor-core form: {faults}")
+        faults = flash_wgmma_faults(sass)
+        if faults:
+            fail(f"bfloat16 flash forward or dK/dV instantiations off wgmma: {faults}")
         gmma = int8_gmma_counts(sass)
         print(f"  sass int8_gemm_kernel wgmma (GMMA) instructions by instantiation: {gmma}",
               flush=True)

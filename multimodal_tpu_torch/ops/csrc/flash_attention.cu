@@ -27,39 +27,91 @@
 //
 // Designed for the card, not carried over block by block. The TPU wrapper transposes to
 // [B, H, S, D] and pads Sq to 128 and Sk to 256 rows, and broadcasts lse and delta over 128
-// lanes: all Mosaic tiling. Here the kernels read [B, S, H, D] in place (row stride H*D, head
-// offset h*D) and mask the ragged tails in their loads; the TPU's sequential innermost grid
-// axis (key tiles, or query tiles in the dK/dV kernel) is a loop inside the block. Every sum
-// has one owner thread and a fixed order: no atomics, two runs give the same bits.
+// lanes: all Mosaic tiling. Here the kernels read [B, S, H, D] in place and mask the ragged
+// tails themselves; the TPU's sequential innermost grid axis (key tiles, or query tiles in the
+// dK/dV kernel) is a loop inside the block. Every sum has one owner thread and a fixed order:
+// no atomics, two runs give the same bits.
 //
-// What bounds the three kernels: 4 (forward: logits, p v), 6 (dQ: logits, dp, ds k) and 8
-// (dK/dV: logits, dp, p^T do, ds^T q) x pairs x D FLOPs over q, k, v, do-sized traffic: at
-// S=2048 several hundred FLOPs a byte, bound by operations in both dtypes, so all three run
-// their products on the tensor cores with mma.sync (the passes' reasons against wgmma hold: a
-// head's problem is small and warp-level fragments let p and ds skip shared memory):
-//   * bfloat16: m16n8k16 on bf16 operands with f32 accumulation, the TPU kernel's own
-//     arithmetic, from the pieces of the attention passes (attention_passes.cuh,
-//     mma_tiles.cuh).
-//   * float32: 3xTF32 on m16n8k8 (tf32_tiles.cuh): each operand split into two TF32 parts and
-//     three products summed in f32, about 2^-20 relative a product, where one TF32 product
-//     would break the 1e-4 x max|plain| limit the kernels are held to. It is the arithmetic
-//     PyTorch's memory-efficient attention uses for float32 (CUTLASS's OpMultiplyAddFastF32),
-//     and it passes the CUDA cores' 67 TFLOP/s: 495 / 3 TFLOP/s is its ceiling. Three times
-//     the mma and the splits beside them set its pace (timing variants in PERF.md), so a
-//     warp owns two m-tiles (32 rows) up to D=64, every B fragment loaded and split once for
-//     both, and the three products of a step run in rounds over independent accumulators.
-// One schedule serves both, through the operand struct (Bf16Ops, Tf32Ops) that says how a
-// tile loads, how the products run and what stays in registers:
-//   * forward: one block per (query tile, head, batch), four warps of 16 rows (bfloat16) or 32
-//     (float32 up to D=64), the longest causal tiles first; K and V stream in tiles of 64 keys
-//     (bfloat16) or 32 (float32) through two shared-memory stages filled by 16-byte cp.async, so
-//     tile i + 1 loads while tile i multiplies; one online-softmax sweep up to the tile's causal
-//     bound (and a warp's own bound below it): the logits come out as C fragments, the running max
-//     m, the row sum l of the unrounded p = exp(s - m) and the accumulator rescaled as m moves, and
-//     p goes from C fragment to the A operand of p @ V in registers (rounded to bf16 as it is
-//     packed in bfloat16; float32 contracts over the keys in the permuted order of tf32_tiles.cuh).
-//     The passes' forward core (attention_passes.cuh) is the same pattern for one sequence length
-//     and no lse; this one has separate Sq and Sk bounds and stores lse.
+// What bounds them: 4 (forward: logits, p v), 6 (dQ: logits, dp, ds k) and 8 (dK/dV: logits,
+// dp, p^T do, ds^T q) x pairs x D FLOPs over q, k, v, do-sized traffic: at S=2048 several
+// hundred FLOPs a byte, bound by operations in both dtypes, so every product runs on the
+// tensor cores, and what decides the speed is how close the tensor cores come to their peak
+// and how much of the softmax work (exp, max, sums, the rescale, the masks) hides behind them.
+//
+// bfloat16 forward and dK/dV: wgmma fed by TMA rings (WgmmaOps; hopper.cuh). On mma.sync these
+// two ran at 10-14% of their bound (PERF.md): its issue rate and cp.async copies by the threads
+// cap the tensor cores well below their wgmma rate, and warp-level fragments were its one
+// advantage, which wgmma keeps (its A operand can come from registers, so p and ds still skip
+// shared memory). A block is two consumer warpgroups of 64 rows and one producer warp, 288
+// threads, one block an SM (ptxas gives such a block 168 registers a thread, its share rounded
+// to whole warpgroups; setmaxnreg, moving the producer's registers to the consumers, changed
+// neither the spills nor the times, PERF.md, and is not used). One producer thread issues
+// every copy: TMA boxes of 64 columns x rows of one (head, batch) of a 4-D tensor map over the
+// [B, S, H, D] tensor, in the 128-byte swizzle wgmma reads (a head dim above 64 is two boxes
+// side by side), zeros past D and past S; each stage of a ring has an mbarrier for its arrival
+// (the copies' bytes) and one for its release (an arrival from each consumer warp once its
+// products have read it). What bounds
+// them here is the issue of the softmax work (exp, max, sums, the rescale, the bf16 packing,
+// the masks) beside the products, more than the tensor cores (PERF.md: per-phase clocks), so:
+//   * no wgmma sits under a run-time condition, nor a branch (a barrier's wait) between the
+//     wgmma fence and the wgmma: ptxas serialises every wgmma of a kernel that has one. Every
+//     k-step over the head dim runs, columns past d being zeros, and every tile, the masks
+//     zeroing what a row does not see;
+//   * within a warpgroup the next tile's first products and this tile's second ones go to the
+//     tensor cores together, and the next tile's softmax (or p and ds) runs as soon as its
+//     products land, while this tile's second products still run (wait_group 1, then 0:
+//     FlashAttention-3's intra-warpgroup overlap); no wgmma is in flight across a loop edge,
+//     where the compiler may move accumulators;
+//   * tiles sized so that the D=64 kernels (the main path's) compile without spills at the
+//     168 registers a thread the launch gives; descriptors are built once a tile, each k-step
+//     a constant offset; the threads' shared-memory reads are LDS (the aligned base is offset
+//     arithmetic on the shared array), and edge tests are hoisted out of the element loops.
+//   * forward (flash_fwd_kernel<WgmmaOps>): a block owns 128 query rows of one (head, batch),
+//     the longest causal tiles first; the Q tile comes in once, K and V tiles of 128 keys (64
+//     at D > 64) cycle through a ring of three stages (two at D > 64). Per tile and
+//     warpgroup: S = Q K^T by wgmma.m64nNk16 with both operands K-major in shared memory, the
+//     online softmax in registers (the mask tests on edge tiles only), and O += P V by
+//     wgmma.m64nDk16 with P, rounded to bf16 as the S accumulator is packed, as its register A
+//     operand and the V tile MN-major through the descriptor's transpose bit. The logits stay
+//     unscaled and sm_scale rides in the exponent, p = 2^(t c - max(t) c), c = sm_scale log2(e)
+//     (one FMA and one ex2 an element and no multiply: a quarter of the time at D=64,
+//     PERF.md). The two warpgroups run unsynchronised (FlashAttention-3's ping-pong between
+//     them, named barriers taking turns at issue, measured no faster). K and V have separate
+//     arrival barriers, so the logits of a tile start before its V has landed. Keys past Sk land
+//     as zeros (logit 0, not -1e30), so the last tile still takes the mask.
+//   * dK/dV (flash_dkv_kernel<WgmmaOps>): a block owns 128 keys of one (head, batch), a
+//     warpgroup 64 of them; their K and V tiles come in once and stay, the Q and dO tiles of 32
+//     query rows (16 at D > 64) stream through a ring of six stages (three at D > 64), and the
+//     producer warp loads the tile's lse (times log2 e) and delta into shared memory
+//     beside them (a [B, H, Sq] row has a pitch TMA cannot describe when Sq % 4 != 0) and
+//     arrives on the stage's barrier with the copies. Per tile: S^T = K Q^T and dP^T = V dO^T
+//     by wgmma.m64n32k16 (m64n16k16 at D > 64) from shared memory, all K-major;
+//     P^T = ex2(s^T log2 e - lse log2 e) with lse read per column; dS^T = P^T (dP^T - delta)
+//     in registers; dV += round(P^T) dO and dK += round(dS^T) Q by wgmma with A from registers
+//     and B MN-major. dS never reaches shared memory. Under the causal mask the stream starts
+//     at the block's first key. Registers: the two accumulators take D a thread; with the
+//     overlap S^T and dP^T of the next tile (rows a thread) are live beside the bf16 A
+//     fragments of this one (rows / 2): 64 + 32 + 16 at D=64, no spill. At D=128 the
+//     accumulators alone take 128: 16-row tiles and no overlap (a tile's products, p and ds,
+//     then its gradient products, each waited for) keep at most 128 + 16 live beside the
+//     addresses, and 96 bytes of spill stores remain (340 with the overlap; the ptxas report
+//     of chip_smoke.py's phase 2 prints them; D=128 is off the main path).
+//
+// dQ in bfloat16 and all three kernels in float32 keep mma.sync for now, through the operand
+// structs Bf16Ops and Tf32Ops (one schedule, the struct saying how a tile loads, how the
+// products run and what stays in registers). dQ is the next kernel to move onto these pieces.
+// float32 runs 3xTF32 on m16n8k8 (tf32_tiles.cuh): each operand split into two TF32 parts and
+// three products summed in f32, about 2^-20 relative a product, where one TF32 product would
+// break the 1e-4 x max|plain| limit the kernels are held to (PyTorch's memory-efficient
+// attention uses the same arithmetic for float32); wgmma takes tf32 operands K-major only, and
+// P V reads V along its keys, the other major, so the float32 forms wait for a transposed V.
+// They already beat SDPA's float32 (PERF.md).
+//   * forward (float32): one block per (query tile, head, batch), four warps of 32 rows up to
+//     D=64 (16 above), the longest causal tiles first; K and V stream in tiles of 32 keys through
+//     two shared-memory stages filled by 16-byte cp.async, so tile i + 1 loads while tile i
+//     multiplies; one online-softmax sweep up to the tile's causal bound (and a warp's own bound
+//     below it), p going from C fragment to the A operand of p @ V in registers (contracting
+//     over the keys in the permuted order of tf32_tiles.cuh).
 //   * dQ: one block per (query tile, head, batch), warps and order as the forward; Q and dO
 //     stay resident (in bfloat16 as A fragments in registers); K and V stream in 32-row tiles,
 //     one sweep up to the tile's causal bound. The logits and dp come out as C
@@ -67,20 +119,19 @@
 //     fragment to the A operand of ds @ K in registers (bfloat16: two neighbouring C fragments
 //     packed to bf16 pairs are an A fragment; float32: the contraction runs over the keys in a
 //     permuted order in which a C fragment is an A fragment as it stands, tf32_tiles.cuh).
-//   * dK/dV: one block per (key tile, head, batch), warp w owning the keys of its m-tiles; the
-//     logits and dp are formed transposed (k q^T, v do^T), so p^T and ds^T come out as the A
-//     operands of p^T do and ds^T q; the query rows stream with their lse and delta, and under
-//     the causal mask the stream starts at the tile's first key (top-left: query >= key).
-//   * Only a tile that holds a masked entry runs the mask tests. Sq and Sk are separate
-//     bounds on the query and the key side. Head dims are multiples of 8 up to 128: the tiles'
-//     row stride is set by the head dim rounded up to 64 or 128, and bfloat16's k-steps of 16
-//     read zeros, filled by cp.async with a source size of 0, from d to the next multiple.
-// The tile shapes were measured at B=8 S=2048 (PERF.md; those builds are not kept): the
-// backward pair's four warps and 32-row streamed tiles against 64-row tiles and eight warps;
-// the forward's 64 keys in bfloat16, 13% faster than 32, where float32 keeps 32 (64: 2%
-// slower) and eight warps gain at most 3%.
+//   * dK/dV (float32): one block per (key tile, head, batch), warp w owning the keys of its
+//     m-tiles; the logits and dp are formed transposed (k q^T, v do^T), so p^T and ds^T come
+//     out as the A operands of p^T do and ds^T q; the query rows stream with their lse and
+//     delta, and under the causal mask the stream starts at the tile's first key.
+//   * Only a tile that holds a masked entry runs the mask tests. Head dims are multiples of 8
+//     up to 128: the tiles' row stride is set by the head dim rounded up to 64 or 128, and
+//     bfloat16's k-steps of 16 read zeros, filled by cp.async with a source size of 0, from d to
+//     the next multiple.
+
+#include <type_traits>
 
 #include "attention_passes.cuh"
+#include "hopper.cuh"
 #include "tf32_tiles.cuh"
 
 namespace {
@@ -90,7 +141,8 @@ __device__ __forceinline__ size_t head_base(int batch, int s, int heads, int hea
   return ((size_t)batch * s * heads + head) * d;
 }
 
-// ----------------------------------------------------------------------------- the trio
+// ----------------------------------------------------------------------------- mma.sync
+// dQ in bfloat16, and the float32 trio
 constexpr int kFlashKT = 32;    // rows of the backward's streamed tiles (forward: Ops::kFwdKT)
 constexpr int kFlashWarps = 4;  // warps of a block
 constexpr int kFlashThreads = 32 * kFlashWarps;
@@ -102,18 +154,16 @@ constexpr int kFlashThreads = 32 * kFlashWarps;
 // accumulations are in flight, in the forward one (q); and the second product, acc += c @ tile
 // over the streamed tile's rows, from the C fragments of the first.
 //
-// bfloat16: m16n8k16 products on bf16 tiles, the attention passes' helpers, one m-tile a warp.
-// In the dQ kernel the warp's q and do A fragments stay in registers for the whole block up to
-// D=64, 4% faster at S=2048 than reading them at each step (PERF.md; above, 32 more registers
-// would cost the block its third slot on the SM); the dK/dV kernel reads k and v again at each
-// step, as the passes do (held, they push it past 128 registers and into spills). Launch
-// bounds: four blocks of four warps an SM up to D=64, three above.
+// bfloat16 (the dQ kernel only): m16n8k16 products on bf16 tiles, the attention passes'
+// helpers, one m-tile a warp. The warp's q and do A fragments stay in registers for the whole
+// block up to D=64, 4% faster at S=2048 than reading them at each step (PERF.md; above, 32
+// more registers would cost the block its third slot on the SM). Launch bounds: four blocks of
+// four warps an SM up to D=64, three above.
 template <int kDP_>
 struct Bf16Ops {
   using T = __nv_bfloat16;
   static constexpr int kDP = kDP_, kLd = kDP + 8, kM = 1;
   static constexpr int kMinBlocks = kDP <= 64 ? 4 : 3;
-  static constexpr int kFwdKT = 64;  // keys of the forward's streamed tiles
   static constexpr bool kHold = kDP <= 64;
   using Frags = uint32_t[kDP / 16][4];
 
@@ -141,13 +191,7 @@ struct Bf16Ops {
         mma_rows<kNT>(ay[0], fy[kk], by, kLd, kk * 16, live, lane);
       }
   }
-  // the forward's one head product, x @ bx^T, from held fragments
-  template <int kNT>
-  static __device__ __forceinline__ void product_held(float (&ax)[1][kNT][4], const Frags& fx,
-                                                      const T* bx, int d, int live, int lane) {
-    head_product<kDP, kNT>(ax[0], fx, bx, d16(d), live, lane);
-  }
-  // the head products with the A fragments read from x and y at each k-step
+  // the head products with the A fragments read from x and y at each k-step (D > 64)
   template <int kNT>
   static __device__ __forceinline__ void products(float (&ax)[1][kNT][4], float (&ay)[1][kNT][4],
                                                   const T* x, const T* y, int row0, const T* bx,
@@ -250,12 +294,11 @@ struct Tf32Ops {
 };
 
 // ----------------------------------------------------------------------------- forward
-// One block per tile of 16 kM kFlashWarps query rows (64 in bfloat16, 128 in float32 up to
-// D=64), head and batch, the longest causal tiles first; one online-softmax sweep over the key
-// tiles (Ops::kFwdKT keys) below the tile's causal bound (and a warp's own bound below it),
-// tile i + 1 loading while tile i multiplies. The lane's query rows are 16m + g and 16m + g + 8
-// of its warp's. bfloat16 holds the warp's q fragments for the whole sweep (16 registers up to
-// D=64, 32 above); float32 reads and splits them at each k-step, as the backward kernels do.
+// float32. One block per tile of 16 kM kFlashWarps query rows (128 up to D=64, 64 above), head
+// and batch, the longest causal tiles first; one online-softmax sweep over the key tiles
+// (Ops::kFwdKT keys) below the tile's causal bound (and a warp's own bound below it), tile i + 1
+// loading while tile i multiplies. The lane's query rows are 16m + g and 16m + g + 8 of its
+// warp's; their q fragments are read and split at each k-step, as the backward kernels do.
 template <class Ops>
 __global__ void __launch_bounds__(kFlashThreads, Ops::kMinBlocks)
 flash_fwd_kernel(const typename Ops::T* __restrict__ q, const typename Ops::T* __restrict__ k,
@@ -264,7 +307,6 @@ flash_fwd_kernel(const typename Ops::T* __restrict__ q, const typename Ops::T* _
   using T = typename Ops::T;
   constexpr int kM = Ops::kM, kWarpRows = 16 * kM, kRows = kWarpRows * kFlashWarps;
   constexpr int kLd = Ops::kLd, kKT = Ops::kFwdKT, kNT = kKT / 8, kDN = Ops::kDP / 8;
-  constexpr bool kHold = std::is_same_v<T, __nv_bfloat16>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* qs = reinterpret_cast<T*>(smem_raw);  // [kRows][kLd]
   T* ks = qs + kRows * kLd;                // [2][kKT][kLd]
@@ -292,7 +334,6 @@ flash_fwd_kernel(const typename Ops::T* __restrict__ q, const typename Ops::T* _
   Ops::load(qs, q + qbase, stride, kRows, rows, d);
   prefetch(0);  // q rides the first group
 
-  typename Ops::Frags qf;  // held q fragments (bfloat16)
   float m[kM][2], l[kM][2], acc[kM][kDN][4];
 #pragma unroll
   for (int i = 0; i < kM; ++i) {
@@ -308,19 +349,13 @@ flash_fwd_kernel(const typename Ops::T* __restrict__ q, const typename Ops::T* _
       cp_async_wait<0>();
     }
     __syncthreads();
-    if constexpr (kHold) {
-      if (step == 0) Ops::hold(qf, qs, wrow, d, lane);
-    }
     const int c0 = step * kKT, stage = step & 1;
     const T* kt = ks + stage * kKT * kLd;
     const T* vt = vs + stage * kKT * kLd;
     const int live = min(kNT, (wmax - c0 + 7) / 8);  // n-tiles with a key this warp sees
     if (live > 0) {
       float sf[kM][kNT][4];
-      if constexpr (kHold)
-        Ops::product_held(sf, qf, kt, d, live, lane);
-      else
-        Ops::product(sf, qs, wrow, kt, d, live, lane);
+      Ops::product(sf, qs, wrow, kt, d, live, lane);
       const bool edge = edge_tile(c0, kKT, kmax, r0 + wrow, causal);
 #pragma unroll
       for (int i = 0; i < kM; ++i) {
@@ -458,10 +493,10 @@ flash_dq_kernel(const typename Ops::T* __restrict__ q, const typename Ops::T* __
 }
 
 // ----------------------------------------------------------------------------- dK/dV
-// One block per tile of 16 kM kFlashWarps keys, head and batch; the query rows stream through in
-// kFlashKT-row tiles with their lse and delta. The logits are formed transposed (keys as rows),
-// so the lane's keys are 16m + g and 16m + g + 8 of its warp's and its query rows 8n + 2t and
-// 8n + 2t + 1 of the tile.
+// float32. One block per tile of 16 kM kFlashWarps keys, head and batch; the query rows stream
+// through in kFlashKT-row tiles with their lse and delta. The logits are formed transposed (keys
+// as rows), so the lane's keys are 16m + g and 16m + g + 8 of its warp's and its query rows
+// 8n + 2t and 8n + 2t + 1 of the tile.
 template <class Ops>
 __global__ void __launch_bounds__(kFlashThreads, Ops::kMinBlocks)
 flash_dkv_kernel(const typename Ops::T* __restrict__ q, const typename Ops::T* __restrict__ k,
@@ -569,6 +604,505 @@ flash_dkv_kernel(const typename Ops::T* __restrict__ q, const typename Ops::T* _
   }
 }
 
+// ============================================================================ wgmma, bfloat16
+// The forward and dK/dV kernels in bfloat16: wgmma fed by TMA rings (the header says why).
+// Both run two consumer warpgroups of 64 rows (query rows in the forward, keys in dK/dV) and
+// one producer warp. kDP is the head dim rounded up to 64 or 128: a row of a tile is kDP / 64
+// boxes of 64 columns (128 bytes, one swizzle atom), each box a [rows][64] sub-tile of its own.
+struct FlashMaps {  // 4-D tensor maps over [B, S, H, D] (fields a kernel does not read are unset)
+  CUtensorMap q, k, v, dout;
+};
+
+template <int kDP_>
+struct WgmmaOps {
+  using Maps = FlashMaps;
+  static constexpr int kDP = kDP_, kParts = kDP / 64, kDN = kDP / 8;
+  // forward: 128 query rows against K and V tiles of 128 keys (64 at D=128, for registers);
+  // three stages where they fit
+  static constexpr int kFwdRows = 128, kFwdKeys = kDP == 64 ? 128 : 64;
+  static constexpr int kFwdStages = kDP == 64 ? 3 : 2;
+  // dK/dV: 128 keys against Q and dO tiles of 32 query rows (16 at D=128), for registers; at
+  // D=128 a tile's steps run in turn (kDkvOverlap false), since the overlap keeps the next
+  // tile's head products live beside this one's fragments and the accumulators take 128
+  static constexpr int kDkvKeys = 128, kDkvRows = kDP == 64 ? 32 : 16;
+  static constexpr bool kDkvOverlap = kDP == 64;
+  static constexpr int kDkvStages = kDP == 64 ? 6 : 3;
+};
+
+constexpr int kWgThreads = 128;
+constexpr int kHopperThreads = 2 * kWgThreads + 32;  // two consumer warpgroups, a producer warp
+constexpr int kConsumerWarps = 8;                    // arrivals that release a stage
+constexpr int kRowBytes = 128;                       // a sub-tile's row: 64 bf16
+
+// the dynamic shared memory from its first 1024-byte aligned address (the 128-byte swizzle's
+// period), found from the shared-window address; offset arithmetic on the array keeps the
+// pointer in the shared space, so that the threads' reads of it are LDS, not generic loads
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* smem) {
+  return smem + ((1024u - (smem_addr(smem) & 1023u)) & 1023u);
+}
+
+// Descriptors: one per tile, and a compile-time offset (in the descriptor's 16-byte units) for
+// each k-step, so that no descriptor is rebuilt in the loops (the address field cannot carry:
+// shared memory ends below 2^18 bytes).
+// A K-major operand (rows of M or N, the head dim along a row) of a [kParts][rows][64] tile,
+// from row `row0`; k-step kk is columns 16kk..16kk+15, in part kk / 4
+__device__ __forceinline__ uint64_t k_major(const unsigned char* tile, int row0) {
+  return sw128_desc(tile + row0 * kRowBytes);
+}
+template <int kRows>
+__device__ __forceinline__ constexpr uint64_t k_step(int kk) {
+  return ((kk / 4) * kRows * kRowBytes + (kk % 4) * 32) >> 4;
+}
+// An MN-major operand (rows along the contraction) of a [kParts][rows][64] tile, its 64-column
+// parts kRows rows apart; k-step kk is rows 16kk..16kk+15
+template <int kRows>
+__device__ __forceinline__ uint64_t mn_major(const unsigned char* tile) {
+  return sw128_desc(tile, kRows * kRowBytes, 8 * kRowBytes);
+}
+__device__ __forceinline__ constexpr uint64_t mn_step(int kk) { return (kk * 16 * kRowBytes) >> 4; }
+
+template <class Ops>
+struct FwdSmem {  // Q | stages of (K, V) | barriers: q, k[stages], v[stages], free[stages]
+  static constexpr int kQBytes = Ops::kParts * Ops::kFwdRows * kRowBytes;
+  static constexpr int kTileBytes = Ops::kParts * Ops::kFwdKeys * kRowBytes;  // K or V
+  static constexpr int kBarOffset = kQBytes + Ops::kFwdStages * 2 * kTileBytes;
+  static constexpr int kBytes = kBarOffset + 8 * (1 + 3 * Ops::kFwdStages) + 1024;  // + align
+};
+
+template <class Ops>
+struct DkvSmem {  // K | V | stages of (Q, dO) | stages of (lse log2 e, delta) | barriers
+  static constexpr int kKVBytes = Ops::kParts * Ops::kDkvKeys * kRowBytes;  // K or V
+  static constexpr int kTileBytes = Ops::kParts * Ops::kDkvRows * kRowBytes;  // Q or dO
+  static constexpr int kRowsOffset = 2 * kKVBytes + Ops::kDkvStages * 2 * kTileBytes;
+  static constexpr int kBarOffset = kRowsOffset + Ops::kDkvStages * 2 * Ops::kDkvRows * 4;
+  static constexpr int kBytes = kBarOffset + 8 * (1 + 2 * Ops::kDkvStages) + 1024;
+};
+
+// The forward's logits stay unscaled, t = q k^T: a masked entry (key >= kmax, or under the
+// causal mask key > row; row_g is the sequence row of c[.][0], key_t the key of c[0][0]) takes
+// the finite -1e30
+template <int kNT>
+__device__ __forceinline__ void mask_logits(float (&sf)[kNT][4], int row_g, int key_t, int kmax,
+                                            int causal) {
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = key_t + 8 * n + (e & 1), row = row_g + 8 * (e >> 1);
+      if (!(key < kmax && (!causal || key <= row))) sf[n][e] = kNegInf;
+    }
+}
+
+// One online-softmax step on unscaled logits t for the warp's rows g and g + 8, sm_scale folded
+// into the exponent: p = 2^(t c - m c) with c = sm_scale log2(e) and m the running max of t,
+// which is exp(s - max s) for s = t sm_scale (sm_scale > 0 keeps the max in place; the one
+// rounding of t sm_scale is gone, a difference of about one float32 ulp in the exponent).
+// alpha[h] is the factor the sums kept so far take; l, a per-lane partial of the sum of the
+// unrounded p, takes it here. A masked t (-1e30) gives p = 0, as does the first tile's rescale.
+template <int kNT>
+__device__ __forceinline__ void online_softmax_scaled(float (&sf)[kNT][4], float (&m)[2],
+                                                      float (&l)[2], float (&alpha)[2], float c) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) mx = fmaxf(mx, fmaxf(sf[n][2 * h], sf[n][2 * h + 1]));
+    const float m_new = fmaxf(m[h], quad_max(mx)), off = m_new * c;
+    alpha[h] = ex2(fmaf(m[h], c, -off));
+    float sum = 0.f;
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      sf[n][2 * h] = ex2(fmaf(sf[n][2 * h], c, -off));
+      sf[n][2 * h + 1] = ex2(fmaf(sf[n][2 * h + 1], c, -off));
+      sum += sf[n][2 * h] + sf[n][2 * h + 1];
+    }
+    l[h] = fmaf(l[h], alpha[h], sum);
+    m[h] = m_new;
+  }
+}
+
+// One block per 128 query rows (longest causal tiles first), head and batch. Warpgroup w owns
+// rows 64w..64w+63 of the tile; the lane's rows are those of the warp's C fragments (16-row
+// warps, rows g and g + 8). One online-softmax sweep over the key tiles below the block's
+// causal bound.
+template <class Ops>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+flash_fwd_kernel(const __grid_constant__ typename Ops::Maps maps, __nv_bfloat16* __restrict__ out,
+                 float* __restrict__ lse, int sq, int sk, int d, float scale, int causal) {
+  constexpr int kRows = Ops::kFwdRows, kKeys = Ops::kFwdKeys, kStages = Ops::kFwdStages;
+  constexpr int kParts = Ops::kParts, kNT = kKeys / 8, kDN = Ops::kDN, kDP = Ops::kDP;
+  using Smem = FwdSmem<Ops>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* qs = smem;
+  auto ks = [&](int s) { return smem + Smem::kQBytes + s * 2 * Smem::kTileBytes; };
+  auto vs = [&](int s) { return ks(s) + Smem::kTileBytes; };
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + Smem::kBarOffset);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* freed = v_full + kStages;
+
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // the longest causal tiles first
+  const int head = blockIdx.y, batch = blockIdx.z, heads = gridDim.y;
+  const int rows = min(kRows, sq - r0);
+  // top-left causal mask: no row of this tile sees a key past its last row
+  const int kmax = causal ? min(sk, r0 + rows) : sk;
+  const int tiles = (kmax + kKeys - 1) / kKeys;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&freed[s], kConsumerWarps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 2 * kWgThreads) {  // the producer warp: one thread issues every copy
+    if (threadIdx.x == 2 * kWgThreads) {
+      mbar_expect_tx(q_full, Smem::kQBytes);
+      for (int p = 0; p < kParts; ++p)
+        tma_load_4d(qs + p * kRows * kRowBytes, &maps.q, q_full, 64 * p, head, r0, batch);
+      for (int j = 0; j < tiles; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(&freed[s], (j / kStages - 1) & 1);
+        mbar_expect_tx(&k_full[s], Smem::kTileBytes);
+        for (int p = 0; p < kParts; ++p)
+          tma_load_4d(ks(s) + p * kKeys * kRowBytes, &maps.k, &k_full[s], 64 * p, head,
+                      j * kKeys, batch);
+        mbar_expect_tx(&v_full[s], Smem::kTileBytes);
+        for (int p = 0; p < kParts; ++p)
+          tma_load_4d(vs(s) + p * kKeys * kRowBytes, &maps.v, &v_full[s], 64 * p, head,
+                      j * kKeys, batch);
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / kWgThreads, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wrow = wg * 64 + ((threadIdx.x >> 5) & 3) * 16;  // the warp's first row of the tile
+  // m is the running max of the unscaled logits: the scale rides in the exponent
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2], acc[kDN][4], sf[kNT][4];
+  uint32_t pa[kKeys / 16][4];  // p rounded to bf16: the A fragments of P V
+  const float scale_log2e = scale * kLog2e;
+  // S = Q K^T of tile j into sf, issued and committed, once its K tile has landed. Every
+  // k-step runs (columns past d are zeros): a condition around a wgmma makes ptxas serialise
+  // them all, and so does a branch (a barrier's wait) between the wgmma fence and the wgmma.
+  const uint64_t q_desc = k_major(qs, wg * 64);
+  auto logits = [&](int j) {
+    const uint64_t k_desc = k_major(ks(j % kStages), 0);
+#pragma unroll
+    for (int kk = 0; kk < kDP / 16; ++kk)
+      wgmma_bf16_ss<kKeys>(sf, q_desc + k_step<kRows>(kk), k_desc + k_step<kKeys>(kk), kk > 0);
+    wgmma_commit();
+  };
+  // acc += P V of tile j, issued and committed (masked keys have p = 0 exactly)
+  auto values = [&](int j) {
+    const uint64_t v_desc = mn_major<kKeys>(vs(j % kStages));
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk)
+      wgmma_bf16_rs<kDP>(acc, pa[kk], v_desc + mn_step(kk), 1);
+    wgmma_commit();
+  };
+  // the online softmax of tile j on its landed logits: sf becomes the unrounded p
+  auto softmax = [&](int j) {
+    const int c0 = j * kKeys;
+    if (edge_tile(c0, kKeys, kmax, r0 + wrow, causal))
+      mask_logits<kNT>(sf, r0 + wrow + g, c0 + 2 * t, kmax, causal);
+    online_softmax_scaled<kNT>(sf, m, l, alpha, scale_log2e);
+  };
+  auto pack = [&] {
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) pack_a<kNT>(pa[kk], sf, kk);
+  };
+  auto release = [&](int j) {  // this warp is done with tile j's stage
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&freed[j % kStages]);
+  };
+  auto k_landed = [&](int j) { mbar_wait(&k_full[j % kStages], (j / kStages) & 1); };
+  auto v_landed = [&](int j) { mbar_wait(&v_full[j % kStages], (j / kStages) & 1); };
+  zero_acc(acc);
+  mbar_wait(q_full, 0);
+  k_landed(0);
+  fence_acc(sf);
+  wgmma_fence();
+  logits(0);
+  wgmma_wait<0>();
+  fence_acc(sf);
+  softmax(0);  // acc is 0: no rescale
+  pack();
+  // Per step: S of tile j + 1 and P V of tile j go to the tensor cores together; the softmax
+  // of tile j + 1 runs as soon as its logits land, while P V still runs. Nothing is in flight
+  // across the loop's edges, where the compiler may move the accumulators.
+  for (int j = 0; j + 1 < tiles; ++j) {
+    k_landed(j + 1);
+    v_landed(j);
+    fence_acc(sf);
+    fence_acc(acc);
+    fence_acc(pa);
+    wgmma_fence();
+    logits(j + 1);
+    values(j);
+    wgmma_wait<1>();  // S of tile j + 1
+    fence_acc(sf);
+    softmax(j + 1);
+    wgmma_wait<0>();  // P V of tile j
+    fence_acc(acc);
+    fence_acc(pa);
+    release(j);
+    scale_acc(acc, alpha);
+    pack();
+  }
+  v_landed(tiles - 1);
+  fence_acc(acc);
+  fence_acc(pa);
+  wgmma_fence();
+  values(tiles - 1);
+  wgmma_wait<0>();
+  fence_acc(acc);
+  fence_acc(pa);
+  release(tiles - 1);
+  // out = acc / l and lse = m + log(l), l == 0 guarded (no row of a live tile has l == 0:
+  // key 0 is live for every row)
+  const size_t stride = (size_t)heads * d;
+  const size_t qbase = head_base(batch, sq, heads, head, d) + (size_t)r0 * stride;
+  float* lse_rows = lse + ((size_t)batch * heads + head) * sq + r0;
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float sum = quad_sum(l[h]), safe_l = sum == 0.f ? 1.f : sum;
+    inv[h] = 1.f / safe_l;
+    const int row = wrow + g + 8 * h;
+    if (t == 0 && row < rows) lse_rows[row] = __fmul_rn(m[h], scale) + logf(safe_l);
+  }
+  store_c<kDN>(out + qbase, stride, wrow, rows, d, inv, acc, lane);
+}
+
+// One block per 128 keys, head and batch; warpgroup w owns keys 64w..64w+63 of the block. The
+// query rows stream through in tiles of kDkvRows with their lse and delta. The logits are formed
+// transposed (keys as rows), so the lane's keys are rows g and g + 8 of its warp's 16 and its
+// query rows 8n + 2t and 8n + 2t + 1 of the tile.
+template <class Ops>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+flash_dkv_kernel(const __grid_constant__ typename Ops::Maps maps, const float* __restrict__ lse,
+                 const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                 __nv_bfloat16* __restrict__ dv, int sq, int sk, int d, float scale,
+                 int causal) {
+  constexpr int kKeys = Ops::kDkvKeys, kRows = Ops::kDkvRows, kStages = Ops::kDkvStages;
+  constexpr int kParts = Ops::kParts, kNT = kRows / 8, kDN = Ops::kDN, kDP = Ops::kDP;
+  using Smem = DkvSmem<Ops>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* ks = smem;
+  unsigned char* vs = smem + Smem::kKVBytes;
+  auto qs = [&](int s) { return smem + 2 * Smem::kKVBytes + s * 2 * Smem::kTileBytes; };
+  auto dos = [&](int s) { return qs(s) + Smem::kTileBytes; };
+  // per stage: the rows' lse log2(e), then their delta
+  auto row_stats = [&](int s) {
+    return reinterpret_cast<float*>(smem + Smem::kRowsOffset) + s * 2 * kRows;
+  };
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + Smem::kBarOffset);
+  uint64_t* full = kv_full + 1;
+  uint64_t* freed = full + kStages;
+
+  const int j0 = blockIdx.x * kKeys;  // under the causal mask the first tiles are the longest
+  const int head = blockIdx.y, batch = blockIdx.z, heads = gridDim.y;
+  const int keys = min(kKeys, sk - j0);
+  // a query row before the block's first key sees none of its keys (p = ds = 0 exactly)
+  const int q_begin = causal ? j0 : 0;
+  const int tiles = q_begin < sq ? (sq - q_begin + kRows - 1) / kRows : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp's lanes: lane 0's with the copies' bytes
+      mbar_init(&freed[s], kConsumerWarps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 2 * kWgThreads) {  // the producer warp
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      mbar_expect_tx(kv_full, 2 * Smem::kKVBytes);
+      for (int p = 0; p < kParts; ++p) {
+        tma_load_4d(ks + p * kKeys * kRowBytes, &maps.k, kv_full, 64 * p, head, j0, batch);
+        tma_load_4d(vs + p * kKeys * kRowBytes, &maps.v, kv_full, 64 * p, head, j0, batch);
+      }
+    }
+    const float* lse_h = lse + ((size_t)batch * heads + head) * sq;
+    const float* delta_h = delta + ((size_t)batch * heads + head) * sq;
+    for (int i = 0; i < tiles; ++i) {
+      const int s = i % kStages, q0 = q_begin + i * kRows;
+      if (i >= kStages) mbar_wait(&freed[s], (i / kStages - 1) & 1);
+      float* rs = row_stats(s);
+      for (int r = lane; r < kRows; r += 32) {  // 0 for a row past sq: masked
+        const bool live = q0 + r < sq;
+        rs[r] = live ? lse_h[q0 + r] * kLog2e : 0.f;
+        rs[kRows + r] = live ? delta_h[q0 + r] : 0.f;
+      }
+      if (lane == 0) {  // its arrival carries the copies' bytes
+        mbar_expect_tx(&full[s], 2 * Smem::kTileBytes);
+        for (int p = 0; p < kParts; ++p) {
+          tma_load_4d(qs(s) + p * kRows * kRowBytes, &maps.q, &full[s], 64 * p, head, q0, batch);
+          tma_load_4d(dos(s) + p * kRows * kRowBytes, &maps.dout, &full[s], 64 * p, head, q0,
+                      batch);
+        }
+      } else {
+        mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / kWgThreads, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int krow = wg * 64 + ((threadIdx.x >> 5) & 3) * 16;  // the warp's first key of the block
+  const int warp_key = j0 + krow;
+  float acc_k[kDN][4], acc_v[kDN][4];
+  float pt[kNT][4], dst[kNT][4];                  // k q^T then p^T; v do^T then ds^T
+  uint32_t pa[kRows / 16][4], da[kRows / 16][4];  // p^T and ds^T rounded: A fragments
+  // S^T = K Q^T into pt and dP^T = V dO^T into dst for query tile i, issued and committed,
+  // once the tile has landed. Every k-step runs (columns past d are zeros), and every tile,
+  // also one in which no row sees this warpgroup's keys (its p is masked to 0): a condition
+  // around a wgmma makes ptxas serialise them all, and so does a branch (a barrier's wait)
+  // between the wgmma fence and the wgmma.
+  auto landed = [&](int i) { mbar_wait(&full[i % kStages], (i / kStages) & 1); };
+  const uint64_t k_desc = k_major(ks, wg * 64), v_desc = k_major(vs, wg * 64);
+  auto head_products = [&](int i) {
+    const uint64_t q_desc = k_major(qs(i % kStages), 0), do_desc = k_major(dos(i % kStages), 0);
+#pragma unroll
+    for (int kk = 0; kk < kDP / 16; ++kk)
+      wgmma_bf16_ss<kRows>(pt, k_desc + k_step<kKeys>(kk), q_desc + k_step<kRows>(kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < kDP / 16; ++kk)
+      wgmma_bf16_ss<kRows>(dst, v_desc + k_step<kKeys>(kk), do_desc + k_step<kRows>(kk), kk > 0);
+    wgmma_commit();
+  };
+  // p^T and ds^T of a tile in place, from its landed head products and its rows' statistics;
+  // `masked` (std::true_type): the tile holds a masked entry, and every element is tested
+  auto tile_probabilities = [&](int q0, const float* rs, auto masked) {
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      const int c = 8 * n + 2 * t;  // this lane's two query rows of the tile: c, c + 1
+      const float2 off = *reinterpret_cast<const float2*>(rs + c);
+      const float2 dl = *reinterpret_cast<const float2*>(rs + kRows + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = prob(__fmul_rn(pt[n][e], scale), (e & 1) ? off.y : off.x);
+        if constexpr (decltype(masked)::value) {
+          const int key = warp_key + g + 8 * (e >> 1), row = q0 + c + (e & 1);
+          p = key < sk && row < sq && (!causal || key <= row) ? p : 0.f;
+        }
+        pt[n][e] = p;  // the bfloat16 packing rounds it for dv; ds takes it exact
+        dst[n][e] = __fmul_rn(p, __fsub_rn(dst[n][e], (e & 1) ? dl.y : dl.x));
+      }
+    }
+  };
+  auto probabilities = [&](int i) {
+    const int q0 = q_begin + i * kRows;
+    const float* rs = row_stats(i % kStages);
+    // an inner tile (every key and row live, no key past a row) skips the tests
+    if (q0 + kRows > sq || warp_key + 16 > sk || (causal && warp_key + 15 > q0))
+      tile_probabilities(q0, rs, std::true_type{});
+    else
+      tile_probabilities(q0, rs, std::false_type{});
+  };
+  auto pack = [&] {
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk) {
+      pack_a<kNT>(pa[kk], pt, kk);
+      pack_a<kNT>(da[kk], dst, kk);
+    }
+  };
+  // dv += p^T do and dk += ds^T q over tile i's rows, issued and committed
+  auto grads = [&](int i) {
+    const uint64_t do_desc = mn_major<kRows>(dos(i % kStages));
+    const uint64_t q_desc = mn_major<kRows>(qs(i % kStages));
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk)
+      wgmma_bf16_rs<kDP>(acc_v, pa[kk], do_desc + mn_step(kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk)
+      wgmma_bf16_rs<kDP>(acc_k, da[kk], q_desc + mn_step(kk), 1);
+    wgmma_commit();
+  };
+  auto release = [&](int i) {  // this warp is done with tile i's stage
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&freed[i % kStages]);
+  };
+  auto fence_all = [&] {
+    fence_acc(pt);
+    fence_acc(dst);
+    fence_acc(pa);
+    fence_acc(da);
+    fence_acc(acc_v);
+    fence_acc(acc_k);
+  };
+  zero_acc(acc_k);
+  zero_acc(acc_v);
+  mbar_wait(kv_full, 0);
+  if (!Ops::kDkvOverlap) {
+    for (int i = 0; i < tiles; ++i) {
+      landed(i);
+      fence_all();
+      wgmma_fence();
+      head_products(i);
+      wgmma_wait<0>();
+      fence_all();
+      probabilities(i);
+      pack();
+      fence_all();
+      wgmma_fence();
+      grads(i);
+      wgmma_wait<0>();
+      fence_all();
+      release(i);
+    }
+  } else if (tiles > 0) {  // no query row sees these keys: dk = dv = 0
+    landed(0);
+    fence_all();
+    wgmma_fence();
+    head_products(0);
+    wgmma_wait<0>();
+    fence_all();
+    probabilities(0);
+    // Per step: the head products of tile i + 1 and dV, dK of tile i go to the tensor cores
+    // together; p^T and ds^T of tile i + 1 are formed as soon as its products land, while dV
+    // and dK still run. Nothing is in flight across the loop's edges, where the compiler may
+    // move the accumulators.
+    for (int i = 0; i + 1 < tiles; ++i) {
+      pack();
+      landed(i + 1);
+      fence_all();
+      wgmma_fence();
+      head_products(i + 1);
+      grads(i);
+      wgmma_wait<1>();  // the head products of tile i + 1
+      fence_acc(pt);
+      fence_acc(dst);
+      probabilities(i + 1);
+      wgmma_wait<0>();  // dV and dK of tile i
+      fence_all();
+      release(i);
+    }
+    pack();
+    fence_all();
+    wgmma_fence();
+    grads(tiles - 1);
+    wgmma_wait<0>();
+    fence_all();
+    release(tiles - 1);
+  }
+  const size_t stride = (size_t)heads * d;
+  const size_t kbase = head_base(batch, sk, heads, head, d) + (size_t)j0 * stride;
+  const float mul_k[2] = {scale, scale}, mul_v[2] = {1.f, 1.f};
+  store_c<kDN>(dk + kbase, stride, krow, keys, d, mul_k, acc_k, lane);
+  store_c<kDN>(dv + kbase, stride, krow, keys, d, mul_v, acc_v, lane);
+}
+
 // ----------------------------------------------------------------------------- launches
 bool flash_shape_ok(int b, int sq, int sk, int heads, int d) {
   return b >= 1 && b <= 65535 && sq >= 1 && sk >= 1 && heads >= 1 && heads <= 65535 && d >= 8 &&
@@ -600,9 +1134,12 @@ cudaError_t flash_fwd(const void* q, const void* k, const void* v, void* out, fl
                       cudaStream_t stream) {
   using T = typename Ops::T;
   constexpr size_t smem = fwd_smem<Ops>();
-  cudaError_t err = allow_smem(flash_fwd_kernel<Ops>, smem);
+  // the float32 template of the name (the bfloat16 one takes tensor maps)
+  void (*kernel)(const T*, const T*, const T*, T*, float*, int, int, int, float, int) =
+      flash_fwd_kernel<Ops>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  flash_fwd_kernel<Ops><<<tiles(sq, heads, b, block_rows<Ops>()), kFlashThreads, smem, stream>>>(
+  kernel<<<tiles(sq, heads, b, block_rows<Ops>()), kFlashThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), lse, sq, sk, d, scale, causal);
   return cudaGetLastError();
@@ -628,23 +1165,88 @@ cudaError_t flash_dkv(const void* q, const void* k, const void* v, const void* d
                       int sk, int heads, int d, int causal, float scale, cudaStream_t stream) {
   using T = typename Ops::T;
   constexpr size_t smem = bwd_smem<Ops>(true);
-  cudaError_t err = allow_smem(flash_dkv_kernel<Ops>, smem);
+  void (*kernel)(const T*, const T*, const T*, const T*, const float*, const float*, T*, T*, int,
+                 int, int, float, int) = flash_dkv_kernel<Ops>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  flash_dkv_kernel<Ops><<<tiles(sk, heads, b, block_rows<Ops>()), kFlashThreads, smem, stream>>>(
+  kernel<<<tiles(sk, heads, b, block_rows<Ops>()), kFlashThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), sq, sk,
       d, scale, causal);
   return cudaGetLastError();
 }
 
-// the operand struct of the dtype, head dim rounded up to 64 or 128
-#define MMT_FLASH_DISPATCH(fn, ...)                                      \
-  do {                                                                   \
-    if (dtype == 0 && d <= 64) return (int)fn<Tf32Ops<64>>(__VA_ARGS__); \
-    if (dtype == 0) return (int)fn<Tf32Ops<128>>(__VA_ARGS__);           \
-    if (dtype == 1 && d <= 64) return (int)fn<Bf16Ops<64>>(__VA_ARGS__); \
-    if (dtype == 1) return (int)fn<Bf16Ops<128>>(__VA_ARGS__);           \
-    return (int)cudaErrorInvalidValue;                                   \
+// a [B, S, heads, d] bfloat16 tensor as a 4-D tensor map (d innermost), boxes of 64 columns x
+// `rows` rows of one head and batch in the 128-byte swizzle; columns past d and rows past S land
+// as zeros
+bool encode_heads(EncodeTiled encode, CUtensorMap* map, const void* ptr, int b, int s,
+                  int heads, int d, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(s), static_cast<cuuint64_t>(b)};
+  const cuuint64_t row = 2ull * heads * d;
+  const cuuint64_t strides[3] = {2ull * d, row, row * s};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <class Ops>
+cudaError_t flash_fwd_wgmma(const void* q, const void* k, const void* v, void* out, float* lse,
+                            int b, int sq, int sk, int heads, int d, int causal, float scale,
+                            cudaStream_t stream) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  FlashMaps maps = {};
+  if (!encode_heads(encode, &maps.q, q, b, sq, heads, d, Ops::kFwdRows) ||
+      !encode_heads(encode, &maps.k, k, b, sk, heads, d, Ops::kFwdKeys) ||
+      !encode_heads(encode, &maps.v, v, b, sk, heads, d, Ops::kFwdKeys))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = FwdSmem<Ops>::kBytes;
+  void (*kernel)(FlashMaps, __nv_bfloat16*, float*, int, int, int, float, int) =
+      flash_fwd_kernel<Ops>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<tiles(sq, heads, b, Ops::kFwdRows), kHopperThreads, smem, stream>>>(
+      maps, static_cast<__nv_bfloat16*>(out), lse, sq, sk, d, scale, causal);
+  return cudaGetLastError();
+}
+
+template <class Ops>
+cudaError_t flash_dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                            const float* lse, const float* delta, void* dk, void* dv, int b,
+                            int sq, int sk, int heads, int d, int causal, float scale,
+                            cudaStream_t stream) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  FlashMaps maps = {};
+  if (!encode_heads(encode, &maps.q, q, b, sq, heads, d, Ops::kDkvRows) ||
+      !encode_heads(encode, &maps.dout, dout, b, sq, heads, d, Ops::kDkvRows) ||
+      !encode_heads(encode, &maps.k, k, b, sk, heads, d, Ops::kDkvKeys) ||
+      !encode_heads(encode, &maps.v, v, b, sk, heads, d, Ops::kDkvKeys))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = DkvSmem<Ops>::kBytes;
+  void (*kernel)(FlashMaps, const float*, const float*, __nv_bfloat16*, __nv_bfloat16*, int, int,
+                 int, float, int) = flash_dkv_kernel<Ops>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<tiles(sk, heads, b, Ops::kDkvKeys), kHopperThreads, smem, stream>>>(
+      maps, lse, delta, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), sq, sk,
+      d, scale, causal);
+  return cudaGetLastError();
+}
+
+// the launcher of the dtype (fn32 with Tf32Ops, fn16 with Ops16), head dim rounded up to 64 or
+// 128
+#define MMT_FLASH_DISPATCH(fn32, fn16, Ops16, ...)                        \
+  do {                                                                    \
+    if (dtype == 0 && d <= 64) return (int)fn32<Tf32Ops<64>>(__VA_ARGS__); \
+    if (dtype == 0) return (int)fn32<Tf32Ops<128>>(__VA_ARGS__);          \
+    if (dtype == 1 && d <= 64) return (int)fn16<Ops16<64>>(__VA_ARGS__);   \
+    if (dtype == 1) return (int)fn16<Ops16<128>>(__VA_ARGS__);            \
+    return (int)cudaErrorInvalidValue;                                    \
   } while (0)
 
 }  // namespace
@@ -653,15 +1255,16 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. q, dout, out, dq: [B, Sq, heads, d]; k, v, dk, dv:
 // [B, Sk, heads, d]; lse, delta: float32 [B, heads, Sq]. All contiguous on one device, d a
-// multiple of 8 up to 128, every base pointer 16-byte aligned (the kernels load by 16-byte
-// cp.async). Each entry is one launch on `stream`, does not synchronise and returns a
-// cudaError_t.
+// multiple of 8 up to 128, every base pointer 16-byte aligned (16-byte cp.async loads, and the
+// TMA tensor maps of the bfloat16 forward and dK/dV). Each entry is one launch on `stream`,
+// does not synchronise and returns a cudaError_t.
 int mmt_flash_attention_fwd(int dtype, const void* q, const void* k, const void* v, void* out,
                             void* lse, int b, int sq, int sk, int heads, int d, int causal,
                             float sm_scale, void* stream) {
   if (!flash_shape_ok(b, sq, sk, heads, d)) return (int)cudaErrorInvalidValue;
-  MMT_FLASH_DISPATCH(flash_fwd, q, k, v, out, static_cast<float*>(lse), b, sq, sk, heads, d,
-                     causal, sm_scale, static_cast<cudaStream_t>(stream));
+  MMT_FLASH_DISPATCH(flash_fwd, flash_fwd_wgmma, WgmmaOps, q, k, v, out,
+                     static_cast<float*>(lse), b, sq, sk, heads, d, causal, sm_scale,
+                     static_cast<cudaStream_t>(stream));
 }
 
 int mmt_flash_attention_dq(int dtype, const void* q, const void* k, const void* v,
@@ -669,9 +1272,9 @@ int mmt_flash_attention_dq(int dtype, const void* q, const void* k, const void* 
                            int sq, int sk, int heads, int d, int causal, float sm_scale,
                            void* stream) {
   if (!flash_shape_ok(b, sq, sk, heads, d)) return (int)cudaErrorInvalidValue;
-  MMT_FLASH_DISPATCH(flash_dq, q, k, v, dout, static_cast<const float*>(lse),
-                     static_cast<const float*>(delta), dq, b, sq, sk, heads, d, causal, sm_scale,
-                     static_cast<cudaStream_t>(stream));
+  MMT_FLASH_DISPATCH(flash_dq, flash_dq, Bf16Ops, q, k, v, dout,
+                     static_cast<const float*>(lse), static_cast<const float*>(delta), dq, b, sq,
+                     sk, heads, d, causal, sm_scale, static_cast<cudaStream_t>(stream));
 }
 
 int mmt_flash_attention_dkv(int dtype, const void* q, const void* k, const void* v,
@@ -679,9 +1282,9 @@ int mmt_flash_attention_dkv(int dtype, const void* q, const void* k, const void*
                             void* dv, int b, int sq, int sk, int heads, int d, int causal,
                             float sm_scale, void* stream) {
   if (!flash_shape_ok(b, sq, sk, heads, d)) return (int)cudaErrorInvalidValue;
-  MMT_FLASH_DISPATCH(flash_dkv, q, k, v, dout, static_cast<const float*>(lse),
-                     static_cast<const float*>(delta), dk, dv, b, sq, sk, heads, d, causal,
-                     sm_scale, static_cast<cudaStream_t>(stream));
+  MMT_FLASH_DISPATCH(flash_dkv, flash_dkv_wgmma, WgmmaOps, q, k, v, dout,
+                     static_cast<const float*>(lse), static_cast<const float*>(delta), dk, dv, b,
+                     sq, sk, heads, d, causal, sm_scale, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

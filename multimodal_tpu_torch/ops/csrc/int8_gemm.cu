@@ -43,10 +43,7 @@
 // stage, then the same products and epilogue. The tensor maps are encoded per call through the
 // driver's cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPoint (no -lcuda).
 
-#include <cuda.h>  // CUtensorMap and its enums; no driver function is linked
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"  // mbarriers, TMA, the wgmma fence / commit / wait and descriptor
 
 namespace {
 
@@ -57,81 +54,13 @@ constexpr int kTileBytes = kBM * kBK;  // one operand's stage: 16 KB (kBN == kBM
 constexpr int kStageBytes = 2 * kTileBytes;
 constexpr int kSmemBytes = kStages * kStageBytes + 1024 + kStages * 8;  // + alignment, barriers
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// spins until the phase of the given parity has completed; a copy that never lands traps
-// (a failed launch) after ~2^22 tries instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  for (uint32_t tries = 0;; ++tries) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (tries == (1u << 22)) __trap();
-  }
-}
-
-// one box of a 2-D tensor map into shared memory; bytes reported to bar
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int k0,
-                                         int row0) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(k0), "r"(row0)
-      : "memory");
-}
-
 // stage s <- K step kt of both operands' tiles (one thread)
 __device__ __forceinline__ void load_stage(unsigned char* smem, uint64_t* full, int s, int kt,
                                             const CUtensorMap* map_a, const CUtensorMap* map_b,
                                             int m0, int n0) {
   mbar_expect_tx(&full[s], kStageBytes);
-  tma_load(smem + s * kStageBytes, map_a, &full[s], kt * kBK, m0);
-  tma_load(smem + s * kStageBytes + kTileBytes, map_b, &full[s], kt * kBK, n0);
-}
-
-// a K-major operand in the 128-byte swizzle: 8-row groups 1024 bytes apart
-__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
-  const uint64_t addr = smem_addr(tile);
-  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving accumulator reads or writes across a wgmma fence or wait
-__device__ __forceinline__ void fence_acc(int (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+  tma_load_2d(smem + s * kStageBytes, map_a, &full[s], kt * kBK, m0);
+  tma_load_2d(smem + s * kStageBytes + kTileBytes, map_b, &full[s], kt * kBK, n0);
 }
 
 // d[64 x 128] (+)= a[64 x 32] . b[128 x 32]^T, int8 -> int32, both from shared memory
@@ -307,7 +236,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int total = mine * ktiles;  // K steps of all this block's tiles
     if (tid == 0) {
       for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      mbar_init_fence();
     }
     __syncthreads();
     if (tid == 0)
@@ -355,29 +284,6 @@ __global__ void __launch_bounds__(kThreads, 2)
       store_tile<TOut, kStore>(acc, y, sx, sw, bias, m, n, m0 + warp_row, n0, lane);
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled tensor_map_encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess && p != nullptr)
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
 }
 
 // [rows, k] int8, K-major, boxes of 128 rows x 128 bytes in the 128-byte swizzle

@@ -5,10 +5,11 @@ Port of ``multimodal_tpu/ops/flash_attention.py``. ``FlashAttention`` is a
 ``torch.autograd.Function`` that saves (q, k, v, out, lse), as the reference's custom VJP
 does, and rebuilds the probability tiles from ``lse`` in its backward. On a CUDA tensor the
 forward launches the hand-written forward kernel and the backward the dQ and the dK/dV
-kernels (``ops/csrc/flash_attention.cu``; all three multiply on the tensor cores, bf16
-operands in bfloat16 and 3xTF32 in float32), which read the ``[B, S, H, D]`` tensors in
-place; on a CPU tensor they run ``flash_attention_reference`` and ``flash_attention_bwd_reference``,
-the plain PyTorch versions of the same math, which are also what the on-card comparison holds
+kernels (``ops/csrc/flash_attention.cu``; all three multiply on the tensor cores: in bfloat16
+the forward and dK/dV by ``wgmma`` fed by TMA, dQ by ``mma.sync``; in float32 3xTF32), which
+read the ``[B, S, H, D]`` tensors in place; on a CPU tensor they run
+``flash_attention_reference`` and ``flash_attention_bwd_reference``, the plain PyTorch
+versions of the same math, which are also what the on-card comparison holds
 the kernels to. ``ops.attention.attention`` reaches this operator for causal self-attention
 from ``MIN_FLASH_SEQ`` tokens up.
 
@@ -20,7 +21,9 @@ only for sq == sk. Rounding points: the row sum ``l`` takes the unrounded p = ex
 the accumulator takes round(p) @ v, and the division by ``l`` comes last; in the backward
 ``delta`` comes from the rounded ``out``, dv from round(P), ds = round(P (dp - delta)), and dq
 and dk are scaled by ``sm_scale`` per key or query tile in f32 before they are summed (the
-kernels scale once at the store: a difference of summation order only). The
+kernels scale once at the store: a difference of summation order only); the bfloat16 forward
+kernel folds ``sm_scale`` into its exponent, p = 2^(t c - max(t) c) for the unscaled logit t
+and c = sm_scale log2(e), about one float32 ulp of the exponent from exp(s - m). The
 reference's transposes to [B, H, S, D], its pads of Sq and Sk and its 128-lane copies of lse
 and delta are TPU tiling and are not ported. The kernels take head dims that are multiples of
 8; on a CUDA tensor ``FlashAttention`` zero-pads any other D up to the next one (zero columns
@@ -142,10 +145,10 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, *, causal: bool = False
 
 def _check_kernel_operands(q, k, v, like_q=(), rows=()):
     """What the CUDA kernels take: [B, S, H, D] tensors of one dtype (float32 or bfloat16) on
-    one device, contiguous and 16-byte aligned (the kernels load them by 16-byte
-    ``cp.async``), k and v of one shape that differs from q's in S at most, D a multiple of 8
-    up to 128; ``like_q`` tensors (do) shaped as q, ``rows`` (lse, delta) float32 [B, H, Sq].
-    Raises otherwise, naming the operand."""
+    one device, contiguous and 16-byte aligned (the kernels load them by 16-byte ``cp.async``
+    or, the bfloat16 forward and dK/dV, through TMA tensor maps), k and v of one shape that
+    differs from q's in S at most, D a multiple of 8 up to 128; ``like_q`` tensors (do) shaped
+    as q, ``rows`` (lse, delta) float32 [B, H, Sq]. Raises otherwise, naming the operand."""
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash_attention kernel takes float32 or bfloat16, got {q.dtype}")
     if q.dim() != 4 or k.dim() != 4:

@@ -149,6 +149,59 @@ def test_gemm_hmma_faults_name_each_instantiation_off_its_tensor_core_form():
     assert faults[1] == "mma_gemm_kernel<float, float, NN, plain, round>: no HMMA"
 
 
+# the bfloat16 wgmma flash kernels, as nvcc 12 mangles and cuobjdump prints them
+WGMMA_FWD = ("_ZN51_GLOBAL__N__3c14b842_18_flash_attention_cu_3b8c1c3316flash_fwd_kernelINS_8"
+             "WgmmaOpsILi64EEEEEvNT_4MapsEP13__nv_bfloat16Pfiiifi")
+WGMMA_DKV = ("_ZN51_GLOBAL__N__3c14b842_18_flash_attention_cu_3b8c1c3316flash_dkv_kernelINS_8"
+             "WgmmaOpsILi128EEEEEvNT_4MapsEPKfS6_P13__nv_bfloat16S8_iiifi")
+
+
+def test_flash_wgmma_faults_hold_the_bf16_forward_and_dkv_to_wgmma():
+    """Phase 2 fails on a bfloat16 flash forward or dK/dV instantiation with an HMMA or
+    without a GMMA, and when either kernel has no bfloat16 instantiation; dQ and the float32
+    forms keep their mma.sync (HMMA) and are not held to it."""
+    assert cs.kernel_label(WGMMA_FWD) == "flash_fwd_kernel<WgmmaOps<64>>"
+    assert cs.kernel_label("Function : " + WGMMA_DKV) == "flash_dkv_kernel<WgmmaOps<128>>"
+    ok = "\n".join([
+        f"\t\tFunction : {WGMMA_FWD}",
+        "        /*0100*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;",
+        "        /*0110*/                   HGMMA.64x64x16.F32.BF16 R88, R152, gdesc[UR8], R88 ;",
+        f"\t\tFunction : {WGMMA_DKV}",
+        "        /*0100*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;",
+        f"\t\tFunction : {FLASH_DQ}",
+        "        /*0100*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;",
+        f"\t\tFunction : {FLASH_DKV}",  # dK/dV on Bf16Ops: not a WgmmaOps form, but bfloat16
+        "        /*0100*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;",
+    ])
+    faults = cs.flash_wgmma_faults(ok)
+    assert faults == ["flash_dkv_kernel<Bf16Ops<128>>: {'HMMA.16816.F32.BF16': 1}"]
+    assert cs.flash_wgmma_faults(ok.rsplit("\t\tFunction", 1)[0]) == []
+    assert "flash_fwd_kernel<WgmmaOps<64>>: HGMMA.64x128x16.F32.BF16 x 1, " \
+           "HGMMA.64x64x16.F32.BF16 x 1" in cs.hmma_report(ok)
+    mixed = "\n".join([
+        f"\t\tFunction : {WGMMA_FWD}",
+        "        /*0100*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;",
+        "        /*0110*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;",
+        f"\t\tFunction : {WGMMA_DKV}",
+        "        /*0100*/                   FFMA R4, R8, R12, R4 ;",
+    ])
+    faults = cs.flash_wgmma_faults(mixed)
+    assert len(faults) == 2 and faults[0].startswith("flash_dkv_kernel<WgmmaOps<128>>: no ")
+    assert faults[1].startswith("flash_fwd_kernel<WgmmaOps<64>>: {") and "HMMA" in faults[1]
+    assert cs.flash_wgmma_faults(f"\t\tFunction : {FLASH_DQ}\n") == [
+        "flash_fwd_kernel: no bfloat16 instantiation",
+        "flash_dkv_kernel: no bfloat16 instantiation"]
+
+
+def test_flash_edge_cases_cross_the_wgmma_tiles():
+    """Phase 3's bfloat16 edge cases: one short of and one past the 128-row blocks and their
+    64-row halves, causal and not, at every head dim class."""
+    shapes = {(s, d, causal) for _, _, s, sk, _, d, causal in cs.FLASH_EDGE_CASES if s == sk}
+    assert len(cs.FLASH_EDGE_CASES) == len(shapes) == 40
+    assert {s for s, _, _ in shapes} == {127, 129, 255, 257}
+    assert {d for _, d, _ in shapes} == {8, 24, 64, 96, 128}
+
+
 def test_flash_bound_and_rate():
     """B=8 S=2048 H=8 D=64 causal: dQ forms three products of 2 x pairs x D FLOPs (51.5
     GFLOP), dK/dV four, the forward two; all are bound by operations; the float32 trio's bound

@@ -25,6 +25,7 @@ JAX is imported inside the helpers, so the CUDA cases also run where JAX is abse
 """
 
 import functools
+import math
 
 import numpy as np
 import pytest
@@ -368,6 +369,10 @@ def tile_walk_dq(q, k, v, do, lse, delta, *, causal, scale):
 
 
 def tile_walk_dkv(q, k, v, do, lse, delta, *, causal, scale):
+    """The dK/dV kernel's schedule: bfloat16 runs ``wgmma_walk_dkv``, float32 the mma.sync
+    walk below."""
+    if q.dtype == torch.bfloat16:
+        return wgmma_walk_dkv(q, k, v, do, lse, delta, causal=causal, scale=scale)
     dt, f32 = q.dtype, torch.float32
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -450,18 +455,20 @@ def test_tile_walk_is_the_plain_backward_in_float32():
 
 
 def tile_walk_fwd(q, k, v, *, causal, scale):
-    """The forward kernel's schedule: (out, lse). Blocks of WARPS warps, the warps' rows as in
-    the dQ kernel; each warp walks the key tiles (64 keys in bfloat16, 32 in float32) below
-    the block's causal bound, skipping those past its own, with an online softmax: logits over
-    the live n-tiles, the mask tests only on an edge tile, the running max m and the sum l of
-    the unrounded p, the accumulator rescaled and += round_T(p) @ v over the k-steps below the
-    warp's bound; out = acc / l and lse = m + log(l)."""
+    """The forward kernel's schedule: (out, lse). bfloat16 runs ``wgmma_walk_fwd``. float32:
+    blocks of WARPS warps, the warps' rows as in the dQ kernel; each warp walks the key tiles
+    of 32 keys below the block's causal bound, skipping those past its own, with an online
+    softmax: logits over the live n-tiles, the mask tests only on an edge tile, the running max
+    m and the sum l of the unrounded p, the accumulator rescaled and += p @ v over the k-steps
+    below the warp's bound; out = acc / l and lse = m + log(l)."""
+    if q.dtype == torch.bfloat16:
+        return wgmma_walk_fwd(q, k, v, causal=causal, scale=scale)
     dt, f32 = q.dtype, torch.float32
     b, sq, h, d = q.shape
     sk = k.shape[1]
     qh, kh, vh = (t.transpose(1, 2).to(f32) for t in (q, k, v))
     wr = _warp_rows(dt, d)
-    kt_rows = 64 if dt == torch.bfloat16 else 32
+    kt_rows = 32
     out, lse = torch.zeros_like(qh), torch.zeros(b, h, sq)
     for r0 in range(0, sq, wr * WARPS):
         rows = min(wr * WARPS, sq - r0)
@@ -537,6 +544,174 @@ def test_tile_walk_fwd_matches_jax_kernel_and_plain(sq, sk, causal, d, dtype_nam
         for name, g, r in zip(("out", "lse"), got, ref):
             err = np.abs(g.float().numpy() - r).max()
             assert err <= tol * np.abs(r).max(), (name, err, np.abs(r).max())
+
+
+# ------------------------------------------------------------ the wgmma schedules (bfloat16)
+# The bfloat16 forward and dK/dV kernels (flash_fwd_kernel<WgmmaOps>, flash_dkv_kernel<WgmmaOps>)
+# as plain torch: blocks of two warpgroups of 64 rows (four warps of 16), tiles of 128 keys in
+# the forward (64 above D=64) and of 32 query rows in dK/dV (16 above D=64), every column of a
+# tile formed (zeros past the tensor's end, as TMA fills them), every tile below the block's
+# bound (the masks zero what a row does not see), the mask tests only on a tile the kernel
+# calls an edge tile for the warp, bf16 rounding where the kernels pack (p for p v and for dv,
+# ds for dk), the forward's sm_scale folded into its exponent (p = 2^(t c - m c), t the
+# unscaled logit) and dK's once at the store. Written for any dtype: in float32 rounding is the
+# identity and the walk differs from the plain versions by the order of the sums only.
+WG_ROWS, WG_WARPS, WARP_ROWS = 64, 2, 16
+
+
+def _fwd_keys(d):
+    """Keys of a forward tile: 128, or 64 above D=64 (the kernel's registers)."""
+    return 128 if d <= 64 else 64
+
+
+def _dkv_rows(d):
+    """Query rows of a dK/dV tile: 32, or 16 above D=64 (the kernel's registers)."""
+    return 32 if d <= 64 else 16
+
+
+def wgmma_walk_fwd(q, k, v, *, causal, scale):
+    dt, f32 = q.dtype, torch.float32
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    qh, kh, vh = (t.transpose(1, 2).to(f32) for t in (q, k, v))
+    block, keys = WG_ROWS * WG_WARPS, _fwd_keys(d)
+    c = scale * math.log2(math.e)  # the forward folds sm_scale into the exponent
+    out, lse = torch.zeros_like(qh), torch.zeros(b, h, sq)
+    for r0 in range(0, sq, block):
+        rows = min(block, sq - r0)
+        kmax = min(sk, r0 + rows) if causal else sk
+        for wrow in range(0, rows, WARP_ROWS):
+            rs = slice(r0 + wrow, min(r0 + wrow + WARP_ROWS, sq))
+            row = torch.arange(rs.start, rs.stop)[:, None]
+            m = torch.full((b, h, row.shape[0], 1), NEG_INF)
+            l = torch.zeros_like(m)
+            acc = torch.zeros(b, h, row.shape[0], d)
+            for c0 in range(0, kmax, keys):
+                kt, vt = _rows_tile(kh, c0, keys), _rows_tile(vh, c0, keys)
+                s = qh[:, :, rs] @ kt.transpose(-1, -2)  # unscaled: the scale is in exp2's c
+                if c0 + keys > kmax or (causal and c0 + keys - 1 > r0 + wrow):
+                    key = c0 + torch.arange(keys)[None, :]
+                    s = torch.where((key < kmax) & ((key <= row) | (not causal)), s, NEG_INF)
+                m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+                p = torch.exp2(s * c - m_new * c)
+                alpha = torch.exp2(m * c - m_new * c)
+                l = l * alpha + p.sum(dim=-1, keepdim=True)
+                acc = acc * alpha + p.to(dt).to(f32) @ vt
+                m = m_new
+            safe_l = torch.where(l == 0, torch.ones_like(l), l)
+            out[:, :, rs] = acc / safe_l
+            lse[:, :, rs] = (m * scale + torch.log(safe_l))[..., 0]
+    return out.to(dt).transpose(1, 2), lse
+
+
+def wgmma_walk_dkv(q, k, v, do, lse, delta, *, causal, scale):
+    dt, f32 = q.dtype, torch.float32
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    qh, kh, vh, doh = (t.transpose(1, 2).to(f32) for t in (q, k, v, do))
+    lse, delta = lse[..., None, :].float(), delta[..., None, :].float()  # per column
+    block, rows = WG_ROWS * WG_WARPS, _dkv_rows(d)
+    dk, dv = torch.zeros_like(kh), torch.zeros_like(vh)
+    for j0 in range(0, sk, block):
+        for wg_key in range(j0, min(j0 + block, sk), WG_ROWS):
+            for warp_key in range(wg_key, min(wg_key + WG_ROWS, sk), WARP_ROWS):
+                ks = slice(warp_key, min(warp_key + WARP_ROWS, sk))
+                key = torch.arange(ks.start, ks.stop)[:, None]
+                acc_k = torch.zeros(b, h, key.shape[0], d)
+                acc_v = torch.zeros_like(acc_k)
+                for q0 in range(j0 if causal else 0, sq, rows):
+                    qt, dot = _rows_tile(qh, q0, rows), _rows_tile(doh, q0, rows)
+                    lt = _rows_tile(lse.transpose(-1, -2), q0, rows).transpose(-1, -2)
+                    dlt = _rows_tile(delta.transpose(-1, -2), q0, rows).transpose(-1, -2)
+                    p = torch.exp(kh[:, :, ks] @ qt.transpose(-1, -2) * scale - lt)
+                    dpt = vh[:, :, ks] @ dot.transpose(-1, -2)
+                    if (q0 + rows > sq or warp_key + WARP_ROWS > sk
+                            or (causal and warp_key + WARP_ROWS - 1 > q0)):
+                        row = q0 + torch.arange(rows)[None, :]
+                        p = torch.where((row < sq) & ((key <= row) | (not causal)), p, 0.0)
+                    ds = p * (dpt - dlt)
+                    acc_v += p.to(dt).to(f32) @ dot
+                    acc_k += ds.to(dt).to(f32) @ qt
+                dk[:, :, ks], dv[:, :, ks] = acc_k, acc_v
+    return (dk * scale).to(dt).transpose(1, 2), dv.to(dt).transpose(1, 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_bwd(b, sq, sk, h, d, causal, dtype_name, seed=0):
+    """(dq, dk, dv) [B, S, H, D] of the JAX package's _dq_kernel and _dkv_kernel, through _bwd
+    on its own forward's residuals, as float32 numpy."""
+    import jax.numpy as jnp
+
+    from multimodal_tpu.ops import flash_attention as jfl
+
+    dt = jnp.float32 if dtype_name == "float32" else jnp.bfloat16
+    q, k, v, do = (jnp.asarray(a, dt) for a in _qkv(b, sq, sk, h, d, seed))
+    bq, bk = jfl._block_sizes(sq, sk)
+
+    def prep(x, s_p):
+        x = jnp.transpose(x, (0, 2, 1, 3))
+        return jnp.pad(x, ((0, 0), (0, 0), (0, s_p - x.shape[2]), (0, 0)))
+
+    sq_p, sk_p = jfl._round_up(sq, bq), jfl._round_up(sk, bk)
+    qp, kp, vp = prep(q, sq_p), prep(k, sk_p), prep(v, sk_p)
+    out, lse = jfl._fwd(qp, kp, vp, causal, d ** -0.5, sk)
+    grads = jfl._bwd(causal, d ** -0.5, sk, (qp, kp, vp, out, lse), prep(do, sq_p))
+    return tuple(np.asarray(g[:, :, :n].astype(jnp.float32)).transpose(0, 2, 1, 3)
+                 for g, n in zip(grads, (sq, sk, sk)))
+
+
+# lengths one short of and one past the 128-row blocks and key tiles, on either side of a
+# second block (and of the warpgroups' 64-row halves, the dK/dV query tiles' 32 and 16 rows)
+EDGE_LENGTHS = [127, 129, 255, 257]
+
+
+def _hold(got, refs, names, tol):
+    """Each output of ``got`` (tensors) within ``tol`` x max|reference| of every reference."""
+    for ref in refs:
+        for name, g, r in zip(names, got, ref):
+            err = np.abs(g.float().numpy() - r).max()
+            assert err <= tol * np.abs(r).max(), (name, err, np.abs(r).max())
+
+
+@pytest.mark.parametrize("d", [8, 24, 64, 96, 128])
+@pytest.mark.parametrize("s", EDGE_LENGTHS)
+@pytest.mark.parametrize("causal", [False, True])
+def test_wgmma_walks_match_jax_kernels_and_plain_at_the_tile_edges_bf16(s, causal, d):
+    """The bfloat16 kernels' schedules at the new tiles' edges, every head dim class (one
+    64-column box or two, zero columns past D): the forward walk against the JAX _fwd_kernel
+    (interpret mode) and the plain forward, the dK/dV walk against the JAX _dkv_kernel and the
+    plain backward, within 2e-2 x max|reference| (the card's limit)."""
+    q, k, v, do, lse, delta = _walk_inputs(1, s, s, 2, d, causal, torch.bfloat16)
+    kw = dict(causal=causal, scale=d ** -0.5)
+    plain = fl.flash_attention_reference(q, k, v, causal=causal)
+    _hold(wgmma_walk_fwd(q, k, v, **kw),
+          (_jax_fwd(1, s, s, 2, d, causal, "bfloat16"), tuple(t.float().numpy() for t in plain)),
+          ("out", "lse"), 2e-2)
+    plain = fl.flash_attention_bwd_reference(q, k, v, None, lse, do, causal=causal,
+                                             delta=delta)
+    _hold(wgmma_walk_dkv(q, k, v, do, lse, delta, **kw),
+          (_jax_bwd(1, s, s, 2, d, causal, "bfloat16")[1:],
+           tuple(t.float().numpy() for t in plain[1:])), ("dk", "dv"), 2e-2)
+
+
+@pytest.mark.parametrize("sq,sk,causal,d", [(127, 129, True, 24), (257, 129, True, 96),
+                                            (129, 255, False, 64), (255, 257, True, 128),
+                                            (257, 257, False, 8), (129, 129, True, 64)])
+def test_wgmma_walks_match_jax_kernels_and_plain_f32(sq, sk, causal, d):
+    """The same schedules on float32 inputs, where they differ from the JAX kernels and the
+    plain versions by the order of the sums only: within 1e-5 x max|reference|, at cross and
+    square lengths past the tiles' edges."""
+    q, k, v, do, lse, delta = _walk_inputs(1, sq, sk, 2, d, causal, torch.float32)
+    kw = dict(causal=causal, scale=d ** -0.5)
+    plain = fl.flash_attention_reference(q, k, v, causal=causal)
+    _hold(wgmma_walk_fwd(q, k, v, **kw),
+          (_jax_fwd(1, sq, sk, 2, d, causal, "float32"), tuple(t.numpy() for t in plain)),
+          ("out", "lse"), 1e-5)
+    plain = fl.flash_attention_bwd_reference(q, k, v, None, lse, do, causal=causal,
+                                             delta=delta)
+    _hold(wgmma_walk_dkv(q, k, v, do, lse, delta, **kw),
+          (_jax_bwd(1, sq, sk, 2, d, causal, "float32")[1:], tuple(t.numpy() for t in plain[1:])),
+          ("dk", "dv"), 1e-5)
 
 
 # ----------------------------------------------------------------------------- 3xTF32
@@ -640,6 +815,16 @@ def test_3xtf32_forward_holds_the_float32_limit_and_one_tf32_product_does_not(s,
     assert one[0] > 20 * three[0]
 
 
+def test_bench_flash_refuses_without_a_card(monkeypatch):
+    """``python -m multimodal_tpu_torch.bench_flash`` times the kernels on the card only: with
+    no CUDA device it stops with its reason and times nothing on the CPU."""
+    from multimodal_tpu_torch import bench_flash
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs an NVIDIA GPU"):
+        bench_flash.main([])
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -651,6 +836,10 @@ def cuda_device():
 CUDA_SHAPES = [(2, 300, 300, 4, 64, True), (2, 300, 300, 4, 64, False),
                (1, 2050, 2050, 2, 64, True), (1, 40, 72, 2, 64, True), (1, 72, 40, 2, 64, True),
                (2, 257, 257, 3, 80, True), (1, 500, 500, 2, 128, False), (1, 63, 65, 1, 8, False)]
+# the bfloat16 wgmma kernels' tile edges (128-row blocks and key tiles, 64-row warpgroups and
+# dK/dV query tiles) at every head dim class
+CUDA_SHAPES += [(2, s, s, 3, d, causal) for s in EDGE_LENGTHS for causal in (False, True)
+                for d in (8, 24, 64, 96, 128)]
 
 
 @pytest.mark.cuda

@@ -20,6 +20,7 @@ def test_port_imports_without_jax():
         "import multimodal_tpu_torch.models.checkpoint_interop\n"
         "import multimodal_tpu_torch.ops.flash_attention, multimodal_tpu_torch.models.layers\n"
         "import multimodal_tpu_torch.ops.block_mlp, multimodal_tpu_torch.profile_step\n"
+        "import multimodal_tpu_torch.bench_flash\n"
         "import multimodal_tpu_torch.ops.sphere, multimodal_tpu_torch.ops.bessel\n"
         "import multimodal_tpu_torch.ops.draws, multimodal_tpu_torch.distributions\n"
         "import multimodal_tpu_torch.distributions.power_spherical\n"
