@@ -11,12 +11,15 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      and from the SASS the passes' HMMA / LDSM / LDGSTS counts and the tensor-core
      instructions by form of each flash kernel and of every instantiation of the projection
      GEMM (mma_gemm_kernel<T, TOut, form, load, store>: the block forward's and backward's,
-     the MLP's c_fc, c_proj, dh, dln and weight gradients; HMMA.16816.F32.BF16 in bfloat16,
+     the MLP's float32 c_fc, c_proj, dh, dln and weight gradients; HMMA.16816.F32.BF16 in bfloat16,
      HMMA.1688.F32.TF32 for float32's 3xTF32; a GEMM instantiation with no HMMA or another
      form fails), and the wgmma instructions (GMMA) of each int8 GEMM instantiation (none
      fails); every bfloat16 instantiation of the flash forward and of dK/dV
-     (flash_fwd_kernel<WgmmaOps<..>>, flash_dkv_kernel<WgmmaOps<..>>) must hold wgmma (HGMMA)
-     and no HMMA, or the phase fails before any launch;
+     (flash_fwd_kernel<WgmmaOps<..>>, flash_dkv_kernel<WgmmaOps<..>>) and all seven of the fused
+     MLP's bfloat16 GEMM (wgmma_gemm_kernel<bfloat16, TOut, form, load, store>: c_fc, c_proj
+     with and without the residual, dh, dln, dW2, dW1) must hold wgmma (HGMMA) and no HMMA, or
+     the phase fails before any launch; the MLP's float32 instantiations of mma_gemm_kernel are
+     held to 3xTF32 with the block kernels';
   3. every kernel against its plain PyTorch version on the card, every output, in float32
      (max abs error <= 1e-4 * max|plain|) and bfloat16 (<= 2e-2 * max|plain|), with
      CUDA-event times at B=256: the block-attention forward and backward at the ViT-B/32
@@ -44,7 +47,10 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      3xTF32, the flash trio, the block pair in both forms and the MLP pair, at the 3xTF32
      ceiling, 495 / 3 TFLOP/s, and at the CUDA cores' 67 beside it); in bfloat16 also the
      wgmma flash kernels' tile edges, Sq = Sk = 127, 129, 255 and 257, causal and not, at
-     D = 8, 24, 64, 96 and 128 (FLASH_EDGE_CASES); the timed flash and fused kernels, those
+     D = 8, 24, 64, 96 and 128 (FLASH_EDGE_CASES), and the fused MLP's edges on its wgmma GEMM
+     (MLP_EDGE_CASES: T = 1, 63, 65, 127, 129, 255, 257 and 4607-5121 around a weight-gradient
+     split's edge, W = 128-1024, H = 128 and 3072, both activations, with and without the
+     residual); the timed flash and fused kernels, those
      edge cases and every block and MLP case launched twice and compared bit for bit,
      every output; the block backward's recomputed q, k, v compared bit for bit with the
      forward's, both forms and dtypes; the float32 flash forward at S=8192; then the flash
@@ -377,6 +383,29 @@ MLP_CASES = [  # (case, batch, seq, width, hidden, act); T = batch * seq token r
     ("mlp-L14", 64, 257, 1024, 4096, "gelu"),
     ("mlp-ragged", 3, 197, 768, 3072, "quick_gelu"),
 ]
+# bfloat16 only: the edges of the wgmma GEMM under the fused MLP (ops/csrc/wgmma_gemm.cuh):
+# T one short of and one past its 128-row tiles of M and the weight gradients' 64-row K-steps
+# over T, at W = 128-1024 and H = 128 and 3072; and, at W = H = 128 (one output tile, so a
+# bfloat16 split is T // 512 rows, ops/block_mlp.py:_wgrad_splits), T around a split's edge:
+# 8 splits of 576 rows (the last 575), 9 of 512, 9 of 576 (the last one row), 10 asked of which
+# 9 hold rows (the tenth is zeroed). Each with and without the residual, within 2e-2 x
+# max|plain| on every output, a second launch the same bits; not timed
+MLP_EDGE_CASES = [  # (case, batch, seq, width, hidden, act)
+    ("mlp-edge-T1", 1, 1, 128, 128, "quick_gelu"),
+    ("mlp-edge-T1", 1, 1, 768, 3072, "gelu"),
+    ("mlp-edge-T63", 1, 63, 512, 128, "gelu"),
+    ("mlp-edge-T65", 1, 65, 512, 3072, "quick_gelu"),
+    ("mlp-edge-T127", 1, 127, 768, 3072, "quick_gelu"),
+    ("mlp-edge-T129", 1, 129, 768, 3072, "gelu"),
+    ("mlp-edge-T127", 1, 127, 1024, 128, "gelu"),
+    ("mlp-edge-T129", 1, 129, 1024, 3072, "quick_gelu"),
+    ("mlp-edge-T255", 1, 255, 128, 3072, "gelu"),
+    ("mlp-edge-T257", 1, 257, 128, 128, "quick_gelu"),
+    ("mlp-edge-T4607", 1, 4607, 128, 128, "gelu"),
+    ("mlp-edge-T4608", 1, 4608, 128, 128, "quick_gelu"),
+    ("mlp-edge-T4609", 1, 4609, 128, 128, "gelu"),
+    ("mlp-edge-T5121", 1, 5121, 128, 128, "quick_gelu"),
+]
 FLASH_CASES = [  # (case, batch, sq, sk, heads, head_dim, causal, timed)
     ("flash-S2048", 1, 2048, 2048, 8, 64, True, False),
     ("flash-S2048", 8, 2048, 2048, 8, 64, True, True),  # the text tower's call at B=8
@@ -684,7 +713,8 @@ def kernel_cases(torch, ba, fa, bm, fl, dtype):
                 lambda grads: packed(grads[0])), {},
                ("dq", "dk", "dv"),
                fused_bound("fused_attention_bwd", b, s, heads, d, causal, name))
-    for case, b, s, w, hid, act in MLP_CASES:
+    mlp_edges = MLP_EDGE_CASES if dtype == torch.bfloat16 else []
+    for case, b, s, w, hid, act in MLP_CASES + mlp_edges:
         t = b * s
         g = torch.Generator(device="cuda").manual_seed(t + hid)
         rnd = lambda *shape: torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
@@ -703,7 +733,7 @@ def kernel_cases(torch, ba, fa, bm, fl, dtype):
         matmul = {"block_mlp_fwd": lambda: (ln @ w1, g_act @ w2),
                   "block_mlp_bwd": lambda: (dy @ w2.T, dh @ w1.T, g_act.T @ dy, ln.T @ dh)}
         for residual in (True, False):
-            timed = residual and case != "mlp-ragged"
+            timed = residual and case != "mlp-ragged" and not case.startswith("mlp-edge")
             kw = dict(act=act, residual=residual)
             shape = f"T={b}x{s} W={w} H={hid} act={act} residual={residual!s:<5}"
             yield ("block_mlp_fwd", case, shape, timed,
@@ -1159,6 +1189,29 @@ def flash_wgmma_faults(sass: str) -> list[str]:
         if any(f.startswith("HMMA") for f in forms) or not any("GMMA" in f for f in forms):
             faults.append(f"{name}: {forms or 'no tensor-core instructions'}")
     return faults + [f"{k}: no bfloat16 instantiation" for k in WGMMA_FLASH if k not in seen]
+
+
+# the bfloat16 GEMM of the fused MLP: c_fc, c_proj with and without the residual, dh, dln, dW2
+# and dW1, each its own instantiation of wgmma_gemm_kernel
+MLP_WGMMA_INSTANTIATIONS = 7
+
+
+def mlp_wgmma_faults(sass: str) -> list[str]:
+    """The instantiations of the fused MLP's bfloat16 GEMM (wgmma_gemm_kernel) whose products are
+    not all wgmma: one with an HMMA, or with no GMMA, is a fault, and so is a build with fewer
+    instantiations than the MLP launches. The float32 MLP keeps mma_gemm_kernel (3xTF32), held by
+    ``gemm_hmma_faults``."""
+    faults, seen = [], 0
+    for name, forms in sorted(hmma_forms(sass).items()):
+        if not name.startswith("wgmma_gemm_kernel<"):
+            continue
+        seen += 1
+        if any(f.startswith("HMMA") for f in forms) or not any("GMMA" in f for f in forms):
+            faults.append(f"{name}: {forms or 'no tensor-core instructions'}")
+    if seen < MLP_WGMMA_INSTANTIATIONS:
+        faults.append(f"{seen} wgmma_gemm_kernel instantiations in the SASS, "
+                      f"{MLP_WGMMA_INSTANTIATIONS} expected")
+    return faults
 
 
 def int8_gmma_counts(sass: str) -> dict[str, int]:
@@ -3981,6 +4034,9 @@ def main() -> int:
         faults = flash_wgmma_faults(sass)
         if faults:
             fail(f"bfloat16 flash forward or dK/dV instantiations off wgmma: {faults}")
+        faults = mlp_wgmma_faults(sass)
+        if faults:
+            fail(f"bfloat16 fused-MLP GEMM instantiations off wgmma: {faults}")
         gmma = int8_gmma_counts(sass)
         print(f"  sass int8_gemm_kernel wgmma (GMMA) instructions by instantiation: {gmma}",
               flush=True)

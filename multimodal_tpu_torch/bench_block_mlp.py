@@ -1,7 +1,7 @@
 """How many blocks the fused MLP backward's weight-gradient launches should aim for, and
 where the forward's time goes.
 
-    python -m multimodal_tpu_torch.bench_block_mlp [--forward]
+    python -m multimodal_tpu_torch.bench_block_mlp [--forward] [--root DIR] [--tag T]
 
 The backward kernel forms dW1 and dW2 as products over the token rows, split into runs of
 rows with one f32 partial sum each (``ops/block_mlp.py:_wgrad_splits``). This script times
@@ -12,17 +12,22 @@ setting (the largest error / max|plain| beside each time), and prints the card's
 power limit beside the times. With ``--forward`` it times the forward call instead, at the
 same shapes, both dtypes, with the residual: the whole call by CUDA events, and by
 ``torch.profiler`` the device time of c_fc, of c_proj and of the rest (row statistics, the
-wrapper's casts), with the two products' TFLOP/s. It needs an NVIDIA GPU.
+wrapper's casts), with the two products' TFLOP/s.
+
+``--root DIR`` imports ``multimodal_tpu_torch`` from DIR instead of this checkout, so that two
+trees (a parent commit unpacked with ``git archive``, a patched copy) are timed by the same
+script in one call, in turns; ``--tag`` labels every line (default: the root). It needs an
+NVIDIA GPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import subprocess
+import sys
 
 import torch
-
-from multimodal_tpu_torch.ops._build import gemm_signature
 
 SHAPES = [  # (name, token rows, width, hidden, act)
     ("B/32 vision", 256 * 50, 768, 3072, "quick_gelu"),
@@ -56,19 +61,22 @@ def _events_ms(run, iters: int = 8) -> float:
 
 
 def launch_of(kernel: str) -> str:
-    """The forward's launch a kernel name stands for: the projection GEMM's instantiation with
-    the LN load is c_fc (h and g), any other instantiation c_proj; anything else is "other"
-    (the row statistics, the wrapper's casts of gamma and beta)."""
+    """The forward's launch a kernel name stands for: the projection GEMM's instantiation
+    with the LN load (mma_gemm_kernel, or wgmma_gemm_kernel in bfloat16) is c_fc (h and g),
+    any other instantiation c_proj; anything else is "other" (the row statistics, the
+    wrapper's casts of gamma and beta)."""
+    from multimodal_tpu_torch.ops._build import gemm_signature
+
     signature = gemm_signature(kernel)
     if signature is None:
         return "other"
     return "c_fc" if signature[3] == "LN" else "c_proj"
 
 
-def forward(bm, card: str):
+def forward(bm, card: str, tag: str):
     iters = 8
-    print(f"block_mlp forward with the residual: ms per call (CUDA events), device ms of each "
-          f"launch (torch.profiler over {iters} calls) and the products' TFLOP/s [{card}]")
+    print(f"[{tag}] block_mlp forward with the residual: ms per call (CUDA events), device ms of "
+          f"each launch (torch.profiler over {iters} calls) and the products' TFLOP/s [{card}]")
     for dtype in (torch.float32, torch.bfloat16):
         for name, t, w, hid, act in SHAPES:
             x, _, gamma, beta, w1, b1, w2, b2 = _operands(t, w, hid, dtype)
@@ -94,27 +102,38 @@ def forward(bm, card: str):
                 us = ev.self_cuda_time_total if us is None else us
                 parts[launch_of(ev.key)] += us / 1e3 / iters
             gflop = 2 * t * w * hid / 1e9
-            print(f"  {name} T={t} W={w} H={hid} {act} {str(dtype).replace('torch.', '')}: "
-                  f"{ms:.4f} ms; other {parts['other']:.4f}, c_fc {parts['c_fc']:.4f} "
+            print(f"[{tag}]   {name} T={t} W={w} H={hid} {act} "
+                  f"{str(dtype).replace('torch.', '')}: {ms:.4f} ms; other {parts['other']:.4f}, c_fc {parts['c_fc']:.4f} "
                   f"({gflop / parts['c_fc']:.1f} TFLOP/s), c_proj {parts['c_proj']:.4f} "
                   f"({gflop / parts['c_proj']:.1f} TFLOP/s); err {err:.1e}", flush=True)
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--forward", action="store_true")
-    args = ap.parse_args()
+    ap.add_argument("--root", default=None, help="import multimodal_tpu_torch from this tree")
+    ap.add_argument("--tag", default=None, help="the label of every line (default: the root)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_block_mlp needs an NVIDIA GPU (there is no CPU fallback)")
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
+        for name in [m for m in sys.modules if m.startswith("multimodal_tpu_torch")]:
+            del sys.modules[name]
+    from multimodal_tpu_torch.ops import _build
     from multimodal_tpu_torch.ops import block_mlp as bm
+
+    tag = args.tag or args.root or "tree"
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
+    _build.build()
+    print(f"[{tag}] block_mlp kernels from {os.path.dirname(bm.__file__)} [{card}]", flush=True)
     if args.forward:
-        forward(bm, card)
+        forward(bm, card, tag)
         return
     default = bm.WGRAD_BLOCKS
-    print(f"block_mlp backward, ms per call by weight-gradient block target "
+    print(f"[{tag}] block_mlp backward, ms per call by weight-gradient block target "
           f"(default {default}) [{card}]")
     for dtype in (torch.float32, torch.bfloat16):
         for name, t, w, hid, act in SHAPES:
@@ -133,7 +152,7 @@ def main():
                 cells.append(f"{target} (x{bm._wgrad_splits(t, w, hid, dtype)}): "
                              f"{_events_ms(run):.4f} err {err:.1e}")
             bm.WGRAD_BLOCKS = default
-            print(f"  {name} T={t} W={w} H={hid} {str(dtype).replace('torch.', '')}: "
+            print(f"[{tag}]   {name} T={t} W={w} H={hid} {str(dtype).replace('torch.', '')}: "
                   + "; ".join(cells), flush=True)
 
 

@@ -29,15 +29,16 @@ SOURCES = tuple(os.path.join(_HERE, "csrc", name) for name in (
     "flash_attention.cu", "quant.cu", "int8_gemm.cu", "resample.cu"))
 HEADERS = tuple(os.path.join(_HERE, "csrc", name) for name in (
     "block_attention_common.cuh", "attention_passes.cuh", "mma_tiles.cuh", "register_tiles.cuh",
-    "tf32_tiles.cuh", "mma_gemm.cuh", "hopper.cuh"))
+    "tf32_tiles.cuh", "mma_gemm.cuh", "hopper.cuh", "wgmma_gemm.cuh"))
 BUILD_DIR = os.path.join(_HERE, "_build_cache")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# The tensor-core GEMM's template arguments after its two types (csrc/mma_gemm.cuh): form,
-# load transform, store; each use is its own instantiation and so its own kernel name
+# The tensor-core GEMMs' template arguments after their two types (csrc/mma_gemm.cuh's
+# mma_gemm_kernel, csrc/wgmma_gemm.cuh's wgmma_gemm_kernel): form, load transform, store; each
+# use is its own instantiation and so its own kernel name
 GEMM_FORMS = ("NN", "NT", "TN")
 GEMM_LOADS = ("plain", "LN", "act", "LN-b")
 GEMM_STORES = ("round", "residual", "act'", "bias-residual", "round+act")
@@ -136,10 +137,13 @@ def load() -> ctypes.CDLL:
 
 
 def gemm_signature(kernel: str) -> tuple[str, str, str, str, str] | None:
-    """(T, TOut, form, load, store) of an ``mma_gemm_kernel`` instantiation, from its mangled
-    name (the SASS, ``-Xptxas -v``) or its demangled one (the profiler), e.g. ("bfloat16",
-    "float", "TN", "LN-b", "round"); None for any other kernel."""
-    found = re.search(r"mma_gemm_kernel<([\w:]+), ([\w:]+), (\d), (\d), (\d)>", kernel)
+    """(T, TOut, form, load, store) of an ``mma_gemm_kernel`` or ``wgmma_gemm_kernel``
+    instantiation, from its mangled name (the SASS, ``-Xptxas -v``) or its demangled one (the
+    profiler), e.g. ("bfloat16", "float", "TN", "LN-b", "round"); None for any other kernel.
+    ``"wgmma_gemm_kernel" in kernel`` tells the two GEMMs apart; the wgmma GEMM's last template
+    argument, its tile width, is not part of the signature."""
+    found = re.search(r"mma_gemm_kernel<([\w:]+), ([\w:]+), (\d), (\d), (\d)(?:, \d+)?>",
+                      kernel)
     if found:
         types = ["float" if t == "float" else "bfloat16" for t in found.group(1, 2)]
     else:  # the second type of a bf16 -> bf16 GEMM is a back-reference (S<n>_) to the first

@@ -18,10 +18,12 @@ f32 sum plus the f32 bias rounded once; the activation is evaluated in f32 from 
 LN(x) as ``round(xhat32) * gamma + beta`` from the f32 ``xhat32 = (x32 - mean) * inv`` (in
 bfloat16 not bit for bit the forward's), rounds ``dh`` before the two products that read it
 but sums ``db1`` from the unrounded values, and forms dx, dgamma and dbeta in f32 with the
-f32 gamma (see ``block_mlp_bwd_reference``). On the card every product runs the tensor-core
-GEMM, float32 as 3xTF32 (about 2^-20 relative a product); c_fc's store writes g beside h to a
-scratch that c_proj reads, by the same device code that forms g again in the backward's dW2,
-so the two g are the same bits.
+f32 gamma (see ``block_mlp_bwd_reference``). On the card every product runs a tensor-core
+GEMM: bfloat16 the ``wgmma`` GEMM fed by TMA (``ops/csrc/wgmma_gemm.cuh``, the activation and
+its derivative on the special-function unit, a few f32 ulp from the plain version's before the
+bf16 rounding), float32 3xTF32 on ``mma.sync`` (about 2^-20 relative a product); c_fc's store
+writes g beside h to a scratch that c_proj reads, by the same device code that forms g again in
+the backward's dW2, so the two g are the same bits.
 """
 
 from __future__ import annotations
@@ -34,9 +36,10 @@ from multimodal_tpu_torch.ops.block_attention import LN_EPS, _acc, _ln_stats, ln
 ACTS = ("quick_gelu", "gelu")
 _SQRT_2_OVER_PI = 0.7978845608028654
 _GELU_C = 0.044715
-# blocks the backward's weight-gradient launches aim for (python -m
-# multimodal_tpu_torch.bench_block_mlp: best or within 5% of it at every B=256 shape in bfloat16)
-WGRAD_BLOCKS = 8 * 2 * 132
+# blocks the backward's weight-gradient launches aim for, counted in 128 x 128 output tiles
+# (python -m multimodal_tpu_torch.bench_block_mlp: the best at every B=256 shape in bfloat16 on
+# the wgmma GEMM, ViT-L/14's B=64 within 7% of its best; float32 within 0.5% at every target)
+WGRAD_BLOCKS = 8 * 132
 # token rows one float32 weight-gradient split may sum: the tensor cores' float32 accumulation
 # loses a little with every add, so the error of one partial grows with its rows (1.1e-5 x
 # max|plain| at 896 rows, 1.07e-4 at 12,800 on the H100, over the 1e-4 limit)

@@ -33,9 +33,10 @@
 // does. The TPU kernel is one program per tile of tokens that holds both weight matrices and
 // an f32 [M,H] hidden tile in VMEM and carries the f32 weight-gradient sums across a
 // sequential grid; an SM has 227 KB and blocks run in parallel, so here every product is a
-// tiled GEMM of its own and the elementwise work rides the GEMMs' loads and stores. Every
-// product runs the tensor-core GEMM of mma_gemm.cuh (bf16 mma.sync in bfloat16, 3xTF32 in
-// float32), each with its own load transform and store:
+// tiled GEMM of its own and the elementwise work rides the GEMMs' loads and stores. bfloat16
+// runs wgmma_gemm.cuh (wgmma fed by TMA rings; the load transforms on the landed A tile in
+// shared memory), float32 mma_gemm.cuh (3xTF32 on mma.sync); both have the same forms, load
+// transforms, stores and rounding points, each launch its own instantiation:
 //   forward, 3 launches: row statistics; c_fc, the NN form with the LN load transform and the
 //     round+act store, which writes h and beside it g = round_T(act(f32(h))) by the act_round
 //     that dW2's load runs too, so the backward's g is the forward's bit for bit; c_proj, the
@@ -49,7 +50,8 @@
 //     the LN vjp row kernel (dx and partial dgamma, dbeta, db2 rows per 32 tokens); dW2 and
 //     dW1, the TN form over K = T with the act and LN-b load transforms (g from h, ln_b from
 //     x), split over the token rows into f32 partial sums (the output tiles alone, 144 at
-//     W=768 and H=3072, do not fill 132 SMs evenly), summed in order and cast outside.
+//     W=768 and H=3072, do not fill 132 SMs evenly), summed in order and cast outside; in
+//     bfloat16 a split past the last token row is zeroed instead of launched.
 // Writing dh [T,H] to device memory is what the TPU kernel avoids; on this card that
 // traffic (2 T H elements) is small beside the products. Rows past a ragged T are masked in
 // every load, every transform and every column sum. The column sums go to partial rows in a
@@ -58,10 +60,12 @@
 // work.
 
 #include "mma_gemm.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
 // ----------------------------------------------------------------------------- launches
+// float32: every product on mma_gemm.cuh's 3xTF32 GEMM
 template <typename T>
 cudaError_t launch_fwd(const void* x, const void* gamma, const void* beta, const void* w1,
                        const void* b1, const void* w2, const void* b2, float* ln_stats, void* g,
@@ -99,6 +103,44 @@ cudaError_t launch_fwd(const void* x, const void* gamma, const void* beta, const
   return launch_mma_gemm<T, T, kFormNN, kLoadPlain, kStoreBiasResidual>(proj, 1, stream);
 }
 
+// bfloat16: both products on wgmma_gemm.cuh's GEMM, the same loads, stores and rounding points
+cudaError_t launch_fwd_bf16(const void* x, const void* gamma, const void* beta, const void* w1,
+                            const void* b1, const void* w2, const void* b2, float* ln_stats,
+                            void* g, void* h, void* y, int t, int w, int hid, int act,
+                            int residual, float eps, cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  cudaError_t err =
+      launch_ln_stats<T>(static_cast<const T*>(x), ln_stats, ln_stats + t, t, w, eps, stream);
+  if (err != cudaSuccess) return err;
+
+  // h = round(LN(x) @ W1 + b1), g = round(act(f32(h)))
+  WgmmaGemmArgs fc = {};
+  fc.m = t, fc.n = hid, fc.k = w, fc.splits = 1;
+  fc.ln_mean = ln_stats;
+  fc.ln_inv = ln_stats + t;
+  fc.ln_gamma = static_cast<const T*>(gamma);
+  fc.ln_beta = static_cast<const T*>(beta);
+  fc.bias = static_cast<const T*>(b1);
+  fc.act = act;
+  fc.c = h;
+  fc.g_out = static_cast<T*>(g);
+  err = launch_wgmma_gemm<T, kFormNN, kLoadLn, kStoreRoundAct, 128>(x, t, w, w1, w, hid, fc,
+                                                                    stream);
+  if (err != cudaSuccess) return err;
+
+  // y = round(g @ W2 + b2 [+ x]), one rounding
+  WgmmaGemmArgs proj = {};
+  proj.m = t, proj.n = w, proj.k = hid, proj.splits = 1;
+  proj.bias = static_cast<const T*>(b2);
+  proj.c = y;
+  if (!residual)
+    return launch_wgmma_gemm<T, kFormNN, kLoadPlain, kStoreRound, 128>(g, t, hid, w2, hid, w,
+                                                                       proj, stream);
+  proj.residual = static_cast<const T*>(x);
+  return launch_wgmma_gemm<T, kFormNN, kLoadPlain, kStoreBiasResidual, 128>(
+      g, t, hid, w2, hid, w, proj, stream);
+}
+
 struct MlpBwdBuffers {
   float* ln_stats;  // scratch [2, T] f32: mean, inv
   void* dh;         // scratch [T, H] T
@@ -109,6 +151,7 @@ struct MlpBwdBuffers {
   float* col_part;  // output [3, ceil(T / kLnBwdRows), W] f32: dgamma, dbeta, db2
 };
 
+// float32: every product on mma_gemm.cuh's 3xTF32 GEMM
 template <typename T>
 cudaError_t launch_bwd(const void* x, const void* dy, const void* h, const void* gamma,
                        const void* beta, const float* gamma32, const void* w1, const void* w2,
@@ -172,6 +215,78 @@ cudaError_t launch_bwd(const void* x, const void* dy, const void* h, const void*
   return launch_mma_gemm<T, float, kFormTN, kLoadLnB>(dw1, splits, stream);
 }
 
+// bfloat16: the four products on wgmma_gemm.cuh's GEMM. The weight gradients launch over the
+// splits that hold token rows; a split past the last row (k_per_split rounds up to the K-step)
+// is zeroed instead
+cudaError_t launch_bwd_bf16(const void* x, const void* dy, const void* h, const void* gamma,
+                            const void* beta, const float* gamma32, const void* w1,
+                            const void* w2, const MlpBwdBuffers& buf, int t, int w, int hid,
+                            int act, int residual, int splits, float eps, cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  const T* xp = static_cast<const T*>(x);
+  float* mean = buf.ln_stats;
+  float* inv = buf.ln_stats + t;
+  cudaError_t err = launch_ln_stats<T>(xp, mean, inv, t, w, eps, stream);
+  if (err != cudaSuccess) return err;
+
+  // dh = round((dy @ W2^T) * act'(h)), db1 partials
+  WgmmaGemmArgs dh = {};
+  dh.m = t, dh.n = hid, dh.k = w, dh.splits = 1;
+  dh.act = act;
+  dh.h = static_cast<const T*>(h);
+  dh.c = buf.dh;
+  dh.col_part = buf.db1_part;
+  err = launch_wgmma_gemm<T, kFormNT, kLoadPlain, kStoreActGrad, 128>(dy, t, w, w2, hid, w, dh,
+                                                                     stream);
+  if (err != cudaSuccess) return err;
+
+  // dln = dh @ W1^T, f32
+  WgmmaGemmArgs dln = {};
+  dln.m = t, dln.n = w, dln.k = hid, dln.splits = 1;
+  dln.c = buf.dln;
+  err = launch_wgmma_gemm<float, kFormNT, kLoadPlain, kStoreRound, 256>(buf.dh, t, hid, w1, w,
+                                                                       hid, dln, stream);
+  if (err != cudaSuccess) return err;
+
+  // dx, and the dgamma, dbeta and db2 partials
+  const int part_rows = (t + kLnBwdRows - 1) / kLnBwdRows;
+  const size_t plane = (size_t)part_rows * w;
+  ln_bwd_kernel<T, float><<<part_rows, kLnThreads, 0, stream>>>(
+      xp, static_cast<const T*>(dy), buf.dln, mean, inv, gamma32, static_cast<T*>(buf.dx),
+      buf.col_part, buf.col_part + plane, buf.col_part + 2 * plane, residual, t, w);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  // dW2 = g^T dy and dW1 = ln_b^T dh over K = T, one partial sum per split of the token rows
+  const int k_per_split = ((t + splits - 1) / splits + kWgmmaBK - 1) / kWgmmaBK * kWgmmaBK;
+  const int used = (t + k_per_split - 1) / k_per_split;
+  const size_t wh = (size_t)w * hid;
+  if (used < splits) {
+    err = cudaMemsetAsync(buf.dw2_part + used * wh, 0, (splits - used) * wh * sizeof(float),
+                          stream);
+    if (err == cudaSuccess)
+      err = cudaMemsetAsync(buf.dw1_part + used * wh, 0, (splits - used) * wh * sizeof(float),
+                            stream);
+    if (err != cudaSuccess) return err;
+  }
+  WgmmaGemmArgs dw2 = {};
+  dw2.m = hid, dw2.n = w, dw2.k = t, dw2.splits = used, dw2.k_per_split = k_per_split;
+  dw2.act = act;
+  dw2.c = buf.dw2_part;
+  err = launch_wgmma_gemm<float, kFormTN, kLoadAct, kStoreRound, 256>(h, t, hid, dy, t, w, dw2,
+                                                                     stream);
+  if (err != cudaSuccess) return err;
+  WgmmaGemmArgs dw1 = {};
+  dw1.m = w, dw1.n = hid, dw1.k = t, dw1.splits = used, dw1.k_per_split = k_per_split;
+  dw1.ln_mean = mean;
+  dw1.ln_inv = inv;
+  dw1.ln_gamma = static_cast<const T*>(gamma);
+  dw1.ln_beta = static_cast<const T*>(beta);
+  dw1.c = buf.dw1_part;
+  return launch_wgmma_gemm<float, kFormTN, kLoadLnB, kStoreRound, 256>(x, t, w, buf.dh, t, hid,
+                                                                      dw1, stream);
+}
+
 bool mlp_shape_ok(int t, int w, int hid, int act) {
   return t >= 1 && w >= 128 && hid >= 128 && w % 128 == 0 && hid % 128 == 0 &&
          (act == kActQuickGelu || act == kActGelu);
@@ -197,8 +312,8 @@ int mmt_block_mlp_fwd(int dtype, const void* x, const void* gamma, const void* b
     return (int)launch_fwd<float>(x, gamma, beta, w1, b1, w2, b2, stats, g, h, y, t, w, hid,
                                   act, residual, eps, st);
   if (dtype == 1)
-    return (int)launch_fwd<__nv_bfloat16>(x, gamma, beta, w1, b1, w2, b2, stats, g, h, y, t,
-                                          w, hid, act, residual, eps, st);
+    return (int)launch_fwd_bf16(x, gamma, beta, w1, b1, w2, b2, stats, g, h, y, t, w, hid,
+                                act, residual, eps, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -232,12 +347,13 @@ int mmt_block_mlp_bwd(int dtype, const void* x, const void* dy, const void* h,
     return (int)launch_bwd<float>(x, dy, h, gamma, beta, g32, w1, w2, buf, t, w, hid, act,
                                   residual, splits, eps, st);
   if (dtype == 1)
-    return (int)launch_bwd<__nv_bfloat16>(x, dy, h, gamma, beta, g32, w1, w2, buf, t, w, hid,
-                                          act, residual, splits, eps, st);
+    return (int)launch_bwd_bf16(x, dy, h, gamma, beta, g32, w1, w2, buf, t, w, hid, act,
+                                residual, splits, eps, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// Rows of the db1 partial-sum output for t token rows.
-int mmt_block_mlp_db1_partial_rows(int t) { return (t + kGemmBM - 1) / kGemmBM; }
+// Rows of the db1 partial-sum output for t token rows: one per 128-row tile of the dh product
+// (mma_gemm.cuh's and wgmma_gemm.cuh's M tile, in float32 and bfloat16).
+int mmt_block_mlp_db1_partial_rows(int t) { return (t + kWgmmaBM - 1) / kWgmmaBM; }
 
 }  // extern "C"

@@ -634,13 +634,6 @@ constexpr int kHopperThreads = 2 * kWgThreads + 32;  // two consumer warpgroups,
 constexpr int kConsumerWarps = 8;                    // arrivals that release a stage
 constexpr int kRowBytes = 128;                       // a sub-tile's row: 64 bf16
 
-// the dynamic shared memory from its first 1024-byte aligned address (the 128-byte swizzle's
-// period), found from the shared-window address; offset arithmetic on the array keeps the
-// pointer in the shared space, so that the threads' reads of it are LDS, not generic loads
-__device__ __forceinline__ unsigned char* align_1024(unsigned char* smem) {
-  return smem + ((1024u - (smem_addr(smem) & 1023u)) & 1023u);
-}
-
 // Descriptors: one per tile, and a compile-time offset (in the descriptor's 16-byte units) for
 // each k-step, so that no descriptor is rebuilt in the loops (the address field cannot carry:
 // shared memory ends below 2^18 bytes).

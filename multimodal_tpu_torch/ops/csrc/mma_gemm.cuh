@@ -1,6 +1,7 @@
 // The projection GEMM of the block kernels on the tensor cores: every product of the
 // block-attention forward and backward (block_attention_fwd.cu, block_attention_bwd.cu) and of
-// the fused MLP branch (block_mlp.cu). Three forms:
+// the fused MLP branch in float32 (block_mlp.cu; its bfloat16 products run wgmma_gemm.cuh, the
+// same forms, loads and stores on wgmma, and the TN form runs in float32 only). Three forms:
 //
 //   NN: C_z = A' @ B_z + bias_z for z = blockIdx.z < 3, one A [M, K] shared by up to three
 //       weight sets B_z [K, N] row-major (q, k, v = x @ Wq|Wk|Wv + b; out = attn @ Wo + bo;
@@ -248,18 +249,20 @@ __device__ __forceinline__ void ln_chunk(float* p, float2 st, const float* gamma
   for (int i = 0; i < 4; ++i) v[i] = ln_apply<float>(v[i], st.x, st.y, gm[i], bt[i]);
   vec16_store(p, v);
 }
-__device__ __forceinline__ void ln_chunk(__nv_bfloat16* p, float2 st, const __nv_bfloat16* gamma,
-                                         const __nv_bfloat16* beta) {
-  uint4 v = *reinterpret_cast<const uint4*>(p);
-  const uint4 gm = *reinterpret_cast<const uint4*>(gamma);
-  const uint4 bt = *reinterpret_cast<const uint4*>(beta);
+// eight bf16 values v (16 bytes), their columns' gamma and beta likewise
+__device__ __forceinline__ uint4 ln_bf16x8(uint4 v, float2 st, uint4 gm, uint4 bt) {
   const uint32_t mean2 = pack_bf16(st.x, st.x), inv2 = pack_bf16(st.y, st.y);
   auto ln2 = [&](uint32_t x, uint32_t g, uint32_t b) {
     return bf2_add(bf2_mul(bf2_mul(bf2_sub(x, mean2), inv2), g), b);
   };
-  v.x = ln2(v.x, gm.x, bt.x), v.y = ln2(v.y, gm.y, bt.y);
-  v.z = ln2(v.z, gm.z, bt.z), v.w = ln2(v.w, gm.w, bt.w);
-  *reinterpret_cast<uint4*>(p) = v;
+  return make_uint4(ln2(v.x, gm.x, bt.x), ln2(v.y, gm.y, bt.y), ln2(v.z, gm.z, bt.z),
+                    ln2(v.w, gm.w, bt.w));
+}
+__device__ __forceinline__ void ln_chunk(__nv_bfloat16* p, float2 st, const __nv_bfloat16* gamma,
+                                         const __nv_bfloat16* beta) {
+  *reinterpret_cast<uint4*>(p) =
+      ln_bf16x8(*reinterpret_cast<const uint4*>(p), st, *reinterpret_cast<const uint4*>(gamma),
+                *reinterpret_cast<const uint4*>(beta));
 }
 
 // LN-b: round_T((x32 - mean) * inv) * gamma_T + beta_T with f32 statistics, rounding after each
@@ -275,21 +278,16 @@ __device__ __forceinline__ void ln_b_chunk(float* p, float mean, float inv, cons
     v[i] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[i], mean), inv), gm[i]), bt[i]);
   vec16_store(p, v);
 }
-__device__ __forceinline__ void ln_b_chunk(__nv_bfloat16* p, float mean, float inv,
-                                           const __nv_bfloat16* gamma,
-                                           const __nv_bfloat16* beta) {
-  float v[8];
-  vec16_load(p, v);
-  const uint4 gm = *reinterpret_cast<const uint4*>(gamma);
-  const uint4 bt = *reinterpret_cast<const uint4*>(beta);
-  auto ln2 = [&](int i, uint32_t g, uint32_t b) {
-    const uint32_t xhat = pack_bf16(__fmul_rn(__fsub_rn(v[2 * i], mean), inv),
-                                    __fmul_rn(__fsub_rn(v[2 * i + 1], mean), inv));
+// eight bf16 values x (16 bytes), their columns' gamma and beta likewise
+__device__ __forceinline__ uint4 ln_b_bf16x8(uint4 x, float mean, float inv, uint4 gm, uint4 bt) {
+  auto ln2 = [&](uint32_t pair, uint32_t g, uint32_t b) {
+    const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&pair));
+    const uint32_t xhat = pack_bf16(__fmul_rn(__fsub_rn(v.x, mean), inv),
+                                    __fmul_rn(__fsub_rn(v.y, mean), inv));
     return bf2_add(bf2_mul(xhat, g), b);
   };
-  const uint4 out = make_uint4(ln2(0, gm.x, bt.x), ln2(1, gm.y, bt.y), ln2(2, gm.z, bt.z),
-                               ln2(3, gm.w, bt.w));
-  *reinterpret_cast<uint4*>(p) = out;
+  return make_uint4(ln2(x.x, gm.x, bt.x), ln2(x.y, gm.y, bt.y), ln2(x.z, gm.z, bt.z),
+                    ln2(x.w, gm.w, bt.w));
 }
 
 // g = round_T(act(f32(h))) from a pre-activation h of T: one function for the forward's c_fc
@@ -328,6 +326,7 @@ mma_gemm_kernel(MmaGemmArgs args) {
                     (kTN && (kLoad == kLoadAct || kLoad == kLoadLnB)),
                 "LN loads in the NN form, act and LN-b in the TN form");
   static_assert(kStore == kStoreRound || std::is_same_v<T, TOut>, "a rounded store");
+  static_assert(!kTN || std::is_same_v<T, float>, "bfloat16 weight gradients run wgmma_gemm.cuh");
   using L = GemmLayout<T, kForm>;
   constexpr int kLdA = L::kLdA, kLdB = L::kLdB, kStage = L::kStage;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -418,10 +417,7 @@ mma_gemm_kernel(MmaGemmArgs args) {
         uint32_t a[kGemmMT][4], b[kGemmNT][2];
 #pragma unroll
         for (int mt = 0; mt < kGemmMT; ++mt) {
-          if constexpr (kTN)  // rows k, columns m: transposed
-            ldsm_x4_trans(a[mt], as + (kk + (j >> 1) * 8 + r) * kLdB + wm + 16 * mt + (j & 1) * 8);
-          else
-            load_a(a[mt], as, kLdA, wm + 16 * mt, kk, lane);
+          load_a(a[mt], as, kLdA, wm + 16 * mt, kk, lane);
         }
 #pragma unroll
         for (int nt = 0; nt < kGemmNT; nt += 2) {

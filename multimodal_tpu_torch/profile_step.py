@@ -35,8 +35,21 @@ import torch
 
 from multimodal_tpu_torch.ops._build import gemm_signature
 
-# the tensor-core GEMM's instantiations (ops/csrc/mma_gemm.cuh) by (form, load, store), read
-# from the kernel name's template arguments; the first match wins, None matches anything
+# the tensor-core GEMMs' instantiations by (form, load, store), read from the kernel name's
+# template arguments; the first match wins, None matches anything. mma_gemm_kernel
+# (ops/csrc/mma_gemm.cuh) runs the block kernels' products in both dtypes and the fused MLP's in
+# float32; wgmma_gemm_kernel (ops/csrc/wgmma_gemm.cuh) the fused MLP's in bfloat16
+WGMMA_FAMILIES = [
+    (("NN", "LN", None),
+     "fused MLP forward c_fc (wgmma_gemm_kernel NN, LN load, round+act store: h and g)"),
+    (("NN", None, None),
+     "fused MLP forward c_proj (wgmma_gemm_kernel NN on g, bias-residual or round store)"),
+    (("NT", None, "act'"),
+     "fused MLP backward dh (wgmma_gemm_kernel NT, act' store, db1 partials)"),
+    (("NT", None, None), "fused MLP backward dln (wgmma_gemm_kernel NT, float32 out)"),
+    (("TN", None, None),
+     "fused MLP weight gradients (wgmma_gemm_kernel TN, act and LN-b loads)"),
+]
 GEMM_FAMILIES = [
     (("NN", None, "bias-residual"),
      "fused MLP forward c_proj (mma_gemm_kernel NN on g, bias-residual store; without the "
@@ -63,6 +76,8 @@ FAMILIES = [  # (family, substrings of the kernel name), first match wins
      ("attention_mma_kernel", "attention_f32_kernel")),
     ("LN-fold launches (ln_stats, ln_rows, ln_bwd)", ("ln_stats_kernel", "ln_rows_kernel",
                                                       "ln_bwd_kernel")),
+    ("fused MLP bfloat16 GEMM, template arguments not read (wgmma_gemm_kernel)",
+     ("wgmma_gemm_kernel",)),
     ("tensor-core GEMM, template arguments not read (mma_gemm_kernel)", ("mma_gemm_kernel",)),
     ("int8 row quantize (quantize_rows_kernel, quantize_columns_kernel)",
      ("quantize_rows_kernel", "quantize_columns_kernel")),
@@ -80,7 +95,8 @@ FAMILIES = [  # (family, substrings of the kernel name), first match wins
 def family_of(kernel_name: str) -> str:
     signature = gemm_signature(kernel_name)
     if signature is not None:
-        for pattern, family in GEMM_FAMILIES:
+        table = WGMMA_FAMILIES if "wgmma_gemm_kernel" in kernel_name else GEMM_FAMILIES
+        for pattern, family in table:
             if all(p is None or p == v for p, v in zip(pattern, signature[2:])):
                 return family
     low = kernel_name.lower()

@@ -245,25 +245,32 @@ def test_db1_sums_the_unrounded_dh():
     assert (db1 - dh32.bfloat16().float().sum(0)).abs().max() > 1e-3
 
 
-def _db1_partials_in_kernel_order(dh32: torch.Tensor) -> torch.Tensor:
+def _db1_partials_in_kernel_order(dh32: torch.Tensor, gemm: str = "wgmma") -> torch.Tensor:
     """The act' store's column sums of the unrounded dh32 [T, H], one row per 128-token tile,
-    in the kernel's order: each lane (g = 0..7 of a row-warp's 64 rows) sums its rows g, g + 8,
-    ..., g + 56 in order, a butterfly adds lane g ^ 1, g ^ 2, g ^ 4, then the two row-warps'
-    sums are added. Rows past T are not summed."""
+    in the kernel's order. bfloat16 (``wgmma``, wgmma_gemm.cuh): each of the tile's eight warps
+    owns 16 rows, a lane (g = 0..7) its rows g and g + 8, added in that order; a butterfly adds
+    lane g ^ 1, g ^ 2, g ^ 4; then the eight warps' sums are added in row order. float32
+    (``mma``, mma_gemm.cuh): a lane of one of two row-warps of 64 rows sums its rows g, g + 8,
+    ..., g + 56 in order, the same butterfly, then the two row-warps' sums. Rows past T add
+    nothing."""
     t, hid = dh32.shape
     rows = []
     for m0 in range(0, t, 128):
         tile = torch.zeros(128, hid)
         tile[:min(128, t - m0)] = dh32[m0:m0 + 128]
+        if gemm == "wgmma":
+            warp_rows = [[[16 * wp + g, 16 * wp + g + 8] for g in range(8)] for wp in range(8)]
+        else:
+            warp_rows = [[[wm + 16 * mt + g + 8 * h for mt in range(4) for h in range(2)]
+                          for g in range(8)] for wm in (0, 64)]
         warps = []
-        for wm in (0, 64):
-            lanes = [functools.reduce(torch.add, [tile[wm + 16 * mt + g + 8 * h]
-                                                  for mt in range(4) for h in range(2)])
-                     for g in range(8)]
+        for lane_rows in warp_rows:
+            lanes = [functools.reduce(torch.add, [tile[r] for r in rows_g])
+                     for rows_g in lane_rows]
             for off in (1, 2, 4):
                 lanes = [lanes[g] + lanes[g ^ off] for g in range(8)]
             warps.append(lanes[0])
-        rows.append(warps[0] + warps[1])
+        rows.append(functools.reduce(torch.add, warps))
     return torch.stack(rows)
 
 
@@ -277,18 +284,19 @@ def test_db1_fixed_order_column_sums_sum_the_unrounded_dh():
     x, gamma, beta, w1, b1, w2, b2 = args
     db1 = bm.block_mlp_bwd_reference(x, dy, h, gamma, beta, w1, w2)[3]
     dh32 = (dy.float() @ w2.float().T) * bm.act_bwd(h.float(), "quick_gelu")
-    parts = _db1_partials_in_kernel_order(dh32)
-    assert parts.shape == (2, 256)
-    torch.testing.assert_close(parts.sum(0), db1, atol=1e-5, rtol=1e-5)
-    assert (parts.sum(0) - dh32.bfloat16().float().sum(0)).abs().max() > 1e-3
+    for gemm in ("wgmma", "mma"):  # the bfloat16 kernel's order, and float32's
+        parts = _db1_partials_in_kernel_order(dh32, gemm)
+        assert parts.shape == (2, 256)
+        torch.testing.assert_close(parts.sum(0), db1, atol=1e-5, rtol=1e-5)
+        assert (parts.sum(0) - dh32.bfloat16().float().sum(0)).abs().max() > 1e-3
 
 
 def _tn_dw1(x, dh, gamma, beta, *, mask: bool, stale_b: bool) -> torch.Tensor:
-    """dW1 = ln_b^T dh as the TN form walks it: K-steps of 64 token rows, one f32 sum. A tile:
-    x's rows, zero past T, then the LN-b transform (xhat32 rounded, times gamma, plus beta,
-    rounding to x.dtype) on the rows below T (``mask``) or on all 64 (statistics past T read
-    as 0). B tile: dh's rows, past T zeros as cp.async writes them, or (``stale_b``) other
-    values, as a tile would hold without that fill."""
+    """dW1 = ln_b^T dh as the TN form walks it (both GEMMs: K-steps of 64 token rows, one f32
+    sum). A tile: x's rows, zero past T, then the LN-b transform (xhat32 rounded, times gamma,
+    plus beta, rounding to x.dtype) on the rows below T (``mask``) or on all 64 (statistics past
+    T read as 0). B tile: dh's rows, past T zeros as cp.async (float32) and TMA (bfloat16) write
+    them, or (``stale_b``) other values, as a tile would hold without that fill."""
     t, w = x.shape
     dt, hid = x.dtype, dh.shape[1]
     mean, inv = _ln_stats(x, LN_EPS)
@@ -324,6 +332,223 @@ def test_tn_weight_gradient_masks_the_padded_rows_after_the_ln_b_transform():
         assert rel(_tn_dw1(x, dh, gamma, beta, mask=True, stale_b=stale_b)) <= 1e-5
     assert rel(_tn_dw1(x, dh, gamma, beta, mask=False, stale_b=False)) <= 1e-5
     assert rel(_tn_dw1(x, dh, gamma, beta, mask=False, stale_b=True)) > 1e-2
+
+
+# ----------------------------------------------------------------------------- the bf16 walk
+# wgmma_gemm.cuh, the bfloat16 GEMM under the operator: 128 x 128 tiles of C, K-steps of 64 (four
+# k16 products each, f32 sums), TMA boxes that land zeros past a tensor's extent, the load
+# transforms on the landed A tile, the weight gradients split over the token rows
+WG_TILE, WG_KSTEP = 128, 64
+
+
+def _tma_box(mat: torch.Tensor, r0: int, c0: int, rows: int, cols: int) -> torch.Tensor:
+    """rows x cols of ``mat`` from (r0, c0), zeros past either extent, as TMA lands a box."""
+    box = torch.zeros(rows, cols, dtype=mat.dtype)
+    part = mat[r0:r0 + rows, c0:c0 + cols]
+    box[:part.shape[0], :part.shape[1]] = part
+    return box
+
+
+def _wgmma_walk(a, b, form: str, *, transform=None, splits: int = 1, k_per_split=None):
+    """The f32 sums of ``wgmma_gemm_kernel`` before its store, tile by tile and K-step by K-step:
+    [splits, M, N] for NN (a [M, K], b [K, N]), NT (a [M, K], b [N, K]) and TN (a [K, M], b [K, N];
+    split z sums the token rows [z kps, min(K, (z + 1) kps))). ``transform(tile, r0, c0, k_end)``
+    is the load transform of a landed A box whose first element is a[r0, c0] as A lies in
+    memory."""
+    k, m = a.shape if form == "TN" else a.shape[::-1]
+    n = b.shape[0] if form == "NT" else b.shape[1]
+    kps = k_per_split or k
+    out = torch.zeros(splits, -(-m // WG_TILE) * WG_TILE, n)
+    for z in range(splits):
+        k_begin, k_end = z * kps, min(k, (z + 1) * kps)
+        for m0 in range(0, m, WG_TILE):
+            for n0 in range(0, n, WG_TILE):
+                acc = torch.zeros(WG_TILE, WG_TILE)
+                for k0 in range(k_begin, k_end, WG_KSTEP):
+                    if form == "TN":  # [64 token rows][128 of M], transformed, read transposed
+                        at = _tma_box(a, k0, m0, WG_KSTEP, WG_TILE)
+                        at = (transform(at, k0, m0, k_end) if transform else at).T
+                    else:
+                        at = _tma_box(a, m0, k0, WG_TILE, WG_KSTEP)
+                        at = transform(at, m0, k0, k_end) if transform else at
+                    if form == "NT":
+                        bt = _tma_box(b, n0, k0, WG_TILE, WG_KSTEP).T
+                    else:
+                        bt = _tma_box(b, k0, n0, WG_KSTEP, WG_TILE)
+                    for kk in range(0, WG_KSTEP, 16):
+                        acc = acc + at[:, kk:kk + 16].float() @ bt[kk:kk + 16].float()
+                out[z, m0:m0 + WG_TILE, n0:n0 + WG_TILE] = acc
+    return out[:, :m]
+
+
+def _wgmma_splits(t: int, w: int, hid: int):
+    """(splits, token rows a split owns, splits that hold rows) of the weight gradients."""
+    splits = bm._wgrad_splits(t, w, hid, torch.bfloat16)
+    kps = -(-(-(-t // splits)) // WG_KSTEP) * WG_KSTEP
+    return splits, kps, -(-t // kps)
+
+
+def wgmma_walk_fwd(x, gamma, beta, w1, b1, w2, b2, *, act, residual):
+    """(y, h) of the bfloat16 forward as its launches form them: the row statistics, c_fc (NN,
+    the LN load with each row's statistics rounded to bf16 and every step rounding, rows past
+    T on statistics of 0; the round+act store), c_proj (NN on g; the bias-residual store). The
+    walk's activation is the plain ``act_fwd``; the kernel's, on the special-function unit, is
+    a few f32 ulp from it before the bf16 rounding."""
+    dt, t = x.dtype, x.shape[0]
+    gamma, beta = gamma.to(dt), beta.to(dt)
+    mean, inv = _ln_stats(x, LN_EPS)
+
+    def ln(tile, r0, c0, k_end):
+        st = torch.zeros(WG_TILE, 2)
+        live = min(WG_TILE, t - r0)
+        st[:live] = torch.cat([mean, inv], dim=1)[r0:r0 + live]
+        st = st.to(dt)
+        return ((tile - st[:, :1]) * st[:, 1:]) * gamma[c0:c0 + WG_KSTEP] + beta[c0:c0 + WG_KSTEP]
+
+    h = (_wgmma_walk(x, w1, "NN", transform=ln)[0] + b1.float()).to(dt)
+    g = bm.act_fwd(h.float(), act).to(dt)
+    y = _wgmma_walk(g, w2, "NN")[0] + b2.float()
+    if residual:
+        y = y + x.float()
+    return y.to(dt), h
+
+
+def wgmma_walk_bwd(x, dy, h, gamma, beta, w1, w2, *, act, residual):
+    """(dx, dW1, dW2, db1, db2, dgamma, dbeta) of the bfloat16 backward as its launches form
+    them: dh (NT, the act' store, db1 from the fixed-order partials), dln (NT, f32), the LN
+    vjp rows (the plain version's f32 arithmetic), dW2 (TN, the act load) and dW1 (TN, the LN-b
+    load, token rows past T left zero) split over the token rows, one f32 partial each, the
+    splits past the last row zero."""
+    dt, (t, w), hid = x.dtype, x.shape, w1.shape[1]
+    gamma32 = gamma.float()
+    gamma, beta = gamma.to(dt), beta.to(dt)
+    mean, inv = _ln_stats(x, LN_EPS)
+    h32 = h.float()
+    dh32 = _wgmma_walk(dy, w2, "NT")[0] * bm.act_bwd(h32, act)
+    dh = dh32.to(dt)
+    db1 = _db1_partials_in_kernel_order(dh32).sum(dim=0)
+    dln = _wgmma_walk(dh, w1, "NT")[0]
+    x32, dy32 = x.float(), dy.float()
+    xhat = (x32 - mean) * inv
+    dxhat = dln * gamma32
+    dx = inv * (dxhat - dxhat.mean(dim=-1, keepdim=True)
+                - xhat * (dxhat * xhat).mean(dim=-1, keepdim=True))
+    if residual:
+        dx = dx + dy32
+    splits, kps, used = _wgmma_splits(t, w, hid)
+
+    def act_load(tile, k0, c0, k_end):
+        return bm.act_fwd(tile.float(), act).to(dt)
+
+    def ln_b(tile, k0, c0, k_end):
+        live = max(0, min(WG_KSTEP, k_end - k0))  # token rows past T stay zero
+        rows = slice(k0, k0 + live)
+        xh = ((tile[:live].float() - mean[rows]) * inv[rows]).to(dt)
+        tile = tile.clone()
+        tile[:live] = xh * gamma[c0:c0 + WG_TILE] + beta[c0:c0 + WG_TILE]
+        return tile
+
+    parts = []
+    for a, b, load, rows_out, cols_out in ((h, dy, act_load, hid, w), (x, dh, ln_b, w, hid)):
+        part = torch.zeros(splits, rows_out, cols_out)
+        part[:used] = _wgmma_walk(a, b, "TN", transform=load, splits=used, k_per_split=kps)
+        parts.append(part.sum(dim=0).to(dt))
+    dw2, dw1 = parts
+    return (dx.to(dt), dw1, dw2, db1, dy32.sum(dim=0), (dln * xhat).sum(dim=0),
+            dln.sum(dim=0))
+
+
+# ragged T across the walk's 128-row tiles and 64-row K-steps, several N tiles and K-steps; the
+# third at W = H = 128 (one output tile, so T // 512 splits of the token rows) with a split that
+# holds no row; 3x13 rows short of one tile
+WALK_CASES = [((129, 128), 256, "quick_gelu", True), ((191, 256), 512, "gelu", False),
+              ((5121, 128), 128, "quick_gelu", True), ((3, 13, 128), 512, "gelu", True)]
+WALK_IDS = ["T129", "T191", "T5121-split", "T39"]
+
+
+def _walk_outputs(shape, hidden, act, residual):
+    """The walk's y and its seven gradients (NAMES' order), float32 numpy, from _inputs."""
+    (x, gamma, beta, w1, b1, w2, b2), dy = _leaves(shape, hidden, torch.bfloat16)
+    x, gamma, beta, w1, b1, w2, b2 = (a.detach() for a in (x, gamma, beta, w1, b1, w2, b2))
+    w = shape[-1]
+    x2, dy2 = x.reshape(-1, w), dy.reshape(-1, w)
+    y, h = wgmma_walk_fwd(x2, gamma, beta, w1, b1, w2, b2, act=act, residual=residual)
+    dx, dw1, dw2, db1, db2, dgamma, dbeta = wgmma_walk_bwd(
+        x2, dy2, h, gamma, beta, w1, w2, act=act, residual=residual)
+    grads = [dx.reshape(shape), dgamma, dbeta, dw1, db1, dw2, db2]
+    return y.reshape(shape).float().numpy(), [g.float().numpy() for g in grads]
+
+
+def test_wgmma_walk_splits_cover_the_token_rows():
+    """The walk's splits: k_per_split a multiple of the K-step, the used splits cover T and
+    each holds rows; at T = 5121 with one output tile ten splits are asked and nine hold rows."""
+    for t, w, hid in ((129, 128, 256), (5121, 128, 128), (4609, 128, 128), (256 * 197, 768, 3072)):
+        splits, kps, used = _wgmma_splits(t, w, hid)
+        assert kps % WG_KSTEP == 0 and (used - 1) * kps < t <= used * kps <= splits * kps + kps
+        assert used <= splits
+    assert _wgmma_splits(5121, 128, 128) == (10, 576, 9)
+    assert _wgmma_splits(4609, 128, 128) == (9, 576, 9)  # the last split holds one row
+
+
+@pytest.mark.parametrize("shape,hidden,act,residual", WALK_CASES, ids=WALK_IDS)
+def test_wgmma_walk_matches_plain_bf16(shape, hidden, act, residual):
+    """The bfloat16 kernels' schedule in plain torch against the plain versions: every output
+    within 2e-2 x max(1, max|value|), as bfloat16 is held against the JAX kernel."""
+    got_y, got = _walk_outputs(shape, hidden, act, residual)
+    want_y, want = _port_run(shape, hidden, act, residual, torch.bfloat16)
+    np.testing.assert_allclose(got_y, want_y, atol=2e-2 * max(1.0, np.abs(want_y).max()), rtol=0)
+    for name, g, r in zip(NAMES, got, want):
+        scale = max(1.0, float(np.abs(r).max()))
+        np.testing.assert_allclose(g, r, atol=2e-2 * scale, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("shape,hidden,act,residual",
+                         [c for c in WALK_CASES if c[0][0] != 5121],
+                         ids=[i for i, c in zip(WALK_IDS, WALK_CASES) if c[0][0] != 5121])
+def test_wgmma_walk_matches_jax_bf16(shape, hidden, act, residual, monkeypatch):
+    """The same walk against the JAX operator (its Pallas kernels in interpret mode, a 16-row
+    tile so that it pads the ragged T): every output within 2e-2 x max(1, max|value|)."""
+    _force_jax_tile(monkeypatch, True)
+    want_y, want = _jax_run(shape, hidden, act, residual, "bfloat16")
+    got_y, got = _walk_outputs(shape, hidden, act, residual)
+    np.testing.assert_allclose(got_y, want_y, atol=2e-2 * max(1.0, np.abs(want_y).max()), rtol=0)
+    for name, g, r in zip(NAMES, got, want):
+        scale = max(1.0, float(np.abs(r).max()))
+        np.testing.assert_allclose(g, r, atol=2e-2 * scale, rtol=0, err_msg=name)
+
+
+def test_wgmma_walk_ln_b_masks_the_token_rows_past_t():
+    """dW1 at T = 129 with beta != 0: the LN-b transform leaves the token rows past T the zeros
+    TMA landed, so the walk's partial is the plain ln^T dh whatever the B box holds there; LN-b
+    on those rows (beta) only vanishes while B's rows past T are zero."""
+    (x, gamma, beta, *_), _ = _leaves((129, 128), 256, torch.bfloat16)
+    x, gamma, beta = x.detach(), gamma.detach().bfloat16(), beta.detach().bfloat16()
+    dh = torch.from_numpy(np.random.default_rng(5).standard_normal((129, 256), dtype=np.float32))
+    dh = dh.bfloat16()
+    mean, inv = _ln_stats(x, LN_EPS)
+    want = (((x.float() - mean) * inv).bfloat16() * gamma + beta).float().T @ dh.float()
+    rel = lambda got: ((got - want).abs().max() / want.abs().max()).item()  # noqa: E731
+
+    def ln_b(mask):
+        def load(tile, k0, c0, k_end):
+            live = max(0, min(WG_KSTEP, k_end - k0)) if mask else WG_KSTEP
+            st = torch.zeros(WG_KSTEP, 2)
+            n = max(0, min(WG_KSTEP, 129 - k0))
+            st[:n] = torch.cat([mean, inv], dim=1)[k0:k0 + n]
+            tile = tile.clone()
+            xh = ((tile[:live].float() - st[:live, :1]) * st[:live, 1:]).bfloat16()
+            tile[:live] = xh * gamma[c0:c0 + WG_TILE] + beta[c0:c0 + WG_TILE]
+            return tile
+        return load
+
+    stale = torch.cat([dh, torch.randn(63, 256).bfloat16()])  # a B box without the zero fill
+    assert rel(_wgmma_walk(x, dh, "TN", transform=ln_b(True))[0]) <= 1e-5
+    assert rel(_wgmma_walk(x, dh, "TN", transform=ln_b(False))[0]) <= 1e-5
+    x_pad = torch.cat([x, torch.zeros(63, 128, dtype=x.dtype)])
+    masked = _wgmma_walk(x_pad, stale, "TN", transform=ln_b(True), k_per_split=129)[0]
+    assert rel(masked) <= 1e-5
+    unmasked = _wgmma_walk(x_pad, stale, "TN", transform=ln_b(False), k_per_split=129)[0]
+    assert rel(unmasked) > 1e-2
 
 
 def _c_proj_store(acc, b2, x, store: str) -> torch.Tensor:
@@ -413,6 +638,52 @@ def test_forward_bench_names_each_launch():
     assert launch_of("void (anonymous namespace)::ln_stats_kernel<float>(...)") == "other"
 
 
+# the bfloat16 GEMM's seven instantiations as nvcc 12 mangles them (the SASS, ptxas) and the
+# (T, TOut, form, load, store) each stands for
+WGMMA_KERNELS = {  # ... and the tile width, the last template argument
+    "S1_Li0ELi1ELi4ELi128E": ("bfloat16", "bfloat16", "NN", "LN", "round+act"),  # c_fc
+    "S1_Li0ELi0ELi3ELi128E": ("bfloat16", "bfloat16", "NN", "plain", "bias-residual"),  # c_proj
+    "S1_Li0ELi0ELi0ELi128E": ("bfloat16", "bfloat16", "NN", "plain", "round"),  # the branch
+    "S1_Li1ELi0ELi2ELi128E": ("bfloat16", "bfloat16", "NT", "plain", "act'"),   # dh
+    "fLi1ELi0ELi0ELi256E": ("bfloat16", "float", "NT", "plain", "round"),       # dln
+    "fLi2ELi2ELi0ELi256E": ("bfloat16", "float", "TN", "act", "round"),         # dW2
+    "fLi2ELi3ELi0ELi256E": ("bfloat16", "float", "TN", "LN-b", "round"),        # dW1
+}
+
+
+@pytest.mark.parametrize("args", sorted(WGMMA_KERNELS))
+def test_gemm_signature_reads_the_wgmma_kernel_names(args):
+    """The step profiler, chip_smoke.py's phase 2 and bench_block_mlp name the bfloat16 GEMM's
+    launches by their template arguments, from the mangled name and from the demangled one;
+    bench_block_mlp counts the LN-load instantiation as c_fc, any other as c_proj."""
+    from multimodal_tpu_torch.bench_block_mlp import launch_of
+    from multimodal_tpu_torch.ops._build import GEMM_FORMS, GEMM_LOADS, GEMM_STORES, gemm_signature
+
+    mangled = ("_ZN45_GLOBAL__N__032e4a30_12_block_mlp_cu_142b870417wgmma_gemm_kernelI13__nv_"
+               f"bfloat16{args}EEv14CUtensorMap_stS2_NS_13WgmmaGemmArgsE")
+    want = WGMMA_KERNELS[args]
+    assert gemm_signature(mangled) == want
+    types = ", ".join("__nv_bfloat16" if t == "bfloat16" else t for t in want[:2])
+    ints = [GEMM_FORMS.index(want[2]), GEMM_LOADS.index(want[3]), GEMM_STORES.index(want[4]),
+            int(args[-4:-1])]
+    demangled = (f"void (anonymous namespace)::wgmma_gemm_kernel<{types}, "
+                 f"{', '.join(map(str, ints))}>(CUtensorMap_st, CUtensorMap_st, "
+                 "(anonymous namespace)::WgmmaGemmArgs)")
+    assert gemm_signature(demangled) == want
+    assert launch_of(demangled) == ("c_fc" if want[3] == "LN" else "c_proj")
+
+
+def test_bench_block_mlp_refuses_without_a_card(monkeypatch):
+    """``python -m multimodal_tpu_torch.bench_block_mlp [--root DIR]`` times the kernels on the
+    card only: without one it exits before importing anything from the tree it was given."""
+    from multimodal_tpu_torch import bench_block_mlp
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in ([], ["--forward"], ["--root", "/nonexistent", "--tag", "parent"]):
+        with pytest.raises(SystemExit, match="needs an NVIDIA GPU"):
+            bench_block_mlp.main(argv)
+
+
 @pytest.mark.parametrize("t,w,hid", [(256 * 50, 768, 3072), (256 * 197, 768, 3072),
                                      (64 * 257, 1024, 4096), (3 * 197, 768, 3072), (7, 128, 512)])
 def test_float32_weight_gradient_splits_stay_under_the_row_cap(t, w, hid):
@@ -438,7 +709,14 @@ def cuda_device():
 # (T or (B, S), width, hidden, act)
 CUDA_SHAPES = [((3, 197), 768, 3072, "quick_gelu"), ((150,), 128, 512, "gelu"),
                ((2, 257), 1024, 4096, "gelu"), ((256,), 512, 2048, "quick_gelu"),
-               ((3, 61), 640, 2560, "gelu"), ((61,), 1408, 1536, "quick_gelu")]
+               ((3, 61), 640, 2560, "gelu"), ((61,), 1408, 1536, "quick_gelu"),
+               # the bfloat16 GEMM's edges: T = 1, one short of and one past its 128-row tiles
+               # and 64-row K-steps, and around a weight-gradient split (W = H = 128: T // 512
+               # splits; 4609 leaves the last one row, 5121 a split with none)
+               ((1,), 128, 128, "quick_gelu"), ((63,), 512, 128, "gelu"),
+               ((65,), 512, 3072, "quick_gelu"), ((127,), 768, 3072, "quick_gelu"),
+               ((129,), 1024, 3072, "gelu"), ((4609,), 128, 128, "gelu"),
+               ((5121,), 128, 128, "quick_gelu")]
 
 
 def _cuda_args(tokens, w, hid, dtype, device):

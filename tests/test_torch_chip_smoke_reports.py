@@ -193,6 +193,66 @@ def test_flash_wgmma_faults_hold_the_bf16_forward_and_dkv_to_wgmma():
         "flash_dkv_kernel: no bfloat16 instantiation"]
 
 
+# the fused MLP's bfloat16 GEMM, as nvcc 12 mangles and cuobjdump prints it
+WGMMA_MLP = ("_ZN45_GLOBAL__N__032e4a30_12_block_mlp_cu_142b870417wgmma_gemm_kernelI13__nv_"
+             "bfloat16{}EEv14CUtensorMap_stS2_NS_13WgmmaGemmArgsE")
+WGMMA_MLP_ARGS = ["S1_Li0ELi1ELi4ELi128E", "S1_Li0ELi0ELi3ELi128E", "S1_Li0ELi0ELi0ELi128E",
+                  "S1_Li1ELi0ELi2ELi128E", "fLi1ELi0ELi0ELi256E", "fLi2ELi2ELi0ELi256E",
+                  "fLi2ELi3ELi0ELi256E"]
+
+
+def test_mlp_wgmma_faults_hold_every_bf16_mlp_instantiation_to_wgmma():
+    """Phase 2 fails on a bfloat16 fused-MLP GEMM instantiation with an HMMA or without a GMMA,
+    and on a build with fewer than its seven instantiations; the float32 MLP's mma_gemm_kernel
+    is not held to it (gemm_hmma_faults holds it to 3xTF32)."""
+    assert cs.kernel_label(WGMMA_MLP.format("fLi2ELi3ELi0ELi256E")) == \
+        "wgmma_gemm_kernel<bfloat16, float, TN, LN-b, round>"
+    ok = "\n".join(
+        line for args in WGMMA_MLP_ARGS for line in (
+            f"\t\tFunction : {WGMMA_MLP.format(args)}",
+            "        /*0100*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;"))
+    with_f32 = "\n".join([ok, f"\t\tFunction : {GEMM_DW1}",
+                          "        /*0100*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;"])
+    assert cs.mlp_wgmma_faults(with_f32) == [] and cs.gemm_hmma_faults(with_f32) == []
+    assert "wgmma_gemm_kernel<bfloat16, bfloat16, NN, LN, round+act>: HGMMA.64x128x16.F32.BF16" \
+           " x 1" in cs.hmma_report(ok)
+    bad = ok.replace(f"{WGMMA_MLP.format('fLi2ELi2ELi0ELi256E')}\n        /*0100*/                   "
+                     "HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;",
+                     f"{WGMMA_MLP.format('fLi2ELi2ELi0ELi256E')}\n        /*0100*/                   "
+                     "HMMA.16816.F32.BF16 R4, R8, R12, R4 ;")
+    faults = cs.mlp_wgmma_faults(bad)
+    assert faults == ["wgmma_gemm_kernel<bfloat16, float, TN, act, round>: "
+                      "{'HMMA.16816.F32.BF16': 1}"]
+    short = ok.rsplit("\t\tFunction", 1)[0]
+    assert cs.mlp_wgmma_faults(short) == [
+        f"6 wgmma_gemm_kernel instantiations in the SASS, {cs.MLP_WGMMA_INSTANTIATIONS} expected"]
+
+
+def test_mlp_edge_cases_cross_the_wgmma_tiles_and_splits():
+    """Phase 3's bfloat16 MLP edges: T one short of and one past the 128-row tiles and the
+    64-row K-steps, T = 1, the widths and hidden sizes and both activations the issue names,
+    and T around a weight-gradient split: one with a one-row last split, one with a split
+    that holds no row (zeroed, not launched)."""
+    import torch
+
+    from multimodal_tpu_torch.ops import block_mlp as bm
+
+    ts = {b * s for _, b, s, _, _, _ in cs.MLP_EDGE_CASES}
+    assert {1, 63, 65, 127, 129} <= ts
+    assert {w for *_, w, _, _ in cs.MLP_EDGE_CASES} == {128, 512, 768, 1024}
+    assert {h for *_, h, _ in cs.MLP_EDGE_CASES} == {128, 3072}
+    assert {a for *_, a in cs.MLP_EDGE_CASES} == {"quick_gelu", "gelu"}
+    last_rows, empty = set(), False
+    for _, b, s, w, hid, _ in cs.MLP_EDGE_CASES:
+        t = b * s
+        splits = bm._wgrad_splits(t, w, hid, torch.bfloat16)
+        kps = -(-(-(-t // splits)) // 64) * 64
+        used = -(-t // kps)
+        last_rows.add(t - (used - 1) * kps)
+        empty |= used < splits
+    assert 1 in last_rows and empty
+
+
 def test_flash_edge_cases_cross_the_wgmma_tiles():
     """Phase 3's bfloat16 edge cases: one short of and one past the 128-row blocks and their
     64-row halves, causal and not, at every head dim class."""

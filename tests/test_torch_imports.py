@@ -121,6 +121,8 @@ def test_profile_step_sorts_kernels_into_families():
     from multimodal_tpu_torch.profile_step import family_of
 
     gemm = "void (anonymous namespace)::mma_gemm_kernel<{}>((anonymous namespace)::MmaGemmArgs)"
+    wgmma = ("void (anonymous namespace)::wgmma_gemm_kernel<{}>(CUtensorMap_st, CUtensorMap_st, "
+             "(anonymous namespace)::WgmmaGemmArgs)")
     cases = {
         gemm.format("float, float, 0, 1, 1"): "block forward GEMMs",
         gemm.format("__nv_bfloat16, __nv_bfloat16, 0, 0, 1"): "block forward GEMMs",
@@ -144,6 +146,13 @@ def test_profile_step_sorts_kernels_into_families():
         "void (anonymous namespace)::ln_bwd_kernel<float, float>(...)": "LN-fold launches",
         gemm.format("float, float, 0, 0, 3"): "fused MLP forward c_proj",
         gemm.format("__nv_bfloat16, __nv_bfloat16, 0, 0, 3"): "fused MLP forward c_proj",
+        wgmma.format("__nv_bfloat16, __nv_bfloat16, 0, 1, 4, 128"): "fused MLP forward c_fc",
+        wgmma.format("__nv_bfloat16, __nv_bfloat16, 0, 0, 3, 128"): "fused MLP forward c_proj",
+        wgmma.format("__nv_bfloat16, __nv_bfloat16, 0, 0, 0, 128"): "fused MLP forward c_proj",
+        wgmma.format("__nv_bfloat16, __nv_bfloat16, 1, 0, 2, 128"): "fused MLP backward dh",
+        wgmma.format("__nv_bfloat16, float, 1, 0, 0, 256"): "fused MLP backward dln",
+        wgmma.format("__nv_bfloat16, float, 2, 2, 0, 256"): "fused MLP weight gradients",
+        wgmma.format("__nv_bfloat16, float, 2, 3, 0, 256"): "fused MLP weight gradients",
         "void (anonymous namespace)::quantize_rows_kernel<float, 32, true>(...)":
             "int8 row quantize",
         "void (anonymous namespace)::quantize_columns_kernel<float, true>(...)":
