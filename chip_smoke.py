@@ -14,8 +14,10 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      the MLP's float32 c_fc, c_proj, dh, dln and weight gradients; HMMA.16816.F32.BF16 in bfloat16,
      HMMA.1688.F32.TF32 for float32's 3xTF32; a GEMM instantiation with no HMMA or another
      form fails), and the wgmma instructions (GMMA) of each int8 GEMM instantiation (none
-     fails); every bfloat16 instantiation of the flash forward and of dK/dV
-     (flash_fwd_kernel<WgmmaOps<..>>, flash_dkv_kernel<WgmmaOps<..>>) and all seven of the fused
+     fails); every bfloat16 instantiation of the flash forward, dQ and dK/dV
+     (flash_fwd_kernel<WgmmaOps<..>>, flash_dq_kernel<WgmmaOps<..>>,
+     flash_dkv_kernel<WgmmaOps<..>>), all four of the bfloat16 fused forward
+     (fused_fwd_kernel<FusedOps<64, 128|112|96>>, <FusedOps<128, 64>>) and all seven of the fused
      MLP's bfloat16 GEMM (wgmma_gemm_kernel<bfloat16, TOut, form, load, store>: c_fc, c_proj
      with and without the residual, dh, dln, dW2, dW1) must hold wgmma (HGMMA) and no HMMA, or
      the phase fails before any launch; the MLP's float32 instantiations of mma_gemm_kernel are
@@ -47,7 +49,11 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      3xTF32, the flash trio, the block pair in both forms and the MLP pair, at the 3xTF32
      ceiling, 495 / 3 TFLOP/s, and at the CUDA cores' 67 beside it); in bfloat16 also the
      wgmma flash kernels' tile edges, Sq = Sk = 127, 129, 255 and 257, causal and not, at
-     D = 8, 24, 64, 96 and 128 (FLASH_EDGE_CASES), and the fused MLP's edges on its wgmma GEMM
+     D = 8, 24, 64, 96 and 128 (FLASH_EDGE_CASES), the wgmma dQ's query and key tile edges,
+     Sq = 31-257 against Sk = 31-257, cross lengths under the top-left mask, D = 64, 80, 88 and
+     128 (DQ_EDGE_CASES), the wgmma fused forward's (FUSED_EDGE_CASES: S = 128, 129, 191-193,
+     255-257, 511 and 512, D = 32, 64 and 128, causal and not, B = 1 and 256, every key tile
+     width it picks), and the fused MLP's edges on its wgmma GEMM
      (MLP_EDGE_CASES: T = 1, 63, 65, 127, 129, 255, 257 and 4607-5121 around a weight-gradient
      split's edge, W = 128-1024, H = 128 and 3072, both activations, with and without the
      residual); the timed flash and fused kernels, those
@@ -426,6 +432,25 @@ FLASH_CASES = [  # (case, batch, sq, sk, heads, head_dim, causal, timed)
 FLASH_EDGE_CASES = [(f"flash-edge-S{s}-D{d}", 2, s, s, 3, d, causal)
                     for s in (127, 129, 255, 257) for causal in (False, True)
                     for d in (8, 24, 64, 96, 128)]
+# bfloat16 only: the wgmma dQ's edges, Sq one short of and one past its 128-row query tiles and
+# Sk around its key tiles (64 keys, 32 above D=64), Sq != Sk both ways under the top-left mask,
+# D = 80 and 88 (a zero-padded last k-step of 16); all three kernels run on them, each output
+# within 2e-2 x max|plain|, a second launch the same bits
+DQ_EDGE_CASES = [(f"flash-edge-dq-{sq}x{sk}-D{d}", 2, sq, sk, 3, d, causal)
+                 for sq, sk, d, causal in [
+                     (63, 63, 64, True), (65, 65, 64, False), (127, 65, 64, True),
+                     (129, 63, 64, True), (63, 129, 64, True), (129, 129, 64, False),
+                     (127, 127, 80, True), (129, 65, 80, False), (31, 33, 88, True),
+                     (33, 31, 88, False), (65, 129, 88, True), (129, 127, 88, True),
+                     (255, 257, 128, True), (257, 255, 128, False)]]
+# bfloat16 only: the wgmma fused forward's edges (ops/csrc/fused_attention.cu): S one short of,
+# at and one past its 128-row passes and its key tiles (128, 112 or 96 keys as fused_keys picks
+# them; 64 at D=128), D = 32, 64 and 128, causal and not, one item (B=1) and many per block
+# (B=256); forward only, within 2e-2 x max|plain|, a second launch the same bits, not timed
+FUSED_EDGE_CASES = [(f"fused-edge-S{s}-D{d}", b, s, h, d, causal)
+                    for s in (128, 129, 191, 192, 193, 255, 256, 257, 511, 512)
+                    for d in (32, 64, 128) for causal in (False, True)
+                    for b, h in ((1, 3), (256, 2))]
 QUANT_CASES = [  # (case, rows, cols, weight form or None): ViT-B/32's int8 step at B=256
     ("q-B32-vision-x", 256 * 50, 768, None),      # c_fc's input; dx's g of c_proj
     ("q-B32-vision-act", 256 * 50, 3072, None),   # c_proj's input act(h); g of c_fc
@@ -688,6 +713,16 @@ def kernel_cases(torch, ba, fa, bm, fl, dtype):
                lambda: ba.block_attention_ln_bwd_reference(x, dy, gamma, beta, *ws, **kw),
                None, {}, ("dx", "dq", "dk", "dv", "attnpre", "ln_out", "dgamma", "dbeta"),
                block_bound("block_attention_ln_bwd", b, s, w, heads, causal, name))
+    fused_edges = FUSED_EDGE_CASES if dtype == torch.bfloat16 else []
+    for case, b, s, heads, d, causal in fused_edges:
+        g = torch.Generator(device="cuda").manual_seed(b * 1000 + s + d)
+        q, k, v = (torch.randn(b, s, heads * d, generator=g, device="cuda").to(dtype)
+                   for _ in range(3))
+        kw = dict(heads=heads, causal=causal)
+        shape = f"B={b:<3} S={s} H={heads} D={d} causal={causal!s:<5}"
+        yield ("fused_attention_fwd", case, shape, False, lambda: fa.fused_attention(q, k, v, **kw),
+               lambda: fa.fused_attention_reference(q, k, v, **kw), None, {}, ("out",),
+               fused_bound("fused_attention_fwd", b, s, heads, d, causal, name))
     for case, b, s, heads, d, causal in FUSED_CASES:
         g = torch.Generator(device="cuda").manual_seed(b * 1000 + s)
         q, k, v, do = (torch.randn(b, s, heads * d, generator=g, device="cuda").to(dtype)
@@ -747,7 +782,8 @@ def kernel_cases(torch, ba, fa, bm, fl, dtype):
                    None, {"matmul_ms": matmul["block_mlp_bwd"]},
                    ("dx", "dW1", "dW2", "db1", "db2", "dgamma", "dbeta"),
                    mlp_bound("block_mlp_bwd", t, w, hid, name))
-    edges = [(*c, False) for c in FLASH_EDGE_CASES] if dtype == torch.bfloat16 else []
+    edges = ([(*c, False) for c in FLASH_EDGE_CASES + DQ_EDGE_CASES]
+             if dtype == torch.bfloat16 else [])
     for case, b, sq, sk, heads, d, causal, timed in FLASH_CASES + edges:
         g = torch.Generator(device="cuda").manual_seed(b * 1000 + sq)
         q, k, v, do = (torch.randn(b, s_, heads, d, generator=g, device="cuda").to(dtype)
@@ -825,7 +861,7 @@ def phase_kernels(torch, ba, fa, bm, fl) -> dict:
                 ok = ok and lib_ok
                 line += f" library_err={lib_err:.2e}{'' if lib_ok else ' LIBRARY MISMATCH'}"
             if kernel.startswith(("block_attention", "block_mlp")) or case.startswith(
-                    "flash-edge") or (
+                    ("flash-edge", "fused-edge")) or (
                     timed and kernel.startswith(("fused_attention", "flash_attention"))):
                 # no float atomics, one owner and a fixed order for every sum: a second launch
                 # gives the same bits, every output
@@ -1074,17 +1110,19 @@ def flash_crossover(torch, attention, card):
 
 def kernel_label(mangled: str) -> str:
     """A kernel's name with its template arguments, from its mangled name: mangled as they
-    stand (Li64E is 64, Lb1E true, f float, 13__nv_bfloat16 bfloat16) except the flash
+    stand (Li64E is 64, Lb1E true, f float, 13__nv_bfloat16 bfloat16) except the attention
     kernels' operand structs and the projection GEMM's types, form, load and store, written
-    out (flash_dq_kernel<Tf32Ops<64>>, mma_gemm_kernel<bfloat16, float, TN, LN-b, round>)."""
+    out (flash_dq_kernel<Tf32Ops<64>>, fused_fwd_kernel<FusedOps<64, 112>>,
+    mma_gemm_kernel<bfloat16, float, TN, LN-b, round>)."""
     from multimodal_tpu_torch.ops._build import gemm_signature
 
     found = re.search(r"_cu_[0-9a-f]{8}\d+([a-z][a-z_0-9]*_kernel)(I\w+?E)?Ev", mangled)
     if not found:
         return mangled.split()[-1]
-    ops = re.fullmatch(r"INS_\d+(\w+Ops)ILi(\d+)EE+", found.group(2) or "")
+    ops = re.fullmatch(r"INS_\d+(\w+Ops)I((?:Li\d+E)+)EE+", found.group(2) or "")
     if ops:
-        return f"{found.group(1)}<{ops.group(1)}<{ops.group(2)}>>"
+        ints = ", ".join(re.findall(r"Li(\d+)E", ops.group(2)))
+        return f"{found.group(1)}<{ops.group(1)}<{ints}>>"
     gemm = gemm_signature(mangled)
     if gemm:
         return f"{found.group(1)}<{', '.join(gemm)}>"
@@ -1134,14 +1172,15 @@ def sass_report(sass: str) -> str:
 
 
 def hmma_forms(sass: str) -> dict[str, dict[str, int]]:
-    """Per flash-attention kernel and projection GEMM in the SASS (each instantiation: dtype
-    and head dim, or types and form, as ``kernel_label`` names it), its tensor-core
-    instructions counted by form (HMMA.16816.F32.BF16 is mma.sync m16n8k16 on bf16,
+    """Per flash-attention kernel, bfloat16 fused forward and projection GEMM in the SASS (each
+    instantiation: dtype and head dim, or types and form, as ``kernel_label`` names it), its
+    tensor-core instructions counted by form (HMMA.16816.F32.BF16 is mma.sync m16n8k16 on bf16,
     HMMA.1688.F32.TF32 m16n8k8 on TF32, HGMMA.64x128x16.F32.BF16 a wgmma)."""
     kernels, name = {}, None
     for ln in sass.splitlines():
         if "Function :" in ln:
-            name = kernel_label(ln) if ("flash_" in ln or "mma_gemm_kernel" in ln) else None
+            name = kernel_label(ln) if ("flash_" in ln or "fused_fwd_kernel" in ln
+                                        or "mma_gemm_kernel" in ln) else None
             if name:
                 kernels.setdefault(name, {})
         elif name:
@@ -1173,13 +1212,15 @@ def gemm_hmma_faults(sass: str) -> list[str]:
     return faults
 
 
-WGMMA_FLASH = ("flash_fwd_kernel", "flash_dkv_kernel")  # their bfloat16 forms run wgmma
+# their bfloat16 forms run wgmma
+WGMMA_FLASH = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
 
 
 def flash_wgmma_faults(sass: str) -> list[str]:
-    """The bfloat16 instantiations of the flash forward and dK/dV (every one not on Tf32Ops)
-    whose products are not all wgmma: one with an HMMA, or with no GMMA, is a fault, and so is
-    a kernel with no bfloat16 instantiation at all. dQ and the float32 forms keep mma.sync."""
+    """The bfloat16 instantiations of the flash forward, dQ and dK/dV (every one not on
+    Tf32Ops) whose products are not all wgmma: one with an HMMA, or with no GMMA, is a fault,
+    and so is a kernel with no bfloat16 instantiation at all. The float32 forms keep mma.sync
+    (3xTF32)."""
     faults, seen = [], set()
     for name, forms in sorted(hmma_forms(sass).items()):
         kernel = name.split("<")[0]
@@ -1191,27 +1232,42 @@ def flash_wgmma_faults(sass: str) -> list[str]:
     return faults + [f"{k}: no bfloat16 instantiation" for k in WGMMA_FLASH if k not in seen]
 
 
+def wgmma_instantiation_faults(sass: str, kernel: str, expected: int) -> list[str]:
+    """The instantiations of ``kernel`` whose products are not all wgmma: one with an HMMA, or
+    with no GMMA, is a fault, and so is a build with fewer than ``expected`` of them."""
+    faults, seen = [], 0
+    for name, forms in sorted(hmma_forms(sass).items()):
+        if not name.startswith(kernel + "<"):
+            continue
+        seen += 1
+        if any(f.startswith("HMMA") for f in forms) or not any("GMMA" in f for f in forms):
+            faults.append(f"{name}: {forms or 'no tensor-core instructions'}")
+    if seen < expected:
+        faults.append(f"{seen} {kernel} instantiations in the SASS, {expected} expected")
+    return faults
+
+
+# the bfloat16 fused forward: 128-, 112- and 96-key tiles at D <= 64, 64 above
+FUSED_WGMMA_INSTANTIATIONS = 4
+
+
+def fused_wgmma_faults(sass: str) -> list[str]:
+    """The bfloat16 fused forward's instantiations (fused_fwd_kernel) off wgmma, or missing. The
+    float32 forward and the backward passes keep attention_passes.cuh's kernels
+    (attention_f32_kernel, the *_mma_kernel passes, reported by ``sass_report``)."""
+    return wgmma_instantiation_faults(sass, "fused_fwd_kernel", FUSED_WGMMA_INSTANTIATIONS)
+
+
 # the bfloat16 GEMM of the fused MLP: c_fc, c_proj with and without the residual, dh, dln, dW2
 # and dW1, each its own instantiation of wgmma_gemm_kernel
 MLP_WGMMA_INSTANTIATIONS = 7
 
 
 def mlp_wgmma_faults(sass: str) -> list[str]:
-    """The instantiations of the fused MLP's bfloat16 GEMM (wgmma_gemm_kernel) whose products are
-    not all wgmma: one with an HMMA, or with no GMMA, is a fault, and so is a build with fewer
-    instantiations than the MLP launches. The float32 MLP keeps mma_gemm_kernel (3xTF32), held by
+    """The fused MLP's bfloat16 GEMM instantiations (wgmma_gemm_kernel) off wgmma, or fewer than
+    the MLP launches. The float32 MLP keeps mma_gemm_kernel (3xTF32), held by
     ``gemm_hmma_faults``."""
-    faults, seen = [], 0
-    for name, forms in sorted(hmma_forms(sass).items()):
-        if not name.startswith("wgmma_gemm_kernel<"):
-            continue
-        seen += 1
-        if any(f.startswith("HMMA") for f in forms) or not any("GMMA" in f for f in forms):
-            faults.append(f"{name}: {forms or 'no tensor-core instructions'}")
-    if seen < MLP_WGMMA_INSTANTIATIONS:
-        faults.append(f"{seen} wgmma_gemm_kernel instantiations in the SASS, "
-                      f"{MLP_WGMMA_INSTANTIATIONS} expected")
-    return faults
+    return wgmma_instantiation_faults(sass, "wgmma_gemm_kernel", MLP_WGMMA_INSTANTIATIONS)
 
 
 def int8_gmma_counts(sass: str) -> dict[str, int]:
@@ -4033,7 +4089,10 @@ def main() -> int:
             fail(f"GEMM instantiations off their tensor-core form: {faults}")
         faults = flash_wgmma_faults(sass)
         if faults:
-            fail(f"bfloat16 flash forward or dK/dV instantiations off wgmma: {faults}")
+            fail(f"bfloat16 flash instantiations off wgmma: {faults}")
+        faults = fused_wgmma_faults(sass)
+        if faults:
+            fail(f"bfloat16 fused forward instantiations off wgmma: {faults}")
         faults = mlp_wgmma_faults(sass)
         if faults:
             fail(f"bfloat16 fused-MLP GEMM instantiations off wgmma: {faults}")

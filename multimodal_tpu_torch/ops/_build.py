@@ -29,7 +29,7 @@ SOURCES = tuple(os.path.join(_HERE, "csrc", name) for name in (
     "flash_attention.cu", "quant.cu", "int8_gemm.cu", "resample.cu"))
 HEADERS = tuple(os.path.join(_HERE, "csrc", name) for name in (
     "block_attention_common.cuh", "attention_passes.cuh", "mma_tiles.cuh", "register_tiles.cuh",
-    "tf32_tiles.cuh", "mma_gemm.cuh", "hopper.cuh", "wgmma_gemm.cuh"))
+    "tf32_tiles.cuh", "mma_gemm.cuh", "hopper.cuh", "wgmma_gemm.cuh", "wgmma_attention.cuh"))
 BUILD_DIR = os.path.join(_HERE, "_build_cache")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -38,21 +38,20 @@
 // tensor cores, and what decides the speed is how close the tensor cores come to their peak
 // and how much of the softmax work (exp, max, sums, the rescale, the masks) hides behind them.
 //
-// bfloat16 forward and dK/dV: wgmma fed by TMA rings (WgmmaOps; hopper.cuh). On mma.sync these
-// two ran at 10-14% of their bound (PERF.md): its issue rate and cp.async copies by the threads
+// bfloat16: wgmma fed by TMA rings (WgmmaOps; hopper.cuh, wgmma_attention.cuh). On mma.sync these
+// kernels ran at 10-14% of their bound (PERF.md): its issue rate and cp.async copies by the threads
 // cap the tensor cores well below their wgmma rate, and warp-level fragments were its one
 // advantage, which wgmma keeps (its A operand can come from registers, so p and ds still skip
-// shared memory). A block is two consumer warpgroups of 64 rows and one producer warp, 288
-// threads, one block an SM (ptxas gives such a block 168 registers a thread, its share rounded
-// to whole warpgroups; setmaxnreg, moving the producer's registers to the consumers, changed
-// neither the spills nor the times, PERF.md, and is not used). One producer thread issues
-// every copy: TMA boxes of 64 columns x rows of one (head, batch) of a 4-D tensor map over the
-// [B, S, H, D] tensor, in the 128-byte swizzle wgmma reads (a head dim above 64 is two boxes
-// side by side), zeros past D and past S; each stage of a ring has an mbarrier for its arrival
-// (the copies' bytes) and one for its release (an arrival from each consumer warp once its
-// products have read it). What bounds
-// them here is the issue of the softmax work (exp, max, sums, the rescale, the bf16 packing,
-// the masks) beside the products, more than the tensor cores (PERF.md: per-phase clocks), so:
+// shared memory). A block is two consumer warpgroups of 64 rows and one producer warp, 288 threads,
+// one block an SM (ptxas gives such a block 168 registers a thread, its share rounded to whole
+// warpgroups; setmaxnreg, moving the producer's registers to the consumers, changed neither the
+// spills nor the times, PERF.md, and is not used). One producer thread issues every copy: TMA boxes
+// of 64 columns x rows of one (head, batch) of a 4-D tensor map over the [B, S, H, D] tensor, in
+// the 128-byte swizzle wgmma reads (a head dim above 64 is two boxes side by side), zeros past D
+// and past S; each stage of a ring has an mbarrier for its arrival (the copies' bytes) and one for
+// its release (an arrival from each consumer warp once its products have read it). What bounds them
+// here is the issue of the softmax work (exp, max, sums, the rescale, the bf16 packing, the masks)
+// beside the products, more than the tensor cores (PERF.md: per-phase clocks), so:
 //   * no wgmma sits under a run-time condition, nor a branch (a barrier's wait) between the
 //     wgmma fence and the wgmma: ptxas serialises every wgmma of a kernel that has one. Every
 //     k-step over the head dim runs, columns past d being zeros, and every tile, the masks
@@ -96,43 +95,50 @@
 //     then its gradient products, each waited for) keep at most 128 + 16 live beside the
 //     addresses, and 96 bytes of spill stores remain (340 with the overlap; the ptxas report
 //     of chip_smoke.py's phase 2 prints them; D=128 is off the main path).
+//   * dQ (flash_dq_kernel<WgmmaOps>): a block owns 128 query rows of one (head, batch), the
+//     longest causal tiles first; the Q and dO tiles come in once and stay, each row's lse
+//     (times log2 e) and delta go to registers, and K and V tiles of 64 keys (32 at D > 64)
+//     cycle through a ring of six stages (four at D > 64), the stream ending at the block's
+//     diagonal. Per tile and warpgroup: S = Q K^T and dP = dO V^T by wgmma.m64nNk16 from shared
+//     memory, all K-major; p = ex2(s sm_scale log2 e - lse log2 e) and dS = round(p (dP -
+//     delta)) in registers, packed to bf16 as the register A operand of dQ += dS K, K MN-major
+//     through the transpose bit. The next tile's S and dP go to the tensor cores with this
+//     tile's dQ product, and its p and dS are formed as soon as they land (wait_group 1, then
+//     0), as in dK/dV. Registers: dQ's accumulator takes D / 2 a thread, the next tile's S and
+//     dP keys / 2 each, this tile's dS fragments keys / 4: 112 at D=64, 104 at D=128. dQ stays
+//     its own kernel with one owner for every sum (no float atomics), so two launches give the
+//     same bits.
 //
-// dQ in bfloat16 and all three kernels in float32 keep mma.sync for now, through the operand
-// structs Bf16Ops and Tf32Ops (one schedule, the struct saying how a tile loads, how the
-// products run and what stays in registers). dQ is the next kernel to move onto these pieces.
-// float32 runs 3xTF32 on m16n8k8 (tf32_tiles.cuh): each operand split into two TF32 parts and
-// three products summed in f32, about 2^-20 relative a product, where one TF32 product would
-// break the 1e-4 x max|plain| limit the kernels are held to (PyTorch's memory-efficient
-// attention uses the same arithmetic for float32); wgmma takes tf32 operands K-major only, and
-// P V reads V along its keys, the other major, so the float32 forms wait for a transposed V.
-// They already beat SDPA's float32 (PERF.md).
+// float32 keeps mma.sync for all three kernels through the operand struct Tf32Ops (one schedule,
+// the struct saying how a tile loads and how the products run). float32 runs 3xTF32 on m16n8k8
+// (tf32_tiles.cuh): each operand split into two TF32 parts and three products summed in f32, about
+// 2^-20 relative a product, where one TF32 product would break the 1e-4 x max|plain| limit the
+// kernels are held to (PyTorch's memory-efficient attention uses the same arithmetic for float32);
+// wgmma takes tf32 operands K-major only, and P V reads V along its keys, the other major, so the
+// float32 forms wait for a transposed V. They already beat SDPA's float32 (PERF.md).
 //   * forward (float32): one block per (query tile, head, batch), four warps of 32 rows up to
 //     D=64 (16 above), the longest causal tiles first; K and V stream in tiles of 32 keys through
 //     two shared-memory stages filled by 16-byte cp.async, so tile i + 1 loads while tile i
 //     multiplies; one online-softmax sweep up to the tile's causal bound (and a warp's own bound
 //     below it), p going from C fragment to the A operand of p @ V in registers (contracting
 //     over the keys in the permuted order of tf32_tiles.cuh).
-//   * dQ: one block per (query tile, head, batch), warps and order as the forward; Q and dO
-//     stay resident (in bfloat16 as A fragments in registers); K and V stream in 32-row tiles,
-//     one sweep up to the tile's causal bound. The logits and dp come out as C
-//     fragments, p = ex2(s log2(e) - lse log2(e)) is one FMA and one ex2, ds goes from C
-//     fragment to the A operand of ds @ K in registers (bfloat16: two neighbouring C fragments
-//     packed to bf16 pairs are an A fragment; float32: the contraction runs over the keys in a
-//     permuted order in which a C fragment is an A fragment as it stands, tf32_tiles.cuh).
+//   * dQ (float32): one block per (query tile, head, batch), warps and order as the forward; Q
+//     and dO stay resident; K and V stream in 32-row tiles, one sweep up to the tile's causal
+//     bound. The logits and dp come out as C fragments, p = ex2(s log2(e) - lse log2(e)) is one
+//     FMA and one ex2, ds goes from C fragment to the A operand of ds @ K in registers (the
+//     contraction runs over the keys in a permuted order in which a C fragment is an A
+//     fragment as it stands, tf32_tiles.cuh).
 //   * dK/dV (float32): one block per (key tile, head, batch), warp w owning the keys of its
 //     m-tiles; the logits and dp are formed transposed (k q^T, v do^T), so p^T and ds^T come
 //     out as the A operands of p^T do and ds^T q; the query rows stream with their lse and
 //     delta, and under the causal mask the stream starts at the tile's first key.
 //   * Only a tile that holds a masked entry runs the mask tests. Head dims are multiples of 8
-//     up to 128: the tiles' row stride is set by the head dim rounded up to 64 or 128, and
-//     bfloat16's k-steps of 16 read zeros, filled by cp.async with a source size of 0, from d to
-//     the next multiple.
+//     up to 128: the tiles' row stride is set by the head dim rounded up to 64 or 128.
 
 #include <type_traits>
 
-#include "attention_passes.cuh"
-#include "hopper.cuh"
 #include "tf32_tiles.cuh"
+#include "wgmma_attention.cuh"
 
 namespace {
 
@@ -142,81 +148,18 @@ __device__ __forceinline__ size_t head_base(int batch, int s, int heads, int hea
 }
 
 // ----------------------------------------------------------------------------- mma.sync
-// dQ in bfloat16, and the float32 trio
+// the float32 trio
 constexpr int kFlashKT = 32;    // rows of the backward's streamed tiles (forward: Ops::kFwdKT)
 constexpr int kFlashWarps = 4;  // warps of a block
 constexpr int kFlashThreads = 32 * kFlashWarps;
 
-// The operand structs. A warp owns kM m-tiles of 16 rows (query rows in the forward and dQ
+// The operand struct. A warp owns kM m-tiles of 16 rows (query rows in the forward and dQ
 // kernels, keys in the dK/dV kernel) and forms a step's head products over the head dim for its
 // rows of the resident tiles against a streamed tile: in the backward two, x @ bx^T and y @ by^T
 // (q and do, or k and v), interleaved k-step by k-step so that independent chains of
 // accumulations are in flight, in the forward one (q); and the second product, acc += c @ tile
 // over the streamed tile's rows, from the C fragments of the first.
 //
-// bfloat16 (the dQ kernel only): m16n8k16 products on bf16 tiles, the attention passes'
-// helpers, one m-tile a warp. The warp's q and do A fragments stay in registers for the whole
-// block up to D=64, 4% faster at S=2048 than reading them at each step (PERF.md; above, 32
-// more registers would cost the block its third slot on the SM). Launch bounds: four blocks of
-// four warps an SM up to D=64, three above.
-template <int kDP_>
-struct Bf16Ops {
-  using T = __nv_bfloat16;
-  static constexpr int kDP = kDP_, kLd = kDP + 8, kM = 1;
-  static constexpr int kMinBlocks = kDP <= 64 ? 4 : 3;
-  static constexpr bool kHold = kDP <= 64;
-  using Frags = uint32_t[kDP / 16][4];
-
-  static __device__ __forceinline__ int d16(int d) { return (d + 15) & ~15; }
-  static __device__ __forceinline__ void load(T* dst, const T* src, size_t stride, int nrows,
-                                              int live_rows, int d) {
-    load_tile_async<kDP>(dst, src, stride, nrows, live_rows, d, d16(d));
-  }
-  static __device__ __forceinline__ void hold(Frags& f, const T* tile, int row0, int d,
-                                              int lane) {
-    load_a_frags<kDP>(f, tile, row0, d16(d), lane);
-  }
-  // the head products from held fragments, over the n-tiles below `live`
-  template <int kNT>
-  static __device__ __forceinline__ void products_held(float (&ax)[1][kNT][4],
-                                                       float (&ay)[1][kNT][4], const Frags& fx,
-                                                       const Frags& fy, const T* bx,
-                                                       const T* by, int d, int live, int lane) {
-    zero_acc(ax[0]);
-    zero_acc(ay[0]);
-#pragma unroll
-    for (int kk = 0; kk < kDP / 16; ++kk)
-      if (kk * 16 < d16(d)) {
-        mma_rows<kNT>(ax[0], fx[kk], bx, kLd, kk * 16, live, lane);
-        mma_rows<kNT>(ay[0], fy[kk], by, kLd, kk * 16, live, lane);
-      }
-  }
-  // the head products with the A fragments read from x and y at each k-step (D > 64)
-  template <int kNT>
-  static __device__ __forceinline__ void products(float (&ax)[1][kNT][4], float (&ay)[1][kNT][4],
-                                                  const T* x, const T* y, int row0, const T* bx,
-                                                  const T* by, int d, int live, int lane) {
-    zero_acc(ax[0]);
-    zero_acc(ay[0]);
-#pragma unroll
-    for (int kk = 0; kk < kDP / 16; ++kk)
-      if (kk * 16 < d16(d)) {
-        uint32_t a[4];
-        load_a(a, x, kLd, row0, kk * 16, lane);
-        mma_rows<kNT>(ax[0], a, bx, kLd, kk * 16, live, lane);
-        load_a(a, y, kLd, row0, kk * 16, lane);
-        mma_rows<kNT>(ay[0], a, by, kLd, kk * 16, live, lane);
-      }
-  }
-  // acc += c @ tile over the tile's rows below nrows, c rounded to bf16 as it is packed
-  template <int kNT>
-  static __device__ __forceinline__ void accumulate(float (&acc)[1][kDP / 8][4],
-                                                    const float (&c)[1][kNT][4], const T* tile,
-                                                    int nrows, int d, int lane) {
-    accumulate_rows<kDP / 8>(acc[0], c[0], tile, kLd, nrows, d, lane);
-  }
-};
-
 // float32: 3xTF32 m16n8k8 products on f32 tiles (tf32_tiles.cuh). Up to D=64 a warp owns two
 // m-tiles (32 rows), so that every B fragment, loaded and split once, feeds both (the splits
 // and loads of B, not the tensor cores, set the pace with one m-tile); above, one. The
@@ -229,8 +172,6 @@ struct Tf32Ops {
   static constexpr int kDP = kDP_, kLd = kDP + 4, kM = kDP <= 64 ? 2 : 1;
   static constexpr int kMinBlocks = kDP <= 64 ? 2 : 1;
   static constexpr int kFwdKT = 32;
-  static constexpr bool kHold = false;
-  struct Frags {};  // nothing is held
 
   static __device__ __forceinline__ void load(T* dst, const T* src, size_t stride, int nrows,
                                               int live_rows, int d) {
@@ -386,9 +327,9 @@ flash_fwd_kernel(const typename Ops::T* __restrict__ q, const typename Ops::T* _
 }
 
 // ----------------------------------------------------------------------------- dQ
-// One block per tile of 16 kM kFlashWarps query rows (64 in bfloat16, 128 in float32 up to
-// D=64), head and batch; one sweep over the key tiles below the tile's causal bound. The lane's
-// query rows are 16m + g and 16m + g + 8 of its warp's.
+// float32. One block per tile of 16 kM kFlashWarps query rows (128 up to D=64, 64 above), head
+// and batch; one sweep over the key tiles below the tile's causal bound. The lane's query rows
+// are 16m + g and 16m + g + 8 of its warp's.
 template <class Ops>
 __global__ void __launch_bounds__(kFlashThreads, Ops::kMinBlocks)
 flash_dq_kernel(const typename Ops::T* __restrict__ q, const typename Ops::T* __restrict__ k,
@@ -442,7 +383,6 @@ flash_dq_kernel(const typename Ops::T* __restrict__ q, const typename Ops::T* __
   Ops::load(dos, dout + qbase, stride, kRows, rows, d);
   prefetch(0);  // q and do ride the first group
 
-  typename Ops::Frags qf, dof;  // held q and do fragments (Ops::kHold)
   float acc[kM][kDN][4];
 #pragma unroll
   for (int m = 0; m < kM; ++m) zero_acc(acc[m]);
@@ -458,18 +398,9 @@ flash_dq_kernel(const typename Ops::T* __restrict__ q, const typename Ops::T* __
     const T* kt = ks + stage * kFlashKT * kLd;
     const T* vt = vs + stage * kFlashKT * kLd;
     const int live = min(kNT, (wmax - c0 + 7) / 8);  // n-tiles with a key this warp sees
-    if constexpr (Ops::kHold) {
-      if (step == 0) {
-        Ops::hold(qf, qs, wrow, d, lane);
-        Ops::hold(dof, dos, wrow, d, lane);
-      }
-    }
     if (live > 0) {
       float sf[kM][kNT][4], dp[kM][kNT][4];
-      if constexpr (Ops::kHold)
-        Ops::products_held(sf, dp, qf, dof, kt, vt, d, live, lane);
-      else
-        Ops::products(sf, dp, qs, dos, wrow, kt, vt, d, live, lane);
+      Ops::products(sf, dp, qs, dos, wrow, kt, vt, d, live, lane);
       const bool edge = edge_tile(c0, kFlashKT, kmax, r0 + wrow, causal);
 #pragma unroll
       for (int m = 0; m < kM; ++m) {
@@ -605,9 +536,9 @@ flash_dkv_kernel(const typename Ops::T* __restrict__ q, const typename Ops::T* _
 }
 
 // ============================================================================ wgmma, bfloat16
-// The forward and dK/dV kernels in bfloat16: wgmma fed by TMA rings (the header says why).
-// Both run two consumer warpgroups of 64 rows (query rows in the forward, keys in dK/dV) and
-// one producer warp. kDP is the head dim rounded up to 64 or 128: a row of a tile is kDP / 64
+// The three kernels in bfloat16: wgmma fed by TMA rings (the header says why). Each runs two
+// consumer warpgroups of 64 rows (query rows in the forward and dQ, keys in dK/dV) and one
+// producer warp. kDP is the head dim rounded up to 64 or 128: a row of a tile is kDP / 64
 // boxes of 64 columns (128 bytes, one swizzle atom), each box a [rows][64] sub-tile of its own.
 struct FlashMaps {  // 4-D tensor maps over [B, S, H, D] (fields a kernel does not read are unset)
   CUtensorMap q, k, v, dout;
@@ -627,32 +558,10 @@ struct WgmmaOps {
   static constexpr int kDkvKeys = 128, kDkvRows = kDP == 64 ? 32 : 16;
   static constexpr bool kDkvOverlap = kDP == 64;
   static constexpr int kDkvStages = kDP == 64 ? 6 : 3;
+  // dQ: 128 query rows against K and V tiles of 64 keys (32 at D=128), for registers
+  static constexpr int kDqRows = 128, kDqKeys = kDP == 64 ? 64 : 32;
+  static constexpr int kDqStages = kDP == 64 ? 6 : 4;
 };
-
-constexpr int kWgThreads = 128;
-constexpr int kHopperThreads = 2 * kWgThreads + 32;  // two consumer warpgroups, a producer warp
-constexpr int kConsumerWarps = 8;                    // arrivals that release a stage
-constexpr int kRowBytes = 128;                       // a sub-tile's row: 64 bf16
-
-// Descriptors: one per tile, and a compile-time offset (in the descriptor's 16-byte units) for
-// each k-step, so that no descriptor is rebuilt in the loops (the address field cannot carry:
-// shared memory ends below 2^18 bytes).
-// A K-major operand (rows of M or N, the head dim along a row) of a [kParts][rows][64] tile,
-// from row `row0`; k-step kk is columns 16kk..16kk+15, in part kk / 4
-__device__ __forceinline__ uint64_t k_major(const unsigned char* tile, int row0) {
-  return sw128_desc(tile + row0 * kRowBytes);
-}
-template <int kRows>
-__device__ __forceinline__ constexpr uint64_t k_step(int kk) {
-  return ((kk / 4) * kRows * kRowBytes + (kk % 4) * 32) >> 4;
-}
-// An MN-major operand (rows along the contraction) of a [kParts][rows][64] tile, its 64-column
-// parts kRows rows apart; k-step kk is rows 16kk..16kk+15
-template <int kRows>
-__device__ __forceinline__ uint64_t mn_major(const unsigned char* tile) {
-  return sw128_desc(tile, kRows * kRowBytes, 8 * kRowBytes);
-}
-__device__ __forceinline__ constexpr uint64_t mn_step(int kk) { return (kk * 16 * kRowBytes) >> 4; }
 
 template <class Ops>
 struct FwdSmem {  // Q | stages of (K, V) | barriers: q, k[stages], v[stages], free[stages]
@@ -663,6 +572,14 @@ struct FwdSmem {  // Q | stages of (K, V) | barriers: q, k[stages], v[stages], f
 };
 
 template <class Ops>
+struct DqSmem {  // Q | dO | stages of (K, V) | barriers: q and do, full[stages], free[stages]
+  static constexpr int kQBytes = Ops::kParts * Ops::kDqRows * kRowBytes;    // Q or dO
+  static constexpr int kTileBytes = Ops::kParts * Ops::kDqKeys * kRowBytes;  // K or V
+  static constexpr int kBarOffset = 2 * kQBytes + Ops::kDqStages * 2 * kTileBytes;
+  static constexpr int kBytes = kBarOffset + 8 * (1 + 2 * Ops::kDqStages) + 1024;  // + align
+};
+
+template <class Ops>
 struct DkvSmem {  // K | V | stages of (Q, dO) | stages of (lse log2 e, delta) | barriers
   static constexpr int kKVBytes = Ops::kParts * Ops::kDkvKeys * kRowBytes;  // K or V
   static constexpr int kTileBytes = Ops::kParts * Ops::kDkvRows * kRowBytes;  // Q or dO
@@ -670,49 +587,6 @@ struct DkvSmem {  // K | V | stages of (Q, dO) | stages of (lse log2 e, delta) |
   static constexpr int kBarOffset = kRowsOffset + Ops::kDkvStages * 2 * Ops::kDkvRows * 4;
   static constexpr int kBytes = kBarOffset + 8 * (1 + 2 * Ops::kDkvStages) + 1024;
 };
-
-// The forward's logits stay unscaled, t = q k^T: a masked entry (key >= kmax, or under the
-// causal mask key > row; row_g is the sequence row of c[.][0], key_t the key of c[0][0]) takes
-// the finite -1e30
-template <int kNT>
-__device__ __forceinline__ void mask_logits(float (&sf)[kNT][4], int row_g, int key_t, int kmax,
-                                            int causal) {
-#pragma unroll
-  for (int n = 0; n < kNT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int key = key_t + 8 * n + (e & 1), row = row_g + 8 * (e >> 1);
-      if (!(key < kmax && (!causal || key <= row))) sf[n][e] = kNegInf;
-    }
-}
-
-// One online-softmax step on unscaled logits t for the warp's rows g and g + 8, sm_scale folded
-// into the exponent: p = 2^(t c - m c) with c = sm_scale log2(e) and m the running max of t,
-// which is exp(s - max s) for s = t sm_scale (sm_scale > 0 keeps the max in place; the one
-// rounding of t sm_scale is gone, a difference of about one float32 ulp in the exponent).
-// alpha[h] is the factor the sums kept so far take; l, a per-lane partial of the sum of the
-// unrounded p, takes it here. A masked t (-1e30) gives p = 0, as does the first tile's rescale.
-template <int kNT>
-__device__ __forceinline__ void online_softmax_scaled(float (&sf)[kNT][4], float (&m)[2],
-                                                      float (&l)[2], float (&alpha)[2], float c) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float mx = kNegInf;
-#pragma unroll
-    for (int n = 0; n < kNT; ++n) mx = fmaxf(mx, fmaxf(sf[n][2 * h], sf[n][2 * h + 1]));
-    const float m_new = fmaxf(m[h], quad_max(mx)), off = m_new * c;
-    alpha[h] = ex2(fmaf(m[h], c, -off));
-    float sum = 0.f;
-#pragma unroll
-    for (int n = 0; n < kNT; ++n) {
-      sf[n][2 * h] = ex2(fmaf(sf[n][2 * h], c, -off));
-      sf[n][2 * h + 1] = ex2(fmaf(sf[n][2 * h + 1], c, -off));
-      sum += sf[n][2 * h] + sf[n][2 * h + 1];
-    }
-    l[h] = fmaf(l[h], alpha[h], sum);
-    m[h] = m_new;
-  }
-}
 
 // One block per 128 query rows (longest causal tiles first), head and batch. Warpgroup w owns
 // rows 64w..64w+63 of the tile; the lane's rows are those of the warp's C fragments (16-row
@@ -871,6 +745,184 @@ flash_fwd_kernel(const __grid_constant__ typename Ops::Maps maps, __nv_bfloat16*
     if (t == 0 && row < rows) lse_rows[row] = __fmul_rn(m[h], scale) + logf(safe_l);
   }
   store_c<kDN>(out + qbase, stride, wrow, rows, d, inv, acc, lane);
+}
+
+// One block per 128 query rows (longest causal tiles first), head and batch. Warpgroup w owns
+// rows 64w..64w+63 of the tile; the lane's rows are those of the warp's C fragments (16-row
+// warps, rows g and g + 8). One sweep over the key tiles below the block's causal bound.
+template <class Ops>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+flash_dq_kernel(const __grid_constant__ typename Ops::Maps maps, const float* __restrict__ lse,
+                const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int sq, int sk,
+                int d, float scale, int causal) {
+  constexpr int kRows = Ops::kDqRows, kKeys = Ops::kDqKeys, kStages = Ops::kDqStages;
+  constexpr int kParts = Ops::kParts, kNT = kKeys / 8, kDN = Ops::kDN, kDP = Ops::kDP;
+  using Smem = DqSmem<Ops>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  unsigned char* qs = smem;
+  unsigned char* dos = smem + Smem::kQBytes;
+  auto ks = [&](int s) { return smem + 2 * Smem::kQBytes + s * 2 * Smem::kTileBytes; };
+  auto vs = [&](int s) { return ks(s) + Smem::kTileBytes; };
+  uint64_t* qdo_full = reinterpret_cast<uint64_t*>(smem + Smem::kBarOffset);
+  uint64_t* full = qdo_full + 1;
+  uint64_t* freed = full + kStages;
+
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // the longest causal tiles first
+  const int head = blockIdx.y, batch = blockIdx.z, heads = gridDim.y;
+  const int rows = min(kRows, sq - r0);
+  // top-left causal mask: no row of this tile sees a key past its last row
+  const int kmax = causal ? min(sk, r0 + rows) : sk;
+  const int tiles = (kmax + kKeys - 1) / kKeys;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qdo_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&freed[s], kConsumerWarps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 2 * kWgThreads) {  // the producer warp: one thread issues every copy
+    if (threadIdx.x == 2 * kWgThreads) {
+      mbar_expect_tx(qdo_full, 2 * Smem::kQBytes);
+      for (int p = 0; p < kParts; ++p) {
+        tma_load_4d(qs + p * kRows * kRowBytes, &maps.q, qdo_full, 64 * p, head, r0, batch);
+        tma_load_4d(dos + p * kRows * kRowBytes, &maps.dout, qdo_full, 64 * p, head, r0, batch);
+      }
+      for (int j = 0; j < tiles; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(&freed[s], (j / kStages - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * Smem::kTileBytes);
+        for (int p = 0; p < kParts; ++p) {
+          tma_load_4d(ks(s) + p * kKeys * kRowBytes, &maps.k, &full[s], 64 * p, head, j * kKeys,
+                      batch);
+          tma_load_4d(vs(s) + p * kKeys * kRowBytes, &maps.v, &full[s], 64 * p, head, j * kKeys,
+                      batch);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / kWgThreads, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wrow = wg * 64 + ((threadIdx.x >> 5) & 3) * 16;  // the warp's first row of the tile
+  // the lane's rows: lse in log2 units, and delta (0 for a row past sq: its dO is zero, so its
+  // ds is 0, and it is never stored)
+  float off[2], dl[2];
+  const size_t at = ((size_t)batch * heads + head) * sq + r0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = wrow + g + 8 * h;
+    off[h] = row < rows ? lse[at + row] * kLog2e : 0.f;
+    dl[h] = row < rows ? delta[at + row] : 0.f;
+  }
+  float acc[kDN][4];
+  float sf[kNT][4], dp[kNT][4];  // q k^T then p; do v^T then ds
+  uint32_t da[kKeys / 16][4];    // ds rounded to bf16: the A fragments of dS K
+  // S = Q K^T into sf and dP = dO V^T into dp for key tile j, issued and committed, once the
+  // tile has landed. Every k-step runs (columns past d are zeros), and every tile below the
+  // block's bound, also one in which no row of this warpgroup sees a key (its p is masked to
+  // 0): a condition around a wgmma makes ptxas serialise them all, and so does a branch (a
+  // barrier's wait) between the wgmma fence and the wgmma.
+  auto landed = [&](int j) { mbar_wait(&full[j % kStages], (j / kStages) & 1); };
+  const uint64_t q_desc = k_major(qs, wg * 64), do_desc = k_major(dos, wg * 64);
+  auto head_products = [&](int j) {
+    const uint64_t k_desc = k_major(ks(j % kStages), 0), v_desc = k_major(vs(j % kStages), 0);
+#pragma unroll
+    for (int kk = 0; kk < kDP / 16; ++kk)
+      wgmma_bf16_ss<kKeys>(sf, q_desc + k_step<kRows>(kk), k_desc + k_step<kKeys>(kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < kDP / 16; ++kk)
+      wgmma_bf16_ss<kKeys>(dp, do_desc + k_step<kRows>(kk), v_desc + k_step<kKeys>(kk), kk > 0);
+    wgmma_commit();
+  };
+  // p and ds of a tile in place (ds into dp), from its landed head products; `masked`
+  // (std::true_type): the tile holds a key past sk or, under the causal mask, past one of the
+  // warp's rows, and every element is tested
+  auto tile_ds = [&](int c0, auto masked) {
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = prob(__fmul_rn(sf[n][e], scale), off[e >> 1]);
+        if constexpr (decltype(masked)::value) {
+          const int key = c0 + 8 * n + 2 * t + (e & 1), row = r0 + wrow + g + 8 * (e >> 1);
+          p = key < sk && (!causal || key <= row) ? p : 0.f;
+        }
+        dp[n][e] = __fmul_rn(p, __fsub_rn(dp[n][e], dl[e >> 1]));  // from the exact p
+      }
+  };
+  auto probabilities = [&](int j) {
+    const int c0 = j * kKeys;
+    if (edge_tile(c0, kKeys, sk, r0 + wrow, causal))
+      tile_ds(c0, std::true_type{});
+    else
+      tile_ds(c0, std::false_type{});
+  };
+  auto pack = [&] {
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) pack_a<kNT>(da[kk], dp, kk);
+  };
+  // dq += ds K over tile j's keys, issued and committed (masked keys have ds = 0 exactly)
+  auto grads = [&](int j) {
+    const uint64_t k_desc = mn_major<kKeys>(ks(j % kStages));
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk)
+      wgmma_bf16_rs<kDP>(acc, da[kk], k_desc + mn_step(kk), 1);
+    wgmma_commit();
+  };
+  auto release = [&](int j) {  // this warp is done with tile j's stage
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&freed[j % kStages]);
+  };
+  auto fence_all = [&] {
+    fence_acc(sf);
+    fence_acc(dp);
+    fence_acc(da);
+    fence_acc(acc);
+  };
+  zero_acc(acc);
+  mbar_wait(qdo_full, 0);
+  landed(0);
+  fence_all();
+  wgmma_fence();
+  head_products(0);
+  wgmma_wait<0>();
+  fence_all();
+  probabilities(0);
+  // Per step: the head products of tile j + 1 and dQ of tile j go to the tensor cores together;
+  // p and ds of tile j + 1 are formed as soon as its products land, while dQ still runs.
+  // Nothing is in flight across the loop's edges, where the compiler may move the accumulators.
+  for (int j = 0; j + 1 < tiles; ++j) {
+    pack();
+    landed(j + 1);
+    fence_all();
+    wgmma_fence();
+    head_products(j + 1);
+    grads(j);
+    wgmma_wait<1>();  // the head products of tile j + 1
+    fence_acc(sf);
+    fence_acc(dp);
+    probabilities(j + 1);
+    wgmma_wait<0>();  // dQ of tile j
+    fence_all();
+    release(j);
+  }
+  pack();
+  fence_all();
+  wgmma_fence();
+  grads(tiles - 1);
+  wgmma_wait<0>();
+  fence_all();
+  release(tiles - 1);
+  // dq = sm_scale acc, rounded once
+  const size_t stride = (size_t)heads * d;
+  const size_t qbase = head_base(batch, sq, heads, head, d) + (size_t)r0 * stride;
+  const float mul[2] = {scale, scale};
+  store_c<kDN>(dq + qbase, stride, wrow, rows, d, mul, acc, lane);
 }
 
 // One block per 128 keys, head and batch; warpgroup w owns keys 64w..64w+63 of the block. The
@@ -1144,9 +1196,12 @@ cudaError_t flash_dq(const void* q, const void* k, const void* v, const void* do
                      int heads, int d, int causal, float scale, cudaStream_t stream) {
   using T = typename Ops::T;
   constexpr size_t smem = bwd_smem<Ops>(false);
-  cudaError_t err = allow_smem(flash_dq_kernel<Ops>, smem);
+  // the float32 template of the name (the bfloat16 one takes tensor maps)
+  void (*kernel)(const T*, const T*, const T*, const T*, const float*, const float*, T*, int, int,
+                 int, float, int) = flash_dq_kernel<Ops>;
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  flash_dq_kernel<Ops><<<tiles(sq, heads, b, block_rows<Ops>()), kFlashThreads, smem, stream>>>(
+  kernel<<<tiles(sq, heads, b, block_rows<Ops>()), kFlashThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), sq, sk, d, scale, causal);
   return cudaGetLastError();
@@ -1169,23 +1224,6 @@ cudaError_t flash_dkv(const void* q, const void* k, const void* v, const void* d
   return cudaGetLastError();
 }
 
-// a [B, S, heads, d] bfloat16 tensor as a 4-D tensor map (d innermost), boxes of 64 columns x
-// `rows` rows of one head and batch in the 128-byte swizzle; columns past d and rows past S land
-// as zeros
-bool encode_heads(EncodeTiled encode, CUtensorMap* map, const void* ptr, int b, int s,
-                  int heads, int d, int rows) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(s), static_cast<cuuint64_t>(b)};
-  const cuuint64_t row = 2ull * heads * d;
-  const cuuint64_t strides[3] = {2ull * d, row, row * s};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <class Ops>
 cudaError_t flash_fwd_wgmma(const void* q, const void* k, const void* v, void* out, float* lse,
                             int b, int sq, int sk, int heads, int d, int causal, float scale,
@@ -1193,9 +1231,10 @@ cudaError_t flash_fwd_wgmma(const void* q, const void* k, const void* v, void* o
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   FlashMaps maps = {};
-  if (!encode_heads(encode, &maps.q, q, b, sq, heads, d, Ops::kFwdRows) ||
-      !encode_heads(encode, &maps.k, k, b, sk, heads, d, Ops::kFwdKeys) ||
-      !encode_heads(encode, &maps.v, v, b, sk, heads, d, Ops::kFwdKeys))
+  const size_t ld = (size_t)heads * d;
+  if (!encode_heads(encode, &maps.q, q, b, sq, heads, d, Ops::kFwdRows, ld) ||
+      !encode_heads(encode, &maps.k, k, b, sk, heads, d, Ops::kFwdKeys, ld) ||
+      !encode_heads(encode, &maps.v, v, b, sk, heads, d, Ops::kFwdKeys, ld))
     return cudaErrorInvalidValue;
   constexpr size_t smem = FwdSmem<Ops>::kBytes;
   void (*kernel)(FlashMaps, __nv_bfloat16*, float*, int, int, int, float, int) =
@@ -1208,6 +1247,29 @@ cudaError_t flash_fwd_wgmma(const void* q, const void* k, const void* v, void* o
 }
 
 template <class Ops>
+cudaError_t flash_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                           const float* lse, const float* delta, void* dq, int b, int sq, int sk,
+                           int heads, int d, int causal, float scale, cudaStream_t stream) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  FlashMaps maps = {};
+  const size_t ld = (size_t)heads * d;
+  if (!encode_heads(encode, &maps.q, q, b, sq, heads, d, Ops::kDqRows, ld) ||
+      !encode_heads(encode, &maps.dout, dout, b, sq, heads, d, Ops::kDqRows, ld) ||
+      !encode_heads(encode, &maps.k, k, b, sk, heads, d, Ops::kDqKeys, ld) ||
+      !encode_heads(encode, &maps.v, v, b, sk, heads, d, Ops::kDqKeys, ld))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = DqSmem<Ops>::kBytes;
+  void (*kernel)(FlashMaps, const float*, const float*, __nv_bfloat16*, int, int, int, float,
+                 int) = flash_dq_kernel<Ops>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<tiles(sq, heads, b, Ops::kDqRows), kHopperThreads, smem, stream>>>(
+      maps, lse, delta, static_cast<__nv_bfloat16*>(dq), sq, sk, d, scale, causal);
+  return cudaGetLastError();
+}
+
+template <class Ops>
 cudaError_t flash_dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
                             const float* lse, const float* delta, void* dk, void* dv, int b,
                             int sq, int sk, int heads, int d, int causal, float scale,
@@ -1215,10 +1277,11 @@ cudaError_t flash_dkv_wgmma(const void* q, const void* k, const void* v, const v
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   FlashMaps maps = {};
-  if (!encode_heads(encode, &maps.q, q, b, sq, heads, d, Ops::kDkvRows) ||
-      !encode_heads(encode, &maps.dout, dout, b, sq, heads, d, Ops::kDkvRows) ||
-      !encode_heads(encode, &maps.k, k, b, sk, heads, d, Ops::kDkvKeys) ||
-      !encode_heads(encode, &maps.v, v, b, sk, heads, d, Ops::kDkvKeys))
+  const size_t ld = (size_t)heads * d;
+  if (!encode_heads(encode, &maps.q, q, b, sq, heads, d, Ops::kDkvRows, ld) ||
+      !encode_heads(encode, &maps.dout, dout, b, sq, heads, d, Ops::kDkvRows, ld) ||
+      !encode_heads(encode, &maps.k, k, b, sk, heads, d, Ops::kDkvKeys, ld) ||
+      !encode_heads(encode, &maps.v, v, b, sk, heads, d, Ops::kDkvKeys, ld))
     return cudaErrorInvalidValue;
   constexpr size_t smem = DkvSmem<Ops>::kBytes;
   void (*kernel)(FlashMaps, const float*, const float*, __nv_bfloat16*, __nv_bfloat16*, int, int,
@@ -1231,15 +1294,15 @@ cudaError_t flash_dkv_wgmma(const void* q, const void* k, const void* v, const v
   return cudaGetLastError();
 }
 
-// the launcher of the dtype (fn32 with Tf32Ops, fn16 with Ops16), head dim rounded up to 64 or
-// 128
-#define MMT_FLASH_DISPATCH(fn32, fn16, Ops16, ...)                        \
-  do {                                                                    \
-    if (dtype == 0 && d <= 64) return (int)fn32<Tf32Ops<64>>(__VA_ARGS__); \
-    if (dtype == 0) return (int)fn32<Tf32Ops<128>>(__VA_ARGS__);          \
-    if (dtype == 1 && d <= 64) return (int)fn16<Ops16<64>>(__VA_ARGS__);   \
-    if (dtype == 1) return (int)fn16<Ops16<128>>(__VA_ARGS__);            \
-    return (int)cudaErrorInvalidValue;                                    \
+// the launcher of the dtype (fn32 with Tf32Ops, fn16 with WgmmaOps), head dim rounded up to 64
+// or 128
+#define MMT_FLASH_DISPATCH(fn32, fn16, ...)                                 \
+  do {                                                                      \
+    if (dtype == 0 && d <= 64) return (int)fn32<Tf32Ops<64>>(__VA_ARGS__);  \
+    if (dtype == 0) return (int)fn32<Tf32Ops<128>>(__VA_ARGS__);            \
+    if (dtype == 1 && d <= 64) return (int)fn16<WgmmaOps<64>>(__VA_ARGS__); \
+    if (dtype == 1) return (int)fn16<WgmmaOps<128>>(__VA_ARGS__);           \
+    return (int)cudaErrorInvalidValue;                                      \
   } while (0)
 
 }  // namespace
@@ -1248,14 +1311,14 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. q, dout, out, dq: [B, Sq, heads, d]; k, v, dk, dv:
 // [B, Sk, heads, d]; lse, delta: float32 [B, heads, Sq]. All contiguous on one device, d a
-// multiple of 8 up to 128, every base pointer 16-byte aligned (16-byte cp.async loads, and the
-// TMA tensor maps of the bfloat16 forward and dK/dV). Each entry is one launch on `stream`,
+// multiple of 8 up to 128, every base pointer 16-byte aligned (16-byte cp.async loads in
+// float32, TMA tensor maps in bfloat16). Each entry is one launch on `stream`,
 // does not synchronise and returns a cudaError_t.
 int mmt_flash_attention_fwd(int dtype, const void* q, const void* k, const void* v, void* out,
                             void* lse, int b, int sq, int sk, int heads, int d, int causal,
                             float sm_scale, void* stream) {
   if (!flash_shape_ok(b, sq, sk, heads, d)) return (int)cudaErrorInvalidValue;
-  MMT_FLASH_DISPATCH(flash_fwd, flash_fwd_wgmma, WgmmaOps, q, k, v, out,
+  MMT_FLASH_DISPATCH(flash_fwd, flash_fwd_wgmma, q, k, v, out,
                      static_cast<float*>(lse), b, sq, sk, heads, d, causal, sm_scale,
                      static_cast<cudaStream_t>(stream));
 }
@@ -1265,7 +1328,7 @@ int mmt_flash_attention_dq(int dtype, const void* q, const void* k, const void* 
                            int sq, int sk, int heads, int d, int causal, float sm_scale,
                            void* stream) {
   if (!flash_shape_ok(b, sq, sk, heads, d)) return (int)cudaErrorInvalidValue;
-  MMT_FLASH_DISPATCH(flash_dq, flash_dq, Bf16Ops, q, k, v, dout,
+  MMT_FLASH_DISPATCH(flash_dq, flash_dq_wgmma, q, k, v, dout,
                      static_cast<const float*>(lse), static_cast<const float*>(delta), dq, b, sq,
                      sk, heads, d, causal, sm_scale, static_cast<cudaStream_t>(stream));
 }
@@ -1275,7 +1338,7 @@ int mmt_flash_attention_dkv(int dtype, const void* q, const void* k, const void*
                             void* dv, int b, int sq, int sk, int heads, int d, int causal,
                             float sm_scale, void* stream) {
   if (!flash_shape_ok(b, sq, sk, heads, d)) return (int)cudaErrorInvalidValue;
-  MMT_FLASH_DISPATCH(flash_dkv, flash_dkv_wgmma, WgmmaOps, q, k, v, dout,
+  MMT_FLASH_DISPATCH(flash_dkv, flash_dkv_wgmma, q, k, v, dout,
                      static_cast<const float*>(lse), static_cast<const float*>(delta), dk, dv, b,
                      sq, sk, heads, d, causal, sm_scale, static_cast<cudaStream_t>(stream));
 }

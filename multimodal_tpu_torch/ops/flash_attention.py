@@ -6,7 +6,7 @@ Port of ``multimodal_tpu/ops/flash_attention.py``. ``FlashAttention`` is a
 does, and rebuilds the probability tiles from ``lse`` in its backward. On a CUDA tensor the
 forward launches the hand-written forward kernel and the backward the dQ and the dK/dV
 kernels (``ops/csrc/flash_attention.cu``; all three multiply on the tensor cores: in bfloat16
-the forward and dK/dV by ``wgmma`` fed by TMA, dQ by ``mma.sync``; in float32 3xTF32), which
+by ``wgmma`` fed by TMA; in float32 3xTF32 on ``mma.sync``), which
 read the ``[B, S, H, D]`` tensors in place; on a CPU tensor they run
 ``flash_attention_reference`` and ``flash_attention_bwd_reference``, the plain PyTorch
 versions of the same math, which are also what the on-card comparison holds
@@ -145,8 +145,8 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, *, causal: bool = False
 
 def _check_kernel_operands(q, k, v, like_q=(), rows=()):
     """What the CUDA kernels take: [B, S, H, D] tensors of one dtype (float32 or bfloat16) on
-    one device, contiguous and 16-byte aligned (the kernels load them by 16-byte ``cp.async``
-    or, the bfloat16 forward and dK/dV, through TMA tensor maps), k and v of one shape that
+    one device, contiguous and 16-byte aligned (the float32 kernels load them by 16-byte
+    ``cp.async``, the bfloat16 ones through TMA tensor maps), k and v of one shape that
     differs from q's in S at most, D a multiple of 8 up to 128; ``like_q`` tensors (do) shaped
     as q, ``rows`` (lse, delta) float32 [B, H, Sq]. Raises otherwise, naming the operand."""
     if q.dtype not in (torch.float32, torch.bfloat16):

@@ -5,7 +5,10 @@ produce, differentiable.
 Port of ``multimodal_tpu/ops/fused_attention.py``. ``FusedAttention`` is a
 ``torch.autograd.Function`` that saves (q, k, v) and recomputes the probabilities in its
 backward, as the reference's custom VJP does. On a CUDA tensor the forward and the backward
-launch the hand-written Hopper kernels (``ops/csrc/fused_attention.cu``) and nothing else;
+launch the hand-written Hopper kernels (``ops/csrc/fused_attention.cu``: in bfloat16 the
+forward is ``fused_fwd_kernel``, ``wgmma`` fed by TMA, persistent over the (image, head)
+items; the backward and the float32 forward are the passes of ``attention_passes.cuh``) and
+nothing else;
 on a CPU tensor they run ``fused_attention_reference`` and
 ``fused_attention_bwd_reference``, the plain PyTorch versions of the same math, which are
 also what the on-card comparison holds the kernels to. ``ops.attention.attention`` reaches
@@ -13,7 +16,10 @@ this operator for self-attention whenever the block-attention operator does not 
 call (``scale_heads``, or a width it rejects).
 
 Numerics kept from the TPU kernels: logits in f32 times ``sm_scale`` with the finite -1e30
-causal mask (col <= row); probabilities rounded to the compute dtype before p @ v. In the
+causal mask (col <= row); probabilities rounded to the compute dtype before p @ v (the
+kernels round them against a running max and normalise the f32 sum at the end, single bf16
+steps of out from the plain version; the bfloat16 forward also folds ``sm_scale`` into its
+exponent, p = 2^(t c - max(t) c) for the unscaled logit t and c = sm_scale log2(e)). In the
 backward dv uses those rounded probabilities, while rowsum(dp * p) and ds use the exact f32
 ones — unlike the block-attention backward, which uses the rounded ones for both. The
 reference's pad of S to 16 rows is TPU tiling and is not ported.

@@ -72,6 +72,7 @@ FAMILIES = [  # (family, substrings of the kernel name), first match wins
     ("backward dQ pass (attn_bwd_dq_mma_kernel in bfloat16, _f32_kernel in float32)",
      ("attn_bwd_dq_",)),
     ("backward dK/dV pass (attn_bwd_dkv_mma_kernel, _f32_kernel)", ("attn_bwd_dkv_",)),
+    ("fused attention forward, bfloat16 (fused_fwd_kernel)", ("fused_fwd_kernel",)),
     ("forward attention core (attention_mma_kernel, attention_f32_kernel)",
      ("attention_mma_kernel", "attention_f32_kernel")),
     ("LN-fold launches (ln_stats, ln_rows, ln_bwd)", ("ln_stats_kernel", "ln_rows_kernel",

@@ -154,19 +154,24 @@ WGMMA_FWD = ("_ZN51_GLOBAL__N__3c14b842_18_flash_attention_cu_3b8c1c3316flash_fw
              "WgmmaOpsILi64EEEEEvNT_4MapsEP13__nv_bfloat16Pfiiifi")
 WGMMA_DKV = ("_ZN51_GLOBAL__N__3c14b842_18_flash_attention_cu_3b8c1c3316flash_dkv_kernelINS_8"
              "WgmmaOpsILi128EEEEEvNT_4MapsEPKfS6_P13__nv_bfloat16S8_iiifi")
+WGMMA_DQ = ("_ZN51_GLOBAL__N__3c14b842_18_flash_attention_cu_3b8c1c3315flash_dq_kernelINS_8"
+            "WgmmaOpsILi64EEEEEvNT_4MapsEPKfS6_P13__nv_bfloat16iiifi")
 
 
 def test_flash_wgmma_faults_hold_the_bf16_forward_and_dkv_to_wgmma():
-    """Phase 2 fails on a bfloat16 flash forward or dK/dV instantiation with an HMMA or
-    without a GMMA, and when either kernel has no bfloat16 instantiation; dQ and the float32
-    forms keep their mma.sync (HMMA) and are not held to it."""
+    """Phase 2 fails on a bfloat16 flash forward, dQ or dK/dV instantiation with an HMMA or
+    without a GMMA, and when any of the three has no bfloat16 instantiation; the float32 forms
+    keep their mma.sync (HMMA) and are not held to it."""
     assert cs.kernel_label(WGMMA_FWD) == "flash_fwd_kernel<WgmmaOps<64>>"
     assert cs.kernel_label("Function : " + WGMMA_DKV) == "flash_dkv_kernel<WgmmaOps<128>>"
+    assert cs.kernel_label(WGMMA_DQ) == "flash_dq_kernel<WgmmaOps<64>>"
     ok = "\n".join([
         f"\t\tFunction : {WGMMA_FWD}",
         "        /*0100*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;",
         "        /*0110*/                   HGMMA.64x64x16.F32.BF16 R88, R152, gdesc[UR8], R88 ;",
         f"\t\tFunction : {WGMMA_DKV}",
+        "        /*0100*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;",
+        f"\t\tFunction : {WGMMA_DQ}",
         "        /*0100*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;",
         f"\t\tFunction : {FLASH_DQ}",
         "        /*0100*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;",
@@ -186,11 +191,77 @@ def test_flash_wgmma_faults_hold_the_bf16_forward_and_dkv_to_wgmma():
         "        /*0100*/                   FFMA R4, R8, R12, R4 ;",
     ])
     faults = cs.flash_wgmma_faults(mixed)
-    assert len(faults) == 2 and faults[0].startswith("flash_dkv_kernel<WgmmaOps<128>>: no ")
+    assert len(faults) == 3 and faults[0].startswith("flash_dkv_kernel<WgmmaOps<128>>: no ")
     assert faults[1].startswith("flash_fwd_kernel<WgmmaOps<64>>: {") and "HMMA" in faults[1]
+    assert faults[2] == "flash_dq_kernel: no bfloat16 instantiation"
     assert cs.flash_wgmma_faults(f"\t\tFunction : {FLASH_DQ}\n") == [
         "flash_fwd_kernel: no bfloat16 instantiation",
+        "flash_dq_kernel: no bfloat16 instantiation",
         "flash_dkv_kernel: no bfloat16 instantiation"]
+    # the bfloat16 dQ on mma.sync, as it ran before it moved onto wgmma, is a fault now
+    dq_hmma = ok.replace(
+        f"{WGMMA_DQ}\n        /*0100*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], "
+        "RZ, !UPT ;",
+        f"{WGMMA_DQ}\n        /*0100*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;")
+    assert "flash_dq_kernel<WgmmaOps<64>>: {'HMMA.16816.F32.BF16': 1}" in cs.flash_wgmma_faults(
+        dq_hmma)
+
+
+# the bfloat16 fused forward, as nvcc 12 mangles and cuobjdump prints it
+WGMMA_FUSED = ("_ZN51_GLOBAL__N__6719648f_18_fused_attention_cu_de02afe216fused_fwd_kernelINS_8"
+               "FusedOpsILi{}ELi{}EEEEEvNS_9FusedMapsEiiifi")
+FUSED_OPS = [(64, 128), (64, 112), (64, 96), (128, 64)]
+
+
+def test_fused_wgmma_faults_hold_every_bf16_fused_forward_instantiation_to_wgmma():
+    """Phase 2 fails on a bfloat16 fused-forward instantiation with an HMMA or without a GMMA,
+    and on a build with fewer than its four instantiations (three key tiles at D <= 64, one
+    above); the attention passes (the float32 forward core, the backward) are not held to it."""
+    assert cs.kernel_label(WGMMA_FUSED.format(64, 112)) == "fused_fwd_kernel<FusedOps<64, 112>>"
+    ok = "\n".join(
+        line for dp, keys in FUSED_OPS for line in (
+            f"\t\tFunction : {WGMMA_FUSED.format(dp, keys)}",
+            f"        /*0100*/                   HGMMA.64x{keys}x16.F32.BF16 R24, gdesc[UR4], RZ, "
+            "!UPT ;",
+            f"        /*0110*/                   HGMMA.64x{dp}x16.F32.BF16 R88, R152, gdesc[UR8], "
+            "R88 ;"))
+    passes = "\n".join([ok, "\t\tFunction : _ZN51_GLOBAL__N__x_18_fused_attention_cu_de02afe220"
+                         "attention_mma_kernelILi64EEEvv",
+                         "        /*0100*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;"])
+    assert cs.fused_wgmma_faults(passes) == []
+    assert "fused_fwd_kernel<FusedOps<64, 112>>: HGMMA.64x112x16.F32.BF16 x 1, " \
+           "HGMMA.64x64x16.F32.BF16 x 1" in cs.hmma_report(ok)
+    # the mma.sync forward core in the fused forward's place is a fault
+    bad = ok.replace("HGMMA.64x96x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT",
+                     "HMMA.16816.F32.BF16 R4, R8, R12, R4")
+    faults = cs.fused_wgmma_faults(bad)
+    assert len(faults) == 1 and faults[0].startswith("fused_fwd_kernel<FusedOps<64, 96>>: {")
+    assert "HMMA.16816.F32.BF16" in faults[0]
+    no_tc = ok.replace("HGMMA.64x64x16.F32.BF16 R88, R152, gdesc[UR8], R88",
+                       "FFMA R88, R152, R8, R88").replace(
+        "HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT", "FFMA R24, R4, R8, R24")
+    assert cs.fused_wgmma_faults(no_tc) == [
+        "fused_fwd_kernel<FusedOps<64, 128>>: no tensor-core instructions"]
+    short = ok.rsplit("\t\tFunction", 1)[0]
+    assert cs.fused_wgmma_faults(short) == [
+        f"3 fused_fwd_kernel instantiations in the SASS, {cs.FUSED_WGMMA_INSTANTIATIONS} expected"]
+
+
+def test_fused_and_dq_edge_cases_cross_the_new_tiles():
+    """Phase 3's bfloat16 edges of the two new kernels: the fused forward at S one short of, at
+    and one past its 128-row passes and each key tile width it picks, D = 32, 64 and 128, causal
+    and not, B = 1 and 256; dQ at Sq around its 128-row query tiles and Sk around its key tiles,
+    Sq != Sk both ways, D = 80 and 88 among them."""
+    fused = {(b, s, d, causal) for _, b, s, _, d, causal in cs.FUSED_EDGE_CASES}
+    assert len(fused) == len(cs.FUSED_EDGE_CASES) == 120
+    assert {s for _, s, _, _ in fused} == {128, 129, 191, 192, 193, 255, 256, 257, 511, 512}
+    assert {d for _, _, d, _ in fused} == {32, 64, 128} and {b for b, *_ in fused} == {1, 256}
+    dq = [(sq, sk, d) for _, _, sq, sk, _, d, _ in cs.DQ_EDGE_CASES]
+    sqs = {sq for sq, _, _ in dq}
+    assert {127, 129} <= sqs and {63, 65} <= sqs | {sk for _, sk, _ in dq}
+    assert any(sq < sk for sq, sk, _ in dq) and any(sq > sk for sq, sk, _ in dq)
+    assert {80, 88} <= {d for *_, d in dq}
+    assert {causal for *_, causal in cs.DQ_EDGE_CASES} == {False, True}
 
 
 # the fused MLP's bfloat16 GEMM, as nvcc 12 mangles and cuobjdump prints it

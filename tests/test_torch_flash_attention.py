@@ -296,22 +296,19 @@ def test_kernel_operand_check_names_a_misaligned_operand():
 
 
 # --------------------------------------------------------------------- the kernels' schedule
-# The backward kernels (ops/csrc/flash_attention.cu) as plain torch, step by step: blocks of
-# WARPS warps, a warp owning 16 rows (bfloat16) or 32 (float32 up to D=64: two m-tiles), the
+# The float32 kernels (ops/csrc/flash_attention.cu on Tf32Ops) as plain torch, step by step:
+# blocks of WARPS warps, a warp owning 32 rows up to D=64 (two m-tiles) and 16 above, the
 # streamed tiles KT rows long; each warp's head products over its live n-tiles (pairs of 8),
-# the mask tests only on a tile the kernel calls an edge tile, the second product's k-steps
-# (16 in bfloat16, 8 in float32) only below the live rows, bf16 rounding where the kernels
-# pack (ds for dq and dk, p for dv), sm_scale once at the store. If a bound or an edge test of
+# the mask tests only on a tile the kernel calls an edge tile, the second product's k-steps of
+# K_STEP only below the live rows, sm_scale once at the store. If a bound or an edge test of
 # the kernels were wrong, a live entry would go missing or a masked one would count here too.
-WARPS, KT = 4, 32
+# The bfloat16 kernels run on wgmma: their walks follow (wgmma_walk_*), and the tile_walk_*
+# functions hand bfloat16 inputs to them.
+WARPS, KT, K_STEP = 4, 32, 8
 
 
-def _warp_rows(dtype, d):
-    return 32 if dtype == torch.float32 and d <= 64 else 16
-
-
-def _k_step(dtype):
-    return 8 if dtype == torch.float32 else 16
+def _warp_rows(d):
+    return 32 if d <= 64 else 16
 
 
 def _rows_tile(t, r0, n):
@@ -327,19 +324,22 @@ def _live_cols(live, kt=KT):
     return min(kt, 8 * (live + live % 2))
 
 
-def _steps_below(nrows, dtype, kt=KT):
+def _steps_below(nrows, kt=KT):
     """Mask of the streamed tile's rows whose k-step of the second product runs."""
-    step = _k_step(dtype)
-    return ((torch.arange(kt) // step) * step < nrows).float()
+    return ((torch.arange(kt) // K_STEP) * K_STEP < nrows).float()
 
 
 def tile_walk_dq(q, k, v, do, lse, delta, *, causal, scale):
+    """The dQ kernel's schedule: bfloat16 runs ``wgmma_walk_dq``, float32 the mma.sync walk
+    below."""
+    if q.dtype == torch.bfloat16:
+        return wgmma_walk_dq(q, k, v, do, lse, delta, causal=causal, scale=scale)
     dt, f32 = q.dtype, torch.float32
     b, sq, h, d = q.shape
     sk = k.shape[1]
     qh, kh, vh, doh = (t.transpose(1, 2).to(f32) for t in (q, k, v, do))
     lse, delta = lse[..., None].float(), delta[..., None].float()
-    wr = _warp_rows(dt, d)
+    wr = _warp_rows(d)
     dq = torch.zeros_like(qh)
     for r0 in range(0, sq, wr * WARPS):
         rows = min(wr * WARPS, sq - r0)
@@ -363,7 +363,7 @@ def tile_walk_dq(q, k, v, do, lse, delta, *, causal, scale):
                     key = c0 + torch.arange(KT)[None, :]
                     s = torch.where((key < kmax) & ((key <= row) | (not causal)), s, NEG_INF)
                 ds = (torch.exp(s - lse[:, :, rs]) * (dp - delta[:, :, rs])).to(dt).to(f32)
-                acc += (ds * _steps_below(wmax - c0, dt)) @ kt
+                acc += (ds * _steps_below(wmax - c0)) @ kt
             dq[:, :, rs] = acc
     return (dq * scale).to(dt).transpose(1, 2)
 
@@ -378,7 +378,7 @@ def tile_walk_dkv(q, k, v, do, lse, delta, *, causal, scale):
     sk = k.shape[1]
     qh, kh, vh, doh = (t.transpose(1, 2).to(f32) for t in (q, k, v, do))
     lse, delta = lse[..., None, :].float(), delta[..., None, :].float()  # per column
-    wr = _warp_rows(dt, d)
+    wr = _warp_rows(d)
     dk, dv = torch.zeros_like(kh), torch.zeros_like(vh)
     for j0 in range(0, sk, wr * WARPS):
         keys = min(wr * WARPS, sk - j0)
@@ -401,7 +401,7 @@ def tile_walk_dkv(q, k, v, do, lse, delta, *, causal, scale):
                     row = q0 + torch.arange(KT)[None, :]
                     p = torch.where((row < sq) & ((key <= row) | (not causal)), p, 0.0)
                 ds = p * (dst - dlt)
-                below = _steps_below(sq - q0, dt)
+                below = _steps_below(sq - q0)
                 acc_v += (p.to(dt).to(f32) * below) @ dot
                 acc_k += (ds.to(dt).to(f32) * below) @ qt
             dk[:, :, ks], dv[:, :, ks] = acc_k, acc_v
@@ -467,7 +467,7 @@ def tile_walk_fwd(q, k, v, *, causal, scale):
     b, sq, h, d = q.shape
     sk = k.shape[1]
     qh, kh, vh = (t.transpose(1, 2).to(f32) for t in (q, k, v))
-    wr = _warp_rows(dt, d)
+    wr = _warp_rows(d)
     kt_rows = 32
     out, lse = torch.zeros_like(qh), torch.zeros(b, h, sq)
     for r0 in range(0, sq, wr * WARPS):
@@ -495,7 +495,7 @@ def tile_walk_fwd(q, k, v, *, causal, scale):
                 p = torch.exp(s - m_new)
                 alpha = torch.exp(m - m_new)
                 l = l * alpha + p.sum(dim=-1, keepdim=True)
-                below = _steps_below(wmax - c0, dt, kt_rows)
+                below = _steps_below(wmax - c0, kt_rows)
                 acc = acc * alpha + (p.to(dt).to(f32) * below) @ vt
                 m = m_new
             safe_l = torch.where(l == 0, torch.ones_like(l), l)
@@ -547,15 +547,16 @@ def test_tile_walk_fwd_matches_jax_kernel_and_plain(sq, sk, causal, d, dtype_nam
 
 
 # ------------------------------------------------------------ the wgmma schedules (bfloat16)
-# The bfloat16 forward and dK/dV kernels (flash_fwd_kernel<WgmmaOps>, flash_dkv_kernel<WgmmaOps>)
-# as plain torch: blocks of two warpgroups of 64 rows (four warps of 16), tiles of 128 keys in
-# the forward (64 above D=64) and of 32 query rows in dK/dV (16 above D=64), every column of a
-# tile formed (zeros past the tensor's end, as TMA fills them), every tile below the block's
-# bound (the masks zero what a row does not see), the mask tests only on a tile the kernel
-# calls an edge tile for the warp, bf16 rounding where the kernels pack (p for p v and for dv,
-# ds for dk), the forward's sm_scale folded into its exponent (p = 2^(t c - m c), t the
-# unscaled logit) and dK's once at the store. Written for any dtype: in float32 rounding is the
-# identity and the walk differs from the plain versions by the order of the sums only.
+# The bfloat16 kernels (flash_fwd_kernel, flash_dq_kernel and flash_dkv_kernel on WgmmaOps) as
+# plain torch: blocks of two warpgroups of 64 rows (four warps of 16), tiles of 128 keys in
+# the forward (64 above D=64), of 64 keys in dQ (32 above D=64) and of 32 query rows in dK/dV
+# (16 above D=64), every column of a tile formed (zeros past the tensor's end, as TMA fills
+# them), every tile below the block's bound (the masks zero what a row does not see), the
+# mask tests only on a tile the kernel calls an edge tile for the warp, bf16 rounding where
+# the kernels pack (p for p v and for dv, ds for dq and dk), the forward's sm_scale folded
+# into its exponent (p = 2^(t c - m c), t the unscaled logit) and dQ's and dK's once at the
+# store, after the f32 sum over every key tile. Written for any dtype: in float32 rounding is
+# the identity and the walk differs from the plain versions by the order of the sums only.
 WG_ROWS, WG_WARPS, WARP_ROWS = 64, 2, 16
 
 
@@ -567,6 +568,11 @@ def _fwd_keys(d):
 def _dkv_rows(d):
     """Query rows of a dK/dV tile: 32, or 16 above D=64 (the kernel's registers)."""
     return 32 if d <= 64 else 16
+
+
+def _dq_keys(d):
+    """Keys of a dQ tile: 64, or 32 above D=64 (the kernel's registers)."""
+    return 64 if d <= 64 else 32
 
 
 def wgmma_walk_fwd(q, k, v, *, causal, scale):
@@ -636,6 +642,33 @@ def wgmma_walk_dkv(q, k, v, do, lse, delta, *, causal, scale):
     return (dk * scale).to(dt).transpose(1, 2), dv.to(dt).transpose(1, 2)
 
 
+def wgmma_walk_dq(q, k, v, do, lse, delta, *, causal, scale):
+    dt, f32 = q.dtype, torch.float32
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    qh, kh, vh, doh = (t.transpose(1, 2).to(f32) for t in (q, k, v, do))
+    lse, delta = lse[..., None].float(), delta[..., None].float()  # per row
+    block, keys = WG_ROWS * WG_WARPS, _dq_keys(d)
+    dq = torch.zeros_like(qh)
+    for r0 in range(0, sq, block):
+        kmax = min(sk, r0 + min(block, sq - r0)) if causal else sk
+        for warp_row in range(r0, min(r0 + block, sq), WARP_ROWS):
+            rs = slice(warp_row, min(warp_row + WARP_ROWS, sq))
+            row = torch.arange(rs.start, rs.stop)[:, None]
+            acc = torch.zeros(b, h, row.shape[0], d)
+            for c0 in range(0, kmax, keys):  # every tile below the block's bound
+                kt, vt = _rows_tile(kh, c0, keys), _rows_tile(vh, c0, keys)
+                p = torch.exp(qh[:, :, rs] @ kt.transpose(-1, -2) * scale - lse[:, :, rs])
+                dp = doh[:, :, rs] @ vt.transpose(-1, -2)
+                if c0 + keys > sk or (causal and c0 + keys - 1 > warp_row):  # edge_tile
+                    key = c0 + torch.arange(keys)[None, :]
+                    p = torch.where((key < sk) & ((key <= row) | (not causal)), p, 0.0)
+                ds = (p * (dp - delta[:, :, rs])).to(dt).to(f32)
+                acc += ds @ kt
+            dq[:, :, rs] = acc
+    return (dq * scale).to(dt).transpose(1, 2)
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_bwd(b, sq, sk, h, d, causal, dtype_name, seed=0):
     """(dq, dk, dv) [B, S, H, D] of the JAX package's _dq_kernel and _dkv_kernel, through _bwd
@@ -679,8 +712,8 @@ def _hold(got, refs, names, tol):
 def test_wgmma_walks_match_jax_kernels_and_plain_at_the_tile_edges_bf16(s, causal, d):
     """The bfloat16 kernels' schedules at the new tiles' edges, every head dim class (one
     64-column box or two, zero columns past D): the forward walk against the JAX _fwd_kernel
-    (interpret mode) and the plain forward, the dK/dV walk against the JAX _dkv_kernel and the
-    plain backward, within 2e-2 x max|reference| (the card's limit)."""
+    (interpret mode) and the plain forward, the dQ and dK/dV walks against the JAX _dq_kernel
+    and _dkv_kernel and the plain backward, within 2e-2 x max|reference| (the card's limit)."""
     q, k, v, do, lse, delta = _walk_inputs(1, s, s, 2, d, causal, torch.bfloat16)
     kw = dict(causal=causal, scale=d ** -0.5)
     plain = fl.flash_attention_reference(q, k, v, causal=causal)
@@ -689,9 +722,32 @@ def test_wgmma_walks_match_jax_kernels_and_plain_at_the_tile_edges_bf16(s, causa
           ("out", "lse"), 2e-2)
     plain = fl.flash_attention_bwd_reference(q, k, v, None, lse, do, causal=causal,
                                              delta=delta)
+    want = _jax_bwd(1, s, s, 2, d, causal, "bfloat16")
     _hold(wgmma_walk_dkv(q, k, v, do, lse, delta, **kw),
-          (_jax_bwd(1, s, s, 2, d, causal, "bfloat16")[1:],
-           tuple(t.float().numpy() for t in plain[1:])), ("dk", "dv"), 2e-2)
+          (want[1:], tuple(t.float().numpy() for t in plain[1:])), ("dk", "dv"), 2e-2)
+    _hold((wgmma_walk_dq(q, k, v, do, lse, delta, **kw),),
+          (want[:1], (plain[0].float().numpy(),)), ("dq",), 2e-2)
+
+
+# the dQ kernel's own edges: Sq one short of and one past its 128-row query tiles and Sk around
+# its key tiles (64 keys, 32 above D=64), Sq != Sk both ways under the top-left mask, the head
+# dims 80 and 88 (two 64-column boxes, a zero-padded last k-step of 16)
+DQ_EDGES = [(63, 63, True, 64), (65, 65, False, 64), (127, 65, True, 64), (129, 63, True, 64),
+            (63, 129, True, 64), (127, 127, True, 80), (129, 65, False, 80), (31, 33, True, 88),
+            (33, 31, False, 88), (65, 129, True, 88)]
+
+
+@pytest.mark.parametrize("sq,sk,causal,d", DQ_EDGES)
+def test_wgmma_walk_dq_matches_jax_kernel_and_plain_at_its_tile_edges_bf16(sq, sk, causal, d):
+    """The bfloat16 dQ schedule (128-row query tiles, 64- or 32-key tiles, every tile below the
+    block's causal bound, the f32 sum rounded once) against the JAX _dq_kernel (interpret
+    mode) and the plain backward, within 2e-2 x max|reference|."""
+    q, k, v, do, lse, delta = _walk_inputs(1, sq, sk, 2, d, causal, torch.bfloat16)
+    plain = fl.flash_attention_bwd_reference(q, k, v, None, lse, do, causal=causal,
+                                             delta=delta)[0]
+    _hold((wgmma_walk_dq(q, k, v, do, lse, delta, causal=causal, scale=d ** -0.5),),
+          (_jax_bwd(1, sq, sk, 2, d, causal, "bfloat16")[:1], (plain.float().numpy(),)),
+          ("dq",), 2e-2)
 
 
 @pytest.mark.parametrize("sq,sk,causal,d", [(127, 129, True, 24), (257, 129, True, 96),
@@ -709,9 +765,11 @@ def test_wgmma_walks_match_jax_kernels_and_plain_f32(sq, sk, causal, d):
           ("out", "lse"), 1e-5)
     plain = fl.flash_attention_bwd_reference(q, k, v, None, lse, do, causal=causal,
                                              delta=delta)
+    want = _jax_bwd(1, sq, sk, 2, d, causal, "float32")
     _hold(wgmma_walk_dkv(q, k, v, do, lse, delta, **kw),
-          (_jax_bwd(1, sq, sk, 2, d, causal, "float32")[1:], tuple(t.numpy() for t in plain[1:])),
-          ("dk", "dv"), 1e-5)
+          (want[1:], tuple(t.numpy() for t in plain[1:])), ("dk", "dv"), 1e-5)
+    _hold((wgmma_walk_dq(q, k, v, do, lse, delta, **kw),), (want[:1], (plain[0].numpy(),)),
+          ("dq",), 1e-5)
 
 
 # ----------------------------------------------------------------------------- 3xTF32
@@ -840,6 +898,8 @@ CUDA_SHAPES = [(2, 300, 300, 4, 64, True), (2, 300, 300, 4, 64, False),
 # dK/dV query tiles) at every head dim class
 CUDA_SHAPES += [(2, s, s, 3, d, causal) for s in EDGE_LENGTHS for causal in (False, True)
                 for d in (8, 24, 64, 96, 128)]
+# and the wgmma dQ's own edges (64- and 32-key tiles, cross lengths)
+CUDA_SHAPES += [(2, sq, sk, 3, d, causal) for sq, sk, causal, d in DQ_EDGES]
 
 
 @pytest.mark.cuda

@@ -10,8 +10,9 @@ order. bfloat16: atol = 2e-2 x max(1, max|value|), one bf16 rounding of probs an
 On the card, kernel against plain: within 1e-4 x max|plain| in float32 and 2e-2 x max|plain|
 in bfloat16.
 
-The kernels walk the keys in tiles of 32 rows (bfloat16) or 64 (float32)
-(``ops/csrc/attention_passes.cuh``).
+The backward passes and the float32 forward walk the keys in tiles of 32 rows (bfloat16) or 64
+(float32) (``ops/csrc/attention_passes.cuh``; the block kernels' attention half runs the same
+passes, the bfloat16 forward core included).
 ``tile_walk_forward`` and ``tile_walk_backward`` below are that schedule in plain torch: one
 online-softmax sweep (running row max and sum of exp, the accumulator and delta rescaled when
 the max moves), a second sweep for ds and dq, then the key-tile pass that rebuilds p and ds from
@@ -20,13 +21,17 @@ sweep algebra and the ragged masks are checked on the CPU: in float32 within 1e-
 (the order of the sums only), in bfloat16 within 2e-2 x max|plain| (the online sweep rounds the
 unnormalised probability where the plain versions round the normalised one) with the exact
 probabilities (the fused backward) and with the rounded ones (the block backward's attention
-half).
+half). ``wgmma_walk_forward`` is the bfloat16 forward kernel's own schedule
+(``fused_fwd_kernel``: passes of 128 query rows, 16-row warps, key tiles of 128, 112 or 96 keys
+as the kernel picks them, 64 above D=64, sm_scale in the exponent), held to the JAX kernel and
+the plain forward at the edges of its passes and tiles.
 
 JAX is imported inside the helpers, so the CUDA cases also run where JAX is absent:
     python -m pytest tests/test_torch_fused_attention.py -m cuda
 """
 
 import functools
+import math
 
 import numpy as np
 import pytest
@@ -368,6 +373,139 @@ def test_tile_walk_tells_exact_from_rounded_probs_bf16():
     assert (rounded - block).abs().mean() < (rounded - fused).abs().mean()
 
 
+# ----------------------------------------------------- the bfloat16 forward's wgmma schedule
+# fused_fwd_kernel (ops/csrc/fused_attention.cu) as plain torch: an (image, head) in passes of
+# 128 query rows, each warp's 16 rows walking the key tiles below the pass's causal bound, every
+# column of a tile formed (zeros past S, as TMA fills them), the mask tests only on a tile the
+# kernel calls an edge tile for the warp, the online softmax on unscaled logits t with sm_scale
+# in the exponent (p = 2^(t c - m c), c = sm_scale log2(e)), p rounded to bf16 for p v against
+# the running max, the f32 sum divided by l once at the end. Written for any dtype: in float32
+# rounding is the identity and the walk differs from the plain forward by the order of the sums.
+PASS_ROWS, WARP_ROWS = 128, 16
+
+
+def fused_keys(s, d, causal):
+    """The kernel's key tile (fused_attention.cu:fused_keys): 64 above D=64; below, of 128, 112
+    and 96 keys the one whose tiles pad the keys the passes see the least, the widest on a
+    tie."""
+    if d > 64:
+        return 64
+    best, best_cost = None, None
+    for keys in (128, 112, 96):
+        cost = sum(-(-(min(s, r0 + PASS_ROWS) if causal else s) // keys) * keys
+                   for r0 in range(0, s, PASS_ROWS))
+        if best_cost is None or cost < best_cost:
+            best, best_cost = keys, cost
+    return best
+
+
+def _rows_tile(t, r0, n):
+    """Rows r0..r0+n-1 of a [B, H, S, D] tensor, zero past its end (TMA's zero fill)."""
+    out = torch.zeros(t.shape[:2] + (n,) + t.shape[3:], dtype=t.dtype)
+    part = t[:, :, r0:r0 + n]
+    out[:, :, :part.shape[2]] = part
+    return out
+
+
+def wgmma_walk_forward(q, k, v, *, heads, causal):
+    f32, dt = torch.float32, q.dtype
+    d = q.shape[-1] // heads
+    scale = d ** -0.5
+    c = scale * math.log2(math.e)  # the kernel folds sm_scale into its exponent
+    qh, kh, vh = (fa._heads(t, heads).to(f32) for t in (q, k, v))
+    s = qh.shape[-2]
+    keys = fused_keys(s, d, causal)
+    out = torch.zeros_like(qh)
+    for r0 in range(0, s, PASS_ROWS):
+        kmax = min(s, r0 + PASS_ROWS) if causal else s
+        for warp_row in range(r0, min(r0 + PASS_ROWS, s), WARP_ROWS):  # rows past s: not stored
+            rs = slice(warp_row, min(warp_row + WARP_ROWS, s))
+            row = torch.arange(rs.start, rs.stop)[:, None]
+            m = torch.full(qh.shape[:2] + (row.shape[0], 1), fa.NEG_INF)
+            l = torch.zeros_like(m)
+            acc = torch.zeros(qh.shape[:2] + (row.shape[0], d))
+            for c0 in range(0, kmax, keys):  # every tile below the pass's bound
+                kt, vt = _rows_tile(kh, c0, keys), _rows_tile(vh, c0, keys)
+                t = qh[:, :, rs] @ kt.transpose(-1, -2)  # unscaled
+                if c0 + keys > kmax or (causal and c0 + keys - 1 > warp_row):  # edge_tile
+                    key = c0 + torch.arange(keys)[None, :]
+                    t = torch.where((key < kmax) & ((key <= row) | (not causal)), t, fa.NEG_INF)
+                m_new = torch.maximum(m, t.amax(dim=-1, keepdim=True))
+                p = torch.exp2(t * c - m_new * c)
+                alpha = torch.exp2(m * c - m_new * c)
+                l = l * alpha + p.sum(dim=-1, keepdim=True)
+                acc = acc * alpha + p.to(dt).to(f32) @ vt
+                m = m_new
+            out[:, :, rs] = acc / torch.where(l == 0, torch.ones_like(l), l)
+    return fa._pack(out.to(dt))
+
+
+def test_fused_keys_pick_the_tile_that_pads_least():
+    """S=197 takes two tiles of 112 keys a pass (224 keys, not 256), S=257 three of 96 (288,
+    not 384), S=128 and S=512 whole tiles of 128; the causal S=197 keeps 128 (its first pass
+    sees 128 keys); D=128 takes 64 keys, for registers."""
+    assert fused_keys(197, 64, False) == 112 and fused_keys(197, 64, True) == 128
+    assert fused_keys(257, 64, False) == 96 and fused_keys(257, 32, True) == 128
+    assert fused_keys(128, 64, False) == fused_keys(512, 32, False) == 128
+    assert fused_keys(129, 64, False) == 96 and fused_keys(193, 64, False) == 112
+    assert fused_keys(197, 128, False) == 64
+
+
+# one short of, at and one past the 128-row passes and the key tiles of every width the kernel
+# picks (128: S=128, 256, 511, 512; 112: 193, 255; 96: 129, 191, 192, 257)
+WGMMA_EDGE_LENGTHS = [128, 129, 191, 192, 193, 255, 256, 257, 511, 512]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_forward(s, h, d, causal, dtype_name, seed=0):
+    """The JAX package's fused_attention forward (its _fwd_kernel in interpret mode) at B=1."""
+    import jax.numpy as jnp
+
+    from multimodal_tpu.ops.fused_attention import fused_attention
+
+    dt = jnp.float32 if dtype_name == "float32" else jnp.bfloat16
+    rng = np.random.default_rng(seed)
+    q, k, v = (jnp.asarray(rng.standard_normal((1, s, h * d), dtype=np.float32), dt)
+               for _ in range(3))
+    return np.asarray(fused_attention(q, k, v, heads=h, causal=causal).astype(jnp.float32))
+
+
+def _edge_inputs(s, h, d, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((1, s, h * d), dtype=np.float32)).to(dtype)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("s", WGMMA_EDGE_LENGTHS)
+def test_wgmma_walk_forward_matches_jax_and_plain_at_the_tile_edges_bf16(s, d, causal):
+    """The bfloat16 forward kernel's schedule at the edges of its passes and key tiles, every
+    head dim class (one 64-column box with zero columns past D, one, two): against the JAX
+    _fwd_kernel (interpret mode) and the plain forward within 2e-2 x max(1, max|reference|)
+    (the online softmax rounds p against the running max where both round the normalised p)."""
+    h = 2
+    q, k, v = _edge_inputs(s, h, d, torch.bfloat16)
+    got = wgmma_walk_forward(q, k, v, heads=h, causal=causal).float().numpy()
+    for ref in (_jax_forward(s, h, d, causal, "bfloat16"),
+                fa.fused_attention_reference(q, k, v, heads=h, causal=causal).float().numpy()):
+        np.testing.assert_allclose(got, ref, atol=2e-2 * max(1.0, np.abs(ref).max()), rtol=0)
+
+
+@pytest.mark.parametrize("s,d,causal", [(129, 64, False), (197, 64, False), (193, 32, True),
+                                        (257, 64, False), (512, 128, True)])
+def test_wgmma_walk_forward_is_the_plain_forward_in_float32(s, d, causal):
+    """On float32 inputs the schedule differs from the JAX kernel and the plain forward by the
+    order of the sums only: within 1e-5 x max|reference|."""
+    h = 2
+    q, k, v = _edge_inputs(s, h, d, torch.float32, seed=1)
+    got = wgmma_walk_forward(q, k, v, heads=h, causal=causal)
+    plain = fa.fused_attention_reference(q, k, v, heads=h, causal=causal)
+    _assert_within([got], [plain], 1e-5, ["out"])
+    want = _jax_forward(s, h, d, causal, "float32", seed=1)
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
 def test_kernel_operand_check_names_the_operand():
     """The kernels load 16 bytes at a time: a head dim that is no multiple of 8, a strided or
     a misaligned operand raises a ValueError that names it, before anything is launched."""
@@ -445,7 +583,9 @@ CUDA_SHAPES = [(128, 4, 32, False), (197, 12, 64, False), (197, 12, 64, True),
                (129, 12, 64, True), (191, 12, 64, False),  # around a 64-row tile edge
                (257, 16, 64, True), (512, 4, 32, False),
                (257, 4, 80, True), (257, 4, 88, False),  # a zero-padded last k-step of 16
-               (50, 12, 64, False), (77, 8, 64, True)]  # one tile, as the block kernels call
+               (50, 12, 64, False), (77, 8, 64, True),  # one tile, as the block kernels call
+               (129, 3, 64, False), (193, 3, 64, False), (255, 3, 32, True),  # 96, 112, 128 keys
+               (511, 2, 128, False)]
 
 
 @pytest.mark.cuda

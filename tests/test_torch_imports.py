@@ -139,6 +139,8 @@ def test_profile_step_sorts_kernels_into_families():
         "void (anonymous namespace)::attention_mma_kernel<64, 64>(...)":
             "forward attention core",
         "void (anonymous namespace)::attention_f32_kernel<4>(...)": "forward attention core",
+        "void (anonymous namespace)::fused_fwd_kernel<(anonymous namespace)::FusedOps<64, 112>>"
+        "(CUtensorMap_st, int, int, int, float, int)": "fused attention forward",
         "void (anonymous namespace)::flash_fwd_kernel<float, 4>(...)": "flash attention forward",
         "void (anonymous namespace)::flash_dq_kernel<__nv_bfloat16, 8>(...)":
             "flash attention dQ",
