@@ -53,7 +53,9 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      Sq = 31-257 against Sk = 31-257, cross lengths under the top-left mask, D = 64, 80, 88 and
      128 (DQ_EDGE_CASES), the wgmma fused forward's (FUSED_EDGE_CASES: S = 128, 129, 191-193,
      255-257, 511 and 512, D = 32, 64 and 128, causal and not, B = 1 and 256, every key tile
-     width it picks), and the fused MLP's edges on its wgmma GEMM
+     width it picks); in both dtypes the fused backward's (FUSED_BWD_EDGE_CASES: the same
+     lengths, head dims, masks and batches around its dQ and dK/dV kernels' passes, tiles and
+     resident rings); and the fused MLP's edges on its wgmma GEMM
      (MLP_EDGE_CASES: T = 1, 63, 65, 127, 129, 255, 257 and 4607-5121 around a weight-gradient
      split's edge, W = 128-1024, H = 128 and 3072, both activations, with and without the
      residual); the timed flash and fused kernels, those
@@ -451,6 +453,18 @@ FUSED_EDGE_CASES = [(f"fused-edge-S{s}-D{d}", b, s, h, d, causal)
                     for s in (128, 129, 191, 192, 193, 255, 256, 257, 511, 512)
                     for d in (32, 64, 128) for causal in (False, True)
                     for b, h in ((1, 3), (256, 2))]
+# both dtypes: the fused backward's edges (ops/csrc/fused_attention.cu): the same lengths, one
+# short of, at and one past the dQ kernel's 128-row passes and key tiles (64 keys, 32 above
+# D=64), the dK/dV kernel's 128-key passes and 32- or 16-row query tiles,
+# and where an item stops fitting the resident rings (D = 128 past 192 query rows or keys); in
+# float32 the flash dQ and dK/dV kernels' 128- and 64-row blocks and 32-row tiles, on lse and
+# delta that the operator hands them; D = 32, 64 and 128, causal and not,
+# B = 1 and 256; dq, dk and dv within 1e-4 / 2e-2 x max|plain|, a second launch the same bits,
+# not timed
+FUSED_BWD_EDGE_CASES = [(f"fused-bwd-edge-S{s}-D{d}", b, s, h, d, causal)
+                        for s in (128, 129, 191, 192, 193, 255, 256, 257, 511, 512)
+                        for d in (32, 64, 128) for causal in (False, True)
+                        for b, h in ((1, 3), (256, 2))]
 QUANT_CASES = [  # (case, rows, cols, weight form or None): ViT-B/32's int8 step at B=256
     ("q-B32-vision-x", 256 * 50, 768, None),      # c_fc's input; dx's g of c_proj
     ("q-B32-vision-act", 256 * 50, 3072, None),   # c_proj's input act(h); g of c_fc
@@ -499,7 +513,8 @@ PEAK_3XTF32 = 495e12 / 3
 PEAK_BYTES = 3.35e12
 TF32_KERNELS = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
                 "block_attention_fwd", "block_attention_bwd", "block_attention_ln_fwd",
-                "block_attention_ln_bwd", "block_mlp_fwd", "block_mlp_bwd")
+                "block_attention_ln_bwd", "block_mlp_fwd", "block_mlp_bwd",
+                "fused_attention_bwd")
 
 
 def fail(msg: str):
@@ -723,6 +738,20 @@ def kernel_cases(torch, ba, fa, bm, fl, dtype):
         yield ("fused_attention_fwd", case, shape, False, lambda: fa.fused_attention(q, k, v, **kw),
                lambda: fa.fused_attention_reference(q, k, v, **kw), None, {}, ("out",),
                fused_bound("fused_attention_fwd", b, s, heads, d, causal, name))
+    for case, b, s, heads, d, causal in FUSED_BWD_EDGE_CASES:
+        g = torch.Generator(device="cuda").manual_seed(b * 1000 + s + d)
+        q, k, v, do = (torch.randn(b, s, heads * d, generator=g, device="cuda").to(dtype)
+                       for _ in range(4))
+        # the backward takes the forward kernel's out and lse, as the operator hands them over
+        # (float32 reads them for delta and p; bfloat16 forms its own)
+        kw = dict(heads=heads, causal=causal)
+        bwd_kw = dict(zip(("out", "lse"), fa.fused_attention_fwd(q, k, v, **kw)), **kw)
+        shape = f"B={b:<3} S={s} H={heads} D={d} causal={causal!s:<5}"
+        yield ("fused_attention_bwd", case, shape, False,
+               lambda: fa.fused_attention_bwd(q, k, v, do, **bwd_kw),
+               lambda: fa.fused_attention_bwd_reference(q, k, v, do, **kw), None, {},
+               ("dq", "dk", "dv"),
+               fused_bound("fused_attention_bwd", b, s, heads, d, causal, name))
     for case, b, s, heads, d, causal in FUSED_CASES:
         g = torch.Generator(device="cuda").manual_seed(b * 1000 + s)
         q, k, v, do = (torch.randn(b, s, heads * d, generator=g, device="cuda").to(dtype)
@@ -741,8 +770,9 @@ def kernel_cases(torch, ba, fa, bm, fl, dtype):
                (lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal), packed),
                {}, ("out",),
                fused_bound("fused_attention_fwd", b, s, heads, d, causal, name))
+        bwd_kw = dict(zip(("out", "lse"), fa.fused_attention_fwd(q, k, v, **kw)), **kw)
         yield ("fused_attention_bwd", case, shape, b == 256,
-               lambda: fa.fused_attention_bwd(q, k, v, do, **kw),
+               lambda: fa.fused_attention_bwd(q, k, v, do, **bwd_kw),
                lambda: fa.fused_attention_bwd_reference(q, k, v, do, **kw),
                (lambda: torch.autograd.grad(sdpa_out, leaves, doh, retain_graph=True),
                 lambda grads: packed(grads[0])), {},
@@ -861,7 +891,7 @@ def phase_kernels(torch, ba, fa, bm, fl) -> dict:
                 ok = ok and lib_ok
                 line += f" library_err={lib_err:.2e}{'' if lib_ok else ' LIBRARY MISMATCH'}"
             if kernel.startswith(("block_attention", "block_mlp")) or case.startswith(
-                    ("flash-edge", "fused-edge")) or (
+                    ("flash-edge", "fused-edge", "fused-bwd-edge")) or (
                     timed and kernel.startswith(("fused_attention", "flash_attention"))):
                 # no float atomics, one owner and a fixed order for every sum: a second launch
                 # gives the same bits, every output
@@ -1172,15 +1202,16 @@ def sass_report(sass: str) -> str:
 
 
 def hmma_forms(sass: str) -> dict[str, dict[str, int]]:
-    """Per flash-attention kernel, bfloat16 fused forward and projection GEMM in the SASS (each
-    instantiation: dtype and head dim, or types and form, as ``kernel_label`` names it), its
-    tensor-core instructions counted by form (HMMA.16816.F32.BF16 is mma.sync m16n8k16 on bf16,
+    """Per flash-attention kernel, bfloat16 fused-attention kernel (the forward, the backward's
+    dQ and dK/dV) and projection GEMM in the SASS (each instantiation:
+    dtype and head dim, or types and form, as ``kernel_label`` names it), its tensor-core
+    instructions counted by form (HMMA.16816.F32.BF16 is mma.sync m16n8k16 on bf16,
     HMMA.1688.F32.TF32 m16n8k8 on TF32, HGMMA.64x128x16.F32.BF16 a wgmma)."""
     kernels, name = {}, None
     for ln in sass.splitlines():
         if "Function :" in ln:
             name = kernel_label(ln) if ("flash_" in ln or "fused_fwd_kernel" in ln
-                                        or "mma_gemm_kernel" in ln) else None
+                                        or "fused_d" in ln or "mma_gemm_kernel" in ln) else None
             if name:
                 kernels.setdefault(name, {})
         elif name:
@@ -1232,30 +1263,52 @@ def flash_wgmma_faults(sass: str) -> list[str]:
     return faults + [f"{k}: no bfloat16 instantiation" for k in WGMMA_FLASH if k not in seen]
 
 
-def wgmma_instantiation_faults(sass: str, kernel: str, expected: int) -> list[str]:
-    """The instantiations of ``kernel`` whose products are not all wgmma: one with an HMMA, or
-    with no GMMA, is a fault, and so is a build with fewer than ``expected`` of them."""
+def wgmma_instantiation_faults(sass: str, kernel: str | tuple, expected: int) -> list[str]:
+    """The instantiations of ``kernel`` (a name, or a tuple of names counted together) whose
+    products are not all wgmma: one with an HMMA, or with no GMMA, is a fault, and so is a build
+    with fewer than ``expected`` of them."""
+    kernels = (kernel,) if isinstance(kernel, str) else kernel
     faults, seen = [], 0
     for name, forms in sorted(hmma_forms(sass).items()):
-        if not name.startswith(kernel + "<"):
+        if name.split("<")[0] not in kernels:
             continue
         seen += 1
         if any(f.startswith("HMMA") for f in forms) or not any("GMMA" in f for f in forms):
             faults.append(f"{name}: {forms or 'no tensor-core instructions'}")
     if seen < expected:
-        faults.append(f"{seen} {kernel} instantiations in the SASS, {expected} expected")
+        faults.append(f"{seen} {' / '.join(kernels)} instantiations in the SASS, {expected} "
+                      "expected")
     return faults
 
 
-# the bfloat16 fused forward: 128-, 112- and 96-key tiles at D <= 64, 64 above
-FUSED_WGMMA_INSTANTIATIONS = 4
+# the bfloat16 fused kernels of fused_attention.cu: the forward with 128-, 112- and 96-key
+# tiles at D <= 64 and 64 above; the backward's dQ and dK/dV at D <= 64 and above
+FUSED_WGMMA_KERNELS = ("fused_fwd_kernel", "fused_dq_kernel", "fused_dkv_kernel")
+FUSED_WGMMA_INSTANTIATIONS = 8
+# the float32 fused backward: the flash dQ and dK/dV kernels on Tf32Ops (3xTF32), at D <= 64
+# and above
+FUSED_TF32_KERNELS = ("flash_dq_kernel", "flash_dkv_kernel")
+FUSED_TF32_INSTANTIATIONS = 4
 
 
 def fused_wgmma_faults(sass: str) -> list[str]:
-    """The bfloat16 fused forward's instantiations (fused_fwd_kernel) off wgmma, or missing. The
-    float32 forward and the backward passes keep attention_passes.cuh's kernels
-    (attention_f32_kernel, the *_mma_kernel passes, reported by ``sass_report``)."""
-    return wgmma_instantiation_faults(sass, "fused_fwd_kernel", FUSED_WGMMA_INSTANTIATIONS)
+    """The fused attention's kernels of its own off their tensor-core form, or missing: every
+    bfloat16 instantiation (the forward, the backward's dQ and dK/dV) must be all wgmma, with
+    no HMMA; every instantiation of the float32 backward (the flash dQ and dK/dV kernels on
+    Tf32Ops) all HMMA.1688.F32.TF32 (3xTF32), with no other form. The float32 forward keeps
+    attention_passes.cuh's forward core (attention_f32_kernel), which the block kernels
+    share."""
+    faults = wgmma_instantiation_faults(sass, FUSED_WGMMA_KERNELS, FUSED_WGMMA_INSTANTIATIONS)
+    seen = 0
+    for name, forms in sorted(hmma_forms(sass).items()):
+        if name.split("<")[0] in FUSED_TF32_KERNELS and "Tf32Ops" in name:
+            seen += 1
+            if set(forms) != {"HMMA.1688.F32.TF32"}:
+                faults.append(f"{name}: {forms or 'no HMMA'}")
+    if seen < FUSED_TF32_INSTANTIATIONS:
+        faults.append(f"{seen} {' / '.join(FUSED_TF32_KERNELS)} instantiations in the SASS, "
+                      f"{FUSED_TF32_INSTANTIATIONS} expected")
+    return faults
 
 
 # the bfloat16 GEMM of the fused MLP: c_fc, c_proj with and without the residual, dh, dln, dW2
@@ -4092,7 +4145,7 @@ def main() -> int:
             fail(f"bfloat16 flash instantiations off wgmma: {faults}")
         faults = fused_wgmma_faults(sass)
         if faults:
-            fail(f"bfloat16 fused forward instantiations off wgmma: {faults}")
+            fail(f"fused attention instantiations off their tensor-core form: {faults}")
         faults = mlp_wgmma_faults(sass)
         if faults:
             fail(f"bfloat16 fused-MLP GEMM instantiations off wgmma: {faults}")

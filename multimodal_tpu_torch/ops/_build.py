@@ -112,8 +112,8 @@ def load() -> ctypes.CDLL:
                 "mmt_block_attention_ln_fwd": [i32] + [ptr] * 15 + [i32] * 6 + [f32, ptr],
                 "mmt_block_attention_bwd": [i32] + [ptr] * 18 + [i32] * 5 + [ptr],
                 "mmt_block_attention_ln_bwd": [i32] + [ptr] * 25 + [i32] * 6 + [f32, ptr],
-                "mmt_fused_attention_fwd": [i32] + [ptr] * 4 + [i32] * 5 + [f32, ptr],
-                "mmt_fused_attention_bwd": [i32] + [ptr] * 8 + [i32] * 5 + [f32, ptr],
+                "mmt_fused_attention_fwd": [i32] + [ptr] * 5 + [i32] * 5 + [f32, ptr],
+                "mmt_fused_attention_bwd": [i32] + [ptr] * 10 + [i32] * 5 + [f32, ptr],
                 "mmt_flash_attention_fwd": [i32] + [ptr] * 5 + [i32] * 6 + [f32, ptr],
                 "mmt_flash_attention_dq": [i32] + [ptr] * 7 + [i32] * 6 + [f32, ptr],
                 "mmt_flash_attention_dkv": [i32] + [ptr] * 8 + [i32] * 6 + [f32, ptr],

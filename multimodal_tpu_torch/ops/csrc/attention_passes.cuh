@@ -1,20 +1,19 @@
 // The attention passes shared by the block-attention kernels (block_attention_fwd.cu,
-// block_attention_bwd.cu) and the fused whole-sequence attention pair (fused_attention.cu):
-// the forward core softmax(q k^T * scale) v, and the backward's dQ pass and dK/dV pass. All
-// three read q, k and v through separate pointers with a row stride of `w` elements and the
-// head's columns at head * d, so they serve both a [3, B*S, W] projection scratch and three
-// packed [B, S, H*D] tensors. d is a multiple of 8 up to 128, w a multiple of 8 and every
-// base pointer 16-byte aligned (the wrappers check). Like the common header this one lives
-// in an anonymous namespace: each source that includes it gets its own copy.
+// block_attention_bwd.cu) and, for its float32 forward, the fused whole-sequence attention
+// (fused_attention.cu): the forward core softmax(q k^T * scale) v, and the backward's dQ pass
+// and dK/dV pass. All three read q, k and v through separate pointers with a row stride of `w`
+// elements and the head's columns at head * d, so they serve both a [3, B*S, W] projection
+// scratch and three packed [B, S, H*D] tensors. d is a multiple of 8 up to 128, w a multiple of
+// 8 and every base pointer 16-byte aligned (the wrappers check). Like the common header this one
+// lives in an anonymous namespace: each source that includes it gets its own copy.
 //
 // What the passes port: the attention halves of the Pallas TPU kernels
 // multimodal_tpu/ops/block_attention.py:_fwd_kernel, _bwd_kernel and _bwd_kernel_large, and
-// the whole of multimodal_tpu/ops/fused_attention.py:_fwd_kernel and _bwd_kernel. The
-// backward passes are templated on kExactProbs, the one numeric difference between the two
-// TPU backward kernels: the block backward forms rowsum(dp * p) and ds from the
-// probabilities *rounded* to the compute dtype and widened again, and emits attnpre = p v;
-// the fused backward forms them from the exact float32 probabilities, uses the rounded ones
-// for dv only, and has no attnpre. In float32 the two agree; in bfloat16 they do not.
+// the forward core of multimodal_tpu/ops/fused_attention.py:_fwd_kernel in float32. The
+// backward passes are the block backward's: they form rowsum(dp * p) and ds from the
+// probabilities *rounded* to the compute dtype and widened again, and emit attnpre = p v. (The
+// fused backward, which forms them from the exact float32 probabilities, has kernels of its
+// own in fused_attention.cu.)
 //
 // What bounds them on the card: 4 B H S^2 D FLOPs forward and 10 backward over a handful of
 // [B, S, H*D] tensors. At S=197, D=64 float32 is bound by operations (CUDA-core FMAs; a
@@ -27,23 +26,20 @@
 //     [rows, S] buffer of logits exists any more, in shared or in device memory. The forward
 //     is one sweep with an online softmax: a running row max m and sum of exp l, the
 //     accumulator rescaled by exp(m_old - m_new) whenever m moves, one division by l at the
-//     end. The dQ pass is two sweeps: that same online sweep, which also yields delta, then
-//     one that forms p = exp(logit - m) / l, ds = round(p (dp - delta)) and dq += ds k. The
-//     dK/dV pass owns 64 keys, streams the query rows once and rebuilds p and ds from three
-//     saved f32 numbers per row (max, sum of exp, delta; `stats` is [3][B*H*S]). Every sum
-//     has one owner and a fixed order, so no atomics and the same bits twice.
+//     end. The dQ pass is two sweeps: that same online sweep, which also yields attnpre and
+//     delta, then one that forms p = exp(logit - m) / l, ds = round(p (dp - delta)) and dq +=
+//     ds k. The dK/dV pass owns 64 keys, streams the query rows once and rebuilds p and ds from
+//     three saved f32 numbers per row (max, sum of exp, delta; `stats` is [3][B*H*S]). Every
+//     sum has one owner and a fixed order, so no atomics and the same bits twice.
 //   * Which rounding points moved. The plain versions round the *normalised* p before p v.
 //     The online sweep rounds exp(logit - m) against the running max and normalises the f32
 //     accumulator afterwards: each p carries the same relative rounding error (2^-9 in
 //     bfloat16) at another point, and out and attnpre differ from the plain versions by single
-//     bf16 steps (held to the same 2e-2 x max|plain| on the card). delta: in the fused form
-//     (kExactProbs) the running sum of exp(logit - m) dp in f32, rescaled like l and divided
-//     by l at the end, so it still sees the exact probabilities; in the block form rowsum(do *
+//     bf16 steps (held to the same 2e-2 x max|plain| on the card). delta = rowsum(do *
 //     attnpre) from attnpre's f32 accumulator, which equals rowsum(dp * p) for the rounded p
 //     the accumulator was built from. ds and dv use p = exp(logit - m) / l from the final m
-//     and l, rounded to the compute dtype (dv always; ds in the block form only), exactly as
-//     the plain versions do. In float32 rounding p is the identity and all of this is a matter
-//     of summation order.
+//     and l, rounded to the compute dtype, exactly as the plain versions do. In float32
+//     rounding p is the identity and all of this is a matter of summation order.
 //   * bfloat16 (the *_mma_kernel family): products on the tensor cores by mma.sync m16n8k16
 //     with f32 accumulation, which is the TPU kernel's own arithmetic. Four warps of 16 rows;
 //     Q (and dO) fragments stay in registers for the whole block; K and V tiles stream as
@@ -58,7 +54,7 @@
 //     fragments are what lets p skip shared memory.
 //   * float32 (the *_f32_kernel family): 64 x 64 tiles, 256 threads, a 4x4 logits tile and a
 //     4 x D/16 accumulator tile a thread, float4 shared-memory loads (register_tiles.cuh).
-//     True float32 throughout; delta = rowsum(do * out) from the online sweep in both forms.
+//     True float32 throughout; delta = rowsum(do * out) from the online sweep.
 //   * Ragged shapes are masked in the loads (zero rows, zero columns from d to the next
 //     multiple of 16) and in the logits (the finite -1e30 sentinel, col <= row under the
 //     causal mask, so a fully masked tile contributes exactly 0); n-tiles, column groups and
@@ -267,12 +263,10 @@ attention_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 
 // ----------------------------------------------------------------------------- dQ pass
 // One block per (64-row query tile, head, image), two sweeps over the key tiles. Steps [0, nt)
-// are the forward's online sweep, which also yields delta: in the fused form (kExactProbs) as
-// the running sum of exp(logit - m) dp, rescaled like the sum of exp, so delta sees the exact
-// f32 probabilities; in the block form as rowsum(do * attnpre) from attnpre's f32 accumulator.
-// Steps [nt, 2nt) form ds and dq. Writes the row max, the row sum of exp and delta of every
+// are the forward's online sweep, which also yields attnpre and delta = rowsum(do * attnpre)
+// from attnpre's f32 accumulator. Steps [nt, 2nt) form ds and dq. Writes the row max, the row sum of exp and delta of every
 // query row to `stats` for the dK/dV pass.
-template <int kDP, bool kExactProbs>
+template <int kDP>
 __global__ void __launch_bounds__(kMmaThreads, kDP <= 64 ? 4 : 3)
 attn_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kmat,
                        const __nv_bfloat16* __restrict__ v,
@@ -312,7 +306,7 @@ attn_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   uint32_t qf[kDP / 16][4], dof[kDP / 16][4];
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, off[2] = {0.f, 0.f};
   float delta[2] = {0.f, 0.f}, alpha[2];
-  float acc[kDN][4];  // attnpre in the first sweep (block form), dq in the second
+  float acc[kDN][4];  // attnpre in the first sweep, dq in the second
   zero_acc(acc);
 
   for (int step = 0; step < steps; ++step) {
@@ -335,23 +329,20 @@ attn_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
         inv[h] = 1.f / l[h];
         off[h] = fmaf(m[h], kLog2e, __log2f(l[h]));
       }
-      if constexpr (!kExactProbs) {
-        // delta = rowsum(do * attnpre), attnpre still in f32; do in the C fragment's layout
-        delta[0] = delta[1] = 0.f;
+      // delta = rowsum(do * attnpre), attnpre still in f32; do in the C fragment's layout
 #pragma unroll
-        for (int n = 0; n < kDN; ++n)
-          if (n * 8 < d) {
+      for (int n = 0; n < kDN; ++n)
+        if (n * 8 < d) {
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const float2 dov = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-                  dos + (wrow + g + 8 * h) * kLd + n * 8 + 2 * t));
-              delta[h] = fmaf(dov.x, acc[n][2 * h], delta[h]);
-              delta[h] = fmaf(dov.y, acc[n][2 * h + 1], delta[h]);
-            }
+          for (int h = 0; h < 2; ++h) {
+            const float2 dov = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                dos + (wrow + g + 8 * h) * kLd + n * 8 + 2 * t));
+            delta[h] = fmaf(dov.x, acc[n][2 * h], delta[h]);
+            delta[h] = fmaf(dov.y, acc[n][2 * h + 1], delta[h]);
           }
-        store_c<kDN>(attnpre + base + (size_t)r0 * w, w, wrow, rows, d, inv, acc, lane);
-        zero_acc(acc);
-      }
+        }
+      store_c<kDN>(attnpre + base + (size_t)r0 * w, w, wrow, rows, d, inv, acc, lane);
+      zero_acc(acc);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         delta[h] = quad_sum(delta[h]) * inv[h];
@@ -374,34 +365,18 @@ attn_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
                         c0 + 2 * t, kmax, causal);
       if (step < nt) {
         online_softmax<kNT>(sf, m, l, alpha);
-        if constexpr (kExactProbs) {
-          float dp[kNT][4];
-          head_product<kDP, kNT>(dp, dof, vt, d16, live, lane);
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            float sum = 0.f;
-#pragma unroll
-            for (int n = 0; n < kNT; ++n) {
-              sum = fmaf(sf[n][2 * h], dp[n][2 * h], sum);
-              sum = fmaf(sf[n][2 * h + 1], dp[n][2 * h + 1], sum);
-            }
-            delta[h] = fmaf(delta[h], alpha[h], sum);
-          }
-        } else {
-          scale_acc(acc, alpha);
-          accumulate_rows<kDN>(acc, sf, vt, kLd, wmax - c0, d, lane);
-        }
+        scale_acc(acc, alpha);
+        accumulate_rows<kDN>(acc, sf, vt, kLd, wmax - c0, d, lane);
       } else {
         float dp[kNT][4];
         head_product<kDP, kNT>(dp, dof, vt, d16, live, lane);
-        // sf becomes ds = p (dp - delta); masked entries are exactly 0. Packing rounds ds; only
-        // the block form, whose ds sees the rounded p, rounds p here
+        // sf becomes ds = p (dp - delta) from the rounded p; masked entries are exactly 0.
+        // Packing rounds ds
 #pragma unroll
         for (int n = 0; n < kNT; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            float p = prob(sf[n][e], off[e >> 1]);
-            if (!kExactProbs) p = round_to<__nv_bfloat16>(p);
+            const float p = round_to<__nv_bfloat16>(prob(sf[n][e], off[e >> 1]));
             sf[n][e] = __fmul_rn(p, __fsub_rn(dp[n][e], delta[e >> 1]));
           }
         accumulate_rows<kDN>(acc, sf, kt, kLd, wmax - c0, d, lane);
@@ -419,7 +394,7 @@ attn_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
 // transposed (k q^T, keys as rows), so p^T and ds^T are A operands as they stand. Under the
 // causal mask a row before the tile's first key sees none of its keys (p = ds = 0 exactly),
 // so the stream starts at that key.
-template <int kDP, bool kExactProbs>
+template <int kDP>
 __global__ void __launch_bounds__(kMmaThreads, kDP <= 64 ? 4 : 3)
 attn_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kmat,
                         const __nv_bfloat16* __restrict__ v,
@@ -508,8 +483,8 @@ attn_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
             const int key = j0 + wrow + g + 8 * (e >> 1), row = q0 + c + (e & 1);
             p = key < s && row < s && (!causal || key <= row) ? p : 0.f;
           }
-          if (!kExactProbs) p = round_to<__nv_bfloat16>(p);
-          pt[n][e] = p;  // packing rounds it
+          p = round_to<__nv_bfloat16>(p);
+          pt[n][e] = p;
           dst[n][e] = __fmul_rn(p, __fsub_rn(dst[n][e], (e & 1) ? dl.y : dl.x));
         }
       }
@@ -602,11 +577,14 @@ __device__ __forceinline__ void attend_f32(const float* qs, float* ks, float* vs
 }
 
 // ----------------------------------------------------------------------------- forward core
+// lse: null (the block kernels), or [B*H*S] float32 that takes each query row's log-sum-exp of
+// the scaled logits (natural log, m + log(l)), which the fused float32 backward hands to the
+// flash kernels
 template <int kDC>
 __global__ void __launch_bounds__(kTileThreads, kDC == 4 ? 3 : 1)
 attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ kmat,
-                     const float* __restrict__ v, float* __restrict__ out, int s, int w, int d,
-                     float scale, int causal) {
+                     const float* __restrict__ v, float* __restrict__ out,
+                     float* __restrict__ lse, int s, int w, int d, float scale, int causal) {
   extern __shared__ __align__(16) float smem[];
   const int ld = d + 4;
   float* qs = smem;              // [kTile][ld]
@@ -630,11 +608,16 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ kmat
 #pragma unroll
     for (int j = 0; j < kDC; ++j) acc[i][j] = acc[i][j] / l[i];
   if (active) store_rows<kDC>(out + base + (size_t)r0 * w, w, rows, d, ty, tx, acc);
+  if (lse != nullptr && active && tx == 0) {
+    float* rows_lse = lse + ((size_t)img * gridDim.y + head) * s + r0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (ty * 4 + i < rows) rows_lse[ty * 4 + i] = m[i] + logf(l[i]);
+  }
 }
 
 // ----------------------------------------------------------------------------- dQ pass
-// kExactProbs only decides whether attnpre is written.
-template <int kDC, bool kExactProbs>
+template <int kDC>
 __global__ void __launch_bounds__(kTileThreads, kDC == 4 ? 2 : 1)
 attn_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ kmat,
                        const float* __restrict__ v, const float* __restrict__ dout,
@@ -689,8 +672,7 @@ attn_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ km
       }
       l[i] = 1.f / l[i];
     }
-    if (!kExactProbs)
-      store_rows<kDC>(attnpre + base + (size_t)r0 * w, w, rows, d, ty, tx, acc);
+    store_rows<kDC>(attnpre + base + (size_t)r0 * w, w, rows, d, ty, tx, acc);
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -829,63 +811,66 @@ cudaError_t launch_core_mma(const __nv_bfloat16* q, const __nv_bfloat16* k, cons
 
 template <int kDC>
 cudaError_t launch_core_f32(const float* q, const float* k, const float* v, float* out,
-                            dim3 grid, int s, int w, int d, float scale, int causal,
+                            float* lse, dim3 grid, int s, int w, int d, float scale, int causal,
                             cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)3 * kTile * (d + 4) + kTile * kPLd);
   cudaError_t err = allow_smem(attention_f32_kernel<kDC>, smem);
   if (err != cudaSuccess) return err;
-  attention_f32_kernel<kDC><<<grid, kTileThreads, smem, stream>>>(q, k, v, out, s, w, d, scale,
-                                                                  causal);
+  attention_f32_kernel<kDC><<<grid, kTileThreads, smem, stream>>>(q, k, v, out, lse, s, w, d,
+                                                                  scale, causal);
   return cudaGetLastError();
 }
 
 // out = softmax(q k^T * scale) v per (image, head); q, k, v, out [B, S, w] with d columns
 // per head. The instantiation follows the dtype and the head dim: up to 64, or up to 128.
+// lse (float32 only; null in bfloat16): null, or each row's log-sum-exp (natural log)
 template <typename T>
 cudaError_t launch_attention_core(const T* q, const T* k, const T* v, T* out, int b, int s,
                                   int w, int heads, int d, float scale, int causal,
-                                  cudaStream_t stream) {
+                                  cudaStream_t stream, float* lse = nullptr) {
   const dim3 grid((s + kTile - 1) / kTile, heads, b);  // kTile == kMmaRows
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    if (lse != nullptr) return cudaErrorInvalidValue;
     if (d <= 64) return launch_core_mma<64>(q, k, v, out, grid, s, w, d, scale, causal, stream);
     return launch_core_mma<128>(q, k, v, out, grid, s, w, d, scale, causal, stream);
   } else {
-    if (d <= 64) return launch_core_f32<4>(q, k, v, out, grid, s, w, d, scale, causal, stream);
-    return launch_core_f32<8>(q, k, v, out, grid, s, w, d, scale, causal, stream);
+    if (d <= 64)
+      return launch_core_f32<4>(q, k, v, out, lse, grid, s, w, d, scale, causal, stream);
+    return launch_core_f32<8>(q, k, v, out, lse, grid, s, w, d, scale, causal, stream);
   }
 }
 
-template <int kDP, bool kExactProbs>
+template <int kDP>
 cudaError_t launch_bwd_mma(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
                            const __nv_bfloat16* dout, float* stats, __nv_bfloat16* attnpre,
                            __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv, dim3 grid,
                            int s, int w, int d, float scale, int causal, cudaStream_t stream) {
   constexpr size_t smem_dq = mma_smem(kDP, 2 * kMmaRows, kKT);
-  cudaError_t err = allow_smem(attn_bwd_dq_mma_kernel<kDP, kExactProbs>, smem_dq);
+  cudaError_t err = allow_smem(attn_bwd_dq_mma_kernel<kDP>, smem_dq);
   if (err != cudaSuccess) return err;
-  attn_bwd_dq_mma_kernel<kDP, kExactProbs><<<grid, kMmaThreads, smem_dq, stream>>>(
+  attn_bwd_dq_mma_kernel<kDP><<<grid, kMmaThreads, smem_dq, stream>>>(
       q, k, v, dout, attnpre, dq, stats, s, w, d, scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   constexpr size_t smem_dkv = mma_smem(kDP, 2 * kMmaRows, kKT) + sizeof(float) * 6 * kKT;
-  err = allow_smem(attn_bwd_dkv_mma_kernel<kDP, kExactProbs>, smem_dkv);
+  err = allow_smem(attn_bwd_dkv_mma_kernel<kDP>, smem_dkv);
   if (err != cudaSuccess) return err;
-  attn_bwd_dkv_mma_kernel<kDP, kExactProbs><<<grid, kMmaThreads, smem_dkv, stream>>>(
+  attn_bwd_dkv_mma_kernel<kDP><<<grid, kMmaThreads, smem_dkv, stream>>>(
       q, k, v, dout, stats, dk, dv, s, w, d, scale, causal);
   return cudaGetLastError();
 }
 
-template <int kDC, bool kExactProbs>
+template <int kDC>
 cudaError_t launch_bwd_f32(const float* q, const float* k, const float* v, const float* dout,
                            float* stats, float* attnpre, float* dq, float* dk, float* dv,
                            dim3 grid, int s, int w, int d, float scale, int causal,
                            cudaStream_t stream) {
   const size_t tile = sizeof(float) * kTile * (d + 4), probs = sizeof(float) * kTile * kPLd;
   const size_t smem_dq = 4 * tile + probs;
-  cudaError_t err = allow_smem(attn_bwd_dq_f32_kernel<kDC, kExactProbs>, smem_dq);
+  cudaError_t err = allow_smem(attn_bwd_dq_f32_kernel<kDC>, smem_dq);
   if (err != cudaSuccess) return err;
-  attn_bwd_dq_f32_kernel<kDC, kExactProbs><<<grid, kTileThreads, smem_dq, stream>>>(
+  attn_bwd_dq_f32_kernel<kDC><<<grid, kTileThreads, smem_dq, stream>>>(
       q, k, v, dout, attnpre, dq, stats, s, w, d, scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -898,9 +883,9 @@ cudaError_t launch_bwd_f32(const float* q, const float* k, const float* v, const
   return cudaGetLastError();
 }
 
-// The two backward passes in order: dq (and attnpre unless kExactProbs, where it may be
-// null), then dk and dv. stats is a float32 scratch of [3, B*H*S].
-template <typename T, bool kExactProbs>
+// The two backward passes in order: dq and attnpre, then dk and dv. stats is a float32
+// scratch of [3, B*H*S].
+template <typename T>
 cudaError_t launch_attention_bwd_passes(const T* q, const T* k, const T* v, const T* dout,
                                         float* stats, T* attnpre, T* dq, T* dk, T* dv, int b,
                                         int s, int w, int heads, int d, float scale, int causal,
@@ -908,15 +893,15 @@ cudaError_t launch_attention_bwd_passes(const T* q, const T* k, const T* v, cons
   const dim3 grid((s + kTile - 1) / kTile, heads, b);
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     if (d <= 64)
-      return launch_bwd_mma<64, kExactProbs>(q, k, v, dout, stats, attnpre, dq, dk, dv, grid,
+      return launch_bwd_mma<64>(q, k, v, dout, stats, attnpre, dq, dk, dv, grid,
                                                  s, w, d, scale, causal, stream);
-    return launch_bwd_mma<128, kExactProbs>(q, k, v, dout, stats, attnpre, dq, dk, dv, grid,
+    return launch_bwd_mma<128>(q, k, v, dout, stats, attnpre, dq, dk, dv, grid,
                                                 s, w, d, scale, causal, stream);
   } else {
     if (d <= 64)
-      return launch_bwd_f32<4, kExactProbs>(q, k, v, dout, stats, attnpre, dq, dk, dv, grid, s, w,
+      return launch_bwd_f32<4>(q, k, v, dout, stats, attnpre, dq, dk, dv, grid, s, w,
                                             d, scale, causal, stream);
-    return launch_bwd_f32<8, kExactProbs>(q, k, v, dout, stats, attnpre, dq, dk, dv, grid, s, w,
+    return launch_bwd_f32<8>(q, k, v, dout, stats, attnpre, dq, dk, dv, grid, s, w,
                                           d, scale, causal, stream);
   }
 }

@@ -25,7 +25,7 @@
 // rowsum(dp * p)); a dK/dV pass, one block per (64-key tile, head, image), that streams the
 // query rows once and rebuilds p and ds from the saved row numbers; and the NT GEMM over three
 // segments for dx. No [B,H,S,S] tensor reaches device memory. The two passes are
-// attention_passes.cuh's, in their kExactProbs = false form.
+// attention_passes.cuh's.
 //
 // The LN form (mmt_block_attention_ln_bwd; x is the pre-LN residual stream) adds
 //
@@ -157,7 +157,7 @@ cudaError_t launch_bwd(const void* x, const void* dy, const void* gamma, const v
 
   const float scale = (float)std::pow((double)d, -0.5);  // as the forward's
   const T* qp = static_cast<const T*>(buf.qkv);
-  err = launch_attention_bwd_passes<T, false>(
+  err = launch_attention_bwd_passes<T>(
       qp, qp + plane, qp + 2 * plane, static_cast<const T*>(buf.dout), buf.stats,
       static_cast<T*>(buf.attnpre), static_cast<T*>(buf.dq), static_cast<T*>(buf.dk),
       static_cast<T*>(buf.dv), b, s, w, heads, d, scale, causal, stream);

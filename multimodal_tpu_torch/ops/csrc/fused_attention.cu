@@ -18,23 +18,25 @@
 //   dq    = (ds @ k_h) * sm_scale, dk = (ds^T @ q_h) * sm_scale    scaled in f32, rounded to T
 //
 // This is where the fused backward differs from the block-attention backward, which forms
-// delta and ds from the rounded p: the passes in attention_passes.cuh are templated on that
-// choice (kExactProbs) and this file instantiates the exact form.
+// delta and ds from the rounded p (attention_passes.cuh). In float32 rounding is the identity,
+// and delta = rowsum(do * out) from the forward's out equals rowsum(dp * p32) up to the order of
+// the sums.
 //
-// One launch forward and two backward (a dQ pass that saves three f32 numbers per query row,
-// then a dK/dV pass that rebuilds p and ds from them), so dK and dV need no atomics and no
-// [B,H,S,S] tensor reaches device memory. The backward and the float32 forward are the
-// passes of attention_passes.cuh, shared with the block-attention kernels; that header says
-// what bounds them on the card (float32 by CUDA-core operations, bfloat16 by bytes) and what
-// their design does about it: a block per 64-row query tile that walks the keys with an
-// online softmax instead of keeping a [rows, S] logits buffer (which moves the rounding of p
-// from the normalised to the unnormalised probability; delta still sees the exact f32
-// probabilities); in bfloat16 mma.sync tensor-core products on bf16 tiles that stream through
-// shared memory by 16-byte cp.async, in float32 4x4 register tiles. The bfloat16 forward is
-// this file's own kernel, fused_fwd_kernel below, on wgmma fed by TMA. The TPU kernel's
-// 16-row sequence pad and its 128-lane head groups are Mosaic tiling and have no counterpart:
-// the ragged last tile is masked. The loads need D a multiple of 8 (and 16-byte aligned
-// tensors, which the wrapper checks).
+// One launch forward and two backward. The bfloat16 forward is fused_fwd_kernel below (wgmma
+// fed by TMA); the float32 forward is attention_passes.cuh's forward core, which the block
+// kernels share, and in float32 it also writes each row's log-sum-exp. The bfloat16 backward
+// has kernels of its own, below: a dQ kernel that forms every query row's statistics (lse and
+// the exact delta) in a first sweep over the keys, writes them to a [2][B*H*S] float32 scratch
+// and forms dq, then a dK/dV kernel that reads them back; wgmma fed by TMA, persistent over the
+// (image, head) items with each item's inputs resident. The float32 backward is the flash
+// dQ and dK/dV kernels (flash_attention.cu, 3xTF32 on mma.sync through Tf32Ops) on the packed
+// tensors read as [B, S, H, D], with the forward's lse and delta = rowsum(do * out) from
+// fused_delta_kernel below: those kernels already take delta that way, and on the fused shapes
+// they ran faster than a float32 pair of this file's own (PERF.md). Either way dK and dV need
+// no atomics and no [B,H,S,S] tensor reaches device memory. The TPU kernel's 16-row sequence
+// pad and its 128-lane head groups are Mosaic tiling and have no counterpart: the ragged last
+// tile is masked. The loads need D a multiple
+// of 8 (and 16-byte aligned tensors, which the wrapper checks).
 
 #include "wgmma_attention.cuh"
 
@@ -122,9 +124,9 @@ struct FusedOps {
 };
 
 // A warp's [16][kDN 8] accumulator times its rows' factors, rounded to bf16, into rows row0..
-// of a [kDN / 8][64][64] bf16 buffer in the 128-byte swizzle (16-byte chunk c of row r at
-// chunk c ^ (r % 8)): the lanes of one store fall into 32 different banks
-template <int kDN>
+// of a [kDN / 8][kPartRows][64] bf16 buffer in the 128-byte swizzle (16-byte chunk c of row r at
+// chunk c ^ (r % 8); buf 1024-byte aligned): the lanes of one store fall into 32 different banks
+template <int kDN, int kPartRows = 64>
 __device__ __forceinline__ void stage_out(unsigned char* buf, int row0, const float (&mul)[2],
                                           const float (&acc)[kDN][4], int lane) {
   const int g = lane >> 2, t = lane & 3;
@@ -133,7 +135,7 @@ __device__ __forceinline__ void stage_out(unsigned char* buf, int row0, const fl
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = row0 + g + 8 * h;
-      unsigned char* at = buf + (n / 8) * 64 * kRowBytes + r * kRowBytes;
+      unsigned char* at = buf + (n / 8) * kPartRows * kRowBytes + r * kRowBytes;
       *reinterpret_cast<uint32_t*>(at + (((n % 8) ^ (r & 7)) << 4) + 4 * t) =
           pack_bf16(__fmul_rn(acc[n][2 * h], mul[h]), __fmul_rn(acc[n][2 * h + 1], mul[h]));
     }
@@ -416,61 +418,860 @@ cudaError_t fused_fwd_wgmma(const void* q, const void* k, const void* v, void* o
   }
 }
 
+// lse (float32 only; may be null): each query row's log-sum-exp (natural log), which the
+// float32 backward reads
 template <typename T>
-cudaError_t fused_fwd(const void* q, const void* k, const void* v, void* out, int b, int s,
-                      int heads, int d, int causal, float sm_scale, cudaStream_t stream) {
+cudaError_t fused_fwd(const void* q, const void* k, const void* v, void* out, float* lse, int b,
+                      int s, int heads, int d, int causal, float sm_scale, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    if (lse != nullptr) return cudaErrorInvalidValue;
     return fused_fwd_wgmma(q, k, v, out, b, s, heads, d, (size_t)heads * d, sm_scale, causal,
                            stream);
   } else {
     return launch_attention_core<T>(static_cast<const T*>(q), static_cast<const T*>(k),
                                     static_cast<const T*>(v), static_cast<T*>(out), b, s,
-                                    heads * d, heads, d, sm_scale, causal, stream);
+                                    heads * d, heads, d, sm_scale, causal, stream, lse);
   }
 }
 
-template <typename T>
-cudaError_t fused_bwd(const void* q, const void* k, const void* v, const void* dout,
-                      float* stats, void* dq, void* dk, void* dv, int b, int s, int heads, int d,
-                      int causal, float sm_scale, cudaStream_t stream) {
-  return launch_attention_bwd_passes<T, true>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), stats, static_cast<T*>(nullptr), static_cast<T*>(dq),
-      static_cast<T*>(dk), static_cast<T*>(dv), b, s, heads * d, heads, d, sm_scale, causal,
-      stream);
+// ============================================================================ backward
+// The bfloat16 backward: two launches, a dQ kernel that also writes every query row's
+// statistics, then a dK/dV kernel that reads them. Per (image, head) it computes the TPU
+// kernel's arithmetic (fused_attention.py:_bwd_kernel):
+//   * the dQ kernel sweeps the keys twice per pass of query rows. The first sweep forms the
+//     logits and dP = dO V^T and the row statistics: the running max m and sum of exp l, and
+//     the exact delta = rowsum(dp * p32) as a running f32 sum of exp(s - m) dp rescaled like l.
+//     The second sweep forms p = exp(s - lse) from the final statistics,
+//     ds = round(p (dp - delta)) and dq += ds k;
+//   * each query row's lse (log2 units) and delta go to `stats` ([2][B H S] float32);
+//   * the dK/dV kernel forms the logits transposed (k q^T, v do^T, keys as rows), so that
+//     round(p)^T and round(ds)^T are the A operands of dv += p^T do and dk += ds^T q as they
+//     stand, with every query row's lse and delta read back;
+//   * dq, dk and dv are scaled in f32 and rounded once. Every sum has one owner and a fixed
+//     order: no float atomics, two launches give the same bits.
+// 9 products a (query, key) pair (logits and dp twice in the dQ kernel and again in dK/dV, dq,
+// dv, dk). The float32 backward (fused_delta_kernel, then the flash pair: 7 products, lse from
+// the forward) is launched from the C entry at the end of this file.
+//
+// bfloat16 (fused_dq_kernel, fused_dkv_kernel): wgmma fed by TMA, over wgmma_attention.cuh,
+// the block of the flash kernels (two consumer warpgroups of 64 rows, one producer warp).
+// attention_passes.cuh's mma.sync passes, which this replaces, gave a block one 64-row tile of
+// one (image, head) and read the item's K and V again for each tile and each of its two
+// sweeps, and Q and dO again for each 64-key tile (about 4x the bytes the bound counts, L2
+// catching the rest), on 32-key mma.sync steps at 58 TFLOP/s. Here:
+//   * persistent blocks, one an SM, walk the (image, head) items; at S = 197 a block of the
+//     passes did a few microseconds of work against a block start of about as much;
+//   * each input is read once an item: the dQ kernel keeps the item's K and V tiles resident
+//     in a ring of slots for every pass and both sweeps (every slot that fits beside two
+//     buffers of a pass's Q and dO: 10 of 64 keys at D <= 64, the whole of S <= 512), and the
+//     dK/dV kernel keeps the item's Q and dO tiles and their rows' lse and delta resident (19
+//     slots of 32 rows at D <= 64) while its passes of 128 keys go through. Past what fits (D =
+//     128 at longer S) the ring streams each pass's tiles again (from L2);
+//   * the dQ kernel's key tiles are 64 keys (32 above D = 64, for registers): at S = 197 tiles of
+//     32 keys, which pad the keys less (224 instead of 256), ran the dQ kernel 16% slower, its
+//     time set by the round trips of a tile's steps more than by the padded products
+//     (PERF.md); the dK/dV kernel's query tiles are 32 rows (16 above D = 64);
+//   * products as in the flash kernels: S and dP by wgmma.m64nNk16 from shared memory, both
+//     operands K-major; p and ds in registers, rounded to bf16 as they are packed into the
+//     register A operand of dQ += dS K (K MN-major through the descriptor's transpose bit) or
+//     of dV += P^T dO and dK += dS^T Q; the next tile's S and dP go to the tensor cores with
+//     this tile's gradient products (wait_group 1, then 0). The first sweep commits S and dP
+//     as two groups, so that the exponentials of a tile run while its dP is formed;
+//   * dq, dk and dv leave through shared memory: at the end of a pass each warpgroup writes its
+//     64 rows, scaled and rounded, over its own rows of the pass's Q tile (dQ) or K and V tiles
+//     (dK/dV), which only its own products read, in the 128-byte swizzle, and one thread stores
+//     them by TMA (no row past S, no column past D) before the buffer is released (stores from
+//     the registers, 4 bytes of a row at a time, took about a third of a forward pass in the
+//     forward kernel above, and 14% of the dK/dV kernel here: PERF.md);
+//   * no wgmma under a run-time condition or behind a branch after its fence, none in flight
+//     across a loop edge: every k-step over the head dim runs (zero columns past D), every
+//     tile below a pass's bound, both warpgroups every pass; ragged S and the causal diagonal
+//     go through TMA's zero fill and the masks.
+struct FusedBwdMaps {  // 4-D tensor maps over [B, S, H, D] with the row stride
+  CUtensorMap q, k, v, dout;  // loads
+  CUtensorMap dq, dk, dv;     // stores of 64 rows
+};
+
+template <int kDP_, int kKeys_>
+struct FusedDqOps {
+  static constexpr int kDP = kDP_, kParts = kDP / 64, kDN = kDP / 8;
+  static constexpr int kRows = 128;     // a pass: two warpgroups of 64 query rows
+  static constexpr int kKeys = kKeys_;  // a K / V tile
+  static constexpr int kQBytes = kParts * kRows * kRowBytes;       // Q or dO of a pass
+  static constexpr int kTileBytes = kParts * kKeys * kRowBytes;    // K or V
+  static constexpr int kQBufs = 2;  // a pass's Q and dO load while the pass before runs
+  static constexpr int kSlots = (232448 - kQBufs * 2 * kQBytes - 2048) / (2 * kTileBytes);
+  static constexpr int kSlotOffset = kQBufs * 2 * kQBytes;
+  static constexpr int kBarOffset = kSlotOffset + kSlots * 2 * kTileBytes;
+  // barriers: q_full[kQBufs], q_free[kQBufs], kv_full[kSlots], kv_free[kSlots]
+  static constexpr int kBytes = kBarOffset + 8 * (2 * kQBufs + 2 * kSlots) + 1024;  // + align
+};
+
+template <int kDP_>
+struct FusedDkvOps {
+  static constexpr int kDP = kDP_, kParts = kDP / 64, kDN = kDP / 8;
+  static constexpr int kKeys = 128;                  // a pass: two warpgroups of 64 keys
+  static constexpr int kRowsT = kDP == 64 ? 32 : 16;  // a Q / dO tile, for registers
+  // at D = 128 dK and dV take 128 registers a thread: a tile's steps run in turn there
+  static constexpr bool kOverlap = kDP == 64;
+  static constexpr int kKVBytes = kParts * kKeys * kRowBytes;   // K or V of a pass
+  static constexpr int kTileBytes = kParts * kRowsT * kRowBytes;  // Q or dO
+  static constexpr int kKVBufs = 2;
+  static constexpr int kSlots =
+      (232448 - kKVBufs * 2 * kKVBytes - 2048) / (2 * kTileBytes + 8 * kRowsT);
+  static constexpr int kSlotOffset = kKVBufs * 2 * kKVBytes;
+  static constexpr int kStatsOffset = kSlotOffset + kSlots * 2 * kTileBytes;  // lse, delta
+  static constexpr int kBarOffset = kStatsOffset + kSlots * 8 * kRowsT;
+  // barriers: kv_full[kKVBufs], kv_free[kKVBufs], full[kSlots], freed[kSlots]
+  static constexpr int kBytes = kBarOffset + 8 * (2 * kKVBufs + 2 * kSlots) + 1024;
+};
+
+// One block an SM walks the (image, head) items; an item is ceil(S / 128) passes of 128 query
+// rows, warpgroup w owning rows 64w..64w+63 of a pass, each pass two sweeps over the key tiles
+// below its causal bound. The lane's rows are those of its warp's C fragments (rows g, g + 8).
+template <class Ops>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+fused_dq_kernel(const __grid_constant__ FusedBwdMaps maps, float* __restrict__ stats, int b,
+                int s, int heads, float scale, int causal) {
+  constexpr int kRows = Ops::kRows, kKeys = Ops::kKeys, kSlots = Ops::kSlots;
+  constexpr int kParts = Ops::kParts, kNT = kKeys / 8, kDN = Ops::kDN, kDP = Ops::kDP;
+  constexpr int kQBufs = Ops::kQBufs;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  auto qs = [&](int buf) { return smem + buf * 2 * Ops::kQBytes; };
+  auto dos = [&](int buf) { return qs(buf) + Ops::kQBytes; };
+  auto ks = [&](int slot) { return smem + Ops::kSlotOffset + slot * 2 * Ops::kTileBytes; };
+  auto vs = [&](int slot) { return ks(slot) + Ops::kTileBytes; };
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + Ops::kBarOffset);
+  uint64_t* q_free = q_full + kQBufs;
+  uint64_t* kv_full = q_free + kQBufs;
+  uint64_t* kv_free = kv_full + kSlots;
+
+  const int items = b * heads, passes = (s + kRows - 1) / kRows;
+  const int item_tiles = (s + kKeys - 1) / kKeys;
+  // every tile of an item fits the ring: loaded once, kept for all its passes and sweeps
+  const bool resident = item_tiles <= kSlots;
+  auto pass_tiles = [&](int p) {  // the key tiles pass p sees (none past its last row)
+    const int kmax = causal ? min(s, (p + 1) * kRows) : s;
+    return (kmax + kKeys - 1) / kKeys;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kQBufs; ++i) {
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_free[i], kConsumerWarps);
+    }
+    for (int i = 0; i < kSlots; ++i) {
+      mbar_init(&kv_full[i], 1);
+      mbar_init(&kv_free[i], kConsumerWarps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // Producer and consumers count the same sequence: `loads` K/V tile loads (load n goes to slot
+  // n % kSlots, its phase n / kSlots) and `npass` passes (Q and dO buffer npass % kQBufs).
+  if (threadIdx.x >= 2 * kWgThreads) {  // the producer warp: one thread issues every copy
+    if (threadIdx.x == 2 * kWgThreads) {
+      int loads = 0, npass = 0;
+      auto load_q = [&](int batch, int head, int p) {
+        const int buf = npass % kQBufs;
+        if (npass >= kQBufs) mbar_wait(&q_free[buf], (npass / kQBufs - 1) & 1);
+        mbar_expect_tx(&q_full[buf], 2 * Ops::kQBytes);
+        for (int part = 0; part < kParts; ++part) {
+          tma_load_4d(qs(buf) + part * kRows * kRowBytes, &maps.q, &q_full[buf], 64 * part, head,
+                      p * kRows, batch);
+          tma_load_4d(dos(buf) + part * kRows * kRowBytes, &maps.dout, &q_full[buf], 64 * part,
+                      head, p * kRows, batch);
+        }
+        ++npass;
+      };
+      auto load_kv = [&](int batch, int head, int tiles) {
+        for (int j = 0; j < tiles; ++j, ++loads) {
+          const int slot = loads % kSlots;
+          if (loads >= kSlots) mbar_wait(&kv_free[slot], (loads / kSlots - 1) & 1);
+          mbar_expect_tx(&kv_full[slot], 2 * Ops::kTileBytes);
+          for (int part = 0; part < kParts; ++part) {
+            tma_load_4d(ks(slot) + part * kKeys * kRowBytes, &maps.k, &kv_full[slot], 64 * part,
+                        head, j * kKeys, batch);
+            tma_load_4d(vs(slot) + part * kKeys * kRowBytes, &maps.v, &kv_full[slot], 64 * part,
+                        head, j * kKeys, batch);
+          }
+        }
+      };
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        const int batch = item / heads, head = item % heads;
+        if (resident) {
+          // the item's K and V first: they wait only for slots that earlier items hold
+          load_kv(batch, head, item_tiles);
+          for (int p = 0; p < passes; ++p) load_q(batch, head, p);
+        } else {
+          // a pass's tiles, once for each sweep, may wait for slots this pass releases: its Q
+          // and dO come first
+          for (int p = 0; p < passes; ++p) {
+            load_q(batch, head, p);
+            load_kv(batch, head, pass_tiles(p));
+            load_kv(batch, head, pass_tiles(p));
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / kWgThreads, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wrow = wg * 64 + ((threadIdx.x >> 5) & 3) * 16;  // the warp's first row of a pass
+  const bool issuer = threadIdx.x % kWgThreads == 0;  // the warpgroup's TMA stores
+  const float c = scale * kLog2e;  // the logits stay unscaled: sm_scale rides in the exponent
+  const size_t plane = (size_t)b * heads * s;
+  float acc[kDN][4];
+  float sf[kNT][4], dp[kNT][4];  // q k^T then p; do v^T then ds
+  float sn[kNT][4], dn[kNT][4];  // the first sweep's next tile: q k^T, do v^T
+  uint32_t da[kKeys / 16][4];    // ds rounded to bf16: the A fragments of dS K
+  int loads = 0, npass = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int batch = item / heads, head = item % heads;
+    const int item_base = loads;  // the item's first load (resident)
+    if (resident) loads += item_tiles;
+    for (int p = 0; p < passes; ++p, ++npass) {
+      const int r0 = p * kRows, rows = min(kRows, s - r0);
+      const int kmax = causal ? min(s, r0 + rows) : s, tiles = (kmax + kKeys - 1) / kKeys;
+      // load index of tile 0 in each sweep
+      const int base1 = resident ? item_base : loads, base2 = resident ? item_base : loads + tiles;
+      if (!resident) loads += 2 * tiles;
+      const int buf = npass % kQBufs;
+      auto landed = [&](int base, int j) {
+        mbar_wait(&kv_full[(base + j) % kSlots], ((base + j) / kSlots) & 1);
+      };
+      auto release = [&](int base, int j) {  // streamed: this warp is done with the tile
+        if (resident) return;
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&kv_free[(base + j) % kSlots]);
+      };
+      const uint64_t q_desc = k_major(qs(buf), wg * 64), do_desc = k_major(dos(buf), wg * 64);
+      // S = Q K^T into s_ and dP = dO V^T into d_ of tile j, issued and committed as two
+      // groups
+      auto head_products = [&](int base, int j, float (&s_)[kNT][4], float (&d_)[kNT][4]) {
+        const int slot = (base + j) % kSlots;
+        const uint64_t k_desc = k_major(ks(slot), 0), v_desc = k_major(vs(slot), 0);
+#pragma unroll
+        for (int kk = 0; kk < kDP / 16; ++kk)
+          wgmma_bf16_ss<kKeys>(s_, q_desc + k_step<kRows>(kk), k_desc + k_step<kKeys>(kk),
+                               kk > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < kDP / 16; ++kk)
+          wgmma_bf16_ss<kKeys>(d_, do_desc + k_step<kRows>(kk), v_desc + k_step<kKeys>(kk),
+                               kk > 0);
+        wgmma_commit();
+      };
+      auto fence_all = [&] {
+        fence_acc(sf);
+        fence_acc(dp);
+        fence_acc(da);
+        fence_acc(acc);
+      };
+      mbar_wait(&q_full[buf], (npass / kQBufs) & 1);
+
+      // first sweep: the row max m of the unscaled logits, the sum of exp l and the running
+      // sum of exp(s - m) dp (per-lane partials; the four lanes of a row share m)
+      float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, run[2] = {0.f, 0.f}, alpha[2];
+      // the online step of tile j on its landed logits s_: s_ becomes exp(s - m), alpha the
+      // factor of the sums kept so far
+      auto row_max_sum = [&](int j, float (&s_)[kNT][4]) {
+        const int c0 = j * kKeys;
+        if (edge_tile(c0, kKeys, kmax, r0 + wrow, causal))
+          mask_logits<kNT>(s_, r0 + wrow + g, c0 + 2 * t, kmax, causal);
+        online_softmax_scaled<kNT>(s_, m, l, alpha, c);
+      };
+      auto row_delta = [&] {  // run = run alpha + rowsum(exp(s - m) dp) of the tile in sf, dp
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float sum = 0.f;
+#pragma unroll
+          for (int n = 0; n < kNT; ++n) {
+            sum = fmaf(sf[n][2 * h], dp[n][2 * h], sum);
+            sum = fmaf(sf[n][2 * h + 1], dp[n][2 * h + 1], sum);
+          }
+          run[h] = fmaf(run[h], alpha[h], sum);
+        }
+      };
+      landed(base1, 0);
+      fence_acc(sf);
+      fence_acc(dp);
+      wgmma_fence();
+      head_products(base1, 0, sf, dp);
+      wgmma_wait<1>();  // S of tile 0
+      fence_acc(sf);
+      row_max_sum(0, sf);
+      wgmma_wait<0>();  // dP of tile 0
+      fence_acc(dp);
+      // Per step: the head products of tile j + 1 go to the tensor cores while tile j's delta
+      // term is summed; tile j + 1's exponentials run while its dP is formed. Nothing is in
+      // flight across the loop's edges.
+      for (int j = 0; j + 1 < tiles; ++j) {
+        landed(base1, j + 1);
+        fence_acc(sn);
+        fence_acc(dn);
+        wgmma_fence();
+        head_products(base1, j + 1, sn, dn);
+        row_delta();
+        release(base1, j);
+        wgmma_wait<1>();  // S of tile j + 1
+        fence_acc(sn);
+        row_max_sum(j + 1, sn);
+        wgmma_wait<0>();  // dP of tile j + 1
+        fence_acc(dn);
+#pragma unroll
+        for (int n = 0; n < kNT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            sf[n][e] = sn[n][e];
+            dp[n][e] = dn[n][e];
+          }
+      }
+      row_delta();
+      release(base1, tiles - 1);
+      // the row's lse in log2 units (p = 2^(t c - off)) and delta = rowsum(dp p32); rows past
+      // s are never stored (their dO is zero, so their ds is 0)
+      float off[2], dl[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float sum = quad_sum(l[h]);
+        off[h] = fmaf(m[h], c, __log2f(sum));
+        dl[h] = quad_sum(run[h]) / sum;
+        const int row = r0 + wrow + g + 8 * h;
+        if (t == 0 && row < s) {
+          const size_t at = ((size_t)batch * heads + head) * s + row;
+          stats[at] = off[h];
+          stats[plane + at] = dl[h];
+        }
+      }
+
+      // second sweep: p = 2^(t c - off) from the final statistics, ds = p (dp - delta) from the
+      // exact p, rounded as it is packed, dq += ds K. `masked` (std::true_type): the tile holds
+      // a key past s or, under the causal mask, past one of the warp's rows
+      auto tile_ds = [&](int c0, auto masked) {
+#pragma unroll
+        for (int n = 0; n < kNT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float pr = ex2(fmaf(sf[n][e], c, -off[e >> 1]));
+            if constexpr (decltype(masked)::value) {
+              const int key = c0 + 8 * n + 2 * t + (e & 1), row = r0 + wrow + g + 8 * (e >> 1);
+              pr = key < s && (!causal || key <= row) ? pr : 0.f;
+            }
+            dp[n][e] = __fmul_rn(pr, __fsub_rn(dp[n][e], dl[e >> 1]));
+          }
+      };
+      auto probabilities = [&](int j) {
+        const int c0 = j * kKeys;
+        if (edge_tile(c0, kKeys, kmax, r0 + wrow, causal))
+          tile_ds(c0, std::true_type{});
+        else
+          tile_ds(c0, std::false_type{});
+      };
+      auto pack = [&] {
+#pragma unroll
+        for (int kk = 0; kk < kKeys / 16; ++kk) pack_a<kNT>(da[kk], dp, kk);
+      };
+      // dq += ds K over tile j's keys, issued and committed (masked keys have ds = 0 exactly)
+      auto grads = [&](int j) {
+        const uint64_t k_desc = mn_major<kKeys>(ks((base2 + j) % kSlots));
+#pragma unroll
+        for (int kk = 0; kk < kKeys / 16; ++kk)
+          wgmma_bf16_rs<kDP>(acc, da[kk], k_desc + mn_step(kk), 1);
+        wgmma_commit();
+      };
+      zero_acc(acc);
+      landed(base2, 0);
+      fence_all();
+      wgmma_fence();
+      head_products(base2, 0, sf, dp);
+      wgmma_wait<0>();
+      fence_all();
+      probabilities(0);
+      // Per step: the head products of tile j + 1 and dQ of tile j go to the tensor cores
+      // together; p and ds of tile j + 1 are formed as soon as its products land, while dQ
+      // still runs. Nothing is in flight across the loop's edges.
+      for (int j = 0; j + 1 < tiles; ++j) {
+        pack();
+        landed(base2, j + 1);
+        fence_all();
+        wgmma_fence();
+        head_products(base2, j + 1, sf, dp);
+        grads(j);
+        wgmma_wait<1>();  // the head products of tile j + 1
+        fence_acc(sf);
+        fence_acc(dp);
+        probabilities(j + 1);
+        wgmma_wait<0>();  // dQ of tile j
+        fence_all();
+        release(base2, j);
+      }
+      pack();
+      fence_all();
+      wgmma_fence();
+      grads(tiles - 1);
+      wgmma_wait<0>();
+      fence_all();
+      release(base2, tiles - 1);
+      // dq = sm_scale acc, rounded once, staged over the warpgroup's Q rows of the buffer and
+      // stored by TMA; the buffer is released once the store has read it
+      const float mul[2] = {scale, scale};
+      unsigned char* out_rows = qs(buf) + wg * 64 * kRowBytes;
+      named_bar_sync(1 + wg, kWgThreads);  // every warp of the warpgroup is past its products
+      stage_out<kDN, kRows>(out_rows, wrow - wg * 64, mul, acc, lane);
+      fence_proxy_async();
+      named_bar_sync(1 + wg, kWgThreads);
+      if (issuer) {
+        for (int part = 0; part < kParts; ++part)
+          tma_store_4d(&maps.dq, out_rows + part * kRows * kRowBytes, 64 * part, head,
+                       r0 + wg * 64, batch);
+        bulk_commit();
+        bulk_wait_read<0>();
+      }
+      named_bar_sync(1 + wg, kWgThreads);
+      if (lane == 0) mbar_arrive(&q_free[buf]);  // this warp is done with the pass's Q and dO
+    }
+    if (resident) {  // every pass of the item is done with its K and V
+      __syncwarp();
+      if (lane == 0)
+        for (int j = 0; j < item_tiles; ++j) mbar_arrive(&kv_free[(item_base + j) % kSlots]);
+    }
+  }
+  if (issuer) bulk_wait<0>();  // the last store is written
+}
+
+// One block an SM walks the (image, head) items; an item is ceil(S / 128) passes of 128 keys,
+// warpgroup w owning keys 64w..64w+63 of a pass, each pass one sweep over the Q and dO tiles of
+// the rows that see its keys (under the causal mask from its first key). The lane's keys are
+// rows g and g + 8 of its warp's 16 and its query rows 8n + 2t and 8n + 2t + 1 of the tile.
+template <class Ops>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+fused_dkv_kernel(const __grid_constant__ FusedBwdMaps maps, const float* __restrict__ stats,
+                 int b, int s, int heads, float scale, int causal) {
+  constexpr int kKeys = Ops::kKeys, kRows = Ops::kRowsT, kSlots = Ops::kSlots;
+  constexpr int kParts = Ops::kParts, kNT = kRows / 8, kDN = Ops::kDN, kDP = Ops::kDP;
+  constexpr int kKVBufs = Ops::kKVBufs;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  auto ks = [&](int buf) { return smem + buf * 2 * Ops::kKVBytes; };
+  auto vs = [&](int buf) { return ks(buf) + Ops::kKVBytes; };
+  auto qs = [&](int slot) { return smem + Ops::kSlotOffset + slot * 2 * Ops::kTileBytes; };
+  auto dos = [&](int slot) { return qs(slot) + Ops::kTileBytes; };
+  // per slot: its rows' lse (log2 units), then their delta
+  auto row_stats = [&](int slot) {
+    return reinterpret_cast<float*>(smem + Ops::kStatsOffset) + slot * 2 * kRows;
+  };
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + Ops::kBarOffset);
+  uint64_t* kv_free = kv_full + kKVBufs;
+  uint64_t* full = kv_free + kKVBufs;
+  uint64_t* freed = full + kSlots;
+
+  const int items = b * heads, passes = (s + kKeys - 1) / kKeys;
+  const int item_tiles = (s + kRows - 1) / kRows;
+  // every Q / dO tile of an item fits the ring: loaded once, kept for all its passes
+  const bool resident = item_tiles <= kSlots;
+  // the first tile pass p sees: under the causal mask no row before its first key sees it
+  auto first_tile = [&](int p) { return causal ? p * kKeys / kRows : 0; };
+  const size_t plane = (size_t)b * heads * s;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kKVBufs; ++i) {
+      mbar_init(&kv_full[i], 1);
+      mbar_init(&kv_free[i], kConsumerWarps);
+    }
+    for (int i = 0; i < kSlots; ++i) {
+      mbar_init(&full[i], 32);  // the producer warp's lanes: lane 0's with the copies' bytes
+      mbar_init(&freed[i], kConsumerWarps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // Producer and consumers count the same sequence: `loads` Q/dO tile loads (load n goes to
+  // slot n % kSlots, its phase n / kSlots) and `npass` passes (K and V buffer npass % kKVBufs)
+  if (threadIdx.x >= 2 * kWgThreads) {  // the producer warp: its lanes write the rows' stats
+    const int lane = threadIdx.x & 31;
+    int loads = 0, npass = 0;
+    auto load_kv = [&](int batch, int head, int p) {
+      const int buf = npass % kKVBufs;
+      if (npass >= kKVBufs) mbar_wait(&kv_free[buf], (npass / kKVBufs - 1) & 1);
+      if (lane == 0) {
+        mbar_expect_tx(&kv_full[buf], 2 * Ops::kKVBytes);
+        for (int part = 0; part < kParts; ++part) {
+          tma_load_4d(ks(buf) + part * kKeys * kRowBytes, &maps.k, &kv_full[buf], 64 * part,
+                      head, p * kKeys, batch);
+          tma_load_4d(vs(buf) + part * kKeys * kRowBytes, &maps.v, &kv_full[buf], 64 * part,
+                      head, p * kKeys, batch);
+        }
+      }
+      ++npass;
+    };
+    auto load_rows = [&](int batch, int head, int i0) {
+      const size_t at = ((size_t)batch * heads + head) * s;
+      for (int i = i0; i < item_tiles; ++i, ++loads) {
+        const int slot = loads % kSlots, q0 = i * kRows;
+        if (loads >= kSlots) mbar_wait(&freed[slot], (loads / kSlots - 1) & 1);
+        float* rs = row_stats(slot);
+        for (int r = lane; r < kRows; r += 32) {  // 0 for a row past s: masked
+          const bool live = q0 + r < s;
+          rs[r] = live ? stats[at + q0 + r] : 0.f;
+          rs[kRows + r] = live ? stats[plane + at + q0 + r] : 0.f;
+        }
+        if (lane == 0) {  // its arrival carries the copies' bytes
+          mbar_expect_tx(&full[slot], 2 * Ops::kTileBytes);
+          for (int part = 0; part < kParts; ++part) {
+            tma_load_4d(qs(slot) + part * kRows * kRowBytes, &maps.q, &full[slot], 64 * part,
+                        head, q0, batch);
+            tma_load_4d(dos(slot) + part * kRows * kRowBytes, &maps.dout, &full[slot],
+                        64 * part, head, q0, batch);
+          }
+        } else {
+          mbar_arrive(&full[slot]);
+        }
+      }
+    };
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const int batch = item / heads, head = item % heads;
+      if (resident) {
+        // the item's rows first: they wait only for slots that earlier items hold
+        load_rows(batch, head, 0);
+        for (int p = 0; p < passes; ++p) load_kv(batch, head, p);
+      } else {
+        for (int p = 0; p < passes; ++p) {
+          load_kv(batch, head, p);
+          load_rows(batch, head, first_tile(p));
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x / kWgThreads, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int krow = wg * 64 + ((threadIdx.x >> 5) & 3) * 16;  // the warp's first key of a pass
+  const bool issuer = threadIdx.x % kWgThreads == 0;         // the warpgroup's TMA stores
+  const float c = scale * kLog2e;
+  float acc_k[kDN][4], acc_v[kDN][4];
+  float pt[kNT][4], dst[kNT][4];                  // k q^T then p^T; v do^T then ds^T
+  uint32_t pa[kRows / 16][4], da[kRows / 16][4];  // p^T and ds^T rounded: A fragments
+  int loads = 0, npass = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int batch = item / heads, head = item % heads;
+    const int item_base = loads;  // the item's first load (resident)
+    if (resident) loads += item_tiles;
+    for (int p = 0; p < passes; ++p, ++npass) {
+      const int j0 = p * kKeys, warp_key = j0 + krow;
+      const int i0 = first_tile(p), tiles = item_tiles - i0;
+      const int base = resident ? item_base + i0 : loads;  // load index of the pass's tile 0
+      if (!resident) loads += tiles;
+      const int buf = npass % kKVBufs;
+      auto slot = [&](int i) { return (base + i) % kSlots; };
+      auto landed = [&](int i) { mbar_wait(&full[slot(i)], ((base + i) / kSlots) & 1); };
+      const uint64_t k_desc = k_major(ks(buf), wg * 64), v_desc = k_major(vs(buf), wg * 64);
+      // S^T = K Q^T into pt and dP^T = V dO^T into dst for tile i, issued and committed
+      auto head_products = [&](int i) {
+        const uint64_t q_desc = k_major(qs(slot(i)), 0), do_desc = k_major(dos(slot(i)), 0);
+#pragma unroll
+        for (int kk = 0; kk < kDP / 16; ++kk)
+          wgmma_bf16_ss<kRows>(pt, k_desc + k_step<kKeys>(kk), q_desc + k_step<kRows>(kk),
+                               kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < kDP / 16; ++kk)
+          wgmma_bf16_ss<kRows>(dst, v_desc + k_step<kKeys>(kk), do_desc + k_step<kRows>(kk),
+                               kk > 0);
+        wgmma_commit();
+      };
+      // p^T and ds^T of a tile in place, from its landed head products and its rows'
+      // statistics; `masked` (std::true_type): the tile holds a masked entry
+      auto tile_probabilities = [&](int q0, const float* rs, auto masked) {
+#pragma unroll
+        for (int n = 0; n < kNT; ++n) {
+          const int cl = 8 * n + 2 * t;  // this lane's two query rows of the tile: cl, cl + 1
+          const float2 off = *reinterpret_cast<const float2*>(rs + cl);
+          const float2 dl = *reinterpret_cast<const float2*>(rs + kRows + cl);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float pr = ex2(fmaf(pt[n][e], c, -((e & 1) ? off.y : off.x)));
+            if constexpr (decltype(masked)::value) {
+              const int key = warp_key + g + 8 * (e >> 1), row = q0 + cl + (e & 1);
+              pr = key < s && row < s && (!causal || key <= row) ? pr : 0.f;
+            }
+            pt[n][e] = pr;  // the bfloat16 packing rounds it for dv; ds takes it exact
+            dst[n][e] = __fmul_rn(pr, __fsub_rn(dst[n][e], (e & 1) ? dl.y : dl.x));
+          }
+        }
+      };
+      auto probabilities = [&](int i) {
+        const int q0 = (i0 + i) * kRows;
+        const float* rs = row_stats(slot(i));
+        // an inner tile (every key and row live, no key past a row) skips the tests
+        if (q0 + kRows > s || warp_key + 16 > s || (causal && warp_key + 15 > q0))
+          tile_probabilities(q0, rs, std::true_type{});
+        else
+          tile_probabilities(q0, rs, std::false_type{});
+      };
+      auto pack = [&] {
+#pragma unroll
+        for (int kk = 0; kk < kRows / 16; ++kk) {
+          pack_a<kNT>(pa[kk], pt, kk);
+          pack_a<kNT>(da[kk], dst, kk);
+        }
+      };
+      // dv += p^T do and dk += ds^T q over tile i's rows, issued and committed
+      auto grads = [&](int i) {
+        const uint64_t do_mn = mn_major<kRows>(dos(slot(i))), q_mn = mn_major<kRows>(qs(slot(i)));
+#pragma unroll
+        for (int kk = 0; kk < kRows / 16; ++kk)
+          wgmma_bf16_rs<kDP>(acc_v, pa[kk], do_mn + mn_step(kk), 1);
+#pragma unroll
+        for (int kk = 0; kk < kRows / 16; ++kk)
+          wgmma_bf16_rs<kDP>(acc_k, da[kk], q_mn + mn_step(kk), 1);
+        wgmma_commit();
+      };
+      auto release = [&](int i) {  // streamed: this warp is done with tile i's slot
+        if (resident) return;
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&freed[slot(i)]);
+      };
+      auto fence_all = [&] {
+        fence_acc(pt);
+        fence_acc(dst);
+        fence_acc(pa);
+        fence_acc(da);
+        fence_acc(acc_v);
+        fence_acc(acc_k);
+      };
+      zero_acc(acc_k);
+      zero_acc(acc_v);
+      mbar_wait(&kv_full[buf], (npass / kKVBufs) & 1);
+      if constexpr (!Ops::kOverlap) {
+        for (int i = 0; i < tiles; ++i) {
+          landed(i);
+          fence_all();
+          wgmma_fence();
+          head_products(i);
+          wgmma_wait<0>();
+          fence_all();
+          probabilities(i);
+          pack();
+          fence_all();
+          wgmma_fence();
+          grads(i);
+          wgmma_wait<0>();
+          fence_all();
+          release(i);
+        }
+      } else {
+        landed(0);
+        fence_all();
+        wgmma_fence();
+        head_products(0);
+        wgmma_wait<0>();
+        fence_all();
+        probabilities(0);
+        // Per step: the head products of tile i + 1 and dV, dK of tile i go to the tensor
+        // cores together; p^T and ds^T of tile i + 1 are formed as soon as its products land,
+        // while dV and dK still run. Nothing is in flight across the loop's edges.
+        for (int i = 0; i + 1 < tiles; ++i) {
+          pack();
+          landed(i + 1);
+          fence_all();
+          wgmma_fence();
+          head_products(i + 1);
+          grads(i);
+          wgmma_wait<1>();  // the head products of tile i + 1
+          fence_acc(pt);
+          fence_acc(dst);
+          probabilities(i + 1);
+          wgmma_wait<0>();  // dV and dK of tile i
+          fence_all();
+          release(i);
+        }
+        pack();
+        fence_all();
+        wgmma_fence();
+        grads(tiles - 1);
+        wgmma_wait<0>();
+        fence_all();
+        release(tiles - 1);
+      }
+      // dk = sm_scale acc_k and dv = acc_v, rounded once, staged over the warpgroup's K and V
+      // rows of the buffer and stored by TMA; the buffer is released once the stores have
+      // read it
+      const float mul_k[2] = {scale, scale}, mul_v[2] = {1.f, 1.f};
+      unsigned char* k_rows = ks(buf) + wg * 64 * kRowBytes;
+      unsigned char* v_rows = vs(buf) + wg * 64 * kRowBytes;
+      named_bar_sync(1 + wg, kWgThreads);  // every warp of the warpgroup is past its products
+      stage_out<kDN, kKeys>(k_rows, krow - wg * 64, mul_k, acc_k, lane);
+      stage_out<kDN, kKeys>(v_rows, krow - wg * 64, mul_v, acc_v, lane);
+      fence_proxy_async();
+      named_bar_sync(1 + wg, kWgThreads);
+      if (issuer) {
+        for (int part = 0; part < kParts; ++part) {
+          tma_store_4d(&maps.dk, k_rows + part * kKeys * kRowBytes, 64 * part, head,
+                       j0 + wg * 64, batch);
+          tma_store_4d(&maps.dv, v_rows + part * kKeys * kRowBytes, 64 * part, head,
+                       j0 + wg * 64, batch);
+        }
+        bulk_commit();
+        bulk_wait_read<0>();
+      }
+      named_bar_sync(1 + wg, kWgThreads);
+      if (lane == 0) mbar_arrive(&kv_free[buf]);  // this warp is done with the pass's K and V
+    }
+    if (resident) {  // every pass of the item is done with its Q and dO tiles
+      __syncwarp();
+      if (lane == 0)
+        for (int i = 0; i < item_tiles; ++i) mbar_arrive(&freed[(item_base + i) % kSlots]);
+    }
+  }
+  if (issuer) bulk_wait<0>();  // the last stores are written
+}
+
+// q, k, v, dout, dq, dk, dv: [B, S, heads * d] bfloat16; stats: float32 [2][B heads S]
+cudaError_t fused_bwd_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                            float* stats, void* dq, void* dk, void* dv, int b, int s, int heads,
+                            int d, float scale, int causal, cudaStream_t stream) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const size_t ld = (size_t)heads * d;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const long long items = static_cast<long long>(b) * heads;
+  if (items > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(items < sms ? items : sms));  // one block an SM
+  FusedBwdMaps maps = {};
+  if (!encode_heads(encode, &maps.dq, dq, b, s, heads, d, 64, ld) ||
+      !encode_heads(encode, &maps.dk, dk, b, s, heads, d, 64, ld) ||
+      !encode_heads(encode, &maps.dv, dv, b, s, heads, d, 64, ld))
+    return cudaErrorInvalidValue;
+  auto encode_all = [&](int q_rows, int k_rows) {
+    return encode_heads(encode, &maps.q, q, b, s, heads, d, q_rows, ld) &&
+           encode_heads(encode, &maps.dout, dout, b, s, heads, d, q_rows, ld) &&
+           encode_heads(encode, &maps.k, k, b, s, heads, d, k_rows, ld) &&
+           encode_heads(encode, &maps.v, v, b, s, heads, d, k_rows, ld);
+  };
+  auto launch_dq = [&](auto ops) -> cudaError_t {
+    using Ops = decltype(ops);
+    if (!encode_all(Ops::kRows, Ops::kKeys)) return cudaErrorInvalidValue;
+    cudaError_t e = allow_smem(fused_dq_kernel<Ops>, Ops::kBytes);
+    if (e != cudaSuccess) return e;
+    fused_dq_kernel<Ops><<<grid, kHopperThreads, Ops::kBytes, stream>>>(maps, stats, b, s, heads,
+                                                                       scale, causal);
+    return cudaGetLastError();
+  };
+  auto launch_dkv = [&](auto ops) -> cudaError_t {
+    using Ops = decltype(ops);
+    if (!encode_all(Ops::kRowsT, Ops::kKeys)) return cudaErrorInvalidValue;
+    cudaError_t e = allow_smem(fused_dkv_kernel<Ops>, Ops::kBytes);
+    if (e != cudaSuccess) return e;
+    fused_dkv_kernel<Ops><<<grid, kHopperThreads, Ops::kBytes, stream>>>(maps, stats, b, s, heads,
+                                                                        scale, causal);
+    return cudaGetLastError();
+  };
+  if (d > 64) {
+    err = launch_dq(FusedDqOps<128, 32>{});
+    return err != cudaSuccess ? err : launch_dkv(FusedDkvOps<128>{});
+  }
+  err = launch_dq(FusedDqOps<64, 64>{});
+  return err != cudaSuccess ? err : launch_dkv(FusedDkvOps<64>{});
+}
+
+// float32: delta = rowsum(dout * out) of every query row, into [B, heads, S] as the flash dQ and
+// dK/dV kernels read it. A warp a row, its lanes over the row's d columns two at a time (one
+// coalesced 256-byte load a tensor at d = 64), then a butterfly sum: every row one owner and one
+// order. Plain torch took 0.30 ms for it on an H100 at B=256 S=197 H=12 D=64 (a product written
+// out, a reduction and a transpose; PERF.md), where reading do and out once takes 0.09 ms at the
+// card's byte rate.
+constexpr int kDeltaWarps = 8;
+__global__ void __launch_bounds__(32 * kDeltaWarps)
+fused_delta_kernel(const float* __restrict__ dout, const float* __restrict__ out,
+                   float* __restrict__ delta, long long rows, int s, int heads, int d) {
+  const int lane = threadIdx.x & 31;
+  const long long warps = (long long)gridDim.x * kDeltaWarps;
+  for (long long r = (long long)blockIdx.x * kDeltaWarps + (threadIdx.x >> 5); r < rows;
+       r += warps) {  // r = (batch s + row) heads + head
+    const float* a = dout + r * d;
+    const float* o = out + r * d;
+    float sum = 0.f;
+    for (int c = 2 * lane; c < d; c += 64) {
+      const float2 x = *reinterpret_cast<const float2*>(a + c);
+      const float2 y = *reinterpret_cast<const float2*>(o + c);
+      sum = fmaf(x.x, y.x, sum);
+      sum = fmaf(x.y, y.y, sum);
+    }
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, m);
+    if (lane == 0) {
+      const long long head = r % heads, row = r / heads;  // row = batch s + query row
+      delta[(row / s * heads + head) * s + row % s] = sum;
+    }
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
+// flash_attention.cu's entries: the float32 backward is its dQ and dK/dV kernels on Tf32Ops
+int mmt_flash_attention_dq(int dtype, const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse, const void* delta, void* dq, int b,
+                           int sq, int sk, int heads, int d, int causal, float sm_scale,
+                           void* stream);
+int mmt_flash_attention_dkv(int dtype, const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse, const void* delta, void* dk,
+                            void* dv, int b, int sq, int sk, int heads, int d, int causal,
+                            float sm_scale, void* stream);
+
 // dtype: 0 = float32, 1 = bfloat16. q, k, v, out: [B, S, heads*d], contiguous on one device.
-// Launches on `stream` without synchronising. Returns a cudaError_t.
+// lse: null, or (float32 only) float32 [B*heads*S], each row's log-sum-exp of the scaled logits
+// (natural log, as the flash kernels take it). Launches on `stream` without synchronising.
+// Returns a cudaError_t.
 int mmt_fused_attention_fwd(int dtype, const void* q, const void* k, const void* v, void* out,
-                            int b, int s, int heads, int d, int causal, float sm_scale,
-                            void* stream) {
+                            void* lse, int b, int s, int heads, int d, int causal,
+                            float sm_scale, void* stream) {
   if (!fused_shape_ok(b, s, heads, d)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)fused_fwd<float>(q, k, v, out, b, s, heads, d, causal, sm_scale, st);
+  float* lp = static_cast<float*>(lse);
+  if (dtype == 0)
+    return (int)fused_fwd<float>(q, k, v, out, lp, b, s, heads, d, causal, sm_scale, st);
   if (dtype == 1)
-    return (int)fused_fwd<__nv_bfloat16>(q, k, v, out, b, s, heads, d, causal, sm_scale, st);
+    return (int)fused_fwd<__nv_bfloat16>(q, k, v, out, lp, b, s, heads, d, causal, sm_scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// dout: the cotangent of out. stats: float32 scratch [3, B*heads*S]. Outputs dq, dk, dv as q.
+// dout: the cotangent of out; out and lse: the forward's (float32 only, null in bfloat16), lse
+// each row's log-sum-exp [B*heads*S]. stats: float32 scratch, [2, B*heads*S] in bfloat16 (each
+// row's lse and delta, written by the dQ kernel and read by the dK/dV kernel), [B*heads*S] in
+// float32 (delta = rowsum(dout * out)). Outputs dq, dk, dv as q. Two launches in bfloat16; three
+// in float32: the row deltas, then the flash dQ and dK/dV kernels on the packed tensors read as
+// [B, S, heads, d].
 int mmt_fused_attention_bwd(int dtype, const void* q, const void* k, const void* v,
-                            const void* dout, void* stats, void* dq, void* dk, void* dv, int b,
-                            int s, int heads, int d, int causal, float sm_scale, void* stream) {
+                            const void* dout, const void* out, const void* lse, void* stats,
+                            void* dq, void* dk, void* dv, int b, int s, int heads, int d,
+                            int causal, float sm_scale, void* stream) {
   if (!fused_shape_ok(b, s, heads, d)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* sp = static_cast<float*>(stats);
-  if (dtype == 0)
-    return (int)fused_bwd<float>(q, k, v, dout, sp, dq, dk, dv, b, s, heads, d, causal, sm_scale,
-                                 st);
   if (dtype == 1)
-    return (int)fused_bwd<__nv_bfloat16>(q, k, v, dout, sp, dq, dk, dv, b, s, heads, d, causal,
-                                         sm_scale, st);
-  return (int)cudaErrorInvalidValue;
+    return (int)fused_bwd_wgmma(q, k, v, dout, sp, dq, dk, dv, b, s, heads, d, sm_scale, causal,
+                                st);
+  if (dtype != 0 || out == nullptr || lse == nullptr) return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)b * s * heads;
+  const long long blocks = (rows + kDeltaWarps - 1) / kDeltaWarps;
+  fused_delta_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 32 * kDeltaWarps, 0, st>>>(
+      static_cast<const float*>(dout), static_cast<const float*>(out), sp, rows, s, heads, d);
+  int err = (int)cudaGetLastError();
+  if (err != (int)cudaSuccess) return err;
+  err = mmt_flash_attention_dq(0, q, k, v, dout, lse, sp, dq, b, s, s, heads, d, causal, sm_scale,
+                               stream);
+  if (err != (int)cudaSuccess) return err;
+  return mmt_flash_attention_dkv(0, q, k, v, dout, lse, sp, dk, dv, b, s, s, heads, d, causal,
+                                 sm_scale, stream);
 }
 
 }  // extern "C"

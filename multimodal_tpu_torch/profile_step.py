@@ -67,8 +67,13 @@ GEMM_FAMILIES = [
 ]
 FAMILIES = [  # (family, substrings of the kernel name), first match wins
     ("flash attention forward (flash_fwd_kernel)", ("flash_fwd_kernel",)),
-    ("flash attention dQ (flash_dq_kernel)", ("flash_dq_kernel",)),
-    ("flash attention dK/dV (flash_dkv_kernel)", ("flash_dkv_kernel",)),
+    ("flash attention dQ (flash_dq_kernel; in float32 also the fused backward's)",
+     ("flash_dq_kernel",)),
+    ("flash attention dK/dV (flash_dkv_kernel; in float32 also the fused backward's)",
+     ("flash_dkv_kernel",)),
+    ("fused attention backward dQ, bfloat16 (fused_dq_kernel)", ("fused_dq_kernel",)),
+    ("fused attention backward dK/dV, bfloat16 (fused_dkv_kernel)", ("fused_dkv_kernel",)),
+    ("fused attention backward delta, float32 (fused_delta_kernel)", ("fused_delta_kernel",)),
     ("backward dQ pass (attn_bwd_dq_mma_kernel in bfloat16, _f32_kernel in float32)",
      ("attn_bwd_dq_",)),
     ("backward dK/dV pass (attn_bwd_dkv_mma_kernel, _f32_kernel)", ("attn_bwd_dkv_",)),

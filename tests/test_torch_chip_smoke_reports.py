@@ -211,20 +211,49 @@ def test_flash_wgmma_faults_hold_the_bf16_forward_and_dkv_to_wgmma():
 WGMMA_FUSED = ("_ZN51_GLOBAL__N__6719648f_18_fused_attention_cu_de02afe216fused_fwd_kernelINS_8"
                "FusedOpsILi{}ELi{}EEEEEvNS_9FusedMapsEiiifi")
 FUSED_OPS = [(64, 128), (64, 112), (64, 96), (128, 64)]
+# the fused backward's kernels of its own: bfloat16 dQ (head dim class, key tile) and dK/dV
+# (head dim class) on wgmma, float32 dQ and dK/dV on 3xTF32
+WGMMA_FUSED_DQ = ("_ZN51_GLOBAL__N__6719648f_18_fused_attention_cu_de02afe215fused_dq_kernelINS_10"
+                  "FusedDqOpsILi{}ELi{}EEEEEvNS_12FusedBwdMapsEPfP13__nv_bfloat16iiiifi")
+WGMMA_FUSED_DKV = ("_ZN51_GLOBAL__N__6719648f_18_fused_attention_cu_de02afe216fused_dkv_kernelINS_"
+                   "11FusedDkvOpsILi{}EEEEEvNS_12FusedBwdMapsEPKfP13__nv_bfloat16S7_iiiifi")
+# the float32 fused backward: the flash dQ and dK/dV kernels on Tf32Ops
+TF32_FUSED = ("_ZN57_GLOBAL__N__2b5bc54b_18_flash_attention_cu_e4f1a2b3{}INS_7Tf32OpsILi{}EEEEv"
+              "PKNT_1TES6_S6_S6_PKfS8_PS4_iiifi")
+HGMMA = "        /*0100*/                   HGMMA.64x{}x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;"
+TF32_HMMA = "        /*0200*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;"
+
+
+def fused_bwd_sass(hmma_in=None, tf32_form=TF32_HMMA):
+    """SASS of the fused backward's eight instantiations; ``hmma_in`` names a bfloat16 one that
+    holds an mma.sync product beside its wgmma, ``tf32_form`` the float32 ones' product."""
+    lines = []
+    for dp, keys in ((64, 64), (128, 32)):
+        name = WGMMA_FUSED_DQ.format(dp, keys)
+        lines += [f"\t\tFunction : {name}", HGMMA.format(keys), HGMMA.format(dp)]
+        if hmma_in == cs.kernel_label(name):
+            lines.append("        /*0300*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;")
+    for dp in (64, 128):
+        lines += [f"\t\tFunction : {WGMMA_FUSED_DKV.format(dp)}", HGMMA.format(32),
+                  HGMMA.format(dp)]
+        for kernel in ("15flash_dq_kernel", "16flash_dkv_kernel"):
+            lines += [f"\t\tFunction : {TF32_FUSED.format(kernel, dp)}", tf32_form]
+    return "\n".join(lines)
 
 
 def test_fused_wgmma_faults_hold_every_bf16_fused_forward_instantiation_to_wgmma():
     """Phase 2 fails on a bfloat16 fused-forward instantiation with an HMMA or without a GMMA,
     and on a build with fewer than its four instantiations (three key tiles at D <= 64, one
-    above); the attention passes (the float32 forward core, the backward) are not held to it."""
+    above) beside the backward's five; the attention passes (the float32 forward core) are not
+    held to it."""
     assert cs.kernel_label(WGMMA_FUSED.format(64, 112)) == "fused_fwd_kernel<FusedOps<64, 112>>"
     ok = "\n".join(
-        line for dp, keys in FUSED_OPS for line in (
+        [line for dp, keys in FUSED_OPS for line in (
             f"\t\tFunction : {WGMMA_FUSED.format(dp, keys)}",
             f"        /*0100*/                   HGMMA.64x{keys}x16.F32.BF16 R24, gdesc[UR4], RZ, "
             "!UPT ;",
             f"        /*0110*/                   HGMMA.64x{dp}x16.F32.BF16 R88, R152, gdesc[UR8], "
-            "R88 ;"))
+            "R88 ;")] + [fused_bwd_sass()])
     passes = "\n".join([ok, "\t\tFunction : _ZN51_GLOBAL__N__x_18_fused_attention_cu_de02afe220"
                          "attention_mma_kernelILi64EEEvv",
                          "        /*0100*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;"])
@@ -242,9 +271,55 @@ def test_fused_wgmma_faults_hold_every_bf16_fused_forward_instantiation_to_wgmma
         "HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT", "FFMA R24, R4, R8, R24")
     assert cs.fused_wgmma_faults(no_tc) == [
         "fused_fwd_kernel<FusedOps<64, 128>>: no tensor-core instructions"]
-    short = ok.rsplit("\t\tFunction", 1)[0]
+    short = ok.replace(f"\t\tFunction : {WGMMA_FUSED.format(128, 64)}", "\t\tFunction : other")
     assert cs.fused_wgmma_faults(short) == [
-        f"3 fused_fwd_kernel instantiations in the SASS, {cs.FUSED_WGMMA_INSTANTIATIONS} expected"]
+        "7 fused_fwd_kernel / fused_dq_kernel / fused_dkv_kernel instantiations in the SASS, "
+        f"{cs.FUSED_WGMMA_INSTANTIATIONS} expected"]
+
+
+def test_fused_wgmma_faults_hold_the_backward_to_wgmma_and_3xtf32():
+    """Phase 2 holds every bfloat16 instantiation of the fused backward (dQ and dK/dV at each
+    head dim class) to wgmma with no HMMA, and every float32 one (the flash dQ and dK/dV
+    kernels on Tf32Ops) to HMMA.1688.F32.TF32 alone; a missing instantiation is a fault too."""
+    fwd = "\n".join(f"\t\tFunction : {WGMMA_FUSED.format(dp, keys)}\n" + HGMMA.format(keys)
+                    for dp, keys in FUSED_OPS)
+    assert cs.kernel_label(WGMMA_FUSED_DQ.format(128, 32)) == (
+        "fused_dq_kernel<FusedDqOps<128, 32>>")
+    assert cs.kernel_label(WGMMA_FUSED_DKV.format(128)) == "fused_dkv_kernel<FusedDkvOps<128>>"
+    assert cs.kernel_label(TF32_FUSED.format("16flash_dkv_kernel", 64)) == (
+        "flash_dkv_kernel<Tf32Ops<64>>")
+    assert cs.fused_wgmma_faults(fwd + "\n" + fused_bwd_sass()) == []
+    report = cs.hmma_report(fused_bwd_sass())
+    assert "flash_dq_kernel<Tf32Ops<128>>: HMMA.1688.F32.TF32 x 1" in report
+    # an mma.sync product in a bfloat16 backward instantiation
+    faults = cs.fused_wgmma_faults(fwd + "\n" + fused_bwd_sass(
+        hmma_in="fused_dq_kernel<FusedDqOps<128, 32>>"))
+    assert len(faults) == 1 and faults[0].startswith("fused_dq_kernel<FusedDqOps<128, 32>>: {")
+    assert "HMMA.16816.F32.BF16" in faults[0]
+    # float32 products off the tensor cores (CUDA-core FMAs), or on one TF32 product's form
+    for form in ("        /*0200*/                   FFMA R4, R8, R12, R4 ;",
+                 "        /*0200*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;"):
+        faults = cs.fused_wgmma_faults(fwd + "\n" + fused_bwd_sass(tf32_form=form))
+        assert len(faults) == 4 and all("_kernel<Tf32Ops<" in f for f in faults)
+    short = fused_bwd_sass().rsplit("\t\tFunction", 1)[0]
+    assert cs.fused_wgmma_faults(fwd + "\n" + short) == [
+        "3 flash_dq_kernel / flash_dkv_kernel instantiations in the SASS, "
+        f"{cs.FUSED_TF32_INSTANTIATIONS} expected"]
+
+
+def test_fused_backward_edge_cases_cross_the_new_tiles_in_both_dtypes():
+    """Phase 3's edges of the fused backward: S one short of, at and one past the 128-row
+    passes and each key or row tile, D = 32, 64 and 128, causal and not, B = 1 and 256; the
+    float32 bound at the 3xTF32 ceiling with the CUDA cores' beside it."""
+    cases = {(b, s, d, causal) for _, b, s, _, d, causal in cs.FUSED_BWD_EDGE_CASES}
+    assert len(cases) == len(cs.FUSED_BWD_EDGE_CASES) == 120
+    assert {s for _, s, _, _ in cases} == {128, 129, 191, 192, 193, 255, 256, 257, 511, 512}
+    assert {d for _, _, d, _ in cases} == {32, 64, 128} and {b for b, *_ in cases} == {1, 256}
+    assert {c for *_, c in cases} == {False, True}
+    assert "fused_attention_bwd" in cs.TF32_KERNELS
+    ms, by, flops = cs.fused_bound("fused_attention_bwd", 256, 197, 12, 64, False, "float32")
+    assert by == "operations" and abs(ms - 1e3 * flops / (495e12 / 3)) < 1e-9
+    assert "bound_cuda_cores_ms" in cs.rate_note("fused_attention_bwd", "float32", 3.0, ms, flops)
 
 
 def test_fused_and_dq_edge_cases_cross_the_new_tiles():

@@ -10,21 +10,23 @@ order. bfloat16: atol = 2e-2 x max(1, max|value|), one bf16 rounding of probs an
 On the card, kernel against plain: within 1e-4 x max|plain| in float32 and 2e-2 x max|plain|
 in bfloat16.
 
-The backward passes and the float32 forward walk the keys in tiles of 32 rows (bfloat16) or 64
-(float32) (``ops/csrc/attention_passes.cuh``; the block kernels' attention half runs the same
-passes, the bfloat16 forward core included).
-``tile_walk_forward`` and ``tile_walk_backward`` below are that schedule in plain torch: one
-online-softmax sweep (running row max and sum of exp, the accumulator and delta rescaled when
-the max moves), a second sweep for ds and dq, then the key-tile pass that rebuilds p and ds from
-the three saved numbers per row. They are held to the plain versions at ragged lengths, so the
-sweep algebra and the ragged masks are checked on the CPU: in float32 within 1e-5 x max|plain|
-(the order of the sums only), in bfloat16 within 2e-2 x max|plain| (the online sweep rounds the
-unnormalised probability where the plain versions round the normalised one) with the exact
-probabilities (the fused backward) and with the rounded ones (the block backward's attention
-half). ``wgmma_walk_forward`` is the bfloat16 forward kernel's own schedule
-(``fused_fwd_kernel``: passes of 128 query rows, 16-row warps, key tiles of 128, 112 or 96 keys
-as the kernel picks them, 64 above D=64, sm_scale in the exponent), held to the JAX kernel and
-the plain forward at the edges of its passes and tiles.
+The block kernels' backward passes and the float32 forward walk the keys in tiles of 32 rows
+(bfloat16) or 64 (float32) (``ops/csrc/attention_passes.cuh``; the block kernels' attention half
+runs the same passes, the bfloat16 forward core included). ``tile_walk_forward`` and
+``tile_walk_backward`` below are that schedule in plain torch: one online-softmax sweep (running
+row max and sum of exp, the accumulator rescaled when the max moves), a second sweep for ds and
+dq, then the key-tile pass that rebuilds p and ds from the three saved numbers per row, with
+delta and ds from the rounded probabilities (the block backward's attention half). They are
+held to the plain versions at ragged lengths: in float32 within 1e-5 x max|plain| (the order of
+the sums only; there the fused backward agrees too), in bfloat16 within 2e-2 x max|plain| (the
+online sweep rounds the unnormalised probability where the plain versions round the normalised
+one). ``wgmma_walk_forward`` is the bfloat16 forward kernel's own schedule (``fused_fwd_kernel``:
+passes of 128 query rows, 16-row warps, key tiles of 128, 112 or 96 keys as the kernel picks
+them, 64 above D=64, sm_scale in the exponent), held to the JAX kernel and the plain forward at
+the edges of its passes and tiles. ``wgmma_walk_backward`` is the fused backward kernels'
+schedule in each dtype (bfloat16: the dQ kernel's two sweeps with the exact delta, the dK/dV
+kernel's passes of 128 keys; float32: the flash dQ and dK/dV kernels' walk on the forward's lse
+and delta from out), held to the JAX ``_bwd_kernel`` and the plain backward at the same edges.
 
 JAX is imported inside the helpers, so the CUDA cases also run where JAX is absent:
     python -m pytest tests/test_torch_fused_attention.py -m cuda
@@ -200,25 +202,20 @@ def _tile_logits(qh, kh, c0, scale, causal):
     return logits
 
 
-def _online_sweep(qh, kh, vh, doh, scale, causal, dt, exact_delta):
-    """The kernels' first sweep, one key tile at a time: the running max m and sum of exp l,
-    and either the running f32 sum of exp(logit - m) dp (``exact_delta``: delta from the exact
-    probabilities) or the running sum of round(exp(logit - m)) v (out, unnormalised), each
-    rescaled by exp(m_old - m_new) when m moves. Returns (m, l, that sum)."""
+def _online_sweep(qh, kh, vh, scale, causal, dt):
+    """The passes' first sweep, one key tile at a time: the running max m and sum of exp l and
+    the running sum of round(exp(logit - m)) v (out, unnormalised), each rescaled by
+    exp(m_old - m_new) when m moves. Returns (m, l, that sum)."""
     f32 = torch.float32
     m = torch.full(qh.shape[:-1] + (1,), fa.NEG_INF)
     l = torch.zeros_like(m)
-    run = torch.zeros_like(m) if exact_delta else torch.zeros_like(qh)
+    run = torch.zeros_like(qh)
     for c0 in range(0, qh.shape[-2], TILE):
         logits = _tile_logits(qh, kh, c0, scale, causal)
         m_new = torch.maximum(m, logits.amax(-1, keepdim=True))
         alpha, e = torch.exp(m - m_new), torch.exp(logits - m_new)
         l = l * alpha + e.sum(-1, keepdim=True)
-        vt = vh[..., c0:c0 + TILE, :]
-        if exact_delta:
-            run = run * alpha + (e * (doh @ vt.transpose(-1, -2))).sum(-1, keepdim=True)
-        else:
-            run = run * alpha + e.to(dt).to(f32) @ vt
+        run = run * alpha + e.to(dt).to(f32) @ vh[..., c0:c0 + TILE, :]
         m = m_new
     return m, l, run
 
@@ -229,29 +226,25 @@ def tile_walk_forward(q, k, v, *, heads, causal):
     f32, dt = torch.float32, q.dtype
     scale = (q.shape[-1] // heads) ** -0.5
     qh, kh, vh = (fa._heads(t, heads).to(f32) for t in (q, k, v))
-    _, l, acc = _online_sweep(qh, kh, vh, None, scale, causal, dt, exact_delta=False)
+    _, l, acc = _online_sweep(qh, kh, vh, scale, causal, dt)
     return fa._pack((acc / l).to(dt))
 
 
-def tile_walk_backward(q, k, v, do, *, heads, causal, exact_probs):
-    """The dQ pass's two sweeps and the dK/dV pass. Returns (dq, dk, dv, attnpre);
-    ``exact_probs`` chooses the probabilities delta and ds see, as the kernels' kExactProbs
-    (attnpre is formed without it only)."""
+def tile_walk_backward(q, k, v, do, *, heads, causal):
+    """The dQ pass's two sweeps and the dK/dV pass, which form delta and ds from the rounded
+    probabilities (the block backward's attention half). Returns (dq, dk, dv, attnpre)."""
     f32, dt = torch.float32, q.dtype
     scale = (q.shape[-1] // heads) ** -0.5
     qh, kh, vh, doh = (fa._heads(t, heads).to(f32) for t in (q, k, v, do))
     s = qh.shape[-2]
-    m, l, run = _online_sweep(qh, kh, vh, doh, scale, causal, dt, exact_delta=exact_probs)
-    if exact_probs:
-        delta, attnpre = run / l, torch.zeros_like(qh)
-    else:  # delta = rowsum(do * attnpre) from attnpre's f32 accumulator
-        delta, attnpre = (doh * run).sum(-1, keepdim=True) / l, run / l
+    m, l, run = _online_sweep(qh, kh, vh, scale, causal, dt)
+    # delta = rowsum(do * attnpre) from attnpre's f32 accumulator
+    delta, attnpre = (doh * run).sum(-1, keepdim=True) / l, run / l
 
     def probs(c0, rows=slice(None)):
         logits = _tile_logits(qh, kh, c0, scale, causal)[..., rows, :]
-        p32 = torch.exp(logits - m[..., rows, :]) / l[..., rows, :]
-        pr = p32.to(dt).to(f32)
-        return pr, (p32 if exact_probs else pr)
+        pr = (torch.exp(logits - m[..., rows, :]) / l[..., rows, :]).to(dt).to(f32)
+        return pr, pr
 
     dq = torch.zeros_like(qh)
     for c0 in range(0, s, TILE):  # the second sweep
@@ -307,25 +300,13 @@ def test_tile_walk_matches_plain_f32(s, h, d, causal):
     kw = dict(heads=h, causal=causal)
     _assert_within([tile_walk_forward(q, k, v, **kw)],
                    [fa.fused_attention_reference(q, k, v, **kw)], 1e-5, ["out"])
-    got = tile_walk_backward(q, k, v, do, exact_probs=True, **kw)
+    got = tile_walk_backward(q, k, v, do, **kw)
+    # in float32 the rounding is the identity, so the fused backward (exact probabilities) and
+    # the block backward's half (rounded ones) agree
     _assert_within(got[:3], fa.fused_attention_bwd_reference(q, k, v, do, **kw), 1e-5,
                    ["dq", "dk", "dv"])
-    # in float32 the rounding is the identity, so both choices of probabilities agree
-    _assert_within(tile_walk_backward(q, k, v, do, exact_probs=False, **kw),
-                   _rounded_probs_reference(q, k, v, do, **kw), 1e-5,
+    _assert_within(got, _rounded_probs_reference(q, k, v, do, **kw), 1e-5,
                    ["dq", "dk", "dv", "attnpre"])
-
-
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("s,h,d", RAGGED[1:])
-def test_tile_walk_matches_plain_bf16_exact_probs(s, h, d, causal):
-    q, k, v, do = (torch.from_numpy(a).bfloat16() for a in _qkv(s, h, d, seed=12))
-    kw = dict(heads=h, causal=causal)
-    _assert_within([tile_walk_forward(q, k, v, **kw)],
-                   [fa.fused_attention_reference(q, k, v, **kw)], 2e-2, ["out"])
-    got = tile_walk_backward(q, k, v, do, exact_probs=True, **kw)
-    _assert_within(got[:3], fa.fused_attention_bwd_reference(q, k, v, do, **kw), 2e-2,
-                   ["dq", "dk", "dv"])
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -333,14 +314,16 @@ def test_tile_walk_matches_plain_bf16_exact_probs(s, h, d, causal):
 def test_tile_walk_matches_plain_bf16_rounded_probs(s, h, d, causal):
     q, k, v, do = (torch.from_numpy(a).bfloat16() for a in _qkv(s, h, d, seed=13))
     kw = dict(heads=h, causal=causal)
-    got = tile_walk_backward(q, k, v, do, exact_probs=False, **kw)
+    _assert_within([tile_walk_forward(q, k, v, **kw)],
+                   [fa.fused_attention_reference(q, k, v, **kw)], 2e-2, ["out"])
+    got = tile_walk_backward(q, k, v, do, **kw)
     _assert_within(got, _rounded_probs_reference(q, k, v, do, **kw), 2e-2,
                    ["dq", "dk", "dv", "attnpre"])
 
 
-@pytest.mark.parametrize("exact_probs", [True, False])
-def test_tile_walk_with_32_row_tiles_bf16(exact_probs, monkeypatch):
-    """The bfloat16 kernels stream 32-row tiles: the same walk at that tile size."""
+def test_tile_walk_with_32_row_tiles_bf16(monkeypatch):
+    """The bfloat16 passes stream 32-row tiles: the same walk at that tile size, with the
+    rounded probabilities of the block backward."""
     import sys
 
     monkeypatch.setattr(sys.modules[__name__], "TILE", 32)
@@ -349,23 +332,20 @@ def test_tile_walk_with_32_row_tiles_bf16(exact_probs, monkeypatch):
     kw = dict(heads=h, causal=True)
     _assert_within([tile_walk_forward(q, k, v, **kw)],
                    [fa.fused_attention_reference(q, k, v, **kw)], 2e-2, ["out"])
-    got = tile_walk_backward(q, k, v, do, exact_probs=exact_probs, **kw)
-    if exact_probs:
-        _assert_within(got[:3], fa.fused_attention_bwd_reference(q, k, v, do, **kw), 2e-2,
-                       ["dq", "dk", "dv"])
-    else:
-        _assert_within(got, _rounded_probs_reference(q, k, v, do, **kw), 2e-2,
-                       ["dq", "dk", "dv", "attnpre"])
+    got = tile_walk_backward(q, k, v, do, **kw)
+    _assert_within(got, _rounded_probs_reference(q, k, v, do, **kw), 2e-2,
+                   ["dq", "dk", "dv", "attnpre"])
 
 
 def test_tile_walk_tells_exact_from_rounded_probs_bf16():
-    """The two instantiations differ where the plain versions do: with the exact
-    probabilities the walk lands nearer the fused backward than the block backward's half."""
+    """The fused backward's kernels and the block backward's passes differ where the plain
+    versions do: the fused kernels' walk (exact probabilities) lands nearer the fused backward
+    than the block backward's half, the passes' walk (rounded ones) nearer the block's."""
     s, h, d = 129, 2, 64
     q, k, v, do = (torch.from_numpy(a).bfloat16() for a in _qkv(s, h, d, seed=14))
     kw = dict(heads=h, causal=False)
-    exact = tile_walk_backward(q, k, v, do, exact_probs=True, **kw)[0].float()
-    rounded = tile_walk_backward(q, k, v, do, exact_probs=False, **kw)[0].float()
+    exact = wgmma_walk_backward(q, k, v, do, **kw)[0].float()
+    rounded = tile_walk_backward(q, k, v, do, **kw)[0].float()
     fused = fa.fused_attention_bwd_reference(q, k, v, do, **kw)[0].float()
     block = _rounded_probs_reference(q, k, v, do, **kw)[0].float()
     assert not torch.equal(exact, rounded)
@@ -506,6 +486,168 @@ def test_wgmma_walk_forward_is_the_plain_forward_in_float32(s, d, causal):
     assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
 
 
+# --------------------------------------------------------------- the backward kernels' schedules
+# fused_dq_kernel / fused_dkv_kernel of ops/csrc/fused_attention.cu (bfloat16) as plain torch.
+# The dQ kernel: passes of 128 query rows over the key tiles below the pass's causal bound in
+# tiles of 64 keys (32 above D=64; every column of a tile formed, zeros past S as TMA gives
+# them). A first sweep keeps the running max m, the sum of exp l and the running f32 sum of
+# exp(s - m) dp, each rescaled when m moves, and the row's lse (log2 units) and delta come from
+# them; the second sweep forms p = 2^(t c - lse), ds = round(p (dp - delta)) and dq.
+# The dK/dV kernel: passes of 128 keys, the query rows in tiles of 32 (16 above D=64) from the
+# pass's first key under the causal mask, p and ds rebuilt from each row's lse and delta,
+# dv += round(p)^T do, dk += round(ds)^T q. The logits stay unscaled with sm_scale in the
+# exponent (c = sm_scale log2(e)). Each sum is taken in f32 and rounded once at the end. The
+# masks: keys at or past S, rows at or past S and, under the causal mask, keys past a row take
+# the finite -1e30 before the max (first sweep) or p = 0 (second sweep, dK/dV). A row's 16-row
+# warp decides only whether a tile runs the mask tests, which changes no number, so the walk
+# forms a pass's rows together.
+# The float32 backward is the flash dQ and dK/dV kernels on the packed tensors read as
+# [B, S, H, D], on the float32 forward core's lse and delta = rowsum(do * out): its walk is
+# tests/test_torch_flash_attention.py's tile_walk_dq and tile_walk_dkv.
+def _masked(t, rows, keys, s, causal):
+    """Where (row, key) of a [.., rows, keys] tile is live: key < s, row < s, key <= row."""
+    row, key = rows[:, None], keys[None, :]
+    return (key < s) & (row < s) & ((key <= row) | (not causal))
+
+
+def _forward_core_lse(qh, kh, scale, causal):
+    """The float32 forward core's log-sum-exp of each row, [B, H, S]: an online sweep over
+    64-key tiles on the scaled logits (attention_passes.cuh, attend_f32), m + log(l)."""
+    m = torch.full(qh.shape[:-1] + (1,), fa.NEG_INF)
+    l = torch.zeros_like(m)
+    for c0 in range(0, qh.shape[-2], 64):
+        logits = _tile_logits(qh, kh, c0, scale, causal)
+        m_new = torch.maximum(m, logits.amax(-1, keepdim=True))
+        l = l * torch.exp(m - m_new) + torch.exp(logits - m_new).sum(-1, keepdim=True)
+        m = m_new
+    return (m + torch.log(l))[..., 0]
+
+
+def _flash_walk_backward(q, k, v, do, out, *, heads, causal):
+    """The float32 backward's schedule: the flash kernels' walk on [B, S, H, D] views of the
+    packed tensors, with the forward core's lse and delta = rowsum(do * out)."""
+    from test_torch_flash_attention import tile_walk_dkv, tile_walk_dq
+
+    from multimodal_tpu_torch.ops.flash_attention import flash_delta
+
+    b, s, w = q.shape
+    d = w // heads
+    q4, k4, v4, do4, out4 = (t.view(b, s, heads, d) for t in (q, k, v, do, out))
+    lse = _forward_core_lse(fa._heads(q, heads), fa._heads(k, heads), d ** -0.5, causal)
+    delta = flash_delta(out4, do4)
+    kw = dict(causal=causal, scale=d ** -0.5)
+    dq = tile_walk_dq(q4, k4, v4, do4, lse, delta, **kw)
+    dk, dv = tile_walk_dkv(q4, k4, v4, do4, lse, delta, **kw)
+    return tuple(t.reshape(b, s, w) for t in (dq, dk, dv))
+
+
+def wgmma_walk_backward(q, k, v, do, *, heads, causal, out=None):
+    """(dq, dk, dv) by the backward kernels' schedule: the bfloat16 kernels' own on a bfloat16
+    q; on a float32 q the flash kernels' (``_flash_walk_backward``), which takes delta from
+    ``out``, the forward's output."""
+    if q.dtype == torch.float32:
+        return _flash_walk_backward(q, k, v, do, out, heads=heads, causal=causal)
+    f32, dt = torch.float32, q.dtype
+    d = q.shape[-1] // heads
+    scale = d ** -0.5
+    c = scale * math.log2(math.e)
+    qh, kh, vh, doh = (fa._heads(t, heads).to(f32) for t in (q, k, v, do))
+    s = qh.shape[-2]
+    pass_rows, keys, dkv_rows = PASS_ROWS, (64 if d <= 64 else 32), (32 if d <= 64 else 16)
+    logits = lambda a, b: a @ b.transpose(-1, -2)  # noqa: E731
+    lse = torch.zeros(qh.shape[:-1] + (1,))  # log2 units
+    delta = torch.zeros_like(lse)
+    dq = torch.zeros_like(qh)
+    for r0 in range(0, s, pass_rows):
+        rows = torch.arange(r0, r0 + pass_rows)
+        kmax = min(s, r0 + pass_rows) if causal else s
+        qt, dot = _rows_tile(qh, r0, pass_rows), _rows_tile(doh, r0, pass_rows)
+        m = torch.full(qt.shape[:-1] + (1,), fa.NEG_INF)
+        l, run = torch.zeros_like(m), torch.zeros_like(m)
+        for c0 in range(0, kmax, keys):  # the first sweep
+            kt, vt = _rows_tile(kh, c0, keys), _rows_tile(vh, c0, keys)
+            key = torch.arange(c0, c0 + keys)[None, :]
+            t = torch.where((key < kmax) & ((key <= rows[:, None]) | (not causal)),
+                            logits(qt, kt), fa.NEG_INF)
+            m_new = torch.maximum(m, t.amax(dim=-1, keepdim=True))
+            p, alpha = torch.exp2(t * c - m_new * c), torch.exp2(m * c - m_new * c)
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            run = run * alpha + (p * (dot @ vt.transpose(-1, -2))).sum(dim=-1, keepdim=True)
+            m = m_new
+        off, dl = m * c + torch.log2(l), run / l
+        acc = torch.zeros_like(qt)
+        for c0 in range(0, kmax, keys):  # the second sweep
+            kt, vt = _rows_tile(kh, c0, keys), _rows_tile(vh, c0, keys)
+            key = torch.arange(c0, c0 + keys)
+            p = torch.where(_masked(None, rows, key, s, causal),
+                            torch.exp2(logits(qt, kt) * c - off), 0.)
+            ds = (p * (dot @ vt.transpose(-1, -2) - dl)).to(dt).to(f32)
+            acc = acc + ds @ kt
+        n = min(pass_rows, s - r0)
+        dq[:, :, r0:r0 + n], delta[:, :, r0:r0 + n] = acc[:, :, :n], dl[:, :, :n]
+        lse[:, :, r0:r0 + n] = off[:, :, :n]
+    dk, dv = torch.zeros_like(kh), torch.zeros_like(vh)
+    for j0 in range(0, s, 128):  # the dK/dV kernel's passes of 128 keys
+        key = torch.arange(j0, j0 + 128)
+        kt, vt = _rows_tile(kh, j0, 128), _rows_tile(vh, j0, 128)
+        acc_k, acc_v = torch.zeros_like(kt), torch.zeros_like(vt)
+        for q0 in range(j0 if causal else 0, s, dkv_rows):
+            rows = torch.arange(q0, q0 + dkv_rows)
+            qt, dot = _rows_tile(qh, q0, dkv_rows), _rows_tile(doh, q0, dkv_rows)
+            off = _rows_tile(lse, q0, dkv_rows).transpose(-1, -2)  # a row's number per column
+            dl = _rows_tile(delta, q0, dkv_rows).transpose(-1, -2)
+            live = _masked(None, rows, key, s, causal).transpose(-1, -2)  # [keys, rows]
+            pt = torch.where(live, torch.exp2(logits(kt, qt) * c - off), 0.)
+            dst = (pt * (vt @ dot.transpose(-1, -2) - dl)).to(dt).to(f32)
+            acc_v = acc_v + pt.to(dt).to(f32) @ dot
+            acc_k = acc_k + dst @ qt
+        n = min(128, s - j0)
+        dk[:, :, j0:j0 + n], dv[:, :, j0:j0 + n] = acc_k[:, :, :n], acc_v[:, :, :n]
+    return tuple(fa._pack(t.to(dt)) for t in (dq * scale, dk * scale, dv))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_backward(s, h, d, causal, dtype_name, seed=0):
+    """The JAX package's _bwd_kernel (interpret mode) at B=1 on _bwd_inputs: (dq, dk, dv)."""
+    import jax.numpy as jnp
+
+    from multimodal_tpu.ops.fused_attention import _bwd_kernel, _call
+
+    dt = jnp.float32 if dtype_name == "float32" else jnp.bfloat16
+    args = (jnp.asarray(a, dt) for a in _bwd_arrays(s, h, d, seed))
+    got = _call(_bwd_kernel, 3, *args, heads=h, head_dim=d, true_s=s, causal=causal,
+                sm_scale=d ** -0.5)
+    return [np.asarray(t.astype(jnp.float32)) for t in got]
+
+
+def _bwd_arrays(s, h, d, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((1, s, h * d), dtype=np.float32) for _ in range(4)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("s", WGMMA_EDGE_LENGTHS)
+@pytest.mark.parametrize("dtype_name", ["bfloat16", "float32"])
+def test_wgmma_walk_backward_matches_jax_and_plain_at_the_tile_edges(dtype_name, s, d, causal):
+    """The backward kernels' schedules at the edges of their passes and tiles, every head dim
+    class, against the JAX _bwd_kernel (interpret mode) and the plain backward: bfloat16 within
+    2e-2 x max(1, max|reference|) (p and ds round at the same points; the sums run in another
+    order), float32 within 1e-4 x max(1, max|reference|) (the order of the sums, and delta from
+    out, only)."""
+    h, dtype = 2, getattr(torch, dtype_name)
+    q, k, v, do = (torch.from_numpy(a).to(dtype) for a in _bwd_arrays(s, h, d, seed=2))
+    out = fa.fused_attention_reference(q, k, v, heads=h, causal=causal)
+    got = wgmma_walk_backward(q, k, v, do, heads=h, causal=causal, out=out)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    plain = fa.fused_attention_bwd_reference(q, k, v, do, heads=h, causal=causal)
+    for refs in (_jax_backward(s, h, d, causal, dtype_name, seed=2),
+                 [t.float().numpy() for t in plain]):
+        for name, g, r in zip(("dq", "dk", "dv"), got, refs):
+            np.testing.assert_allclose(g.float().numpy(), r, rtol=0, err_msg=name,
+                                       atol=tol * max(1.0, np.abs(r).max()))
+
+
 def test_kernel_operand_check_names_the_operand():
     """The kernels load 16 bytes at a time: a head dim that is no multiple of 8, a strided or
     a misaligned operand raises a ValueError that names it, before anything is launched."""
@@ -594,11 +736,11 @@ def test_cuda_same_bits_twice(cuda_device):
     for bit, in both dtypes."""
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, do = (torch.from_numpy(a).to(cuda_device, dtype) for a in _qkv(197, 12, 64))
-        first = (fa.fused_attention(q, k, v, heads=12),
-                 *fa.fused_attention_bwd(q, k, v, do, heads=12))
-        again = (fa.fused_attention(q, k, v, heads=12),
-                 *fa.fused_attention_bwd(q, k, v, do, heads=12))
-        assert all(torch.equal(a, b) for a, b in zip(first, again))
+        runs = []
+        for _ in range(2):  # the backward on the forward's pair, as the operator hands it over
+            out, lse = fa.fused_attention_fwd(q, k, v, heads=12)
+            runs.append((out, *fa.fused_attention_bwd(q, k, v, do, heads=12, out=out, lse=lse)))
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 @pytest.mark.cuda
@@ -608,7 +750,8 @@ def test_cuda_kernels_match_plain(cuda_device, s, h, d, causal, dtype, tol):
     q, k, v, do = (torch.from_numpy(a).to(cuda_device, dtype) for a in _qkv(s, h, d, seed=5))
     kw = dict(heads=h, causal=causal)
     fa.launches.reset_launch_counts()
-    got = (fa.fused_attention(q, k, v, **kw), *fa.fused_attention_bwd(q, k, v, do, **kw))
+    out, lse = fa.fused_attention_fwd(q, k, v, **kw)
+    got = (out, *fa.fused_attention_bwd(q, k, v, do, out=out, lse=lse, **kw))
     torch.cuda.synchronize()
     counts = fa.launches.launch_counts()
     assert counts["fused_attention_fwd"] == 1 and counts["fused_attention_bwd"] == 1

@@ -136,6 +136,16 @@ def test_profile_step_sorts_kernels_into_families():
         "void (anonymous namespace)::attn_bwd_dq_f32_kernel<4, false>(...)": "dQ pass",
         "void (anonymous namespace)::attn_bwd_dkv_mma_kernel<128, 32, false>(...)": "dK/dV pass",
         "void (anonymous namespace)::attn_bwd_dkv_f32_kernel<8>(...)": "dK/dV pass",
+        "void (anonymous namespace)::fused_dq_kernel<(anonymous namespace)::FusedDqOps<64, 32>>"
+        "(...)": "fused attention backward dQ",
+        "void (anonymous namespace)::flash_dq_kernel<(anonymous namespace)::Tf32Ops<64>>"
+        "(...)": "in float32 also the fused backward's",
+        "void (anonymous namespace)::fused_dkv_kernel<(anonymous namespace)::FusedDkvOps<64>>"
+        "(...)": "fused attention backward dK/dV",
+        "void (anonymous namespace)::flash_dkv_kernel<(anonymous namespace)::Tf32Ops<128>>"
+        "(...)": "flash attention dK/dV",
+        "void (anonymous namespace)::fused_delta_kernel(const float*, const float*, float*, long "
+        "long, int, int, int)": "fused attention backward delta",
         "void (anonymous namespace)::attention_mma_kernel<64, 64>(...)":
             "forward attention core",
         "void (anonymous namespace)::attention_f32_kernel<4>(...)": "forward attention core",
