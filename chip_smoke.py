@@ -465,6 +465,18 @@ FUSED_BWD_EDGE_CASES = [(f"fused-bwd-edge-S{s}-D{d}", b, s, h, d, causal)
                         for s in (128, 129, 191, 192, 193, 255, 256, 257, 511, 512)
                         for d in (32, 64, 128) for causal in (False, True)
                         for b, h in ((1, 3), (256, 2))]
+# bfloat16 only: the block kernels' edges, both forms (the LN form with the residual): S one
+# short of, at and one past the 64-row warpgroups (one item a warpgroup up to S = 64) and the
+# 128-row passes, B = 1 and 3 (M = B*S ragged across the GEMMs' 128-row tiles), causal and not,
+# at D = 64, and at D = 32 and 128 on the packed and unpacked sides and at S = 320, where D = 128
+# streams its tiles; every output within 2e-2 x max|plain|, a second launch the same bits, not
+# timed
+BLOCK_EDGE_CASES = ([(f"block-edge-S{s}", b, s, 768, 12, causal)
+                     for s in (63, 64, 65, 127, 128, 129) for b in (1, 3)
+                     for causal in (False, True)]
+                    + [(f"block-edge-S{s}-D{w // h}", 3 if s < 320 else 2, s, w, h, causal)
+                       for s in (64, 129, 320) for w, h in ((256, 8), (512, 4))
+                       for causal in (False, True)])
 QUANT_CASES = [  # (case, rows, cols, weight form or None): ViT-B/32's int8 step at B=256
     ("q-B32-vision-x", 256 * 50, 768, None),      # c_fc's input; dx's g of c_proj
     ("q-B32-vision-act", 256 * 50, 3072, None),   # c_proj's input act(h); g of c_fc
@@ -726,6 +738,31 @@ def kernel_cases(torch, ba, fa, bm, fl, dtype):
         yield ("block_attention_ln_bwd", case, shape, b == 256,
                lambda: ba.block_attention_ln_bwd(x, dy, gamma, beta, *ws, **kw),
                lambda: ba.block_attention_ln_bwd_reference(x, dy, gamma, beta, *ws, **kw),
+               None, {}, ("dx", "dq", "dk", "dv", "attnpre", "ln_out", "dgamma", "dbeta"),
+               block_bound("block_attention_ln_bwd", b, s, w, heads, causal, name))
+    block_edges = BLOCK_EDGE_CASES if dtype == torch.bfloat16 else []
+    for case, b, s, w, heads, causal in block_edges:
+        x, ws, dy, gamma, beta = block_inputs(b, s, w)
+        kw = dict(heads=heads, causal=causal)
+        shape = f"B={b:<3} S={s} W={w} H={heads} causal={causal!s:<5}"
+        yield ("block_attention_fwd", case, shape, False,
+               lambda: ba.block_attention(x, *ws, **kw),
+               lambda: ba.block_attention_reference(x, *ws, **kw), None, {}, ("y",),
+               block_bound("block_attention_fwd", b, s, w, heads, causal, name))
+        yield ("block_attention_bwd", case, shape, False,
+               lambda: ba.block_attention_bwd(x, dy, *ws, **kw),
+               lambda: ba.block_attention_bwd_reference(x, dy, *ws, **kw), None, {},
+               ("dx", "dq", "dk", "dv", "attnpre"),
+               block_bound("block_attention_bwd", b, s, w, heads, causal, name))
+        yield ("block_attention_ln_fwd", case, shape, False,
+               lambda: ba.block_attention_ln(x, gamma, beta, *ws, residual=True, **kw),
+               lambda: ba.block_attention_ln_reference(x, gamma, beta, *ws, residual=True, **kw),
+               None, {}, ("y",),
+               block_bound("block_attention_ln_fwd", b, s, w, heads, causal, name))
+        yield ("block_attention_ln_bwd", case, shape, False,
+               lambda: ba.block_attention_ln_bwd(x, dy, gamma, beta, *ws, residual=True, **kw),
+               lambda: ba.block_attention_ln_bwd_reference(x, dy, gamma, beta, *ws,
+                                                           residual=True, **kw),
                None, {}, ("dx", "dq", "dk", "dv", "attnpre", "ln_out", "dgamma", "dbeta"),
                block_bound("block_attention_ln_bwd", b, s, w, heads, causal, name))
     fused_edges = FUSED_EDGE_CASES if dtype == torch.bfloat16 else []
@@ -1143,8 +1180,9 @@ def kernel_label(mangled: str) -> str:
     stand (Li64E is 64, Lb1E true, f float, 13__nv_bfloat16 bfloat16) except the attention
     kernels' operand structs and the projection GEMM's types, form, load and store, written
     out (flash_dq_kernel<Tf32Ops<64>>, fused_fwd_kernel<FusedOps<64, 112>>,
-    mma_gemm_kernel<bfloat16, float, TN, LN-b, round>)."""
-    from multimodal_tpu_torch.ops._build import gemm_signature
+    mma_gemm_kernel<bfloat16, float, TN, LN-b, round>; the block kernels' wgmma GEMMs end in
+    ", x3", wgmma_gemm_kernel<bfloat16, bfloat16, NN, LN, round, x3>)."""
+    from multimodal_tpu_torch.ops._build import gemm_sets, gemm_signature
 
     found = re.search(r"_cu_[0-9a-f]{8}\d+([a-z][a-z_0-9]*_kernel)(I\w+?E)?Ev", mangled)
     if not found:
@@ -1154,8 +1192,9 @@ def kernel_label(mangled: str) -> str:
         ints = ", ".join(re.findall(r"Li(\d+)E", ops.group(2)))
         return f"{found.group(1)}<{ops.group(1)}<{ints}>>"
     gemm = gemm_signature(mangled)
-    if gemm:
-        return f"{found.group(1)}<{', '.join(gemm)}>"
+    if gemm:  # the block kernels' wgmma GEMMs (three operand sets) marked x3
+        sets = ", x3" if gemm_sets(mangled) == 3 else ""
+        return f"{found.group(1)}<{', '.join(gemm)}{sets}>"
     return found.group(1) + (found.group(2) or "")
 
 
@@ -1282,7 +1321,8 @@ def wgmma_instantiation_faults(sass: str, kernel: str | tuple, expected: int) ->
 
 
 # the bfloat16 fused kernels of fused_attention.cu: the forward with 128-, 112- and 96-key
-# tiles at D <= 64 and 64 above; the backward's dQ and dK/dV at D <= 64 and above
+# tiles at D <= 64 and 64 above; the backward's dQ and dK/dV at D <= 64 and above, in the fused
+# form (the block form's eight instantiations beside them are counted by block_wgmma_faults)
 FUSED_WGMMA_KERNELS = ("fused_fwd_kernel", "fused_dq_kernel", "fused_dkv_kernel")
 FUSED_WGMMA_INSTANTIATIONS = 8
 # the float32 fused backward: the flash dQ and dK/dV kernels on Tf32Ops (3xTF32), at D <= 64
@@ -1316,11 +1356,47 @@ def fused_wgmma_faults(sass: str) -> list[str]:
 MLP_WGMMA_INSTANTIATIONS = 7
 
 
+def wgmma_form_faults(forms: dict, expected: int, what: str) -> list[str]:
+    """Of ``hmma_forms``' entries ``forms``, those whose products are not all wgmma (an HMMA, or
+    no GMMA), and a fault if there are fewer than ``expected`` of them."""
+    faults = [f"{k}: {v or 'no tensor-core instructions'}" for k, v in sorted(forms.items())
+              if any(f.startswith("HMMA") for f in v) or not any("GMMA" in f for f in v)]
+    if len(forms) < expected:
+        faults.append(f"{len(forms)} {what} instantiations in the SASS, {expected} expected")
+    return faults
+
+
 def mlp_wgmma_faults(sass: str) -> list[str]:
-    """The fused MLP's bfloat16 GEMM instantiations (wgmma_gemm_kernel) off wgmma, or fewer than
-    the MLP launches. The float32 MLP keeps mma_gemm_kernel (3xTF32), held by
-    ``gemm_hmma_faults``."""
-    return wgmma_instantiation_faults(sass, "wgmma_gemm_kernel", MLP_WGMMA_INSTANTIATIONS)
+    """The fused MLP's bfloat16 GEMM instantiations (wgmma_gemm_kernel with one operand set) off
+    wgmma, or fewer than the MLP launches. The float32 MLP keeps mma_gemm_kernel (3xTF32), held
+    by ``gemm_hmma_faults``."""
+    forms = {k: v for k, v in hmma_forms(sass).items()
+             if k.startswith("wgmma_gemm_kernel<") and not k.endswith(", x3>")}
+    return wgmma_form_faults(forms, MLP_WGMMA_INSTANTIATIONS, "wgmma_gemm_kernel")
+
+
+# the block-attention kernels' bfloat16 instantiations: the wgmma GEMM with three operand sets in
+# five forms (NN q/k/v or out projection with the plain load and round store, with the LN load,
+# with the two-rounding residual store; NT do and dx in bfloat16, and g in float32), and the
+# backward's dQ and dK/dV kernels in their block form at D <= 64 and above, with one or two
+# items a pass
+BLOCK_GEMM_INSTANTIATIONS = 5
+BLOCK_ATTENTION_INSTANTIATIONS = 8
+
+
+def block_wgmma_faults(sass: str) -> list[str]:
+    """The block kernels' bfloat16 GEMM and attention instantiations off wgmma (an HMMA, or no
+    GMMA), or fewer of them than the block kernels launch. Their float32 GEMMs stay on
+    mma_gemm_kernel (3xTF32, ``gemm_hmma_faults``) and their float32 passes on the CUDA cores;
+    at D = 80, 88 and 96 the bfloat16 passes stay on mma.sync (``sass_report``'s
+    *_mma_kernel)."""
+    forms = hmma_forms(sass)
+    gemms = {k: v for k, v in forms.items()
+             if k.startswith("wgmma_gemm_kernel<") and k.endswith(", x3>")}
+    attn = {k: v for k, v in forms.items() if re.fullmatch(
+        r"fused_d(?:q|kv)_kernel<Fused(?:Dq|Dkv)Ops<(?:\d+, )+1, [01]>>", k)}
+    return (wgmma_form_faults(gemms, BLOCK_GEMM_INSTANTIATIONS, "block GEMM")
+            + wgmma_form_faults(attn, BLOCK_ATTENTION_INSTANTIATIONS, "block attention"))
 
 
 def int8_gmma_counts(sass: str) -> dict[str, int]:
@@ -3627,7 +3703,9 @@ def profile_cli(torch, card, root: str):
                     if e.get("name") == "train_step" and e.get("cat") == "user_annotation")
     (dev,) = ops
     fam = profile_family_launches(ops[dev])
-    fwd, bwd = family_count(fam, "forward attention core"), family_count(fam, "backward dQ")
+    # the block backward's dQ: the mma.sync pass, or the wgmma kernel's block form (bfloat16)
+    fwd = family_count(fam, "forward attention core")
+    bwd = family_count(fam, "backward dQ") + family_count(fam, "block backward dQ")
     need = PROFILE_STEPS * 24
     over = {ln: (v["occupancy_ms"], v["sum_ms"]) for ln, v in lines[dev].items()
             if v["occupancy_ms"] > v["sum_ms"] * (1 + 1e-9)}  # float sums of ~1e4 terms
@@ -4098,6 +4176,12 @@ def phase_distributed(torch, tally, card, bf16_rate: float):
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
+
+    def header(text: str, flush: bool = True):
+        """A phase's first line, with the seconds since the script started."""
+        print(f"{text} [{time.perf_counter() - t_start:.1f} s into the script]", flush=flush)
+
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4149,13 +4233,16 @@ def main() -> int:
         faults = mlp_wgmma_faults(sass)
         if faults:
             fail(f"bfloat16 fused-MLP GEMM instantiations off wgmma: {faults}")
+        faults = block_wgmma_faults(sass)
+        if faults:
+            fail(f"bfloat16 block-attention instantiations off wgmma: {faults}")
         gmma = int8_gmma_counts(sass)
         print(f"  sass int8_gemm_kernel wgmma (GMMA) instructions by instantiation: {gmma}",
               flush=True)
         if not gmma or min(gmma.values()) == 0:
             fail(f"int8 GEMM instantiations without wgmma: {gmma}")
 
-    print("phase 3 kernel vs plain on the card", flush=True)
+    header("phase 3 kernel vs plain on the card", flush=True)
     kernels = phase_kernels(torch, ba, fa, bm, fl)
     qkv_repeats(torch, ba)
     err = flash_long_error(torch, fl)
@@ -4166,12 +4253,12 @@ def main() -> int:
     for part in ("worst_f32", "timing"):
         kernels[part].update(int8_kernels[part])
 
-    print("phase 4 serving, phase 5 throughput", flush=True)
+    header("phase 4 serving, phase 5 throughput", flush=True)
     serving_rates = phase_serving(torch, mods, tally, card, kind, MODEL,
                                   need_text={"block_attention_fwd": 12},
                                   need_image={"block_attention_fwd": 12})
 
-    print("phase 6 training", flush=True)
+    header("phase 6 training", flush=True)
     need = {"block_attention_fwd": 24, "block_attention_bwd": 24}
     res = compare_paths(torch, mods, tally, card, MODEL, TRAIN_BATCH, TRAIN_STEPS, need)
     full_opt_bytes, float_rate = res["opt_bytes"], res["rate"]
@@ -4181,7 +4268,7 @@ def main() -> int:
     kernel_path_run(torch, tally, card, MODEL, torch.bfloat16, TRAIN_BATCH, TRAIN_STEPS, need,
                     falling=True, stats=bf16_stats)
 
-    print(f"phase 7 shared trunk: {SHARED_MODEL} at full width", flush=True)
+    header(f"phase 7 shared trunk: {SHARED_MODEL} at full width", flush=True)
     phase_serving(torch, mods, tally, card, kind, SHARED_MODEL,
                   need_text={"block_attention_fwd": 12},
                   need_image={"block_attention_ln_fwd": 12})
@@ -4209,7 +4296,7 @@ def main() -> int:
     kernel_path_run(torch, tally, card, SCALE_HEADS_MODEL, torch.bfloat16, SHARED_COMPARE_BATCH,
                     TRAIN_STEPS, need, falling=True)
 
-    print(f"phase 8 fused MLP branch: {SHARED_MODEL} at full width with block_mlp=True",
+    header(f"phase 8 fused MLP branch: {SHARED_MODEL} at full width with block_mlp=True",
           flush=True)
     attn_need = {"block_attention_ln_fwd": 12, "block_attention_ln_bwd": 12,
                  "block_attention_fwd": 12, "block_attention_bwd": 12}
@@ -4242,7 +4329,7 @@ def main() -> int:
         fail("the remat run's losses differ from the run without remat")
 
     register_variant(LONG_MODEL, MODEL, text={"context_length": LONG_CONTEXT})
-    print(f"phase 9 long context: {LONG_MODEL} ({MODEL}, text context_length {LONG_CONTEXT}) "
+    header(f"phase 9 long context: {LONG_MODEL} ({MODEL}, text context_length {LONG_CONTEXT}) "
           f"at full width", flush=True)
     flash_need = {"flash_attention_fwd": 12, "flash_attention_dq": 12, "flash_attention_dkv": 12}
     phase_serving(torch, mods, tally, card, kind, LONG_MODEL,
@@ -4270,12 +4357,12 @@ def main() -> int:
     kernel_path_run(torch, tally, card, OPTIONS_MODEL, torch.float32, 64, TRAIN_STEPS,
                     {"block_attention_fwd": 12, "block_attention_bwd": 12}, falling=True)
 
-    print(f"phase 10 variational CLIP: {MODEL} at full width and depth, a concentration token "
+    header(f"phase 10 variational CLIP: {MODEL} at full width and depth, a concentration token "
           "on each tower (vision S=51, text S=78 causal)", flush=True)
     phase_vclip_encode(torch, mods, tally, card, TRAIN_BATCH)
     phase_vclip_train(torch, mods, tally, card)
 
-    print(f"phase 11 the rest of the model family: {MODEL} at full width and depth", flush=True)
+    header(f"phase 11 the rest of the model family: {MODEL} at full width and depth", flush=True)
     print(f"  LoRA fine-tune (r={LORA['lora_rank']}, alpha {LORA['lora_alpha']:g}) of a loaded "
           "base", flush=True)
     phase_lora(torch, mods, tally, card, full_opt_bytes)
@@ -4287,27 +4374,27 @@ def main() -> int:
           "the LN-fold kernels", flush=True)
     phase_hires(torch, mods, tally, card)
 
-    print(f"phase 12 int8: {MODEL} at full width and depth with int8_forward=True, and the W8A8 "
+    header(f"phase 12 int8: {MODEL} at full width and depth with int8_forward=True, and the W8A8 "
           "encoders", flush=True)
     phase_int8(torch, mods, tally, card, kind, float_rate)
 
-    print(f"phase 13 the training CLI: {MODEL} at full width and depth", flush=True)
+    header(f"phase 13 the training CLI: {MODEL} at full width and depth", flush=True)
     cli_rate = phase_cli(torch, tally, card, bf16_stats["rate"])
 
-    print(f"phase 14 real data: JPEG shards through the readers and the card's decode, {MODEL} "
+    header(f"phase 14 real data: JPEG shards through the readers and the card's decode, {MODEL} "
           "trained and served", flush=True)
     data = phase_data(torch, tally, card, kind, bf16_stats["rate"], cli_rate)
     kernels["worst_f32"]["resample"] = data["worst"]
     kernels["timing"][("resample", "resample-B256-train224", "float32")] = data["timing"]
 
-    print(f"phase 15 train, evaluate and serve: {MODEL} at full width and depth through the "
+    header(f"phase 15 train, evaluate and serve: {MODEL} at full width and depth through the "
           "CLI's evaluations and a served checkpoint", flush=True)
     phase_eval(torch, mods, tally, card, serving_rates["image"])
 
-    print("phase 16 captioning, the research toolkit and the profiler", flush=True)
+    header("phase 16 captioning, the research toolkit and the profiler", flush=True)
     phase_captioning(torch, mods, tally, card)
 
-    print("phase 17 the distributed layer on one card: DP over NCCL, the CLI's mesh flags, "
+    header("phase 17 the distributed layer on one card: DP over NCCL, the CLI's mesh flags, "
           "optimizer-state offload, the ring's schedule", flush=True)
     phase_distributed(torch, tally, card, bf16_stats["rate"])
 
@@ -4319,6 +4406,7 @@ def main() -> int:
                         "launches": tally.total[name],
                         "max_abs_err": kernels["worst_f32"][name],
                         **kernels["timing"][(name, case, "float32")]})
+    header("done")
     print(card, flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

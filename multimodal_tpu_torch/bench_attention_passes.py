@@ -1,6 +1,7 @@
-"""Device time of the fused attention pair's kernels, by shape and dtype.
+"""Device time of the fused attention pair's kernels and of the block-attention kernels' launches,
+by shape and dtype.
 
-    python -m multimodal_tpu_torch.bench_attention_passes [--root DIR] [--tag T]
+    python -m multimodal_tpu_torch.bench_attention_passes [--root DIR] [--tag T] [--part P]
 
 The fused attention pair's bfloat16 backward is two kernels of its own
 (``ops/csrc/fused_attention.cu``): a dQ kernel (``fused_dq_kernel``, wgmma fed by TMA) that also
@@ -25,6 +26,17 @@ forward (``flash_fwd_kernel``), the floor a kernel of the flash design sets at t
 ``--root DIR`` imports ``multimodal_tpu_torch`` from DIR instead of this checkout, so that one
 call times two trees (a parent commit unpacked with ``git archive``) in turns. It needs an
 NVIDIA GPU.
+
+``--part block`` (or ``all``, the default) times the bfloat16 block-attention operators
+(``ops/csrc/block_attention_{fwd,bwd}.cu``, both forms) at B=256 on ViT-B/32's and ViT-B/16's
+shapes, launch by launch: each kernel's device time by name, summed into the projection GEMMs
+(``mma_gemm_kernel`` or ``wgmma_gemm_kernel``, each instantiation by form, load and store), the
+attention core or the backward's dQ and dK/dV passes, and the LayerNorm launches, with the rate
+of the whole call (the FLOPs chip_smoke.py's ``block_bound`` counts) and the host's time a call
+(the wrapper, the tensor maps' encoding and the launches), and the host time of one tensor map's
+encode (the driver's ``cuTensorMapEncodeTiled`` through ctypes). Beside them the plain
+bfloat16 wgmma GEMM at M = B*S, N = K = W, as the fused MLP runs it with H = W: its c_proj (NN,
+round store) and its dln (NT, float32 out).
 """
 
 from __future__ import annotations
@@ -46,6 +58,17 @@ PASSES = (("forward", ("attention_", "fused_fwd_kernel"), 2),
           ("dQ", ("attn_bwd_dq_", "fused_dq_", "flash_dq_kernel", "fused_delta_kernel"), 5),
           ("dK/dV", ("attn_bwd_dkv_", "fused_dkv_", "flash_dkv_kernel"), 4))
 ROUNDS = 10
+BLOCK_SHAPES = [  # (case, batch, seq, width, heads, causal, LN form): bfloat16, fwd and bwd
+    ("vision", 256, 50, 768, 12, False, False), ("shared-text", 256, 77, 768, 12, True, False),
+    ("vclip-text", 256, 78, 512, 8, True, False), ("vision-S197", 256, 197, 768, 12, False, False),
+    ("ln-S197", 256, 197, 768, 12, False, True),
+]
+# a block call's kernels by stage, the first match wins
+BLOCK_STAGES = (("GEMMs", ("mma_gemm_kernel",)),
+                ("core", ("attention_mma_kernel", "fused_fwd_kernel")),
+                ("dQ", ("attn_bwd_dq_", "fused_dq_kernel")),
+                ("dK/dV", ("attn_bwd_dkv_", "fused_dkv_kernel")),
+                ("LN", ("ln_stats_kernel", "ln_rows", "ln_bwd_kernel")))
 
 
 def events_ms(torch, fn) -> float:
@@ -75,10 +98,159 @@ def device_ms(torch, fn, key) -> float:
     return us / ROUNDS / 1e3
 
 
+def kernel_ms(torch, fn) -> list:
+    """[(kernel name, device ms per call)] of ``fn``'s CUDA kernels, from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(ROUNDS):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.key, e.device_time_total / ROUNDS / 1e3) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def host_ms(torch, fn, calls: int = 20) -> float:
+    """Host time per call of ``fn`` with the device idle at the start: the wrapper, the tensor
+    maps' encoding and the launches, while the device works behind them."""
+    import time
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = 1e3 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    return ms
+
+
+def encode_us(torch, rows: int, cols: int, box_rows: int, calls: int = 2000) -> float:
+    """Host microseconds of one ``cuTensorMapEncodeTiled`` (the driver's, through ctypes) of a
+    bf16 [rows, cols] operand in boxes of 64 columns x ``box_rows`` rows in the 128-byte swizzle,
+    as the ``wgmma`` launchers encode their maps, each call."""
+    import ctypes
+    import time
+
+    fn = ctypes.CDLL("libcuda.so.1").cuTensorMapEncodeTiled
+    fn.restype = ctypes.c_int
+    u64, u32 = ctypes.c_uint64, ctypes.c_uint32
+    t = torch.empty(rows, cols, dtype=torch.bfloat16, device="cuda")
+    buf = (ctypes.c_uint8 * 256)()
+    tmap = ctypes.c_void_p((ctypes.addressof(buf) + 63) & ~63)  # CUtensorMap: 64-byte aligned
+    dims, strides = (u64 * 2)(cols, rows), (u64 * 1)(2 * cols)
+    box, elem = (u32 * 2)(64, box_rows), (u32 * 2)(1, 1)
+    # bfloat16 (9), no interleave (0), 128-byte swizzle (3), L2 promotion 256B (3), no OOB fill
+    args = (tmap, 9, 2, ctypes.c_void_p(t.data_ptr()), dims, strides, box, elem, 0, 3, 3, 0)
+    if fn(*args) != 0:
+        raise RuntimeError("cuTensorMapEncodeTiled failed")
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(*args)
+    return 1e6 * (time.perf_counter() - t0) / calls
+
+
+def block_label(name: str) -> str:
+    """A block call's kernel by name: a GEMM by its form, load, store (and operand sets, where
+    the name has them), any other kernel by its function name."""
+    import re
+
+    from multimodal_tpu_torch.ops._build import gemm_signature
+
+    sig = gemm_signature(name)
+    if sig is not None:
+        args = re.search(r"mma_gemm_kernel<([^>]*)>", name)
+        fields = args.group(1).split(", ") if args else []
+        sets = f" x{fields[6]}" if len(fields) == 7 else ""
+        kind = "wgmma" if "wgmma_gemm_kernel" in name else "mma"
+        out = "->f32" if sig[1] == "float" else ""
+        return f"{kind} {sig[2]}/{sig[3]}/{sig[4]}{out}{sets}"
+    name = name.replace("(anonymous namespace)::", "")
+    found = re.search(r"(\w+_kernel)(<[^(]*>)?", name)
+    return found.group(1) + (found.group(2) or "").replace(" >", ">") if found else name[:40]
+
+
+def block_rows(torch, tag, card):
+    """The bfloat16 block operators' launches at BLOCK_SHAPES, and the plain wgmma GEMM."""
+    from multimodal_tpu_torch.ops import block_attention as ba
+    from multimodal_tpu_torch.ops import block_mlp as bm
+
+    dt = torch.bfloat16
+    print(f"[{tag}] block attention bfloat16 from {os.path.dirname(ba.__file__)}, device ms per "
+          f"call by stage and launch [{card}]", flush=True)
+    for case, b, s, w, heads, causal, ln in BLOCK_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(b * 1000 + s)
+        rnd = lambda *shape: torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
+        x, dy = rnd(b, s, w).to(dt), rnd(b, s, w).to(dt)
+        ws = []
+        for _ in range(4):
+            ws += [(rnd(w, w) * w ** -0.5).to(dt), (rnd(w) * 0.02).to(dt)]
+        gamma, beta = (1 + 0.1 * rnd(w)).to(dt), (0.1 * rnd(w)).to(dt)
+        kw = dict(heads=heads, causal=causal)
+        if ln:
+            calls = (("fwd", lambda: ba.block_attention_ln(x, gamma, beta, *ws, residual=True,
+                                                           **kw)),
+                     ("bwd", lambda: ba.block_attention_ln_bwd(x, dy, gamma, beta, *ws,
+                                                               residual=True, **kw)))
+        else:
+            calls = (("fwd", lambda: ba.block_attention(x, *ws, **kw)),
+                     ("bwd", lambda: ba.block_attention_bwd(x, dy, *ws, **kw)))
+        m, pairs = b * s, b * heads * (s * (s + 1) / 2 if causal else s * s) * (w // heads)
+        for direction, fn in calls:
+            rows = kernel_ms(torch, fn)
+            total = sum(ms for _, ms in rows)
+            host = host_ms(torch, fn)
+            flops = (8 * m * w * w + 4 * pairs if direction == "fwd"
+                     else 14 * m * w * w + 12 * pairs)
+            stages = {name: 0.0 for name, _ in BLOCK_STAGES}
+            stages["other"] = 0.0
+            for name, ms in rows:
+                stage = next((st for st, keys in BLOCK_STAGES if any(k in name for k in keys)),
+                             "other")
+                stages[stage] += ms
+            launches = "; ".join(f"{block_label(name)} {ms:.4f}" for name, ms in
+                                 sorted(rows, key=lambda r: -r[1]))
+            print(f"[{tag}] block {direction} {'2-LN' if ln and direction == 'bwd' else ''}"
+                  f"{'1-LN' if ln and direction == 'fwd' else ''} {case:<11} B={b} S={s} W={w} "
+                  f"H={heads} causal={causal!s:<5} total {total:.4f} "
+                  f"({flops / total / 1e9:.1f} TFLOP/s), host {host:.4f}; "
+                  + "; ".join(f"{k} {v:.4f}" for k, v in stages.items())
+                  + f" | {launches}", flush=True)
+        # the plain wgmma GEMM at M = B*S, N = K = W: the fused MLP with H = W, its c_proj (NN,
+        # round store without the residual) and its dln (NT, float32 out)
+        if not ln and case in ("vision", "vision-S197"):
+            h32 = lambda *shape: (rnd(*shape) * w ** -0.5).to(dt)  # noqa: E731
+            x2, dy2 = x.view(m, w), dy.view(m, w)
+            w1, w2 = h32(w, w), h32(w, w)
+            b1, b2 = (0.02 * rnd(w)).to(dt), (0.02 * rnd(w)).to(dt)
+            y2, hh = bm.block_mlp_fwd(x2, gamma, beta, w1, b1, w2, b2, residual=False)
+            for direction, fn in (
+                    ("fwd", lambda: bm.block_mlp_fwd(x2, gamma, beta, w1, b1, w2, b2,
+                                                     residual=False)),
+                    ("bwd", lambda: bm.block_mlp_bwd(x2, dy2, hh, gamma, beta, w1, w2,
+                                                     residual=False))):
+                rows = [(block_label(n), ms) for n, ms in kernel_ms(torch, fn)
+                        if "mma_gemm_kernel" in n]
+                want = "NN/plain/round" if direction == "fwd" else "NT/plain/round->f32"
+                for label, ms in rows:
+                    if label.split(" ")[1] == want:
+                        print(f"[{tag}] plain wgmma GEMM {label} M={m} N=K={w}: {ms:.4f} ms "
+                              f"({2 * m * w * w / ms / 1e9:.1f} TFLOP/s)", flush=True)
+        del x, dy, ws
+        torch.cuda.empty_cache()
+    us = encode_us(torch, 256 * 197, 768, 128)
+    print(f"[{tag}] one tensor map's encode: {us:.2f} us of host time (a bf16 block backward "
+          f"encodes 23 at D = 32, 64, 128, a forward 10 at S >= 128, 6 below)", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=None, help="import multimodal_tpu_torch from this tree")
     ap.add_argument("--tag", default=None, help="the label of every line (default: the root)")
+    ap.add_argument("--part", choices=("all", "fused", "block"), default="all",
+                    help="the fused pair, the block operators, or both")
     args = ap.parse_args(argv)
     if args.root:
         sys.path.insert(0, os.path.abspath(args.root))
@@ -98,6 +270,10 @@ def main(argv=None):
     tag = args.tag or args.root or "tree"
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
+    if args.part in ("all", "block"):
+        block_rows(torch, tag, card)
+    if args.part == "block":
+        return
     print(f"[{tag}] attention pair from {os.path.dirname(fa.__file__)}, device ms per launch "
           f"(TFLOP/s), SDPA forward / backward ms, bf16 flash forward ms [{card}]", flush=True)
     for dtype in (torch.bfloat16, torch.float32):

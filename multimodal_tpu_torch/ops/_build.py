@@ -141,8 +141,9 @@ def gemm_signature(kernel: str) -> tuple[str, str, str, str, str] | None:
     instantiation, from its mangled name (the SASS, ``-Xptxas -v``) or its demangled one (the
     profiler), e.g. ("bfloat16", "float", "TN", "LN-b", "round"); None for any other kernel.
     ``"wgmma_gemm_kernel" in kernel`` tells the two GEMMs apart; the wgmma GEMM's last template
-    argument, its tile width, is not part of the signature."""
-    found = re.search(r"mma_gemm_kernel<([\w:]+), ([\w:]+), (\d), (\d), (\d)(?:, \d+)?>",
+    arguments, its tile width and its operand sets (``gemm_sets``), are not part of the
+    signature."""
+    found = re.search(r"mma_gemm_kernel<([\w:]+), ([\w:]+), (\d), (\d), (\d)(?:, \d+)*>",
                       kernel)
     if found:
         types = ["float" if t == "float" else "bfloat16" for t in found.group(1, 2)]
@@ -154,6 +155,16 @@ def gemm_signature(kernel: str) -> tuple[str, str, str, str, str] | None:
         types = ["float" if t == "f" else "bfloat16" for t in found.group(1, 2)]
     form, load, store = (int(v) for v in found.group(3, 4, 5))
     return (*types, GEMM_FORMS[form], GEMM_LOADS[load], GEMM_STORES[store])
+
+
+def gemm_sets(kernel: str) -> int:
+    """The operand sets of a ``wgmma_gemm_kernel`` instantiation, its last template argument (3
+    for the block-attention kernels' GEMMs, 1 for the fused MLP's), from its mangled or demangled
+    name; 1 for any other kernel."""
+    found = (re.search(r"wgmma_gemm_kernel<(?:[\w:]+, ){6}(\d+)>", kernel)
+             or re.search(r"wgmma_gemm_kernelI(?:13__nv_bfloat16|f)(?:13__nv_bfloat16|f|S\d*_)"
+                          r"(?:Li\d+E){4}Li(\d+)E", kernel))
+    return int(found.group(1)) if found else 1
 
 
 NVJPEG_ERROR = 100000  # resample.cu's nvJPEG entries return this + the nvjpegStatus_t

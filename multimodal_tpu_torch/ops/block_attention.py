@@ -9,7 +9,11 @@ tensor their forwards launch the hand-written Hopper kernels
 (``ops/csrc/block_attention_fwd.cu``) and their backwards the backward kernels
 (``ops/csrc/block_attention_bwd.cu``), and nothing else; on a CPU tensor they run the plain
 PyTorch versions of the same math (``block_attention[_ln][_bwd]_reference``), which are also
-what the on-card comparison holds the kernels to. As in the reference, the LayerNorm is
+what the on-card comparison holds the kernels to. In bfloat16 the kernels' projections run
+``ops/csrc/wgmma_gemm.cuh``'s ``wgmma`` GEMM fed by TMA, and their attention halves at head dims
+32, 64 and 128 ``ops/csrc/fused_attention.cu``'s ``wgmma`` kernels (the forward core at S >= 128;
+the backward's dQ and dK/dV in their block form, ``attention_half_reference``); in float32 the
+projections run 3xTF32 on ``mma.sync`` (``mma_gemm.cuh``). As in the reference, the LayerNorm is
 folded into the kernel only at S > 128, where the [B,S,W] round trips it saves are large;
 at S <= 128 it runs as the ``ln_rows`` pre-pass and the residual add after the operator,
 both in torch's autograd.
@@ -121,20 +125,17 @@ def block_attention_ln_reference(x, gamma, beta, wq, bq, wk, bk, wv, bv, wo, bo,
     return y + x if residual else y
 
 
-def _bwd_core(x, dy, wq, bq, wk, bk, wv, bv, wo, bo, heads: int, causal: bool):
-    """The backward up to the last product: (g, dq, dk, dv, attnpre) with g = d(x) still in
-    f32, the per-token gradients in x.dtype.
+def attention_half_reference(q, k, v, do, *, heads: int, causal: bool):
+    """The backward's attention half over the recomputed q, k, v and do = dy Wo^T ([B, S, W]
+    in the compute dtype): (attnpre, dq, dk, dv), each [B, S, W] in that dtype.
 
-    Step by step the TPU kernel's ``_bwd_kernel``, with its rounding points: q/k/v
-    recomputed as in the forward; do = dy Wo^T accumulated in f32 and rounded; p rounded
-    (p32 is the rounded p widened); attnpre = p v and dv = p^T do, each rounded once;
-    dp = do v^T in f32; ds = p32 (dp - rowsum(dp p32)) rounded; dq = (ds k) scale and
-    dk = (ds^T q) scale, scaled in f32 before the rounding; g = dq Wq^T + dk Wk^T + dv Wv^T
-    as ONE product over the concatenated [dq | dk | dv] and [Wq; Wk; Wv]^T."""
-    f32, dt = _acc(x.dtype), x.dtype
-    scale = (x.shape[-1] // heads) ** -0.5
-    q, k, v = (_split_heads(_proj(x, w_, b_), heads) for w_, b_ in ((wq, bq), (wk, bk), (wv, bv)))
-    do = _split_heads((dy.to(f32) @ wo.to(f32).T).to(dt), heads)
+    Step by step the TPU kernel's ``_bwd_kernel``, with its rounding points: p rounded (p32 is
+    the rounded p widened); attnpre = p v and dv = p^T do, each rounded once; dp = do v^T in
+    f32; ds = p32 (dp - rowsum(dp p32)) rounded; dq = (ds k) scale and dk = (ds^T q) scale,
+    scaled in f32 before the rounding."""
+    f32, dt = _acc(q.dtype), q.dtype
+    scale = (q.shape[-1] // heads) ** -0.5
+    q, k, v, do = (_split_heads(t, heads) for t in (q, k, v, do))
     p32 = _probs(q, k, causal).to(f32)
     q32, k32, v32, do32 = (t.to(f32) for t in (q, k, v, do))
     attnpre = (p32 @ v32).to(dt)
@@ -143,7 +144,21 @@ def _bwd_core(x, dy, wq, bq, wk, bk, wv, bv, wo, bo, heads: int, causal: bool):
     ds32 = (p32 * (dp - (dp * p32).sum(dim=-1, keepdim=True))).to(dt).to(f32)
     dq = ((ds32 @ k32) * scale).to(dt)
     dk = ((ds32.transpose(-1, -2) @ q32) * scale).to(dt)
-    dq, dk, dv, attnpre = (_merge_heads(t) for t in (dq, dk, dv, attnpre))
+    return tuple(_merge_heads(t) for t in (attnpre, dq, dk, dv))
+
+
+def _bwd_core(x, dy, wq, bq, wk, bk, wv, bv, wo, bo, heads: int, causal: bool):
+    """The backward up to the last product: (g, dq, dk, dv, attnpre) with g = d(x) still in
+    f32, the per-token gradients in x.dtype.
+
+    Step by step the TPU kernel's ``_bwd_kernel``, with its rounding points: q/k/v
+    recomputed as in the forward; do = dy Wo^T accumulated in f32 and rounded; the attention
+    half (``attention_half_reference``); g = dq Wq^T + dk Wk^T + dv Wv^T as ONE product over
+    the concatenated [dq | dk | dv] and [Wq; Wk; Wv]^T."""
+    f32, dt = _acc(x.dtype), x.dtype
+    q, k, v = (_proj(x, w_, b_) for w_, b_ in ((wq, bq), (wk, bk), (wv, bv)))
+    do = (dy.to(f32) @ wo.to(f32).T).to(dt)
+    attnpre, dq, dk, dv = attention_half_reference(q, k, v, do, heads=heads, causal=causal)
     dqkv = torch.cat([dq, dk, dv], dim=-1).to(f32)
     wqkv_t = torch.cat([wq.T, wk.T, wv.T], dim=0).to(f32)  # [3W, W]
     return dqkv @ wqkv_t, dq, dk, dv, attnpre
@@ -284,6 +299,8 @@ def _block_attention_bwd_cuda(x, dy, wq, bq, wk, bk, wv, bv, wo, bo, *, heads: i
     lib = _build.load()
     qkv = _qkv_scratch(x, qkv)
     do = torch.empty((b * s, w), dtype=x.dtype, device=x.device)
+    # each query row's statistics between the dQ and dK/dV launches: three rows for the mma.sync
+    # and float32 passes, the first two for the wgmma kernels (lse, delta)
     stats = torch.empty((3, b * heads * s), dtype=torch.float32, device=x.device)
     outs = tuple(torch.empty_like(x) for _ in range(5))  # dx, dq, dk, dv, attnpre
     with torch.cuda.device(x.device):

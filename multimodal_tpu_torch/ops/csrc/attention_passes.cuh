@@ -1,7 +1,9 @@
 // The attention passes shared by the block-attention kernels (block_attention_fwd.cu,
 // block_attention_bwd.cu) and, for its float32 forward, the fused whole-sequence attention
 // (fused_attention.cu): the forward core softmax(q k^T * scale) v, and the backward's dQ pass
-// and dK/dV pass. All three read q, k and v through separate pointers with a row stride of `w`
+// and dK/dV pass. The block kernels run them in float32, and in bfloat16 the forward core below
+// S = 128 and the backward passes at head dims other than 32, 64 and 128 (fused_attention.cu's
+// wgmma kernels take the rest). All three read q, k and v through separate pointers with a row stride of `w`
 // elements and the head's columns at head * d, so they serve both a [3, B*S, W] projection
 // scratch and three packed [B, S, H*D] tensors. d is a multiple of 8 up to 128, w a multiple of
 // 8 and every base pointer 16-byte aligned (the wrappers check). Like the common header this one

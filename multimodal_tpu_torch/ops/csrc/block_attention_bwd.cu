@@ -18,14 +18,21 @@
 //   dq      = (ds @ k_h) * scale, dk = (ds^T @ q_h) * scale    scaled in f32, rounded to T
 //   dx      = [dq | dk | dv] @ [Wq; Wk; Wv]^T one f32 accumulator over K = 3W, rounded once
 //
-// in five launches: the tensor-core GEMM of mma_gemm.cuh in its NN form for q, k and v
-// (gridDim.z = 3); the same GEMM in its NT form (transposed weights) for do; a dQ pass, one
-// block per (64-row query tile, head, image), that walks the key tiles in sweeps, writes
-// attnpre and dq and saves three f32 numbers per query row (the row max, the row sum of exp and
-// rowsum(dp * p)); a dK/dV pass, one block per (64-key tile, head, image), that streams the
-// query rows once and rebuilds p and ds from the saved row numbers; and the NT GEMM over three
-// segments for dx. No [B,H,S,S] tensor reaches device memory. The two passes are
-// attention_passes.cuh's.
+// in five launches: the q/k/v recompute (three weight sets, one launch); do (the NT form); the
+// attention half, a dQ launch that walks the key tiles in sweeps, writes attnpre and dq and saves
+// each query row's statistics, then a dK/dV launch that rebuilds p and ds from them; and the NT
+// form over three K segments for dx. No [B,H,S,S] tensor reaches device memory.
+//
+//   * bfloat16: the GEMMs are wgmma_gemm.cuh's wgmma GEMM fed by TMA (the block-attention
+//     instantiations with three operand sets: q, k, v's weight sets in one launch, and dx's three
+//     segments [dq | dk | dv] and [Wq; Wk; Wv] walked as one stream of K-steps into one f32
+//     accumulator, each operand through its own tensor map); at D in {32, 64, 128} the attention
+//     half is fused_attention.cu's wgmma dQ and dK/dV kernels in their block form (persistent
+//     over the (image, head) items, an item's K/V or Q/dO resident; the rounded probabilities;
+//     two items a pass at S <= 64; stats [2, B*H*S]: lse in log2 units, delta), at D = 80, 88
+//     and 96 attention_passes.cuh's mma.sync passes (stats [3, B*H*S]);
+//   * float32: mma_gemm.cuh's 3xTF32 GEMM (within 2^-20 of true float32 a product) and
+//     attention_passes.cuh's register-tile passes.
 //
 // The LN form (mmt_block_attention_ln_bwd; x is the pre-LN residual stream) adds
 //
@@ -37,36 +44,37 @@
 //   dx      = inv * (g gamma - mean(g gamma) - xhat32 * mean(g gamma xhat32)) [+ dy]
 //                                             all in f32, + dy32 with the residual, one rounding
 //
-// as a statistics launch and an elementwise launch for ln_out in front, the five launches
-// above run on ln_out with the last GEMM writing float32, and a row kernel behind. The GEMM
-// owns 128 columns of a row while the LN vjp needs means over all W, hence the f32 scratch
-// [B*S, W] between them (155 MB at B=256, S=197, W=768). The partial sums are written one
-// row per block, in a fixed order, and summed outside: no float atomics, so a result never
-// differs from run to run.
+// as a statistics launch and an elementwise launch for ln_out in front (in bfloat16 by
+// ln_bf16x8, the function of the forward's LN load, so that the recomputed q, k and v are the
+// forward's bits), the five launches above run on ln_out with the last GEMM writing float32, and
+// a row kernel behind. The GEMM owns 128 columns of a row while the LN vjp needs means over all
+// W, hence the f32 scratch [B*S, W] between them (155 MB at B=256, S=197, W=768). The partial
+// sums are written one row per block, in a fixed order, and summed outside: no float atomics,
+// so a result never differs from run to run.
 //
-// What bounds it on the card: the five [B*S,W]x[W,W]-sized GEMM equivalents (q, k, v, do
-// and the K = 3W dx product) carry ~90% of the FLOPs at ViT-B/32 shapes, so it is bound by
-// operations, and its GEMMs run on the tensor cores (mma_gemm.cuh: bf16 mma.sync in
-// bfloat16, 3xTF32 in float32, which keeps float32 within 2^-20 of true float32 a product);
-// the attention passes run bfloat16 on the tensor cores and float32 on register tiles
-// (attention_passes.cuh). The design choices that matter:
-//   * dK and dV sum over every query row of an (image, head). Blocks run in parallel and
-//     carry nothing between them, and two f32 [S, D] accumulators at S=320, D=128 (320 KB)
-//     exceed a block's shared memory. So the sums run in a second pass, FlashAttention-2
-//     style, where each block owns a key tile and keeps its dK/dV rows in registers.
-//   * Both passes rebuild p from the same saved max and sum with the same expression, and dp
+// What bounds it on the card: the five [B*S,W]x[W,W]-sized GEMM equivalents (q, k, v, do and
+// the K = 3W dx product) carry ~90% of the FLOPs at ViT-B/32 shapes, so it is bound by
+// operations, on the tensor cores. The design choices that matter:
+//   * dK and dV sum over every query row of an (image, head); blocks run in parallel and carry
+//     nothing between them, so the sums run in a second launch, FlashAttention-2 style, where
+//     each block owns key tiles and keeps their dK/dV rows in registers.
+//   * Both launches rebuild p from the same saved statistics with the same expression, and dp
 //     the same way, so dq and dv see the same probabilities up to the order of a product's sum.
 //   * The TPU kernel's image groups (_images_per_program) and its stacked [H*S, S] buffers
 //     exist for VMEM and have no counterpart here.
-//   * The recomputed q, k and v share their bits with the forward's: both run the NN GEMM's
-//     loop of mma_gemm.cuh over the same A values (x; or ln_out, whose elements are what the
-//     forward's LN load transform puts in shared memory, from the same statistics kernel and
-//     ln_apply) in the same order, and add the bias and round alike. chip_smoke.py phase 3
-//     compares the two q/k/v scratch buffers bit for bit.
-// Fewer launches are later work.
+//   * The recomputed q, k and v share their bits with the forward's: both run the same NN
+//     mainloop over the same A values in the same order, and add the bias and round alike.
+//     chip_smoke.py phase 3 compares the two q/k/v scratch buffers bit for bit.
 
 #include "attention_passes.cuh"
-#include "mma_gemm.cuh"
+#include "wgmma_gemm.cuh"
+
+// fused_attention.cu's wgmma dQ and dK/dV kernels in their block form (rounded p, attnpre)
+extern "C" int mmt_block_attention_bwd_wgmma(const void* q, const void* k, const void* v,
+                                             const void* dout, void* stats, void* attnpre,
+                                             void* dq, void* dk, void* dv, int b, int s,
+                                             int heads, int d, int ld, int causal, float scale,
+                                             void* stream);
 
 namespace {
 
@@ -89,6 +97,26 @@ ln_rows_kernel(const T* __restrict__ x, const float* __restrict__ mean,
 #pragma unroll
     for (int i = 0; i < 4; ++i) v[i] = ln_apply<T>(v[i], mean_t, inv_t, g[i], bt[i]);
     store4(out + (size_t)row * w + col, v);
+  }
+}
+
+// bfloat16: eight columns at a time by ln_bf16x8, the function of the forward's LN load
+// (wgmma_gemm.cuh), so that the recomputed q, k and v are the forward's bits
+__global__ void __launch_bounds__(kLnThreads)
+ln_rows_bf16_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ mean,
+                    const float* __restrict__ inv, const __nv_bfloat16* __restrict__ gamma,
+                    const __nv_bfloat16* __restrict__ beta, __nv_bfloat16* __restrict__ out,
+                    int m, int w) {
+  const size_t groups = (size_t)m * (w / 8);
+  for (size_t e = (size_t)blockIdx.x * kLnThreads + threadIdx.x; e < groups;
+       e += (size_t)gridDim.x * kLnThreads) {
+    const int row = (int)(e / (w / 8)), col = (int)(e % (w / 8)) * 8;
+    const float2 st = make_float2(round_to<__nv_bfloat16>(mean[row]),
+                                  round_to<__nv_bfloat16>(inv[row]));
+    const size_t at = (size_t)row * w + col;
+    *reinterpret_cast<uint4*>(out + at) = ln_bf16x8(
+        *reinterpret_cast<const uint4*>(x + at), st, *reinterpret_cast<const uint4*>(gamma + col),
+        *reinterpret_cast<const uint4*>(beta + col));
   }
 }
 
@@ -123,61 +151,104 @@ cudaError_t launch_bwd(const void* x, const void* dy, const void* gamma, const v
     float* inv = buf.ln_stats + m;
     err = launch_ln_stats<T>(xin, mean, inv, m, w, eps, stream);
     if (err != cudaSuccess) return err;
-    const size_t groups = plane / 4;
-    const int blocks = (int)((groups + kLnThreads - 1) / kLnThreads);
-    ln_rows_kernel<T><<<blocks, kLnThreads, 0, stream>>>(
-        xin, mean, inv, static_cast<const T*>(gamma), static_cast<const T*>(beta),
-        static_cast<T*>(buf.ln_out), m, w);
+    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+      const size_t groups = plane / 8;
+      ln_rows_bf16_kernel<<<(int)((groups + kLnThreads - 1) / kLnThreads), kLnThreads, 0,
+                            stream>>>(xin, mean, inv, static_cast<const T*>(gamma),
+                                      static_cast<const T*>(beta), static_cast<T*>(buf.ln_out),
+                                      m, w);
+    } else {
+      const size_t groups = plane / 4;
+      ln_rows_kernel<T><<<(int)((groups + kLnThreads - 1) / kLnThreads), kLnThreads, 0,
+                          stream>>>(xin, mean, inv, static_cast<const T*>(gamma),
+                                    static_cast<const T*>(beta), static_cast<T*>(buf.ln_out), m,
+                                    w);
+    }
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     xin = static_cast<const T*>(buf.ln_out);
   }
 
-  // q, k, v recomputed as the forward computes them (x @ W + b, f32 sums, one rounding), three
-  // weight sets of one launch
-  MmaGemmArgs qkv = {};
-  qkv.a[0] = xin;
-  for (int z = 0; z < 3; ++z) {
-    qkv.b[z] = wts[z];
-    qkv.bias[z] = biases[z];
-    qkv.c[z] = static_cast<T*>(buf.qkv) + z * plane;
-  }
-  qkv.m = m, qkv.n = w, qkv.kseg = w, qkv.nseg = 1;
-  err = launch_mma_gemm<T, T, kFormNN>(qkv, 3, stream);
-  if (err != cudaSuccess) return err;
-
-  // do = dy @ Wo^T
-  MmaGemmArgs dout = {};
-  dout.a[0] = dy;
-  dout.b[0] = wts[3];
-  dout.c[0] = buf.dout;
-  dout.m = m, dout.n = w, dout.kseg = w, dout.nseg = 1;
-  err = launch_mma_gemm<T, T, kFormNT>(dout, 1, stream);
-  if (err != cudaSuccess) return err;
-
   const float scale = (float)std::pow((double)d, -0.5);  // as the forward's
   const T* qp = static_cast<const T*>(buf.qkv);
-  err = launch_attention_bwd_passes<T>(
-      qp, qp + plane, qp + 2 * plane, static_cast<const T*>(buf.dout), buf.stats,
-      static_cast<T*>(buf.attnpre), static_cast<T*>(buf.dq), static_cast<T*>(buf.dk),
-      static_cast<T*>(buf.dv), b, s, w, heads, d, scale, causal, stream);
-  if (err != cudaSuccess) return err;
-
-  // [dq | dk | dv] @ [Wq; Wk; Wv]^T, one accumulator over K = 3W: dx itself, or g in f32
-  MmaGemmArgs dx = {};
   const void* grads[3] = {buf.dq, buf.dk, buf.dv};
-  for (int z = 0; z < 3; ++z) {
-    dx.a[z] = grads[z];
-    dx.b[z] = wts[z];
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {  // wgmma_gemm.cuh's GEMM, block form
+    // q, k, v recomputed as the forward computes them: the same NN instantiation over the same
+    // K order, on x or on ln_out (the forward's LN load's values)
+    const void* a_in = xin;
+    WgmmaGemmArgs qkv = {};
+    for (int z = 0; z < 3; ++z) {
+      qkv.bias[z] = static_cast<const T*>(biases[z]);
+      qkv.c[z] = static_cast<T*>(buf.qkv) + z * plane;
+    }
+    err = launch_block_gemm<T, kFormNN, kLoadPlain, kStoreRound>(&a_in, wts, 3, m, w, qkv,
+                                                                 stream);
+    if (err != cudaSuccess) return err;
+    // do = dy @ Wo^T: the NT form over one segment
+    WgmmaGemmArgs dout = {};
+    dout.c[0] = buf.dout;
+    err = launch_block_gemm<T, kFormNT, kLoadPlain, kStoreRound>(&dy, wts + 3, 1, m, w, dout,
+                                                                 stream);
+    if (err != cudaSuccess) return err;
+    if (d == 32 || d == 64 || d == 128)
+      err = static_cast<cudaError_t>(mmt_block_attention_bwd_wgmma(
+          qp, qp + plane, qp + 2 * plane, buf.dout, buf.stats, buf.attnpre, buf.dq, buf.dk,
+          buf.dv, b, s, heads, d, w, causal, scale, stream));
+    else  // D = 80, 88, 96: attention_passes.cuh's mma.sync passes
+      err = launch_attention_bwd_passes<T>(
+          qp, qp + plane, qp + 2 * plane, static_cast<const T*>(buf.dout), buf.stats,
+          static_cast<T*>(buf.attnpre), static_cast<T*>(buf.dq), static_cast<T*>(buf.dk),
+          static_cast<T*>(buf.dv), b, s, w, heads, d, scale, causal, stream);
+    if (err != cudaSuccess) return err;
+    // [dq | dk | dv] @ [Wq; Wk; Wv]^T: the NT form over three segments, one accumulator; dx
+    // itself, or g in f32
+    WgmmaGemmArgs dx = {};
+    dx.c[0] = ln ? static_cast<void*>(buf.g32) : buf.dx;
+    if (!ln) return launch_block_gemm<T, kFormNT, kLoadPlain, kStoreRound>(grads, wts, 3, m, w,
+                                                                            dx, stream);
+    err = launch_block_gemm<float, kFormNT, kLoadPlain, kStoreRound>(grads, wts, 3, m, w, dx,
+                                                                     stream);
+    if (err != cudaSuccess) return err;
+  } else {  // float32: mma_gemm.cuh's 3xTF32 GEMM, the register-tile passes
+    MmaGemmArgs qkv = {};
+    qkv.a[0] = xin;
+    for (int z = 0; z < 3; ++z) {
+      qkv.b[z] = wts[z];
+      qkv.bias[z] = biases[z];
+      qkv.c[z] = static_cast<T*>(buf.qkv) + z * plane;
+    }
+    qkv.m = m, qkv.n = w, qkv.kseg = w, qkv.nseg = 1;
+    err = launch_mma_gemm<T, T, kFormNN>(qkv, 3, stream);
+    if (err != cudaSuccess) return err;
+
+    MmaGemmArgs dout = {};
+    dout.a[0] = dy;
+    dout.b[0] = wts[3];
+    dout.c[0] = buf.dout;
+    dout.m = m, dout.n = w, dout.kseg = w, dout.nseg = 1;
+    err = launch_mma_gemm<T, T, kFormNT>(dout, 1, stream);
+    if (err != cudaSuccess) return err;
+
+    err = launch_attention_bwd_passes<T>(
+        qp, qp + plane, qp + 2 * plane, static_cast<const T*>(buf.dout), buf.stats,
+        static_cast<T*>(buf.attnpre), static_cast<T*>(buf.dq), static_cast<T*>(buf.dk),
+        static_cast<T*>(buf.dv), b, s, w, heads, d, scale, causal, stream);
+    if (err != cudaSuccess) return err;
+
+    MmaGemmArgs dx = {};
+    for (int z = 0; z < 3; ++z) {
+      dx.a[z] = grads[z];
+      dx.b[z] = wts[z];
+    }
+    dx.m = m, dx.n = w, dx.kseg = w, dx.nseg = 3;
+    if (!ln) {
+      dx.c[0] = buf.dx;
+      return launch_mma_gemm<T, T, kFormNT>(dx, 1, stream);
+    }
+    dx.c[0] = buf.g32;
+    err = launch_mma_gemm<T, float, kFormNT>(dx, 1, stream);
+    if (err != cudaSuccess) return err;
   }
-  dx.m = m, dx.n = w, dx.kseg = w, dx.nseg = 3;
-  if (!ln) {
-    dx.c[0] = buf.dx;
-    return launch_mma_gemm<T, T, kFormNT>(dx, 1, stream);
-  }
-  dx.c[0] = buf.g32;
-  err = launch_mma_gemm<T, float, kFormNT>(dx, 1, stream);
-  if (err != cudaSuccess) return err;
 
   ln_bwd_kernel<T, T><<<(m + kLnBwdRows - 1) / kLnBwdRows, kLnThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(dy), buf.g32, buf.ln_stats,

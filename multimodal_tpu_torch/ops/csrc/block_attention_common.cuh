@@ -118,12 +118,15 @@ __device__ __forceinline__ float ln_apply(float x, float mean_t, float inv_t, fl
   return round_to<T>(__fadd_rn(y, beta));
 }
 
-// The LN vjp over g = d(LN(x)) (float32), one block per kLnBwdRows rows. First one warp per
-// row: the two row means, then dx = inv * (g gamma - mean(g gamma) - xhat mean(g gamma xhat))
-// in f32 with xhat = (x32 - mean) * inv, plus dy with `residual`, rounded once. Then one
-// thread per column: the block's partial dgamma = sum(g xhat) and dbeta = sum(g), summed over
-// its rows in order, and with `dy_part` the partial column sum of dy as well. gamma is of
-// type TG: the compute dtype for block attention, float32 for the MLP branch.
+// The LN vjp over g = d(LN(x)) (float32), one block per kLnBwdRows rows, one warp a row. First
+// each warp's rows: the two row means m1 = mean(g gamma), m2 = mean(g gamma xhat) with xhat =
+// (x32 - mean) * inv, into shared memory. Then 128 columns at a time, each warp over its rows
+// (w, w + 8, ...) in order: dx = inv * (g gamma - m1 - xhat m2) in f32, plus dy with `residual`,
+// rounded once, and the lane's four columns' partial dgamma = sum(g xhat), dbeta = sum(g) and
+// with `dy_part` the column sum of dy, in registers; then the eight warps' partials in warp
+// order through shared memory, one row of each partial per block. x and g are read twice (the
+// second time from L1), no sum is atomic. gamma is of type TG: the compute dtype for block
+// attention, float32 for the MLP branch.
 constexpr int kLnBwdRows = 32;
 
 template <typename T, typename TG>
@@ -133,11 +136,15 @@ ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* __
               const TG* __restrict__ gamma, T* __restrict__ dx, float* __restrict__ dg_part,
               float* __restrict__ db_part, float* __restrict__ dy_part, int residual, int m,
               int w) {
+  constexpr int kWarps = kLnThreads / 32;
+  __shared__ float row_means[kLnBwdRows][2];
+  __shared__ float red[3][kWarps][128];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int r0 = blockIdx.x * kLnBwdRows;
   const int rows = min(kLnBwdRows, m - r0);
+  const bool need_dy = residual || dy_part != nullptr;
 
-  for (int r = warp; r < rows; r += kLnThreads / 32) {
+  for (int r = warp; r < rows; r += kWarps) {
     const size_t at = (size_t)(r0 + r) * w;
     const float mu = mean[r0 + r], iv = inv[r0 + r];
     float s1 = 0.f, s2 = 0.f;
@@ -159,37 +166,55 @@ ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy, const float* __
       s1 += __shfl_xor_sync(0xffffffffu, s1, off);
       s2 += __shfl_xor_sync(0xffffffffu, s2, off);
     }
-    const float m1 = s1 / (float)w, m2 = s2 / (float)w;
-    for (int c = lane * 4; c < w; c += 128) {
-      float xv[4], gv[4], gm[4], out[4], dyv[4] = {0.f, 0.f, 0.f, 0.f};
-      load4(x + at + c, xv);
-      load4(g + at + c, gv);
-      load4(gamma + c, gm);
-      if (residual) load4(dy + at + c, dyv);
+    if (lane == 0) row_means[r][0] = s1 / (float)w, row_means[r][1] = s2 / (float)w;
+  }
+  __syncthreads();
+
+  for (int c0 = 0; c0 < w; c0 += 128) {
+    const int c = c0 + lane * 4;
+    float gm[4], dg[4] = {}, db[4] = {}, dys[4] = {};
+    load4(gamma + c, gm);
+    for (int r = warp; r < rows; r += kWarps) {
+      const size_t at = (size_t)(r0 + r) * w + c;
+      const float mu = mean[r0 + r], iv = inv[r0 + r];
+      const float m1 = row_means[r][0], m2 = row_means[r][1];
+      float xv[4], gv[4], out[4], dyv[4] = {0.f, 0.f, 0.f, 0.f};
+      load4(x + at, xv);
+      load4(g + at, gv);
+      if (need_dy) load4(dy + at, dyv);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float xhat = __fmul_rn(__fsub_rn(xv[i], mu), iv);
         const float dxhat = __fmul_rn(gv[i], gm[i]);
         out[i] = __fmul_rn(iv, __fsub_rn(__fsub_rn(dxhat, m1), __fmul_rn(xhat, m2)));
         if (residual) out[i] = __fadd_rn(out[i], dyv[i]);
+        dg[i] = fmaf(gv[i], xhat, dg[i]);
+        db[i] += gv[i];
+        dys[i] += dyv[i];
       }
-      store4(dx + at + c, out);
+      store4(dx + at, out);
     }
-  }
-
-  for (int c = tid; c < w; c += kLnThreads) {
-    float dg = 0.f, db = 0.f, dys = 0.f;
-    for (int r = 0; r < rows; ++r) {
-      const size_t at = (size_t)(r0 + r) * w + c;
-      const float gv = g[at];
-      const float xhat = __fmul_rn(__fsub_rn(to_float(x[at]), mean[r0 + r]), inv[r0 + r]);
-      dg = fmaf(gv, xhat, dg);
-      db += gv;
-      if (dy_part != nullptr) dys += to_float(dy[at]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      red[0][warp][lane * 4 + i] = dg[i];
+      red[1][warp][lane * 4 + i] = db[i];
+      red[2][warp][lane * 4 + i] = dys[i];
     }
-    dg_part[(size_t)blockIdx.x * w + c] = dg;
-    db_part[(size_t)blockIdx.x * w + c] = db;
-    if (dy_part != nullptr) dy_part[(size_t)blockIdx.x * w + c] = dys;
+    __syncthreads();
+    if (tid < 128) {
+      float sg = red[0][0][tid], sb = red[1][0][tid], sd = red[2][0][tid];
+#pragma unroll
+      for (int k = 1; k < kWarps; ++k) {
+        sg += red[0][k][tid];
+        sb += red[1][k][tid];
+        sd += red[2][k][tid];
+      }
+      const size_t at = (size_t)blockIdx.x * w + c0 + tid;
+      dg_part[at] = sg;
+      db_part[at] = sb;
+      if (dy_part != nullptr) dy_part[at] = sd;
+    }
+    __syncthreads();  // red is free for the next columns
   }
 }
 

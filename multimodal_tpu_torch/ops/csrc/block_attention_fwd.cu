@@ -15,30 +15,46 @@
 //   y     = attn @ Wo + bo              as the projections; with the residual, y is rounded
 //                                       to T first and y + x rounds again
 //
-// in three launches: the tensor-core GEMM of mma_gemm.cuh in its NN form for q, k and v (three
-// weight sets, gridDim.z = 3), one attention kernel per (query tile, head, image), the same GEMM
-// for the output projection. The LN-fold form adds a small row-statistics launch in front (two
-// f32 numbers per row); the q/k/v GEMM then normalizes the A chunks it lands in shared memory
-// (its LN load transform), and the output GEMM's store adds the raw x (its residual store:
-// bias, one rounding to T, + x, a second rounding), so neither LN(x) nor a separate add pass
-// touches device memory. The GEMMs run bf16 mma.sync in bfloat16 and 3xTF32 in float32 (about
-// 2^-20 relative a product, within the 1e-4 x max|plain| limit of the on-card check); the
-// attention core (attention_passes.cuh) runs bfloat16 on the tensor cores and float32 on
-// register tiles. The backward's recompute of q, k and v is the same GEMM over the same A
-// values (x, or ln_out, whose elements are the LN transform's), so it repeats these q, k and v
-// bit for bit (chip_smoke.py phase 3 checks it).
+// in three launches: the q/k/v projections (three weight sets, one launch), the attention core,
+// the output projection. The LN-fold form adds a small row-statistics launch in front (two f32
+// numbers per row); the q/k/v GEMM then normalizes the A tiles it lands in shared memory (its LN
+// load transform), and the output GEMM's store adds the raw x (its residual store: bias, one
+// rounding to T, + x, a second rounding), so neither LN(x) nor a separate add pass touches
+// device memory.
+//
+//   * bfloat16: the GEMMs are wgmma_gemm.cuh's wgmma GEMM fed by TMA in its block-attention
+//     instantiations (three operand sets: the tensor maps of x and Wq, Wk, Wv in one launch,
+//     set z owning its own tiles of C); the attention core is fused_attention.cu's wgmma forward
+//     (fused_fwd_kernel, the same function: both round the normalised p before p v) on the
+//     q/k/v planes at S >= 128 and D in {32, 64, 128}, where its 128-row passes fill, and
+//     attention_passes.cuh's mma.sync core below S = 128 (its 64-row tiles pad less there) and
+//     at other head dims;
+//   * float32: mma_gemm.cuh's 3xTF32 GEMM (about 2^-20 relative a product, within the 1e-4 x
+//     max|plain| limit of the on-card check) and the register-tile core.
+// The backward's recompute of q, k and v runs the same GEMM mainloop over the same A values (x,
+// or ln_out, which the backward writes with the LN load's own function), so it repeats these q,
+// k and v bit for bit (chip_smoke.py phase 3 checks it).
 //
 // What bounds it on the card: the four [B*S,W]x[W,W] projections carry ~97% of the FLOPs at
-// ViT-B/32 shapes (S=50, W=768), so the kernel is bound by operations, on the tensor cores.
-// The attention core owns a 64-row query tile per block and walks the keys in tiles with an
-// online softmax, so no [B,H,S,S] tensor ever reaches device memory and no [rows, S] logits
-// buffer sits in shared memory. The TPU kernel's image grouping (_images_per_program) is VMEM
-// plumbing and has no counterpart here. A single fused launch is later work.
+// ViT-B/32 shapes (S=50, W=768), so the kernel is bound by operations, on the tensor cores;
+// bfloat16 runs them on wgmma at 450-500 TFLOP/s (PERF.md). No [B,H,S,S] tensor reaches device
+// memory. The TPU kernel's image grouping (_images_per_program) is VMEM plumbing and has no
+// counterpart here.
 
 #include "attention_passes.cuh"
-#include "mma_gemm.cuh"
+#include "wgmma_gemm.cuh"
+
+// fused_attention.cu's wgmma attention core (the fused forward on q, k, v with a row stride)
+extern "C" int mmt_block_attention_core_wgmma(const void* q, const void* k, const void* v,
+                                              void* out, int b, int s, int heads, int d, int ld,
+                                              int causal, float scale, void* stream);
 
 namespace {
+
+// whether the bfloat16 attention core runs the wgmma kernel (else attention_mma_kernel): head
+// dims of its tiles, and S >= 128, where a 128-row pass fills; the mma.sync core's 64-row tiles
+// pad less below it
+bool core_on_wgmma(int s, int d) { return s >= 128 && (d == 32 || d == 64 || d == 128); }
 
 // The three stages after the optional statistics launch. ln_stats != nullptr selects the
 // LN-fold form: the row statistics ([2, B*S]: mean, inv), gamma and beta feed the q/k/v GEMM's
@@ -50,41 +66,75 @@ cudaError_t launch(const void* x, const float* ln_stats, const void* gamma, cons
                    cudaStream_t stream) {
   const int m = b * s, d = w / heads;
   const size_t plane = (size_t)m * w;
-
-  MmaGemmArgs proj = {};
-  proj.a[0] = x;
-  for (int z = 0; z < 3; ++z) {
-    proj.b[z] = wts[z];
-    proj.bias[z] = biases[z];
-    proj.c[z] = static_cast<T*>(qkv) + z * plane;
-  }
-  proj.m = m, proj.n = w, proj.kseg = w, proj.nseg = 1;
-  cudaError_t err;
-  if (ln_stats != nullptr) {
-    proj.ln_mean = ln_stats;
-    proj.ln_inv = ln_stats + m;
-    proj.ln_gamma = gamma;
-    proj.ln_beta = beta;
-    err = launch_mma_gemm<T, T, kFormNN, kLoadLn, kStoreResidual>(proj, 3, stream);
-  } else {
-    err = launch_mma_gemm<T, T, kFormNN, kLoadPlain, kStoreResidual>(proj, 3, stream);
-  }
-  if (err != cudaSuccess) return err;
-
   const float scale = (float)std::pow((double)d, -0.5);  // as the reference's d ** -0.5
   const T* qp = static_cast<const T*>(qkv);
-  err = launch_attention_core<T>(qp, qp + plane, qp + 2 * plane, static_cast<T*>(attn), b, s,
-                                 w, heads, d, scale, causal, stream);
-  if (err != cudaSuccess) return err;
+  cudaError_t err;
 
-  MmaGemmArgs out = {};
-  out.a[0] = attn;
-  out.b[0] = wts[3];
-  out.bias[0] = biases[3];
-  out.c[0] = y;
-  out.residual = residual;
-  out.m = m, out.n = w, out.kseg = w, out.nseg = 1;
-  return launch_mma_gemm<T, T, kFormNN, kLoadPlain, kStoreResidual>(out, 1, stream);
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {  // wgmma_gemm.cuh's GEMM, block form
+    WgmmaGemmArgs proj = {};
+    for (int z = 0; z < 3; ++z) {
+      proj.bias[z] = static_cast<const T*>(biases[z]);
+      proj.c[z] = static_cast<T*>(qkv) + z * plane;
+    }
+    if (ln_stats != nullptr) {
+      proj.ln_mean = ln_stats;
+      proj.ln_inv = ln_stats + m;
+      proj.ln_gamma = static_cast<const T*>(gamma);
+      proj.ln_beta = static_cast<const T*>(beta);
+      err = launch_block_gemm<T, kFormNN, kLoadLn, kStoreRound>(&x, wts, 3, m, w, proj, stream);
+    } else {
+      err = launch_block_gemm<T, kFormNN, kLoadPlain, kStoreRound>(&x, wts, 3, m, w, proj,
+                                                                   stream);
+    }
+    if (err != cudaSuccess) return err;
+    if (core_on_wgmma(s, d))
+      err = static_cast<cudaError_t>(mmt_block_attention_core_wgmma(
+          qp, qp + plane, qp + 2 * plane, attn, b, s, heads, d, w, causal, scale, stream));
+    else
+      err = launch_attention_core<T>(qp, qp + plane, qp + 2 * plane, static_cast<T*>(attn), b,
+                                     s, w, heads, d, scale, causal, stream);
+    if (err != cudaSuccess) return err;
+    WgmmaGemmArgs out = {};
+    out.bias[0] = static_cast<const T*>(biases[3]);
+    out.c[0] = y;
+    const void* a_out = attn;
+    if (residual == nullptr)
+      return launch_block_gemm<T, kFormNN, kLoadPlain, kStoreRound>(&a_out, wts + 3, 1, m, w,
+                                                                    out, stream);
+    out.residual = static_cast<const T*>(residual);
+    return launch_block_gemm<T, kFormNN, kLoadPlain, kStoreResidual>(&a_out, wts + 3, 1, m, w,
+                                                                     out, stream);
+  } else {  // float32: mma_gemm.cuh's 3xTF32 GEMM, the register-tile core
+    MmaGemmArgs proj = {};
+    proj.a[0] = x;
+    for (int z = 0; z < 3; ++z) {
+      proj.b[z] = wts[z];
+      proj.bias[z] = biases[z];
+      proj.c[z] = static_cast<T*>(qkv) + z * plane;
+    }
+    proj.m = m, proj.n = w, proj.kseg = w, proj.nseg = 1;
+    if (ln_stats != nullptr) {
+      proj.ln_mean = ln_stats;
+      proj.ln_inv = ln_stats + m;
+      proj.ln_gamma = gamma;
+      proj.ln_beta = beta;
+      err = launch_mma_gemm<T, T, kFormNN, kLoadLn, kStoreResidual>(proj, 3, stream);
+    } else {
+      err = launch_mma_gemm<T, T, kFormNN, kLoadPlain, kStoreResidual>(proj, 3, stream);
+    }
+    if (err != cudaSuccess) return err;
+    err = launch_attention_core<T>(qp, qp + plane, qp + 2 * plane, static_cast<T*>(attn), b, s,
+                                   w, heads, d, scale, causal, stream);
+    if (err != cudaSuccess) return err;
+    MmaGemmArgs out = {};
+    out.a[0] = attn;
+    out.b[0] = wts[3];
+    out.bias[0] = biases[3];
+    out.c[0] = y;
+    out.residual = residual;
+    out.m = m, out.n = w, out.kseg = w, out.nseg = 1;
+    return launch_mma_gemm<T, T, kFormNN, kLoadPlain, kStoreResidual>(out, 1, stream);
+  }
 }
 
 // LN-fold form: one statistics launch (mean and rsqrt(var + eps) per row, f32), then the

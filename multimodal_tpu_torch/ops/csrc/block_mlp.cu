@@ -120,9 +120,9 @@ cudaError_t launch_fwd_bf16(const void* x, const void* gamma, const void* beta, 
   fc.ln_inv = ln_stats + t;
   fc.ln_gamma = static_cast<const T*>(gamma);
   fc.ln_beta = static_cast<const T*>(beta);
-  fc.bias = static_cast<const T*>(b1);
+  fc.bias[0] = static_cast<const T*>(b1);
   fc.act = act;
-  fc.c = h;
+  fc.c[0] = h;
   fc.g_out = static_cast<T*>(g);
   err = launch_wgmma_gemm<T, kFormNN, kLoadLn, kStoreRoundAct, 128>(x, t, w, w1, w, hid, fc,
                                                                     stream);
@@ -131,8 +131,8 @@ cudaError_t launch_fwd_bf16(const void* x, const void* gamma, const void* beta, 
   // y = round(g @ W2 + b2 [+ x]), one rounding
   WgmmaGemmArgs proj = {};
   proj.m = t, proj.n = w, proj.k = hid, proj.splits = 1;
-  proj.bias = static_cast<const T*>(b2);
-  proj.c = y;
+  proj.bias[0] = static_cast<const T*>(b2);
+  proj.c[0] = y;
   if (!residual)
     return launch_wgmma_gemm<T, kFormNN, kLoadPlain, kStoreRound, 128>(g, t, hid, w2, hid, w,
                                                                        proj, stream);
@@ -234,7 +234,7 @@ cudaError_t launch_bwd_bf16(const void* x, const void* dy, const void* h, const 
   dh.m = t, dh.n = hid, dh.k = w, dh.splits = 1;
   dh.act = act;
   dh.h = static_cast<const T*>(h);
-  dh.c = buf.dh;
+  dh.c[0] = buf.dh;
   dh.col_part = buf.db1_part;
   err = launch_wgmma_gemm<T, kFormNT, kLoadPlain, kStoreActGrad, 128>(dy, t, w, w2, hid, w, dh,
                                                                      stream);
@@ -243,7 +243,7 @@ cudaError_t launch_bwd_bf16(const void* x, const void* dy, const void* h, const 
   // dln = dh @ W1^T, f32
   WgmmaGemmArgs dln = {};
   dln.m = t, dln.n = w, dln.k = hid, dln.splits = 1;
-  dln.c = buf.dln;
+  dln.c[0] = buf.dln;
   err = launch_wgmma_gemm<float, kFormNT, kLoadPlain, kStoreRound, 256>(buf.dh, t, hid, w1, w,
                                                                        hid, dln, stream);
   if (err != cudaSuccess) return err;
@@ -272,7 +272,7 @@ cudaError_t launch_bwd_bf16(const void* x, const void* dy, const void* h, const 
   WgmmaGemmArgs dw2 = {};
   dw2.m = hid, dw2.n = w, dw2.k = t, dw2.splits = used, dw2.k_per_split = k_per_split;
   dw2.act = act;
-  dw2.c = buf.dw2_part;
+  dw2.c[0] = buf.dw2_part;
   err = launch_wgmma_gemm<float, kFormTN, kLoadAct, kStoreRound, 256>(h, t, hid, dy, t, w, dw2,
                                                                      stream);
   if (err != cudaSuccess) return err;
@@ -282,7 +282,7 @@ cudaError_t launch_bwd_bf16(const void* x, const void* dy, const void* h, const 
   dw1.ln_inv = inv;
   dw1.ln_gamma = static_cast<const T*>(gamma);
   dw1.ln_beta = static_cast<const T*>(beta);
-  dw1.c = buf.dw1_part;
+  dw1.c[0] = buf.dw1_part;
   return launch_wgmma_gemm<float, kFormTN, kLoadLnB, kStoreRound, 256>(x, t, w, buf.dh, t, hid,
                                                                       dw1, stream);
 }

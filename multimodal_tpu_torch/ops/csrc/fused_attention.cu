@@ -18,9 +18,13 @@
 //   dq    = (ds @ k_h) * sm_scale, dk = (ds^T @ q_h) * sm_scale    scaled in f32, rounded to T
 //
 // This is where the fused backward differs from the block-attention backward, which forms
-// delta and ds from the rounded p (attention_passes.cuh). In float32 rounding is the identity,
-// and delta = rowsum(do * out) from the forward's out equals rowsum(dp * p32) up to the order of
-// the sums.
+// delta and ds from the rounded p. In float32 rounding is the identity, and delta = rowsum(do *
+// out) from the forward's out equals rowsum(dp * p32) up to the order of the sums. The bfloat16
+// kernels below serve the block-attention kernels too (block_attention_fwd.cu,
+// block_attention_bwd.cu, through the C entries at the end of this file): the forward as their
+// attention core at S >= 128, the backward's dQ and dK/dV kernels in their block form (the
+// rounded p, attnpre, two items a pass at S <= 64; "The two forms" below), at D in {32, 64,
+// 128}.
 //
 // One launch forward and two backward. The bfloat16 forward is fused_fwd_kernel below (wgmma
 // fed by TMA); the float32 forward is attention_passes.cuh's forward core, which the block
@@ -487,14 +491,36 @@ cudaError_t fused_fwd(const void* q, const void* k, const void* v, void* out, fl
 //     across a loop edge: every k-step over the head dim runs (zero columns past D), every
 //     tile below a pass's bound, both warpgroups every pass; ragged S and the causal diagonal
 //     go through TMA's zero fill and the masks.
+// The two forms of the backward kernels (a compile-time choice, Ops::kBlock):
+//   * the fused form (kBlock = 0, above): delta from the exact probabilities, ds = round(p32 (dp -
+//     delta));
+//   * the block form (kBlock = 1), the attention half of block_attention_bwd.cu's backward, the
+//     TPU's block_attention.py:_bwd_kernel and _bwd_kernel_large: p rounded to bf16 before every
+//     use, delta = rowsum(dp round(p)), ds = round(round(p) (dp - delta)), and attnpre = round(p v)
+//     emitted. Its dQ kernel's first sweep is the forward's online sweep (S = Q K^T, the online
+//     softmax, acc += round(p) V, one sweep over the keys): it yields the row statistics, attnpre
+//     = round(acc / l) and delta = rowsum(do * acc) / l, which equals rowsum(dp round(p)) for the
+//     probabilities acc was built from (rounded against the running max, as the mma.sync pass of
+//     attention_passes.cuh rounds them; single bf16 steps from the plain version's normalised p).
+//     Its second sweep and the dK/dV kernel round p = 2^(t c - lse) before ds and dv.
+// Both forms take q, k, v, do and their gradients through the tensor maps' row stride (ld
+// elements): the block form reads the planes of its [3, B*S, W] q/k/v scratch and the [B*S, W]
+// do, heads side by side, as the fused form reads [B, S, H*D].
+//
+// Short items (kPack = 1, S <= 64): a 128-row pass would leave more than half of its rows
+// empty, so each warpgroup takes an (image, head) item of its own: a pass holds two items (the
+// item pair 2u, 2u + 1), warpgroup w owning item 2u + w's rows (dQ) or keys (dK/dV) 0..63, its
+// own tiles in the ring; an odd count's last pair repeats the last item in its second warpgroup,
+// whose results are not stored. Every wgmma still runs in both warpgroups.
 struct FusedBwdMaps {  // 4-D tensor maps over [B, S, H, D] with the row stride
   CUtensorMap q, k, v, dout;  // loads
   CUtensorMap dq, dk, dv;     // stores of 64 rows
 };
 
-template <int kDP_, int kKeys_>
+template <int kDP_, int kKeys_, int kBlock_ = 0, int kPack_ = 0>
 struct FusedDqOps {
   static constexpr int kDP = kDP_, kParts = kDP / 64, kDN = kDP / 8;
+  static constexpr bool kBlock = kBlock_, kPack = kPack_;
   static constexpr int kRows = 128;     // a pass: two warpgroups of 64 query rows
   static constexpr int kKeys = kKeys_;  // a K / V tile
   static constexpr int kQBytes = kParts * kRows * kRowBytes;       // Q or dO of a pass
@@ -507,9 +533,10 @@ struct FusedDqOps {
   static constexpr int kBytes = kBarOffset + 8 * (2 * kQBufs + 2 * kSlots) + 1024;  // + align
 };
 
-template <int kDP_>
+template <int kDP_, int kBlock_ = 0, int kPack_ = 0>
 struct FusedDkvOps {
   static constexpr int kDP = kDP_, kParts = kDP / 64, kDN = kDP / 8;
+  static constexpr bool kBlock = kBlock_, kPack = kPack_;
   static constexpr int kKeys = 128;                  // a pass: two warpgroups of 64 keys
   static constexpr int kRowsT = kDP == 64 ? 32 : 16;  // a Q / dO tile, for registers
   // at D = 128 dK and dV take 128 registers a thread: a tile's steps run in turn there
@@ -526,16 +553,40 @@ struct FusedDkvOps {
   static constexpr int kBytes = kBarOffset + 8 * (2 * kKVBufs + 2 * kSlots) + 1024;
 };
 
-// One block an SM walks the (image, head) items; an item is ceil(S / 128) passes of 128 query
-// rows, warpgroup w owning rows 64w..64w+63 of a pass, each pass two sweeps over the key tiles
-// below its causal bound. The lane's rows are those of its warp's C fragments (rows g, g + 8).
+// lo and hi rounded to bf16 together (one cvt.rn.bf16x2.f32) and widened again: two
+// round_to<__nv_bfloat16> for the price of one conversion
+__device__ __forceinline__ void round_pair(float& lo, float& hi) {
+  const uint32_t pk = pack_bf16(lo, hi);
+  lo = __uint_as_float(pk << 16);
+  hi = __uint_as_float(pk & 0xffff0000u);
+}
+
+// A pass's unit of work: an (image, head) item, or with kPack an item pair, warpgroup w taking
+// item 2u + w (the last item again past the end: `live` false, nothing stored)
+struct PassItem {
+  int batch, head;
+  bool live;
+};
+template <bool kPack>
+__device__ __forceinline__ PassItem pass_item(int unit, int w, int items, int heads) {
+  const int want = kPack ? 2 * unit + w : unit;
+  const int item = min(want, items - 1);
+  return {item / heads, item % heads, want < items};
+}
+
+// One block an SM walks the units (items, or item pairs with kPack); an item is ceil(S / 128)
+// passes of 128 query rows, warpgroup w owning rows 64w..64w+63 of a pass (with kPack, rows
+// 0..63 of its own item), each pass two sweeps over the key tiles below its causal bound. The
+// lane's rows are those of its warp's C fragments (rows g, g + 8).
 template <class Ops>
 __global__ void __launch_bounds__(kHopperThreads, 1)
-fused_dq_kernel(const __grid_constant__ FusedBwdMaps maps, float* __restrict__ stats, int b,
-                int s, int heads, float scale, int causal) {
+fused_dq_kernel(const __grid_constant__ FusedBwdMaps maps, float* __restrict__ stats,
+                __nv_bfloat16* __restrict__ attnpre, int ld, int b, int s, int heads, float scale,
+                int causal) {
   constexpr int kRows = Ops::kRows, kKeys = Ops::kKeys, kSlots = Ops::kSlots;
   constexpr int kParts = Ops::kParts, kNT = kKeys / 8, kDN = Ops::kDN, kDP = Ops::kDP;
   constexpr int kQBufs = Ops::kQBufs;
+  constexpr bool kPack = Ops::kPack;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   auto qs = [&](int buf) { return smem + buf * 2 * Ops::kQBytes; };
@@ -547,10 +598,12 @@ fused_dq_kernel(const __grid_constant__ FusedBwdMaps maps, float* __restrict__ s
   uint64_t* kv_full = q_free + kQBufs;
   uint64_t* kv_free = kv_full + kSlots;
 
-  const int items = b * heads, passes = (s + kRows - 1) / kRows;
+  const int items = b * heads, units = kPack ? (items + 1) / 2 : items;
+  const int passes = (s + kRows - 1) / kRows;  // 1 with kPack (S <= 64)
   const int item_tiles = (s + kKeys - 1) / kKeys;
-  // every tile of an item fits the ring: loaded once, kept for all its passes and sweeps
-  const bool resident = item_tiles <= kSlots;
+  const int unit_tiles = (kPack ? 2 : 1) * item_tiles;
+  // every tile of a unit fits the ring: loaded once, kept for all its passes and sweeps
+  const bool resident = unit_tiles <= kSlots;
   auto pass_tiles = [&](int p) {  // the key tiles pass p sees (none past its last row)
     const int kmax = causal ? min(s, (p + 1) * kRows) : s;
     return (kmax + kKeys - 1) / kKeys;
@@ -574,44 +627,50 @@ fused_dq_kernel(const __grid_constant__ FusedBwdMaps maps, float* __restrict__ s
   if (threadIdx.x >= 2 * kWgThreads) {  // the producer warp: one thread issues every copy
     if (threadIdx.x == 2 * kWgThreads) {
       int loads = 0, npass = 0;
-      auto load_q = [&](int batch, int head, int p) {
+      auto load_q = [&](int unit, int p) {
         const int buf = npass % kQBufs;
         if (npass >= kQBufs) mbar_wait(&q_free[buf], (npass / kQBufs - 1) & 1);
         mbar_expect_tx(&q_full[buf], 2 * Ops::kQBytes);
-        for (int part = 0; part < kParts; ++part) {
-          tma_load_4d(qs(buf) + part * kRows * kRowBytes, &maps.q, &q_full[buf], 64 * part, head,
-                      p * kRows, batch);
-          tma_load_4d(dos(buf) + part * kRows * kRowBytes, &maps.dout, &q_full[buf], 64 * part,
-                      head, p * kRows, batch);
+        for (int w = 0; w < (kPack ? 2 : 1); ++w) {  // kPack: a 64-row box for each warpgroup
+          const PassItem it = pass_item<kPack>(unit, w, items, heads);
+          const int off = w * 64 * kRowBytes, row = kPack ? 0 : p * kRows;
+          for (int part = 0; part < kParts; ++part) {
+            tma_load_4d(qs(buf) + part * kRows * kRowBytes + off, &maps.q, &q_full[buf],
+                        64 * part, it.head, row, it.batch);
+            tma_load_4d(dos(buf) + part * kRows * kRowBytes + off, &maps.dout, &q_full[buf],
+                        64 * part, it.head, row, it.batch);
+          }
         }
         ++npass;
       };
-      auto load_kv = [&](int batch, int head, int tiles) {
-        for (int j = 0; j < tiles; ++j, ++loads) {
-          const int slot = loads % kSlots;
-          if (loads >= kSlots) mbar_wait(&kv_free[slot], (loads / kSlots - 1) & 1);
-          mbar_expect_tx(&kv_full[slot], 2 * Ops::kTileBytes);
-          for (int part = 0; part < kParts; ++part) {
-            tma_load_4d(ks(slot) + part * kKeys * kRowBytes, &maps.k, &kv_full[slot], 64 * part,
-                        head, j * kKeys, batch);
-            tma_load_4d(vs(slot) + part * kKeys * kRowBytes, &maps.v, &kv_full[slot], 64 * part,
-                        head, j * kKeys, batch);
+      auto load_kv = [&](int unit, int tiles) {
+        for (int w = 0; w < (kPack ? 2 : 1); ++w) {
+          const PassItem it = pass_item<kPack>(unit, w, items, heads);
+          for (int j = 0; j < tiles; ++j, ++loads) {
+            const int slot = loads % kSlots;
+            if (loads >= kSlots) mbar_wait(&kv_free[slot], (loads / kSlots - 1) & 1);
+            mbar_expect_tx(&kv_full[slot], 2 * Ops::kTileBytes);
+            for (int part = 0; part < kParts; ++part) {
+              tma_load_4d(ks(slot) + part * kKeys * kRowBytes, &maps.k, &kv_full[slot],
+                          64 * part, it.head, j * kKeys, it.batch);
+              tma_load_4d(vs(slot) + part * kKeys * kRowBytes, &maps.v, &kv_full[slot],
+                          64 * part, it.head, j * kKeys, it.batch);
+            }
           }
         }
       };
-      for (int item = blockIdx.x; item < items; item += gridDim.x) {
-        const int batch = item / heads, head = item % heads;
+      for (int unit = blockIdx.x; unit < units; unit += gridDim.x) {
         if (resident) {
-          // the item's K and V first: they wait only for slots that earlier items hold
-          load_kv(batch, head, item_tiles);
-          for (int p = 0; p < passes; ++p) load_q(batch, head, p);
+          // the unit's K and V first: they wait only for slots that earlier units hold
+          load_kv(unit, item_tiles);
+          for (int p = 0; p < passes; ++p) load_q(unit, p);
         } else {
           // a pass's tiles, once for each sweep, may wait for slots this pass releases: its Q
           // and dO come first
           for (int p = 0; p < passes; ++p) {
-            load_q(batch, head, p);
-            load_kv(batch, head, pass_tiles(p));
-            load_kv(batch, head, pass_tiles(p));
+            load_q(unit, p);
+            load_kv(unit, pass_tiles(p));
+            load_kv(unit, pass_tiles(p));
           }
         }
       }
@@ -626,18 +685,24 @@ fused_dq_kernel(const __grid_constant__ FusedBwdMaps maps, float* __restrict__ s
   const size_t plane = (size_t)b * heads * s;
   float acc[kDN][4];
   float sf[kNT][4], dp[kNT][4];  // q k^T then p; do v^T then ds
-  float sn[kNT][4], dn[kNT][4];  // the first sweep's next tile: q k^T, do v^T
-  uint32_t da[kKeys / 16][4];    // ds rounded to bf16: the A fragments of dS K
+  // the fused form's first sweep, its next tile: q k^T, do v^T
+  float sn[Ops::kBlock ? 1 : kNT][4], dn[Ops::kBlock ? 1 : kNT][4];
+  uint32_t da[kKeys / 16][4];    // ds (the block form's first sweep: p) rounded: A fragments
   int loads = 0, npass = 0;
-  for (int item = blockIdx.x; item < items; item += gridDim.x) {
-    const int batch = item / heads, head = item % heads;
-    const int item_base = loads;  // the item's first load (resident)
-    if (resident) loads += item_tiles;
+  for (int unit = blockIdx.x; unit < units; unit += gridDim.x) {
+    const PassItem it = pass_item<kPack>(unit, wg, items, heads);
+    const int batch = it.batch, head = it.head;
+    const int unit_base = loads;  // the unit's first load (resident)
+    if (resident) loads += unit_tiles;
+    const int wg_tiles = kPack ? wg * item_tiles : 0;  // this warpgroup's item's first tile
     for (int p = 0; p < passes; ++p, ++npass) {
       const int r0 = p * kRows, rows = min(kRows, s - r0);
+      // the sequence row of pass row wrow + i is row0 + wrow + i (kPack: the item's own rows)
+      const int row0 = kPack ? -64 * wg : r0;
       const int kmax = causal ? min(s, r0 + rows) : s, tiles = (kmax + kKeys - 1) / kKeys;
       // load index of tile 0 in each sweep
-      const int base1 = resident ? item_base : loads, base2 = resident ? item_base : loads + tiles;
+      const int base1 = resident ? unit_base + wg_tiles : loads;
+      const int base2 = resident ? unit_base + wg_tiles : loads + tiles;
       if (!resident) loads += 2 * tiles;
       const int buf = npass % kQBufs;
       auto landed = [&](int base, int j) {
@@ -673,84 +738,180 @@ fused_dq_kernel(const __grid_constant__ FusedBwdMaps maps, float* __restrict__ s
       };
       mbar_wait(&q_full[buf], (npass / kQBufs) & 1);
 
-      // first sweep: the row max m of the unscaled logits, the sum of exp l and the running
-      // sum of exp(s - m) dp (per-lane partials; the four lanes of a row share m)
-      float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, run[2] = {0.f, 0.f}, alpha[2];
+      // first sweep: the row max m of the unscaled logits and the sum of exp l (per-lane
+      // partials; the four lanes of a row share m); the fused form also the running sum of
+      // exp(s - m) dp, the block form acc = sum round(exp(s - m)) v, rescaled as l is
+      float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
       // the online step of tile j on its landed logits s_: s_ becomes exp(s - m), alpha the
       // factor of the sums kept so far
       auto row_max_sum = [&](int j, float (&s_)[kNT][4]) {
         const int c0 = j * kKeys;
-        if (edge_tile(c0, kKeys, kmax, r0 + wrow, causal))
-          mask_logits<kNT>(s_, r0 + wrow + g, c0 + 2 * t, kmax, causal);
+        if (edge_tile(c0, kKeys, kmax, row0 + wrow, causal))
+          mask_logits<kNT>(s_, row0 + wrow + g, c0 + 2 * t, kmax, causal);
         online_softmax_scaled<kNT>(s_, m, l, alpha, c);
       };
-      auto row_delta = [&] {  // run = run alpha + rowsum(exp(s - m) dp) of the tile in sf, dp
+      // the row's lse in log2 units (p = 2^(t c - off)) and delta
+      float off[2], dl[2];
+      if constexpr (!Ops::kBlock) {
+        float run[2] = {0.f, 0.f};
+        auto row_delta = [&] {  // run = run alpha + rowsum(exp(s - m) dp) of the tile in sf, dp
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float sum = 0.f;
+#pragma unroll
+            for (int n = 0; n < kNT; ++n) {
+              sum = fmaf(sf[n][2 * h], dp[n][2 * h], sum);
+              sum = fmaf(sf[n][2 * h + 1], dp[n][2 * h + 1], sum);
+            }
+            run[h] = fmaf(run[h], alpha[h], sum);
+          }
+        };
+        landed(base1, 0);
+        fence_acc(sf);
+        fence_acc(dp);
+        wgmma_fence();
+        head_products(base1, 0, sf, dp);
+        wgmma_wait<1>();  // S of tile 0
+        fence_acc(sf);
+        row_max_sum(0, sf);
+        wgmma_wait<0>();  // dP of tile 0
+        fence_acc(dp);
+        // Per step: the head products of tile j + 1 go to the tensor cores while tile j's
+        // delta term is summed; tile j + 1's exponentials run while its dP is formed. Nothing
+        // is in flight across the loop's edges.
+        for (int j = 0; j + 1 < tiles; ++j) {
+          landed(base1, j + 1);
+          fence_acc(sn);
+          fence_acc(dn);
+          wgmma_fence();
+          head_products(base1, j + 1, sn, dn);
+          row_delta();
+          release(base1, j);
+          wgmma_wait<1>();  // S of tile j + 1
+          fence_acc(sn);
+          row_max_sum(j + 1, sn);
+          wgmma_wait<0>();  // dP of tile j + 1
+          fence_acc(dn);
+#pragma unroll
+          for (int n = 0; n < kNT; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              sf[n][e] = sn[n][e];
+              dp[n][e] = dn[n][e];
+            }
+        }
+        row_delta();
+        release(base1, tiles - 1);
+        // delta = rowsum(dp p32); rows past s are never stored (their dO is zero, so their ds
+        // is 0)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          float sum = 0.f;
-#pragma unroll
-          for (int n = 0; n < kNT; ++n) {
-            sum = fmaf(sf[n][2 * h], dp[n][2 * h], sum);
-            sum = fmaf(sf[n][2 * h + 1], dp[n][2 * h + 1], sum);
-          }
-          run[h] = fmaf(run[h], alpha[h], sum);
+          const float sum = quad_sum(l[h]);
+          off[h] = fmaf(m[h], c, __log2f(sum));
+          dl[h] = quad_sum(run[h]) / sum;
         }
-      };
-      landed(base1, 0);
-      fence_acc(sf);
-      fence_acc(dp);
-      wgmma_fence();
-      head_products(base1, 0, sf, dp);
-      wgmma_wait<1>();  // S of tile 0
-      fence_acc(sf);
-      row_max_sum(0, sf);
-      wgmma_wait<0>();  // dP of tile 0
-      fence_acc(dp);
-      // Per step: the head products of tile j + 1 go to the tensor cores while tile j's delta
-      // term is summed; tile j + 1's exponentials run while its dP is formed. Nothing is in
-      // flight across the loop's edges.
-      for (int j = 0; j + 1 < tiles; ++j) {
-        landed(base1, j + 1);
-        fence_acc(sn);
-        fence_acc(dn);
+      } else {
+        // S of tile j into sf, issued and committed
+        auto logits = [&](int j) {
+          const uint64_t k_desc = k_major(ks((base1 + j) % kSlots), 0);
+#pragma unroll
+          for (int kk = 0; kk < kDP / 16; ++kk)
+            wgmma_bf16_ss<kKeys>(sf, q_desc + k_step<kRows>(kk), k_desc + k_step<kKeys>(kk),
+                                 kk > 0);
+          wgmma_commit();
+        };
+        // acc += P V of tile j, P rounded to bf16 as it was packed into da (masked keys: 0)
+        auto values = [&](int j) {
+          const uint64_t v_desc = mn_major<kKeys>(vs((base1 + j) % kSlots));
+#pragma unroll
+          for (int kk = 0; kk < kKeys / 16; ++kk)
+            wgmma_bf16_rs<kDP>(acc, da[kk], v_desc + mn_step(kk), 1);
+          wgmma_commit();
+        };
+        auto pack_p = [&] {
+#pragma unroll
+          for (int kk = 0; kk < kKeys / 16; ++kk) pack_a<kNT>(da[kk], sf, kk);
+        };
+        zero_acc(acc);
+        landed(base1, 0);
+        fence_acc(sf);
         wgmma_fence();
-        head_products(base1, j + 1, sn, dn);
-        row_delta();
-        release(base1, j);
-        wgmma_wait<1>();  // S of tile j + 1
-        fence_acc(sn);
-        row_max_sum(j + 1, sn);
-        wgmma_wait<0>();  // dP of tile j + 1
-        fence_acc(dn);
+        logits(0);
+        wgmma_wait<0>();
+        fence_acc(sf);
+        row_max_sum(0, sf);  // acc is 0: no rescale
+        pack_p();
+        // Per step: S of tile j + 1 and P V of tile j go to the tensor cores together; the
+        // softmax of tile j + 1 runs as soon as its logits land, while P V still runs.
+        for (int j = 0; j + 1 < tiles; ++j) {
+          landed(base1, j + 1);
+          fence_acc(sf);
+          fence_acc(acc);
+          fence_acc(da);
+          wgmma_fence();
+          logits(j + 1);
+          values(j);
+          wgmma_wait<1>();  // S of tile j + 1
+          fence_acc(sf);
+          row_max_sum(j + 1, sf);
+          wgmma_wait<0>();  // P V of tile j
+          fence_acc(acc);
+          fence_acc(da);
+          release(base1, j);
+          scale_acc(acc, alpha);
+          pack_p();
+        }
+        fence_acc(acc);
+        fence_acc(da);
+        wgmma_fence();
+        values(tiles - 1);
+        wgmma_wait<0>();
+        fence_acc(acc);
+        fence_acc(da);
+        release(base1, tiles - 1);
+        // attnpre = acc / l rounded once; delta = rowsum(do * acc) / l, do from the pass's dO
+        // tile (zeros past d), the lane's columns 8n + 2t, + 1 of its rows
+        float inv[2], dsum[2] = {0.f, 0.f};
 #pragma unroll
-        for (int n = 0; n < kNT; ++n)
+        for (int h = 0; h < 2; ++h) {
+          const float sum = quad_sum(l[h]);
+          off[h] = fmaf(m[h], c, __log2f(sum));
+          inv[h] = 1.f / sum;
+          const int r = wrow + g + 8 * h;  // the row in the dO tile
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            sf[n][e] = sn[n][e];
-            dp[n][e] = dn[n][e];
+          for (int n = 0; n < kDN; ++n) {
+            const unsigned char* at = dos(buf) + (n / 8) * kRows * kRowBytes + r * kRowBytes +
+                                      (((n % 8) ^ (r & 7)) << 4) + 4 * t;
+            const float2 dov =
+                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(at));
+            dsum[h] = fmaf(dov.x, acc[n][2 * h], dsum[h]);
+            dsum[h] = fmaf(dov.y, acc[n][2 * h + 1], dsum[h]);
           }
+          dl[h] = quad_sum(dsum[h]) * inv[h];
+        }
+        if (it.live) {
+          const int first = row0 + wrow;  // the warp's first sequence row
+          const int d = ld / heads;
+          store_c<kDN>(attnpre + ((size_t)batch * s + first) * ld + (size_t)head * d, ld, 0,
+                       s - first, d, inv, acc, lane);
+        }
       }
-      row_delta();
-      release(base1, tiles - 1);
-      // the row's lse in log2 units (p = 2^(t c - off)) and delta = rowsum(dp p32); rows past
-      // s are never stored (their dO is zero, so their ds is 0)
-      float off[2], dl[2];
+      if (it.live) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float sum = quad_sum(l[h]);
-        off[h] = fmaf(m[h], c, __log2f(sum));
-        dl[h] = quad_sum(run[h]) / sum;
-        const int row = r0 + wrow + g + 8 * h;
-        if (t == 0 && row < s) {
-          const size_t at = ((size_t)batch * heads + head) * s + row;
-          stats[at] = off[h];
-          stats[plane + at] = dl[h];
+        for (int h = 0; h < 2; ++h) {
+          const int row = row0 + wrow + g + 8 * h;
+          if (t == 0 && row < s) {
+            const size_t at = ((size_t)batch * heads + head) * s + row;
+            stats[at] = off[h];
+            stats[plane + at] = dl[h];
+          }
         }
       }
 
-      // second sweep: p = 2^(t c - off) from the final statistics, ds = p (dp - delta) from the
-      // exact p, rounded as it is packed, dq += ds K. `masked` (std::true_type): the tile holds
-      // a key past s or, under the causal mask, past one of the warp's rows
+      // second sweep: p = 2^(t c - off) from the final statistics (the block form: rounded to
+      // bf16), ds = p (dp - delta), rounded as it is packed, dq += ds K. `masked`
+      // (std::true_type): the tile holds a key past s or, under the causal mask, past one of
+      // the warp's rows
       auto tile_ds = [&](int c0, auto masked) {
 #pragma unroll
         for (int n = 0; n < kNT; ++n)
@@ -758,15 +919,26 @@ fused_dq_kernel(const __grid_constant__ FusedBwdMaps maps, float* __restrict__ s
           for (int e = 0; e < 4; ++e) {
             float pr = ex2(fmaf(sf[n][e], c, -off[e >> 1]));
             if constexpr (decltype(masked)::value) {
-              const int key = c0 + 8 * n + 2 * t + (e & 1), row = r0 + wrow + g + 8 * (e >> 1);
+              const int key = c0 + 8 * n + 2 * t + (e & 1);
+              const int row = row0 + wrow + g + 8 * (e >> 1);
               pr = key < s && (!causal || key <= row) ? pr : 0.f;
             }
-            dp[n][e] = __fmul_rn(pr, __fsub_rn(dp[n][e], dl[e >> 1]));
+            sf[n][e] = pr;
           }
+#pragma unroll
+        for (int n = 0; n < kNT; ++n) {
+          if constexpr (Ops::kBlock) {  // the block form's p, rounded to bf16
+            round_pair(sf[n][0], sf[n][1]);
+            round_pair(sf[n][2], sf[n][3]);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[n][e] = __fmul_rn(sf[n][e], __fsub_rn(dp[n][e], dl[e >> 1]));
+        }
       };
       auto probabilities = [&](int j) {
         const int c0 = j * kKeys;
-        if (edge_tile(c0, kKeys, kmax, r0 + wrow, causal))
+        if (edge_tile(c0, kKeys, kmax, row0 + wrow, causal))
           tile_ds(c0, std::true_type{});
         else
           tile_ds(c0, std::false_type{});
@@ -825,28 +997,31 @@ fused_dq_kernel(const __grid_constant__ FusedBwdMaps maps, float* __restrict__ s
       fence_proxy_async();
       named_bar_sync(1 + wg, kWgThreads);
       if (issuer) {
-        for (int part = 0; part < kParts; ++part)
-          tma_store_4d(&maps.dq, out_rows + part * kRows * kRowBytes, 64 * part, head,
-                       r0 + wg * 64, batch);
-        bulk_commit();
+        if (it.live) {
+          for (int part = 0; part < kParts; ++part)
+            tma_store_4d(&maps.dq, out_rows + part * kRows * kRowBytes, 64 * part, head,
+                         row0 + wg * 64, batch);
+          bulk_commit();
+        }
         bulk_wait_read<0>();
       }
       named_bar_sync(1 + wg, kWgThreads);
       if (lane == 0) mbar_arrive(&q_free[buf]);  // this warp is done with the pass's Q and dO
     }
-    if (resident) {  // every pass of the item is done with its K and V
+    if (resident) {  // every pass of the unit is done with its K and V
       __syncwarp();
       if (lane == 0)
-        for (int j = 0; j < item_tiles; ++j) mbar_arrive(&kv_free[(item_base + j) % kSlots]);
+        for (int j = 0; j < unit_tiles; ++j) mbar_arrive(&kv_free[(unit_base + j) % kSlots]);
     }
   }
   if (issuer) bulk_wait<0>();  // the last store is written
 }
 
-// One block an SM walks the (image, head) items; an item is ceil(S / 128) passes of 128 keys,
-// warpgroup w owning keys 64w..64w+63 of a pass, each pass one sweep over the Q and dO tiles of
-// the rows that see its keys (under the causal mask from its first key). The lane's keys are
-// rows g and g + 8 of its warp's 16 and its query rows 8n + 2t and 8n + 2t + 1 of the tile.
+// One block an SM walks the units (items, or item pairs with kPack); an item is ceil(S / 128)
+// passes of 128 keys, warpgroup w owning keys 64w..64w+63 of a pass (with kPack, keys 0..63 of
+// its own item), each pass one sweep over the Q and dO tiles of the rows that see its keys
+// (under the causal mask from its first key). The lane's keys are rows g and g + 8 of its
+// warp's 16 and its query rows 8n + 2t and 8n + 2t + 1 of the tile.
 template <class Ops>
 __global__ void __launch_bounds__(kHopperThreads, 1)
 fused_dkv_kernel(const __grid_constant__ FusedBwdMaps maps, const float* __restrict__ stats,
@@ -854,6 +1029,7 @@ fused_dkv_kernel(const __grid_constant__ FusedBwdMaps maps, const float* __restr
   constexpr int kKeys = Ops::kKeys, kRows = Ops::kRowsT, kSlots = Ops::kSlots;
   constexpr int kParts = Ops::kParts, kNT = kRows / 8, kDN = Ops::kDN, kDP = Ops::kDP;
   constexpr int kKVBufs = Ops::kKVBufs;
+  constexpr bool kPack = Ops::kPack;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   auto ks = [&](int buf) { return smem + buf * 2 * Ops::kKVBytes; };
@@ -869,10 +1045,12 @@ fused_dkv_kernel(const __grid_constant__ FusedBwdMaps maps, const float* __restr
   uint64_t* full = kv_free + kKVBufs;
   uint64_t* freed = full + kSlots;
 
-  const int items = b * heads, passes = (s + kKeys - 1) / kKeys;
+  const int items = b * heads, units = kPack ? (items + 1) / 2 : items;
+  const int passes = (s + kKeys - 1) / kKeys;  // 1 with kPack (S <= 64)
   const int item_tiles = (s + kRows - 1) / kRows;
-  // every Q / dO tile of an item fits the ring: loaded once, kept for all its passes
-  const bool resident = item_tiles <= kSlots;
+  const int unit_tiles = (kPack ? 2 : 1) * item_tiles;
+  // every Q / dO tile of a unit fits the ring: loaded once, kept for all its passes
+  const bool resident = unit_tiles <= kSlots;
   // the first tile pass p sees: under the causal mask no row before its first key sees it
   auto first_tile = [&](int p) { return causal ? p * kKeys / kRows : 0; };
   const size_t plane = (size_t)b * heads * s;
@@ -895,54 +1073,60 @@ fused_dkv_kernel(const __grid_constant__ FusedBwdMaps maps, const float* __restr
   if (threadIdx.x >= 2 * kWgThreads) {  // the producer warp: its lanes write the rows' stats
     const int lane = threadIdx.x & 31;
     int loads = 0, npass = 0;
-    auto load_kv = [&](int batch, int head, int p) {
+    auto load_kv = [&](int unit, int p) {
       const int buf = npass % kKVBufs;
       if (npass >= kKVBufs) mbar_wait(&kv_free[buf], (npass / kKVBufs - 1) & 1);
       if (lane == 0) {
         mbar_expect_tx(&kv_full[buf], 2 * Ops::kKVBytes);
-        for (int part = 0; part < kParts; ++part) {
-          tma_load_4d(ks(buf) + part * kKeys * kRowBytes, &maps.k, &kv_full[buf], 64 * part,
-                      head, p * kKeys, batch);
-          tma_load_4d(vs(buf) + part * kKeys * kRowBytes, &maps.v, &kv_full[buf], 64 * part,
-                      head, p * kKeys, batch);
+        for (int w = 0; w < (kPack ? 2 : 1); ++w) {  // kPack: 64 keys of each warpgroup's item
+          const PassItem it = pass_item<kPack>(unit, w, items, heads);
+          const int off = w * 64 * kRowBytes, key = kPack ? 0 : p * kKeys;
+          for (int part = 0; part < kParts; ++part) {
+            tma_load_4d(ks(buf) + part * kKeys * kRowBytes + off, &maps.k, &kv_full[buf],
+                        64 * part, it.head, key, it.batch);
+            tma_load_4d(vs(buf) + part * kKeys * kRowBytes + off, &maps.v, &kv_full[buf],
+                        64 * part, it.head, key, it.batch);
+          }
         }
       }
       ++npass;
     };
-    auto load_rows = [&](int batch, int head, int i0) {
-      const size_t at = ((size_t)batch * heads + head) * s;
-      for (int i = i0; i < item_tiles; ++i, ++loads) {
-        const int slot = loads % kSlots, q0 = i * kRows;
-        if (loads >= kSlots) mbar_wait(&freed[slot], (loads / kSlots - 1) & 1);
-        float* rs = row_stats(slot);
-        for (int r = lane; r < kRows; r += 32) {  // 0 for a row past s: masked
-          const bool live = q0 + r < s;
-          rs[r] = live ? stats[at + q0 + r] : 0.f;
-          rs[kRows + r] = live ? stats[plane + at + q0 + r] : 0.f;
-        }
-        if (lane == 0) {  // its arrival carries the copies' bytes
-          mbar_expect_tx(&full[slot], 2 * Ops::kTileBytes);
-          for (int part = 0; part < kParts; ++part) {
-            tma_load_4d(qs(slot) + part * kRows * kRowBytes, &maps.q, &full[slot], 64 * part,
-                        head, q0, batch);
-            tma_load_4d(dos(slot) + part * kRows * kRowBytes, &maps.dout, &full[slot],
-                        64 * part, head, q0, batch);
+    auto load_rows = [&](int unit, int i0) {
+      for (int w = 0; w < (kPack ? 2 : 1); ++w) {
+        const PassItem it = pass_item<kPack>(unit, w, items, heads);
+        const size_t at = ((size_t)it.batch * heads + it.head) * s;
+        for (int i = i0; i < item_tiles; ++i, ++loads) {
+          const int slot = loads % kSlots, q0 = i * kRows;
+          if (loads >= kSlots) mbar_wait(&freed[slot], (loads / kSlots - 1) & 1);
+          float* rs = row_stats(slot);
+          for (int r = lane; r < kRows; r += 32) {  // 0 for a row past s: masked
+            const bool live = q0 + r < s;
+            rs[r] = live ? stats[at + q0 + r] : 0.f;
+            rs[kRows + r] = live ? stats[plane + at + q0 + r] : 0.f;
           }
-        } else {
-          mbar_arrive(&full[slot]);
+          if (lane == 0) {  // its arrival carries the copies' bytes
+            mbar_expect_tx(&full[slot], 2 * Ops::kTileBytes);
+            for (int part = 0; part < kParts; ++part) {
+              tma_load_4d(qs(slot) + part * kRows * kRowBytes, &maps.q, &full[slot], 64 * part,
+                          it.head, q0, it.batch);
+              tma_load_4d(dos(slot) + part * kRows * kRowBytes, &maps.dout, &full[slot],
+                          64 * part, it.head, q0, it.batch);
+            }
+          } else {
+            mbar_arrive(&full[slot]);
+          }
         }
       }
     };
-    for (int item = blockIdx.x; item < items; item += gridDim.x) {
-      const int batch = item / heads, head = item % heads;
+    for (int unit = blockIdx.x; unit < units; unit += gridDim.x) {
       if (resident) {
-        // the item's rows first: they wait only for slots that earlier items hold
-        load_rows(batch, head, 0);
-        for (int p = 0; p < passes; ++p) load_kv(batch, head, p);
+        // the unit's rows first: they wait only for slots that earlier units hold
+        load_rows(unit, 0);
+        for (int p = 0; p < passes; ++p) load_kv(unit, p);
       } else {
         for (int p = 0; p < passes; ++p) {
-          load_kv(batch, head, p);
-          load_rows(batch, head, first_tile(p));
+          load_kv(unit, p);
+          load_rows(unit, first_tile(p));
         }
       }
     }
@@ -957,14 +1141,18 @@ fused_dkv_kernel(const __grid_constant__ FusedBwdMaps maps, const float* __restr
   float pt[kNT][4], dst[kNT][4];                  // k q^T then p^T; v do^T then ds^T
   uint32_t pa[kRows / 16][4], da[kRows / 16][4];  // p^T and ds^T rounded: A fragments
   int loads = 0, npass = 0;
-  for (int item = blockIdx.x; item < items; item += gridDim.x) {
-    const int batch = item / heads, head = item % heads;
-    const int item_base = loads;  // the item's first load (resident)
-    if (resident) loads += item_tiles;
+  for (int unit = blockIdx.x; unit < units; unit += gridDim.x) {
+    const PassItem it = pass_item<kPack>(unit, wg, items, heads);
+    const int batch = it.batch, head = it.head;
+    const int unit_base = loads;  // the unit's first load (resident)
+    if (resident) loads += unit_tiles;
+    const int wg_tiles = kPack ? wg * item_tiles : 0;  // this warpgroup's item's first tile
     for (int p = 0; p < passes; ++p, ++npass) {
-      const int j0 = p * kKeys, warp_key = j0 + krow;
+      // the key of pass row krow + i is key0 + krow + i (kPack: the item's own keys)
+      const int key0 = kPack ? -64 * wg : p * kKeys, warp_key = key0 + krow;
       const int i0 = first_tile(p), tiles = item_tiles - i0;
-      const int base = resident ? item_base + i0 : loads;  // load index of the pass's tile 0
+      // load index of the pass's tile 0
+      const int base = resident ? unit_base + wg_tiles + i0 : loads;
       if (!resident) loads += tiles;
       const int buf = npass % kKVBufs;
       auto slot = [&](int i) { return (base + i) % kSlots; };
@@ -984,7 +1172,8 @@ fused_dkv_kernel(const __grid_constant__ FusedBwdMaps maps, const float* __restr
         wgmma_commit();
       };
       // p^T and ds^T of a tile in place, from its landed head products and its rows'
-      // statistics; `masked` (std::true_type): the tile holds a masked entry
+      // statistics (the block form rounds p to bf16 first); `masked` (std::true_type): the
+      // tile holds a masked entry
       auto tile_probabilities = [&](int q0, const float* rs, auto masked) {
 #pragma unroll
         for (int n = 0; n < kNT; ++n) {
@@ -998,9 +1187,15 @@ fused_dkv_kernel(const __grid_constant__ FusedBwdMaps maps, const float* __restr
               const int key = warp_key + g + 8 * (e >> 1), row = q0 + cl + (e & 1);
               pr = key < s && row < s && (!causal || key <= row) ? pr : 0.f;
             }
-            pt[n][e] = pr;  // the bfloat16 packing rounds it for dv; ds takes it exact
-            dst[n][e] = __fmul_rn(pr, __fsub_rn(dst[n][e], (e & 1) ? dl.y : dl.x));
+            pt[n][e] = pr;  // the bfloat16 packing rounds it for dv; the fused ds takes it exact
           }
+          if constexpr (Ops::kBlock) {  // the block form's p, rounded to bf16
+            round_pair(pt[n][0], pt[n][1]);
+            round_pair(pt[n][2], pt[n][3]);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dst[n][e] = __fmul_rn(pt[n][e], __fsub_rn(dst[n][e], (e & 1) ? dl.y : dl.x));
         }
       };
       auto probabilities = [&](int i) {
@@ -1109,41 +1304,46 @@ fused_dkv_kernel(const __grid_constant__ FusedBwdMaps maps, const float* __restr
       fence_proxy_async();
       named_bar_sync(1 + wg, kWgThreads);
       if (issuer) {
-        for (int part = 0; part < kParts; ++part) {
-          tma_store_4d(&maps.dk, k_rows + part * kKeys * kRowBytes, 64 * part, head,
-                       j0 + wg * 64, batch);
-          tma_store_4d(&maps.dv, v_rows + part * kKeys * kRowBytes, 64 * part, head,
-                       j0 + wg * 64, batch);
+        if (it.live) {
+          for (int part = 0; part < kParts; ++part) {
+            tma_store_4d(&maps.dk, k_rows + part * kKeys * kRowBytes, 64 * part, head,
+                         key0 + wg * 64, batch);
+            tma_store_4d(&maps.dv, v_rows + part * kKeys * kRowBytes, 64 * part, head,
+                         key0 + wg * 64, batch);
+          }
+          bulk_commit();
         }
-        bulk_commit();
         bulk_wait_read<0>();
       }
       named_bar_sync(1 + wg, kWgThreads);
       if (lane == 0) mbar_arrive(&kv_free[buf]);  // this warp is done with the pass's K and V
     }
-    if (resident) {  // every pass of the item is done with its Q and dO tiles
+    if (resident) {  // every pass of the unit is done with its Q and dO tiles
       __syncwarp();
       if (lane == 0)
-        for (int i = 0; i < item_tiles; ++i) mbar_arrive(&freed[(item_base + i) % kSlots]);
+        for (int i = 0; i < unit_tiles; ++i) mbar_arrive(&freed[(unit_base + i) % kSlots]);
     }
   }
   if (issuer) bulk_wait<0>();  // the last stores are written
 }
 
-// q, k, v, dout, dq, dk, dv: [B, S, heads * d] bfloat16; stats: float32 [2][B heads S]
-cudaError_t fused_bwd_wgmma(const void* q, const void* k, const void* v, const void* dout,
-                            float* stats, void* dq, void* dk, void* dv, int b, int s, int heads,
-                            int d, float scale, int causal, cudaStream_t stream) {
+
+// q, k, v, dout, dq, dk, dv: rows of `ld` elements, head h's d columns at h d, batch entries s
+// rows apart ([B, S, heads d] packed, or the block kernels' planes); stats: float32 [2][B heads
+// S]; attnpre: the block form's, as q (null in the fused form)
+template <int kBlock>
+cudaError_t bwd_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                      float* stats, void* attnpre, void* dq, void* dk, void* dv, int b, int s,
+                      int heads, int d, size_t ld, float scale, int causal,
+                      cudaStream_t stream) {
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const size_t ld = (size_t)heads * d;
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
   const long long items = static_cast<long long>(b) * heads;
   if (items > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const dim3 grid(static_cast<unsigned>(items < sms ? items : sms));  // one block an SM
   FusedBwdMaps maps = {};
   if (!encode_heads(encode, &maps.dq, dq, b, s, heads, d, 64, ld) ||
       !encode_heads(encode, &maps.dk, dk, b, s, heads, d, 64, ld) ||
@@ -1155,30 +1355,41 @@ cudaError_t fused_bwd_wgmma(const void* q, const void* k, const void* v, const v
            encode_heads(encode, &maps.k, k, b, s, heads, d, k_rows, ld) &&
            encode_heads(encode, &maps.v, v, b, s, heads, d, k_rows, ld);
   };
+  auto grid_of = [&](bool pack) {  // one block an SM, at most one a unit
+    const long long units = pack ? (items + 1) / 2 : items;
+    return dim3(static_cast<unsigned>(units < sms ? units : sms));
+  };
   auto launch_dq = [&](auto ops) -> cudaError_t {
     using Ops = decltype(ops);
-    if (!encode_all(Ops::kRows, Ops::kKeys)) return cudaErrorInvalidValue;
+    if (!encode_all(Ops::kPack ? 64 : Ops::kRows, Ops::kKeys)) return cudaErrorInvalidValue;
     cudaError_t e = allow_smem(fused_dq_kernel<Ops>, Ops::kBytes);
     if (e != cudaSuccess) return e;
-    fused_dq_kernel<Ops><<<grid, kHopperThreads, Ops::kBytes, stream>>>(maps, stats, b, s, heads,
-                                                                       scale, causal);
+    fused_dq_kernel<Ops><<<grid_of(Ops::kPack), kHopperThreads, Ops::kBytes, stream>>>(
+        maps, stats, static_cast<__nv_bfloat16*>(attnpre), static_cast<int>(ld), b, s, heads,
+        scale, causal);
     return cudaGetLastError();
   };
   auto launch_dkv = [&](auto ops) -> cudaError_t {
     using Ops = decltype(ops);
-    if (!encode_all(Ops::kRowsT, Ops::kKeys)) return cudaErrorInvalidValue;
+    if (!encode_all(Ops::kRowsT, Ops::kPack ? 64 : Ops::kKeys)) return cudaErrorInvalidValue;
     cudaError_t e = allow_smem(fused_dkv_kernel<Ops>, Ops::kBytes);
     if (e != cudaSuccess) return e;
-    fused_dkv_kernel<Ops><<<grid, kHopperThreads, Ops::kBytes, stream>>>(maps, stats, b, s, heads,
-                                                                        scale, causal);
+    fused_dkv_kernel<Ops><<<grid_of(Ops::kPack), kHopperThreads, Ops::kBytes, stream>>>(
+        maps, stats, b, s, heads, scale, causal);
     return cudaGetLastError();
   };
-  if (d > 64) {
-    err = launch_dq(FusedDqOps<128, 32>{});
-    return err != cudaSuccess ? err : launch_dkv(FusedDkvOps<128>{});
+  auto pair = [&](auto dq_ops, auto dkv_ops) {
+    const cudaError_t e = launch_dq(dq_ops);
+    return e != cudaSuccess ? e : launch_dkv(dkv_ops);
+  };
+  if constexpr (kBlock) {
+    if (s <= 64) {  // two items a pass
+      if (d > 64) return pair(FusedDqOps<128, 32, 1, 1>{}, FusedDkvOps<128, 1, 1>{});
+      return pair(FusedDqOps<64, 64, 1, 1>{}, FusedDkvOps<64, 1, 1>{});
+    }
   }
-  err = launch_dq(FusedDqOps<64, 64>{});
-  return err != cudaSuccess ? err : launch_dkv(FusedDkvOps<64>{});
+  if (d > 64) return pair(FusedDqOps<128, 32, kBlock>{}, FusedDkvOps<128, kBlock>{});
+  return pair(FusedDqOps<64, 64, kBlock>{}, FusedDkvOps<64, kBlock>{});
 }
 
 // float32: delta = rowsum(dout * out) of every query row, into [B, heads, S] as the flash dQ and
@@ -1258,8 +1469,8 @@ int mmt_fused_attention_bwd(int dtype, const void* q, const void* k, const void*
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* sp = static_cast<float*>(stats);
   if (dtype == 1)
-    return (int)fused_bwd_wgmma(q, k, v, dout, sp, dq, dk, dv, b, s, heads, d, sm_scale, causal,
-                                st);
+    return (int)bwd_wgmma<0>(q, k, v, dout, sp, nullptr, dq, dk, dv, b, s, heads, d,
+                             (size_t)heads * d, sm_scale, causal, st);
   if (dtype != 0 || out == nullptr || lse == nullptr) return (int)cudaErrorInvalidValue;
   const long long rows = (long long)b * s * heads;
   const long long blocks = (rows + kDeltaWarps - 1) / kDeltaWarps;
@@ -1272,6 +1483,28 @@ int mmt_fused_attention_bwd(int dtype, const void* q, const void* k, const void*
   if (err != (int)cudaSuccess) return err;
   return mmt_flash_attention_dkv(0, q, k, v, dout, lse, sp, dk, dv, b, s, s, heads, d, causal,
                                  sm_scale, stream);
+}
+
+// The block-attention kernels' attention halves on wgmma (block_attention_fwd.cu,
+// block_attention_bwd.cu), bfloat16, for D in {32, 64, 128}: q, k, v, dout and the outputs are
+// rows of `ld` elements, head h's d columns at h d, batch entries s rows apart (the planes of
+// the [3, B*S, W] q/k/v scratch, ld = W). The forward core is the fused forward (the same
+// function: both round the normalised p before p v); the backward's dQ and dK/dV kernels run in
+// their block form, with attnpre. stats: float32 [2, B*heads*S] scratch.
+int mmt_block_attention_core_wgmma(const void* q, const void* k, const void* v, void* out, int b,
+                                   int s, int heads, int d, int ld, int causal, float scale,
+                                   void* stream) {
+  return (int)fused_fwd_wgmma(q, k, v, out, b, s, heads, d, (size_t)ld, scale, causal,
+                              static_cast<cudaStream_t>(stream));
+}
+
+int mmt_block_attention_bwd_wgmma(const void* q, const void* k, const void* v,
+                                  const void* dout, void* stats, void* attnpre, void* dq,
+                                  void* dk, void* dv, int b, int s, int heads, int d, int ld,
+                                  int causal, float scale, void* stream) {
+  return (int)bwd_wgmma<1>(q, k, v, dout, static_cast<float*>(stats), attnpre, dq, dk, dv, b, s,
+                           heads, d, (size_t)ld, scale, causal,
+                           static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 // The Hopper (sm_90a) pieces shared by the kernels that feed wgmma from TMA: int8_gemm.cu's
 // int8 GEMM, flash_attention.cu's and fused_attention.cu's bfloat16 kernels (through
-// wgmma_attention.cuh) and wgmma_gemm.cuh's bfloat16 GEMM of the fused MLP branch.
+// wgmma_attention.cuh) and wgmma_gemm.cuh's bfloat16 GEMM of the fused MLP and block kernels.
 //
 //   * the dynamic shared memory from its first 1024-byte aligned address;
 //   * mbarriers: init, arrive, arrive with an expected transaction count, and a wait that traps

@@ -1,7 +1,8 @@
-// The projection GEMM of the block kernels on the tensor cores: every product of the
-// block-attention forward and backward (block_attention_fwd.cu, block_attention_bwd.cu) and of
-// the fused MLP branch in float32 (block_mlp.cu; its bfloat16 products run wgmma_gemm.cuh, the
-// same forms, loads and stores on wgmma, and the TN form runs in float32 only). Three forms:
+// The float32 projection GEMM of the block kernels on the tensor cores: every float32 product of
+// the block-attention forward and backward (block_attention_fwd.cu, block_attention_bwd.cu) and
+// of the fused MLP branch (block_mlp.cu). Their bfloat16 products run wgmma_gemm.cuh, the same
+// forms, loads and stores on wgmma; this header keeps the bf16 LN transforms that GEMM's loads
+// share (ln_bf16x8, ln_b_bf16x8). Three forms:
 //
 //   NN: C_z = A' @ B_z + bias_z for z = blockIdx.z < 3, one A [M, K] shared by up to three
 //       weight sets B_z [K, N] row-major (q, k, v = x @ Wq|Wk|Wv + b; out = attn @ Wo + bo;
@@ -20,19 +21,17 @@
 // and gamma, beta by column (the forward's LayerNorm, folded into q/k/v and into c_fc); act,
 // round_T(act(f32(a))) (g from the saved h, dW2's A); LN-b, round_T((x32 - mean) * inv) *
 // gamma_T + beta_T rounding after each step, with the statistics of the contraction row (the MLP
-// backward's form of LN(x)). Each thread transforms the 16-byte chunks it copied itself, right
+// backward's form of LN(x)); in float32 each rounding is the identity, and the bfloat16 forms
+// (ln_bf16x8, ln_b_bf16x8 below) are wgmma_gemm.cuh's. Each thread transforms the 16-byte chunks
+// it copied itself, right
 // after its cp.async group has landed and before the barrier that precedes the fragment loads:
 // its own copies are visible to it, so the transform costs no barrier of its own. Rows past the
 // ragged edge stay the zeros cp.async wrote (LN-b of a zero row would be beta, and its
 // statistics lie past the end of their buffer). The transform runs once for every column block
 // that reads the tile (N / 128 of them: 18-24 for LN at ViT-B widths, 4-8 for act at W =
 // 512-1024), so its cost is its instruction count: the LN form reads the block's row
-// statistics, rounded once, from shared memory, and in bfloat16 both LN forms do their
-// bf16-operand steps on bf16 pairs (ln_chunk); the act form evaluates act_fwd in f32 an element
-// (an expf and a division). Measured on the H100 (PERF.md): per-element scalar code with the
-// statistics read from device memory every step ran the LN-folded q/k/v forward at 2.18 ms
-// against 1.25 without the fold; the act form as the MLP forward c_proj's NN load ran c_proj at
-// 79-106 TFLOP/s in bfloat16, where g written once by c_fc's store lets it run 229-278.
+// statistics, rounded once, from shared memory; the act form evaluates act_fwd in f32 an
+// element (an expf and a division).
 //
 // The store (kStore): round, the bias (when given) added in f32 and one rounding to TOut
 // (TOut = float keeps the sum unrounded: the LN backward's g, dln, the TN partials); residual,
@@ -54,15 +53,8 @@
 // warps owns a 128 x 128 tile of C, each warp a 64 x 32 tile (4 x 4 fragments of 16 x 8), and
 // walks K in steps of 64 through a ring of three shared-memory stages filled by 16-byte
 // cp.async, so two steps are in flight while one multiplies; one __syncthreads a step. Steps
-// of 64 were measured 14% faster than steps of 32 in bfloat16 and 6% in float32, and warp
-// tiles of 64 x 64 (256-row blocks, one an SM) slower in bfloat16 (PERF.md).
-//   * bfloat16: m16n8k16 on bf16 operands with f32 accumulation, as the SIMT kernel it
-//     replaces summed exact products in f32: the same function up to the order of the sums.
-//     Tiles are stored with rows padded by 8 elements (an odd multiple of 16 bytes, so the
-//     eight rows of an ldmatrix fall in eight bank groups). A fragments and the NT form's B
-//     (whose rows are output columns) load with ldmatrix; the TN form's A and the NN and TN
-//     forms' B, whose tile rows are the contraction index, with ldmatrix.trans.
-//   * float32: 3xTF32 on m16n8k8 (tf32_tiles.cuh): every operand split once into a TF32 big
+// of 64 were measured 6% faster than steps of 32 (PERF.md).
+//   * 3xTF32 on m16n8k8 (tf32_tiles.cuh): every operand split once into a TF32 big
 //     part and the rest, three products summed in f32, the small terms first, in three rounds
 //     over the warp's sixteen independent accumulators; about 2^-20 relative a product, so the
 //     1e-4 x max|plain| limit holds at K = 2304 where one TF32 product breaks it (the CPU
@@ -71,9 +63,9 @@
 //     contraction index cannot (.trans moves 16-bit elements) and is read as 32-bit scalars
 //     from rows of 136 floats, 8 mod 32 banks, so (k = t, column g) falls in bank 8t + g: no
 //     conflict.
-// Launch bounds: two blocks an SM in bfloat16 (102-106 KB of shared memory each), one in
-// float32 (204-205 KB, and the split fragments beside 64 accumulators need more than 128
-// registers). The f32 accumulation of the tensor cores loses a little with every add, so the
+// Launch bounds: one block an SM (204-205 KB of shared memory, and the split fragments beside 64
+// accumulators need more than 128 registers). The f32 accumulation of the tensor cores loses a
+// little with every add, so the
 // error of one sum grows with K: the TN form's callers bound the rows of a float32 split.
 
 #pragma once
@@ -121,8 +113,8 @@ constexpr int kGemmWarpsM = 2, kGemmWarpsN = 4, kGemmMT = 4, kGemmNT = 4;
 constexpr int kGemmBM = 16 * kGemmMT * kGemmWarpsM, kGemmBN = 8 * kGemmNT * kGemmWarpsN;
 constexpr int kGemmBK = 64, kGemmStages = 3;  // K-step and shared-memory ring
 constexpr int kMmaGemmThreads = 32 * kGemmWarpsM * kGemmWarpsN;
-// blocks an SM the launch bounds ask for (a register budget): bfloat16, float32
-constexpr int kGemmMinBlocksBf16 = 2, kGemmMinBlocksF32 = 1;
+// blocks an SM the launch bounds ask for (a register budget)
+constexpr int kGemmMinBlocks = 1;
 
 struct MmaGemmArgs {
   const void* a[3];     // NN, TN: a[0] is A; NT: A_z
@@ -146,8 +138,7 @@ struct MmaGemmArgs {
 // (NN, NT) or [kGemmBK][kLdB] (TN); B is [kGemmBN][kLdA] (NT) or [kGemmBK][kLdB] (NN, TN)
 template <typename T, int kForm>
 struct GemmLayout {
-  static constexpr bool kF32 = std::is_same_v<T, float>;
-  static constexpr int kLdA = kGemmBK + (kF32 ? 4 : 8);
+  static constexpr int kLdA = kGemmBK + 4;
   static constexpr int kLdB = kGemmBN + 8;
   static constexpr int kAElems = kForm == kFormTN ? kGemmBK * kLdB : kGemmBM * kLdA;
   static constexpr int kStage = kAElems + (kForm == kFormNT ? kGemmBN * kLdA : kGemmBK * kLdB);
@@ -207,9 +198,6 @@ __device__ __forceinline__ void vec16_store(T* p, const float (&v)[16 / sizeof(T
 __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
 
 // bf16 pairs (two bf16 in a b32 register) - and * and +, each rounded once to nearest. The
 // explicit .rn forbids ptxas to fuse a product with the sum after it into one fma, which would
@@ -231,11 +219,12 @@ __device__ __forceinline__ uint32_t bf2_add(uint32_t a, uint32_t b) {
 }
 
 // The load transforms of one landed 16-byte chunk p of A in shared memory, whose elements are
-// A[row][col..] as A lies in memory; gamma and beta point at the chunk's columns. In bfloat16
-// the steps that take two bf16 operands run on bf16 pairs, which for normal values gives the
-// bits of the f32 operation rounded to bf16: a product of two bf16 values is exact in f32, and
-// a sum or difference is exact in f32 unless the exponents differ by more than 16, when both
-// round to the larger operand.
+// A[row][col..] as A lies in memory; gamma and beta point at the chunk's columns. The bfloat16
+// forms (wgmma_gemm.cuh's loads, and the block backward's ln_out) run the steps that take two
+// bf16 operands on bf16 pairs, which for normal values gives the bits of the f32 operation
+// rounded to bf16: a product of two bf16 values is exact in f32, and a sum or difference is
+// exact in f32 unless the exponents differ by more than 16, when both round to the larger
+// operand.
 //
 // LN: ((x - mean_t) * inv_t) * gamma + beta, rounding after every operation (ln_apply);
 // mean_t, inv_t are the row's statistics rounded to T
@@ -257,12 +246,6 @@ __device__ __forceinline__ uint4 ln_bf16x8(uint4 v, float2 st, uint4 gm, uint4 b
   };
   return make_uint4(ln2(v.x, gm.x, bt.x), ln2(v.y, gm.y, bt.y), ln2(v.z, gm.z, bt.z),
                     ln2(v.w, gm.w, bt.w));
-}
-__device__ __forceinline__ void ln_chunk(__nv_bfloat16* p, float2 st, const __nv_bfloat16* gamma,
-                                         const __nv_bfloat16* beta) {
-  *reinterpret_cast<uint4*>(p) =
-      ln_bf16x8(*reinterpret_cast<const uint4*>(p), st, *reinterpret_cast<const uint4*>(gamma),
-                *reinterpret_cast<const uint4*>(beta));
 }
 
 // LN-b: round_T((x32 - mean) * inv) * gamma_T + beta_T with f32 statistics, rounding after each
@@ -312,21 +295,16 @@ __device__ __forceinline__ void act_chunk(T* p, int act) {
 __device__ __forceinline__ void store2(float* p, float lo, float hi) {
   *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
 }
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float lo, float hi) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(lo, hi);
-}
 
 template <typename T, typename TOut, int kForm, int kLoad, int kStore>
-__global__ void __launch_bounds__(kMmaGemmThreads,
-                                  std::is_same_v<T, float> ? kGemmMinBlocksF32
-                                                           : kGemmMinBlocksBf16)
+__global__ void __launch_bounds__(kMmaGemmThreads, kGemmMinBlocks)
 mma_gemm_kernel(MmaGemmArgs args) {
+  static_assert(std::is_same_v<T, float>, "bfloat16 GEMMs run wgmma_gemm.cuh");
   constexpr bool kNN = kForm == kFormNN, kNT = kForm == kFormNT, kTN = kForm == kFormTN;
   static_assert(kLoad == kLoadPlain || (kNN && kLoad == kLoadLn) ||
                     (kTN && (kLoad == kLoadAct || kLoad == kLoadLnB)),
                 "LN loads in the NN form, act and LN-b in the TN form");
   static_assert(kStore == kStoreRound || std::is_same_v<T, TOut>, "a rounded store");
-  static_assert(!kTN || std::is_same_v<T, float>, "bfloat16 weight gradients run wgmma_gemm.cuh");
   using L = GemmLayout<T, kForm>;
   constexpr int kLdA = L::kLdA, kLdB = L::kLdB, kStage = L::kStage;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -411,72 +389,48 @@ mma_gemm_kernel(MmaGemmArgs args) {
     cp_async_commit();
     const T* as = smem + (i % kGemmStages) * kStage;
     const T* bs = as + L::kAElems;
-    if constexpr (!L::kF32) {
 #pragma unroll
-      for (int kk = 0; kk < kGemmBK; kk += 16) {
-        uint32_t a[kGemmMT][4], b[kGemmNT][2];
+    for (int kk = 0; kk < kGemmBK; kk += 8) {
+      uint32_t a_big[kGemmMT][4], a_small[kGemmMT][4];
+      uint32_t b_big[kGemmNT][2], b_small[kGemmNT][2];
 #pragma unroll
-        for (int mt = 0; mt < kGemmMT; ++mt) {
-          load_a(a[mt], as, kLdA, wm + 16 * mt, kk, lane);
-        }
-#pragma unroll
-        for (int nt = 0; nt < kGemmNT; nt += 2) {
+      for (int mt = 0; mt < kGemmMT; ++mt) {
+        if constexpr (kTN) {  // a0 (m g, k t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+          const T* p = as + (kk + t) * kLdB + wm + 16 * mt + g;
+          split_tf32(p[0], a_big[mt][0], a_small[mt][0]);
+          split_tf32(p[8], a_big[mt][1], a_small[mt][1]);
+          split_tf32(p[4 * kLdB], a_big[mt][2], a_small[mt][2]);
+          split_tf32(p[4 * kLdB + 8], a_big[mt][3], a_small[mt][3]);
+        } else {
           uint32_t x[4];
-          if constexpr (!kNT)  // rows k, columns n: transposed
-            ldsm_x4_trans(x, bs + (kk + (j & 1) * 8 + r) * kLdB + wn + 8 * nt + (j >> 1) * 8);
-          else  // rows n, columns k
-            ldsm_x4(x, bs + (wn + 8 * nt + (j >> 1) * 8 + r) * kLdA + kk + (j & 1) * 8);
-          b[nt][0] = x[0], b[nt][1] = x[1], b[nt + 1][0] = x[2], b[nt + 1][1] = x[3];
+          load_a_f32(x, as, kLdA, wm + 16 * mt, kk, lane);
+          split_frag(x, a_big[mt], a_small[mt]);
         }
+      }
+#pragma unroll
+      for (int nt = 0; nt < kGemmNT; ++nt) {
+        if constexpr (!kNT) {  // b0 (k = t, column g), b1 (k = t + 4, column g)
+          const T* p = bs + (kk + t) * kLdB + wn + 8 * nt + g;
+          split_tf32(p[0], b_big[nt][0], b_small[nt][0]);
+          split_tf32(p[4 * kLdB], b_big[nt][1], b_small[nt][1]);
+        } else if (nt % 2 == 0) {  // two n-tiles a 32-bit ldmatrix.x4
+          uint32_t x[4], big[4], small[4];
+          ldsm_x4(x, bs + (wn + 8 * nt + (j >> 1) * 8 + r) * kLdA + kk + (j & 1) * 4);
+          split_frag(x, big, small);
+          b_big[nt][0] = big[0], b_big[nt][1] = big[1];
+          b_big[nt + 1][0] = big[2], b_big[nt + 1][1] = big[3];
+          b_small[nt][0] = small[0], b_small[nt][1] = small[1];
+          b_small[nt + 1][0] = small[2], b_small[nt + 1][1] = small[3];
+        }
+      }
+#pragma unroll
+      for (int round = 0; round < 3; ++round)
 #pragma unroll
         for (int mt = 0; mt < kGemmMT; ++mt)
 #pragma unroll
-          for (int nt = 0; nt < kGemmNT; ++nt) mma_bf16(acc[mt][nt], a[mt], b[nt][0], b[nt][1]);
-      }
-    } else {
-#pragma unroll
-      for (int kk = 0; kk < kGemmBK; kk += 8) {
-        uint32_t a_big[kGemmMT][4], a_small[kGemmMT][4];
-        uint32_t b_big[kGemmNT][2], b_small[kGemmNT][2];
-#pragma unroll
-        for (int mt = 0; mt < kGemmMT; ++mt) {
-          if constexpr (kTN) {  // a0 (m g, k t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
-            const T* p = as + (kk + t) * kLdB + wm + 16 * mt + g;
-            split_tf32(p[0], a_big[mt][0], a_small[mt][0]);
-            split_tf32(p[8], a_big[mt][1], a_small[mt][1]);
-            split_tf32(p[4 * kLdB], a_big[mt][2], a_small[mt][2]);
-            split_tf32(p[4 * kLdB + 8], a_big[mt][3], a_small[mt][3]);
-          } else {
-            uint32_t x[4];
-            load_a_f32(x, as, kLdA, wm + 16 * mt, kk, lane);
-            split_frag(x, a_big[mt], a_small[mt]);
-          }
-        }
-#pragma unroll
-        for (int nt = 0; nt < kGemmNT; ++nt) {
-          if constexpr (!kNT) {  // b0 (k = t, column g), b1 (k = t + 4, column g)
-            const T* p = bs + (kk + t) * kLdB + wn + 8 * nt + g;
-            split_tf32(p[0], b_big[nt][0], b_small[nt][0]);
-            split_tf32(p[4 * kLdB], b_big[nt][1], b_small[nt][1]);
-          } else if (nt % 2 == 0) {  // two n-tiles a 32-bit ldmatrix.x4
-            uint32_t x[4], big[4], small[4];
-            ldsm_x4(x, bs + (wn + 8 * nt + (j >> 1) * 8 + r) * kLdA + kk + (j & 1) * 4);
-            split_frag(x, big, small);
-            b_big[nt][0] = big[0], b_big[nt][1] = big[1];
-            b_big[nt + 1][0] = big[2], b_big[nt + 1][1] = big[3];
-            b_small[nt][0] = small[0], b_small[nt][1] = small[1];
-            b_small[nt + 1][0] = small[2], b_small[nt + 1][1] = small[3];
-          }
-        }
-#pragma unroll
-        for (int round = 0; round < 3; ++round)
-#pragma unroll
-          for (int mt = 0; mt < kGemmMT; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < kGemmNT; ++nt)
-              mma_round(acc[mt][nt], round, a_big[mt], a_small[mt], b_big[nt][0], b_big[nt][1],
-                        b_small[nt][0], b_small[nt][1]);
-      }
+          for (int nt = 0; nt < kGemmNT; ++nt)
+            mma_round(acc[mt][nt], round, a_big[mt], a_small[mt], b_big[nt][0], b_big[nt][1],
+                      b_small[nt][0], b_small[nt][1]);
     }
   }
   cp_async_wait<0>();  // only empty groups can remain: nothing is left in flight at exit

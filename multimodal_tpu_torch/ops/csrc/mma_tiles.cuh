@@ -1,7 +1,7 @@
-// Warp-level tensor-core pieces of the bfloat16 attention passes (attention_passes.cuh), flash
-// kernels (flash_attention.cu) and projection GEMM (mma_gemm.cuh): 16-byte asynchronous
-// copies into shared memory, ldmatrix fragment loads and the mma.sync.m16n8k16 product (bf16
-// operands, f32 accumulation).
+// Warp-level tensor-core pieces of the bfloat16 attention passes (attention_passes.cuh), with
+// the 16-byte asynchronous copies and ldmatrix loads that the float32 flash kernels
+// (flash_attention.cu) and projection GEMM (mma_gemm.cuh) share: copies into shared memory,
+// ldmatrix fragment loads and the mma.sync.m16n8k16 product (bf16 operands, f32 accumulation).
 //
 // A block of four warps owns a 64-row tile; warp w owns its rows 16w..16w+15. Tiles sit in
 // shared memory as bf16, row-major, with a row stride of kDP + 8 elements, where kDP is the

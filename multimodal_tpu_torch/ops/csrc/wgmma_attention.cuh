@@ -1,6 +1,7 @@
 // The pieces shared by the bfloat16 attention kernels that run wgmma fed by TMA:
 // flash_attention.cu's forward, dQ and dK/dV (flash_*_kernel<WgmmaOps>) and fused_attention.cu's
-// forward (fused_fwd_kernel).
+// forward, dQ and dK/dV (fused_*_kernel, which the block-attention kernels' attention half runs
+// too).
 //
 //   * the block: two consumer warpgroups of 64 rows and one producer warp, 288 threads, one
 //     block an SM; a release of a ring stage is one arrival from each consumer warp;

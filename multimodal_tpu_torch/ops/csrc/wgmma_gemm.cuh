@@ -1,25 +1,43 @@
-// The bfloat16 GEMM of the fused MLP branch (block_mlp.cu) on Hopper's warpgroup tensor-core
-// instructions, fed by TMA: every bf16 product of the forward (c_fc, c_proj) and of the backward
-// (dh, dln, dW2, dW1). float32 keeps mma_gemm.cuh's 3xTF32 GEMM, and so do the block-attention
-// kernels in both dtypes. The contract is mma_gemm.cuh's for the forms, load transforms and
-// stores the MLP launches (that header spells them out):
+// The bfloat16 GEMM on Hopper's warpgroup tensor-core instructions, fed by TMA: every bf16 product
+// of the fused MLP branch (block_mlp.cu: c_fc, c_proj forward; dh, dln, dW2, dW1 backward) and
+// of the block-attention kernels (block_attention_fwd.cu, block_attention_bwd.cu: q/k/v, the out
+// projection, do and dx). float32 keeps mma_gemm.cuh's 3xTF32 GEMM in both. The contract is
+// mma_gemm.cuh's for the forms, load transforms and stores these launches use (that header
+// spells them out):
 //
-//   NN  C = A' @ B + bias       A [M, K] K-major; B [K, N] row-major, so MN-major
-//   NT  C = A @ W^T             A [M, K]; W [N, K], both K-major
+//   NN  C_z = A' @ B_z + bias_z  A [M, K] K-major; B_z [K, N] row-major, so MN-major; up to
+//       kSets weight sets in one launch (q, k, v = x @ Wq|Wk|Wv + b), set z its own tiles
+//   NT  C = sum_z A_z @ W_z^T    A_z [M, K]; W_z [N, K], both K-major; up to kSets segments
+//       walked as one stream of K-steps into one f32 sum (dx = [dq | dk | dv] @ [Wq; Wk; Wv]^T
+//       over K = 3W)
 //   TN  C_z = A'[K_z, M]^T @ B[K_z, N] over split z's token rows K_z (a multiple of the K-step
 //       of 64 long, the last one ragged at T); A and B [K, .] row-major, both MN-major; one f32
 //       partial [M, N] per split
 //
-// with the LN load (c_fc: ln_bf16x8, the row's statistics rounded to bf16), the act load (dW2:
-// g = round(act(f32(h))) from the saved h) and the LN-b load (dW1: ln_b_bf16x8 with the
-// contraction row's f32 statistics), and the stores round (+ bias; float out for dln and the TN
-// partials), bias-residual (c_proj), round+act (c_fc: h, and g beside it by the same function
-// dW2's act load runs, so the two g are the same bits) and act' (dh, with db1's column
-// partials). Every store rounds where mma_gemm.cuh's does and the LN transforms are its bf16
-// arithmetic; the activation and its derivative are evaluated on the special-function unit
-// (act_fwd_fast, act_bwd_fast: ex2.approx and an approximate reciprocal, a few ulp of f32 where
-// act_fwd's expf and division are within one), because the act load evaluates T x H x N / 256
-// activations and ran at half the speed of the same product without it.
+// with the LN load (c_fc and the block forward's q/k/v: ln_bf16x8, the row's statistics rounded
+// to bf16), the act load (dW2: g = round(act(f32(h))) from the saved h) and the LN-b load (dW1:
+// ln_b_bf16x8 with the contraction row's f32 statistics), and the stores round (+ bias; float
+// out for dln, the block LN backward's g and the TN partials), residual (the block forward's
+// out projection with the residual: bias, one rounding to bf16, + x, a second rounding),
+// bias-residual (c_proj: bias and residual added in f32, one rounding), round+act (c_fc: h,
+// and g beside it by the same function dW2's act load runs, so the two g are the same bits) and
+// act' (dh, with db1's column partials). Every store rounds where mma_gemm.cuh's does and the
+// LN transforms are its bf16 arithmetic; the activation and its derivative are evaluated on
+// the special-function unit (act_fwd_fast, act_bwd_fast: ex2.approx and an approximate
+// reciprocal, a few ulp of f32 where act_fwd's expf and division are within one), because the
+// act load evaluates T x H x N / 256 activations and ran at half the speed of the same product
+// without it.
+//
+// kSets (1 or 3) is the number of operand sets a launch can take: 1 for the MLP's products, 3
+// for every block-attention product (the q/k/v NN and the dx NT take three; the out projection
+// and do run the same instantiations with one), so each block-attention GEMM is an
+// instantiation of its own and a profile tells it from the MLP's. The sets' tensor maps travel
+// in one __grid_constant__ struct (WgmmaMaps: up to six 128-byte maps, 768 bytes of the 4 KB
+// parameter space), chosen per tile (NN) or per K-step (NT) by selects on their addresses: no
+// activation is copied into a concatenated buffer. The block backward recomputes q, k and v by
+// the NN form on ln_out, where the forward's LN form transforms x on its landed tiles: the two
+// run the same mainloop over the same K order, and ln_rows_kernel writes ln_out with
+// ln_bf16x8, the function of the LN load, so their q, k and v are the same bits.
 //
 // Design. A block is two consumer warpgroups (256 threads), each owning 64 rows of a 128 x kBN
 // tile of C, its sum in registers (m64nNk16 with N = kBN: kBN / 2 floats a thread). K is walked in
@@ -172,28 +190,46 @@ __device__ __forceinline__ void quad_values(const float (&acc)[kN][4], int jj, i
 }
 
 struct WgmmaGemmArgs {
-  int m, n, k;           // C [m, n]; the contraction k (TN: the token rows T)
+  int m, n, k;           // C [m, n]; the contraction k (TN: the token rows T; NT: a segment's)
   int splits;            // TN: splits of the token rows (1 otherwise)
+  int sets;              // NN: weight sets, NT: K segments (kSets = 3 only; 1 otherwise)
   int k_per_split;       // TN: token rows a split owns, a multiple of kWgmmaBK
   const float* ln_mean;  // LN: by row of A; LN-b: by token row, f32
   const float* ln_inv;
   const __nv_bfloat16* ln_gamma;  // LN: [k]; LN-b: [m]
   const __nv_bfloat16* ln_beta;
-  const __nv_bfloat16* bias;      // [n] or null
-  const __nv_bfloat16* residual;  // bias-residual: [m, n]
+  const __nv_bfloat16* bias[3];   // NN: set z's [n] or null; otherwise bias[0] or null
+  const __nv_bfloat16* residual;  // residual, bias-residual: [m, n]
   const __nv_bfloat16* h;         // act': the pre-activation [m, n]
   int act;                        // act load, round+act and act' stores
-  void* c;                        // [m, n] (TN: [splits, m, n] f32)
+  void* c[3];                     // NN: set z's [m, n]; otherwise c[0] ([m, n]; TN: [splits,
+                                  // m, n] f32)
   __nv_bfloat16* g_out;           // round+act: [m, n]
   float* col_part;                // act': [ceil(m / 128), n]
 };
 
-template <typename T, typename TOut, int kForm, int kLoad, int kStore, int kBN>
+// the tensor maps of a launch: A_z and B_z of each operand set (NN: a[0] alone)
+template <int kSets>
+struct WgmmaMaps {
+  CUtensorMap a[kSets], b[kSets];
+};
+
+// &maps[z] by selects on the addresses: an index into the parameter space at run time
+template <int kSets>
+__device__ __forceinline__ const CUtensorMap* pick_map(const CUtensorMap (&maps)[kSets], int z) {
+  if constexpr (kSets == 1)
+    return &maps[0];
+  else
+    return z == 0 ? &maps[0] : (z == 1 ? &maps[1] : &maps[2]);
+}
+
+template <typename T, typename TOut, int kForm, int kLoad, int kStore, int kBN, int kSets>
 __global__ void __launch_bounds__(kWgmmaThreads, WgmmaLayout<kBN>::kBlocksPerSm)
-wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
-                  const __grid_constant__ CUtensorMap map_b, const WgmmaGemmArgs args) {
+wgmma_gemm_kernel(const __grid_constant__ WgmmaMaps<kSets> maps, const WgmmaGemmArgs args) {
   static_assert(std::is_same_v<T, __nv_bfloat16>, "wgmma_gemm_kernel is the bfloat16 GEMM");
-  constexpr bool kNT = kForm == kFormNT, kTN = kForm == kFormTN;
+  static_assert(kSets == 1 || kSets == 3, "one operand set, or the block kernels' three");
+  constexpr bool kNN = kForm == kFormNN, kNT = kForm == kFormNT, kTN = kForm == kFormTN;
+  static_assert(kSets == 1 || !kTN, "the TN form takes one operand set");
   static_assert(kLoad == kLoadPlain || (kForm == kFormNN && kLoad == kLoadLn) ||
                     (kTN && (kLoad == kLoadAct || kLoad == kLoadLnB)),
                 "LN loads in the NN form, act and LN-b in the TN form");
@@ -213,24 +249,33 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
   // the thread's chunks of its warpgroup's A part: chunk column cj, rows rj + 16i (i < 4)
   const int cj = tid & 7, rj = (tid & 127) >> 3;
   const int m = args.m, n = args.n;
+  const int sets = kSets == 1 ? 1 : args.sets;
+  const int ksteps = (args.k + kWgmmaBK - 1) / kWgmmaBK;  // NN, NT: a segment's K-steps
   const int tiles_n = (n + kBN - 1) / kBN, tiles_m = (m + kWgmmaBM - 1) / kWgmmaBM;
-  const int tiles = tiles_n * tiles_m * (kTN ? args.splits : 1);
+  const int tiles = tiles_n * tiles_m * (kTN ? args.splits : (kNN ? sets : 1));
   const int mine = tiles > static_cast<int>(blockIdx.x)
                        ? (tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x
                        : 0;
   struct Tile {
     int m0, n0, z, k_begin, k_end, steps;
   };
-  // this block's i-th tile: N fastest, then M, then the split
+  // this block's i-th tile: N fastest, then M, then the split (TN); N fastest, then the
+  // weight set, then M (NN: the sets' tiles of a row block share its A tiles in L2)
   auto tile_at = [&](int i) {
     const int q = static_cast<int>(blockIdx.x) + i * static_cast<int>(gridDim.x);
     Tile tl;
     tl.n0 = q % tiles_n * kBN;
-    tl.m0 = q / tiles_n % tiles_m * kWgmmaBM;
-    tl.z = q / (tiles_n * tiles_m);
+    if constexpr (kTN) {
+      tl.m0 = q / tiles_n % tiles_m * kWgmmaBM;
+      tl.z = q / (tiles_n * tiles_m);
+    } else {
+      tl.z = kNN ? q / tiles_n % sets : 0;
+      tl.m0 = q / (tiles_n * (kNN ? sets : 1)) * kWgmmaBM;
+    }
     tl.k_begin = kTN ? tl.z * args.k_per_split : 0;
     tl.k_end = kTN ? min(args.k, tl.k_begin + args.k_per_split) : args.k;
-    tl.steps = (tl.k_end - tl.k_begin + kWgmmaBK - 1) / kWgmmaBK;
+    tl.steps = kTN ? (tl.k_end - tl.k_begin + kWgmmaBK - 1) / kWgmmaBK
+                   : (kNT ? sets : 1) * ksteps;  // NT: the segments' steps in turn
     return tl;
   };
 
@@ -251,22 +296,26 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
     if (p_i >= mine) return;
     const int s = p_g % kStages;
     if (p_g >= kStages) mbar_wait(&freed[s], (p_g / kStages - 1) & 1);
-    const int k0 = p_tile.k_begin + p_kt * kWgmmaBK;
+    // NT: the step's segment, and its k0 within it; NN: the tile's weight set
+    const int seg = kNT ? p_kt / ksteps : 0;
+    const int k0 = p_tile.k_begin + (kNT ? p_kt - seg * ksteps : p_kt) * kWgmmaBK;
+    const CUtensorMap* map_a = pick_map<kSets>(maps.a, seg);
+    const CUtensorMap* map_b = pick_map<kSets>(maps.b, kNN ? p_tile.z : seg);
     unsigned char* as = smem + s * L::kStageBytes;
     unsigned char* bs = as + kWgmmaATileBytes;
     mbar_expect_tx(&full[s], L::kStageBytes);
     if constexpr (kTN) {  // [64 token rows][64 columns of M] twice
-      tma_load_2d(as, &map_a, &full[s], p_tile.m0, k0);
-      tma_load_2d(as + kWgmmaPartBytes, &map_a, &full[s], p_tile.m0 + 64, k0);
+      tma_load_2d(as, map_a, &full[s], p_tile.m0, k0);
+      tma_load_2d(as + kWgmmaPartBytes, map_a, &full[s], p_tile.m0 + 64, k0);
     } else {  // [128 rows of M][64 of K]
-      tma_load_2d(as, &map_a, &full[s], k0, p_tile.m0);
+      tma_load_2d(as, map_a, &full[s], k0, p_tile.m0);
     }
     if constexpr (kNT) {  // [kBN rows of N][64 of K]
-      tma_load_2d(bs, &map_b, &full[s], k0, p_tile.n0);
+      tma_load_2d(bs, map_b, &full[s], k0, p_tile.n0);
     } else {  // [64 rows of K][64 columns of N], kBN / 64 times
 #pragma unroll
       for (int part = 0; part < kBN / 64; ++part)
-        tma_load_2d(bs + part * kWgmmaPartBytes, &map_b, &full[s], p_tile.n0 + 64 * part, k0);
+        tma_load_2d(bs + part * kWgmmaPartBytes, map_b, &full[s], p_tile.n0 + 64 * part, k0);
     }
     ++p_g;
     if (++p_kt == p_tile.steps) {
@@ -283,7 +332,8 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
   zero_acc(acc);
   // act' and bias-residual: the tile's h or residual, 4 bf16 of each of the lane's two rows a
   // 16-column group, loaded before the tile's last step so that their latency hides behind it
-  constexpr bool kSide = kStore == kStoreActGrad || kStore == kStoreBiasResidual;
+  constexpr bool kSide =
+      kStore == kStoreActGrad || kStore == kStoreBiasResidual || kStore == kStoreResidual;
   uint2 side[kSide ? kBN / 16 : 1][2];
   const bool odd = t & 1;
   const int quad = odd ? 2 * t + 6 : 2 * t;
@@ -382,14 +432,15 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
     // (quad_values), so that a quad of lanes stores a row's 16 values whole; rows past M are not
     // stored (nor summed), nor columns past N (a 256-wide tile at N = 128 mod 256)
     const int row0 = tl.m0 + 64 * wg + 16 * (warp & 3) + g;
-    TOut* c = static_cast<TOut*>(args.c);
+    TOut* c = static_cast<TOut*>(kNN ? pick3(args.c, tl.z) : args.c[0]);
     if constexpr (kTN) c += static_cast<size_t>(tl.z) * m * n;
+    const T* bias = kNN ? pick3(args.bias, tl.z) : args.bias[0];
 #pragma unroll
     for (int jj = 0; jj < kBN / 16; ++jj) {
       const int col = tl.n0 + 16 * jj + quad;
       if (tl.n0 + 16 * jj >= n) break;
       float b[4] = {};
-      if (args.bias != nullptr) load4(args.bias + col, b);
+      if (bias != nullptr) load4(bias + col, b);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = row0 + 8 * h;
@@ -412,6 +463,11 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
           load4(reinterpret_cast<const T*>(&side[jj][h]), rv);
 #pragma unroll
           for (int e = 0; e < 4; ++e) v[e] = __fadd_rn(v[e], rv[e]);
+        } else if constexpr (kStore == kStoreResidual) {  // round, + x, round again (store4)
+          float rv[4];
+          load4(reinterpret_cast<const T*>(&side[jj][h]), rv);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) v[e] = __fadd_rn(round_to<T>(v[e]), rv[e]);
         } else if constexpr (kStore == kStoreRoundAct) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) gv[e] = act_round_fast(round_to<T>(v[e]), args.act);
@@ -460,22 +516,13 @@ bool encode_bf16_2d(EncodeTiled encode, CUtensorMap* map, const void* ptr, int r
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// One launch: A [a_rows, a_cols] and B [b_rows, b_cols] as they lie in memory (NN: A [M, K],
-// B [K, N]; NT: A [M, K], B [N, K]; TN: A [K, M], B [K, N]); a persistent grid of at most
-// kBlocksPerSm blocks an SM over the args.splits x M/128 x N/kBN tiles
-template <typename TOut, int kForm, int kLoad, int kStore, int kBN>
-cudaError_t launch_wgmma_gemm(const void* a, int a_rows, int a_cols, const void* b, int b_rows,
-                              int b_cols, const WgmmaGemmArgs& args, cudaStream_t stream) {
+// One launch over encoded maps: a persistent grid of at most kBlocksPerSm blocks an SM over the
+// tiles (TN: args.splits x M/128 x N/kBN; NN: args.sets x M/128 x N/kBN; NT: M/128 x N/kBN)
+template <typename TOut, int kForm, int kLoad, int kStore, int kBN, int kSets>
+cudaError_t launch_wgmma_maps(const WgmmaMaps<kSets>& maps, const WgmmaGemmArgs& args,
+                              cudaStream_t stream) {
   using L = WgmmaLayout<kBN>;
-  const EncodeTiled encode = tensor_map_encoder();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  // a K-major operand comes in [rows][64 of K] boxes, an MN-major one in [64 rows of K][64]
-  const int a_box = kForm == kFormTN ? 64 : kWgmmaBM, b_box = kForm == kFormNT ? kBN : 64;
-  CUtensorMap map_a = {}, map_b = {};
-  if (!encode_bf16_2d(encode, &map_a, a, a_rows, a_cols, a_box) ||
-      !encode_bf16_2d(encode, &map_b, b, b_rows, b_cols, b_box))
-    return cudaErrorInvalidValue;
-  auto* kernel = wgmma_gemm_kernel<__nv_bfloat16, TOut, kForm, kLoad, kStore, kBN>;
+  auto* kernel = wgmma_gemm_kernel<__nv_bfloat16, TOut, kForm, kLoad, kStore, kBN, kSets>;
   cudaError_t err = allow_smem(kernel, L::kBytes);
   if (err != cudaSuccess) return err;
   int device = 0, sms = 0;
@@ -483,13 +530,53 @@ cudaError_t launch_wgmma_gemm(const void* a, int a_rows, int a_cols, const void*
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
+  const int z = kForm == kFormTN ? args.splits : (kForm == kFormNN && kSets > 1 ? args.sets : 1);
   const long long tiles = static_cast<long long>((args.n + kBN - 1) / kBN) *
-                          ((args.m + kWgmmaBM - 1) / kWgmmaBM) * args.splits;
+                          ((args.m + kWgmmaBM - 1) / kWgmmaBM) * z;
   const long long blocks = static_cast<long long>(L::kBlocksPerSm) * sms;
   if (tiles < 1 || tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   const dim3 grid(static_cast<unsigned>(tiles < blocks ? tiles : blocks));
-  kernel<<<grid, kWgmmaThreads, L::kBytes, stream>>>(map_a, map_b, args);
+  kernel<<<grid, kWgmmaThreads, L::kBytes, stream>>>(maps, args);
   return cudaGetLastError();
+}
+
+// the MLP's launches, one operand set: A [a_rows, a_cols] and B [b_rows, b_cols] as they lie in
+// memory (NN: A [M, K], B [K, N]; NT: A [M, K], B [N, K]; TN: A [K, M], B [K, N])
+template <typename TOut, int kForm, int kLoad, int kStore, int kBN>
+cudaError_t launch_wgmma_gemm(const void* a, int a_rows, int a_cols, const void* b, int b_rows,
+                              int b_cols, const WgmmaGemmArgs& args, cudaStream_t stream) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  // a K-major operand comes in [rows][64 of K] boxes, an MN-major one in [64 rows of K][64]
+  const int a_box = kForm == kFormTN ? 64 : kWgmmaBM, b_box = kForm == kFormNT ? kBN : 64;
+  WgmmaMaps<1> maps = {};
+  if (!encode_bf16_2d(encode, &maps.a[0], a, a_rows, a_cols, a_box) ||
+      !encode_bf16_2d(encode, &maps.b[0], b, b_rows, b_cols, b_box))
+    return cudaErrorInvalidValue;
+  return launch_wgmma_maps<TOut, kForm, kLoad, kStore, kBN, 1>(maps, args, stream);
+}
+
+// The block-attention kernels' launches (kSets = 3, 128-wide tiles), m = M rows, every operand
+// [*, w] or [w, w] with K = w a segment: NN, C_z = A @ B_z + bias_z for z < sets, A [M, w] (a[0])
+// and B_z [w, w]; NT, C = sum_z A_z @ B_z^T over z < sets, A_z [M, w] and B_z [w, w] ([in, out]
+// weights read as their transpose). args.m, n, k and sets are set here.
+template <typename TOut, int kForm, int kLoad, int kStore>
+cudaError_t launch_block_gemm(const void* const* a, const void* const* b, int sets, int m, int w,
+                              WgmmaGemmArgs args, cudaStream_t stream) {
+  static_assert(kForm == kFormNN || kForm == kFormNT, "the block kernels' forms");
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  if (sets < 1 || sets > 3) return cudaErrorInvalidValue;
+  constexpr int kBBox = kForm == kFormNT ? 128 : 64;
+  WgmmaMaps<3> maps = {};
+  for (int z = 0; z < sets; ++z) {
+    if ((kForm == kFormNT || z == 0) &&
+        !encode_bf16_2d(encode, &maps.a[z], a[z], m, w, kWgmmaBM))
+      return cudaErrorInvalidValue;
+    if (!encode_bf16_2d(encode, &maps.b[z], b[z], w, w, kBBox)) return cudaErrorInvalidValue;
+  }
+  args.m = m, args.n = w, args.k = w, args.splits = 1, args.sets = sets;
+  return launch_wgmma_maps<TOut, kForm, kLoad, kStore, 128, 3>(maps, args, stream);
 }
 
 }  // namespace

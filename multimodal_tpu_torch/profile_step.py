@@ -27,18 +27,27 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import time
 
 import numpy as np
 import torch
 
-from multimodal_tpu_torch.ops._build import gemm_signature
+from multimodal_tpu_torch.ops._build import gemm_sets, gemm_signature
 
 # the tensor-core GEMMs' instantiations by (form, load, store), read from the kernel name's
 # template arguments; the first match wins, None matches anything. mma_gemm_kernel
-# (ops/csrc/mma_gemm.cuh) runs the block kernels' products in both dtypes and the fused MLP's in
-# float32; wgmma_gemm_kernel (ops/csrc/wgmma_gemm.cuh) the fused MLP's in bfloat16
+# (ops/csrc/mma_gemm.cuh) runs the block kernels' and the fused MLP's products in float32;
+# wgmma_gemm_kernel (ops/csrc/wgmma_gemm.cuh) both in bfloat16, the block kernels' as the
+# instantiations with three operand sets (``gemm_sets``)
+BLOCK_WGMMA_FAMILIES = [
+    (("NN", None, None),
+     "block q/k/v and out-projection GEMMs (wgmma_gemm_kernel NN x3: the forward's, with the "
+     "LN load or the residual store in the LN form, and the backward's q/k/v recompute)"),
+    (("NT", None, None),
+     "block backward do and dx GEMMs (wgmma_gemm_kernel NT x3: dy Wo^T, [dq|dk|dv] over K=3W)"),
+]
 WGMMA_FAMILIES = [
     (("NN", "LN", None),
      "fused MLP forward c_fc (wgmma_gemm_kernel NN, LN load, round+act store: h and g)"),
@@ -55,15 +64,22 @@ GEMM_FAMILIES = [
      "fused MLP forward c_proj (mma_gemm_kernel NN on g, bias-residual store; without the "
      "residual it is the plain NN form, counted with the block backward's)"),
     (("NN", None, "residual"),
-     "block forward GEMMs (mma_gemm_kernel NN, residual store: q/k/v with or without the LN "
-     "load, out projection)"),
+     "block forward GEMMs, float32 (mma_gemm_kernel NN, residual store: q/k/v with or without "
+     "the LN load, out projection)"),
     (("NN", "LN", "round+act"),
      "fused MLP forward c_fc (mma_gemm_kernel NN, LN load, round+act store: h and g)"),
     (("NT", None, "act'"), "fused MLP backward dh (mma_gemm_kernel NT, act' store, db1 partials)"),
     (("TN", None, None), "fused MLP weight gradients (mma_gemm_kernel TN, act and LN-b loads)"),
     ((None, None, None),
-     "block backward GEMMs (mma_gemm_kernel: q/k/v recompute, do, dx or g over K=3W; with "
-     "block_mlp also the MLP's dln)"),
+     "block backward GEMMs, float32 (mma_gemm_kernel: q/k/v recompute, do, dx or g over K=3W; "
+     "with block_mlp also the MLP's dln)"),
+]
+# the backward's dQ and dK/dV kernels in their block form (the block backward's attention half
+# at D = 32, 64, 128)
+BLOCK_FAMILIES = [
+    ("block backward dQ, bfloat16 (fused_dq_kernel in its block form)", ("fused_dq_kernel",)),
+    ("block backward dK/dV, bfloat16 (fused_dkv_kernel in its block form)",
+     ("fused_dkv_kernel",)),
 ]
 FAMILIES = [  # (family, substrings of the kernel name), first match wins
     ("flash attention forward (flash_fwd_kernel)", ("flash_fwd_kernel",)),
@@ -74,13 +90,15 @@ FAMILIES = [  # (family, substrings of the kernel name), first match wins
     ("fused attention backward dQ, bfloat16 (fused_dq_kernel)", ("fused_dq_kernel",)),
     ("fused attention backward dK/dV, bfloat16 (fused_dkv_kernel)", ("fused_dkv_kernel",)),
     ("fused attention backward delta, float32 (fused_delta_kernel)", ("fused_delta_kernel",)),
-    ("backward dQ pass (attn_bwd_dq_mma_kernel in bfloat16, _f32_kernel in float32)",
-     ("attn_bwd_dq_",)),
-    ("backward dK/dV pass (attn_bwd_dkv_mma_kernel, _f32_kernel)", ("attn_bwd_dkv_",)),
-    ("fused attention forward, bfloat16 (fused_fwd_kernel)", ("fused_fwd_kernel",)),
+    ("backward dQ pass (attn_bwd_dq_mma_kernel in bfloat16 at D = 80, 88, 96; _f32_kernel in "
+     "float32)", ("attn_bwd_dq_",)),
+    ("backward dK/dV pass (attn_bwd_dkv_mma_kernel at D = 80, 88, 96; _f32_kernel)",
+     ("attn_bwd_dkv_",)),
+    ("fused attention forward, bfloat16 (fused_fwd_kernel; also the block forward's core at "
+     "S >= 128)", ("fused_fwd_kernel",)),
     ("forward attention core (attention_mma_kernel, attention_f32_kernel)",
      ("attention_mma_kernel", "attention_f32_kernel")),
-    ("LN-fold launches (ln_stats, ln_rows, ln_bwd)", ("ln_stats_kernel", "ln_rows_kernel",
+    ("LN-fold launches (ln_stats, ln_rows, ln_bwd)", ("ln_stats_kernel", "ln_rows_",
                                                       "ln_bwd_kernel")),
     ("fused MLP bfloat16 GEMM, template arguments not read (wgmma_gemm_kernel)",
      ("wgmma_gemm_kernel",)),
@@ -101,11 +119,19 @@ FAMILIES = [  # (family, substrings of the kernel name), first match wins
 def family_of(kernel_name: str) -> str:
     signature = gemm_signature(kernel_name)
     if signature is not None:
-        table = WGMMA_FAMILIES if "wgmma_gemm_kernel" in kernel_name else GEMM_FAMILIES
+        table = (GEMM_FAMILIES if "wgmma_gemm_kernel" not in kernel_name else
+                 BLOCK_WGMMA_FAMILIES if gemm_sets(kernel_name) == 3 else WGMMA_FAMILIES)
         for pattern, family in table:
             if all(p is None or p == v for p, v in zip(pattern, signature[2:])):
                 return family
     low = kernel_name.lower()
+    # the backward kernels' block form: FusedDqOps<D, keys, 1, pack>, FusedDkvOps<D, 1, pack>
+    block_form = (r"Fused(?:Dq|Dkv)Ops<(?:\d+, )+1, [01]>"
+                  r"|Fused(?:Dq|Dkv)OpsI(?:Li\d+E)+Li1ELi[01]EE")
+    if re.search(block_form, kernel_name):
+        for family, keys in BLOCK_FAMILIES:
+            if any(k in low for k in keys):
+                return family
     for family, keys in FAMILIES:
         if any(k in low for k in keys):
             return family

@@ -908,3 +908,91 @@ def test_ring_visits_counts_the_blocks_the_schedule_calls(n, causal, want):
     walked = sum(ra._visit(i, (i - t) % n, causal) is not None
                  for i in range(n) for t in range(n))
     assert walked == want
+
+
+# the block kernels' bfloat16 GEMM instantiations (three operand sets), as nvcc 12 mangles them
+WGMMA_BLOCK = ("_ZN55_GLOBAL__N__ee72dafa_22_block_attention_{}_cu_649abda017wgmma_gemm_kernelI13__"
+               "nv_bfloat16{}EEvNS_9WgmmaMapsIXT5_EEENS_13WgmmaGemmArgsE")
+WGMMA_BLOCK_ARGS = [("fwd", "S1_Li0ELi0ELi0ELi128ELi3E"), ("fwd", "S1_Li0ELi1ELi0ELi128ELi3E"),
+                    ("fwd", "S1_Li0ELi0ELi1ELi128ELi3E"), ("bwd", "S1_Li0ELi0ELi0ELi128ELi3E"),
+                    ("bwd", "S1_Li1ELi0ELi0ELi128ELi3E"), ("bwd", "fLi1ELi0ELi0ELi128ELi3E")]
+# the backward's dQ and dK/dV kernels in their block form (D class, [key tile,] 1, packed)
+BLOCK_DQ = ("_ZN51_GLOBAL__N__6719648f_18_fused_attention_cu_de02afe215fused_dq_kernelINS_10"
+            "FusedDqOpsILi{}ELi{}ELi{}ELi{}EEEEEvNS_12FusedBwdMapsEPfP13__nv_bfloat16iiiifi")
+BLOCK_DKV = ("_ZN51_GLOBAL__N__6719648f_18_fused_attention_cu_de02afe216fused_dkv_kernelINS_11"
+             "FusedDkvOpsILi{}ELi{}ELi{}EEEEEvNS_12FusedBwdMapsEPKfiiifi")
+
+
+def block_sass(hmma_in=None, drop=None):
+    """SASS of the block kernels' bfloat16 instantiations (the GEMM's five forms, the NN
+    plain-round one in both sources; the dQ and dK/dV kernels' eight block-form ones), beside
+    an MLP GEMM and the fused form's dQ; ``hmma_in`` names one that holds an mma.sync product,
+    ``drop`` one left out of the build."""
+    names = [WGMMA_BLOCK.format(src, args) for src, args in WGMMA_BLOCK_ARGS]
+    for pack in (0, 1):
+        names += [BLOCK_DQ.format(64, 64, 1, pack), BLOCK_DQ.format(128, 32, 1, pack),
+                  BLOCK_DKV.format(64, 1, pack), BLOCK_DKV.format(128, 1, pack)]
+    names += [WGMMA_MLP.format("S1_Li0ELi0ELi0ELi128ELi1E"), BLOCK_DQ.format(64, 64, 0, 0)]
+    lines = []
+    for name in names:
+        if drop is not None and cs.kernel_label(name) == drop:
+            continue
+        lines += [f"\t\tFunction : {name}", HGMMA.format(128)]
+        if hmma_in == cs.kernel_label(name):
+            lines.append("        /*0300*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;")
+    return "\n".join(lines)
+
+
+def test_kernel_label_marks_the_block_gemms_and_forms():
+    """A block kernel's GEMM (three operand sets) ends in ", x3", an MLP one does not; the dQ and
+    dK/dV kernels' operand structs carry the form (1: block, 0: fused) and the packing."""
+    assert cs.kernel_label(WGMMA_BLOCK.format("bwd", "fLi1ELi0ELi0ELi128ELi3E")) == (
+        "wgmma_gemm_kernel<bfloat16, float, NT, plain, round, x3>")
+    assert cs.kernel_label(WGMMA_BLOCK.format("fwd", "S1_Li0ELi0ELi1ELi128ELi3E")) == (
+        "wgmma_gemm_kernel<bfloat16, bfloat16, NN, plain, residual, x3>")
+    assert cs.kernel_label(WGMMA_MLP.format("S1_Li0ELi0ELi0ELi128ELi1E")) == (
+        "wgmma_gemm_kernel<bfloat16, bfloat16, NN, plain, round>")
+    assert cs.kernel_label(BLOCK_DQ.format(128, 32, 1, 1)) == (
+        "fused_dq_kernel<FusedDqOps<128, 32, 1, 1>>")
+    assert cs.kernel_label(BLOCK_DKV.format(64, 1, 0)) == "fused_dkv_kernel<FusedDkvOps<64, 1, 0>>"
+
+
+def test_block_wgmma_faults_hold_every_bf16_block_instantiation_to_wgmma():
+    """Phase 2 fails on a bfloat16 block-kernel instantiation (the GEMM with three operand sets,
+    the dQ or dK/dV kernel in its block form) with an HMMA or without a GMMA, and on a build
+    with fewer than the five GEMM forms or the eight attention ones; the MLP's GEMM and the
+    fused form's kernels are not counted there, nor the block GEMMs among the MLP's."""
+    assert cs.block_wgmma_faults(block_sass()) == []
+    assert cs.mlp_wgmma_faults(block_sass()) == [
+        f"1 wgmma_gemm_kernel instantiations in the SASS, {cs.MLP_WGMMA_INSTANTIATIONS} expected"]
+    bad = "wgmma_gemm_kernel<bfloat16, bfloat16, NT, plain, round, x3>"
+    faults = cs.block_wgmma_faults(block_sass(hmma_in=bad))
+    assert len(faults) == 1 and faults[0].startswith(bad + ": {") and "HMMA.16816" in faults[0]
+    dq = "fused_dq_kernel<FusedDqOps<64, 64, 1, 1>>"
+    assert cs.block_wgmma_faults(block_sass(hmma_in=dq))[0].startswith(dq + ": {")
+    assert cs.block_wgmma_faults(block_sass(drop=dq)) == [
+        f"7 block attention instantiations in the SASS, {cs.BLOCK_ATTENTION_INSTANTIATIONS} "
+        "expected"]
+    ln = "wgmma_gemm_kernel<bfloat16, bfloat16, NN, LN, round, x3>"
+    assert cs.block_wgmma_faults(block_sass(drop=ln)) == [
+        f"4 block GEMM instantiations in the SASS, {cs.BLOCK_GEMM_INSTANTIATIONS} expected"]
+    no_tc = block_sass().replace(f"{BLOCK_DKV.format(128, 1, 0)}\n{HGMMA.format(128)}",
+                                 f"{BLOCK_DKV.format(128, 1, 0)}\n        /*0100*/  FFMA R4, R8 ;")
+    assert cs.block_wgmma_faults(no_tc) == [
+        "fused_dkv_kernel<FusedDkvOps<128, 1, 0>>: no tensor-core instructions"]
+
+
+def test_block_edge_cases_cross_the_packed_passes_and_gemm_tiles():
+    """Phase 3's bfloat16 block edges: S one short of, at and one past the 64-row warpgroups
+    (two items a pass up to S = 64) and the 128-row passes, B = 1 and 3 (M = B*S ragged across
+    the GEMMs' 128-row tiles), causal and not, D = 64, and D = 32 and 128 on both sides of the
+    packing and at S = 320 (D = 128 streams its tiles past 192 rows or keys); every case a
+    width the kernels take."""
+    cases = {(b, s, w // h, causal) for _, b, s, w, h, causal in cs.BLOCK_EDGE_CASES}
+    assert len(cases) == len(cs.BLOCK_EDGE_CASES) == 36
+    assert {s for _, s, _, _ in cases} == {63, 64, 65, 127, 128, 129, 320}
+    assert {(320, 128)} <= {(s, d) for _, s, d, _ in cases}
+    assert {b for b, *_ in cases} == {1, 2, 3} and {c for *_, c in cases} == {False, True}
+    assert {d for _, _, d, _ in cases} == {32, 64, 128}
+    assert any(b * s % 128 for b, s, _, _ in cases)
+    assert all(w % 128 == 0 and w % h == 0 for _, _, _, w, h, _ in cs.BLOCK_EDGE_CASES)
