@@ -36,7 +36,14 @@ of the whole call (the FLOPs chip_smoke.py's ``block_bound`` counts) and the hos
 (the wrapper, the tensor maps' encoding and the launches), and the host time of one tensor map's
 encode (the driver's ``cuTensorMapEncodeTiled`` through ctypes). Beside them the plain
 bfloat16 wgmma GEMM at M = B*S, N = K = W, as the fused MLP runs it with H = W: its c_proj (NN,
-round store) and its dln (NT, float32 out).
+round store) and its dln (NT, float32 out). After each backward, the operator's weight-gradient
+launch on that call's outputs (``ops.block_attention.attn_wgrad``: the four products in one
+``wgmma`` launch at the planner's splits), with its TFLOP/s, its share of the bound (8 T W^2 bf16
+FLOPs; the six operands and four gradients moved once, the running sums between splits) and of
+the whole backward (the call and this launch), beside the library's four bf16 GEMMs with float32
+out (``torch.mm(..., out_dtype=torch.float32)``) and the widened float32 products the port ran
+before the kernel (information). ``--wgrad-splits 1,2,3`` times that launch at each split count
+too (the sweep the planner's ``WGRAD_SPLIT_ROWS`` was fitted to).
 """
 
 from __future__ import annotations
@@ -172,8 +179,46 @@ def block_label(name: str) -> str:
     return found.group(1) + (found.group(2) or "").replace(" >", ">") if found else name[:40]
 
 
-def block_rows(torch, tag, card):
-    """The bfloat16 block operators' launches at BLOCK_SHAPES, and the plain wgmma GEMM."""
+def wgrad_row(torch, tag, card, case, ops, bwd_ms, sweep=()):
+    """The weight-gradient launch on one backward call's bf16 operands ``ops`` (a, dq, dk, dv,
+    attnpre, dy as [B, S, W]), against the library's products and the widened float32 ones, and
+    at each split count of ``sweep``. A tree from before the kernel has no ``attn_wgrad``: its
+    weight gradients are the widened products alone."""
+    from multimodal_tpu_torch.ops import block_attention as ba
+
+    a, dq, dk, dv, attnpre, dy = ops
+    w = a.shape[-1]
+    t = a.numel() // w
+    pairs = ((a, dq), (a, dk), (a, dv), (attnpre, dy))
+    flops = 8 * t * w * w
+    lib = sum(ms for _, ms in kernel_ms(torch, lambda: [
+        torch.mm(x.reshape(t, w).T, dz.reshape(t, w), out_dtype=torch.float32)
+        for x, dz in pairs]))
+    widened = sum(ms for _, ms in kernel_ms(torch, lambda: [ba._attn_wgrad(x, dz, torch.bfloat16)
+                                                             for x, dz in pairs]))
+    line = (f"[{tag}] wgrad {case:<11} T={t} W={w}: library {lib:.4f} ({flops / lib / 1e9:.1f} "
+            f"TFLOP/s), widened float32 {widened:.4f}")
+    if not hasattr(ba, "attn_wgrad"):
+        print(line + f" [{card}]", flush=True)
+        return
+    for splits in (None, *sweep):
+        n, rows = ba.wgrad_plan(t, w, splits)
+        launch = kernel_ms(torch, lambda: ba.attn_wgrad(*ops, torch.bfloat16, splits=splits))
+        kern = sum(ms for name, ms in launch if "wgmma_gemm_kernel" in name)
+        total = sum(ms for _, ms in launch)
+        nbytes = 2 * 6 * t * w + 2 * 4 * w * w + 2 * 4 * 4 * w * w * (n - 1)
+        bound = 1e3 * max(flops / 989e12, nbytes / 3.35e12)
+        what = "kernel" if splits is None else "sweep"
+        line += (f"; {what} {n}x{rows} {kern:.4f} (the call {total:.4f}; "
+                 f"{flops / kern / 1e9:.1f} TFLOP/s, {100 * bound / kern:.1f}% of {bound:.4f}")
+        line += (f", {100 * kern / (bwd_ms + kern):.1f}% of the backward, {kern / lib:.2f}x "
+                 "the library)" if splits is None else ")")
+    print(line + f" [{card}]", flush=True)
+
+
+def block_rows(torch, tag, card, wgrad_splits=()):
+    """The bfloat16 block operators' launches at BLOCK_SHAPES, the weight-gradient launch on each
+    backward's outputs, and the plain wgmma GEMM."""
     from multimodal_tpu_torch.ops import block_attention as ba
     from multimodal_tpu_torch.ops import block_mlp as bm
 
@@ -218,6 +263,11 @@ def block_rows(torch, tag, card):
                   f"({flops / total / 1e9:.1f} TFLOP/s), host {host:.4f}; "
                   + "; ".join(f"{k} {v:.4f}" for k, v in stages.items())
                   + f" | {launches}", flush=True)
+            if direction == "bwd":  # ln_out, not x, is the LN form's a
+                outs = fn()
+                a = outs[5] if ln else x
+                wgrad_row(torch, tag, card, case, (a, *outs[1:5], dy), total, wgrad_splits)
+                del outs, a
         # the plain wgmma GEMM at M = B*S, N = K = W: the fused MLP with H = W, its c_proj (NN,
         # round store without the residual) and its dln (NT, float32 out)
         if not ln and case in ("vision", "vision-S197"):
@@ -251,6 +301,8 @@ def main(argv=None):
     ap.add_argument("--tag", default=None, help="the label of every line (default: the root)")
     ap.add_argument("--part", choices=("all", "fused", "block"), default="all",
                     help="the fused pair, the block operators, or both")
+    ap.add_argument("--wgrad-splits", default="",
+                    help="split counts to time the weight-gradient launch at, e.g. 1,2,3")
     args = ap.parse_args(argv)
     if args.root:
         sys.path.insert(0, os.path.abspath(args.root))
@@ -271,7 +323,8 @@ def main(argv=None):
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     if args.part in ("all", "block"):
-        block_rows(torch, tag, card)
+        block_rows(torch, tag, card,
+                   tuple(int(v) for v in args.wgrad_splits.split(",") if v))
     if args.part == "block":
         return
     print(f"[{tag}] attention pair from {os.path.dirname(fa.__file__)}, device ms per launch "

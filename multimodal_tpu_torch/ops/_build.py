@@ -41,7 +41,7 @@ NVCC_FLAGS = (
 # use is its own instantiation and so its own kernel name
 GEMM_FORMS = ("NN", "NT", "TN")
 GEMM_LOADS = ("plain", "LN", "act", "LN-b")
-GEMM_STORES = ("round", "residual", "act'", "bias-residual", "round+act")
+GEMM_STORES = ("round", "residual", "act'", "bias-residual", "round+act", "serial")
 
 # resample.cu decodes JPEGs with the toolkit's nvJPEG
 LINK_LIBS = ("-lnvjpeg",)
@@ -118,6 +118,8 @@ def load() -> ctypes.CDLL:
                 "mmt_flash_attention_dq": [i32] + [ptr] * 7 + [i32] * 6 + [f32, ptr],
                 "mmt_flash_attention_dkv": [i32] + [ptr] * 8 + [i32] * 6 + [f32, ptr],
                 "mmt_ln_bwd_partial_rows": [i32],
+                "mmt_block_attention_wgrad": [ptr] * 9 + [i32] * 4 + [ptr],
+                "mmt_block_wgrad_flag_count": [i32],
                 "mmt_block_mlp_fwd": [i32] + [ptr] * 11 + [i32] * 5 + [f32, ptr],
                 "mmt_block_mlp_bwd": [i32] + [ptr] * 16 + [i32] * 6 + [f32, ptr],
                 "mmt_block_mlp_db1_partial_rows": [i32],
@@ -159,8 +161,8 @@ def gemm_signature(kernel: str) -> tuple[str, str, str, str, str] | None:
 
 def gemm_sets(kernel: str) -> int:
     """The operand sets of a ``wgmma_gemm_kernel`` instantiation, its last template argument (3
-    for the block-attention kernels' GEMMs, 1 for the fused MLP's), from its mangled or demangled
-    name; 1 for any other kernel."""
+    for the block-attention kernels' GEMMs, 4 for the block backward's weight gradients, 1 for
+    the fused MLP's), from its mangled or demangled name; 1 for any other kernel."""
     found = (re.search(r"wgmma_gemm_kernel<(?:[\w:]+, ){6}(\d+)>", kernel)
              or re.search(r"wgmma_gemm_kernelI(?:13__nv_bfloat16|f)(?:13__nv_bfloat16|f|S\d*_)"
                           r"(?:Li\d+E){4}Li(\d+)E", kernel))

@@ -13,7 +13,11 @@ what the on-card comparison holds the kernels to. In bfloat16 the kernels' proje
 ``ops/csrc/wgmma_gemm.cuh``'s ``wgmma`` GEMM fed by TMA, and their attention halves at head dims
 32, 64 and 128 ``ops/csrc/fused_attention.cu``'s ``wgmma`` kernels (the forward core at S >= 128;
 the backward's dQ and dK/dV in their block form, ``attention_half_reference``); in float32 the
-projections run 3xTF32 on ``mma.sync`` (``mma_gemm.cuh``). As in the reference, the LayerNorm is
+projections run 3xTF32 on ``mma.sync`` (``mma_gemm.cuh``). The backward's four weight gradients
+are whole-batch products outside the kernels, as the reference leaves them to XLA: in bfloat16 on
+the card one launch of a ``wgmma`` kernel of their own (``attn_wgrad``: the bf16 operands as they
+lie, f32 sums over splits of the token rows added in split order, one rounding), in float32 and
+on the CPU ``torch.matmul`` in full float32 (``_attn_wgrad``). As in the reference, the LayerNorm is
 folded into the kernel only at S > 128, where the [B,S,W] round trips it saves are large;
 at S <= 128 it runs as the ``ln_rows`` pre-pass and the residual add after the operator,
 both in torch's autograd.
@@ -39,8 +43,17 @@ MAX_BLOCK_SEQ = 320
 LN_FOLD_MIN_SEQ = 128  # the LayerNorm and the residual ride the kernel above this S
 LN_EPS = 1e-5
 
+# the weight-gradient kernel's plan (wgrad_plan): its blocks run one an SM on the card's 132, and
+# every split adds about as much time as this many token rows of a tile's products (the serial
+# store's chain: a split waits for the one before it, then reads and writes the running sum;
+# fitted to a sweep of split counts on the H100, PERF.md)
+WGRAD_SMS = 132
+WGRAD_SPLIT_ROWS = 832
+WGRAD_K_STEP = 64  # the kernel's K-step: every split but the last holds a multiple of it
+WGRAD_MAX_SPLITS = 64
+
 launches.register("block_attention_fwd", "block_attention_bwd",
-                  "block_attention_ln_fwd", "block_attention_ln_bwd")
+                  "block_attention_ln_fwd", "block_attention_ln_bwd", "block_attention_wgrad")
 
 
 def block_attn_supported(batch: int, seq: int, width: int, heads: int) -> bool:
@@ -384,11 +397,139 @@ def _bias_grad(dz: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return dz.to(_acc(dz.dtype)).sum(dim=(0, 1)).to(dtype)
 
 
+def _bias_sum(dz: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``_bias_grad`` without the widened copy of dz: the f32 column sums of dz read as it lies
+    (on a CUDA tensor torch's reduction widens each element as it reads it), rounded to dtype."""
+    return dz.sum(dim=(0, 1), dtype=_acc(dz.dtype)).to(dtype)
+
+
+def wgrad_tiles(width: int) -> int:
+    """Output tiles of one split of the weight-gradient kernel: 128 x 256 tiles of the four
+    [W, W] products."""
+    return 4 * (width // 128) * -(-width // 256)
+
+
+def _rows_per_split(tokens: int, splits: int) -> tuple[int, int]:
+    """(splits, rows) for ``splits`` asked of ``tokens`` rows: the rows rounded up to the K-step,
+    and as many splits as then hold rows."""
+    splits = max(1, min(splits, -(-tokens // WGRAD_K_STEP)))
+    rows = -(-tokens // splits)
+    rows = -(-rows // WGRAD_K_STEP) * WGRAD_K_STEP
+    return -(-tokens // rows), rows
+
+
+def wgrad_cost(tokens: int, width: int, splits: int) -> int:
+    """The planner's model of the kernel's time, in token rows of one tile's products: the rounds
+    of tiles the card's SMs run (``wgrad_tiles`` a split) times a split's rows, plus
+    ``WGRAD_SPLIT_ROWS`` a split."""
+    n, rows = _rows_per_split(tokens, splits)
+    return -(-n * wgrad_tiles(width) // WGRAD_SMS) * min(rows, tokens) + WGRAD_SPLIT_ROWS * n
+
+
+def wgrad_plan(tokens: int, width: int, splits: int | None = None) -> tuple[int, int]:
+    """(splits, rows a split) of the weight-gradient kernel over ``tokens`` rows at ``width``: the
+    split count of least ``wgrad_cost`` up to ``WGRAD_MAX_SPLITS`` (the fewest on a tie), or the
+    ``splits`` a caller asks for (a sweep). Every split but the last holds ``rows``, a multiple of
+    the 64-row K-step; the last holds the rest, at least one row. Rounding the rows up may leave
+    fewer splits than asked for."""
+    if splits is None:
+        splits = min(range(1, WGRAD_MAX_SPLITS + 1),
+                     key=lambda n: (wgrad_cost(tokens, width, n), n))
+    return _rows_per_split(tokens, splits)
+
+
+def attn_wgrad_walk(a, dq, dk, dv, attnpre, dy, dtype: torch.dtype,
+                    splits: int | None = None) -> tuple:
+    """Plain PyTorch version of the weight-gradient kernel, its arithmetic step by step:
+    (dWq, dWk, dWv, dWo) = (a^T dq, a^T dk, a^T dv, attnpre^T dy) over the token rows, each the
+    f32 product of every split of ``wgrad_plan`` added in split order (the running sum, then the
+    split's), rounded once to ``dtype``."""
+    w = a.shape[-1]
+    t = a.numel() // w
+    n, rows = wgrad_plan(t, w, splits)
+    f32 = _acc(a.dtype)
+    grads = []
+    for lhs, rhs in ((a, dq), (a, dk), (a, dv), (attnpre, dy)):
+        lhs, rhs = lhs.reshape(t, w), rhs.reshape(t, w)
+        total = None
+        for z in range(n):
+            part = lhs[z * rows:(z + 1) * rows].to(f32).T @ rhs[z * rows:(z + 1) * rows].to(f32)
+            total = part if total is None else total + part
+        grads.append(total.to(dtype))
+    return tuple(grads)
+
+
+def _attn_wgrad_cuda(a, dq, dk, dv, attnpre, dy, dtype: torch.dtype, splits: int | None = None):
+    from multimodal_tpu_torch.ops import _build
+
+    operands = dict(a=a, dq=dq, dk=dk, dv=dv, attnpre=attnpre, dy=dy)
+    if a.dtype != torch.bfloat16 or dtype != torch.bfloat16:
+        raise TypeError(f"the weight-gradient kernel takes bfloat16 operands and gives bfloat16 "
+                        f"gradients, got {a.dtype} -> {dtype}")
+    w = a.shape[-1]
+    if w < 128 or w % 128 or a.numel() < w:
+        raise ValueError(f"the weight-gradient kernel does not take {tuple(a.shape)}: W a "
+                         "multiple of 128, at least one token row")
+    t = a.numel() // w
+    for name, op in operands.items():
+        if op.device != a.device or op.dtype != a.dtype or op.shape[-1] != w or op.numel() != t * w:
+            raise ValueError(f"weight-gradient operand {name} {tuple(op.shape)} {op.dtype} on "
+                             f"{op.device}: expected [{t}, {w}] tokens {a.dtype} on {a.device}")
+        if not op.is_contiguous() or op.data_ptr() % 16:
+            raise ValueError(f"weight-gradient operand {name} must be contiguous and 16-byte "
+                             "aligned")
+    n, rows = wgrad_plan(t, w, splits)
+    lib = _build.load()
+    sums = torch.empty((4, w, w), dtype=torch.float32, device=a.device)  # the running sums
+    flags = torch.empty(lib.mmt_block_wgrad_flag_count(w), dtype=torch.int32, device=a.device)
+    out = torch.empty((4, w, w), dtype=dtype, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mmt_block_attention_wgrad(
+            *(op.data_ptr() for op in operands.values()), sums.data_ptr(), flags.data_ptr(),
+            out.data_ptr(), t, w, n, rows, stream)
+    _build.check(lib, err, "block_attention_wgrad launch")
+    launches.count("block_attention_wgrad")
+    return tuple(out.unbind(0))
+
+
+def attn_wgrad(a, dq, dk, dv, attnpre, dy, dtype: torch.dtype, *, splits: int | None = None):
+    """The operator's four weight gradients, (a^T dq, a^T dk, a^T dv, attnpre^T dy) over every
+    token row of [B, S, W] (or [T, W]) operands, each an f32 sum rounded once to ``dtype``, the
+    reference's ``_attn_wgrad``: on a CUDA tensor the weight-gradient kernel (bfloat16 operands
+    and gradients; one launch; a build or launch error, another dtype or a shape it does not take
+    raises), on a CPU tensor its plain versions (``_attn_wgrad``). ``splits`` overrides the
+    kernel's plan (a sweep)."""
+    if a.is_cuda:
+        return _attn_wgrad_cuda(a, dq, dk, dv, attnpre, dy, dtype, splits)
+    if a.device.type == "cpu":
+        return tuple(_attn_wgrad(lhs, rhs, dtype)
+                     for lhs, rhs in ((a, dq), (a, dk), (a, dv), (attnpre, dy)))
+    raise ValueError(f"block_attention runs on cuda or cpu tensors, not {a.device}")
+
+
+def _param_grads(a, dq, dk, dv, attnpre, dy, wq, bq, wk, bk, wv, bv, wo, bo) -> tuple:
+    """(dWq, dbq, dWk, dbk, dWv, dbv, dWo, dbo) of the operator from the per-token gradients, as
+    the reference's backward forms them outside its kernel: in bfloat16 on the card the
+    weight-gradient kernel and the bias sums read as they lie; in float32 on the card the f32
+    products (``torch.matmul``, TF32 off) and sums; on the CPU the plain versions."""
+    if a.is_cuda and a.dtype == torch.bfloat16:
+        dwq, dwk, dwv, dwo = attn_wgrad(a, dq, dk, dv, attnpre, dy, wq.dtype)
+    else:
+        dwq, dwk, dwv = (_attn_wgrad(a, dz, w_.dtype) for dz, w_ in ((dq, wq), (dk, wk), (dv, wv)))
+        dwo = _attn_wgrad(attnpre, dy, wo.dtype)
+    bias_grad = _bias_sum if a.is_cuda else _bias_grad
+    dbq, dbk, dbv, dbo = (bias_grad(dz, b_.dtype)
+                          for dz, b_ in ((dq, bq), (dk, bk), (dv, bv), (dy, bo)))
+    return dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo
+
+
 class BlockAttention(torch.autograd.Function):
     """The operator with its gradient, as the reference's ``_block_attention`` custom VJP:
     the forward saves the inputs; the backward recomputes everything else, takes the
     per-token gradients from the backward kernel (its plain version on a CPU tensor) and
-    forms the weight gradients as whole-batch products and the bias gradients as sums."""
+    forms the weight gradients as whole-batch products and the bias gradients as sums
+    (``_param_grads``)."""
 
     @staticmethod
     def forward(ctx, x, wq, bq, wk, bk, wv, bv, wo, bo, heads: int, causal: bool):
@@ -410,11 +551,8 @@ class BlockAttention(torch.autograd.Function):
         dy = dy.contiguous()
         dx, dq, dk, dv, attnpre = block_attention_bwd(x, dy, wq, bq, wk, bk, wv, bv, wo, bo,
                                                       heads=ctx.heads, causal=ctx.causal)
-        dwq, dwk, dwv = (_attn_wgrad(x, dz, w_.dtype) for dz, w_ in ((dq, wq), (dk, wk), (dv, wv)))
-        dwo = _attn_wgrad(attnpre, dy, wo.dtype)
-        dbq, dbk, dbv, dbo = (_bias_grad(dz, b_.dtype)
-                              for dz, b_ in ((dq, bq), (dk, bk), (dv, bv), (dy, bo)))
-        return dx, dwq, dbq, dwk, dbk, dwv, dbv, dwo, dbo, None, None
+        return (dx, *_param_grads(x, dq, dk, dv, attnpre, dy, wq, bq, wk, bk, wv, bv, wo, bo),
+                None, None)
 
 
 class BlockAttentionLN(torch.autograd.Function):
@@ -448,13 +586,9 @@ class BlockAttentionLN(torch.autograd.Function):
         dx, dq, dk, dv, attnpre, ln_out, dgamma, dbeta = block_attention_ln_bwd(
             x, dy, gamma.to(x.dtype), beta.to(x.dtype), wq, bq, wk, bk, wv, bv, wo, bo,
             heads=ctx.heads, causal=ctx.causal, residual=ctx.residual)
-        dwq, dwk, dwv = (_attn_wgrad(ln_out, dz, w_.dtype)
-                         for dz, w_ in ((dq, wq), (dk, wk), (dv, wv)))
-        dwo = _attn_wgrad(attnpre, dy, wo.dtype)
-        dbq, dbk, dbv, dbo = (_bias_grad(dz, b_.dtype)
-                              for dz, b_ in ((dq, bq), (dk, bk), (dv, bv), (dy, bo)))
-        return (dx, dgamma.to(gamma.dtype), dbeta.to(beta.dtype), dwq, dbq, dwk, dbk, dwv, dbv,
-                dwo, dbo, None, None, None)
+        return (dx, dgamma.to(gamma.dtype), dbeta.to(beta.dtype),
+                *_param_grads(ln_out, dq, dk, dv, attnpre, dy, wq, bq, wk, bk, wv, bv, wo, bo),
+                None, None, None)
 
 
 def block_attention_ln(x, gamma, beta, wq, bq, wk, bk, wv, bv, wo, bo, *, heads: int,

@@ -52,6 +52,19 @@
 // sums are written one row per block, in a fixed order, and summed outside: no float atomics,
 // so a result never differs from run to run.
 //
+// The operator's weight gradients, which the TPU kernels leave to XLA
+// (multimodal_tpu/ops/block_attention.py:_attn_wgrad: bf16 operands, f32 sums, one rounding to
+// the weight's dtype), are a kernel of their own in bfloat16 (mmt_block_attention_wgrad):
+//
+//   dWq, dWk, dWv = a^T dq, a^T dk, a^T dv   a = x, or ln_out in the LN form
+//   dWo           = attnpre^T dy             over the T = B*S token rows, one launch for all four
+//
+// on wgmma_gemm.cuh's TN form with four operand sets and the serial store (launch_block_wgrad):
+// the operands read as they lie, [T, W] bf16 and MN-major, with no widened or transposed copy;
+// T split into runs of token rows whose f32 sums are added in split order inside the kernel and
+// rounded once to bf16. It is bound by operations (8 T W^2 FLOPs over 6 T W bf16 operand bytes),
+// and its W x W outputs are few tiles, hence the splits of T. float32 keeps torch.matmul.
+//
 // What bounds it on the card: the five [B*S,W]x[W,W]-sized GEMM equivalents (q, k, v, do and
 // the K = 3W dx product) carry ~90% of the FLOPs at ViT-B/32 shapes, so it is bound by
 // operations, on the tensor cores. The design choices that matter:
@@ -327,6 +340,26 @@ int mmt_block_attention_ln_bwd(int dtype, const void* x, const void* dy, const v
   return (int)dispatch_bwd(dtype, x, dy, gamma, beta, wts, biases, buf, b, s, w, heads, causal,
                            true, residual, eps, stream);
 }
+
+// The block backward's four weight gradients in bfloat16 over t = B*S token rows of width w:
+// out [4, w, w] = {a^T dq, a^T dk, a^T dv, attnpre^T dy}, every operand [t, w] bf16 contiguous
+// and 16-byte aligned; `splits` runs of k_per_split token rows (a multiple of 64; every split
+// holds rows), summed in split order in f32 and rounded once. Scratch: sum [4, w, w] float32,
+// flags [mmt_block_wgrad_flag_count(w)] int32 (zeroed here). Returns a cudaError_t.
+int mmt_block_attention_wgrad(const void* a, const void* dq, const void* dk, const void* dv,
+                              const void* attnpre, const void* dy, void* sum, void* flags,
+                              void* out, int t, int w, int splits, int k_per_split,
+                              void* stream) {
+  const void* as[4] = {a, a, a, attnpre};
+  const void* bs[4] = {dq, dk, dv, dy};
+  return (int)launch_block_wgrad<256>(as, bs, t, w, splits, k_per_split,
+                                      static_cast<float*>(sum),
+                                      static_cast<int*>(flags), out,
+                                      static_cast<cudaStream_t>(stream));
+}
+
+// Ints of mmt_block_attention_wgrad's flag scratch at width w: one per output tile of 128 x 256.
+int mmt_block_wgrad_flag_count(int w) { return 4 * (w / 128) * ((w + 255) / 256); }
 
 // Rows of the dgamma/dbeta partial-sum outputs for m = B*S token rows.
 int mmt_ln_bwd_partial_rows(int m) { return (m + kLnBwdRows - 1) / kLnBwdRows; }

@@ -514,8 +514,15 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// the driver's cuTensorMapEncodeTiled, or null where the driver has none
+// the driver's cuTensorMapEncodeTiled, or null where the driver has none or the calling thread
+// cannot be bound to the current device's context. The encode checks the global address against
+// the calling thread's current context, and a thread whose first CUDA work is this launcher (an
+// autograd device thread entering a backward kernel before any other op) has none yet: the
+// encode then fails. cudaSetDevice binds the device's primary context to the thread first.
 EncodeTiled tensor_map_encoder() {
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || cudaSetDevice(device) != cudaSuccess)
+    return nullptr;
   static const EncodeTiled fn = [] {
     void* p = nullptr;
     cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;

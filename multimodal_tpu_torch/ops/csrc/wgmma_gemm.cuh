@@ -1,7 +1,8 @@
 // The bfloat16 GEMM on Hopper's warpgroup tensor-core instructions, fed by TMA: every bf16 product
 // of the fused MLP branch (block_mlp.cu: c_fc, c_proj forward; dh, dln, dW2, dW1 backward) and
 // of the block-attention kernels (block_attention_fwd.cu, block_attention_bwd.cu: q/k/v, the out
-// projection, do and dx). float32 keeps mma_gemm.cuh's 3xTF32 GEMM in both. The contract is
+// projection, do and dx, and the operator's four weight gradients). float32 keeps mma_gemm.cuh's
+// 3xTF32 GEMM in the kernels and a float32 torch.matmul for the block weight gradients. The contract is
 // mma_gemm.cuh's for the forms, load transforms and stores these launches use (that header
 // spells them out):
 //
@@ -12,7 +13,10 @@
 //       over K = 3W)
 //   TN  C_z = A'[K_z, M]^T @ B[K_z, N] over split z's token rows K_z (a multiple of the K-step
 //       of 64 long, the last one ragged at T); A and B [K, .] row-major, both MN-major; one f32
-//       partial [M, N] per split
+//       partial [M, N] per split; or, with four operand sets and the serial store (the block
+//       backward's weight gradients: dWq, dWk, dWv = a^T dq, a^T dk, a^T dv and dWo =
+//       attnpre^T dy, set s its own A_s and B_s), C_s = sum over the splits z in order of
+//       A_s[K_z]^T B_s[K_z], rounded once to bf16 by the kernel itself
 //
 // with the LN load (c_fc and the block forward's q/k/v: ln_bf16x8, the row's statistics rounded
 // to bf16), the act load (dW2: g = round(act(f32(h))) from the saved h) and the LN-b load (dW1:
@@ -28,13 +32,14 @@
 // act load evaluates T x H x N / 256 activations and ran at half the speed of the same product
 // without it.
 //
-// kSets (1 or 3) is the number of operand sets a launch can take: 1 for the MLP's products, 3
-// for every block-attention product (the q/k/v NN and the dx NT take three; the out projection
-// and do run the same instantiations with one), so each block-attention GEMM is an
-// instantiation of its own and a profile tells it from the MLP's. The sets' tensor maps travel
-// in one __grid_constant__ struct (WgmmaMaps: up to six 128-byte maps, 768 bytes of the 4 KB
-// parameter space), chosen per tile (NN) or per K-step (NT) by selects on their addresses: no
-// activation is copied into a concatenated buffer. The block backward recomputes q, k and v by
+// kSets (1, 3 or 4) is the number of operand sets a launch can take: 1 for the MLP's products, 3
+// for every block-attention product of the kernels (the q/k/v NN and the dx NT take three; the
+// out projection and do run the same instantiations with one), 4 for the block backward's
+// weight gradients (TN), so each block-attention GEMM is an instantiation of its own and a
+// profile tells it from the MLP's. The sets' tensor maps travel in one __grid_constant__ struct
+// (WgmmaMaps: up to eight 128-byte maps, 1 KB of the 4 KB parameter space), chosen per tile (NN,
+// TN) or per K-step (NT) by selects on their addresses: no activation is copied into a
+// concatenated buffer; the weight gradients' three q/k/v sets hold three maps of the same a. The block backward recomputes q, k and v by
 // the NN form on ln_out, where the forward's LN form transforms x on its landed tiles: the two
 // run the same mainloop over the same K order, and ln_rows_kernel writes ln_out with
 // ln_bf16x8, the function of the LN load, so their q, k and v are the same bits.
@@ -94,6 +99,19 @@
 // eight warps' sums in row order through shared memory; row (the tile's M index) of col_part.
 // No float atomics: a result never differs from run to run.
 //
+// The serial store (TN over four sets; the block weight gradients, whose W x W outputs are 72
+// tiles of 128 x 256 at W = 768, too few for 132 SMs, over K = T = 12,800-50,432 token rows):
+// the tiles run split by split (the split slowest, then the set, M and N), so that the blocks
+// running together read the same token rows of every operand (a's rows serve three sets) and
+// share them in L2. A tile of split z > 0 waits until split z - 1 of the same output tile has
+// published its running sum (an int flag a tile, acquire / release at GPU scope), adds its own
+// products to it (sum + partial, in split order) and writes it back through L2 (ld/st.cg), or
+// rounds it to bf16 and stores the weight gradient if it is the last split. The flags count the
+// splits done and are zeroed by the launcher; split z - 1 of a tile comes earlier in every
+// block's tile order, so the earliest unfinished tile never waits and the chain always moves (a
+// wait that outlasts ~2^24 polls traps, so a fault fails the launch instead of hanging the card).
+// The order of every sum is fixed: no float atomics, a second launch gives the same bits.
+//
 // N % 128 == 0 and, in NN and NT, K % 64 == 0 (the MLP's W and H are multiples of 128).
 
 #pragma once
@@ -110,6 +128,9 @@ constexpr int kWgmmaThreads = 256;              // two consumer warpgroups of 64
 constexpr int kWgmmaWarps = kWgmmaThreads / 32;  // arrivals that release a stage
 constexpr int kWgmmaPartBytes = 64 * 128;       // [64 rows][64 bf16]: one 64-column box
 constexpr int kWgmmaATileBytes = 2 * kWgmmaPartBytes;  // A's stage: 16 KB
+// the serial store (mma_gemm.cuh's kStore values go up to 4): TN over four operand sets, the
+// splits summed in order inside the kernel, one bf16 rounding
+constexpr int kStoreSerial = 5;
 static_assert(kWgmmaBM == kGemmBM, "db1's partial rows are one per 128-token tile in both dtypes");
 
 // The shared memory of a tile kBN columns wide: a ring of stages (A, then B), the act' store's
@@ -203,9 +224,11 @@ struct WgmmaGemmArgs {
   const __nv_bfloat16* h;         // act': the pre-activation [m, n]
   int act;                        // act load, round+act and act' stores
   void* c[3];                     // NN: set z's [m, n]; otherwise c[0] ([m, n]; TN: [splits,
-                                  // m, n] f32)
+                                  // m, n] f32; serial: [kSets, m, n] bf16)
   __nv_bfloat16* g_out;           // round+act: [m, n]
   float* col_part;                // act': [ceil(m / 128), n]
+  float* serial_sum;              // serial: [kSets, m, n] f32, the running sums
+  int* serial_flag;               // serial: [kSets, tiles of M, tiles of N], zero at launch
 };
 
 // the tensor maps of a launch: A_z and B_z of each operand set (NN: a[0] alone)
@@ -219,17 +242,98 @@ template <int kSets>
 __device__ __forceinline__ const CUtensorMap* pick_map(const CUtensorMap (&maps)[kSets], int z) {
   if constexpr (kSets == 1)
     return &maps[0];
-  else
+  else if constexpr (kSets == 3)
     return z == 0 ? &maps[0] : (z == 1 ? &maps[1] : &maps[2]);
+  else
+    return z == 0 ? &maps[0] : (z == 1 ? &maps[1] : (z == 2 ? &maps[2] : &maps[3]));
+}
+
+// the serial store's flags: wait until *flag reaches `value` (acquire: the sums published before
+// it are visible), trapping after ~2^24 polls; publish `value` (release)
+__device__ __forceinline__ void wait_flag(const int* flag, int value) {
+  for (uint32_t tries = 0;; ++tries) {
+    int seen;
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(seen) : "l"(flag) : "memory");
+    if (seen >= value) return;
+    if (tries == (1u << 24)) __trap();
+    __nanosleep(64);
+  }
+}
+__device__ __forceinline__ void publish_flag(int* flag, int value) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(flag), "r"(value) : "memory");
+}
+
+// The serial store of one 128 x kBN tile of set `set`, split z of `splits`: each lane's values
+// 4 consecutive columns of its two rows at a time (quad_values), added to the running sum split
+// z - 1 left (z > 0), then written back for split z + 1 or, at the last split, rounded to bf16
+// into the weight gradient. The running sums are read kSerialGroup 16-column groups at a time
+// before any of them is written back: a load after a store to the same array waits for it (the
+// compiler cannot tell the addresses apart), so one group at a time would pay an L2 round trip
+// for each of the tile's kBN / 16 groups. Rows are all live (M = W, a multiple of 128); columns
+// past N are skipped. Every thread of the block takes part (the barriers)
+constexpr int kSerialGroup = 4;
+
+template <int kBN>
+__device__ __forceinline__ void serial_store(const float (&acc)[kBN / 8][4],
+                                             const WgmmaGemmArgs& args, int set, int z,
+                                             int flag_at, int n0, int row0, int quad,
+                                             bool odd) {
+  static_assert(kBN / 16 % kSerialGroup == 0, "whole groups");
+  const int m = args.m, n = args.n;
+  float* sum = args.serial_sum + static_cast<size_t>(set) * m * n;
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(args.c[0]) + static_cast<size_t>(set) * m * n;
+  int* flag = args.serial_flag + flag_at;
+  const bool last = z + 1 == args.splits;
+  if (z > 0) {
+    if (threadIdx.x == 0) wait_flag(flag, z);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int j0 = 0; j0 < kBN / 16; j0 += kSerialGroup) {
+    if (n0 + 16 * j0 >= n) break;  // N is a multiple of 128: a group is live or not as a whole
+    float4 prev[kSerialGroup][2] = {};
+    if (z > 0) {
+#pragma unroll
+      for (int jj = 0; jj < kSerialGroup; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          prev[jj][h] = __ldcg(reinterpret_cast<const float4*>(
+              sum + static_cast<size_t>(row0 + 8 * h) * n + n0 + 16 * (j0 + jj) + quad));
+    }
+#pragma unroll
+    for (int jj = 0; jj < kSerialGroup; ++jj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const size_t at = static_cast<size_t>(row0 + 8 * h) * n + n0 + 16 * (j0 + jj) + quad;
+        float v[4];
+        quad_values(acc, j0 + jj, h, odd, v);
+        const float4 p = prev[jj][h];  // zeros at split 0, never added there
+        if (z > 0) {
+          v[0] = __fadd_rn(p.x, v[0]), v[1] = __fadd_rn(p.y, v[1]);
+          v[2] = __fadd_rn(p.z, v[2]), v[3] = __fadd_rn(p.w, v[3]);
+        }
+        if (last)
+          store4(out + at, v);
+        else
+          __stcg(reinterpret_cast<float4*>(sum + at), make_float4(v[0], v[1], v[2], v[3]));
+      }
+  }
+  if (!last) {  // every thread's sums in L2 before the flag says so
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) publish_flag(flag, z + 1);
+  }
 }
 
 template <typename T, typename TOut, int kForm, int kLoad, int kStore, int kBN, int kSets>
 __global__ void __launch_bounds__(kWgmmaThreads, WgmmaLayout<kBN>::kBlocksPerSm)
 wgmma_gemm_kernel(const __grid_constant__ WgmmaMaps<kSets> maps, const WgmmaGemmArgs args) {
   static_assert(std::is_same_v<T, __nv_bfloat16>, "wgmma_gemm_kernel is the bfloat16 GEMM");
-  static_assert(kSets == 1 || kSets == 3, "one operand set, or the block kernels' three");
   constexpr bool kNN = kForm == kFormNN, kNT = kForm == kFormNT, kTN = kForm == kFormTN;
-  static_assert(kSets == 1 || !kTN, "the TN form takes one operand set");
+  static_assert(kSets == 1 || (kSets == 3 && !kTN) || (kSets == 4 && kTN),
+                "one operand set, the block kernels' three (NN, NT) or their weight gradients' four "
+                "(TN)");
+  static_assert((kSets == 4) == (kStore == kStoreSerial), "the serial store is the four sets'");
   static_assert(kLoad == kLoadPlain || (kForm == kFormNN && kLoad == kLoadLn) ||
                     (kTN && (kLoad == kLoadAct || kLoad == kLoadLnB)),
                 "LN loads in the NN form, act and LN-b in the TN form");
@@ -252,22 +356,24 @@ wgmma_gemm_kernel(const __grid_constant__ WgmmaMaps<kSets> maps, const WgmmaGemm
   const int sets = kSets == 1 ? 1 : args.sets;
   const int ksteps = (args.k + kWgmmaBK - 1) / kWgmmaBK;  // NN, NT: a segment's K-steps
   const int tiles_n = (n + kBN - 1) / kBN, tiles_m = (m + kWgmmaBM - 1) / kWgmmaBM;
-  const int tiles = tiles_n * tiles_m * (kTN ? args.splits : (kNN ? sets : 1));
+  const int tiles = tiles_n * tiles_m * (kTN ? args.splits * kSets : (kNN ? sets : 1));
   const int mine = tiles > static_cast<int>(blockIdx.x)
                        ? (tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x
                        : 0;
   struct Tile {
-    int m0, n0, z, k_begin, k_end, steps;
+    int m0, n0, z, set, k_begin, k_end, steps;
   };
-  // this block's i-th tile: N fastest, then M, then the split (TN); N fastest, then the
-  // weight set, then M (NN: the sets' tiles of a row block share its A tiles in L2)
+  // this block's i-th tile: N fastest, then M, then the set, then the split (TN); N fastest,
+  // then the weight set, then M (NN: the sets' tiles of a row block share its A tiles in L2)
   auto tile_at = [&](int i) {
     const int q = static_cast<int>(blockIdx.x) + i * static_cast<int>(gridDim.x);
     Tile tl;
     tl.n0 = q % tiles_n * kBN;
+    tl.set = 0;
     if constexpr (kTN) {
       tl.m0 = q / tiles_n % tiles_m * kWgmmaBM;
       tl.z = q / (tiles_n * tiles_m);
+      if constexpr (kSets > 1) tl.set = tl.z % kSets, tl.z /= kSets;
     } else {
       tl.z = kNN ? q / tiles_n % sets : 0;
       tl.m0 = q / (tiles_n * (kNN ? sets : 1)) * kWgmmaBM;
@@ -296,8 +402,8 @@ wgmma_gemm_kernel(const __grid_constant__ WgmmaMaps<kSets> maps, const WgmmaGemm
     if (p_i >= mine) return;
     const int s = p_g % kStages;
     if (p_g >= kStages) mbar_wait(&freed[s], (p_g / kStages - 1) & 1);
-    // NT: the step's segment, and its k0 within it; NN: the tile's weight set
-    const int seg = kNT ? p_kt / ksteps : 0;
+    // NT: the step's segment, and its k0 within it; NN: the tile's weight set; TN: its set
+    const int seg = kNT ? p_kt / ksteps : (kTN ? p_tile.set : 0);
     const int k0 = p_tile.k_begin + (kNT ? p_kt - seg * ksteps : p_kt) * kWgmmaBK;
     const CUtensorMap* map_a = pick_map<kSets>(maps.a, seg);
     const CUtensorMap* map_b = pick_map<kSets>(maps.b, kNN ? p_tile.z : seg);
@@ -432,6 +538,12 @@ wgmma_gemm_kernel(const __grid_constant__ WgmmaMaps<kSets> maps, const WgmmaGemm
     // (quad_values), so that a quad of lanes stores a row's 16 values whole; rows past M are not
     // stored (nor summed), nor columns past N (a 256-wide tile at N = 128 mod 256)
     const int row0 = tl.m0 + 64 * wg + 16 * (warp & 3) + g;
+    if constexpr (kStore == kStoreSerial) {
+      serial_store<kBN>(acc, args, tl.set, tl.z,
+                        (tl.set * tiles_m + tl.m0 / kWgmmaBM) * tiles_n + tl.n0 / kBN, tl.n0,
+                        row0, quad, odd);
+      continue;
+    }
     TOut* c = static_cast<TOut*>(kNN ? pick3(args.c, tl.z) : args.c[0]);
     if constexpr (kTN) c += static_cast<size_t>(tl.z) * m * n;
     const T* bias = kNN ? pick3(args.bias, tl.z) : args.bias[0];
@@ -530,7 +642,8 @@ cudaError_t launch_wgmma_maps(const WgmmaMaps<kSets>& maps, const WgmmaGemmArgs&
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  const int z = kForm == kFormTN ? args.splits : (kForm == kFormNN && kSets > 1 ? args.sets : 1);
+  const int z = kForm == kFormTN ? args.splits * kSets
+                                 : (kForm == kFormNN && kSets > 1 ? args.sets : 1);
   const long long tiles = static_cast<long long>((args.n + kBN - 1) / kBN) *
                           ((args.m + kWgmmaBM - 1) / kWgmmaBM) * z;
   const long long blocks = static_cast<long long>(L::kBlocksPerSm) * sms;
@@ -577,6 +690,41 @@ cudaError_t launch_block_gemm(const void* const* a, const void* const* b, int se
   }
   args.m = m, args.n = w, args.k = w, args.splits = 1, args.sets = sets;
   return launch_wgmma_maps<TOut, kForm, kLoad, kStore, 128, 3>(maps, args, stream);
+}
+
+// The block backward's weight gradients (kSets = 4, the TN form, kBN-wide tiles (256 in the one
+// use; a template, so that only the source that launches it instantiates its kernel), the serial
+// store): out[s] = a_s^T b_s over t token rows for s < 4, a_s and b_s [t, w] bf16 as they lie
+// (MN-major), out [4, w, w] bf16, each a sum over `splits` runs of k_per_split token rows (a
+// multiple of the K-step; every split holds rows) in split order, rounded once. sum [4, w, w]
+// f32 and flags [4 * (w / 128) * ceil(w / kBN)] int are scratch; the flags are zeroed here.
+template <int kBN>
+cudaError_t launch_block_wgrad(const void* const* a, const void* const* b, int t, int w,
+                               int splits, int k_per_split, float* sum, int* flags, void* out,
+                               cudaStream_t stream) {
+  constexpr int kSets = 4;
+  if (t < 1 || w < 128 || w % 128 != 0 || splits < 1 || k_per_split < kWgmmaBK ||
+      k_per_split % kWgmmaBK != 0 || static_cast<long long>(splits - 1) * k_per_split >= t ||
+      static_cast<long long>(splits) * k_per_split < t)
+    return cudaErrorInvalidValue;
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  WgmmaMaps<kSets> maps = {};
+  for (int s = 0; s < kSets; ++s)
+    if (!encode_bf16_2d(encode, &maps.a[s], a[s], t, w, 64) ||
+        !encode_bf16_2d(encode, &maps.b[s], b[s], t, w, 64))
+      return cudaErrorInvalidValue;
+  const int flags_n = kSets * (w / kWgmmaBM) * ((w + kBN - 1) / kBN);
+  cudaError_t err = cudaMemsetAsync(flags, 0, flags_n * sizeof(int), stream);
+  if (err != cudaSuccess) return err;
+  WgmmaGemmArgs args = {};
+  args.m = w, args.n = w, args.k = t, args.splits = splits, args.sets = kSets;
+  args.k_per_split = k_per_split;
+  args.c[0] = out;
+  args.serial_sum = sum;
+  args.serial_flag = flags;
+  return launch_wgmma_maps<__nv_bfloat16, kFormTN, kLoadPlain, kStoreSerial, kBN, kSets>(
+      maps, args, stream);
 }
 
 }  // namespace

@@ -40,8 +40,12 @@ from multimodal_tpu_torch.ops._build import gemm_sets, gemm_signature
 # template arguments; the first match wins, None matches anything. mma_gemm_kernel
 # (ops/csrc/mma_gemm.cuh) runs the block kernels' and the fused MLP's products in float32;
 # wgmma_gemm_kernel (ops/csrc/wgmma_gemm.cuh) both in bfloat16, the block kernels' as the
-# instantiations with three operand sets (``gemm_sets``)
+# instantiations with three operand sets, the block backward's weight gradients with four
+# (``gemm_sets``)
 BLOCK_WGMMA_FAMILIES = [
+    (("TN", None, "serial"),
+     "block backward weight gradients, bfloat16 (wgmma_gemm_kernel TN x4, serial store: a^T dq, "
+     "a^T dk, a^T dv, attnpre^T dy in one launch)"),
     (("NN", None, None),
      "block q/k/v and out-projection GEMMs (wgmma_gemm_kernel NN x3: the forward's, with the "
      "LN load or the residual store in the LN form, and the backward's q/k/v recompute)"),
@@ -120,7 +124,7 @@ def family_of(kernel_name: str) -> str:
     signature = gemm_signature(kernel_name)
     if signature is not None:
         table = (GEMM_FAMILIES if "wgmma_gemm_kernel" not in kernel_name else
-                 BLOCK_WGMMA_FAMILIES if gemm_sets(kernel_name) == 3 else WGMMA_FAMILIES)
+                 BLOCK_WGMMA_FAMILIES if gemm_sets(kernel_name) > 1 else WGMMA_FAMILIES)
         for pattern, family in table:
             if all(p is None or p == v for p, v in zip(pattern, signature[2:])):
                 return family

@@ -55,8 +55,9 @@ def test_phase3_holds_the_tile_edge_and_padded_head_cases():
     block_dims = {w // h for _, _, _, w, h, _ in cs.BLOCK_CASES}
     ln_dims = {w // h for _, _, _, w, h, _, _ in cs.LN_CASES}
     assert {80, 88} <= block_dims and {80, 88} <= ln_dims
-    # the eleven TPU-kernel counterparts, the two int8 kernels and the card's JPEG resample
-    assert len(cs.KERNELS) == 14
+    # the eleven TPU-kernel counterparts, the two int8 kernels, the card's JPEG resample and the
+    # block backward's weight gradients
+    assert len(cs.KERNELS) == 15
 
 
 FLASH_DQ = ("_ZN57_GLOBAL__N__2b5bc54b_18_flash_attention_cu_e4f1a2b315flash_dq_kernelINS_7Tf32Ops"
@@ -485,12 +486,14 @@ def test_phase3_holds_the_flash_head_dims_and_the_text_towers_batch():
 def test_phase3_holds_the_variational_towers_shapes():
     """The variational ViT-B/32's towers: vision S=51 (CLS, 49 patches, the concentration
     token) and text S=78 causal, each timed at B=256 beside the library call and also at a
-    ragged B=3; the kernel line still lists all eleven kernels, and the two int8 ones."""
+    ragged B=3; the kernel line still lists all eleven kernels, the two int8 ones and the
+    others."""
     rows = {(case, b, s, w, h, causal) for case, b, s, w, h, causal in cs.BLOCK_CASES}
     assert {("vclip-vision", 256, 51, 768, 12, False), ("vclip-text", 256, 78, 512, 8, True),
             ("vclip-vision", 3, 51, 768, 12, False), ("vclip-text", 3, 78, 512, 8, True)} <= rows
-    # the eleven TPU-kernel counterparts, the two int8 kernels and the card's JPEG resample
-    assert len(cs.KERNELS) == 14
+    # the eleven TPU-kernel counterparts, the two int8 kernels, the card's JPEG resample and the
+    # block backward's weight gradients
+    assert len(cs.KERNELS) == 15
 
 
 def test_variational_block_bounds():
@@ -915,7 +918,8 @@ WGMMA_BLOCK = ("_ZN55_GLOBAL__N__ee72dafa_22_block_attention_{}_cu_649abda017wgm
                "nv_bfloat16{}EEvNS_9WgmmaMapsIXT5_EEENS_13WgmmaGemmArgsE")
 WGMMA_BLOCK_ARGS = [("fwd", "S1_Li0ELi0ELi0ELi128ELi3E"), ("fwd", "S1_Li0ELi1ELi0ELi128ELi3E"),
                     ("fwd", "S1_Li0ELi0ELi1ELi128ELi3E"), ("bwd", "S1_Li0ELi0ELi0ELi128ELi3E"),
-                    ("bwd", "S1_Li1ELi0ELi0ELi128ELi3E"), ("bwd", "fLi1ELi0ELi0ELi128ELi3E")]
+                    ("bwd", "S1_Li1ELi0ELi0ELi128ELi3E"), ("bwd", "fLi1ELi0ELi0ELi128ELi3E"),
+                    ("bwd", "S1_Li2ELi0ELi5ELi256ELi4E")]  # the weight gradients: four sets
 # the backward's dQ and dK/dV kernels in their block form (D class, [key tile,] 1, packed)
 BLOCK_DQ = ("_ZN51_GLOBAL__N__6719648f_18_fused_attention_cu_de02afe215fused_dq_kernelINS_10"
             "FusedDqOpsILi{}ELi{}ELi{}ELi{}EEEEEvNS_12FusedBwdMapsEPfP13__nv_bfloat16iiiifi")
@@ -924,7 +928,7 @@ BLOCK_DKV = ("_ZN51_GLOBAL__N__6719648f_18_fused_attention_cu_de02afe216fused_dk
 
 
 def block_sass(hmma_in=None, drop=None):
-    """SASS of the block kernels' bfloat16 instantiations (the GEMM's five forms, the NN
+    """SASS of the block kernels' bfloat16 instantiations (the GEMM's six forms, the NN
     plain-round one in both sources; the dQ and dK/dV kernels' eight block-form ones), beside
     an MLP GEMM and the fused form's dQ; ``hmma_in`` names one that holds an mma.sync product,
     ``drop`` one left out of the build."""
@@ -958,10 +962,11 @@ def test_kernel_label_marks_the_block_gemms_and_forms():
 
 
 def test_block_wgmma_faults_hold_every_bf16_block_instantiation_to_wgmma():
-    """Phase 2 fails on a bfloat16 block-kernel instantiation (the GEMM with three operand sets,
-    the dQ or dK/dV kernel in its block form) with an HMMA or without a GMMA, and on a build
-    with fewer than the five GEMM forms or the eight attention ones; the MLP's GEMM and the
-    fused form's kernels are not counted there, nor the block GEMMs among the MLP's."""
+    """Phase 2 fails on a bfloat16 block-kernel instantiation (the GEMM with three operand sets
+    or the weight gradients' four, the dQ or dK/dV kernel in its block form) with an HMMA or
+    without a GMMA, and on a build with fewer than the six GEMM forms or the eight attention
+    ones; the MLP's GEMM and the fused form's kernels are not counted there, nor the block GEMMs
+    among the MLP's."""
     assert cs.block_wgmma_faults(block_sass()) == []
     assert cs.mlp_wgmma_faults(block_sass()) == [
         f"1 wgmma_gemm_kernel instantiations in the SASS, {cs.MLP_WGMMA_INSTANTIATIONS} expected"]
@@ -975,7 +980,11 @@ def test_block_wgmma_faults_hold_every_bf16_block_instantiation_to_wgmma():
         "expected"]
     ln = "wgmma_gemm_kernel<bfloat16, bfloat16, NN, LN, round, x3>"
     assert cs.block_wgmma_faults(block_sass(drop=ln)) == [
-        f"4 block GEMM instantiations in the SASS, {cs.BLOCK_GEMM_INSTANTIATIONS} expected"]
+        f"5 block GEMM instantiations in the SASS, {cs.BLOCK_GEMM_INSTANTIATIONS} expected"]
+    wgrad = "wgmma_gemm_kernel<bfloat16, bfloat16, TN, plain, serial, x4>"
+    assert cs.block_wgmma_faults(block_sass(drop=wgrad)) == [
+        f"5 block GEMM instantiations in the SASS, {cs.BLOCK_GEMM_INSTANTIATIONS} expected"]
+    assert cs.block_wgmma_faults(block_sass(hmma_in=wgrad))[0].startswith(wgrad + ": {")
     no_tc = block_sass().replace(f"{BLOCK_DKV.format(128, 1, 0)}\n{HGMMA.format(128)}",
                                  f"{BLOCK_DKV.format(128, 1, 0)}\n        /*0100*/  FFMA R4, R8 ;")
     assert cs.block_wgmma_faults(no_tc) == [
@@ -996,3 +1005,69 @@ def test_block_edge_cases_cross_the_packed_passes_and_gemm_tiles():
     assert {d for _, _, d, _ in cases} == {32, 64, 128}
     assert any(b * s % 128 for b, s, _, _ in cases)
     assert all(w % 128 == 0 and w % h == 0 for _, _, _, w, h, _ in cs.BLOCK_EDGE_CASES)
+
+
+def test_kernel_label_marks_the_weight_gradient_gemm():
+    """The weight-gradient kernel's instantiation (TN, four operand sets, the serial store) ends in
+    ", x4"; ``gemm_sets`` reads 4 from its mangled and demangled names, and the step profiler
+    puts it in a family of its own, apart from the MLP's TN weight gradients."""
+    from multimodal_tpu_torch.ops._build import gemm_sets, gemm_signature
+    from multimodal_tpu_torch.profile_step import family_of
+
+    mangled = WGMMA_BLOCK.format("bwd", "S1_Li2ELi0ELi5ELi256ELi4E")
+    assert cs.kernel_label(mangled) == (
+        "wgmma_gemm_kernel<bfloat16, bfloat16, TN, plain, serial, x4>")
+    demangled = ("void (anonymous namespace)::wgmma_gemm_kernel<__nv_bfloat16, __nv_bfloat16, 2, "
+                 "0, 5, 256, 4>((anonymous namespace)::WgmmaMaps<4>, (anonymous namespace)::"
+                 "WgmmaGemmArgs)")
+    assert gemm_sets(mangled) == gemm_sets(demangled) == 4
+    assert gemm_signature(demangled) == ("bfloat16", "bfloat16", "TN", "plain", "serial")
+    assert family_of(demangled).startswith("block backward weight gradients")
+    mlp = demangled.replace("__nv_bfloat16, 2, 0, 5, 256, 4", "float, 2, 2, 0, 256, 1")
+    assert family_of(mlp).startswith("fused MLP weight gradients")
+
+
+def test_phase3_holds_the_weight_gradient_kernel_at_every_block_shape():
+    """The weight-gradient kernel's cases are the token rows and widths of every block case,
+    both forms, once each; timed at B=256 (ViT-B/32's towers, the shared trunk, S=145 and S=197)
+    and at the caption mappers' B=32; its kernels-line entry names the reference's XLA product
+    and a timed case, and reports bfloat16 (float32 keeps torch.matmul)."""
+    rows = {(b * s, w) for _, b, s, w in cs.WGRAD_CASES}
+    assert {(256 * 50, 768), (256 * 77, 512), (256 * 77, 768), (256 * 197, 768),
+            (256 * 145, 768), (32 * 20, 768), (32 * 14, 256)} <= rows
+    assert len(set(cs.WGRAD_CASES)) == len(cs.WGRAD_CASES)
+    assert {w for _, w in rows} == {w for *_, w, _, _ in cs.BLOCK_CASES} | {
+        w for *_, w, _, _, _ in cs.LN_CASES}
+    path, replaces, case = cs.KERNELS["block_attention_wgrad"]
+    assert path.endswith("ops/csrc/block_attention_bwd.cu")
+    assert replaces.startswith("not a TPU kernel") and "block_attention.py:454" in replaces
+    assert case in {c for c, b, *_ in cs.WGRAD_CASES if b == 256}
+    assert cs.KERNEL_DTYPES == {"block_attention_wgrad": "bfloat16"}
+
+
+def test_wgrad_bound_counts_the_operands_once_and_the_running_sums():
+    """8 T W^2 bf16 FLOPs at 989 TFLOP/s against the six bf16 operands read once, the four bf16
+    gradients written once and the float32 running sums written and read between splits: ViT-B/32's
+    vision call is bound by its operations; at T = 1 the bytes bind."""
+    t, w = 256 * 50, 768
+    ms, by, flops = cs.wgrad_bound(t, w, 3)
+    assert by == "operations" and flops == 8 * t * w * w
+    assert ms == pytest.approx(1e3 * flops / 989e12)
+    ms1, by1, _ = cs.wgrad_bound(1, w, 1)
+    assert by1 == "bytes"
+    assert ms1 == pytest.approx(1e3 * (2 * 6 * w + 2 * 4 * w * w) / cs.PEAK_BYTES)
+    ms3, _, _ = cs.wgrad_bound(1, w, 3)
+    assert ms3 == pytest.approx(1e3 * (2 * 6 * w + 2 * 4 * w * w + 2 * 2 * 16 * w * w)
+                                / cs.PEAK_BYTES)
+
+
+def test_with_wgrad_adds_one_launch_per_block_backward():
+    """A bfloat16 run's exact counts: one weight-gradient launch beside each block backward of
+    either form, nothing added where no block backward runs."""
+    assert cs.with_wgrad({"block_attention_fwd": 24, "block_attention_bwd": 24}) == {
+        "block_attention_fwd": 24, "block_attention_bwd": 24, "block_attention_wgrad": 24}
+    assert cs.with_wgrad({"block_attention_ln_bwd": 12, "block_attention_bwd": 12,
+                          "block_mlp_bwd": 24})["block_attention_wgrad"] == 24
+    assert cs.with_wgrad(cs.INT8_NEED)["block_attention_wgrad"] == 24
+    fused = {"fused_attention_fwd": 12, "fused_attention_bwd": 12}
+    assert cs.with_wgrad(fused) == fused
