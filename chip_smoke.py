@@ -33,7 +33,10 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      (LayerNorm and residual inside the kernel; also ln_out, dgamma and dbeta) at S=145
      (ViT-B/32's vision tower at 384 px, timed at B=256), S=197, S=257 and S=320, causal and
      not; both forms at the head dims 80 and 88 (S=257, W=1280 and 1408), whose last k-step
-     of 16 is zero-padded; the fused whole-sequence attention pair at S=128, 197, 257 and 512
+     of 16 is zero-padded; phase 18's shapes at the batches it trains at (PHASE18_TIMED: the
+     LN-fold form at S=257 W=1024 / 1280 / 1408, the non-LN form at the H/14 and g/14 text
+     tower's S=77 W=1024 H=16 causal, their weight gradients, ViT-L/14's int8 quantizes and
+     GEMMs), timed; the fused whole-sequence attention pair at S=128, 197, 257 and 512
      with D=32, 64 and 128 and at S=129 and 191 (one past and one short of a 64-row tile
      edge), causal and not, with torch's scaled_dot_product_attention timed beside it and a
      second launch of the timed case compared bit for bit with the first; the fused MLP branch
@@ -82,8 +85,8 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      c_fc); the bias added after the bfloat16 rounding (the bfloat16 train path); and the image
      projection at M=256, float32 out: codes, scales and outputs bit for bit against the plain
      versions, a zero row and a row of exact .5 ties in every quantize input, a second launch
-     the same bits; device times (torch.profiler) with GB/s or TOP/s and the share of the
-     bound, and beside each GEMM the same product as torch._int_mm (cuBLASLt, int32 out, no
+     the same bits; device times (CUDA events around calls queued behind a spin kernel, with
+     torch.profiler's reading beside) with GB/s or TOP/s and the share of the bound, and beside each GEMM the same product as torch._int_mm (cuBLASLt, int32 out, no
      rescale) and as a bfloat16 torch.matmul (information);
   4. serving: ViT-B/32 in float32 with seeded random weights behind the HTTP server,
      answering text, image and similarity requests; the forward kernel's launch count over
@@ -191,9 +194,11 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      a second launch the same bits) at B=256 shapes JPEGs to 224 train, 128 train and 224
      eval, with CUDA-event times and the bound (each image's tapped rows and columns read
      once, the output written once); (c) ``data.bench_pipeline`` on the shards: decode
-     images/s at 1, 4, 8 and 16 threads, the WdsReader and 4 InterleavedReaders, beside phase
-     6's bfloat16 rate; (d) the CLI in this process from the shapes shards (``--dataset-type
-     webdataset --dataset-resampled --workers 4``, a real ``--val-data``), ViT-B/32 bfloat16
+     images/s at 1, 4, 8 and 16 threads, the shards' captions tokenized by the native BPE and
+     by the Python one (texts/s each, equal ids or the phase fails), the WdsReader and 4
+     InterleavedReaders, beside phase 6's bfloat16 rate; (d) the CLI in this process from the
+     shapes shards (``--dataset-type webdataset --dataset-resampled --workers 4``, a real
+     ``--val-data``), ViT-B/32 bfloat16
      at B=256, 8 steps each at 224, with ``--wire-size 128`` and with ``--aug-cfg
      color_jitter=0.4 re_prob=0.25``: finite losses and validation metrics, exactly
      8 x (24 + 24) block launches plus 24 for the validation batch and 9 resample launches,
@@ -250,11 +255,14 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      cores and 2 x 24 backward dQ passes, each stream's occupancy at most its sum; (e) vMF EM at
      50,000 x 512, K=10, 20 iterations on the card against the CPU from the same means (weights,
      kappas, log-likelihoods within 1e-4 relative), ms per iteration on each; (f)
-     ``run_loss_bench`` at its defaults for each distribution on the card (seconds, final
-     statistics) and the CPU's trajectory from a CPU generator (seconds); at 5 steps along it
-     one card step from the CPU's state with the CPU's draws against the CPU's step (stats
-     within 1e-4 relative, the mean arc 0.02 degrees, points 1e-5, concentrations 1e-4); the
-     two 1000-step runs are not held to each other, float32 rounding grows over them; (g)
+     ``run_loss_bench`` at its defaults but 200 steps (``BENCH_CARD_STEPS``) for each
+     distribution on the card (seconds, final statistics) and the CPU's trajectory at its
+     defaults, 1000 steps, from a CPU generator (seconds; a child process started at phase 15,
+     ``LossBenchCpu``); at 5 steps along it, 0 to 999, one card step from the CPU's state with
+     the CPU's draws
+     against the CPU's step (stats within 1e-4 relative, the mean arc 0.02 degrees, points
+     1e-5, concentrations 1e-4); the two free runs are not held to each other, float32
+     rounding grows over them; (g)
      ``LlamaCaptioner`` over a tiny random local Llama snapshot written here: card captions
      equal to the CPU's;
  17. the distributed layer on one card: (a) in a child under ``python -m
@@ -271,7 +279,28 @@ Phases (each prints its lines; any failure exits non-zero before the result line
      the ring's schedule (``ring_attention_blocks``) over 4 blocks of a B=2, S=8192, H=8, D=64
      sequence on the flash kernels, full and causal, float32 and bfloat16, against one flash
      call over the whole sequence at phase 3's limits, the launches exactly (16, or 10 causal,
-     of each flash kernel), ms of forward + backward beside the one call.
+     of each flash kernel), ms of forward + backward beside the one call;
+ 18. the large-ViT family at full width and depth (``LARGE_VITS``): for each of ViT-L/14,
+     ViT-H/14 and ViT-g/14 (vision S=257 through the LN-fold kernels at W=1024 / 1280 / 1408,
+     head dims 64 / 80 / 88; text S=77 causal through the non-LN ones): (a) served as in
+     phases 4-5 (bucket 256 for L/14, 64 for H/14 and g/14), every image encode at least 24 /
+     32 / 40 LN-fold forward launches and every text encode 12 / 24 / 24 non-LN ones, cosine
+     >= 0.9999 to the plain-version encode, encodes/s and p50; (b) trained: float32 kernel
+     path against plain path for 6 steps (B=16 / 8 / 8) at phase 6's limits with exactly 24 /
+     32 / 40 LN-fold and 12 / 24 / 24 non-LN forward and backward launches a step (the
+     counts follow from the shipped configs, ``block_need``), then bfloat16 for 6 steps at the
+     largest batch the kernel path holds (``bf16_largest_run``: 256 / 192 / 128 as measured,
+     then one step of the same model at the next candidate up must run out of memory; where it
+     runs, the run moves up, and where the run runs out of memory, down), with bfloat16 AdamW
+     moments for H/14 and g/14, as bench.py (one step with float32 moments beside: its peak or
+     its out-of-memory error), finite and falling, samples/s and peak memory; (c) ViT-L/14 with
+     ``int8_forward=True``: float32 int8 kernel path against plain path at phase 12's limits,
+     widened by (b)'s float32 kernel path from the same start, then one bfloat16 run at (b)'s
+     bfloat16 batch, finite and falling, its rate beside (b)'s; (d) ViT-L-16,
+     ViT-S-16-128, ViT-B-16-512 and ViT-B-32-two-tower-16 at full width and depth, B=32: two
+     float32 steps kernel against plain at phase 6's limits with exact launches, one encode of
+     each tower through ``Embedder`` with exact launches at cosine >= 0.9999 to the plain
+     version, one bfloat16 step, finite; the phase's seconds.
 Every bfloat16 training run's exact launch counts hold one launch of the weight-gradient kernel
 beside each block backward of either form (``with_wgrad``; float32 forms its weight gradients
 with torch.matmul). Before the last line come the card's name and power limit and the kernel
@@ -282,6 +311,7 @@ from __future__ import annotations
 
 import base64
 import contextlib
+import gc
 import json
 import os
 import re
@@ -355,6 +385,23 @@ KERNEL_DTYPES = {"block_attention_wgrad": "bfloat16"}
 # main path's shapes: timed, with their library call and other timed runs, by device time
 # (``device_ms``), where back-to-back CUDA events would time the host
 DEVICE_TIMED = ("block_attention_wgrad",)
+# phase 18: the large-ViT family at full width and depth. Per model: the float32
+# kernel-vs-plain comparison's batch; the largest bfloat16 batch the card holds as measured
+# (bf16_largest_run starts there, proves the next candidate up runs out of memory, and moves
+# where it does not; phase 3 times the model's block shapes at it); the serving bucket; the
+# AdamW moments' dtype (bench.py's: bfloat16 for H/14 and g/14). The launches follow from the
+# shipped configs (block_need).
+LARGE_VITS = {
+    "ViT-L-14": dict(compare=16, train=256, bucket=256, moments="float32"),
+    "ViT-H-14": dict(compare=8, train=192, bucket=64, moments="bfloat16"),
+    "ViT-g-14": dict(compare=8, train=128, bucket=64, moments="bfloat16"),
+}
+# bf16_largest_run's candidates in phase 18
+LARGE_CANDIDATES = (8, 16, 24, 32, 48, 64, 96, 128, 160, 192, 224, 256, 320, 384)
+B_L14, B_H14, B_G14 = (LARGE_VITS[m]["train"] for m in ("ViT-L-14", "ViT-H-14", "ViT-g-14"))
+# phase 18 (d): the other shipped configs at full width and depth
+OTHER_CONFIGS = ("ViT-L-16", "ViT-S-16-128", "ViT-B-16-512", "ViT-B-32-two-tower-16")
+OTHER_BATCH = 32
 BLOCK_CASES = [  # (case, batch, seq, width, heads, causal)
     ("vision", 1, 50, 768, 12, False),
     ("vision", 3, 50, 768, 12, False),
@@ -368,6 +415,8 @@ BLOCK_CASES = [  # (case, batch, seq, width, heads, causal)
     ("vision-S257", 2, 257, 1024, 16, False),
     ("vision-D80", 2, 257, 1280, 16, False),  # ViT-H/14's width: head dim 80, a padded k-step
     ("vision-D88", 2, 257, 1408, 16, True),   # ViT-g/14's width: head dim 88
+    ("text-W1024", 2, 77, 1024, 16, True),  # the H/14 and g/14 text towers, at their batches
+    *(("text-W1024", b, 77, 1024, 16, True) for b in sorted({B_H14, B_G14})),
     ("vclip-vision", 3, 51, 768, 12, False),  # VariationalCLIP: CLS, 49 patches, the
     ("vclip-vision", 256, 51, 768, 12, False),  # concentration token (an odd S)
     ("vclip-text", 3, 78, 512, 8, True),  # 77 tokens and the concentration token, which
@@ -385,11 +434,17 @@ LN_CASES = [  # (case, batch, seq, width, heads, causal, residual)
     ("ln-S197", 4, 197, 768, 12, False, False),
     ("ln-S197", 256, 197, 768, 12, False, True),
     ("ln-S257", 2, 257, 1024, 16, False, True),
+    ("ln-S257", B_L14, 257, 1024, 16, False, True),  # ViT-L/14's vision tower, phase 18's B
     ("ln-S320", 2, 320, 768, 12, False, True),
     ("ln-S320", 2, 320, 768, 12, True, True),
     ("ln-D80", 2, 257, 1280, 16, False, True),
+    ("ln-D80", B_H14, 257, 1280, 16, False, True),  # ViT-H/14's
     ("ln-D88", 2, 257, 1408, 16, False, True),
+    ("ln-D88", B_G14, 257, 1408, 16, False, True),  # ViT-g/14's
 ]
+# the phase-3 cases timed at phase 18's batches (every other block case is timed at B=256)
+PHASE18_TIMED = {("text-W1024", B_H14), ("text-W1024", B_G14), ("ln-S257", B_L14),
+                 ("ln-D80", B_H14), ("ln-D88", B_G14)}
 FUSED_CASES = [  # (case, batch, seq, heads, head_dim, causal)
     ("fused-S128", 2, 128, 8, 32, False),
     ("fused-S128", 2, 128, 8, 32, True),
@@ -516,12 +571,30 @@ QUANT_CASES = [  # (case, rows, cols, weight form or None): ViT-B/32's int8 step
     ("q-text-w1-rows", 512, 2048, "rows"),
     ("q-text-w2-cols", 2048, 512, "columns"),
     ("q-text-w2-rows", 2048, 512, "rows"),
+    # ViT-L/14's int8 step (phase 18 (c)) at its bfloat16 batch: vision 1024 <-> 4096 over
+    # B*257 rows, text 768 <-> 3072 over B*77
+    ("q-L14-vision-x", B_L14 * 257, 1024, None),
+    ("q-L14-vision-act", B_L14 * 257, 4096, None),
+    ("q-L14-text-x", B_L14 * 77, 768, None),
+    ("q-L14-text-act", B_L14 * 77, 3072, None),
+    ("q-L14-vision-w1-cols", 1024, 4096, "columns"),
+    ("q-L14-vision-w1-rows", 1024, 4096, "rows"),
+    ("q-L14-vision-w2-cols", 4096, 1024, "columns"),
+    ("q-L14-vision-w2-rows", 4096, 1024, "rows"),
+    ("q-L14-text-w1-cols", 768, 3072, "columns"),
+    ("q-L14-text-w1-rows", 768, 3072, "rows"),
+    ("q-L14-text-w2-cols", 3072, 768, "columns"),
+    ("q-L14-text-w2-rows", 3072, 768, "rows"),
 ]
 GEMM_CASES = [  # (case, M, K, N): y [M, N] = x [M, K] . w [N, K]^T
     ("g-B32-vision-fc", 256 * 50, 768, 3072),    # c_fc forward; c_proj's dx
     ("g-B32-vision-proj", 256 * 50, 3072, 768),  # c_proj forward; c_fc's dx
     ("g-B32-text-fc", 256 * 77, 512, 2048),
     ("g-B32-text-proj", 256 * 77, 2048, 512),
+    ("g-L14-vision-fc", B_L14 * 257, 1024, 4096),
+    ("g-L14-vision-proj", B_L14 * 257, 4096, 1024),
+    ("g-L14-text-fc", B_L14 * 77, 768, 3072),
+    ("g-L14-text-proj", B_L14 * 77, 3072, 768),
 ]
 # the store forms: (case suffix, bias, bias after the rounding, out dtype or None for the
 # loop's): the product scaled (every dx, the forward without a bias); the bias in one fused
@@ -575,9 +648,37 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def device_ms(fn, iters: int = 10) -> float:
-    """Device time of ``fn``'s kernels per call, from torch.profiler's kernel rows (no host
-    gaps between launches): what a kernel that takes less time than its wrapper's host work
-    is measured by. CUDA events where the profiler shows no device time."""
+    """Device time of ``fn`` per call with no host gaps between calls: what a kernel that takes
+    less time than its wrapper's host work is measured by. A spin kernel (``torch.cuda._sleep``)
+    holds the stream while the host queues ``iters`` calls between two CUDA events, so the
+    events time the card alone (with the launches' own gaps, ~1.5 us a call on the H100). Where
+    the card reached the first event before the host had queued every call, the spin is made
+    four times longer and the run repeated; CUDA events over back-to-back calls where even a
+    ~130 ms spin does not cover the host (a call that waits on the card)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 22  # ~2 ms at the H100's clock
+    for _ in range(4):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        early = start.query()
+        torch.cuda.synchronize()
+        if not early:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    return cuda_ms(fn, iters)
+
+
+def profiler_ms(fn, iters: int = 10) -> tuple[float, int]:
+    """torch.profiler's reading of ``fn``: the summed device time of its kernel rows over
+    ``iters`` calls, per call, and the number of kernel launches the profile recorded (shown
+    beside ``device_ms``, which does not depend on it)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -587,12 +688,13 @@ def device_ms(fn, iters: int = 10) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
+    total, records = 0.0, 0
     for ev in prof.key_averages():
         if ev.device_type == torch.autograd.DeviceType.CUDA:  # kernels; an operator repeats them
             t = getattr(ev, "self_device_time_total", None)
             total += ev.self_cuda_time_total if t is None else t
-    return total / iters / 1e3 if total > 0 else cuda_ms(fn, iters)
+            records += ev.count
+    return total / iters / 1e3, records
 
 
 def bound(kernel: str, flops: float, nbytes: float,
@@ -744,7 +846,8 @@ def kernel_cases(torch, ba, fa, bm, fl, dtype):
         # the gradient of x (the weight gradients are outside the kernel and outside this)
         x_leaf = x.detach().requires_grad_()
         mha_out = mha(x_leaf, ws, heads, causal)
-        timed = b == 256 or case.startswith("caption")  # the caption rows at their B=32
+        # the caption rows at their B=32, the H/14 and g/14 text shape at phase 18's batches
+        timed = b == 256 or case.startswith("caption") or (case, b) in PHASE18_TIMED
         yield ("block_attention_fwd", case, shape, timed,
                lambda: ba.block_attention(x, *ws, **kw),
                lambda: ba.block_attention_reference(x, *ws, **kw),
@@ -764,13 +867,14 @@ def kernel_cases(torch, ba, fa, bm, fl, dtype):
         # beside the fold, what it replaces: ln_rows, the non-LN kernel and the add as three
         # steps (the S<=128 dispatch), to show what the fold buys on this card. No library
         # call: no single PyTorch call holds the LayerNorm, the attention block and the add
-        yield ("block_attention_ln_fwd", case, shape, b == 256,
+        timed = b == 256 or (case, b) in PHASE18_TIMED
+        yield ("block_attention_ln_fwd", case, shape, timed,
                lambda: ba.block_attention_ln(x, gamma, beta, *ws, **kw),
                lambda: ba.block_attention_ln_reference(x, gamma, beta, *ws, **kw), None,
                {"unfolded_ms": lambda: x + ba.block_attention(
                    ba.ln_rows(x, gamma, beta, ba.LN_EPS), *ws, heads=heads, causal=causal)},
                ("y",), block_bound("block_attention_ln_fwd", b, s, w, heads, causal, name))
-        yield ("block_attention_ln_bwd", case, shape, b == 256,
+        yield ("block_attention_ln_bwd", case, shape, timed,
                lambda: ba.block_attention_ln_bwd(x, dy, gamma, beta, *ws, **kw),
                lambda: ba.block_attention_ln_bwd_reference(x, dy, gamma, beta, *ws, **kw),
                None, {}, ("dx", "dq", "dk", "dv", "attnpre", "ln_out", "dgamma", "dbeta"),
@@ -810,7 +914,9 @@ def kernel_cases(torch, ba, fa, bm, fl, dtype):
         # the library yardstick: the four products as cuBLAS bf16 GEMMs with float32 out (no
         # rounding to bf16); beside it, as information, what the port ran before the kernel:
         # both operands widened to float32 and a float32 product, rounded
-        yield ("block_attention_wgrad", case, shape, b == 256 or case.startswith("wgrad-caption"),
+        timed = (b == 256 or case.startswith("wgrad-caption")
+                 or (case[len("wgrad-"):], b) in PHASE18_TIMED)
+        yield ("block_attention_wgrad", case, shape, timed,
                lambda: ba.attn_wgrad(*ops, dtype),
                lambda: ba.attn_wgrad_walk(*ops, dtype),
                (lambda: tuple(torch.mm(a.T, dz, out_dtype=torch.float32) for a, dz in pairs),
@@ -953,7 +1059,7 @@ def phase_kernels(torch, ba, fa, bm, fl) -> dict:
     call, where there is one, is held to the plain version's first output too, at a wider
     limit (1e-3 and 5e-2 x max|plain|: it rounds at other points and sums in another
     order), so that its time is the time of the same function. Times are CUDA events over
-    back-to-back calls, device time (torch.profiler) for ``DEVICE_TIMED``'s kernels and their
+    back-to-back calls, device time (``device_ms``) for ``DEVICE_TIMED``'s kernels and their
     library calls. ``worst_f32`` holds each kernel's worst error in float32, or in the one dtype
     ``KERNEL_DTYPES`` names for it."""
     worst_f32 = dict.fromkeys(KERNELS, 0.0)
@@ -995,7 +1101,8 @@ def phase_kernels(torch, ba, fa, bm, fl) -> dict:
                 del again
             del got, want
             if timed:
-                slow = "S197" in case or case.startswith(("mlp", "flash"))
+                slow = ("S197" in case or case.startswith(("mlp", "flash"))
+                        or case in {c for c, _ in PHASE18_TIMED})
                 iters = 8 if slow else 20
                 timer = device_ms if kernel in DEVICE_TIMED else cuda_ms
                 k_ms, p_ms = timer(kern, iters), cuda_ms(plain, iters)
@@ -1100,8 +1207,9 @@ def phase_quant_kernels(torch, q) -> dict:
     """The row-quantize kernel (both forms) and the int8 GEMM against their plain versions at
     ViT-B/32's int8 shapes (B=256), float32 and bfloat16: every output the same bits (codes,
     scales, the GEMM's rescaled values in every store form), a second launch the same bits
-    again; each kernel's device time (``device_ms``; beside it its CUDA-event time, which holds
-    the wrapper's host work too) with GB/s (quantize) or TOP/s (GEMM) and the share of the
+    again; each kernel's device time (``device_ms``; beside it torch.profiler's reading with the
+    kernel records it holds, and the CUDA-event time of back-to-back calls, which holds the
+    wrapper's host work too) with GB/s (quantize) or TOP/s (GEMM) and the share of the
     bound; beside each GEMM its product's ``torch._int_mm`` and bfloat16 ``torch.matmul``
     device times and rates, as information; the plain versions by CUDA events."""
     worst_f32 = {"quantize_rows": 0.0, "int8_gemm": 0.0}
@@ -1126,9 +1234,11 @@ def phase_quant_kernels(torch, q) -> dict:
             del got, want, again
             if timed:
                 k_ms, p_ms = device_ms(kern), cuda_ms(plain, 5)
+                prof_ms, records = profiler_ms(kern)
                 rate = (f"GB/s={nbytes / k_ms / 1e6:.1f}" if nbytes is not None
                         else f"TOP/s={ops / k_ms / 1e9:.1f}")
-                line += (f" kernel_ms={k_ms:.4f} (device; events {cuda_ms(kern, 20):.4f}) "
+                line += (f" kernel_ms={k_ms:.4f} (device; profiler {prof_ms:.4f} from {records} "
+                         f"kernel records of 10 calls; events {cuda_ms(kern, 20):.4f}) "
                          f"plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) {rate} "
                          f"of_bound={100 * b_ms / k_ms:.1f}%")
                 for other, (fn, flops) in others.items():
@@ -1572,11 +1682,11 @@ class Tally:
 
 
 def phase_serving(torch, mods, tally, card, kind, model_name, need_text, need_image,
-                  block_mlp=False, bucket=256, quantized=False):
-    """Serve ``model_name`` (float32, seeded weights) over HTTP; check the answers, the
-    launch counts (``need_*``: kernel -> launches per tower encode) and the agreement with
-    the plain-version encode; then throughput at ``bucket`` and single-request latency.
-    Returns the encodes/s by tower.
+                  block_mlp=False, bucket=256, quantized=False, model=None):
+    """Serve ``model_name`` (float32, seeded weights; or ``model``, the caller's, which it
+    keeps) over HTTP; check the answers, the launch counts (``need_*``: kernel -> launches per
+    tower encode) and the agreement with the plain-version encode; then throughput at
+    ``bucket`` and single-request latency. Returns the encodes/s by tower.
     ``quantized`` serves the int8 W8A8 encoders (``EmbeddingService(quantized=True)``), whose
     embeddings must also hold cosine > 0.99 to the float32 encode of the same model."""
     from multimodal_tpu_torch.data.tokenizer import tokenize
@@ -1584,7 +1694,8 @@ def phase_serving(torch, mods, tally, card, kind, model_name, need_text, need_im
     from multimodal_tpu_torch.serving import EmbeddingService, make_server
 
     t0 = time.perf_counter()
-    model = create_model(model_name, seed=0, block_mlp=block_mlp)
+    if model is None:
+        model = create_model(model_name, seed=0, block_mlp=block_mlp)
     dim, size = model.cfg.embed_dim, model.cfg.vision.image_size
     svc = EmbeddingService(model, max_batch=bucket, max_wait_ms=5.0, quantized=quantized)
     srv = make_server(svc, "127.0.0.1", 0)
@@ -1698,14 +1809,15 @@ def make_batch(torch, cfg, n: int) -> dict:
 def train_steps(torch, tally, model, batch, steps: int, grads_at: int = -1, count=True,
                 loss_type: str = "clip", loss_kwargs: dict | None = None,
                 opt_kw: dict | None = None, freeze: str | None = None,
-                step_kw: dict | None = None) -> dict:
+                step_kw: dict | None = None, state_dtype=None) -> dict:
     """``steps`` training steps from a fresh optimizer (by default as bench.py builds it; with
     ``freeze`` a fine-tune mode of ``train.freeze``, the optimizer over the trainable
     parameters alone). Returns the per-step ``metrics`` and launch ``counts``, the gradients
     after step ``grads_at`` (0-based), the host-clock seconds of every step after the first
     (``time``), the ``peak`` device memory and the optimizer state's bytes (``opt_bytes``).
     The step's generator is a CUDA generator seeded 0, so two runs draw alike. ``step_kw``
-    goes to ``make_train_step`` (a mesh, the moments' offload)."""
+    goes to ``make_train_step`` (a mesh, the moments' offload); ``state_dtype`` is the AdamW
+    moments' dtype (float32 unless given)."""
     from multimodal_tpu_torch.train import (
         TrainState, finetune_mask, freeze_optimizer, make_optimizer, make_schedule,
         make_train_step)
@@ -1714,6 +1826,8 @@ def train_steps(torch, tally, model, batch, steps: int, grads_at: int = -1, coun
         schedule=make_schedule("cosine", 1e-3, warmup_steps=100, total_steps=10000),
         weight_decay=0.1, grad_clip_norm=1.0))
     schedule = opt_kw.pop("schedule")
+    if state_dtype is not None:
+        opt_kw["state_dtype"] = state_dtype
     if freeze:
         opt = freeze_optimizer(model, finetune_mask(model.named_parameters(), freeze), schedule,
                                **opt_kw)
@@ -1782,7 +1896,7 @@ def build_model(torch, model_name, dtype, block_mlp=False, variational=None, mod
 
 def compare_paths(torch, mods, tally, card, model_name, n, steps, need, block_mlp=False,
                   variational=None, model_kw=None, prepare=None, routing=None, code_flips=None,
-                  int8_reference=None, **step_kw) -> dict:
+                  int8_reference=None, model=None, keep_grads=False, **step_kw) -> dict:
     """float32: ``steps`` steps through the kernels against the same from the same start
     with every kernel call routed to its plain version. ``variational`` (a
     ``VariationalConfig``) builds the variational model, ``model_kw`` goes to
@@ -1797,9 +1911,12 @@ def compare_paths(torch, mods, tally, card, model_name, n, steps, need, block_ml
     every leaf of step 1 by its own int8-vs-float distance. Returns the kernel path's
     ``peak`` memory, the model's parameter count (``params``), the optimizer state's bytes
     (``opt_bytes``), the kernel path's per-step ``metrics``, samples/s (``rate``) and the
-    ``model`` after the plain path's run."""
-    model = build_model(torch, model_name, torch.float32, block_mlp, variational, model_kw,
-                        prepare)
+    ``model`` after the plain path's run; with ``keep_grads`` also the kernel path's gradients
+    after step 1 (``grads``). ``model``: the float32 model ``build_model`` would
+    give, built by the caller (phase 18 serves it first)."""
+    if model is None:
+        model = build_model(torch, model_name, torch.float32, block_mlp, variational,
+                            model_kw, prepare)
     model_name = model_label(model_name, block_mlp, variational, model_kw)
     batch = make_batch(torch, model.cfg, n)
     start = {k: v.clone() for k, v in model.state_dict().items()}
@@ -1889,7 +2006,7 @@ def compare_paths(torch, mods, tally, card, model_name, n, steps, need, block_ml
           flush=True)
     return {"peak": k_run["peak"], "params": sum(p.numel() for p in model.parameters()),
             "opt_bytes": k_run["opt_bytes"], "metrics": k_metrics, "model": model,
-            "rate": k_rate}
+            "rate": k_rate, **({"grads": k_grads} if keep_grads else {})}
 
 
 class CodeFlips:
@@ -2006,11 +2123,12 @@ def routing_flips(a: list, b: list) -> int:
 
 def kernel_path_run(torch, tally, card, model_name, dtype, n, steps, need, falling=False,
                     block_mlp=False, variational=None, model_kw=None, prepare=None,
-                    stats=None, **step_kw) -> list:
+                    stats=None, after=None, **step_kw) -> list:
     """``steps`` steps on the kernel path alone: finite (and with ``falling`` a loss that
-    falls on the fixed batch), the launch counts, samples/s and peak memory (also put into
-    ``stats``, a dict, as ``rate`` and ``peak``). ``variational``, ``model_kw``, ``prepare``
-    and ``step_kw`` as in ``compare_paths``. Returns the per-step metrics."""
+    falls on the fixed batch), the launch counts, samples/s over steps 2 on (none for one step)
+    and peak memory (also put into ``stats``, a dict, as ``rate`` and ``peak``).
+    ``variational``, ``model_kw``, ``prepare`` and ``step_kw`` as in ``compare_paths``;
+    ``after(model, batch)`` runs before the two are freed. Returns the per-step metrics."""
     name = str(dtype).replace("torch.", "")
     model = build_model(torch, model_name, dtype, block_mlp, variational, model_kw, prepare)
     model_name = model_label(model_name, block_mlp, variational, model_kw)
@@ -2021,17 +2139,22 @@ def kernel_path_run(torch, tally, card, model_name, dtype, n, steps, need, falli
     norms = [m["grad_norm"] for m in metrics]
     print(f"  {name} losses {[round(v, 7) for v in losses]} grad norms "
           f"{[round(v, 4) for v in norms]}", flush=True)
-    rate = (steps - 1) * n / run["time"]
+    rate = (steps - 1) * n / run["time"] if steps > 1 else None
     if stats is not None:
         stats.update(rate=rate, peak=run["peak"])
-    print(f"  {model_name} {name} train samples/s at B={n} (steps 2-{steps}, host clock): "
-          f"{rate:.1f}; peak memory {run['peak'] / 2**30:.2f} GiB [{card}]", flush=True)
+    timed = (f"train samples/s at B={n} (steps 2-{steps}, host clock): {rate:.1f}" if rate
+             else f"one train step at B={n}")
+    moments = str(step_kw.get("state_dtype") or "").replace("torch.", "")
+    print(f"  {model_name} {name} {timed}; peak memory {run['peak'] / 2**30:.2f} GiB"
+          f"{f' ({moments} moments)' if moments else ''} [{card}]", flush=True)
     if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
         fail(f"non-finite {name} loss or grad norm")
     if falling and not losses[-1] < losses[0]:
         fail(f"the {name} loss did not fall over {steps} steps on a fixed batch")
     check_launches(run["counts"], with_wgrad(need) if dtype == torch.bfloat16 else need,
                    f"{model_name} {name} kernel path")
+    if after is not None:
+        after(model, batch)
     del model, batch
     torch.cuda.empty_cache()
     return metrics
@@ -2039,17 +2162,21 @@ def kernel_path_run(torch, tally, card, model_name, dtype, n, steps, need, falli
 
 def largest_batch(torch, peak_at_compare: int, n_params: int, compare_batch: int,
                   candidates=(64, 128, 256)) -> int:
-    """The largest of ``candidates`` the float32 kernel path holds, reckoned before running
-    it: parameters, gradients and two moments stay (16 bytes a parameter); what the measured
-    peak at ``compare_batch`` holds beyond them grows with the batch; 15% to spare."""
+    """The largest of ``candidates`` the float32 kernel path holds, reckoned before running it
+    from ``compare_paths``' measured float32 peak at ``compare_batch``: there 24 bytes a
+    parameter stay (parameters, gradients, two float32 moments, the comparison's copy of the
+    start and of step 1's gradients) and the rest grows with the batch; in the run reckoned
+    16 bytes a parameter stay; 15% to spare. Fails when none fits."""
+    per_sample = (peak_at_compare - 24 * n_params) / compare_batch
     static = 16 * n_params
-    per_sample = (peak_at_compare - static) / compare_batch
     total = torch.cuda.mem_get_info()[1]
     fits = [b for b in candidates if static + 1.15 * per_sample * b <= total]
-    print(f"  reckoned: {static / 2**30:.2f} GiB static + {per_sample / 2**20:.1f} MiB per sample "
-          f"(from the measured peak at B={compare_batch}) against {total / 2**30:.1f} GiB "
+    print(f"  reckoned: {static / 2**30:.2f} GiB static + {per_sample / 2**20:.1f} MiB per "
+          f"sample (from the measured peak at B={compare_batch}) against {total / 2**30:.1f} GiB "
           f"-> {({b: round((static + per_sample * b) / 2**30, 1) for b in candidates})} GiB; "
-          f"largest batch with 15% to spare: {max(fits)}", flush=True)
+          f"largest batch with 15% to spare: {max(fits) if fits else None}", flush=True)
+    if not fits:
+        fail(f"no batch of {candidates} fits the card by the reckoning")
     return max(fits)
 
 
@@ -2454,7 +2581,6 @@ def cli_final_model(torch, logs: str, name: str) -> dict:
 
 def phase_cli(torch, tally, card, bf16_rate: float):
     """Phase 13: the training CLI's paths on the card, ViT-B/32 at full width and depth."""
-    import gc
 
     logs = os.path.abspath(CLI_LOGS)
     shutil.rmtree(logs, ignore_errors=True)
@@ -2553,7 +2679,6 @@ def cli_resume(torch, tally, card, logs: str):
     deterministic on the card?), then a run cut after a mid-epoch save at step 2 and resumed:
     its final parameters against the uninterrupted run's, bit for bit if the two identical
     runs agreed bit for bit, else at phase 6's float32 leaf limit (1e-3 x max|leaf|)."""
-    import gc
 
     n = 64
     common = ["--dataset-type", "synthetic", "--model", MODEL, "--batch-size", str(n),
@@ -2810,7 +2935,6 @@ def data_cli(torch, tally, card, bf16_rate: float, cli_rate: float):
     """Phase 14 (d): the training CLI in this process from the fixture's shapes shards,
     ViT-B/32 bfloat16 at B=256, DATA_STEPS steps each of DATA_RUNS: finite losses and
     validation metrics, exact launch counts, rates beside phase 13's and phase 6's."""
-    import gc
 
     logs = os.path.abspath(CLI_LOGS)
     shutil.rmtree(logs, ignore_errors=True)
@@ -3360,7 +3484,6 @@ def phase_eval(torch, mods, tally, card, phase5_rate: float):
     evaluate again from the checkpoint in eval-only mode in this process with exact launch
     counts, hold the evaluation's encodes to the plain path, serve the
     checkpoint, probe the optional packages."""
-    import gc
     import tempfile
 
     from multimodal_tpu_torch.models import create_model, get_model_config
@@ -3451,8 +3574,9 @@ PROFILE_STEPS = 2  # (d): --profile-steps of a 4-step CLI run
 EM_POINTS, EM_DIM, EM_K, EM_ITERS = 50_000, 512, 10, 20  # (e)
 EM_RTOL = 1e-4
 BENCH_RTOL = 1e-4  # (f)
-BENCH_STEPS = 1000  # run_loss_bench's default
-BENCH_CHECKS = (0, 250, 500, 750, 999)  # (f): the steps taken once more on the card
+BENCH_STEPS = 1000  # (f): run_loss_bench's default, the CPU's trajectory
+BENCH_CHECKS = (0, 250, 500, 750, 999)  # (f): the CPU's steps taken once more on the card
+BENCH_CARD_STEPS = 200  # (f): the card's free run, a fifth of the default, for the script's time
 
 
 def caption_cli_need(n_items: int, vision_layers: int, batch: int, mapper_layers: int = 2,
@@ -3826,40 +3950,104 @@ def em_on_card(torch, card):
         fail("vMF EM on the card disagrees with the CPU")
 
 
-def loss_bench_on_card(torch, card):
-    """Phase 16 (f): ``run_loss_bench`` at its defaults for every distribution on the card (its
-    seconds and final statistics); the CPU's trajectory at the same defaults from a CPU
-    generator, and at ``BENCH_CHECKS`` one card step from the CPU's state with the CPU's draws
-    (the generator's state carried across) held to the CPU's step. The free runs are not held
-    to each other: 1000 float32 steps of this map amplify rounding (``tests/
-    test_torch_loss_bench.py``: a 1e-7 nudge of the initial points moves the gradient norm by
-    more than 1e-4 within 150 steps on the CPU alone)."""
+def loss_bench_cpu(path: str) -> int:
+    """Phase 16 (f)'s CPU side, in a child process that sees no card (this script with
+    ``--bench-child``): for each distribution ``run_loss_bench``'s trajectory at its defaults
+    (``BENCH_STEPS``) from a CPU generator seeded 0, with the state and the generator's state
+    before, and the stats and the state after, each step of ``BENCH_CHECKS``, the stats after
+    step ``BENCH_CARD_STEPS`` and the seconds; saved with ``torch.save`` to ``path``."""
+    import torch
+
     from multimodal_tpu_torch.research import loss_bench as lb
 
-    worst = {}
+    torch.set_num_threads(1)  # 20 points: one core, beside the card's phases
+    out = {}
     for dist in lb.DISTRIBUTIONS:
         gen = torch.Generator().manual_seed(0)
         t0 = time.perf_counter()
         state = lb.initial_state(20, 2, 0.1, gen, "cpu")
-        saved, after = {}, {}
+        saved, after, short = {}, {}, None
         for i in range(BENCH_STEPS):
             if i in BENCH_CHECKS:
                 saved[i] = (tuple(t.clone() for t in state), gen.get_state())
             state, stats = lb.bench_step(dist, state, gen)
             if i in BENCH_CHECKS:
                 after[i] = ({k: float(v) for k, v in stats.items()}, state)
-        cpu_secs = time.perf_counter() - t0
-        cpu_final = {k: float(v) for k, v in stats.items()}
+            if i == BENCH_CARD_STEPS - 1:
+                short = {k: float(v) for k, v in stats.items()}
+        out[dist] = {"saved": saved, "after": after, "short": short,
+                     "final": {k: float(v) for k, v in stats.items()},
+                     "secs": time.perf_counter() - t0}
+    torch.save(out, path + ".part")
+    os.replace(path + ".part", path)
+    return 0
+
+
+class LossBenchCpu:
+    """Phase 16 (f)'s CPU trajectories (``loss_bench_cpu``), computed by a child process that
+    the script starts at phase 15, so that its ~60 s of one CPU core run beside phases 15 and
+    16 (a)-(e) on the card; (f) waits for it. The child is killed at exit if still running."""
+
+    def __init__(self):
+        import atexit
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="loss_bench_")
+        self.path = os.path.join(self.dir, "cpu.pt")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--bench-child", self.path],
+            env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+        atexit.register(self.close)
+
+    def result(self, torch) -> tuple[dict, float]:
+        """The child's output and the seconds (f) waited for it."""
         t0 = time.perf_counter()
-        res = lb.run_loss_bench(dist, steps=BENCH_STEPS, device="cuda")
+        try:
+            rc = self.proc.wait(timeout=600)
+        except subprocess.TimeoutExpired:
+            fail("the loss bench's CPU trajectories took more than 600 s past phase 16 (f)")
+        waited = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"the loss bench's CPU child exited {rc}")
+        out = torch.load(self.path)
+        self.close()
+        return out, waited
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def loss_bench_on_card(torch, card, cpu: LossBenchCpu):
+    """Phase 16 (f): ``run_loss_bench`` at its defaults but ``BENCH_CARD_STEPS`` steps for every
+    distribution on the card (its seconds and final statistics); the CPU's trajectory at its
+    defaults (``BENCH_STEPS``) from a CPU generator, from ``cpu``'s child, and at
+    ``BENCH_CHECKS`` one card step from the CPU's state with the CPU's draws (the generator's
+    state carried across) held to the CPU's step, the late steps included, where the
+    concentrations have grown. The free runs are not held to each other: float32 steps of this
+    map amplify rounding (``tests/test_torch_loss_bench.py``: a 1e-7 nudge of the initial points
+    moves the gradient norm by more than 1e-4 within 150 steps on the CPU alone)."""
+    from multimodal_tpu_torch.research import loss_bench as lb
+
+    runs, waited = cpu.result(torch)
+    print(f"  (f) the CPU's trajectories ({BENCH_STEPS} steps each, a child process started at "
+          f"phase 15): waited {waited:.1f} s for them here", flush=True)
+    worst = {}
+    for dist in lb.DISTRIBUTIONS:
+        run = runs[dist]
+        t0 = time.perf_counter()
+        res = lb.run_loss_bench(dist, steps=BENCH_CARD_STEPS, device="cuda")
         card_secs = time.perf_counter() - t0
         errs = []
         for i in BENCH_CHECKS:
-            st, gstate = saved[i]
+            st, gstate = run["saved"][i]
             g = torch.Generator()
             g.set_state(gstate)
             new, stats = lb.bench_step(dist, tuple(t.to("cuda") for t in st), g)
-            want, want_state = after[i]
+            want, want_state = run["after"][i]
             rel = max(rel_err(float(v), want[k]) for k, v in stats.items() if k != "arc")
             arc = abs(float(stats["arc"]) - want["arc"])
             mu = max(float((a.cpu() - b).abs().max()) for a, b in zip(new[:2], want_state[:2]))
@@ -3869,15 +4057,17 @@ def loss_bench_on_card(torch, card):
                        max(e[4] for e in errs))
         final = {"total": res.final_total_loss, "arc": res.final_arc_deg,
                  "conc_a": res.final_concentration_a, "grad_norm": res.grad_norm_last}
-        print(f"  (f) run_loss_bench({dist!r}) at its defaults ({BENCH_STEPS} steps): card "
-              f"{card_secs:.2f} s (its own generator), CPU {cpu_secs:.2f} s; card final "
-              f"{ {k: round(v, 5) for k, v in final.items()} }, the CPU's from a CPU generator "
-              f"{ {k: round(cpu_final[k], 5) for k in final} } (not held: rounding grows over "
-              f"the run); one card step from the CPU's state and draws at steps "
-              f"{list(BENCH_CHECKS)}: stats max rel {worst[dist][0]:.2e}, arc max |diff| "
-              f"{worst[dist][1]:.2e} deg, points max |diff| {worst[dist][2]:.2e}, "
-              f"concentrations max rel {worst[dist][3]:.2e} (need <= {BENCH_RTOL:g}, 0.02 deg, "
-              f"1e-5, {BENCH_RTOL:g}) [{card}]", flush=True)
+        short = run["short"]
+        print(f"  (f) run_loss_bench({dist!r}) at its defaults but {BENCH_CARD_STEPS} steps: card "
+              f"{card_secs:.2f} s (its own generator); card final "
+              f"{ {k: round(v, 5) for k, v in final.items()} }, the CPU's at step "
+              f"{BENCH_CARD_STEPS} from a CPU generator { {k: round(short[k], 5) for k in final} } "
+              f"(not held: rounding grows over the run); the CPU's {BENCH_STEPS} steps "
+              f"{run['secs']:.2f} s, final { {k: round(run['final'][k], 5) for k in final} }; one "
+              f"card step from the CPU's state and draws at steps {list(BENCH_CHECKS)}: stats max "
+              f"rel {worst[dist][0]:.2e}, arc max |diff| {worst[dist][1]:.2e} deg, points max "
+              f"|diff| {worst[dist][2]:.2e}, concentrations max rel {worst[dist][3]:.2e} (need <= "
+              f"{BENCH_RTOL:g}, 0.02 deg, 1e-5, {BENCH_RTOL:g}) [{card}]", flush=True)
         if not all(np.isfinite(list(final.values()))):
             fail(f"the loss bench on the card is not finite: {final}")
     if any(r > BENCH_RTOL or a > 0.02 or m > 1e-5 or c > BENCH_RTOL
@@ -3917,11 +4107,13 @@ def llama_on_card(torch, card, root: str):
         fail(f"LlamaCaptioner's card captions {caps['card']} differ from the CPU's {caps['cpu']}")
 
 
-def phase_captioning(torch, mods, tally, card):
+def phase_captioning(torch, mods, tally, card, cpu_bench: LossBenchCpu | None = None):
     """Phase 16: the caption decoder, GPT-2 against transformers, the captioning evaluation
-    through the CLI, --profile-steps, vMF EM, the loss bench and the Llama adapter."""
+    through the CLI, --profile-steps, vMF EM, the loss bench (its CPU side from ``cpu_bench``,
+    started here when not given) and the Llama adapter."""
     import tempfile
 
+    cpu_bench = cpu_bench or LossBenchCpu()
     t_phase = time.perf_counter()
     parts = {}
     root = tempfile.mkdtemp(prefix="phase16_")
@@ -3931,7 +4123,7 @@ def phase_captioning(torch, mods, tally, card):
                           ("c", lambda: caption_cli(torch, tally, card, root)),
                           ("d", lambda: profile_cli(torch, card, root)),
                           ("e", lambda: em_on_card(torch, card)),
-                          ("f", lambda: loss_bench_on_card(torch, card)),
+                          ("f", lambda: loss_bench_on_card(torch, card, cpu_bench)),
                           ("g", lambda: llama_on_card(torch, card, root))):
             t0 = time.perf_counter()
             run()
@@ -4240,6 +4432,239 @@ def phase_distributed(torch, tally, card, bf16_rate: float):
     print(f"  phase 17 took {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
 
 
+def block_need(name: str) -> tuple[dict, dict, dict]:
+    """The block launches of the shipped config ``name``: (one train step, one encode of the
+    image tower, one of the text tower). Each tower runs every layer through the LN-fold pair
+    where its S (patches + 1, or the context length) is above ``LN_FOLD_MIN_SEQ``, else
+    through the non-LN pair; a step runs each layer forward and backward."""
+    from multimodal_tpu_torch.models import get_model_config
+    from multimodal_tpu_torch.ops.block_attention import LN_FOLD_MIN_SEQ
+
+    cfg = get_model_config(name)
+    towers = (((cfg.vision.image_size // cfg.vision.patch_size) ** 2 + 1, cfg.vision.layers),
+              (cfg.text.context_length, cfg.text.layers))
+    encodes = [{f"block_attention{'_ln' if seq > LN_FOLD_MIN_SEQ else ''}_fwd": layers}
+               for seq, layers in towers]
+    step = {}
+    for enc in encodes:
+        for k, v in enc.items():
+            for key in (k, k.replace("_fwd", "_bwd")):
+                step[key] = step.get(key, 0) + v
+    return step, encodes[0], encodes[1]
+
+
+def int8_need(name: str) -> dict:
+    """A train step's launches with ``int8_forward=True``: the blocks', and for each of the
+    two dense layers of every block's MLP four quantizes and two products."""
+    step = block_need(name)[0]
+    layers = sum(v for k, v in step.items() if k.endswith("_fwd"))
+    return {**step, "quantize_rows": 2 * 4 * layers, "int8_gemm": 2 * 2 * layers}
+
+
+def one_step_fits(torch, tally, model, n: int, **step_kw) -> tuple[bool, str]:
+    """One bfloat16 step of ``model`` (a fresh optimizer, nothing counted) at batch ``n``:
+    whether it ran, and its peak memory or the out-of-memory error."""
+    for p in model.parameters():
+        p.grad = None
+    try:
+        run = train_steps(torch, tally, model, make_batch(torch, model.cfg, n), 1, count=False,
+                          **step_kw)
+        return True, f"peak memory {run['peak'] / 2**30:.2f} GiB"
+    except torch.cuda.OutOfMemoryError as e:
+        return False, f"out of memory ({str(e).splitlines()[0][:120]})"
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def bf16_largest_run(torch, tally, card, name: str, batch: int, need: dict, stats: dict,
+                     prove=True, after=None, **run_kw) -> int:
+    """``kernel_path_run`` in bfloat16 for ``TRAIN_STEPS`` steps, finite and falling, at
+    ``batch``; then (``prove``) one step of the same model at the next larger of
+    ``LARGE_CANDIDATES``, which must run out of memory for ``batch`` to be the largest that
+    fits: where it runs, the whole run again at that batch. Where the run itself runs out of
+    memory (its launches not counted), the next smaller candidate. ``after(model, batch)`` as
+    in ``kernel_path_run``. Returns the batch that ran."""
+    too_big = max(LARGE_CANDIDATES) + 1
+    while True:
+        larger = [b for b in LARGE_CANDIDATES if batch < b < too_big]
+        verdict = {}
+
+        def check(model, data):
+            if after is not None:
+                after(model, data)
+            if prove and larger:
+                fits, what = one_step_fits(torch, tally, model, larger[0],
+                                           state_dtype=run_kw.get("state_dtype"))
+                verdict["fits"] = fits
+                print(f"  {name} bfloat16 one step at the next candidate, B={larger[0]}: {what}"
+                      f"{'' if fits else f'; B={batch} is the largest that fits'} [{card}]",
+                      flush=True)
+
+        try:
+            kernel_path_run(torch, tally, card, name, torch.bfloat16, batch, TRAIN_STEPS, need,
+                            falling=True, stats=stats, after=check, **run_kw)
+        except torch.cuda.OutOfMemoryError as e:
+            err = str(e).splitlines()[0][:160]
+            gc.collect()
+            torch.cuda.empty_cache()
+            smaller = [b for b in LARGE_CANDIDATES if b < batch]
+            print(f"  {name} bfloat16 at B={batch}: out of memory ({err}); next "
+                  f"B={smaller[-1] if smaller else None}", flush=True)
+            if not smaller:
+                fail(f"{name}: no bfloat16 batch of {LARGE_CANDIDATES} runs")
+            too_big, batch = batch, smaller[-1]
+            continue
+        if not verdict.get("fits"):
+            return batch
+        batch = larger[0]
+
+
+def large_vit(torch, mods, tally, card, kind, name: str, after_compare=None) -> dict:
+    """Phase 18 (a) and (b) for one large ViT: served as in phases 4-5 at its bucket; trained
+    in float32, kernel path against plain path at its comparison batch with phase 6's limits
+    and exact launches (``after_compare(res)`` runs on its result, the kernel path's metrics
+    and step 1's gradients in it); then bfloat16 for 6 steps at the largest batch the kernel
+    path holds (``bf16_largest_run``; with the model's moments dtype), finite and falling,
+    and, where the moments are bfloat16, one more step of the same model and batch with
+    float32 moments for its peak memory (or the out-of-memory error). Returns the bfloat16
+    run's stats."""
+    t0 = time.perf_counter()
+    spec = LARGE_VITS[name]
+    need, need_image, need_text = block_need(name)
+    print(f"  (a) {name} served, float32 at bucket {spec['bucket']}", flush=True)
+    model = build_model(torch, name, torch.float32)  # served, then trained in (b)
+    phase_serving(torch, mods, tally, card, kind, name, need_text=need_text,
+                  need_image=need_image, bucket=spec["bucket"], model=model)
+    print(f"  (b) {name} trained: float32 kernel vs plain path at B={spec['compare']} "
+          f"[{time.perf_counter() - t0:.1f} s]", flush=True)
+    res = compare_paths(torch, mods, tally, card, name, spec["compare"], TRAIN_STEPS, need,
+                        model=model, keep_grads=after_compare is not None)
+    del model
+    del res["model"]
+    torch.cuda.empty_cache()
+    if after_compare is not None:
+        after_compare(res)
+    float32_rate = res["rate"]
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    moments = getattr(torch, spec["moments"])
+    print(f"  (b) {name} bfloat16 ({spec['moments']} moments) at the largest batch that fits, "
+          f"from B={spec['train']} [{time.perf_counter() - t0:.1f} s]", flush=True)
+    stats = {}
+
+    def float32_moments(model, data):
+        n = data["image"].shape[0]
+        what = one_step_fits(torch, tally, model, n)[1]
+        print(f"  {name} bfloat16 one step with float32 moments at B={n}: {what} (bfloat16 "
+              f"moments: peak memory {stats['peak'] / 2**30:.2f} GiB) [{card}]", flush=True)
+
+    batch = bf16_largest_run(torch, tally, card, name, spec["train"], need, stats,
+                             state_dtype=moments,
+                             after=float32_moments if moments != torch.float32 else None)
+    if batch != spec["train"]:
+        print(f"  {name}: bfloat16 at B={batch}, phase 3 timed its block shapes at "
+              f"B={spec['train']}", flush=True)
+    torch.cuda.empty_cache()
+    return dict(stats, batch=batch, float32_rate=float32_rate)
+
+
+def int8_compare(torch, mods, tally, card, reference: dict):
+    """Phase 18 (c), float32: ViT-L/14 with ``int8_forward=True``, the int8 kernel path against
+    the plain path at phase 12's limits (the codes' flips counted, the limits widened by each
+    quantity's int8-vs-float distance from the same start; the float run is ``reference``,
+    (b)'s float32 kernel path at the same batch and start)."""
+    name = "ViT-L-14"
+    print(f"  (c) {name} with int8_forward=True, float32 kernel vs plain path at "
+          f"B={LARGE_VITS[name]['compare']}", flush=True)
+    need = int8_need(name)
+    code_flips = CodeFlips(mods["q"], per_step=need["quantize_rows"])
+    del compare_paths(torch, mods, tally, card, name, LARGE_VITS[name]["compare"], TRAIN_STEPS,
+                      need, model_kw=INT8, code_flips=code_flips,
+                      int8_reference=reference)["model"]
+    torch.cuda.empty_cache()
+
+
+def int8_bf16(torch, tally, card, bf16: dict):
+    """Phase 18 (c), bfloat16: ViT-L/14 with ``int8_forward=True`` for 6 steps, finite and
+    falling, at (b)'s bfloat16 batch (or the next smaller that fits), its rate beside (b)'s."""
+    name = "ViT-L-14"
+    print(f"  (c) {name} with int8_forward=True, bfloat16", flush=True)
+    stats = {}
+    batch = bf16_largest_run(torch, tally, card, name, bf16["batch"], int8_need(name), stats,
+                             prove=False, model_kw=INT8)
+    print(f"  {name} bfloat16 int8 at B={batch} vs (b)'s bfloat16 at B={bf16['batch']}: "
+          f"{stats['rate']:.1f} vs {bf16['rate']:.1f} samples/s "
+          f"({stats['rate'] / bf16['rate']:.3f}x; information) [{card}]", flush=True)
+
+
+def other_config(torch, mods, tally, card, name: str):
+    """Phase 18 (d) for one shipped config at full width and depth: two float32 steps, kernel
+    path against plain path at phase 6's limits with exact launches; one encode of each tower
+    through ``Embedder`` (the serving encoder) with its launches, at cosine >= 0.9999 to the
+    plain-version encode; one bfloat16 step, finite."""
+    from multimodal_tpu_torch.data.tokenizer import tokenize
+    from multimodal_tpu_torch.inference import Embedder
+
+    need, need_image, need_text = block_need(name)
+    res = compare_paths(torch, mods, tally, card, name, OTHER_BATCH, 2, need)
+    model = res.pop("model")
+    size, ctx = model.cfg.vision.image_size, model.cfg.text.context_length
+    images = np.random.default_rng(0).integers(0, 256, (4, size, size, 3), dtype=np.uint8)
+    tokens = tokenize(CAPTIONS, ctx)
+    emb = Embedder(model, batch_size=len(images))
+    tally.start()
+    img = emb.encode_images(images)
+    counts_image = tally.stop()
+    tally.start()
+    txt = emb.encode_tokens(tokens)
+    counts_text = tally.stop()
+    with plain_attention(mods):
+        p_img, p_txt = emb.encode_images(images), emb.encode_tokens(tokens)
+    cos = min(float(np.sum(p_img * img, -1).min()), float(np.sum(p_txt * txt, -1).min()))
+    print(f"  {name} encode: launches image {({k: counts_image[k] for k in need_image})} text "
+          f"{({k: counts_text[k] for k in need_text})} (need {need_image}, {need_text}); min "
+          f"cosine to the plain-version encode {cos:.7f} (need >= 0.9999)", flush=True)
+    if any(counts_image[k] != v for k, v in need_image.items()) or any(
+            counts_text[k] != v for k, v in need_text.items()):
+        fail(f"{name}: the encode did not run its kernel in every block")
+    if not cos >= 0.9999:
+        fail(f"{name}: the encode disagrees with the plain-version encode")
+    del model, emb, res
+    torch.cuda.empty_cache()
+    kernel_path_run(torch, tally, card, name, torch.bfloat16, OTHER_BATCH, 1, need)
+
+
+def phase_large_vits(torch, mods, tally, card, kind):
+    """Phase 18: ViT-L/14, ViT-H/14 and ViT-g/14 at full width and depth, served and trained,
+    ViT-L/14 with int8 beside its float runs ((c)'s float32 comparison after (b)'s, whose
+    kernel path it is widened by; its bfloat16 run after (b)'s); the other four shipped
+    configs built, encoded and stepped."""
+    t_phase = time.perf_counter()
+    bf16 = {}
+    for name in LARGE_VITS:
+        t0 = time.perf_counter()
+        after = None
+        if name == "ViT-L-14":
+            after = lambda res: int8_compare(torch, mods, tally, card, res)  # noqa: E731
+        bf16[name] = large_vit(torch, mods, tally, card, kind, name, after_compare=after)
+        if name == "ViT-L-14":
+            int8_bf16(torch, tally, card, bf16[name])
+        print(f"  {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    for name in OTHER_CONFIGS:
+        t0 = time.perf_counter()
+        print(f"  (d) {name} at full width and depth, B={OTHER_BATCH}", flush=True)
+        other_config(torch, mods, tally, card, name)
+        print(f"  {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, st in bf16.items():
+        print(f"  {name}: float32 {st['float32_rate']:.1f} samples/s at "
+              f"B={LARGE_VITS[name]['compare']}, bfloat16 {st['rate']:.1f} at B={st['batch']} "
+              f"({LARGE_VITS[name]['moments']} moments), peak {st['peak'] / 2**30:.2f} GiB "
+              f"[{card}]", flush=True)
+    print(f"  phase 18: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -4456,14 +4881,19 @@ def main() -> int:
 
     header(f"phase 15 train, evaluate and serve: {MODEL} at full width and depth through the "
           "CLI's evaluations and a served checkpoint", flush=True)
+    cpu_bench = LossBenchCpu()  # phase 16 (f)'s CPU side, beside phases 15 and 16
     phase_eval(torch, mods, tally, card, serving_rates["image"])
 
     header("phase 16 captioning, the research toolkit and the profiler", flush=True)
-    phase_captioning(torch, mods, tally, card)
+    phase_captioning(torch, mods, tally, card, cpu_bench)
 
     header("phase 17 the distributed layer on one card: DP over NCCL, the CLI's mesh flags, "
           "optimizer-state offload, the ring's schedule", flush=True)
     phase_distributed(torch, tally, card, bf16_stats["rate"])
+
+    header("phase 18 the large-ViT family at full width and depth (ViT-L/14, ViT-H/14, "
+           "ViT-g/14) and the other shipped configs", flush=True)
+    phase_large_vits(torch, mods, tally, card, kind)
 
     entries = []
     for name, (source, replaces, case) in KERNELS.items():
@@ -4484,4 +4914,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-child"]:  # phase 17 (a), started by the script itself
         sys.exit(dp_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--bench-child"]:  # phase 16 (f)'s CPU side, started at phase 15
+        sys.exit(loss_bench_cpu(sys.argv[2]))
     sys.exit(main())

@@ -10,8 +10,9 @@ Stages, one JSON line each:
   2. batched JPEG decode by thread count: train at ``--image-size``, train at ``--wire-size``
      (the --wire-size format) and eval at ``--image-size`` (on ``cuda`` nvJPEG and the resample
      kernel, ``ops/resample.py``; on ``cpu`` the native libjpeg pipeline);
-  3. tokenization with the pure-Python BPE (the reference's native BPE fast path is not part
-     of the port; its line says so);
+  3. tokenization of the shards' captions, the native BPE (``native/bpe_tokenizer.cc``, what
+     ``tokenize`` runs on ASCII batches) against the Python one, each warmed once; the two
+     must give equal ids;
   4. the assembled ``WdsReader`` (shards -> shuffled, decoded, tokenized batches on the device);
   5. ``InterleavedReaders`` over ``--workers`` readers (the CLI's ``--workers``);
   6. with ``--consumer-ms`` on ``cuda``: stages 4 and 5 feeding a consumer that queues that many
@@ -251,11 +252,17 @@ def main(argv=None) -> list:
 
         # -- stage 3: tokenization ----------------------------------------------------------
         batch_texts = (texts or ["a photo of a cat"]) * max(1, 4096 // max(len(texts), 1))
-        t0 = time.perf_counter()
-        tok.tokenize(batch_texts)
-        dt = time.perf_counter() - t0
-        _emit(records, "tokenize", len(batch_texts) / dt, "texts/s",
-              note="pure-Python BPE; the reference's native BPE fast path is not ported")
+        ids = {}
+        for route, use_native in (("native", True), ("python", False)):
+            tok.tokenize(batch_texts[:64], use_native=use_native)  # warm: the library, caches
+            t0 = time.perf_counter()
+            ids[route] = tok.tokenize(batch_texts, use_native=use_native)
+            dt = time.perf_counter() - t0
+            _emit(records, "tokenize", len(batch_texts) / dt, "texts/s", route=route,
+                  ascii=all(t.isascii() and "&" not in t for t in batch_texts))
+        if not np.array_equal(ids["native"], ids["python"]):
+            raise RuntimeError("the native tokenizer's ids differ from the Python tokenizer's "
+                               "on the shards' captions")
 
         # -- stages 4 and 5: assembled readers ----------------------------------------------
         def reader(worker_id=0, num_workers=1):

@@ -1,5 +1,5 @@
-"""CLIP byte-pair-encoding tokenizer (port of ``multimodal_tpu/data/tokenizer.py``, the
-Python BPE path).
+"""CLIP byte-pair-encoding tokenizer (port of ``multimodal_tpu/data/tokenizer.py``): the
+Python BPE, and ``tokenize``'s route to the native one for ASCII batches.
 
 Bit-identical to the reference on the standard 49,408-token CLIP vocabulary, which is read
 from the JAX package's ``data/assets`` by path. The word-split pattern needs the Unicode
@@ -25,6 +25,7 @@ import unicodedata
 import numpy as np
 
 from multimodal_tpu_torch.data.textfix import fix_text
+from multimodal_tpu_torch.native import bindings
 from multimodal_tpu_torch.paths import BPE_VOCAB_PATH
 
 try:
@@ -195,11 +196,20 @@ def default_tokenizer() -> SimpleTokenizer:
 
 
 def tokenize(texts, context_length: int = CONTEXT_LENGTH,
-             tokenizer: SimpleTokenizer | None = None) -> np.ndarray:
+             tokenizer: SimpleTokenizer | None = None, use_native: bool = True) -> np.ndarray:
     """Batch tokenize to ``[N, context_length]`` int32: SOT/EOT framing, zero padding, and
-    over-long sequences truncated with the final slot forced to EOT."""
+    over-long sequences truncated with the final slot forced to EOT.
+
+    With the default vocabulary a batch of ASCII captions without HTML entities goes to the
+    native tokenizer (``native/bpe_tokenizer.cc``, the same ids); a batch that needs Unicode
+    normalization or HTML unescaping, a custom ``tokenizer`` or ``use_native=False`` runs the
+    Python one."""
     if isinstance(texts, str):
         texts = [texts]
+    if use_native and tokenizer is None:
+        out = bindings.bpe_encode_batch(list(texts), BPE_VOCAB_PATH, context_length)
+        if out is not None:
+            return out
     tok = tokenizer or default_tokenizer()
     out = np.zeros((len(texts), context_length), dtype=np.int32)
     for row, text in enumerate(texts):

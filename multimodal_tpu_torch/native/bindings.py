@@ -1,10 +1,13 @@
 """ctypes bindings for the port's native input pipeline (port of
-``multimodal_tpu/native/bindings.py``: ``decode_batch``, ``is_jpeg``, ``tar_index``).
+``multimodal_tpu/native/bindings.py``: ``decode_batch``, ``is_jpeg``, ``tar_index``,
+``bpe_encode_batch``).
 
 Two shared libraries, built with g++ at first use into ``native/_build_cache/`` (git-ignored):
 
-- ``host``: ``tar_index.cc`` (the tar shard scanner) and ``crop_boxes.cc`` (the crop
-  geometry of the card's decode). Needs only the C++ standard library.
+- ``host``: ``tar_index.cc`` (the tar shard scanner), ``crop_boxes.cc`` (the crop geometry
+  of the card's decode) and ``bpe_tokenizer.cc`` (the ASCII fast path of the CLIP tokenizer;
+  the gzipped vocabulary is read here, in Python, so no zlib). Needs only the C++ standard
+  library.
 - ``jpeg``: ``jpeg_pipeline.cc``, the batched libjpeg decode with the PIL-compatible bicubic
   resample and the crop, linked with ``-ljpeg``. The host (CPU) decode path.
 
@@ -21,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import fcntl
+import gzip
 import hashlib
 import os
 import subprocess
@@ -37,7 +41,7 @@ CXX = "g++"
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall", "-march=native")
 HEADERS = ("crop_geometry.h",)
 LIBRARIES = {  # name -> (sources, link flags)
-    "host": (("tar_index.cc", "crop_boxes.cc"), ()),
+    "host": (("tar_index.cc", "crop_boxes.cc", "bpe_tokenizer.cc"), ()),
     "jpeg": (("jpeg_pipeline.cc",), ("-ljpeg", "-lpthread")),
 }
 DEFAULT_SCALE = (0.9, 1.0)
@@ -119,6 +123,13 @@ def load(name: str) -> ctypes.CDLL:
             lib.mm_free.argtypes = [ptr]
             lib.mm_crop_boxes.restype = None
             lib.mm_crop_boxes.argtypes = [ptr, i32, i32, i32, ptr, f64, f64, f64, f64, ptr]
+            lib.mm_bpe_create.restype = ptr
+            lib.mm_bpe_create.argtypes = [ctypes.c_char_p, i64]
+            lib.mm_bpe_destroy.restype = None
+            lib.mm_bpe_destroy.argtypes = [ptr]
+            lib.mm_bpe_encode_batch.restype = i32
+            lib.mm_bpe_encode_batch.argtypes = [ptr, ctypes.c_char_p, ctypes.POINTER(i64), i32,
+                                                i32, ptr]
         else:
             # blob, offsets [n+1], n, size, mode, seeds (nullable), out, ok flags, threads
             common = [ptr, ctypes.POINTER(i64), i32, i32, i32, ctypes.POINTER(ctypes.c_uint64),
@@ -219,3 +230,46 @@ def crop_boxes(dims: np.ndarray, image_size: int, train: bool,
                       seeds.ctypes.data if train else None, scale[0], scale[1], ratio[0],
                       ratio[1], boxes.ctypes.data)
     return boxes
+
+
+_bpe_lock = threading.Lock()
+_bpe_handles: dict = {}
+
+
+def _bpe(vocab_path: str) -> int:
+    """The native tokenizer over the gzipped merge file at ``vocab_path``, made once per path
+    (under a lock: reader threads tokenize concurrently). Raises where the file does not hold
+    the CLIP vocabulary."""
+    with _bpe_lock:
+        handle = _bpe_handles.get(vocab_path)
+        if handle is None:
+            lib = load("host")
+            with gzip.open(vocab_path, "rb") as f:
+                text = f.read()
+            handle = lib.mm_bpe_create(text, len(text))
+            if not handle:
+                raise ValueError(f"{vocab_path} does not hold the CLIP vocabulary's merge rules")
+            _bpe_handles[vocab_path] = handle
+        return handle
+
+
+def bpe_encode_batch(texts: list[str], vocab_path: str,
+                     context_length: int = 77) -> np.ndarray | None:
+    """The native tokenizer on a batch: int32 ``[N, context_length]`` (SOT, ids, EOT, zeros;
+    truncation keeps EOT last), or None when a caption holds a non-ASCII character, an HTML
+    entity's '&' or a byte outside printable ASCII and whitespace: such a batch is the Python
+    tokenizer's (Unicode normalization, HTML unescaping). The library builds at first use and
+    raises if it cannot."""
+    handle = _bpe(vocab_path)
+    lib = load("host")
+    try:
+        encoded = [t.encode("ascii") for t in texts]
+    except UnicodeEncodeError:
+        return None
+    offsets = np.zeros(len(encoded) + 1, np.int64)
+    np.cumsum([len(b) for b in encoded], out=offsets[1:])
+    out = np.zeros((len(encoded), context_length), np.int32)
+    rc = lib.mm_bpe_encode_batch(handle, b"".join(encoded),
+                                 offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                                 len(encoded), context_length, out.ctypes.data)
+    return out if rc == 0 else None

@@ -15,7 +15,9 @@ LayerNorm and the residual into its kernels (0: every call folds; 320: none does
 measure one step either way. ``--block-mlp`` builds the model with ``block_mlp=True``, so
 that every block's MLP half runs the fused operator's kernels; ``--remat`` checkpoints every
 block; ``--int8`` builds it with ``int8_forward=True`` (every dense MLP on the SwitchBack
-int8 GEMMs: the row-quantize kernel and the wgmma int8 GEMM with its rescale).
+int8 GEMMs: the row-quantize kernel and the wgmma int8 GEMM with its rescale);
+``--state-dtype bfloat16`` keeps the AdamW moments in bfloat16 (bench.py's choice for the
+ViT-H/14 and ViT-g/14 steps).
 ``--context-length N`` sets the text tower's context length (from 2048 up every text block
 runs the flash-attention kernels):
 
@@ -155,6 +157,8 @@ def main():
     ap.add_argument("--remat", action="store_true")
     ap.add_argument("--context-length", type=int, default=None)
     ap.add_argument("--int8", action="store_true")
+    ap.add_argument("--state-dtype", default="float32", choices=("float32", "bfloat16"),
+                    help="the AdamW moments' dtype (bfloat16: bench.py's for ViT-H/14, g/14)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs an NVIDIA GPU (there is no CPU fallback)")
@@ -196,7 +200,8 @@ def main():
     }
     opt = make_optimizer(model.named_parameters(),
                          make_schedule("cosine", 1e-3, warmup_steps=100, total_steps=10000),
-                         weight_decay=0.1, grad_clip_norm=1.0)
+                         weight_decay=0.1, grad_clip_norm=1.0,
+                         state_dtype=getattr(torch, args.state_dtype))
     state, step = TrainState.create(model, opt), make_train_step(model, opt)
     for _ in range(args.warmup):
         step(state, batch)
@@ -228,6 +233,7 @@ def main():
             unnamed[ev.key] = unnamed.get(ev.key, 0.0) + device_us / 1e3 / args.steps
     total = sum(by_family.values())
     print(f"{name} {args.dtype} B={args.batch} block_mlp={args.block_mlp} int8={args.int8} "
+          f"moments={args.state_dtype} "
           f"LN fold above S={block_attention.LN_FOLD_MIN_SEQ}: "
           f"device time per train step by kernel family "
           f"(torch.profiler over {args.steps} steps after {args.warmup} warm ones) [{card}]")

@@ -169,20 +169,38 @@ class FusedAdamW(_NamedState, torch.optim.Optimizer):
         c1 = 1.0 - torch.pow(self.beta1, count.to(f32))
         c2 = 1.0 - torch.pow(self.beta2, count.to(f32))
         step_size = -lr * torch.ones((), dtype=f32, device=norm.device)
+        keep = None
         if self.skip_nonfinite:
             keep = finite.to(f32)
-            zero = torch.zeros((), dtype=f32, device=norm.device)
-            grads = [torch.where(finite, g, zero) for g in grads]
             one = torch.ones_like(c1)
             c1, c2 = torch.where(finite, c1, one), torch.where(finite, c2, one)
             step_size = step_size * keep
+        for idx in _chunks(params):
+            self._update([params[i] for i in idx], [grads[i] for i in idx],
+                         [self.decay[self.names[i]] for i in idx], scale, finite, keep, c1, c2,
+                         step_size)
+        if self.skip_nonfinite:
+            self.notfinite_count.copy_(torch.where(finite, torch.zeros_like(count),
+                                                   self.notfinite_count + 1))
+        self.count.copy_(count)
+        self.grad_norm.copy_(norm)
+        return None
+
+    def _update(self, params, grads, decay, scale, finite, keep, c1, c2, step_size):
+        """The update of one chunk of leaves (``_chunks``): the moments and the parameters, the
+        same operations on each leaf whatever the chunk, so chunking moves no bit; it bounds
+        the float32 temporaries (the clipped gradients, the widened and the new moments) to
+        the chunk's leaves."""
+        if keep is not None:
+            zero = torch.zeros((), dtype=f32, device=scale.device)
+            grads = [torch.where(finite, g, zero) for g in grads]
         b1, b2 = self.beta1, self.beta2
         states = [self.state[p] for p in params]
         mu_old = [st["mu"] for st in states]
         nu_old = [st["nu"] for st in states]
         if self.offloaded:  # the moments come from the host for the update and go back
             mu_host, nu_host = mu_old, nu_old
-            device = norm.device
+            device = scale.device
             mu_old = [m.to(device, non_blocking=True) for m in mu_host]
             nu_old = [n.to(device, non_blocking=True) for n in nu_host]
         if self.state_dtype != f32:
@@ -204,7 +222,7 @@ class FusedAdamW(_NamedState, torch.optim.Optimizer):
         torch._foreach_add_(den, self.eps)
         torch._foreach_div_(upd, den)
         del den
-        decayed = [i for i, n in enumerate(self.names) if self.decay[n]]
+        decayed = [i for i, d in enumerate(decay) if d]
         if decayed:
             torch._foreach_add_([upd[i] for i in decayed],
                                 torch._foreach_mul([params[i] for i in decayed],
@@ -214,23 +232,35 @@ class FusedAdamW(_NamedState, torch.optim.Optimizer):
         if self.state_dtype != f32:
             mu_new = [m.to(self.state_dtype) for m in mu_new]
             nu_new = [n.to(self.state_dtype) for n in nu_new]
-        if self.skip_nonfinite:
+        if keep is not None:
             # old * (1 - keep) + new * keep: exactly one side is kept, both are finite
             for old, new in ((mu_old, mu_new), (nu_old, nu_new)):
                 torch._foreach_mul_(old, 1.0 - keep)
                 torch._foreach_mul_(new, keep)
                 torch._foreach_add_(old, new)
-            self.notfinite_count.copy_(torch.where(finite, torch.zeros_like(count),
-                                                   self.notfinite_count + 1))
         else:
             torch._foreach_copy_(mu_old, mu_new)
             torch._foreach_copy_(nu_old, nu_new)
         if self.offloaded:
             torch._foreach_copy_(mu_host, mu_old, non_blocking=True)
             torch._foreach_copy_(nu_host, nu_old, non_blocking=True)
-        self.count.copy_(count)
-        self.grad_norm.copy_(norm)
-        return None
+
+
+UPDATE_CHUNK = 1 << 28  # elements of parameters one pass of FusedAdamW's update covers
+
+
+def _chunks(params: list[torch.Tensor]) -> list[list[int]]:
+    """Consecutive runs of leaf indices of at most ``UPDATE_CHUNK`` elements each (a larger
+    leaf alone), so the update's float32 temporaries stay near 4 x 4 bytes x the chunk: one
+    chunk for ViT-B/32, six for ViT-g/14's 1.37 billion parameters."""
+    runs, run, size = [], [], 0
+    for i, p in enumerate(params):
+        if run and size + p.numel() > UPDATE_CHUNK:
+            runs.append(run)
+            run, size = [], 0
+        run.append(i)
+        size += p.numel()
+    return runs + [run] if run else runs
 
 
 def _local_norms(tensors: list[torch.Tensor]) -> torch.Tensor:

@@ -5,6 +5,7 @@ counts, decode agreement and trace families; phase 17's ring visit count."""
 
 import numpy as np
 import pytest
+import torch
 
 import chip_smoke as cs
 
@@ -642,17 +643,22 @@ def test_siglip_bfloat16_rule():
 
 def test_phase3_holds_the_int8_shapes_of_the_b32_step():
     """The row quantize at every activation and weight shape of the int8 ViT-B/32 step at
-    B=256 (each weight by rows, the backward's, and in the column form, the forward's), the
-    int8 GEMM at each of the step's four products in every store form and at the image
-    projection; the kernels line names both kernels and what they replace."""
+    B=256 and of phase 18's int8 ViT-L/14 step at its bfloat16 batch (each weight by rows, the
+    backward's, and in the column form, the forward's), the int8 GEMM at each of the steps'
+    four products in every store form and at the image projection; the kernels line names
+    both kernels and what they replace."""
+    b = cs.B_L14
     acts = {(r, c) for _, r, c, w in cs.QUANT_CASES if not w}
-    assert acts == {(12800, 768), (12800, 3072), (19712, 512), (19712, 2048)}
+    assert acts == {(12800, 768), (12800, 3072), (19712, 512), (19712, 2048),
+                    (b * 257, 1024), (b * 257, 4096), (b * 77, 768), (b * 77, 3072)}
     for form in ("rows", "columns"):
         weights = {(r, c) for _, r, c, w in cs.QUANT_CASES if w == form}
-        assert weights == {(3072, 768), (768, 3072), (2048, 512), (512, 2048)}
+        assert weights == {(3072, 768), (768, 3072), (2048, 512), (512, 2048),
+                           (1024, 4096), (4096, 1024)}
     products = {(m, k, n) for _, m, k, n in cs.GEMM_CASES}
     assert products == {(12800, 768, 3072), (12800, 3072, 768), (19712, 512, 2048),
-                        (19712, 2048, 512)}
+                        (19712, 2048, 512), (b * 257, 1024, 4096), (b * 257, 4096, 1024),
+                        (b * 77, 768, 3072), (b * 77, 3072, 768)}
     stores = {(bias, after) for _, bias, after, _ in cs.GEMM_STORES}
     assert stores == {(False, False), (True, False), (True, True)}
     assert [out for *_, after, out in cs.GEMM_STORES if after] == ["bfloat16"]
@@ -1071,3 +1077,121 @@ def test_with_wgrad_adds_one_launch_per_block_backward():
     assert cs.with_wgrad(cs.INT8_NEED)["block_attention_wgrad"] == 24
     fused = {"fused_attention_fwd": 12, "fused_attention_bwd": 12}
     assert cs.with_wgrad(fused) == fused
+
+
+def test_phase18_launch_counts():
+    """Per train step, from the shipped configs (``block_need``): ViT-L/14 24 LN-fold + 12
+    non-LN forward and backward launches, H/14 32 + 24, g/14 40 + 24, ViT-L-16 16 + 16,
+    ViT-S-16-128 12 non-LN (S=65 in both towers), ViT-B-16-512 and ViT-B-32-two-tower-16
+    12 + 12; each encode its tower's layers; ViT-L/14 int8 72 dense layers (24 + 12 MLPs),
+    4 quantizes and 2 GEMMs each, and ViT-B/32's as phase 12 holds it."""
+    want = {"ViT-L-14": (24, 12), "ViT-H-14": (32, 24), "ViT-g-14": (40, 24),
+            "ViT-L-16": (16, 16), "ViT-B-16-512": (12, 12), "ViT-B-32-two-tower-16": (12, 12)}
+    for name, (lv, lt) in want.items():
+        assert cs.block_need(name) == (
+            {"block_attention_ln_fwd": lv, "block_attention_ln_bwd": lv,
+             "block_attention_fwd": lt, "block_attention_bwd": lt},
+            {"block_attention_ln_fwd": lv}, {"block_attention_fwd": lt}), name
+    assert cs.block_need("ViT-S-16-128") == (
+        {"block_attention_fwd": 12, "block_attention_bwd": 12}, {"block_attention_fwd": 6},
+        {"block_attention_fwd": 6})
+    assert cs.int8_need("ViT-L-14") == {**cs.block_need("ViT-L-14")[0],
+                                        "quantize_rows": 72 * 4, "int8_gemm": 72 * 2}
+    assert cs.int8_need("ViT-B-32") == cs.INT8_NEED
+    assert [cs.LARGE_VITS[m]["moments"] for m in ("ViT-L-14", "ViT-H-14", "ViT-g-14")] == [
+        "float32", "bfloat16", "bfloat16"]
+    assert set(cs.OTHER_CONFIGS) == {"ViT-L-16", "ViT-S-16-128", "ViT-B-16-512",
+                                     "ViT-B-32-two-tower-16"}
+
+
+def test_phase3_times_phase18_shapes():
+    """The LN-fold form at S=257 and W=1024 / 1280 / 1408, the non-LN form at S=77 W=1024 H=16
+    causal, each at B=2 and at the batch phase 18 trains its model at, timed there; their
+    weight-gradient cases follow."""
+    timed = {("ln-S257", cs.B_L14, 1024), ("ln-D80", cs.B_H14, 1280), ("ln-D88", cs.B_G14, 1408)}
+    ln = {(case, b, w) for case, b, s, w, h, causal, _ in cs.LN_CASES if s == 257 and h == 16}
+    assert timed | {(c, 2, w) for c, _, w in timed} <= ln
+    text = {b for case, b, s, w, h, causal in cs.BLOCK_CASES
+            if (s, w, h, causal) == (77, 1024, 16, True)}
+    assert text == {2, cs.B_H14, cs.B_G14}
+    assert {(c, b) for c, b, _ in timed} | {("text-W1024", cs.B_H14), ("text-W1024", cs.B_G14)} \
+        == cs.PHASE18_TIMED
+    wgrad = {(case, b, w) for case, b, s, w in cs.WGRAD_CASES}
+    assert {(f"wgrad-{c}", b, w) for c, b, w in timed} <= wgrad
+
+
+class _Cuda:
+    def __init__(self, total):
+        self.total = total
+
+    def mem_get_info(self):
+        return 0, self.total
+
+
+class _Torch:
+    def __init__(self, total):
+        self.cuda = _Cuda(total)
+
+
+def test_largest_batch_reckons_from_the_comparison_and_fails_when_none_fits():
+    """Static bytes are the float32 run's (16 a parameter), the per-sample bytes come from the
+    float32 comparison's peak above its 24 a parameter (16 of state, the start's copy and step
+    1's gradients); 15% to spare; none fitting fails."""
+    gib, n = 2 ** 30, 10 ** 9
+    peak = 24 * n + 8 * 2 * gib  # 2 GiB a sample at B=8
+    # 16 GB static + 1.15 x 2 GiB x 24 = 70.1 GiB fits 80; 32 would need 88.5
+    assert cs.largest_batch(_Torch(80 * gib), peak, n, 8, candidates=(8, 16, 24, 32, 48)) == 24
+    with pytest.raises(SystemExit):
+        cs.largest_batch(_Torch(20 * gib), peak, n, 8, candidates=(8, 16))
+
+
+class _Model:
+    cfg = None
+
+    def parameters(self):
+        return iter(())
+
+
+def _fits_below(limit: int, runs: list, monkeypatch):
+    """``kernel_path_run`` and ``train_steps`` of a card on which a batch above ``limit`` runs
+    out of memory; ``runs`` records (what ran, its batch)."""
+
+    def oom(n):
+        if n > limit:
+            raise torch.cuda.OutOfMemoryError(f"B={n}\nmore")
+
+    def path_run(torch_, tally, card, name, dtype, n, steps, need, after=None, **kw):
+        runs.append(("run", n))
+        oom(n)
+        after(_Model(), {"image": np.zeros((n, 1))})
+
+    def steps(torch_, tally, model, data, n, count=True, state_dtype=None):
+        runs.append(("step", data))
+        oom(data)
+        return {"peak": 0}
+
+    monkeypatch.setattr(cs, "kernel_path_run", path_run)
+    monkeypatch.setattr(cs, "train_steps", steps)
+    monkeypatch.setattr(cs, "make_batch", lambda torch_, cfg, n: n)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+
+
+def test_bf16_largest_run_proves_the_next_candidate_runs_out_of_memory(monkeypatch):
+    """The run at the given batch, then one step at the next candidate up: where that step
+    runs out of memory the batch stands; where it runs the run moves up; where the run runs
+    out of memory it moves down, and a batch known to run out of memory is not tried again."""
+    runs = []
+    _fits_below(200, runs, monkeypatch)
+    assert cs.bf16_largest_run(torch, None, "card", "m", 128, {}, {}) == 192
+    assert runs == [("run", 128), ("step", 160), ("run", 160), ("step", 192), ("run", 192),
+                    ("step", 224)]
+    runs.clear()
+    assert cs.bf16_largest_run(torch, None, "card", "m", 256, {}, {}) == 192
+    assert runs == [("run", 256), ("run", 224), ("run", 192)]
+    runs.clear()
+    assert cs.bf16_largest_run(torch, None, "card", "m", 192, {}, {}, prove=False) == 192
+    assert runs == [("run", 192)]
+    runs.clear()
+    _fits_below(4, runs, monkeypatch)
+    with pytest.raises(SystemExit):
+        cs.bf16_largest_run(torch, None, "card", "m", 8, {}, {})

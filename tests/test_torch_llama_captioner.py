@@ -1,7 +1,8 @@
 """The port's Llama captioner adapter (``multimodal_tpu_torch/models/llama_captioner.py``)
 against the JAX package's, on the CPU, over a tiny random local LlamaForCausalLM snapshot (no
-hub access): with JAX's projection carried across, the same soft prefix (atol 1e-6) and the
-same greedy captions; the adapter's own seeded projection deterministic; a missing
+hub access): with JAX's projection carried across, each side's soft prefix within the float32
+dot-product error bound of the float64 product of the same inputs, and the same greedy
+captions; the adapter's own seeded projection deterministic; a missing
 ``transformers`` named by the ``ImportError``."""
 
 import sys
@@ -47,7 +48,25 @@ def test_captions_equal_jax_with_its_projection(llama_snapshot):
     ref = JaxLlamaCaptioner(llama_snapshot, clip_dim=CLIP_DIM, max_new_tokens=8)
     cap = LlamaCaptioner(llama_snapshot, clip_dim=CLIP_DIM, max_new_tokens=8, device="cpu")
     cap.projection = torch.from_numpy(np.array(ref.projection))
-    np.testing.assert_allclose(cap.project(embeds).numpy(), ref.project(embeds), atol=1e-6)
+    # The projection is a float32 dot product of K = CLIP_DIM terms. However its sums are
+    # ordered (one accumulator, blocked, tree or FMA), each computed entry y_j of
+    # sum_i a_i b_ij lies within gamma_K * sum_i |a_i b_ij| of the exact one, where
+    # gamma_K = K u / (1 - K u) and u = 2^-24 is float32's unit roundoff (Higham, "Accuracy and
+    # Stability of Numerical Algorithms", 2nd ed., eq. 3.5). The float64 product of the same
+    # float32 inputs is exact to 2^-53 relative per term, 2^29 times finer, so it stands for the
+    # exact one. Each side is held to that bound, and their difference to the sum of the two.
+    proj = np.asarray(ref.projection, np.float32)
+    exact = (embeds.astype(np.float64) @ proj.astype(np.float64))[:, None, :]
+    u = 2.0 ** -24
+    gamma = CLIP_DIM * u / (1 - CLIP_DIM * u)
+    bound = gamma * (np.abs(embeds).astype(np.float64) @ np.abs(proj).astype(np.float64))
+    bound = bound[:, None, :]
+    got = cap.project(embeds).numpy().astype(np.float64)
+    want = np.asarray(ref.project(embeds)).astype(np.float64)
+    assert got.shape == want.shape == exact.shape
+    assert (np.abs(got - exact) <= bound).all(), np.max(np.abs(got - exact) / bound)
+    assert (np.abs(want - exact) <= bound).all(), np.max(np.abs(want - exact) / bound)
+    assert (np.abs(got - want) <= 2 * bound).all(), np.max(np.abs(got - want) / bound)
     for prompt in ("A photo of", "the"):
         assert cap.generate_caption(embeds, prompt=prompt) == ref.generate_caption(
             embeds, prompt=prompt)

@@ -6,8 +6,9 @@ Weights come from seeded numpy values in the JAX tree (``lora_b`` nonzero), cros
 ``load_jax_params``; inputs are a seeded numpy batch. Tolerances: the model's outputs 2e-4
 (``tests/test_torch_clip.py``'s); gradients and the train step
 ``tests/test_torch_train_step.py``'s (loss and grad norm rtol 1e-5, every gradient leaf atol
-1e-4 x max(1, max|leaf|) and rtol 1e-3, parameters after the step atol 2e-5, rtol 1e-5); a
-merge, which changes only where the float32 sums round, 1e-5.
+1e-4 x max(1, max|leaf|) and rtol 1e-3); the masked step's update held to AdamW's formula in
+float64 from the port's own gradients and moments, at a bound derived from float32 rounding
+(``_assert_adamw_step``); a merge, which changes only where the float32 sums round, 1e-5.
 """
 
 import dataclasses
@@ -150,19 +151,117 @@ def _lora_steps(name):
     return want, got, model, opt, start
 
 
+def _relative(*factors) -> float:
+    """The bound on |prod (1 + d_i) - 1| when each |d_i| <= factors[i]."""
+    return float(np.prod([1.0 + f for f in factors]) - 1.0)
+
+
+def _assert_adamw_step(opt, grads: dict, start: dict, params: dict):
+    """The fused AdamW's first step (count 0 -> 1) held to AdamW's update in float64.
+
+    Inputs, all the port's own: its float32 gradients g, its global norm N, its schedule's
+    float32 lr at count 0, the starting parameters p0. Exact values in float64:
+    s = min(1, clip / N); mu = (1 - b1) s g; nu = (1 - b2) s^2 g^2; c_i = 1 - b_i;
+    p1 = p0 - lr (mu / c1 / (sqrt(nu / c2) + eps) + wd p0) (the decay term where the mask has it).
+
+    Bounds, u = 2^-24, each float32 operation (a scalar's rounding to float32 too) one
+    relative u. The moments against the formula from g: mu takes s's division, g s, the
+    rounding of 1 - b1 and the product, so |mu - mu64| <= ((1 + u)^4 - 1) |mu64| (a division
+    only when s < 1); nu takes g s twice, the square, 1 - b2 and the product: (1 + u)^7 - 1.
+    The parameters against the formula from the port's own moments: c_i = 1 - fl(b_i^t) carries
+    the float32 power's error u (b's rounding) + 2u (one ulp of pow) times b_i^t, amplified by
+    b_i^t / c_i, plus the subtraction's u; mu / c1 and nu / c2 one more u each; the square
+    root halves nu / c2's error and adds u; + eps (its rounding, the add) u each; the quotient
+    u; the decay term's wd rounding and product; the add to it u; times -lr u; the add to p0 u.
+    Errors are composed as products of (1 + d), first differences as the worst case, so the
+    bound holds to every order."""
+    u = 2.0 ** -24
+    b1, b2, eps, wd = opt.beta1, opt.beta2, opt.eps, opt.weight_decay
+    clip = opt.grad_clip_norm
+    norm = float(opt.grad_norm)
+    assert int(opt.count) == 1
+    lr = float(opt.schedule(torch.zeros((), dtype=torch.int32)))
+    scale = 1.0 if clip is None else min(1.0, clip / max(norm, 1e-12))
+    e_s = 0.0 if scale == 1.0 else u
+    th_mu = _relative(e_s, u, u, u)
+    th_nu = _relative(e_s, e_s, u, u, u, u, u)
+    c1, c2 = 1.0 - b1, 1.0 - b2
+    e_c1 = u + _relative(u, 2 * u) * b1 / c1
+    e_c2 = u + _relative(u, 2 * u) * b2 / c2
+    th_a = (1 + u) / (1 - e_c1) - 1
+    th_q = (1 + u) / (1 - e_c2) - 1
+    th_sq = _relative(1 - np.sqrt(1 - th_q), u)
+    th_den = _relative(max(th_sq, u), u)
+    th_r = (1 + th_a) * (1 + u) / (1 - th_den) - 1
+    th_w = _relative(u, u)
+    for n, g32 in grads.items():
+        g = g32.astype(np.float64)
+        mu64, nu64 = c1 * scale * g, c2 * (scale * g) ** 2
+        mu, nu = (opt.mu[n].double().numpy(), opt.nu[n].double().numpy())
+        assert (np.abs(mu - mu64) <= th_mu * np.abs(mu64)).all(), n
+        assert (np.abs(nu - nu64) <= th_nu * nu64).all(), n
+        p0 = start[n].double().numpy()
+        r = (mu / c1) / (np.sqrt(nu / c2) + eps)
+        w = wd * p0 if opt.decay[n] else np.zeros_like(p0)
+        upd = r + w
+        e_upd = (th_r * np.abs(r) + th_w * np.abs(w)
+                 + u * (np.abs(r) + np.abs(w)) * (1 + max(th_r, th_w)))
+        e_step = lr * (e_upd + u * (np.abs(upd) + e_upd))
+        p1 = p0 - lr * upd
+        bound = e_step + u * (np.abs(p1) + e_step)
+        err = np.abs(params[n].detach().double().numpy() - p1)
+        assert (err <= bound).all(), (n, float(np.max(err - bound)))
+
+
+def _assert_optimizer_is_jax(name, opt, trainable: dict):
+    """The port's masked optimizer against JAX's freeze_optimizer over the same config: the
+    schedule's lr at count 0 bit for bit, beta1, beta2, eps, weight decay and clip norm equal,
+    and weight decay on the same trainable leaves (JAX's ``wd_mask`` inside ``optax.masked``)."""
+    import inspect
+
+    from multimodal_tpu.train import make_optimizer as jax_optimizer
+    from multimodal_tpu.train import make_schedule as jax_schedule
+    from multimodal_tpu.train import wd_mask as jax_wd_mask
+    from multimodal_tpu.train.run import _finetune_mask
+
+    lr = np.float32(opt.schedule(torch.zeros((), dtype=torch.int32)))
+    assert lr == np.float32(jax_schedule("cosine", 1e-2, 2, 50)(0))
+    defaults = inspect.signature(jax_optimizer).parameters
+    assert (opt.beta1, opt.beta2, opt.eps) == tuple(
+        defaults[k].default for k in ("beta1", "beta2", "eps"))
+    assert (opt.weight_decay, opt.grad_clip_norm) == (OPT["weight_decay"], OPT["grad_clip_norm"])
+    params = _models(name)[1]
+    keep = _finetune_mask(params, "lora")[1]
+    jax_decayed = jax_params_to_port(jax.tree_util.tree_map(
+        lambda d, k: bool(d and k), jax_wd_mask(params), keep))
+    assert {n for n, v in jax_decayed.items() if v} == {
+        n for n, t in trainable.items() if t and opt.decay[n]}
+    assert {n for n, v in jax_params_to_port(keep).items() if v} == {
+        n for n, t in trainable.items() if t}
+
+
 @pytest.mark.parametrize("name", ["tiny-test", "tiny"])
 def test_masked_lora_step_matches_jax_freeze_optimizer(name):
-    """Loss and grad norm (over the trainable gradients only, as under optax.masked), every
-    parameter after the step; the frozen ones bit for bit unchanged, moments only for the
+    """Loss and grad norm (over the trainable gradients only, as under optax.masked), the
+    trainable gradients against JAX's, every parameter after the step against AdamW's update
+    in float64; the frozen ones bit for bit unchanged, moments only for the
     trainable ones, and no gradient formed for a frozen one."""
-    (want, _, want_params), (got, grads), model, opt, start = _lora_steps(name)
+    (want, want_grads, _), (got, grads), model, opt, start = _lora_steps(name)
     for k in ("loss", "grad_norm", "logit_scale"):
         np.testing.assert_allclose(got[0][k], want[0][k], rtol=1e-5, err_msg=k)
-    want_p = jax_params_to_port(jax.device_get(want_params))
     trainable = finetune_mask(model.named_parameters(), "lora")
+    # The step in two parts. The gradients against JAX's, at the gradient test's limits:
+    # AdamW's first step normalises each gradient element (mu_hat / sqrt(nu_hat) is about
+    # g / (|g| + eps)), so a sum-order difference in a gradient near eps comes out as an
+    # lr-sized difference in the parameter, and the parameters are not compared across the
+    # two sides. Then the update itself, in float64 from the port's own gradients and moments.
+    want_g = jax_params_to_port(jax.device_get(want_grads[0]))
+    assert_grads_close(grads[0], {n: want_g[n] for n in grads[0]})
+    # what the float64 update takes from the port's optimizer is JAX's: the lr at count 0,
+    # the AdamW constants, and the decayed leaves among the trainable ones
+    _assert_optimizer_is_jax(name, opt, trainable)
+    _assert_adamw_step(opt, grads[0], start, dict(model.named_parameters()))
     for n, p in model.named_parameters():
-        np.testing.assert_allclose(p.detach().numpy(), want_p[n], atol=2e-5, rtol=1e-5,
-                                   err_msg=n)
         if not trainable[n]:
             assert torch.equal(p, start[n]) and not p.requires_grad, n
     assert set(opt.mu) == set(opt.nu) == {n for n, t in trainable.items() if t}

@@ -223,3 +223,39 @@ def test_left_out_optimizers_raise(kwargs):
         make_optimizer(params, 1e-3, state_dtype=torch.bfloat16, **kwargs)
     with pytest.raises(ValueError, match="unknown optimizer"):
         make_optimizer(params, 1e-3, opt="sgd")
+
+
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("skip_nonfinite", [True, False])
+def test_update_in_chunks_moves_no_bit(state_dtype, skip_nonfinite, monkeypatch):
+    """The update runs over runs of leaves (``_chunks``) to bound its float32 temporaries: one
+    leaf a chunk, or a chunk splitting the leaves 3 + 1, gives the bits of one chunk over all
+    of them, in parameters and moments, over 4 steps (the poisoned one included)."""
+    from multimodal_tpu_torch.train import optimizer
+
+    def run(chunk):
+        monkeypatch.setattr(optimizer, "UPDATE_CHUNK", chunk)
+        params = {k: torch.nn.Parameter(torch.tensor(v)) for k, v in _leaves().items()}
+        opt = FusedAdamW(params.items(), make_schedule("cosine", 1e-2, 2, 20), weight_decay=0.1,
+                         grad_clip_norm=0.5, state_dtype=getattr(torch, state_dtype),
+                         skip_nonfinite=skip_nonfinite)
+        for step in range(4 if skip_nonfinite else 3):
+            g = _grads(step if skip_nonfinite else 2 * step)
+            for k, p in params.items():
+                p.grad = torch.tensor(g[k])
+            opt.step()
+        return params, opt
+
+    sizes = [np.size(v) for v in _leaves().values()]
+    assert optimizer._chunks([torch.empty(n) for n in sizes]) == [[0, 1, 2, 3]]
+    want_p, want_opt = run(1 << 28)
+    for chunk, runs in ((1, [[0], [1], [2], [3]]), (sum(sizes[:3]), [[0, 1, 2], [3]])):
+        monkeypatch.setattr(optimizer, "UPDATE_CHUNK", chunk)
+        assert optimizer._chunks([torch.empty(n) for n in sizes]) == runs
+        got_p, got_opt = run(chunk)
+        for k in want_p:
+            assert torch.equal(got_p[k], want_p[k]), (chunk, k)
+            assert torch.equal(got_opt.mu[k], want_opt.mu[k]), (chunk, k)
+            assert torch.equal(got_opt.nu[k], want_opt.nu[k]), (chunk, k)
+        assert int(got_opt.count) == int(want_opt.count)
+        assert int(got_opt.notfinite_count) == int(want_opt.notfinite_count)
